@@ -4,29 +4,44 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the port's CUDA kernels from ``localai_tpu_torch/csrc`` (nvcc,
-     sm_90a) and print the build time and the ptxas report;
-  3. kernel: the paged decode attention kernel against its plain PyTorch
-     version at the serving shapes (S=8, Hq=32, Hkv=8, hd=128, bt=64,
-     ragged positions up to 4096, shuffled block tables) in bf16 and f32,
-     plus a sliding-window and an hd=64 case; times for the kernel, the
-     plain version and one library call (scaled_dot_product_attention over
-     K/V gathered beforehand — a yardstick only), and the byte bound;
+  2. build the port's CUDA kernels from ``localai_tpu_torch/csrc`` (one
+     nvcc per source, sm_90a, all started together) and print the build
+     time and the ptxas report;
+  3. kernels, each against its plain PyTorch version on the same inputs:
+     - K1 paged decode attention at the serving shapes (S=8, Hq=32, Hkv=8,
+       hd=128, bt=64, ragged positions up to 4096, shuffled block tables)
+       on bf16 and f32 pools and on scaled int8 and int4 pools built by
+       the port's quantizers, plus sliding-window and hd=64 cases; times
+       for the kernel, the plain version and one library call
+       (scaled_dot_product_attention over K/V gathered and dequantized
+       beforehand — a yardstick only), and the byte bound;
+     - K4 w8_matmul and K5 w4_matmul at Llama-3-8B's decode shapes (M=8
+       rows against each projection and the lm_head), the tied lm_head
+       orientation of debug:1b ([128256, 2048] table, K4 only) and the
+       edges M=1 and M=256, in bf16 and f32; times for the kernel, the
+       plain version and one library call (torch.matmul against the
+       weight dequantized beforehand — it streams twice the int8 bytes),
+       and the byte bound;
   4. parity: the port's runner on the card and on the CPU give identical
-     greedy tokens (debug:small, float32);
+     greedy tokens (debug:small, float32) with float weights and pool,
+     with int8 weights and pool, and with int4 weights and pool;
   5. serving: the port's HTTP server serves debug:llama3-8b (Llama-3-8B
-     widths and depth, random weights from a seed) in bf16 with the paged
-     bf16 pool, and answers concurrent chat completions, one streaming;
-     the kernel's launch count must cover every layer of every decode step.
+     widths and depth, random weights from a seed) in bf16 three times —
+     bf16 weights and pool, int8 weights and pool, int4 weights and pool
+     — answering concurrent chat completions, one streaming. The paged
+     attention kernel's launches must cover every layer of every decode
+     step, and the w8/w4 kernel's every projection of every layer plus
+     the lm_head.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
-serving shape after phase 5.
+serving shape after each serving phase.
 Exits non-zero without a result when no CUDA device is visible.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -38,13 +53,19 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# float32: absolute; bfloat16: per slot, relative to that slot's largest
-# output (the output's bf16 rounding is at most 2**-8 of it), so a
-# long-context slot, whose outputs are small, is held as tightly as a
-# short one
+# float32: absolute; bfloat16: per slot (per row for the matmuls),
+# relative to that slot's largest output (the output's bf16 rounding is at
+# most 2**-8 of it), so a long-context slot, whose outputs are small, is
+# held as tightly as a short one
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 L2_FLUSH_BYTES = 128 << 20          # > the 50 MB L2: every timed launch
                                     # finds K/V cold, as a decode layer does
+L_8B = 32
+# Llama-3-8B decode matmuls: (K, N) of each projection and how many of it
+# one layer runs, then the untied lm_head once per step
+SHAPES_8B = {"wq/wo": ((4096, 4096), 2), "wk/wv": ((4096, 1024), 2),
+             "w_gate/w_up": ((4096, 14336), 2), "w_down": ((14336, 4096), 1),
+             "lm_head": ((4096, 128256), 0)}
 
 
 def nvidia_smi_line() -> str:
@@ -75,9 +96,21 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return ms[len(ms) // 2]
 
 
+def _bound(nbytes: int, flops: int, dtype) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 def kernel_case(name, dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
                 positions=(4095, 3001, 2048, 2047, 1000, 640, 64, 63),
-                window=None, seed=0, timed=False):
+                window=None, pool="", seed=0, timed=False):
+    """K1 on a pool of ``dtype`` (pool "") or a scaled int8/int4 pool
+    (``dtype`` is then q's)."""
+    from localai_tpu_torch.engine.kvcache import _gather_dequant
+    from localai_tpu_torch.models import quant as tq
     from localai_tpu_torch.ops.attention import (
         gather_blocks,
         paged_decode_attention,
@@ -88,16 +121,28 @@ def kernel_case(name, dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
     N = S * MB + 1
     dev = "cuda"
     q = torch.randn((S, Hq, hd), generator=g, device=dev).to(dtype)
-    k = torch.randn((N, Hkv, bt, hd), generator=g, device=dev).to(dtype)
-    v = torch.randn((N, Hkv, bt, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((N, Hkv, bt, hd), generator=g, device=dev)
+    v = torch.randn((N, Hkv, bt, hd), generator=g, device=dev)
     # shuffled physical blocks: block 0 (trash) never mapped
     tables = (torch.randperm(N - 1, generator=g, device=dev) + 1).to(
         torch.int32).reshape(S, MB)
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
-    out = paged_decode_attention(q, k, v, tables, pos, sliding_window=window)
+    if pool:
+        quantize = (tq.quantize_lastdim4 if pool == "int4"
+                    else tq.quantize_lastdim)
+        k, ks = quantize(k)
+        v, vs = quantize(v)
+        scales = (ks, vs)
+        ref_kv = (k, v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+        scales = ()
+        ref_kv = (k.float(), v.float())
+    out = paged_decode_attention(q, k, v, tables, pos, *scales,
+                                 sliding_window=window)
     torch.cuda.synchronize()
-    ref = paged_decode_attention_ref(q.float(), k.float(), v.float(), tables,
-                                     pos, sliding_window=window)
+    ref = paged_decode_attention_ref(q.float(), *ref_kv, tables, pos, *scales,
+                                     sliding_window=window)
     slot_err = (out.float() - ref).abs().flatten(1).amax(1)
     if dtype == torch.bfloat16:
         slot_tol = TOL[dtype] * ref.abs().flatten(1).amax(1)
@@ -106,26 +151,32 @@ def kernel_case(name, dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
     err = slot_err.max().item()
     ok = bool((slot_err <= slot_tol).all())
     rec = {"case": name, "dtype": str(dtype).replace("torch.", ""),
+           "pool": pool or str(dtype).replace("torch.", ""),
            "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd, "bt": bt, "MB": MB,
            "window": window, "max_abs_err": err,
            "slot_err": slot_err.tolist(), "slot_tol": slot_tol.tolist()}
     if timed:
-        # bytes each call must move: the live K/V blocks of every slot
-        # (from the window's first block to the one holding pos), q, out,
-        # the tables and positions; operations: 2 products of 2 flops
+        # bytes each call must move: the live K/V rows of every slot (from
+        # the window's first block to the one holding pos) with their
+        # scales, q, out, the tables and positions; operations: 2 products
+        # of 2 flops
         elem = q.element_size()
+        row = {"int8": hd + 4, "int4": hd // 2 + 4}.get(pool, hd * elem)
         live = 0
         for p in positions:
             nb = min(p // bt + 1, MB)
             lo = max((p - window + 1) // bt, 0) if window else 0
             live += (nb - lo) * bt
-        nbytes = (2 * live * Hkv * hd * elem + 2 * S * Hq * hd * elem
+        nbytes = (2 * live * Hkv * row + 2 * S * Hq * hd * elem
                   + S * MB * 4 + S * 4)
         flops = 4 * live * Hq * hd
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        keys = gather_blocks(k, tables)
-        values = gather_blocks(v, tables)
+        if pool:
+            int4 = pool == "int4"
+            keys = _gather_dequant(k, ks, tables, dtype, int4)
+            values = _gather_dequant(v, vs, tables, dtype, int4)
+        else:
+            keys = gather_blocks(k, tables)
+            values = gather_blocks(v, tables)
         idx = torch.arange(MB * bt, device=dev)
         keep = (idx[None, :] <= pos[:, None].long())
         if window:
@@ -146,13 +197,10 @@ def kernel_case(name, dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
 
         rec.update(
             ms=time_ms(lambda: paged_decode_attention(
-                q, k, v, tables, pos, sliding_window=window)),
+                q, k, v, tables, pos, *scales, sliding_window=window)),
             plain_ms=time_ms(lambda: paged_decode_attention_ref(
-                q, k, v, tables, pos, sliding_window=window)),
-            library_ms=time_ms(library),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=nbytes, flops=flops)
+                q, k, v, tables, pos, *scales, sliding_window=window)),
+            library_ms=time_ms(library), **_bound(nbytes, flops, dtype))
     print("kernel case", json.dumps(rec), flush=True)
     if not ok:
         raise AssertionError(f"kernel case {name}: per-slot errors "
@@ -162,42 +210,200 @@ def kernel_case(name, dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
 
 
 def phase_kernel() -> dict:
-    main = kernel_case("main-bf16", torch.bfloat16, timed=True)
-    kernel_case("main-f32", torch.float32, timed=True)
+    """K1 cases; returns the timed ones by pool."""
+    cases = {
+        "bf16": kernel_case("main-bf16", torch.bfloat16, timed=True),
+        "f32": kernel_case("main-f32", torch.float32, timed=True),
+        "int8": kernel_case("main-int8", torch.bfloat16, pool="int8",
+                            timed=True, seed=4),
+        "int4": kernel_case("main-int4", torch.bfloat16, pool="int4",
+                            timed=True, seed=5),
+    }
     kernel_case("window-bf16", torch.bfloat16, window=700, seed=1)
     kernel_case("hd64-bf16", torch.bfloat16, Hq=16, Hkv=4, hd=64, seed=2)
     kernel_case("hd64-f32-g8", torch.float32, Hq=32, Hkv=4, hd=64, seed=3)
+    for pool in ("int8", "int4"):
+        kernel_case(f"window-{pool}", torch.bfloat16, pool=pool, window=700,
+                    seed=6)
+        kernel_case(f"main-{pool}-f32q", torch.float32, pool=pool, seed=7)
+        kernel_case(f"hd64-{pool}", torch.bfloat16, pool=pool, Hq=16, Hkv=4,
+                    hd=64, seed=8)
+    return cases
+
+
+def qmm_case(kind, dtype, M, K, N, *, transpose=False, seed=0,
+             timed=True) -> dict:
+    """K4 (kind "w8") or K5 ("w4") on x [M, K] against a weight [K, N]
+    (``transpose``: a [N, K] table, K4 only) quantized from a seeded
+    normal draw by the port's own quantizers."""
+    from localai_tpu_torch.models import quant as tq
+    from localai_tpu_torch.ops import qmatmul as tqm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((N, K) if transpose else (K, N), generator=g,
+                    device="cuda") * 0.02
+    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    if kind == "w8":
+        qt = tq.quantize_tensor(w, 1 if transpose else 0)
+
+        def kernel():
+            return tqm.w8_matmul(x, qt.q, qt.scale, transpose_w=transpose)
+
+        def plain(xx):
+            return tqm.w8_matmul_ref(xx, qt.q, qt.scale, transpose)
+
+        wbytes = K * N + 4 * N
+    else:
+        qt = tq.quantize_tensor4(w, 0)
+
+        def kernel():
+            return tqm.w4_matmul(x, qt.q, qt.scale)
+
+        def plain(xx):
+            return tqm.w4_matmul_ref(xx, qt.q, qt.scale)
+
+        wbytes = K * N // 2 + qt.scale.numel() * 4
+    del w
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain(x.float())
+    err = (out.float() - ref).abs()
+    if dtype == torch.bfloat16:
+        tol = TOL[dtype] * ref.abs().amax(1, keepdim=True)
+        ok = bool((err <= tol).all())
+    else:
+        ok = float(err.max()) <= TOL[dtype] * float(ref.abs().max())
+    name = "w8_matmul" if kind == "w8" else "w4_matmul"
+    rec = {"case": f"{name}{'-T' if transpose else ''}",
+           "dtype": str(dtype).replace("torch.", ""), "M": M, "K": K,
+           "N": N, "transpose_w": transpose, "group": qt.group,
+           "max_abs_err": float(err.max()),
+           "max_ref": float(ref.abs().max())}
+    del ref, err
+    if timed:
+        elem = x.element_size()
+        nbytes = wbytes + M * K * elem + M * N * elem
+        w_lib = tq.dequantize_tensor(qt, dtype)  # beforehand: a yardstick
+        if transpose:
+            w_lib = w_lib.T
+        rec.update(ms=time_ms(kernel),
+                   plain_ms=time_ms(lambda: plain(x), iters=5, warmup=1),
+                   library_ms=time_ms(lambda: torch.matmul(x, w_lib)),
+                   **_bound(nbytes, 2 * M * K * N, dtype))
+        del w_lib
+        if kind == "w8":
+            rec["int8pack_ms"] = _int8pack_ms(x, qt, transpose)
+    print("kernel case", json.dumps(rec), flush=True)
+    if not ok:
+        raise AssertionError(f"kernel case {rec['case']} {rec['dtype']} "
+                             f"M={M} K={K} N={N}: error {rec['max_abs_err']}")
+    return rec
+
+
+def _int8pack_ms(x, qt, transpose):
+    """torch._weight_int8pack_mm (x @ w.T * scale with an int8 [N, K]
+    weight) where this torch has it for CUDA; else the reason it has not."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return "torch has no _weight_int8pack_mm"
+    w_nk = (qt.q if transpose else qt.q.T).contiguous()
+    scale = qt.scale.to(x.dtype)
+    try:
+        fn(x, w_nk, scale)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return f"no CUDA _weight_int8pack_mm: {str(e).splitlines()[0][:120]}"
+    return time_ms(lambda: fn(x, w_nk, scale))
+
+
+def phase_qmatmul() -> dict:
+    """K4/K5 cases; returns the bf16 M=8 8B records by kind and shape."""
+    main: dict = {"w8": {}, "w4": {}}
+    seed = 10
+    for kind in ("w8", "w4"):
+        for dtype in (torch.bfloat16, torch.float32):
+            for label, ((K, N), _) in SHAPES_8B.items():
+                seed += 1
+                rec = qmm_case(kind, dtype, 8, K, N, seed=seed)
+                if dtype == torch.bfloat16:
+                    main[kind][label] = rec
+            for M in (1, 256):
+                seed += 1
+                qmm_case(kind, dtype, M, 4096, 4096, seed=seed)
+    for dtype in (torch.bfloat16, torch.float32):
+        seed += 1
+        main["w8"]["tied-lm_head-1b" if dtype == torch.bfloat16
+                   else "tied-f32"] = qmm_case(
+            "w8", dtype, 8, 2048, 128256, transpose=True, seed=seed)
+    for kind in ("w8", "w4"):
+        count = {s: (c * L_8B if c else 1) for s, (_, c) in SHAPES_8B.items()}
+        step = {f: sum(main[kind][s][f] * n for s, n in count.items())
+                for f in ("ms", "bound_ms", "library_ms")}
+        print(f"{kind} decode-step matmuls at 8B (bf16, M=8; 7 projections "
+              f"x {L_8B} layers + lm_head, from the cases above): "
+              + json.dumps(step), flush=True)
     return main
 
 
-def phase_parity() -> None:
+def _to(params, dev):
+    """A parameter tree (tensors and QuantizedTensors) on ``dev``."""
+    if isinstance(params, dict):
+        return {k: _to(v, dev) for k, v in params.items()}
+    return params.to(dev)
+
+
+def phase_parity() -> int:
+    """cuda/cpu greedy parity; returns the paged kernel's launches in the
+    float32 run on the card (its f32 pool's run through the runner)."""
     from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models.quant import quantize_params
     from localai_tpu_torch.models.registry import resolve_model
+    from localai_tpu_torch.ops.attention import paged_decode_attention
+    from localai_tpu_torch.ops.qmatmul import w4_matmul, w8_matmul
 
     model = resolve_model("debug:small", dtype="float32", device="cpu")
     prompts = [list(b"The paged kernel walks each block table"), list(b"hi")]
-    seqs = {}
-    for dev in ("cuda", "cpu"):
-        params = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
-                      if isinstance(v, dict) else v.to(dev))
-                  for k, v in model.params.items()}
-        r = ModelRunner(model.cfg, params, num_slots=4, max_ctx=256,
-                        kv_dtype="float32", kv_block_tokens=16,
-                        prefill_chunk=32, device=dev)
-        out = []
-        slots = []
-        for p in prompts:
-            s = r.acquire_slot()
-            out.append([r.admit(s, p, temperature=0.0)])
-            slots.append(s)
-        for _ in range(16):
-            toks = r.step()
-            for o, s in zip(out, slots):
-                o.append(int(toks[s]))
-        seqs[dev] = out
-        print(f"parity {dev} ({r.paged_attn_impl}): {out}", flush=True)
-    if seqs["cuda"] != seqs["cpu"]:
-        raise AssertionError("greedy tokens differ between cuda and cpu")
+    f32_launches = 0
+    for mode in ("", "int8", "int4"):
+        params = (quantize_params(model.params, mode, device="cpu") if mode
+                  else model.params)
+        seqs = {}
+        for dev in ("cuda", "cpu"):
+            r = ModelRunner(model.cfg, _to(params, dev), num_slots=4,
+                            max_ctx=256, kv_dtype=mode or "float32",
+                            kv_block_tokens=16, prefill_chunk=32, device=dev)
+            paged_decode_attention.launches = 0
+            w8_matmul.launches = w4_matmul.launches = 0
+            out = []
+            slots = []
+            for p in prompts:
+                s = r.acquire_slot()
+                out.append([r.admit(s, p, temperature=0.0)])
+                slots.append(s)
+            for _ in range(16):
+                toks = r.step()
+                for o, s in zip(out, slots):
+                    o.append(int(toks[s]))
+            seqs[dev] = out
+            counts = {"paged_decode_attention":
+                      paged_decode_attention.launches,
+                      "w8_matmul": w8_matmul.launches,
+                      "w4_matmul": w4_matmul.launches}
+            print(f"parity {mode or 'float'} {dev} ({r.paged_attn_impl}): "
+                  f"{out} launches {json.dumps(counts)}", flush=True)
+            if dev == "cuda":
+                if counts["paged_decode_attention"] <= 0:
+                    raise AssertionError("parity: no paged kernel launch")
+                qk = {"int8": "w8_matmul", "int4": "w4_matmul"}.get(mode)
+                if qk and counts[qk] <= 0:
+                    raise AssertionError(f"parity: no {qk} launch")
+                if not mode:
+                    f32_launches = counts["paged_decode_attention"]
+            del r
+        if seqs["cuda"] != seqs["cpu"]:
+            raise AssertionError(
+                f"greedy tokens differ between cuda and cpu ({mode or 'float'})")
+    return f32_launches
 
 
 def _post(url: str, body: dict, timeout: float = 600):
@@ -206,30 +412,38 @@ def _post(url: str, body: dict, timeout: float = 600):
     return urllib.request.urlopen(req, timeout=timeout)
 
 
-def phase_serve(card: str):
+def phase_serve(card: str, quant: str = "", profile: bool = False) -> dict:
+    """Serve debug:llama3-8b over HTTP with bf16 weights and pool, or with
+    ``quant`` ("int8"/"int4") weights and pool; returns the launch counts
+    of the run."""
     from localai_tpu_torch.api.server import APIServer
     from localai_tpu_torch.config.app_config import AppConfig
     from localai_tpu_torch.config.loader import ConfigLoader
     from localai_tpu_torch.config.model_config import ModelConfig
     from localai_tpu_torch.models.manager import ModelManager
     from localai_tpu_torch.ops.attention import paged_decode_attention
+    from localai_tpu_torch.ops.qmatmul import w4_matmul, w8_matmul
 
-    name = "llama3-8b"
+    name = f"llama3-8b-{quant or 'bf16'}"
+    engine = {"dtype": "bfloat16", "kv_dtype": quant or "bfloat16",
+              "max_slots": 8, "kv_block_tokens": 64, "spec": False}
+    if quant:
+        engine["quantization"] = quant
     mcfg = ModelConfig.from_dict({
         "name": name, "model": "debug:llama3-8b", "context_size": 4096,
-        "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
-                   "max_slots": 8, "kv_block_tokens": 64, "spec": False},
+        "engine": engine,
     })
     mcfg.set_defaults()
     loader = ConfigLoader()
     loader.register(mcfg)
     manager = ModelManager(AppConfig(device="cuda"), loader)
     server = APIServer(manager, "127.0.0.1", 0).start()
+    sm = None
     try:
         t0 = time.monotonic()
         sm = manager.get(name)
         torch.cuda.synchronize()
-        print(f"serve: loaded {name} (L={sm.runner.cfg.num_layers}, "
+        print(f"serve {name}: loaded (L={sm.runner.cfg.num_layers}, "
               f"D={sm.runner.cfg.hidden_size}) in "
               f"{time.monotonic() - t0:.1f}s", flush=True)
         chat = server.url + "/v1/chat/completions"
@@ -276,6 +490,7 @@ def phase_serve(card: str):
                 errors.append(e)
 
         paged_decode_attention.launches = 0
+        w8_matmul.launches = w4_matmul.launches = 0
         steps0 = sm.runner.decode_steps
         t0 = time.monotonic()
         threads = [threading.Thread(target=plain, args=(i,))
@@ -286,7 +501,9 @@ def phase_serve(card: str):
         for t in threads:
             t.join()
         wall = time.monotonic() - t0
-        launches = paged_decode_attention.launches
+        launches = {"paged_decode_attention": paged_decode_attention.launches,
+                    "w8_matmul": w8_matmul.launches,
+                    "w4_matmul": w4_matmul.launches}
         steps = sm.runner.decode_steps - steps0
         if errors:
             raise errors[0]
@@ -301,9 +518,18 @@ def phase_serve(card: str):
             raise AssertionError("the streaming request returned no tokens")
         ntok += su
         L = sm.runner.cfg.num_layers
-        if steps <= 0 or launches < L * steps:
+        k1 = launches["paged_decode_attention"]
+        if steps <= 0 or k1 < L * steps:
             raise AssertionError(
-                f"kernel launches {launches} < {L} layers x {steps} steps")
+                f"{name}: paged kernel launches {k1} < {L} layers x "
+                f"{steps} steps")
+        if quant:
+            qk = "w8_matmul" if quant == "int8" else "w4_matmul"
+            if launches[qk] < (7 * L + 1) * steps:
+                raise AssertionError(
+                    f"{name}: {qk} launches {launches[qk]} < (7 x {L} + 1) "
+                    f"x {steps} steps: an eligible decode matmul skipped "
+                    "the kernel")
         again = json.loads(_post(chat, body(0)).read())
         if (again["choices"][0]["message"]["content"]
                 != results[0]["choices"][0]["message"]["content"]):
@@ -313,16 +539,25 @@ def phase_serve(card: str):
         if bad:
             raise AssertionError(f"JAX-side modules imported: {bad[:5]}")
         print("serve: " + json.dumps({
-            "card": card, "model": name, "requests": 5, "streaming": 1,
+            "card": card, "model": name, "weights": quant or "bfloat16",
+            "kv_dtype": quant or "bfloat16", "requests": 5, "streaming": 1,
             "completion_tokens": ntok, "wall_s": wall,
             "tokens_per_s": ntok / wall, "ttft_stream_s": results[4]["ttft_s"],
             "decode_steps": steps, "kernel_launches": launches,
             "max_memory_allocated_gb":
                 torch.cuda.max_memory_allocated() / 1e9,
         }), flush=True)
-        return launches, sm
+        if profile:
+            phase_profile(sm)
+        return launches
     finally:
+        # free this model before the next phase builds its own, so peak
+        # memory is one model's
         server.shutdown()
+        manager.shutdown()
+        sm = manager = server = None
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16) -> None:
@@ -362,9 +597,11 @@ def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16) -> None:
                    if any(x in k.lower() for x in subs))
 
     attn = share("paged_decode_kernel")
+    qmm = share("w8_kn_kernel", "w8_nk_kernel", "w4_kernel")
     gemm = share("gemm", "nvjet", "xmma", "cutlass", "cublas")
     print("profile: " + json.dumps({
-        "ctx_tokens": ctx_tokens, "slots": r.num_slots, "steps": steps,
+        "kv_dtype": r.kv_dtype, "ctx_tokens": ctx_tokens,
+        "slots": r.num_slots, "steps": steps,
         "wall_ms_per_step": wall_plain * 1e3,
         "wall_ms_per_step_profiled": wall_prof * 1e3,
         "device_busy_ms_per_step": busy,
@@ -375,14 +612,40 @@ def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16) -> None:
         "device_idle_share_vs_plain_wall": max(
             0.0, 1 - busy / (wall_plain * 1e3)),
         "attention_kernel_ms_per_step": attn,
+        "w8_w4_kernel_ms_per_step": qmm,
         "gemm_ms_per_step": gemm,
-        "other_ms_per_step": busy - attn - gemm,
+        "other_ms_per_step": busy - attn - qmm - gemm,
         "launches_per_step": sum(
             e.count for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA) / steps,
     }), flush=True)
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
         print(f"profile kernel: {v:9.4f} ms/step  {k[:110]}")
+    # where the host's time goes: Python functions by own time (cProfile
+    # inflates every call, so read the shares, not the absolute times)
+    import cProfile
+    import pstats
+
+    prof_py = cProfile.Profile()
+    prof_py.enable()
+    r.step_n(steps)
+    torch.cuda.synchronize()
+    prof_py.disable()
+    st = pstats.Stats(prof_py)
+    total = sum(v[2] for v in st.stats.values())
+    for (fname, line, func), v in sorted(st.stats.items(),
+                                         key=lambda kv: -kv[1][2])[:12]:
+        print(f"profile host: {v[2] / total:6.1%} own time, "
+              f"{v[1] / steps:7.1f} calls/step  "
+              f"{fname.split('/')[-1]}:{line}({func})")
+
+
+def _entry(name, source, replaces, launches, rec) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
 
 
 def main() -> int:
@@ -400,26 +663,38 @@ def main() -> int:
           flush=True)
     t0 = time.monotonic()
     _build.build_all()
-    print(f"build: {time.monotonic() - t0:.1f}s", flush=True)
-    for line in _build.build_log("paged_decode_attention").splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip())
-    main_case = phase_kernel()
-    phase_parity()
-    launches, sm = phase_serve(card)
-    if "--profile" in sys.argv[1:]:
-        phase_profile(sm)
-    k1 = {
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "localai_tpu_torch/csrc/paged_decode_attention.cu",
-        "replaces": "localai_tpu/ops/attention.py:458",
-        "launches": launches, "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }
-    print(json.dumps({"kernels": [k1]}))
+    print(f"build: {time.monotonic() - t0:.1f}s ({', '.join(_build.SOURCES)})",
+          flush=True)
+    for src in _build.SOURCES:
+        for line in _build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {src}:", line.strip())
+    k1 = phase_kernel()
+    qmm = phase_qmatmul()
+    f32_launches = phase_parity()
+    profile = "--profile" in sys.argv[1:]
+    served = {q: phase_serve(card, q, profile=profile)
+              for q in ("", "int8", "int4")}
+    src = "localai_tpu_torch/csrc/"
+    k1_src = src + "paged_decode_attention.cu"
+    k1_tpu = "localai_tpu/ops/attention.py:458"
+    kernels = [
+        _entry("paged_decode_attention", k1_src, k1_tpu,
+               served[""]["paged_decode_attention"], k1["bf16"]),
+        _entry("paged_decode_attention_f32", k1_src, k1_tpu, f32_launches,
+               k1["f32"]),
+        _entry("paged_decode_attention_int8", k1_src, k1_tpu,
+               served["int8"]["paged_decode_attention"], k1["int8"]),
+        _entry("paged_decode_attention_int4", k1_src, k1_tpu,
+               served["int4"]["paged_decode_attention"], k1["int4"]),
+        _entry("w8_matmul", src + "w8_matmul.cu",
+               "localai_tpu/ops/qmatmul.py:67",
+               served["int8"]["w8_matmul"], qmm["w8"]["w_gate/w_up"]),
+        _entry("w4_matmul", src + "w4_matmul.cu",
+               "localai_tpu/ops/qmatmul.py:135",
+               served["int4"]["w4_matmul"], qmm["w4"]["w_gate/w_up"]),
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,14 +4,19 @@ Port of the fields of ``localai_tpu/config/model_config.py`` that this
 slice reads (the JAX package validates with pydantic, which the port's
 runtime does not depend on). Unknown keys are ignored; keys that would ask
 for a feature the port does not have yet — Go/Jinja prompt templates,
-quantized weights, speculative decoding — raise a clear error at load
-instead of serving something else than was asked for.
+``int8_w8a8`` quantization, speculative decoding — raise a clear error at
+load instead of serving something else than was asked for. int8 and int4
+weights (``engine.quantization``) and int8/int4 KV pools
+(``engine.kv_dtype``) are served.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+
+KV_DTYPES = ("bfloat16", "float32", "int8", "int4")
 
 
 def _pick(cls, data: Optional[dict]) -> dict:
@@ -72,11 +77,11 @@ class EngineConfig:
 
     max_slots: int = 8                 # concurrent decode slots
     dtype: str = "bfloat16"            # compute/weight dtype
-    kv_dtype: str = "bfloat16"         # KV pool dtype: bfloat16/float32
+    kv_dtype: str = "bfloat16"         # KV pool: bfloat16/float32/int8/int4
     decode_steps_per_dispatch: int = 16
     kv_block_tokens: Optional[int] = None   # default 64
     prefill_chunk: Optional[int] = None     # default 512
-    quantization: Optional[str] = None  # refused: not ported yet
+    quantization: Optional[str] = None  # weights: int8 | int4
     spec: Optional[bool] = None         # refused when true: not ported yet
     draft_model: Optional[str] = None   # refused: not ported yet
 
@@ -122,10 +127,16 @@ class ModelConfig:
                 f"model {self.name or self.model!r}: prompt templates "
                 f"({', '.join(named)}) are not supported by the PyTorch "
                 "port yet; remove them to use the role-prefix chat format")
-        if self.engine.quantization:
+        quant = self.engine.quantization
+        if quant and quant not in ("int8", "int4"):
             raise ValueError(
-                f"model {self.name or self.model!r}: quantization "
-                f"{self.engine.quantization!r} is not ported yet")
+                f"model {self.name or self.model!r}: quantization {quant!r} "
+                "is not supported by the PyTorch port (it serves int8 and "
+                "int4 weights; int8_w8a8 is not ported yet)")
+        if self.engine.kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"model {self.name or self.model!r}: kv_dtype "
+                f"{self.engine.kv_dtype!r} is not one of {KV_DTYPES}")
         if self.engine.spec or self.engine.draft_model:
             raise ValueError(
                 f"model {self.name or self.model!r}: speculative decoding "

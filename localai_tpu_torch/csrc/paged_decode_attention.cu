@@ -2,16 +2,29 @@
 //
 // Replaces the Pallas TPU kernel localai_tpu/ops/attention.py::
 // paged_decode_attention (kernel _paged_decode_kernel, loop _flash_loop)
-// for bf16 and f32 block pools. Same math: q is pre-scaled by hd^-0.5 in
-// f32; slot s walks its block table from lo to nb = min(pos/bt + 1, MB)
-// (lo skips blocks wholly below a sliding window); each physical block is
-// one online-softmax step over bt positions masked by idx <= pos and
-// idx > pos - window with a -1e30 fill; the result is acc / max(l, 1e-30).
+// for bf16 and f32 block pools and for scaled int8 and int4 pools. Same
+// math: q is pre-scaled by hd^-0.5 in f32; slot s walks its block table
+// from lo to nb = min(pos/bt + 1, MB) (lo skips blocks wholly below a
+// sliding window); each physical block is one online-softmax step over bt
+// positions masked by idx <= pos and idx > pos - window with a -1e30
+// fill; the result is acc / max(l, 1e-30).
+//
+// Quantized pools (q and out stay bf16/f32): int8 [N, Hkv, bt, hd], or
+// int4 nibble-packed [N, Hkv, bt, hd/2] in the halves layout (byte i of a
+// row holds element i in its low nibble and element i + hd/2 in its high
+// nibble), each with f32 scales [N, Hkv, bt] for K and for V. The scales
+// are applied the way _flash_loop applies them, not by dequantizing the
+// tiles: the K scale multiplies the score columns (q.(k*s) = (q.k)*s),
+// the V scale multiplies the probability columns after the denominator
+// took the raw probabilities (p@(v*s) = (p*s)@v). The block's [bt] scale
+// rows ride the same cp.async stage as its K/V tile; int4 nibbles are
+// unpacked in registers as the tile is read.
 //
 // Bound: decode attention moves each live K/V row once and does ~4*g
 // flops per element it reads (g = Hq/Hkv query rows share a KV head), far
 // below the card's ~295 flop/byte ridge — it is bound by device-memory
-// bytes: (live K/V blocks + q + out) / 3.35 TB/s.
+// bytes: (live K/V blocks and their scales + q + out) / 3.35 TB/s. An
+// int8 pool halves the bf16 bytes, an int4 pool quarters them.
 //
 // Design for that bound, kept simple for a first version:
 //   * one CUDA block per (slot, kv-head), so the g query rows of a GQA
@@ -28,33 +41,15 @@
 // Plain C interface (bound with ctypes); launches on the caller's stream
 // and returns cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
+using localai::from_f32;
+using localai::to_f32;
+
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxSmem = 232448;  // H100 opt-in shared memory per block
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -69,28 +64,62 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Shared-memory bytes for one block: two stages of K and V tiles, the
-// pre-scaled q rows, the score/probability tile and per-row statistics.
-template <typename T, int HD, int G>
+// Pool storage: P = 0 holds T (the compute dtype), P = 1 scaled int8,
+// P = 2 scaled int4 (halves layout).
+template <typename T, int P, int HD>
+struct Pool {
+  static constexpr int kRowBytes =
+      P == 0 ? HD * (int)sizeof(T) : (P == 1 ? HD : HD / 2);
+
+  // element d of row j of a staged tile, as f32 (unscaled)
+  __device__ static __forceinline__ float load(const unsigned char* tile,
+                                               int j, int d) {
+    if constexpr (P == 0) {
+      return to_f32(reinterpret_cast<const T*>(tile)[j * HD + d]);
+    } else if constexpr (P == 1) {
+      return static_cast<float>(
+          reinterpret_cast<const int8_t*>(tile)[j * HD + d]);
+    } else {
+      constexpr int kHalf = HD / 2;
+      const bool hi = d >= kHalf;
+      const int b = reinterpret_cast<const int8_t*>(
+          tile)[j * kHalf + (hi ? d - kHalf : d)];
+      return static_cast<float>(
+          hi ? b >> 4 : static_cast<int>(static_cast<unsigned>(b) << 28) >> 28);
+    }
+  }
+};
+
+// Shared-memory bytes for one block: two stages of K and V tiles (and of
+// their scale rows for a quantized pool), the pre-scaled q rows, the
+// score/probability tile and per-row statistics.
+template <typename T, int P, int HD, int G>
 __host__ __device__ constexpr size_t smem_bytes(int bt) {
-  return 4 * (size_t)bt * HD * sizeof(T) + (size_t)G * HD * 4 +
+  return 4 * (size_t)bt * Pool<T, P, HD>::kRowBytes +
+         (P ? 4 * (size_t)bt * 4 : 0) + (size_t)G * HD * 4 +
          (size_t)G * bt * 4 + 3 * (size_t)G * 4;
 }
 
-template <typename T, int HD, int G>
+template <typename T, int P, int HD, int G>
 __global__ void __launch_bounds__(HD) paged_decode_kernel(
     const T* __restrict__ q,             // [S, Hq, HD]
-    const T* __restrict__ k_pool,        // [N, Hkv, bt, HD]
-    const T* __restrict__ v_pool,        // [N, Hkv, bt, HD]
+    const void* __restrict__ k_pool,     // [N, Hkv, bt, row] (row: Pool)
+    const void* __restrict__ v_pool,     // [N, Hkv, bt, row]
+    const float* __restrict__ k_scale,   // [N, Hkv, bt] (P != 0)
+    const float* __restrict__ v_scale,   // [N, Hkv, bt] (P != 0)
     const int* __restrict__ tables,      // [S, MB]
     const int* __restrict__ positions,   // [S]
     T* __restrict__ out,                 // [S, Hq, HD]
     int Hkv, int bt, int MB, int window, float sm_scale) {
+  using Tile = Pool<T, P, HD>;
   constexpr int kWarps = HD / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* kbuf = reinterpret_cast<T*>(smem_raw);             // [2][bt][HD]
-  T* vbuf = kbuf + 2 * bt * HD;                         // [2][bt][HD]
-  float* qs = reinterpret_cast<float*>(vbuf + 2 * bt * HD);  // [G][HD]
+  const int tile = bt * Tile::kRowBytes;                // bytes
+  unsigned char* kbuf = smem_raw;                       // [2][tile]
+  unsigned char* vbuf = kbuf + 2 * tile;                // [2][tile]
+  float* ksb = reinterpret_cast<float*>(vbuf + 2 * tile);  // [2][bt]
+  float* vsb = ksb + (P ? 2 * bt : 0);                  // [2][bt]
+  float* qs = vsb + (P ? 2 * bt : 0);                   // [G][HD]
   float* ps = qs + G * HD;                              // [G][bt]
   float* row_m = ps + G * bt;                           // [G]
   float* row_l = row_m + G;                             // [G]
@@ -118,18 +147,25 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
     row_l[tid] = 0.f;
   }
 
-  const int tile = bt * HD;                                   // elements
-  const int vec16 = tile * (int)sizeof(T) / 16;               // 16B chunks
+  const int vec16 = tile / 16;                                // 16B chunks
   auto issue = [&](int i, int stage) {
     const int blk = tables[(size_t)s * MB + i];
-    const size_t base = ((size_t)blk * Hkv + h) * (size_t)tile;
-    const char* ksrc = reinterpret_cast<const char*>(k_pool + base);
-    const char* vsrc = reinterpret_cast<const char*>(v_pool + base);
-    char* kdst = reinterpret_cast<char*>(kbuf + stage * tile);
-    char* vdst = reinterpret_cast<char*>(vbuf + stage * tile);
+    const size_t row = (size_t)blk * Hkv + h;                 // (blk, h)
+    const char* ksrc = static_cast<const char*>(k_pool) + row * tile;
+    const char* vsrc = static_cast<const char*>(v_pool) + row * tile;
+    unsigned char* kdst = kbuf + stage * tile;
+    unsigned char* vdst = vbuf + stage * tile;
     for (int e = tid; e < vec16; e += HD) {
       __pipeline_memcpy_async(kdst + 16 * e, ksrc + 16 * e, 16);
       __pipeline_memcpy_async(vdst + 16 * e, vsrc + 16 * e, 16);
+    }
+    if constexpr (P != 0) {
+      for (int e = tid; e < bt / 4; e += HD) {  // bt floats, 16B chunks
+        __pipeline_memcpy_async(ksb + stage * bt + 4 * e,
+                                k_scale + row * bt + 4 * e, 16);
+        __pipeline_memcpy_async(vsb + stage * bt + 4 * e,
+                                v_scale + row * bt + 4 * e, 16);
+      }
     }
     __pipeline_commit();
   };
@@ -148,8 +184,10 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
       __pipeline_wait_prior(0);
     }
     __syncthreads();
-    const T* kt = kbuf + stage * tile;
-    const T* vt = vbuf + stage * tile;
+    const unsigned char* kt = kbuf + stage * tile;
+    const unsigned char* vt = vbuf + stage * tile;
+    const float* ks = ksb + stage * bt;
+    const float* vs = vsb + stage * bt;
 
     // scores: warp w takes positions j = w, w + kWarps, ...; lanes split hd
     for (int j = warp; j < bt; j += kWarps) {
@@ -158,7 +196,7 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
       for (int r = 0; r < G; ++r) part[r] = 0.f;
 #pragma unroll
       for (int d = lane; d < HD; d += 32) {
-        const float kv = to_f32(kt[j * HD + d]);
+        const float kv = Tile::load(kt, j, d);
 #pragma unroll
         for (int r = 0; r < G; ++r) part[r] += qs[r * HD + d] * kv;
       }
@@ -166,7 +204,8 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
       const bool keep = idx <= pos && (window <= 0 || idx > pos - window);
 #pragma unroll
       for (int r = 0; r < G; ++r) {
-        const float sc = warp_sum(part[r]);
+        float sc = warp_sum(part[r]);
+        if constexpr (P != 0) sc *= ks[j];  // K scale on the score column
         if (lane == 0) ps[r * bt + j] = keep ? sc : kNegInf;
       }
     }
@@ -182,7 +221,13 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
       float sum = 0.f;
       for (int j = lane; j < bt; j += 32) {
         const float p = expf(ps[r * bt + j] - m_new);
-        ps[r * bt + j] = p;
+        // the denominator takes the raw probability, the weighted values
+        // the V-scaled one
+        if constexpr (P != 0) {
+          ps[r * bt + j] = p * vs[j];
+        } else {
+          ps[r * bt + j] = p;
+        }
         sum += p;
       }
       sum = warp_sum(sum);
@@ -199,7 +244,7 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
 #pragma unroll
     for (int r = 0; r < G; ++r) acc[r] *= row_alpha[r];
     for (int j = 0; j < bt; ++j) {
-      const float vv = to_f32(vt[j * HD + tid]);
+      const float vv = Tile::load(vt, j, tid);
 #pragma unroll
       for (int r = 0; r < G; ++r) acc[r] += ps[r * bt + j] * vv;
     }
@@ -212,71 +257,84 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
     orow[r * HD + tid] = from_f32<T>(acc[r] / fmaxf(row_l[r], 1e-30f));
 }
 
-template <typename T, int HD, int G>
-int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* positions, void* out, int S, int Hkv, int bt, int MB,
-           int window, float sm_scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, HD, G>(bt);
+// everything a launch needs besides the compile-time choices
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *tables, *positions;
+  void* out;
+  int S, Hkv, bt, MB, window;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int P, int HD, int G>
+int launch(const Args& a) {
+  const size_t smem = smem_bytes<T, P, HD, G>(a.bt);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T, HD, G>,
+        paged_decode_kernel<T, P, HD, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  dim3 grid(S, Hkv);
-  paged_decode_kernel<T, HD, G><<<grid, HD, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(positions), static_cast<T*>(out), Hkv, bt, MB,
-      window, sm_scale);
+  dim3 grid(a.S, a.Hkv);
+  paged_decode_kernel<T, P, HD, G><<<grid, HD, smem, a.stream>>>(
+      static_cast<const T*>(a.q), a.k, a.v, static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
+      static_cast<const int*>(a.positions), static_cast<T*>(a.out), a.Hkv,
+      a.bt, a.MB, a.window, a.sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int launch_g(int G, const void* q, const void* k, const void* v,
-             const void* tables, const void* positions, void* out, int S,
-             int Hkv, int bt, int MB, int window, float sm_scale,
-             cudaStream_t stream) {
+template <typename T, int P, int HD>
+int launch_g(int G, const Args& a) {
   switch (G) {
-    case 1: return launch<T, HD, 1>(q, k, v, tables, positions, out, S, Hkv, bt, MB, window, sm_scale, stream);
-    case 2: return launch<T, HD, 2>(q, k, v, tables, positions, out, S, Hkv, bt, MB, window, sm_scale, stream);
-    case 4: return launch<T, HD, 4>(q, k, v, tables, positions, out, S, Hkv, bt, MB, window, sm_scale, stream);
-    case 8: return launch<T, HD, 8>(q, k, v, tables, positions, out, S, Hkv, bt, MB, window, sm_scale, stream);
+    case 1: return launch<T, P, HD, 1>(a);
+    case 2: return launch<T, P, HD, 2>(a);
+    case 4: return launch<T, P, HD, 4>(a);
+    case 8: return launch<T, P, HD, 8>(a);
+    default: return -1;
+  }
+}
+
+template <typename T, int P>
+int launch_hd(int hd, int G, const Args& a) {
+  switch (hd) {
+    case 32: return launch_g<T, P, 32>(G, a);
+    case 64: return launch_g<T, P, 64>(G, a);
+    case 128: return launch_g<T, P, 128>(G, a);
     default: return -1;
   }
 }
 
 template <typename T>
-int launch_hd(int hd, int G, const void* q, const void* k, const void* v,
-              const void* tables, const void* positions, void* out, int S,
-              int Hkv, int bt, int MB, int window, float sm_scale,
-              cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch_g<T, 32>(G, q, k, v, tables, positions, out, S, Hkv, bt, MB, window, sm_scale, stream);
-    case 64: return launch_g<T, 64>(G, q, k, v, tables, positions, out, S, Hkv, bt, MB, window, sm_scale, stream);
-    case 128: return launch_g<T, 128>(G, q, k, v, tables, positions, out, S, Hkv, bt, MB, window, sm_scale, stream);
+int launch_pool(int pool, int hd, int G, const Args& a) {
+  switch (pool) {
+    case 0: return launch_hd<T, 0>(hd, G, a);
+    case 1: return launch_hd<T, 1>(hd, G, a);
+    case 2: return launch_hd<T, 2>(hd, G, a);
     default: return -1;
   }
 }
 
 }  // namespace
 
+// pool: 0 = the pool holds q's dtype (k_scale/v_scale unused), 1 = scaled
+// int8, 2 = scaled int4 (halves layout, last dim hd/2).
 // Returns 0 on success, a cudaError_t after a failed launch, or -1 for a
-// (head_dim, group, dtype) combination that was not compiled.
+// (pool, head_dim, group, dtype) combination that was not compiled.
 extern "C" int paged_decode_attention(
-    const void* q, const void* k_pool, const void* v_pool, const void* tables,
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
     const void* positions, void* out, int S, int Hq, int Hkv, int hd, int bt,
-    int MB, int window, int is_bf16, float sm_scale, void* stream) {
+    int MB, int window, int is_bf16, int pool, float sm_scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv) return -1;
+  if (pool != 0 && bt % 4) return -1;  // scale rows move in 16B chunks
   const int G = Hq / Hkv;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_hd<__nv_bfloat16>(hd, G, q, k_pool, v_pool, tables,
-                                    positions, out, S, Hkv, bt, MB, window,
-                                    sm_scale, st);
-  return launch_hd<float>(hd, G, q, k_pool, v_pool, tables, positions, out,
-                          S, Hkv, bt, MB, window, sm_scale, st);
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, positions, out,
+               S, Hkv, bt, MB, window, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  if (is_bf16) return launch_pool<__nv_bfloat16>(pool, hd, G, a);
+  return launch_pool<float>(pool, hd, G, a);
 }

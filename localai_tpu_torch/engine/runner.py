@@ -11,7 +11,11 @@ package become plain methods:
     JAX package donates buffers to get the same effect.
   * Decode attention always goes through ``ops.paged_decode_attention``:
     the CUDA paged kernel on the card, its plain PyTorch version for CPU
-    tensors.
+    tensors. Scaled int8/int4 pools hand the kernel their scales.
+  * Quantized weights (``models.quant``) go through the w8/w4 matmul
+    kernels wherever the shape is eligible (``ops.qmatmul``); their
+    wrappers count launches (``w8_matmul.launches``,
+    ``w4_matmul.launches``).
   * Chunked prefill gathers the slot's table row and runs plain grouped
     attention over it, as the JAX package does in XLA.
   * Results come back asynchronously: a non-blocking copy into pinned host
@@ -135,15 +139,16 @@ class ModelRunner:
         self.num_blocks = num_slots * self.max_blocks + 1
         self.prefill_chunk = max(self.block_tokens, int(prefill_chunk or 512))
         self.kv_dtype = kv_dtype
+        # int8/int4 pools run with a bf16/f32 compute dtype; a float pool
+        # must be in the compute dtype (select_paged_attn_impl raises on
+        # the card for every other pairing)
         self.paged_attn_impl, why = ops.select_paged_attn_impl(
             device=self.device, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
             block_tokens=self.block_tokens,
-            kv_dtype=mdl.torch_dtype(kv_dtype))
-        if self.paged_attn_impl == "kernel" and kv_dtype != cfg.dtype:
-            raise ValueError(
-                f"the paged decode kernel needs the KV pool in the compute "
-                f"dtype ({cfg.dtype}), got kv_dtype={kv_dtype}")
+            kv_dtype=(kv_dtype if kv_dtype in ("int8", "int4")
+                      else mdl.torch_dtype(kv_dtype)),
+            dtype=mdl.torch_dtype(cfg.dtype))
         if why:
             log.info("paged attention: %s (%s)", self.paged_attn_impl, why)
         self._seed = seed
@@ -186,9 +191,13 @@ class ModelRunner:
         pos, tables = st.positions, self.block_tables
 
         def attn(q, keys, values, _mask):  # q [S,1,Hq,hd]; keys = pool
+            if isinstance(keys, tuple):  # (pool, scales): scaled int8/int4
+                (keys, k_scale), (values, v_scale) = keys, values
+            else:
+                k_scale = v_scale = None
             out = ops.paged_decode_attention(
                 q[:, 0].contiguous(), keys, values, tables, pos,
-                sliding_window=cfg.sliding_window)
+                k_scale, v_scale, sliding_window=cfg.sliding_window)
             return out[:, None]
 
         write = kvc.paged_decode_write(tables, pos)

@@ -11,6 +11,9 @@ policy instead of returning a new stacked cache.
   * GQA is computed grouped ([S, n_kv, q_per_kv, ...]) so the KV repeat is
     a broadcast inside the product, never materialized.
   * RoPE scaling: linear / llama3 / yarn, as in the JAX package.
+  * Matmul weights may be ``quant.QuantizedTensor`` (int8 / int4): every
+    product goes through ``quant.matmul`` / ``matmul_t`` and the embedding
+    gather through ``quant.embed_rows``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from localai_tpu_torch.models import quant
 from localai_tpu_torch.utils.device import resolve_device
 
 Params = dict
@@ -234,18 +238,38 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig,
     """Carry a JAX parameter tree (nested dicts of numpy arrays) across to
     torch tensors in ``cfg.dtype`` on ``device``. bfloat16 arrays arrive
     as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses: they go
-    across as their int16 bit pattern and are reinterpreted."""
+    across as their int16 bit pattern and are reinterpreted.
+
+    Quantized leaves (the JAX package's ``QuantizedTensor`` after
+    ``jax.tree.map(np.asarray, tree)``: objects with ``q``, ``scale``,
+    ``axis`` and ``mode``) become ``quant.QuantizedTensor``: int8 ``q``
+    goes across as it is, an int4 ``q`` (``ml_dtypes.int4``) through
+    ``astype(np.int8)`` and the port's w4 packing; ``scale`` stays f32."""
     _check_dense(cfg)
     dtype = torch_dtype(cfg.dtype)
     device = resolve_device(device)
 
-    def conv(a):
+    def tensor(a):
         a = np.array(a)  # an own, writable, contiguous copy
         if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(a)
-        return t.to(device=device, dtype=dtype)
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(a)
+
+    def conv(a):
+        if hasattr(a, "q") and hasattr(a, "scale"):  # a quantized leaf
+            if a.mode not in ("w8", "w4"):
+                raise ValueError(f"quantized mode {a.mode!r} is not ported "
+                                 "(the port has w8 and w4)")
+            scale = tensor(a.scale).to(device=device, dtype=torch.float32)
+            if a.mode == "w4":
+                q = torch.from_numpy(np.asarray(a.q).astype(np.int8))
+                axis = a.axis % q.dim()
+                return quant.QuantizedTensor(
+                    quant.pack_w4(q, axis).to(device), scale, axis, "w4",
+                    q.shape[axis] // scale.shape[axis])
+            return quant.QuantizedTensor(tensor(a.q).to(device), scale,
+                                         a.axis % np.ndim(a.q))
+        return tensor(a).to(device=device, dtype=dtype)
 
     return {k: ({kk: conv(vv) for kk, vv in v.items()} if isinstance(v, dict)
                 else conv(v)) for k, v in tree.items()}
@@ -261,9 +285,9 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, attend):
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
 
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-    q = h @ lp["wq"]
-    k = h @ lp["wk"]
-    v = h @ lp["wv"]
+    q = quant.matmul(h, lp["wq"])
+    k = quant.matmul(h, lp["wk"])
+    v = quant.matmul(h, lp["wv"])
     if "bq" in lp:
         q = q + lp["bq"].to(q.dtype)
         k = k + lp["bk"].to(k.dtype)
@@ -276,11 +300,12 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, attend):
 
     attn = attend(q, k, v)
     attn = attn.reshape(*attn.shape[:-2], Hq * hd)
-    x = x + attn @ lp["wo"]
+    x = x + quant.matmul(attn, lp["wo"])
 
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    gated = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
-    return x + gated @ lp["w_down"]
+    gated = (F.silu(quant.matmul(h, lp["w_gate"]))
+             * quant.matmul(h, lp["w_up"]))
+    return x + quant.matmul(gated, lp["w_down"])
 
 
 def _grouped_attn(cfg: LlamaConfig, q, keys, values, mask):
@@ -327,7 +352,7 @@ def forward(
     sin = sin_t[pos][:, :, None, :]
     dtype = torch_dtype(cfg.dtype)
     if embeds is None:
-        x = params["embed"][tokens].to(dtype)
+        x = quant.embed_rows(params["embed"], tokens, dtype)
     else:
         x = embeds.to(dtype)
     if attn is None:
@@ -352,5 +377,5 @@ def forward(
 def logits_from_hidden(cfg: LlamaConfig, params: Params,
                        x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_word_embeddings:
-        return x @ params["embed"].T.to(x.dtype)
-    return x @ params["lm_head"]
+        return quant.matmul_t(x, params["embed"])
+    return quant.matmul(x, params["lm_head"])

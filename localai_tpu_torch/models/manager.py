@@ -3,8 +3,10 @@
 Port of ``localai_tpu/models/manager.py::build_runner`` /
 ``build_serving_model`` and ``ServingModel`` for one device, plus a small
 thread-safe ``ModelManager`` that loads each configured model on first
-use. The engine is always the paged layout; speculative decoding, the
-prompt cache and the self-healing supervisor are not ported yet.
+use. The engine is always the paged layout; ``engine.quantization``
+(int8/int4) quantizes the weights on the device after they are built or
+loaded, as the JAX package does. Speculative decoding, the prompt cache
+and the self-healing supervisor are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from localai_tpu_torch.config.loader import ConfigLoader
 from localai_tpu_torch.config.model_config import ModelConfig
 from localai_tpu_torch.engine.runner import ModelRunner
 from localai_tpu_torch.engine.scheduler import Scheduler
+from localai_tpu_torch.models.quant import quantize_params
 from localai_tpu_torch.models.registry import LoadedModel, resolve_model
 
 log = logging.getLogger(__name__)
@@ -48,6 +51,10 @@ def build_runner(mcfg: ModelConfig, app: AppConfig,
     model = resolve_model(mcfg.model or mcfg.name,
                           model_path=app.model_path, dtype=eng.dtype,
                           seed=mcfg.seed or 0, device=app.device)
+    if eng.quantization:
+        # the bf16 tree is dropped with the old LoadedModel once quantized
+        model = dataclasses.replace(model, params=quantize_params(
+            model.params, eng.quantization, device=app.device))
     ctx = min(mcfg.context_size or app.context_size,
               model.cfg.max_position_embeddings)
     runner = ModelRunner(

@@ -1,0 +1,288 @@
+"""Weight-only int8 / int4 quantization for the llama engine.
+
+Port of ``localai_tpu/models/quant.py``. Same recipes, bit for bit:
+
+  * int8 (mode ``"w8"``): symmetric per output channel, scale =
+    max|w| / 127 over the contraction axis, q = round(w / scale) in
+    [-127, 127] (``torch.round`` rounds half to even, like ``jnp.round``).
+  * int4 (mode ``"w4"``): symmetric per (group of ``group`` contraction
+    rows, output channel), scale = max|w| / 7, q in [-7, 7].
+
+``matmul`` sends an eligible shape (``ops.qmatmul.eligible`` /
+``w4_eligible``: 2-D, 128-aligned, M <= 256) to the kernel wrappers on
+every device — the CUDA kernels for CUDA tensors, their plain versions on
+the CPU. An ineligible shape (a long prefill chunk) computes the product
+the JAX package computes there without a Pallas kernel:
+``(x @ q.to(x.dtype)) * scale.to(x.dtype)``, or the per-group einsum for
+w4.
+
+**w4 storage.** torch has no int4 dtype, so a w4 ``q`` is uint8 with two
+nibbles per byte, packed along the contraction axis: byte i holds rows 2i
+(low nibble) and 2i+1 (high nibble) of one output column, so a [K, N]
+weight is stored [K/2, N]. Both rows of a byte fall in the same group
+(groups are even), a warp reading a packed row along N stays coalesced,
+and the kernel (``csrc/w4_matmul.cu``), its plain version and the weight
+carrier (``llama.params_from_numpy``) all go through ``pack_w4`` /
+``unpack_w4``, defined once in ``ops/qmatmul.py`` beside the kernel that
+reads them. The int4 KV pool uses a different packing, the JAX
+package's halves layout along the last axis (:func:`quantize_lastdim4`),
+because its bytes are compared with JAX's byte for byte.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from localai_tpu_torch.ops import qmatmul
+from localai_tpu_torch.ops.qmatmul import pack_w4, unpack_w4
+from localai_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    """A quantized weight.
+
+    q:     int8 with the weight's shape (w8), or uint8 packed along
+           ``axis`` (w4: that axis has half the rows, see :func:`pack_w4`).
+    scale: f32. w8: the weight's shape without ``axis`` (one scale per
+           output channel). w4: ``axis`` kept at size K / group.
+    axis:  the contraction axis of the logical weight.
+    mode:  ``"w8"`` | ``"w4"``.
+    group: contraction rows per scale (w4); 0 for w8.
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    axis: int
+    mode: str = "w8"
+    group: int = 0
+
+    def __getitem__(self, i: int) -> "QuantizedTensor":
+        """Slice of a stacked [L, ...] weight along its leading axis (the
+        layer loop's view of one layer)."""
+        if self.axis == 0:
+            raise IndexError("cannot slice the contraction axis")
+        return QuantizedTensor(self.q[i], self.scale[i], self.axis - 1,
+                               self.mode, self.group)
+
+    def to(self, device) -> "QuantizedTensor":
+        return QuantizedTensor(self.q.to(device), self.scale.to(device),
+                               self.axis, self.mode, self.group)
+
+
+# ---------------------------------------------------------------------------
+# quantizers
+# ---------------------------------------------------------------------------
+
+def quantize_tensor(w: torch.Tensor, axis: int) -> QuantizedTensor:
+    """Symmetric per-channel int8: scale = amax|w| / 127 over ``axis``."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=axis).clamp(min=1e-8) / 127.0
+    q = torch.round(wf / scale.unsqueeze(axis)).clamp(-127, 127).to(
+        torch.int8)
+    return QuantizedTensor(q=q, scale=scale, axis=axis)
+
+
+def _group_size(K: int, group: int) -> int:
+    """Largest divisor of K that is ≤ group (small debug dims stay exact)."""
+    g = min(K, group)
+    while K % g:
+        g -= 1
+    return g
+
+
+def _quantize4(w: torch.Tensor, axis: int, g: int):
+    """(int8 q in [-7, 7] with w's shape, f32 scale with ``axis`` at
+    K/g) — the int4 recipe before packing."""
+    wf = w.float()
+    shape = tuple(wf.shape)
+    K = shape[axis]
+    grouped = wf.reshape(shape[:axis] + (K // g, g) + shape[axis + 1:])
+    scale = grouped.abs().amax(dim=axis + 1).clamp(min=1e-8) / 7.0
+    q = torch.round(grouped / scale.unsqueeze(axis + 1)).clamp(-7, 7).to(
+        torch.int8)
+    return q.reshape(shape), scale
+
+
+def quantize_tensor4(w: torch.Tensor, axis: int,
+                     group: int = 128) -> QuantizedTensor:
+    """Symmetric group-wise int4 over ``axis`` in groups of ``group`` rows
+    (``_group_size`` for small dims); q comes back packed (pack_w4)."""
+    g = _group_size(w.shape[axis], group)
+    q, scale = _quantize4(w, axis, g)
+    return QuantizedTensor(q=pack_w4(q, axis), scale=scale, axis=axis,
+                           mode="w4", group=g)
+
+
+def quantize_lastdim(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric int8 over the last axis: x [..., K] →
+    (q int8 [..., K], scale f32 [...]). The scaled int8 KV pool recipe."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_lastdim4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric int4 over the last axis, nibble-packed in the
+    halves layout: x [..., K] (K even) → (int8 [..., K/2], scale f32
+    [...]). Byte i holds element i in its low nibble and element i + K/2
+    in its high nibble — the int4 KV pool's bytes, equal to JAX's."""
+    if x.shape[-1] % 2:
+        raise ValueError(f"int4 packing needs an even last dim, got "
+                         f"{tuple(x.shape)}")
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-8) / 7.0
+    q = torch.round(xf / scale[..., None]).clamp(-7, 7).to(torch.int8)
+    half = q.shape[-1] // 2
+    packed = (q[..., :half] & 0x0F) | (q[..., half:] << 4)
+    return packed, scale
+
+
+def unpack_int4_lastdim(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of the :func:`quantize_lastdim4` packing: int8 [..., K/2] →
+    int8 [..., K] in [-8, 7]."""
+    lo = (packed << 4) >> 4
+    hi = packed >> 4
+    return torch.cat([lo, hi], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# products
+# ---------------------------------------------------------------------------
+
+def dequantize_tensor(qt: QuantizedTensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    if qt.mode == "w4":
+        q = unpack_w4(qt.q, qt.axis)
+        shape = tuple(q.shape)
+        ax = qt.axis
+        gc = qt.scale.shape[ax]
+        grouped = q.reshape(shape[:ax] + (gc, shape[ax] // gc)
+                            + shape[ax + 1:]).to(dtype)
+        out = grouped * qt.scale.unsqueeze(ax + 1).to(dtype)
+        return out.reshape(shape)
+    return qt.q.to(dtype) * qt.scale.unsqueeze(qt.axis).to(dtype)
+
+
+def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """x @ w for plain or quantized [K, N] weights."""
+    if not isinstance(w, QuantizedTensor):
+        return x @ w
+    lead = x.shape[:-1]
+    if w.mode == "w4":
+        if qmatmul.w4_eligible(x.shape, w.q, w.scale):
+            y = qmatmul.w4_matmul(x.reshape(-1, x.shape[-1]), w.q, w.scale)
+            return y.reshape(*lead, y.shape[-1])
+        q = unpack_w4(w.q, w.axis)
+        K, N = q.shape[-2], q.shape[-1]
+        gc = w.scale.shape[-2]
+        wg = q.reshape(gc, K // gc, N).to(x.dtype)
+        xg = x.reshape(*lead, gc, K // gc)
+        acc = torch.einsum("...gk,gkn->...gn", xg, wg)
+        return (acc * w.scale.to(x.dtype)).sum(-2)
+    if qmatmul.eligible(x.shape, w.q, w.scale, transpose_w=False):
+        y = qmatmul.w8_matmul(x.reshape(-1, x.shape[-1]), w.q, w.scale)
+        return y.reshape(*lead, y.shape[-1])
+    return (x @ w.q.to(x.dtype)) * w.scale.to(x.dtype)
+
+
+def matmul_t(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """x @ w.T (tied-embedding lm_head). Per-row scales become per-output-
+    column scales under the transpose. Embedding tables stay per-row int8
+    in int4 mode too, so there is no w4 branch."""
+    if not isinstance(w, QuantizedTensor):
+        return x @ w.T.to(x.dtype)
+    if w.mode != "w8":
+        raise ValueError(f"matmul_t takes per-row int8 tables, got {w.mode}")
+    if qmatmul.eligible(x.shape, w.q, w.scale, transpose_w=True):
+        y = qmatmul.w8_matmul(x.reshape(-1, x.shape[-1]), w.q, w.scale,
+                              transpose_w=True)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    return (x @ w.q.T.to(x.dtype)) * w.scale.to(x.dtype)
+
+
+def embed_rows(w: Any, tokens: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Embedding gather for plain or per-row-quantized tables."""
+    if isinstance(w, QuantizedTensor):
+        return w.q[tokens].to(dtype) * w.scale[tokens][..., None].to(dtype)
+    return w[tokens].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# parameter trees
+# ---------------------------------------------------------------------------
+
+# which params get quantized, and the contraction axis of each stacked
+# [L, K, N] layer weight; norm gains and qkv biases stay as they are
+_LAYER_AXES = {
+    "wq": 1, "wk": 1, "wv": 1, "wo": 1,
+    "w_gate": 1, "w_up": 1, "w_down": 1,
+}
+
+
+def _quantize_stacked(w: torch.Tensor, axis: int, mode: str,
+                      group: int, device: torch.device) -> QuantizedTensor:
+    """Quantize a stacked [L, K, N] weight one layer slice at a time, so
+    no f32 copy of the whole stack ever exists."""
+    L = w.shape[0]
+    K = w.shape[axis]
+    if mode == "w4":
+        g = _group_size(K, group)
+        qshape = list(w.shape)
+        qshape[axis] //= 2
+        sshape = list(w.shape)
+        sshape[axis] = K // g
+        q = torch.empty(qshape, dtype=torch.uint8, device=device)
+        scale = torch.empty(sshape, dtype=torch.float32, device=device)
+        for i in range(L):
+            qi, si = _quantize4(w[i].to(device), axis - 1, g)
+            q[i] = pack_w4(qi, axis - 1)
+            scale[i] = si
+        return QuantizedTensor(q, scale, axis, "w4", g)
+    q = torch.empty(w.shape, dtype=torch.int8, device=device)
+    sshape = list(w.shape)
+    del sshape[axis]
+    scale = torch.empty(sshape, dtype=torch.float32, device=device)
+    for i in range(L):
+        t = quantize_tensor(w[i].to(device), axis - 1)
+        q[i] = t.q
+        scale[i] = t.scale
+    return QuantizedTensor(q, scale, axis)
+
+
+def quantize_params(params: dict, mode: str = "int8", group: int = 128,
+                    device: str | torch.device | None = "cuda") -> dict:
+    """Quantize a llama parameter tree's matmul weights onto ``device``.
+
+    embed goes per-row int8 (axis 1) in both modes, so the gather and the
+    tied-embedding logits stay exact per channel; lm_head per output
+    column (axis 0, or group-wise int4 over D); stacked layer weights over
+    their K axis. ``mode``: ``"int8"`` or ``"int4"``. ``"int8_w8a8"`` (an
+    int8×int8 dot with dynamic activation quantization in the JAX package,
+    no Pallas kernel) is not ported."""
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"unsupported quantization mode {mode!r} (the "
+                         "port has int8 and int4)")
+    device = resolve_device(device)
+    wmode = "w4" if mode == "int4" else "w8"
+    out = dict(params)
+    out["embed"] = quantize_tensor(params["embed"].to(device), axis=1)
+    if "lm_head" in params:
+        head = params["lm_head"].to(device)
+        out["lm_head"] = (quantize_tensor4(head, 0, group) if wmode == "w4"
+                          else quantize_tensor(head, 0))
+    layers = dict(params["layers"])
+    for name, axis in _LAYER_AXES.items():
+        layers[name] = _quantize_stacked(layers[name], axis, wmode, group,
+                                         device)
+    for name, w in layers.items():
+        if name not in _LAYER_AXES:
+            layers[name] = w.to(device)
+    out["layers"] = layers
+    out["final_norm"] = params["final_norm"].to(device)
+    return out

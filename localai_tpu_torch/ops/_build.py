@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exports a plain C function and is compiled by
 seconds per source, against minutes for an extension that includes
 PyTorch's headers. Libraries land in ``build/localai_tpu_torch/`` at the
 repository root (``LOCALAI_TORCH_BUILD_DIR`` overrides), named by a hash
-of the source and flags, so an edited source rebuilds and an unchanged
-one is reused. Building happens at first use, never at import.
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one is reused. Building happens at
+first use, never at import.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("paged_decode_attention",)
+SOURCES = ("paged_decode_attention", "w8_matmul", "w4_matmul")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -48,8 +49,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # every source includes the shared headers, so they enter every hash
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    h = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
+                       + " ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

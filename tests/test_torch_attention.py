@@ -5,7 +5,11 @@ version; it must match the JAX Pallas kernel (interpret mode) and the JAX
 plain reference within atol 1e-5 in float32 (both sides compute a float32
 softmax over the same inputs; only summation order differs). Inputs come
 from a numpy seed; tables are shuffled, positions ragged and on block
-edges. The CUDA kernel itself is checked on the card (``cuda`` marker).
+edges. Scaled int8 and int4 pools are built by the JAX package's
+quantizers and go to both sides as the same bytes; the plain version must
+match the JAX kernel within 1e-5 there too (same dequantized values, the
+quantization error is common to both). The CUDA kernel itself is checked
+on the card by tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -16,6 +20,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from localai_tpu import ops as jops  # noqa: E402
+from localai_tpu.models import quant as jq  # noqa: E402
 from localai_tpu_torch import ops as tops  # noqa: E402
 from localai_tpu_torch.ops import attention as tatt  # noqa: E402
 from test_torch_llama import one_torch_thread  # noqa: E402,F401
@@ -58,6 +63,42 @@ def test_paged_attention_matches_jax(case):
     np.testing.assert_allclose(got.numpy(), want_ref, atol=1e-5)
 
 
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("case", ["g4-ragged", "window", "g2-edges"])
+def test_quantized_paged_attention_matches_jax(case, kv_dtype):
+    S, Hq, Hkv, hd, bt, MB, positions, window = CASES[case]
+    q, k, v, tables, pos = _inputs(S, Hq, Hkv, hd, bt, MB, positions, 8)
+    quantize = (jq.quantize_lastdim4 if kv_dtype == "int4"
+                else jq.quantize_lastdim)
+    kq, ks = quantize(jnp.asarray(k))
+    vq, vs = quantize(jnp.asarray(v))
+    jargs = [jnp.asarray(a) for a in (q,)] + [kq, vq] + [
+        jnp.asarray(tables), jnp.asarray(pos), ks, vs]
+    want_kernel = np.asarray(jops.paged_decode_attention(
+        *jargs, sliding_window=window, interpret=True))
+    want_ref = np.asarray(jops.paged_decode_attention_ref(
+        *jargs, sliding_window=window))
+    t = [torch.from_numpy(np.asarray(a)) for a in
+         (q, kq, vq, tables, pos, ks, vs)]
+    if kv_dtype == "int4":
+        assert t[1].shape[-1] * 2 == hd
+    got = tops.paged_decode_attention(*t, sliding_window=window)
+    assert got.dtype == torch.float32 and got.shape == (S, Hq, hd)
+    np.testing.assert_allclose(got.numpy(), want_kernel, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want_ref, atol=1e-5)
+
+
+def test_gather_block_scales_matches_jax():
+    rng = np.random.default_rng(5)
+    scales = rng.normal(size=(7, 2, 4)).astype(np.float32)
+    tables = (rng.permutation(6) + 1).astype(np.int32).reshape(2, 3)
+    got = tatt.gather_block_scales(torch.from_numpy(scales),
+                                   torch.from_numpy(tables))
+    want = jops.attention.gather_block_scales(jnp.asarray(scales),
+                                              jnp.asarray(tables))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_gather_blocks_matches_jax():
     q, k, v, tables, pos = _inputs(2, 4, 2, 8, 4, 3, [1, 2], 5)
     got = tatt.gather_blocks(torch.from_numpy(k), torch.from_numpy(tables))
@@ -90,9 +131,18 @@ def test_select_impl_on_card_is_the_kernel_or_raises():
         device=dev, num_heads=32, num_kv_heads=8, head_dim=128,
         block_tokens=64, kv_dtype=torch.bfloat16)
     assert (impl, why) == ("kernel", "")
+    for pool in ("int8", "int4"):
+        assert tops.select_paged_attn_impl(
+            device=dev, num_heads=32, num_kv_heads=8, head_dim=128,
+            block_tokens=64, kv_dtype=pool, dtype=torch.bfloat16) == (
+                "kernel", "")
     for bad in (dict(head_dim=16), dict(kv_dtype=torch.float16),
                 dict(num_heads=24), dict(block_tokens=512,
-                                         kv_dtype=torch.float32)):
+                                         kv_dtype=torch.float32),
+                dict(kv_dtype=torch.bfloat16, dtype=torch.float32),
+                dict(kv_dtype="int8", dtype=torch.float16),
+                dict(kv_dtype="int4", block_tokens=30,
+                     dtype=torch.bfloat16)):
         kw = dict(num_heads=32, num_kv_heads=8, head_dim=128,
                   block_tokens=64, kv_dtype=torch.bfloat16)
         kw.update(bad)
@@ -103,35 +153,15 @@ def test_select_impl_on_card_is_the_kernel_or_raises():
 def test_kernel_smem_fits_the_serving_shapes():
     for dtype in (torch.bfloat16, torch.float32):
         assert tatt.kernel_gate(dtype, 128, 4, 64) == ""
+        for pool in ("int8", "int4"):
+            assert tatt.kernel_gate(dtype, 128, 4, 64, pool) == ""
     assert "shared memory" in tatt.kernel_gate(torch.float32, 128, 4, 256)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernel_matches_plain(dtype):
-    """On the card: the kernel against its plain version run in float32 on
-    the same inputs. float32 within atol 1e-4; bfloat16 per slot within
-    1e-2 of that slot's largest output (the output's bf16 rounding is at
-    most 2**-8 of it), so a long-context slot is held as tightly as a
-    short one."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
-    dt = getattr(torch, dtype)
-    q, k, v, tables, pos = _inputs(8, 32, 8, 128, 64, 8, [0, 63, 64, 100,
-                                                          200, 300, 400,
-                                                          511], 7)
-    t = [torch.from_numpy(a).cuda() for a in (q, k, v, tables, pos)]
-    before = tops.paged_decode_attention.launches
-    got = tops.paged_decode_attention(t[0].to(dt), t[1].to(dt), t[2].to(dt),
-                                      t[3], t[4])
-    torch.cuda.synchronize()
-    assert tops.paged_decode_attention.launches == before + 1
-    want = tops.paged_decode_attention_ref(
-        t[0].to(dt).float(), t[1].to(dt).float(), t[2].to(dt).float(),
-        t[3], t[4])
-    err = (got.float() - want).abs().flatten(1).amax(1)
-    if dt == torch.float32:
-        tol = torch.full_like(err, 1e-4)
-    else:
-        tol = 1e-2 * want.abs().flatten(1).amax(1)
-    assert bool((err <= tol).all()), (err.tolist(), tol.tolist())
+    # narrower tiles: an int4 pool stages a quarter of the bf16 bytes
+    full = tatt.kernel_smem_bytes(torch.bfloat16, 128, 4, 64)
+    i8 = tatt.kernel_smem_bytes(torch.bfloat16, 128, 4, 64, "int8")
+    i4 = tatt.kernel_smem_bytes(torch.bfloat16, 128, 4, 64, "int4")
+    rest = 4 * 128 * 4 + 4 * 64 * 4 + 3 * 4 * 4
+    assert (full - rest, i8 - rest - 1024, i4 - rest - 1024) == (
+        65536, 32768, 16384)
+    assert "multiple of 4" in tatt.kernel_gate(torch.bfloat16, 128, 4, 30,
+                                               "int8")

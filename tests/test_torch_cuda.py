@@ -1,0 +1,163 @@
+"""The PyTorch port's CUDA kernels against their plain versions, on the card.
+
+Every test carries the ``cuda`` marker and skips without a CUDA device.
+This file imports neither JAX nor the JAX package, so it runs on a machine
+that has only torch; ``tests/conftest.py`` imports JAX, so there run it as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Each kernel output is compared with the plain version run in float32 on
+the same inputs: float32 within 1e-4 (absolute for attention, relative to
+the output's largest magnitude for the matmuls); bfloat16 per slot or row
+within 1e-2 of that slot's or row's largest output (the output's bf16
+rounding is at most 2**-8 of it), so a small row is held as tightly as a
+large one. Inputs come from a numpy seed.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from localai_tpu_torch import ops as tops  # noqa: E402
+from localai_tpu_torch.models import quant as tq  # noqa: E402
+from localai_tpu_torch.ops import qmatmul as tqm  # noqa: E402
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+
+
+def _attn_inputs(seed):
+    """S=8, Hq=32, Hkv=8, hd=128, bt=64 serving shape, ragged positions
+    on block edges, shuffled tables; float32 on the card."""
+    S, Hq, Hkv, hd, bt, MB = 8, 32, 8, 128, 64, 8
+    rng = np.random.default_rng(seed)
+    N = S * MB + 1
+    q = rng.normal(size=(S, Hq, hd)).astype(np.float32)
+    k = rng.normal(size=(N, Hkv, bt, hd)).astype(np.float32)
+    v = rng.normal(size=(N, Hkv, bt, hd)).astype(np.float32)
+    tables = (rng.permutation(N - 1) + 1).astype(np.int32).reshape(S, MB)
+    pos = np.asarray([0, 63, 64, 100, 200, 300, 400, 511], np.int32)
+    return [torch.from_numpy(a).cuda() for a in (q, k, v, tables, pos)]
+
+
+def _slot_check(got, want, dt):
+    err = (got.float() - want).abs().flatten(1).amax(1)
+    if dt == torch.float32:
+        tol = torch.full_like(err, 1e-4)
+    else:
+        tol = 1e-2 * want.abs().flatten(1).amax(1)
+    assert bool((err <= tol).all()), (err.tolist(), tol.tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_plain(dtype):
+    """K1 on a pool in the compute dtype."""
+    _card()
+    dt = getattr(torch, dtype)
+    q, k, v, tables, pos = _attn_inputs(7)
+    before = tops.paged_decode_attention.launches
+    got = tops.paged_decode_attention(q.to(dt), k.to(dt), v.to(dt), tables,
+                                      pos)
+    torch.cuda.synchronize()
+    assert tops.paged_decode_attention.launches == before + 1
+    want = tops.paged_decode_attention_ref(
+        q.to(dt).float(), k.to(dt).float(), v.to(dt).float(), tables, pos)
+    _slot_check(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_quantized_pools_match_plain(dtype, kv_dtype):
+    """K1 on scaled int8 / int4 pools built by the port's quantizers."""
+    _card()
+    dt = getattr(torch, dtype)
+    q, k, v, tables, pos = _attn_inputs(9)
+    quantize = (tq.quantize_lastdim4 if kv_dtype == "int4"
+                else tq.quantize_lastdim)
+    kq, ks = quantize(k)
+    vq, vs = quantize(v)
+    before = tops.paged_decode_attention.launches
+    got = tops.paged_decode_attention(q.to(dt), kq, vq, tables, pos, ks, vs)
+    torch.cuda.synchronize()
+    assert tops.paged_decode_attention.launches == before + 1
+    want = tops.paged_decode_attention_ref(q.to(dt).float(), kq, vq, tables,
+                                           pos, ks, vs)
+    _slot_check(got, want, dt)
+
+
+def _mm_inputs(M, K, N, seed, transpose=False):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = (rng.normal(size=(N, K) if transpose else (K, N)) * 0.02).astype(
+        np.float32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()
+
+
+def _row_check(got, want, dtype):
+    err = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-4 * float(want.abs().max())
+    else:
+        tol = 1e-2 * want.abs().amax(1, keepdim=True)
+        assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,transpose", [(8, 512, 384, False),
+                                             (1, 256, 128, False),
+                                             (256, 1024, 256, False),
+                                             (13, 2304, 128, False),
+                                             (8, 1024, 384, True),
+                                             (3, 2048, 256, True)])
+def test_cuda_w8_kernel_matches_plain(dtype, M, K, N, transpose):
+    _card()
+    dt = getattr(torch, dtype)
+    x, w = _mm_inputs(M, K, N, 5, transpose=transpose)
+    qt = tq.quantize_tensor(w, 1 if transpose else 0)
+    xc = x.to(dt)
+    before = tqm.w8_matmul.launches
+    got = tqm.w8_matmul(xc, qt.q, qt.scale, transpose_w=transpose)
+    torch.cuda.synchronize()
+    assert tqm.w8_matmul.launches == before + 1
+    _row_check(got, tqm.w8_matmul_ref(xc.float(), qt.q, qt.scale, transpose),
+               dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,group", [(8, 512, 384, 128),
+                                         (1, 256, 128, 128),
+                                         (256, 1024, 256, 256),
+                                         (5, 2304, 128, 384),
+                                         (9, 2048, 128, 128)])
+def test_cuda_w4_kernel_matches_plain(dtype, M, K, N, group):
+    _card()
+    dt = getattr(torch, dtype)
+    x, w = _mm_inputs(M, K, N, 6)
+    qt = tq.quantize_tensor4(w, 0, group=group)
+    assert qt.group == group
+    xc = x.to(dt)
+    before = tqm.w4_matmul.launches
+    got = tqm.w4_matmul(xc, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert tqm.w4_matmul.launches == before + 1
+    _row_check(got, tqm.w4_matmul_ref(xc.float(), qt.q, qt.scale), dt)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_ineligible_shapes():
+    """No fallback: a CUDA shape the kernel does not take raises."""
+    _card()
+    x, w = _mm_inputs(300, 256, 128, 7)
+    qt = tq.quantize_tensor(w, 0)
+    with pytest.raises(ValueError):
+        tqm.w8_matmul(x, qt.q, qt.scale)
+    q4 = tq.quantize_tensor4(w, 0)
+    with pytest.raises(ValueError):
+        tqm.w4_matmul(x, q4.q, q4.scale)

@@ -5,7 +5,12 @@ attn_impl="xla", kv_dtype="float32")`` get the same weights and prompts
 and must produce byte-identical greedy tokens (float32 on the CPU): one
 prompt spans several prefill chunks, one crosses a block edge, one is
 short. The port's decode runs the same call as on the card: the paged
-attention wrapper, which takes its plain version for CPU tensors.
+attention wrapper, which takes its plain version for CPU tensors. The
+same holds for quantized serving: int8 weights with an int8 KV pool and
+int4 weights with an int4 pool (quantized by each package from the same
+float32 weights; debug:small's 128-aligned widths make every decode
+matmul eligible for the w8/w4 kernel wrappers, which take their plain
+versions on the CPU).
 """
 
 import dataclasses
@@ -21,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 from localai_tpu.engine import sampling as jsmp  # noqa: E402
 from localai_tpu.engine.runner import ModelRunner as JaxRunner  # noqa: E402
 from localai_tpu.models import llama as jl  # noqa: E402
+from localai_tpu.models import quant as jq  # noqa: E402
 from localai_tpu.models.registry import DEBUG_PRESETS as J_PRESETS  # noqa: E402
 from localai_tpu_torch.engine import sampling as tsmp  # noqa: E402
 from localai_tpu_torch.engine.runner import (  # noqa: E402
@@ -28,6 +34,8 @@ from localai_tpu_torch.engine.runner import (  # noqa: E402
     ModelRunner,
 )
 from localai_tpu_torch.models import llama as tl  # noqa: E402
+from localai_tpu_torch.models import quant as tq  # noqa: E402
+from localai_tpu_torch.ops import qmatmul as tqm  # noqa: E402
 from test_torch_llama import one_torch_thread  # noqa: E402,F401
 
 RUNNER_KW = dict(num_slots=4, max_ctx=160, prefill_buckets=[32],
@@ -95,6 +103,24 @@ def test_greedy_tokens_match_jax(preset):
     assert int(r.block_tables.abs().sum()) == 0
 
 
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quantized_greedy_tokens_match_jax(mode):
+    """(int8 weights, int8 pool) and (int4 weights, int4 pool)."""
+    cfg_j, params_j, cfg_t, params_t = _model("small")
+    kw = dict(RUNNER_KW, kv_dtype=mode)
+    jr = JaxRunner(cfg_j, jq.quantize_params(params_j, mode), paged=True,
+                   attn_impl="xla", **kw)
+    want = _greedy(jr, PROMPTS)[1]
+    qparams = tq.quantize_params(params_t, mode, device="cpu")
+    r = ModelRunner(cfg_t, qparams, device="cpu", **kw)
+    assert r.kv.k_scale is not None and len(r.kv.stacked()) == 4
+    before = (tqm.w8_matmul.launches, tqm.w4_matmul.launches)
+    _, seqs = _greedy(r, PROMPTS)
+    assert seqs == want
+    # the CPU runs the plain versions: no kernel launch is counted
+    assert (tqm.w8_matmul.launches, tqm.w4_matmul.launches) == before
+
+
 def test_prefix_blocks_are_shared_and_reproduce():
     _, _, cfg_t, params_t = _model("tiny")
     r = ModelRunner(cfg_t, params_t, device="cpu", **RUNNER_KW)
@@ -134,7 +160,8 @@ def test_step_n_matches_single_steps():
 
 @pytest.mark.parametrize("entry", [
     "runner", "params_from_numpy", "init_paged_cache", "resume_mask",
-    "rope_table", "sampling_params", "load_llama_params", "resolve_model"])
+    "rope_table", "sampling_params", "load_llama_params", "resolve_model",
+    "quantize_params"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """With no device named, the port asks for the card and raises when
     there is none; it never moves to the CPU on its own."""
@@ -155,6 +182,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "sampling_params": lambda: tsmp.SamplingParams.init(2),
         "load_llama_params": lambda: tloader.load_llama_params(tmp_path),
         "resolve_model": lambda: treg.resolve_model("debug:tiny"),
+        "quantize_params": lambda: tq.quantize_params(params_t, "int8"),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

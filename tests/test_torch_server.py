@@ -178,6 +178,66 @@ def test_config_with_named_template_is_refused(tmp_path):
     assert cfg.engine.max_slots == 2 and cfg.parameters.temperature == 0.2
 
 
+@pytest.mark.parametrize("quant", ["int8", "int4", "int8_w8a8"])
+def test_quantization_config_is_read_or_refused(tmp_path, quant):
+    p = tmp_path / "q.yaml"
+    p.write_text(yaml.safe_dump({"name": "q", "model": "debug:tiny",
+                                 "engine": {"quantization": quant,
+                                            "kv_dtype": quant[:4]}}))
+    if quant == "int8_w8a8":
+        with pytest.raises(ValueError, match="int8_w8a8 is not ported"):
+            load_config_file(p)
+        return
+    cfg = load_config_file(p)
+    assert (cfg.engine.quantization, cfg.engine.kv_dtype) == (quant, quant)
+    p.write_text(yaml.safe_dump({"name": "q", "model": "debug:tiny",
+                                 "engine": {"kv_dtype": "int2"}}))
+    with pytest.raises(ValueError, match="kv_dtype"):
+        load_config_file(p)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quantized_model_serves_jax_greedy_text(served, tmp_path, quant):
+    """A YAML with ``engine: {quantization, kv_dtype}`` serves the same
+    greedy chat text as the JAX scheduler over the JAX-quantized weights
+    and pool."""
+    from localai_tpu.models import quant as jq
+
+    ckpt = served[3].get("m").model
+    models = tmp_path / "models"
+    models.mkdir()
+    (models / "q.yaml").write_text(yaml.safe_dump({
+        "name": "q", "model": ckpt, "context_size": 128, "roles": ROLES,
+        "engine": {**ENGINE, "quantization": quant, "kv_dtype": quant}}))
+    loader = ConfigLoader(models)
+    loader.load_from_path()
+    server = APIServer(ModelManager(AppConfig(model_path=str(models),
+                                              device="cpu"), loader),
+                       "127.0.0.1", 0).start()
+    jm = jax_resolve(ckpt, dtype="float32")
+    jr = JaxRunner(jm.cfg, jq.quantize_params(jm.params, quant), num_slots=4,
+                   max_ctx=128, prefill_buckets=[128], kv_dtype=quant,
+                   paged=True, attn_impl="xla", kv_block_tokens=16,
+                   prefill_chunk=32)
+    sched = JaxScheduler(jr, jm.tokenizer)
+    try:
+        prompt = build_chat_prompt(loader.get("q"), MESSAGES)
+        want, ntok, _ = _jax_text((None, sched, jm.tokenizer, None), prompt,
+                                  12)
+        out = json.loads(_post(server, "/v1/chat/completions", {
+            "model": "q", "messages": MESSAGES, "max_tokens": 12,
+            "temperature": 0}))
+        assert out["choices"][0]["message"]["content"] == want
+        assert out["usage"]["completion_tokens"] == ntok
+        runner = server.manager.get("q").runner
+        assert runner.kv.k_scale is not None
+        assert runner.params["layers"]["wq"].mode == (
+            "w4" if quant == "int4" else "w8")
+    finally:
+        sched.shutdown()
+        server.shutdown()
+
+
 def _chat_text(server, messages, n, **extra):
     out = json.loads(_post(server, "/v1/chat/completions", {
         "model": "m", "max_tokens": n, "temperature": 0,
