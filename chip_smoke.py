@@ -5,8 +5,8 @@
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the port's CUDA kernels from ``localai_tpu_torch/csrc`` (one
-     nvcc per source, sm_90a, all started together) and print the build
-     time and the ptxas report;
+     nvcc per source, sm_90a, all five started together) and print the
+     build time and a ptxas summary per source;
   3. kernels, each against its plain PyTorch version on the same inputs:
      - K1 paged decode attention at the serving shapes (S=8, Hq=32, Hkv=8,
        hd=128, bt=64, ragged positions up to 4096, shuffled block tables)
@@ -15,6 +15,16 @@ Phases (any failure raises and the script exits non-zero):
        for the kernel, the plain version and one library call
        (scaled_dot_product_attention over K/V gathered and dequantized
        beforehand — a yardstick only), and the byte bound;
+     - K2 contiguous decode attention at the same shape over a
+       [8, 8, 4096, 128] cache in bf16, f32 and scaled int8, plus window,
+       hd=64 (a context of 1000 rows, no multiple of the kernel's tile)
+       and f32-q int8 cases; times as for K1 (library: SDPA over the
+       cache, masked to each slot's rows), byte bound;
+     - K3 prefill attention at Hq=32, Hkv=8, hd=128 for T = 512, 2048 and
+       4096 (length = T) and T=2048 with 1001 real rows, in bf16 and f32,
+       a window case and an hd=64 GQA-1 case; every row compared; times
+       for the kernel, the plain version and SDPA (is_causal, or the same
+       boolean mask), and the operation bound over the kept pairs;
      - K4 w8_matmul and K5 w4_matmul at Llama-3-8B's decode shapes (M=8
        rows against each projection and the lm_head), the tied lm_head
        orientation of debug:1b ([128256, 2048] table, K4 only) and the
@@ -23,15 +33,21 @@ Phases (any failure raises and the script exits non-zero):
        weight dequantized beforehand — it streams twice the int8 bytes),
        and the byte bound;
   4. parity: the port's runner on the card and on the CPU give identical
-     greedy tokens (debug:small, float32) with float weights and pool,
-     with int8 weights and pool, and with int4 weights and pool;
+     greedy tokens (debug:small, float32) on the paged layout with float,
+     int8 and int4 weights and pool, and on the contiguous layout with a
+     float and an int8 cache; ``embed`` vectors agree within 1e-4 of the
+     vector's largest magnitude;
   5. serving: the port's HTTP server serves debug:llama3-8b (Llama-3-8B
-     widths and depth, random weights from a seed) in bf16 three times —
-     bf16 weights and pool, int8 weights and pool, int4 weights and pool
-     — answering concurrent chat completions, one streaming. The paged
-     attention kernel's launches must cover every layer of every decode
-     step, and the w8/w4 kernel's every projection of every layer plus
-     the lm_head.
+     widths and depth, random weights from a seed) four times — bf16
+     paged, bf16 contiguous (``kv_paged: false``), int8 weights and pool,
+     int4 weights and pool — answering concurrent chat completions, one
+     streaming. The decode kernel of the layout launches exactly once per
+     layer per decode step (the other decode kernel never), the prefill
+     kernel once per layer per fresh contiguous prefill, and the w8/w4
+     kernel on every projection of every layer plus the lm_head. The
+     paged bf16 server (``embeddings: true``) then answers embeddings and
+     rerank requests while it decodes a chat: the prefill kernel launches
+     exactly once per layer per embedded input.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -43,12 +59,14 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
@@ -231,6 +249,185 @@ def phase_kernel() -> dict:
     return cases
 
 
+def _check_rows(name, out, ref, dtype) -> tuple[float, bool]:
+    """(max abs error, within TOL): float32 absolute, bfloat16 per row of
+    the first dim relative to that row's largest output."""
+    row_err = (out.float() - ref).abs().flatten(1).amax(1)
+    if dtype == torch.bfloat16:
+        row_tol = TOL[dtype] * ref.abs().flatten(1).amax(1)
+    else:
+        row_tol = torch.full_like(row_err, TOL[dtype])
+    ok = bool((row_err <= row_tol).all())
+    if not ok:
+        print(f"kernel case {name}: row errors {row_err.tolist()} exceed "
+              f"{row_tol.tolist()}", flush=True)
+    return row_err.max().item(), ok
+
+
+def decode_case(name, dtype, *, kv="", S=8, Hq=32, Hkv=8, hd=128, C=4096,
+                positions=(4095, 3001, 2048, 2047, 1000, 640, 64, 63),
+                window=None, seed=0, timed=False):
+    """K2 over a contiguous [S, Hkv, C, hd] cache in ``dtype`` (kv "") or
+    scaled int8 (kv "int8"; ``dtype`` is then q's)."""
+    from localai_tpu_torch.models import quant as tq
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        decode_attention_ref,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    q = torch.randn((S, Hq, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((S, Hkv, C, hd), generator=g, device=dev)
+    v = torch.randn((S, Hkv, C, hd), generator=g, device=dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    if kv:
+        k, ks = tq.quantize_lastdim(k)
+        v, vs = tq.quantize_lastdim(v)
+        scales = (ks, vs)
+        ref_kv = (k, v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+        scales = ()
+        ref_kv = (k.float(), v.float())
+    out = decode_attention(q, k, v, pos, *scales, sliding_window=window)
+    torch.cuda.synchronize()
+    ref = decode_attention_ref(q.float(), *ref_kv, pos, *scales,
+                               sliding_window=window)
+    err, ok = _check_rows(name, out, ref, dtype)
+    rec = {"case": name, "kernel": "decode_attention",
+           "dtype": str(dtype).replace("torch.", ""),
+           "kv": kv or str(dtype).replace("torch.", ""), "S": S, "Hq": Hq,
+           "Hkv": Hkv, "hd": hd, "C": C, "window": window,
+           "max_abs_err": err}
+    del ref
+    if timed:
+        # bytes each call must move: every slot's live rows (from the
+        # window's first row to pos) of K and V with their scales, q, out
+        # and positions; operations: 2 products of 2 flops
+        elem = q.element_size()
+        row = hd + 4 if kv else hd * elem
+        live = sum(p + 1 - (max(p - window + 1, 0) if window else 0)
+                   for p in positions)
+        nbytes = 2 * live * Hkv * row + 2 * S * Hq * hd * elem + S * 4
+        if kv:  # the library reads a cache dequantized beforehand
+            keys = (k.to(dtype) * ks[..., None].to(dtype))
+            values = (v.to(dtype) * vs[..., None].to(dtype))
+        else:
+            keys, values = k, v
+        idx = torch.arange(C, device=dev)
+        keep = idx[None, :] <= pos[:, None].long()
+        if window:
+            keep &= idx[None, :] > pos[:, None].long() - window
+        mask = keep[:, None, None, :]
+        q4 = q[:, :, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rec.update(
+            ms=time_ms(lambda: decode_attention(q, k, v, pos, *scales,
+                                                sliding_window=window)),
+            plain_ms=time_ms(lambda: decode_attention_ref(
+                q, k, v, pos, *scales, sliding_window=window), iters=10),
+            library_ms=time_ms(lambda: sdpa(q4, keys, values, attn_mask=mask,
+                                            enable_gqa=True)),
+            **_bound(nbytes, 4 * live * Hq * hd, dtype))
+        del keys, values
+    print("kernel case", json.dumps(rec), flush=True)
+    if not ok:
+        raise AssertionError(f"kernel case {name} exceeds its tolerance")
+    return rec
+
+
+def prefill_case(name, dtype, T, *, length=None, window=None, Hq=32, Hkv=8,
+                 hd=128, seed=0, timed=True):
+    """K3 for one T-token sequence (q [T, Hq, hd], head-major k/v), every
+    row compared, ``length`` real rows (default T)."""
+    from localai_tpu_torch.ops.attention import (
+        prefill_attention,
+        prefill_attention_ref,
+    )
+
+    length = T if length is None else length
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = [torch.randn(shp, generator=g, device="cuda").to(dtype)
+               for shp in ((T, Hq, hd), (Hkv, T, hd), (Hkv, T, hd))]
+    out = prefill_attention(q, k, v, length, sliding_window=window)
+    torch.cuda.synchronize()
+    ref = prefill_attention_ref(q.float(), k.float(), v.float(), length,
+                                sliding_window=window)
+    err, ok = _check_rows(name, out, ref, dtype)
+    del ref
+    rec = {"case": name, "kernel": "prefill_attention",
+           "dtype": str(dtype).replace("torch.", ""), "T": T,
+           "length": length, "window": window, "Hq": Hq, "Hkv": Hkv,
+           "hd": hd, "max_abs_err": err}
+    if timed:
+        # operations over the (row, key) pairs the mask keeps: row t takes
+        # keys <= t below length and inside the window; 2 products of
+        # 2 flops each, per query head
+        t = torch.arange(T, device="cuda")
+        keep = (t[None, :] <= t[:, None]) & (t[None, :] < length)
+        if window:
+            keep &= t[None, :] > t[:, None] - window
+        pairs = int(keep.sum())
+        # bytes: q read and out written, k and v read
+        nbytes = 2 * (T * Hq + Hkv * T) * hd * q.element_size()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        q4 = q.transpose(0, 1)[None]
+        k4, v4 = k[None], v[None]
+        if length == T and not window:
+            def library():
+                return sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+        else:
+            mask = keep[None, None]
+
+            def library():
+                return sdpa(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        rec.update(
+            ms=time_ms(lambda: prefill_attention(q, k, v, length,
+                                                 sliding_window=window),
+                       iters=10),
+            plain_ms=time_ms(lambda: prefill_attention_ref(
+                q, k, v, length, sliding_window=window), iters=3, warmup=1),
+            library_ms=time_ms(library, iters=10),
+            pairs=pairs, **_bound(nbytes, 4 * pairs * Hq * hd, dtype))
+        del keep
+    print("kernel case", json.dumps(rec), flush=True)
+    if not ok:
+        raise AssertionError(f"kernel case {name} exceeds its tolerance")
+    return rec
+
+
+def phase_attention() -> dict:
+    """K2 and K3 cases; returns the timed main records by name."""
+    main = {
+        "k2-bf16": decode_case("k2-bf16", torch.bfloat16, timed=True),
+        "k2-f32": decode_case("k2-f32", torch.float32, timed=True, seed=1),
+        "k2-int8": decode_case("k2-int8", torch.bfloat16, kv="int8",
+                               timed=True, seed=2),
+    }
+    decode_case("k2-window-bf16", torch.bfloat16, window=700, seed=3)
+    decode_case("k2-window-int8", torch.bfloat16, kv="int8", window=700,
+                seed=4)
+    decode_case("k2-hd64-f32", torch.float32, Hq=16, Hkv=4, hd=64, C=1000,
+                positions=(999, 0, 63, 64, 500, 511, 512, 900), seed=5)
+    decode_case("k2-int8-f32q", torch.float32, kv="int8", seed=6)
+    seed = 20
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for T in (512, 2048, 4096):
+            seed += 1
+            main[f"k3-T{T}-{tag}"] = prefill_case(f"k3-T{T}-{tag}", dtype, T,
+                                                  seed=seed)
+        main[f"k3-T2048-len1001-{tag}"] = prefill_case(
+            f"k3-T2048-len1001-{tag}", dtype, 2048, length=1001,
+            seed=seed + 1)
+    main["k3-window-bf16"] = prefill_case("k3-window-bf16", torch.bfloat16,
+                                          2048, window=700, seed=30)
+    prefill_case("k3-hd64-g1-f32", torch.float32, 300, length=290, Hq=8,
+                 Hkv=8, hd=64, seed=31, timed=False)
+    return main
+
+
 def qmm_case(kind, dtype, M, K, N, *, transpose=False, seed=0,
              timed=True) -> dict:
     """K4 (kind "w8") or K5 ("w4") on x [M, K] against a weight [K, N]
@@ -352,28 +549,42 @@ def _to(params, dev):
     return params.to(dev)
 
 
-def phase_parity() -> int:
-    """cuda/cpu greedy parity; returns the paged kernel's launches in the
-    float32 run on the card (its f32 pool's run through the runner)."""
+def phase_parity() -> dict:
+    """cuda/cpu greedy parity on both KV layouts, and cuda/cpu embed
+    parity; returns the kernels' launches in the card's runs by mode."""
     from localai_tpu_torch.engine.runner import ModelRunner
     from localai_tpu_torch.models.quant import quantize_params
     from localai_tpu_torch.models.registry import resolve_model
-    from localai_tpu_torch.ops.attention import paged_decode_attention
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
     from localai_tpu_torch.ops.qmatmul import w4_matmul, w8_matmul
 
+    wrappers = {"paged_decode_attention": paged_decode_attention,
+                "decode_attention": decode_attention,
+                "prefill_attention": prefill_attention,
+                "w8_matmul": w8_matmul, "w4_matmul": w4_matmul}
     model = resolve_model("debug:small", dtype="float32", device="cpu")
     prompts = [list(b"The paged kernel walks each block table"), list(b"hi")]
-    f32_launches = 0
-    for mode in ("", "int8", "int4"):
-        params = (quantize_params(model.params, mode, device="cpu") if mode
-                  else model.params)
-        seqs = {}
+    embed_prompts = [list(b"embed me"), list(range(3, 203))]
+    launches = {}
+    # (layout, weights, KV storage): paged float, int8 and int4 weights
+    # and pools; contiguous float and an int8 cache under float weights
+    for paged, weights, kv in ((True, "", "float32"), (True, "int8", "int8"),
+                               (True, "int4", "int4"),
+                               (False, "", "float32"), (False, "", "int8")):
+        mode = f"{'paged' if paged else 'contiguous'}-{kv}"
+        params = (quantize_params(model.params, weights, device="cpu")
+                  if weights else model.params)
+        seqs, vecs = {}, {}
         for dev in ("cuda", "cpu"):
             r = ModelRunner(model.cfg, _to(params, dev), num_slots=4,
-                            max_ctx=256, kv_dtype=mode or "float32",
-                            kv_block_tokens=16, prefill_chunk=32, device=dev)
-            paged_decode_attention.launches = 0
-            w8_matmul.launches = w4_matmul.launches = 0
+                            max_ctx=256, kv_dtype=kv, kv_block_tokens=16,
+                            prefill_chunk=32, paged=paged, device=dev)
+            for w in wrappers.values():
+                w.launches = 0
             out = []
             slots = []
             for p in prompts:
@@ -385,25 +596,36 @@ def phase_parity() -> int:
                 for o, s in zip(out, slots):
                     o.append(int(toks[s]))
             seqs[dev] = out
-            counts = {"paged_decode_attention":
-                      paged_decode_attention.launches,
-                      "w8_matmul": w8_matmul.launches,
-                      "w4_matmul": w4_matmul.launches}
-            print(f"parity {mode or 'float'} {dev} ({r.paged_attn_impl}): "
-                  f"{out} launches {json.dumps(counts)}", flush=True)
+            counts = {n: w.launches for n, w in wrappers.items()}
+            if mode == "contiguous-float32":
+                vecs[dev] = [r.embed(p) for p in embed_prompts]
+            print(f"parity {mode} {dev} (decode "
+                  f"{r.paged_attn_impl or r.attn_impl}, prefill "
+                  f"{r.attn_impl}): {out} launches {json.dumps(counts)}",
+                  flush=True)
             if dev == "cuda":
-                if counts["paged_decode_attention"] <= 0:
-                    raise AssertionError("parity: no paged kernel launch")
-                qk = {"int8": "w8_matmul", "int4": "w4_matmul"}.get(mode)
-                if qk and counts[qk] <= 0:
-                    raise AssertionError(f"parity: no {qk} launch")
-                if not mode:
-                    f32_launches = counts["paged_decode_attention"]
+                need = ["paged_decode_attention" if paged
+                        else "decode_attention"]
+                if not paged:
+                    need.append("prefill_attention")
+                need += {"int8": ["w8_matmul"],
+                         "int4": ["w4_matmul"]}.get(weights, [])
+                for n in need:
+                    if counts[n] <= 0:
+                        raise AssertionError(f"parity {mode}: no {n} launch")
+                launches[mode] = counts
             del r
         if seqs["cuda"] != seqs["cpu"]:
             raise AssertionError(
-                f"greedy tokens differ between cuda and cpu ({mode or 'float'})")
-    return f32_launches
+                f"greedy tokens differ between cuda and cpu ({mode})")
+        for a, b in zip(vecs.get("cuda", ()), vecs.get("cpu", ())):
+            err = float(abs(a - b).max())
+            tol = 1e-4 * float(abs(b).max())
+            print(f"parity embed: max abs diff {err} (tolerance {tol})",
+                  flush=True)
+            if not err <= tol:
+                raise AssertionError("embed differs between cuda and cpu")
+    return launches
 
 
 def _post(url: str, body: dict, timeout: float = 600):
@@ -412,26 +634,39 @@ def _post(url: str, body: dict, timeout: float = 600):
     return urllib.request.urlopen(req, timeout=timeout)
 
 
-def phase_serve(card: str, quant: str = "", profile: bool = False) -> dict:
+def phase_serve(card: str, quant: str = "", paged: bool = True,
+                profile: bool = False) -> dict:
     """Serve debug:llama3-8b over HTTP with bf16 weights and pool, or with
-    ``quant`` ("int8"/"int4") weights and pool; returns the launch counts
-    of the run."""
+    ``quant`` ("int8"/"int4") weights and pool, or (``paged`` False) with
+    bf16 weights over the contiguous cache; returns the launch counts of
+    the timed run. The paged bf16 server also answers embeddings and
+    rerank requests while it decodes."""
     from localai_tpu_torch.api.server import APIServer
     from localai_tpu_torch.config.app_config import AppConfig
     from localai_tpu_torch.config.loader import ConfigLoader
     from localai_tpu_torch.config.model_config import ModelConfig
     from localai_tpu_torch.models.manager import ModelManager
-    from localai_tpu_torch.ops.attention import paged_decode_attention
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
     from localai_tpu_torch.ops.qmatmul import w4_matmul, w8_matmul
 
-    name = f"llama3-8b-{quant or 'bf16'}"
+    wrappers = {"paged_decode_attention": paged_decode_attention,
+                "decode_attention": decode_attention,
+                "prefill_attention": prefill_attention,
+                "w8_matmul": w8_matmul, "w4_matmul": w4_matmul}
+    name = f"llama3-8b-{quant or 'bf16'}{'' if paged else '-contiguous'}"
     engine = {"dtype": "bfloat16", "kv_dtype": quant or "bfloat16",
-              "max_slots": 8, "kv_block_tokens": 64, "spec": False}
+              "max_slots": 8, "kv_block_tokens": 64, "spec": False,
+              "kv_paged": paged}
     if quant:
         engine["quantization"] = quant
+    embeds = paged and not quant
     mcfg = ModelConfig.from_dict({
         "name": name, "model": "debug:llama3-8b", "context_size": 4096,
-        "engine": engine,
+        "embeddings": embeds, "engine": engine,
     })
     mcfg.set_defaults()
     loader = ConfigLoader()
@@ -489,9 +724,10 @@ def phase_serve(card: str, quant: str = "", profile: bool = False) -> dict:
             except Exception as e:  # noqa: BLE001 — re-raised below
                 errors.append(e)
 
-        paged_decode_attention.launches = 0
-        w8_matmul.launches = w4_matmul.launches = 0
+        for w in wrappers.values():
+            w.launches = 0
         steps0 = sm.runner.decode_steps
+        fresh0 = sm.runner.fresh_prefills
         t0 = time.monotonic()
         threads = [threading.Thread(target=plain, args=(i,))
                    for i in range(4)]
@@ -501,10 +737,9 @@ def phase_serve(card: str, quant: str = "", profile: bool = False) -> dict:
         for t in threads:
             t.join()
         wall = time.monotonic() - t0
-        launches = {"paged_decode_attention": paged_decode_attention.launches,
-                    "w8_matmul": w8_matmul.launches,
-                    "w4_matmul": w4_matmul.launches}
+        launches = {n: w.launches for n, w in wrappers.items()}
         steps = sm.runner.decode_steps - steps0
+        fresh = sm.runner.fresh_prefills - fresh0
         if errors:
             raise errors[0]
         ntok = 0
@@ -518,11 +753,17 @@ def phase_serve(card: str, quant: str = "", profile: bool = False) -> dict:
             raise AssertionError("the streaming request returned no tokens")
         ntok += su
         L = sm.runner.cfg.num_layers
-        k1 = launches["paged_decode_attention"]
-        if steps <= 0 or k1 < L * steps:
-            raise AssertionError(
-                f"{name}: paged kernel launches {k1} < {L} layers x "
-                f"{steps} steps")
+        # the decode kernel of the layout once per layer per decode step,
+        # the other none; the prefill kernel once per layer per fresh
+        # contiguous prefill (paged prefill chunks run plain attention)
+        decode = "paged_decode_attention" if paged else "decode_attention"
+        other = "decode_attention" if paged else "paged_decode_attention"
+        want = {decode: L * steps, other: 0, "prefill_attention": L * fresh}
+        got = {n: launches[n] for n in want}
+        if steps <= 0 or got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want} "
+                                 f"({L} layers, {steps} decode steps, "
+                                 f"{fresh} fresh prefills)")
         if quant:
             qk = "w8_matmul" if quant == "int8" else "w4_matmul"
             if launches[qk] < (7 * L + 1) * steps:
@@ -530,17 +771,24 @@ def phase_serve(card: str, quant: str = "", profile: bool = False) -> dict:
                     f"{name}: {qk} launches {launches[qk]} < (7 x {L} + 1) "
                     f"x {steps} steps: an eligible decode matmul skipped "
                     "the kernel")
-        again = json.loads(_post(chat, body(0)).read())
-        if (again["choices"][0]["message"]["content"]
-                != results[0]["choices"][0]["message"]["content"]):
-            raise AssertionError("repeating request 0 changed its text")
+        embedded = phase_embed(server.url, name, sm.runner.cfg.hidden_size,
+                               chat, body(0),
+                               results[0]["choices"][0]["message"]["content"],
+                               L) if embeds else 0
+        if not embeds:
+            again = json.loads(_post(chat, body(0)).read())
+            if (again["choices"][0]["message"]["content"]
+                    != results[0]["choices"][0]["message"]["content"]):
+                raise AssertionError("repeating request 0 changed its text")
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "localai_tpu")]
         if bad:
             raise AssertionError(f"JAX-side modules imported: {bad[:5]}")
         print("serve: " + json.dumps({
             "card": card, "model": name, "weights": quant or "bfloat16",
-            "kv_dtype": quant or "bfloat16", "requests": 5, "streaming": 1,
+            "kv_dtype": quant or "bfloat16",
+            "kv_layout": "paged" if paged else "contiguous",
+            "requests": 5, "streaming": 1, "fresh_prefills": fresh,
             "completion_tokens": ntok, "wall_s": wall,
             "tokens_per_s": ntok / wall, "ttft_stream_s": results[4]["ttft_s"],
             "decode_steps": steps, "kernel_launches": launches,
@@ -549,6 +797,7 @@ def phase_serve(card: str, quant: str = "", profile: bool = False) -> dict:
         }), flush=True)
         if profile:
             phase_profile(sm)
+        launches["embedded_prefill_attention"] = embedded
         return launches
     finally:
         # free this model before the next phase builds its own, so peak
@@ -558,6 +807,69 @@ def phase_serve(card: str, quant: str = "", profile: bool = False) -> dict:
         sm = manager = server = None
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def phase_embed(url: str, name: str, hidden: int, chat: str, chat_body: dict,
+                chat_text: str, L: int) -> int:
+    """Embeddings and rerank requests sent while a repeat of a chat request
+    decodes: one string, three strings (one ~1000 tokens), one token
+    array, then a rerank of three documents. The prefill kernel must
+    launch exactly L times per embedded input (the lock-guarded count
+    loses nothing to the engine thread's launches) and the repeated chat
+    must keep its text. Returns the prefill kernel's launches."""
+    from localai_tpu_torch.ops.attention import prefill_attention
+
+    prefill_attention.launches = 0
+    long_text = ("The quick brown fox jumps over the lazy dog. " * 23)[:1000]
+    asks = [("/v1/embeddings", {"input": "What is paged attention?"}, 1),
+            ("/v1/embeddings", {"input": ["short", long_text,
+                                          "a middle-sized sentence"]}, 3),
+            ("/embeddings", {"input": [5, 6, 7, 8, 9, 10]}, 1),
+            ("/v1/rerank", {"query": "capital of France",
+                            "documents": ["Paris is the capital of France.",
+                                          "Bananas are yellow.",
+                                          "France is in Europe."]}, 4)]
+    repeated: dict = {}
+    errors: list = []
+
+    def repeat():
+        try:
+            repeated.update(json.loads(_post(chat, chat_body).read()))
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t = threading.Thread(target=repeat)
+    t.start()
+    t0 = time.monotonic()
+    answers = [json.loads(_post(url + path, {"model": name, **body}).read())
+               for path, body, _ in asks]
+    wall = time.monotonic() - t0
+    t.join()
+    if errors:
+        raise errors[0]
+    if repeated["choices"][0]["message"]["content"] != chat_text:
+        raise AssertionError("a chat decoded beside embeddings changed text")
+    n_inputs = sum(n for _, _, n in asks)
+    embedded = answers[:3]
+    vecs = [d["embedding"] for r in embedded for d in r["data"]]
+    rerank = answers[3]
+    ok = (len(vecs) == 5 and all(len(v) == hidden for v in vecs)
+          and all(np.isfinite(v).all() for v in vecs)
+          and len(rerank["results"]) == 3
+          and all(np.isfinite(r["relevance_score"])
+                  for r in rerank["results"]))
+    launches = prefill_attention.launches
+    print("embed: " + json.dumps({
+        "model": name, "inputs": n_inputs, "vectors": len(vecs),
+        "rerank_order": [r["index"] for r in rerank["results"]],
+        "prompt_tokens": [r["usage"]["prompt_tokens"] for r in embedded],
+        "wall_s": wall, "prefill_attention_launches": launches}), flush=True)
+    if not ok:
+        raise AssertionError("embeddings or rerank returned a bad vector")
+    if launches != L * n_inputs:
+        raise AssertionError(f"prefill kernel launches {launches} != {L} "
+                             f"layers x {n_inputs} embedded inputs")
+    return launches
 
 
 def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16) -> None:
@@ -596,7 +908,7 @@ def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16) -> None:
         return sum(v for k, v in kernels.items()
                    if any(x in k.lower() for x in subs))
 
-    attn = share("paged_decode_kernel")
+    attn = share("decode_kernel")  # K1 (paged) or K2 (contiguous)
     qmm = share("w8_kn_kernel", "w8_nk_kernel", "w4_kernel")
     gemm = share("gemm", "nvjet", "xmma", "cutlass", "cublas")
     print("profile: " + json.dumps({
@@ -666,23 +978,32 @@ def main() -> int:
     print(f"build: {time.monotonic() - t0:.1f}s ({', '.join(_build.SOURCES)})",
           flush=True)
     for src in _build.SOURCES:
-        for line in _build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {src}:", line.strip())
+        log = _build.build_log(src)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+        print(f"ptxas {src}: {len(regs)} kernels, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, "
+              f"{sum(int(x) > 0 for x in spills)} with spill stores",
+              flush=True)
     k1 = phase_kernel()
+    attn = phase_attention()
     qmm = phase_qmatmul()
-    f32_launches = phase_parity()
+    parity = phase_parity()
     profile = "--profile" in sys.argv[1:]
-    served = {q: phase_serve(card, q, profile=profile)
-              for q in ("", "int8", "int4")}
+    served = {"": phase_serve(card, profile=profile),
+              "contiguous": phase_serve(card, paged=False, profile=profile)}
+    for q in ("int8", "int4"):
+        served[q] = phase_serve(card, q, profile=profile)
     src = "localai_tpu_torch/csrc/"
     k1_src = src + "paged_decode_attention.cu"
     k1_tpu = "localai_tpu/ops/attention.py:458"
+    k2_src = src + "decode_attention.cu"
+    k2_tpu = "localai_tpu/ops/attention.py:230"
     kernels = [
         _entry("paged_decode_attention", k1_src, k1_tpu,
                served[""]["paged_decode_attention"], k1["bf16"]),
-        _entry("paged_decode_attention_f32", k1_src, k1_tpu, f32_launches,
-               k1["f32"]),
+        _entry("paged_decode_attention_f32", k1_src, k1_tpu,
+               parity["paged-float32"]["paged_decode_attention"], k1["f32"]),
         _entry("paged_decode_attention_int8", k1_src, k1_tpu,
                served["int8"]["paged_decode_attention"], k1["int8"]),
         _entry("paged_decode_attention_int4", k1_src, k1_tpu,
@@ -693,6 +1014,21 @@ def main() -> int:
         _entry("w4_matmul", src + "w4_matmul.cu",
                "localai_tpu/ops/qmatmul.py:135",
                served["int4"]["w4_matmul"], qmm["w4"]["w_gate/w_up"]),
+        _entry("decode_attention", k2_src, k2_tpu,
+               served["contiguous"]["decode_attention"], attn["k2-bf16"]),
+        _entry("decode_attention_f32", k2_src, k2_tpu,
+               parity["contiguous-float32"]["decode_attention"],
+               attn["k2-f32"]),
+        _entry("decode_attention_int8", k2_src, k2_tpu,
+               parity["contiguous-int8"]["decode_attention"],
+               attn["k2-int8"]),
+        # launches: fresh prefills of the contiguous server plus every
+        # embedded input of the paged one
+        _entry("prefill_attention", src + "prefill_attention.cu",
+               "localai_tpu/ops/attention.py:337",
+               served["contiguous"]["prefill_attention"]
+               + served[""]["embedded_prefill_attention"],
+               attn["k3-T2048-bf16"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,10 +1,12 @@
-"""OpenAI-compatible endpoints: chat completions, completions, models.
+"""OpenAI-compatible endpoints: chat completions, completions,
+embeddings, models.
 
 Port of the plain-text part of ``localai_tpu/api/openai.py`` (and the
 response shapes of ``api/schema.py``), written as framework-free
 functions over parsed JSON: ``api.server`` maps HTTP onto them. Response
 JSON has the JAX package's shape — id, object, created, model, choices
-with ``delta`` (stream) or ``message``, finish_reason, usage.
+with ``delta`` (stream) or ``message``, finish_reason, usage; embeddings
+as a list of ``embedding`` objects.
 """
 
 from __future__ import annotations
@@ -66,15 +68,22 @@ def completion_response(rid: str, model: str, choices: list[dict],
             "model": model, "choices": choices, "usage": usage_dict}
 
 
+def embeddings_response(model: str, vectors: list[list[float]],
+                        prompt_tokens: int) -> dict:
+    return {"object": "list", "model": model,
+            "data": [{"object": "embedding", "index": i, "embedding": v}
+                     for i, v in enumerate(vectors)],
+            "usage": usage(prompt_tokens, 0)}
+
+
 def models_response(names: list[str]) -> dict:
     return {"object": "list",
             "data": [{"id": n, "object": "model", "owned_by": "localai-tpu"}
                      for n in names]}
 
 
-def _serving(manager, body: dict):
-    """(ServingModel, model name) for a request body: ``model`` or the
-    first configured model."""
+def _model_name(manager, body: dict) -> str:
+    """The request's ``model``, or the first configured model."""
     name = body.get("model") or ""
     if not name:
         names = manager.loader.names()
@@ -84,6 +93,16 @@ def _serving(manager, body: dict):
     if manager.loader.get(name) is None:
         raise APIError(404, f"model {name!r} not found; available: "
                             f"{manager.loader.names()}")
+    return name
+
+
+def _serving(manager, body: dict, usecase: Optional[str] = None):
+    """(ServingModel, model name) for a request body; a model without
+    ``usecase`` (when given) is refused before it is loaded."""
+    name = _model_name(manager, body)
+    if usecase is not None and not manager.loader.get(name).has_usecase(
+            usecase):
+        raise APIError(400, f"model {name!r} does not support {usecase}")
     return manager.get(name), name
 
 
@@ -216,6 +235,37 @@ def _completions_stream(handle: GenHandle, rid: str,
         rid, model, [{"index": 0, "text": "", "finish_reason": finish}],
         usage(handle.prompt_tokens, handle.completion_tokens)))
     yield SSE_DONE
+
+
+def embeddings(manager, body: dict) -> dict:
+    """POST /v1/embeddings: ``input`` is a string, a list of strings, one
+    token array or a list of token arrays; each input is mean-pooled
+    through the LLM engine (``runner.embed``), on this request's thread."""
+    sm, model = _serving(manager, body, "embeddings")
+    raw = body.get("input")
+    if raw is None:
+        inputs = [""]
+    elif isinstance(raw, str):
+        inputs = [raw]
+    elif isinstance(raw, list):
+        inputs = list(raw) or [""]
+        if all(isinstance(x, int) for x in inputs):
+            inputs = [inputs]  # one tokenized input
+    else:
+        raise APIError(400, "input must be a string, a list of strings or "
+                            "token arrays")
+    vocab = sm.runner.cfg.vocab_size
+    vectors, prompt_tokens = [], 0
+    for item in inputs:
+        if isinstance(item, list):
+            toks = [int(t) for t in item]
+            if not all(0 <= t < vocab for t in toks):
+                raise APIError(400, f"token ids must lie in [0, {vocab})")
+        else:
+            toks = sm.tokenizer.encode(str(item), add_bos=True)
+        prompt_tokens += len(toks)
+        vectors.append([float(x) for x in sm.runner.embed(toks)])
+    return embeddings_response(model, vectors, prompt_tokens)
 
 
 def list_models(manager) -> dict:

@@ -3,6 +3,8 @@
 Routes (the JAX package's aiohttp server has many more):
   * POST /v1/chat/completions  (plain JSON, or SSE with ``"stream": true``)
   * POST /v1/completions
+  * POST /v1/embeddings, /embeddings
+  * POST /v1/rerank, /rerank
   * GET  /v1/models
   * GET  /readyz
 One thread per connection; each request blocks its own thread on the
@@ -16,12 +18,15 @@ import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from localai_tpu_torch.api import jina
 from localai_tpu_torch.api import openai as oa
 from localai_tpu_torch.models.manager import ModelManager
 
 log = logging.getLogger(__name__)
 
-_POST = {"/v1/chat/completions": oa.chat, "/v1/completions": oa.completions}
+_POST = {"/v1/chat/completions": oa.chat, "/v1/completions": oa.completions,
+         "/v1/embeddings": oa.embeddings, "/embeddings": oa.embeddings,
+         "/v1/rerank": jina.rerank, "/rerank": jina.rerank}
 _GET = {"/v1/models": oa.list_models, "/readyz": oa.readyz}
 
 

@@ -1,13 +1,16 @@
 """Per-model declarative config, as plain dataclasses.
 
-Port of the fields of ``localai_tpu/config/model_config.py`` that this
-slice reads (the JAX package validates with pydantic, which the port's
-runtime does not depend on). Unknown keys are ignored; keys that would ask
-for a feature the port does not have yet — Go/Jinja prompt templates,
-``int8_w8a8`` quantization, speculative decoding — raise a clear error at
-load instead of serving something else than was asked for. int8 and int4
-weights (``engine.quantization``) and int8/int4 KV pools
-(``engine.kv_dtype``) are served.
+Port of the fields of ``localai_tpu/config/model_config.py`` that the port
+reads (the JAX package validates with pydantic, which the port's runtime
+does not depend on). Unknown keys are ignored; keys that would ask for a
+feature the port does not have yet — Go/Jinja prompt templates,
+``int8_w8a8`` quantization, speculative decoding, self-extend
+(``engine.grp_attn_n > 1``), a vision tower (``mmproj``) — raise a clear
+error at load instead of serving something else than was asked for. int8
+and int4 weights (``engine.quantization``), int8/int4 KV storage
+(``engine.kv_dtype``; int4 on the paged layout only), the contiguous KV
+layout (``engine.kv_paged: false``) and embeddings (``embeddings: true``)
+are served.
 """
 
 from __future__ import annotations
@@ -17,6 +20,13 @@ from typing import Any, Optional
 
 
 KV_DTYPES = ("bfloat16", "float32", "int8", "int4")
+# backends whose models are sentence encoders or cross-encoders
+# (models/reranker.py in the JAX package), which the port has not ported
+CROSS_ENCODER_BACKENDS = ("reranker", "bert-embeddings",
+                          "sentencetransformers")
+# backend names served by the LLM engine (the JAX package's list)
+LLM_BACKENDS = ("", "jax", "jax-llm", "transformers", "worker",
+                "huggingface", "langchain-huggingface", "mamba", "rwkv")
 
 
 def _pick(cls, data: Optional[dict]) -> dict:
@@ -81,6 +91,11 @@ class EngineConfig:
     decode_steps_per_dispatch: int = 16
     kv_block_tokens: Optional[int] = None   # default 64
     prefill_chunk: Optional[int] = None     # default 512
+    # KV layout: None or true = the paged block pool, false = the
+    # contiguous slot cache (one device: nothing else forces contiguous)
+    kv_paged: Optional[bool] = None
+    prefill_buckets: Optional[list[int]] = None  # default 128/512/2048/8192
+    grp_attn_n: int = 1                 # self-extend: refused when > 1
     quantization: Optional[str] = None  # weights: int8 | int4
     spec: Optional[bool] = None         # refused when true: not ported yet
     draft_model: Optional[str] = None   # refused: not ported yet
@@ -91,7 +106,11 @@ class ModelConfig:
     """One model's declarative config (a YAML document in the models dir)."""
 
     name: str = ""
+    backend: str = ""                  # "" = the LLM engine
     model: str = ""                    # weights ref: "debug:*" or a dir
+    embeddings: bool = False           # serve /v1/embeddings (and rerank)
+    known_usecases: Optional[list[str]] = None
+    mmproj: Optional[str] = None       # vision tower: refused (not ported)
     context_size: Optional[int] = None
     seed: Optional[int] = None         # random-weight presets + sampling
     roles: dict[str, str] = dataclasses.field(default_factory=dict)
@@ -141,6 +160,39 @@ class ModelConfig:
             raise ValueError(
                 f"model {self.name or self.model!r}: speculative decoding "
                 "is not ported yet (set engine.spec: false)")
+        if self.engine.grp_attn_n > 1:
+            raise ValueError(
+                f"model {self.name or self.model!r}: self-extend "
+                f"(engine.grp_attn_n={self.engine.grp_attn_n}) is not "
+                "ported yet")
+        if self.mmproj:
+            raise ValueError(
+                f"model {self.name or self.model!r}: vision (mmproj) is not "
+                "ported yet")
+        if self.engine.kv_dtype == "int4" and self.engine.kv_paged is False:
+            raise ValueError(
+                f"model {self.name or self.model!r}: kv_dtype int4 needs "
+                "the paged KV layout (kv_paged: false takes int8)")
+
+    def has_usecase(self, usecase: str) -> bool:
+        """Usecase gating: ``known_usecases`` when set, else the guess."""
+        if self.known_usecases is not None:
+            return usecase in self.known_usecases
+        return usecase in self.guess_usecases()
+
+    def guess_usecases(self) -> set[str]:
+        """The JAX package's guess from the backend name and the
+        ``embeddings`` flag, limited to the port's usecases."""
+        name = (self.backend or "").lower()
+        guessed: set[str] = set()
+        if self.embeddings or "embed" in name:
+            guessed.add("embeddings")
+        if name in LLM_BACKENDS:
+            guessed |= {"chat", "completion"}
+        if "rerank" in name or self.embeddings:
+            # embedding-capable models score query/document pairs
+            guessed.add("rerank")
+        return guessed
 
     def set_defaults(self, *, context_size: int = 4096) -> None:
         """Fill unset fields (same defaults as the JAX package)."""

@@ -1,0 +1,336 @@
+// Contiguous-cache GQA decode attention for Hopper (sm_90a), one query
+// token per slot.
+//
+// Replaces the Pallas TPU kernel localai_tpu/ops/attention.py::
+// decode_attention (kernel _decode_kernel, loop _flash_loop) for bf16 and
+// f32 slot caches and for scaled int8 caches. The cache is head-major
+// [S, Hkv, C, hd] (int8 with f32 scales [S, Hkv, C] for K and for V); slot
+// s attends over rows lo .. pos of its own [C, hd] row with the Pallas
+// kernel's math: q pre-scaled by hd^-0.5 in f32, positions masked by
+// idx <= pos and idx > pos - window with a -1e30 fill, result
+// acc / max(l, 1e-30). The K scale multiplies score columns and the V
+// scale probability columns after the denominator, as _flash_loop does.
+// There is no int4 contiguous cache (the JAX runner refuses it).
+//
+// Bound: like the paged kernel, each live K/V row is read once for ~4*g
+// flops per element, so it is bound by device-memory bytes:
+// (live K/V rows and their scales + q + out) / 3.35 TB/s.
+//
+// Design: the paged kernel's walk (csrc/paged_decode_attention.cu) with
+// the block table replaced by a contiguous row offset — one CUDA block per
+// (slot, kv head), kTile-row K/V tiles staged in shared memory by
+// double-buffered cp.async, f32 online softmax. A tile that runs past C
+// (C need not be a multiple of kTile) is zero-filled; its rows lie past
+// pos and are masked. The walk is a copy of the paged kernel's, not a
+// shared header: moving that kernel onto a shared walk slowed it by
+// 15-30% on the card with no change to its memory instructions, so it
+// stays as it was measured. Not done yet: a split of the walk over
+// several CUDA blocks (S*Hkv blocks underfill the 132 SMs at small batch).
+//
+// Plain C interface (bound with ctypes); launches on the caller's stream
+// and returns cudaGetLastError() after the launch.
+
+#include "common.cuh"
+
+namespace {
+
+using localai::from_f32;
+using localai::to_f32;
+
+constexpr float kNegInf = -1e30f;
+constexpr int kMaxSmem = 232448;  // H100 opt-in shared memory per block
+constexpr int kTile = 64;         // cache rows per online-softmax step
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Cache storage: Q = 0 holds T (the compute dtype), Q = 1 scaled int8.
+template <typename T, int Q, int HD>
+struct Rows {
+  static constexpr int kRowBytes = Q == 0 ? HD * (int)sizeof(T) : HD;
+
+  // element d of row j of a staged tile, as f32 (unscaled)
+  __device__ static __forceinline__ float load(const unsigned char* tile,
+                                               int j, int d) {
+    if constexpr (Q == 0) {
+      return to_f32(reinterpret_cast<const T*>(tile)[j * HD + d]);
+    } else {
+      return static_cast<float>(
+          reinterpret_cast<const int8_t*>(tile)[j * HD + d]);
+    }
+  }
+};
+
+// Shared-memory bytes for one block: two stages of K and V tiles (and of
+// their scale rows for an int8 cache), the pre-scaled q rows, the
+// score/probability tile and per-row statistics.
+template <typename T, int Q, int HD, int G>
+constexpr size_t smem_bytes() {
+  return 4 * (size_t)kTile * Rows<T, Q, HD>::kRowBytes +
+         (Q ? 4 * (size_t)kTile * 4 : 0) + (size_t)G * HD * 4 +
+         (size_t)G * kTile * 4 + 3 * (size_t)G * 4;
+}
+
+// 16 bytes from src to dst, or 16 zero bytes (a chunk past the cache's
+// last row). Each call passes a constant zero-fill count: a runtime one
+// makes the intrinsic switch over every count per copy.
+__device__ __forceinline__ void copy16(void* dst, const void* src,
+                                       bool live) {
+  if (live) {
+    __pipeline_memcpy_async(dst, src, 16);
+  } else {
+    __pipeline_memcpy_async(dst, src, 16, 16);
+  }
+}
+
+template <typename T, int Q, int HD, int G>
+__global__ void __launch_bounds__(HD) decode_kernel(
+    const T* __restrict__ q,             // [S, Hq, HD]
+    const void* __restrict__ k_cache,    // [S, Hkv, C, row] (row: Rows)
+    const void* __restrict__ v_cache,    // [S, Hkv, C, row]
+    const float* __restrict__ k_scale,   // [S, Hkv, C] (Q != 0)
+    const float* __restrict__ v_scale,   // [S, Hkv, C] (Q != 0)
+    const int* __restrict__ positions,   // [S]
+    T* __restrict__ out,                 // [S, Hq, HD]
+    int Hkv, int C, int window, float sm_scale) {
+  using Tile = Rows<T, Q, HD>;
+  constexpr int kWarps = HD / 32;
+  constexpr int tile = kTile * Tile::kRowBytes;         // bytes
+  constexpr int vec16 = tile / 16;                      // 16B chunks
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* kbuf = smem_raw;                       // [2][tile]
+  unsigned char* vbuf = kbuf + 2 * tile;                // [2][tile]
+  float* ksb = reinterpret_cast<float*>(vbuf + 2 * tile);  // [2][kTile]
+  float* vsb = ksb + (Q ? 2 * kTile : 0);               // [2][kTile]
+  float* qs = vsb + (Q ? 2 * kTile : 0);                // [G][HD]
+  float* ps = qs + G * HD;                              // [G][kTile]
+  float* row_m = ps + G * kTile;                        // [G]
+  float* row_l = row_m + G;                             // [G]
+  float* row_alpha = row_l + G;                         // [G]
+
+  const int s = blockIdx.x;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int pos = positions[s];
+  const int nb = min(pos / kTile + 1, (C + kTile - 1) / kTile);
+  int lo = 0;
+  if (window > 0) {
+    const int first = pos - window + 1;  // floor-divide, clamped at 0
+    lo = first > 0 ? first / kTile : 0;
+  }
+  const size_t row = (size_t)s * Hkv + h;  // this (slot, head)'s C rows
+  const char* kb = static_cast<const char*>(k_cache) + row * C * Tile::kRowBytes;
+  const char* vb = static_cast<const char*>(v_cache) + row * C * Tile::kRowBytes;
+
+  const T* qrow = q + row * G * HD;
+#pragma unroll
+  for (int r = 0; r < G; ++r) qs[r * HD + tid] = to_f32(qrow[r * HD + tid]) * sm_scale;
+  if (tid < G) {
+    row_m[tid] = kNegInf;
+    row_l[tid] = 0.f;
+  }
+
+  auto issue = [&](int i, int stage) {
+    const int first = i * kTile;
+    const int live16 = min(kTile, C - first) * Tile::kRowBytes / 16;
+    const char* ksrc = kb + (size_t)first * Tile::kRowBytes;
+    const char* vsrc = vb + (size_t)first * Tile::kRowBytes;
+    unsigned char* kdst = kbuf + stage * tile;
+    unsigned char* vdst = vbuf + stage * tile;
+    if (live16 == vec16) {  // every tile but a ragged last one
+      for (int e = tid; e < vec16; e += HD) {
+        __pipeline_memcpy_async(kdst + 16 * e, ksrc + 16 * e, 16);
+        __pipeline_memcpy_async(vdst + 16 * e, vsrc + 16 * e, 16);
+      }
+    } else {
+      for (int e = tid; e < vec16; e += HD) {
+        const bool live = e < live16;
+        copy16(kdst + 16 * e, ksrc + (live ? 16 * e : 0), live);
+        copy16(vdst + 16 * e, vsrc + (live ? 16 * e : 0), live);
+      }
+    }
+    if constexpr (Q != 0) {
+      // kTile floats in 16B chunks; C % 4 == 0, so a chunk is all live
+      const float* kss = k_scale + row * C + first;
+      const float* vss = v_scale + row * C + first;
+      for (int e = tid; e < kTile / 4; e += HD) {
+        const bool live = first + 4 * e < C;
+        copy16(ksb + stage * kTile + 4 * e, kss + (live ? 4 * e : 0), live);
+        copy16(vsb + stage * kTile + 4 * e, vss + (live ? 4 * e : 0), live);
+      }
+    }
+    __pipeline_commit();
+  };
+
+  float acc[G];
+#pragma unroll
+  for (int r = 0; r < G; ++r) acc[r] = 0.f;
+
+  issue(lo, 0);
+  for (int i = lo; i < nb; ++i) {
+    const int stage = (i - lo) & 1;
+    if (i + 1 < nb) {
+      issue(i + 1, stage ^ 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    const unsigned char* kt = kbuf + stage * tile;
+    const unsigned char* vt = vbuf + stage * tile;
+    const float* ks = ksb + stage * kTile;
+    const float* vs = vsb + stage * kTile;
+
+    // scores: warp w takes positions j = w, w + kWarps, ...; lanes split hd
+    for (int j = warp; j < kTile; j += kWarps) {
+      float part[G];
+#pragma unroll
+      for (int r = 0; r < G; ++r) part[r] = 0.f;
+#pragma unroll
+      for (int d = lane; d < HD; d += 32) {
+        const float kv = Tile::load(kt, j, d);
+#pragma unroll
+        for (int r = 0; r < G; ++r) part[r] += qs[r * HD + d] * kv;
+      }
+      const int idx = i * kTile + j;
+      const bool keep = idx <= pos && (window <= 0 || idx > pos - window);
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        float sc = warp_sum(part[r]);
+        if constexpr (Q != 0) sc *= ks[j];  // K scale on the score column
+        if (lane == 0) ps[r * kTile + j] = keep ? sc : kNegInf;
+      }
+    }
+    __syncthreads();
+
+    // online-softmax statistics: warp w takes rows r = w, w + kWarps, ...
+    for (int r = warp; r < G; r += kWarps) {
+      float mx = kNegInf;
+      for (int j = lane; j < kTile; j += 32) mx = fmaxf(mx, ps[r * kTile + j]);
+      mx = warp_max(mx);
+      const float m_old = row_m[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int j = lane; j < kTile; j += 32) {
+        const float p = expf(ps[r * kTile + j] - m_new);
+        // the denominator takes the raw probability, the weighted values
+        // the V-scaled one
+        if constexpr (Q != 0) {
+          ps[r * kTile + j] = p * vs[j];
+        } else {
+          ps[r * kTile + j] = p;
+        }
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        row_alpha[r] = alpha;
+        row_l[r] = row_l[r] * alpha + sum;
+        row_m[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc[r] (column tid) = acc * alpha + p @ v
+#pragma unroll
+    for (int r = 0; r < G; ++r) acc[r] *= row_alpha[r];
+    for (int j = 0; j < kTile; ++j) {
+      const float vv = Tile::load(vt, j, tid);
+#pragma unroll
+      for (int r = 0; r < G; ++r) acc[r] += ps[r * kTile + j] * vv;
+    }
+    __syncthreads();  // the next issue() overwrites this stage's tiles
+  }
+
+  T* orow = out + row * G * HD;
+#pragma unroll
+  for (int r = 0; r < G; ++r)
+    orow[r * HD + tid] = from_f32<T>(acc[r] / fmaxf(row_l[r], 1e-30f));
+}
+
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *positions;
+  void* out;
+  int S, Hkv, C, window;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int Q, int HD, int G>
+int launch(const Args& a) {
+  constexpr size_t smem = smem_bytes<T, Q, HD, G>();
+  static_assert(smem <= (size_t)kMaxSmem, "tiles exceed shared memory");
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_kernel<T, Q, HD, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid(a.S, a.Hkv);
+  decode_kernel<T, Q, HD, G><<<grid, HD, smem, a.stream>>>(
+      static_cast<const T*>(a.q), a.k, a.v, static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.positions),
+      static_cast<T*>(a.out), a.Hkv, a.C, a.window, a.sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int Q, int HD>
+int launch_g(int G, const Args& a) {
+  switch (G) {
+    case 1: return launch<T, Q, HD, 1>(a);
+    case 2: return launch<T, Q, HD, 2>(a);
+    case 4: return launch<T, Q, HD, 4>(a);
+    case 8: return launch<T, Q, HD, 8>(a);
+    default: return -1;
+  }
+}
+
+template <typename T, int Q>
+int launch_hd(int hd, int G, const Args& a) {
+  switch (hd) {
+    case 32: return launch_g<T, Q, 32>(G, a);
+    case 64: return launch_g<T, Q, 64>(G, a);
+    case 128: return launch_g<T, Q, 128>(G, a);
+    default: return -1;
+  }
+}
+
+}  // namespace
+
+// quantized: 0 = the cache holds q's dtype (k_scale/v_scale unused),
+// 1 = scaled int8 (C must be a multiple of 4: scale rows move in 16-byte
+// chunks). Returns 0 on success, a cudaError_t after a failed launch, or
+// -1 for a (head_dim, group, dtype) combination that was not compiled.
+extern "C" int decode_attention(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* k_scale, const void* v_scale, const void* positions,
+    void* out, int S, int Hq, int Hkv, int hd, int C, int window,
+    int is_bf16, int quantized, float sm_scale, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv || C <= 0) return -1;
+  if (quantized && C % 4) return -1;
+  const int G = Hq / Hkv;
+  const Args a{q, k_cache, v_cache, k_scale, v_scale, positions, out,
+               S, Hkv, C, window, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  if (is_bf16) {
+    return quantized ? launch_hd<__nv_bfloat16, 1>(hd, G, a)
+                     : launch_hd<__nv_bfloat16, 0>(hd, G, a);
+  }
+  return quantized ? launch_hd<float, 1>(hd, G, a)
+                   : launch_hd<float, 0>(hd, G, a);
+}

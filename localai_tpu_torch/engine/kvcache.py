@@ -1,21 +1,28 @@
-"""Paged KV cache: one block pool shared by all slots through block tables.
+"""KV caches: the paged block pool and the contiguous slot cache.
 
-Port of the paged subset of ``localai_tpu/engine/kvcache.py``. Layout:
-k, v each [L, N, Hkv, bt, hd] — N physical blocks of bt tokens; the host
-bookkeeping (free list, tables, prefix pool) is ``engine.paged``. Block 0
-is the trash block: inactive slots' table rows are all zeros, so their
-static-shape writes land there.
+Port of ``localai_tpu/engine/kvcache.py``. Two layouts:
 
-Scaled int8 pools hold symmetric per-(block, head, position) int8 rows
-with f32 scales k_scale/v_scale [L, N, Hkv, bt] (``quant.quantize_lastdim``);
-int4 pools hold nibble-packed int8 rows of hd/2 bytes in the halves layout
-(``quant.quantize_lastdim4``) with the same scale shape. The packed last
-dim is how every consumer tells int4 from int8, as in the JAX package.
+  * paged — k, v each [L, N, Hkv, bt, hd]: N physical blocks of bt tokens
+    shared by all slots through block tables; the host bookkeeping (free
+    list, tables, prefix pool) is ``engine.paged``. Block 0 is the trash
+    block: inactive slots' table rows are all zeros, so their static-shape
+    writes land there.
+  * contiguous — k, v each [L, S, Hkv, C, hd]: one head-major row of C
+    positions per slot, written at each slot's position (inactive slots at
+    their frozen position, as in the JAX package), and kept across
+    release so a later prompt can reuse its prefix.
 
-The JAX package returns an updated pool from every write and relies on
+Scaled int8 storage holds symmetric per-(row, head, position) int8 values
+with f32 scales k_scale/v_scale of the same shape minus hd
+(``quant.quantize_lastdim``); int4 pools (paged only) hold nibble-packed
+int8 rows of hd/2 bytes in the halves layout (``quant.quantize_lastdim4``).
+The packed last dim is how every consumer tells int4 from int8, as in the
+JAX package.
+
+The JAX package returns an updated cache from every write and relies on
 buffer donation to make that in place; here the write policies update the
-pool in place directly, on the layer's view of the stacked tensor
-(``index_copy_`` for decode, an indexed assignment for prefill).
+cache in place directly, on the layer's view of the stacked tensor
+(``index_copy_`` for decode, an indexed or sliced assignment for prefill).
 """
 
 from __future__ import annotations
@@ -32,14 +39,27 @@ from localai_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
-class PagedKVCache:
-    """k, v: [L, N, Hkv, bt, hd] (int4: hd/2); k_scale, v_scale:
-    [L, N, Hkv, bt] f32 for scaled int8/int4 pools, else None."""
+class KVCache:
+    """Contiguous slot cache. k, v: [L, S, Hkv, C, hd]; k_scale, v_scale:
+    [L, S, Hkv, C] f32 for a scaled int8 cache, else None."""
 
     k: torch.Tensor
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+
+    def stacked(self):
+        """The tuple whose per-layer views models.llama.forward hands to
+        the write policy: (k, v), or (k, v, k_scale, v_scale)."""
+        if self.k_scale is None:
+            return (self.k, self.v)
+        return (self.k, self.v, self.k_scale, self.v_scale)
+
+
+@dataclasses.dataclass
+class PagedKVCache(KVCache):
+    """Block pool. k, v: [L, N, Hkv, bt, hd] (int4: hd/2); k_scale,
+    v_scale: [L, N, Hkv, bt] f32 for scaled int8/int4 pools, else None."""
 
     @property
     def num_blocks(self) -> int:
@@ -49,12 +69,30 @@ class PagedKVCache:
     def block_tokens(self) -> int:
         return self.k.shape[3]
 
-    def stacked(self):
-        """The tuple whose per-layer views models.llama.forward hands to
-        the write policy: (k, v), or (k, v, k_scale, v_scale)."""
-        if self.k_scale is None:
-            return (self.k, self.v)
-        return (self.k, self.v, self.k_scale, self.v_scale)
+
+def _alloc(cls, shape: tuple, dtype: str, device: torch.device):
+    """A zeroed cache of ``cls``: [L, *, Hkv, *, hd] float storage, or int8
+    (int4: last dim hd/2, packed by the caller's shape) with f32 scales."""
+    def zeros(shp, dt):
+        return torch.zeros(shp, dtype=dt, device=device)
+
+    if str(dtype) in ("int8", "int4"):
+        return cls(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
+                   k_scale=zeros(shape[:4], torch.float32),
+                   v_scale=zeros(shape[:4], torch.float32))
+    dt = torch_dtype(dtype)
+    return cls(k=zeros(shape, dt), v=zeros(shape, dt))
+
+
+def init_cache(cfg: LlamaConfig, num_slots: int, max_ctx: int,
+               dtype: str = "bfloat16",
+               device: str | torch.device = "cuda") -> KVCache:
+    """The contiguous slot cache; int4 storage exists for pools only."""
+    if str(dtype) == "int4":
+        raise ValueError("kv_dtype int4 needs the paged KV layout; use int8 "
+                         "for a contiguous cache")
+    return _alloc(KVCache, (cfg.num_layers, num_slots, cfg.num_kv_heads,
+                            max_ctx, cfg.hd), dtype, resolve_device(device))
 
 
 def init_paged_cache(cfg: LlamaConfig, num_blocks: int, block_tokens: int,
@@ -66,22 +104,12 @@ def init_paged_cache(cfg: LlamaConfig, num_blocks: int, block_tokens: int,
         raise ValueError(f"int4 KV needs an even head_dim, got {cfg.hd}")
     shape = (cfg.num_layers, num_blocks, cfg.num_kv_heads, block_tokens,
              cfg.hd // 2 if int4 else cfg.hd)
-    if int4 or str(dtype) == "int8":
-        def zeros(shp, dt):
-            return torch.zeros(shp, dtype=dt, device=device)
-
-        return PagedKVCache(k=zeros(shape, torch.int8),
-                            v=zeros(shape, torch.int8),
-                            k_scale=zeros(shape[:4], torch.float32),
-                            v_scale=zeros(shape[:4], torch.float32))
-    dt = torch_dtype(dtype)
-    return PagedKVCache(k=torch.zeros(shape, dtype=dt, device=device),
-                        v=torch.zeros(shape, dtype=dt, device=device))
+    return _alloc(PagedKVCache, shape, dtype, device)
 
 
 def _pool_quant(layer_kv, k_new: torch.Tensor):
-    """The quantizer matching a paged pool's storage: int4 when the pool's
-    last dim is the packed hd/2, else int8. ``k_new`` carries the full
+    """The quantizer matching scaled storage: int4 when the last dim is
+    the packed hd/2 (pools only), else int8. ``k_new`` carries the full
     head_dim."""
     int4 = layer_kv[0].shape[-1] * 2 == k_new.shape[-1]
     return (quant.quantize_lastdim4 if int4 else quant.quantize_lastdim), int4
@@ -95,6 +123,32 @@ def _gather_dequant(cache, scales, tables, dt, int4: bool) -> torch.Tensor:
     if int4:
         g = quant.unpack_int4_lastdim(g)
     return g.to(dt) * gather_block_scales(scales, tables)[..., None].to(dt)
+
+
+def _put_rows(layer_kv, idx: torch.Tensor, *new: torch.Tensor) -> None:
+    """In place (the JAX package's donated functional update): row idx[i]
+    of each layer tensor, viewed as [rows, *trailing], takes row i of the
+    matching ``new`` [S, H, *trailing] (rows are (slot, head)-major)."""
+    for t, n in zip(layer_kv, new):
+        t.view(-1, *t.shape[3:]).index_copy_(
+            0, idx, n.reshape(-1, *t.shape[3:]).to(t.dtype))
+
+
+def _decode_put(layer_kv, idx: torch.Tensor, k_new: torch.Tensor,
+                v_new: torch.Tensor):
+    """The decode write of both layouts: k/v_new [S, 1, H, hd] to the flat
+    rows ``idx`` (quantized first for scaled storage), passing the layer's
+    cache on as the decode kernels take it — the tensor, or (tensor,
+    scales) pairs."""
+    if len(layer_kv) == 4:  # scaled int8/int4 storage
+        k_layer, v_layer, ks_layer, vs_layer = layer_kv
+        quantize, _ = _pool_quant(layer_kv, k_new)
+        # K and V in one call: rows quantize independently
+        q, scale = quantize(torch.stack([k_new[:, 0], v_new[:, 0]]))
+        _put_rows(layer_kv, idx, q[0], q[1], scale[0], scale[1])
+        return layer_kv, (k_layer, ks_layer), (v_layer, vs_layer)
+    _put_rows(layer_kv, idx, k_new[:, 0], v_new[:, 0])
+    return layer_kv, layer_kv[0], layer_kv[1]
 
 
 def paged_decode_write(tables: torch.Tensor, positions: torch.Tensor):
@@ -121,27 +175,10 @@ def paged_decode_write(tables: torch.Tensor, positions: torch.Tensor):
                            + (positions % bt)[:, None]).reshape(-1)
         return rows[H, bt]
 
-    def put(pool: torch.Tensor, idx: torch.Tensor, new: torch.Tensor):
-        # in place (the JAX package's donated functional update)
-        pool.view(-1, *pool.shape[3:]).index_copy_(
-            0, idx, new.reshape(-1, *pool.shape[3:]).to(pool.dtype))
-
     def write(layer_kv, k_new, v_new):
-        idx = flat_rows(layer_kv[0].shape[1], layer_kv[0].shape[2])
-        if len(layer_kv) == 4:  # scaled int8/int4 pool
-            k_layer, v_layer, ks_layer, vs_layer = layer_kv
-            quantize, _ = _pool_quant(layer_kv, k_new)
-            # K and V in one call: rows quantize independently
-            q, scale = quantize(torch.stack([k_new[:, 0], v_new[:, 0]]))
-            put(k_layer, idx, q[0])
-            put(v_layer, idx, q[1])
-            put(ks_layer, idx, scale[0])
-            put(vs_layer, idx, scale[1])
-            return layer_kv, (k_layer, ks_layer), (v_layer, vs_layer)
-        k_layer, v_layer = layer_kv               # [N, H, bt, hd] views
-        put(k_layer, idx, k_new[:, 0])
-        put(v_layer, idx, v_new[:, 0])
-        return layer_kv, k_layer, v_layer
+        return _decode_put(layer_kv, flat_rows(layer_kv[0].shape[1],
+                                               layer_kv[0].shape[2]),
+                           k_new, v_new)
 
     return write
 
@@ -189,10 +226,101 @@ def paged_prefill_write(table_row: torch.Tensor, offset: int, length: int):
     return write
 
 
+def decode_write(positions: torch.Tensor):
+    """KV write policy for batched single-token decode over the contiguous
+    cache.
+
+    positions: [S]. Writes k/v_new [S, 1, H, hd] at cache[s, :, pos[s]] in
+    place for every slot (an inactive slot at its frozen position: the row
+    past its valid prefix) and passes the layer's cache through:
+    ``ops.decode_attention`` walks each slot's row itself. A scaled int8
+    cache passes (cache, scales) pairs, dequantized inside the kernel. The
+    flat cache row of every (slot, head) is computed once per step."""
+    rows = {}
+
+    def flat_rows(H: int, C: int) -> torch.Tensor:
+        # [S*H] rows of the cache viewed as [S*H*C, hd], slot-major
+        if (H, C) not in rows:
+            s = torch.arange(positions.shape[0], device=positions.device)
+            h = torch.arange(H, device=positions.device)
+            rows[H, C] = ((s[:, None] * H + h[None, :]) * C
+                          + positions.long()[:, None]).reshape(-1)
+        return rows[H, C]
+
+    def write(layer_kv, k_new, v_new):
+        return _decode_put(layer_kv, flat_rows(layer_kv[0].shape[1],
+                                               layer_kv[0].shape[2]),
+                           k_new, v_new)
+
+    return write
+
+
+def _write_chunk(layer_kv, slot: int, offset: int, k_hm: torch.Tensor,
+                 v_hm: torch.Tensor) -> None:
+    """cache[slot, :, offset:offset+T] = the head-major chunk [1, H, T, hd]
+    (quantized for a scaled int8 cache), in place; padding rows past the
+    prompt land there too and are overwritten by decode before anything
+    attends to them."""
+    span = slice(offset, offset + k_hm.shape[2])
+    if len(layer_kv) == 4:
+        k_layer, v_layer, ks_layer, vs_layer = layer_kv
+        kq, ks = quant.quantize_lastdim(k_hm[0])  # [H, T, hd], [H, T]
+        vq, vs = quant.quantize_lastdim(v_hm[0])
+        k_layer[slot, :, span] = kq
+        v_layer[slot, :, span] = vq
+        ks_layer[slot, :, span] = ks
+        vs_layer[slot, :, span] = vs
+        return
+    k_layer, v_layer = layer_kv
+    k_layer[slot, :, span] = k_hm[0].to(k_layer.dtype)
+    v_layer[slot, :, span] = v_hm[0].to(v_layer.dtype)
+
+
+def prefill_write(slot: int, offset: int = 0):
+    """KV write policy for a fresh single-sequence prefill into one slot:
+    writes the chunk [1, T, H, hd] at cache[slot, :, offset:offset+T] and
+    exposes the unquantized chunk head-major ([1, H, T, hd]) — a fresh
+    context attends over the chunk itself (T^2, not T*C), so quantization
+    error only enters on later decode reads."""
+
+    def write(layer_kv, k_new, v_new):
+        k_hm, v_hm = k_new.transpose(1, 2), v_new.transpose(1, 2)
+        _write_chunk(layer_kv, slot, offset, k_hm, v_hm)
+        return layer_kv, k_hm, v_hm
+
+    return write
+
+
+def chunk_write(layer_kv, k_new, v_new):
+    """KV write policy that stores nothing and exposes the chunk head-major
+    (the embeddings forward, which has no cache)."""
+    return layer_kv, k_new.transpose(1, 2), v_new.transpose(1, 2)
+
+
+def resume_write(slot: int, offset: int):
+    """KV write policy for suffix prefill into a slot that keeps a reused
+    prefix: writes the chunk like prefill_write, but exposes the slot's
+    whole cache row ([1, H, C, hd], dequantized in the compute dtype as
+    the JAX package does) so the new tokens attend over the kept prefix."""
+
+    def write(layer_kv, k_new, v_new):
+        dt = k_new.dtype
+        _write_chunk(layer_kv, slot, offset, k_new.transpose(1, 2),
+                     v_new.transpose(1, 2))
+        rows = [t[slot:slot + 1].to(dt) for t in layer_kv]
+        if len(rows) == 4:
+            return (layer_kv, rows[0] * rows[2][..., None],
+                    rows[1] * rows[3][..., None])
+        return layer_kv, rows[0], rows[1]
+
+    return write
+
+
 def resume_mask(cfg: LlamaConfig, seq_len: int, offset: int, max_ctx: int,
                 device: str | torch.device = "cuda") -> torch.Tensor:
-    """[1, T, C] mask for chunked prefill: chunk token t (absolute position
-    offset+t) attends causally over the kept prefix + the chunk."""
+    """[1, T, C] mask for chunked or suffix prefill: chunk token t
+    (absolute position offset+t) attends causally over the kept prefix +
+    the chunk."""
     device = resolve_device(device)
     t = torch.arange(seq_len, device=device)[None, :, None]
     c = torch.arange(max_ctx, device=device)[None, None, :]

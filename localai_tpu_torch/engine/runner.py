@@ -1,25 +1,30 @@
-"""ModelRunner: the paged prefill/decode executor for one loaded LLM.
+"""ModelRunner: the prefill/decode executor for one loaded LLM.
 
-Port of the paged subset of ``localai_tpu/engine/runner.py`` for one
-device (no mesh). PyTorch runs eagerly, so the jitted programs of the JAX
-package become plain methods:
+Port of ``localai_tpu/engine/runner.py`` for one device (no mesh), in both
+KV layouts: the paged block pool (the serving default) and the contiguous
+slot cache (``paged=False``, the JAX package's layout for multi-host
+mirrors and self-extend). PyTorch runs eagerly, so the jitted programs of
+the JAX package become plain methods:
 
   * ONE decode step serves all slots every iteration (continuous batching
     is slot masking over static [S] shapes); ``step_n`` runs n steps as a
     Python loop where the JAX package scans them in one program.
-  * KV pool, decode state and block tables are updated in place where the
+  * KV cache, decode state and block tables are updated in place where the
     JAX package donates buffers to get the same effect.
-  * Decode attention always goes through ``ops.paged_decode_attention``:
-    the CUDA paged kernel on the card, its plain PyTorch version for CPU
-    tensors. Scaled int8/int4 pools hand the kernel their scales.
+  * Decode attention goes through ``ops.paged_decode_attention`` (paged)
+    or ``ops.decode_attention`` (contiguous), fresh contiguous prefill and
+    every embeddings forward through ``ops.prefill_attention``: the CUDA
+    kernels on the card, their plain PyTorch versions for CPU tensors.
+    Scaled int8/int4 caches hand the decode kernels their scales.
   * Quantized weights (``models.quant``) go through the w8/w4 matmul
-    kernels wherever the shape is eligible (``ops.qmatmul``); their
-    wrappers count launches (``w8_matmul.launches``,
-    ``w4_matmul.launches``).
-  * Chunked prefill gathers the slot's table row and runs plain grouped
-    attention over it, as the JAX package does in XLA.
+    kernels wherever the shape is eligible (``ops.qmatmul``).
+  * Chunked paged prefill and contiguous suffix prefill (prefix reuse) run
+    plain grouped attention over the kept prefix + chunk, as the JAX
+    package does in XLA.
   * Results come back asynchronously: a non-blocking copy into pinned host
     memory followed by a CUDA event (:class:`AsyncTokens`).
+  * ``embed`` touches neither the KV cache nor the decode state, so the
+    HTTP threads call it while the engine thread decodes.
 """
 
 from __future__ import annotations
@@ -98,10 +103,8 @@ class AsyncTokens:
 
 
 class ModelRunner:
-    """Owns params + paged KV pool + decode state for one model; exposes
-    admit/step/release to the scheduler."""
-
-    paged = True
+    """Owns params + KV cache + decode state for one model; exposes
+    admit/step/release/embed to the scheduler and the API."""
 
     def __init__(
         self,
@@ -115,6 +118,7 @@ class ModelRunner:
         rope_freq_base: Optional[float] = None,
         rope_freq_scale: Optional[float] = None,
         seed: int = 0,
+        paged: bool = True,
         kv_block_tokens: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
         device: str | torch.device | None = "cuda",
@@ -130,43 +134,69 @@ class ModelRunner:
         self.rope = mdl.rope_table(cfg, self.max_ctx, freq_base=rope_freq_base,
                                    freq_scale=rope_freq_scale,
                                    device=self.device)
-        self.block_tokens = max(8, int(kv_block_tokens
-                                       or pgd.block_tokens_default()))
-        self.max_blocks = -(-self.max_ctx // self.block_tokens)
-        self.ctx_pad = self.max_blocks * self.block_tokens
-        # the pool is the contiguous layout's footprint (every slot can
-        # still reach max_ctx) plus the trash block
-        self.num_blocks = num_slots * self.max_blocks + 1
-        self.prefill_chunk = max(self.block_tokens, int(prefill_chunk or 512))
+        self.paged = bool(paged)
         self.kv_dtype = kv_dtype
-        # int8/int4 pools run with a bf16/f32 compute dtype; a float pool
-        # must be in the compute dtype (select_paged_attn_impl raises on
-        # the card for every other pairing)
-        self.paged_attn_impl, why = ops.select_paged_attn_impl(
+        dtype = mdl.torch_dtype(cfg.dtype)
+        kv_t = (kv_dtype if kv_dtype in ("int8", "int4")
+                else mdl.torch_dtype(kv_dtype))
+        # prefill/embeddings attention (K3) on every runner, contiguous
+        # decode attention (K2) on a contiguous one; each raises on the
+        # card for a shape its kernel was not compiled for (and for int4
+        # storage without the paged pool, which init_cache refuses too)
+        self.attn_impl, why = ops.select_attn_impl(
             device=self.device, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
-            block_tokens=self.block_tokens,
-            kv_dtype=(kv_dtype if kv_dtype in ("int8", "int4")
-                      else mdl.torch_dtype(kv_dtype)),
-            dtype=mdl.torch_dtype(cfg.dtype))
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, dtype=dtype,
+            kv_dtype=None if self.paged else kv_t, max_ctx=self.max_ctx)
         if why:
-            log.info("paged attention: %s (%s)", self.paged_attn_impl, why)
+            log.info("attention: %s (%s)", self.attn_impl, why)
+        self.paged_attn_impl = ""
+        if self.paged:
+            self.block_tokens = max(8, int(kv_block_tokens
+                                           or pgd.block_tokens_default()))
+            self.max_blocks = -(-self.max_ctx // self.block_tokens)
+            self.ctx_pad = self.max_blocks * self.block_tokens
+            # the pool is the contiguous layout's footprint (every slot can
+            # still reach max_ctx) plus the trash block
+            self.num_blocks = num_slots * self.max_blocks + 1
+            self.prefill_chunk = max(self.block_tokens,
+                                     int(prefill_chunk or 512))
+            # int8/int4 pools run with a bf16/f32 compute dtype; a float
+            # pool must be in the compute dtype (select_paged_attn_impl
+            # raises on the card for every other pairing)
+            self.paged_attn_impl, why = ops.select_paged_attn_impl(
+                device=self.device, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+                block_tokens=self.block_tokens, kv_dtype=kv_t, dtype=dtype)
+            if why:
+                log.info("paged attention: %s (%s)", self.paged_attn_impl,
+                         why)
+        # contiguous prefix reuse pays off only past a minimum shared prefix
+        self.prefix_reuse_min = 16
         self._seed = seed
         self.last_prefill_path = ""
         self.last_prefix_reused = 0
         # decode steps issued (each launches the attention once per layer)
         self.decode_steps = 0
+        # fresh contiguous prefills (each launches the prefill kernel once
+        # per layer; embeddings launch it too, outside this count)
+        self.fresh_prefills = 0
         self._init_device_state()
 
     def _init_device_state(self) -> None:
         cfg, dev = self.cfg, self.device
-        self.allocator = pgd.BlockAllocator(
-            self.num_blocks, self.block_tokens, self.max_blocks)
-        self.block_tables = torch.zeros((self.num_slots, self.max_blocks),
-                                        dtype=torch.int32, device=dev)
-        self.kv = kvc.init_paged_cache(cfg, self.num_blocks,
-                                       self.block_tokens, self.kv_dtype,
-                                       device=dev)
+        if self.paged:
+            self.allocator = pgd.BlockAllocator(
+                self.num_blocks, self.block_tokens, self.max_blocks)
+            self.block_tables = torch.zeros(
+                (self.num_slots, self.max_blocks), dtype=torch.int32,
+                device=dev)
+            self.kv = kvc.init_paged_cache(cfg, self.num_blocks,
+                                           self.block_tokens, self.kv_dtype,
+                                           device=dev)
+        else:
+            self.allocator = self.block_tables = None
+            self.kv = kvc.init_cache(cfg, self.num_slots, self.max_ctx,
+                                     self.kv_dtype, device=dev)
         self.state = DecodeState.init(self.num_slots, cfg.vocab_size, dev)
         # per-slot generators: a slot's stream advances only when it samples
         self._gens = [torch.Generator(device=dev).manual_seed(
@@ -184,38 +214,50 @@ class ModelRunner:
                 else None for s in range(self.num_slots)]
 
     @torch.no_grad()
-    def _decode_paged_fn(self) -> torch.Tensor:
-        """One batched single-token decode over the block pool; advances
-        the state in place and returns the sampled tokens [S] int32."""
+    def _decode_fn(self) -> torch.Tensor:
+        """One batched single-token decode over the KV cache of either
+        layout; advances the state in place and returns the sampled tokens
+        [S] int32."""
         cfg, st = self.cfg, self.state
-        pos, tables = st.positions, self.block_tables
+        pos, window = st.positions, cfg.sliding_window
+        if self.paged:
+            tables = self.block_tables
+            write = kvc.paged_decode_write(tables, pos)
 
-        def attn(q, keys, values, _mask):  # q [S,1,Hq,hd]; keys = pool
-            if isinstance(keys, tuple):  # (pool, scales): scaled int8/int4
+            def kernel(q, keys, values, k_scale, v_scale):
+                return ops.paged_decode_attention(
+                    q, keys, values, tables, pos, k_scale, v_scale,
+                    sliding_window=window)
+        else:
+            write = kvc.decode_write(pos)
+
+            def kernel(q, keys, values, k_scale, v_scale):
+                return ops.decode_attention(q, keys, values, pos, k_scale,
+                                            v_scale, sliding_window=window)
+
+        def attn(q, keys, values, _mask):  # q [S,1,Hq,hd]; keys = cache
+            if isinstance(keys, tuple):  # (cache, scales): scaled storage
                 (keys, k_scale), (values, v_scale) = keys, values
             else:
                 k_scale = v_scale = None
-            out = ops.paged_decode_attention(
-                q[:, 0].contiguous(), keys, values, tables, pos,
-                k_scale, v_scale, sliding_window=cfg.sliding_window)
-            return out[:, None]
+            return kernel(q[:, 0].contiguous(), keys, values, k_scale,
+                          v_scale)[:, None]
 
-        write = kvc.paged_decode_write(tables, pos)
         hidden, _ = mdl.forward(cfg, self.params, st.tokens[:, None],
                                 pos[:, None], write, self.kv.stacked(), None,
                                 self.rope, attn=attn)
         self.decode_steps += 1
         return self._decode_tail(hidden)
 
-    def _decode_paged_n_fn(self, n: int) -> torch.Tensor:
-        """n paged decode steps (a Python loop where the JAX package scans
-        them in one program); returns tokens [n, S]. The block tables are
+    def _decode_n_fn(self, n: int) -> torch.Tensor:
+        """n decode steps (a Python loop where the JAX package scans them
+        in one program); returns tokens [n, S]. Paged block tables are
         loop-invariant: every admitted slot's table already covers its
         full reservation."""
         out = torch.empty((n, self.num_slots), dtype=torch.int32,
                           device=self.device)
         for i in range(n):
-            out[i] = self._decode_paged_fn()
+            out[i] = self._decode_fn()
         return out
 
     def _decode_tail(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -239,27 +281,25 @@ class ModelRunner:
         st.tokens.copy_(tokens)
         return tokens
 
-    @torch.no_grad()
-    def _prefill_paged_fn(self, tokens: torch.Tensor, length: int,
-                          offset: int, table_row: torch.Tensor, slot: int,
-                          prompt: Optional[list[int]],
-                          ) -> Optional[torch.Tensor]:
-        """One chunked-prefill dispatch: write ``length`` real tokens of
-        the chunk at positions [offset, offset+length) through the slot's
-        table row, attending resume-style over the gathered prefix +
-        chunk. The final chunk (``prompt`` given) samples the first token
-        and arms the slot; earlier chunks leave the decode state alone."""
+    def _prefill_attn(self, length: int):
+        """Attention override for a fresh chunk (contiguous prefill,
+        embeddings): ``ops.prefill_attention`` over the head-major chunk,
+        masked to the real ``length``."""
+        window = self.cfg.sliding_window
+
+        def attn(q, keys, values, _mask):  # q [1,T,Hq,hd], keys [1,Hkv,T,hd]
+            return ops.prefill_attention(
+                q[0].contiguous(), keys[0].contiguous(),
+                values[0].contiguous(), length,
+                sliding_window=window)[None]
+
+        return attn
+
+    def _prefill_tail(self, hidden: torch.Tensor, length: int, slot: int,
+                      prompt: list[int], position: int) -> torch.Tensor:
+        """Sample the first token from the last real row and arm the slot:
+        counts from the whole prompt, next write position ``position``."""
         cfg, st = self.cfg, self.state
-        bucket = tokens.shape[1]
-        positions = offset + torch.arange(bucket, dtype=torch.int32,
-                                          device=self.device)[None, :]
-        mask = kvc.resume_mask(cfg, bucket, offset, self.ctx_pad,
-                               device=self.device)
-        write = kvc.paged_prefill_write(table_row, offset, length)
-        hidden, _ = mdl.forward(cfg, self.params, tokens, positions, write,
-                                self.kv.stacked(), mask, self.rope)
-        if prompt is None:
-            return None
         last_h = hidden[0, length - 1][None]
         logits = mdl.logits_from_hidden(cfg, self.params, last_h)  # [1, V]
         ids = [t for t in prompt if 0 <= t < cfg.vocab_size]
@@ -272,9 +312,69 @@ class ModelRunner:
         tok = smp.sample(logits, st.params.rows(rows), st.counts[rows],
                          [gen], st.bias[rows])
         st.tokens[slot] = tok[0]
-        st.positions[slot] = offset + length
+        st.positions[slot] = position
         st.active[slot] = True
         return tok[0]
+
+    @torch.no_grad()
+    def _prefill_fn(self, tokens: torch.Tensor, length: int, slot: int,
+                    prompt: list[int]) -> torch.Tensor:
+        """Fresh contiguous prefill: the bucketed prompt [1, T] is written
+        into the slot's cache rows [0, T) and attends over itself through
+        the prefill kernel; samples the first token."""
+        bucket = tokens.shape[1]
+        positions = torch.arange(bucket, dtype=torch.int32,
+                                 device=self.device)[None, :]
+        hidden, _ = mdl.forward(self.cfg, self.params, tokens, positions,
+                                kvc.prefill_write(slot), self.kv.stacked(),
+                                None, self.rope,
+                                attn=self._prefill_attn(length))
+        self.fresh_prefills += 1
+        return self._prefill_tail(hidden, length, slot, prompt, length)
+
+    @torch.no_grad()
+    def _prefill_resume_fn(self, tokens: torch.Tensor, length: int,
+                           offset: int, slot: int,
+                           prompt: list[int]) -> torch.Tensor:
+        """Suffix prefill: the slot keeps ``offset`` rows of reused prefix;
+        only the tail chunk is computed, attending over prefix + chunk
+        with plain grouped attention (the prefill kernel models a fresh
+        chunk only, as in the JAX package)."""
+        cfg = self.cfg
+        bucket = tokens.shape[1]
+        positions = offset + torch.arange(bucket, dtype=torch.int32,
+                                          device=self.device)[None, :]
+        mask = kvc.resume_mask(cfg, bucket, offset, self.max_ctx,
+                               device=self.device)
+        hidden, _ = mdl.forward(cfg, self.params, tokens, positions,
+                                kvc.resume_write(slot, offset),
+                                self.kv.stacked(), mask, self.rope)
+        return self._prefill_tail(hidden, length, slot, prompt,
+                                  offset + length)
+
+    @torch.no_grad()
+    def _prefill_paged_fn(self, tokens: torch.Tensor, length: int,
+                          offset: int, table_row: torch.Tensor, slot: int,
+                          prompt: Optional[list[int]],
+                          ) -> Optional[torch.Tensor]:
+        """One chunked-prefill dispatch: write ``length`` real tokens of
+        the chunk at positions [offset, offset+length) through the slot's
+        table row, attending resume-style over the gathered prefix +
+        chunk. The final chunk (``prompt`` given) samples the first token
+        and arms the slot; earlier chunks leave the decode state alone."""
+        cfg = self.cfg
+        bucket = tokens.shape[1]
+        positions = offset + torch.arange(bucket, dtype=torch.int32,
+                                          device=self.device)[None, :]
+        mask = kvc.resume_mask(cfg, bucket, offset, self.ctx_pad,
+                               device=self.device)
+        write = kvc.paged_prefill_write(table_row, offset, length)
+        hidden, _ = mdl.forward(cfg, self.params, tokens, positions, write,
+                                self.kv.stacked(), mask, self.rope)
+        if prompt is None:
+            return None
+        return self._prefill_tail(hidden, length, slot, prompt,
+                                  offset + length)
 
     # -- host API --------------------------------------------------------
 
@@ -285,27 +385,68 @@ class ModelRunner:
         raise ValueError(
             f"prompt length {n} exceeds max prefill bucket {self.buckets[-1]}")
 
-    def acquire_slot(self) -> Optional[int]:
-        """Claim a free slot (FIFO), or None when all are busy."""
+    def acquire_slot(self, slot: Optional[int] = None) -> Optional[int]:
+        """Claim a free slot — FIFO, or ``slot`` when it is free (the
+        scheduler targets the slot with the longest reusable prefix) — or
+        None when all are busy."""
         if not self._free_slots:
             return None
+        if slot is not None and slot in self._free_slots:
+            self._free_slots.remove(slot)
+            return slot
         return self._free_slots.pop(0)
 
     def free_slots(self) -> list[int]:
         return list(self._free_slots)
 
-    def admit(self, slot: int, prompt: list[int], **kw) -> int:
-        """Prefill a prompt into a slot (all chunks); returns the first
-        sampled token."""
-        adm = self.begin_admit(slot, prompt, **kw)
-        if adm is None:
-            raise RuntimeError(
-                f"KV block pool exhausted: cannot reserve {len(prompt)} "
-                "prompt tokens (direct admit has no queue)")
-        while True:
-            tok = adm.step_chunk()
-            if tok is not None:
-                return tok
+    def admit(self, slot: int, prompt: list[int], *,
+              resident: Optional[list[int]] = None,
+              valid_n: Optional[int] = None,
+              reserve_tokens: Optional[int] = None, **sampling) -> int:
+        """Prefill a prompt into a slot; returns the first sampled token.
+
+        Paged: all chunks of a ``begin_admit`` (``reserve_tokens`` rows
+        reserved). Contiguous: one dispatch; when ``resident`` (the slot's
+        previous prompt + generation) shares a long-enough prefix with the
+        prompt, the prefix KV is kept and only the tail is prefilled.
+        ``valid_n`` is the slot's KV frontier from a batched
+        ``slot_positions()`` read (None reads it here)."""
+        if self.paged:
+            adm = self.begin_admit(slot, prompt,
+                                   reserve_tokens=reserve_tokens, **sampling)
+            if adm is None:
+                raise RuntimeError(
+                    f"KV block pool exhausted: cannot reserve {len(prompt)} "
+                    "prompt tokens (direct admit has no queue)")
+            while True:
+                tok = adm.step_chunk()
+                if tok is not None:
+                    return tok
+        if not prompt:
+            prompt = [0]
+        n = len(prompt)
+        if n > self.max_ctx - 1:
+            raise ValueError(
+                f"prompt ({n} tokens) exceeds context {self.max_ctx}")
+        lcp = (self.reusable_prefix(slot, resident, prompt, valid_n)
+               if resident else 0)
+        self.last_prefix_reused = lcp
+        tail = prompt[lcp:]
+        bucket = (self._resume_bucket(len(tail), lcp) if lcp
+                  else self.bucket_for(n))
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :len(tail)] = tail
+        tokens = torch.from_numpy(padded).to(self.device)
+        self._prepare_slot(slot, **sampling)
+        if lcp:
+            self.last_prefill_path = "resume"
+            tok = self._prefill_resume_fn(tokens, len(tail), lcp, slot,
+                                          prompt)
+        else:
+            self.last_prefill_path = "full"
+            tok = self._prefill_fn(tokens, n, slot, prompt)
+        self._active_slots.add(slot)
+        return int(tok)  # the prefill/decode handoff sync
 
     def _prepare_slot(self, slot: int, *, temperature=None, top_k=None,
                       top_p=None, min_p=None, repeat_penalty=None,
@@ -330,6 +471,8 @@ class ModelRunner:
         state, and return a PagedAdmission whose ``step_chunk()`` the
         caller drives. Returns None when the pool cannot cover the
         reservation (the scheduler keeps the request queued)."""
+        if not self.paged:
+            raise RuntimeError("begin_admit needs the paged KV layout")
         if not prompt:
             prompt = [0]
         n = len(prompt)
@@ -360,13 +503,49 @@ class ModelRunner:
         self.allocator.register_prefix(slot, prompt)
         self._active_slots.add(slot)
 
+    def reusable_prefix(self, slot: int, resident: Optional[list[int]],
+                        prompt: list[int],
+                        valid_n: Optional[int] = None) -> int:
+        """Tokens of ``resident`` (the slot's previous prompt + generation)
+        that a contiguous admit() would reuse for ``prompt``, every
+        feasibility gate applied: KV validity (``valid_n`` rows, default
+        the slot's position: the last sampled token's KV is never
+        written), last-token recompute, the minimum worthwhile length, and
+        the tail bucket fitting inside the context. The scheduler ranks
+        free slots with this same function. A paged runner frees a slot's
+        rows at release (its prefix sharing is the allocator's pool): 0."""
+        if self.paged or not resident or not prompt:
+            return 0
+        if valid_n is None:
+            valid_n = self.slot_position(slot)
+        lcp = 0
+        for a, b in zip(resident[:valid_n], prompt):
+            if a != b:
+                break
+            lcp += 1
+        # always recompute at least the last token (its logits seed sampling)
+        lcp = min(lcp, len(prompt) - 1)
+        if lcp < self.prefix_reuse_min:
+            return 0
+        if self._resume_bucket(len(prompt) - lcp, lcp) is None:
+            return 0
+        return lcp
+
+    def _resume_bucket(self, tail_len: int, offset: int) -> Optional[int]:
+        """Smallest prefill bucket holding the tail that also fits in the
+        cache past the kept prefix."""
+        for b in self.buckets:
+            if tail_len <= b and offset + b <= self.max_ctx:
+                return b
+        return None
+
     def step(self) -> np.ndarray:
         """One decode iteration over all slots; returns sampled tokens [S]."""
         return np.asarray(self.step_async())
 
     def step_async(self) -> AsyncTokens:
         """Like step() but returns without waiting for the device."""
-        return AsyncTokens(self._decode_paged_fn())
+        return AsyncTokens(self._decode_fn())
 
     def step_n(self, n: int) -> np.ndarray:
         """n decode iterations; returns tokens [n, S]."""
@@ -375,7 +554,7 @@ class ModelRunner:
     def step_n_async(self, n: int) -> AsyncTokens:
         """n decode iterations (a Python loop of single steps); the [n, S]
         result comes back asynchronously."""
-        return AsyncTokens(self._decode_paged_n_fn(n))
+        return AsyncTokens(self._decode_n_fn(n))
 
     def set_bias(self, slot: int, bias_row: Optional[np.ndarray]) -> None:
         """Replace one slot's [V] additive logit-bias row (None clears)."""
@@ -385,15 +564,45 @@ class ModelRunner:
             self.state.bias[slot] = torch.from_numpy(
                 np.asarray(bias_row, np.float32)).to(self.device)
 
+    def embed(self, prompt: list[int]) -> np.ndarray:
+        """[D] float32 embedding of a token sequence: the final hidden
+        state mean-pooled in f32 over the real rows, bucketed like prefill.
+        It reads only the weights and the RoPE table — no KV cache, no
+        decode state — so it runs on the caller's thread while the engine
+        thread decodes."""
+        if not prompt:
+            prompt = [0]
+        n = len(prompt)
+        if n > self.max_ctx:
+            raise ValueError(f"input ({n} tokens) exceeds context "
+                             f"{self.max_ctx}")
+        bucket = self.bucket_for(n)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :n] = prompt
+        with torch.no_grad():  # per thread: this is not the engine's thread
+            tokens = torch.from_numpy(padded).to(self.device)
+            positions = torch.arange(bucket, dtype=torch.int32,
+                                     device=self.device)[None, :]
+            hidden, _ = mdl.forward(self.cfg, self.params, tokens, positions,
+                                    kvc.chunk_write, None, None, self.rope,
+                                    attn=self._prefill_attn(n))
+            # pool in f32: a bf16 sum over thousands of rows loses the
+            # precision the embeddings exist to provide
+            pooled = hidden[0, :n].float().sum(dim=0) / n
+        return pooled.cpu().numpy()
+
     def release(self, slot: int) -> None:
-        """Free the slot's blocks (prompt blocks in the prefix pool stay as
-        reclaimable cache) and point its device table row at the trash
-        block, so the decode step's static-shape writes can't touch
-        reallocated blocks."""
+        """Deactivate the slot. Paged: free its blocks (prompt blocks in
+        the prefix pool stay as reclaimable cache) and point its device
+        table row at the trash block, so the decode step's static-shape
+        writes can't touch reallocated blocks. Contiguous: the slot keeps
+        its KV rows and its position for prefix reuse (decode keeps writing
+        at that frozen position, the row past the valid prefix)."""
         self.state.active[slot] = False
-        self.allocator.release(slot)
-        self.block_tables[slot] = 0
-        self.state.positions[slot] = 0
+        if self.paged:
+            self.allocator.release(slot)
+            self.block_tables[slot] = 0
+            self.state.positions[slot] = 0
         self._active_slots.discard(slot)
         if slot not in self._free_slots:
             self._free_slots.append(slot)
@@ -405,6 +614,9 @@ class ModelRunner:
     def slot_positions(self) -> np.ndarray:
         """Every slot's KV frontier in ONE [S] transfer."""
         return self.state.positions.cpu().numpy()
+
+    def slot_position(self, slot: int) -> int:
+        return int(self.slot_positions()[slot])
 
 
 class PagedAdmission:

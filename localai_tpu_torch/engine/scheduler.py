@@ -2,11 +2,14 @@
 
 A lean port of ``localai_tpu/engine/scheduler.py``. One engine thread:
 
-  * admits queued requests into free slots by block reservation (a request
-    the pool cannot cover yet waits, FIFO, until blocks free);
-  * interleaves chunked prefill — one chunk per loop iteration — with
-    pipelined multi-step decode dispatches (up to ``pipeline_depth`` in
-    flight, each result's device→host copy started at dispatch);
+  * admits queued requests into free slots: on a paged runner by block
+    reservation (a request the pool cannot cover yet waits, FIFO, until
+    blocks free) and chunked prefill — one chunk per loop iteration; on a
+    contiguous runner in one prefill dispatch into the free slot whose
+    resident tokens share the longest reusable prefix with the prompt;
+  * interleaves those prefills with pipelined multi-step decode
+    dispatches (up to ``pipeline_depth`` in flight, each result's
+    device→host copy started at dispatch);
   * bans the ids a padded model vocab has beyond the tokenizer's;
   * detokenizes incrementally, checks EOS / stop strings / max_tokens /
     context exhaustion, and releases the slot.
@@ -158,7 +161,12 @@ class Scheduler:
         self._step_ema: Optional[float] = None   # seconds per decoded token
         self._last_drain_t: Optional[float] = None
         self._seen_shapes: set = set()
+        # paged runners admit chunk by chunk; contiguous ones in one shot
+        self._chunked = runner.paged
         self._prefills: "deque[_PendingPrefill]" = deque()
+        # contiguous layout: each slot's prompt + generated tokens, the
+        # record prefix reuse is scored against (engine thread only)
+        self._resident: dict[int, list[int]] = {}
         # a request the block pool couldn't cover yet (FIFO: it blocks the
         # queue until blocks free)
         self._held: Optional[GenHandle] = None
@@ -281,7 +289,10 @@ class Scheduler:
 
     def _reservation_fits(self, req: GenRequest) -> bool:
         """Host-arithmetic estimate of whether ``req``'s block reservation
-        could be allocated now (allocate() stays authoritative)."""
+        could be allocated now (allocate() stays authoritative); always
+        True for a contiguous runner, which reserves nothing."""
+        if not self._chunked:
+            return True
         alloc = self.runner.allocator
         reserve = min(self.runner.max_ctx,
                       len(req.prompt) + (req.max_new_tokens
@@ -308,9 +319,17 @@ class Scheduler:
             if not self._reservation_fits(handle.request):
                 self._held = handle
                 return admitted
-            slot = self.runner.acquire_slot()
+            positions = None
+            if self._chunked:
+                slot = self.runner.acquire_slot()
+            else:
+                # one batched [S] positions read serves the ranking and the
+                # admit: free slots' frontiers stay frozen until prefilled
+                positions = self.runner.slot_positions()
+                slot = self.runner.acquire_slot(
+                    self._best_slot(handle.request.prompt, positions))
             try:
-                if not self._start(slot, handle):
+                if not self._start(slot, handle, positions):
                     self.runner.release(slot)
                     self._held = handle
                     return admitted
@@ -321,9 +340,13 @@ class Scheduler:
                 handle._finish("error")
         return admitted
 
-    def _start(self, slot: int, handle: GenHandle) -> bool:
-        """Reserve blocks and queue the chunked prefill of ``handle`` in
-        ``slot``. False when the pool can't cover the reservation now."""
+    def _start(self, slot: int, handle: GenHandle,
+               positions: Optional[np.ndarray] = None) -> bool:
+        """Paged: reserve blocks and queue the chunked prefill of
+        ``handle`` in ``slot``; False when the pool can't cover the
+        reservation now. Contiguous: prefill the prompt (reusing the
+        slot's resident prefix where it can, ``positions`` being the
+        batched frontier read) and activate the slot."""
         req = handle.request
         base = self._padded_vocab_ban()
         if req.logit_bias:
@@ -337,21 +360,63 @@ class Scheduler:
             for tid, b in req.logit_bias.items():
                 if 0 <= int(tid) < limit:
                     base[int(tid)] = b
-        # reserve the worst case so decode can never run out of blocks
-        reserve = len(req.prompt) + (req.max_new_tokens
-                                     or self.default_max_tokens) + 1
-        adm = self.runner.begin_admit(
-            slot, req.prompt, reserve_tokens=reserve,
+        sampling = dict(
             temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
             min_p=req.min_p, repeat_penalty=req.repeat_penalty,
             presence_penalty=req.presence_penalty,
             frequency_penalty=req.frequency_penalty, seed=req.seed,
             bias_row=base)
+        if not self._chunked:
+            first = self.runner.admit(slot, req.prompt,
+                                      resident=self._resident.get(slot),
+                                      valid_n=int(positions[slot]),
+                                      **sampling)
+            self._activate_slot(slot, handle, first)
+            return True
+        # reserve the worst case so decode can never run out of blocks
+        reserve = len(req.prompt) + (req.max_new_tokens
+                                     or self.default_max_tokens) + 1
+        adm = self.runner.begin_admit(slot, req.prompt,
+                                      reserve_tokens=reserve, **sampling)
         if adm is None:
             return False
         self._prefills.append(_PendingPrefill(slot=slot, handle=handle,
                                               adm=adm))
         return True
+
+    def _best_slot(self, prompt: list[int],
+                   positions: np.ndarray) -> Optional[int]:
+        """Free slot with the longest reusable token prefix (None: FIFO),
+        ranked by the runner's own feasibility gates so the choice cannot
+        collapse to no reuse at admit time."""
+        best, best_lcp = None, 0
+        for s in self.runner.free_slots():
+            r = self._resident.get(s)
+            if not r:
+                continue
+            lcp = self.runner.reusable_prefix(s, r, prompt,
+                                              valid_n=int(positions[s]))
+            if lcp > best_lcp:
+                best, best_lcp = s, lcp
+        return best
+
+    def _activate_slot(self, slot: int, handle: GenHandle,
+                       first: int) -> None:
+        """Prefill finished (one-shot or final chunk): install the live
+        slot context, record the resident tokens (contiguous layout; the
+        runner's empty-prompt normalization [0] keeps the record aligned
+        with the cache rows) and consume the first token."""
+        if not self._chunked:
+            self._resident[slot] = list(handle.request.prompt) or [0]
+        ctx = _SlotCtx(
+            handle=handle,
+            detok=IncrementalDetokenizer(self.tokenizer.decode),
+            stopper=StopChecker(handle.request.stop),
+            admit_seq=self._dispatch_seq,
+        )
+        with self._lock:
+            self._slots[slot] = ctx
+        self._consume(slot, ctx, first)
 
     def _step_prefill_chunk(self) -> bool:
         """Dispatch ONE pending prefill chunk (FIFO across admissions) and
@@ -375,15 +440,7 @@ class Scheduler:
         if first is None:
             return True
         self._prefills.popleft()
-        ctx = _SlotCtx(
-            handle=pf.handle,
-            detok=IncrementalDetokenizer(self.tokenizer.decode),
-            stopper=StopChecker(pf.handle.request.stop),
-            admit_seq=self._dispatch_seq,
-        )
-        with self._lock:
-            self._slots[pf.slot] = ctx
-        self._consume(pf.slot, ctx, first)
+        self._activate_slot(pf.slot, pf.handle, first)
         return True
 
     def _padded_vocab_ban(self) -> Optional[np.ndarray]:
@@ -418,6 +475,9 @@ class Scheduler:
 
     def _consume(self, slot: int, ctx: _SlotCtx, token_id: int) -> None:
         """Handle one sampled token for one slot: stream, stop, release."""
+        r = self._resident.get(slot)
+        if r is not None:
+            r.append(token_id)
         handle = ctx.handle
         req = handle.request
         if handle.cancelled:

@@ -3,9 +3,11 @@
 Port of ``localai_tpu/models/manager.py::build_runner`` /
 ``build_serving_model`` and ``ServingModel`` for one device, plus a small
 thread-safe ``ModelManager`` that loads each configured model on first
-use. The engine is always the paged layout; ``engine.quantization``
-(int8/int4) quantizes the weights on the device after they are built or
-loaded, as the JAX package does. Speculative decoding, the prompt cache
+use. The engine runs the paged layout unless ``engine.kv_paged`` is false
+(on one device nothing else forces the contiguous one, as in the JAX
+package's ``build_runner``); ``engine.quantization`` (int8/int4) quantizes
+the weights on the device after they are built or loaded, as the JAX
+package does. Speculative decoding, the prompt cache
 and the self-healing supervisor are not ported yet.
 """
 
@@ -61,10 +63,12 @@ def build_runner(mcfg: ModelConfig, app: AppConfig,
         model.cfg, model.params,
         num_slots=eng.max_slots,
         max_ctx=ctx,
+        prefill_buckets=eng.prefill_buckets,
         kv_dtype=eng.kv_dtype,
         rope_freq_base=mcfg.rope_freq_base,
         rope_freq_scale=mcfg.rope_freq_scale,
         seed=mcfg.seed or 0,
+        paged=eng.kv_paged is not False,
         kv_block_tokens=eng.kv_block_tokens,
         prefill_chunk=eng.prefill_chunk,
         device=app.device,
@@ -83,9 +87,12 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
         multi_step=eng.decode_steps_per_dispatch,
     )
     log.info("loaded model %s (%s) in %.1fs on %s: slots=%d ctx=%d "
-             "attention=%s", mcfg.name, mcfg.model, time.monotonic() - t0,
-             runner.device, eng.max_slots, runner.max_ctx,
-             runner.paged_attn_impl)
+             "kv=%s %s; attention: decode=%s prefill=%s", mcfg.name,
+             mcfg.model, time.monotonic() - t0, runner.device,
+             eng.max_slots, runner.max_ctx,
+             "paged" if runner.paged else "contiguous", eng.kv_dtype,
+             runner.paged_attn_impl if runner.paged else runner.attn_impl,
+             runner.attn_impl)
     return ServingModel(name=mcfg.name, config=mcfg, runner=runner,
                         scheduler=scheduler, tokenizer=model.tokenizer)
 

@@ -1,14 +1,16 @@
 """Hand-written CUDA kernels and their selection policy.
 
-``select_paged_attn_impl`` reports the paged decode attention path, in the
-spirit of ``select_paged_attn_impl`` in ``localai_tpu/ops/__init__.py``.
-Decode always calls ``ops.attention.paged_decode_attention``; the wrapper
-launches the CUDA kernel for CUDA tensors ("kernel") and runs its plain
-PyTorch version for CPU tensors ("torch"). The TPU's Mosaic tiling gates do
-not apply on Hopper; the card's gates are the head dims, GQA groups,
-dtypes and pool kinds (bf16/f32, scaled int8, int4) the kernel was
-compiled for. A shape the kernel does not take raises — it is not
-rerouted. The JAX package keeps its int4 pool off the Pallas kernel
+``select_paged_attn_impl`` reports the paged decode attention path (K1),
+``select_attn_impl`` the contiguous decode (K2) and prefill (K3) path, in
+the spirit of the functions of the same names in
+``localai_tpu/ops/__init__.py``. The runner always calls the wrappers of
+``ops.attention``; each launches its CUDA kernel for CUDA tensors
+("kernel") and runs its plain PyTorch version for CPU tensors ("torch").
+The TPU's Mosaic tiling gates (128-aligned head dims and contexts) do not
+apply on Hopper; the card's gates are the head dims, GQA groups, dtypes
+and KV storage kinds (bf16/f32, scaled int8, int4 for pools only) the
+kernels were compiled for. A shape a kernel does not take raises — it is
+not rerouted. The JAX package keeps its int4 pool off the Pallas kernel
 unless hd % 256 == 0 (the packed hd/2 lane axis must tile for Mosaic);
 the CUDA kernel takes int4 at every compiled head dim, hd=128 included.
 
@@ -17,19 +19,45 @@ the CUDA kernel takes int4 at every compiled head dim, hd=128 included.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from localai_tpu_torch.ops.attention import (
+    DECODE_TILE,
+    decode_attention,
+    decode_attention_ref,
     kernel_gate,
     paged_decode_attention,
     paged_decode_attention_ref,
+    prefill_attention,
+    prefill_attention_ref,
+    shape_gate,
 )
 
 __all__ = [
+    "decode_attention",
+    "decode_attention_ref",
     "paged_decode_attention",
     "paged_decode_attention_ref",
+    "prefill_attention",
+    "prefill_attention_ref",
+    "select_attn_impl",
     "select_paged_attn_impl",
 ]
+
+
+def _kv_storage(kv_dtype, dtype, kernel: str) -> tuple[str, torch.dtype]:
+    """(pool kind, q's dtype) of a KV storage request: "int8"/"int4" are
+    scaled storage read with the compute dtype ``dtype``; a float storage
+    dtype must equal the compute dtype (when given)."""
+    if kv_dtype in ("int8", "int4"):
+        return kv_dtype, dtype
+    if dtype is not None and dtype != kv_dtype:
+        raise ValueError(
+            f"the {kernel} kernel needs the KV cache in the compute dtype "
+            f"({dtype}) or scaled int8 storage, got {kv_dtype}")
+    return "", kv_dtype
 
 
 def select_paged_attn_impl(*, device: torch.device, num_heads: int,
@@ -47,16 +75,43 @@ def select_paged_attn_impl(*, device: torch.device, num_heads: int,
     if num_heads % num_kv_heads:
         raise ValueError(f"heads ({num_heads} q / {num_kv_heads} kv) "
                          "not grouped")
-    if kv_dtype in ("int8", "int4"):
-        pool, qdtype = kv_dtype, dtype
-    else:
-        pool, qdtype = "", kv_dtype
-        if dtype is not None and dtype != kv_dtype:
-            raise ValueError(
-                f"the paged decode kernel needs the KV pool in the compute "
-                f"dtype ({dtype}) or a scaled int8/int4 pool, got {kv_dtype}")
+    pool, qdtype = _kv_storage(kv_dtype, dtype, "paged decode")
     why = kernel_gate(qdtype, head_dim, num_heads // num_kv_heads,
                       block_tokens, pool)
     if why:
         raise ValueError(f"paged decode kernel does not take {why}")
+    return "kernel", ""
+
+
+def select_attn_impl(*, device: torch.device, num_heads: int,
+                     num_kv_heads: int, head_dim: int, dtype: torch.dtype,
+                     kv_dtype: torch.dtype | str | None = None,
+                     max_ctx: Optional[int] = None) -> tuple[str, str]:
+    """Returns (impl, reason) for the prefill kernel (K3, which every
+    runner's embeddings forward runs) and, when ``kv_dtype`` is given (a
+    contiguous runner), the contiguous decode kernel (K2) over a cache of
+    ``max_ctx`` rows: "kernel" on a CUDA device (raising when a kernel
+    cannot take the shape), "torch" on the CPU. ``dtype`` is the compute
+    dtype; ``kv_dtype`` the cache's torch dtype, or "int8" for a scaled
+    cache (there is no int4 contiguous cache)."""
+    if torch.device(device).type != "cuda":
+        return "torch", "CPU tensors: the wrappers run their plain versions"
+    if num_heads % num_kv_heads:
+        raise ValueError(f"heads ({num_heads} q / {num_kv_heads} kv) "
+                         "not grouped")
+    g = num_heads // num_kv_heads
+    why = shape_gate(dtype, head_dim, g)
+    if why:
+        raise ValueError(f"prefill kernel does not take {why}")
+    if kv_dtype is None:
+        return "kernel", ""
+    if kv_dtype == "int4":
+        raise ValueError("the contiguous KV cache has no int4 storage "
+                         "(int4 needs the paged layout)")
+    pool, qdtype = _kv_storage(kv_dtype, dtype, "decode")
+    why = kernel_gate(qdtype, head_dim, g, DECODE_TILE, pool)
+    if not why and pool and max_ctx is not None and max_ctx % 4:
+        why = f"context {max_ctx} (an int8 cache needs a multiple of 4)"
+    if why:
+        raise ValueError(f"decode kernel does not take {why}")
     return "kernel", ""

@@ -25,10 +25,21 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("paged_decode_attention", "w8_matmul", "w4_matmul")
+SOURCES = ("paged_decode_attention", "decode_attention", "prefill_attention",
+           "w8_matmul", "w4_matmul")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count every kernel
+    wrapper carries. Under a lock: the engine thread (decode) and the HTTP
+    threads (embeddings) launch kernels at the same time, and ``+=`` on an
+    attribute is a read-modify-write."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def build_dir() -> Path:

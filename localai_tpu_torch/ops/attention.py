@@ -1,17 +1,27 @@
-"""Paged decode attention: the hand-written CUDA kernel and its plain version.
+"""Decode and prefill attention: hand-written CUDA kernels and their plain
+versions.
 
-Port of ``localai_tpu/ops/attention.py::paged_decode_attention`` (the
-Pallas TPU kernel ``_paged_decode_kernel``) for bf16/f32 pools and for
-scaled int8 and int4 pools (``k_scale``/``v_scale`` [N, Hkv, bt] f32; an
-int4 pool is nibble-packed and detected, as in the JAX package, by its
-last dim hd/2). The CUDA source is ``csrc/paged_decode_attention.cu``; it
-is built with nvcc for sm_90a at first use (``ops._build``) and called
-through a plain C interface.
+Ports of the three Pallas TPU kernels of ``localai_tpu/ops/attention.py``:
 
-``paged_decode_attention`` takes a CPU tensor to the plain PyTorch version
-(``paged_decode_attention_ref``) and launches the kernel for a CUDA
+  * ``paged_decode_attention`` (K1, ``_paged_decode_kernel``): one query
+    token per slot over a paged block pool, for bf16/f32 pools and scaled
+    int8 and int4 pools (``k_scale``/``v_scale`` [N, Hkv, bt] f32; an int4
+    pool is nibble-packed and detected, as in the JAX package, by its last
+    dim hd/2). Source ``csrc/paged_decode_attention.cu``.
+  * ``decode_attention`` (K2, ``_decode_kernel``): the same over the
+    contiguous slot cache [S, Hkv, C, hd], bf16/f32 or scaled int8 (scales
+    [S, Hkv, C]). Source ``csrc/decode_attention.cu``, K1's tile walk
+    with a contiguous row offset in place of the block table.
+  * ``prefill_attention`` (K3, ``_prefill_kernel``): causal GQA attention
+    for one sequence, q [T, Hq, hd] against head-major k/v [Hkv, T, hd],
+    masked to a real length and a window. Source
+    ``csrc/prefill_attention.cu``.
+
+The sources are built with nvcc for sm_90a at first use (``ops._build``)
+and called through plain C interfaces. Each wrapper takes a CPU tensor to
+its plain PyTorch version (``*_ref``) and launches the kernel for a CUDA
 tensor; a CUDA shape the kernel was not compiled for raises — there is no
-fallback. ``paged_decode_attention.launches`` counts kernel launches.
+fallback. ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -25,22 +35,24 @@ from localai_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 
-# what csrc/paged_decode_attention.cu is compiled for
+# what the three sources are compiled for
 KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_GROUPS = (1, 2, 4, 8)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-# pool storage the kernel reads: the compute dtype itself (""), or
-# scaled int8 / int4 (the source's template parameter P = 0, 1, 2)
+# KV storage the decode kernels read: the compute dtype itself (""), or
+# scaled int8 / int4 (the template parameter P = 0, 1, 2; K2 has no int4)
 KERNEL_POOLS = ("", "int8", "int4")
 MAX_SMEM_BYTES = 232448  # H100 opt-in shared memory per block
+DECODE_TILE = 64         # cache rows per tile in csrc/decode_attention.cu
 
 
 def kernel_smem_bytes(dtype: torch.dtype, hd: int, g: int, bt: int,
                       pool: str = "") -> int:
-    """Shared memory one CUDA block uses (mirrors ``smem_bytes`` in the
-    source): two stages of K and V tiles (and of their scale rows for a
-    quantized pool), q rows, scores, row stats. ``dtype`` is the compute
-    dtype of q."""
+    """Shared memory one decode CUDA block uses (mirrors ``smem_bytes`` in
+    ``csrc/paged_decode_attention.cu`` and ``csrc/decode_attention.cu``):
+    two stages of K and V tiles (and of their scale rows for a quantized
+    pool), q rows, scores, row stats. ``dtype`` is the compute dtype of
+    q."""
     if pool == "int8":
         row = hd
     elif pool == "int4":
@@ -51,20 +63,31 @@ def kernel_smem_bytes(dtype: torch.dtype, hd: int, g: int, bt: int,
     return 4 * bt * row + scales + g * hd * 4 + g * bt * 4 + 3 * g * 4
 
 
-def kernel_gate(dtype: torch.dtype, hd: int, g: int, bt: int,
-                pool: str = "") -> str:
-    """Why the kernel cannot take this shape ("" when it can). ``dtype``
-    is the compute dtype (q and the output); ``pool`` is "" for a pool in
-    that dtype, or "int8"/"int4" for a scaled quantized pool."""
+def shape_gate(dtype: torch.dtype, hd: int, g: int,
+               what: str = "dtype") -> str:
+    """Why a kernel of this module cannot take (dtype, head_dim, GQA
+    group) ("" when it can): all three are compiled for the same set."""
     if dtype not in KERNEL_DTYPES:
-        what = "pool dtype" if not pool else "compute dtype"
         return f"{what} {dtype} (kernel takes bfloat16/float32)"
-    if pool not in KERNEL_POOLS:
-        return f"pool {pool!r} (kernel takes {KERNEL_POOLS[1:]} or none)"
     if hd not in KERNEL_HEAD_DIMS:
         return f"head_dim {hd} (kernel compiled for {KERNEL_HEAD_DIMS})"
     if g not in KERNEL_GROUPS:
         return f"GQA group {g} (kernel compiled for {KERNEL_GROUPS})"
+    return ""
+
+
+def kernel_gate(dtype: torch.dtype, hd: int, g: int, bt: int,
+                pool: str = "") -> str:
+    """Why a decode kernel (K1 with ``bt``-token blocks, K2 with its
+    ``DECODE_TILE``-row tiles) cannot take this shape ("" when it can).
+    ``dtype`` is the compute dtype (q and the output); ``pool`` is "" for
+    KV storage in that dtype, or "int8"/"int4" for scaled storage."""
+    if pool not in KERNEL_POOLS:
+        return f"pool {pool!r} (kernel takes {KERNEL_POOLS[1:]} or none)"
+    why = shape_gate(dtype, hd, g,
+                     "pool dtype" if not pool else "compute dtype")
+    if why:
+        return why
     if pool and bt % 4:
         return f"block_tokens {bt} (quantized pools need a multiple of 4)"
     smem = kernel_smem_bytes(dtype, hd, g, bt, pool)
@@ -112,13 +135,9 @@ def paged_decode_attention_ref(
     *,
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch paged decode attention (gather + masked softmax in
-    f32) for bf16/f32, scaled-int8 and nibble-packed int4 pools. Returns
-    [S, Hq, hd] in q's dtype."""
-    S, Hq, hd = q.shape
-    Hkv, bt = k_cache.shape[1], k_cache.shape[2]
-    MB = tables.shape[1]
-    g = Hq // Hkv
+    """Plain PyTorch paged decode attention: the pool gathered through the
+    tables, then ``decode_attention_ref``. Returns [S, Hq, hd] in q's
+    dtype."""
     keys = gather_blocks(k_cache, tables)
     values = gather_blocks(v_cache, tables)
     if pool_kind(q, k_cache, k_scale) == "int4":
@@ -127,14 +146,36 @@ def paged_decode_attention_ref(
 
         keys = unpack_int4_lastdim(keys)
         values = unpack_int4_lastdim(values)
-    keys = keys.float()
-    values = values.float()
     if k_scale is not None:
-        keys = keys * gather_block_scales(k_scale, tables)[..., None]
-        values = values * gather_block_scales(v_scale, tables)[..., None]
+        k_scale = gather_block_scales(k_scale, tables)
+        v_scale = gather_block_scales(v_scale, tables)
+    return decode_attention_ref(q, keys, values, positions, k_scale, v_scale,
+                                sliding_window=sliding_window)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,          # [S, Hq, hd]
+    k_cache: torch.Tensor,    # [S, Hkv, C, hd] (int8 with scales)
+    v_cache: torch.Tensor,
+    positions: torch.Tensor,  # [S] int
+    k_scale: Optional[torch.Tensor] = None,  # [S, Hkv, C] f32 (int8)
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch contiguous decode attention: dequantize in f32, masked
+    softmax in f32. Returns [S, Hq, hd] in q's dtype."""
+    S, Hq, hd = q.shape
+    Hkv, C = k_cache.shape[1], k_cache.shape[2]
+    g = Hq // Hkv
+    keys = k_cache.float()
+    values = v_cache.float()
+    if k_scale is not None:
+        keys = keys * k_scale[..., None]
+        values = values * v_scale[..., None]
     qg = q.reshape(S, Hkv, g, hd).float() * hd ** -0.5
     scores = torch.einsum("skgh,sklh->skgl", qg, keys)
-    idx = torch.arange(MB * bt, device=q.device)[None, None, None, :]
+    idx = torch.arange(C, device=q.device)[None, None, None, :]
     pos = positions.long()[:, None, None, None]
     keep = idx <= pos
     if sliding_window is not None:
@@ -145,17 +186,57 @@ def paged_decode_attention_ref(
     return out.reshape(S, Hq, hd).to(q.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
-    ctypes.c_float, ctypes.c_void_p]
+def prefill_attention_ref(
+    q: torch.Tensor,          # [T, Hq, hd]
+    k: torch.Tensor,          # [Hkv, T, hd] head-major chunk
+    v: torch.Tensor,
+    length: int,
+    *,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch causal GQA prefill attention in f32: key j is kept for
+    the row at position t when j <= t, j < length and j > t - window (the
+    JAX package's ``prefill_mask``). Returns [T, Hq, hd] in q's dtype."""
+    T, Hq, hd = q.shape
+    Hkv = k.shape[0]
+    g = Hq // Hkv
+    qg = q.reshape(T, Hkv, g, hd).float() * hd ** -0.5
+    scores = torch.einsum("tkgh,klh->kgtl", qg, k.float())
+    t = torch.arange(T, device=q.device)
+    keep = (t[:, None] >= t[None, :]) & (t[None, :] < length)
+    if sliding_window is not None:
+        keep &= t[None, :] > t[:, None] - sliding_window
+    scores = scores.masked_fill(~keep, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("kgtl,klh->tkgh", probs, v.float())
+    return out.reshape(T, Hq, hd).to(q.dtype)
 
 
-def _lib():
-    lib = _build.load("paged_decode_attention")
-    fn = lib.paged_decode_attention
+def _check_cuda(q: torch.Tensor, tensors, aligned=()) -> None:
+    """Device, contiguity and 16-byte alignment of a kernel's operands."""
+    for name, t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name in aligned and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _fn(name: str, argtypes):
+    fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+_PAGED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_void_p]
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_void_p]
+_PREFILL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
 def paged_decode_attention(
@@ -212,17 +293,10 @@ def paged_decode_attention(
     for name, t in (("tables", tables), ("positions", positions)):
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
-    for name, t in tensors:
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if name in ("k_cache", "v_cache", "k_scale", "v_scale") and (
-                t.data_ptr() % 16):
-            raise ValueError(f"{name} must be 16-byte aligned")
+    _check_cuda(q, tensors, ("k_cache", "v_cache", "k_scale", "v_scale"))
     window = int(sliding_window or 0)
     out = torch.empty_like(q)
-    fn = _lib()
+    fn = _fn("paged_decode_attention", _PAGED_ARGTYPES)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr() if pool else 0,
             v_scale.data_ptr() if pool else 0,
@@ -232,8 +306,123 @@ def paged_decode_attention(
             hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged decode kernel launch failed (code {rc})")
-    paged_decode_attention.launches += 1
+    _build.count_launch(paged_decode_attention)
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def decode_attention(
+    q: torch.Tensor,          # [S, Hq, hd]
+    k_cache: torch.Tensor,    # [S, Hkv, C, hd] head-major slot cache
+    v_cache: torch.Tensor,
+    positions: torch.Tensor,  # [S] int32 — current token's KV position
+    k_scale: Optional[torch.Tensor] = None,  # [S, Hkv, C] f32 (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Flash GQA decode attention over the contiguous slot cache. Returns
+    [S, Hq, hd] in q's dtype. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one CUDA block per (slot, kv head), walking
+    rows lo .. pos of its own cache row) or raise."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, positions, k_scale,
+                                    v_scale, sliding_window=sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    S, Hq, hd = q.shape
+    _, Hkv, C, _ = k_cache.shape
+    if (k_cache.shape != (S, Hkv, C, hd) or v_cache.shape != k_cache.shape
+            or Hq % Hkv or positions.shape != (S,)):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, cache "
+            f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, positions "
+            f"{tuple(positions.shape)}")
+    tensors = [("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+               ("positions", positions)]
+    pool = "" if k_scale is None else "int8"
+    if pool:
+        if v_scale is None:
+            raise ValueError("k_scale given without v_scale")
+        if not (k_cache.dtype == v_cache.dtype == torch.int8):
+            raise ValueError(f"a scaled cache must be int8, got "
+                             f"{k_cache.dtype}/{v_cache.dtype}")
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.shape != (S, Hkv, C) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 {(S, Hkv, C)}, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+        if C % 4:
+            raise ValueError(f"an int8 cache needs a context that is a "
+                             f"multiple of 4, got {C}")
+        tensors += [("k_scale", k_scale), ("v_scale", v_scale)]
+    elif not (q.dtype == k_cache.dtype == v_cache.dtype):
+        raise ValueError(f"dtype mismatch: q {q.dtype}, cache {k_cache.dtype}")
+    why = kernel_gate(q.dtype, hd, Hq // Hkv, DECODE_TILE, pool)
+    if why:
+        raise ValueError(f"decode kernel does not take {why}")
+    if positions.dtype != torch.int32:
+        raise ValueError(f"positions must be int32, got {positions.dtype}")
+    _check_cuda(q, tensors, ("k_cache", "v_cache", "k_scale", "v_scale"))
+    out = torch.empty_like(q)
+    fn = _fn("decode_attention", _DECODE_ARGTYPES)
+    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr() if pool else 0,
+            v_scale.data_ptr() if pool else 0,
+            positions.data_ptr(), out.data_ptr(), S, Hq, Hkv, hd, C,
+            int(sliding_window or 0), int(q.dtype == torch.bfloat16),
+            int(bool(pool)), hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode kernel launch failed (code {rc})")
+    _build.count_launch(decode_attention)
+    return out
+
+
+decode_attention.launches = 0
+
+
+def prefill_attention(
+    q: torch.Tensor,          # [T, Hq, hd]
+    k: torch.Tensor,          # [Hkv, T, hd] head-major chunk
+    v: torch.Tensor,          # [Hkv, T, hd]
+    length: int,              # real (unpadded) length, a host int
+    *,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Flash causal GQA prefill attention for one sequence. Returns
+    [T, Hq, hd] in q's dtype. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one CUDA block per (kv head, tile of query
+    positions)) or raise."""
+    if q.device.type == "cpu":
+        return prefill_attention_ref(q, k, v, length,
+                                     sliding_window=sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    T, Hq, hd = q.shape
+    Hkv = k.shape[0]
+    if (k.shape != (Hkv, T, hd) or v.shape != k.shape or Hq % Hkv
+            or T < 1):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"dtype mismatch: q {q.dtype}, k/v {k.dtype}/"
+                         f"{v.dtype}")
+    why = shape_gate(q.dtype, hd, Hq // Hkv)
+    if why:
+        raise ValueError(f"prefill kernel does not take {why}")
+    _check_cuda(q, [("q", q), ("k", k), ("v", v)], ("k", "v"))
+    out = torch.empty_like(q)
+    fn = _fn("prefill_attention", _PREFILL_ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), T, Hq,
+            Hkv, hd, int(length), int(sliding_window or 0),
+            int(q.dtype == torch.bfloat16), hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"prefill kernel launch failed (code {rc})")
+    _build.count_launch(prefill_attention)
+    return out
+
+
+prefill_attention.launches = 0

@@ -168,7 +168,7 @@ def w8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"w8 matmul kernel launch failed (code {rc})")
-    w8_matmul.launches += 1
+    _build.count_launch(w8_matmul)
     return out
 
 
@@ -197,7 +197,7 @@ def w4_matmul(x: torch.Tensor, q: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"w4 matmul kernel launch failed (code {rc})")
-    w4_matmul.launches += 1
+    _build.count_launch(w4_matmul)
     return out
 
 

@@ -90,6 +90,73 @@ def test_cuda_kernel_quantized_pools_match_plain(dtype, kv_dtype):
     _slot_check(got, want, dt)
 
 
+def _contiguous_inputs(seed, hd=128, Hq=32, Hkv=8, C=520):
+    """S=8 slots over a contiguous cache of C rows (not a multiple of the
+    kernel's 64-row tile), ragged positions on tile edges; float32."""
+    S = 8
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(S, Hq, hd)).astype(np.float32)
+    k = rng.normal(size=(S, Hkv, C, hd)).astype(np.float32)
+    v = rng.normal(size=(S, Hkv, C, hd)).astype(np.float32)
+    pos = np.asarray([0, 63, 64, 100, 200, 300, 511, C - 1], np.int32)
+    return [torch.from_numpy(a).cuda() for a in (q, k, v, pos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("hd,window", [(128, None), (128, 150), (64, None)])
+def test_cuda_decode_kernel_matches_plain(kv, hd, window):
+    """K2 over the contiguous cache: float caches in the compute dtype,
+    the int8 cache (built by the port's quantizer) with a bf16 q."""
+    _card()
+    q, k, v, pos = _contiguous_inputs(11, hd=hd, Hq=16 if hd == 64 else 32,
+                                      Hkv=4 if hd == 64 else 8)
+    if kv == "int8":
+        dt = torch.bfloat16
+        k, ks = tq.quantize_lastdim(k)
+        v, vs = tq.quantize_lastdim(v)
+        scales = (ks, vs)
+        ref_kv = (k, v)
+    else:
+        dt = getattr(torch, kv)
+        k, v = k.to(dt), v.to(dt)
+        scales = ()
+        ref_kv = (k.float(), v.float())
+    before = tops.decode_attention.launches
+    got = tops.decode_attention(q.to(dt), k, v, pos, *scales,
+                                sliding_window=window)
+    torch.cuda.synchronize()
+    assert tops.decode_attention.launches == before + 1
+    want = tops.decode_attention_ref(q.to(dt).float(), *ref_kv, pos, *scales,
+                                     sliding_window=window)
+    _slot_check(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,length,window,hd,Hq,Hkv", [
+    (200, 200, None, 128, 32, 8), (200, 150, None, 128, 32, 8),
+    (130, 130, 40, 128, 32, 8), (96, 90, None, 64, 16, 16),
+    (70, 70, None, 32, 8, 1)])
+def test_cuda_prefill_kernel_matches_plain(dtype, T, length, window, hd, Hq,
+                                           Hkv):
+    """K3 on every row (rows past ``length`` attend to the real keys up to
+    their own position), with a window, hd 64/32 and GQA groups 1/4/8."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(12)
+    q, k, v = [torch.from_numpy(rng.normal(size=shp).astype(np.float32))
+               .cuda().to(dt)
+               for shp in ((T, Hq, hd), (Hkv, T, hd), (Hkv, T, hd))]
+    before = tops.prefill_attention.launches
+    got = tops.prefill_attention(q, k, v, length, sliding_window=window)
+    torch.cuda.synchronize()
+    assert tops.prefill_attention.launches == before + 1
+    want = tops.prefill_attention_ref(q.float(), k.float(), v.float(), length,
+                                      sliding_window=window)
+    _slot_check(got, want, dt)
+
+
 def _mm_inputs(M, K, N, seed, transpose=False):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(M, K)).astype(np.float32)
@@ -161,3 +228,12 @@ def test_cuda_wrappers_refuse_ineligible_shapes():
     q4 = tq.quantize_tensor4(w, 0)
     with pytest.raises(ValueError):
         tqm.w4_matmul(x, q4.q, q4.scale)
+    q = torch.zeros((2, 8, 48), device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        tops.prefill_attention(q, torch.zeros((2, 2, 48), device="cuda"),
+                               torch.zeros((2, 2, 48), device="cuda"), 2)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kq = torch.zeros((2, 2, 30, 48), dtype=torch.int8, device="cuda")
+        sc = torch.ones((2, 2, 30), device="cuda")
+        tops.decode_attention(q, kq, kq, torch.zeros(2, dtype=torch.int32,
+                                                     device="cuda"), sc, sc)
