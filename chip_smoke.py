@@ -11,8 +11,11 @@ Phases (any failure raises and the script exits non-zero):
      - K1 paged decode attention at the serving shapes (S=8, Hq=32, Hkv=8,
        hd=128, bt=64, ragged positions up to 4096, shuffled block tables)
        on bf16 and f32 pools and on scaled int8 and int4 pools built by
-       the port's quantizers, plus sliding-window and hd=64 cases; times
-       for the kernel, the plain version and one library call
+       the port's quantizers, plus sliding-window (across split
+       boundaries, at the plan's, the finest and a single split) and
+       hd=64 cases; each recorded with its split plan; times for the
+       kernel at the plan and as a single walk (``single_walk_ms``), the
+       plain version and one library call
        (scaled_dot_product_attention over K/V gathered and dequantized
        beforehand — a yardstick only), and the byte bound;
      - K2 contiguous decode attention at the same shape over a
@@ -94,15 +97,21 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 30, warmup: int = 3,
+            spin_cycles: int = 0) -> float:
     """Median device time of ``fn`` over ``iters`` launches, each after an
-    L2 flush, timed with CUDA events."""
+    L2 flush, timed with CUDA events. ``spin_cycles`` > 0 spins the card
+    that long between the flush and the start event, so that the host's
+    enqueueing of ``fn`` is not counted (scripts/k1_timing.py reads both;
+    the smoke's own figures take 0)."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        if spin_cycles:
+            torch.cuda._sleep(spin_cycles)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -122,18 +131,17 @@ def _bound(nbytes: int, flops: int, dtype) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def kernel_case(name, dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
-                positions=(4095, 3001, 2048, 2047, 1000, 640, 64, 63),
-                window=None, pool="", seed=0, timed=False):
-    """K1 on a pool of ``dtype`` (pool "") or a scaled int8/int4 pool
-    (``dtype`` is then q's)."""
-    from localai_tpu_torch.engine.kvcache import _gather_dequant
+SMOKE_POSITIONS = (4095, 3001, 2048, 2047, 1000, 640, 64, 63)
+
+
+def k1_inputs(dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
+              positions=SMOKE_POSITIONS, pool="", seed=0):
+    """Seeded K1 inputs on the card: (q, k, v, tables, pos, scales, ref_kv)
+    over a pool of ``dtype`` (pool "") or a scaled int8/int4 pool built by
+    the port's quantizers (``dtype`` is then q's); ``scales`` is () or
+    (k_scale, v_scale), ``ref_kv`` the pool as the plain version takes
+    it."""
     from localai_tpu_torch.models import quant as tq
-    from localai_tpu_torch.ops.attention import (
-        gather_blocks,
-        paged_decode_attention,
-        paged_decode_attention_ref,
-    )
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     N = S * MB + 1
@@ -156,8 +164,36 @@ def kernel_case(name, dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
         k, v = k.to(dtype), v.to(dtype)
         scales = ()
         ref_kv = (k.float(), v.float())
+    return q, k, v, tables, pos, scales, ref_kv
+
+
+def kernel_case(name, dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
+                positions=SMOKE_POSITIONS, window=None, pool="", seed=0,
+                split_blocks=None, timed=False):
+    """K1 on a pool of ``dtype`` (pool "") or a scaled int8/int4 pool
+    (``dtype`` is then q's), split by the wrapper's plan or by
+    ``split_blocks``; held against the plain version."""
+    from localai_tpu_torch.engine.kvcache import _gather_dequant
+    from localai_tpu_torch.ops.attention import (
+        gather_blocks,
+        paged_decode_attention,
+        paged_decode_attention_ref,
+        paged_split_plan,
+    )
+
+    q, k, v, tables, pos, scales, ref_kv = k1_inputs(
+        dtype, S=S, Hq=Hq, Hkv=Hkv, hd=hd, bt=bt, MB=MB, positions=positions,
+        pool=pool, seed=seed)
+    dev = "cuda"
+    if split_blocks is None:
+        bps, splits = paged_split_plan(
+            S, Hkv, MB, torch.cuda.get_device_properties(0)
+            .multi_processor_count, pool)
+    else:
+        bps, splits = split_blocks, -(-MB // split_blocks)
     out = paged_decode_attention(q, k, v, tables, pos, *scales,
-                                 sliding_window=window)
+                                 sliding_window=window,
+                                 split_blocks=split_blocks)
     torch.cuda.synchronize()
     ref = paged_decode_attention_ref(q.float(), *ref_kv, tables, pos, *scales,
                                      sliding_window=window)
@@ -171,8 +207,9 @@ def kernel_case(name, dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
     rec = {"case": name, "dtype": str(dtype).replace("torch.", ""),
            "pool": pool or str(dtype).replace("torch.", ""),
            "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd, "bt": bt, "MB": MB,
-           "window": window, "max_abs_err": err,
-           "slot_err": slot_err.tolist(), "slot_tol": slot_tol.tolist()}
+           "window": window, "blocks_per_split": bps, "splits": splits,
+           "max_abs_err": err, "slot_err": slot_err.tolist(),
+           "slot_tol": slot_tol.tolist()}
     if timed:
         # bytes each call must move: the live K/V rows of every slot (from
         # the window's first block to the one holding pos) with their
@@ -190,8 +227,8 @@ def kernel_case(name, dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
         flops = 4 * live * Hq * hd
         if pool:
             int4 = pool == "int4"
-            keys = _gather_dequant(k, ks, tables, dtype, int4)
-            values = _gather_dequant(v, vs, tables, dtype, int4)
+            keys = _gather_dequant(k, scales[0], tables, dtype, int4)
+            values = _gather_dequant(v, scales[1], tables, dtype, int4)
         else:
             keys = gather_blocks(k, tables)
             values = gather_blocks(v, tables)
@@ -213,9 +250,16 @@ def kernel_case(name, dtype, *, S=8, Hq=32, Hkv=8, hd=128, bt=64, MB=64,
         def library():
             return sdpa(q4, *kv_lib, attn_mask=mask, **gqa)
 
+        def kernel(sb=split_blocks):
+            return paged_decode_attention(q, k, v, tables, pos, *scales,
+                                          sliding_window=window,
+                                          split_blocks=sb)
+
+        # the plan's split and the single walk (one split of MB blocks, the
+        # design before the split)
+        rec.update(ms=time_ms(kernel), single_walk_ms=time_ms(
+            lambda: kernel(MB)))
         rec.update(
-            ms=time_ms(lambda: paged_decode_attention(
-                q, k, v, tables, pos, *scales, sliding_window=window)),
             plain_ms=time_ms(lambda: paged_decode_attention_ref(
                 q, k, v, tables, pos, *scales, sliding_window=window)),
             library_ms=time_ms(library), **_bound(nbytes, flops, dtype))
@@ -238,6 +282,14 @@ def phase_kernel() -> dict:
                             timed=True, seed=5),
     }
     kernel_case("window-bf16", torch.bfloat16, window=700, seed=1)
+    # a window of 700 starts inside a split and crosses split boundaries:
+    # the finest split, 2-block splits on an f32 pool, and the single walk
+    kernel_case("window-bf16-split1", torch.bfloat16, window=700, seed=1,
+                split_blocks=1)
+    kernel_case("window-f32-split2", torch.float32, window=700, seed=9,
+                split_blocks=2)
+    kernel_case("window-int4-single", torch.bfloat16, pool="int4",
+                window=700, seed=6, split_blocks=64)
     kernel_case("hd64-bf16", torch.bfloat16, Hq=16, Hkv=4, hd=64, seed=2)
     kernel_case("hd64-f32-g8", torch.float32, Hq=32, Hkv=4, hd=64, seed=3)
     for pool in ("int8", "int4"):

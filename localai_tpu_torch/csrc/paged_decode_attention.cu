@@ -26,20 +26,47 @@
 // bytes: (live K/V blocks and their scales + q + out) / 3.35 TB/s. An
 // int8 pool halves the bf16 bytes, an int4 pool quarters them.
 //
-// Design for that bound, kept simple for a first version:
-//   * one CUDA block per (slot, kv-head), so the g query rows of a GQA
-//     group share every K/V tile they read (K/V is read exactly once);
-//   * each [bt, hd] K and V tile is staged in shared memory with 16-byte
-//     cp.async copies, double-buffered: the copy of table entry i+1 is in
-//     flight while entry i is folded into the softmax;
-//   * scores, the running max/denominator and the accumulator stay in
-//     f32 (one output column per thread), nothing else touches memory.
-// Not done yet (later work): wgmma/TMA, and a split of the block walk
-// over several CUDA blocks with a log-sum-exp merge — S*Hkv blocks
-// underfill the 132 SMs at small batch.
+// A walk of one CUDA block per (slot, kv head) is far from that bound: at
+// 8 slots and 8 kv heads it puts 64 blocks on 132 SMs, and the slot with
+// the longest context folds its tiles one after another (four barriers
+// and one cp.async stage of look-ahead per tile), so the kernel takes the
+// time of its longest serial walk. So the walk is split (flash-decoding),
+// in two passes launched back to back on the caller's stream:
+//   1. paged_decode_kernel, grid (splits, Hkv, S): split k of slot s
+//      folds table entries [k*bps, (k+1)*bps) clamped to [lo, nb) —
+//      bps, the blocks per split, comes from a host-side plan that reads
+//      only shapes, never positions — and writes its unnormalised
+//      (m[g], l[g], acc[g][hd]) in f32 to scratch the wrapper allocated.
+//      A split with no live block loads nothing and writes (-1e30, 0, 0),
+//      the merge's identity: the merge skips it, but every split's scratch
+//      then holds a defined state.
+//      Clamping to [lo, nb) keeps every folded tile holding a kept row (a
+//      wholly masked tile would give p = exp(-1e30 + 1e30) = 1 and corrupt
+//      l). Inside a split the walk is the single walk's:
+//        * the g query rows of a GQA group share every K/V tile (K/V is
+//          read exactly once over all splits);
+//        * each [bt, hd] K and V tile is staged in shared memory with
+//          16-byte cp.async copies, double-buffered: the copy of entry
+//          i+1 is in flight while entry i is folded into the softmax;
+//        * scores, the running max/denominator and the accumulator stay
+//          in f32 (one output column per thread).
+//   2. paged_decode_kernel_merge, one block per (slot, q head), folds the
+//      splits that hold a live block of the slot — it reads the slot's
+//      position on the device, as pass 1 does, so the host never needs
+//      it: with M = max_k m_k and w_k = exp(m_k - M),
+//      out = sum_k w_k acc_k / max(sum_k w_k l_k, 1e-30). An empty split
+//      would add w_k * 0 to both sums, so leaving it out changes nothing
+//      but the merge's serial loop, which a positions-blind plan sized for
+//      full tables would otherwise run over every split of a short slot.
+//      The V scale is already inside acc_k and not in l_k, so every pool
+//      merges alike.
+// The scratch costs 4*(hd + 2) bytes per (split, q head), written once and
+// read at most once: 4.3 MB at the serving shape's 32 splits of 8 slots x
+// 32 q heads, against 134 MB of bf16 K/V in full tables. One split
+// (bps = MB) computes what the single walk did. Not done yet: wgmma/TMA.
 //
-// Plain C interface (bound with ctypes); launches on the caller's stream
-// and returns cudaGetLastError() after the launch.
+// Plain C interface (bound with ctypes); launches both passes on the
+// caller's stream and returns cudaGetLastError() after each launch.
 
 #include "common.cuh"
 
@@ -62,6 +89,20 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The walk of a slot at position pos: table entries [lo, nb), with
+// nb = min(pos/bt + 1, MB) and lo the first entry that holds a row inside
+// the sliding window (0 without one).
+__device__ __forceinline__ int2 walk_range(int pos, int bt, int MB,
+                                           int window) {
+  const int nb = min(pos / bt + 1, MB);
+  int lo = 0;
+  if (window > 0) {
+    const int first = pos - window + 1;  // floor-divide, clamped at 0
+    lo = first > 0 ? first / bt : 0;
+  }
+  return make_int2(lo, nb);
 }
 
 // Pool storage: P = 0 holds T (the compute dtype), P = 1 scaled int8,
@@ -109,8 +150,10 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
     const float* __restrict__ v_scale,   // [N, Hkv, bt] (P != 0)
     const int* __restrict__ tables,      // [S, MB]
     const int* __restrict__ positions,   // [S]
-    T* __restrict__ out,                 // [S, Hq, HD]
-    int Hkv, int bt, int MB, int window, float sm_scale) {
+    float* __restrict__ part_m,          // [S, Hkv, splits, G]
+    float* __restrict__ part_l,          // [S, Hkv, splits, G]
+    float* __restrict__ part_acc,        // [S, Hkv, splits, G, HD]
+    int Hkv, int bt, int MB, int window, int bps, float sm_scale) {
   using Tile = Pool<T, P, HD>;
   constexpr int kWarps = HD / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -125,18 +168,28 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
   float* row_l = row_m + G;                             // [G]
   float* row_alpha = row_l + G;                         // [G]
 
-  const int s = blockIdx.x;
+  const int k = blockIdx.x;  // split
   const int h = blockIdx.y;
+  const int s = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int Hq = Hkv * G;
   const int pos = positions[s];
-  const int nb = min(pos / bt + 1, MB);
-  int lo = 0;
-  if (window > 0) {
-    const int first = pos - window + 1;  // floor-divide, clamped at 0
-    lo = first > 0 ? first / bt : 0;
+  const int2 walk = walk_range(pos, bt, MB, window);
+  // this split's share of the walk [lo, nb)
+  const int b0 = max(walk.x, k * bps);
+  const int b1 = min(walk.y, k * bps + bps);
+  const size_t slot_part = ((size_t)s * Hkv + h) * gridDim.x + k;  // (s,h,k)
+  float* acc_out = part_acc + slot_part * G * HD;
+  if (b0 >= b1) {  // no live block: the merge's identity, no tile load
+#pragma unroll
+    for (int r = 0; r < G; ++r) acc_out[r * HD + tid] = 0.f;
+    if (tid < G) {
+      part_m[slot_part * G + tid] = kNegInf;
+      part_l[slot_part * G + tid] = 0.f;
+    }
+    return;
   }
 
   const T* qrow = q + ((size_t)s * Hq + (size_t)h * G) * HD;
@@ -174,10 +227,10 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
 #pragma unroll
   for (int r = 0; r < G; ++r) acc[r] = 0.f;
 
-  issue(lo, 0);
-  for (int i = lo; i < nb; ++i) {
-    const int stage = (i - lo) & 1;
-    if (i + 1 < nb) {
+  issue(b0, 0);
+  for (int i = b0; i < b1; ++i) {
+    const int stage = (i - b0) & 1;
+    if (i + 1 < b1) {
       issue(i + 1, stage ^ 1);
       __pipeline_wait_prior(1);
     } else {
@@ -191,20 +244,20 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
 
     // scores: warp w takes positions j = w, w + kWarps, ...; lanes split hd
     for (int j = warp; j < bt; j += kWarps) {
-      float part[G];
+      float dot[G];
 #pragma unroll
-      for (int r = 0; r < G; ++r) part[r] = 0.f;
+      for (int r = 0; r < G; ++r) dot[r] = 0.f;
 #pragma unroll
       for (int d = lane; d < HD; d += 32) {
         const float kv = Tile::load(kt, j, d);
 #pragma unroll
-        for (int r = 0; r < G; ++r) part[r] += qs[r * HD + d] * kv;
+        for (int r = 0; r < G; ++r) dot[r] += qs[r * HD + d] * kv;
       }
       const int idx = i * bt + j;
       const bool keep = idx <= pos && (window <= 0 || idx > pos - window);
 #pragma unroll
       for (int r = 0; r < G; ++r) {
-        float sc = warp_sum(part[r]);
+        float sc = warp_sum(dot[r]);
         if constexpr (P != 0) sc *= ks[j];  // K scale on the score column
         if (lane == 0) ps[r * bt + j] = keep ? sc : kNegInf;
       }
@@ -251,17 +304,53 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
     __syncthreads();  // the next issue() overwrites this stage's tiles
   }
 
-  T* orow = out + ((size_t)s * Hq + (size_t)h * G) * HD;
 #pragma unroll
-  for (int r = 0; r < G; ++r)
-    orow[r * HD + tid] = from_f32<T>(acc[r] / fmaxf(row_l[r], 1e-30f));
+  for (int r = 0; r < G; ++r) acc_out[r * HD + tid] = acc[r];
+  if (tid < G) {
+    part_m[slot_part * G + tid] = row_m[tid];
+    part_l[slot_part * G + tid] = row_l[tid];
+  }
+}
+
+// Pass 2: one block per (q head, slot), one output column per thread;
+// folds splits [lo/bps, (nb-1)/bps], the ones pass 1 found live.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD) paged_decode_kernel_merge(
+    const float* __restrict__ part_m,    // [S, Hkv, splits, G]
+    const float* __restrict__ part_l,    // [S, Hkv, splits, G]
+    const float* __restrict__ part_acc,  // [S, Hkv, splits, G, HD]
+    const int* __restrict__ positions,   // [S]
+    T* __restrict__ out,                 // [S, Hq, HD]
+    int G, int splits, int bt, int MB, int window, int bps) {
+  const int hq = blockIdx.x;  // q head = kv head * G + r
+  const int s = blockIdx.y;
+  const int Hq = gridDim.x;
+  const int h = hq / G;
+  const int r = hq - h * G;
+  const int2 walk = walk_range(positions[s], bt, MB, window);
+  const int k0 = walk.x / bps;
+  const int k1 = walk.x < walk.y ? (walk.y - 1) / bps + 1 : k0;
+  const size_t first = ((size_t)s * (Hq / G) + h) * splits;  // part (s, h, 0)
+  float mx = kNegInf;
+  for (int k = k0; k < k1; ++k)
+    mx = fmaxf(mx, part_m[(first + k) * G + r]);
+  float num = 0.f, den = 0.f;
+  for (int k = k0; k < k1; ++k) {
+    const size_t i = (first + k) * G + r;
+    const float w = expf(part_m[i] - mx);
+    num += w * part_acc[i * HD + threadIdx.x];
+    den += w * part_l[i];
+  }
+  out[((size_t)s * Hq + hq) * HD + threadIdx.x] =
+      from_f32<T>(num / fmaxf(den, 1e-30f));
 }
 
 // everything a launch needs besides the compile-time choices
 struct Args {
   const void *q, *k, *v, *ks, *vs, *tables, *positions;
+  float *part_m, *part_l, *part_acc;
   void* out;
-  int S, Hkv, bt, MB, window;
+  int S, Hkv, bt, MB, window, bps, splits;
   float sm_scale;
   cudaStream_t stream;
 };
@@ -278,12 +367,17 @@ int launch(const Args& a) {
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  dim3 grid(a.S, a.Hkv);
+  dim3 grid(a.splits, a.Hkv, a.S);
   paged_decode_kernel<T, P, HD, G><<<grid, HD, smem, a.stream>>>(
       static_cast<const T*>(a.q), a.k, a.v, static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
-      static_cast<const int*>(a.positions), static_cast<T*>(a.out), a.Hkv,
-      a.bt, a.MB, a.window, a.sm_scale);
+      static_cast<const int*>(a.positions), a.part_m, a.part_l, a.part_acc,
+      a.Hkv, a.bt, a.MB, a.window, a.bps, a.sm_scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_kernel_merge<T, HD><<<dim3(a.Hkv * G, a.S), HD, 0, a.stream>>>(
+      a.part_m, a.part_l, a.part_acc, static_cast<const int*>(a.positions),
+      static_cast<T*>(a.out), G, a.splits, a.bt, a.MB, a.window, a.bps);
   return (int)cudaGetLastError();
 }
 
@@ -322,18 +416,31 @@ int launch_pool(int pool, int hd, int G, const Args& a) {
 
 // pool: 0 = the pool holds q's dtype (k_scale/v_scale unused), 1 = scaled
 // int8, 2 = scaled int4 (halves layout, last dim hd/2).
+// part is f32 scratch of S*Hq*splits*(hd + 2) floats: m and l
+// [S, Hkv, splits, G] each, then acc [S, Hkv, splits, G, hd]. The splits
+// of blocks_per_split table entries must cover [0, MB) exactly:
+// (splits - 1) * blocks_per_split < MB <= splits * blocks_per_split.
 // Returns 0 on success, a cudaError_t after a failed launch, or -1 for a
-// (pool, head_dim, group, dtype) combination that was not compiled.
+// (pool, head_dim, group, dtype) combination that was not compiled or a
+// split plan or grid the kernels cannot take.
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
-    const void* positions, void* out, int S, int Hq, int Hkv, int hd, int bt,
-    int MB, int window, int is_bf16, int pool, float sm_scale, void* stream) {
+    const void* positions, void* part, void* out, int S, int Hq, int Hkv,
+    int hd, int bt, int MB, int window, int blocks_per_split, int splits,
+    int is_bf16, int pool, float sm_scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv) return -1;
   if (pool != 0 && bt % 4) return -1;  // scale rows move in 16B chunks
+  if (S < 1 || S > 65535 || Hkv > 65535 || MB < 1 || blocks_per_split < 1 ||
+      splits < 1 || (long long)(splits - 1) * blocks_per_split >= MB ||
+      (long long)splits * blocks_per_split < MB)
+    return -1;
   const int G = Hq / Hkv;
-  const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, positions, out,
-               S, Hkv, bt, MB, window, sm_scale,
+  float* part_m = static_cast<float*>(part);
+  const size_t n = (size_t)S * Hq * splits;  // (slot, kv head, split, row)
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, positions,
+               part_m, part_m + n, part_m + 2 * n, out, S, Hkv, bt, MB,
+               window, blocks_per_split, splits, sm_scale,
                static_cast<cudaStream_t>(stream)};
   if (is_bf16) return launch_pool<__nv_bfloat16>(pool, hd, G, a);
   return launch_pool<float>(pool, hd, G, a);

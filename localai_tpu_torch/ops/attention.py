@@ -7,7 +7,11 @@ Ports of the three Pallas TPU kernels of ``localai_tpu/ops/attention.py``:
     token per slot over a paged block pool, for bf16/f32 pools and scaled
     int8 and int4 pools (``k_scale``/``v_scale`` [N, Hkv, bt] f32; an int4
     pool is nibble-packed and detected, as in the JAX package, by its last
-    dim hd/2). Source ``csrc/paged_decode_attention.cu``.
+    dim hd/2). Source ``csrc/paged_decode_attention.cu``: each slot's
+    block walk is split over several CUDA blocks (``paged_split_plan``)
+    whose partial softmax states a second kernel merges;
+    ``paged_decode_attention_split_ref`` is the plain model of that
+    split.
   * ``decode_attention`` (K2, ``_decode_kernel``): the same over the
     contiguous slot cache [S, Hkv, C, hd], bf16/f32 or scaled int8 (scales
     [S, Hkv, C]). Source ``csrc/decode_attention.cu``, K1's tile walk
@@ -27,6 +31,7 @@ fallback. ``<wrapper>.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -44,6 +49,47 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_POOLS = ("", "int8", "int4")
 MAX_SMEM_BYTES = 232448  # H100 opt-in shared memory per block
 DECODE_TILE = 64         # cache rows per tile in csrc/decode_attention.cu
+# K1's split plan, from scripts/k1_timing.py's sweep of 1-32 table entries
+# per split at the 8-slot, 8-kv-head, 64-entry serving shape and three
+# traffic mixes (PERF.md §5): full tables give at most SPLIT_CTAS_PER_SM
+# CUDA blocks per SM, each split walking at least MIN_SPLIT_BLOCKS[pool]
+# entries. A bf16 (f32) pool's CUDA block stages 64 (128) KB of tiles, so
+# few share an SM, and 2-entry splits, whose cp.async double buffer
+# overlaps a copy with a fold, were fastest or tied at long contexts; an
+# int8 (int4) pool's stages a half (a quarter) of bf16's, more share an
+# SM, and 1-entry splits were fastest at every mix.
+SPLIT_CTAS_PER_SM = 32
+MIN_SPLIT_BLOCKS = {"": 2, "int8": 1, "int4": 1}
+
+
+def paged_split_plan(S: int, Hkv: int, MB: int, sms: int,
+                     pool: str = "") -> tuple[int, int]:
+    """(blocks_per_split, splits) of K1's walk over ``MB``-entry block
+    tables for ``S`` slots and ``Hkv`` kv heads on a card of ``sms`` SMs,
+    for a pool of kind ``pool`` (``KERNEL_POOLS``).
+
+    It reads shapes only, never the positions (reading them would
+    synchronise the decode step), so it plans for full tables: at most
+    ``SPLIT_CTAS_PER_SM`` CUDA blocks per SM, each walking at least
+    ``MIN_SPLIT_BLOCKS[pool]`` entries; a table that short is one split.
+    The splits cover [0, MB) exactly; a split that holds no live block of
+    a slot costs the kernel one early exit, and the merge skips it."""
+    if min(S, Hkv, MB, sms) < 1 or pool not in MIN_SPLIT_BLOCKS:
+        raise ValueError(f"no split plan for S={S}, Hkv={Hkv}, MB={MB}, "
+                         f"sms={sms}, pool {pool!r}")
+    per_walk = max(1, SPLIT_CTAS_PER_SM * sms // (S * Hkv))
+    bps = min(MB, max(MIN_SPLIT_BLOCKS[pool], -(-MB // per_walk)))
+    return bps, -(-MB // bps)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(S: int, Hkv: int, MB: int, pool: str,
+                 index: int) -> tuple[int, int]:
+    """``paged_split_plan`` on card ``index``, once per shape: the decode
+    step is bound by the host, so a call looks its plan up."""
+    return paged_split_plan(
+        S, Hkv, MB, torch.cuda.get_device_properties(index)
+        .multi_processor_count, pool)
 
 
 def kernel_smem_bytes(dtype: torch.dtype, hd: int, g: int, bt: int,
@@ -153,6 +199,74 @@ def paged_decode_attention_ref(
                                 sliding_window=sliding_window)
 
 
+def paged_decode_attention_split_ref(
+    q: torch.Tensor,          # [S, Hq, hd]
+    k_cache: torch.Tensor,    # [N, Hkv, bt, hd] (int4: [N, Hkv, bt, hd/2])
+    v_cache: torch.Tensor,
+    tables: torch.Tensor,     # [S, MB] int
+    positions: torch.Tensor,  # [S] int
+    k_scale: Optional[torch.Tensor] = None,  # [N, Hkv, bt] f32 (int8/int4)
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    split_blocks: int,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch model of the kernel's split walk: split k of a slot
+    folds table entries [k*split_blocks, (k+1)*split_blocks) clamped to
+    the slot's walk [lo, nb) into an unnormalised (m, l, acc) with the
+    -1e30 masking (a split with no live block gives (-1e30, 0, 0)), then
+    the splits merge as the kernel's second pass does (an empty split
+    adds nothing, so merging every split equals the kernel's merge of the
+    live ones). For tests; the runner never calls it. Returns [S, Hq, hd]
+    in q's dtype."""
+    S, Hq, hd = q.shape
+    Hkv, bt = k_cache.shape[1], k_cache.shape[2]
+    MB = tables.shape[1]
+    g = Hq // Hkv
+    bps = split_blocks
+    splits = -(-MB // bps)
+    keys = gather_blocks(k_cache, tables)
+    values = gather_blocks(v_cache, tables)
+    if pool_kind(q, k_cache, k_scale) == "int4":
+        from localai_tpu_torch.models.quant import unpack_int4_lastdim
+
+        keys = unpack_int4_lastdim(keys)
+        values = unpack_int4_lastdim(values)
+    keys, values = keys.float(), values.float()
+    if k_scale is not None:
+        keys = keys * gather_block_scales(k_scale, tables)[..., None]
+        values = values * gather_block_scales(v_scale, tables)[..., None]
+    rows = splits * bps * bt          # the last split's tail past MB is 0
+    pad = (0, 0, 0, rows - MB * bt)
+    keys = torch.nn.functional.pad(keys, pad)
+    values = torch.nn.functional.pad(values, pad)
+    qg = q.reshape(S, Hkv, g, hd).float() * hd ** -0.5
+    scores = torch.einsum("skgh,sklh->skgl", qg, keys)
+    pos = positions.long()
+    idx = torch.arange(rows, device=q.device)[None, :]
+    keep = (idx <= pos[:, None]) & (idx < MB * bt)
+    nb = torch.clamp(pos // bt + 1, max=MB)
+    lo = torch.zeros_like(pos)
+    if sliding_window is not None:
+        keep &= idx > pos[:, None] - sliding_window
+        lo = torch.clamp((pos - sliding_window + 1) // bt, min=0)
+    scores = scores.masked_fill(~keep[:, None, None, :], _NEG_INF)
+    first = torch.arange(splits, device=q.device)[None, :] * bps
+    live = (torch.maximum(first, lo[:, None])
+            < torch.minimum(first + bps, nb[:, None]))       # [S, splits]
+    live = live[:, None, None, :]
+    sc = scores.reshape(S, Hkv, g, splits, bps * bt)
+    m = sc.amax(-1)              # -1e30 where no row is kept  [S,Hkv,g,n]
+    p = torch.exp(sc - m[..., None]) * live[..., None]
+    l = p.sum(-1)
+    acc = torch.einsum("skgnj,sknjh->skgnh", p,
+                       values.reshape(S, Hkv, splits, bps * bt, hd))
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    out = ((w[..., None] * acc).sum(-2)
+           / torch.clamp((w * l).sum(-1), min=1e-30)[..., None])
+    return out.reshape(S, Hq, hd).to(q.dtype)
+
+
 def decode_attention_ref(
     q: torch.Tensor,          # [S, Hq, hd]
     k_cache: torch.Tensor,    # [S, Hkv, C, hd] (int8 with scales)
@@ -231,7 +345,7 @@ def _fn(name: str, argtypes):
     return fn
 
 
-_PAGED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+_PAGED_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
     ctypes.c_float, ctypes.c_void_p]
 _DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
@@ -250,11 +364,15 @@ def paged_decode_attention(
     v_scale: Optional[torch.Tensor] = None,
     *,
     sliding_window: Optional[int] = None,
+    split_blocks: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash GQA decode attention over a paged block pool. Returns
     [S, Hq, hd] in q's dtype. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (one CUDA block per (slot, kv head), walking
-    the slot's block table) or raise."""
+    tensors launch the kernel or raise: one CUDA block per (split of the
+    slot's block table, kv head, slot), then a merge of the splits.
+    ``split_blocks`` (tests and the smoke only) forces the table entries
+    per split — MB is a single walk, 1 the finest split; None takes
+    ``paged_split_plan``. One call counts one launch."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(
             q, k_cache, v_cache, tables, positions, k_scale, v_scale,
@@ -294,14 +412,27 @@ def paged_decode_attention(
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
     _check_cuda(q, tensors, ("k_cache", "v_cache", "k_scale", "v_scale"))
+    if split_blocks is None:
+        index = q.device.index
+        bps, splits = _device_plan(S, Hkv, MB, pool,
+                                   torch.cuda.current_device()
+                                   if index is None else index)
+    elif 1 <= split_blocks <= MB:
+        bps, splits = split_blocks, -(-MB // split_blocks)
+    else:
+        raise ValueError(f"split_blocks {split_blocks} outside [1, {MB}]")
     window = int(sliding_window or 0)
     out = torch.empty_like(q)
+    # the splits' f32 (m, l, acc), which the kernel lays out in one buffer
+    part = torch.empty(S * Hq * splits * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     fn = _fn("paged_decode_attention", _PAGED_ARGTYPES)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr() if pool else 0,
             v_scale.data_ptr() if pool else 0,
-            tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            S, Hq, Hkv, hd, bt, MB, window,
+            tables.data_ptr(), positions.data_ptr(), part.data_ptr(),
+            out.data_ptr(),
+            S, Hq, Hkv, hd, bt, MB, window, bps, splits,
             int(q.dtype == torch.bfloat16), KERNEL_POOLS.index(pool),
             hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

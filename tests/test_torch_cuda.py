@@ -14,6 +14,8 @@ rounding is at most 2**-8 of it), so a small row is held as tightly as a
 large one. Inputs come from a numpy seed.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -88,6 +90,101 @@ def test_cuda_kernel_quantized_pools_match_plain(dtype, kv_dtype):
     want = tops.paged_decode_attention_ref(q.to(dt).float(), kq, vq, tables,
                                            pos, ks, vs)
     _slot_check(got, want, dt)
+
+
+@functools.lru_cache(maxsize=1)
+def _long_inputs(seed):
+    """Long contexts at the serving shape: 64-entry tables of 64-token
+    blocks, positions up to 4095 on block and split edges; float32 on the
+    card."""
+    S, Hq, Hkv, hd, bt, MB = 8, 32, 8, 128, 64, 64
+    rng = np.random.default_rng(seed)
+    N = S * MB + 1
+    q = rng.normal(size=(S, Hq, hd)).astype(np.float32)
+    k = rng.normal(size=(N, Hkv, bt, hd)).astype(np.float32)
+    v = rng.normal(size=(N, Hkv, bt, hd)).astype(np.float32)
+    tables = (rng.permutation(N - 1) + 1).astype(np.int32).reshape(S, MB)
+    pos = np.asarray([4095, 4032, 3071, 2048, 2047, 1000, 255, 0], np.int32)
+    return [torch.from_numpy(a).cuda() for a in (q, k, v, tables, pos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "1", "MB"])
+@pytest.mark.parametrize("window", [None, 700])
+@pytest.mark.parametrize("pool,dtype", [
+    ("", "bfloat16"), ("", "float32"), ("int8", "bfloat16"),
+    ("int8", "float32"), ("int4", "bfloat16"), ("int4", "float32")])
+def test_cuda_kernel_long_context_splits_match_plain(pool, dtype, window,
+                                                     split):
+    """K1's split walk at MB=64 (contexts up to 4096) on every pool kind,
+    with the plan's split, the finest (1 block) and a single walk (MB); a
+    window of 700 starts inside a split and crosses split boundaries.
+    One call counts one launch."""
+    _card()
+    dt = getattr(torch, dtype)
+    q, k, v, tables, pos = _long_inputs(13)
+    if pool:
+        quantize = (tq.quantize_lastdim4 if pool == "int4"
+                    else tq.quantize_lastdim)
+        k, ks = quantize(k)
+        v, vs = quantize(v)
+        scales = (ks, vs)
+        ref_kv = (k, v)
+    else:
+        k, v = k.to(dt), v.to(dt)
+        scales = ()
+        ref_kv = (k.float(), v.float())
+    split_blocks = {"plan": None, "1": 1, "MB": tables.shape[1]}[split]
+    before = tops.paged_decode_attention.launches
+    got = tops.paged_decode_attention(q.to(dt), k, v, tables, pos, *scales,
+                                      sliding_window=window,
+                                      split_blocks=split_blocks)
+    torch.cuda.synchronize()
+    assert tops.paged_decode_attention.launches == before + 1
+    want = tops.paged_decode_attention_ref(q.to(dt).float(), *ref_kv, tables,
+                                           pos, *scales,
+                                           sliding_window=window)
+    _slot_check(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_blocks", [None, 1, 2, 4])
+def test_cuda_kernel_matches_the_split_model(split_blocks):
+    """The kernel against the plain model of its split, on a slot whose
+    window leaves it no live block (output 0, no tile loaded) beside a
+    slot with a window inside its table."""
+    _card()
+    rng = np.random.default_rng(14)
+    S, Hq, Hkv, hd, bt, MB = 2, 4, 2, 32, 8, 4
+    N = S * MB + 1
+    q, k, v = [torch.from_numpy(rng.normal(size=shp).astype(np.float32))
+               .cuda() for shp in ((S, Hq, hd), (N, Hkv, bt, hd),
+                                   (N, Hkv, bt, hd))]
+    tables = torch.from_numpy((rng.permutation(N - 1) + 1).astype(
+        np.int32).reshape(S, MB)).cuda()
+    pos = torch.tensor([20, 50], dtype=torch.int32, device="cuda")
+    got = tops.paged_decode_attention(q, k, v, tables, pos,
+                                      sliding_window=10,
+                                      split_blocks=split_blocks)
+    torch.cuda.synchronize()
+    bps = split_blocks or tops.attention.paged_split_plan(
+        S, Hkv, MB, torch.cuda.get_device_properties(0)
+        .multi_processor_count)[0]
+    want = tops.attention.paged_decode_attention_split_ref(
+        q, k, v, tables, pos, split_blocks=bps, sliding_window=10)
+    _slot_check(got, want, torch.float32)
+    assert not got[1].any()
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_a_bad_split():
+    """split_blocks outside [1, MB] raises; nothing falls back."""
+    _card()
+    q, k, v, tables, pos = _attn_inputs(7)
+    for bad in (0, tables.shape[1] + 1):
+        with pytest.raises(ValueError, match="split_blocks"):
+            tops.paged_decode_attention(q, k, v, tables, pos,
+                                        split_blocks=bad)
 
 
 def _contiguous_inputs(seed, hd=128, Hq=32, Hkv=8, C=520):

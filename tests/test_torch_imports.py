@@ -24,7 +24,8 @@ import localai_tpu_torch as port  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 PKG_DIR = Path(port.__file__).resolve().parent
 PKG = port.__name__
-SOURCES = sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = (sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+           + sorted((REPO / "scripts").glob("*.py")))
 # packages the machine with the card does not have
 ABSENT_ON_CARD = {"aiohttp", "pydantic", "yaml", "safetensors", "tokenizers",
                   "transformers", "jinja2", "grpc", "ml_dtypes"}
@@ -62,7 +63,8 @@ def test_every_module_imports_without_jax():
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name
                          if p.parent == REPO else
-                         str(p.relative_to(PKG_DIR)))
+                         str(p.relative_to(PKG_DIR if PKG_DIR in p.parents
+                                           else REPO)))
 def test_sources_never_reach_jax(path):
     src = path.read_text()
     assert not re.search(r"\blocalai_tpu\.", src), \
@@ -79,7 +81,7 @@ def test_sources_never_reach_jax(path):
 
 
 @pytest.mark.parametrize("path", [p for p in SOURCES
-                                  if p.name != "chip_smoke.py"],
+                                  if PKG_DIR in p.parents],
                          ids=lambda p: str(p.relative_to(PKG_DIR)))
 def test_module_level_imports_are_stdlib_numpy_torch(path):
     allowed = set(sys.stdlib_module_names) | {"numpy", "torch", PKG}
