@@ -34,7 +34,10 @@ Phases (any failure raises and the script exits non-zero):
        edges M=1 and M=256, in bf16 and f32; times for the kernel, the
        plain version and one library call (torch.matmul against the
        weight dequantized beforehand — it streams twice the int8 bytes),
-       and the byte bound;
+       and the byte bound; then, untimed, every M edge of the bf16
+       tensor-core tile (1, 8, 16, 17, 64, 256) at w_gate and wk/wv, K5
+       with groups of 256, each record with its split plan, so every
+       split count the plan gives these shapes runs;
   4. parity: the port's runner on the card and on the CPU give identical
      greedy tokens (debug:small, float32) on the paged layout with float,
      int8 and int4 weights and pool, and on the contiguous layout with a
@@ -481,10 +484,11 @@ def phase_attention() -> dict:
 
 
 def qmm_case(kind, dtype, M, K, N, *, transpose=False, seed=0,
-             timed=True) -> dict:
-    """K4 (kind "w8") or K5 ("w4") on x [M, K] against a weight [K, N]
-    (``transpose``: a [N, K] table, K4 only) quantized from a seeded
-    normal draw by the port's own quantizers."""
+             timed=True, group=128) -> dict:
+    """K4 (kind "w8") or K5 ("w4", in groups of ``group`` rows) on x
+    [M, K] against a weight [K, N] (``transpose``: a [N, K] table, K4
+    only) quantized from a seeded normal draw by the port's own
+    quantizers; a bf16 case records the tile's split plan."""
     from localai_tpu_torch.models import quant as tq
     from localai_tpu_torch.ops import qmatmul as tqm
 
@@ -503,7 +507,7 @@ def qmm_case(kind, dtype, M, K, N, *, transpose=False, seed=0,
 
         wbytes = K * N + 4 * N
     else:
-        qt = tq.quantize_tensor4(w, 0)
+        qt = tq.quantize_tensor4(w, 0, group=group)
 
         def kernel():
             return tqm.w4_matmul(x, qt.q, qt.scale)
@@ -528,6 +532,10 @@ def qmm_case(kind, dtype, M, K, N, *, transpose=False, seed=0,
            "N": N, "transpose_w": transpose, "group": qt.group,
            "max_abs_err": float(err.max()),
            "max_ref": float(ref.abs().max())}
+    if dtype == torch.bfloat16:
+        rec["plan"] = tqm.qmm_split_plan(
+            M, K, N, qt.group if kind == "w4" else tqm.QMM_BK,
+            torch.cuda.get_device_properties(0).multi_processor_count, kind)
     del ref, err
     if timed:
         elem = x.element_size()
@@ -584,6 +592,23 @@ def phase_qmatmul() -> dict:
         main["w8"]["tied-lm_head-1b" if dtype == torch.bfloat16
                    else "tied-f32"] = qmm_case(
             "w8", dtype, 8, 2048, 128256, transpose=True, seed=seed)
+    # the bf16 tile's M edges (n8 tiles of 1, 2 and 4 per CUDA block, a
+    # ragged 17) on the widest and the narrowest projection, and K5's
+    # other gated group size: untimed, each against its plain version
+    splits = set()
+    for kind in ("w8", "w4"):
+        for (K, N) in ((4096, 14336), (4096, 1024)):
+            for M in (1, 8, 16, 17, 64, 256):
+                seed += 1
+                splits.add(qmm_case(kind, torch.bfloat16, M, K, N, seed=seed,
+                                    timed=False)["plan"][1])
+    for M in (8, 256):
+        seed += 1
+        splits.add(qmm_case("w4", torch.bfloat16, M, 4096, 14336, seed=seed,
+                            timed=False, group=256)["plan"][1])
+    splits |= {r["plan"][1] for kind in ("w8", "w4")
+               for r in main[kind].values() if "plan" in r}
+    print(f"qmm split counts run: {sorted(splits)}", flush=True)
     for kind in ("w8", "w4"):
         count = {s: (c * L_8B if c else 1) for s, (_, c) in SHAPES_8B.items()}
         step = {f: sum(main[kind][s][f] * n for s, n in count.items())
@@ -961,7 +986,8 @@ def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16) -> None:
                    if any(x in k.lower() for x in subs))
 
     attn = share("decode_kernel")  # K1 (paged) or K2 (contiguous)
-    qmm = share("w8_kn_kernel", "w8_nk_kernel", "w4_kernel")
+    qmm = share("w8_kn_kernel", "w8_nk_kernel", "w4_kernel", "qmm_kernel",
+                "qmm_reduce")
     gemm = share("gemm", "nvjet", "xmma", "cutlass", "cublas")
     print("profile: " + json.dumps({
         "kv_dtype": r.kv_dtype, "ctx_tokens": ctx_tokens,

@@ -6,12 +6,16 @@ response shapes of ``api/schema.py``), written as framework-free
 functions over parsed JSON: ``api.server`` maps HTTP onto them. Response
 JSON has the JAX package's shape — id, object, created, model, choices
 with ``delta`` (stream) or ``message``, finish_reason, usage; embeddings
-as a list of ``embedding`` objects.
+as a list of ``embedding`` objects. Non-streamed choices go through the
+model's text shaping (:func:`finetune_result`). Requests for constrained
+decoding (tools, a non-text ``response_format``, a grammar) get a 400
+until the port has a constraint path.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import time
 import uuid
 from typing import Any, Iterator, Optional
@@ -106,8 +110,49 @@ def _serving(manager, body: dict, usecase: Optional[str] = None):
     return manager.get(name), name
 
 
+def finetune_result(cfg, prompt: str, text: str, *,
+                    echo: bool = False) -> str:
+    """Post-inference text shaping, as the JAX package's
+    ``api.inference.finetune_result``: ``echo`` prepends the prompt, then
+    ``cutstrings`` (regexes removed), the first matching
+    ``extract_regex`` (its group 1, else the match), ``trimspace`` (strip
+    once when any is set) and ``trimsuffix``."""
+    if echo:
+        text = prompt + text
+    for c in cfg.cutstrings:
+        text = re.sub(c, "", text)
+    for ex in cfg.extract_regex:
+        m = re.search(ex, text)
+        if m:
+            text = m.group(1) if m.groups() else m.group(0)
+            break
+    if cfg.trimspace:
+        text = text.strip()
+    for suf in cfg.trimsuffix:
+        text = text.removesuffix(suf)
+    return text
+
+
+def _refuse_constraints(body: dict) -> None:
+    """400 for what needs constrained decoding, which the port has not
+    ported yet (the JAX package's prepare_tools and
+    response_format_constraint): tools or functions, a tool_choice that
+    forces a call, a response_format other than text, a grammar."""
+    asked = [k for k in ("tools", "functions", "grammar") if body.get(k)]
+    if body.get("tool_choice") not in (None, "none", "auto"):
+        asked.append("tool_choice")
+    rf = body.get("response_format")
+    if rf and not (isinstance(rf, dict) and rf.get("type") == "text"):
+        asked.append("response_format")
+    if asked:
+        raise APIError(400, f"{', '.join(asked)}: constrained decoding "
+                            "(tools, JSON mode, grammars) is not supported "
+                            "by the PyTorch port yet")
+
+
 def _gen_request(sm, body: dict, prompt: str, stream: bool) -> GenRequest:
     """Request body over the model's YAML defaults → GenRequest."""
+    _refuse_constraints(body)
     cfg = sm.config
     p = cfg.parameters.merged_with({
         k: body.get(k) for k in ("temperature", "top_p", "top_k", "min_p",
@@ -166,10 +211,11 @@ def chat(manager, body: dict):
     if stream:
         return _chat_stream(h, rid, model)
     _wait(h)
+    text = finetune_result(sm.config, "", h.text)
     return {"id": rid, "object": "chat.completion",
             "created": int(time.time()), "model": model,
             "choices": [{"index": 0,
-                         "message": {"role": "assistant", "content": h.text},
+                         "message": {"role": "assistant", "content": text},
                          "finish_reason": h.finish_reason or "stop"}],
             "usage": usage(h.prompt_tokens, h.completion_tokens)}
 
@@ -209,8 +255,10 @@ def completions(manager, body: dict):
     if stream:
         return _completions_stream(h, rid, model)
     _wait(h)
+    text = finetune_result(sm.config, prompt, h.text,
+                           echo=bool(body.get("echo")))
     return completion_response(
-        rid, model, [{"index": 0, "text": h.text,
+        rid, model, [{"index": 0, "text": text,
                       "finish_reason": h.finish_reason or "stop"}],
         usage(h.prompt_tokens, h.completion_tokens))
 

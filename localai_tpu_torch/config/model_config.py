@@ -5,8 +5,10 @@ reads (the JAX package validates with pydantic, which the port's runtime
 does not depend on). Unknown keys are ignored; keys that would ask for a
 feature the port does not have yet — Go/Jinja prompt templates,
 ``int8_w8a8`` quantization, speculative decoding, self-extend
-(``engine.grp_attn_n > 1``), a vision tower (``mmproj``) — raise a clear
-error at load instead of serving something else than was asked for. int8
+(``engine.grp_attn_n > 1``), a vision tower (``mmproj``), the prompt
+cache (``prompt_cache_path``), grammars (``grammar``) and function
+calling (a ``function`` section) — raise a clear error at load instead of
+serving something else than was asked for. int8
 and int4 weights (``engine.quantization``), int8/int4 KV storage
 (``engine.kv_dtype``; int4 on the paged layout only), the contiguous KV
 layout (``engine.kv_paged: false``) and embeddings (``embeddings: true``)
@@ -99,6 +101,11 @@ class EngineConfig:
     quantization: Optional[str] = None  # weights: int8 | int4
     spec: Optional[bool] = None         # refused when true: not ported yet
     draft_model: Optional[str] = None   # refused: not ported yet
+    pipeline_depth: int = 2             # in-flight decode dispatches
+    stream_latency_ms: float = 100.0    # SSE delivery-lag bound
+    # paged pool size in blocks (None = the contiguous footprint, or
+    # LOCALAI_KV_BLOCKS); a smaller pool overcommits and holds admissions
+    kv_num_blocks: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -115,6 +122,15 @@ class ModelConfig:
     seed: Optional[int] = None         # random-weight presets + sampling
     roles: dict[str, str] = dataclasses.field(default_factory=dict)
     stopwords: list[str] = dataclasses.field(default_factory=list)
+    # completion text shaping (api.openai.finetune_result)
+    cutstrings: list[str] = dataclasses.field(default_factory=list)
+    extract_regex: list[str] = dataclasses.field(default_factory=list)
+    trimspace: list[str] = dataclasses.field(default_factory=list)
+    trimsuffix: list[str] = dataclasses.field(default_factory=list)
+    f16: Optional[bool] = None         # false -> engine.dtype float32
+    prompt_cache_path: Optional[str] = None  # refused: not ported yet
+    grammar: str = ""                  # refused: not ported yet
+    function: Optional[dict] = None    # refused: not ported yet
     rope_freq_base: Optional[float] = None
     rope_freq_scale: Optional[float] = None
     parameters: PredictionParams = dataclasses.field(
@@ -122,6 +138,10 @@ class ModelConfig:
     template: TemplateConfig = dataclasses.field(
         default_factory=TemplateConfig)
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+
+    def __post_init__(self) -> None:
+        if self.f16 is False:  # the JAX package's _apply_compat
+            self.engine.dtype = "float32"
 
     @classmethod
     def from_dict(cls, data: dict) -> "ModelConfig":
@@ -169,6 +189,13 @@ class ModelConfig:
             raise ValueError(
                 f"model {self.name or self.model!r}: vision (mmproj) is not "
                 "ported yet")
+        for key, what in (("prompt_cache_path", "the prompt cache"),
+                          ("grammar", "grammar-constrained decoding"),
+                          ("function", "function calling")):
+            if getattr(self, key):
+                raise ValueError(
+                    f"model {self.name or self.model!r}: {what} ({key}) is "
+                    "not ported yet")
         if self.engine.kv_dtype == "int4" and self.engine.kv_paged is False:
             raise ValueError(
                 f"model {self.name or self.model!r}: kv_dtype int4 needs "

@@ -11,31 +11,34 @@
 // [K/2, N], byte (i, n) holds W[2i, n] in its low nibble and W[2i+1, n]
 // in its high nibble, each a signed 4-bit value.
 //
-// Bound: at decode sizes each weight byte feeds 4*M flops, far below the
-// card's ~295 flop/byte ridge — bound by the bytes streamed from device
-// memory: (K*N/2 + 4*(K/g)*N + x + out) / 3.35 TB/s. The design reads
-// every weight byte once:
-//   * one CUDA block per 32 output columns and 8 rows of x; 256 threads,
-//     4 along N (8 columns each, one 8-byte load per packed row = 8
-//     columns x 2 K rows) and 64 along K;
-//   * the K rows go in row blocks of 128 (64 packed rows, one per thread
-//     row). g is a multiple of 128, so a row block never straddles a
-//     group: every thread keeps its group's partial sums in registers and
-//     folds them into the accumulator, times its 8 scales, when the row
-//     block that ends a group is done — a condition the whole block
-//     shares;
-//   * x is staged in shared memory 512 K rows at a time by cp.async,
-//     double-buffered, and the nibbles are unpacked in registers with
-//     shifts (sign extension by arithmetic right shift);
-//   * partial sums are reduced over the K split with warp shuffles and a
-//     shared-memory pass. M > 8 takes more blocks along grid.x, the
-//     fastest grid axis, so blocks sharing a weight tile run together.
-// Not done yet (later work): tensor cores, split-K across blocks, TMA.
+// Bound: at decode sizes (M = 8) each weight byte feeds 4*M flops, far
+// below the card's ~295 flop/byte ridge, so the kernel is bound by the
+// bytes it streams: (K*N/2 + 4*(K/g)*N + x + out) / 3.35 TB/s; at M = 256
+// it nears the tensor cores' rate.
+//
+// bf16 x: the tensor-core tile of qmm_mma.cuh (mma.sync m16n8k16, the
+// weight on the 16-row side so M = 8 fills the 8-column side). One byte
+// of pack_w4's layout is exactly the (2i, 2i+1) K pair of one A fragment
+// register, so a thread's fragments come from two 8-byte shared-memory
+// reads per k16 step and dequantize with the magic-exponent trick
+// (i4x2_to_bf16x2), no I2F. Each group's k16 steps accumulate in a
+// partial fragment that is folded into the accumulator times the group's
+// scale row at the group's end, the Pallas kernel's order; splits of K
+// fall on group edges (ops/qmatmul.py::qmm_split_plan) and are folded in
+// split order by a second launch.
+//
+// f32 x (the parity dtype, held to 1e-4, which bf16 inputs would break)
+// keeps the CUDA-core kernel below: one CUDA block per 32 output columns
+// and 8 rows of x, 256 threads (4 along N, 8 columns each from one 8-byte
+// load per packed row; 64 along K), x staged by double-buffered cp.async,
+// nibbles unpacked with shifts, partial sums folded per group, then
+// reduced over the K split with warp shuffles and shared memory.
 //
 // Plain C interface (bound with ctypes); launches on the caller's stream
-// and returns cudaGetLastError() after the launch.
+// and returns cudaGetLastError() after each launch.
 
 #include "common.cuh"
+#include "qmm_mma.cuh"
 
 namespace {
 
@@ -151,29 +154,100 @@ __global__ void __launch_bounds__(kThreads) w4_kernel(
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* q, const void* scale, void* out, int M,
-           int K, int N, int group, cudaStream_t stream) {
+int launch_f32(const void* x, const void* q, const void* scale, void* out,
+               int M, int K, int N, int group, cudaStream_t stream) {
   dim3 grid((M + kMT - 1) / kMT, N / kBN);
-  w4_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const float*>(scale), static_cast<T*>(out), M, K, N, group);
+  w4_kernel<float><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(q),
+      static_cast<const float*>(scale), static_cast<float*>(out), M, K, N,
+      group);
   return (int)cudaGetLastError();
 }
+
+namespace qmm = localai::qmm;
+using qmm::i4x2_to_bf16x2;
+
+// K5's weight policy for the tile walk (qmm_mma.cuh)
+struct W4 {
+  static constexpr int kRows = qmm::kBK / 2;  // packed rows per stage
+  // a warp reads packed rows tig = 0..3 together: 32 bytes apart in banks
+  static constexpr int kStride = qmm::kBN + 32;
+  static constexpr int kWBytes = kRows * kStride;
+  static constexpr int kXStride = qmm::kXStrideLdm;
+  static constexpr int kStages = 4;
+  static constexpr bool kGrouped = true;
+  __device__ static void stage_w(unsigned char* s, const uint8_t* q, int K,
+                                 int N, int n0, int k0, int tid) {
+    qmm::stage_kn<kRows, kStride>(s, q, N, n0, k0 / 2, tid);
+  }
+  // k16 step jj + H: K rows 2 tig, 2 tig + 1 are packed row 8 step + tig
+  // (a0, a1), rows 2 tig + 8, + 9 packed row 8 step + tig + 4 (a2, a3);
+  // byte 2t of the thread's 8 columns is A row g of tile t, 2t + 1 row
+  // g + 8
+  template <int H>
+  __device__ static void load_a(const unsigned char* ws, int jj, int tig,
+                                int col, uint32_t (&a)[4][4]) {
+    const int r = 8 * (jj + H) + tig;
+    const uint2 lo = *reinterpret_cast<const uint2*>(ws + r * kStride + col);
+    const uint2 hi =
+        *reinterpret_cast<const uint2*>(ws + (r + 4) * kStride + col);
+    const uint32_t w[4] = {lo.x, lo.y, hi.x, hi.y};
+    const uint32_t w4[4] = {lo.x >> 4, lo.y >> 4, hi.x >> 4, hi.y >> 4};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      // tile t's bytes 2t, 2t + 1 sit in word t / 2 at bytes 2(t % 2), + 1
+      const int i = t / 2;
+      if (t % 2 == 0) {
+        a[t][0] = i4x2_to_bf16x2<0>(w[i], w4[i]);
+        a[t][1] = i4x2_to_bf16x2<1>(w[i], w4[i]);
+        a[t][2] = i4x2_to_bf16x2<0>(w[i + 2], w4[i + 2]);
+        a[t][3] = i4x2_to_bf16x2<1>(w[i + 2], w4[i + 2]);
+      } else {
+        a[t][0] = i4x2_to_bf16x2<2>(w[i], w4[i]);
+        a[t][1] = i4x2_to_bf16x2<3>(w[i], w4[i]);
+        a[t][2] = i4x2_to_bf16x2<2>(w[i + 2], w4[i + 2]);
+        a[t][3] = i4x2_to_bf16x2<3>(w[i + 2], w4[i + 2]);
+      }
+    }
+  }
+  template <int MI>
+  __device__ static void frags(const unsigned char* ws,
+                               const __nv_bfloat16* xs, int jj, int lane,
+                               int col, uint32_t (&a)[2][4][4],
+                               uint32_t (&b)[MI][4]) {
+    qmm::ldmatrix_b<MI>(xs, jj, lane, b);
+    load_a<0>(ws, jj, lane % 4, col, a[0]);
+    load_a<1>(ws, jj, lane % 4, col, a[1]);
+  }
+};
 
 }  // namespace
 
 // Returns 0 on success, a cudaError_t after a failed launch, or -1 for a
-// shape the kernel does not take (the wrapper gates K, N and the group at
-// multiples of 128).
+// shape the kernels do not take (the wrapper gates K, N and the group at
+// multiples of 128 and gives the bf16 path its plan: mi n8 tiles of x per
+// CTA (1, 2 or 4), splits of split_k K rows, and an f32 scratch
+// [splits, M, N] when splits > 1; the f32 path ignores the plan).
 extern "C" int w4_matmul(const void* x, const void* q, const void* scale,
-                         void* out, int M, int K, int N, int group,
-                         int is_bf16, void* stream) {
+                         void* out, void* partial, int M, int K, int N,
+                         int group, int is_bf16, int mi, int splits,
+                         int split_k, void* stream) {
   if (M <= 0 || K % 128 || N % 128 || group <= 0 || group % 128 ||
       K % group)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(x, q, scale, out, M, K, N, group, st);
-  return launch<float>(x, q, scale, out, M, K, N, group, st);
+  if (!is_bf16) return launch_f32(x, q, scale, out, M, K, N, group, st);
+  if (!qmm::plan_ok(M, K, N, group, splits, split_k, partial)) return -1;
+  switch (mi) {
+    case 1:
+      return qmm::launch_tiles<W4, 1>(x, q, scale, out, partial, M, K, N,
+                                      group, splits, split_k, st);
+    case 2:
+      return qmm::launch_tiles<W4, 2>(x, q, scale, out, partial, M, K, N,
+                                      group, splits, split_k, st);
+    case 4:
+      return qmm::launch_tiles<W4, 4>(x, q, scale, out, partial, M, K, N,
+                                      group, splits, split_k, st);
+  }
+  return -1;
 }

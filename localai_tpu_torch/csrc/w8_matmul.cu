@@ -10,28 +10,35 @@
 // Bound: at decode sizes (M = 8 slots) each weight byte feeds 2*M flops,
 // far below the card's ~295 flop/byte ridge — the kernel is bound by the
 // weight bytes it streams from device memory: (K*N + 4N + x + out) /
-// 3.35 TB/s. The design reads every weight byte from memory once:
-//   * [K, N]: one CUDA block per 32 output columns and 8 rows of x; its
-//     256 threads split K (128 thread rows, interleaved) and each thread
-//     owns 16 columns, read as one 16-byte load per K row. x is staged in
-//     shared memory 512 K rows at a time by cp.async, double-buffered, so
-//     the next chunk's copy is in flight while this one is used and no
-//     thread waits on x's loads. Partial sums are reduced over the K
-//     split with warp shuffles and a shared-memory pass, then scaled and
-//     cast. M > 8 takes more blocks along grid.x, the fastest grid axis,
-//     so blocks that share a weight tile run together and re-read it from
-//     L2.
-//   * [N, K]: one warp per 4 output columns reads the 4 contiguous rows
-//     with 4-byte loads along K (x staged the same way), a warp reduction
-//     at the end.
-// Not done yet (later work): tensor cores (mma/wgmma) for M >= 16, a split
-// of K across blocks for narrow N (a 1024-column weight gives 32 blocks
-// on 132 SMs), TMA.
+// 3.35 TB/s; at M = 256 it nears the tensor cores' rate.
+//   * bf16 x, q [K, N]: the tensor-core tile of qmm_mma.cuh (mma.sync
+//     m16n8k16, the weight on the 16-row side so M = 8 fills the 8-column
+//     side), 128 K rows of weight and x per cp.async stage, 3 stages.
+//     An A register holds K rows (2i, 2i + 1) of one column: two bytes
+//     from two staged rows, dequantized exactly through the f32 mantissa
+//     (i8x2_to_bf16x2, no I2F). The f32 accumulator takes scale[n] in the
+//     epilogue; splits of K on 128-row edges (ops/qmatmul.py::
+//     qmm_split_plan) are folded in split order, then scaled, by a second
+//     launch.
+//   * bf16 x, q [N, K]: the same tile; each output column is a table row,
+//     contiguous in K, so a stage holds 128 rows x 128 K bytes (16-byte
+//     chunks swizzled against bank conflicts) and K is ordered inside two
+//     k16 steps so that one 8-byte read per row and one 16-byte read per
+//     x row give both steps' fragments (policy W8T below).
+//   * f32 x (the parity dtype: its 1e-4 tolerance rules out bf16 inputs)
+//     keeps the CUDA-core kernels. q [K, N]: one CUDA block per 32 output
+//     columns and 8 rows of x; 256 threads split K (128 thread rows) and
+//     own 16 columns each, one 16-byte load per K row; x staged in shared
+//     memory by double-buffered cp.async; warp-shuffle and shared-memory
+//     reduction, then scaled and cast. q [N, K]: one warp per 4 output
+//     columns reads the 4 contiguous rows with 4-byte loads along K (x
+//     staged the same way), a warp reduction at the end.
 //
 // Plain C interface (bound with ctypes); launches on the caller's stream
-// and returns cudaGetLastError() after the launch.
+// and returns cudaGetLastError() after each launch.
 
 #include "common.cuh"
+#include "qmm_mma.cuh"
 
 namespace {
 
@@ -204,17 +211,162 @@ int launch(const void* x, const void* q, const void* scale, void* out, int M,
   return (int)cudaGetLastError();
 }
 
+namespace qmm = localai::qmm;
+using qmm::i8x2_to_bf16x2;
+
+// K4's weight policy for the tile walk (qmm_mma.cuh)
+struct W8 {
+  static constexpr int kRows = qmm::kBK;  // int8 rows per stage
+  // a warp reads rows 2 tig = 0, 2, 4, 6 together: 32 bytes apart in banks
+  static constexpr int kStride = qmm::kBN + 16;
+  static constexpr int kWBytes = kRows * kStride;
+  static constexpr int kXStride = qmm::kXStrideLdm;
+  static constexpr int kStages = 3;
+  static constexpr bool kGrouped = false;
+  __device__ static void stage_w(unsigned char* s, const uint8_t* q, int K,
+                                 int N, int n0, int k0, int tid) {
+    qmm::stage_kn<kRows, kStride>(s, q, N, n0, k0, tid);
+  }
+  // k16 step jj + H: a0/a1 hold K rows (2 tig, 2 tig + 1), a2/a3 rows
+  // (2 tig + 8, + 9); byte 2t of the thread's 8 columns is A row g of
+  // tile t, 2t + 1 row g + 8
+  template <int H>
+  __device__ static void load_a(const unsigned char* ws, int jj, int tig,
+                                int col, uint32_t (&a)[4][4]) {
+    const unsigned char* p = ws + (16 * (jj + H) + 2 * tig) * kStride + col;
+    uint2 r[4];  // K rows +0, +1, +8, +9, as offset binary
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r[i] = *reinterpret_cast<const uint2*>(p + ((i & 1) + 8 * (i >> 1)) *
+                                                     kStride);
+      r[i].x ^= 0x80808080u, r[i].y ^= 0x80808080u;
+    }
+    a[0][0] = i8x2_to_bf16x2<0>(r[0].x, r[1].x);
+    a[0][1] = i8x2_to_bf16x2<1>(r[0].x, r[1].x);
+    a[0][2] = i8x2_to_bf16x2<0>(r[2].x, r[3].x);
+    a[0][3] = i8x2_to_bf16x2<1>(r[2].x, r[3].x);
+    a[1][0] = i8x2_to_bf16x2<2>(r[0].x, r[1].x);
+    a[1][1] = i8x2_to_bf16x2<3>(r[0].x, r[1].x);
+    a[1][2] = i8x2_to_bf16x2<2>(r[2].x, r[3].x);
+    a[1][3] = i8x2_to_bf16x2<3>(r[2].x, r[3].x);
+    a[2][0] = i8x2_to_bf16x2<0>(r[0].y, r[1].y);
+    a[2][1] = i8x2_to_bf16x2<1>(r[0].y, r[1].y);
+    a[2][2] = i8x2_to_bf16x2<0>(r[2].y, r[3].y);
+    a[2][3] = i8x2_to_bf16x2<1>(r[2].y, r[3].y);
+    a[3][0] = i8x2_to_bf16x2<2>(r[0].y, r[1].y);
+    a[3][1] = i8x2_to_bf16x2<3>(r[0].y, r[1].y);
+    a[3][2] = i8x2_to_bf16x2<2>(r[2].y, r[3].y);
+    a[3][3] = i8x2_to_bf16x2<3>(r[2].y, r[3].y);
+  }
+  template <int MI>
+  __device__ static void frags(const unsigned char* ws,
+                               const __nv_bfloat16* xs, int jj, int lane,
+                               int col, uint32_t (&a)[2][4][4],
+                               uint32_t (&b)[MI][4]) {
+    qmm::ldmatrix_b<MI>(xs, jj, lane, b);
+    load_a<0>(ws, jj, lane % 4, col, a[0]);
+    load_a<1>(ws, jj, lane % 4, col, a[1]);
+  }
+};
+
+// K4's policy for the tied lm_head table q [N, K]: each output column is
+// a table row, so A's rows are contiguous in K. A stage holds the CTA's
+// 128 rows x 128 K bytes, 16-byte chunk c of row r stored at chunk
+// c ^ ((2 (r / 8)) % 8), so the 4 row groups a half-warp reads together
+// fall on distinct banks. Inside each 32-element span of two k16 steps
+// thread tig takes K elements 8 tig .. 8 tig + 7 (step jj the first 4,
+// jj + 1 the last 4) from both operands: one 8-byte read per table row
+// and one 16-byte read of each x row give both steps' fragments. x rows
+// are staged 32 elements wider, so the 16-byte reads of 8 lanes (two x
+// rows) fall on distinct banks.
+struct W8T {
+  static constexpr int kWBytes = qmm::kBN * qmm::kBK;
+  static constexpr int kXStride = qmm::kBK + 32;
+  static constexpr int kStages = 3;
+  static constexpr bool kGrouped = false;
+  __device__ static int swz(int r) { return (2 * (r >> 3)) & 7; }
+  __device__ static void stage_w(unsigned char* s, const uint8_t* q, int K,
+                                 int N, int n0, int k0, int tid) {
+    for (int e = tid; e < qmm::kBN * (qmm::kBK / 16); e += qmm::kThreads) {
+      const int r = e / (qmm::kBK / 16), c = e % (qmm::kBK / 16);
+      qmm::cp_async16(s + r * qmm::kBK + (c ^ swz(r)) * 16,
+                      q + (size_t)(n0 + r) * K + k0 + c * 16, true);
+    }
+  }
+  template <int MI>
+  __device__ static void frags(const unsigned char* ws,
+                               const __nv_bfloat16* xs, int jj, int lane,
+                               int col, uint32_t (&a)[2][4][4],
+                               uint32_t (&b)[MI][4]) {
+    const int g = lane / 4, tig = lane % 4, span = jj / 2;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          xs + (mi * 8 + g) * kXStride + 32 * span + 8 * tig);
+      b[mi][0] = v.x, b[mi][1] = v.y, b[mi][2] = v.z, b[mi][3] = v.w;
+    }
+    uint2 w[8];  // table rows col + j: A row g (j = 2t) or g + 8 (2t + 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = col + j;
+      w[j] = *reinterpret_cast<const uint2*>(
+          ws + r * qmm::kBK + (((2 * span + (tig >> 1)) ^ swz(r)) * 16) +
+          8 * (tig & 1));
+      w[j].x ^= 0x80808080u, w[j].y ^= 0x80808080u;
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      // step jj: K elements 0, 1 (a0, a1) and 2, 3 (a2, a3); jj + 1: 4-7
+      a[0][t][0] = i8x2_to_bf16x2<0, 1>(w[2 * t].x, w[2 * t].x);
+      a[0][t][1] = i8x2_to_bf16x2<0, 1>(w[2 * t + 1].x, w[2 * t + 1].x);
+      a[0][t][2] = i8x2_to_bf16x2<2, 3>(w[2 * t].x, w[2 * t].x);
+      a[0][t][3] = i8x2_to_bf16x2<2, 3>(w[2 * t + 1].x, w[2 * t + 1].x);
+      a[1][t][0] = i8x2_to_bf16x2<0, 1>(w[2 * t].y, w[2 * t].y);
+      a[1][t][1] = i8x2_to_bf16x2<0, 1>(w[2 * t + 1].y, w[2 * t + 1].y);
+      a[1][t][2] = i8x2_to_bf16x2<2, 3>(w[2 * t].y, w[2 * t].y);
+      a[1][t][3] = i8x2_to_bf16x2<2, 3>(w[2 * t + 1].y, w[2 * t + 1].y);
+    }
+  }
+};
+
+template <class P>
+int launch_tiles(const void* x, const void* q, const void* scale, void* out,
+                 void* partial, int M, int K, int N, int mi, int splits,
+                 int split_k, cudaStream_t st) {
+  const int group = qmm::kBK;  // no groups: splits on stage edges
+  if (!qmm::plan_ok(M, K, N, group, splits, split_k, partial)) return -1;
+  switch (mi) {
+    case 1:
+      return qmm::launch_tiles<P, 1>(x, q, scale, out, partial, M, K, N,
+                                     group, splits, split_k, st);
+    case 2:
+      return qmm::launch_tiles<P, 2>(x, q, scale, out, partial, M, K, N,
+                                     group, splits, split_k, st);
+    case 4:
+      return qmm::launch_tiles<P, 4>(x, q, scale, out, partial, M, K, N,
+                                     group, splits, split_k, st);
+  }
+  return -1;
+}
+
 }  // namespace
 
 // Returns 0 on success, a cudaError_t after a failed launch, or -1 for a
-// shape the kernel does not take (the wrapper gates K % 128 == 0 and
-// N % 128 == 0).
+// shape the kernels do not take (the wrapper gates K % 128 == 0 and
+// N % 128 == 0, and gives the bf16 paths their plan: mi n8 tiles of x per
+// CTA (1, 2 or 4), splits of split_k K rows, and an f32 scratch
+// [splits, M, N] when splits > 1; the f32 paths ignore the plan).
 extern "C" int w8_matmul(const void* x, const void* q, const void* scale,
-                         void* out, int M, int K, int N, int transpose_w,
-                         int is_bf16, void* stream) {
+                         void* out, void* partial, int M, int K, int N,
+                         int transpose_w, int is_bf16, int mi, int splits,
+                         int split_k, void* stream) {
   if (M <= 0 || K % 128 || N % 128) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && transpose_w)
+    return launch_tiles<W8T>(x, q, scale, out, partial, M, K, N, mi, splits,
+                             split_k, st);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, q, scale, out, M, K, N, transpose_w, st);
+    return launch_tiles<W8>(x, q, scale, out, partial, M, K, N, mi, splits,
+                            split_k, st);
   return launch<float>(x, q, scale, out, M, K, N, transpose_w, st);
 }

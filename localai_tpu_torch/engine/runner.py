@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -120,6 +121,7 @@ class ModelRunner:
         seed: int = 0,
         paged: bool = True,
         kv_block_tokens: Optional[int] = None,
+        kv_num_blocks: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
         device: str | torch.device | None = "cuda",
     ):
@@ -155,11 +157,24 @@ class ModelRunner:
                                            or pgd.block_tokens_default()))
             self.max_blocks = -(-self.max_ctx // self.block_tokens)
             self.ctx_pad = self.max_blocks * self.block_tokens
-            # the pool is the contiguous layout's footprint (every slot can
-            # still reach max_ctx) plus the trash block
-            self.num_blocks = num_slots * self.max_blocks + 1
+            # the pool, as the JAX package sizes it: kv_num_blocks or
+            # LOCALAI_KV_BLOCKS (an absolute count), else the contiguous
+            # layout's footprint (every slot can still reach max_ctx)
+            # scaled by LOCALAI_KV_OVERCOMMIT, plus the trash block; a
+            # smaller pool holds admissions until blocks free
+            try:
+                self.kv_overcommit = max(0.01, float(
+                    os.environ.get("LOCALAI_KV_OVERCOMMIT", "1.0") or 1.0))
+            except ValueError:
+                self.kv_overcommit = 1.0
+            default_blocks = max(self.max_blocks, int(
+                num_slots * self.max_blocks * self.kv_overcommit)) + 1
+            self.num_blocks = int(kv_num_blocks
+                                  or os.environ.get("LOCALAI_KV_BLOCKS", "")
+                                  or default_blocks)
+            chunk_env = os.environ.get("LOCALAI_PREFILL_CHUNK_TOKENS", "512")
             self.prefill_chunk = max(self.block_tokens,
-                                     int(prefill_chunk or 512))
+                                     int(prefill_chunk or chunk_env or 512))
             # int8/int4 pools run with a bf16/f32 compute dtype; a float
             # pool must be in the compute dtype (select_paged_attn_impl
             # raises on the card for every other pairing)

@@ -70,6 +70,7 @@ def build_runner(mcfg: ModelConfig, app: AppConfig,
         seed=mcfg.seed or 0,
         paged=eng.kv_paged is not False,
         kv_block_tokens=eng.kv_block_tokens,
+        kv_num_blocks=eng.kv_num_blocks,
         prefill_chunk=eng.prefill_chunk,
         device=app.device,
     )
@@ -85,6 +86,8 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
         runner, model.tokenizer,
         default_max_tokens=mcfg.parameters.max_tokens or 2048,
         multi_step=eng.decode_steps_per_dispatch,
+        pipeline_depth=eng.pipeline_depth,
+        stream_latency_target=eng.stream_latency_ms / 1000.0,
     )
     log.info("loaded model %s (%s) in %.1fs on %s: slots=%d ctx=%d "
              "kv=%s %s; attention: decode=%s prefill=%s", mcfg.name,

@@ -18,12 +18,19 @@ the port's ``models.quant.matmul`` calls them whenever ``eligible`` /
 different selection.
 
 The w4 weight layout is defined here, once: :func:`pack_w4`.
+
+bf16 x takes a tensor-core tile (``csrc/qmm_mma.cuh``) whose K is split
+over CUDA blocks by :func:`qmm_split_plan`; ``w4_matmul_split_ref`` and
+``w8_matmul_split_ref`` are plain models of that partition (tests only).
+f32 x keeps the CUDA-core kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -31,6 +38,18 @@ from localai_tpu_torch.ops import _build
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_M = 256
+# the bf16 tile (csrc/qmm_mma.cuh): output columns per CUDA block and K
+# rows per cp.async stage (the edge every split of K falls on)
+QMM_BN = 128
+QMM_BK = 128
+# the split plan, from scripts/qmm_timing.py's sweep of 1-32 splits at
+# Llama-3-8B's decode shapes (PERF.md §5-6): a grid narrower than the card
+# aims at QMM_CTAS_PER_SM[kind] CUDA blocks per SM (K5's stage holds half
+# K4's bytes, so it takes twice the blocks for the same bytes in flight),
+# and a split walks at least QMM_MIN_SPLIT_K rows (two stages: a one-stage
+# split is all pipeline prologue)
+QMM_CTAS_PER_SM = {"w8": 2, "w4": 4}
+QMM_MIN_SPLIT_K = 2 * QMM_BK
 
 
 # ---------------------------------------------------------------------------
@@ -90,6 +109,62 @@ def w4_eligible(x_shape: tuple, q: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# split plan of the bf16 tile
+# ---------------------------------------------------------------------------
+
+def _mi(M: int) -> int:
+    """n8 tiles of x rows per CUDA block of the bf16 tile."""
+    return 1 if M <= 8 else 2 if M <= 16 else 4
+
+
+def qmm_split_plan(M: int, K: int, N: int, group: int, sms: int,
+                   kind: str) -> tuple[int, int, int]:
+    """(mi, splits, split_k) of the bf16 tile of ``kind`` ("w8" or "w4")
+    for x [M, K] against a [K, N] weight on a card of ``sms`` SMs: ``mi``
+    n8 tiles of x rows per CUDA block (1 up to M = 8, 2 up to 16, else 4),
+    and K cut into ``splits`` runs of ``split_k`` rows (the last may be
+    shorter), each a whole number of ``group``-row groups (w4's scale
+    group; QMM_BK for w8), so no group straddles two CUDA blocks. A grid
+    of N / QMM_BN column tiles x M tiles that covers the SMs is not split
+    (a wide weight, a long M); a narrower one aims at
+    ``QMM_CTAS_PER_SM[kind]`` blocks per SM, with splits of at least
+    QMM_MIN_SPLIT_K rows (N = 1024 at M = 8: 8 column tiles, 16 splits of
+    256 rows). Shapes in, never data."""
+    if (min(M, K, N, group, sms) < 1 or N % QMM_BN or group % QMM_BK
+            or K % group or kind not in QMM_CTAS_PER_SM):
+        raise ValueError(f"no qmm split plan for M={M}, K={K}, N={N}, "
+                         f"group={group}, sms={sms}, kind {kind!r}")
+    mi = _mi(M)
+    tiles = (N // QMM_BN) * -(-M // (8 * mi))
+    groups = K // group
+    most = max(1, K // max(group, QMM_MIN_SPLIT_K))
+    want = (1 if tiles >= sms else
+            (QMM_CTAS_PER_SM[kind] * sms + tiles // 2) // tiles)
+    per_split = -(-groups // max(1, min(most, want)))
+    return mi, -(-groups // per_split), per_split * group
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(M: int, K: int, N: int, group: int, kind: str,
+                 index: int) -> tuple[int, int, int]:
+    """``qmm_split_plan`` on card ``index``, once per shape."""
+    return qmm_split_plan(M, K, N, group, torch.cuda.get_device_properties(
+        index).multi_processor_count, kind)
+
+
+def _forced_plan(M: int, K: int, group: int,
+                 k_splits: int) -> tuple[int, int, int]:
+    """The plan with ``k_splits`` splits on group edges (tests, timing),
+    or ValueError when group edges cannot cut K into that many runs."""
+    groups = K // group
+    per_split = -(-groups // max(1, k_splits))
+    if not 1 <= k_splits <= groups or -(-groups // per_split) != k_splits:
+        raise ValueError(f"K={K} in groups of {group} cannot be cut into "
+                         f"{k_splits} splits")
+    return _mi(M), k_splits, per_split * group
+
+
+# ---------------------------------------------------------------------------
 # plain versions (the Pallas kernels' math)
 # ---------------------------------------------------------------------------
 
@@ -114,11 +189,54 @@ def w4_matmul_ref(x: torch.Tensor, q: torch.Tensor,
     return (part * scale.float()[None]).sum(1).to(x.dtype)
 
 
+def w8_matmul_split_ref(x: torch.Tensor, q: torch.Tensor,
+                        scale: torch.Tensor, k_splits: int,
+                        transpose_w: bool = False) -> torch.Tensor:
+    """Plain model of the bf16 tile's partition of K4 (q [K, N], or the
+    [N, K] table with ``transpose_w``): K cut on QMM_BK edges as
+    ``_forced_plan`` cuts it, an f32 partial x_s @ q_s per split, the
+    partials summed in split order, then the scale and one cast — the
+    order of the kernel's fold (tests only)."""
+    M, K = x.shape
+    _, splits, split_k = _forced_plan(M, K, QMM_BK, k_splits)
+    xf, w = x.float(), (q.T if transpose_w else q).float()
+    acc = torch.zeros((M, w.shape[1]), dtype=torch.float32, device=x.device)
+    for i in range(splits):
+        ks = slice(i * split_k, min(K, (i + 1) * split_k))
+        acc = acc + xf[:, ks] @ w[ks]
+    return (acc * scale.float()).to(x.dtype)
+
+
+def w4_matmul_split_ref(x: torch.Tensor, q: torch.Tensor,
+                        scale: torch.Tensor, k_splits: int) -> torch.Tensor:
+    """Plain model of the bf16 tile's partition of K5: K cut on group
+    edges as ``_forced_plan`` cuts it; inside a split each group's f32
+    partial dot times its scale row is added in group order, and the
+    splits' sums are added in split order, then one cast (tests only)."""
+    M, K = x.shape
+    gc, N = scale.shape
+    group = K // gc
+    _, splits, split_k = _forced_plan(M, K, group, k_splits)
+    w = unpack_w4(q, 0).float().reshape(gc, group, N)
+    part = torch.einsum("mgk,gkn->mgn", x.float().reshape(M, gc, group), w)
+    part = part * scale.float()[None]
+    per = split_k // group
+    out = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    for i in range(splits):
+        acc = torch.zeros_like(out)
+        for gi in range(i * per, min(gc, (i + 1) * per)):
+            acc = acc + part[:, gi]
+        out = out + acc
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# x, q, scale, out, partial; M, K, N, transpose_w | group, is_bf16, mi,
+# splits, split_k; stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _fn(name: str):
@@ -145,13 +263,38 @@ def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _stream(x: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on x's card. The raw getter
+    skips building a Stream object on each of the 225 calls of an 8B
+    decode step, a step that is bound by the host."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+def _plan(x: torch.Tensor, K: int, N: int, group: int, kind: str,
+          k_splits: Optional[int]):
+    """(plan, scratch) of the bf16 tile: the card's plan, or ``k_splits``
+    splits when given, and an f32 scratch [splits, M, N] from the caching
+    allocator when K is split (None otherwise)."""
+    M = x.shape[0]
+    if k_splits is None:
+        plan = _device_plan(M, K, N, group, kind, x.device.index)
+    else:
+        plan = _forced_plan(M, K, group, k_splits)
+    scratch = (torch.empty((plan[1], M, N), dtype=torch.float32,
+                           device=x.device) if plan[1] > 1 else None)
+    return plan, scratch
+
+
 def w8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
-              transpose_w: bool = False) -> torch.Tensor:
+              transpose_w: bool = False,
+              k_splits: Optional[int] = None) -> torch.Tensor:
     """x [M, K] (bf16/f32) × int8 weight → [M, N] in x's dtype.
     ``transpose_w=False``: q [K, N], scale [N]; ``transpose_w=True``:
     q [N, K] (the tied lm_head table), scale [N], computing x @ q.T.
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise. bf16 x takes the tensor-core tile in either orientation, K
+    split by :func:`qmm_split_plan` (``k_splits`` forces a split count:
+    tests and timing)."""
     if x.device.type == "cpu":
         return w8_matmul_ref(x, q, scale, transpose_w)
     _check(x, q, scale)
@@ -162,10 +305,15 @@ def w8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     M, K = x.shape
     N = q.shape[0] if transpose_w else q.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    tiled = x.dtype == torch.bfloat16
+    (mi, splits, split_k), scratch = (
+        _plan(x, K, N, QMM_BK, "w8", k_splits) if tiled
+        else ((0, 0, 0), None))
     rc = _fn("w8_matmul")(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, int(transpose_w), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        scratch.data_ptr() if scratch is not None else 0,
+        M, K, N, int(transpose_w), int(tiled), mi, splits, split_k,
+        _stream(x))
     if rc != 0:
         raise RuntimeError(f"w8 matmul kernel launch failed (code {rc})")
     _build.count_launch(w8_matmul)
@@ -175,12 +323,14 @@ def w8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
 w8_matmul.launches = 0
 
 
-def w4_matmul(x: torch.Tensor, q: torch.Tensor,
-              scale: torch.Tensor) -> torch.Tensor:
+def w4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
+              k_splits: Optional[int] = None) -> torch.Tensor:
     """x [M, K] (bf16/f32) × group-wise int4 weight, packed [K/2, N]
     (:func:`pack_w4`), scale [K/group, N] → [M, N] in x's dtype. CPU
     tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise. bf16 x takes the tensor-core tile, K split on group edges by
+    :func:`qmm_split_plan` (``k_splits`` forces a split count: tests and
+    timing)."""
     if x.device.type == "cpu":
         return w4_matmul_ref(x, q, scale)
     _check(x, q, scale)
@@ -191,10 +341,16 @@ def w4_matmul(x: torch.Tensor, q: torch.Tensor,
     M, K = x.shape
     N = q.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    group = K // scale.shape[0]
+    tiled = x.dtype == torch.bfloat16
+    (mi, splits, split_k), scratch = (
+        _plan(x, K, N, group, "w4", k_splits) if tiled
+        else ((0, 0, 0), None))
     rc = _fn("w4_matmul")(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, K // scale.shape[0], int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        scratch.data_ptr() if scratch is not None else 0,
+        M, K, N, group, int(tiled), mi, splits, split_k,
+        _stream(x))
     if rc != 0:
         raise RuntimeError(f"w4 matmul kernel launch failed (code {rc})")
     _build.count_launch(w4_matmul)

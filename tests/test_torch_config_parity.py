@@ -1,0 +1,195 @@
+"""The PyTorch port's model config against the JAX package's, on the CPU.
+
+Each test reads one YAML into both packages and holds what they build
+against each other: engine knobs that reach the scheduler and the paged
+pool (pipeline_depth, stream_latency_ms, kv_num_blocks), ``f16: false``,
+completion text shaping (cutstrings, extract_regex, trimspace, trimsuffix,
+``echo``) over both HTTP servers on a tiny checkpoint written here, and
+the port's refusals of what it cannot serve yet (constrained decoding,
+the prompt cache), which stay until the port has them.
+"""
+
+import json
+import time
+import urllib.error
+import urllib.request
+
+import pytest
+
+torch = pytest.importorskip("torch")
+yaml = pytest.importorskip("yaml")
+pytest.importorskip("aiohttp")
+
+import jax  # noqa: E402
+
+from localai_tpu.config.app_config import AppConfig as JaxAppConfig  # noqa: E402
+from localai_tpu.config.model_config import ModelConfig as JaxModelConfig  # noqa: E402
+from localai_tpu.engine.scheduler import GenRequest as JaxGenRequest  # noqa: E402
+from localai_tpu.models import llama as jl  # noqa: E402
+from localai_tpu.models.manager import build_serving_model as jax_build  # noqa: E402
+from localai_tpu_torch.api.server import APIServer  # noqa: E402
+from localai_tpu_torch.config.app_config import AppConfig  # noqa: E402
+from localai_tpu_torch.config.loader import ConfigLoader, load_config_file  # noqa: E402
+from localai_tpu_torch.config.model_config import ModelConfig  # noqa: E402
+from localai_tpu_torch.engine.scheduler import GenRequest  # noqa: E402
+from localai_tpu_torch.models.manager import ModelManager, build_serving_model  # noqa: E402
+from test_api import _ServerThread, make_state  # noqa: E402
+from test_torch_llama import (  # noqa: E402
+    one_torch_thread,  # noqa: F401 — autouse fixture
+    write_hf_checkpoint,
+)
+
+ENGINE = dict(max_slots=2, kv_block_tokens=16, prefill_chunk=32,
+              dtype="float32", kv_dtype="float32", spec=False)
+
+
+def _both(doc: dict):
+    """(port ServingModel, JAX ServingModel) built from one YAML document
+    on the CPU."""
+    sm = build_serving_model(ModelConfig.from_dict(dict(doc)),
+                             AppConfig(device="cpu"))
+    jsm = jax_build(JaxModelConfig(**doc), JaxAppConfig())
+    return sm, jsm
+
+
+def test_pipeline_depth_and_stream_latency_reach_the_scheduler():
+    doc = {"name": "p", "model": "debug:tiny", "context_size": 64,
+           "engine": {**ENGINE, "pipeline_depth": 1,
+                      "stream_latency_ms": 20}}
+    sm, jsm = _both(doc)
+    try:
+        for s in (sm.scheduler, jsm.scheduler):
+            assert s.pipeline_depth == 1
+            assert s.stream_latency_target == pytest.approx(0.02)
+    finally:
+        sm.close()
+        jsm.close()
+
+
+def _held_while_first_runs(sched, first, second) -> bool:
+    """True once ``second`` sits in the scheduler's hold while ``first``
+    is still decoding (polled: the engine thread admits them)."""
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and first.finish_reason is None:
+        if sched._held is second:
+            return True
+        time.sleep(0.0005)
+    return False
+
+
+def test_kv_num_blocks_sizes_the_pool_and_holds_admissions():
+    """kv_num_blocks: 9 with 2 slots of 8 blocks each: a pool of 9 (8
+    usable). A request that reserves the whole context takes all 8, so a
+    second such request waits in the hold on both packages, then runs."""
+    doc = {"name": "k", "model": "debug:tiny", "context_size": 128,
+           "engine": {**ENGINE, "kv_num_blocks": 9}}
+    sm, jsm = _both(doc)
+    try:
+        assert sm.runner.allocator.num_blocks == 9
+        assert jsm.runner.allocator.num_blocks == 9
+        prompt = list(b"a long story")
+        for sched, req in ((sm.scheduler, GenRequest),
+                           (jsm.scheduler, JaxGenRequest)):
+            first = sched.submit(req(prompt=prompt, max_new_tokens=120,
+                                     temperature=0.0))
+            second = sched.submit(req(prompt=prompt, max_new_tokens=120,
+                                      temperature=0.0))
+            assert _held_while_first_runs(sched, first, second)
+            assert first.result(300).completion_tokens > 0
+            assert second.result(300).completion_tokens > 0
+    finally:
+        sm.close()
+        jsm.close()
+
+
+def test_f16_false_computes_in_float32():
+    doc = {"name": "f", "model": "debug:tiny", "f16": False}
+    assert ModelConfig.from_dict(dict(doc)).engine.dtype == "float32"
+    assert JaxModelConfig(**doc).engine.dtype == "float32"
+    assert ModelConfig.from_dict({"model": "x"}).engine.dtype == "bfloat16"
+
+
+SHAPED = {"cutstrings": ["a"], "extract_regex": ["(?s)b(.*)"],
+          "trimspace": [" "], "trimsuffix": ["."]}
+
+
+@pytest.fixture(scope="module")
+def two_servers(tmp_path_factory):
+    """The port's and the JAX package's HTTP servers over one models dir
+    holding one YAML (with text shaping) on a tiny random checkpoint."""
+    root = tmp_path_factory.mktemp("shaping")
+    cfg = jl.LlamaConfig(vocab_size=512, hidden_size=64,
+                         intermediate_size=128, num_layers=2, num_heads=4,
+                         num_kv_heads=2, max_position_embeddings=512,
+                         dtype="float32")
+    ckpt = write_hf_checkpoint(root / "ckpt", cfg,
+                               jl.init_params(jax.random.key(3), cfg))
+    models = root / "models"
+    models.mkdir()
+    (models / "s.yaml").write_text(yaml.safe_dump({
+        "name": "s", "model": str(ckpt), "context_size": 128,
+        "engine": ENGINE, **SHAPED}))
+    loader = ConfigLoader(models)
+    loader.load_from_path()
+    port = APIServer(ModelManager(AppConfig(model_path=str(models),
+                                            device="cpu"), loader),
+                     "127.0.0.1", 0).start()
+    ref = _ServerThread(make_state(models))
+    yield port.url, ref.base
+    ref.stop()
+    port.shutdown()
+
+
+def _post(url, body):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+@pytest.mark.parametrize("echo", [True, False])
+def test_completion_text_is_shaped_as_the_jax_server_shapes_it(two_servers,
+                                                                echo):
+    body = {"model": "s", "prompt": "a banana, a cab.", "max_tokens": 10,
+            "temperature": 0, "echo": echo}
+    got = [_post(url + "/v1/completions", body)["choices"][0]["text"]
+           for url in two_servers]
+    assert got[0] == got[1]
+    if echo:  # the echoed prompt went through cutstrings and the regex
+        assert got[0].startswith("nn,  cb.")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("tools", [{"type": "function", "function": {"name": "f",
+                                                 "parameters": {}}}]),
+    ("tool_choice", "required"),
+    ("response_format", {"type": "json_object"}),
+    ("grammar", "root ::= \"x\""),
+])
+def test_chat_asking_for_constrained_decoding_is_refused(two_servers, field,
+                                                         value):
+    body = {"model": "s", "max_tokens": 2, field: value,
+            "messages": [{"role": "user", "content": "hi"}]}
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(two_servers[0] + "/v1/chat/completions", body)
+    assert e.value.code == 400
+    assert field in json.loads(e.value.read())["error"]["message"]
+
+
+def test_text_response_format_is_served(two_servers):
+    out = _post(two_servers[0] + "/v1/chat/completions", {
+        "model": "s", "max_tokens": 2, "response_format": {"type": "text"},
+        "messages": [{"role": "user", "content": "hi"}]})
+    assert out["usage"]["completion_tokens"] > 0
+
+
+@pytest.mark.parametrize("doc,what", [
+    ({"prompt_cache_path": "cache"}, "prompt cache"),
+    ({"grammar": "root ::= \"x\""}, "grammar"),
+    ({"function": {"disable_no_action": True}}, "function calling"),
+])
+def test_config_for_unported_features_fails_at_load(tmp_path, doc, what):
+    p = tmp_path / "u.yaml"
+    p.write_text(yaml.safe_dump({"name": "u", "model": "debug:tiny", **doc}))
+    with pytest.raises(ValueError, match=what):
+        load_config_file(p)

@@ -334,3 +334,102 @@ def test_cuda_wrappers_refuse_ineligible_shapes():
         sc = torch.ones((2, 2, 30), device="cuda")
         tops.decode_attention(q, kq, kq, torch.zeros(2, dtype=torch.int32,
                                                      device="cuda"), sc, sc)
+
+
+# the bf16 tensor-core tile of K4/K5 (csrc/qmm_mma.cuh): every M edge of
+# its n8 tiles (1, 8 | 16 | 17, 64, 256), both gated w4 group sizes, and
+# f32 x (the CUDA-core kernels) at the same shapes
+QMM_MS = (1, 8, 16, 17, 64, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", QMM_MS)
+@pytest.mark.parametrize("kind,group", [("w8", 0), ("w4", 128),
+                                        ("w4", 256)])
+def test_cuda_qmm_tile_matches_plain(kind, group, M, dtype):
+    _card()
+    dt = getattr(torch, dtype)
+    x, w = _mm_inputs(M, 1024, 384, 11 + M)
+    xc = x.to(dt)
+    if kind == "w8":
+        qt = tq.quantize_tensor(w, 0)
+        got = tqm.w8_matmul(xc, qt.q, qt.scale)
+        want = tqm.w8_matmul_ref(xc.float(), qt.q, qt.scale)
+    else:
+        qt = tq.quantize_tensor4(w, 0, group=group)
+        got = tqm.w4_matmul(xc, qt.q, qt.scale)
+        want = tqm.w4_matmul_ref(xc.float(), qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (M, 384)
+    _row_check(got, want, dt)
+
+
+def _split_counts(groups):
+    """Every split count group edges can cut ``groups`` groups into."""
+    return [s for s in range(1, groups + 1)
+            if -(-groups // -(-groups // s)) == s]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", (1, 8, 17, 256))
+@pytest.mark.parametrize("kind,group", [("w8", 128), ("w8t", 128),
+                                        ("w4", 128), ("w4", 256)])
+def test_cuda_qmm_every_split_matches_the_split_model(kind, group, M):
+    """K = 2048: every split count on group edges (w8t: the tied lm_head's
+    [N, K] table), one launch count per call whatever the split, and two
+    identical calls bit for bit equal (the partials fold in split order,
+    no atomics)."""
+    _card()
+    tr = kind == "w8t"
+    x, w = _mm_inputs(M, 2048, 256, 3 + M, transpose=tr)
+    xb = x.to(torch.bfloat16)
+    if kind == "w4":
+        qt = tq.quantize_tensor4(w, 0, group=group)
+        fn = tqm.w4_matmul
+        model = tqm.w4_matmul_split_ref
+    else:
+        qt = tq.quantize_tensor(w, 1 if tr else 0)
+        fn = functools.partial(tqm.w8_matmul, transpose_w=tr)
+        model = functools.partial(tqm.w8_matmul_split_ref, transpose_w=tr)
+    wrapper = tqm.w4_matmul if kind == "w4" else tqm.w8_matmul
+    for s in _split_counts(2048 // group):
+        before = wrapper.launches
+        got = fn(xb, qt.q, qt.scale, k_splits=s)
+        again = fn(xb, qt.q, qt.scale, k_splits=s)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2
+        assert torch.equal(got, again), s
+        _row_check(got, model(xb.float(), qt.q, qt.scale, s), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_qmm_plan_runs_the_8b_shapes():
+    """The card's own plan at Llama-3-8B's narrow and wide projections:
+    the same output as a single split, bit for bit run to run."""
+    _card()
+    for K, N in ((4096, 1024), (4096, 4096)):
+        x, w = _mm_inputs(8, K, N, 21)
+        xb = x.to(torch.bfloat16)
+        qt = tq.quantize_tensor4(w, 0)
+        got = tqm.w4_matmul(xb, qt.q, qt.scale)
+        assert torch.equal(got, tqm.w4_matmul(xb, qt.q, qt.scale))
+        _row_check(got, tqm.w4_matmul_ref(xb.float(), qt.q, qt.scale),
+                   torch.bfloat16)
+        q8 = tq.quantize_tensor(w, 0)
+        got = tqm.w8_matmul(xb, q8.q, q8.scale)
+        assert torch.equal(got, tqm.w8_matmul(xb, q8.q, q8.scale))
+        _row_check(got, tqm.w8_matmul_ref(xb.float(), q8.q, q8.scale),
+                   torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_qmm_refuses_a_bad_split():
+    _card()
+    x, w = _mm_inputs(8, 1024, 128, 9)
+    qt = tq.quantize_tensor4(w, 0)
+    with pytest.raises(ValueError, match="splits"):
+        tqm.w4_matmul(x.to(torch.bfloat16), qt.q, qt.scale, k_splits=5)
+    q8 = tq.quantize_tensor(w, 0)
+    with pytest.raises(ValueError, match="splits"):
+        tqm.w8_matmul(x.to(torch.bfloat16), q8.q, q8.scale, k_splits=9)
