@@ -19,13 +19,17 @@ Phases (any failure raises and the script exits non-zero):
        (scaled_dot_product_attention over K/V gathered and dequantized
        beforehand — a yardstick only), and the byte bound;
      - K2 contiguous decode attention at the same shape over a
-       [8, 8, 4096, 128] cache in bf16, f32 and scaled int8, plus window,
-       hd=64 (a context of 1000 rows, no multiple of the kernel's tile)
-       and f32-q int8 cases; times as for K1 (library: SDPA over the
+       [8, 8, 4096, 128] cache in bf16, f32 and scaled int8, plus window
+       (across split edges, at the plan's, the finest and a single
+       split), hd=64 (a context of 1000 rows, no multiple of the kernel's
+       tile) and f32-q int8 cases, each recorded with its split plan;
+       times as for K1, the single walk included (library: SDPA over the
        cache, masked to each slot's rows), byte bound;
      - K3 prefill attention at Hq=32, Hkv=8, hd=128 for T = 512, 2048 and
        4096 (length = T) and T=2048 with 1001 real rows, in bf16 and f32,
-       a window case and an hd=64 GQA-1 case; every row compared; times
+       a window case, hd=64 GQA-1 cases, and the bf16 kernel at both
+       block sizes (the plan's rows a block recorded); every row compared;
+       times
        for the kernel, the plain version and SDPA (is_causal, or the same
        boolean mask), and the operation bound over the kept pairs;
      - K4 w8_matmul and K5 w4_matmul at Llama-3-8B's decode shapes (M=8
@@ -319,16 +323,14 @@ def _check_rows(name, out, ref, dtype) -> tuple[float, bool]:
     return row_err.max().item(), ok
 
 
-def decode_case(name, dtype, *, kv="", S=8, Hq=32, Hkv=8, hd=128, C=4096,
-                positions=(4095, 3001, 2048, 2047, 1000, 640, 64, 63),
-                window=None, seed=0, timed=False):
-    """K2 over a contiguous [S, Hkv, C, hd] cache in ``dtype`` (kv "") or
-    scaled int8 (kv "int8"; ``dtype`` is then q's)."""
+def k2_inputs(dtype, *, kv="", S=8, Hq=32, Hkv=8, hd=128, C=4096,
+              positions=SMOKE_POSITIONS, seed=0):
+    """Seeded K2 inputs on the card: (q, k, v, pos, scales, ref_kv) over a
+    contiguous cache of ``dtype`` (kv "") or scaled int8 built by the
+    port's quantizer (``dtype`` is then q's); ``scales`` is () or
+    (k_scale, v_scale), ``ref_kv`` the cache as the plain version takes
+    it."""
     from localai_tpu_torch.models import quant as tq
-    from localai_tpu_torch.ops.attention import (
-        decode_attention,
-        decode_attention_ref,
-    )
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -339,13 +341,37 @@ def decode_case(name, dtype, *, kv="", S=8, Hq=32, Hkv=8, hd=128, C=4096,
     if kv:
         k, ks = tq.quantize_lastdim(k)
         v, vs = tq.quantize_lastdim(v)
-        scales = (ks, vs)
-        ref_kv = (k, v)
+        return q, k, v, pos, (ks, vs), (k, v)
+    k, v = k.to(dtype), v.to(dtype)
+    return q, k, v, pos, (), (k.float(), v.float())
+
+
+def decode_case(name, dtype, *, kv="", S=8, Hq=32, Hkv=8, hd=128, C=4096,
+                positions=SMOKE_POSITIONS, window=None, seed=0,
+                split_tiles=None, timed=False):
+    """K2 over a contiguous [S, Hkv, C, hd] cache in ``dtype`` (kv "") or
+    scaled int8 (kv "int8"; ``dtype`` is then q's), split by the wrapper's
+    plan or by ``split_tiles``."""
+    from localai_tpu_torch.ops.attention import (
+        DECODE_TILE,
+        decode_attention,
+        decode_attention_ref,
+        decode_split_plan,
+    )
+
+    q, k, v, pos, scales, ref_kv = k2_inputs(
+        dtype, kv=kv, S=S, Hq=Hq, Hkv=Hkv, hd=hd, C=C, positions=positions,
+        seed=seed)
+    dev = "cuda"
+    ntiles = -(-C // DECODE_TILE)
+    if split_tiles is None:
+        tps, splits = decode_split_plan(
+            S, Hkv, C, torch.cuda.get_device_properties(0)
+            .multi_processor_count, kv)
     else:
-        k, v = k.to(dtype), v.to(dtype)
-        scales = ()
-        ref_kv = (k.float(), v.float())
-    out = decode_attention(q, k, v, pos, *scales, sliding_window=window)
+        tps, splits = split_tiles, -(-ntiles // split_tiles)
+    out = decode_attention(q, k, v, pos, *scales, sliding_window=window,
+                           split_tiles=split_tiles)
     torch.cuda.synchronize()
     ref = decode_attention_ref(q.float(), *ref_kv, pos, *scales,
                                sliding_window=window)
@@ -354,7 +380,7 @@ def decode_case(name, dtype, *, kv="", S=8, Hq=32, Hkv=8, hd=128, C=4096,
            "dtype": str(dtype).replace("torch.", ""),
            "kv": kv or str(dtype).replace("torch.", ""), "S": S, "Hq": Hq,
            "Hkv": Hkv, "hd": hd, "C": C, "window": window,
-           "max_abs_err": err}
+           "tiles_per_split": tps, "splits": splits, "max_abs_err": err}
     del ref
     if timed:
         # bytes each call must move: every slot's live rows (from the
@@ -366,8 +392,8 @@ def decode_case(name, dtype, *, kv="", S=8, Hq=32, Hkv=8, hd=128, C=4096,
                    for p in positions)
         nbytes = 2 * live * Hkv * row + 2 * S * Hq * hd * elem + S * 4
         if kv:  # the library reads a cache dequantized beforehand
-            keys = (k.to(dtype) * ks[..., None].to(dtype))
-            values = (v.to(dtype) * vs[..., None].to(dtype))
+            keys = (k.to(dtype) * scales[0][..., None].to(dtype))
+            values = (v.to(dtype) * scales[1][..., None].to(dtype))
         else:
             keys, values = k, v
         idx = torch.arange(C, device=dev)
@@ -377,9 +403,16 @@ def decode_case(name, dtype, *, kv="", S=8, Hq=32, Hkv=8, hd=128, C=4096,
         mask = keep[:, None, None, :]
         q4 = q[:, :, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def kernel(st=split_tiles):
+            return decode_attention(q, k, v, pos, *scales,
+                                    sliding_window=window, split_tiles=st)
+
+        # the plan's split and the single walk (one split of every tile,
+        # the design before the split)
         rec.update(
-            ms=time_ms(lambda: decode_attention(q, k, v, pos, *scales,
-                                                sliding_window=window)),
+            ms=time_ms(kernel), single_walk_ms=time_ms(
+                lambda: kernel(ntiles)),
             plain_ms=time_ms(lambda: decode_attention_ref(
                 q, k, v, pos, *scales, sliding_window=window), iters=10),
             library_ms=time_ms(lambda: sdpa(q4, keys, values, attn_mask=mask,
@@ -393,19 +426,22 @@ def decode_case(name, dtype, *, kv="", S=8, Hq=32, Hkv=8, hd=128, C=4096,
 
 
 def prefill_case(name, dtype, T, *, length=None, window=None, Hq=32, Hkv=8,
-                 hd=128, seed=0, timed=True):
+                 hd=128, seed=0, block_rows=None, timed=True):
     """K3 for one T-token sequence (q [T, Hq, hd], head-major k/v), every
-    row compared, ``length`` real rows (default T)."""
+    row compared, ``length`` real rows (default T); a bf16 case takes the
+    wrapper's rows a CUDA block or ``block_rows``."""
     from localai_tpu_torch.ops.attention import (
         prefill_attention,
         prefill_attention_ref,
+        prefill_block_rows,
     )
 
     length = T if length is None else length
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = [torch.randn(shp, generator=g, device="cuda").to(dtype)
                for shp in ((T, Hq, hd), (Hkv, T, hd), (Hkv, T, hd))]
-    out = prefill_attention(q, k, v, length, sliding_window=window)
+    out = prefill_attention(q, k, v, length, sliding_window=window,
+                            block_rows=block_rows)
     torch.cuda.synchronize()
     ref = prefill_attention_ref(q.float(), k.float(), v.float(), length,
                                 sliding_window=window)
@@ -415,6 +451,10 @@ def prefill_case(name, dtype, T, *, length=None, window=None, Hq=32, Hkv=8,
            "dtype": str(dtype).replace("torch.", ""), "T": T,
            "length": length, "window": window, "Hq": Hq, "Hkv": Hkv,
            "hd": hd, "max_abs_err": err}
+    if dtype == torch.bfloat16:
+        rec["block_rows"] = block_rows or prefill_block_rows(
+            T, Hq, Hkv, torch.cuda.get_device_properties(0)
+            .multi_processor_count)
     if timed:
         # operations over the (row, key) pairs the mask keeps: row t takes
         # keys <= t below length and inside the window; 2 products of
@@ -438,9 +478,9 @@ def prefill_case(name, dtype, T, *, length=None, window=None, Hq=32, Hkv=8,
             def library():
                 return sdpa(q4, k4, v4, attn_mask=mask, enable_gqa=True)
         rec.update(
-            ms=time_ms(lambda: prefill_attention(q, k, v, length,
-                                                 sliding_window=window),
-                       iters=10),
+            ms=time_ms(lambda: prefill_attention(
+                q, k, v, length, sliding_window=window,
+                block_rows=block_rows), iters=10),
             plain_ms=time_ms(lambda: prefill_attention_ref(
                 q, k, v, length, sliding_window=window), iters=3, warmup=1),
             library_ms=time_ms(library, iters=10),
@@ -463,6 +503,14 @@ def phase_attention() -> dict:
     decode_case("k2-window-bf16", torch.bfloat16, window=700, seed=3)
     decode_case("k2-window-int8", torch.bfloat16, kv="int8", window=700,
                 seed=4)
+    # a window of 700 starts inside a split and crosses split edges: the
+    # finest split, 2-tile splits on an f32 cache, and the single walk
+    decode_case("k2-window-bf16-split1", torch.bfloat16, window=700, seed=7,
+                split_tiles=1)
+    decode_case("k2-window-f32-split2", torch.float32, window=700, seed=8,
+                split_tiles=2)
+    decode_case("k2-window-int8-single", torch.bfloat16, kv="int8",
+                window=700, seed=9, split_tiles=64)
     decode_case("k2-hd64-f32", torch.float32, Hq=16, Hkv=4, hd=64, C=1000,
                 positions=(999, 0, 63, 64, 500, 511, 512, 900), seed=5)
     decode_case("k2-int8-f32q", torch.float32, kv="int8", seed=6)
@@ -480,6 +528,16 @@ def phase_attention() -> dict:
                                           2048, window=700, seed=30)
     prefill_case("k3-hd64-g1-f32", torch.float32, 300, length=290, Hq=8,
                  Hkv=8, hd=64, seed=31, timed=False)
+    # the bf16 kernel at the block size the plan does not pick for these
+    # lengths, and at hd=64 with a GQA group of 1 on both sizes
+    prefill_case("k3-T4096-rows64-bf16", torch.bfloat16, 4096, seed=32,
+                 block_rows=64, timed=False)
+    prefill_case("k3-T512-rows128-bf16", torch.bfloat16, 512, seed=33,
+                 block_rows=128, timed=False)
+    for rows in (64, 128):
+        prefill_case(f"k3-hd64-g1-rows{rows}-bf16", torch.bfloat16, 300,
+                     length=290, window=120, Hq=8, Hkv=8, hd=64,
+                     seed=34 + rows, block_rows=rows, timed=False)
     return main
 
 

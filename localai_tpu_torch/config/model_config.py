@@ -6,8 +6,9 @@ does not depend on). Unknown keys are ignored; keys that would ask for a
 feature the port does not have yet — Go/Jinja prompt templates,
 ``int8_w8a8`` quantization, speculative decoding, self-extend
 (``engine.grp_attn_n > 1``), a vision tower (``mmproj``), the prompt
-cache (``prompt_cache_path``), grammars (``grammar``) and function
-calling (a ``function`` section) — raise a clear error at load instead of
+cache (``prompt_cache_path``), grammars (``grammar``), function
+calling (a ``function`` section) and the backends whose engines are not
+ported (``UNPORTED_BACKENDS``) — raise a clear error at load instead of
 serving something else than was asked for. int8
 and int4 weights (``engine.quantization``), int8/int4 KV storage
 (``engine.kv_dtype``; int4 on the paged layout only), the contiguous KV
@@ -29,6 +30,20 @@ CROSS_ENCODER_BACKENDS = ("reranker", "bert-embeddings",
 # backend names served by the LLM engine (the JAX package's list)
 LLM_BACKENDS = ("", "jax", "jax-llm", "transformers", "worker",
                 "huggingface", "langchain-huggingface", "mamba", "rwkv")
+# LLM backends the JAX package routes to another engine than the llama
+# runner (its ModelManager._load), which the port has not ported: served
+# by the llama runner they would answer with another model
+_REMOTE_API = ("the HTTP client to a remote inference API "
+               "(models/hf_api.py; not a device path, refused until the "
+               "API layer is ported in full)")
+UNPORTED_BACKENDS = {
+    "mamba": "the recurrent-state engine (ROADMAP A8: models/mamba.py, "
+             "models/mamba_serving.py)",
+    "rwkv": "the recurrent-state engine (ROADMAP A8: models/rwkv.py, "
+            "models/mamba_serving.py)",
+    "huggingface": _REMOTE_API,
+    "langchain-huggingface": _REMOTE_API,
+}
 
 
 def _pick(cls, data: Optional[dict]) -> dict:
@@ -196,6 +211,12 @@ class ModelConfig:
                 raise ValueError(
                     f"model {self.name or self.model!r}: {what} ({key}) is "
                     "not ported yet")
+        backend = (self.backend or "").lower()
+        if backend in UNPORTED_BACKENDS:
+            raise ValueError(
+                f"model {self.name or self.model!r}: backend {backend!r} "
+                f"is not ported yet; it needs "
+                f"{UNPORTED_BACKENDS[backend]}")
         if self.engine.kv_dtype == "int4" and self.engine.kv_paged is False:
             raise ValueError(
                 f"model {self.name or self.model!r}: kv_dtype int4 needs "

@@ -16,19 +16,42 @@
 // flops per element, so it is bound by device-memory bytes:
 // (live K/V rows and their scales + q + out) / 3.35 TB/s.
 //
-// Design: the paged kernel's walk (csrc/paged_decode_attention.cu) with
-// the block table replaced by a contiguous row offset — one CUDA block per
-// (slot, kv head), kTile-row K/V tiles staged in shared memory by
-// double-buffered cp.async, f32 online softmax. A tile that runs past C
-// (C need not be a multiple of kTile) is zero-filled; its rows lie past
-// pos and are masked. The walk is a copy of the paged kernel's, not a
-// shared header: moving that kernel onto a shared walk slowed it by
-// 15-30% on the card with no change to its memory instructions, so it
-// stays as it was measured. Not done yet: a split of the walk over
-// several CUDA blocks (S*Hkv blocks underfill the 132 SMs at small batch).
+// One CUDA block per (slot, kv head) walking its rows alone was far from
+// that bound: at 8 slots and 8 kv heads it put 64 blocks on 132 SMs, and
+// the slot with the longest context folded its tiles one after another,
+// so the kernel took the time of its longest serial walk. So the walk is
+// split (flash-decoding), as the paged kernel's is, in two passes
+// launched back to back on the caller's stream:
+//   1. decode_kernel, grid (splits, Hkv, S): the cache row is cut into
+//      kTile-row tiles, which play the part of the paged kernel's table
+//      entries. Split k of slot s folds tiles [k*tps, (k+1)*tps) clamped
+//      to the slot's walk [lo, nb) — tps, the tiles per split, comes from
+//      a host-side plan that reads only shapes, never positions — and
+//      writes its unnormalised (m[g], l[g], acc[g][hd]) in f32 to scratch
+//      the wrapper allocated. A split with no live tile loads nothing and
+//      writes (-1e30, 0, 0), the merge's identity. Clamping to [lo, nb)
+//      keeps every folded tile holding a kept row (a wholly masked tile
+//      would give p = exp(-1e30 + 1e30) = 1 and corrupt l). Inside a split
+//      the walk is the single walk's: the g query rows of a GQA group
+//      share every K/V tile; kTile-row K/V tiles are staged in shared
+//      memory by double-buffered cp.async (the copy of tile i+1 is in
+//      flight while tile i is folded); scores, running max, denominator
+//      and accumulator stay in f32 (one output column per thread). A tile
+//      that runs past C (C need not be a multiple of kTile) is
+//      zero-filled; its rows are masked.
+//   2. decode_kernel_merge, one block per (q head, slot), folds the splits
+//      that hold a live tile of the slot (it reads the slot's position on
+//      the device, as pass 1 does): with M = max_k m_k and
+//      w_k = exp(m_k - M), out = sum_k w_k acc_k / max(sum_k w_k l_k,
+//      1e-30). The V scale is already inside acc_k and not in l_k, so
+//      both cache kinds merge alike.
+// One split (tps = all tiles) computes what the single walk did. The walk
+// and the merge are copies of the paged kernel's, not a shared header:
+// moving that kernel onto a shared walk slowed it by 15-30% on the card
+// with no change to its memory instructions. Not done yet: wgmma/TMA.
 //
-// Plain C interface (bound with ctypes); launches on the caller's stream
-// and returns cudaGetLastError() after the launch.
+// Plain C interface (bound with ctypes); launches both passes on the
+// caller's stream and returns cudaGetLastError() after each launch.
 
 #include "common.cuh"
 
@@ -93,6 +116,19 @@ __device__ __forceinline__ void copy16(void* dst, const void* src,
   }
 }
 
+// The walk of a slot at position pos: tiles [lo, nb), with
+// nb = min(pos/kTile + 1, ntiles) and lo the first tile that holds a row
+// inside the sliding window (0 without one).
+__device__ __forceinline__ int2 walk_range(int pos, int ntiles, int window) {
+  const int nb = min(pos / kTile + 1, ntiles);
+  int lo = 0;
+  if (window > 0) {
+    const int first = pos - window + 1;  // floor-divide, clamped at 0
+    lo = first > 0 ? first / kTile : 0;
+  }
+  return make_int2(lo, nb);
+}
+
 template <typename T, int Q, int HD, int G>
 __global__ void __launch_bounds__(HD) decode_kernel(
     const T* __restrict__ q,             // [S, Hq, HD]
@@ -101,8 +137,10 @@ __global__ void __launch_bounds__(HD) decode_kernel(
     const float* __restrict__ k_scale,   // [S, Hkv, C] (Q != 0)
     const float* __restrict__ v_scale,   // [S, Hkv, C] (Q != 0)
     const int* __restrict__ positions,   // [S]
-    T* __restrict__ out,                 // [S, Hq, HD]
-    int Hkv, int C, int window, float sm_scale) {
+    float* __restrict__ part_m,          // [S, Hkv, splits, G]
+    float* __restrict__ part_l,          // [S, Hkv, splits, G]
+    float* __restrict__ part_acc,        // [S, Hkv, splits, G, HD]
+    int Hkv, int C, int window, int tps, float sm_scale) {
   using Tile = Rows<T, Q, HD>;
   constexpr int kWarps = HD / 32;
   constexpr int tile = kTile * Tile::kRowBytes;         // bytes
@@ -118,19 +156,29 @@ __global__ void __launch_bounds__(HD) decode_kernel(
   float* row_l = row_m + G;                             // [G]
   float* row_alpha = row_l + G;                         // [G]
 
-  const int s = blockIdx.x;
+  const int k = blockIdx.x;  // split
   const int h = blockIdx.y;
+  const int s = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int pos = positions[s];
-  const int nb = min(pos / kTile + 1, (C + kTile - 1) / kTile);
-  int lo = 0;
-  if (window > 0) {
-    const int first = pos - window + 1;  // floor-divide, clamped at 0
-    lo = first > 0 ? first / kTile : 0;
-  }
+  const int2 walk = walk_range(pos, (C + kTile - 1) / kTile, window);
+  // this split's share of the walk [lo, nb)
+  const int b0 = max(walk.x, k * tps);
+  const int b1 = min(walk.y, k * tps + tps);
   const size_t row = (size_t)s * Hkv + h;  // this (slot, head)'s C rows
+  const size_t slot_part = row * gridDim.x + k;  // (s, h, k)
+  float* acc_out = part_acc + slot_part * G * HD;
+  if (b0 >= b1) {  // no live tile: the merge's identity, no tile load
+#pragma unroll
+    for (int r = 0; r < G; ++r) acc_out[r * HD + tid] = 0.f;
+    if (tid < G) {
+      part_m[slot_part * G + tid] = kNegInf;
+      part_l[slot_part * G + tid] = 0.f;
+    }
+    return;
+  }
   const char* kb = static_cast<const char*>(k_cache) + row * C * Tile::kRowBytes;
   const char* vb = static_cast<const char*>(v_cache) + row * C * Tile::kRowBytes;
 
@@ -178,10 +226,10 @@ __global__ void __launch_bounds__(HD) decode_kernel(
 #pragma unroll
   for (int r = 0; r < G; ++r) acc[r] = 0.f;
 
-  issue(lo, 0);
-  for (int i = lo; i < nb; ++i) {
-    const int stage = (i - lo) & 1;
-    if (i + 1 < nb) {
+  issue(b0, 0);
+  for (int i = b0; i < b1; ++i) {
+    const int stage = (i - b0) & 1;
+    if (i + 1 < b1) {
       issue(i + 1, stage ^ 1);
       __pipeline_wait_prior(1);
     } else {
@@ -195,20 +243,21 @@ __global__ void __launch_bounds__(HD) decode_kernel(
 
     // scores: warp w takes positions j = w, w + kWarps, ...; lanes split hd
     for (int j = warp; j < kTile; j += kWarps) {
-      float part[G];
+      float dot[G];
 #pragma unroll
-      for (int r = 0; r < G; ++r) part[r] = 0.f;
+      for (int r = 0; r < G; ++r) dot[r] = 0.f;
 #pragma unroll
       for (int d = lane; d < HD; d += 32) {
         const float kv = Tile::load(kt, j, d);
 #pragma unroll
-        for (int r = 0; r < G; ++r) part[r] += qs[r * HD + d] * kv;
+        for (int r = 0; r < G; ++r) dot[r] += qs[r * HD + d] * kv;
       }
       const int idx = i * kTile + j;
-      const bool keep = idx <= pos && (window <= 0 || idx > pos - window);
+      const bool keep = idx <= pos && idx < C &&
+                        (window <= 0 || idx > pos - window);
 #pragma unroll
       for (int r = 0; r < G; ++r) {
-        float sc = warp_sum(part[r]);
+        float sc = warp_sum(dot[r]);
         if constexpr (Q != 0) sc *= ks[j];  // K scale on the score column
         if (lane == 0) ps[r * kTile + j] = keep ? sc : kNegInf;
       }
@@ -255,16 +304,54 @@ __global__ void __launch_bounds__(HD) decode_kernel(
     __syncthreads();  // the next issue() overwrites this stage's tiles
   }
 
-  T* orow = out + row * G * HD;
 #pragma unroll
-  for (int r = 0; r < G; ++r)
-    orow[r * HD + tid] = from_f32<T>(acc[r] / fmaxf(row_l[r], 1e-30f));
+  for (int r = 0; r < G; ++r) acc_out[r * HD + tid] = acc[r];
+  if (tid < G) {
+    part_m[slot_part * G + tid] = row_m[tid];
+    part_l[slot_part * G + tid] = row_l[tid];
+  }
 }
 
+// Pass 2: one block per (q head, slot), one output column per thread;
+// folds splits [lo/tps, (nb-1)/tps], the ones pass 1 found live.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD) decode_kernel_merge(
+    const float* __restrict__ part_m,    // [S, Hkv, splits, G]
+    const float* __restrict__ part_l,    // [S, Hkv, splits, G]
+    const float* __restrict__ part_acc,  // [S, Hkv, splits, G, HD]
+    const int* __restrict__ positions,   // [S]
+    T* __restrict__ out,                 // [S, Hq, HD]
+    int G, int splits, int C, int window, int tps) {
+  const int hq = blockIdx.x;  // q head = kv head * G + r
+  const int s = blockIdx.y;
+  const int Hq = gridDim.x;
+  const int h = hq / G;
+  const int r = hq - h * G;
+  const int2 walk =
+      walk_range(positions[s], (C + kTile - 1) / kTile, window);
+  const int k0 = walk.x / tps;
+  const int k1 = walk.x < walk.y ? (walk.y - 1) / tps + 1 : k0;
+  const size_t first = ((size_t)s * (Hq / G) + h) * splits;  // part (s, h, 0)
+  float mx = kNegInf;
+  for (int k = k0; k < k1; ++k)
+    mx = fmaxf(mx, part_m[(first + k) * G + r]);
+  float num = 0.f, den = 0.f;
+  for (int k = k0; k < k1; ++k) {
+    const size_t i = (first + k) * G + r;
+    const float w = expf(part_m[i] - mx);
+    num += w * part_acc[i * HD + threadIdx.x];
+    den += w * part_l[i];
+  }
+  out[((size_t)s * Hq + hq) * HD + threadIdx.x] =
+      from_f32<T>(num / fmaxf(den, 1e-30f));
+}
+
+// everything a launch needs besides the compile-time choices
 struct Args {
   const void *q, *k, *v, *ks, *vs, *positions;
+  float *part_m, *part_l, *part_acc;
   void* out;
-  int S, Hkv, C, window;
+  int S, Hkv, C, window, tps, splits;
   float sm_scale;
   cudaStream_t stream;
 };
@@ -281,11 +368,17 @@ int launch(const Args& a) {
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  dim3 grid(a.S, a.Hkv);
+  dim3 grid(a.splits, a.Hkv, a.S);
   decode_kernel<T, Q, HD, G><<<grid, HD, smem, a.stream>>>(
       static_cast<const T*>(a.q), a.k, a.v, static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.positions),
-      static_cast<T*>(a.out), a.Hkv, a.C, a.window, a.sm_scale);
+      a.part_m, a.part_l, a.part_acc, a.Hkv, a.C, a.window, a.tps,
+      a.sm_scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_kernel_merge<T, HD><<<dim3(a.Hkv * G, a.S), HD, 0, a.stream>>>(
+      a.part_m, a.part_l, a.part_acc, static_cast<const int*>(a.positions),
+      static_cast<T*>(a.out), G, a.splits, a.C, a.window, a.tps);
   return (int)cudaGetLastError();
 }
 
@@ -314,18 +407,31 @@ int launch_hd(int hd, int G, const Args& a) {
 
 // quantized: 0 = the cache holds q's dtype (k_scale/v_scale unused),
 // 1 = scaled int8 (C must be a multiple of 4: scale rows move in 16-byte
-// chunks). Returns 0 on success, a cudaError_t after a failed launch, or
-// -1 for a (head_dim, group, dtype) combination that was not compiled.
+// chunks). part is f32 scratch of S*Hq*splits*(hd + 2) floats: m and l
+// [S, Hkv, splits, G] each, then acc [S, Hkv, splits, G, hd]. The splits
+// of tiles_per_split kTile-row tiles must cover the ceil(C / kTile) tiles
+// exactly. Returns 0 on success, a cudaError_t after a failed launch, or
+// -1 for a (head_dim, group, dtype) combination that was not compiled or
+// a split plan or grid the kernels cannot take.
 extern "C" int decode_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* positions,
-    void* out, int S, int Hq, int Hkv, int hd, int C, int window,
-    int is_bf16, int quantized, float sm_scale, void* stream) {
+    void* part, void* out, int S, int Hq, int Hkv, int hd, int C,
+    int window, int tiles_per_split, int splits, int is_bf16, int quantized,
+    float sm_scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv || C <= 0) return -1;
   if (quantized && C % 4) return -1;
+  const int ntiles = (C + kTile - 1) / kTile;
+  if (S < 1 || S > 65535 || Hkv > 65535 || tiles_per_split < 1 ||
+      splits < 1 || (long long)(splits - 1) * tiles_per_split >= ntiles ||
+      (long long)splits * tiles_per_split < ntiles)
+    return -1;
   const int G = Hq / Hkv;
-  const Args a{q, k_cache, v_cache, k_scale, v_scale, positions, out,
-               S, Hkv, C, window, sm_scale,
+  float* part_m = static_cast<float*>(part);
+  const size_t n = (size_t)S * Hq * splits;  // (slot, kv head, split, row)
+  const Args a{q, k_cache, v_cache, k_scale, v_scale, positions,
+               part_m, part_m + n, part_m + 2 * n, out, S, Hkv, C, window,
+               tiles_per_split, splits, sm_scale,
                static_cast<cudaStream_t>(stream)};
   if (is_bf16) {
     return quantized ? launch_hd<__nv_bfloat16, 1>(hd, G, a)

@@ -16,30 +16,41 @@
 // flops per query head (about 137 GFLOP a layer at T=4096 and Llama-3-8B
 // widths) over O(T * hd) bytes, far above the card's flop/byte ridge.
 //
-// Design: one CUDA block per (kv head, tile of 64/G query positions), so
-// kRows = 64 rows share every K/V tile they read; 64-key K and V tiles are
-// staged by double-buffered cp.async (the copy of tile i+1 is in flight
-// while tile i is folded), rows padded by 16 bytes against bank conflicts
-// and zero-filled past T.
-//   * bf16: tensor cores. Four warps of 16 rows each; a warp keeps its q
-//     fragments in registers, computes its 16x64 score tile with
-//     mma.sync.m16n8k16 (bf16 in, f32 accumulate), runs the online
-//     softmax on the accumulator fragments (row max and sum across the
-//     four threads of a quad), and multiplies the probabilities, rounded
-//     to bf16 as the A operand, by V with the same instruction. The
-//     denominator takes the f32 probabilities.
+// Design: one CUDA block per (kv head, tile of rows/G query positions), so
+// all the block's rows share every K/V tile they read; 64-key K and V
+// tiles are staged by double-buffered cp.async (the copy of tile i+1 is in
+// flight while tile i is folded), rows padded by 16 bytes against bank
+// conflicts and zero-filled past T.
+//   * bf16: tensor cores, mma.sync.m16n8k16 (bf16 in, f32 accumulate).
+//     Four warps a block, each of 32 rows (128 rows a block), or of 16
+//     (64 rows) where a shape-only host plan finds too few 128-row blocks
+//     to keep two on every SM (short prompts, embedding inputs). A warp
+//     computes its 32x64 (16x64) score tile, runs the online softmax on
+//     the accumulator fragments (row max and sum across the four threads
+//     of a quad) in the log2 domain (one FFMA and one ex2 per score), and
+//     multiplies the probabilities, rounded to bf16 as the A operand, by
+//     V with the same instruction; the denominator takes the f32
+//     probabilities. What feeds the tensor cores:
+//       - every fragment comes from one ldmatrix.x4 (q and K as staged, V
+//         through .trans), bank-conflict free on the padded rows;
+//       - at 32 rows a warp each K/V fragment feeds four mma, so a
+//         128-row tile reads 160 KB of shared memory where 16 rows a warp
+//         read 256 KB, which on the card set the pace;
+//       - K and V of a tile are separate commit groups, so the scores
+//         start when K has landed, with V in flight;
+//       - the per-element mask runs only on tiles that cross the causal
+//         diagonal, the window's edge or length;
+//       - the blocks with the longest causal walks launch first, so they
+//         do not form the tail of the grid.
 //   * f32: CUDA cores (no tensor-core type keeps f32 products exact). 256
-//     threads; the block's q rows sit in shared memory in f32; each thread
-//     owns a 4x4 block of the 64x64 score tile and a 4 x hd/16 block of the
-//     output accumulator, both in registers; one warp per 8 rows keeps the
-//     running max and denominator.
-// Not done yet: wgmma/TMA, ldmatrix for the V fragments, and a split of
-// long rows over several blocks.
+//     threads, 64 rows a block; the block's q rows sit in shared memory in
+//     f32; each thread owns a 4x4 block of the 64x64 score tile and a
+//     4 x hd/16 block of the output accumulator, both in registers; one
+//     warp per 8 rows keeps the running max and denominator.
+// Not done yet: wgmma/TMA, and a split of long rows over several blocks.
 //
 // Plain C interface (bound with ctypes); launches on the caller's stream
 // and returns cudaGetLastError() after the launch.
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -50,7 +61,7 @@ using localai::to_f32;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxSmem = 232448;  // H100 opt-in shared memory per block
-constexpr int kRows = 64;         // query rows (position x group) per block
+constexpr int kRows = 64;         // f32 query rows (position x group) a block
 constexpr int kBK = 64;           // keys per tile
 constexpr int kThreads = 256;
 constexpr int kPS = kBK + 4;      // f32 row stride of the score tile
@@ -68,18 +79,11 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// four consecutive elements of a staged row as f32 (16-byte or 8-byte
+// four consecutive f32 elements of a staged row (16-byte aligned)
 // aligned)
 __device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
   const float4 f = *reinterpret_cast<const float4*>(p);
   o[0] = f.x; o[1] = f.y; o[2] = f.z; o[3] = f.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
 }
 
 template <typename T, int HD>
@@ -286,24 +290,61 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
 // bf16: tensor cores (mma.sync.m16n8k16, f32 accumulate)
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;  // four warps of 16 rows
-
+// smem row stride (bytes) of the q, K and V tiles: 16 bytes of padding make
+// it 17 chunks of 16 bytes at hd=128 (9 at 64, 5 at 32), so the 8 rows an
+// ldmatrix reads fall on 8 different groups of four banks
 template <int HD>
-struct MmaLayout {
-  static constexpr int kPad = HD * 2 + 16;  // smem row stride (bytes)
-  static constexpr size_t kQBytes = (size_t)kRows * kPad;
-  static constexpr size_t kTileBytes = (size_t)kBK * kPad;
-  // q, then two stages of K and two of V
-  static constexpr size_t kSmem = kQBytes + 4 * kTileBytes;
-};
+__host__ __device__ constexpr int mma_pad() {
+  return HD * 2 + 16;
+}
 
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
+// q rows (64 per m16 tile a warp), then two stages of K and two of V
+template <int HD, int MT>
+__host__ __device__ constexpr size_t mma_smem() {
+  return (size_t)(16 * MT * kMmaWarps + 4 * kBK) * mma_pad<HD>();
+}
+
+// not volatile: a register-only instruction the compiler may schedule
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices from shared memory; lanes 8m .. 8m+7 give the row
+// addresses of matrix m, and lane l receives row l/4, columns 2(l%4) and
+// 2(l%4)+1 of each (.trans: of each matrix's transpose)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// 2^x, flushing results below the smallest normal to 0 (a probability
+// that small adds nothing to a sum of terms of which the largest is 1)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // two floats as a bf16 pair, the first in the low half (fragment order)
@@ -312,49 +353,65 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t lds16(const unsigned char* p) {
-  return *reinterpret_cast<const uint16_t*>(p);
-}
-
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4): A register i
 // holds rows g (+8 for i = 1, 3) and columns 2t, 2t+1 (+8 for i = 2, 3);
 // B register j holds rows 2t, 2t+1 (+8 for j = 1) of column g; C holds
-// rows g (c0, c1) and g+8 (c2, c3), columns 2t, 2t+1.
-template <int HD, int G>
+// rows g (c0, c1) and g+8 (c2, c3), columns 2t, 2t+1. So one ldmatrix.x4
+// gives a warp's A fragment of 16 q rows at one k16 step (matrices: rows
+// 0-7 / 8-15 x columns 0-7 / 8-15), the B fragments of two n8 tiles of K
+// at one k16 step (K rows are the B columns: matrices of keys 0-7 / 8-15
+// x hd columns 0-7 / 8-15), and with .trans the B fragments of two n8
+// tiles of V at one k16 step (matrices: keys 0-7 / 8-15 x hd columns 0-7
+// / 8-15).
+//
+// kWarps warps of MT m16 tiles (16 * MT rows) each; the block's
+// 64 * MT rows are (query position x GQA group) pairs, so every K/V tile
+// it stages serves the whole group. Every K/V fragment a warp reads from
+// shared memory feeds MT mma: at MT = 2 a 128-row block reads each staged
+// tile once per 32 rows, and the tensor cores, not shared memory, set
+// the pace.
+template <int HD, int G, int MT>
 __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q,  // [T, Hq, HD]
     const __nv_bfloat16* __restrict__ k,  // [Hkv, T, HD]
     const __nv_bfloat16* __restrict__ v,  // [Hkv, T, HD]
     __nv_bfloat16* __restrict__ out,      // [T, Hq, HD]
     int Tn, int length, int window, float sm_scale) {
-  using L = MmaLayout<HD>;
-  constexpr int BQ = kRows / G;     // query positions per block
+  constexpr int kWarpRows = 16 * MT;
+  constexpr int kBlockRows = kWarpRows * kMmaWarps;
+  constexpr int BQ = kBlockRows / G;  // query positions per block
+  constexpr int kPad = mma_pad<HD>();
   constexpr int kChunks = HD * 2 / 16;
-  constexpr int NT = kBK / 8;       // score n-tiles per key tile
-  constexpr int DT = HD / 8;        // output n-tiles
+  constexpr int kTileBytes = kBK * kPad;
+  constexpr int NT = kBK / 8;         // score n-tiles per key tile
+  constexpr int DT = HD / 8;          // output n-tiles
+  constexpr int KS = HD / 16;         // k16 steps over hd
+  constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* qsm = smem_raw;                         // [kRows][kPad]
-  unsigned char* kbuf = smem_raw + L::kQBytes;           // [2][kBK][kPad]
-  unsigned char* vbuf = kbuf + 2 * L::kTileBytes;
+  unsigned char* qsm = smem_raw;                         // [rows][kPad]
+  unsigned char* kbuf = qsm + kBlockRows * kPad;         // [2][kBK][kPad]
+  unsigned char* vbuf = kbuf + 2 * kTileBytes;           // [2][kBK][kPad]
 
   const int h = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
+  // the longest causal walks (the last query tiles) launch first, so they
+  // do not form the tail of the grid
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int Hq = gridDim.x * G;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane / 4;
   const int t = lane % 4;
+  // the softmax runs in the log2 domain: with m the row's running max of
+  // s * scale2, exp2(s * scale2 - m) is exp(s * sm_scale - m / log2 e),
+  // one FFMA and one ex2 per score
+  const float scale2 = sm_scale * kLog2e;
 
   // q rows (position x group) into shared memory, zero past T
-  for (int e = tid; e < kRows * kChunks; e += kMmaThreads) {
+  for (int e = tid; e < kBlockRows * kChunks; e += kMmaThreads) {
     const int r = e / kChunks, c = e % kChunks;
     const int pos = q0 + r / G;
-    unsigned char* dst = qsm + r * L::kPad + 16 * c;
+    unsigned char* dst = qsm + r * kPad + 16 * c;
     if (pos < Tn) {
       __pipeline_memcpy_async(
           dst, q + ((size_t)pos * Hq + h * G + r % G) * HD + 8 * c, 16);
@@ -364,6 +421,8 @@ __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
   }
   __pipeline_commit();
 
+  // trip range: causal frontier and real length, minus sub-window tiles;
+  // never empty (rows past length keep a well-formed walk)
   int nb = min(min((q0 + BQ + kBK - 1) / kBK, (length + kBK - 1) / kBK),
                (Tn + kBK - 1) / kBK);
   int lo = 0;
@@ -373,226 +432,311 @@ __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
   }
   nb = max(nb, lo + 1);
 
-  const char* kh = reinterpret_cast<const char*>(k + (size_t)h * Tn * HD);
-  const char* vh = reinterpret_cast<const char*>(v + (size_t)h * Tn * HD);
-  auto issue = [&](int i, int stage) {
+  // one [kBK, HD] tile of K or V into a stage, as its own commit group
+  auto issue = [&](unsigned char* buf, const __nv_bfloat16* src, int i,
+                   int stage) {
     const int k0 = i * kBK;
-    unsigned char* kd = kbuf + stage * L::kTileBytes;
-    unsigned char* vd = vbuf + stage * L::kTileBytes;
+    const char* head = reinterpret_cast<const char*>(src + (size_t)h * Tn * HD);
+    unsigned char* dst = buf + stage * kTileBytes;
     for (int e = tid; e < kBK * kChunks; e += kMmaThreads) {
       const int j = e / kChunks, c = e % kChunks;
+      // constant zero-fill counts: a runtime one makes the intrinsic
+      // switch over every count per copy
       if (k0 + j < Tn) {
-        const size_t off = (size_t)(k0 + j) * HD * 2 + 16 * c;
-        __pipeline_memcpy_async(kd + j * L::kPad + 16 * c, kh + off, 16);
-        __pipeline_memcpy_async(vd + j * L::kPad + 16 * c, vh + off, 16);
+        __pipeline_memcpy_async(dst + j * kPad + 16 * c,
+                                head + (size_t)(k0 + j) * HD * 2 + 16 * c, 16);
       } else {  // rows past T: 16 zero bytes
-        __pipeline_memcpy_async(kd + j * L::kPad + 16 * c, kh, 16, 16);
-        __pipeline_memcpy_async(vd + j * L::kPad + 16 * c, vh, 16, 16);
+        __pipeline_memcpy_async(dst + j * kPad + 16 * c, head, 16, 16);
       }
     }
     __pipeline_commit();
   };
-  issue(lo, 0);
+  // commit groups in order: q, then K and V of each tile apart, so the
+  // scores of a tile start when its K has landed, with its V in flight
+  issue(kbuf, k, lo, 0);
+  issue(vbuf, v, lo, 0);
 
-  // this thread's two rows of the warp's 16 and their positions
-  const int r0 = warp * 16 + g;
-  const int qpos[2] = {q0 + r0 / G, q0 + (r0 + 8) / G};
-
-  __pipeline_wait_prior(1);  // q has landed (the first tile may not have)
-  __syncthreads();
-  uint32_t qa[HD / 16][4];
+  // this thread's rows: g and g+8 of each of the warp's m16 tiles
+  int qpos[MT][2];
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const unsigned char* base = qsm + r0 * L::kPad + (ks * 16 + 2 * t) * 2;
-    qa[ks][0] = lds32(base);
-    qa[ks][1] = lds32(base + 8 * L::kPad);
-    qa[ks][2] = lds32(base + 16);
-    qa[ks][3] = lds32(base + 8 * L::kPad + 16);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      qpos[mt][half] = q0 + (warp * kWarpRows + 16 * mt + g + 8 * half) / G;
+  // this lane's ldmatrix row addresses: in q (m16 tile 0, k16 step 0), in
+  // a K tile (n8 pair 0, k16 step 0) and in a V tile (k16 step 0, n8 pair
+  // 0)
+  const uint32_t q_lane = smem_addr(
+      qsm + (warp * kWarpRows + (lane % 8) + 8 * ((lane / 8) % 2)) * kPad +
+      16 * (lane / 16));
+  const int k_lane = ((lane % 8) + 8 * (lane / 16)) * kPad +
+                     16 * ((lane / 8) % 2);
+  const int v_lane = ((lane % 8) + 8 * ((lane / 8) % 2)) * kPad +
+                     16 * (lane / 16);
+
+  float acc[MT][DT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int dn = 0; dn < DT; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][dn][e] = 0.f;
+  float row_m[MT][2], row_l[MT][2];  // row_m: running max of s * scale2
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    row_m[mt][0] = row_m[mt][1] = -INFINITY;
+    row_l[mt][0] = row_l[mt][1] = 0.f;
   }
-
-  float acc[DT][4];
-#pragma unroll
-  for (int dn = 0; dn < DT; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-  float row_m[2] = {kNegInf, kNegInf};
-  float row_l[2] = {0.f, 0.f};
 
   for (int i = lo; i < nb; ++i) {
     const int stage = (i - lo) & 1;
-    if (i + 1 < nb) {
-      issue(i + 1, stage ^ 1);
-      __pipeline_wait_prior(1);
+    const bool more = i + 1 < nb;
+    // K of tile i (and q, before the first tile) has landed; its V may
+    // not have
+    __pipeline_wait_prior(1);
+    // every thread is past tile i-1, so its stage can take tile i+1
+    __syncthreads();
+    if (more) {
+      issue(kbuf, k, i + 1, stage ^ 1);
+      issue(vbuf, v, i + 1, stage ^ 1);
+    }
+
+    // scores: s[mt][nt] covers keys nt*8 .. nt*8+7 of the tile
+    const uint32_t kt = smem_addr(kbuf + stage * kTileBytes + k_lane);
+    float s[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(a[mt], q_lane + mt * 16 * kPad + 32 * ks);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, kt + np * 16 * kPad + 32 * ks);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16(s[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+
+    // the mask runs only on a tile that crosses the causal diagonal, the
+    // window's edge or length for some row of the block (the same for
+    // every warp); a masked score is -inf, so its probability is exactly 0
+    // (a finite fill scaled inside the FFMA would not cancel exactly
+    // against the max, which is scaled apart, and could overflow ex2)
+    const int k0 = i * kBK;
+    const bool edge = k0 + kBK - 1 > q0 || k0 + kBK > length ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    // the probabilities as bf16 pairs, the A fragments of p @ v: p[mt][kk]
+    // covers keys kk*16 .. kk*16+15 (n-tiles 2kk and 2kk+1)
+    uint32_t p[MT][kBK / 16][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (edge) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int pos = qpos[mt][e / 2];
+            const int kj = k0 + nt * 8 + 2 * t + (e & 1);
+            const bool keep = kj <= pos && kj < length &&
+                              (window <= 0 || kj > pos - window);
+            if (!keep) s[mt][nt][e] = -INFINITY;
+            mx[e / 2] = fmaxf(mx[e / 2], s[mt][nt][e]);
+          }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[mt][nt][e]);
+      }
+      float alpha[2], m_use[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+        // scale2 > 0, so the max of the scaled scores is the scaled max
+        const float m_new = fmaxf(row_m[mt][half], mx[half] * scale2);
+        // a row with no kept key yet (m_new = -inf) takes 0 as its offset:
+        // its probabilities and alpha are then exactly 0, never NaN
+        m_use[half] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[half] = exp2_ftz(row_m[mt][half] - m_use[half]);
+        row_m[mt][half] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mt][nt][e] =
+              exp2_ftz(fmaf(s[mt][nt][e], scale2, -m_use[e / 2]));
+          sum[e / 2] += s[mt][nt][e];
+        }
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        p[mt][kk][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        p[mt][kk][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        p[mt][kk][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        p[mt][kk][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 1);
+        sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 2);
+        row_l[mt][half] = row_l[mt][half] * alpha[half] + sum[half];
+      }
+#pragma unroll
+      for (int dn = 0; dn < DT; ++dn) {
+        acc[mt][dn][0] *= alpha[0];
+        acc[mt][dn][1] *= alpha[0];
+        acc[mt][dn][2] *= alpha[1];
+        acc[mt][dn][3] *= alpha[1];
+      }
+    }
+
+    // V of tile i: the groups after it are tile i+1's K and V, if issued
+    if (more) {
+      __pipeline_wait_prior(2);
     } else {
       __pipeline_wait_prior(0);
     }
     __syncthreads();
-    const unsigned char* kt = kbuf + stage * L::kTileBytes;
-    const unsigned char* vt = vbuf + stage * L::kTileBytes;
 
-    // scores: s[nt] covers keys nt*8 .. nt*8+7 of the tile
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const unsigned char* krow = kt + (nt * 8 + g) * L::kPad + 4 * t;
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks)
-        mma_bf16(s[nt], qa[ks], lds32(krow + ks * 32),
-                 lds32(krow + ks * 32 + 16));
-    }
-
-    // scale, mask, online-softmax statistics for rows g and g+8
-    const int k0 = i * kBK;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e / 2;
-        const int kj = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool keep = kj <= qpos[row] && kj < length &&
-                          (window <= 0 || kj > qpos[row] - window);
-        s[nt][e] = keep ? s[nt][e] * sm_scale : kNegInf;
-        mx[row] = fmaxf(mx[row], s[nt][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
-      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
-      const float m_new = fmaxf(row_m[row], mx[row]);
-      alpha[row] = expf(row_m[row] - m_new);
-      row_m[row] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - row_m[e / 2]);
-        sum[e / 2] += s[nt][e];
-      }
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 1);
-      sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 2);
-      row_l[row] = row_l[row] * alpha[row] + sum[row];
-    }
-#pragma unroll
-    for (int dn = 0; dn < DT; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
-    }
-
-    // acc += p @ v, 16 keys per step: the score C fragments of n-tiles
-    // 2kk and 2kk+1 are the A fragment of the step
+    // acc += p @ v, 16 keys per step
+    const uint32_t vt = smem_addr(vbuf + stage * kTileBytes + v_lane);
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const unsigned char* v0 = vt + (kk * 16 + 2 * t) * L::kPad + 2 * g;
 #pragma unroll
-      for (int dn = 0; dn < DT; ++dn) {
-        const unsigned char* vp = v0 + dn * 16;
-        const uint32_t b0 = lds16(vp) | (lds16(vp + L::kPad) << 16);
-        const uint32_t b1 =
-            lds16(vp + 8 * L::kPad) | (lds16(vp + 9 * L::kPad) << 16);
-        mma_bf16(acc[dn], pa, b0, b1);
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, vt + kk * 16 * kPad + 32 * dp);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][2 * dp], p[mt][kk], b[0], b[1]);
+          mma_bf16(acc[mt][2 * dp + 1], p[mt][kk], b[2], b[3]);
+        }
       }
     }
-    __syncthreads();  // the next issue() overwrites this stage's tiles
   }
 
 #pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    const int r = r0 + 8 * row;
-    const int pos = qpos[row];
-    if (pos >= Tn) continue;
-    const float l = fmaxf(row_l[row], 1e-30f);
-    __nv_bfloat16* orow = out + ((size_t)pos * Hq + h * G + r % G) * HD;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int dn = 0; dn < DT; ++dn)
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) =
-          pack_bf16(acc[dn][2 * row] / l, acc[dn][2 * row + 1] / l);
-  }
+    for (int half = 0; half < 2; ++half) {
+      const int r = warp * kWarpRows + 16 * mt + g + 8 * half;
+      const int pos = qpos[mt][half];
+      if (pos >= Tn) continue;
+      const float l = fmaxf(row_l[mt][half], 1e-30f);
+      __nv_bfloat16* orow = out + ((size_t)pos * Hq + h * G + r % G) * HD;
+#pragma unroll
+      for (int dn = 0; dn < DT; ++dn)
+        *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) = pack_bf16(
+            acc[mt][dn][2 * half] / l, acc[mt][dn][2 * half + 1] / l);
+    }
 }
 
 struct Args {
   const void *q, *k, *v;
   void* out;
-  int Tn, Hkv, length, window;
+  int Tn, Hkv, length, window, rows;
   float sm_scale;
   cudaStream_t stream;
 };
 
-template <typename T, int HD, int G>
-int launch(const Args& a) {
-  // bf16 runs the tensor-core kernel, f32 the CUDA-core one
-  constexpr bool kMma = std::is_same_v<T, __nv_bfloat16>;
-  constexpr size_t smem =
-      kMma ? MmaLayout<HD>::kSmem : Layout<T, HD>::kSmem;
+// the f32 kernel on the CUDA cores
+template <int HD, int G>
+int launch_f32(const Args& a) {
+  constexpr size_t smem = Layout<float, HD>::kSmem;
   static_assert(smem <= (size_t)kMaxSmem, "tiles exceed shared memory");
-  const auto kernel = [] {
-    if constexpr (kMma) {
-      return prefill_mma_kernel<HD, G>;
-    } else {
-      return prefill_kernel<T, HD, G>;
-    }
-  }();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        prefill_kernel<float, HD, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   constexpr int BQ = kRows / G;
   dim3 grid(a.Hkv, (a.Tn + BQ - 1) / BQ);
-  kernel<<<grid, kMma ? kMmaThreads : kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.Tn, a.length,
-      a.window, a.sm_scale);
+  prefill_kernel<float, HD, G><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.Tn,
+      a.length, a.window, a.sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int launch_g(int G, const Args& a) {
-  switch (G) {
-    case 1: return launch<T, HD, 1>(a);
-    case 2: return launch<T, HD, 2>(a);
-    case 4: return launch<T, HD, 4>(a);
-    case 8: return launch<T, HD, 8>(a);
+// the bf16 kernel on the tensor cores, MT m16 tiles a warp
+template <int HD, int G, int MT>
+int launch_mma(const Args& a) {
+  constexpr size_t smem = mma_smem<HD, MT>();
+  static_assert(smem <= (size_t)kMaxSmem, "tiles exceed shared memory");
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        prefill_mma_kernel<HD, G, MT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  constexpr int BQ = 16 * MT * kMmaWarps / G;
+  dim3 grid(a.Hkv, (a.Tn + BQ - 1) / BQ);
+  prefill_mma_kernel<HD, G, MT><<<grid, kMmaThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<__nv_bfloat16*>(a.out), a.Tn, a.length, a.window,
+      a.sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD, int G>
+int launch(bool bf16, const Args& a) {
+  if (!bf16) return launch_f32<HD, G>(a);
+  switch (a.rows) {
+    case 64: return launch_mma<HD, G, 1>(a);
+    case 128: return launch_mma<HD, G, 2>(a);
     default: return -1;
   }
 }
 
-template <typename T>
-int launch_hd(int hd, int G, const Args& a) {
-  switch (hd) {
-    case 32: return launch_g<T, 32>(G, a);
-    case 64: return launch_g<T, 64>(G, a);
-    case 128: return launch_g<T, 128>(G, a);
+template <int HD>
+int launch_g(int G, bool bf16, const Args& a) {
+  switch (G) {
+    case 1: return launch<HD, 1>(bf16, a);
+    case 2: return launch<HD, 2>(bf16, a);
+    case 4: return launch<HD, 4>(bf16, a);
+    case 8: return launch<HD, 8>(bf16, a);
     default: return -1;
   }
 }
 
 }  // namespace
 
-// Returns 0 on success, a cudaError_t after a failed launch, or -1 for a
-// (head_dim, group, dtype) combination that was not compiled.
+// rows: query rows (position x group) a bf16 CUDA block takes, 64 or 128
+// (the f32 kernel always takes kRows). Returns 0 on success, a
+// cudaError_t after a failed launch, or -1 for a (head_dim, group, dtype,
+// rows) combination that was not compiled.
 extern "C" int prefill_attention(const void* q, const void* k, const void* v,
                                  void* out, int T, int Hq, int Hkv, int hd,
-                                 int length, int window, int is_bf16,
-                                 float sm_scale, void* stream) {
+                                 int length, int window, int rows,
+                                 int is_bf16, float sm_scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv || T <= 0) return -1;
   const int G = Hq / Hkv;
-  const Args a{q, k, v, out, T, Hkv, length, window, sm_scale,
+  const Args a{q, k, v, out, T, Hkv, length, window, rows, sm_scale,
                static_cast<cudaStream_t>(stream)};
-  if (is_bf16) return launch_hd<__nv_bfloat16>(hd, G, a);
-  return launch_hd<float>(hd, G, a);
+  switch (hd) {
+    case 32: return launch_g<32>(G, is_bf16 != 0, a);
+    case 64: return launch_g<64>(G, is_bf16 != 0, a);
+    case 128: return launch_g<128>(G, is_bf16 != 0, a);
+    default: return -1;
+  }
 }

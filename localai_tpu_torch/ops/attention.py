@@ -14,12 +14,15 @@ Ports of the three Pallas TPU kernels of ``localai_tpu/ops/attention.py``:
     split.
   * ``decode_attention`` (K2, ``_decode_kernel``): the same over the
     contiguous slot cache [S, Hkv, C, hd], bf16/f32 or scaled int8 (scales
-    [S, Hkv, C]). Source ``csrc/decode_attention.cu``, K1's tile walk
-    with a contiguous row offset in place of the block table.
+    [S, Hkv, C]). Source ``csrc/decode_attention.cu``: K1's split walk
+    and merge with the cache row's ``DECODE_TILE``-row tiles in place of
+    the table entries (``decode_split_plan``);
+    ``decode_attention_split_ref`` is the plain model of that split.
   * ``prefill_attention`` (K3, ``_prefill_kernel``): causal GQA attention
     for one sequence, q [T, Hq, hd] against head-major k/v [Hkv, T, hd],
     masked to a real length and a window. Source
-    ``csrc/prefill_attention.cu``.
+    ``csrc/prefill_attention.cu``; a bf16 CUDA block takes 64 or 128 query
+    rows (``prefill_block_rows``).
 
 The sources are built with nvcc for sm_90a at first use (``ops._build``)
 and called through plain C interfaces. Each wrapper takes a CPU tensor to
@@ -82,6 +85,26 @@ def paged_split_plan(S: int, Hkv: int, MB: int, sms: int,
     return bps, -(-MB // bps)
 
 
+def decode_split_plan(S: int, Hkv: int, C: int, sms: int,
+                      pool: str = "") -> tuple[int, int]:
+    """(tiles_per_split, splits) of K2's walk over a ``C``-row contiguous
+    cache: K1's plan (``paged_split_plan``) with the cache row's
+    ``DECODE_TILE``-row tiles as the table entries. Shapes in, never the
+    positions."""
+    if C < 1:
+        raise ValueError(f"no split plan for a context of {C} rows")
+    return paged_split_plan(S, Hkv, -(-C // DECODE_TILE), sms, pool)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_device_plan(S: int, Hkv: int, C: int, pool: str,
+                        index: int) -> tuple[int, int]:
+    """``decode_split_plan`` on card ``index``, once per shape."""
+    return decode_split_plan(
+        S, Hkv, C, torch.cuda.get_device_properties(index)
+        .multi_processor_count, pool)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_plan(S: int, Hkv: int, MB: int, pool: str,
                  index: int) -> tuple[int, int]:
@@ -90,6 +113,35 @@ def _device_plan(S: int, Hkv: int, MB: int, pool: str,
     return paged_split_plan(
         S, Hkv, MB, torch.cuda.get_device_properties(index)
         .multi_processor_count, pool)
+
+
+# query rows (position x GQA group) a bf16 K3 CUDA block of 4 warps takes:
+# at 128 (32 a warp) every K/V fragment read from shared memory feeds
+# twice the tensor-core work of 64 (16 a warp), but a shorter prompt then
+# gives too few blocks to keep two on every SM (scripts/attn_timing.py's
+# rows_spun_ms times both sizes at 512-4096 tokens)
+PREFILL_ROWS = (64, 128)
+PREFILL_BLOCKS_PER_SM = 2   # 128-row blocks that fit an SM at once
+
+
+def prefill_block_rows(T: int, Hq: int, Hkv: int, sms: int) -> int:
+    """Query rows a bf16 K3 CUDA block takes for a ``T``-token prompt of
+    ``Hq`` query and ``Hkv`` kv heads on a card of ``sms`` SMs: 128 when
+    128-row blocks (one per kv head and 128 / (Hq/Hkv) positions) still
+    number ``PREFILL_BLOCKS_PER_SM`` per SM, else 64. Shapes in only."""
+    if min(T, Hq, Hkv, sms) < 1 or Hq % Hkv:
+        raise ValueError(f"no prefill plan for T={T}, Hq={Hq}, Hkv={Hkv}, "
+                         f"sms={sms}")
+    rows = PREFILL_ROWS[-1]
+    blocks = Hkv * -(-T * (Hq // Hkv) // rows)
+    return (rows if blocks >= PREFILL_BLOCKS_PER_SM * sms
+            else PREFILL_ROWS[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SM count of card ``index``, looked up once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def kernel_smem_bytes(dtype: torch.dtype, hd: int, g: int, bt: int,
@@ -219,12 +271,6 @@ def paged_decode_attention_split_ref(
     adds nothing, so merging every split equals the kernel's merge of the
     live ones). For tests; the runner never calls it. Returns [S, Hq, hd]
     in q's dtype."""
-    S, Hq, hd = q.shape
-    Hkv, bt = k_cache.shape[1], k_cache.shape[2]
-    MB = tables.shape[1]
-    g = Hq // Hkv
-    bps = split_blocks
-    splits = -(-MB // bps)
     keys = gather_blocks(k_cache, tables)
     values = gather_blocks(v_cache, tables)
     if pool_kind(q, k_cache, k_scale) == "int4":
@@ -232,35 +278,68 @@ def paged_decode_attention_split_ref(
 
         keys = unpack_int4_lastdim(keys)
         values = unpack_int4_lastdim(values)
+    if k_scale is not None:
+        k_scale = gather_block_scales(k_scale, tables)
+        v_scale = gather_block_scales(v_scale, tables)
+    return _split_walk_ref(q, keys, values, positions, k_scale, v_scale,
+                           tile=k_cache.shape[2], per_split=split_blocks,
+                           sliding_window=sliding_window)
+
+
+def _split_walk_ref(
+    q: torch.Tensor,          # [S, Hq, hd]
+    keys: torch.Tensor,       # [S, Hkv, R, hd] a slot's R context rows
+    values: torch.Tensor,
+    positions: torch.Tensor,  # [S] int
+    k_scale: Optional[torch.Tensor],  # [S, Hkv, R] f32, or None
+    v_scale: Optional[torch.Tensor],
+    *,
+    tile: int,
+    per_split: int,
+    sliding_window: Optional[int],
+) -> torch.Tensor:
+    """The split walk both decode kernels run, in plain PyTorch: the R
+    rows are cut into ``tile``-row units (K1's table entries, K2's cache
+    tiles); split k folds units [k*per_split, (k+1)*per_split) clamped to
+    the slot's walk [lo, nb) into an unnormalised (m, l, acc) with the
+    -1e30 masking (a split with no live unit gives (-1e30, 0, 0)), then
+    the splits merge as the kernels' second pass does (an empty split adds
+    nothing, so merging every split equals merging the live ones).
+    Returns [S, Hq, hd] in q's dtype."""
+    S, Hq, hd = q.shape
+    Hkv, R = keys.shape[1], keys.shape[2]
+    g = Hq // Hkv
+    units = -(-R // tile)
+    splits = -(-units // per_split)
     keys, values = keys.float(), values.float()
     if k_scale is not None:
-        keys = keys * gather_block_scales(k_scale, tables)[..., None]
-        values = values * gather_block_scales(v_scale, tables)[..., None]
-    rows = splits * bps * bt          # the last split's tail past MB is 0
-    pad = (0, 0, 0, rows - MB * bt)
+        keys = keys * k_scale[..., None]
+        values = values * v_scale[..., None]
+    rows = splits * per_split * tile   # the tail past R is 0 and masked
+    pad = (0, 0, 0, rows - R)
     keys = torch.nn.functional.pad(keys, pad)
     values = torch.nn.functional.pad(values, pad)
     qg = q.reshape(S, Hkv, g, hd).float() * hd ** -0.5
     scores = torch.einsum("skgh,sklh->skgl", qg, keys)
     pos = positions.long()
     idx = torch.arange(rows, device=q.device)[None, :]
-    keep = (idx <= pos[:, None]) & (idx < MB * bt)
-    nb = torch.clamp(pos // bt + 1, max=MB)
+    keep = (idx <= pos[:, None]) & (idx < R)
+    nb = torch.clamp(pos // tile + 1, max=units)
     lo = torch.zeros_like(pos)
     if sliding_window is not None:
         keep &= idx > pos[:, None] - sliding_window
-        lo = torch.clamp((pos - sliding_window + 1) // bt, min=0)
+        lo = torch.clamp((pos - sliding_window + 1) // tile, min=0)
     scores = scores.masked_fill(~keep[:, None, None, :], _NEG_INF)
-    first = torch.arange(splits, device=q.device)[None, :] * bps
+    first = torch.arange(splits, device=q.device)[None, :] * per_split
     live = (torch.maximum(first, lo[:, None])
-            < torch.minimum(first + bps, nb[:, None]))       # [S, splits]
+            < torch.minimum(first + per_split, nb[:, None]))  # [S, splits]
     live = live[:, None, None, :]
-    sc = scores.reshape(S, Hkv, g, splits, bps * bt)
+    sc = scores.reshape(S, Hkv, g, splits, per_split * tile)
     m = sc.amax(-1)              # -1e30 where no row is kept  [S,Hkv,g,n]
     p = torch.exp(sc - m[..., None]) * live[..., None]
     l = p.sum(-1)
     acc = torch.einsum("skgnj,sknjh->skgnh", p,
-                       values.reshape(S, Hkv, splits, bps * bt, hd))
+                       values.reshape(S, Hkv, splits, per_split * tile, hd))
     w = torch.exp(m - m.amax(-1, keepdim=True))
     out = ((w[..., None] * acc).sum(-2)
            / torch.clamp((w * l).sum(-1), min=1e-30)[..., None])
@@ -298,6 +377,29 @@ def decode_attention_ref(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("skgl,sklh->skgh", probs, values)
     return out.reshape(S, Hq, hd).to(q.dtype)
+
+
+def decode_attention_split_ref(
+    q: torch.Tensor,          # [S, Hq, hd]
+    k_cache: torch.Tensor,    # [S, Hkv, C, hd] (int8 with scales)
+    v_cache: torch.Tensor,
+    positions: torch.Tensor,  # [S] int
+    k_scale: Optional[torch.Tensor] = None,  # [S, Hkv, C] f32 (int8)
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    split_tiles: int,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch model of K2's split walk: the cache row is cut into
+    ``DECODE_TILE``-row tiles; split k of a slot folds tiles
+    [k*split_tiles, (k+1)*split_tiles) clamped to the slot's walk [lo, nb)
+    into an unnormalised (m, l, acc) with the -1e30 masking (a split with
+    no live tile gives (-1e30, 0, 0)), then the splits merge as the
+    kernel's second pass does. For tests; the runner never calls it.
+    Returns [S, Hq, hd] in q's dtype."""
+    return _split_walk_ref(q, k_cache, v_cache, positions, k_scale, v_scale,
+                           tile=DECODE_TILE, per_split=split_tiles,
+                           sliding_window=sliding_window)
 
 
 def prefill_attention_ref(
@@ -347,9 +449,9 @@ def _fn(name: str, argtypes):
 
 _PAGED_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
     ctypes.c_float, ctypes.c_void_p]
-_DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p]
-_PREFILL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+_PREFILL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -453,11 +555,16 @@ def decode_attention(
     v_scale: Optional[torch.Tensor] = None,
     *,
     sliding_window: Optional[int] = None,
+    split_tiles: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash GQA decode attention over the contiguous slot cache. Returns
     [S, Hq, hd] in q's dtype. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (one CUDA block per (slot, kv head), walking
-    rows lo .. pos of its own cache row) or raise."""
+    tensors launch the kernel or raise: one CUDA block per (split of the
+    slot's ``DECODE_TILE``-row tiles, kv head, slot), then a merge of the
+    splits. ``split_tiles`` (tests and the smoke only) forces the tiles
+    per split — ceil(C / DECODE_TILE) is a single walk, 1 the finest
+    split; None takes ``decode_split_plan``. One call counts one
+    launch."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, positions, k_scale,
                                     v_scale, sliding_window=sliding_window)
@@ -496,14 +603,27 @@ def decode_attention(
     if positions.dtype != torch.int32:
         raise ValueError(f"positions must be int32, got {positions.dtype}")
     _check_cuda(q, tensors, ("k_cache", "v_cache", "k_scale", "v_scale"))
+    ntiles = -(-C // DECODE_TILE)
+    if split_tiles is None:
+        index = q.device.index
+        tps, splits = _decode_device_plan(S, Hkv, C, pool,
+                                          torch.cuda.current_device()
+                                          if index is None else index)
+    elif 1 <= split_tiles <= ntiles:
+        tps, splits = split_tiles, -(-ntiles // split_tiles)
+    else:
+        raise ValueError(f"split_tiles {split_tiles} outside [1, {ntiles}]")
     out = torch.empty_like(q)
+    # the splits' f32 (m, l, acc), which the kernel lays out in one buffer
+    part = torch.empty(S * Hq * splits * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     fn = _fn("decode_attention", _DECODE_ARGTYPES)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr() if pool else 0,
             v_scale.data_ptr() if pool else 0,
-            positions.data_ptr(), out.data_ptr(), S, Hq, Hkv, hd, C,
-            int(sliding_window or 0), int(q.dtype == torch.bfloat16),
-            int(bool(pool)), hd ** -0.5,
+            positions.data_ptr(), part.data_ptr(), out.data_ptr(), S, Hq,
+            Hkv, hd, C, int(sliding_window or 0), tps, splits,
+            int(q.dtype == torch.bfloat16), int(bool(pool)), hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode kernel launch failed (code {rc})")
@@ -521,11 +641,14 @@ def prefill_attention(
     length: int,              # real (unpadded) length, a host int
     *,
     sliding_window: Optional[int] = None,
+    block_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash causal GQA prefill attention for one sequence. Returns
     [T, Hq, hd] in q's dtype. CPU tensors take the plain version; CUDA
     tensors launch the kernel (one CUDA block per (kv head, tile of query
-    positions)) or raise."""
+    positions)) or raise. ``block_rows`` (tests and the smoke only) forces
+    the query rows of a bf16 CUDA block, one of ``PREFILL_ROWS``; None
+    takes ``prefill_block_rows``."""
     if q.device.type == "cpu":
         return prefill_attention_ref(q, k, v, length,
                                      sliding_window=sliding_window)
@@ -544,10 +667,18 @@ def prefill_attention(
     if why:
         raise ValueError(f"prefill kernel does not take {why}")
     _check_cuda(q, [("q", q), ("k", k), ("v", v)], ("k", "v"))
+    if block_rows is None:
+        index = q.device.index
+        block_rows = prefill_block_rows(
+            T, Hq, Hkv, _sm_count(
+                torch.cuda.current_device() if index is None else index))
+    elif block_rows not in PREFILL_ROWS:
+        raise ValueError(f"block_rows {block_rows} not one of "
+                         f"{PREFILL_ROWS}")
     out = torch.empty_like(q)
     fn = _fn("prefill_attention", _PREFILL_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), T, Hq,
-            Hkv, hd, int(length), int(sliding_window or 0),
+            Hkv, hd, int(length), int(sliding_window or 0), block_rows,
             int(q.dtype == torch.bfloat16), hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

@@ -6,7 +6,8 @@ pool (pipeline_depth, stream_latency_ms, kv_num_blocks), ``f16: false``,
 completion text shaping (cutstrings, extract_regex, trimspace, trimsuffix,
 ``echo``) over both HTTP servers on a tiny checkpoint written here, and
 the port's refusals of what it cannot serve yet (constrained decoding,
-the prompt cache), which stay until the port has them.
+the prompt cache, the backends the JAX package serves with another engine
+than the llama runner), which stay until the port has them.
 """
 
 import json
@@ -193,3 +194,45 @@ def test_config_for_unported_features_fails_at_load(tmp_path, doc, what):
     p.write_text(yaml.safe_dump({"name": "u", "model": "debug:tiny", **doc}))
     with pytest.raises(ValueError, match=what):
         load_config_file(p)
+
+
+UNPORTED = ("mamba", "rwkv", "huggingface", "langchain-huggingface")
+
+
+@pytest.mark.parametrize("backend", UNPORTED)
+def test_backend_of_another_engine_fails_at_load(tmp_path, backend):
+    """The JAX package routes these backends away from the llama runner
+    (to the recurrent-state engine or to a remote-API client); the port
+    has neither, so it refuses them at load and names the backend instead
+    of serving a llama model."""
+    p = tmp_path / "b.yaml"
+    p.write_text(yaml.safe_dump({"name": "b", "model": "debug:tiny",
+                                 "backend": backend}))
+    with pytest.raises(ValueError, match=f"backend '{backend}'"):
+        load_config_file(p)
+    # a config built in code, past the loader, is refused by the build
+    with pytest.raises(ValueError, match=f"backend '{backend}'"):
+        build_serving_model(ModelConfig(name="b", model="debug:tiny",
+                                        backend=backend),
+                            AppConfig(device="cpu"))
+
+
+def test_mamba_yaml_builds_the_recurrent_engine_on_the_reference(tmp_path):
+    """One YAML with ``backend: mamba``: the JAX package serves it with its
+    MambaServingModel, the port refuses it at load (it would otherwise
+    have built a llama runner)."""
+    from localai_tpu.config.loader import ConfigLoader as JaxConfigLoader
+    from localai_tpu.models.mamba_serving import MambaServingModel
+    from localai_tpu.models.manager import ModelManager as JaxManager
+
+    (tmp_path / "m.yaml").write_text(yaml.safe_dump(
+        {"name": "m", "model": "debug:mamba-tiny", "backend": "mamba"}))
+    loader = JaxConfigLoader(tmp_path)
+    loader.load_from_path()
+    jm = JaxManager(JaxAppConfig(model_path=str(tmp_path)), loader)
+    try:
+        assert isinstance(jm.get("m"), MambaServingModel)
+    finally:
+        jm.shutdown_all()
+    with pytest.raises(ValueError, match="backend 'mamba'"):
+        load_config_file(tmp_path / "m.yaml")

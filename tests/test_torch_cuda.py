@@ -229,6 +229,92 @@ def test_cuda_decode_kernel_matches_plain(kv, hd, window):
     _slot_check(got, want, dt)
 
 
+@functools.lru_cache(maxsize=1)
+def _long_contiguous_inputs(seed):
+    """K2 at the serving shape: S=8, Hq=32, Hkv=8, hd=128 over a 4096-row
+    cache, positions up to 4095 on tile and split edges; float32 on the
+    card."""
+    S, Hq, Hkv, hd, C = 8, 32, 8, 128, 4096
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(S, Hq, hd)).astype(np.float32)
+    k = rng.normal(size=(S, Hkv, C, hd)).astype(np.float32)
+    v = rng.normal(size=(S, Hkv, C, hd)).astype(np.float32)
+    pos = np.asarray([4095, 4032, 3071, 2048, 2047, 1000, 255, 0], np.int32)
+    return [torch.from_numpy(a).cuda() for a in (q, k, v, pos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "1", "all"])
+@pytest.mark.parametrize("window", [None, 700])
+@pytest.mark.parametrize("kv,dtype", [
+    ("", "bfloat16"), ("", "float32"), ("int8", "bfloat16"),
+    ("int8", "float32")])
+def test_cuda_decode_kernel_long_context_splits_match_plain(kv, dtype,
+                                                            window, split):
+    """K2's split walk over a 4096-row cache on every cache kind, with the
+    plan's split, the finest (1 tile) and a single walk (all 64 tiles); a
+    window of 700 starts inside a split and crosses split edges. One call
+    counts one launch."""
+    _card()
+    dt = getattr(torch, dtype)
+    q, k, v, pos = _long_contiguous_inputs(15)
+    if kv:
+        k, ks = tq.quantize_lastdim(k)
+        v, vs = tq.quantize_lastdim(v)
+        scales = (ks, vs)
+        ref_kv = (k, v)
+    else:
+        k, v = k.to(dt), v.to(dt)
+        scales = ()
+        ref_kv = (k.float(), v.float())
+    tiles = {"plan": None, "1": 1,
+             "all": -(-k.shape[2] // tops.attention.DECODE_TILE)}[split]
+    before = tops.decode_attention.launches
+    got = tops.decode_attention(q.to(dt), k, v, pos, *scales,
+                                sliding_window=window, split_tiles=tiles)
+    torch.cuda.synchronize()
+    assert tops.decode_attention.launches == before + 1
+    want = tops.decode_attention_ref(q.to(dt).float(), *ref_kv, pos, *scales,
+                                     sliding_window=window)
+    _slot_check(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_tiles", [None, 1, 2])
+def test_cuda_decode_kernel_matches_the_split_model(split_tiles):
+    """K2 against the plain model of its split, on a ragged 200-row cache:
+    a slot whose window leaves it no live tile (output 0, no tile loaded)
+    beside slots at position 0 and with a window inside the row."""
+    _card()
+    rng = np.random.default_rng(16)
+    S, Hq, Hkv, hd, C = 3, 8, 2, 32, 200
+    q, k, v = [torch.from_numpy(rng.normal(size=shp).astype(np.float32))
+               .cuda() for shp in ((S, Hq, hd), (S, Hkv, C, hd),
+                                   (S, Hkv, C, hd))]
+    pos = torch.tensor([150, 400, 0], dtype=torch.int32, device="cuda")
+    got = tops.decode_attention(q, k, v, pos, sliding_window=70,
+                                split_tiles=split_tiles)
+    torch.cuda.synchronize()
+    tps = split_tiles or tops.attention.decode_split_plan(
+        S, Hkv, C, torch.cuda.get_device_properties(0)
+        .multi_processor_count)[0]
+    want = tops.attention.decode_attention_split_ref(
+        q, k, v, pos, split_tiles=tps, sliding_window=70)
+    _slot_check(got, want, torch.float32)
+    assert not got[1].any()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_kernel_refuses_a_bad_split():
+    """split_tiles outside [1, ceil(C / DECODE_TILE)] raises; nothing
+    falls back."""
+    _card()
+    q, k, v, pos = _contiguous_inputs(17)
+    for bad in (0, -(-k.shape[2] // tops.attention.DECODE_TILE) + 1):
+        with pytest.raises(ValueError, match="split_tiles"):
+            tops.decode_attention(q, k, v, pos, split_tiles=bad)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T,length,window,hd,Hq,Hkv", [
@@ -252,6 +338,73 @@ def test_cuda_prefill_kernel_matches_plain(dtype, T, length, window, hd, Hq,
     want = tops.prefill_attention_ref(q.float(), k.float(), v.float(), length,
                                       sliding_window=window)
     _slot_check(got, want, dt)
+
+
+def _prefill_check(T, length, window, hd, Hq, Hkv, rows, seed):
+    """K3 bf16 with ``rows`` query rows a CUDA block against the plain
+    version on every row; one call counts one launch."""
+    rng = np.random.default_rng(seed)
+    q, k, v = [torch.from_numpy(rng.normal(size=shp).astype(np.float32))
+               .cuda().to(torch.bfloat16)
+               for shp in ((T, Hq, hd), (Hkv, T, hd), (Hkv, T, hd))]
+    before = tops.prefill_attention.launches
+    got = tops.prefill_attention(q, k, v, length, sliding_window=window,
+                                 block_rows=rows)
+    torch.cuda.synchronize()
+    assert tops.prefill_attention.launches == before + 1
+    want = tops.prefill_attention_ref(q.float(), k.float(), v.float(), length,
+                                      sliding_window=window)
+    _slot_check(got, want, torch.bfloat16)
+
+
+PREFILL_TS = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 512, 2048, 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [None, 64, 128])
+@pytest.mark.parametrize("T", PREFILL_TS)
+def test_cuda_prefill_bf16_lengths_of_prompt(T, rows):
+    """K3 bf16 at the serving widths (Hq=32, Hkv=8, hd=128) on every edge
+    of its 64-key tiles and 16/32-position blocks, at the plan's rows and
+    at both forced sizes."""
+    _card()
+    _prefill_check(T, T, None, 128, 32, 8, rows, 20 + T % 97)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("T,length,window", [
+    (200, 150, None), (300, 1, None), (129, 65, None), (257, 200, 64),
+    (520, 520, 70), (1000, 900, 129), (2048, 1500, 700), (4096, 3500, 1000)])
+def test_cuda_prefill_bf16_lengths_and_windows(T, length, window, rows):
+    """K3 bf16 with a real length below T (rows past it attend to the real
+    keys up to their own position) and windows whose edges fall inside
+    and across key tiles and blocks. Each window is wider than T - length,
+    so every row keeps a key (a row that keeps none has no defined output:
+    the plain version spreads it evenly over all T keys)."""
+    _card()
+    _prefill_check(T, length, window, 128, 32, 8, rows, T + length)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_cuda_prefill_bf16_groups_and_head_dims(G, hd, rows):
+    """K3 bf16 at every compiled GQA group and head dim, with a length
+    below T and a window across a tile edge."""
+    _card()
+    _prefill_check(300, 250, 90, hd, 4 * G, 4, rows, 3 * G + hd)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_refuses_bad_block_rows():
+    """block_rows outside PREFILL_ROWS raises; nothing falls back."""
+    _card()
+    q = torch.zeros((8, 4, 32), dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros((2, 8, 32), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="block_rows"):
+        tops.prefill_attention(q, k, k, 8, block_rows=96)
 
 
 def _mm_inputs(M, K, N, seed, transpose=False):
