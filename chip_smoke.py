@@ -26,7 +26,7 @@ Phases (any failure raises and the script exits non-zero):
        times as for K1, the single walk included (library: SDPA over the
        cache, masked to each slot's rows), byte bound;
      - K3 prefill attention at Hq=32, Hkv=8, hd=128 for T = 512, 2048 and
-       4096 (length = T) and T=2048 with 1001 real rows, in bf16 and f32,
+       4096 (length = T; bf16 also at 1024) and T=2048 with 1001 real rows, in bf16 and f32,
        a window case, hd=64 GQA-1 cases, and the bf16 kernel at both
        block sizes (the plan's rows a block recorded); every row compared;
        times
@@ -38,15 +38,23 @@ Phases (any failure raises and the script exits non-zero):
        edges M=1 and M=256, in bf16 and f32; times for the kernel, the
        plain version and one library call (torch.matmul against the
        weight dequantized beforehand — it streams twice the int8 bytes),
-       and the byte bound; then, untimed, every M edge of the bf16
-       tensor-core tile (1, 8, 16, 17, 64, 256) at w_gate and wk/wv, K5
-       with groups of 256, each record with its split plan, so every
-       split count the plan gives these shapes runs;
+       and the byte bound; the same at M=40 (a verify window of 8 slots x
+       (gamma 4 + 1) rows); then, untimed, every M edge of the bf16
+       tensor-core tile (1, 8, 16, 17, 64, 256) and the verify windows'
+       5, 10, 15 and 72 rows at w_gate and wk/wv, K5 with groups of 256,
+       each record with its split plan, so every split count the plan
+       gives these shapes runs; K2 and K3 at the widths of the spec
+       parity phase's draft runner;
   4. parity: the port's runner on the card and on the CPU give identical
      greedy tokens (debug:small, float32) on the paged layout with float,
      int8 and int4 weights and pool, and on the contiguous layout with a
      float and an int8 cache; ``embed`` vectors agree within 1e-4 of the
-     vector's largest magnitude;
+     vector's largest magnitude; then speculative decoding: the greedy
+     streams of a spec engine equal the spec-off streams on the card and
+     on the CPU (paged f32, int8 and int4 weights and pools with the
+     n-gram drafter, the w8/w4 kernel 7L+1 times a verify window; a
+     contiguous cache with a draft model whose steps and resyncs launch
+     K2 and K3), with windows and accepted draft tokens in each mode;
   5. serving: the port's HTTP server serves debug:llama3-8b (Llama-3-8B
      widths and depth, random weights from a seed) four times — bf16
      paged, bf16 contiguous (``kv_paged: false``), int8 weights and pool,
@@ -57,7 +65,14 @@ Phases (any failure raises and the script exits non-zero):
      kernel on every projection of every layer plus the lm_head. The
      paged bf16 server (``embeddings: true``) then answers embeddings and
      rerank requests while it decodes a chat: the prefill kernel launches
-     exactly once per layer per embedded input.
+     exactly once per layer per embedded input. A fifth server,
+     ``llama3-8b-bf16-spec``, has no ``spec`` key, so speculative decoding
+     is on as a user gets it; it answers the same five requests and a
+     sixth whose logit bias makes its stream cycle: verify windows run
+     and accept draft tokens, K1 launches once per layer per plain decode
+     step between windows, and the count of its five texts equal to the
+     spec-off bf16 server's is printed (bf16 near-ties may break apart;
+     equality is asserted in f32 by the parity phase).
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -75,6 +90,7 @@ import sys
 import threading
 import time
 import urllib.request
+from typing import Optional
 
 import numpy as np
 import torch
@@ -89,6 +105,8 @@ TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 L2_FLUSH_BYTES = 128 << 20          # > the 50 MB L2: every timed launch
                                     # finds K/V cold, as a decode layer does
 L_8B = 32
+# rows of a verify window's matmuls: 8 slots x (gamma 4 + 1)
+SPEC_M = 8 * (4 + 1)
 # Llama-3-8B decode matmuls: (K, N) of each projection and how many of it
 # one layer runs, then the untied lm_head once per step
 SHAPES_8B = {"wq/wo": ((4096, 4096), 2), "wk/wv": ((4096, 1024), 2),
@@ -526,8 +544,17 @@ def phase_attention() -> dict:
             seed=seed + 1)
     main["k3-window-bf16"] = prefill_case("k3-window-bf16", torch.bfloat16,
                                           2048, window=700, seed=30)
+    main["k3-T1024-bf16"] = prefill_case("k3-T1024-bf16", torch.bfloat16,
+                                         1024, seed=42)
     prefill_case("k3-hd64-g1-f32", torch.float32, 300, length=290, Hq=8,
                  Hkv=8, hd=64, seed=31, timed=False)
+    # the speculative parity phase's draft runner (debug:small widths:
+    # Hq=8, Hkv=4, hd=32, a 256-row f32 cache): each draft step runs K2,
+    # each draft admit and resync K3
+    decode_case("k2-draft-f32", torch.float32, S=4, Hq=8, Hkv=4, hd=32,
+                C=256, positions=(255, 40, 17, 0), seed=40)
+    prefill_case("k3-draft-f32", torch.float32, 64, length=37, Hq=8, Hkv=4,
+                 hd=32, seed=41, timed=False)
     # the bf16 kernel at the block size the plan does not pick for these
     # lengths, and at hd=64 with a GQA group of 1 on both sizes
     prefill_case("k3-T4096-rows64-bf16", torch.bfloat16, 4096, seed=32,
@@ -632,8 +659,10 @@ def _int8pack_ms(x, qt, transpose):
 
 
 def phase_qmatmul() -> dict:
-    """K4/K5 cases; returns the bf16 M=8 8B records by kind and shape."""
-    main: dict = {"w8": {}, "w4": {}}
+    """K4/K5 cases; returns the bf16 M=8 8B records by kind and shape, and
+    the bf16 M=40 ones (a verify window of 8 slots x (gamma 4 + 1) rows)
+    under "<kind>-m40"."""
+    main: dict = {"w8": {}, "w4": {}, "w8-m40": {}, "w4-m40": {}}
     seed = 10
     for kind in ("w8", "w4"):
         for dtype in (torch.bfloat16, torch.float32):
@@ -642,6 +671,10 @@ def phase_qmatmul() -> dict:
                 rec = qmm_case(kind, dtype, 8, K, N, seed=seed)
                 if dtype == torch.bfloat16:
                     main[kind][label] = rec
+        for label, ((K, N), _) in SHAPES_8B.items():
+            seed += 1
+            main[f"{kind}-m40"][label] = qmm_case(kind, torch.bfloat16,
+                                                  SPEC_M, K, N, seed=seed)
             for M in (1, 256):
                 seed += 1
                 qmm_case(kind, dtype, M, 4096, 4096, seed=seed)
@@ -653,10 +686,13 @@ def phase_qmatmul() -> dict:
     # the bf16 tile's M edges (n8 tiles of 1, 2 and 4 per CUDA block, a
     # ragged 17) on the widest and the narrowest projection, and K5's
     # other gated group size: untimed, each against its plain version
+    # ... and the verify windows' M = slots x (gamma + 1) for 1-3 slots
+    # and gamma 4 (5, 10, 15: no multiple of 8) and 8 slots at gamma 1
+    # and 8 (16, 72)
     splits = set()
     for kind in ("w8", "w4"):
         for (K, N) in ((4096, 14336), (4096, 1024)):
-            for M in (1, 8, 16, 17, 64, 256):
+            for M in (1, 8, 16, 17, 64, 256, 5, 10, 15, 72):
                 seed += 1
                 splits.add(qmm_case(kind, torch.bfloat16, M, K, N, seed=seed,
                                     timed=False)["plan"][1])
@@ -669,11 +705,13 @@ def phase_qmatmul() -> dict:
     print(f"qmm split counts run: {sorted(splits)}", flush=True)
     for kind in ("w8", "w4"):
         count = {s: (c * L_8B if c else 1) for s, (_, c) in SHAPES_8B.items()}
-        step = {f: sum(main[kind][s][f] * n for s, n in count.items())
-                for f in ("ms", "bound_ms", "library_ms")}
-        print(f"{kind} decode-step matmuls at 8B (bf16, M=8; 7 projections "
-              f"x {L_8B} layers + lm_head, from the cases above): "
-              + json.dumps(step), flush=True)
+        for M, key in ((8, kind), (SPEC_M, f"{kind}-m40")):
+            step = {f: sum(main[key][s][f] * n for s, n in count.items())
+                    for f in ("ms", "bound_ms", "library_ms")}
+            what = "decode-step" if M == 8 else "verify-window"
+            print(f"{kind} {what} matmuls at 8B (bf16, M={M}; 7 "
+                  f"projections x {L_8B} layers + lm_head, from the cases "
+                  "above): " + json.dumps(step), flush=True)
     return main
 
 
@@ -763,6 +801,167 @@ def phase_parity() -> dict:
     return launches
 
 
+# the spec parity phase: repeating prompts and a small bias on three ids
+# make the streams repeat, so the n-gram lookup hits, with partial accepts
+SPEC_PROMPTS = [list(b"abcabcabcabcabcabc"), list(b"xyzxyzxyzxyzxy")]
+SPEC_BIAS = {97: 3.0, 98: 3.0, 99: 3.0}
+
+
+def _spec_run(eng, prompts, n, bias, counted) -> tuple[list, dict]:
+    """Greedy streams of ``n`` + 1 tokens a prompt through a spec engine
+    driven as the scheduler drives it (a window when the drafter
+    proposes, a plain step when it declines); returns the streams and the
+    launches of each wrapper in ``counted`` made inside windows."""
+    from localai_tpu_torch.engine.runner import SKIP
+
+    slots, out = [], []
+    for p in prompts:
+        s = eng.acquire_slot()
+        slots.append(s)
+        out.append([eng.admit(s, p, temperature=0.0, bias_row=bias)])
+    in_windows = {n_: 0 for n_ in counted}
+    while min(len(o) for o in out) <= n:
+        before = {n_: w.launches for n_, w in counted.items()}
+        rows = eng.step_spec_async()
+        if rows is None:  # declined: a plain step
+            toks = eng.target.step()
+            for o, s in zip(out, slots):
+                o.append(int(toks[s]))
+                eng.drafter.observe(s, [int(toks[s])])
+            continue
+        host = np.asarray(rows)
+        for n_, w in counted.items():
+            in_windows[n_] += w.launches - before[n_]
+        eng.observe_window(host)
+        for o, s in zip(out, slots):
+            o.extend(int(x) for x in host[:, s] if x != SKIP)
+    return [o[:n + 1] for o in out], in_windows
+
+
+def phase_spec_parity() -> dict:
+    """Speculative decoding on the card and on the CPU (debug:small,
+    float32 compute, num_slots 4, gamma 4): the greedy streams of a spec
+    engine equal the spec-off streams of the same runner settings on both
+    devices, in four modes — a paged f32 pool, int8 weights and pool,
+    int4 weights and pool (each with the n-gram drafter; the w8/w4 kernel
+    launches exactly 7L+1 times a verify window, at M = 4 x 5 = 20 rows),
+    and a contiguous f32 cache with a draft model, a copy of the target
+    whose lm_head carries seeded noise (debug:tiny's head dim 16 is not
+    one the attention kernels are compiled for): its steps and resyncs
+    launch K2 and K3 on the card. Returns the card's launches by mode."""
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models.quant import quantize_params
+    from localai_tpu_torch.models.registry import resolve_model
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
+    from localai_tpu_torch.ops.qmatmul import w4_matmul, w8_matmul
+    from localai_tpu_torch.spec import ModelDrafter, NGramDrafter, SpecEngine
+
+    wrappers = {"paged_decode_attention": paged_decode_attention,
+                "decode_attention": decode_attention,
+                "prefill_attention": prefill_attention,
+                "w8_matmul": w8_matmul, "w4_matmul": w4_matmul}
+    model = resolve_model("debug:small", dtype="float32", device="cpu")
+    cfg, gamma, n = model.cfg, 4, 32
+    g = torch.Generator().manual_seed(1)
+    draft_params = dict(model.params, lm_head=model.params["lm_head"]
+                        + 0.005 * torch.randn(model.params["lm_head"].shape,
+                                              generator=g))
+    launches = {}
+    for mode, weights in (("paged-float32", ""), ("paged-int8", "int8"),
+                          ("paged-int4", "int4"),
+                          ("contiguous-model-drafter", "")):
+        paged = mode.startswith("paged")
+        kv = weights or "float32"
+        params = (quantize_params(model.params, weights, device="cpu")
+                  if weights else model.params)
+        bias = np.zeros(cfg.vocab_size, np.float32)
+        if paged:
+            bias[list(SPEC_BIAS)] = list(SPEC_BIAS.values())
+        streams = {}
+        for dev in ("cuda", "cpu"):
+            def runner(p, dev=dev):
+                return ModelRunner(cfg, _to(p, dev), num_slots=4,
+                                   max_ctx=256, kv_dtype=kv,
+                                   kv_block_tokens=16, prefill_chunk=32,
+                                   paged=paged, device=dev)
+
+            plain = runner(params)
+            want, slots = [], []
+            for p in SPEC_PROMPTS:
+                slots.append(plain.acquire_slot())
+                want.append([plain.admit(slots[-1], p, temperature=0.0,
+                                         bias_row=bias)])
+            for _ in range(n):
+                toks = plain.step()
+                for o, s in zip(want, slots):
+                    o.append(int(toks[s]))
+            del plain
+            drafter = (NGramDrafter(4, gamma) if paged else
+                       ModelDrafter(runner(draft_params), gamma))
+            eng = SpecEngine(runner(params), drafter, gamma=gamma)
+            for w in wrappers.values():
+                w.launches = 0
+            got, in_windows = _spec_run(eng, SPEC_PROMPTS, n, bias,
+                                        wrappers)
+            counts = {k: w.launches for k, w in wrappers.items()}
+            t = eng.target
+            rec = {"mode": mode, "device": dev, "windows": eng.total_windows,
+                   "proposed": eng.total_proposed,
+                   "accepted": eng.total_accepted,
+                   "declined": eng.total_declined,
+                   "verify_windows": t.verify_windows,
+                   "target_decode_steps": t.decode_steps,
+                   "target_fresh_prefills": t.fresh_prefills,
+                   "launches": counts, "launches_in_windows": in_windows}
+            if not paged:
+                rec.update(draft_decode_steps=drafter.runner.decode_steps,
+                           draft_fresh_prefills=drafter.runner.fresh_prefills)
+            print("spec parity " + json.dumps(rec), flush=True)
+            if got != want:
+                raise AssertionError(f"spec parity {mode} {dev}: spec "
+                                     f"{got} != plain {want}")
+            if not (eng.total_windows > 0 and eng.total_accepted > 0):
+                raise AssertionError(f"spec parity {mode} {dev}: no window "
+                                     "or no accepted draft token")
+            streams[dev] = got
+            if dev == "cuda":
+                L = cfg.num_layers
+                if paged:
+                    want_l = {"paged_decode_attention": L * t.decode_steps,
+                              "decode_attention": 0, "prefill_attention": 0}
+                    qk = {"int8": "w8_matmul",
+                          "int4": "w4_matmul"}.get(weights)
+                    if qk:
+                        want_l[qk + " in windows"] = ((7 * L + 1)
+                                                      * eng.total_windows)
+                        counts[qk + " in windows"] = in_windows[qk]
+                else:
+                    d = drafter.runner
+                    Ld = d.cfg.num_layers
+                    want_l = {"paged_decode_attention": 0,
+                              "decode_attention": (L * t.decode_steps
+                                                   + Ld * d.decode_steps),
+                              "prefill_attention": (L * t.fresh_prefills
+                                                    + Ld * d.fresh_prefills)}
+                    if not (d.decode_steps > 0 and d.fresh_prefills > 0):
+                        raise AssertionError("the draft runner launched no "
+                                             "K2 or no K3")
+                got_l = {k: counts[k] for k in want_l}
+                if got_l != want_l:
+                    raise AssertionError(f"spec parity {mode}: launches "
+                                         f"{got_l}, expected {want_l}")
+                launches[mode] = {**counts, **{
+                    f"{k} in windows": v for k, v in in_windows.items()}}
+            del eng, drafter
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"spec parity {mode}: cuda and cpu differ")
+    return launches
+
+
 def _post(url: str, body: dict, timeout: float = 600):
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -770,12 +969,18 @@ def _post(url: str, body: dict, timeout: float = 600):
 
 
 def phase_serve(card: str, quant: str = "", paged: bool = True,
-                profile: bool = False) -> dict:
+                profile: bool = False, spec: bool = False,
+                ref_texts: Optional[list] = None) -> dict:
     """Serve debug:llama3-8b over HTTP with bf16 weights and pool, or with
     ``quant`` ("int8"/"int4") weights and pool, or (``paged`` False) with
-    bf16 weights over the contiguous cache; returns the launch counts of
-    the timed run. The paged bf16 server also answers embeddings and
-    rerank requests while it decodes."""
+    bf16 weights over the contiguous cache; each with ``spec: false``,
+    except that ``spec`` serves bf16 paged with no spec key, so the
+    default turns speculative decoding on as a user gets it, and adds a
+    sixth request whose logit bias makes its stream cycle (the n-gram
+    lookup then hits). Returns {"launches": the launch counts of the
+    timed run, "texts": the five texts}. The paged bf16 server without
+    speculation also answers embeddings and rerank requests while it
+    decodes."""
     from localai_tpu_torch.api.server import APIServer
     from localai_tpu_torch.config.app_config import AppConfig
     from localai_tpu_torch.config.loader import ConfigLoader
@@ -792,13 +997,15 @@ def phase_serve(card: str, quant: str = "", paged: bool = True,
                 "decode_attention": decode_attention,
                 "prefill_attention": prefill_attention,
                 "w8_matmul": w8_matmul, "w4_matmul": w4_matmul}
-    name = f"llama3-8b-{quant or 'bf16'}{'' if paged else '-contiguous'}"
+    name = (f"llama3-8b-{quant or 'bf16'}{'' if paged else '-contiguous'}"
+            f"{'-spec' if spec else ''}")
     engine = {"dtype": "bfloat16", "kv_dtype": quant or "bfloat16",
-              "max_slots": 8, "kv_block_tokens": 64, "spec": False,
-              "kv_paged": paged}
+              "max_slots": 8, "kv_block_tokens": 64, "kv_paged": paged}
+    if not spec:
+        engine["spec"] = False
     if quant:
         engine["quantization"] = quant
-    embeds = paged and not quant
+    embeds = paged and not quant and not spec
     mcfg = ModelConfig.from_dict({
         "name": name, "model": "debug:llama3-8b", "context_size": 4096,
         "embeddings": embeds, "engine": engine,
@@ -816,6 +1023,10 @@ def phase_serve(card: str, quant: str = "", paged: bool = True,
         print(f"serve {name}: loaded (L={sm.runner.cfg.num_layers}, "
               f"D={sm.runner.cfg.hidden_size}) in "
               f"{time.monotonic() - t0:.1f}s", flush=True)
+        lane = sm.scheduler.spec
+        if spec != (lane is not None):
+            raise AssertionError(f"{name}: speculation is "
+                                 f"{'off' if lane is None else 'on'}")
         chat = server.url + "/v1/chat/completions"
         prompts = ["Write a haiku about paged attention.",
                    "What is the capital of France?",
@@ -859,14 +1070,28 @@ def phase_serve(card: str, quant: str = "", paged: bool = True,
             except Exception as e:  # noqa: BLE001 — re-raised below
                 errors.append(e)
 
+        def cyclic():
+            try:
+                results[5] = json.loads(_post(chat, {
+                    "model": name, "max_tokens": 32, "temperature": 0,
+                    "logit_bias": {"97": 10000},
+                    "messages": [{"role": "user",
+                                  "content": "Say a a a a a a a a."}]}
+                ).read())
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
         for w in wrappers.values():
             w.launches = 0
         steps0 = sm.runner.decode_steps
         fresh0 = sm.runner.fresh_prefills
+        m0 = sm.scheduler.metrics()
         t0 = time.monotonic()
         threads = [threading.Thread(target=plain, args=(i,))
                    for i in range(4)]
         threads.append(threading.Thread(target=streamed, args=(4,)))
+        if spec:
+            threads.append(threading.Thread(target=cyclic))
         for t in threads:
             t.start()
         for t in threads:
@@ -887,6 +1112,21 @@ def phase_serve(card: str, quant: str = "", paged: bool = True,
         if su <= 0:
             raise AssertionError("the streaming request returned no tokens")
         ntok += su
+        m1 = sm.scheduler.metrics()
+        counters = {}
+        if spec:
+            ntok += results[5]["usage"]["completion_tokens"]
+            counters = {k: (m1[k] - m0[k] if k in ("spec_windows",
+                                                   "spec_draft_tokens",
+                                                   "spec_accepted_tokens",
+                                                   "spec_suppressed")
+                            else m1[k])
+                        for k in m1 if k.startswith("spec_")}
+            counters["verify_windows"] = lane.target.verify_windows
+            if not (counters["spec_windows"] > 0
+                    and counters["spec_accepted_tokens"] > 0):
+                raise AssertionError(f"{name}: no verify window or no "
+                                     f"accepted draft token: {counters}")
         L = sm.runner.cfg.num_layers
         # the decode kernel of the layout once per layer per decode step,
         # the other none; the prefill kernel once per layer per fresh
@@ -910,7 +1150,15 @@ def phase_serve(card: str, quant: str = "", paged: bool = True,
                                chat, body(0),
                                results[0]["choices"][0]["message"]["content"],
                                L) if embeds else 0
-        if not embeds:
+        texts = [results[i]["choices"][0]["message"]["content"]
+                 for i in range(4)] + [results[4]["text"]]
+        if ref_texts is not None:
+            # equality is asserted in f32 by the spec parity phase; in
+            # bf16 the verify's plain attention and K1 may break
+            # near-ties differently, so it is reported here
+            counters["texts_equal_to_spec_off"] = sum(
+                a == b for a, b in zip(texts, ref_texts))
+        if not embeds and not spec:
             again = json.loads(_post(chat, body(0)).read())
             if (again["choices"][0]["message"]["content"]
                     != results[0]["choices"][0]["message"]["content"]):
@@ -923,17 +1171,18 @@ def phase_serve(card: str, quant: str = "", paged: bool = True,
             "card": card, "model": name, "weights": quant or "bfloat16",
             "kv_dtype": quant or "bfloat16",
             "kv_layout": "paged" if paged else "contiguous",
-            "requests": 5, "streaming": 1, "fresh_prefills": fresh,
+            "requests": 6 if spec else 5, "streaming": 1,
+            "fresh_prefills": fresh,
             "completion_tokens": ntok, "wall_s": wall,
             "tokens_per_s": ntok / wall, "ttft_stream_s": results[4]["ttft_s"],
             "decode_steps": steps, "kernel_launches": launches,
             "max_memory_allocated_gb":
-                torch.cuda.max_memory_allocated() / 1e9,
+                torch.cuda.max_memory_allocated() / 1e9, **counters,
         }), flush=True)
         if profile:
-            phase_profile(sm)
+            phase_profile(sm, verify=spec)
         launches["embedded_prefill_attention"] = embedded
-        return launches
+        return {"launches": launches, "texts": texts}
     finally:
         # free this model before the next phase builds its own, so peak
         # memory is one model's
@@ -1007,11 +1256,14 @@ def phase_embed(url: str, name: str, hidden: int, chat: str, chat_body: dict,
     return launches
 
 
-def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16) -> None:
+def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16,
+                  verify: bool = False) -> None:
     """Where a decode step's time goes at the serving shape: every slot
     holds a ``ctx_tokens`` prompt, then ``steps`` decode steps run once
     plain (wall clock) and once under torch.profiler (device time by
-    kernel). Run with ``--profile``; not part of the default smoke."""
+    kernel). ``verify`` profiles verify windows (gamma 4, proposals the
+    target rejects: one token a slot a window) instead of decode steps.
+    Run with ``--profile``; not part of the default smoke."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1020,16 +1272,25 @@ def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16) -> None:
     for _ in range(r.num_slots):
         prompt = torch.randint(0, 256, (ctx_tokens,), generator=g).tolist()
         r.admit(r.acquire_slot(), prompt, temperature=0.0,
-                reserve_tokens=ctx_tokens + 4 * steps)
-    r.step_n(2)  # warm
+                reserve_tokens=ctx_tokens + 8 * steps)
+    props = np.zeros((r.num_slots, 4), np.int32)
+
+    def run(n):
+        if not verify:
+            return r.step_n(n)
+        for _ in range(n):
+            rows = r.verify_async(props)
+        return np.asarray(rows)
+
+    run(2)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r.step_n(steps)
+    run(steps)
     wall_plain = (time.perf_counter() - t0) / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r.step_n(steps)
+        run(steps)
         wall_prof = (time.perf_counter() - t0) / steps
     kernels: dict = {}
     for e in prof.key_averages():
@@ -1049,6 +1310,7 @@ def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16) -> None:
     gemm = share("gemm", "nvjet", "xmma", "cutlass", "cublas")
     print("profile: " + json.dumps({
         "kv_dtype": r.kv_dtype, "ctx_tokens": ctx_tokens,
+        "program": "verify window" if verify else "decode step",
         "slots": r.num_slots, "steps": steps,
         "wall_ms_per_step": wall_plain * 1e3,
         "wall_ms_per_step_profiled": wall_prof * 1e3,
@@ -1076,7 +1338,7 @@ def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16) -> None:
 
     prof_py = cProfile.Profile()
     prof_py.enable()
-    r.step_n(steps)
+    run(steps)
     torch.cuda.synchronize()
     prof_py.disable()
     st = pstats.Stats(prof_py)
@@ -1125,11 +1387,16 @@ def main() -> int:
     attn = phase_attention()
     qmm = phase_qmatmul()
     parity = phase_parity()
+    spec = phase_spec_parity()
     profile = "--profile" in sys.argv[1:]
-    served = {"": phase_serve(card, profile=profile),
-              "contiguous": phase_serve(card, paged=False, profile=profile)}
+    bf16 = phase_serve(card, profile=profile)
+    served = {"": bf16["launches"],
+              "contiguous": phase_serve(card, paged=False,
+                                        profile=profile)["launches"]}
     for q in ("int8", "int4"):
-        served[q] = phase_serve(card, q, profile=profile)
+        served[q] = phase_serve(card, q, profile=profile)["launches"]
+    served["spec"] = phase_serve(card, spec=True, profile=profile,
+                                 ref_texts=bf16["texts"])["launches"]
     src = "localai_tpu_torch/csrc/"
     k1_src = src + "paged_decode_attention.cu"
     k1_tpu = "localai_tpu/ops/attention.py:458"
@@ -1165,6 +1432,20 @@ def main() -> int:
                served["contiguous"]["prefill_attention"]
                + served[""]["embedded_prefill_attention"],
                attn["k3-T2048-bf16"]),
+        # the speculating bf16 server: K1 on its plain steps between
+        # windows
+        _entry("paged_decode_attention_spec", k1_src, k1_tpu,
+               served["spec"]["paged_decode_attention"], k1["bf16"]),
+        # verify windows (M = slots x 5 rows): launches inside the windows
+        # of the spec parity phase, times at M = 40 (8 slots)
+        _entry("w8_matmul_verify", src + "w8_matmul.cu",
+               "localai_tpu/ops/qmatmul.py:67",
+               spec["paged-int8"]["w8_matmul in windows"],
+               qmm["w8-m40"]["w_gate/w_up"]),
+        _entry("w4_matmul_verify", src + "w4_matmul.cu",
+               "localai_tpu/ops/qmatmul.py:135",
+               spec["paged-int4"]["w4_matmul in windows"],
+               qmm["w4-m40"]["w_gate/w_up"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

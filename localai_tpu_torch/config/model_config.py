@@ -4,7 +4,7 @@ Port of the fields of ``localai_tpu/config/model_config.py`` that the port
 reads (the JAX package validates with pydantic, which the port's runtime
 does not depend on). Unknown keys are ignored; keys that would ask for a
 feature the port does not have yet — Go/Jinja prompt templates,
-``int8_w8a8`` quantization, speculative decoding, self-extend
+``int8_w8a8`` quantization, self-extend
 (``engine.grp_attn_n > 1``), a vision tower (``mmproj``), the prompt
 cache (``prompt_cache_path``), grammars (``grammar``), function
 calling (a ``function`` section) and the backends whose engines are not
@@ -12,8 +12,10 @@ ported (``UNPORTED_BACKENDS``) — raise a clear error at load instead of
 serving something else than was asked for. int8
 and int4 weights (``engine.quantization``), int8/int4 KV storage
 (``engine.kv_dtype``; int4 on the paged layout only), the contiguous KV
-layout (``engine.kv_paged: false``) and embeddings (``embeddings: true``)
-are served.
+layout (``engine.kv_paged: false``), embeddings (``embeddings: true``)
+and speculative decoding (``engine.spec``, ``spec_drafter``,
+``spec_gamma``, ``n_draft``, ``draft_model``: on by default for paged
+engines, as in the JAX package) are served.
 """
 
 from __future__ import annotations
@@ -114,8 +116,16 @@ class EngineConfig:
     prefill_buckets: Optional[list[int]] = None  # default 128/512/2048/8192
     grp_attn_n: int = 1                 # self-extend: refused when > 1
     quantization: Optional[str] = None  # weights: int8 | int4
-    spec: Optional[bool] = None         # refused when true: not ported yet
-    draft_model: Optional[str] = None   # refused: not ported yet
+    # speculative decoding (localai_tpu_torch.spec), as the JAX package
+    # reads it: spec None = on for paged engines (LOCALAI_SPEC=0 turns it
+    # off) and for any engine with a draft_model; spec_drafter auto |
+    # ngram | model; spec_gamma = draft tokens a window (default n_draft
+    # with a draft model, else LOCALAI_SPEC_GAMMA or 4)
+    spec: Optional[bool] = None
+    spec_drafter: str = "auto"
+    spec_gamma: Optional[int] = None
+    n_draft: int = 4
+    draft_model: Optional[str] = None  # a same-vocab model ref
     pipeline_depth: int = 2             # in-flight decode dispatches
     stream_latency_ms: float = 100.0    # SSE delivery-lag bound
     # paged pool size in blocks (None = the contiguous footprint, or
@@ -191,10 +201,6 @@ class ModelConfig:
             raise ValueError(
                 f"model {self.name or self.model!r}: kv_dtype "
                 f"{self.engine.kv_dtype!r} is not one of {KV_DTYPES}")
-        if self.engine.spec or self.engine.draft_model:
-            raise ValueError(
-                f"model {self.name or self.model!r}: speculative decoding "
-                "is not ported yet (set engine.spec: false)")
         if self.engine.grp_attn_n > 1:
             raise ValueError(
                 f"model {self.name or self.model!r}: self-extend "

@@ -226,6 +226,114 @@ def paged_prefill_write(table_row: torch.Tensor, offset: int, length: int):
     return write
 
 
+def paged_verify_write(tables: torch.Tensor, positions: torch.Tensor,
+                       ctx_limit: int):
+    """KV write policy for the batched speculative verify forward over a
+    block pool: ``paged_decode_write`` generalized to T tokens a slot.
+
+    Window token t of slot s lands at
+    ``pool[tables[s, (positions[s]+t)//bt], :, (positions[s]+t)%bt]``.
+    Rows at or past ``ctx_limit`` (the runner's max_ctx) go to the trash
+    block: near the context edge a window row must never wrap onto the
+    slot's own earlier rows through the clamped block index. Inactive and
+    mid-prefill slots' table rows are all zeros, so their writes land in
+    the trash block as decode's do. Exposes the gathered logical context
+    [S, H, MB*bt, hd] (dequantized in the compute dtype for a scaled
+    pool) so window tokens attend over the prefix and the window so far.
+
+    Rollback is a per-slot position rollback only: the rejected tail's
+    rows (values and scale rows alike, which ride the same scatter) stay
+    as garbage in the slot's reserved speculation rows and are
+    overwritten before anything attends to them."""
+
+    def write(layer_kv, k_new, v_new):  # k_new [S, T, H, hd]
+        dt = k_new.dtype
+        bt = layer_kv[0].shape[2]
+        MB = tables.shape[1]
+        S, T = k_new.shape[0], k_new.shape[1]
+        s = torch.arange(S, device=tables.device)[:, None]
+        pmat = (positions[:, None].long()
+                + torch.arange(T, device=tables.device)[None, :])  # [S, T]
+        blk = torch.where(pmat < ctx_limit,
+                          tables[s, (pmat // bt).clamp(max=MB - 1)],
+                          torch.zeros_like(tables[:1, :1]))
+        off = pmat % bt
+        if len(layer_kv) == 4:  # scaled int8/int4 pool
+            k_layer, v_layer, ks_layer, vs_layer = layer_kv
+            quantize, int4 = _pool_quant(layer_kv, k_new)
+            kq, ks = quantize(k_new)     # [S, T, H, hd or hd/2], [S, T, H]
+            vq, vs = quantize(v_new)
+            k_layer[blk, :, off] = kq
+            v_layer[blk, :, off] = vq
+            ks_layer[blk, :, off] = ks
+            vs_layer[blk, :, off] = vs
+            return (layer_kv,
+                    _gather_dequant(k_layer, ks_layer, tables, dt, int4),
+                    _gather_dequant(v_layer, vs_layer, tables, dt, int4))
+        k_layer, v_layer = layer_kv               # [N, H, bt, hd]
+        k_layer[blk, :, off] = k_new.to(k_layer.dtype)
+        v_layer[blk, :, off] = v_new.to(v_layer.dtype)
+        return (layer_kv, gather_blocks(k_layer, tables).to(dt),
+                gather_blocks(v_layer, tables).to(dt))
+
+    return write
+
+
+def verify_write(positions: torch.Tensor):
+    """KV write policy for the batched speculative verify forward over the
+    contiguous cache: writes the window [S, T, H, hd] at
+    cache[s, :, positions[s] + t] (quantized for a scaled int8 cache) and
+    exposes every slot's whole row ([S, H, C, hd], dequantized in the
+    compute dtype). Rejected rows stay as garbage above the slot's
+    frontier, overwritten before anything attends to them.
+
+    A row at or past the cache's end is dropped, as the JAX package's
+    scatter drops it. The window goes in one position at a time (one row
+    a slot per write, so no two writes of one call meet), and a dropped
+    row rewrites the row it was clamped to with that row's own value."""
+
+    def write(layer_kv, k_new, v_new):
+        dt = k_new.dtype
+        S, T = k_new.shape[0], k_new.shape[1]
+        C = layer_kv[0].shape[2]
+        s = torch.arange(S, device=positions.device)
+        if len(layer_kv) == 4:  # scaled int8 cache
+            kq, ks = quant.quantize_lastdim(k_new)   # [S, T, H, hd], [S, T, H]
+            vq, vs = quant.quantize_lastdim(v_new)
+            new = (kq, vq, ks, vs)
+        else:
+            new = (k_new, v_new)
+        for t in range(T):
+            p = positions.long() + t
+            keep = p < C
+            pc = p.clamp(max=C - 1)
+            for cache, n in zip(layer_kv, new):
+                row = n[:, t].to(cache.dtype)            # [S, H, ...]
+                fit = keep.view(S, *([1] * (row.dim() - 1)))
+                cache[s, :, pc] = torch.where(fit, row, cache[s, :, pc])
+        rows = [c.to(dt) for c in layer_kv]
+        if len(rows) == 4:
+            return (layer_kv, rows[0] * rows[2][..., None],
+                    rows[1] * rows[3][..., None])
+        return layer_kv, rows[0], rows[1]
+
+    return write
+
+
+def verify_mask(cfg: LlamaConfig, positions: torch.Tensor, T: int,
+                max_ctx: int) -> torch.Tensor:
+    """[S, T, C] mask for the speculative verify forward: window token t
+    (absolute position positions[s]+t) attends causally over the slot's
+    prefix and the window so far."""
+    c = torch.arange(max_ctx, device=positions.device)[None, None, :]
+    pos = (positions.long()[:, None, None]
+           + torch.arange(T, device=positions.device)[None, :, None])
+    m = c <= pos
+    if cfg.sliding_window:
+        m &= c > pos - cfg.sliding_window
+    return m
+
+
 def decode_write(positions: torch.Tensor):
     """KV write policy for batched single-token decode over the contiguous
     cache.

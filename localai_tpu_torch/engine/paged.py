@@ -9,7 +9,10 @@ blocks. All allocation state lives here on the host.
 
   * **Reservation, not preemption.** A sequence is admitted only when the
     pool can cover its worst case (``min(prompt + max_new, max_ctx)``
-    tokens), so a decode step can never run out of blocks.
+    tokens), so a decode step can never run out of blocks. A speculating
+    engine reserves its verify window's lookahead on top
+    (``spec_tokens``); the blocks that adds are recorded as speculation
+    blocks, audited by ``check_invariants`` and freed with the table.
   * **Whole-block prefix sharing.** A finished admission's full prompt
     blocks are keyed by a running hash of the tokens they cover and kept
     in a refcounted pool; a later prompt with the same leading blocks maps
@@ -47,6 +50,7 @@ class BlockStats:
     free: int           # immediately free
     cached: int         # prefix-pool blocks reclaimable on demand
     used: int           # referenced by at least one live sequence
+    spec_reserved: int = 0  # blocks held purely for speculative lookahead
 
     @property
     def available(self) -> int:
@@ -72,6 +76,9 @@ class BlockAllocator:
         self.tables: dict[int, list[int]] = {}
         # how many leading blocks of each table are shared (read-only)
         self.shared_blocks: dict[int, int] = {}
+        # how many trailing blocks of each table only the speculation
+        # lookahead needs
+        self.spec_blocks: dict[int, int] = {}
         # prefix pool: chain-hash of covered tokens -> block id, LRU order
         self._prefix: "OrderedDict[str, int]" = OrderedDict()
         self._block_key: dict[int, str] = {}
@@ -158,14 +165,34 @@ class BlockAllocator:
 
     # -- allocate / release ----------------------------------------------
 
+    def _take_fresh(self, need: int) -> list[int]:
+        """``need`` blocks off the free list, evicting LRU pool-only prefix
+        blocks when it runs dry; the caller checked availability and holds
+        the lock."""
+        fresh: list[int] = []
+        for _ in range(need):
+            if not self._free:
+                evicted = self._evict_one()
+                assert evicted is not None
+                self._free.append(evicted)
+            bid = self._free.pop()
+            self._ref[bid] = 1
+            fresh.append(bid)
+        return fresh
+
     def allocate(self, seq: int, tokens: int,
-                 prompt: Optional[list[int]] = None) -> Optional[int]:
-        """Build ``seq``'s block table covering ``tokens`` rows, sharing
-        pool-cached prompt prefix blocks where possible. Returns the
-        shared-token count, or None when the pool cannot cover the
-        reservation (the caller queues the request). ``seq`` must not
-        already hold a table."""
-        nb = self.blocks_for(tokens)
+                 prompt: Optional[list[int]] = None,
+                 spec_tokens: int = 0) -> Optional[int]:
+        """Build ``seq``'s block table covering ``tokens + spec_tokens``
+        rows, sharing pool-cached prompt prefix blocks where possible.
+        ``spec_tokens`` extra rows are the slot's speculative-decoding
+        lookahead (a verify window writes up to gamma rows past the decode
+        frontier); the blocks they add beyond the base reservation are
+        recorded as speculation blocks. Returns the shared-token count, or
+        None when the pool cannot cover the reservation (the caller queues
+        the request). ``seq`` must not already hold a table."""
+        nb = self.blocks_for(tokens + spec_tokens)
+        nb_spec = nb - self.blocks_for(tokens)
         shared = self.match_prefix(prompt) if prompt else []
         shared = shared[: max(0, nb - 1)]  # at least one writable block
         with self._lock:
@@ -183,23 +210,42 @@ class BlockAllocator:
                 for bid in shared:  # roll the reservation back
                     self._ref[bid] -= 1
                 return None
-            fresh: list[int] = []
-            for _ in range(need):
-                if not self._free:
-                    evicted = self._evict_one()
-                    assert evicted is not None
-                    self._free.append(evicted)
-                fresh.append(self._free.pop())
-            for bid in fresh:
-                self._ref[bid] = 1
-            self.tables[seq] = shared + fresh
+            self.tables[seq] = shared + self._take_fresh(need)
             self.shared_blocks[seq] = len(shared)
+            if nb_spec:
+                self.spec_blocks[seq] = nb_spec
         return len(shared) * self.block_tokens
+
+    def extend(self, seq: int, tokens: int, spec_tokens: int = 0) -> bool:
+        """Grow ``seq``'s existing table to cover ``tokens + spec_tokens``
+        rows, recording the speculation lookahead as :meth:`allocate`
+        does. False on exhaustion (nothing is reserved then)."""
+        with self._lock:
+            table = self.tables.get(seq)
+            if table is None:
+                return False
+            nb = self.blocks_for(tokens + spec_tokens)
+            nb_spec = nb - self.blocks_for(tokens)
+            need = nb - len(table)
+            if need <= 0:
+                # the table already covers the reservation and any
+                # lookahead: no distinct speculation tail to account
+                self.spec_blocks.pop(seq, None)
+                return True
+            if need > len(self._free) + self._reclaimable():
+                return False
+            if nb_spec:
+                self.spec_blocks[seq] = nb_spec
+            else:
+                self.spec_blocks.pop(seq, None)
+            table.extend(self._take_fresh(need))
+        return True
 
     def release(self, seq: int) -> None:
         with self._lock:
             table = self.tables.pop(seq, None)
             self.shared_blocks.pop(seq, None)
+            self.spec_blocks.pop(seq, None)
             if table is None:
                 return
             for bid in table:
@@ -227,6 +273,7 @@ class BlockAllocator:
                 free=free,
                 cached=cached,
                 used=total - free - cached,
+                spec_reserved=sum(self.spec_blocks.values()),
             )
 
     def check_invariants(self) -> list[str]:
@@ -234,8 +281,10 @@ class BlockAllocator:
         violation strings (empty = healthy): every allocatable block is
         free (refcount 0) or referenced (≥ 1), the free list holds no
         duplicates and never the trash block, table blocks are live
-        non-trash blocks (shared leading ones also pool-referenced), and
-        the prefix pool's key↔block indices agree."""
+        non-trash blocks (shared leading ones also pool-referenced), each
+        speculation reservation is a tail of its own table that never
+        entered the prefix pool, and the prefix pool's key↔block indices
+        agree."""
         problems: list[str] = []
         with self._lock:
             free_set = set(self._free)
@@ -261,6 +310,25 @@ class BlockAllocator:
                         problems.append(
                             f"seq {seq} block {bid} refcount "
                             f"{int(self._ref[bid])} too low")
+            for seq, nspec in self.spec_blocks.items():
+                table = self.tables.get(seq)
+                if table is None:
+                    problems.append(
+                        f"seq {seq} holds a speculation reservation "
+                        f"({nspec} blocks) but no table")
+                    continue
+                if nspec < 0 or nspec > len(table):
+                    problems.append(
+                        f"seq {seq} speculation reservation {nspec} "
+                        f"outside its table of {len(table)} blocks")
+                    continue
+                # a rejected draft row in a shared block would poison
+                # every sharer
+                for bid in table[len(table) - nspec:]:
+                    if bid in self._block_key:
+                        problems.append(
+                            f"seq {seq} speculation block {bid} leaked "
+                            "into the prefix pool")
             for key, bid in self._prefix.items():
                 if self._block_key.get(bid) != key:
                     problems.append(

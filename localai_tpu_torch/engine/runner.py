@@ -18,9 +18,11 @@ the JAX package become plain methods:
     Scaled int8/int4 caches hand the decode kernels their scales.
   * Quantized weights (``models.quant``) go through the w8/w4 matmul
     kernels wherever the shape is eligible (``ops.qmatmul``).
-  * Chunked paged prefill and contiguous suffix prefill (prefix reuse) run
-    plain grouped attention over the kept prefix + chunk, as the JAX
-    package does in XLA.
+  * Chunked paged prefill, contiguous suffix prefill (prefix reuse) and
+    the speculative verify forward (``verify_async``) run plain grouped
+    attention over the kept prefix + chunk or window, as the JAX package
+    does in XLA; the verify's projections and lm_head take the w8/w4
+    kernels at M = slots x (gamma + 1) rows.
   * Results come back asynchronously: a non-blocking copy into pinned host
     memory followed by a CUDA event (:class:`AsyncTokens`).
   * ``embed`` touches neither the KV cache nor the decode state, so the
@@ -51,6 +53,11 @@ log = logging.getLogger(__name__)
 # (biased) logits row went non-finite reports this instead of a token id;
 # the scheduler fails that request only
 NAN_TOKEN = -2
+
+# speculative-window sentinel in emitted [T, S] rows: no token for this
+# (step, slot), because the slot's window ended at an earlier rejection or
+# the slot is inactive; the scheduler skips it
+SKIP = -1
 
 
 @dataclasses.dataclass
@@ -192,6 +199,9 @@ class ModelRunner:
         self.last_prefix_reused = 0
         # decode steps issued (each launches the attention once per layer)
         self.decode_steps = 0
+        # speculative verify windows run (plain attention: no decode
+        # kernel launch, so they are counted apart from decode_steps)
+        self.verify_windows = 0
         # fresh contiguous prefills (each launches the prefill kernel once
         # per layer; embeddings launch it too, outside this count)
         self.fresh_prefills = 0
@@ -295,6 +305,96 @@ class ModelRunner:
             st.active, (pos + 1).clamp(max=self.max_ctx - 1), pos))
         st.tokens.copy_(tokens)
         return tokens
+
+    # -- speculative verify (localai_tpu_torch.spec drives these) --------
+
+    def _accept_scan(self, logits: torch.Tensor,
+                     proposals: torch.Tensor) -> torch.Tensor:
+        """Accept/sample scan over a speculative window: the full sampler
+        chain per position with the counts updated in order, so emitted
+        tokens follow the non-speculative sampling distribution (a draft
+        token is accepted iff it equals the token the target sampled
+        there; on a mismatch the target's sample is the correction and
+        the window ends). A Python loop over the T positions; a slot's
+        generator is passed only while that slot still emits, so it
+        advances once per EMITTED token and a seeded stream with
+        speculation equals the one without.
+
+        logits [S, T, V], proposals [S, T-1]. Advances the decode state
+        in place: positions roll forward by exactly the emitted count
+        (capped at max_ctx - 1), so a rejected tail is rolled back for
+        every slot independently. Returns emitted [T, S] int32 with SKIP
+        past each slot's window; a non-finite effective logits row emits
+        NAN_TOKEN and ends that slot's window."""
+        st = self.state
+        S, T = logits.shape[0], logits.shape[1]
+        G = T - 1
+        still = st.active.clone()
+        n_emit = torch.zeros(S, dtype=torch.int32, device=self.device)
+        final_tok = st.tokens.clone()
+        emitted = torch.empty((T, S), dtype=torch.int32, device=self.device)
+        sampled = [s for s in self._active_slots if not self._greedy[s]]
+        emitting = set(sampled)
+        for t in range(T):
+            if sampled and t:
+                # which sampled slots still emit: a host read, paid only
+                # while a sampled (non-greedy) slot is live
+                live = still.tolist()
+                emitting = {s for s in emitting if live[s]}
+            logits_t = logits[:, t]
+            tok = smp.sample(logits_t, st.params, st.counts,
+                             self._sample_generators(emitting), st.bias)
+            row_ok = torch.isfinite(logits_t.float() + st.bias).all(dim=-1)
+            tok = torch.where(row_ok, tok, torch.full_like(tok, NAN_TOKEN))
+            # clamp the sentinel out of the scatter index
+            smp.update_counts(st.counts, tok.clamp(min=0), still)
+            final_tok = torch.where(still, tok, final_tok)
+            n_emit += still.to(torch.int32)
+            emitted[t] = torch.where(still, tok, torch.full_like(tok, SKIP))
+            if t < G:
+                still = still & (tok == proposals[:, t])
+        st.positions.copy_((st.positions + n_emit).clamp(max=self.max_ctx - 1))
+        st.tokens.copy_(final_tok)
+        return emitted
+
+    @torch.no_grad()
+    def _verify_window(self, proposals: torch.Tensor, write,
+                       ctx: int) -> torch.Tensor:
+        """A T = gamma+1 wide batched forward (decode generalized to T
+        tokens: each slot's next token, then its proposals, at its
+        frontier and on) through the KV write policy ``write`` and a
+        causal mask over ``ctx`` rows, then the accept scan. proposals
+        [S, gamma] int32; returns emitted [T, S]."""
+        cfg, st = self.cfg, self.state
+        T = proposals.shape[1] + 1
+        p0 = st.positions
+        positions = p0[:, None] + torch.arange(
+            T, dtype=torch.int32, device=self.device)[None, :]
+        tokens = torch.cat([st.tokens[:, None], proposals], dim=1)
+        mask = kvc.verify_mask(cfg, p0, T, ctx)
+        hidden, _ = mdl.forward(cfg, self.params, tokens, positions, write,
+                                self.kv.stacked(), mask, self.rope)
+        logits = mdl.logits_from_hidden(cfg, self.params, hidden)
+        self.verify_windows += 1
+        return self._accept_scan(logits, proposals)
+
+    def _verify_fn(self, proposals: torch.Tensor) -> torch.Tensor:
+        """One speculative verify dispatch over the contiguous cache: the
+        window is written at each slot's frontier and attends over the
+        slot's row."""
+        return self._verify_window(
+            proposals, kvc.verify_write(self.state.positions), self.max_ctx)
+
+    def _verify_paged_fn(self, proposals: torch.Tensor) -> torch.Tensor:
+        """Paged twin of _verify_fn: window rows scatter through the block
+        tables into each slot's reserved speculation rows and attend over
+        the gathered prefix + window; the accept scan rolls every slot's
+        frontier back independently (a position rollback, never a table
+        change, so co-batched slots are untouched)."""
+        return self._verify_window(
+            proposals, kvc.paged_verify_write(
+                self.block_tables, self.state.positions, self.max_ctx),
+            self.ctx_pad)
 
     def _prefill_attn(self, length: int):
         """Attention override for a fresh chunk (contiguous prefill,
@@ -417,18 +517,22 @@ class ModelRunner:
     def admit(self, slot: int, prompt: list[int], *,
               resident: Optional[list[int]] = None,
               valid_n: Optional[int] = None,
-              reserve_tokens: Optional[int] = None, **sampling) -> int:
+              reserve_tokens: Optional[int] = None, spec_tokens: int = 0,
+              **sampling) -> int:
         """Prefill a prompt into a slot; returns the first sampled token.
 
         Paged: all chunks of a ``begin_admit`` (``reserve_tokens`` rows
-        reserved). Contiguous: one dispatch; when ``resident`` (the slot's
+        reserved, plus ``spec_tokens`` rows of speculation lookahead).
+        Contiguous: one dispatch (``spec_tokens`` is ignored); when
+        ``resident`` (the slot's
         previous prompt + generation) shares a long-enough prefix with the
         prompt, the prefix KV is kept and only the tail is prefilled.
         ``valid_n`` is the slot's KV frontier from a batched
         ``slot_positions()`` read (None reads it here)."""
         if self.paged:
             adm = self.begin_admit(slot, prompt,
-                                   reserve_tokens=reserve_tokens, **sampling)
+                                   reserve_tokens=reserve_tokens,
+                                   spec_tokens=spec_tokens, **sampling)
             if adm is None:
                 raise RuntimeError(
                     f"KV block pool exhausted: cannot reserve {len(prompt)} "
@@ -480,12 +584,16 @@ class ModelRunner:
 
     def begin_admit(self, slot: int, prompt: list[int], *,
                     reserve_tokens: Optional[int] = None,
+                    spec_tokens: int = 0,
                     **sampling) -> Optional["PagedAdmission"]:
         """Start a chunked paged admission: reserve blocks (sharing pooled
         prefix blocks where the prompt allows), arm the slot's sampling
         state, and return a PagedAdmission whose ``step_chunk()`` the
-        caller drives. Returns None when the pool cannot cover the
-        reservation (the scheduler keeps the request queued)."""
+        caller drives. ``spec_tokens`` reserves speculation rows past the
+        decode worst case (a verify window writes up to gamma rows beyond
+        the frontier), recorded apart by the allocator. Returns None when
+        the pool cannot cover the reservation (the scheduler keeps the
+        request queued)."""
         if not self.paged:
             raise RuntimeError("begin_admit needs the paged KV layout")
         if not prompt:
@@ -496,12 +604,19 @@ class ModelRunner:
                 f"prompt ({n} tokens) exceeds context {self.max_ctx}")
         reserve = min(self.max_ctx, max(n + 1, reserve_tokens
                                         or self.max_ctx))
-        if self.allocator.blocks_for(reserve) > self.allocator.num_blocks - 1:
+        # the lookahead never needs rows past max_ctx (the verify write
+        # sends those to the trash block)
+        spec_tokens = max(0, min(int(spec_tokens), self.max_ctx - reserve))
+        need = self.allocator.blocks_for(reserve + spec_tokens)
+        if need > self.allocator.num_blocks - 1:
+            # can never fit, even in an empty pool: holding it would block
+            # admission forever
             raise ValueError(
-                f"reservation of {reserve} tokens "
-                f"({self.allocator.blocks_for(reserve)} blocks) exceeds the "
-                f"block pool ({self.allocator.num_blocks - 1} blocks)")
-        shared = self.allocator.allocate(slot, reserve, prompt=prompt)
+                f"reservation of {reserve + spec_tokens} tokens ({need} "
+                f"blocks) exceeds the block pool "
+                f"({self.allocator.num_blocks - 1} blocks)")
+        shared = self.allocator.allocate(slot, reserve, prompt=prompt,
+                                         spec_tokens=spec_tokens)
         if shared is None:
             return None
         self.last_prefill_path = "paged_shared" if shared else "paged"
@@ -570,6 +685,18 @@ class ModelRunner:
         """n decode iterations (a Python loop of single steps); the [n, S]
         result comes back asynchronously."""
         return AsyncTokens(self._decode_n_fn(n))
+
+    def verify_async(self, proposals) -> AsyncTokens:
+        """One speculative verify dispatch over all slots: score the
+        [S, gamma] draft ``proposals`` (host array or device tensor) with
+        a single gamma+1 wide forward, accept/sample, and return the
+        [gamma+1, S] emitted rows (SKIP = nothing for that step and slot)
+        asynchronously. Both KV layouts."""
+        proposals = torch.as_tensor(proposals, dtype=torch.int32,
+                                    device=self.device)
+        if self.paged:
+            return AsyncTokens(self._verify_paged_fn(proposals))
+        return AsyncTokens(self._verify_fn(proposals))
 
     def set_bias(self, slot: int, bias_row: Optional[np.ndarray]) -> None:
         """Replace one slot's [V] additive logit-bias row (None clears)."""

@@ -10,13 +10,18 @@ A lean port of ``localai_tpu/engine/scheduler.py``. One engine thread:
   * interleaves those prefills with pipelined multi-step decode
     dispatches (up to ``pipeline_depth`` in flight, each result's
     device→host copy started at dispatch);
+  * with a speculative engine (``spec``, a
+    :class:`localai_tpu_torch.spec.SpecEngine`), dispatches verify
+    windows of gamma+1 tokens a slot instead of plain multi-step decode
+    whenever the drafter has a proposal, and falls back to plain decode
+    when it declines or its acceptance backoff suppresses windows;
   * bans the ids a padded model vocab has beyond the tokenizer's;
   * detokenizes incrementally, checks EOS / stop strings / max_tokens /
     context exhaustion, and releases the slot.
 
-Left out of this slice (see ROADMAP): speculative decoding, the prompt
-cache, grammar constraints, the background batch lane, SLO shedding,
-telemetry and the self-healing supervisor.
+Left out of this slice (see ROADMAP): the prompt cache, grammar
+constraints, the background batch lane, SLO shedding, telemetry and the
+self-healing supervisor.
 """
 
 from __future__ import annotations
@@ -148,7 +153,8 @@ class Scheduler:
 
     def __init__(self, runner: ModelRunner, tokenizer: Any,
                  *, default_max_tokens: int = 2048, pipeline_depth: int = 2,
-                 multi_step: int = 16, stream_latency_target: float = 0.1):
+                 multi_step: int = 16, stream_latency_target: float = 0.1,
+                 spec: Optional[Any] = None):
         self.runner = runner
         self.tokenizer = tokenizer
         self.default_max_tokens = default_max_tokens
@@ -164,9 +170,20 @@ class Scheduler:
         # paged runners admit chunk by chunk; contiguous ones in one shot
         self._chunked = runner.paged
         self._prefills: "deque[_PendingPrefill]" = deque()
-        # contiguous layout: each slot's prompt + generated tokens, the
-        # record prefix reuse is scored against (engine thread only)
+        # each slot's prompt + generated tokens (engine thread only): the
+        # record contiguous prefix reuse is scored against and drafters
+        # are seeded from
         self._resident: dict[int, list[int]] = {}
+        # speculative decoding: slot operations route through the spec
+        # engine so the drafter mirrors the target. After any plain
+        # dispatch the drafts are stale (_spec_dirty: resync every slot
+        # before the next window); a chunked admission bypasses
+        # spec.admit, so its slot alone is resynced (_spec_stale)
+        self.spec = spec
+        self._spec_dirty = False
+        self._spec_stale: set[int] = set()
+        self._engine = spec if spec is not None else runner
+        self.last_dispatch_steps = 0
         # a request the block pool couldn't cover yet (FIFO: it blocks the
         # queue until blocks free)
         self._held: Optional[GenHandle] = None
@@ -214,6 +231,12 @@ class Scheduler:
             dt = (now - self._last_drain_t
                   if pipelined and self._last_drain_t is not None
                   else now - t_issue)
+            if k == 0:  # a speculative window: rows carry SKIP sentinels
+                window = self.spec.observe_window(rows)
+                # its step count is its measured yield: mean emitted
+                # tokens per active slot-window
+                k = (max(1, round(window["emitted"] / window["windows"]))
+                     if window["windows"] else 0)
             if not fresh and k > 0:
                 self._observe_step_time(dt / k)
             self._last_drain_t = now
@@ -236,6 +259,41 @@ class Scheduler:
                     self._wake.clear()
                 continue
             try:
+                # the cheap speculation pre-gate comes BEFORE any drain or
+                # resync: a suppressed or no-candidate dispatch costs
+                # exactly a plain pipelined one
+                spec_ready = self._spec_ready()
+                if spec_ready and self._spec_dirty and inflight:
+                    # a resync must see the complete resident record
+                    drain_one()
+                    continue
+                spec_rows = None
+                if spec_ready and self._spec_usable():
+                    if not self.spec.pipeline_safe:
+                        # host drafters propose from drained history: the
+                        # previous window is observed before the next
+                        # proposal, so their windows serialize
+                        while inflight:
+                            drain_one()
+                        if not self._slots:
+                            continue
+                    t_issue = time.monotonic()
+                    # None: the drafter declined, decode plainly
+                    spec_rows = self.spec.step_spec_async()
+                if spec_rows is not None:
+                    self._dispatch_seq += 1
+                    fresh = "spec" not in self._seen_shapes
+                    self._seen_shapes.add("spec")
+                    self.last_dispatch_steps = self.spec.gamma + 1
+                    # k=0 marks a window: the drain reads its yield
+                    inflight.append((spec_rows, self._dispatch_seq, 0,
+                                     bool(inflight), t_issue, fresh))
+                    if len(inflight) >= self.pipeline_depth:
+                        drain_one()
+                    continue
+                if self.spec is not None:
+                    # plain steps leave the drafts behind the target
+                    self._spec_dirty = True
                 steps = self._effective_steps()
                 self._dispatch_seq += 1
                 fresh = steps not in self._seen_shapes
@@ -245,19 +303,83 @@ class Scheduler:
                     tokens = self.runner.step_n_async(steps)
                 else:
                     tokens = self.runner.step_async()
+                self.last_dispatch_steps = steps
                 inflight.append((tokens, self._dispatch_seq, steps,
                                  bool(inflight), t_issue, fresh))
                 if len(inflight) >= self.pipeline_depth:
                     drain_one()
             except Exception:  # noqa: BLE001 — engine must not die silently
+                # a verify window that raises fails the active requests
+                # as a decode step that raises does
                 log.exception("decode step failed; failing active requests")
                 inflight.clear()
                 with self._lock:
                     failed = list(self._slots.items())
                     self._slots.clear()
                 for slot, ctx in failed:
-                    self.runner.release(slot)
+                    self._engine.release(slot)
                     ctx.handle._finish("error")
+
+    def _spec_ready(self) -> bool:
+        """The cheap speculation pre-gate, before any pipeline drain or
+        drafter resync: not suppressed by the backoff, and the drafter
+        has a candidate for at least one active slot (checked against the
+        live resident records, the data a resync would seed)."""
+        if self.spec is None or self.spec.suppressed_tick():
+            return False
+        with self._lock:
+            residents = {s: self._resident.get(s) for s in self._slots}
+        return self.spec.has_candidate(residents)
+
+    def _spec_usable(self) -> bool:
+        """A window needs every active slot far enough from the context
+        edge (it writes gamma+1 rows) and fresh drafts (resynced here if
+        plain dispatches or chunked admissions intervened)."""
+        gamma = self.spec.gamma
+        with self._lock:
+            slots = {s: c.handle.prompt_tokens + c.generated
+                     for s, c in self._slots.items()}
+        if any(n + gamma + 2 >= self.runner.max_ctx
+               for n in slots.values()):
+            return False
+        if self._spec_dirty:
+            for s in slots:
+                self.spec.resync_draft(s, self._resident[s])
+            self._spec_dirty = False
+            self._spec_stale.clear()
+        elif self._spec_stale:
+            for s in list(self._spec_stale):
+                if s in slots:
+                    self.spec.resync_draft(s, self._resident[s])
+                self._spec_stale.discard(s)
+        return True
+
+    def metrics(self) -> dict:
+        """Engine counters under the JAX package's names: occupancy,
+        dispatches, and with a speculative engine the spec_* series."""
+        with self._lock:
+            active = len(self._slots)
+        out = {"active_slots": active,
+               "num_slots": self.runner.num_slots,
+               "queue_depth": self._pending.qsize(),
+               "dispatches": self._dispatch_seq,
+               "last_dispatch_steps": self.last_dispatch_steps,
+               "step_time_ema": self._step_ema}
+        if self._chunked:
+            out["kv_blocks_spec_reserved"] = (
+                self.runner.allocator.stats().spec_reserved)
+        if self.spec is not None:
+            out.update({
+                "spec_acceptance_rate": self.spec.acceptance_rate,
+                "spec_windows": self.spec.total_windows,
+                "spec_accept_rate": self.spec.accept_rate,
+                "spec_draft_tokens": self.spec.total_proposed,
+                "spec_accepted_tokens": self.spec.total_accepted,
+                "spec_tokens_per_dispatch": self.spec.tokens_per_dispatch,
+                "spec_suppressed": self.spec.total_suppressed,
+                "spec_drafter": self.spec.drafter.name,
+                "spec_gamma": self.spec.gamma})
+        return out
 
     def _observe_step_time(self, dt: float) -> None:
         if dt <= 0:
@@ -294,15 +416,20 @@ class Scheduler:
         if not self._chunked:
             return True
         alloc = self.runner.allocator
+        # a spec engine reserves a gamma+1 lookahead on top of the decode
+        # worst case (begin_admit spec_tokens): mirror it, or a full pool
+        # would loop begin_admit → None on every iteration
+        look = self.spec.gamma + 1 if self.spec is not None else 0
         reserve = min(self.runner.max_ctx,
                       len(req.prompt) + (req.max_new_tokens
-                                         or self.default_max_tokens) + 1)
+                                         or self.default_max_tokens)
+                      + 1 + look)
         need = alloc.blocks_for(reserve) - len(alloc.match_prefix(req.prompt))
         return alloc.stats().available >= need
 
     def _admit_pending(self) -> bool:
         admitted = False
-        while self.runner.free_slots():
+        while self._engine.free_slots():
             if self._held is not None:
                 if (not self._held.cancelled
                         and not self._reservation_fits(self._held.request)):
@@ -321,22 +448,22 @@ class Scheduler:
                 return admitted
             positions = None
             if self._chunked:
-                slot = self.runner.acquire_slot()
+                slot = self._engine.acquire_slot()
             else:
                 # one batched [S] positions read serves the ranking and the
                 # admit: free slots' frontiers stay frozen until prefilled
                 positions = self.runner.slot_positions()
-                slot = self.runner.acquire_slot(
+                slot = self._engine.acquire_slot(
                     self._best_slot(handle.request.prompt, positions))
             try:
                 if not self._start(slot, handle, positions):
-                    self.runner.release(slot)
+                    self._engine.release(slot)
                     self._held = handle
                     return admitted
                 admitted = True
             except Exception as e:  # noqa: BLE001 — bad request ≠ dead engine
                 log.warning("admit failed: %s", e)
-                self.runner.release(slot)
+                self._engine.release(slot)
                 handle._finish("error")
         return admitted
 
@@ -367,17 +494,17 @@ class Scheduler:
             frequency_penalty=req.frequency_penalty, seed=req.seed,
             bias_row=base)
         if not self._chunked:
-            first = self.runner.admit(slot, req.prompt,
-                                      resident=self._resident.get(slot),
-                                      valid_n=int(positions[slot]),
-                                      **sampling)
+            first = self._engine.admit(slot, req.prompt,
+                                       resident=self._resident.get(slot),
+                                       valid_n=int(positions[slot]),
+                                       **sampling)
             self._activate_slot(slot, handle, first)
             return True
         # reserve the worst case so decode can never run out of blocks
         reserve = len(req.prompt) + (req.max_new_tokens
                                      or self.default_max_tokens) + 1
-        adm = self.runner.begin_admit(slot, req.prompt,
-                                      reserve_tokens=reserve, **sampling)
+        adm = self._engine.begin_admit(slot, req.prompt,
+                                       reserve_tokens=reserve, **sampling)
         if adm is None:
             return False
         self._prefills.append(_PendingPrefill(slot=slot, handle=handle,
@@ -403,11 +530,10 @@ class Scheduler:
     def _activate_slot(self, slot: int, handle: GenHandle,
                        first: int) -> None:
         """Prefill finished (one-shot or final chunk): install the live
-        slot context, record the resident tokens (contiguous layout; the
-        runner's empty-prompt normalization [0] keeps the record aligned
-        with the cache rows) and consume the first token."""
-        if not self._chunked:
-            self._resident[slot] = list(handle.request.prompt) or [0]
+        slot context, record the resident tokens (the runner's
+        empty-prompt normalization [0] keeps the record aligned with the
+        cache rows) and consume the first token."""
+        self._resident[slot] = list(handle.request.prompt) or [0]
         ctx = _SlotCtx(
             handle=handle,
             detok=IncrementalDetokenizer(self.tokenizer.decode),
@@ -416,6 +542,10 @@ class Scheduler:
         )
         with self._lock:
             self._slots[slot] = ctx
+        if self.spec is not None and self._chunked:
+            # a chunked admission bypassed spec.admit: seed this slot's
+            # drafter from its resident record before the next window
+            self._spec_stale.add(slot)
         self._consume(slot, ctx, first)
 
     def _step_prefill_chunk(self) -> bool:
@@ -459,7 +589,8 @@ class Scheduler:
     def _process_rows(self, rows: np.ndarray, seq: int) -> None:
         """Consume [steps, S] sampled rows in temporal order. The seq guard
         drops tokens of dispatches issued before a slot's admission; a slot
-        released at row i ignores the rows after it."""
+        released at row i ignores the rows after it; SKIP entries (a
+        speculative window that ended earlier) carry no token."""
         for i in range(rows.shape[0]):
             for slot, ctx in list(self._slots.items()):
                 if seq <= ctx.admit_seq:
@@ -470,6 +601,8 @@ class Scheduler:
                     log.warning("slot %d: non-finite logits; failing its "
                                 "request", slot)
                     self._release(slot, ctx, "error")
+                    continue
+                if tok < 0:  # SKIP: this slot's window ended earlier
                     continue
                 self._consume(slot, ctx, tok)
 
@@ -504,5 +637,5 @@ class Scheduler:
     def _release(self, slot: int, ctx: _SlotCtx, reason: str) -> None:
         with self._lock:
             self._slots.pop(slot, None)
-        self.runner.release(slot)
+        self._engine.release(slot)
         ctx.handle._finish(reason)

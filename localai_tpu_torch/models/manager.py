@@ -7,14 +7,17 @@ use. The engine runs the paged layout unless ``engine.kv_paged`` is false
 (on one device nothing else forces the contiguous one, as in the JAX
 package's ``build_runner``); ``engine.quantization`` (int8/int4) quantizes
 the weights on the device after they are built or loaded, as the JAX
-package does. Speculative decoding, the prompt cache
-and the self-healing supervisor are not ported yet.
+package does. Speculative decoding is on by default for paged engines
+(the n-gram self-drafter) and for any engine with a ``draft_model``, as
+in the JAX package. The prompt cache and the self-healing supervisor
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import threading
 import time
 from typing import Any, Optional
@@ -82,12 +85,44 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
     t0 = time.monotonic()
     model, runner = build_runner(mcfg, app)
     eng = mcfg.engine
+    # speculative decoding (localai_tpu_torch.spec), as the JAX package
+    # chooses it: on by default for paged engines (the n-gram self-drafter
+    # needs no second model) and whenever a draft_model is set, unless
+    # LOCALAI_SPEC=0; engine.spec true/false forces it. LOCALAI_SPEC_DRAFTER
+    # overrides spec_drafter; a configured draft_model upgrades the
+    # drafter to a co-located draft runner.
+    spec = None
+    spec_want = eng.spec
+    if spec_want is None:
+        spec_want = ((runner.paged or bool(eng.draft_model))
+                     and os.environ.get("LOCALAI_SPEC", "") != "0")
+    if spec_want:
+        from localai_tpu_torch.spec import build_spec_engine
+
+        drafter = (os.environ.get("LOCALAI_SPEC_DRAFTER", "")
+                   or eng.spec_drafter or "auto")
+        if drafter == "model" and not eng.draft_model:
+            log.warning(
+                "%s: spec_drafter=model but no draft_model configured; "
+                "using the n-gram self-drafter", mcfg.name)
+            drafter = "ngram"
+        gamma = eng.spec_gamma
+        if gamma is None and eng.draft_model:
+            gamma = max(1, eng.n_draft)
+        spec = build_spec_engine(runner, drafter=drafter,
+                                 draft_ref=eng.draft_model,
+                                 model_path=app.model_path, gamma=gamma,
+                                 dtype=eng.dtype)
+        log.info("%s: speculative decoding on (%s drafter, gamma=%d, %s "
+                 "KV)", mcfg.name, spec.drafter.name, spec.gamma,
+                 "paged" if spec.paged else "contiguous")
     scheduler = Scheduler(
         runner, model.tokenizer,
         default_max_tokens=mcfg.parameters.max_tokens or 2048,
         multi_step=eng.decode_steps_per_dispatch,
         pipeline_depth=eng.pipeline_depth,
         stream_latency_target=eng.stream_latency_ms / 1000.0,
+        spec=spec,
     )
     log.info("loaded model %s (%s) in %.1fs on %s: slots=%d ctx=%d "
              "kv=%s %s; attention: decode=%s prefill=%s", mcfg.name,

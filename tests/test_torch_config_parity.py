@@ -7,7 +7,9 @@ completion text shaping (cutstrings, extract_regex, trimspace, trimsuffix,
 ``echo``) over both HTTP servers on a tiny checkpoint written here, and
 the port's refusals of what it cannot serve yet (constrained decoding,
 the prompt cache, the backends the JAX package serves with another engine
-than the llama runner), which stay until the port has them.
+than the llama runner), which stay until the port has them, and the
+choice of speculative decoding (on by default for a paged engine, off
+under ``spec: false`` or ``LOCALAI_SPEC=0``, its knobs honoured).
 """
 
 import json
@@ -65,6 +67,96 @@ def test_pipeline_depth_and_stream_latency_reach_the_scheduler():
     finally:
         sm.close()
         jsm.close()
+
+
+def _spec_of(sm):
+    """(drafter name, gamma, layout) of a serving model's spec lane, or
+    None when it serves without speculation."""
+    spec = sm.scheduler.spec
+    if spec is None:
+        return None
+    return spec.drafter.name, spec.gamma, spec.paged
+
+
+SPEC_ENGINE = {k: v for k, v in ENGINE.items() if k != "spec"}
+
+
+@pytest.mark.parametrize("extra,env,want", [
+    # no spec key: a paged engine speculates with the n-gram drafter
+    ({}, None, ("ngram", 4, True)),
+    ({"spec": False}, None, None),
+    ({}, "0", None),
+    # spec: true turns it on for a contiguous engine as well
+    ({"spec": True, "kv_paged": False}, None, ("ngram", 4, False)),
+    # contiguous engines stay plain by default
+    ({"kv_paged": False}, None, None),
+], ids=["default", "spec-false", "kill-switch", "spec-true-contiguous",
+        "contiguous-default"])
+def test_speculation_is_chosen_as_on_the_reference(monkeypatch, extra, env,
+                                                   want):
+    monkeypatch.delenv("LOCALAI_SPEC", raising=False)
+    if env is not None:
+        monkeypatch.setenv("LOCALAI_SPEC", env)
+    doc = {"name": "s", "model": "debug:tiny", "context_size": 64,
+           "engine": {**SPEC_ENGINE, **extra}}
+    sm, jsm = _both(doc)
+    try:
+        assert _spec_of(sm) == _spec_of(jsm) == want
+    finally:
+        sm.close()
+        jsm.close()
+
+
+@pytest.mark.parametrize("extra,want", [
+    ({"spec_gamma": 3, "spec_drafter": "ngram"}, ("ngram", 3, True)),
+    # a draft model takes n_draft as its window unless spec_gamma is set
+    ({"draft_model": "debug:tiny", "n_draft": 2}, ("model", 2, True)),
+    ({"draft_model": "debug:tiny", "n_draft": 2, "spec_gamma": 5,
+      "kv_paged": False}, ("model", 5, False)),
+    # spec_drafter model without a draft model falls back to n-gram
+    ({"spec_drafter": "model"}, ("ngram", 4, True)),
+], ids=["gamma-ngram", "draft-n_draft", "draft-contiguous",
+        "model-without-draft"])
+def test_spec_knobs_reach_the_engine(monkeypatch, extra, want):
+    monkeypatch.delenv("LOCALAI_SPEC", raising=False)
+    monkeypatch.delenv("LOCALAI_SPEC_GAMMA", raising=False)
+    doc = {"name": "k", "model": "debug:tiny", "context_size": 64,
+           "engine": {**SPEC_ENGINE, **extra}}
+    sm, jsm = _both(doc)
+    try:
+        assert _spec_of(sm) == _spec_of(jsm) == want
+        if want[0] == "model":
+            draft = sm.scheduler.spec.drafter.runner
+            assert not draft.paged and draft.device == sm.runner.device
+            assert draft.num_slots == sm.runner.num_slots
+    finally:
+        sm.close()
+        jsm.close()
+
+
+def test_speculating_engine_serves_the_plain_engines_tokens(monkeypatch):
+    """The default (speculating) paged engine and a ``spec: false`` one
+    built from the same YAML return the same greedy tokens, and the
+    speculating one ran verify windows."""
+    monkeypatch.delenv("LOCALAI_SPEC", raising=False)
+    doc = {"name": "t", "model": "debug:tiny", "context_size": 128,
+           "engine": SPEC_ENGINE}
+    spec = build_serving_model(ModelConfig.from_dict(dict(doc)),
+                               AppConfig(device="cpu"))
+    plain = build_serving_model(
+        ModelConfig.from_dict({**doc, "engine": ENGINE}),
+        AppConfig(device="cpu"))
+    try:
+        req = dict(prompt=list(b"abcabcabcabcabcabc"), max_new_tokens=24,
+                   temperature=0.0, logit_bias={97: 1e4})
+        a = spec.scheduler.generate(GenRequest(**req), timeout=120)
+        b = plain.scheduler.generate(GenRequest(**req), timeout=120)
+        assert a.token_ids == b.token_ids
+        assert spec.scheduler.metrics()["spec_windows"] > 0
+        assert plain.scheduler.spec is None
+    finally:
+        spec.close()
+        plain.close()
 
 
 def _held_while_first_runs(sched, first, second) -> bool:

@@ -586,3 +586,93 @@ def test_cuda_qmm_refuses_a_bad_split():
     q8 = tq.quantize_tensor(w, 0)
     with pytest.raises(ValueError, match="splits"):
         tqm.w8_matmul(x.to(torch.bfloat16), q8.q, q8.scale, k_splits=9)
+
+
+# ---------------------------------------------------------------------------
+# speculative verify windows: K4/K5 at M = slots x (gamma + 1), and the
+# window on the card against the CPU
+# ---------------------------------------------------------------------------
+
+SHAPES_8B = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+             (4096, 128256))
+VERIFY_M = sorted({S * (g + 1) for S in (1, 2, 3, 8) for g in (1, 4, 8)})
+
+
+@functools.lru_cache(maxsize=None)
+def _quantized_8b(kind, K, N):
+    """A seeded [K, N] weight quantized on the card, kept across tests."""
+    _, w = _mm_inputs(1, K, N, 40 + K % 97 + N % 89)
+    return (tq.quantize_tensor(w, 0) if kind == "w8"
+            else tq.quantize_tensor4(w, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["w8", "w4"])
+@pytest.mark.parametrize("M", VERIFY_M)
+def test_cuda_qmm_at_verify_rows_matches_plain(kind, M):
+    """Every verify window's M (2..72, most no multiple of 8) on the 8B
+    projections and lm_head, at the card's own split plan."""
+    _card()
+    fn = tqm.w8_matmul if kind == "w8" else tqm.w4_matmul
+    ref = tqm.w8_matmul_ref if kind == "w8" else tqm.w4_matmul_ref
+    for K, N in SHAPES_8B:
+        qt = _quantized_8b(kind, K, N)
+        x, _ = _mm_inputs(M, K, 128, M + K % 13)
+        xb = x.to(torch.bfloat16)
+        before = fn.launches
+        got = fn(xb, qt.q, qt.scale)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        _row_check(got, ref(xb.float(), qt.q, qt.scale), torch.bfloat16)
+
+
+def _spec_runner(weights, dev):
+    """A debug:small runner (f32 compute) made on the CPU from a seed and
+    moved to ``dev``, its weights and pool int8/int4 or float32."""
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models.registry import resolve_model
+
+    model = resolve_model("debug:small", dtype="float32", device="cpu")
+    params = (tq.quantize_params(model.params, weights, device="cpu")
+              if weights else model.params)
+
+    def to(p):
+        return ({k: to(v) for k, v in p.items()} if isinstance(p, dict)
+                else p.to(dev))
+
+    return ModelRunner(model.cfg, to(params), num_slots=4, max_ctx=256,
+                       kv_dtype=weights or "float32", kv_block_tokens=16,
+                       prefill_chunk=32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["", "int8", "int4"])
+def test_cuda_verify_windows_match_the_cpu(weights):
+    """Three verify windows with scripted proposals (the greedy tokens
+    for slot 0, so some are accepted; a constant for slot 1) over two
+    admitted slots: the card emits the CPU's rows and ends at its
+    frontiers, and the w8/w4 kernel runs 7L+1 times a window."""
+    _card()
+    prompts = [list(b"abcabcabcabcabcabc"), list(b"speculation target")]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = _spec_runner(weights, dev)
+        firsts = [r.admit(r.acquire_slot(), p, temperature=0.0,
+                          spec_tokens=5) for p in prompts]
+        props = np.zeros((4, 4), np.int32)
+        props[:, :] = 7
+        props[0, :2] = firsts[0]
+        rows = []
+        fn = tqm.w8_matmul if weights == "int8" else tqm.w4_matmul
+        before = fn.launches
+        for _ in range(3):
+            rows.append(np.asarray(r.verify_async(props)))
+        if dev == "cuda" and weights:
+            L = r.cfg.num_layers
+            assert fn.launches - before == 3 * (7 * L + 1)
+        out[dev] = (np.stack(rows), r.slot_positions(),
+                    r.state.tokens.cpu().numpy())
+        assert r.verify_windows == 3
+        assert not r.allocator.check_invariants()
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert (a == b).all(), (a, b)
