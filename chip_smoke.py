@@ -5,8 +5,9 @@
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the port's CUDA kernels from ``localai_tpu_torch/csrc`` (one
-     nvcc per source, sm_90a, all five started together) and print the
-     build time and a ptxas summary per source;
+     nvcc per source, sm_90a, all five started together) and the C trie
+     walk of ``localai_tpu_torch/native`` (cc), and print the build time
+     and a ptxas summary per source;
   3. kernels, each against its plain PyTorch version on the same inputs:
      - K1 paged decode attention at the serving shapes (S=8, Hq=32, Hkv=8,
        hd=128, bt=64, ragged positions up to 4096, shuffled block tables)
@@ -55,6 +56,11 @@ Phases (any failure raises and the script exits non-zero):
      n-gram drafter, the w8/w4 kernel 7L+1 times a verify window; a
      contiguous cache with a draft model whose steps and resyncs launch
      K2 and K3), with windows and accepted draft tokens in each mode;
+     then ``step_frozen_n``, the dispatch of constrained decoding: on a
+     paged pool and a contiguous cache in f32 and int8, slots behind
+     band bias rows frozen one, two and three at a time give the CPU's
+     rows token for token, K1/K2 launch exactly L x decode_steps, and a
+     frozen slot's rewritten K/V row is unchanged by the next step;
   5. serving: the port's HTTP server serves debug:llama3-8b (Llama-3-8B
      widths and depth, random weights from a seed) four times — bf16
      paged, bf16 contiguous (``kv_paged: false``), int8 weights and pool,
@@ -72,7 +78,20 @@ Phases (any failure raises and the script exits non-zero):
      and accept draft tokens, K1 launches once per layer per plain decode
      step between windows, and the count of its five texts equal to the
      spec-off bf16 server's is printed (bf16 near-ties may break apart;
-     equality is asserted in f32 by the parity phase).
+     equality is asserted in f32 by the parity phase). A sixth server,
+     ``llama3-8b-bf16-tools`` (bf16 paged, speculation on by default),
+     answers eight concurrent greedy chats with tools (auto, required, a
+     named function), bounded json_schema, json_object and one plain
+     chat, then a streamed tools chat: answers that end with stop are
+     accepted by their DFAs, tool calls name offered functions with
+     arguments their schemas accept, frozen dispatches run, no verify
+     window runs beside a constrained slot, K1 launches L per decode
+     step, and the C trie walk (``native/fsm_walk.c``) served every mask
+     row, equal to the numpy walk's. It prints tokens/s, the step wall of
+     a frozen dispatch against a pipelined one, the host ms per
+     constrained token, the ms to build a new state's mask row over a
+     128256-piece synthetic vocabulary (C and numpy) and the row cache's
+     bytes.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -962,6 +981,115 @@ def phase_spec_parity() -> dict:
     return launches
 
 
+# the frozen parity phase: bias rows ban all but a band of ids, as a
+# constraint's mask does (-1e30 over most of the vocab)
+FROZEN_PROMPTS = [list(b"constrained slot"), list(b"free slot one"),
+                  list(b"a"), list(b"the fourth prompt, longest of all")]
+
+
+def _band_row(vocab: int, lo: int, width: int) -> np.ndarray:
+    row = np.full(vocab, -1e30, np.float32)
+    row[lo:lo + width] = 0.0
+    return row
+
+
+def _slot_kv_rows(r, slot: int, upto: int) -> list:
+    """K/V rows [0, upto) of ``slot`` in every cache tensor (through the
+    block table on a paged runner), on the CPU."""
+    out = []
+    for t in r.kv.stacked():
+        if r.paged:
+            rows = t[:, r.block_tables[slot].long()].transpose(2, 3)
+            rows = rows.reshape(t.shape[0], -1, *rows.shape[3:])
+        else:
+            rows = t[:, slot].transpose(1, 2)
+        out.append(rows[:, :upto].cpu())
+    return out
+
+
+def phase_frozen_parity() -> dict:
+    """``step_frozen_n``, the dispatch of constrained decoding, on the card
+    against the same runner on the CPU (debug:small, float32 compute): on
+    a paged pool and a contiguous cache, each in f32 and int8, four slots
+    behind band bias rows run frozen dispatches with one, two and three
+    slots frozen and a plain step between; the rows equal the CPU's token
+    for token, K1 (paged) or K2 (contiguous) launches exactly L x
+    decode_steps, and a frozen slot's K/V rows (its pending token written
+    at its unadvanced row on steps 1+) equal those after the next plain
+    step, which writes that row again. Returns the card's launches by
+    mode."""
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models.quant import quantize_params
+    from localai_tpu_torch.models.registry import resolve_model
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+    )
+
+    model = resolve_model("debug:small", dtype="float32", device="cpu")
+    cfg = model.cfg
+    V, L, S = cfg.vocab_size, cfg.num_layers, 4
+    plan = [(0,), (0, 2), (), (1, 2, 3), (0, 3)]   # () = a plain step
+    launches = {}
+    for paged in (True, False):
+        for kv in ("float32", "int8"):
+            mode = f"{'paged' if paged else 'contiguous'}-{kv}"
+            kernel = paged_decode_attention if paged else decode_attention
+            params = (quantize_params(model.params, kv, device="cpu")
+                      if kv == "int8" else model.params)
+            rows = {}
+            for dev in ("cuda", "cpu"):
+                r = ModelRunner(cfg, _to(params, dev), num_slots=S,
+                                max_ctx=256, kv_dtype=kv,
+                                kv_block_tokens=16, prefill_chunk=32,
+                                paged=paged, device=dev)
+                got = [[r.admit(r.acquire_slot(), p, temperature=0.0,
+                                bias_row=_band_row(V, 97 + 4 * s, 6)
+                                if s % 2 == 0 else None)
+                        for s, p in enumerate(FROZEN_PROMPTS)]]
+                kernel.launches = 0
+                steps0 = r.decode_steps
+                for frozen in plan:
+                    if not frozen:
+                        got.append(r.step().tolist())
+                        continue
+                    freeze = np.zeros(S, bool)
+                    freeze[list(frozen)] = True
+                    got.extend(r.step_frozen_n(freeze, 5).tolist())
+                # the written-twice row of slot 0, frozen in the last
+                # dispatch: its row P+1 before and after a plain step
+                P = int(r.state.positions[0])
+                before = _slot_kv_rows(r, 0, P + 1)
+                got.append(r.step().tolist())
+                after = _slot_kv_rows(r, 0, P + 1)
+                steps = r.decode_steps - steps0
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    count = kernel.launches
+                    if count != L * steps:
+                        raise AssertionError(
+                            f"frozen parity {mode}: {kernel.__name__} "
+                            f"launched {count} times, expected {L} x "
+                            f"{steps} decode steps")
+                    launches[mode] = count
+                same = all(torch.equal(a, b) for a, b in zip(before, after))
+                if not same:
+                    raise AssertionError(f"frozen parity {mode} {dev}: the "
+                                         "frozen slot's rewritten K/V row "
+                                         "changed")
+                rows[dev] = got
+                print("frozen parity " + json.dumps({
+                    "mode": mode, "device": dev, "decode_steps": steps,
+                    "frozen_dispatches": r.frozen_dispatches,
+                    "kernel_launches": kernel.launches if dev == "cuda"
+                    else 0, "rows": got}), flush=True)
+                del r
+            if rows["cuda"] != rows["cpu"]:
+                raise AssertionError(f"frozen parity {mode}: cuda and cpu "
+                                     "rows differ")
+    return launches
+
+
 def _post(url: str, body: dict, timeout: float = 600):
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -1193,6 +1321,409 @@ def phase_serve(card: str, quant: str = "", paged: bool = True,
         torch.cuda.empty_cache()
 
 
+# the tools serve: two tools whose arguments are enums and booleans only
+TOOL_WEATHER = {"name": "get_weather", "description": "current weather",
+                "parameters": {"type": "object", "properties": {
+                    "unit": {"enum": ["celsius", "fahrenheit"]},
+                    "precise": {"type": "boolean"}},
+                    "required": ["unit", "precise"]}}
+TOOL_MODE = {"name": "set_mode", "description": "switch the lights",
+             "parameters": {"type": "object", "properties": {
+                 "mode": {"enum": ["on", "off", "dim"]}}}}
+TOOLS = [{"type": "function", "function": f}
+         for f in (TOOL_WEATHER, TOOL_MODE)]
+BOUNDED_SCHEMA = {"type": "object", "properties": {
+    "answer": {"enum": ["yes", "no", "maybe"]}, "sure": {"type": "boolean"},
+    "level": {"enum": [1, 2, 3]}}}
+
+
+def _tools_bodies(name: str) -> list[dict]:
+    """The eight concurrent chats of the tools serve, all greedy."""
+    def chat(content, **kw):
+        return {"model": name, "max_tokens": 128, "temperature": 0,
+                "messages": [{"role": "user", "content": content}], **kw}
+
+    schema = {"type": "json_schema", "json_schema": {
+        "name": "verdict", "schema": BOUNDED_SCHEMA}}
+    return [
+        chat("What is the weather in Paris?", tools=TOOLS,
+             tool_choice="auto"),
+        chat("Turn the lights off, please.", tools=TOOLS,
+             tool_choice="auto"),
+        chat("Weather in Kyiv, precisely.", tools=TOOLS,
+             tool_choice="required"),
+        chat("Dim the lights.", tools=TOOLS, tool_choice={
+            "type": "function", "function": {"name": "set_mode"}}),
+        chat("Is the sky blue?", response_format=schema),
+        chat("Will it rain tomorrow?", response_format=schema),
+        chat("Describe a cat as JSON.",
+             response_format={"type": "json_object"}),
+        chat("Tell me a short story about a lighthouse.", max_tokens=96),
+    ]
+
+
+def _check_tool_calls(tool_calls: list, offered: list[dict]) -> None:
+    """Each call names an offered function and its arguments are accepted
+    by the DFA of that function's argument schema."""
+    from localai_tpu_torch.functions import compile_dfa, schema_to_regex
+
+    by_name = {f["name"]: f for f in offered}
+    for tc in tool_calls:
+        fn = by_name.get(tc["function"]["name"])
+        if fn is None:
+            raise AssertionError(f"tool call names {tc['function']['name']!r}"
+                                 f", not one of {sorted(by_name)}")
+        args = json.loads(tc["function"]["arguments"])
+        params = fn["parameters"]
+        args_schema = {"type": "object", "properties": params["properties"],
+                       **({"required": params["required"]}
+                          if "required" in params else {})}
+        if not (isinstance(args, dict) and compile_dfa(
+                schema_to_regex(args_schema)).matches(
+                    tc["function"]["arguments"])):
+            raise AssertionError(f"arguments {args!r} do not match "
+                                 f"{fn['name']}'s schema")
+
+
+def _synthetic_vocab(V: int = 128256, seed: int = 0) -> list[bytes]:
+    """Ids 0-255 as their bytes, the rest 2-8 printable ASCII bytes from a
+    seed: a stand-in for a Llama-3-sized vocabulary's pieces."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(2, 9, size=V - 256)
+    flat = rng.integers(32, 127, size=int(lens.sum()), dtype=np.uint8)
+    cuts = np.concatenate([[0], np.cumsum(lens)])
+    return [bytes([i]) for i in range(256)] + [
+        flat[a:b].tobytes() for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def phase_mask_rows(pattern: str) -> dict:
+    """Host cost of a new DFA state's [V] mask row at a Llama-3 vocabulary
+    size (128256 synthetic pieces): the C walk and fused select against
+    the numpy walk, over the first states a walk of ``pattern``'s DFA
+    meets, and the host memory each cached state holds (the row and the
+    per-node final states)."""
+    from localai_tpu_torch.functions import constraint as cst
+
+    class SyntheticTokenizer:
+        eos_ids = {0}
+
+        def __init__(self, table):
+            self.vocab_size = len(table)
+            self._token_bytes_table = table
+
+    t0 = time.perf_counter()
+    tok = SyntheticTokenizer(_synthetic_vocab())
+    c = cst.FSMConstraint(cst.compile_dfa(pattern), tok)
+    trie_s = time.perf_counter() - t0
+    states, st = [], c.dfa.start
+    for b in b'{"name":"get_weather","arguments":{"unit":"celsius"':
+        if st == c.dfa.DEAD:
+            break
+        states.append(st)
+        st = c.dfa.step_byte(st, b)
+    states = list(dict.fromkeys(states))[:12]
+    c_ms, np_ms = [], []
+    for state in states:
+        t0 = time.perf_counter()
+        row = c._row(state)
+        c_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        plain = c.row_numpy(state)
+        np_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(row, plain):
+            raise AssertionError(f"mask row of state {state} differs from "
+                                 "the numpy walk's")
+    per_state = row.nbytes + c._finals[states[0]].nbytes
+    out = {"vocab": tok.vocab_size, "trie_nodes": c.trie.n_nodes,
+           "trie_build_s": trie_s, "states": len(states),
+           "row_build_ms_c_median": float(np.median(c_ms)),
+           "row_build_ms_numpy_median": float(np.median(np_ms)),
+           "row_cache_bytes_per_state": per_state}
+    print("mask rows: " + json.dumps(out), flush=True)
+    return out
+
+
+def _check_native_rows(tokenizer) -> dict:
+    """The C trie walk is loaded, and every mask row cached so far for
+    ``tokenizer`` (each DFA state the serve visited) equals the numpy
+    walk's row. Returns the states checked and the cache's bytes."""
+    from localai_tpu_torch.functions import constraint as cst
+
+    if cst._native_fsm() is None:
+        raise AssertionError("the C trie walk (native/fsm_walk.c) did not "
+                             "load: constrained rows came from numpy")
+    trie = cst.TokenTrie.for_tokenizer(tokenizer)
+    n, nbytes = 0, 0
+    for dfa in list(cst._DFA_CACHE.values()):
+        masks, finals = dfa.__dict__.get("_vocab_caches", {}).get(
+            trie, ({}, {}))
+        if not masks:
+            continue
+        c = cst.FSMConstraint(dfa, tokenizer)
+        for state, row in list(masks.items()):
+            if not np.array_equal(row, c.row_numpy(state)):
+                raise AssertionError(f"C mask row of state {state} differs "
+                                     "from the numpy walk's")
+            n += 1
+        nbytes += sum(a.nbytes for a in masks.values())
+        nbytes += sum(a.nbytes for a in finals.values())
+    if n == 0:
+        raise AssertionError("no constrained mask row was cached")
+    return {"native_rows_checked": n, "row_cache_bytes": nbytes}
+
+
+def phase_frozen_timing(sm, ctx_tokens: int = 512, steps: int = 16,
+                        dispatches: int = 6) -> dict:
+    """Step wall of a frozen dispatch against a plain pipelined one at the
+    serving shape: every slot holds a ``ctx_tokens`` prompt; half the
+    slots are frozen in ``step_frozen_n(freeze, steps)`` (synchronous),
+    against ``step_n_async(steps)`` with two dispatches in flight, as the
+    scheduler dispatches them. ms per decode step, host clock, after a warm-up
+    dispatch of each."""
+    r = sm.runner
+    g = torch.Generator().manual_seed(1)
+    slots = []
+    for _ in range(r.num_slots):
+        prompt = torch.randint(0, 256, (ctx_tokens,), generator=g).tolist()
+        slots.append(r.acquire_slot())
+        r.admit(slots[-1], prompt, temperature=0.0,
+                reserve_tokens=ctx_tokens + 4 * dispatches * steps)
+    freeze = np.zeros(r.num_slots, bool)
+    freeze[: r.num_slots // 2] = True
+    r.step_frozen_n(freeze, steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(dispatches):
+        r.step_frozen_n(freeze, steps)
+    frozen_ms = (time.perf_counter() - t0) * 1e3 / (dispatches * steps)
+    np.asarray(r.step_n_async(steps))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inflight = []
+    for _ in range(dispatches):
+        inflight.append(r.step_n_async(steps))
+        if len(inflight) >= 2:
+            np.asarray(inflight.pop(0))
+    for t in inflight:
+        np.asarray(t)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / (dispatches * steps)
+    for s in slots:
+        r.release(s)
+    out = {"ctx_tokens": ctx_tokens, "steps_per_dispatch": steps,
+           "frozen_slots": int(freeze.sum()), "slots": r.num_slots,
+           "frozen_dispatch_ms_per_step": frozen_ms,
+           "pipelined_dispatch_ms_per_step": plain_ms}
+    print("frozen timing: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_serve_tools(card: str) -> dict:
+    """The sixth serve, ``llama3-8b-bf16-tools``: debug:llama3-8b in bf16
+    on the paged pool, 8 slots, context 4096, the default config (so
+    speculation is on), answering eight concurrent greedy chats: tools
+    under ``auto`` (two), ``required`` and a named function, two bounded
+    ``json_schema`` answers, one ``json_object`` and one plain chat that
+    rides the frozen dispatches; then a streamed ``required`` tools chat
+    alone, and a chat whose stream cycles. Every constrained answer that
+    ends with ``stop`` is accepted by its DFA; every tool call names an
+    offered function with arguments its schema accepts; frozen dispatches
+    ran; no verify window ran while a constrained slot was live, and
+    windows ran again for the cycling chat; K1 launched once per layer per
+    decode step of the eight chats;
+    the C trie walk served every mask row, equal to the numpy walk's.
+    Returns the launches and the figures."""
+    from localai_tpu_torch.api.server import APIServer
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.config.model_config import ModelConfig
+    from localai_tpu_torch.functions import (
+        build_tool_regex,
+        inject_no_action,
+    )
+    from localai_tpu_torch.functions import constraint as cst
+    from localai_tpu_torch.models.manager import ModelManager
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
+
+    name = "llama3-8b-bf16-tools"
+    mcfg = ModelConfig.from_dict({
+        "name": name, "model": "debug:llama3-8b", "context_size": 4096,
+        "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
+                   "max_slots": 8, "kv_block_tokens": 64}})
+    mcfg.set_defaults()
+    loader = ConfigLoader()
+    loader.register(mcfg)
+    manager = ModelManager(AppConfig(device="cuda"), loader)
+    server = APIServer(manager, "127.0.0.1", 0).start()
+    try:
+        t0 = time.monotonic()
+        sm = manager.get(name)
+        torch.cuda.synchronize()
+        print(f"serve {name}: loaded in {time.monotonic() - t0:.1f}s",
+              flush=True)
+        sched, lane = sm.scheduler, sm.scheduler.spec
+        if lane is None:
+            raise AssertionError(f"{name}: speculation is off by default")
+        # every verify window records whether a constrained slot was live
+        beside: list = []
+        orig = lane.step_spec_async
+
+        def watched():
+            beside.append(any(c.handle.request.constraint is not None
+                              for c in list(sched._slots.values())))
+            return orig()
+
+        lane.step_spec_async = watched
+        # every submitted request's handle, for its token ids and DFA
+        handles: list = []
+        submit = sched.submit
+
+        def recorded(req):
+            h = submit(req)
+            handles.append(h)
+            return h
+
+        sched.submit = recorded
+        chat = server.url + "/v1/chat/completions"
+        bodies = _tools_bodies(name)
+        # warm-up (first-call allocations and the DFA compiles), not counted
+        for b in (bodies[2], bodies[4], bodies[6]):
+            json.loads(_post(chat, dict(b, max_tokens=4)).read())
+        handles.clear()
+        beside.clear()
+        wrappers = {"paged_decode_attention": paged_decode_attention,
+                    "decode_attention": decode_attention,
+                    "prefill_attention": prefill_attention}
+        for w in wrappers.values():
+            w.launches = 0
+        r = sm.runner
+        steps0, frozen0 = r.decode_steps, r.frozen_dispatches
+        m0 = sched.metrics()
+        results: dict = {}
+        errors: list = []
+
+        def run(i):
+            try:
+                results[i] = json.loads(_post(chat, bodies[i]).read())
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t0
+        if errors:
+            raise errors[0]
+        launches = {n: w.launches for n, w in wrappers.items()}
+        steps = r.decode_steps - steps0
+        frozen = r.frozen_dispatches - frozen0
+        m1 = sched.metrics()
+        ntok = sum(results[i]["usage"]["completion_tokens"]
+                   for i in range(len(bodies)))
+        # a streamed tools chat alone: one tool_calls delta per call
+        with _post(chat, dict(bodies[2], stream=True)) as resp:
+            frames = [json.loads(line.strip()[6:]) for line in resp
+                      if line.strip().startswith(b"data: {")]
+        streamed = [tc for f in frames
+                    for tc in f["choices"][0]["delta"].get("tool_calls", [])]
+        if frames[-1]["choices"][0]["finish_reason"] != "tool_calls" or \
+                not streamed:
+            raise AssertionError(f"{name}: the streamed required chat sent "
+                                 "no tool_calls delta")
+        _check_tool_calls(streamed, [TOOL_WEATHER, TOOL_MODE])
+        # no constrained slot is live now: a chat whose logit bias makes
+        # its stream cycle gets verify windows again
+        windows0 = lane.total_windows
+        json.loads(_post(chat, {
+            "model": name, "max_tokens": 96, "temperature": 0,
+            "logit_bias": {"97": 10000},
+            "messages": [{"role": "user", "content": "Say a a a a a."}]}
+        ).read())
+        resumed = lane.total_windows - windows0
+        if resumed <= 0:
+            raise AssertionError(f"{name}: no verify window ran after the "
+                                 "constrained chats ended")
+        # the answers
+        finishes = [results[i]["choices"][0]["finish_reason"]
+                    for i in range(len(bodies))]
+        for i in range(4):
+            msg = results[i]["choices"][0]["message"]
+            _check_tool_calls(msg.get("tool_calls") or [],
+                              [TOOL_WEATHER, TOOL_MODE])
+        for i in (2, 3):
+            if finishes[i] != "tool_calls":
+                raise AssertionError(f"{name}: request {i} forced a call "
+                                     f"but finished {finishes[i]!r}")
+        for i in (4, 5):
+            json.loads(results[i]["choices"][0]["message"]["content"])
+        accepted = 0
+        for h in handles:
+            c = h.request.constraint
+            if c is None or h.finish_reason != "stop":
+                continue
+            data = bytes(t for t in h.token_ids if t < 256)
+            if not c.dfa.matches(data):
+                raise AssertionError(f"{name}: a constrained answer that "
+                                     f"ended with stop is outside its "
+                                     f"grammar: {data!r}")
+            accepted += 1
+        if frozen <= 0:
+            raise AssertionError(f"{name}: no frozen dispatch ran")
+        if any(beside):
+            raise AssertionError(f"{name}: a verify window ran beside a "
+                                 "constrained slot")
+        L = r.cfg.num_layers
+        want = {"paged_decode_attention": L * steps, "decode_attention": 0,
+                "prefill_attention": 0}
+        if steps <= 0 or launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want} ({L} layers, {steps} steps)")
+        native = _check_native_rows(sm.tokenizer)
+        host_tokens = m1["constrained_tokens"] - m0["constrained_tokens"]
+        host_s = m1["constraint_host_s"] - m0["constraint_host_s"]
+        timing = phase_frozen_timing(sm)
+        # the tool_choice=auto grammar of this serve, over a Llama-3-sized
+        # vocabulary
+        rows = phase_mask_rows(build_tool_regex(
+            inject_no_action([TOOL_WEATHER, TOOL_MODE], sm.config.function),
+            sm.config.function).pattern)
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "localai_tpu")]
+        if bad:
+            raise AssertionError(f"JAX-side modules imported: {bad[:5]}")
+        out = {"card": card, "model": name, "requests": len(bodies),
+               "finish_reasons": finishes,
+               "tool_calls": [len(results[i]["choices"][0]["message"].get(
+                   "tool_calls") or []) for i in range(4)],
+               "constrained_answers_accepted_by_dfa": accepted,
+               "completion_tokens": ntok, "wall_s": wall,
+               "tokens_per_s": ntok / wall, "decode_steps": steps,
+               "frozen_dispatches": frozen,
+               "window_attempts_beside_constrained": sum(beside),
+               "verify_windows_after": resumed,
+               "kernel_launches": launches,
+               "constrained_tokens": host_tokens,
+               "host_ms_per_constrained_token":
+                   host_s * 1e3 / max(1, host_tokens),
+               **native, **timing, **{f"mask_{k}": v for k, v in rows.items()}}
+        print("serve tools: " + json.dumps(out), flush=True)
+        cst._DFA_CACHE.clear()
+        return {"launches": launches, "figures": out}
+    finally:
+        server.shutdown()
+        manager.shutdown()
+        manager = server = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_embed(url: str, name: str, hidden: int, chat: str, chat_body: dict,
                 chat_text: str, L: int) -> int:
     """Embeddings and rerank requests sent while a repeat of a chat request
@@ -1373,8 +1904,13 @@ def main() -> int:
           flush=True)
     t0 = time.monotonic()
     _build.build_all()
-    print(f"build: {time.monotonic() - t0:.1f}s ({', '.join(_build.SOURCES)})",
-          flush=True)
+    from localai_tpu_torch import native
+
+    if native.load("fsm_walk") is None:
+        raise AssertionError("the C trie walk (native/fsm_walk.c) did not "
+                             "build")
+    print(f"build: {time.monotonic() - t0:.1f}s ({', '.join(_build.SOURCES)}"
+          f", fsm_walk)", flush=True)
     for src in _build.SOURCES:
         log = _build.build_log(src)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
@@ -1388,6 +1924,7 @@ def main() -> int:
     qmm = phase_qmatmul()
     parity = phase_parity()
     spec = phase_spec_parity()
+    phase_frozen_parity()
     profile = "--profile" in sys.argv[1:]
     bf16 = phase_serve(card, profile=profile)
     served = {"": bf16["launches"],
@@ -1397,6 +1934,7 @@ def main() -> int:
         served[q] = phase_serve(card, q, profile=profile)["launches"]
     served["spec"] = phase_serve(card, spec=True, profile=profile,
                                  ref_texts=bf16["texts"])["launches"]
+    served["tools"] = phase_serve_tools(card)["launches"]
     src = "localai_tpu_torch/csrc/"
     k1_src = src + "paged_decode_attention.cu"
     k1_tpu = "localai_tpu/ops/attention.py:458"
@@ -1436,6 +1974,10 @@ def main() -> int:
         # windows
         _entry("paged_decode_attention_spec", k1_src, k1_tpu,
                served["spec"]["paged_decode_attention"], k1["bf16"]),
+        # the tools serve: constrained slots decode one token a dispatch
+        # (step() or step_frozen_n), K1 once per layer per step
+        _entry("paged_decode_attention_constrained", k1_src, k1_tpu,
+               served["tools"]["paged_decode_attention"], k1["bf16"]),
         # verify windows (M = slots x 5 rows): launches inside the windows
         # of the spec parity phase, times at M = 40 (8 slots)
         _entry("w8_matmul_verify", src + "w8_matmul.cu",

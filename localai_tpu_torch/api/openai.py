@@ -7,9 +7,14 @@ functions over parsed JSON: ``api.server`` maps HTTP onto them. Response
 JSON has the JAX package's shape — id, object, created, model, choices
 with ``delta`` (stream) or ``message``, finish_reason, usage; embeddings
 as a list of ``embedding`` objects. Non-streamed choices go through the
-model's text shaping (:func:`finetune_result`). Requests for constrained
-decoding (tools, a non-text ``response_format``, a grammar) get a 400
-until the port has a constraint path.
+model's text shaping (:func:`finetune_result`). Chat completions serve
+constrained decoding as the JAX package does (``api.inference``): tools
+and legacy functions under every ``tool_choice``, answered with
+``tool_calls``, and ``response_format`` ``json_object`` /
+``json_schema``. A raw ``grammar`` string is refused with a 400 (the JAX
+package reads it nowhere), and so are tools and a non-text
+``response_format`` on ``/v1/completions``, which the JAX package ignores
+there: a silent no-op would serve something else than was asked for.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import time
 import uuid
 from typing import Any, Iterator, Optional
 
+from localai_tpu_torch.api import inference as inf
 from localai_tpu_torch.engine.scheduler import GenHandle, GenRequest
 from localai_tpu_torch.templates.chat import build_chat_prompt
 
@@ -133,26 +139,36 @@ def finetune_result(cfg, prompt: str, text: str, *,
     return text
 
 
-def _refuse_constraints(body: dict) -> None:
-    """400 for what needs constrained decoding, which the port has not
-    ported yet (the JAX package's prepare_tools and
-    response_format_constraint): tools or functions, a tool_choice that
-    forces a call, a response_format other than text, a grammar."""
-    asked = [k for k in ("tools", "functions", "grammar") if body.get(k)]
+def _refuse_grammar(body: dict) -> None:
+    """400 for a raw ``grammar`` string: the JAX package declares the
+    request field and reads it nowhere, so no constraint could honour
+    it."""
+    if body.get("grammar"):
+        raise APIError(400, "grammar: a raw grammar string is not served "
+                            "(the JAX package declares the field and reads "
+                            "it nowhere); use tools or response_format for "
+                            "constrained decoding")
+
+
+def _refuse_completion_constraints(body: dict) -> None:
+    """400 for tools, functions, a tool_choice that forces a call or a
+    non-text response_format on /v1/completions, where the JAX package
+    ignores them (it constrains chat completions only)."""
+    asked = [k for k in ("tools", "functions") if body.get(k)]
     if body.get("tool_choice") not in (None, "none", "auto"):
         asked.append("tool_choice")
     rf = body.get("response_format")
     if rf and not (isinstance(rf, dict) and rf.get("type") == "text"):
         asked.append("response_format")
     if asked:
-        raise APIError(400, f"{', '.join(asked)}: constrained decoding "
-                            "(tools, JSON mode, grammars) is not supported "
-                            "by the PyTorch port yet")
+        raise APIError(400, f"{', '.join(asked)}: constrained decoding is "
+                            "served on /v1/chat/completions only")
 
 
-def _gen_request(sm, body: dict, prompt: str, stream: bool) -> GenRequest:
+def _gen_request(sm, body: dict, prompt: str, stream: bool,
+                 constraint=None) -> GenRequest:
     """Request body over the model's YAML defaults → GenRequest."""
-    _refuse_constraints(body)
+    _refuse_grammar(body)
     cfg = sm.config
     p = cfg.parameters.merged_with({
         k: body.get(k) for k in ("temperature", "top_p", "top_k", "min_p",
@@ -179,7 +195,8 @@ def _gen_request(sm, body: dict, prompt: str, stream: bool) -> GenRequest:
         presence_penalty=p.presence_penalty,
         frequency_penalty=p.frequency_penalty, seed=p.seed,
         logit_bias=logit_bias,
-        stop=tuple(cfg.stopwords) + tuple(stops), stream=stream)
+        stop=tuple(cfg.stopwords) + tuple(stops), constraint=constraint,
+        stream=stream)
 
 
 def _wait(handle: GenHandle) -> None:
@@ -198,30 +215,57 @@ def _wait(handle: GenHandle) -> None:
 
 def chat(manager, body: dict):
     """POST /v1/chat/completions → a response dict, or an iterator of SSE
-    frames when ``stream`` is set."""
+    frames when ``stream`` is set. Tools (``api.inference.prepare_tools``)
+    or a JSON ``response_format`` attach a grammar constraint to the
+    request; a tools answer is parsed into ``tool_calls``."""
     sm, model = _serving(manager, body)
     messages = body.get("messages")
     if not isinstance(messages, list):
         raise APIError(400, "messages must be a list")
     stream = bool(body.get("stream"))
-    gr = _gen_request(sm, body, build_chat_prompt(sm.config, messages),
-                      stream)
+    try:
+        tctx = inf.prepare_tools(sm, body)
+    except inf.ToolGrammarError as e:
+        raise APIError(400, str(e)) from e
+    constraint = (tctx.constraint if tctx is not None
+                  else inf.response_format_constraint(sm, body))
+    prompt = build_chat_prompt(
+        sm.config, messages,
+        functions=tctx.functions if tctx else None,
+        use_function_template=tctx is not None,
+        grammar_active=tctx is not None and tctx.constraint is not None)
+    gr = _gen_request(sm, body, prompt, stream, constraint)
     rid = new_id("chatcmpl")
     h = sm.scheduler.submit(gr)
     if stream:
-        return _chat_stream(h, rid, model)
+        return _chat_stream(h, rid, model, sm.config, tctx)
     _wait(h)
     text = finetune_result(sm.config, "", h.text)
+    message: dict[str, Any] = {"role": "assistant"}
+    finish = h.finish_reason or "stop"
+    if tctx is not None:
+        content, tool_calls = inf.parse_tool_calls(text, tctx)
+        message["content"] = content or None
+        if tool_calls:
+            message["tool_calls"] = tool_calls
+            finish = "tool_calls"
+    else:
+        message["content"] = text
     return {"id": rid, "object": "chat.completion",
             "created": int(time.time()), "model": model,
-            "choices": [{"index": 0,
-                         "message": {"role": "assistant", "content": text},
-                         "finish_reason": h.finish_reason or "stop"}],
+            "choices": [{"index": 0, "message": message,
+                         "finish_reason": finish}],
             "usage": usage(h.prompt_tokens, h.completion_tokens)}
 
 
-def _chat_stream(handle: GenHandle, rid: str, model: str) -> Iterator[bytes]:
+def _chat_stream(handle: GenHandle, rid: str, model: str, cfg,
+                 tctx: Optional[inf.ToolContext]) -> Iterator[bytes]:
+    """SSE frames. Plain chat streams deltas as they decode; with tools
+    the text must be parsed whole, so the deltas are buffered and the
+    final frames carry one ``tool_calls`` delta per call (or the
+    content)."""
     finish = "stop"
+    buffered: list[str] = []
     try:
         yield sse_event(chat_chunk(rid, model,
                                    {"role": "assistant", "content": ""}))
@@ -229,12 +273,25 @@ def _chat_stream(handle: GenHandle, rid: str, model: str) -> Iterator[bytes]:
             if item.finish_reason is not None:
                 finish = item.finish_reason
                 break
-            if item.delta:
+            if not item.delta:
+                continue
+            if tctx is not None:
+                buffered.append(item.delta)
+            else:
                 yield sse_event(chat_chunk(rid, model,
                                            {"content": item.delta}))
     except BaseException:
         handle.cancel()  # client went away: free the decode slot now
         raise
+    if tctx is not None:
+        text = finetune_result(cfg, "", "".join(buffered))
+        content, tool_calls = inf.parse_tool_calls(text, tctx)
+        if tool_calls:
+            finish = "tool_calls"
+            for tc in tool_calls:
+                yield sse_event(chat_chunk(rid, model, {"tool_calls": [tc]}))
+        elif content:
+            yield sse_event(chat_chunk(rid, model, {"content": content}))
     yield sse_event(chat_chunk(
         rid, model, {}, finish_reason=finish,
         usage_dict=usage(handle.prompt_tokens, handle.completion_tokens)))
@@ -249,6 +306,7 @@ def completions(manager, body: dict):
         raise APIError(400, "prompt must be a string (lists are not "
                             "supported yet)")
     stream = bool(body.get("stream"))
+    _refuse_completion_constraints(body)
     gr = _gen_request(sm, body, prompt, stream)
     rid = new_id("cmpl")
     h = sm.scheduler.submit(gr)

@@ -6,10 +6,11 @@ does not depend on). Unknown keys are ignored; keys that would ask for a
 feature the port does not have yet — Go/Jinja prompt templates,
 ``int8_w8a8`` quantization, self-extend
 (``engine.grp_attn_n > 1``), a vision tower (``mmproj``), the prompt
-cache (``prompt_cache_path``), grammars (``grammar``), function
-calling (a ``function`` section) and the backends whose engines are not
-ported (``UNPORTED_BACKENDS``) — raise a clear error at load instead of
-serving something else than was asked for. int8
+cache (``prompt_cache_path``), a raw ``grammar`` string (which the JAX
+package declares and reads nowhere) and the backends whose engines are
+not ported (``UNPORTED_BACKENDS``) — raise a clear error at load instead
+of serving something else than was asked for. Function calling (a
+``function`` section, :class:`FunctionsConfig`) is served. int8
 and int4 weights (``engine.quantization``), int8/int4 KV storage
 (``engine.kv_dtype``; int4 on the paged layout only), the contiguous KV
 layout (``engine.kv_paged: false``), embeddings (``embeddings: true``)
@@ -101,6 +102,28 @@ class TemplateConfig:
 
 
 @dataclasses.dataclass
+class FunctionsConfig:
+    """Function-calling / tool-use behaviour, with the JAX package's fields
+    and defaults (LocalAI's FunctionsConfig). ``grammar`` holds the tool
+    grammar's options (parallel_calls, mixed_mode, prefix, schema_type,
+    disable, ...), read by ``functions.tools.build_tool_regex``."""
+
+    disable_no_action: bool = False
+    no_action_function_name: str = "answer"
+    no_action_description_name: str = ""
+    function_name_key: str = "name"
+    function_arguments_key: str = "arguments"
+    response_regex: list[str] = dataclasses.field(default_factory=list)
+    json_regex_match: list[str] = dataclasses.field(default_factory=list)
+    replace_function_results: list[dict[str, str]] = dataclasses.field(
+        default_factory=list)
+    replace_llm_results: list[dict[str, str]] = dataclasses.field(
+        default_factory=list)
+    capture_llm_results: list[str] = dataclasses.field(default_factory=list)
+    grammar: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
 class EngineConfig:
     """Serving-engine knobs the port reads."""
 
@@ -154,8 +177,10 @@ class ModelConfig:
     trimsuffix: list[str] = dataclasses.field(default_factory=list)
     f16: Optional[bool] = None         # false -> engine.dtype float32
     prompt_cache_path: Optional[str] = None  # refused: not ported yet
-    grammar: str = ""                  # refused: not ported yet
-    function: Optional[dict] = None    # refused: not ported yet
+    grammar: str = ""                  # refused: read nowhere by the
+                                       # JAX package
+    function: FunctionsConfig = dataclasses.field(
+        default_factory=FunctionsConfig)
     rope_freq_base: Optional[float] = None
     rope_freq_scale: Optional[float] = None
     parameters: PredictionParams = dataclasses.field(
@@ -178,6 +203,8 @@ class ModelConfig:
                 **_pick(TemplateConfig, data.pop("template", None))),
             "engine": EngineConfig(
                 **_pick(EngineConfig, data.pop("engine", None))),
+            "function": FunctionsConfig(
+                **_pick(FunctionsConfig, data.pop("function", None))),
         }
         cfg = cls(**_pick(cls, data), **sub)
         cfg.check_supported()
@@ -210,13 +237,16 @@ class ModelConfig:
             raise ValueError(
                 f"model {self.name or self.model!r}: vision (mmproj) is not "
                 "ported yet")
-        for key, what in (("prompt_cache_path", "the prompt cache"),
-                          ("grammar", "grammar-constrained decoding"),
-                          ("function", "function calling")):
-            if getattr(self, key):
-                raise ValueError(
-                    f"model {self.name or self.model!r}: {what} ({key}) is "
-                    "not ported yet")
+        if self.prompt_cache_path:
+            raise ValueError(
+                f"model {self.name or self.model!r}: the prompt cache "
+                "(prompt_cache_path) is not ported yet")
+        if self.grammar:
+            raise ValueError(
+                f"model {self.name or self.model!r}: a raw grammar string "
+                "(grammar) is not served: the JAX package declares the key "
+                "and reads it nowhere, so no constraint could honour it; "
+                "use tools or response_format for constrained decoding")
         backend = (self.backend or "").lower()
         if backend in UNPORTED_BACKENDS:
             raise ValueError(

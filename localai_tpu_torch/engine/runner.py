@@ -8,7 +8,10 @@ the JAX package become plain methods:
 
   * ONE decode step serves all slots every iteration (continuous batching
     is slot masking over static [S] shapes); ``step_n`` runs n steps as a
-    Python loop where the JAX package scans them in one program.
+    Python loop where the JAX package scans them in one program, and
+    ``step_frozen_n`` does the same with some slots taking part in the
+    first step only (constrained slots, whose bias row the host refreshes
+    between tokens).
   * KV cache, decode state and block tables are updated in place where the
     JAX package donates buffers to get the same effect.
   * Decode attention goes through ``ops.paged_decode_attention`` (paged)
@@ -202,6 +205,8 @@ class ModelRunner:
         # speculative verify windows run (plain attention: no decode
         # kernel launch, so they are counted apart from decode_steps)
         self.verify_windows = 0
+        # step_frozen_n dispatches (their steps count in decode_steps)
+        self.frozen_dispatches = 0
         # fresh contiguous prefills (each launches the prefill kernel once
         # per layer; embeddings launch it too, outside this count)
         self.fresh_prefills = 0
@@ -239,10 +244,13 @@ class ModelRunner:
                 else None for s in range(self.num_slots)]
 
     @torch.no_grad()
-    def _decode_fn(self) -> torch.Tensor:
+    def _decode_fn(self, sampling: Optional[set[int]] = None
+                   ) -> torch.Tensor:
         """One batched single-token decode over the KV cache of either
         layout; advances the state in place and returns the sampled tokens
-        [S] int32."""
+        [S] int32. ``sampling`` is the host set of slots that are active
+        in this step (default: every live slot): only their generators
+        advance."""
         cfg, st = self.cfg, self.state
         pos, window = st.positions, cfg.sliding_window
         if self.paged:
@@ -272,7 +280,8 @@ class ModelRunner:
                                 pos[:, None], write, self.kv.stacked(), None,
                                 self.rope, attn=attn)
         self.decode_steps += 1
-        return self._decode_tail(hidden)
+        return self._decode_tail(
+            hidden, self._active_slots if sampling is None else sampling)
 
     def _decode_n_fn(self, n: int) -> torch.Tensor:
         """n decode steps (a Python loop where the JAX package scans them
@@ -285,14 +294,44 @@ class ModelRunner:
             out[i] = self._decode_fn()
         return out
 
-    def _decode_tail(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Sampling + per-slot state advance after a decode forward."""
+    def _decode_frozen_n_fn(self, freeze: torch.Tensor, frozen: set[int],
+                            n: int) -> torch.Tensor:
+        """n decode steps where the slots in ``freeze`` ([S] bool; the
+        host set ``frozen``) advance only on the FIRST step — the per-slot
+        constraint gating path: a grammar-constrained slot needs its bias
+        row refreshed by the host between tokens (one token a dispatch),
+        while the unconstrained slots ride the same dispatch for n tokens.
+        Steps 1..n-1 run with ``active & ~freeze``: a frozen slot's
+        counts, position, token and generator stay as step 0 left them,
+        and it writes the K/V of its pending token at its unadvanced
+        position, the row and token the next dispatch writes again.
+        ``active`` is restored afterwards. Returns tokens [n, S]; rows
+        1..n-1 are meaningful for non-frozen slots only."""
+        st = self.state
+        out = torch.empty((n, self.num_slots), dtype=torch.int32,
+                          device=self.device)
+        out[0] = self._decode_fn()
+        if n > 1:
+            full_active = st.active.clone()
+            st.active.copy_(full_active & ~freeze)
+            live = self._active_slots - frozen
+            try:
+                for i in range(1, n):
+                    out[i] = self._decode_fn(live)
+            finally:
+                st.active.copy_(full_active)
+        self.frozen_dispatches += 1
+        return out
+
+    def _decode_tail(self, hidden: torch.Tensor,
+                     sampling: set[int]) -> torch.Tensor:
+        """Sampling + per-slot state advance after a decode forward;
+        ``sampling``: the slots whose generators may advance."""
         st = self.state
         pos = st.positions
         logits = mdl.logits_from_hidden(self.cfg, self.params, hidden[:, 0])
         tokens = smp.sample(logits, st.params, st.counts,
-                            self._sample_generators(self._active_slots),
-                            st.bias)
+                            self._sample_generators(sampling), st.bias)
         tokens = torch.where(st.active, tokens, st.tokens)
         # per-row NaN/inf guard on the effective (biased) logits: one bad
         # row fails only its own slot; the verdict rides the token row
@@ -685,6 +724,18 @@ class ModelRunner:
         """n decode iterations (a Python loop of single steps); the [n, S]
         result comes back asynchronously."""
         return AsyncTokens(self._decode_n_fn(n))
+
+    def step_frozen_n(self, freeze: np.ndarray, n: int) -> np.ndarray:
+        """n decode iterations where ``freeze``-masked slots ([S] bool)
+        advance only on the first; returns tokens [n, S] (rows 1+ stale
+        for frozen slots). Synchronous by contract: the frozen slots'
+        constraints need the sampled token on the host before the next
+        dispatch. Both KV layouts."""
+        freeze = np.asarray(freeze, bool)
+        frozen = {int(s) for s in np.nonzero(freeze)[0]}
+        mask = torch.from_numpy(freeze).to(self.device)
+        return np.asarray(AsyncTokens(
+            self._decode_frozen_n_fn(mask, frozen, n)))
 
     def verify_async(self, proposals) -> AsyncTokens:
         """One speculative verify dispatch over all slots: score the

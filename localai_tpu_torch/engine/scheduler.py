@@ -15,13 +15,21 @@ A lean port of ``localai_tpu/engine/scheduler.py``. One engine thread:
     windows of gamma+1 tokens a slot instead of plain multi-step decode
     whenever the drafter has a proposal, and falls back to plain decode
     when it declines or its acceptance backoff suppresses windows;
+  * drives grammar constraints (``GenRequest.constraint``, a
+    :class:`TokenConstraint`): the constraint's mask is composed into the
+    slot's bias row at admission, so the first token is already
+    constrained, and refreshed after every token. While a constrained
+    slot is live the pipeline is drained and decode goes synchronous: one
+    ``step()`` when every live slot is constrained, else
+    ``step_frozen_n``, where the constrained slots take one token and the
+    others the full dispatch. No verify window runs then; windows resume
+    (after a drafter resync) once no constrained slot is live;
   * bans the ids a padded model vocab has beyond the tokenizer's;
   * detokenizes incrementally, checks EOS / stop strings / max_tokens /
     context exhaustion, and releases the slot.
 
-Left out of this slice (see ROADMAP): the prompt cache, grammar
-constraints, the background batch lane, SLO shedding, telemetry and the
-self-healing supervisor.
+Left out of this slice (see ROADMAP): the prompt cache, the background
+batch lane, SLO shedding, telemetry and the self-healing supervisor.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Protocol, Sequence
 
 import numpy as np
 
@@ -41,6 +49,20 @@ from localai_tpu_torch.engine.runner import NAN_TOKEN, ModelRunner
 from localai_tpu_torch.engine.stream import IncrementalDetokenizer, StopChecker
 
 log = logging.getLogger(__name__)
+
+
+class TokenConstraint(Protocol):
+    """Grammar/JSON-schema constraint driven by the scheduler.
+
+    ``allowed_mask`` returns a [V] f32 additive bias row (0 allowed, -1e30
+    disallowed) or None for "anything"; ``advance`` consumes the sampled
+    token; ``done`` means the constrained region is complete.
+    """
+
+    def allowed_mask(self) -> Optional[np.ndarray]: ...
+    def advance(self, token_id: int) -> None: ...
+    @property
+    def done(self) -> bool: ...
 
 
 @dataclasses.dataclass
@@ -59,6 +81,7 @@ class GenRequest:
     seed: Optional[int] = None
     logit_bias: Optional[dict[int, float]] = None
     stop: Sequence[str] = ()
+    constraint: Optional[TokenConstraint] = None
     # an SSE client is attached: the scheduler bounds delivery lag by
     # shrinking the per-dispatch step count while this request is active
     stream: bool = False
@@ -134,6 +157,8 @@ class _PendingPrefill:
     slot: int
     handle: GenHandle
     adm: Any                 # engine.runner.PagedAdmission
+    base: Optional[np.ndarray] = None   # the slot's [V] bias w/o a mask
+    mask_set: bool = False
 
 
 @dataclasses.dataclass
@@ -144,6 +169,9 @@ class _SlotCtx:
     detok: IncrementalDetokenizer
     stopper: StopChecker
     generated: int = 0
+    base_bias: Optional[np.ndarray] = None  # [V] row from logit_bias and
+                                            # the padded-vocab ban
+    mask_set: bool = False   # a constraint mask is currently on the device
     admit_seq: int = 0       # dispatch counter at admit time: tokens from
                              # dispatches issued before admission are not ours
 
@@ -184,6 +212,11 @@ class Scheduler:
         self._spec_stale: set[int] = set()
         self._engine = spec if spec is not None else runner
         self.last_dispatch_steps = 0
+        # host cost of constrained decoding: seconds spent advancing
+        # constraints, looking up mask rows and writing bias rows, and the
+        # constrained tokens it was spent on
+        self.constraint_host_s = 0.0
+        self.constrained_tokens = 0
         # a request the block pool couldn't cover yet (FIFO: it blocks the
         # queue until blocks free)
         self._held: Optional[GenHandle] = None
@@ -259,6 +292,21 @@ class Scheduler:
                     self._wake.clear()
                 continue
             try:
+                if self._constrained_slots():
+                    # a constrained slot's bias row must follow its last
+                    # token: drain the pipeline so the rows refreshed from
+                    # processed tokens apply to the very next dispatch,
+                    # which is synchronous
+                    if self.spec is not None:
+                        # plain dispatches leave the drafts behind the
+                        # target: resync before the next window
+                        self._spec_dirty = True
+                    while inflight:
+                        drain_one()
+                    constrained = self._constrained_slots()
+                    if self._slots and constrained:
+                        self._dispatch_constrained(constrained)
+                    continue
                 # the cheap speculation pre-gate comes BEFORE any drain or
                 # resync: a suppressed or no-candidate dispatch costs
                 # exactly a plain pipelined one
@@ -320,6 +368,38 @@ class Scheduler:
                     self._engine.release(slot)
                     ctx.handle._finish("error")
 
+    def _constrained_slots(self) -> set[int]:
+        return {s for s, c in self._slots.items()
+                if c.handle.request.constraint is not None}
+
+    def _dispatch_constrained(self, constrained: set[int]) -> None:
+        """One synchronous dispatch while a constrained slot is live: a
+        single ``step()`` when every live slot is constrained (or the
+        dispatch size is 1), else ``step_frozen_n``, where the
+        constrained slots take part in the first step only and every
+        other slot decodes the full dispatch."""
+        steps = self._effective_steps()
+        self._dispatch_seq += 1
+        frozen = None
+        if len(constrained) == len(self._slots) or steps == 1:
+            shape: Any = 1
+            t0 = time.monotonic()
+            rows = self.runner.step()[None]
+        else:
+            freeze = np.zeros(self.runner.num_slots, bool)
+            freeze[list(constrained)] = True
+            frozen = constrained
+            shape = ("frozen", steps)
+            t0 = time.monotonic()
+            rows = self.runner.step_frozen_n(freeze, steps)
+        dt = time.monotonic() - t0
+        if shape in self._seen_shapes:
+            self._observe_step_time(dt / rows.shape[0])
+        self._seen_shapes.add(shape)
+        self.last_dispatch_steps = rows.shape[0]
+        self._process_rows(rows, self._dispatch_seq, frozen=frozen)
+        self._last_drain_t = None  # sync path: the drain clock is stale
+
     def _spec_ready(self) -> bool:
         """The cheap speculation pre-gate, before any pipeline drain or
         drafter resync: not suppressed by the backoff, and the drafter
@@ -364,7 +444,10 @@ class Scheduler:
                "queue_depth": self._pending.qsize(),
                "dispatches": self._dispatch_seq,
                "last_dispatch_steps": self.last_dispatch_steps,
-               "step_time_ema": self._step_ema}
+               "step_time_ema": self._step_ema,
+               "frozen_dispatches": self.runner.frozen_dispatches,
+               "constrained_tokens": self.constrained_tokens,
+               "constraint_host_s": self.constraint_host_s}
         if self._chunked:
             out["kv_blocks_spec_reserved"] = (
                 self.runner.allocator.stats().spec_reserved)
@@ -487,18 +570,22 @@ class Scheduler:
             for tid, b in req.logit_bias.items():
                 if 0 <= int(tid) < limit:
                     base[int(tid)] = b
+        # the constraint's first mask is in the bias row before the
+        # prefill samples, so the first token is already constrained
+        mask = (req.constraint.allowed_mask()
+                if req.constraint is not None else None)
         sampling = dict(
             temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
             min_p=req.min_p, repeat_penalty=req.repeat_penalty,
             presence_penalty=req.presence_penalty,
             frequency_penalty=req.frequency_penalty, seed=req.seed,
-            bias_row=base)
+            bias_row=self._compose_bias(base, mask))
         if not self._chunked:
             first = self._engine.admit(slot, req.prompt,
                                        resident=self._resident.get(slot),
                                        valid_n=int(positions[slot]),
                                        **sampling)
-            self._activate_slot(slot, handle, first)
+            self._activate_slot(slot, handle, first, base, mask is not None)
             return True
         # reserve the worst case so decode can never run out of blocks
         reserve = len(req.prompt) + (req.max_new_tokens
@@ -508,7 +595,8 @@ class Scheduler:
         if adm is None:
             return False
         self._prefills.append(_PendingPrefill(slot=slot, handle=handle,
-                                              adm=adm))
+                                              adm=adm, base=base,
+                                              mask_set=mask is not None))
         return True
 
     def _best_slot(self, prompt: list[int],
@@ -527,17 +615,20 @@ class Scheduler:
                 best, best_lcp = s, lcp
         return best
 
-    def _activate_slot(self, slot: int, handle: GenHandle,
-                       first: int) -> None:
+    def _activate_slot(self, slot: int, handle: GenHandle, first: int,
+                       base: Optional[np.ndarray], mask_set: bool) -> None:
         """Prefill finished (one-shot or final chunk): install the live
-        slot context, record the resident tokens (the runner's
-        empty-prompt normalization [0] keeps the record aligned with the
-        cache rows) and consume the first token."""
+        slot context (``base``: its bias row without a constraint mask),
+        record the resident tokens (the runner's empty-prompt
+        normalization [0] keeps the record aligned with the cache rows)
+        and consume the first token."""
         self._resident[slot] = list(handle.request.prompt) or [0]
         ctx = _SlotCtx(
             handle=handle,
             detok=IncrementalDetokenizer(self.tokenizer.decode),
             stopper=StopChecker(handle.request.stop),
+            base_bias=base,
+            mask_set=mask_set,
             admit_seq=self._dispatch_seq,
         )
         with self._lock:
@@ -570,7 +661,7 @@ class Scheduler:
         if first is None:
             return True
         self._prefills.popleft()
-        self._activate_slot(pf.slot, pf.handle, first)
+        self._activate_slot(pf.slot, pf.handle, first, pf.base, pf.mask_set)
         return True
 
     def _padded_vocab_ban(self) -> Optional[np.ndarray]:
@@ -586,14 +677,43 @@ class Scheduler:
         row[tok_v:] = -1e30
         return row
 
-    def _process_rows(self, rows: np.ndarray, seq: int) -> None:
+    def _compose_bias(self, base: Optional[np.ndarray],
+                      mask: Optional[np.ndarray]) -> Optional[np.ndarray]:
+        """The slot's bias row: ``base`` plus the constraint ``mask``. A
+        mask covers the tokenizer's vocab; the ids a wider model vocab
+        pads on are disallowed (-1e30), so no mask can resurrect them."""
+        base = self._fit_vocab(base, 0.0)
+        mask = self._fit_vocab(mask, -1e30)
+        if base is None:
+            return mask
+        if mask is None:
+            return base
+        return base + mask
+
+    def _fit_vocab(self, row: Optional[np.ndarray],
+                   fill: float) -> Optional[np.ndarray]:
+        if row is None:
+            return None
+        V = self.runner.cfg.vocab_size
+        if len(row) == V:
+            return row
+        out = np.full(V, fill, np.float32)
+        out[:min(len(row), V)] = row[:V]
+        return out
+
+    def _process_rows(self, rows: np.ndarray, seq: int,
+                      frozen: Optional[set[int]] = None) -> None:
         """Consume [steps, S] sampled rows in temporal order. The seq guard
         drops tokens of dispatches issued before a slot's admission; a slot
         released at row i ignores the rows after it; SKIP entries (a
-        speculative window that ended earlier) carry no token."""
+        speculative window that ended earlier) carry no token; ``frozen``
+        slots took part in the first step of the dispatch only, so only
+        row 0 is theirs."""
         for i in range(rows.shape[0]):
             for slot, ctx in list(self._slots.items()):
                 if seq <= ctx.admit_seq:
+                    continue
+                if i > 0 and frozen is not None and slot in frozen:
                     continue
                 tok = int(rows[i, slot])
                 if tok == NAN_TOKEN:
@@ -607,7 +727,8 @@ class Scheduler:
                 self._consume(slot, ctx, tok)
 
     def _consume(self, slot: int, ctx: _SlotCtx, token_id: int) -> None:
-        """Handle one sampled token for one slot: stream, stop, release."""
+        """Handle one sampled token for one slot: stream, stop, constrain,
+        release."""
         r = self._resident.get(slot)
         if r is not None:
             r.append(token_id)
@@ -626,6 +747,22 @@ class Scheduler:
         if ctx.stopper.stopped is not None:
             self._release(slot, ctx, "stop")
             return
+        if req.constraint is not None:
+            t0 = time.perf_counter()
+            req.constraint.advance(token_id)
+            if req.constraint.done:
+                self._count_constraint(t0)
+                handle._emit(ctx.stopper.flush(), None)
+                self._release(slot, ctx, "stop")
+                return
+            mask = req.constraint.allowed_mask()
+            if mask is not None or ctx.mask_set:
+                # refresh whenever a mask was ever set, so an FSM entering
+                # a free-text region (mask None) clears the stale row
+                self._engine.set_bias(
+                    slot, self._compose_bias(ctx.base_bias, mask))
+                ctx.mask_set = mask is not None
+            self._count_constraint(t0)
         limit = req.max_new_tokens or self.default_max_tokens
         if (ctx.generated >= limit
                 or handle.prompt_tokens + ctx.generated
@@ -633,6 +770,10 @@ class Scheduler:
             # max_tokens, or context exhausted (no silent context shift)
             handle._emit(ctx.stopper.flush(), None)
             self._release(slot, ctx, "length")
+
+    def _count_constraint(self, t0: float) -> None:
+        self.constraint_host_s += time.perf_counter() - t0
+        self.constrained_tokens += 1
 
     def _release(self, slot: int, ctx: _SlotCtx, reason: str) -> None:
         with self._lock:

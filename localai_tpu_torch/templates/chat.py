@@ -10,7 +10,7 @@ templates are refused when the config loads (config.model_config).
 from __future__ import annotations
 
 import json
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 from localai_tpu_torch.config.model_config import ModelConfig
 
@@ -20,8 +20,19 @@ def _compact_json(v: Any) -> str:
 
 
 def build_chat_prompt(config: ModelConfig,
-                      messages: Sequence[dict[str, Any]]) -> str:
-    """Render a /v1/chat/completions message list into the model prompt."""
+                      messages: Sequence[dict[str, Any]], *,
+                      functions: Optional[list[dict]] = None,
+                      use_function_template: bool = False,
+                      grammar_active: bool = False) -> str:
+    """Render a /v1/chat/completions message list into the model prompt.
+
+    ``functions`` (the offered tools), ``use_function_template`` (a tools
+    request) and ``grammar_active`` (its grammar was built) are the JAX
+    package's keywords: there they pick the ``functions`` template and
+    fill the ``Functions`` and ``Function`` fields of the named
+    templates. Without named templates (refused at load) they change no
+    text, as on the JAX package: a tools request gets the role-prefix
+    prompt a plain chat gets."""
     parts: list[str] = []
     for msg in messages:
         role = msg.get("role", "user")

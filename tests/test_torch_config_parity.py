@@ -5,13 +5,16 @@ against each other: engine knobs that reach the scheduler and the paged
 pool (pipeline_depth, stream_latency_ms, kv_num_blocks), ``f16: false``,
 completion text shaping (cutstrings, extract_regex, trimspace, trimsuffix,
 ``echo``) over both HTTP servers on a tiny checkpoint written here, and
-the port's refusals of what it cannot serve yet (constrained decoding,
-the prompt cache, the backends the JAX package serves with another engine
-than the llama runner), which stay until the port has them, and the
-choice of speculative decoding (on by default for a paged engine, off
+the port's refusals of what it cannot serve yet (the prompt cache, the
+backends the JAX package serves with another engine than the llama
+runner), which stay until the port has them, and of what the JAX package
+accepts and ignores (a raw ``grammar`` string, constraints on
+``/v1/completions``), the ``function:`` section read into equal fields
+by both packages, and the choice of speculative decoding (on by default for a paged engine, off
 under ``spec: false`` or ``LOCALAI_SPEC=0``, its knobs honoured).
 """
 
+import dataclasses
 import json
 import time
 import urllib.error
@@ -253,18 +256,36 @@ def test_completion_text_is_shaped_as_the_jax_server_shapes_it(two_servers,
 
 
 @pytest.mark.parametrize("field,value", [
+    ("grammar", "root ::= \"x\""),
+])
+def test_chat_asking_for_constrained_decoding_is_refused(two_servers, field,
+                                                         value):
+    """A raw grammar string: the JAX package declares the request field
+    and reads it nowhere (it decodes unconstrained), so the port refuses
+    it rather than serve something else than was asked for. Tools and
+    JSON mode are served (tests/test_torch_constrained.py)."""
+    body = {"model": "s", "max_tokens": 2, field: value,
+            "messages": [{"role": "user", "content": "hi"}]}
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(two_servers[0] + "/v1/chat/completions", body)
+    assert e.value.code == 400
+    assert field in json.loads(e.value.read())["error"]["message"]
+
+
+@pytest.mark.parametrize("field,value", [
     ("tools", [{"type": "function", "function": {"name": "f",
                                                  "parameters": {}}}]),
     ("tool_choice", "required"),
     ("response_format", {"type": "json_object"}),
     ("grammar", "root ::= \"x\""),
 ])
-def test_chat_asking_for_constrained_decoding_is_refused(two_servers, field,
-                                                         value):
-    body = {"model": "s", "max_tokens": 2, field: value,
-            "messages": [{"role": "user", "content": "hi"}]}
+def test_completion_asking_for_constrained_decoding_is_refused(
+        two_servers, field, value):
+    """The JAX package constrains chat completions only and ignores these
+    on /v1/completions; the port refuses them there."""
+    body = {"model": "s", "max_tokens": 2, "prompt": "hi", field: value}
     with pytest.raises(urllib.error.HTTPError) as e:
-        _post(two_servers[0] + "/v1/chat/completions", body)
+        _post(two_servers[0] + "/v1/completions", body)
     assert e.value.code == 400
     assert field in json.loads(e.value.read())["error"]["message"]
 
@@ -278,14 +299,35 @@ def test_text_response_format_is_served(two_servers):
 
 @pytest.mark.parametrize("doc,what", [
     ({"prompt_cache_path": "cache"}, "prompt cache"),
-    ({"grammar": "root ::= \"x\""}, "grammar"),
-    ({"function": {"disable_no_action": True}}, "function calling"),
+    # a divergence: the JAX package declares the key and reads it nowhere
+    ({"grammar": "root ::= \"x\""}, "reads it nowhere"),
 ])
 def test_config_for_unported_features_fails_at_load(tmp_path, doc, what):
     p = tmp_path / "u.yaml"
     p.write_text(yaml.safe_dump({"name": "u", "model": "debug:tiny", **doc}))
     with pytest.raises(ValueError, match=what):
         load_config_file(p)
+
+
+@pytest.mark.parametrize("function", [
+    {},
+    {"disable_no_action": True, "no_action_function_name": "reply",
+     "no_action_description_name": "say it", "function_name_key": "fn",
+     "function_arguments_key": "args",
+     "response_regex": [r"(?P<fn>\w+)"], "json_regex_match": ["(.*)"],
+     "replace_function_results": [{"key": "'", "value": '"'}],
+     "replace_llm_results": [{"key": "x", "value": "y"}],
+     "capture_llm_results": ["<a>(.*)</a>"],
+     "grammar": {"parallel_calls": True, "mixed_mode": True,
+                 "prefix": "CALL: "}},
+], ids=["defaults", "every-field"])
+def test_function_section_loads_into_equal_fields(tmp_path, function):
+    p = tmp_path / "fn.yaml"
+    p.write_text(yaml.safe_dump({"name": "fn", "model": "debug:tiny",
+                                 "function": function}))
+    ours = load_config_file(p).function
+    ref = JaxModelConfig(**yaml.safe_load(p.read_text())).function
+    assert dataclasses.asdict(ours) == ref.model_dump()
 
 
 UNPORTED = ("mamba", "rwkv", "huggingface", "langchain-huggingface")

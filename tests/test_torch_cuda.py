@@ -676,3 +676,126 @@ def test_cuda_verify_windows_match_the_cpu(weights):
         assert not r.allocator.check_invariants()
     for a, b in zip(out["cuda"], out["cpu"]):
         assert (a == b).all(), (a, b)
+
+
+# step_frozen_n: K1 (paged) and K2 (contiguous) under the frozen dispatch
+# of constrained decoding: bias rows of -1e30 over most of the vocab,
+# slots inactive on steps 1+ with live tables and positions, and rows
+# written twice. (layout, compute dtype, KV storage)
+FROZEN_KINDS = [("paged", "bfloat16", "bfloat16"),
+                ("paged", "float32", "float32"),
+                ("paged", "float32", "int8"), ("paged", "float32", "int4"),
+                ("contiguous", "bfloat16", "bfloat16"),
+                ("contiguous", "float32", "float32"),
+                ("contiguous", "float32", "int8")]
+FROZEN_S = 8
+
+
+def _frozen_runner(layout, dtype, kv, hd, dev):
+    """Two layers, 4 q heads over 2 kv heads of ``hd``, weights made on the
+    CPU from a seed and moved to ``dev``."""
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models import llama as tl
+    from localai_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=4 * hd,
+                      intermediate_size=256, num_layers=2, num_heads=4,
+                      num_kv_heads=2, max_position_embeddings=512,
+                      dtype=dtype)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(11), "cpu")
+
+    def to(p):
+        return ({k: to(v) for k, v in p.items()} if isinstance(p, dict)
+                else p.to(dev))
+
+    return ModelRunner(cfg, to(params), num_slots=FROZEN_S, max_ctx=256,
+                       kv_dtype=kv, kv_block_tokens=16, prefill_chunk=32,
+                       paged=layout == "paged", device=dev)
+
+
+def _frozen_bias(slot, vocab, forced):
+    """A bias row banning all but a band of ids (one id when ``forced``:
+    bf16 near-ties may break apart between the card and the CPU, so bf16
+    streams are forced and held by their K/V instead)."""
+    row = np.full(vocab, -1e30, np.float32)
+    lo = 40 + 20 * slot
+    row[lo:lo + (1 if forced else 12)] = 0.0
+    return row
+
+
+def _frozen_cache(r):
+    """Every slot's valid K/V rows [0, position) as float tensors on the
+    CPU (scaled storage dequantized, int4 unpacked), and the largest scale
+    (0 for float storage). Rows past a slot's frontier and the paged
+    pool's trash block hold padding writes (several slots' padding rows
+    land on one trash row, in no set order on the card): not compared."""
+    out, qmax = [], 0.0
+    for slot, pos in enumerate(r.state.positions.tolist()):
+        rows = []
+        for t in r.kv.stacked():
+            if r.paged:
+                g = t[:, r.block_tables[slot].long()].transpose(2, 3)
+                g = g.reshape(t.shape[0], -1, *g.shape[3:])
+            else:
+                g = t[:, slot].transpose(1, 2)
+            rows.append(g[:, :pos].cpu())
+        if len(rows) == 4:
+            k, v, ks, vs = rows
+            if k.shape[-1] * 2 == r.cfg.hd:
+                k, v = tq.unpack_int4_lastdim(k), tq.unpack_int4_lastdim(v)
+            rows = [k.float() * ks[..., None], v.float() * vs[..., None]]
+            qmax = max(qmax, float(ks.max()), float(vs.max()))
+        out.extend(x.float() for x in rows)
+    return out, qmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", [1, FROZEN_S // 2, FROZEN_S - 1],
+                         ids=["one", "half", "all-but-one"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("layout,dtype,kv", FROZEN_KINDS,
+                         ids=["-".join(k) for k in FROZEN_KINDS])
+def test_cuda_step_frozen_n_matches_the_cpu(layout, dtype, kv, hd, frozen):
+    """Frozen dispatches (``frozen`` of 8 slots take part in the first step
+    only, behind bias rows) and plain steps on the card emit the CPU's
+    rows and leave the CPU's decode state; the K/V caches agree (float32:
+    1e-4; bfloat16: 2e-2 of the cache's largest magnitude; scaled storage:
+    one quantum more); K1 or K2 launches once per layer per decode
+    step."""
+    _card()
+    forced = dtype == "bfloat16"
+    kernel = (tops.paged_decode_attention if layout == "paged"
+              else tops.decode_attention)
+    freeze = np.zeros(FROZEN_S, bool)
+    freeze[FROZEN_S - frozen:] = True
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = _frozen_runner(layout, dtype, kv, hd, dev)
+        V = r.cfg.vocab_size
+        rows = [[r.admit(r.acquire_slot(), list(range(1, 10 + 7 * s)),
+                         temperature=0.0,
+                         bias_row=_frozen_bias(s, V, forced)
+                         if freeze[s] or forced else None)
+                 for s in range(FROZEN_S)]]
+        before, steps0 = kernel.launches, r.decode_steps
+        for i in range(4):
+            rows.extend(r.step_frozen_n(freeze, 4).tolist())
+            if i == 1:
+                rows.append(r.step().tolist())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            L = r.cfg.num_layers
+            assert r.decode_steps - steps0 == 17
+            assert kernel.launches - before == L * 17
+            assert r.frozen_dispatches == 4
+        st = r.state
+        out[dev] = (np.asarray(rows), st.tokens.cpu().numpy(),
+                    st.positions.cpu().numpy(), st.counts.cpu().numpy(),
+                    _frozen_cache(r))
+    for a, b in zip(out["cuda"][:4], out["cpu"][:4]):
+        assert (a == b).all(), (a, b)
+    (cache_c, qc), (cache_p, _) = out["cuda"][4], out["cpu"][4]
+    for x, y in zip(cache_c, cache_p):
+        scale = float(y.abs().max())
+        tol = (2e-2 * scale if forced else 1e-4) + qc
+        assert float((x - y).abs().max()) <= tol

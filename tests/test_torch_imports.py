@@ -95,3 +95,18 @@ def test_module_level_imports_are_stdlib_numpy_torch(path):
             continue
         for top in tops:
             assert top in allowed or top == "__future__", top
+
+
+def test_constrained_decoding_modules_are_covered():
+    """The host side of constrained decoding (``functions/``, the C trie
+    walk's loader in ``native/``, ``api/inference.py``) is among the
+    modules and sources the rules above check."""
+    mods = set(_port_modules())
+    for m in ("functions", "functions.constraint", "functions.fsm",
+              "functions.jsonschema", "functions.parse", "functions.tools",
+              "native", "api.inference"):
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    assert {"native/__init__.py", "functions/constraint.py",
+            "api/inference.py"} <= rel
