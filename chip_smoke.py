@@ -91,7 +91,22 @@ Phases (any failure raises and the script exits non-zero):
      a frozen dispatch against a pipelined one, the host ms per
      constrained token, the ms to build a new state's mask row over a
      128256-piece synthetic vocabulary (C and numpy) and the row cache's
-     bytes.
+     bytes. A seventh serve, ``llama3-8b-bf16-templates`` beside
+     ``llama3-8b-bf16-chat-template``, is loaded from YAML files (Go
+     templates in block scalars; a Jinja ``chat_template``) by the port's
+     own YAML reader and template engine, with neither PyYAML nor Jinja2
+     imported: eight concurrent greedy chats (system + user, multi-turn,
+     a tools chat through the ``functions`` template, one on the
+     ``chat_template`` model, one streamed), then a two-prompt ``n: 2``
+     completion and an edit. Every request reaches the scheduler with the
+     token ids of its golden prompt (pinned here, held equal to the JAX
+     package's rendering by a CPU test), each ``n: 2`` pair of greedy
+     choices is identical, K1 launches L per decode step of both engines;
+     it prints tokens/s, the streamed TTFT, prompt tokens per request and
+     host ms to render each kind of template, first and cached. Before the
+     serves, a templated parity phase loads debug:small in f32 from a YAML
+     with a chat_message template, paged and contiguous: the card's prompt
+     ids and greedy tokens equal the CPU's (K1; K2 and K3).
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -1724,6 +1739,535 @@ def phase_serve_tools(card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# the templated serve: two model YAMLs written into a models dir and read
+# by the port's own YAML reader (no PyYAML, no Jinja2 on the card), as a
+# user's gallery files are
+TEMPLATED = "llama3-8b-bf16-templates"
+CHAT_TEMPLATED = "llama3-8b-bf16-chat-template"
+TEMPLATED_YAML = '''\
+# Llama-3-style prompt templates, Go syntax, in block scalars
+name: llama3-8b-bf16-templates
+model: debug:llama3-8b
+context_size: 4096
+system_prompt: You are a helpful assistant.
+stopwords:
+- <|eot_id|>
+engine:
+  dtype: bfloat16
+  kv_dtype: bfloat16
+  max_slots: 8
+  kv_block_tokens: 64
+template:
+  chat_message: |-
+    <|start_header_id|>{{if eq .RoleName "assistant"}}assistant{{else if eq .RoleName "system"}}system{{else if eq .RoleName "tool"}}tool{{else if eq .RoleName "user"}}user{{end}}<|end_header_id|>
+
+    {{ if .FunctionCall -}}
+    Function call:
+    {{ else if eq .RoleName "tool" -}}
+    Function response:
+    {{ end -}}
+    {{ if .Content -}}
+    {{.Content -}}
+    {{ else if .FunctionCall -}}
+    {{ toJson .FunctionCall -}}
+    {{ end -}}
+    <|eot_id|>
+  chat: "<|begin_of_text|>{{.Input}}\\n<|start_header_id|>assistant<|end_header_id|>\\n\\n"
+  functions: |
+    <|begin_of_text|><|start_header_id|>system<|end_header_id|>
+
+    {{.SystemPrompt}} You may call these tools:
+    {{range .Functions}}{{toJson .}}
+    {{end}}<|eot_id|>{{.Input}}
+    <|start_header_id|>assistant<|end_header_id|>
+  completion: >-
+    <|begin_of_text|><|start_header_id|>user<|end_header_id|>
+    Continue the text: {{.Input}}<|eot_id|><|start_header_id|>assistant<|end_header_id|>
+  edit: '<|begin_of_text|><|start_header_id|>system<|end_header_id|>
+
+
+    {{.Instruction}}<|eot_id|><|start_header_id|>user<|end_header_id|>
+
+
+    {{.Input}}<|eot_id|><|start_header_id|>assistant<|end_header_id|>
+
+'
+'''
+# the guesser's llama3 family chat template, written out in full as a
+# checkpoint's tokenizer_config.json carries it
+LLAMA3_CHAT_TEMPLATE = (
+    "<|begin_of_text|>{% for message in messages %}"
+    "{% if message['role'] == 'system' %}"
+    "<|start_header_id|>system<|end_header_id|>\n\n"
+    "{{ message['content'] }}<|eot_id|>"
+    "{% elif message['role'] == 'user' %}"
+    "<|start_header_id|>user<|end_header_id|>\n\n"
+    "{{ message['content'] }}<|eot_id|>"
+    "{% elif message['role'] == 'assistant' %}"
+    "<|start_header_id|>assistant<|end_header_id|>\n\n"
+    "{{ message['content'] }}<|eot_id|>"
+    "{% endif %}{% endfor %}"
+    "{% if add_generation_prompt %}"
+    "<|start_header_id|>assistant<|end_header_id|>\n\n{% endif %}")
+CHAT_TEMPLATE_YAML = (
+    "name: llama3-8b-bf16-chat-template\n"
+    "model: debug:llama3-8b\n"
+    "context_size: 4096\n"
+    "stopwords: [\"<|eot_id|>\"]\n"
+    "engine: {dtype: bfloat16, kv_dtype: bfloat16, max_slots: 8,\n"
+    "         kv_block_tokens: 64}\n"
+    "template:\n"
+    "  chat_template: |-\n"
+    + "".join("    " + line + "\n" if line else "\n"
+              for line in LLAMA3_CHAT_TEMPLATE.split("\n")))
+
+
+def _templated_chat(model: str, messages: list, **extra) -> dict:
+    return {"model": model, "max_tokens": 64, "temperature": 0,
+            "messages": messages, **extra}
+
+
+# the eight concurrent chats: system + user, a multi-turn chat, a tools
+# chat under required (the functions template), a chat on the
+# chat_template model, a streamed chat and three plain chats
+TEMPLATED_CHATS = [
+    _templated_chat(TEMPLATED, [
+        {"role": "system", "content": "Answer in one word."},
+        {"role": "user", "content": "Name a prime number."}]),
+    _templated_chat(TEMPLATED, [
+        {"role": "system", "content": "Answer in French."},
+        {"role": "user", "content": "Hello!"},
+        {"role": "assistant", "content": "Bonjour !"},
+        {"role": "user", "content": "How are you today?"}]),
+    _templated_chat(TEMPLATED, [
+        {"role": "user", "content": "What is the weather in Paris?"}],
+        tools=TOOLS, tool_choice="required"),
+    _templated_chat(CHAT_TEMPLATED, [
+        {"role": "system", "content": "Be brief."},
+        {"role": "user", "content": "Why is the sky blue?"}]),
+    _templated_chat(TEMPLATED, [{"role": "user",
+                                 "content": "Count to five."}], stream=True),
+    _templated_chat(TEMPLATED, [{"role": "user", "content": "Say hello."}]),
+    _templated_chat(TEMPLATED, [{"role": "user",
+                                 "content": "List three colours."}]),
+    _templated_chat(TEMPLATED, [{"role": "user",
+                                 "content": "Write a haiku about caches."}]),
+]
+TEMPLATED_COMPLETION = {"model": TEMPLATED, "max_tokens": 32,
+                        "temperature": 0, "n": 2,
+                        "prompt": ["The capital of France is",
+                                   "Once upon a time, a kernel"]}
+TEMPLATED_EDIT = {"model": TEMPLATED, "max_tokens": 32, "temperature": 0,
+                  "instruction": "Fix the grammar.",
+                  "prompt": "The quick brown fox jump over the lazy dog."}
+_L3 = "<|begin_of_text|><|start_header_id|>{}<|end_header_id|>\n\n"
+_TURN = "<|start_header_id|>{}<|end_header_id|>\n\n{}<|eot_id|>"
+_ASK = "\n<|start_header_id|>assistant<|end_header_id|>\n\n"
+# the prompt each request must reach the scheduler with (held equal to the
+# JAX package's rendering of the same YAMLs by tests/test_torch_templates)
+TEMPLATED_GOLDEN = [
+    "<|begin_of_text|>" + _TURN.format("system", "Answer in one word.")
+    + "\n" + _TURN.format("user", "Name a prime number.") + _ASK,
+    "<|begin_of_text|>" + "\n".join([
+        _TURN.format("system", "Answer in French."),
+        _TURN.format("user", "Hello!"),
+        _TURN.format("assistant", "Bonjour !"),
+        _TURN.format("user", "How are you today?")]) + _ASK,
+    _L3.format("system") + "You are a helpful assistant. You may call these"
+    " tools:\n" + "".join(json.dumps(f, separators=(",", ":")) + "\n"
+                          for f in (TOOL_WEATHER, TOOL_MODE))
+    + "<|eot_id|>" + _TURN.format("user", "What is the weather in Paris?")
+    + "\n<|start_header_id|>assistant<|end_header_id|>\n",
+    "<|begin_of_text|>" + _TURN.format("system", "Be brief.")
+    + _TURN.format("user", "Why is the sky blue?")
+    + "<|start_header_id|>assistant<|end_header_id|>\n\n",
+] + ["<|begin_of_text|>" + _TURN.format("user", c) + _ASK
+     for c in ("Count to five.", "Say hello.", "List three colours.",
+               "Write a haiku about caches.")] + [
+    "<|begin_of_text|><|start_header_id|>user<|end_header_id|> Continue the "
+    f"text: {p}<|eot_id|><|start_header_id|>assistant<|end_header_id|>"
+    for p in TEMPLATED_COMPLETION["prompt"]] + [
+    _L3.format("system") + "Fix the grammar.<|eot_id|>"
+    + _TURN.format("user", TEMPLATED_EDIT["prompt"])
+    + "<|start_header_id|>assistant<|end_header_id|>\n"]
+
+
+def write_models_dir(root, docs: dict) -> None:
+    """YAML files (name → text) into a models dir."""
+    import pathlib
+
+    root = pathlib.Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    for name, text in docs.items():
+        (root / f"{name}.yaml").write_text(text)
+
+
+def _render_ms(fn) -> tuple[float, float]:
+    """Host ms of a first render (templates parsed) and a cached one."""
+    t0 = time.perf_counter()
+    first = fn()
+    t1 = time.perf_counter()
+    again = fn()
+    t2 = time.perf_counter()
+    if first != again:
+        raise AssertionError("a cached render differs from the first")
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def phase_render_timing(models: str, loader, tokenizer) -> dict:
+    """Host ms to render each kind of template, first (parse + render)
+    and cached, through the port's template functions."""
+    from localai_tpu_torch.api.openai import chat_messages
+    from localai_tpu_torch.templates.cache import TemplateCache
+    from localai_tpu_torch.templates.chat import (
+        apply_tokenizer_template,
+        build_chat_prompt,
+        build_completion_prompt,
+        build_edit_prompt,
+        parsed_chat_template,
+    )
+
+    cfg, ct_cfg = loader.get(TEMPLATED), loader.get(CHAT_TEMPLATED)
+    msgs = chat_messages(TEMPLATED_CHATS[1]["messages"])
+    ct_msgs = chat_messages(TEMPLATED_CHATS[3]["messages"])
+    # a 64-message conversation: rendering grows with the message count
+    long_msgs = chat_messages(
+        [{"role": "system", "content": "Be brief."}]
+        + [{"role": ("user", "assistant")[i % 2],
+            "content": f"turn {i}: " + "lorem ipsum dolor " * 6}
+           for i in range(63)])
+    ct_template = ct_cfg.template.chat_template
+    out = {}
+    for kind, fn in (
+            ("chat_message+chat", lambda c: build_chat_prompt(c, cfg, msgs)),
+            ("chat_template", lambda c: apply_tokenizer_template(
+                tokenizer, ct_msgs, chat_template=ct_template)),
+            ("chat_message+chat_64_messages",
+             lambda c: build_chat_prompt(c, cfg, long_msgs)),
+            ("chat_template_64_messages", lambda c: apply_tokenizer_template(
+                tokenizer, long_msgs, chat_template=ct_template)),
+            ("completion", lambda c: build_completion_prompt(
+                c, cfg, TEMPLATED_COMPLETION["prompt"][0])),
+            ("edit", lambda c: build_edit_prompt(
+                c, cfg, TEMPLATED_EDIT["prompt"],
+                TEMPLATED_EDIT["instruction"]))):
+        cache = TemplateCache(models)
+        parsed_chat_template.cache_clear()
+        first, cached = _render_ms(lambda: fn(cache))
+        out[f"render_ms_{kind}_first"] = first
+        out[f"render_ms_{kind}_cached"] = cached
+    return out
+
+
+def phase_serve_templates(card: str) -> dict:
+    """The seventh serve: ``llama3-8b-bf16-templates`` and
+    ``llama3-8b-bf16-chat-template`` (debug:llama3-8b in bf16 on the paged
+    pool, 8 slots, context 4096, the default config, so speculation is
+    on), loaded from YAML files of a models dir through
+    ``ConfigLoader.load_from_path``: Go templates in block scalars on the
+    first, a Jinja ``chat_template`` on the second. They answer eight
+    concurrent greedy chats (``TEMPLATED_CHATS``), then a two-prompt
+    ``n: 2`` completion and an edit. Every request reaches the scheduler
+    with the token ids of its golden prompt (``TEMPLATED_GOLDEN``); every
+    ``n: 2`` pair of choices is identical; K1 launches once per layer per
+    decode step of both engines; neither ``jinja2`` nor ``yaml`` is
+    imported. Prints tokens/s, the streamed chat's TTFT, prompt tokens per
+    request and host ms to render each kind of template."""
+    import shutil
+    import tempfile
+
+    from localai_tpu_torch.api.server import APIServer
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.models.manager import ModelManager
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
+
+    models = tempfile.mkdtemp(prefix="templated-models-")
+    write_models_dir(models, {TEMPLATED: TEMPLATED_YAML,
+                              CHAT_TEMPLATED: CHAT_TEMPLATE_YAML})
+    loader = ConfigLoader(models)
+    loader.load_from_path()
+    if loader.names() != sorted([TEMPLATED, CHAT_TEMPLATED]):
+        raise AssertionError(f"templated serve: loaded {loader.names()}")
+    manager = ModelManager(AppConfig(model_path=models, device="cuda"),
+                           loader)
+    server = APIServer(manager, "127.0.0.1", 0).start()
+    try:
+        t0 = time.monotonic()
+        sms = [manager.get(n) for n in (TEMPLATED, CHAT_TEMPLATED)]
+        torch.cuda.synchronize()
+        print(f"serve {TEMPLATED} + {CHAT_TEMPLATED}: loaded from YAML in "
+              f"{time.monotonic() - t0:.1f}s", flush=True)
+        for sm in sms:
+            if sm.scheduler.spec is None:
+                raise AssertionError(f"{sm.name}: speculation is off by "
+                                     "default")
+        submitted: list = []
+        for sm in sms:
+            def recorded(req, _submit=sm.scheduler.submit):
+                h = _submit(req)
+                submitted.append(h)
+                return h
+            sm.scheduler.submit = recorded
+        chat = server.url + "/v1/chat/completions"
+        for body in (TEMPLATED_CHATS[0], TEMPLATED_CHATS[2],
+                     TEMPLATED_CHATS[3]):  # warm-up, not counted
+            json.loads(_post(chat, dict(body, max_tokens=4)).read())
+        render = phase_render_timing(models, loader, sms[0].tokenizer)
+        wrappers = {"paged_decode_attention": paged_decode_attention,
+                    "decode_attention": decode_attention,
+                    "prefill_attention": prefill_attention}
+        for w in wrappers.values():
+            w.launches = 0
+        submitted.clear()
+        steps0 = [sm.runner.decode_steps for sm in sms]
+        results: dict = {}
+        errors: list = []
+
+        def run(i):
+            body = TEMPLATED_CHATS[i]
+            try:
+                if not body.get("stream"):
+                    results[i] = json.loads(_post(chat, body).read())
+                    return
+                t = time.monotonic()
+                ttft, text, last = None, "", None
+                with _post(chat, body) as r:
+                    for line in r:
+                        line = line.strip()
+                        if not line.startswith(b"data: {"):
+                            continue
+                        frame = json.loads(line[6:])
+                        delta = frame["choices"][0]["delta"].get("content")
+                        if delta and ttft is None:
+                            ttft = time.monotonic() - t
+                        text += delta or ""
+                        last = frame
+                results[i] = {"text": text, "ttft_s": ttft, "last": last}
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(TEMPLATED_CHATS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t0
+        if errors:
+            raise errors[0]
+        chat_submitted = list(submitted)
+        completion = json.loads(_post(server.url + "/v1/completions",
+                                      TEMPLATED_COMPLETION).read())
+        edit = json.loads(_post(server.url + "/v1/edits",
+                                TEMPLATED_EDIT).read())
+        launches = {n: w.launches for n, w in wrappers.items()}
+        steps = sum(sm.runner.decode_steps - s0
+                    for sm, s0 in zip(sms, steps0))
+        # prompts: every request's token ids are its golden prompt's
+        tok = sms[0].tokenizer
+        want = sorted(tok.encode(TEMPLATED_GOLDEN[i], add_bos=True)
+                      for i in range(len(TEMPLATED_CHATS)))
+        got = sorted(list(h.request.prompt) for h in chat_submitted)
+        if got != want:
+            raise AssertionError("templated serve: a chat's prompt ids "
+                                 "differ from its golden prompt")
+        later = [list(h.request.prompt)
+                 for h in submitted[len(chat_submitted):]]
+        n_chats = len(TEMPLATED_CHATS)
+        want_later = [tok.encode(TEMPLATED_GOLDEN[n_chats + i], add_bos=True)
+                      for i in (0, 0, 1, 1, 2)]
+        if later != want_later:
+            raise AssertionError("templated serve: a completion or edit "
+                                 "prompt differs from its golden prompt")
+        # choices: each n: 2 pair of greedy choices is identical
+        texts = [c["text"] for c in completion["choices"]]
+        if [c["index"] for c in completion["choices"]] != [0, 1, 2, 3] or \
+                texts[0] != texts[1] or texts[2] != texts[3]:
+            raise AssertionError(f"templated serve: n=2 greedy choices "
+                                 f"differ: {texts}")
+        if edit["object"] != "edit" or not edit["choices"]:
+            raise AssertionError("templated serve: the edit answer is "
+                                 f"malformed: {edit}")
+        # the required tools chat: a call, or its JSON cut at 64 tokens
+        tools_finish = results[2]["choices"][0]["finish_reason"]
+        if tools_finish == "tool_calls":
+            _check_tool_calls(
+                results[2]["choices"][0]["message"]["tool_calls"],
+                [TOOL_WEATHER, TOOL_MODE])
+        elif tools_finish != "length":
+            raise AssertionError("templated serve: the required tools chat "
+                                 f"finished {tools_finish!r}")
+        L = sms[0].runner.cfg.num_layers
+        want_k = {"paged_decode_attention": L * steps, "decode_attention": 0,
+                  "prefill_attention": 0}
+        if steps <= 0 or launches != want_k:
+            raise AssertionError(f"templated serve: launches {launches}, "
+                                 f"expected {want_k} ({L} layers, {steps} "
+                                 "decode steps)")
+        ntok = sum(results[i]["usage"]["completion_tokens"]
+                   for i in results if i != 4)
+        ntok += results[4]["last"]["usage"]["completion_tokens"]
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "localai_tpu",
+                                      "jinja2", "yaml")]
+        if bad:
+            raise AssertionError(f"the templated serve imported {bad[:5]}")
+        out = {"card": card, "models": [TEMPLATED, CHAT_TEMPLATED],
+               "requests": n_chats, "streaming": 1,
+               "completion_tokens": ntok, "wall_s": wall,
+               "tokens_per_s": ntok / wall,
+               "ttft_stream_s": results[4]["ttft_s"],
+               "prompt_tokens": [len(p) for p in sorted(
+                   (list(h.request.prompt) for h in chat_submitted),
+                   key=len)],
+               "finish_reasons": [
+                   (results[i]["last"]["choices"][0]["finish_reason"]
+                    if i == 4 else results[i]["choices"][0]["finish_reason"])
+                   for i in range(n_chats)],
+               "completion_choices": len(completion["choices"]),
+               "edit_tokens": edit["usage"]["completion_tokens"],
+               "decode_steps": steps, "kernel_launches": launches,
+               **render}
+        print("serve templates: " + json.dumps(out), flush=True)
+        return {"launches": launches, "figures": out}
+    finally:
+        server.shutdown()
+        manager.shutdown()
+        manager = server = None
+        shutil.rmtree(models, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# the templated parity phase: debug:small's weights (drawn once on the
+# CPU and written as a checkpoint, so both devices load the same ones) in
+# f32 from a YAML with a chat_message template, paged and contiguous
+PARITY_TEMPLATE_YAML = '''\
+name: {name}
+model: {model}
+context_size: 512
+engine:
+  dtype: float32
+  kv_dtype: {kv}
+  max_slots: 4
+  kv_block_tokens: 16
+  prefill_chunk: 32
+  kv_paged: {paged}
+template:
+  chat_message: |-
+    <|start_header_id|>{{{{if eq .RoleName "assistant"}}}}assistant{{{{else if eq .RoleName "system"}}}}system{{{{else}}}}user{{{{end}}}}<|end_header_id|>
+
+    {{{{.Content}}}}<|eot_id|>
+  chat: "<|begin_of_text|>{{{{.Input}}}}\\n<|start_header_id|>assistant<|end_header_id|>\\n\\n"
+'''
+PARITY_CHATS = [
+    {"max_tokens": 16, "temperature": 0, "messages": [
+        {"role": "system", "content": "Be brief."},
+        {"role": "user", "content": "The paged kernel walks each table"}]},
+    {"max_tokens": 16, "temperature": 0, "messages": [
+        {"role": "user", "content": "hi"},
+        {"role": "assistant", "content": "hello"},
+        {"role": "user", "content": "again"}]},
+]
+
+
+def templated_greedy(models: str, name: str, device: str,
+                     bodies: list) -> tuple[list, list]:
+    """(prompt ids, greedy token ids) of each chat, served in turn
+    through the port's chat endpoint from a models dir on ``device``."""
+    from localai_tpu_torch.api import openai as oa
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.models.manager import ModelManager
+
+    loader = ConfigLoader(models)
+    loader.load_from_path()
+    manager = ModelManager(AppConfig(model_path=models, device=device),
+                           loader)
+    try:
+        sm = manager.get(name)
+        handles: list = []
+
+        def recorded(req, _submit=sm.scheduler.submit):
+            h = _submit(req)
+            handles.append(h)
+            return h
+
+        sm.scheduler.submit = recorded
+        for body in bodies:
+            oa.chat(manager, dict(body, model=name))
+        return ([list(h.request.prompt) for h in handles],
+                [list(h.token_ids) for h in handles])
+    finally:
+        manager.shutdown()
+
+
+def phase_templated_parity() -> dict:
+    """debug:small in f32, loaded from a YAML with a chat_message
+    template, paged (K1) and contiguous (K2, K3): the card's prompt ids
+    and greedy tokens equal the CPU's, token for token. Returns the
+    kernels' launches in the card's runs by layout."""
+    import shutil
+    import tempfile
+
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
+
+    wrappers = {"paged_decode_attention": paged_decode_attention,
+                "decode_attention": decode_attention,
+                "prefill_attention": prefill_attention}
+    from localai_tpu_torch.models.loader import write_llama_checkpoint
+    from localai_tpu_torch.models.registry import resolve_model
+
+    models = tempfile.mkdtemp(prefix="templated-parity-")
+    small = resolve_model("debug:small", dtype="float32", device="cpu")
+    ckpt = write_llama_checkpoint(f"{models}/small-ckpt", small.cfg,
+                                  small.params)
+    layouts = {"paged": ("small-paged", "true"),
+               "contiguous": ("small-contiguous", "false")}
+    write_models_dir(models, {
+        name: PARITY_TEMPLATE_YAML.format(name=name, model=ckpt,
+                                          kv="float32", paged=paged)
+        for name, paged in layouts.values()})
+    launches = {}
+    try:
+        for layout, (name, _) in layouts.items():
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                for w in wrappers.values():
+                    w.launches = 0
+                runs[dev] = templated_greedy(models, name, dev, PARITY_CHATS)
+                if dev == "cuda":
+                    launches[layout] = {n: w.launches
+                                        for n, w in wrappers.items()}
+            print(f"templated parity {layout}: prompts "
+                  f"{[len(p) for p in runs['cpu'][0]]} tokens, greedy cpu "
+                  f"{runs['cpu'][1]}, card {runs['cuda'][1]}; card launches "
+                  f"{json.dumps(launches[layout])}", flush=True)
+            if runs["cuda"] != runs["cpu"]:
+                raise AssertionError(f"templated parity {layout}: the card's "
+                                     "prompt ids or greedy tokens differ "
+                                     "from the CPU's")
+            need = (["paged_decode_attention"] if layout == "paged"
+                    else ["decode_attention", "prefill_attention"])
+            for n in need:
+                if launches[layout][n] <= 0:
+                    raise AssertionError(f"templated parity {layout}: no {n} "
+                                         "launch")
+    finally:
+        shutil.rmtree(models, ignore_errors=True)
+    return launches
+
+
 def phase_embed(url: str, name: str, hidden: int, chat: str, chat_body: dict,
                 chat_text: str, L: int) -> int:
     """Embeddings and rerank requests sent while a repeat of a chat request
@@ -1925,6 +2469,7 @@ def main() -> int:
     parity = phase_parity()
     spec = phase_spec_parity()
     phase_frozen_parity()
+    phase_templated_parity()
     profile = "--profile" in sys.argv[1:]
     bf16 = phase_serve(card, profile=profile)
     served = {"": bf16["launches"],
@@ -1935,6 +2480,7 @@ def main() -> int:
     served["spec"] = phase_serve(card, spec=True, profile=profile,
                                  ref_texts=bf16["texts"])["launches"]
     served["tools"] = phase_serve_tools(card)["launches"]
+    served["templates"] = phase_serve_templates(card)["launches"]
     src = "localai_tpu_torch/csrc/"
     k1_src = src + "paged_decode_attention.cu"
     k1_tpu = "localai_tpu/ops/attention.py:458"
@@ -1978,6 +2524,10 @@ def main() -> int:
         # (step() or step_frozen_n), K1 once per layer per step
         _entry("paged_decode_attention_constrained", k1_src, k1_tpu,
                served["tools"]["paged_decode_attention"], k1["bf16"]),
+        # the templated serve (two engines loaded from YAML): K1 once per
+        # layer per decode step of both
+        _entry("paged_decode_attention_templated", k1_src, k1_tpu,
+               served["templates"]["paged_decode_attention"], k1["bf16"]),
         # verify windows (M = slots x 5 rows): launches inside the windows
         # of the spec parity phase, times at M = 40 (8 slots)
         _entry("w8_matmul_verify", src + "w8_matmul.cu",

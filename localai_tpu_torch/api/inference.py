@@ -21,6 +21,23 @@ from localai_tpu_torch import functions as fx
 log = logging.getLogger(__name__)
 
 
+def _function_def(f: dict) -> dict:
+    """A function definition as the JAX package's schema dumps it (the
+    ``Functions`` a template renders): ``name`` and ``description``
+    (default "") first, then ``parameters`` and the other keys, nulls
+    left out."""
+    out = {"name": f.get("name", ""), "description": f.get("description",
+                                                           "")}
+    for k in ("name", "description"):
+        if not isinstance(out[k], str):
+            raise ValueError(f"function {k} must be a string")
+    if f.get("parameters") is not None:
+        out["parameters"] = f["parameters"]
+    out.update((k, v) for k, v in f.items()
+               if k not in out and k != "parameters" and v is not None)
+    return out
+
+
 def tool_definitions(body: dict) -> list[dict]:
     """tools ∪ legacy functions, as plain function dicts (copies)."""
     tools, functions = body.get("tools") or [], body.get("functions") or []
@@ -31,11 +48,11 @@ def tool_definitions(body: dict) -> list[dict]:
         if not isinstance(t, dict):
             raise ValueError("each tool must be an object")
         if isinstance(t.get("function"), dict):
-            out.append(dict(t["function"]))
+            out.append(_function_def(t["function"]))
     for f in functions:
         if not isinstance(f, dict):
             raise ValueError("each function must be an object")
-        out.append(dict(f))
+        out.append(_function_def(f))
     return out
 
 

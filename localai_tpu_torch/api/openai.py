@@ -1,33 +1,47 @@
-"""OpenAI-compatible endpoints: chat completions, completions,
+"""OpenAI-compatible endpoints: chat completions, completions, edits,
 embeddings, models.
 
-Port of the plain-text part of ``localai_tpu/api/openai.py`` (and the
-response shapes of ``api/schema.py``), written as framework-free
-functions over parsed JSON: ``api.server`` maps HTTP onto them. Response
-JSON has the JAX package's shape — id, object, created, model, choices
-with ``delta`` (stream) or ``message``, finish_reason, usage; embeddings
-as a list of ``embedding`` objects. Non-streamed choices go through the
-model's text shaping (:func:`finetune_result`). Chat completions serve
-constrained decoding as the JAX package does (``api.inference``): tools
-and legacy functions under every ``tool_choice``, answered with
-``tool_calls``, and ``response_format`` ``json_object`` /
-``json_schema``. A raw ``grammar`` string is refused with a 400 (the JAX
-package reads it nowhere), and so are tools and a non-text
-``response_format`` on ``/v1/completions``, which the JAX package ignores
-there: a silent no-op would serve something else than was asked for.
+Port of the text part of ``localai_tpu/api/openai.py`` (and the response
+shapes of ``api/schema.py``), written as framework-free functions over
+parsed JSON: ``api.server`` maps HTTP onto them. Response JSON has the
+JAX package's shape — id, object, created, model, choices with ``delta``
+(stream) or ``message``, finish_reason, usage; embeddings as a list of
+``embedding`` objects. Prompts are built by the model's templates
+(``templates.chat``): the tokenizer chat template (``chat_template`` /
+``use_tokenizer_template``) or ``chat_message`` + ``chat``/``functions``
+for chats, ``completion`` for each prompt of a completion, ``edit`` for
+an edit. ``n`` choices each get ``seed + i`` (and a fresh constraint);
+streamed, every choice streams on its own index (a streamed tools chat
+stays single-choice, as on the JAX package). Non-streamed choices go
+through the model's text shaping (:func:`finetune_result`). Chat
+completions serve constrained decoding as the JAX package does
+(``api.inference``): tools and legacy functions under every
+``tool_choice``, answered with ``tool_calls``, and ``response_format``
+``json_object`` / ``json_schema``. A raw ``grammar`` string is refused
+with a 400 (the JAX package reads it nowhere), and so are tools and a
+non-text ``response_format`` on ``/v1/completions``, which the JAX
+package ignores there: a silent no-op would serve something else than
+was asked for.
 """
 
 from __future__ import annotations
 
 import json
+import queue
 import re
+import threading
 import time
 import uuid
 from typing import Any, Iterator, Optional
 
 from localai_tpu_torch.api import inference as inf
 from localai_tpu_torch.engine.scheduler import GenHandle, GenRequest
-from localai_tpu_torch.templates.chat import build_chat_prompt
+from localai_tpu_torch.templates.chat import (
+    apply_tokenizer_template,
+    build_chat_prompt,
+    build_completion_prompt,
+    build_edit_prompt,
+)
 
 SSE_DONE = b"data: [DONE]\n\n"
 REQUEST_TIMEOUT_S = 600.0
@@ -59,12 +73,12 @@ def usage(prompt_tokens: int, completion_tokens: int) -> dict:
             "total_tokens": prompt_tokens + completion_tokens}
 
 
-def chat_chunk(rid: str, model: str, delta: dict, *,
+def chat_chunk(rid: str, model: str, delta: dict, *, index: int = 0,
                finish_reason: Optional[str] = None,
                usage_dict: Optional[dict] = None) -> dict:
     out = {"id": rid, "object": "chat.completion.chunk",
            "created": int(time.time()), "model": model,
-           "choices": [{"index": 0, "delta": delta,
+           "choices": [{"index": index, "delta": delta,
                         "finish_reason": finish_reason}]}
     if usage_dict is not None:
         out["usage"] = usage_dict
@@ -72,8 +86,9 @@ def chat_chunk(rid: str, model: str, delta: dict, *,
 
 
 def completion_response(rid: str, model: str, choices: list[dict],
-                        usage_dict: dict) -> dict:
-    return {"id": rid, "object": "text_completion",
+                        usage_dict: dict, *,
+                        object_name: str = "text_completion") -> dict:
+    return {"id": rid, "object": object_name,
             "created": int(time.time()),
             "model": model, "choices": choices, "usage": usage_dict}
 
@@ -84,6 +99,13 @@ def embeddings_response(model: str, vectors: list[list[float]],
             "data": [{"object": "embedding", "index": i, "embedding": v}
                      for i, v in enumerate(vectors)],
             "usage": usage(prompt_tokens, 0)}
+
+
+def chat_response(rid: str, model: str, choices: list[dict],
+                  usage_dict: dict) -> dict:
+    return {"id": rid, "object": "chat.completion",
+            "created": int(time.time()), "model": model,
+            "choices": choices, "usage": usage_dict}
 
 
 def models_response(names: list[str]) -> dict:
@@ -165,9 +187,18 @@ def _refuse_completion_constraints(body: dict) -> None:
                             "served on /v1/chat/completions only")
 
 
+def _choices(body: dict) -> int:
+    """The request's ``n`` (1 when absent or below 1)."""
+    try:
+        return max(1, int(body.get("n") or 1))
+    except (TypeError, ValueError):
+        raise APIError(400, "n must be an integer") from None
+
+
 def _gen_request(sm, body: dict, prompt: str, stream: bool,
-                 constraint=None) -> GenRequest:
-    """Request body over the model's YAML defaults → GenRequest."""
+                 constraint=None, seed_offset: int = 0) -> GenRequest:
+    """Request body over the model's YAML defaults → GenRequest; choice
+    ``seed_offset`` of an ``n`` > 1 request samples with ``seed + i``."""
     _refuse_grammar(body)
     cfg = sm.config
     p = cfg.parameters.merged_with({
@@ -185,77 +216,220 @@ def _gen_request(sm, body: dict, prompt: str, stream: bool,
                 logit_bias[int(k)] = float(v)
             except (TypeError, ValueError):
                 continue
-    if int(body.get("n") or 1) != 1:
-        raise APIError(400, "n > 1 is not supported yet")
+    seed = p.seed
+    if seed is not None and seed_offset:
+        seed = seed + seed_offset
     return GenRequest(
         prompt=sm.tokenizer.encode(prompt, add_bos=True),
         max_new_tokens=p.max_tokens or 2048,
         temperature=p.temperature, top_k=p.top_k, top_p=p.top_p,
         min_p=p.min_p, repeat_penalty=p.repeat_penalty,
         presence_penalty=p.presence_penalty,
-        frequency_penalty=p.frequency_penalty, seed=p.seed,
+        frequency_penalty=p.frequency_penalty, seed=seed,
         logit_bias=logit_bias,
         stop=tuple(cfg.stopwords) + tuple(stops), constraint=constraint,
-        stream=stream)
+        ignore_eos=bool(body.get("ignore_eos")), stream=stream)
 
 
-def _wait(handle: GenHandle) -> None:
-    """Join a generation; on timeout cancel it (the slot frees on the next
-    engine step). A handle that failed with no output is a backend failure
-    (502), not an empty completion."""
+_MESSAGE_FIELDS = ("role", "name", "content", "tool_calls", "function_call")
+
+
+def _str_field(value: Any, what: str) -> str:
+    if not isinstance(value, str):
+        raise APIError(400, f"{what} must be a string")
+    return value
+
+
+def _dump_function_call(fc: dict, what: str) -> dict:
+    """A function call as the JAX package's schema dumps it: ``name`` and
+    ``arguments`` (default "") first, then its other non-null keys."""
+    out = {"name": _str_field(fc.get("name", ""), f"{what}.name"),
+           "arguments": _str_field(fc.get("arguments", ""),
+                                   f"{what}.arguments")}
+    out.update((k, v) for k, v in fc.items()
+               if k not in out and v is not None)
+    return out
+
+
+def _dump_tool_call(tc: Any) -> dict:
+    if not isinstance(tc, dict):
+        raise APIError(400, "tool_calls entries must be objects")
+    fn = tc.get("function", {})
+    if not isinstance(fn, dict):
+        raise APIError(400, "tool_calls[].function must be an object")
+    out: dict[str, Any] = {"id": _str_field(tc.get("id", ""),
+                                            "tool_calls[].id")}
+    if tc.get("index") is not None:
+        out["index"] = tc["index"]
+    out["type"] = _str_field(tc.get("type", "function"),
+                             "tool_calls[].type")
+    out["function"] = _dump_function_call(fn, "tool_calls[].function")
+    out.update((k, v) for k, v in tc.items()
+               if k not in out and v is not None)
+    return out
+
+
+def chat_messages(raw: Any) -> list[dict]:
+    """The request's messages as the templates see them: the JAX package
+    validates them into its schema and dumps them without nulls (a role
+    defaults to ``user``, tool calls get their default fields, declared
+    fields come first)."""
+    if not isinstance(raw, list):
+        raise APIError(400, "messages must be a list")
+    out = []
+    for m in raw:
+        if not isinstance(m, dict):
+            raise APIError(400, "each message must be an object")
+        d: dict[str, Any] = {"role": _str_field(m.get("role", "user"),
+                                                "role")}
+        if m.get("name") is not None:
+            d["name"] = _str_field(m["name"], "name")
+        content = m.get("content")
+        if content is not None:
+            if not (isinstance(content, str) or (
+                    isinstance(content, list)
+                    and all(isinstance(p, dict) for p in content))):
+                raise APIError(400, "content must be a string or a list "
+                                    "of parts")
+            d["content"] = content
+        if m.get("tool_calls") is not None:
+            if not isinstance(m["tool_calls"], list):
+                raise APIError(400, "tool_calls must be a list")
+            d["tool_calls"] = [_dump_tool_call(tc) for tc in m["tool_calls"]]
+        fc = m.get("function_call")
+        if fc is not None:
+            if not isinstance(fc, dict):
+                raise APIError(400, "function_call must be an object")
+            try:
+                d["function_call"] = _dump_function_call(fc, "function_call")
+            except APIError:
+                d["function_call"] = fc   # kept as given, as a plain dict
+        d.update((k, v) for k, v in m.items()
+                 if k not in _MESSAGE_FIELDS and v is not None)
+        out.append(d)
+    return out
+
+
+def _wait(*handles: GenHandle) -> None:
+    """Join generations; on timeout cancel them all (the slots free on
+    the next engine step). A handle that failed with no output is a
+    backend failure (502), not an empty completion."""
+    deadline = time.monotonic() + REQUEST_TIMEOUT_S
     try:
-        handle.result(REQUEST_TIMEOUT_S)
-    except TimeoutError:
-        handle.cancel()
-        raise APIError(504, "generation exceeded the request deadline "
-                            "and was cancelled") from None
-    if handle.finish_reason == "error" and not handle.text:
-        raise APIError(502, "generation failed in the backend")
+        for h in handles:
+            h.result(max(0.0, deadline - time.monotonic()))
+    except BaseException as e:
+        for h in handles:
+            h.cancel()
+        if isinstance(e, TimeoutError):
+            raise APIError(504, "generation exceeded the request deadline "
+                                "and was cancelled") from None
+        raise
+    for h in handles:
+        if h.finish_reason == "error" and not h.text:
+            raise APIError(502, "generation failed in the backend")
+
+
+def _merged(handles: list[GenHandle]) -> Iterator[tuple[int, Any]]:
+    """(choice index, stream item) of several generations, as they
+    arrive; each handle is drained by a thread of its own."""
+    q: "queue.Queue[tuple[int, Any]]" = queue.Queue()
+
+    def pump(i: int, h: GenHandle) -> None:
+        for item in h:
+            q.put((i, item))
+
+    for i, h in enumerate(handles):
+        threading.Thread(target=pump, args=(i, h), daemon=True,
+                         name=f"choice-{i}").start()
+    live = len(handles)
+    while live:
+        i, item = q.get()
+        if item.finish_reason is not None:
+            live -= 1
+        yield i, item
+
+
+def _chat_prompt(sm, messages: list[dict],
+                 tctx: Optional[inf.ToolContext]) -> str:
+    """The tokenizer chat template for ``use_tokenizer_template``, or for
+    a ``chat_template`` on a chat without tools (tool requests stay on
+    the model's templates, which render function schemas and tool turns);
+    else ``build_chat_prompt``."""
+    cfg = sm.config
+    if cfg.template.use_tokenizer_template or (
+            cfg.template.chat_template and tctx is None):
+        return apply_tokenizer_template(
+            sm.tokenizer, messages, chat_template=cfg.template.chat_template)
+    return build_chat_prompt(
+        sm.templates, cfg, messages,
+        functions=tctx.functions if tctx else None,
+        use_function_template=tctx is not None,
+        grammar_active=tctx is not None and tctx.constraint is not None)
 
 
 def chat(manager, body: dict):
     """POST /v1/chat/completions → a response dict, or an iterator of SSE
     frames when ``stream`` is set. Tools (``api.inference.prepare_tools``)
     or a JSON ``response_format`` attach a grammar constraint to the
-    request; a tools answer is parsed into ``tool_calls``."""
-    sm, model = _serving(manager, body)
-    messages = body.get("messages")
-    if not isinstance(messages, list):
-        raise APIError(400, "messages must be a list")
+    request; a tools answer is parsed into ``tool_calls``. ``n`` > 1
+    submits every choice at once, each with ``seed + i`` and a constraint
+    of its own."""
+    sm, model = _serving(manager, body, "chat")
+    messages = chat_messages(body.get("messages"))
     stream = bool(body.get("stream"))
+    n = _choices(body)
     try:
         tctx = inf.prepare_tools(sm, body)
     except inf.ToolGrammarError as e:
         raise APIError(400, str(e)) from e
-    constraint = (tctx.constraint if tctx is not None
-                  else inf.response_format_constraint(sm, body))
-    prompt = build_chat_prompt(
-        sm.config, messages,
-        functions=tctx.functions if tctx else None,
-        use_function_template=tctx is not None,
-        grammar_active=tctx is not None and tctx.constraint is not None)
+    rf_constraint = (None if tctx is not None
+                     else inf.response_format_constraint(sm, body))
+    prompt = _chat_prompt(sm, messages, tctx)
+    constraint = tctx.constraint if tctx is not None else rf_constraint
     gr = _gen_request(sm, body, prompt, stream, constraint)
     rid = new_id("chatcmpl")
-    h = sm.scheduler.submit(gr)
+
+    def extra_choice(i: int) -> GenRequest:
+        """Choice i > 0 needs a fresh constraint (FSM state is
+        per-request)."""
+        c = None
+        if tctx is not None:
+            c = inf.prepare_tools(sm, body).constraint
+        elif rf_constraint is not None:
+            c = inf.response_format_constraint(sm, body)
+        return _gen_request(sm, body, prompt, stream, c, seed_offset=i)
+
     if stream:
-        return _chat_stream(h, rid, model, sm.config, tctx)
-    _wait(h)
-    text = finetune_result(sm.config, "", h.text)
-    message: dict[str, Any] = {"role": "assistant"}
-    finish = h.finish_reason or "stop"
-    if tctx is not None:
-        content, tool_calls = inf.parse_tool_calls(text, tctx)
-        message["content"] = content or None
-        if tool_calls:
-            message["tool_calls"] = tool_calls
-            finish = "tool_calls"
-    else:
-        message["content"] = text
-    return {"id": rid, "object": "chat.completion",
-            "created": int(time.time()), "model": model,
-            "choices": [{"index": 0, "message": message,
-                         "finish_reason": finish}],
-            "usage": usage(h.prompt_tokens, h.completion_tokens)}
+        if n > 1 and tctx is None:
+            grs = [gr] + [extra_choice(i) for i in range(1, n)]
+            return _chat_stream_n([sm.scheduler.submit(g) for g in grs],
+                                  rid, model)
+        return _chat_stream(sm.scheduler.submit(gr), rid, model, sm.config,
+                            tctx)
+    handles = []
+    for i in range(n):
+        handles.append(sm.scheduler.submit(gr if i == 0
+                                           else extra_choice(i)))
+    _wait(*handles)
+    choices = []
+    for i, h in enumerate(handles):
+        text = finetune_result(sm.config, "", h.text)
+        message: dict[str, Any] = {"role": "assistant"}
+        finish = h.finish_reason or "stop"
+        if tctx is not None:
+            content, tool_calls = inf.parse_tool_calls(text, tctx)
+            message["content"] = content or None
+            if tool_calls:
+                message["tool_calls"] = tool_calls
+                finish = "tool_calls"
+        else:
+            message["content"] = text
+        choices.append({"index": i, "message": message,
+                        "finish_reason": finish})
+    return chat_response(rid, model, choices, usage(
+        handles[-1].prompt_tokens, sum(h.completion_tokens
+                                       for h in handles)))
 
 
 def _chat_stream(handle: GenHandle, rid: str, model: str, cfg,
@@ -298,49 +472,129 @@ def _chat_stream(handle: GenHandle, rid: str, model: str, cfg,
     yield SSE_DONE
 
 
+def _chat_stream_n(handles: list[GenHandle], rid: str,
+                   model: str) -> Iterator[bytes]:
+    """``n`` > 1 plain-chat streaming: every choice decodes concurrently,
+    interleaved on the one SSE stream by index; one usage frame for the
+    request (prompt tokens counted once)."""
+    try:
+        for i in range(len(handles)):
+            yield sse_event(chat_chunk(rid, model, {"role": "assistant",
+                                                    "content": ""}, index=i))
+        for i, item in _merged(handles):
+            if item.finish_reason is not None:
+                yield sse_event(chat_chunk(rid, model, {}, index=i,
+                                           finish_reason=item.finish_reason))
+            elif item.delta:
+                yield sse_event(chat_chunk(rid, model,
+                                           {"content": item.delta}, index=i))
+    except BaseException:
+        for h in handles:
+            h.cancel()
+        raise
+    frame = chat_chunk(rid, model, {})
+    frame["choices"] = []
+    frame["usage"] = usage(handles[0].prompt_tokens,
+                           sum(h.completion_tokens for h in handles))
+    yield sse_event(frame)
+    yield SSE_DONE
+
+
+def _prompt_list(body: dict) -> list[str]:
+    """``prompt`` as a list of strings (one string, or a list of them)."""
+    raw = body.get("prompt")
+    if isinstance(raw, list):
+        if not all(isinstance(p, str) for p in raw):
+            raise APIError(400, "prompt must be a string or a list of "
+                                "strings")
+        return list(raw) or [""]
+    if raw is not None and not isinstance(raw, str):
+        raise APIError(400, "prompt must be a string or a list of strings")
+    return [raw or ""]
+
+
 def completions(manager, body: dict):
-    """POST /v1/completions → a response dict, or SSE frames."""
-    sm, model = _serving(manager, body)
-    prompt = body.get("prompt", "")
-    if not isinstance(prompt, str):
-        raise APIError(400, "prompt must be a string (lists are not "
-                            "supported yet)")
+    """POST /v1/completions → a response dict, or SSE frames. Each prompt
+    of a list goes through the ``completion`` template and runs ``n``
+    choices; choice ``p * n + i`` is prompt p's i-th."""
+    sm, model = _serving(manager, body, "completion")
+    prompts = _prompt_list(body)
     stream = bool(body.get("stream"))
     _refuse_completion_constraints(body)
-    gr = _gen_request(sm, body, prompt, stream)
+    n = _choices(body)
+    templated = [build_completion_prompt(sm.templates, sm.config, p)
+                 for p in prompts]
     rid = new_id("cmpl")
-    h = sm.scheduler.submit(gr)
     if stream:
-        return _completions_stream(h, rid, model)
-    _wait(h)
-    text = finetune_result(sm.config, prompt, h.text,
-                           echo=bool(body.get("echo")))
-    return completion_response(
-        rid, model, [{"index": 0, "text": text,
-                      "finish_reason": h.finish_reason or "stop"}],
-        usage(h.prompt_tokens, h.completion_tokens))
+        handles = [sm.scheduler.submit(_gen_request(
+            sm, body, prompt, stream, seed_offset=i))
+            for prompt in templated for i in range(n)]
+        return _completions_stream(handles, rid, model)
+    choices = []
+    prompt_total = completion_total = 0
+    for raw, prompt in zip(prompts, templated):
+        handles = [sm.scheduler.submit(_gen_request(
+            sm, body, prompt, stream, seed_offset=i)) for i in range(n)]
+        _wait(*handles)
+        for h in handles:
+            prompt_total += h.prompt_tokens
+            completion_total += h.completion_tokens
+            choices.append({"index": len(choices),
+                            "text": finetune_result(
+                                sm.config, raw, h.text,
+                                echo=bool(body.get("echo"))),
+                            "finish_reason": h.finish_reason or "stop"})
+    return completion_response(rid, model, choices,
+                               usage(prompt_total, completion_total))
 
 
-def _completions_stream(handle: GenHandle, rid: str,
+def _completions_stream(handles: list[GenHandle], rid: str,
                         model: str) -> Iterator[bytes]:
-    finish = "stop"
+    """Every choice streams concurrently on its own index."""
     try:
-        for item in handle:
+        for i, item in _merged(handles):
+            h = handles[i]
             if item.finish_reason is not None:
-                finish = item.finish_reason
-                break
-            if item.delta:
-                yield sse_event(completion_response(
-                    rid, model, [{"index": 0, "text": item.delta,
-                                  "finish_reason": None}],
-                    usage(handle.prompt_tokens, handle.completion_tokens)))
+                text, finish = "", item.finish_reason
+            elif item.delta:
+                text, finish = item.delta, None
+            else:
+                continue
+            yield sse_event(completion_response(
+                rid, model, [{"index": i, "text": text,
+                              "finish_reason": finish}],
+                usage(h.prompt_tokens, h.completion_tokens)))
     except BaseException:
-        handle.cancel()
+        for h in handles:
+            h.cancel()
         raise
-    yield sse_event(completion_response(
-        rid, model, [{"index": 0, "text": "", "finish_reason": finish}],
-        usage(handle.prompt_tokens, handle.completion_tokens)))
     yield SSE_DONE
+
+
+def edits(manager, body: dict) -> dict:
+    """POST /v1/edits: each input (``prompt``, a string or a list, as the
+    JAX package reads it) goes through the ``edit`` template with
+    ``instruction``; one choice each, ``object: "edit"``."""
+    sm, model = _serving(manager, body, "edit")
+    inputs = _prompt_list(body)
+    instruction = body.get("instruction") or ""
+    if not isinstance(instruction, str):
+        raise APIError(400, "instruction must be a string")
+    rid = new_id("edit")
+    choices = []
+    ptotal = ctotal = 0
+    for i, text_in in enumerate(inputs):
+        prompt = build_edit_prompt(sm.templates, sm.config, text_in,
+                                   instruction)
+        h = sm.scheduler.submit(_gen_request(sm, body, prompt, False))
+        _wait(h)
+        ptotal += h.prompt_tokens
+        ctotal += h.completion_tokens
+        choices.append({"index": i,
+                        "text": finetune_result(sm.config, prompt, h.text),
+                        "finish_reason": h.finish_reason or "stop"})
+    return completion_response(rid, model, choices, usage(ptotal, ctotal),
+                               object_name="edit")
 
 
 def embeddings(manager, body: dict) -> dict:
@@ -374,8 +628,18 @@ def embeddings(manager, body: dict) -> dict:
     return embeddings_response(model, vectors, prompt_tokens)
 
 
-def list_models(manager) -> dict:
-    return models_response(manager.loader.names())
+def list_models(manager, query: Optional[dict] = None) -> dict:
+    """GET /v1/models; ``?filter=<regex>`` keeps the names it matches (an
+    invalid regex filters nothing, as on the JAX package)."""
+    names = manager.loader.names()
+    flt = (query or {}).get("filter")
+    if flt:
+        try:
+            rx = re.compile(flt)
+            names = [n for n in names if rx.search(n)]
+        except re.error:
+            pass
+    return models_response(names)
 
 
 def readyz(manager) -> dict:

@@ -1,11 +1,14 @@
 """HTTP server for the port, on the standard library's ThreadingHTTPServer.
 
-Routes (the JAX package's aiohttp server has many more):
-  * POST /v1/chat/completions  (plain JSON, or SSE with ``"stream": true``)
-  * POST /v1/completions
+Routes (the JAX package's aiohttp server has many more), each OpenAI one
+also under the JAX package's unversioned alias:
+  * POST /v1/chat/completions, /chat/completions  (plain JSON, or SSE with
+    ``"stream": true``)
+  * POST /v1/completions, /completions
+  * POST /v1/edits, /edits
   * POST /v1/embeddings, /embeddings
   * POST /v1/rerank, /rerank
-  * GET  /v1/models
+  * GET  /v1/models, /models  (``?filter=<regex>``)
   * GET  /readyz
 One thread per connection; each request blocks its own thread on the
 scheduler handle while the engine thread batches all of them.
@@ -16,6 +19,7 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from localai_tpu_torch.api import jina
@@ -24,10 +28,13 @@ from localai_tpu_torch.models.manager import ModelManager
 
 log = logging.getLogger(__name__)
 
-_POST = {"/v1/chat/completions": oa.chat, "/v1/completions": oa.completions,
+_POST = {"/v1/chat/completions": oa.chat, "/chat/completions": oa.chat,
+         "/v1/completions": oa.completions, "/completions": oa.completions,
+         "/v1/edits": oa.edits, "/edits": oa.edits,
          "/v1/embeddings": oa.embeddings, "/embeddings": oa.embeddings,
          "/v1/rerank": jina.rerank, "/rerank": jina.rerank}
-_GET = {"/v1/models": oa.list_models, "/readyz": oa.readyz}
+_GET = {"/v1/models": oa.list_models, "/models": oa.list_models,
+        "/readyz": lambda manager, query: oa.readyz(manager)}
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -50,10 +57,12 @@ class _Handler(BaseHTTPRequestHandler):
                                       "code": status}})
 
     def do_GET(self):  # noqa: N802 — http.server's naming
-        fn = _GET.get(self.path.split("?", 1)[0])
+        path, _, qs = self.path.partition("?")
+        fn = _GET.get(path)
         if fn is None:
             return self._error(404, f"no route {self.path}")
-        self._json(200, fn(self.server.manager))
+        query = {k: v[-1] for k, v in urllib.parse.parse_qs(qs).items()}
+        self._json(200, fn(self.server.manager, query))
 
     def do_POST(self):  # noqa: N802
         fn = _POST.get(self.path.split("?", 1)[0])

@@ -1,8 +1,12 @@
 """Model-config registry: load YAML files from a models dir.
 
 Port of ``localai_tpu/config/loader.py`` (single-document files and whole
-dirs). ``yaml`` is imported inside the file reader: the port's runtime
-does not need it unless a config file is read.
+dirs). Files are read by the port's own YAML reader
+(``config.yaml_subset``, PyYAML's ``safe_load`` meaning, stdlib only), in
+every environment. Each config then goes through backend and chat-default
+autodetection (``models.detect.autodetect_config``), as on the JAX
+package; a detected backend the port has no engine for is refused, naming
+it.
 """
 
 from __future__ import annotations
@@ -12,17 +16,22 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-from localai_tpu_torch.config.model_config import ModelConfig
+from localai_tpu_torch.config.model_config import (
+    CROSS_ENCODER_BACKENDS,
+    ModelConfig,
+)
+from localai_tpu_torch.config.yaml_subset import safe_load
 
 log = logging.getLogger(__name__)
 
 
 def load_config_file(path: str | Path) -> ModelConfig:
     """Load a single-document model YAML."""
-    import yaml
-
-    with open(path) as f:
-        data = yaml.safe_load(f) or {}
+    with open(path, encoding="utf-8") as f:
+        data = safe_load(f.read()) or {}
+    if not isinstance(data, dict):
+        raise ValueError(f"a model config is a mapping, not a "
+                         f"{type(data).__name__}")
     return ModelConfig.from_dict(data)
 
 
@@ -46,12 +55,34 @@ class ConfigLoader:
                 continue
             try:
                 cfg = load_config_file(entry)
+                if not cfg.name:
+                    cfg.name = entry.stem
+                cfg.set_defaults(context_size=context_size)
+                self._autodetect(cfg)
             except ValueError as e:
                 raise ValueError(f"{entry}: {e}") from None
-            if not cfg.name:
-                cfg.name = entry.stem
-            cfg.set_defaults(context_size=context_size)
             self.register(cfg)
+
+    def _autodetect(self, cfg: ModelConfig) -> None:
+        """Backend selection for bare ``model:`` configs by checkpoint
+        sniff, and the family's chat defaults (``models/detect.py``); a
+        detected backend the port has no engine for is refused."""
+        explicit = cfg.backend
+        try:
+            from localai_tpu_torch.models.detect import autodetect_config
+
+            autodetect_config(cfg, self.model_path)
+        except Exception as e:  # noqa: BLE001 — sniffing must not block load
+            log.warning("backend autodetect for %s failed: %s",
+                        cfg.name, e)
+        if cfg.backend and not explicit:
+            if cfg.backend in CROSS_ENCODER_BACKENDS:
+                raise ValueError(
+                    f"model {cfg.name!r}: its checkpoint is detected as "
+                    f"backend {cfg.backend!r}, which is not ported yet; it "
+                    "needs the cross-encoder and sentence encoder "
+                    "(ROADMAP A8: models/reranker.py)")
+            cfg.check_supported()
 
     def register(self, cfg: ModelConfig) -> None:
         with self._lock:

@@ -3,20 +3,23 @@
 Port of the fields of ``localai_tpu/config/model_config.py`` that the port
 reads (the JAX package validates with pydantic, which the port's runtime
 does not depend on). Unknown keys are ignored; keys that would ask for a
-feature the port does not have yet — Go/Jinja prompt templates,
-``int8_w8a8`` quantization, self-extend
-(``engine.grp_attn_n > 1``), a vision tower (``mmproj``), the prompt
-cache (``prompt_cache_path``), a raw ``grammar`` string (which the JAX
-package declares and reads nowhere) and the backends whose engines are
-not ported (``UNPORTED_BACKENDS``) — raise a clear error at load instead
-of serving something else than was asked for. Function calling (a
-``function`` section, :class:`FunctionsConfig`) is served. int8
-and int4 weights (``engine.quantization``), int8/int4 KV storage
-(``engine.kv_dtype``; int4 on the paged layout only), the contiguous KV
-layout (``engine.kv_paged: false``), embeddings (``embeddings: true``)
-and speculative decoding (``engine.spec``, ``spec_drafter``,
-``spec_gamma``, ``n_draft``, ``draft_model``: on by default for paged
-engines, as in the JAX package) are served.
+feature the port does not have yet — ``int8_w8a8`` quantization,
+self-extend (``engine.grp_attn_n > 1``), a vision tower (``mmproj``), the
+prompt cache (``prompt_cache_path``), a raw ``grammar`` string (which the
+JAX package declares and reads nowhere) and the backends whose engines
+are not ported (``UNPORTED_BACKENDS``) — raise a clear error at load
+instead of serving something else than was asked for. Prompt templates
+(``template:``, :class:`TemplateConfig`: Go or Jinja ``chat_message``,
+``chat``, ``completion``, ``edit``, ``functions``, a Jinja
+``chat_template`` and ``use_tokenizer_template``, rendered by the port's
+own engine in ``templates/``), function calling (a ``function`` section,
+:class:`FunctionsConfig`), int8 and int4 weights
+(``engine.quantization``), int8/int4 KV storage (``engine.kv_dtype``;
+int4 on the paged layout only), the contiguous KV layout
+(``engine.kv_paged: false``), embeddings (``embeddings: true``) and
+speculative decoding (``engine.spec``, ``spec_drafter``, ``spec_gamma``,
+``n_draft``, ``draft_model``: on by default for paged engines, as in the
+JAX package) are served.
 """
 
 from __future__ import annotations
@@ -46,6 +49,10 @@ UNPORTED_BACKENDS = {
             "models/mamba_serving.py)",
     "huggingface": _REMOTE_API,
     "langchain-huggingface": _REMOTE_API,
+    "whisper": "the speech-to-text engine (ROADMAP A9: models/whisper.py, "
+               "audio/mel.py)",
+    "vits": "the text-to-speech engine (ROADMAP A9: audio/vits.py)",
+    "diffusers": "the image pipeline (ROADMAP A10: image/)",
 }
 
 
@@ -78,9 +85,14 @@ class PredictionParams:
 
 @dataclasses.dataclass
 class TemplateConfig:
-    """Prompt template references. The port renders chat prompts with the
-    role-prefix fallback only (templates.chat); any named template is
-    refused at load."""
+    """Prompt template references (the JAX package's TemplateConfig). Each
+    of ``chat``, ``chat_message``, ``completion``, ``edit`` and
+    ``functions`` names a ``.tmpl``/``.jinja``/``.j2`` file of the models
+    dir or is the template's body, in Go template or Jinja syntax
+    (``templates.cache``); ``chat_template`` is a Jinja chat template over
+    ``messages`` (filled from the checkpoint by ``config.guesser`` for a
+    template-less config); ``use_tokenizer_template`` renders the chat
+    with it."""
 
     chat: Optional[str] = None
     chat_message: Optional[str] = None
@@ -90,15 +102,6 @@ class TemplateConfig:
     use_tokenizer_template: bool = False
     chat_template: Optional[str] = None
     join_chat_messages_by_character: Optional[str] = None
-
-    def named_templates(self) -> list[str]:
-        """The template fields that are set (the port has no engine for
-        them yet)."""
-        out = [f for f in ("chat", "chat_message", "completion", "edit",
-                           "functions", "chat_template") if getattr(self, f)]
-        if self.use_tokenizer_template:
-            out.append("use_tokenizer_template")
-        return out
 
 
 @dataclasses.dataclass
@@ -168,6 +171,7 @@ class ModelConfig:
     mmproj: Optional[str] = None       # vision tower: refused (not ported)
     context_size: Optional[int] = None
     seed: Optional[int] = None         # random-weight presets + sampling
+    system_prompt: str = ""            # SystemPrompt of the templates
     roles: dict[str, str] = dataclasses.field(default_factory=dict)
     stopwords: list[str] = dataclasses.field(default_factory=list)
     # completion text shaping (api.openai.finetune_result)
@@ -212,12 +216,6 @@ class ModelConfig:
 
     def check_supported(self) -> None:
         """Raise for config that asks for what the port cannot serve yet."""
-        named = self.template.named_templates()
-        if named:
-            raise ValueError(
-                f"model {self.name or self.model!r}: prompt templates "
-                f"({', '.join(named)}) are not supported by the PyTorch "
-                "port yet; remove them to use the role-prefix chat format")
         quant = self.engine.quantization
         if quant and quant not in ("int8", "int4"):
             raise ValueError(
@@ -272,7 +270,7 @@ class ModelConfig:
         if self.embeddings or "embed" in name:
             guessed.add("embeddings")
         if name in LLM_BACKENDS:
-            guessed |= {"chat", "completion"}
+            guessed |= {"chat", "completion", "edit"}
         if "rerank" in name or self.embeddings:
             # embedding-capable models score query/document pairs
             guessed.add("rerank")

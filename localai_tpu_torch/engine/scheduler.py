@@ -82,6 +82,7 @@ class GenRequest:
     logit_bias: Optional[dict[int, float]] = None
     stop: Sequence[str] = ()
     constraint: Optional[TokenConstraint] = None
+    ignore_eos: bool = False            # decode past EOS to max_new_tokens
     # an SSE client is attached: the scheduler bounds delivery lag by
     # shrinking the per-dispatch step count while this request is active
     stream: bool = False
@@ -737,7 +738,8 @@ class Scheduler:
         if handle.cancelled:
             self._release(slot, ctx, "cancelled")
             return
-        if token_id in getattr(self.tokenizer, "eos_ids", set()):
+        if (not req.ignore_eos) and token_id in getattr(
+                self.tokenizer, "eos_ids", set()):
             handle._emit(ctx.stopper.flush(), None)
             self._release(slot, ctx, "stop")
             return

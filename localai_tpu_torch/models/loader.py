@@ -6,7 +6,8 @@ a leading axis. The ``safetensors`` package is not a dependency of the
 port: :func:`read_safetensors_index` parses the format itself (an 8-byte
 little-endian header length, a JSON header, then raw little-endian
 tensor bytes) and each tensor is read on demand through
-``torch.frombuffer``.
+``torch.frombuffer``; :func:`write_llama_checkpoint` writes the same
+layout.
 """
 
 from __future__ import annotations
@@ -138,6 +139,70 @@ def load_llama_params(
             cfg = LlamaConfig(**{**cfg.__dict__, "tie_word_embeddings": True})
     _check_shapes(cfg, params)
     return cfg, params
+
+
+_HF_LAYER_NAMES = {
+    "attn_norm": ("input_layernorm.weight", False),
+    "wq": ("self_attn.q_proj.weight", True),
+    "wk": ("self_attn.k_proj.weight", True),
+    "wv": ("self_attn.v_proj.weight", True),
+    "wo": ("self_attn.o_proj.weight", True),
+    "mlp_norm": ("post_attention_layernorm.weight", False),
+    "w_gate": ("mlp.gate_proj.weight", True),
+    "w_up": ("mlp.up_proj.weight", True),
+    "w_down": ("mlp.down_proj.weight", True),
+    "bq": ("self_attn.q_proj.bias", False),
+    "bk": ("self_attn.k_proj.bias", False),
+    "bv": ("self_attn.v_proj.bias", False),
+}
+
+
+def write_llama_checkpoint(model_dir: str | Path, cfg: LlamaConfig,
+                           params: dict) -> Path:
+    """Write a stacked float parameter dict as an HF llama checkpoint
+    (``config.json`` + one float32 ``model.safetensors``), the layout
+    :func:`load_llama_params` reads: so weights drawn once (a debug
+    preset on the CPU) load identically on every device."""
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    tensors = {"model.embed_tokens.weight": params["embed"],
+               "model.norm.weight": params["final_norm"]}
+    for key, stacked in params["layers"].items():
+        hf, transpose = _HF_LAYER_NAMES[key]
+        for i in range(cfg.num_layers):
+            t = stacked[i]
+            tensors[f"model.layers.{i}.{hf}"] = t.T if transpose else t
+    if "lm_head" in params:
+        tensors["lm_head.weight"] = params["lm_head"].T
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        data = t.detach().to("cpu", torch.float32).contiguous().numpy(
+        ).tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        offset += len(data)
+        blobs.append(data)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(model_dir / "model.safetensors", "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for data in blobs:
+            f.write(data)
+    (model_dir / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "attention_bias": cfg.attention_bias,
+        "rope_scaling": cfg.rope_scaling,
+        "sliding_window": cfg.sliding_window}))
+    return model_dir
 
 
 def _check_shapes(cfg: LlamaConfig, params: dict) -> None:

@@ -9,8 +9,9 @@ package's ``build_runner``); ``engine.quantization`` (int8/int4) quantizes
 the weights on the device after they are built or loaded, as the JAX
 package does. Speculative decoding is on by default for paged engines
 (the n-gram self-drafter) and for any engine with a ``draft_model``, as
-in the JAX package. The prompt cache and the self-healing supervisor
-are not ported yet.
+in the JAX package. Each serving model carries a ``TemplateCache`` over
+the models dir, as the JAX package's does. The prompt cache and the
+self-healing supervisor are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from localai_tpu_torch.engine.runner import ModelRunner
 from localai_tpu_torch.engine.scheduler import Scheduler
 from localai_tpu_torch.models.quant import quantize_params
 from localai_tpu_torch.models.registry import LoadedModel, resolve_model
+from localai_tpu_torch.templates.cache import TemplateCache
 
 log = logging.getLogger(__name__)
 
@@ -42,6 +44,7 @@ class ServingModel:
     runner: ModelRunner
     scheduler: Scheduler
     tokenizer: Any
+    templates: TemplateCache          # over the models dir
     loaded_at: float = dataclasses.field(default_factory=time.monotonic)
 
     def close(self) -> None:
@@ -132,7 +135,8 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
              runner.paged_attn_impl if runner.paged else runner.attn_impl,
              runner.attn_impl)
     return ServingModel(name=mcfg.name, config=mcfg, runner=runner,
-                        scheduler=scheduler, tokenizer=model.tokenizer)
+                        scheduler=scheduler, tokenizer=model.tokenizer,
+                        templates=TemplateCache(app.model_path))
 
 
 class ModelManager:

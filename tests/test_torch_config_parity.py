@@ -11,7 +11,12 @@ runner), which stay until the port has them, and of what the JAX package
 accepts and ignores (a raw ``grammar`` string, constraints on
 ``/v1/completions``), the ``function:`` section read into equal fields
 by both packages, and the choice of speculative decoding (on by default for a paged engine, off
-under ``spec: false`` or ``LOCALAI_SPEC=0``, its knobs honoured).
+under ``spec: false`` or ``LOCALAI_SPEC=0``, its knobs honoured). Then
+prompt templates over HTTP: one models dir with a Go-template YAML and a
+Jinja ``chat_template`` YAML, served by both packages — templated,
+multi-turn, chat_template and tools chats, ``n: 2`` streamed and not,
+list-prompt completions, edits, ``ignore_eos``, the unversioned aliases
+and the models filter.
 """
 
 import dataclasses
@@ -370,3 +375,219 @@ def test_mamba_yaml_builds_the_recurrent_engine_on_the_reference(tmp_path):
         jm.shutdown_all()
     with pytest.raises(ValueError, match="backend 'mamba'"):
         load_config_file(tmp_path / "m.yaml")
+
+
+# -- prompt templates over HTTP ---------------------------------------------
+
+TEMPLATED_DOC = {
+    "context_size": 512, "system_prompt": "Be kind.",
+    "engine": ENGINE,
+    "template": {
+        "chat_message": "<|{{.RoleName}}|>{{if .Content}}{{.Content}}"
+                        "{{else if .FunctionCall}}{{toJson .FunctionCall}}"
+                        "{{end}}<|end|>",
+        "chat": "{{.Input}}\n<|assistant|>",
+        "functions": "{{.SystemPrompt}} tools:{{range .Functions}}"
+                     "{{toJson .}}{{end}}\n{{.Input}}\n<|assistant|>",
+        "completion": "Q: {{.Input}}\nA:",
+        "edit": "{{.Instruction}}\n---\n{{.Input}}\n---\n"}}
+CHAT_TEMPLATE_DOC = {
+    "context_size": 512, "engine": ENGINE,
+    "template": {"chat_template":
+                 "{% for m in messages %}[{{ m['role'] }}] "
+                 "{{ m['content'] | trim }}\n{% endfor %}"
+                 "{% if add_generation_prompt %}[assistant] {% endif %}"}}
+SMALL_TOOL = [{"type": "function", "function": {
+    "name": "set_mode", "parameters": {
+        "type": "object", "properties": {"on": {"type": "boolean"}},
+        "required": ["on"]}}}]
+HELLO = [{"role": "system", "content": "Answer briefly."},
+         {"role": "user", "content": "hello there"}]
+
+
+@pytest.fixture(scope="module")
+def templated_servers(tmp_path_factory):
+    """Both HTTP servers over one models dir: a YAML with Go templates
+    (``t``), one with a Jinja chat_template (``ct``), on a tiny random
+    checkpoint."""
+    root = tmp_path_factory.mktemp("templated")
+    cfg = jl.LlamaConfig(vocab_size=512, hidden_size=64,
+                         intermediate_size=128, num_layers=2, num_heads=4,
+                         num_kv_heads=2, max_position_embeddings=512,
+                         dtype="float32")
+    ckpt = write_hf_checkpoint(root / "ckpt", cfg,
+                               jl.init_params(jax.random.key(7), cfg))
+    models = root / "models"
+    models.mkdir()
+    for name, doc in (("t", TEMPLATED_DOC), ("ct", CHAT_TEMPLATE_DOC)):
+        (models / f"{name}.yaml").write_text(yaml.safe_dump(
+            {"name": name, "model": str(ckpt), **doc}))
+    loader = ConfigLoader(models)
+    loader.load_from_path()
+    port = APIServer(ModelManager(AppConfig(model_path=str(models),
+                                            device="cpu"), loader),
+                     "127.0.0.1", 0).start()
+    ref = _ServerThread(make_state(models))
+    yield port.url, ref.base
+    ref.stop()
+    port.shutdown()
+
+
+def _post_any(url, body):
+    """JSON, or the list of SSE frames of a streamed answer."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        if body.get("stream"):
+            return [json.loads(line[6:]) for line in r.read().splitlines()
+                    if line.startswith(b"data: {")]
+        return json.loads(r.read())
+
+
+def _stable(out):
+    """An answer with its random parts (ids, timestamps) taken out."""
+    out = json.loads(json.dumps(out))
+    out.pop("id", None)
+    out.pop("created", None)
+    for c in out.get("choices", []):
+        for tc in (c.get("message") or {}).get("tool_calls") or []:
+            tc.pop("id", None)
+    return out
+
+
+def _per_choice(frames):
+    """Streamed chat frames → {index: (text, finish)} and the usage."""
+    text, finish, used = {}, {}, None
+    for f in frames:
+        if "usage" in f:
+            used = f["usage"]
+        for c in f["choices"]:
+            i = c["index"]
+            text[i] = text.get(i, "") + (c.get("delta", {}).get("content")
+                                         or c.get("text") or "")
+            if c["finish_reason"] is not None:
+                finish[i] = c["finish_reason"]
+    return text, finish, used
+
+
+CHAT_BODIES = {
+    "templated-chat": {"model": "t", "messages": HELLO},
+    "multi-turn": {"model": "t", "messages": HELLO + [
+        {"role": "assistant", "content": "hi!"},
+        {"role": "user", "content": "and now?"}]},
+    "chat-template": {"model": "ct", "messages": HELLO},
+    "tools-functions": {"model": "t", "messages": HELLO, "tools": SMALL_TOOL,
+                        "tool_choice": "required"},
+    "n2": {"model": "t", "messages": HELLO, "n": 2},
+    "n2-chat-template": {"model": "ct", "messages": HELLO, "n": 2},
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHAT_BODIES))
+def test_templated_chat_answers_as_the_jax_server(templated_servers, name):
+    """The same prompt tokens and the same greedy text (or the same
+    seeded choices) from both servers."""
+    body = {"max_tokens": 24, "temperature": 0, **CHAT_BODIES[name]}
+    if name.startswith("tools"):
+        body["max_tokens"] = 60
+    got = [_stable(_post_any(url + "/v1/chat/completions", body))
+           for url in templated_servers]
+    assert got[0] == got[1]
+    assert len(got[0]["choices"]) == body.get("n", 1)
+    if name.startswith("n2"):
+        assert got[0]["choices"][0]["message"] == \
+            got[0]["choices"][1]["message"]
+
+
+def test_extra_choices_sample_with_seed_plus_index(templated_servers):
+    """Choice i of a seeded ``n`` > 1 request samples as a single request
+    with ``seed + i`` does (the JAX package's rule; its sampler draws
+    from another generator, so the texts are compared on the port)."""
+    body = {"model": "ct", "messages": HELLO, "max_tokens": 12,
+            "temperature": 0.9, "seed": 5}
+    port = templated_servers[0] + "/v1/chat/completions"
+    both = _post_any(port, dict(body, n=2))["choices"]
+    for i in (0, 1):
+        one = _post_any(port, dict(body, seed=5 + i))["choices"][0]
+        assert both[i]["message"] == one["message"]
+
+
+@pytest.mark.parametrize("model", ["t", "ct"])
+def test_streamed_n2_chat_answers_as_the_jax_server(templated_servers,
+                                                    model):
+    body = {"model": model, "messages": HELLO, "n": 2, "max_tokens": 16,
+            "temperature": 0, "stream": True}
+    got = [_per_choice(_post_any(url + "/v1/chat/completions", body))
+           for url in templated_servers]
+    assert got[0] == got[1]
+    text, finish, used = got[0]
+    assert sorted(text) == [0, 1] and text[0] == text[1]
+    assert finish[0] == finish[1] and used["completion_tokens"] > 0
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["plain", "stream"])
+def test_list_prompt_completion_with_n2_as_the_jax_server(templated_servers,
+                                                          stream):
+    body = {"model": "t", "prompt": ["the sky is", "two plus two"], "n": 2,
+            "max_tokens": 12, "temperature": 0, "stream": stream}
+    got = [_post_any(url + "/v1/completions", body)
+           for url in templated_servers]
+    if stream:
+        got = [_per_choice(frames)[:2] for frames in got]
+        assert got[0] == got[1]
+        text = got[0][0]
+    else:
+        got = [_stable(g) for g in got]
+        assert got[0] == got[1]
+        text = {c["index"]: c["text"] for c in got[0]["choices"]}
+    assert sorted(text) == [0, 1, 2, 3]
+    assert text[0] == text[1] and text[2] == text[3]
+
+
+@pytest.mark.parametrize("prompt", ["teh cat sat", ["one", "two"]])
+def test_edits_answer_as_the_jax_server(templated_servers, prompt):
+    body = {"model": "t", "prompt": prompt, "instruction": "Fix it.",
+            "max_tokens": 12, "temperature": 0}
+    got = [_stable(_post_any(url + "/v1/edits", body))
+           for url in templated_servers]
+    assert got[0] == got[1]
+    assert got[0]["object"] == "edit"
+
+
+@pytest.mark.parametrize("ignore_eos", [False, True])
+def test_ignore_eos_runs_to_max_tokens_as_on_the_jax_server(
+        templated_servers, ignore_eos):
+    """A logit bias makes EOS the greedy pick: without ``ignore_eos``
+    both servers stop at once, with it both run to ``max_tokens``."""
+    body = {"model": "t", "prompt": "x", "max_tokens": 6, "temperature": 0,
+            "logit_bias": {"257": 100}, "ignore_eos": ignore_eos}
+    got = [_stable(_post_any(url + "/v1/completions", body))
+           for url in templated_servers]
+    assert got[0] == got[1]
+    assert got[0]["usage"]["completion_tokens"] == (6 if ignore_eos else 0)
+
+
+@pytest.mark.parametrize("path,body", [
+    ("/chat/completions", {"model": "t", "messages": HELLO}),
+    ("/completions", {"model": "t", "prompt": "the sky is"}),
+    ("/edits", {"model": "t", "prompt": "teh", "instruction": "Fix."}),
+])
+def test_unversioned_aliases_answer_as_the_jax_server(templated_servers,
+                                                      path, body):
+    body = {"max_tokens": 8, "temperature": 0, **body}
+    got = [_stable(_post_any(url + path, body)) for url in templated_servers]
+    assert got[0] == got[1]
+    assert got[0] == _stable(_post_any(templated_servers[0] + "/v1" + path,
+                                       body))
+
+
+@pytest.mark.parametrize("query,want", [("", ["ct", "t"]),
+                                        ("?filter=^c", ["ct"]),
+                                        ("?filter=[", ["ct", "t"])])
+def test_models_list_and_filter_as_on_the_jax_server(templated_servers,
+                                                     query, want):
+    for base in templated_servers:
+        for path in ("/v1/models", "/models"):
+            with urllib.request.urlopen(base + path + query) as r:
+                names = [m["id"] for m in json.loads(r.read())["data"]]
+            assert names == want

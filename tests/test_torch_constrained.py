@@ -535,8 +535,20 @@ def test_tool_grammar_that_cannot_be_built(two_servers, choice):
     {"grammar": "root ::= \"x\""},
     {"n": 2, "tools": TOOLS}])
 def test_chat_still_refuses_grammar_and_n(two_servers, body):
+    """A raw grammar is refused; ``n: 2`` with tools is served since
+    templates landed: two tool-call choices, each with its own
+    constraint, equal to the JAX server's."""
+    req = {"model": "f", "max_tokens": 120, "temperature": 0,
+           "messages": [{"role": "user", "content": "hi"}], **body}
+    if "n" in body:
+        got = [_without_ids(_post(url + "/v1/chat/completions",
+                                  dict(req, tool_choice="required")))
+               for url in two_servers]
+        assert got[0] == got[1]
+        assert [c["index"] for c in got[0]["choices"]] == [0, 1]
+        assert all(c["finish_reason"] == "tool_calls"
+                   for c in got[0]["choices"])
+        return
     with pytest.raises(urllib.error.HTTPError) as e:
-        _post(two_servers[0] + "/v1/chat/completions", {
-            "model": "f", "max_tokens": 2,
-            "messages": [{"role": "user", "content": "hi"}], **body})
+        _post(two_servers[0] + "/v1/chat/completions", req)
     assert e.value.code == 400

@@ -799,3 +799,90 @@ def test_cuda_step_frozen_n_matches_the_cpu(layout, dtype, kv, hd, frozen):
         scale = float(y.abs().max())
         tol = (2e-2 * scale if forced else 1e-4) + qc
         assert float((x - y).abs().max()) <= tol
+
+
+TEMPLATED_YAML = """\
+name: t
+model: {model}
+context_size: 512
+engine:
+  dtype: float32
+  kv_dtype: {kv}
+  max_slots: 4
+  kv_block_tokens: 16
+  prefill_chunk: 32
+  kv_paged: {paged}
+template:
+  chat_message: |-
+    <|start_header_id|>{{{{if eq .RoleName "assistant"}}}}assistant{{{{else if eq .RoleName "system"}}}}system{{{{else}}}}user{{{{end}}}}<|end_header_id|>
+
+    {{{{.Content}}}}<|eot_id|>
+  chat: "<|begin_of_text|>{{{{.Input}}}}\\n<|start_header_id|>assistant<|end_header_id|>\\n\\n"
+"""
+TEMPLATED_CHATS = [
+    [{"role": "system", "content": "Be brief."},
+     {"role": "user", "content": "The paged kernel walks each table"}],
+    [{"role": "user", "content": "hi"},
+     {"role": "assistant", "content": "hello"},
+     {"role": "user", "content": "again"}],
+]
+
+
+def _templated_run(models, device):
+    """(prompt ids, greedy ids, decode steps, layers) of the chats, served
+    in turn through the chat endpoint from the models dir on ``device``."""
+    from localai_tpu_torch.api import openai as oa
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.models.manager import ModelManager
+
+    loader = ConfigLoader(models)
+    loader.load_from_path()
+    manager = ModelManager(AppConfig(model_path=str(models), device=device),
+                           loader)
+    try:
+        sm = manager.get("t")
+        handles = []
+        submit = sm.scheduler.submit
+        sm.scheduler.submit = lambda req: handles.append(submit(req)) or \
+            handles[-1]
+        steps0 = sm.runner.decode_steps
+        for messages in TEMPLATED_CHATS:
+            oa.chat(manager, {"model": "t", "messages": messages,
+                              "max_tokens": 16, "temperature": 0})
+        return ([list(h.request.prompt) for h in handles],
+                [list(h.token_ids) for h in handles],
+                sm.runner.decode_steps - steps0, sm.runner.cfg.num_layers)
+    finally:
+        manager.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,kv", [("paged", "float32"),
+                                       ("contiguous", "float32"),
+                                       ("paged", "int8")])
+def test_cuda_templated_chat_matches_the_cpu(tmp_path, layout, kv):
+    """A chat_message + chat template from a YAML read by the port's own
+    reader: on the card the prompt ids equal the CPU rendering's and the
+    greedy tokens the CPU's; on a paged pool K1 launches once per layer
+    per decode step."""
+    _card()
+    from localai_tpu_torch.models.loader import write_llama_checkpoint
+    from localai_tpu_torch.models.registry import resolve_model
+
+    # debug:small's weights drawn once on the CPU, so both devices load
+    # the same ones
+    small = resolve_model("debug:small", dtype="float32", device="cpu")
+    ckpt = write_llama_checkpoint(tmp_path / "ckpt", small.cfg, small.params)
+    (tmp_path / "t.yaml").write_text(TEMPLATED_YAML.format(
+        model=ckpt, kv=kv, paged="true" if layout == "paged" else "false"))
+    k1 = tops.paged_decode_attention
+    before = k1.launches
+    card = _templated_run(tmp_path, "cuda")
+    launched = k1.launches - before
+    cpu = _templated_run(tmp_path, "cpu")
+    assert card[0] == cpu[0]
+    assert card[1] == cpu[1]
+    steps, layers = card[2], card[3]
+    assert steps > 0
+    assert launched == (layers * steps if layout == "paged" else 0)

@@ -35,6 +35,7 @@ from localai_tpu_torch.config.loader import ConfigLoader  # noqa: E402
 from localai_tpu_torch.config.model_config import ModelConfig  # noqa: E402
 from localai_tpu_torch.engine.runner import ModelRunner  # noqa: E402
 from localai_tpu_torch.models.manager import ModelManager  # noqa: E402
+from localai_tpu_torch.templates.cache import TemplateCache as PortTemplates  # noqa: E402
 from localai_tpu_torch.templates.chat import build_chat_prompt  # noqa: E402
 from test_torch_llama import (  # noqa: E402
     one_torch_thread,  # noqa: F401 — autouse fixture
@@ -83,10 +84,10 @@ def test_embed_refuses_an_input_past_the_context():
 
 def test_usecases_follow_the_jax_guess():
     assert ModelConfig.from_dict({"model": "x"}).guess_usecases() == {
-        "chat", "completion"}
+        "chat", "completion", "edit"}
     emb = ModelConfig.from_dict({"model": "x", "embeddings": True})
-    assert emb.guess_usecases() == {"chat", "completion", "embeddings",
-                                    "rerank"}
+    assert emb.guess_usecases() == {"chat", "completion", "edit",
+                                    "embeddings", "rerank"}
     assert ModelConfig.from_dict(
         {"model": "x", "backend": "reranker"}).guess_usecases() == {"rerank"}
     known = ModelConfig.from_dict({"model": "x", "embeddings": True,
@@ -221,7 +222,7 @@ def test_contiguous_chat_matches_jax_and_embeds_beside_it(served):
     sm = server.manager.get("c")
     assert not sm.runner.paged
     messages = [{"role": "user", "content": "tell me a story about a dog"}]
-    prompt = build_chat_prompt(loader.get("c"), messages)
+    prompt = build_chat_prompt(PortTemplates("."), loader.get("c"), messages)
     jm = jax_resolve(ckpt, dtype="float32")
     jr = JaxRunner(jm.cfg, jm.params, num_slots=4, max_ctx=128,
                    prefill_buckets=[32, 64], kv_dtype="float32", paged=False,

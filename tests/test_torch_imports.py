@@ -3,7 +3,9 @@
 The port and chip_smoke.py must import nothing of JAX or of the JAX
 package, and the port's runtime stands on the standard library, numpy and
 torch alone at import time (anything else is imported inside the function
-that needs it).
+that needs it). Neither imports Jinja2 or PyYAML anywhere, since the
+card's machine has neither: a models dir of YAMLs with templates loads,
+renders every kind of template and serves with both blocked.
 """
 
 import ast
@@ -110,3 +112,117 @@ def test_constrained_decoding_modules_are_covered():
            if PKG_DIR in p.parents}
     assert {"native/__init__.py", "functions/constraint.py",
             "api/inference.py"} <= rel
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name
+                         if p.parent == REPO else
+                         str(p.relative_to(PKG_DIR if PKG_DIR in p.parents
+                                           else REPO)))
+def test_sources_never_import_jinja2_or_yaml(path):
+    """Not at module level and not inside a function: the port has its own
+    YAML reader and template engine."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            names = [str(node.args[0].value)]
+        for n in names:
+            assert n.split(".")[0] not in ("jinja2", "yaml"), n
+
+
+BLOCKED_SERVE = r"""
+import importlib, json, sys, tempfile
+pkg, ref = sys.argv[1], sys.argv[2]
+for name in ("jinja2", "yaml", "jax", ref):
+    sys.modules[name] = None
+import chip_smoke
+oa = importlib.import_module(pkg + ".api.openai")
+AppConfig = importlib.import_module(pkg + ".config.app_config").AppConfig
+ConfigLoader = importlib.import_module(pkg + ".config.loader").ConfigLoader
+ModelManager = importlib.import_module(pkg + ".models.manager").ModelManager
+
+small = lambda text: (text.replace("debug:llama3-8b", "debug:tiny")
+                      .replace("bfloat16", "float32")
+                      .replace("context_size: 4096", "context_size: 512"))
+models = tempfile.mkdtemp()
+chip_smoke.write_models_dir(models, {
+    chip_smoke.TEMPLATED: small(chip_smoke.TEMPLATED_YAML),
+    chip_smoke.CHAT_TEMPLATED: small(chip_smoke.CHAT_TEMPLATE_YAML)})
+loader = ConfigLoader(models)
+loader.load_from_path()
+manager = ModelManager(AppConfig(model_path=models, device="cpu"), loader)
+seen = []
+for name in loader.names():
+    sm = manager.get(name)
+    submit = sm.scheduler.submit
+    sm.scheduler.submit = (lambda req, _s=submit:
+                           seen.append(list(req.prompt)) or _s(req))
+out = {}
+for i in (0, 2, 3):  # chat_message + chat, functions, chat_template
+    body = dict(chip_smoke.TEMPLATED_CHATS[i], max_tokens=2)
+    if i == 2:  # keep the tools prompt inside debug:tiny's context
+        body["tools"] = body["tools"][1:]
+    out[f"chat{i}"] = oa.chat(manager, body)["choices"][0]["message"]
+out["completion"] = oa.completions(manager, dict(
+    chip_smoke.TEMPLATED_COMPLETION, max_tokens=2))["choices"][0]["text"]
+out["edit"] = oa.edits(manager, dict(chip_smoke.TEMPLATED_EDIT,
+                                     max_tokens=2))["object"]
+manager.shutdown()
+tok = sm.tokenizer
+golden = [tok.encode(chip_smoke.TEMPLATED_GOLDEN[i], add_bos=True)
+          for i in (0, 3)]
+print(json.dumps({"served": sorted(out), "prompts": len(seen),
+                  "golden_seen": all(g in seen for g in golden),
+                  "blocked": [m for m in ("jinja2", "yaml")
+                              if sys.modules.get(m) is not None]}))
+"""
+
+
+def test_templated_models_serve_without_jinja2_and_yaml():
+    """In a fresh interpreter where importing Jinja2, PyYAML, JAX or the
+    JAX package fails: a models dir of YAMLs with Go templates in block
+    scalars and a Jinja chat_template loads, and chats (message + chat,
+    functions, chat_template), a completion and an edit are served on the
+    CPU with their golden prompts."""
+    res = subprocess.run(
+        [sys.executable, "-c", BLOCKED_SERVE, PKG, PKG.rsplit("_", 1)[0]],
+        cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"served": ["chat0", "chat2", "chat3", "completion",
+                              "edit"],
+                   "prompts": 3 + 4 + 1, "golden_seen": True,
+                   "blocked": []}
+
+
+def test_hf_tokenizer_needs_a_package_the_card_lacks(tmp_path):
+    """ROADMAP §C 7, pinned until it is repaired: a checkpoint's
+    ``tokenizer.json`` is read through ``tokenizers`` (or
+    ``transformers``), which the card's machine lacks, so with both
+    blocked the port cannot encode a real checkpoint's prompts; only
+    the byte tokenizer of the debug presets loads."""
+    (tmp_path / "tokenizer.json").write_text("{}")
+    code = (
+        "import sys\n"
+        "for name in ('tokenizers', 'transformers'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        "tok = importlib.import_module(sys.argv[1] + '.utils.tokenizer')\n"
+        "print(type(tok.load_tokenizer(sys.argv[3])).__name__)\n"
+        "tok.load_tokenizer(sys.argv[2])\n"
+    )
+    (tmp_path / "bare").mkdir()
+    res = subprocess.run(
+        [sys.executable, "-c", code, PKG, str(tmp_path),
+         str(tmp_path / "bare")], cwd=REPO, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert res.stdout.strip() == "ByteTokenizer"
+    assert res.returncode != 0 and "ModuleNotFoundError" in res.stderr

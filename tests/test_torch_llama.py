@@ -221,3 +221,26 @@ def test_safetensors_loader_matches_jax(tmp_path, bias):
         for k in path:
             node = node[k.key]
         np.testing.assert_array_equal(node.numpy(), np.asarray(leaf))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_written_checkpoint_loads_back_on_both_packages(tmp_path, bias):
+    """``write_llama_checkpoint`` writes the HF layout both loaders read:
+    the port's weights come back bit for bit, and the JAX package reads
+    the same values and config."""
+    cfg_t = dataclasses.replace(T_PRESETS["tiny"], dtype="float32",
+                                attention_bias=bias)
+    params = tl.init_params(cfg_t, torch.Generator().manual_seed(4),
+                                "cpu")
+    ckpt = tloader.write_llama_checkpoint(tmp_path / "ckpt", cfg_t, params)
+    cfg_back, back = tloader.load_llama_params(ckpt, dtype="float32",
+                                               device="cpu")
+    assert dataclasses.replace(cfg_back, dtype="float32") == cfg_t
+    for k, v in params.items():
+        for kk, vv in (v.items() if isinstance(v, dict) else [(None, v)]):
+            got = back[k] if kk is None else back[k][kk]
+            assert torch.equal(got, vv), (k, kk)
+    cfg_j, pj = jloader.load_llama_params(ckpt, dtype="float32")
+    assert cfg_j.num_layers == cfg_t.num_layers
+    np.testing.assert_array_equal(np.asarray(pj["layers"]["wq"]),
+                                  params["layers"]["wq"].numpy())

@@ -30,6 +30,7 @@ from localai_tpu_torch.api.server import APIServer  # noqa: E402
 from localai_tpu_torch.config.app_config import AppConfig  # noqa: E402
 from localai_tpu_torch.config.loader import ConfigLoader, load_config_file  # noqa: E402
 from localai_tpu_torch.models.manager import ModelManager  # noqa: E402
+from localai_tpu_torch.templates.cache import TemplateCache as PortTemplates  # noqa: E402
 from localai_tpu_torch.templates.chat import build_chat_prompt  # noqa: E402
 from test_torch_llama import (  # noqa: E402
     one_torch_thread,  # noqa: F401 — autouse fixture
@@ -90,13 +91,13 @@ def _jax_text(served, prompt, n):
 def test_chat_prompt_matches_jax(served):
     mcfg = served[3].get("m")
     jcfg = JaxModelConfig(name="m", roles=ROLES)
-    assert build_chat_prompt(mcfg, MESSAGES) == jax_chat_prompt(
+    assert build_chat_prompt(PortTemplates("."), mcfg, MESSAGES) == jax_chat_prompt(
         TemplateCache("."), jcfg, MESSAGES)
 
 
 def test_chat_completion_matches_jax_greedy(served):
     server = served[0]
-    prompt = build_chat_prompt(served[3].get("m"), MESSAGES)
+    prompt = build_chat_prompt(PortTemplates("."), served[3].get("m"), MESSAGES)
     want, ntok, finish = _jax_text(served, prompt, 12)
     out = json.loads(_post(server, "/v1/chat/completions", {
         "model": "m", "messages": MESSAGES, "max_tokens": 12,
@@ -112,7 +113,7 @@ def test_chat_completion_matches_jax_greedy(served):
 
 def test_streamed_chat_matches_jax_greedy(served):
     server = served[0]
-    prompt = build_chat_prompt(served[3].get("m"), MESSAGES)
+    prompt = build_chat_prompt(PortTemplates("."), served[3].get("m"), MESSAGES)
     want, ntok, finish = _jax_text(served, prompt, 12)
     raw = _post(server, "/v1/chat/completions", {
         "model": "m", "messages": MESSAGES, "max_tokens": 12,
@@ -154,7 +155,14 @@ def test_models_readyz_and_errors(served):
     assert ready["status"] == "ok" and ready["models_configured"] == 1
     for body, code in (({"model": "nope", "messages": []}, 404),
                        ({"model": "m", "messages": "x"}, 400),
-                       ({"model": "m", "messages": [], "n": 2}, 400)):
+                       ({"model": "m", "messages": [], "n": 2,
+                         "max_tokens": 3, "temperature": 0}, 200)):
+        if code == 200:  # n > 1 is served: one choice per index
+            out = json.loads(_post(server, "/v1/chat/completions", body))
+            assert [c["index"] for c in out["choices"]] == [0, 1]
+            assert out["choices"][0]["message"] == \
+                out["choices"][1]["message"]
+            continue
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(server, "/v1/chat/completions", body)
         assert e.value.code == code
@@ -165,12 +173,20 @@ def test_models_readyz_and_errors(served):
     assert e.value.code == 400
 
 
-def test_config_with_named_template_is_refused(tmp_path):
+def test_config_with_named_template_loads_and_renders_as_on_jax(tmp_path):
+    """A named template loads (the port used to refuse it) and renders
+    the prompt the JAX package renders from the same YAML."""
     p = tmp_path / "t.yaml"
     p.write_text(yaml.safe_dump({"name": "t", "model": "debug:tiny",
                                  "template": {"chat": "chatml"}}))
-    with pytest.raises(ValueError, match="templates"):
-        load_config_file(p)
+    cfg = load_config_file(p)
+    assert cfg.template.chat == "chatml"
+    (tmp_path / "chatml.tmpl").write_text(
+        "{{.Input}}\n<|im_start|>assistant\n")
+    jcfg = JaxModelConfig(**yaml.safe_load(p.read_text()))
+    assert build_chat_prompt(PortTemplates(tmp_path), cfg, MESSAGES) == \
+        jax_chat_prompt(TemplateCache(tmp_path), jcfg, MESSAGES) == \
+        "be brief\nhello there, tell me a story\n<|im_start|>assistant\n"
     p.write_text(yaml.safe_dump({"name": "t", "model": "debug:tiny",
                                  "engine": {"max_slots": 2, "unknown": 1},
                                  "parameters": {"temperature": 0.2}}))
@@ -221,7 +237,7 @@ def test_quantized_model_serves_jax_greedy_text(served, tmp_path, quant):
                    prefill_chunk=32)
     sched = JaxScheduler(jr, jm.tokenizer)
     try:
-        prompt = build_chat_prompt(loader.get("q"), MESSAGES)
+        prompt = build_chat_prompt(PortTemplates("."), loader.get("q"), MESSAGES)
         want, ntok, _ = _jax_text((None, sched, jm.tokenizer, None), prompt,
                                   12)
         out = json.loads(_post(server, "/v1/chat/completions", {
@@ -269,7 +285,7 @@ def test_concurrent_chats_each_match_jax(served):
     for t in threads:
         t.join(120)
     for i, (content, n) in enumerate(asks):
-        prompt = build_chat_prompt(mcfg, [{"role": "user",
+        prompt = build_chat_prompt(PortTemplates("."), mcfg, [{"role": "user",
                                            "content": content}])
         want, _, finish = _jax_text(served, prompt, n)
         assert got[i] == (want, finish)
@@ -277,7 +293,7 @@ def test_concurrent_chats_each_match_jax(served):
 
 def test_stop_string_matches_jax(served):
     server, sched, tok, loader = served
-    prompt = build_chat_prompt(loader.get("m"), MESSAGES)
+    prompt = build_chat_prompt(PortTemplates("."), loader.get("m"), MESSAGES)
     full, _, _ = _jax_text(served, prompt, 12)
     stop = next(c for c in full[1:] if c != "\ufffd")
     h = sched.generate(JaxGenRequest(prompt=tok.encode(prompt, add_bos=True),
