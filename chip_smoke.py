@@ -106,7 +106,29 @@ Phases (any failure raises and the script exits non-zero):
      host ms to render each kind of template, first and cached. Before the
      serves, a templated parity phase loads debug:small in f32 from a YAML
      with a chat_message template, paged and contiguous: the card's prompt
-     ids and greedy tokens equal the CPU's (K1; K2 and K3).
+     ids and greedy tokens equal the CPU's (K1; K2 and K3);
+  6. a real checkpoint: a debug:small-width f32 checkpoint with Llama-3's
+     128256-id vocabulary and this script's tokenizer.json (a byte-level
+     BPE with Llama-3's split pattern, ``ignore_merges`` and Llama-3's 256
+     special tokens, its merges learned by a stdlib trainer over
+     ``TOKENIZER_CORPUS``) gives the card's prompt ids and greedy tokens
+     equal to the CPU's on both layouts, the ids the golden ones (held to
+     ``tokenizers`` by tests/test_torch_tokenizer.py); the real entry
+     point in subprocesses (``tokenize`` gives the golden ids, ``version``,
+     ``run`` with ``LOCALAI_KV_DTYPE=int8`` serves from an int8 pool on the
+     card, ``run --fleet-replicas 2`` exits 2); then the eighth serve,
+     ``llama3-8b-bf16-checkpoint``: a 16 GB bf16 checkpoint directory with
+     Meta-Llama-3-8B-Instruct's config.json (full widths and depth,
+     seeded random weights) is served through ``cli.main.build_server``
+     with ``LOCALAI_MODELS_PATH``, ``LOCALAI_API_KEYS`` and
+     ``LOCALAI_ADDRESS``: 401 without or with a wrong key, eight
+     concurrent greedy chats with their golden prompt ids (the streamed
+     one's deltas joining to its text), <|eot_id|> ending a biased chat,
+     a required tool call inside its DFA over the 128256 ids, K1 32 times
+     a decode step; it prints the checkpoint's write and load seconds,
+     tokens/s, the streamed TTFT, host ms to encode each golden prompt
+     (first and cached), to build the byte table over 128256 ids, and the
+     trie's size.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -119,6 +141,7 @@ from __future__ import annotations
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -1105,9 +1128,13 @@ def phase_frozen_parity() -> dict:
     return launches
 
 
-def _post(url: str, body: dict, timeout: float = 600):
+def _post(url: str, body: dict, timeout: float = 600,
+          key: Optional[str] = None):
+    headers = {"Content-Type": "application/json"}
+    if key is not None:
+        headers["Authorization"] = f"Bearer {key}"
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers=headers)
     return urllib.request.urlopen(req, timeout=timeout)
 
 
@@ -2268,6 +2295,814 @@ def phase_templated_parity() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The checkpoint serve: a Llama-3-8B checkpoint directory with a
+# tokenizer.json, read by the port's own reader
+
+# Llama-3's pre-tokenizer split pattern, as its tokenizer.json carries it
+LLAMA3_SPLIT_PATTERN = (
+    r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+    r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+# Llama-3's 256 special tokens, ids 128000..128255, by their published names
+LLAMA3_SPECIAL_TOKENS = (
+    ["<|begin_of_text|>", "<|end_of_text|>"]
+    + [f"<|reserved_special_token_{i}|>" for i in range(4)]
+    + ["<|start_header_id|>", "<|end_header_id|>",
+       "<|reserved_special_token_4|>", "<|eot_id|>"]
+    + [f"<|reserved_special_token_{i}|>" for i in range(5, 251)])
+LLAMA3_REGULAR_TOKENS = 128000
+# the fixed text the smoke's BPE merges are learned from
+TOKENIZER_CORPUS = """\
+A cache keeps the hot set of a program close to the processor. When the
+processor asks for a line that is not there, the request goes out to the
+next level of memory, and the line comes back some hundreds of cycles
+later. Caches are built in levels: the first is small and fast, the last
+is large and shared between the cores. A good program touches memory in
+order, reuses what it has loaded, and keeps its working set inside the
+cache it runs on. It's often said that we'd rather move compute to the
+data than data to the compute; they've shown it again and again, and
+you'll find it's true for attention kernels too.
+
+The model reads a prompt, writes its keys and values into the paged pool,
+and then decodes one token at a time for every slot of the batch. Each
+decode step reads the whole context of every slot once. The scheduler
+admits new requests between steps, streams their text as it is decoded,
+and stops a request at its end-of-turn token or at its length limit.
+
+def decode_step(runner, slots, positions):
+    logits = runner.forward(slots, positions)
+    return logits.argmax(-1).tolist()
+
+for i in range(10):
+    print(i, i * i, 2 ** i)
+
+Numbers: 0 1 2 3 4 5 6 7 8 9 10 12 100 128 256 1024 4096 65536 2024 3.14159
+The year 1999, the date 2024-10-17, the time 09:30:00, the price $12.50.
+Paris, Berlin, Tokyo, New York and London are large cities. Say hello!
+Bonjour, comment allez-vous ? Très bien, merci. Guten Tag! ¿Qué tal?
+Привет, как дела? こんにちは、元気ですか。你好，最近怎么样？안녕하세요.
+Why is the sky blue? Because air scatters short wavelengths more than
+long ones. Count to five: one, two, three, four, five. List three colours:
+red, green and blue. Write a haiku about caches: lines wait in the dark,
+a miss walks the long bus home, warm rows hold the light.
+"""
+CHECKPOINT = "llama3-8b-bf16-checkpoint"
+
+
+def _checkpoint_chat(messages: list, **extra) -> dict:
+    return {"model": CHECKPOINT, "max_tokens": 64, "temperature": 0,
+            "messages": messages, **extra}
+
+
+def _u(text: str) -> dict:
+    return {"role": "user", "content": text}
+
+
+# the eight concurrent chats of the checkpoint serve (the fifth streamed)
+CHECKPOINT_CHATS = [
+    _checkpoint_chat([{"role": "system",
+                       "content": "You are a concise assistant."},
+                      _u("What does a cache miss cost?")]),
+    _checkpoint_chat([_u("Translate 'the cache is warm' into French, "
+                         "German and Japanese.")]),
+    _checkpoint_chat([_u("What is 12345 × 678? Show the digits.")]),
+    _checkpoint_chat([{"role": "system", "content": "Answer in one word."},
+                      _u("Name a prime number above 100.")]),
+    _checkpoint_chat([_u("Bonjour ! Comment ça va ? 😀")], stream=True),
+    _checkpoint_chat([_u("hi"), {"role": "assistant",
+                                 "content": "Hello! How can I help?"},
+                      _u("Write a haiku about paged attention.")]),
+    _checkpoint_chat([_u("Привет! Как дела? こんにちは。")]),
+    _checkpoint_chat([_u("Fix this code:\r\ndef f(x):\n\treturn x+1\n")]),
+]
+
+
+def llama3_prompt(messages: list) -> str:
+    """The guesser's llama3 family chat template, written out."""
+    return ("<|begin_of_text|>" + "".join(
+        f"<|start_header_id|>{m['role']}<|end_header_id|>\n\n"
+        f"{m['content']}<|eot_id|>" for m in messages)
+        + "<|start_header_id|>assistant<|end_header_id|>\n\n")
+
+
+# the prompt ids each chat must reach the scheduler with: what
+# ``tokenizers`` gives for ``llama3_prompt`` of its messages over the
+# smoke's tokenizer.json (held so by tests/test_torch_tokenizer.py)
+CHECKPOINT_GOLDEN_IDS = [
+    [128000, 128006, 115, 121, 115, 267, 109, 128007, 10, 10, 89, 280, 407,
+     258, 660, 99, 345, 101, 406, 115, 446, 97, 110, 116, 46, 128009,
+     128006, 5450, 128007, 10, 10, 87, 282, 116, 334, 111, 265, 258, 399,
+     3314, 115, 269, 111, 300, 63, 128009, 128006, 97, 115, 115, 446, 97,
+     110, 116, 128007, 10, 10],
+    [128000, 128006, 5450, 128007, 10, 10, 84, 114, 97, 110, 115, 108, 97,
+     267, 32, 39, 116, 257, 399, 307, 1032, 109, 39, 291, 116, 111, 32, 70,
+     261, 110, 451, 44, 32, 71, 289, 109, 97, 110, 274, 32, 74, 97, 112,
+     97, 110, 265, 101, 46, 128009, 128006, 97, 115, 115, 446, 97, 110,
+     116, 128007, 10, 10],
+    [128000, 128006, 5450, 128007, 10, 10, 87, 282, 116, 307, 32, 350, 51,
+     52, 53, 32, 195, 151, 32, 54, 55, 56, 63, 32, 83, 104, 436, 259, 334,
+     105, 103, 344, 46, 128009, 128006, 97, 115, 115, 446, 97, 110, 116,
+     128007, 10, 10],
+    [128000, 128006, 115, 121, 115, 267, 109, 128007, 10, 10, 65, 110, 115,
+     119, 289, 291, 379, 751, 100, 46, 128009, 128006, 5450, 128007, 10,
+     10, 78, 347, 101, 258, 3787, 101, 32, 110, 117, 109, 98, 289, 258, 98,
+     111, 278, 32, 303, 48, 46, 128009, 128006, 97, 115, 115, 446, 97, 110,
+     116, 128007, 10, 10],
+    [128000, 128006, 5450, 128007, 10, 10, 66, 268, 106, 341, 32, 33,
+     16398, 109, 279, 116, 32, 195, 167, 97, 32, 118, 97, 32, 63, 32, 240,
+     159, 152, 128, 128009, 128006, 97, 115, 115, 446, 97, 110, 116,
+     128007, 10, 10],
+    [128000, 128006, 5450, 128007, 10, 10, 104, 105, 128009, 128006, 97,
+     115, 115, 446, 97, 110, 116, 128007, 10, 10, 72, 101, 108, 294, 33,
+     32, 72, 436, 269, 97, 110, 32, 73, 32, 257, 108, 112, 63, 128009,
+     128006, 5450, 128007, 10, 10, 87, 114, 105, 267, 258, 412, 105, 107,
+     117, 258, 98, 432, 271, 97, 318, 100, 6786, 116, 105, 268, 46, 128009,
+     128006, 97, 115, 115, 446, 97, 110, 116, 128007, 10, 10],
+    [128000, 128006, 5450, 128007, 10, 10, 208, 159, 209, 128, 208, 184,
+     208, 178, 423, 209, 130, 33, 411, 154, 424, 208, 186, 411, 180, 423,
+     208, 187, 424, 63, 32, 286, 147, 227, 130, 147, 286, 171, 286, 161,
+     286, 175, 422, 130, 128009, 128006, 97, 115, 115, 446, 97, 110, 116,
+     128007, 10, 10],
+    [128000, 128006, 5450, 128007, 10, 10, 70, 105, 120, 11784, 1365, 58,
+     13, 10, 270, 102, 276, 40, 120, 462, 9, 2527, 32, 120, 43, 49, 10,
+     128009, 128006, 97, 115, 115, 446, 97, 110, 116, 128007, 10, 10],
+]
+CHECKPOINT_GOLDEN = [(llama3_prompt(c["messages"]), ids) for c, ids in
+                     zip(CHECKPOINT_CHATS, CHECKPOINT_GOLDEN_IDS)]
+
+
+def _train_bpe(words: dict, vocab: dict, merges: list, limit: int) -> None:
+    """Greedy BPE over word counts: merge the most frequent adjacent pair
+    (the lexically largest on a tie) until none occurs twice or the
+    vocabulary holds ``limit`` tokens."""
+    seqs = {w: list(w) for w in words}
+    while len(vocab) < limit:
+        counts: dict = {}
+        for w, n in words.items():
+            s = seqs[w]
+            for pair in zip(s, s[1:]):
+                counts[pair] = counts.get(pair, 0) + n
+        if not counts:
+            return
+        (a, b), c = max(counts.items(), key=lambda kv: (kv[1], kv[0]))
+        if c < 2:
+            return
+        new = a + b
+        merges.append(f"{a} {b}")
+        vocab.setdefault(new, len(vocab))
+        for w in words:
+            s, out, i = seqs[w], [], 0
+            while i < len(s):
+                if i + 1 < len(s) and s[i] == a and s[i + 1] == b:
+                    out.append(new)
+                    i += 2
+                else:
+                    out.append(s[i])
+                    i += 1
+            seqs[w] = out
+
+
+def llama3_tokenizer_spec() -> dict:
+    """A Llama-3-shaped ``tokenizer.json`` (as a dict): byte-level BPE
+    with Llama-3's split pattern and ``ignore_merges``, 128000 regular
+    tokens and Llama-3's 256 special tokens at 128000..128255.
+
+    The 256 byte tokens come first, then the merges a stdlib BPE learns
+    over ``TOKENIZER_CORPUS`` (every pair that occurs twice or more), then
+    merges of two earlier tokens in a fixed order (the lowest sum of the
+    two ranks first; a space or a newline only in the left one) until
+    there are 128000 regular tokens: so the vocabulary has Llama-3's size
+    and every token is reachable by a merge."""
+    from localai_tpu_torch.utils.hf_tokenizer import BYTE_CHAR, onig_regex
+
+    words: dict = {}
+    for w in onig_regex(LLAMA3_SPLIT_PATTERN).findall(TOKENIZER_CORPUS):
+        w = "".join(BYTE_CHAR[b] for b in w.encode("utf-8"))
+        words[w] = words.get(w, 0) + 1
+    vocab = {BYTE_CHAR[b]: b for b in range(256)}
+    merges: list = []
+    _train_bpe(words, vocab, merges, LLAMA3_REGULAR_TOKENS)
+    # fill: token i + tail j along the diagonals i + j = 0, 1, 2, ...;
+    # each new token joins both lists (a tail has no space or newline)
+    toks = list(vocab)[256:]
+    ws = set("ĠĊĉč")
+    tails = [t for t in toks if not set(t) & ws]
+    s = 0
+    while len(vocab) < LLAMA3_REGULAR_TOKENS:
+        for i in range(max(0, s - len(tails) + 1), min(s + 1, len(toks))):
+            a, b = toks[i], tails[s - i]
+            new = a + b
+            if new in vocab or "<|" in new:
+                continue
+            merges.append(f"{a} {b}")
+            vocab[new] = len(vocab)
+            toks.append(new)
+            if not set(a) & ws:
+                tails.append(new)
+            if len(vocab) == LLAMA3_REGULAR_TOKENS:
+                break
+        s += 1
+    bos = LLAMA3_SPECIAL_TOKENS[0]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": LLAMA3_REGULAR_TOKENS + i, "content": c,
+             "single_word": False, "lstrip": False, "rstrip": False,
+             "normalized": False, "special": True}
+            for i, c in enumerate(LLAMA3_SPECIAL_TOKENS)],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": False, "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos,
+                                      "ids": [LLAMA3_REGULAR_TOKENS],
+                                      "tokens": [bos]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges}}
+
+
+def write_llama3_tokenizer(model_dir) -> float:
+    """Write ``llama3_tokenizer_spec()`` as ``model_dir/tokenizer.json``;
+    returns the seconds it took."""
+    import pathlib
+
+    t0 = time.monotonic()
+    model_dir = pathlib.Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    (model_dir / "tokenizer.json").write_text(
+        json.dumps(llama3_tokenizer_spec(), ensure_ascii=False),
+        encoding="utf-8")
+    return time.monotonic() - t0
+
+
+# Meta-Llama-3-8B-Instruct's config.json as published on Hugging Face
+LLAMA3_8B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 128000,
+    "eos_token_id": 128009, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 8192, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "rope_theta": 500000.0,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "transformers_version": "4.40.0.dev0", "use_cache": True,
+    "vocab_size": 128256}
+CHECKPOINT_KEYS = ("smoke-key-one", "smoke-key-two")
+
+
+def _scratch_dir(prefix: str, need_bytes: int) -> str:
+    """A new directory with ``need_bytes`` free: under the temp dir, else
+    under the checkout's ``build/``; raises when neither has the room."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    tried = []
+    for base in (tempfile.gettempdir(),
+                 str(pathlib.Path(__file__).resolve().parent / "build")):
+        pathlib.Path(base).mkdir(parents=True, exist_ok=True)
+        free = shutil.disk_usage(base).free
+        tried.append(f"{base}: {free / 1e9:.1f} GB free")
+        if free >= need_bytes:
+            return tempfile.mkdtemp(prefix=prefix, dir=base)
+    raise AssertionError(f"no room for {need_bytes / 1e9:.1f} GB "
+                         f"({'; '.join(tried)})")
+
+
+def write_checkpoint_dir(model_dir, cfg, params, dtype: str,
+                         hf_config: dict) -> dict:
+    """A checkpoint directory a user would point the server at: weights
+    (``models.loader.write_llama_checkpoint``), ``hf_config`` as
+    ``config.json``, ``generation_config.json`` with Llama-3-Instruct's
+    two end ids, and the smoke's ``tokenizer.json``. Returns the seconds
+    each part took."""
+    import pathlib
+
+    from localai_tpu_torch.models.loader import write_llama_checkpoint
+
+    model_dir = pathlib.Path(model_dir)
+    t0 = time.monotonic()
+    write_llama_checkpoint(model_dir, cfg, params, dtype=dtype)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t_weights = time.monotonic() - t0
+    (model_dir / "config.json").write_text(json.dumps(hf_config))
+    (model_dir / "generation_config.json").write_text(json.dumps(
+        {"bos_token_id": 128000, "eos_token_id": [128001, 128009]}))
+    return {"weights_s": t_weights,
+            "tokenizer_s": write_llama3_tokenizer(model_dir)}
+
+
+def _prefix_accepted(dfa, data: bytes) -> bool:
+    st = dfa.start
+    for b in data:
+        st = dfa.step_byte(st, b)
+        if st == dfa.DEAD:
+            return False
+    return True
+
+
+def phase_tokenizer_timing(ckpt: str) -> dict:
+    """Host ms of the port's reader on the checkpoint's tokenizer.json:
+    load, each golden prompt's encode first (the word cache cold) and
+    again (cached), the constraint module's byte table over all 128256
+    ids, and its trie."""
+    from localai_tpu_torch.functions.constraint import (
+        TokenTrie,
+        token_bytes_table,
+    )
+    from localai_tpu_torch.utils.tokenizer import load_tokenizer
+
+    t0 = time.perf_counter()
+    tok = load_tokenizer(ckpt)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    first, cached = [], []
+    for text, ids in CHECKPOINT_GOLDEN:
+        t0 = time.perf_counter()
+        got = tok.encode(text, add_bos=True)
+        t1 = time.perf_counter()
+        again = tok.encode(text, add_bos=True)
+        t2 = time.perf_counter()
+        if got != ids or again != ids:
+            raise AssertionError("the port's reader gives other ids than "
+                                 "the golden prompt's")
+        first.append((t1 - t0) * 1e3)
+        cached.append((t2 - t1) * 1e3)
+    t0 = time.perf_counter()
+    table = token_bytes_table(tok)
+    table_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    trie = TokenTrie(table)
+    trie_ms = (time.perf_counter() - t0) * 1e3
+    return {"tokenizer_load_ms": load_ms, "encode_ms_first": first,
+            "encode_ms_cached": cached, "prompt_tokens": [
+                len(ids) for _, ids in CHECKPOINT_GOLDEN],
+            "token_bytes_table_ms": table_ms,
+            "token_bytes_table_ids": len(table),
+            "maskable_ids": sum(1 for b in table if b),
+            "trie_nodes": trie.n_nodes, "trie_build_ms": trie_ms}
+
+
+def phase_serve_checkpoint(card: str) -> dict:
+    """The eighth serve, ``llama3-8b-bf16-checkpoint``: a checkpoint
+    directory with Meta-Llama-3-8B-Instruct's config.json (full widths and
+    depth), seeded random bf16 weights, generation_config.json and the
+    smoke's 128256-id tokenizer.json, read by the port's own reader. The
+    server starts through ``cli.main.build_server`` with
+    ``LOCALAI_MODELS_PATH``, ``LOCALAI_API_KEYS`` (two keys) and
+    ``LOCALAI_ADDRESS`` in the environment, from a YAML that names only
+    the checkpoint (family template, stopwords and tokenizer are
+    detected). Asserts, in order: ``/readyz`` open, a chat without a key
+    or with a wrong one 401, with either key answered; eight concurrent
+    greedy chats (one streamed) reach the scheduler with their golden
+    prompt ids and the streamed deltas join to that chat's text; a chat
+    whose logit_bias puts +100 on <|eot_id|> stops after one token with
+    empty content; a ``tool_choice: required`` chat decodes inside its
+    DFA over the real vocabulary; K1 launches 32 per decode step."""
+    import os
+    import pathlib
+    import shutil
+
+    from localai_tpu_torch.cli.main import build_server
+    from localai_tpu_torch.functions.constraint import token_bytes_table
+    from localai_tpu_torch.models.registry import resolve_model
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
+
+    root = pathlib.Path(_scratch_dir("checkpoint-serve-", 17_500_000_000))
+    ckpt, models = root / "Meta-Llama-3-8B-Instruct", root / "models"
+    saved_env = {k: os.environ.get(k) for k in (
+        "LOCALAI_MODELS_PATH", "LOCALAI_API_KEYS", "LOCALAI_ADDRESS",
+        "LOCALAI_PORT", "LOCALAI_CONFIG_PATH")}
+    server = None
+    try:
+        t0 = time.monotonic()
+        model = resolve_model("debug:llama3-8b", dtype="bfloat16", seed=11,
+                              device="cuda")
+        torch.cuda.synchronize()
+        draw_s = time.monotonic() - t0
+        hf_config = LLAMA3_8B_CONFIG
+        written = write_checkpoint_dir(ckpt, model.cfg, model.params,
+                                       "bfloat16", hf_config)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        size = sum(f.stat().st_size for f in ckpt.iterdir())
+        print(f"checkpoint {CHECKPOINT}: {size / 1e9:.2f} GB written in "
+              f"{written['weights_s']:.1f}s (+ tokenizer.json "
+              f"{written['tokenizer_s']:.1f}s; weights drawn on the card in "
+              f"{draw_s:.1f}s); card {card}", flush=True)
+        models.mkdir()
+        (models / f"{CHECKPOINT}.yaml").write_text(f"model: {ckpt}\n")
+        os.environ.update({
+            "LOCALAI_MODELS_PATH": str(models),
+            "LOCALAI_API_KEYS": ",".join(CHECKPOINT_KEYS),
+            "LOCALAI_ADDRESS": "127.0.0.1", "LOCALAI_PORT": "0",
+            "LOCALAI_CONFIG_PATH": str(root / "configuration")})
+        server = build_server(["run"]).start()
+        manager = server.manager
+        t0 = time.monotonic()
+        sm = manager.get(CHECKPOINT)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        tok = sm.tokenizer
+        if type(tok).__name__ != "HFTokenizer" or tok.vocab_size != 128256 \
+                or tok.eos_ids != {128001, 128009} or tok.bos_id != 128000:
+            raise AssertionError(f"{CHECKPOINT}: tokenizer {type(tok)} "
+                                 f"{tok.vocab_size} {tok.eos_ids}")
+        if (sm.runner.cfg.num_layers != hf_config["num_hidden_layers"]
+                or sm.runner.cfg.vocab_size != hf_config["vocab_size"]
+                or sm.scheduler.spec is None):
+            raise AssertionError(f"{CHECKPOINT}: not the checkpoint's "
+                                 "depth and vocabulary, or not speculating")
+        print(f"checkpoint {CHECKPOINT}: loaded in {load_s:.1f}s "
+              f"(template {sm.config.template.chat_template is not None}, "
+              f"stopwords {sm.config.stopwords}); card {card}", flush=True)
+        chat = server.url + "/v1/chat/completions"
+        # keys: /readyz is open, chats need one of the two
+        with urllib.request.urlopen(server.url + "/readyz",
+                                    timeout=60) as r:
+            if r.status != 200:
+                raise AssertionError("/readyz without a key is not 200")
+        short = dict(CHECKPOINT_CHATS[0], max_tokens=4)
+        for key in (None, "not-a-key"):
+            try:
+                _post(chat, short, key=key).read()
+            except urllib.error.HTTPError as e:
+                if e.code != 401:
+                    raise
+            else:
+                raise AssertionError(f"a chat with key {key!r} was answered")
+        for key in CHECKPOINT_KEYS:
+            json.loads(_post(chat, short, key=key).read())
+        submitted: list = []
+
+        def recorded(req, _submit=sm.scheduler.submit):
+            h = _submit(req)
+            submitted.append(h)
+            return h
+
+        sm.scheduler.submit = recorded
+        wrappers = {"paged_decode_attention": paged_decode_attention,
+                    "decode_attention": decode_attention,
+                    "prefill_attention": prefill_attention}
+        for w in wrappers.values():
+            w.launches = 0
+        steps0 = sm.runner.decode_steps
+        results: dict = {}
+        errors: list = []
+
+        def run(i):
+            body = CHECKPOINT_CHATS[i]
+            key = CHECKPOINT_KEYS[i % 2]
+            try:
+                if not body.get("stream"):
+                    results[i] = json.loads(_post(chat, body,
+                                                  key=key).read())
+                    return
+                t = time.monotonic()
+                ttft, deltas, last = None, [], None
+                with _post(chat, body, key=key) as r:
+                    for line in r:
+                        line = line.strip()
+                        if not line.startswith(b"data: {"):
+                            continue
+                        frame = json.loads(line[6:])
+                        delta = frame["choices"][0]["delta"].get("content")
+                        if delta and ttft is None:
+                            ttft = time.monotonic() - t
+                        if delta:
+                            deltas.append(delta)
+                        last = frame
+                results[i] = {"deltas": deltas, "ttft_s": ttft,
+                              "last": last}
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(CHECKPOINT_CHATS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t0
+        if errors:
+            raise errors[0]
+        chats = list(submitted)
+        got = sorted(list(h.request.prompt) for h in chats)
+        if got != sorted(ids for _, ids in CHECKPOINT_GOLDEN):
+            raise AssertionError(f"{CHECKPOINT}: a chat's prompt ids differ "
+                                 "from its golden prompt's")
+        stream_i = next(i for i, b in enumerate(CHECKPOINT_CHATS)
+                        if b.get("stream"))
+        streamed = next(h for h in chats if list(h.request.prompt)
+                        == CHECKPOINT_GOLDEN[stream_i][1])
+        if "".join(results[stream_i]["deltas"]) != streamed.text:
+            raise AssertionError(f"{CHECKPOINT}: the streamed deltas do not "
+                                 "join to the chat's text")
+        ntok = sum(results[i]["usage"]["completion_tokens"]
+                   for i in results if i != stream_i)
+        ntok += results[stream_i]["last"]["usage"]["completion_tokens"]
+        # <|eot_id|> forced: the chat stops after one token, empty
+        eot = LLAMA3_REGULAR_TOKENS + LLAMA3_SPECIAL_TOKENS.index(
+            "<|eot_id|>")
+        if tok.encode("<|eot_id|>") != [eot]:
+            raise AssertionError("<|eot_id|> is not one token")
+        biased = json.loads(_post(chat, dict(
+            CHECKPOINT_CHATS[1], logit_bias={str(eot): 100}),
+            key=CHECKPOINT_KEYS[0]).read())
+        choice = biased["choices"][0]
+        if (choice["finish_reason"] != "stop"
+                or choice["message"]["content"] != ""
+                or biased["usage"]["completion_tokens"] != 0
+                or submitted[-1].token_ids != []
+                or submitted[-1].finish_reason != "stop"):
+            raise AssertionError(f"{CHECKPOINT}: the <|eot_id|>-biased chat "
+                                 f"gave {choice} {biased['usage']}")
+        # a required tool call, inside its DFA over the real vocabulary
+        tools = json.loads(_post(chat, dict(
+            CHECKPOINT_CHATS[2], max_tokens=128, tools=TOOLS,
+            tool_choice="required"), key=CHECKPOINT_KEYS[1]).read())
+        h = submitted[-1]
+        c = h.request.constraint
+        table = token_bytes_table(tok)
+        data = b"".join(table[t] for t in h.token_ids if table[t])
+        finish = tools["choices"][0]["finish_reason"]
+        if c is None or not _prefix_accepted(c.dfa, data) or (
+                h.finish_reason == "stop" and not c.dfa.matches(data)):
+            raise AssertionError(f"{CHECKPOINT}: the required tools chat "
+                                 f"left its grammar: {data[:200]!r}")
+        if finish == "tool_calls":
+            _check_tool_calls(tools["choices"][0]["message"]["tool_calls"],
+                              [TOOL_WEATHER, TOOL_MODE])
+        elif finish != "length":
+            raise AssertionError(f"{CHECKPOINT}: the required tools chat "
+                                 f"finished {finish!r}")
+        launches = {n: w.launches for n, w in wrappers.items()}
+        steps = sm.runner.decode_steps - steps0
+        L = sm.runner.cfg.num_layers
+        want = {"paged_decode_attention": L * steps, "decode_attention": 0,
+                "prefill_attention": 0}
+        if steps <= 0 or launches != want:
+            raise AssertionError(f"{CHECKPOINT}: launches {launches}, "
+                                 f"expected {want} ({L} layers, {steps} "
+                                 "decode steps)")
+        timing = phase_tokenizer_timing(str(ckpt))
+        out = {"card": card, "model": CHECKPOINT,
+               "checkpoint_gb": size / 1e9,
+               "checkpoint_write_s": written["weights_s"],
+               "tokenizer_write_s": written["tokenizer_s"],
+               "load_s": load_s, "requests": len(CHECKPOINT_CHATS),
+               "streaming": 1, "completion_tokens": ntok, "wall_s": wall,
+               "tokens_per_s": ntok / wall,
+               "ttft_stream_s": results[stream_i]["ttft_s"],
+               "finish_reasons": [
+                   (results[i]["last"]["choices"][0]["finish_reason"]
+                    if i == stream_i
+                    else results[i]["choices"][0]["finish_reason"])
+                   for i in range(len(CHECKPOINT_CHATS))],
+               "tools_finish": finish, "tools_tokens": len(h.token_ids),
+               "decode_steps": steps,
+               "verify_windows": getattr(sm.runner, "verify_windows", None),
+               "kernel_launches": launches, **timing}
+        print("serve checkpoint: " + json.dumps(out), flush=True)
+        return {"launches": launches, "figures": out}
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if server is not None:
+            server.shutdown()
+        server = None
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _small_128k(seed: int = 0):
+    """debug:small's widths with Llama-3's vocabulary, rope base and ids:
+    (config, f32 weights drawn on the CPU from a seed)."""
+    import dataclasses
+
+    from localai_tpu_torch.models.llama import init_params
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+
+    cfg = dataclasses.replace(DEBUG_PRESETS["small"], vocab_size=128256,
+                              rope_theta=500000.0, dtype="float32")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return cfg, init_params(cfg, gen, torch.device("cpu"))
+
+
+def _small_hf_config(cfg) -> dict:
+    return {"model_type": "llama", "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "tie_word_embeddings": False, "bos_token_id": 128000,
+            "eos_token_id": 128009}
+
+
+CHECKPOINT_PARITY_YAML = """\
+name: {name}
+model: {model}
+context_size: 512
+engine:
+  dtype: float32
+  kv_dtype: float32
+  max_slots: 4
+  kv_block_tokens: 16
+  prefill_chunk: 32
+  kv_paged: {paged}
+"""
+
+
+def phase_checkpoint_parity(root: str) -> dict:
+    """debug:small's widths with the 128256-id vocabulary, f32, from a
+    checkpoint directory with the smoke's tokenizer.json (YAMLs naming
+    only the checkpoint and the engine): the card's prompt ids and greedy
+    tokens equal the CPU's on the paged (K1) and contiguous (K2, K3)
+    layouts, and the prompts are the golden ones. Leaves the models dir
+    under ``root`` for the entry-point phase."""
+    import pathlib
+
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
+
+    wrappers = {"paged_decode_attention": paged_decode_attention,
+                "decode_attention": decode_attention,
+                "prefill_attention": prefill_attention}
+    root = pathlib.Path(root)
+    cfg, params = _small_128k()
+    write_checkpoint_dir(root / "small-128k", cfg, params, "float32",
+                         _small_hf_config(cfg))
+    layouts = {"paged": "true", "contiguous": "false"}
+    write_models_dir(root / "models", {
+        f"small-128k-{layout}": CHECKPOINT_PARITY_YAML.format(
+            name=f"small-128k-{layout}", model=root / "small-128k",
+            paged=paged) for layout, paged in layouts.items()})
+    bodies = [dict(CHECKPOINT_CHATS[i], max_tokens=16) for i in (0, 5)]
+    bodies = [{k: v for k, v in b.items() if k not in ("model", "stream")}
+              for b in bodies]
+    launches = {}
+    for layout in layouts:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            for w in wrappers.values():
+                w.launches = 0
+            runs[dev] = templated_greedy(str(root / "models"),
+                                         f"small-128k-{layout}", dev, bodies)
+            if dev == "cuda":
+                launches[layout] = {n: w.launches
+                                    for n, w in wrappers.items()}
+        print(f"checkpoint parity {layout}: prompts "
+              f"{[len(p) for p in runs['cpu'][0]]} tokens, greedy cpu "
+              f"{runs['cpu'][1]}, card {runs['cuda'][1]}; card launches "
+              f"{json.dumps(launches[layout])}", flush=True)
+        if runs["cuda"] != runs["cpu"]:
+            raise AssertionError(f"checkpoint parity {layout}: the card's "
+                                 "prompt ids or greedy tokens differ from "
+                                 "the CPU's")
+        if runs["cpu"][0] != [CHECKPOINT_GOLDEN[i][1] for i in (0, 5)]:
+            raise AssertionError(f"checkpoint parity {layout}: prompts are "
+                                 "not the golden ones")
+        need = (["paged_decode_attention"] if layout == "paged"
+                else ["decode_attention", "prefill_attention"])
+        for n in need:
+            if launches[layout][n] <= 0:
+                raise AssertionError(f"checkpoint parity {layout}: no {n} "
+                                     "launch")
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_entry_point(card: str, root: str) -> dict:
+    """The real entry point, in subprocesses: ``tokenize`` gives the
+    golden ids (no weights read), ``version`` the package's version,
+    ``run`` with ``LOCALAI_KV_DTYPE=int8`` serves a debug model on the
+    card from an int8 pool, and ``run --fleet-replicas 2`` exits 2."""
+    import os
+    import pathlib
+    import signal
+
+    import localai_tpu_torch
+
+    root = pathlib.Path(root)
+    models = root / "models"
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    cmd = [sys.executable, "-m", "localai_tpu_torch.cli.main"]
+    text, ids = CHECKPOINT_GOLDEN[3]
+    res = subprocess.run(cmd + ["tokenize", text, "--model",
+                                "small-128k-paged", "--models-path",
+                                str(models)], capture_output=True, text=True,
+                         env=env, timeout=300, cwd=repo)
+    if res.returncode != 0 or json.loads(res.stdout.strip()) != ids:
+        raise AssertionError(f"tokenize: rc {res.returncode}, "
+                             f"{res.stdout[-300:]} {res.stderr[-2000:]}")
+    res = subprocess.run(cmd + ["version"], capture_output=True, text=True,
+                         env=env, timeout=300, cwd=repo)
+    if res.returncode != 0 or \
+            res.stdout.strip() != localai_tpu_torch.__version__:
+        raise AssertionError(f"version: {res.stdout} {res.stderr[-2000:]}")
+    res = subprocess.run(cmd + ["run", "--fleet-replicas", "2",
+                                "--models-path", str(models)],
+                         capture_output=True, text=True, env=env,
+                         timeout=300, cwd=repo)
+    if res.returncode != 2 or "ROADMAP item 23" not in res.stderr:
+        raise AssertionError(f"run --fleet-replicas 2: rc "
+                             f"{res.returncode}, {res.stderr[-2000:]}")
+    dbg = root / "debug-models"
+    write_models_dir(dbg, {"small-int8-kv": (
+        "name: small-int8-kv\nmodel: debug:small\ncontext_size: 512\n"
+        "engine: {dtype: bfloat16, max_slots: 2, kv_block_tokens: 64}\n")})
+    port = _free_port()
+    log_path = root / "run.log"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            cmd + ["run", "small-int8-kv", "--models-path", str(dbg),
+                   "--address", "127.0.0.1", "--port", str(port)],
+            stdout=log, stderr=subprocess.STDOUT, cwd=repo,
+            env={**env, "LOCALAI_KV_DTYPE": "int8",
+                 "LOCALAI_CONFIG_PATH": str(root / "configuration")})
+    try:
+        deadline = time.monotonic() + 240
+        while True:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/readyz", timeout=5) as r:
+                    ready = json.loads(r.read())
+                if "small-int8-kv" in ready["models_loaded"]:
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                pass
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("run did not come up: "
+                                     + log_path.read_text()[-3000:])
+            time.sleep(0.5)
+        answer = json.loads(_post(
+            f"http://127.0.0.1:{port}/v1/chat/completions",
+            {"model": "small-int8-kv", "max_tokens": 8, "temperature": 0,
+             "messages": [{"role": "user", "content": "hi"}]}).read())
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    logged = log_path.read_text()
+    pool = re.search(r"loaded model small-int8-kv .* kv=(\w+) (\w+)", logged)
+    if pool is None or pool.groups() != ("paged", "int8") or \
+            "on cuda" not in pool.group(0):
+        raise AssertionError("run with LOCALAI_KV_DTYPE=int8: the pool is "
+                             f"not int8 on the card: {logged[-3000:]}")
+    out = {"card": card, "tokenize_ids": len(ids), "version":
+           localai_tpu_torch.__version__, "fleet_replicas_rc": 2,
+           "run_pool": "/".join(pool.groups()),
+           "run_answer_tokens": answer["usage"]["completion_tokens"]}
+    print("entry point: " + json.dumps(out), flush=True)
+    return out
+
+
 def phase_embed(url: str, name: str, hidden: int, chat: str, chat_body: dict,
                 chat_text: str, L: int) -> int:
     """Embeddings and rerank requests sent while a repeat of a chat request
@@ -2481,6 +3316,13 @@ def main() -> int:
                                  ref_texts=bf16["texts"])["launches"]
     served["tools"] = phase_serve_tools(card)["launches"]
     served["templates"] = phase_serve_templates(card)["launches"]
+    ckpt_root = _scratch_dir("checkpoint-parity-", 2_000_000_000)
+    try:
+        phase_checkpoint_parity(ckpt_root)
+        phase_entry_point(card, ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    served["checkpoint"] = phase_serve_checkpoint(card)["launches"]
     src = "localai_tpu_torch/csrc/"
     k1_src = src + "paged_decode_attention.cu"
     k1_tpu = "localai_tpu/ops/attention.py:458"
@@ -2528,6 +3370,10 @@ def main() -> int:
         # layer per decode step of both
         _entry("paged_decode_attention_templated", k1_src, k1_tpu,
                served["templates"]["paged_decode_attention"], k1["bf16"]),
+        # the checkpoint serve (a Llama-3-8B checkpoint directory with its
+        # tokenizer.json): K1 once per layer per decode step
+        _entry("paged_decode_attention_checkpoint", k1_src, k1_tpu,
+               served["checkpoint"]["paged_decode_attention"], k1["bf16"]),
         # verify windows (M = slots x 5 rows): launches inside the windows
         # of the spec parity phase, times at M = 40 (8 slots)
         _entry("w8_matmul_verify", src + "w8_matmul.cu",

@@ -3,9 +3,11 @@
 The module layout mirrors ``localai_tpu`` so each counterpart is easy to
 find (``models/llama.py``, ``engine/runner.py``, ``ops/attention.py`` ...),
 but nothing here imports JAX or the JAX package: the runtime stands on the
-standard library, numpy and torch alone. Imports of anything else (``yaml``
-for a config file, ``tokenizers`` for an HF tokenizer) happen inside the
-function that needs them.
+standard library, numpy and torch alone, and anything else is imported
+inside the function that needs it. It reads model YAMLs, chat templates
+and a checkpoint's ``tokenizer.json`` with readers of its own, since the
+card's machine has neither PyYAML, Jinja2, ``tokenizers`` nor
+``transformers``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU explicitly; with no card they raise instead of moving to the

@@ -1,8 +1,11 @@
-"""Tool-grammar wiring shared by the chat endpoint.
+"""Tool-grammar and multimodal-text wiring shared by the chat endpoint.
 
 Port of the constrained-decoding part of ``localai_tpu/api/inference.py``
 (``ToolContext``, ``ToolGrammarError``, ``prepare_tools``,
-``response_format_constraint``, ``parse_tool_calls``) and of the request
+``response_format_constraint``, ``parse_tool_calls``), of the text half of
+its ``prepare_multimodal`` (the port has no vision tower yet, so images
+and videos become placeholders in the text and are not fetched), and of
+the request
 helpers of ``localai_tpu/api/schema.py`` (``tool_definitions``,
 ``tool_choice_name``, ``tools_disabled``), written over the parsed JSON
 body, since the port has no pydantic request model.
@@ -17,6 +20,7 @@ import uuid
 from typing import Any, Optional
 
 from localai_tpu_torch import functions as fx
+from localai_tpu_torch.templates.chat import multimodal_placeholders
 
 log = logging.getLogger(__name__)
 
@@ -182,3 +186,57 @@ def parse_tool_calls(text: str, tctx: ToolContext
     elif not content and not tool_calls:
         content = cleaned
     return content, tool_calls
+
+
+def _text_content(content: Any) -> str:
+    """The text parts of a message, joined (the JAX package's
+    ``Message.text_content``)."""
+    if content is None:
+        return ""
+    if isinstance(content, str):
+        return content
+    return "".join(str(p.get("text", "")) for p in content
+                   if p.get("type") == "text" or "text" in p)
+
+
+def _media_parts(content: Any, kind: str) -> list[str]:
+    """URLs or base64 payloads of a message's ``<kind>_url`` parts."""
+    if not isinstance(content, list):
+        return []
+    key, out = f"{kind}_url", []
+    for p in content:
+        if p.get("type") == key or key in p:
+            val = p.get(key)
+            if isinstance(val, dict):
+                val = val.get("url")
+            if val:
+                out.append(str(val))
+    return out
+
+
+def prepare_multimodal(sm, messages: list[dict]) -> list[dict]:
+    """Messages with image or video parts → their text with [img-N]/
+    [vid-N] placeholders (``template.multimodal``, or the default), ids
+    running across messages. The port has no vision tower (ROADMAP A8),
+    so such a request is served as text, with the JAX package's warning
+    for a model without one."""
+    out: list[dict] = []
+    n_img = n_vid = 0
+    for m in messages:
+        imgs = _media_parts(m.get("content"), "image")
+        vids = _media_parts(m.get("content"), "video")
+        if imgs or vids:
+            m = dict(m, content=multimodal_placeholders(
+                sm.config.template.multimodal or "",
+                _text_content(m.get("content")),
+                n_images=len(imgs), n_video=len(vids),
+                first_image_id=n_img, first_video_id=n_vid))
+            n_img += len(imgs)
+            n_vid += len(vids)
+        out.append(m)
+    if n_img or n_vid:
+        log.warning(
+            "model %s received %d image(s)/%d video(s) but has no vision "
+            "tower (set mmproj or use a llava checkpoint); serving "
+            "text-only", sm.name, n_img, n_vid)
+    return out

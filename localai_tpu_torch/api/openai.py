@@ -135,7 +135,10 @@ def _serving(manager, body: dict, usecase: Optional[str] = None):
     if usecase is not None and not manager.loader.get(name).has_usecase(
             usecase):
         raise APIError(400, f"model {name!r} does not support {usecase}")
-    return manager.get(name), name
+    try:
+        return manager.get(name), name
+    except FileNotFoundError as e:
+        raise APIError(500, f"model load failed: {e}") from None
 
 
 def finetune_result(cfg, prompt: str, text: str, *,
@@ -376,7 +379,7 @@ def chat(manager, body: dict):
     submits every choice at once, each with ``seed + i`` and a constraint
     of its own."""
     sm, model = _serving(manager, body, "chat")
-    messages = chat_messages(body.get("messages"))
+    messages = inf.prepare_multimodal(sm, chat_messages(body.get("messages")))
     stream = bool(body.get("stream"))
     n = _choices(body)
     try:

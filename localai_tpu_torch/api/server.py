@@ -12,12 +12,19 @@ also under the JAX package's unversioned alias:
   * GET  /readyz
 One thread per connection; each request blocks its own thread on the
 scheduler handle while the engine thread batches all of them.
+
+Around every route, as the JAX package's middlewares do: bearer-key auth
+against ``AppConfig.api_keys`` (constant-time comparison; the paths of
+``AUTH_EXEMPT`` are open; a 401 otherwise), CORS headers and ``OPTIONS``
+answered 204 while ``cors`` is on, and, under ``opaque_errors``, 500
+bodies that say only "internal error".
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import secrets
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -35,6 +42,10 @@ _POST = {"/v1/chat/completions": oa.chat, "/chat/completions": oa.chat,
          "/v1/rerank": jina.rerank, "/rerank": jina.rerank}
 _GET = {"/v1/models": oa.list_models, "/models": oa.list_models,
         "/readyz": lambda manager, query: oa.readyz(manager)}
+# paths reachable without an API key (the JAX package's AUTH_EXEMPT; the
+# web UI's own exemptions come with the UI, ROADMAP item 22)
+AUTH_EXEMPT = {"/", "/healthz", "/readyz", "/version", "/swagger",
+               "/swagger/doc.json"}
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -42,6 +53,17 @@ class _Handler(BaseHTTPRequestHandler):
 
     def log_message(self, fmt, *args):  # route access logs to logging
         log.debug("%s " + fmt, self.address_string(), *args)
+
+    def end_headers(self) -> None:
+        app = self.server.manager.app
+        if app.cors:
+            self.send_header("Access-Control-Allow-Origin",
+                             app.cors_allow_origins or "*")
+            self.send_header("Access-Control-Allow-Methods",
+                             "GET, POST, DELETE, OPTIONS")
+            self.send_header("Access-Control-Allow-Headers",
+                             "Authorization, Content-Type")
+        super().end_headers()
 
     def _json(self, status: int, payload: dict) -> None:
         body = json.dumps(payload).encode("utf-8")
@@ -51,21 +73,58 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    def _error(self, status: int, message: str) -> None:
-        self._json(status, {"error": {"message": message,
-                                      "type": "invalid_request_error",
+    def _error(self, status: int, message: str,
+               kind: str = "invalid_request_error") -> None:
+        self._json(status, {"error": {"message": message, "type": kind,
                                       "code": status}})
 
-    def do_GET(self):  # noqa: N802 — http.server's naming
+    def _admitted(self, path: str) -> bool:
+        """Key auth: no keys configured, an exempt path, or a bearer
+        token equal to one of the keys; otherwise answer 401."""
+        keys = self.server.manager.app.api_keys
+        if not keys or path in AUTH_EXEMPT:
+            return True
+        token = self.headers.get("Authorization", "").removeprefix(
+            "Bearer ").strip()
+        if token and any(secrets.compare_digest(token, k) for k in keys):
+            return True
+        self._error(401, "invalid or missing API key",
+                    "authentication_error")
+        return False
+
+    def _internal_error(self, e: Exception) -> None:
+        log.exception("request failed")
+        opaque = self.server.manager.app.opaque_errors
+        self._error(500, "internal error" if opaque
+                    else f"{type(e).__name__}: {e}", "internal_error")
+
+    def do_OPTIONS(self):  # noqa: N802 — http.server's naming
+        if self.server.manager.app.cors:
+            self.send_response(204)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+        elif self._admitted(self.path.split("?", 1)[0]):
+            self._error(405, "method not allowed")
+
+    def do_GET(self):  # noqa: N802
         path, _, qs = self.path.partition("?")
+        if not self._admitted(path):
+            return
         fn = _GET.get(path)
         if fn is None:
             return self._error(404, f"no route {self.path}")
         query = {k: v[-1] for k, v in urllib.parse.parse_qs(qs).items()}
-        self._json(200, fn(self.server.manager, query))
+        try:
+            out = fn(self.server.manager, query)
+        except Exception as e:  # noqa: BLE001 — report, keep serving
+            return self._internal_error(e)
+        self._json(200, out)
 
     def do_POST(self):  # noqa: N802
-        fn = _POST.get(self.path.split("?", 1)[0])
+        path = self.path.split("?", 1)[0]
+        if not self._admitted(path):
+            return
+        fn = _POST.get(path)
         if fn is None:
             return self._error(404, f"no route {self.path}")
         try:
@@ -82,8 +141,7 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, TypeError) as e:
             return self._error(400, str(e))
         except Exception as e:  # noqa: BLE001 — report, keep serving
-            log.exception("request failed")
-            return self._error(500, str(e))
+            return self._internal_error(e)
         if isinstance(out, dict):
             return self._json(200, out)
         # SSE: HTTP/1.0 semantics — the stream ends when the connection
@@ -119,6 +177,7 @@ class APIServer:
         self._httpd = _HTTPServer((address, port), manager)
         self.address, self.port = self._httpd.server_address[:2]
         self._thread: threading.Thread | None = None
+        self.watcher = None     # a config.watcher.ConfigWatcher, if any
 
     @property
     def url(self) -> str:
@@ -134,7 +193,10 @@ class APIServer:
         self._httpd.serve_forever()
 
     def shutdown(self) -> None:
-        """Stop accepting requests, then stop every engine."""
+        """Stop accepting requests, the config watcher, then every
+        engine."""
+        if self.watcher is not None:
+            self.watcher.stop()
         if self._thread is not None:
             self._httpd.shutdown()
             self._thread.join()

@@ -1,58 +1,401 @@
-"""Command line of the port.
+"""Command line of the port: ``python -m localai_tpu_torch.cli.main <command>``.
 
-    python -m localai_tpu_torch.cli.main run --models-path models \\
-        --port 8080 [--address 127.0.0.1] [--device cuda|cpu]
+Port of ``localai_tpu/cli/main.py`` for what the port has:
 
-``run`` registers every model YAML in ``--models-path`` and serves the
-OpenAI-compatible API; each model loads on its first request. The card is
-the default device; ``--device cpu`` runs on the CPU (slow — tests and
-small debug models only).
+  run [MODEL ...]            serve the OpenAI-compatible API (the default)
+  models list                the configured models
+  tokenize TEXT --model M    token ids, through the model's tokenizer only
+  util checkpoint-info PATH  tensor names, dtypes and shapes of safetensors
+  util scan                  pickle-format weights under the models dir
+  util usecase-heuristic M   the usecases a model config serves
+  version
+
+``run`` takes the JAX package's flags with their defaults, each also read
+from ``LOCALAI_<NAME>`` (``_env_default``), then builds the settings as
+the JAX package does: ``AppConfig.from_env`` overridden by the flags.
+``--device cpu`` is the port's own (the card is the default). A flag or
+variable of a feature the port has not yet (SLO shedding, request
+deadlines, the batch lane, fleets, autoscaling, meshes, the JAX platform,
+JSON logs) stops ``run`` with exit code 2 and the ROADMAP item that brings
+it; none is dropped silently. ``models install|available`` wait for the
+gallery (ROADMAP item 21), ``util convert`` for the GGUF reader (item 20).
+
+:func:`build_server` builds the settings, the model registry, the config
+watcher and the bound server from ``argv`` and the environment;
+:func:`main` only serves what it built.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
+from pathlib import Path
+from typing import Optional, Sequence
 
+from localai_tpu_torch import __version__
 from localai_tpu_torch.api.server import APIServer
 from localai_tpu_torch.config.app_config import AppConfig
 from localai_tpu_torch.config.loader import ConfigLoader
+from localai_tpu_torch.config.model_config import USECASES
+from localai_tpu_torch.config.watcher import (
+    ConfigWatcher,
+    attach_standard_handlers,
+)
 from localai_tpu_torch.models.manager import ModelManager
 from localai_tpu_torch.utils.device import resolve_device
 
+log = logging.getLogger(__name__)
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="localai_tpu_torch")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    run = sub.add_parser("run", help="serve the OpenAI-compatible API")
-    run.add_argument("--models-path", default="models")
-    run.add_argument("--address", default="127.0.0.1")
-    run.add_argument("--port", type=int, default=8080)
-    run.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    run.add_argument("--context-size", type=int, default=4096)
-    run.add_argument("--log-level", default="INFO")
-    args = ap.parse_args(argv)
-    logging.basicConfig(level=args.log_level.upper(),
-                        format="%(asctime)s %(levelname)s %(name)s: "
-                               "%(message)s")
-    resolve_device(args.device)  # no card and no --device cpu: fail now
-    app = AppConfig(model_path=args.models_path,
-                    context_size=args.context_size, device=args.device,
-                    address=args.address, port=args.port)
-    loader = ConfigLoader(app.model_path)
-    loader.load_from_path(context_size=app.context_size)
-    server = APIServer(ModelManager(app, loader), app.address, app.port)
-    logging.getLogger(__name__).info(
-        "serving %s on %s (device %s)", loader.names(), server.url,
-        app.device)
+
+def _env_default(name: str, fallback):
+    for key in (f"LOCALAI_{name.upper()}", name.upper()):
+        if key in os.environ:
+            return os.environ[key]
+    return fallback
+
+
+def _env_bool(name: str, fallback: bool = False) -> bool:
+    v = _env_default(name, None)
+    if v is None:
+        return fallback
+    return str(v).lower() in ("1", "true", "yes", "on")
+
+
+# run flags of features the port has not yet: flag → (AppConfig field of
+# the JAX package, the JAX package's default, the ROADMAP item)
+UNPORTED_RUN_FLAGS = {
+    "--slo-ttft-p95-ms": ("slo_ttft_p95_ms", 0.0, 15),
+    "--slo-tpot-p95-ms": ("slo_tpot_p95_ms", 0.0, 15),
+    "--slo-e2e-p95-ms": ("slo_e2e_p95_ms", 0.0, 15),
+    "--slo-queue-p95-ms": ("slo_queue_p95_ms", 0.0, 15),
+    "--slo-burn-threshold": ("slo_burn_threshold", 2.0, 15),
+    "--request-deadline-s": ("request_deadline_s", 600.0, 20),
+    "--batch-concurrency": ("batch_concurrency", 2, 14),
+    "--batch-expiry-h": ("batch_expiry_h", 24.0, 14),
+    "--fleet-replicas": ("fleet_replicas", 0, 23),
+    "--fleet-prefill-replicas": ("fleet_prefill_replicas", 0, 23),
+    "--fleet-backend": ("fleet_backend", "worker", 23),
+    "--fleet-disagg-threshold": ("fleet_disagg_threshold", 512, 23),
+    "--fleet-device-pinning": ("fleet_device_pinning", False, 23),
+    "--fleet-hosts": ("fleet_hosts", [], 23),
+    "--fleet-rpc-timeout-s": ("fleet_rpc_timeout_s", 120.0, 23),
+    "--autoscale": ("autoscale", False, 23),
+    "--autoscale-min": ("autoscale_min", 1, 23),
+    "--autoscale-max": ("autoscale_max", 4, 23),
+    "--autoscale-interval-s": ("autoscale_interval_s", 5.0, 23),
+    "--autoscale-in-idle-s": ("autoscale_in_idle_s", 120.0, 23),
+    "--autoscale-zero-idle-s": ("autoscale_zero_idle_s", 0.0, 23),
+    "--autoscale-standby-hosts": ("autoscale_standby_hosts", [], 23),
+    "--mesh": ("mesh_shape", None, 19),
+    "--platform": ("platform", None, 11),
+}
+_WHAT = {11: "device plumbing (the port takes --device instead)",
+         14: "the batch lane", 15: "telemetry and SLO shedding",
+         19: "multi-GPU parallelism", 20: "the rest of the process settings",
+         23: "fleets, autoscaling and the worker tier"}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="localai_tpu_torch",
+        description="OpenAI-compatible serving on PyTorch and CUDA")
+    p.add_argument("--log-level", default=_env_default("log_level", "info"),
+                   choices=["error", "warn", "info", "debug", "trace"])
+    p.add_argument("--log-format", default=_env_default("log_format", "text"),
+                   choices=["text", "json"])
+    sub = p.add_subparsers(dest="command")
+
+    run = sub.add_parser("run", help="start the API server (default)")
+    run.add_argument("models", nargs="*", help="model refs to preload")
+    run.add_argument("--address", default=_env_default("address", "0.0.0.0"))
+    run.add_argument("--port", type=int,
+                     default=int(_env_default("port", 8080)))
+    run.add_argument("--models-path",
+                     default=_env_default("models_path", "models"))
+    run.add_argument("--context-size", type=int,
+                     default=int(_env_default("context_size", 4096)))
+    run.add_argument("--api-keys", default=_env_default("api_keys", ""),
+                     help="comma-separated bearer keys")
+    run.add_argument("--cors", action="store_true", default=True)
+    run.add_argument("--no-cors", dest="cors", action="store_false")
+    run.add_argument("--opaque-errors", action="store_true",
+                     default=bool(_env_default("opaque_errors", "")))
+    run.add_argument("--single-active-backend", action="store_true")
+    run.add_argument("--preload-models", default="",
+                     help="comma-separated model names to load eagerly")
+    run.add_argument("--enable-watchdog-idle", action="store_true")
+    run.add_argument("--enable-watchdog-busy", action="store_true")
+    run.add_argument("--watchdog-idle-timeout", type=float, default=15 * 60)
+    run.add_argument("--watchdog-busy-timeout", type=float, default=5 * 60)
+    # the port's own: LOCALAI_DEVICE only, never a bare DEVICE variable
+    run.add_argument("--device", default=os.environ.get("LOCALAI_DEVICE",
+                                                        "cuda"),
+                     choices=("cuda", "cpu"),
+                     help="the card (default), or the CPU for small debug "
+                          "models and tests")
+    # not ported yet: parsed as the JAX package parses them, and refused
+    # when set (_unported_settings)
+    for flag, (fld, default, _item) in UNPORTED_RUN_FLAGS.items():
+        name = flag[2:].replace("-", "_")
+        if isinstance(default, bool):
+            run.add_argument(flag, action="store_true",
+                             default=_env_bool(name))
+        elif fld in ("mesh_shape", "platform"):
+            run.add_argument(flag, default=_env_default(name, None))
+        else:
+            run.add_argument(
+                flag, default=None,
+                type=(type(default) if isinstance(default, (int, float))
+                      else str),
+                choices=(["worker", "inprocess"]
+                         if flag == "--fleet-backend" else None))
+
+    models = sub.add_parser("models", help="model management")
+    models_sub = models.add_subparsers(dest="models_command")
+    mlist = models_sub.add_parser("list", help="list configured models")
+    mlist.add_argument("--models-path", default="models")
+    for name in ("install", "available"):
+        m = models_sub.add_parser(name, help="not ported yet (ROADMAP "
+                                             "item 21: the gallery)")
+        m.add_argument("rest", nargs=argparse.REMAINDER)
+
+    tok = sub.add_parser("tokenize", help="tokenize text with a model")
+    tok.add_argument("text")
+    tok.add_argument("--model", required=True)
+    tok.add_argument("--models-path", default="models")
+
+    util = sub.add_parser("util", help="model utilities")
+    util_sub = util.add_subparsers(dest="util_command")
+    ci = util_sub.add_parser(
+        "checkpoint-info",
+        help="tensor names/shapes/dtypes of a safetensors checkpoint")
+    ci.add_argument("path")
+    ci.add_argument("--header", action="store_true",
+                    help="also print config.json")
+    scan = util_sub.add_parser(
+        "scan", help="scan installed models for unsafe weight formats")
+    scan.add_argument("--models-path",
+                      default=_env_default("models_path", "models"))
+    uh = util_sub.add_parser(
+        "usecase-heuristic",
+        help="print the usecases a model config will serve")
+    uh.add_argument("name")
+    uh.add_argument("--models-path",
+                    default=_env_default("models_path", "models"))
+    cv = util_sub.add_parser("convert", help="not ported yet (ROADMAP item "
+                                             "20: the GGUF reader)")
+    cv.add_argument("rest", nargs=argparse.REMAINDER)
+
+    sub.add_parser("version", help="print version")
+    return p
+
+
+def _unported_settings(args) -> list[str]:
+    """Each set flag or ``LOCALAI_*`` variable of a feature the port has
+    not yet, as a message naming its ROADMAP item. A variable counts as
+    set when its value differs from the JAX package's default."""
+    out = []
+    for flag, (fld, default, item) in UNPORTED_RUN_FLAGS.items():
+        v = getattr(args, flag[2:].replace("-", "_"))
+        env = os.environ.get(f"LOCALAI_{fld.upper()}")
+        if fld == "mesh_shape":
+            env = None          # LOCALAI_MESH is the flag's own default
+        given = (v is not None and v is not False and v != ""
+                 and v != default)
+        if env is not None and not given:
+            if isinstance(default, bool):
+                given = (env.lower() in ("1", "true", "yes", "on")) != default
+            elif isinstance(default, (int, float)):
+                try:
+                    given = type(default)(env) != default
+                except ValueError:
+                    given = True
+            elif isinstance(default, list):
+                given = bool([s for s in env.split(",") if s])
+            else:
+                given = env != (default or "")
+        if given:
+            what = (f"{flag} / LOCALAI_{fld.upper()}" if env is not None
+                    else flag)
+            out.append(f"{what} is not ported yet (ROADMAP item {item}: "
+                       f"{_WHAT[item]})")
+    if args.log_format != "text":
+        out.append("--log-format json / LOCALAI_LOG_FORMAT is not ported "
+                   f"yet (ROADMAP item 15: {_WHAT[15]})")
+    return out
+
+
+def _setup_logging(level: str) -> None:
+    logging.basicConfig(
+        level={"error": logging.ERROR, "warn": logging.WARNING,
+               "info": logging.INFO, "debug": logging.DEBUG,
+               "trace": logging.DEBUG}[level],
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+
+
+def app_config(args) -> AppConfig:
+    """The settings of ``run``: ``LOCALAI_*`` first, the flags over them
+    (the JAX package's precedence)."""
+    return AppConfig.from_env(
+        model_path=args.models_path,
+        address=args.address,
+        port=args.port,
+        context_size=args.context_size,
+        cors=args.cors,
+        api_keys=[k for k in args.api_keys.split(",") if k],
+        opaque_errors=args.opaque_errors,
+        single_active_backend=args.single_active_backend,
+        preload_models=[m for m in args.preload_models.split(",") if m]
+        + list(args.models),
+        watchdog_idle=args.enable_watchdog_idle,
+        watchdog_busy=args.enable_watchdog_busy,
+        watchdog_idle_timeout=args.watchdog_idle_timeout,
+        watchdog_busy_timeout=args.watchdog_busy_timeout,
+        device=args.device,
+    )
+
+
+def build_server(argv: Optional[Sequence[str]] = None) -> APIServer:
+    """``run``'s server from ``argv`` (``run`` and its flags; the
+    ``run`` word may be left out) and the environment: settings, the
+    config registry, the model manager with its preloads, and the config
+    watcher, bound to its address but not yet serving. A setting of an
+    unported feature exits 2 (``SystemExit``), naming its ROADMAP item."""
+    argv = list(argv if argv is not None else sys.argv[1:])
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if (args.command or "run") != "run":
+        parser.error("build_server serves the run command")
+    if args.command is None:
+        args = parser.parse_args(argv + ["run"])
+    refused = _unported_settings(args)
+    if refused:
+        parser.error("; ".join(refused))
+    cfg = app_config(args)
+    resolve_device(cfg.device)   # no card and no --device cpu: fail now
+    loader = ConfigLoader(cfg.model_path)
+    loader.load_from_path(context_size=cfg.context_size)
+    manager = ModelManager(cfg, loader)
+    watcher = ConfigWatcher(cfg.config_path)
+    attach_standard_handlers(watcher, cfg)
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        server.shutdown()
+        manager.preload()
+        server = APIServer(manager, cfg.address, cfg.port)
+    except BaseException:
+        manager.shutdown()
+        raise
+    server.watcher = watcher
+    watcher.start()
+    log.info("serving %s on %s (device %s)", loader.names(), server.url,
+             cfg.device)
+    return server
+
+
+def _checkpoint_info(args, parser) -> int:
+    from localai_tpu_torch.models.loader import (
+        SAFETENSORS_DTYPES,
+        read_safetensors_index,
+    )
+
+    names = {dt: name for name, dt in SAFETENSORS_DTYPES.items()}
+    p = Path(args.path)
+    files = [p] if p.is_file() else sorted(p.glob("*.safetensors"))
+    if not files:
+        parser.error(f"no safetensors under {p}")
+    cfg_dir = p.parent if p.is_file() else p
+    if args.header and (cfg_dir / "config.json").exists():
+        print((cfg_dir / "config.json").read_text())
+    total = 0
+    for fp in files:
+        index = read_safetensors_index(fp)
+        for name in sorted(index):
+            _path, _off, _n, dt, shape = index[name]
+            n = 1
+            for d in shape:
+                n *= d
+            total += n
+            print(f"{name}\t{names[dt]}\t{list(shape)}")
+    print(f"# total parameters: {total:,}")
     return 0
+
+
+def _run_util(args, parser) -> int:
+    if args.util_command == "checkpoint-info":
+        return _checkpoint_info(args, parser)
+    if args.util_command == "scan":
+        # weights must be safetensors; pickle formats run code at load
+        bad = [f for f in Path(args.models_path).rglob("*")
+               if f.suffix in (".bin", ".pt", ".pth", ".ckpt", ".pickle",
+                               ".pkl")]
+        for f in bad:
+            print(f"UNSAFE (pickle-format weights): {f}")
+        print(f"{len(bad)} finding(s)")
+        return 1 if bad else 0
+    if args.util_command == "usecase-heuristic":
+        loader = ConfigLoader(args.models_path)
+        loader.load_from_path()
+        mcfg = loader.get(args.name)
+        if mcfg is None:
+            parser.error(f"model {args.name!r} not found")
+        for uc in USECASES:
+            if (uc in mcfg.known_usecases if mcfg.known_usecases is not None
+                    else uc in mcfg.usecase_heuristic()):
+                print(uc)
+        return 0
+    if args.util_command == "convert":
+        parser.error("util convert is not ported yet (ROADMAP item 20: the "
+                     "GGUF reader, utils/gguf.py)")
+    parser.error("unknown util subcommand")
+    return 2
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = list(argv if argv is not None else sys.argv[1:])
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    _setup_logging(args.log_level)
+    cmd = args.command or "run"
+    if cmd == "version":
+        print(__version__)
+        return 0
+    if cmd == "run":
+        server = build_server(argv)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.shutdown()
+        return 0
+    if cmd == "models":
+        if args.models_command == "list":
+            loader = ConfigLoader(args.models_path)
+            loader.load_from_path()
+            for name in loader.names():
+                print(name)
+            return 0
+        if args.models_command in ("install", "available"):
+            parser.error(f"models {args.models_command} is not ported yet "
+                         "(ROADMAP item 21: the gallery)")
+        parser.error("unknown models subcommand")
+    if cmd == "tokenize":
+        from localai_tpu_torch.models.registry import resolve_tokenizer
+
+        loader = ConfigLoader(args.models_path)
+        loader.load_from_path()
+        mcfg = loader.get(args.model)
+        if mcfg is None:
+            parser.error(f"model {args.model!r} not found")
+        # tokenizer only: never read weights to encode a string
+        tok = resolve_tokenizer(mcfg.model, args.models_path)
+        print(tok.encode(args.text))
+        return 0
+    if cmd == "util":
+        return _run_util(args, parser)
+    parser.error(f"unknown command {cmd!r}")
+    return 2
 
 
 if __name__ == "__main__":

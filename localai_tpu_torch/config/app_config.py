@@ -1,15 +1,72 @@
-"""Process-wide settings of the port's server (the subset of
-``localai_tpu/config/app_config.py`` this slice reads)."""
+"""Process-wide settings of the port's server.
+
+Port of ``localai_tpu/config/app_config.py``: every field a ported
+feature reads, with the JAX package's defaults, each also read from
+``LOCALAI_<FIELD>`` by :meth:`AppConfig.from_env`. ``device`` is the
+port's own (the card unless ``cpu`` is asked for), read from
+``LOCALAI_DEVICE`` alike. The fields of features the port has not yet
+(SLO shedding, request deadlines, the batch lane, fleets, autoscaling,
+meshes, the JAX platform) are not here: ``cli/main.py`` refuses their
+flags and variables rather than dropping them.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from dataclasses import dataclass, field
 
 
-@dataclasses.dataclass
+@dataclass
 class AppConfig:
+    # paths
     model_path: str = "models"      # dir of model YAMLs / checkpoints
-    context_size: int = 4096        # default when a model sets none
-    device: str = "cuda"            # "cuda" (default) or "cpu", explicitly
-    address: str = "127.0.0.1"
+    config_path: str = "configuration"   # api_keys.json (config.watcher)
+
+    # server
+    address: str = "0.0.0.0"
     port: int = 8080
+    cors: bool = True
+    cors_allow_origins: str = "*"
+    api_keys: list[str] = field(default_factory=list)
+    opaque_errors: bool = False
+
+    # model management
+    preload_models: list[str] = field(default_factory=list)
+    load_to_memory: list[str] = field(default_factory=list)
+    context_size: int = 4096        # default when a model sets none
+    single_active_backend: bool = False
+
+    # watchdog (evict idle models, cancel requests stuck past a timeout)
+    watchdog_idle: bool = False
+    watchdog_busy: bool = False
+    watchdog_idle_timeout: float = 15 * 60.0
+    watchdog_busy_timeout: float = 5 * 60.0
+
+    device: str = "cuda"            # "cuda" (default) or "cpu", explicitly
+
+    @classmethod
+    def from_env(cls, **overrides) -> "AppConfig":
+        """Defaults, then ``LOCALAI_<FIELD>`` (int, float, bool as
+        1/true/yes/on, comma list, str), then every override that is not
+        None."""
+        cfg = cls()
+        for f in dataclasses.fields(cls):
+            env = os.environ.get(f"LOCALAI_{f.name.upper()}")
+            if env is None:
+                continue
+            if f.type == "int":
+                value = int(env)
+            elif f.type == "float":
+                value = float(env)
+            elif f.type == "bool":
+                value = env.lower() in ("1", "true", "yes", "on")
+            elif f.type == "list[str]":
+                value = [s for s in env.split(",") if s]
+            else:
+                value = env
+            setattr(cfg, f.name, value)
+        for k, v in overrides.items():
+            if v is not None:
+                setattr(cfg, k, v)
+        return cfg

@@ -33,6 +33,12 @@ KV_DTYPES = ("bfloat16", "float32", "int8", "int4")
 # (models/reranker.py in the JAX package), which the port has not ported
 CROSS_ENCODER_BACKENDS = ("reranker", "bert-embeddings",
                           "sentencetransformers")
+# every usecase flag, in the JAX package's order (its ``Usecase`` enum)
+USECASES = ("chat", "completion", "edit", "embeddings", "image",
+            "transcript", "tts", "sound_generation", "rerank", "tokenize",
+            "vision")
+# the usecases the port serves
+SERVED_USECASES = ("chat", "completion", "edit", "embeddings", "rerank")
 # backend names served by the LLM engine (the JAX package's list)
 LLM_BACKENDS = ("", "jax", "jax-llm", "transformers", "worker",
                 "huggingface", "langchain-huggingface", "mamba", "rwkv")
@@ -92,7 +98,9 @@ class TemplateConfig:
     (``templates.cache``); ``chat_template`` is a Jinja chat template over
     ``messages`` (filled from the checkpoint by ``config.guesser`` for a
     template-less config); ``use_tokenizer_template`` renders the chat
-    with it."""
+    with it; ``multimodal`` places a message's image and video
+    placeholders around its text (``templates.chat.
+    multimodal_placeholders``)."""
 
     chat: Optional[str] = None
     chat_message: Optional[str] = None
@@ -102,6 +110,7 @@ class TemplateConfig:
     use_tokenizer_template: bool = False
     chat_template: Optional[str] = None
     join_chat_messages_by_character: Optional[str] = None
+    multimodal: Optional[str] = None    # [img-N]/[vid-N] placeholders
 
 
 @dataclasses.dataclass
@@ -263,14 +272,28 @@ class ModelConfig:
         return usecase in self.guess_usecases()
 
     def guess_usecases(self) -> set[str]:
-        """The JAX package's guess from the backend name and the
-        ``embeddings`` flag, limited to the port's usecases."""
+        """The JAX package's guess, limited to the port's usecases."""
+        return self.usecase_heuristic() & set(SERVED_USECASES)
+
+    def usecase_heuristic(self) -> set[str]:
+        """The JAX package's guess from the backend name, ``mmproj`` and
+        the ``embeddings`` flag (its ``ModelConfig.guess_usecases``)."""
         name = (self.backend or "").lower()
         guessed: set[str] = set()
         if self.embeddings or "embed" in name:
             guessed.add("embeddings")
         if name in LLM_BACKENDS:
-            guessed |= {"chat", "completion", "edit"}
+            guessed |= {"chat", "completion", "edit", "tokenize"}
+            if self.mmproj:
+                guessed.add("vision")
+        if "diffus" in name or "image" in name:
+            guessed.add("image")
+        if "whisper" in name:
+            guessed.add("transcript")
+        if "tts" in name or name == "vits":
+            guessed.add("tts")
+        if "musicgen" in name or "sound" in name:
+            guessed.add("sound_generation")
         if "rerank" in name or self.embeddings:
             # embedding-capable models score query/document pairs
             guessed.add("rerank")

@@ -114,6 +114,7 @@ class GenHandle:
         self.prompt_tokens = len(req.prompt)
         self._done = threading.Event()
         self.cancelled = False
+        self.t_submit = time.monotonic()   # the busy watchdog's clock
 
     # engine-thread side -------------------------------------------------
     def _emit(self, delta: str, token_id: Optional[int]) -> None:
@@ -434,6 +435,25 @@ class Scheduler:
                     self.spec.resync_draft(s, self._resident[s])
                 self._spec_stale.discard(s)
         return True
+
+    @property
+    def busy(self) -> bool:
+        """Work in flight: an occupied slot, a prefill, a held or a
+        queued request."""
+        return (bool(self._slots) or bool(self._prefills)
+                or self._held is not None or not self._pending.empty())
+
+    def alive(self) -> bool:
+        """The engine thread runs (dead → the manager reloads)."""
+        return self._thread.is_alive()
+
+    def handles_older_than(self, timeout: float) -> list[GenHandle]:
+        """The handles in a slot that were submitted more than ``timeout``
+        seconds ago (the busy watchdog cancels them)."""
+        now = time.monotonic()
+        with self._lock:
+            return [ctx.handle for ctx in self._slots.values()
+                    if now - ctx.handle.t_submit > timeout]
 
     def metrics(self) -> dict:
         """Engine counters under the JAX package's names: occupancy,

@@ -26,7 +26,7 @@ from localai_tpu_torch.models.llama import (
 )
 from localai_tpu_torch.utils.device import resolve_device
 
-_ST_DTYPES = {
+SAFETENSORS_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
     "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
     "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
@@ -52,7 +52,7 @@ def read_safetensors_index(path: str | Path) -> dict[str, tuple]:
             continue
         begin, end = info["data_offsets"]
         try:
-            dt = _ST_DTYPES[info["dtype"]]
+            dt = SAFETENSORS_DTYPES[info["dtype"]]
         except KeyError:
             raise ValueError(f"{path}: tensor {name} has unsupported dtype "
                              f"{info['dtype']}") from None
@@ -158,37 +158,43 @@ _HF_LAYER_NAMES = {
 
 
 def write_llama_checkpoint(model_dir: str | Path, cfg: LlamaConfig,
-                           params: dict) -> Path:
+                           params: dict, dtype: str = "float32") -> Path:
     """Write a stacked float parameter dict as an HF llama checkpoint
-    (``config.json`` + one float32 ``model.safetensors``), the layout
-    :func:`load_llama_params` reads: so weights drawn once (a debug
-    preset on the CPU) load identically on every device."""
+    (``config.json`` + one ``model.safetensors`` in ``dtype``, float32 or
+    bfloat16), the layout :func:`load_llama_params` reads: so
+    weights drawn once (a debug preset on the CPU) load identically on
+    every device. Tensors are written one at a time, so a checkpoint
+    never sits whole in host memory."""
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
-    tensors = {"model.embed_tokens.weight": params["embed"],
-               "model.norm.weight": params["final_norm"]}
+    dt = torch_dtype(dtype)
+    st_name = {v: k for k, v in SAFETENSORS_DTYPES.items()}[dt]
+    tensors = {"model.embed_tokens.weight": lambda: params["embed"],
+               "model.norm.weight": lambda: params["final_norm"]}
     for key, stacked in params["layers"].items():
         hf, transpose = _HF_LAYER_NAMES[key]
         for i in range(cfg.num_layers):
-            t = stacked[i]
-            tensors[f"model.layers.{i}.{hf}"] = t.T if transpose else t
+            tensors[f"model.layers.{i}.{hf}"] = (
+                lambda t=stacked, i=i, tr=transpose: t[i].T if tr else t[i])
     if "lm_head" in params:
-        tensors["lm_head.weight"] = params["lm_head"].T
-    header, blobs, offset = {}, [], 0
-    for name, t in tensors.items():
-        data = t.detach().to("cpu", torch.float32).contiguous().numpy(
-        ).tobytes()
-        header[name] = {"dtype": "F32", "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(data)]}
-        offset += len(data)
-        blobs.append(data)
+        tensors["lm_head.weight"] = lambda: params["lm_head"].T
+    header, offset = {}, 0
+    for name, get in tensors.items():
+        shape = list(get().shape)
+        n = dt.itemsize
+        for d in shape:
+            n *= d
+        header[name] = {"dtype": st_name, "shape": shape,
+                        "data_offsets": [offset, offset + n]}
+        offset += n
     raw = json.dumps(header).encode()
     raw += b" " * (-len(raw) % 8)
     with open(model_dir / "model.safetensors", "wb") as f:
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
-        for data in blobs:
-            f.write(data)
+        for get in tensors.values():
+            t = get().detach().to(dt).contiguous().to("cpu")
+            f.write(memoryview(t.view(torch.uint8).numpy()))
     (model_dir / "config.json").write_text(json.dumps({
         "model_type": "llama", "vocab_size": cfg.vocab_size,
         "hidden_size": cfg.hidden_size,

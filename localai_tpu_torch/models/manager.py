@@ -5,13 +5,16 @@ Port of ``localai_tpu/models/manager.py::build_runner`` /
 thread-safe ``ModelManager`` that loads each configured model on first
 use. The engine runs the paged layout unless ``engine.kv_paged`` is false
 (on one device nothing else forces the contiguous one, as in the JAX
-package's ``build_runner``); ``engine.quantization`` (int8/int4) quantizes
+package's ``build_runner``; ``LOCALAI_KV_PAGED=0`` and ``LOCALAI_KV_DTYPE``
+apply as there); ``engine.quantization`` (int8/int4) quantizes
 the weights on the device after they are built or loaded, as the JAX
 package does. Speculative decoding is on by default for paged engines
 (the n-gram self-drafter) and for any engine with a ``draft_model``, as
 in the JAX package. Each serving model carries a ``TemplateCache`` over
-the models dir, as the JAX package's does. The prompt cache and the
-self-healing supervisor are not ported yet.
+the models dir, as the JAX package's does. The manager loads
+``preload_models`` at start, evicts the other models before a load under
+``single_active_backend``, and runs the JAX package's idle/busy watchdog.
+The prompt cache and the self-healing supervisor are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +49,18 @@ class ServingModel:
     tokenizer: Any
     templates: TemplateCache          # over the models dir
     loaded_at: float = dataclasses.field(default_factory=time.monotonic)
+    last_used: float = dataclasses.field(default_factory=time.monotonic)
+
+    def touch(self) -> None:
+        self.last_used = time.monotonic()
+
+    @property
+    def busy(self) -> bool:
+        return self.scheduler.busy
+
+    def alive(self) -> bool:
+        """The engine thread is the health signal (dead → reload)."""
+        return self.scheduler.alive()
 
     def close(self) -> None:
         self.scheduler.shutdown()
@@ -65,16 +80,32 @@ def build_runner(mcfg: ModelConfig, app: AppConfig,
             model.params, eng.quantization, device=app.device))
     ctx = min(mcfg.context_size or app.context_size,
               model.cfg.max_position_embeddings)
+    # paged unless the config says otherwise or LOCALAI_KV_PAGED=0 (an
+    # explicit per-model kv_paged wins); LOCALAI_KV_DTYPE replaces a
+    # default bfloat16 KV dtype, except int4 on a contiguous engine, which
+    # keeps its dtype with a warning (the JAX package's build_runner)
+    paged = eng.kv_paged
+    if paged is None:
+        paged = os.environ.get("LOCALAI_KV_PAGED", "") != "0"
+    kv_dtype = eng.kv_dtype
+    env_kv = os.environ.get("LOCALAI_KV_DTYPE", "").strip()
+    if env_kv and kv_dtype == "bfloat16":
+        if env_kv == "int4" and not paged:
+            log.warning(
+                "LOCALAI_KV_DTYPE=int4 ignored for %s: int4 KV requires "
+                "the paged layout (engine is contiguous)", mcfg.name)
+        else:
+            kv_dtype = env_kv
     runner = ModelRunner(
         model.cfg, model.params,
         num_slots=eng.max_slots,
         max_ctx=ctx,
         prefill_buckets=eng.prefill_buckets,
-        kv_dtype=eng.kv_dtype,
+        kv_dtype=kv_dtype,
         rope_freq_base=mcfg.rope_freq_base,
         rope_freq_scale=mcfg.rope_freq_scale,
         seed=mcfg.seed or 0,
-        paged=eng.kv_paged is not False,
+        paged=paged,
         kv_block_tokens=eng.kv_block_tokens,
         kv_num_blocks=eng.kv_num_blocks,
         prefill_chunk=eng.prefill_chunk,
@@ -131,7 +162,7 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
              "kv=%s %s; attention: decode=%s prefill=%s", mcfg.name,
              mcfg.model, time.monotonic() - t0, runner.device,
              eng.max_slots, runner.max_ctx,
-             "paged" if runner.paged else "contiguous", eng.kv_dtype,
+             "paged" if runner.paged else "contiguous", runner.kv_dtype,
              runner.paged_attn_impl if runner.paged else runner.attn_impl,
              runner.attn_impl)
     return ServingModel(name=mcfg.name, config=mcfg, runner=runner,
@@ -140,33 +171,145 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
 
 
 class ModelManager:
-    """Thread-safe registry of loaded models (loaded on first use)."""
+    """Thread-safe registry of loaded models (loaded on first use, or at
+    start for ``preload_models``)."""
 
     def __init__(self, app: Optional[AppConfig] = None,
                  loader: Optional[ConfigLoader] = None):
         self.app = app or AppConfig()
         self.loader = loader or ConfigLoader(self.app.model_path)
         self._models: dict[str, ServingModel] = {}
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()        # guards _models
+        self._load_lock = threading.Lock()    # one load at a time: a load
+                                              # holds the card
+        self._watchdog: Optional[_Watchdog] = None
+        if self.app.watchdog_idle or self.app.watchdog_busy:
+            self._watchdog = _Watchdog(self)
+            self._watchdog.start()
 
     def loaded_names(self) -> list[str]:
         with self._lock:
             return sorted(self._models)
 
     def get(self, name: str) -> ServingModel:
-        """Load-or-get; one load at a time (a load holds the card)."""
-        with self._lock:
-            sm = self._models.get(name)
-            if sm is None:
-                mcfg = self.loader.get(name)
-                if mcfg is None:
-                    raise KeyError(name)
-                sm = build_serving_model(mcfg, self.app)
+        """Load-or-get; a model whose engine died is reloaded. Under
+        ``single_active_backend`` the other idle models are evicted before
+        a load."""
+        sm = self._cached(name)
+        if sm is not None:
+            return sm
+        with self._load_lock:
+            sm = self._cached(name)   # a racing load won?
+            if sm is not None:
+                return sm
+            mcfg = self.loader.get(name)
+            if mcfg is None:
+                raise KeyError(name)
+            if self.app.single_active_backend:
+                with self._lock:
+                    for other in list(self._models):
+                        if not self._models[other].busy:
+                            self._evict_locked(other)
+            sm = build_serving_model(mcfg, self.app)
+            with self._lock:
                 self._models[name] = sm
             return sm
 
+    def _cached(self, name: str) -> Optional[ServingModel]:
+        with self._lock:
+            sm = self._models.get(name)
+            if sm is None:
+                return None
+            if not sm.alive():
+                log.warning("model %s engine died; reloading", name)
+                self._evict_locked(name)
+                return None
+            sm.touch()
+            return sm
+
+    def preload(self) -> None:
+        """Load ``load_to_memory`` (else ``preload_models``) now, as the
+        JAX package's ``serve`` does. A name no config has is a gallery
+        reference there, which the port cannot install yet (ROADMAP item
+        21); a failed load is logged and serving goes on."""
+        for name in self.app.preload_models:
+            if self.loader.get(name) is None:
+                log.warning("preload: unknown model ref %r (installing from "
+                            "a gallery is not ported: ROADMAP item 21)",
+                            name)
+        for name in self.app.load_to_memory or self.app.preload_models:
+            try:
+                self.get(name)
+            except Exception as e:  # noqa: BLE001 — keep serving the rest
+                log.warning("eager load of %s failed: %s", name, e)
+
+    def _evict_locked(self, name: str) -> None:
+        sm = self._models.pop(name, None)
+        if sm is not None:
+            sm.close()
+
+    def shutdown_model(self, name: str, *, force: bool = False,
+                       wait: float = 30.0) -> bool:
+        """Stop one model, after its in-flight work unless forced."""
+        deadline = time.monotonic() + wait
+        while not force:
+            with self._lock:
+                sm = self._models.get(name)
+                if sm is None:
+                    return False
+                if not sm.busy:
+                    break
+            if time.monotonic() > deadline:
+                log.warning("%s still busy after %.0fs; forcing", name, wait)
+                break
+            time.sleep(0.1)
+        with self._lock:
+            if name not in self._models:
+                return False
+            self._evict_locked(name)
+            return True
+
     def shutdown(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.stop()
         with self._lock:
             models, self._models = list(self._models.values()), {}
         for sm in models:
             sm.close()
+
+
+class _Watchdog(threading.Thread):
+    """Every ``INTERVAL`` seconds: evict a model idle longer than
+    ``watchdog_idle_timeout`` (``watchdog_idle``), and cancel a request
+    running longer than ``watchdog_busy_timeout`` (``watchdog_busy``)."""
+
+    INTERVAL = 5.0
+
+    def __init__(self, manager: ModelManager):
+        super().__init__(name="watchdog", daemon=True)
+        self.manager = manager
+        self._halt = threading.Event()
+
+    def stop(self) -> None:
+        self._halt.set()
+
+    def run(self) -> None:
+        app = self.manager.app
+        while not self._halt.wait(self.INTERVAL):
+            now = time.monotonic()
+            with self.manager._lock:
+                items = list(self.manager._models.items())
+            for name, sm in items:
+                if (app.watchdog_idle and not sm.busy
+                        and now - sm.last_used > app.watchdog_idle_timeout):
+                    log.info("watchdog: evicting idle model %s", name)
+                    self.manager.shutdown_model(name, force=True)
+                elif app.watchdog_busy and sm.busy:
+                    self._cancel_stuck(sm)
+
+    def _cancel_stuck(self, sm: ServingModel) -> None:
+        timeout = self.manager.app.watchdog_busy_timeout
+        for handle in sm.scheduler.handles_older_than(timeout):
+            log.warning("watchdog: cancelling stuck request %d (>%ds)",
+                        handle.id, int(timeout))
+            handle.cancel()

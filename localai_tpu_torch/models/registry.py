@@ -96,3 +96,15 @@ def resolve_model(
         f"model ref {ref!r} not found (looked for config.json under {ref} and "
         f"{Path(model_path) / ref})"
     )
+
+
+def resolve_tokenizer(ref: str, model_path: str | Path = "models"
+                      ) -> Tokenizer:
+    """Tokenizer-only resolution, never touching weights (the tokenize
+    CLI must not read gigabytes of parameters to encode a string)."""
+    if ref.startswith("debug:"):
+        return ByteTokenizer()
+    for cand in (Path(ref), Path(model_path) / ref):
+        if cand.is_dir():
+            return load_tokenizer(cand)
+    raise FileNotFoundError(f"model ref {ref!r} not found under {model_path}")

@@ -28,7 +28,19 @@ from typing import Any, Optional, Sequence
 from localai_tpu_torch.config.model_config import ModelConfig
 from localai_tpu_torch.templates.cache import TemplateCache, TemplateType
 from localai_tpu_torch.templates.engine import Template
-from localai_tpu_torch.templates.gotmpl import make_environment
+from localai_tpu_torch.templates.gotmpl import (
+    go_template_to_jinja,
+    looks_like_go_template,
+    make_environment,
+)
+
+# the placeholders a message with images, audio or video gets by default
+DEFAULT_MULTIMODAL = (
+    "{{ range .Audio }}[audio-{{.ID}}]{{end}}"
+    "{{ range .Images }}[img-{{.ID}}]{{end}}"
+    "{{ range .Video }}[vid-{{.ID}}]{{end}}"
+    "{{.Text}}"
+)
 
 
 def _compact_json(v: Any) -> str:
@@ -205,6 +217,31 @@ def apply_tokenizer_template(
 def parsed_chat_template(source: str) -> Template:
     """A chat template, parsed once per source text."""
     return make_environment().from_string(source)
+
+
+def multimodal_placeholders(
+    template: str,
+    text: str,
+    *,
+    n_images: int = 0,
+    n_audio: int = 0,
+    n_video: int = 0,
+    first_image_id: int = 0,
+    first_video_id: int = 0,
+) -> str:
+    """A message's text with its [img-N]/[audio-N]/[vid-N] placeholders,
+    through ``template`` (Go or Jinja; ``DEFAULT_MULTIMODAL`` when empty).
+    ``first_image_id``/``first_video_id`` offset the ids, so a request
+    with several such messages keeps one running numbering."""
+    src = template or DEFAULT_MULTIMODAL
+    if looks_like_go_template(src):
+        src = go_template_to_jinja(src)
+    return parsed_chat_template(src).render(
+        Text=text,
+        Images=[{"ID": first_image_id + i} for i in range(n_images)],
+        Audio=[{"ID": i} for i in range(n_audio)],
+        Video=[{"ID": first_video_id + i} for i in range(n_video)],
+    )
 
 
 def _string_content(content: Any) -> str:

@@ -1,0 +1,746 @@
+"""Reader of the Hugging Face ``tokenizer.json`` format on the standard
+library alone.
+
+The card's machine has neither ``tokenizers`` nor ``transformers``, so the
+port reads a checkpoint's ``tokenizer.json`` itself. The pipeline follows
+the format's sections in the order ``tokenizers`` runs them for
+``encode(text, add_special_tokens=False)``:
+
+  1. added tokens: the text is split on every entry of ``added_tokens``
+     (special ones included), leftmost-longest; ``single_word``,
+     ``lstrip``, ``rstrip`` and ``normalized`` are honoured;
+  2. normalizer (``NFC``/``NFKC``/``NFD``/``NFKD``, ``Sequence``,
+     ``Prepend``, ``Replace``, ``Strip``) on each piece between added
+     tokens;
+  3. pre-tokenizer (``ByteLevel``, ``Split``, ``Metaspace``, ``Digits``,
+     ``Sequence``);
+  4. model: ``BPE`` (ranked merges, ``ignore_merges``, ``unk_token``,
+     ``fuse_unk``, ``byte_fallback``, ``continuing_subword_prefix``,
+     ``end_of_word_suffix``), with a word → ids cache.
+
+``decode(ids)`` maps ids to tokens (added tokens to their content) and
+runs the decoder (``ByteLevel``, ``Metaspace``, ``Replace``,
+``ByteFallback``, ``Fuse``, ``Strip``, ``Sequence``) over all of them,
+as ``decode(ids, skip_special_tokens=False)`` does. The post-processor is
+never run (the serving path never asks for it). A component this reader
+does not implement fails at load with a ``ValueError`` naming it.
+
+The regexes of the format are Oniguruma's. ``\\p{..}``, ``\\s``, ``\\d``
+and ``\\w`` are rewritten into explicit character classes built from
+``unicodedata`` (Python's own ``\\s`` also matches U+001C..U+001F, which
+are not white space in Unicode, and its ``\\w`` differs from
+Oniguruma's); the rest of the syntax these files use (``(?i:..)``,
+lookahead, possessive and atomic forms) is Python's too.
+"""
+
+from __future__ import annotations
+
+import functools
+import heapq
+import json
+import re
+import sys
+import unicodedata
+from pathlib import Path
+from typing import Callable, Optional, Sequence
+
+# ---------------------------------------------------------------------------
+# Unicode classes (Oniguruma's, built from this interpreter's unicodedata)
+
+# Oniguruma's \s with Unicode: U+0009..U+000D, U+0085 and the separators
+# (Zs, Zl, Zp), the same set as Unicode's White_Space property
+_WS_EXTRA = "\t\n\x0b\x0c\r\x85"
+_CATEGORY_NAMES = {
+    "Letter": "L", "Mark": "M", "Number": "N", "Punctuation": "P",
+    "Symbol": "S", "Separator": "Z", "Other": "C",
+    "Uppercase_Letter": "Lu", "Lowercase_Letter": "Ll",
+    "Titlecase_Letter": "Lt", "Modifier_Letter": "Lm",
+    "Other_Letter": "Lo", "Decimal_Number": "Nd", "Letter_Number": "Nl",
+    "Other_Number": "No", "Nonspacing_Mark": "Mn",
+    "Spacing_Mark": "Mc", "Enclosing_Mark": "Me",
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _category_runs() -> dict[str, list[tuple[int, int]]]:
+    """General category → its runs of code points (lo, hi), surrogates
+    excluded."""
+    out: dict[str, list[tuple[int, int]]] = {}
+    cat = unicodedata.category
+    run_cat, lo = cat("\0"), 0
+    for cp in range(1, sys.maxunicode + 2):
+        c = (None if cp > sys.maxunicode
+             else "Cs" if 0xD800 <= cp <= 0xDFFF else cat(chr(cp)))
+        if c != run_cat:
+            if run_cat != "Cs":
+                out.setdefault(run_cat, []).append((lo, cp - 1))
+            run_cat, lo = c, cp
+    return out
+
+
+def _ranges(runs: list[tuple[int, int]]) -> str:
+    """Runs of code points → the body of a regex character class, with
+    adjacent runs joined."""
+    merged: list[list[int]] = []
+    for lo, hi in sorted(runs):
+        if merged and lo <= merged[-1][1] + 1:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return "".join(re.escape(chr(lo)) if lo == hi
+                   else f"{re.escape(chr(lo))}-{re.escape(chr(hi))}"
+                   for lo, hi in merged)
+
+
+@functools.lru_cache(maxsize=None)
+def _class_body(name: str) -> str:
+    """Class body for ``\\p{name}`` (a general category or its one-letter
+    group), ``s`` (white space), ``d`` (Nd) or ``w`` (Oniguruma's word
+    characters: letters, marks, decimal digits, connector punctuation)."""
+    table = _category_runs()
+
+    def cats(pred) -> list[tuple[int, int]]:
+        return [r for c, runs in table.items() if pred(c) for r in runs]
+
+    if name == "s":
+        return _ranges([(ord(c), ord(c)) for c in _WS_EXTRA]
+                       + cats(lambda c: c in ("Zs", "Zl", "Zp")))
+    if name == "d":
+        return _ranges(cats(lambda c: c == "Nd"))
+    if name == "w":
+        return _ranges(cats(lambda c: c[0] in "LM" or c in ("Nd", "Pc")))
+    name = _CATEGORY_NAMES.get(name, name)
+    if len(name) == 1 and name in "LMNPSZC":
+        return _ranges(cats(lambda c: c[0] == name))
+    if name in table:
+        return _ranges(table[name])
+    raise ValueError(f"tokenizer.json: regex property \\p{{{name}}} is "
+                     "not supported")
+
+
+@functools.lru_cache(maxsize=256)
+def onig_regex(pattern: str) -> "re.Pattern[str]":
+    """An Oniguruma pattern of ``tokenizer.json`` as a compiled Python
+    regex, with ``\\p{..}``/``\\P{..}``, ``\\s``/``\\S``, ``\\d``/``\\D``
+    and ``\\w``/``\\W`` made explicit."""
+    out: list[str] = []
+    i, n = 0, len(pattern)
+    in_class = False
+    while i < n:
+        c = pattern[i]
+        if c == "\\" and i + 1 < n:
+            e = pattern[i + 1]
+            if e in "pP" and i + 2 < n and pattern[i + 2] == "{":
+                end = pattern.index("}", i + 3)
+                body, neg = _class_body(pattern[i + 3:end]), e == "P"
+                i = end + 1
+            elif e in "sSdDwW":
+                body, neg = _class_body(e.lower()), e.isupper()
+                i += 2
+            else:
+                out.append(pattern[i:i + 2])
+                i += 2
+                continue
+            if in_class:
+                if neg:
+                    raise ValueError(
+                        f"tokenizer.json: negated class escape inside a "
+                        f"character class in {pattern!r} is not supported")
+                out.append(body)
+            else:
+                out.append(f"[{'^' if neg else ''}{body}]")
+            continue
+        if c == "[" and not in_class:
+            in_class = True
+            out.append(c)
+            # a ']' right after '[' or '[^' is a literal
+            if pattern.startswith("^", i + 1):
+                out.append("^")
+                i += 1
+            if pattern.startswith("]", i + 1):
+                out.append("\\]")
+                i += 1
+        elif c == "[":
+            raise ValueError(f"tokenizer.json: nested character class in "
+                             f"{pattern!r} is not supported")
+        elif c == "]" and in_class:
+            in_class = False
+            out.append(c)
+        else:
+            out.append(c)
+        i += 1
+    try:
+        return re.compile("".join(out))
+    except re.error as e:
+        raise ValueError(f"tokenizer.json: regex {pattern!r} is not "
+                         f"supported: {e}") from None
+
+
+@functools.lru_cache(maxsize=None)
+def _white_space() -> frozenset[str]:
+    """Unicode's White_Space property (Rust's ``char::is_whitespace``),
+    the set Oniguruma's ``\\s`` matches."""
+    runs = _category_runs()
+    return frozenset(_WS_EXTRA) | frozenset(
+        chr(cp) for cat in ("Zs", "Zl", "Zp") for lo, hi in runs.get(cat, ())
+        for cp in range(lo, hi + 1))
+
+
+def _is_numeric(c: str) -> bool:
+    """Rust's ``char::is_numeric``: the general categories Nd, Nl, No."""
+    return unicodedata.category(c)[0] == "N"
+
+
+def _is_word_char(c: str) -> bool:
+    return c.isalnum() or c == "_"
+
+
+# ---------------------------------------------------------------------------
+# Splitting (``NormalizedString::split`` and its delimiter behaviours)
+
+Match = tuple[int, int, bool]            # (start, end, is a match)
+
+
+def _regex_matches(rx: "re.Pattern[str]", s: str) -> list[Match]:
+    out: list[Match] = []
+    prev = 0
+    for m in rx.finditer(s):
+        a, b = m.span()
+        if prev != a:
+            out.append((prev, a, False))
+        out.append((a, b, True))
+        prev = b
+    if prev != len(s):
+        out.append((prev, len(s), False))
+    return out
+
+
+def _char_matches(pred: Callable[[str], bool], s: str) -> list[Match]:
+    out: list[Match] = []
+    last = 0
+    for i, c in enumerate(s):
+        if pred(c):
+            if last < i:
+                out.append((last, i, False))
+            out.append((i, i + 1, True))
+            last = i + 1
+    if last < len(s):
+        out.append((last, len(s), False))
+    return out
+
+
+def _split(s: str, matches: list[Match], behavior: str,
+           invert: bool = False) -> list[tuple[int, int]]:
+    """Pieces of ``s`` (start, end), empty ones dropped, as
+    ``tokenizers``' split behaviours lay them out."""
+    if invert:
+        matches = [(a, b, not m) for a, b, m in matches]
+    spans: list[list[int]] = []
+    if behavior == "Isolated":
+        spans = [[a, b] for a, b, _ in matches]
+    elif behavior == "Removed":
+        spans = [[a, b] for a, b, m in matches if not m]
+    elif behavior in ("Contiguous", "MergedWithPrevious"):
+        prev = False
+        for a, b, m in matches:
+            merge = (m == prev) if behavior == "Contiguous" \
+                else (m and not prev)
+            if merge and spans:
+                spans[-1][1] = b
+            else:
+                spans.append([a, b])
+            prev = m
+    elif behavior == "MergedWithNext":
+        prev = False
+        for a, b, m in reversed(matches):
+            if m and not prev and spans:
+                spans[-1][0] = a
+            else:
+                spans.append([a, b])
+            prev = m
+        spans.reverse()
+    else:
+        raise ValueError(f"tokenizer.json: split behavior {behavior!r} is "
+                         "not supported")
+    return [(a, b) for a, b in spans if b > a]
+
+
+def _pattern_matcher(pattern: dict) -> Callable[[str], list[Match]]:
+    """A ``{"String": ..}`` or ``{"Regex": ..}`` pattern of the format."""
+    if "Regex" in pattern:
+        rx = onig_regex(pattern["Regex"])
+    elif "String" in pattern:
+        rx = re.compile(re.escape(pattern["String"]))
+    else:
+        raise ValueError(f"tokenizer.json: pattern {pattern!r} is not "
+                         "supported")
+    return lambda s: _regex_matches(rx, s)
+
+
+# ---------------------------------------------------------------------------
+# Normalizers: str → str
+
+Normalizer = Callable[[str], str]
+
+
+def _normalizer(spec: Optional[dict]) -> Normalizer:
+    if spec is None:
+        return lambda s: s
+    kind = spec.get("type")
+    if kind in ("NFC", "NFD", "NFKC", "NFKD"):
+        return functools.partial(unicodedata.normalize, kind)
+    if kind == "Sequence":
+        steps = [_normalizer(n) for n in spec["normalizers"]]
+
+        def run(s: str) -> str:
+            for f in steps:
+                s = f(s)
+            return s
+        return run
+    if kind == "Prepend":
+        pre = spec["prepend"]
+        return lambda s: pre + s if s else s
+    if kind == "Replace":
+        return _replacer(spec)
+    if kind == "Strip":
+        ws = "".join(_white_space())
+        left, right = spec.get("strip_left", True), spec.get("strip_right",
+                                                             True)
+
+        def strip(s: str) -> str:
+            if left:
+                s = s.lstrip(ws)
+            if right:
+                s = s.rstrip(ws)
+            return s
+        return strip
+    raise ValueError(f"tokenizer.json: normalizer {kind!r} is not supported")
+
+
+def _replacer(spec: dict) -> Callable[[str], str]:
+    pat, content = spec["pattern"], spec["content"]
+    if "String" in pat:
+        old = pat["String"]
+        return lambda s: s.replace(old, content) if old else s
+    rx = onig_regex(pat["Regex"])
+    return lambda s: rx.sub(lambda _m: content, s)
+
+
+# ---------------------------------------------------------------------------
+# Pre-tokenizers: [(piece, starts at the original's offset 0)] → same
+
+Splits = list[tuple[str, bool]]
+PreTokenizer = Callable[[Splits], Splits]
+
+
+def _bytes_to_unicode() -> dict[int, str]:
+    """GPT-2's byte → printable character map (ByteLevel)."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs = list(bs)
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return {b: chr(c) for b, c in zip(bs, cs)}
+
+
+BYTE_CHAR = _bytes_to_unicode()
+CHAR_BYTE = {c: b for b, c in BYTE_CHAR.items()}
+# the pattern GPT-2 (and ByteLevel's use_regex) splits words with
+GPT2_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+"
+                r"| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+")
+
+
+def _each(fn: Callable[[str, bool], list[tuple[str, bool]]]) -> PreTokenizer:
+    def run(splits: Splits) -> Splits:
+        out: Splits = []
+        for s, first in splits:
+            out.extend(p for p in fn(s, first) if p[0])
+        return out
+    return run
+
+
+def _pieces(s: str, first: bool, spans) -> list[tuple[str, bool]]:
+    return [(s[a:b], first and a == 0) for a, b in spans]
+
+
+def _pre_tokenizer(spec: Optional[dict]) -> PreTokenizer:
+    if spec is None:
+        return lambda splits: splits
+    kind = spec.get("type")
+    if kind == "Sequence":
+        steps = [_pre_tokenizer(p) for p in spec["pretokenizers"]]
+
+        def run(splits: Splits) -> Splits:
+            for f in steps:
+                splits = f(splits)
+            return splits
+        return run
+    if kind == "ByteLevel":
+        prefix = spec.get("add_prefix_space", True)
+        rx = onig_regex(GPT2_PATTERN) if spec.get("use_regex", True) \
+            else None
+
+        def byte_level(s: str, first: bool) -> list[tuple[str, bool]]:
+            if prefix and s and not s.startswith(" "):
+                s = " " + s
+            parts = [(s, first)] if rx is None else _pieces(
+                s, first, _split(s, _regex_matches(rx, s), "Isolated"))
+            return [("".join(BYTE_CHAR[b] for b in p.encode("utf-8")), f)
+                    for p, f in parts]
+        return _each(byte_level)
+    if kind == "Split":
+        match = _pattern_matcher(spec["pattern"])
+        behavior, invert = spec["behavior"], spec.get("invert", False)
+        return _each(lambda s, first: _pieces(
+            s, first, _split(s, match(s), behavior, invert)))
+    if kind == "Metaspace":
+        rep = spec.get("replacement", "▁")
+        scheme = _prepend_scheme(spec)
+        split = spec.get("split", True)
+
+        def metaspace(s: str, first: bool) -> list[tuple[str, bool]]:
+            s = s.replace(" ", rep)
+            if (scheme == "always" or (scheme == "first" and first)) \
+                    and s and not s.startswith(rep):
+                s = rep + s
+            if not split:
+                return [(s, first)]
+            return _pieces(s, first, _split(
+                s, _char_matches(lambda c: c == rep, s), "MergedWithNext"))
+        return _each(metaspace)
+    if kind == "Digits":
+        behavior = ("Isolated" if spec.get("individual_digits", False)
+                    else "Contiguous")
+        return _each(lambda s, first: _pieces(s, first, _split(
+            s, _char_matches(_is_numeric, s), behavior)))
+    raise ValueError(f"tokenizer.json: pre-tokenizer {kind!r} is not "
+                     "supported")
+
+
+def _prepend_scheme(spec: dict) -> str:
+    """Metaspace's prepend scheme; older files carry ``add_prefix_space``."""
+    if "prepend_scheme" in spec:
+        return spec["prepend_scheme"]
+    return "always" if spec.get("add_prefix_space", True) else "never"
+
+
+# ---------------------------------------------------------------------------
+# Model: BPE
+
+
+class BPE:
+    """The ``BPE`` model of ``tokenizers`` without dropout: each word's
+    characters become symbols, then the adjacent pair of lowest merge rank
+    (leftmost on a tie) is merged until none is left."""
+
+    CACHE_WORDS = 10_000
+
+    def __init__(self, spec: dict):
+        if spec.get("dropout") not in (None, 0, 0.0):
+            raise ValueError("tokenizer.json: BPE dropout is not supported")
+        self.vocab: dict[str, int] = dict(spec["vocab"])
+        self.vocab_r = {i: t for t, i in self.vocab.items()}
+        self.unk_token: Optional[str] = spec.get("unk_token")
+        self.fuse_unk = bool(spec.get("fuse_unk", False))
+        self.byte_fallback = bool(spec.get("byte_fallback", False))
+        self.ignore_merges = bool(spec.get("ignore_merges", False))
+        self.prefix: str = spec.get("continuing_subword_prefix") or ""
+        self.suffix: str = spec.get("end_of_word_suffix") or ""
+        self.merges: dict[tuple[int, int], tuple[int, int]] = {}
+        for rank, m in enumerate(spec.get("merges", [])):
+            a, b = m.split(" ", 1) if isinstance(m, str) else m
+            new = a + b[len(self.prefix):]
+            try:
+                self.merges[(self.vocab[a], self.vocab[b])] = (
+                    rank, self.vocab[new])
+            except KeyError as e:
+                raise ValueError(f"tokenizer.json: merge {a!r} {b!r} names "
+                                 f"a token not in the vocabulary: {e}") \
+                    from None
+        self._cache: dict[str, tuple[int, ...]] = {}
+
+    def tokenize(self, word: str) -> tuple[int, ...]:
+        if not word:
+            return ()
+        if self.ignore_merges:
+            i = self.vocab.get(word)
+            if i is not None:
+                return (i,)
+        hit = self._cache.get(word)
+        if hit is None:
+            hit = self._merge_word(word)
+            if len(self._cache) < self.CACHE_WORDS:
+                self._cache[word] = hit
+        return hit
+
+    def _merge_word(self, w: str) -> tuple[int, ...]:
+        syms: list[int] = []
+        unk: Optional[int] = None          # a pending (maybe fused) unk
+        last = len(w) - 1
+        for i, ch in enumerate(w):
+            s = (self.prefix if i and self.prefix else "") + ch
+            if i == last:
+                s += self.suffix
+            tid = self.vocab.get(s)
+            if tid is not None:
+                if unk is not None:
+                    syms.append(unk)
+                    unk = None
+                syms.append(tid)
+                continue
+            if self.byte_fallback:
+                ids = [self.vocab.get(f"<0x{b:02X}>") for b in s.encode()]
+                if None not in ids:
+                    syms.extend(ids)      # a pending unk stays pending
+                    continue
+            if self.unk_token is not None:
+                unk_id = self.vocab.get(self.unk_token)
+                if unk_id is None:
+                    raise ValueError(f"tokenizer.json: unk_token "
+                                     f"{self.unk_token!r} is not in the "
+                                     "vocabulary")
+                if unk is not None and not self.fuse_unk:
+                    syms.append(unk)
+                unk = unk_id
+        if unk is not None:
+            syms.append(unk)
+        return tuple(self._merge_all(syms))
+
+    def _merge_all(self, syms: list[int]) -> list[int]:
+        n = len(syms)
+        if n < 2:
+            return syms
+        merges = self.merges
+        nxt = list(range(1, n + 1))
+        prv = list(range(-1, n - 1))
+        alive = [True] * n
+        heap = []
+        for p in range(n - 1):
+            m = merges.get((syms[p], syms[p + 1]))
+            if m is not None:
+                heap.append((m[0], p, m[1]))
+        heapq.heapify(heap)
+        while heap:
+            _rank, p, new = heapq.heappop(heap)
+            q = nxt[p]
+            if not alive[p] or q >= n:
+                continue
+            m = merges.get((syms[p], syms[q]))
+            if m is None or m[1] != new:
+                continue                       # a stale entry
+            syms[p] = new
+            alive[q] = False
+            nxt[p] = nxt[q]
+            if nxt[p] < n:
+                prv[nxt[p]] = p
+            if prv[p] >= 0:
+                m = merges.get((syms[prv[p]], new))
+                if m is not None:
+                    heapq.heappush(heap, (m[0], prv[p], m[1]))
+            if nxt[p] < n:
+                m = merges.get((new, syms[nxt[p]]))
+                if m is not None:
+                    heapq.heappush(heap, (m[0], p, m[1]))
+        return [s for s, a in zip(syms, alive) if a]
+
+
+# ---------------------------------------------------------------------------
+# Decoders: [token] → [str], joined at the end
+
+Decoder = Callable[[list[str]], list[str]]
+
+
+def _decoder(spec: Optional[dict]) -> Optional[Decoder]:
+    if spec is None:
+        return None
+    kind = spec.get("type")
+    if kind == "Sequence":
+        steps = [_decoder(d) for d in spec["decoders"]]
+
+        def run(tokens: list[str]) -> list[str]:
+            for f in steps:
+                tokens = f(tokens)
+            return tokens
+        return run
+    if kind == "ByteLevel":
+        def byte_level(tokens: list[str]) -> list[str]:
+            out = bytearray()
+            for t in tokens:
+                try:
+                    out.extend(CHAR_BYTE[c] for c in t)
+                except KeyError:            # not byte-level: its own bytes
+                    out.extend(t.encode("utf-8"))
+            return [bytes(out).decode("utf-8", errors="replace")]
+        return byte_level
+    if kind == "Metaspace":
+        rep = spec.get("replacement", "▁")
+        strip_first = _prepend_scheme(spec) != "never"
+        return lambda tokens: [
+            t.replace(rep, "" if i == 0 and strip_first else " ")
+            for i, t in enumerate(tokens)]
+    if kind == "Replace":
+        rep = _replacer(spec)
+        return lambda tokens: [rep(t) for t in tokens]
+    if kind == "ByteFallback":
+        return _byte_fallback
+    if kind == "Fuse":
+        return lambda tokens: ["".join(tokens)]
+    if kind == "Strip":
+        content = spec["content"]
+        start, stop = int(spec.get("start", 0)), int(spec.get("stop", 0))
+
+        def strip(tokens: list[str]) -> list[str]:
+            out = []
+            for t in tokens:
+                a, b = 0, len(t)
+                while a < min(start, len(t)) and t[a] == content:
+                    a += 1
+                while len(t) - b < stop and b > 0 and t[b - 1] == content:
+                    b -= 1
+                out.append(t[a:max(a, b)])
+            return out
+        return strip
+    raise ValueError(f"tokenizer.json: decoder {kind!r} is not supported")
+
+
+_BYTE_TOKEN = re.compile(r"<0x([0-9A-Fa-f]{2})>")
+
+
+def _byte_fallback(tokens: list[str]) -> list[str]:
+    """``<0xXX>`` runs become their UTF-8 text, or one U+FFFD per byte
+    when the run is not valid UTF-8."""
+    out: list[str] = []
+    run = bytearray()
+
+    def flush():
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("�" for _ in run)
+            run.clear()
+
+    for t in tokens:
+        m = _BYTE_TOKEN.fullmatch(t) if len(t) == 6 else None
+        if m is not None:
+            run.append(int(m.group(1), 16))
+        else:
+            flush()
+            out.append(t)
+    flush()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Added tokens
+
+
+class _AddedTokens:
+    """Splits text on the added tokens of one kind (matched against the
+    raw text, or against the normalized text), leftmost-longest."""
+
+    def __init__(self, entries: list[dict], contents: list[str]):
+        self.entries = entries
+        order = sorted(range(len(entries)), key=lambda k: -len(contents[k]))
+        self._by_content = {}
+        for k in order:
+            self._by_content.setdefault(contents[k], entries[k])
+        self._rx = re.compile("|".join(re.escape(contents[k])
+                                       for k in order if contents[k])) \
+            if any(contents) else None
+
+    def split(self, s: str) -> list[tuple[int, int, Optional[int]]]:
+        """(start, end, added id or None) pieces covering ``s``."""
+        if self._rx is None or not s:
+            return [(0, len(s), None)]
+        ws = _white_space()
+        out: list[tuple[int, int, Optional[int]]] = []
+        start_off = 0
+        for m in self._rx.finditer(s):
+            a, b = m.span()
+            tok = self._by_content[m.group(0)]
+            if tok.get("single_word", False):
+                if (a > 0 and _is_word_char(s[a - 1])) or (
+                        b < len(s) and _is_word_char(s[b])):
+                    continue
+            if tok.get("lstrip", False):
+                na = a
+                while na > 0 and s[na - 1] in ws:
+                    na -= 1
+                a = max(na, start_off)
+            if tok.get("rstrip", False):
+                while b < len(s) and s[b] in ws:
+                    b += 1
+            if start_off < a:
+                out.append((start_off, a, None))
+            out.append((a, b, tok["id"]))
+            start_off = b
+        if start_off != len(s):
+            out.append((start_off, len(s), None))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# The tokenizer
+
+
+class TokenizerJSON:
+    """``tokenizer.json`` → ``encode``/``decode`` equal to ``tokenizers``'
+    ``encode(text, add_special_tokens=False).ids`` and
+    ``decode(ids, skip_special_tokens=False)``."""
+
+    def __init__(self, spec: dict):
+        model = spec.get("model") or {}
+        kind = model.get("type") or ("BPE" if "merges" in model else None)
+        if kind != "BPE":
+            raise ValueError(f"tokenizer.json: model {kind!r} is not "
+                             "supported (this reader has BPE only)")
+        self.model = BPE(model)
+        self.normalize = _normalizer(spec.get("normalizer"))
+        self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
+        self._decoder = _decoder(spec.get("decoder"))
+        added = list(spec.get("added_tokens") or [])
+        self.added_r = {int(t["id"]): t["content"] for t in added}
+        raw = [t for t in added if not t.get("normalized", False)]
+        norm = [t for t in added if t.get("normalized", False)]
+        self._raw_split = _AddedTokens(raw, [t["content"] for t in raw])
+        self._norm_split = _AddedTokens(
+            norm, [self.normalize(t["content"]) for t in norm])
+        self.vocab_size = len(set(self.model.vocab) | {
+            t["content"] for t in added})
+
+    @classmethod
+    def from_file(cls, path: str | Path) -> "TokenizerJSON":
+        return cls(json.loads(Path(path).read_text(encoding="utf-8")))
+
+    def encode(self, text: str) -> list[int]:
+        ids: list[int] = []
+        for a, b, tid in self._raw_split.split(text):
+            if tid is not None:
+                ids.append(tid)
+                continue
+            normalized = self.normalize(text[a:b])
+            pieces = self._norm_split.split(normalized)
+            for k, (c, d, nid) in enumerate(pieces):
+                if nid is not None:
+                    ids.append(nid)
+                    continue
+                first = a == 0 and k == 0
+                for word, _ in self.pre_tokenize([(normalized[c:d], first)]):
+                    ids.extend(self.model.tokenize(word))
+        return ids
+
+    def id_to_token(self, i: int) -> Optional[str]:
+        tok = self.added_r.get(i)
+        return tok if tok is not None else self.model.vocab_r.get(i)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        tokens = [t for t in map(self.id_to_token, ids) if t is not None]
+        if self._decoder is None:
+            return " ".join(tokens)
+        return "".join(self._decoder(tokens))

@@ -1,15 +1,21 @@
 """Tokenizer abstraction: HF tokenizers for real models, a self-contained
 byte-level tokenizer for tests/benchmarks (zero downloads).
 
-Copy of ``localai_tpu/utils/tokenizer.py``. The HF tokenizer imports
-``tokenizers`` (or ``transformers``) inside its constructor, so the port's
-runtime needs neither unless a checkpoint ships a tokenizer.
+Copy of ``localai_tpu/utils/tokenizer.py``, except that the HF tokenizer
+reads ``tokenizer.json`` with the port's own reader
+(``utils/hf_tokenizer.py``, stdlib only) where the JAX package imports
+``tokenizers``: the card's machine has neither ``tokenizers`` nor
+``transformers``. A checkpoint with a ``tokenizer_config.json`` and no
+``tokenizer.json`` (the JAX package hands it to ``transformers``) is
+refused here, naming the missing file.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Protocol, Sequence
+
+from localai_tpu_torch.utils.hf_tokenizer import TokenizerJSON
 
 
 class Tokenizer(Protocol):
@@ -43,28 +49,23 @@ class ByteTokenizer:
 
 
 class HFTokenizer:
-    """Wraps a tokenizers/transformers tokenizer loaded from local files."""
+    """A checkpoint's ``tokenizer.json``, read by ``utils.hf_tokenizer``
+    with the JAX package's ``encode(t, add_special_tokens=False)`` and
+    ``decode(ids, skip_special_tokens=False)`` meaning."""
 
     def __init__(self, model_dir: str | Path):
         model_dir = Path(model_dir)
         tok_json = model_dir / "tokenizer.json"
-        if tok_json.exists():
-            from tokenizers import Tokenizer as RawTok
-
-            self._tok = RawTok.from_file(str(tok_json))
-            self.vocab_size = self._tok.get_vocab_size()
-            self._decode = lambda ids: self._tok.decode(
-                list(ids), skip_special_tokens=False
-            )
-            self._encode = lambda t: self._tok.encode(t, add_special_tokens=False).ids
-        else:
-            from transformers import AutoTokenizer
-
-            t = AutoTokenizer.from_pretrained(str(model_dir))
-            self._tok = t
-            self.vocab_size = len(t)
-            self._decode = lambda ids: t.decode(list(ids), skip_special_tokens=False)
-            self._encode = lambda s: t.encode(s, add_special_tokens=False)
+        if not tok_json.exists():
+            raise ValueError(
+                f"{model_dir}: no tokenizer.json; the port reads a "
+                "checkpoint's tokenizer from tokenizer.json only (a "
+                "tokenizer.model / tokenizer_config.json-only tokenizer "
+                "needs transformers, which the port does not use)")
+        self._tok = TokenizerJSON.from_file(tok_json)
+        self.vocab_size = self._tok.vocab_size
+        self._decode = self._tok.decode
+        self._encode = self._tok.encode
         self.eos_ids = self._find_eos(model_dir)
         self.bos_id = self._find_bos(model_dir)
 

@@ -591,3 +591,159 @@ def test_models_list_and_filter_as_on_the_jax_server(templated_servers,
             with urllib.request.urlopen(base + path + query) as r:
                 names = [m["id"] for m in json.loads(r.read())["data"]]
             assert names == want
+
+
+# ---------------------------------------------------------------------------
+# LOCALAI_KV_PAGED / LOCALAI_KV_DTYPE (ROADMAP §C 10)
+
+KV_ENGINE = dict(max_slots=2, kv_block_tokens=16, prefill_chunk=32,
+                 dtype="float32", spec=False)
+
+
+@pytest.mark.parametrize("extra,env,want", [
+    ({}, {}, (True, "bfloat16")),
+    ({}, {"LOCALAI_KV_PAGED": "0"}, (False, "bfloat16")),
+    ({}, {"LOCALAI_KV_PAGED": "1"}, (True, "bfloat16")),
+    ({"kv_paged": True}, {"LOCALAI_KV_PAGED": "0"}, (True, "bfloat16")),
+    ({}, {"LOCALAI_KV_DTYPE": "int8"}, (True, "int8")),
+    ({}, {"LOCALAI_KV_DTYPE": "int4"}, (True, "int4")),
+    ({"kv_dtype": "float32"}, {"LOCALAI_KV_DTYPE": "int8"},
+     (True, "float32")),
+    ({}, {"LOCALAI_KV_PAGED": "0", "LOCALAI_KV_DTYPE": "int8"},
+     (False, "int8")),
+    ({}, {"LOCALAI_KV_PAGED": "0", "LOCALAI_KV_DTYPE": "int4"},
+     (False, "bfloat16")),
+    ({"kv_paged": False}, {"LOCALAI_KV_DTYPE": "int4"}, (False, "bfloat16")),
+], ids=["default", "paged-0", "paged-1", "explicit-paged-wins", "dtype-int8",
+        "dtype-int4", "explicit-dtype-wins", "contiguous-int8",
+        "contiguous-int4-kept", "explicit-contiguous-int4-kept"])
+def test_kv_environment_settings_as_on_the_reference(monkeypatch, extra, env,
+                                                     want):
+    """One YAML, one environment: the runner's layout and KV dtype on both
+    packages (an explicit per-model setting wins; int4 on a contiguous
+    engine keeps its dtype)."""
+    from localai_tpu.models.manager import build_runner as jax_build_runner
+    from localai_tpu_torch.models.manager import build_runner
+
+    for k in ("LOCALAI_KV_PAGED", "LOCALAI_KV_DTYPE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    doc = {"name": "kv", "model": "debug:tiny", "context_size": 64,
+           "engine": {**KV_ENGINE, **extra}}
+    _, runner = build_runner(ModelConfig.from_dict(dict(doc)),
+                             AppConfig(device="cpu"))
+    _, jrunner = jax_build_runner(JaxModelConfig(**doc), JaxAppConfig())
+    assert (runner.paged, runner.kv_dtype) == want
+    assert (bool(jrunner.paged), str(jrunner.kv_dtype)) == want
+
+
+# ---------------------------------------------------------------------------
+# multimodal message parts, text half (ROADMAP §C 8)
+
+MM_GO = ("{{ range .Images }}<image {{.ID}}>{{end}}"
+         "{{ range .Video }}<video {{.ID}}>{{end}} {{.Text}}")
+IMG = {"type": "image_url", "image_url": {"url": "https://h.invalid/a.png"}}
+VID = {"type": "video_url", "video_url": {"url": "https://h.invalid/v.mp4"}}
+MM_CHATS = {
+    "text+image": [{"role": "user", "content": [
+        {"type": "text", "text": "describe this"}, IMG]}],
+    "images+video,several-messages": [
+        {"role": "system", "content": "Be brief."},
+        {"role": "user", "content": [IMG, {"type": "text", "text": "one"},
+                                     IMG]},
+        {"role": "assistant", "content": "ok"},
+        {"role": "user", "content": [VID, {"type": "text", "text": "two"},
+                                     {"image_url": "data:image/png;base64,"
+                                                   "iVBORw0KGgo="}]},
+        {"role": "user", "content": [{"type": "text", "text": "plain"}]}],
+}
+
+
+@pytest.fixture(scope="module")
+def multimodal_servers(tmp_path_factory):
+    """Both HTTP servers over one models dir: ``mm`` with Go templates and
+    a Go ``multimodal`` template, ``l3`` with the llama3 family
+    chat_template (and the default placeholders)."""
+    from localai_tpu.config.guesser import FAMILY_SETTINGS
+
+    root = tmp_path_factory.mktemp("multimodal")
+    cfg = jl.LlamaConfig(vocab_size=512, hidden_size=64,
+                         intermediate_size=128, num_layers=2, num_heads=4,
+                         num_kv_heads=2, max_position_embeddings=512,
+                         dtype="float32")
+    ckpt = write_hf_checkpoint(root / "ckpt", cfg,
+                               jl.init_params(jax.random.key(3), cfg))
+    models = root / "models"
+    models.mkdir()
+    docs = {"mm": {**TEMPLATED_DOC, "template": {
+                **TEMPLATED_DOC["template"], "multimodal": MM_GO}},
+            "l3": {"context_size": 512, "engine": ENGINE, "template": {
+                "chat_template":
+                    FAMILY_SETTINGS["llama3"]["chat_template"]}}}
+    for name, doc in docs.items():
+        (models / f"{name}.yaml").write_text(yaml.safe_dump(
+            {"name": name, "model": str(ckpt), **doc}))
+    loader = ConfigLoader(models)
+    loader.load_from_path()
+    port = APIServer(ModelManager(AppConfig(model_path=str(models),
+                                            device="cpu"), loader),
+                     "127.0.0.1", 0).start()
+    ref = _ServerThread(make_state(models))
+    yield port, ref.base
+    ref.stop()
+    port.shutdown()
+
+
+@pytest.mark.parametrize("model", ["mm", "l3"])
+@pytest.mark.parametrize("chat", sorted(MM_CHATS))
+def test_multimodal_chat_renders_as_on_the_reference(multimodal_servers,
+                                                     model, chat):
+    """Image and video parts become [img-N]/[vid-N] placeholders (running
+    ids across messages) through the model's multimodal template, on the
+    Go-template and the chat_template path alike: the same prompt tokens
+    and greedy text from both servers, and the port's prompt holds the
+    placeholders and no part of the request's JSON."""
+    port, ref = multimodal_servers
+    body = {"model": model, "messages": MM_CHATS[chat], "max_tokens": 8,
+            "temperature": 0}
+    sm = port.manager.get(model)
+    prompts = []
+    submit = sm.scheduler.submit
+    sm.scheduler.submit = lambda req: prompts.append(
+        sm.tokenizer.decode(list(req.prompt))) or submit(req)
+    try:
+        got = [_stable(_post_any(url + "/v1/chat/completions", body))
+               for url in (port.url, ref)]
+    finally:
+        sm.scheduler.submit = submit
+    assert got[0] == got[1]
+    prompt = prompts[-1]
+    assert "image_url" not in prompt and "h.invalid" not in prompt
+    if model == "mm":
+        assert "<image 0> describe this" in prompt or "<image 0><image 1>" \
+            " one" in prompt
+    else:
+        assert "[img-0]describe this" in prompt or "[img-0][img-1]one" in \
+            prompt
+    if chat != "text+image":
+        assert ("[img-2][vid-0]two" in prompt
+                or "<image 2><video 0> two" in prompt)
+
+
+@pytest.mark.parametrize("template", ["", MM_GO,
+                                      "{% for i in Images %}<{{ i.ID }}>"
+                                      "{% endfor %}{{ Text }}"])
+@pytest.mark.parametrize("counts", [(1, 0, 0, 0, 0), (2, 1, 1, 3, 2),
+                                    (0, 0, 2, 0, 5)])
+def test_multimodal_placeholders_equal_the_reference(template, counts):
+    from localai_tpu.templates.chat import (
+        multimodal_placeholders as jax_placeholders,
+    )
+    from localai_tpu_torch.templates.chat import multimodal_placeholders
+
+    n_img, n_audio, n_vid, first_img, first_vid = counts
+    kw = dict(n_images=n_img, n_audio=n_audio, n_video=n_vid,
+              first_image_id=first_img, first_video_id=first_vid)
+    assert multimodal_placeholders(template, "txt é", **kw) == \
+        jax_placeholders(template, "txt é", **kw)

@@ -886,3 +886,88 @@ def test_cuda_templated_chat_matches_the_cpu(tmp_path, layout, kv):
     steps, layers = card[2], card[3]
     assert steps > 0
     assert launched == (layers * steps if layout == "paged" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env,want", [
+    ({"LOCALAI_KV_DTYPE": "int8"}, (True, torch.int8)),
+    ({"LOCALAI_KV_PAGED": "0"}, (False, torch.bfloat16)),
+    ({"LOCALAI_KV_PAGED": "0", "LOCALAI_KV_DTYPE": "int8"},
+     (False, torch.int8))], ids=["int8", "contiguous", "contiguous-int8"])
+def test_cuda_kv_environment_sets_the_pool(monkeypatch, env, want):
+    """``LOCALAI_KV_PAGED``/``LOCALAI_KV_DTYPE`` reach the runner on the
+    card: the layout and the dtype of the KV storage."""
+    _card()
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.model_config import ModelConfig
+    from localai_tpu_torch.models.manager import build_runner
+
+    for k in ("LOCALAI_KV_PAGED", "LOCALAI_KV_DTYPE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    _, runner = build_runner(ModelConfig.from_dict(
+        {"name": "kv", "model": "debug:small", "context_size": 256,
+         "engine": {"max_slots": 2, "dtype": "bfloat16", "spec": False}}),
+        AppConfig(device="cuda"))
+    kv = runner.kv
+    assert (runner.paged, kv.k.dtype, kv.v.dtype) == (want[0], want[1],
+                                                      want[1])
+    assert kv.k.is_cuda and kv.v.is_cuda
+    assert type(kv).__name__ == ("PagedKVCache" if want[0] else "KVCache")
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_with_tokenizer_json_serves(tmp_path, monkeypatch):
+    """A checkpoint directory with the smoke's tokenizer.json served on the
+    card through ``build_server`` with API keys from the environment:
+    401 without a key, the golden prompt ids, K1 once per layer per
+    decode step."""
+    _card()
+    import json
+    import sys
+    import urllib.error
+    import urllib.request
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from localai_tpu_torch.cli.main import build_server
+
+    cfg, params = chip_smoke._small_128k()
+    chip_smoke.write_checkpoint_dir(tmp_path / "ckpt", cfg, params,
+                                    "float32",
+                                    chip_smoke._small_hf_config(cfg))
+    models = tmp_path / "models"
+    models.mkdir()
+    (models / "ck.yaml").write_text(
+        f"model: {tmp_path / 'ckpt'}\nengine: {{dtype: float32, "
+        "kv_dtype: float32, max_slots: 2}\ncontext_size: 512\n")
+    for k, v in {"LOCALAI_MODELS_PATH": str(models),
+                 "LOCALAI_API_KEYS": "a,b", "LOCALAI_ADDRESS": "127.0.0.1",
+                 "LOCALAI_PORT": "0",
+                 "LOCALAI_CONFIG_PATH": str(tmp_path / "conf")}.items():
+        monkeypatch.setenv(k, v)
+    server = build_server(["run"]).start()
+    try:
+        sm = server.manager.get("ck")
+        prompts = []
+        submit = sm.scheduler.submit
+        sm.scheduler.submit = lambda r: prompts.append(
+            list(r.prompt)) or submit(r)
+        body = dict(chip_smoke.CHECKPOINT_CHATS[3], model="ck",
+                    max_tokens=8)
+        url = server.url + "/v1/chat/completions"
+        with pytest.raises(urllib.error.HTTPError) as e:
+            chip_smoke._post(url, body)
+        assert e.value.code == 401
+        k1 = tops.paged_decode_attention
+        before, steps0 = k1.launches, sm.runner.decode_steps
+        out = json.loads(chip_smoke._post(url, body, key="b").read())
+        assert out["choices"][0]["finish_reason"] in ("stop", "length")
+        assert prompts == [chip_smoke.CHECKPOINT_GOLDEN[3][1]]
+        steps = sm.runner.decode_steps - steps0
+        assert steps > 0
+        assert k1.launches - before == cfg.num_layers * steps
+    finally:
+        server.shutdown()

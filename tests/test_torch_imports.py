@@ -204,25 +204,61 @@ def test_templated_models_serve_without_jinja2_and_yaml():
 
 
 def test_hf_tokenizer_needs_a_package_the_card_lacks(tmp_path):
-    """ROADMAP §C 7, pinned until it is repaired: a checkpoint's
-    ``tokenizer.json`` is read through ``tokenizers`` (or
-    ``transformers``), which the card's machine lacks, so with both
-    blocked the port cannot encode a real checkpoint's prompts; only
-    the byte tokenizer of the debug presets loads."""
-    (tmp_path / "tokenizer.json").write_text("{}")
+    """ROADMAP §C 7, repaired: a checkpoint's ``tokenizer.json`` is read by
+    the port's own reader, so in a fresh interpreter where importing
+    ``tokenizers`` and ``transformers`` fails (as on the card's machine)
+    a ``tokenizer.json`` directory loads and encodes Llama-3's special
+    tokens as single ids, and neither package is imported; a directory
+    with neither file still gets the byte tokenizer."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    chip_smoke.write_llama3_tokenizer(tmp_path)
     code = (
-        "import sys\n"
+        "import sys, json\n"
         "for name in ('tokenizers', 'transformers'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         "tok = importlib.import_module(sys.argv[1] + '.utils.tokenizer')\n"
-        "print(type(tok.load_tokenizer(sys.argv[3])).__name__)\n"
-        "tok.load_tokenizer(sys.argv[2])\n"
+        "bare = tok.load_tokenizer(sys.argv[3])\n"
+        "t = tok.load_tokenizer(sys.argv[2])\n"
+        "ids = t.encode('<|begin_of_text|>hi<|eot_id|>')\n"
+        "print(json.dumps([type(bare).__name__, type(t).__name__,\n"
+        "                  t.vocab_size, ids[0], ids[-1],\n"
+        "                  t.decode(ids),\n"
+        "                  [m for m in ('tokenizers', 'transformers')\n"
+        "                   if sys.modules.get(m) is not None]]))\n"
     )
     (tmp_path / "bare").mkdir()
     res = subprocess.run(
         [sys.executable, "-c", code, PKG, str(tmp_path),
          str(tmp_path / "bare")], cwd=REPO, capture_output=True, text=True,
         timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
-    assert res.stdout.strip() == "ByteTokenizer"
-    assert res.returncode != 0 and "ModuleNotFoundError" in res.stderr
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == [
+        "ByteTokenizer", "HFTokenizer", 128256, 128000, 128009,
+        "<|begin_of_text|>hi<|eot_id|>", []]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name
+                         if p.parent == REPO else
+                         str(p.relative_to(PKG_DIR if PKG_DIR in p.parents
+                                           else REPO)))
+def test_sources_never_import_tokenizers_or_transformers(path):
+    """Not at module level and not inside a function: the port reads
+    ``tokenizer.json`` itself (``utils/hf_tokenizer.py``), and no module
+    of its own is named ``tokenizers``."""
+    assert path.stem not in ("tokenizers", "transformers")
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            names = [str(node.args[0].value)]
+        for n in names:
+            assert n.split(".")[0] not in ("tokenizers", "transformers"), n
