@@ -128,7 +128,28 @@ Phases (any failure raises and the script exits non-zero):
      a decode step; it prints the checkpoint's write and load seconds,
      tokens/s, the streamed TTFT, host ms to encode each golden prompt
      (first and cached), to build the byte table over 128256 ids, and the
-     trie's size.
+     trie's size;
+  7. Mixtral-class sparse MoE: K4's expert grid (``w8_matmul_experts``,
+     one launch per expert projection) at Mixtral-8x7B's widths (8
+     experts, D 4096, F 14336) at M = 8 and 40 in bf16 against its plain
+     version, timed beside cuBLAS on the stack dequantized beforehand and
+     the byte bound (one layer's gate + up + down against 1.409 GB), and
+     untimed at small widths in f32 and bf16 up to a 300-row chunk;
+     ``moe_parity``: a debug:small-width MoE (4 experts, top 2, int8
+     weights, f32) gives prefill logits within 1e-4 and greedy tokens
+     equal to the CPU's on a paged pool and a contiguous cache, the
+     expert grid launching 3 times a layer a step; ``gguf_convert``: a
+     GGUF at Mixtral-8x7B's widths with 2 layers in llama.cpp's Q4_K_M
+     mix, written here, converted by ``util convert`` in a subprocess and
+     served from a one-line YAML with ``quantization: int8`` (quantized
+     as it loads) through ``cli.main.build_server``, two greedy chats;
+     then the ninth serve, ``mixtral-8x7b-int8``: Mixtral-8x7B-Instruct's
+     published widths and depth with int8 weights drawn in quantized form
+     on the card (46.7 GB), the default paged config with speculation,
+     five greedy chats through the HTTP server, K1 32 a decode step and
+     K4 225 a decode step, verify window and prefill chunk exactly, peak
+     memory under 80 GB; it prints the weight bytes, tokens/s, the
+     streamed TTFT and the launch counts.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -142,6 +163,7 @@ import gc
 import json
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import threading
@@ -2897,7 +2919,9 @@ def phase_serve_checkpoint(card: str) -> dict:
                 os.environ[k] = v
         if server is not None:
             server.shutdown()
-        server = None
+        # drop this frame's references before collecting, so the 16 GB
+        # model does not outlive the phase
+        server = manager = sm = tok = None
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3260,6 +3284,788 @@ def phase_profile(sm, ctx_tokens: int = 1024, steps: int = 16,
               f"{fname.split('/')[-1]}:{line}({func})")
 
 
+# ---------------------------------------------------------------------------
+# Mixtral-class sparse MoE: K4's expert grid, card/CPU parity, the serve
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B-Instruct-v0.1's published config.json (source: the model's
+# config.json on Hugging Face)
+MIXTRAL_8X7B_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+    "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "rope_theta": 1e6,
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-5,
+    "tie_word_embeddings": False, "sliding_window": None,
+    "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu",
+    "router_aux_loss_coef": 0.02, "torch_dtype": "bfloat16"}
+MIXTRAL = "mixtral-8x7b-int8"
+MOE_E, MOE_D, MOE_F = 8, 4096, 14336
+MIXTRAL_PREFILL_CHUNK = 512   # the engine's default prefill_chunk
+
+
+def expert_case(kind: str, M: int, dtype=torch.bfloat16, *, E=MOE_E,
+                D=MOE_D, F=MOE_F, seed=0, timed=True) -> dict:
+    """K4's expert grid on one MoE projection (``kind`` "up": x [M, D]
+    shared by every expert against [E, D, F]; "down": x [M, E, F], each
+    expert its own rows, against [E, F, D]) with random int8 weights and
+    per-channel scales of synthetic_quantized_params' magnitude, held per
+    row of every expert against ``w8_matmul_experts_ref``. Timed: the
+    kernel, the plain version, and cuBLAS (one batched torch.matmul over
+    the stack dequantized to x's dtype beforehand); the byte bound counts
+    the int8 stack, the scales, x and out once."""
+    from localai_tpu_torch.ops import qmatmul as tqm
+
+    K, N = (D, F) if kind == "up" else (F, D)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randint(-127, 128, (E, K, N), generator=g, dtype=torch.int8,
+                      device="cuda")
+    scale = (0.02 / 127) * (1 + 0.5 * torch.rand(
+        (E, N), generator=g, device="cuda"))
+    x = torch.randn((M, K) if kind == "up" else (M, E, K), generator=g,
+                    device="cuda").to(dtype)
+
+    def kernel():
+        return tqm.w8_matmul_experts(x, q, scale)
+
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = tqm.w8_matmul_experts_ref(x.float(), q, scale)
+    err, ok = 0.0, True
+    for e in range(E):
+        e_err, e_ok = _check_rows(f"w8_matmul_experts-{kind}", out[:, e],
+                                  ref[:, e], dtype)
+        err, ok = max(err, e_err), ok and e_ok
+    rec = {"case": f"w8_matmul_experts-{kind}",
+           "dtype": str(dtype).replace("torch.", ""), "M": M, "E": E,
+           "K": K, "N": N, "max_abs_err": err,
+           "max_ref": float(ref.abs().max())}
+    if dtype == torch.bfloat16:
+        rec["plan"] = tqm.qmm_split_plan(
+            M, K, N, tqm.QMM_BK,
+            torch.cuda.get_device_properties(0).multi_processor_count,
+            "w8", E)
+    del ref
+    if timed:
+        elem = x.element_size()
+        nbytes = E * K * N + 4 * E * N + x.numel() * elem + M * E * N * elem
+        w_lib = (q.to(dtype) * scale[:, None, :].to(dtype))
+        xl = x[None] if kind == "up" else x.transpose(0, 1)  # [E|1, M, K]
+        rec.update(ms=time_ms(kernel),
+                   plain_ms=time_ms(lambda: tqm.w8_matmul_experts_ref(
+                       x, q, scale), iters=5, warmup=1),
+                   library_ms=time_ms(lambda: torch.matmul(xl, w_lib)),
+                   **_bound(nbytes, 2 * M * E * K * N, dtype))
+        del w_lib
+    print("kernel case", json.dumps(rec), flush=True)
+    if not ok:
+        raise AssertionError(f"kernel case {rec['case']} {rec['dtype']} "
+                             f"M={M}: error {err}")
+    return rec
+
+
+def phase_moe_kernel(card: str) -> dict:
+    """K4's expert grid at Mixtral-8x7B's widths (8 experts, D 4096, F
+    14336) at a decode step's M = 8 and a verify window's M = 40, bf16
+    (timed; the up projection also in f32) and at the serve's 512-row
+    prefill chunk (untimed), and at debug:small's MoE widths in f32 and
+    bf16 at M = 8, 40 and a 300-row prefill chunk (untimed); prints one layer's expert
+    products (gate, up: the "up" shape; down) against the bytes a layer
+    must stream (1.409 GB) and against cuBLAS. Returns the timed records
+    by "<kind>-m<M>"."""
+    out = {}
+    seed = 100
+    for M in (8, SPEC_M):
+        for kind in ("up", "down"):
+            seed += 1
+            out[f"{kind}-m{M}"] = expert_case(kind, M, seed=seed)
+            gc.collect()
+            torch.cuda.empty_cache()
+        layer = {f: 2 * out[f"up-m{M}"][f] + out[f"down-m{M}"][f]
+                 for f in ("ms", "library_ms", "bound_ms")}
+        print(f"moe layer experts (Mixtral-8x7B, M={M}, bf16; gate + up + "
+              f"down, 3 launches, {3 * MOE_E * MOE_D * MOE_F / 1e9:.3f} GB "
+              f"of int8): {json.dumps(layer)}; per step x 32 layers: "
+              f"{json.dumps({f: 32 * v for f, v in layer.items()})}; card "
+              f"{card}", flush=True)
+    seed += 1
+    out["up-m8-f32"] = expert_case("up", 8, torch.float32, seed=seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the largest prefill chunk the Mixtral serve gives the grid (the
+    # engine's default prefill_chunk, 512 rows: 8 x 112 x 16 tiles of an
+    # up projection), untimed
+    for kind in ("up", "down"):
+        seed += 1
+        expert_case(kind, MIXTRAL_PREFILL_CHUNK, seed=seed, timed=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        for M in (8, SPEC_M, 300):
+            for kind in ("up", "down"):
+                seed += 1
+                expert_case(kind, M, dtype, E=4, D=256, F=512, seed=seed,
+                            timed=False)
+    return out
+
+
+def _moe_small():
+    """(cfg, params on the CPU): debug:small's widths (hidden 256,
+    intermediate 512, 4 layers, 8/4 heads) with 4 experts, top 2, f32
+    compute, int8 weights quantized by the port (experts per channel),
+    drawn from a seed on the CPU."""
+    import dataclasses
+
+    from localai_tpu_torch.models import llama as tl
+    from localai_tpu_torch.models.quant import quantize_params
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+
+    cfg = dataclasses.replace(DEBUG_PRESETS["small"], dtype="float32",
+                              num_experts=4, num_experts_per_tok=2)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    return cfg, quantize_params(params, "int8", device="cpu")
+
+
+def phase_moe_parity() -> dict:
+    """The card and the CPU on the same seeded MoE weights (``_moe_small``):
+    prefill logits of ``models.llama.forward`` within 1e-4 (f32), then
+    greedy tokens of a paged and a contiguous runner equal token for
+    token, each decode step launching the expert kernel exactly 3 times a
+    layer and the dense K4 4 times a layer plus the lm_head. Returns the
+    card's launches by layout."""
+    from localai_tpu_torch.engine import kvcache as kvc
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models import llama as tl
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    from localai_tpu_torch.ops.qmatmul import w8_matmul, w8_matmul_experts
+
+    cfg, params = _moe_small()
+    L = cfg.num_layers
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)))
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        T = tokens.shape[1]
+        mask = kvc.resume_mask(cfg, T, 0, T, device=dev).expand(2, T, T)
+
+        def write(kv, k, v):
+            return kv, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+
+        w8_matmul_experts.launches = 0
+        h, _ = tl.forward(cfg, p, tokens.to(dev),
+                          torch.arange(T, device=dev)[None].expand(2, T),
+                          write, None, mask, tl.rope_table(cfg, T, device=dev))
+        logits[dev] = tl.logits_from_hidden(cfg, p, h).float().cpu()
+        if dev == "cuda" and w8_matmul_experts.launches != 3 * L:
+            raise AssertionError(f"moe parity forward: expert kernel "
+                                 f"launches {w8_matmul_experts.launches} != "
+                                 f"3 x {L}")
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    print(f"moe parity logits: max abs diff {err} (tolerance 1e-4, "
+          f"largest {float(logits['cpu'].abs().max())})", flush=True)
+    if not err <= 1e-4:
+        raise AssertionError(f"moe logits differ between cuda and cpu: {err}")
+    prompts = [list(b"a mixture of experts routes each token"),
+               list(b"top two")]
+    steps = 16
+    launches = {}
+    for paged in (True, False):
+        layout = "paged" if paged else "contiguous"
+        seqs = {}
+        for dev in ("cuda", "cpu"):
+            kw = dict(kv_block_tokens=16, prefill_chunk=32) if paged else {}
+            r = ModelRunner(cfg, _to(params, dev), num_slots=4, max_ctx=256,
+                            kv_dtype="float32", paged=paged, device=dev,
+                            **kw)
+            slots = [r.acquire_slot() for _ in prompts]
+            out = [[r.admit(s, p, temperature=0.0)]
+                   for s, p in zip(slots, prompts)]
+            for w in (w8_matmul, w8_matmul_experts, w8_matmul_experts.up,
+                      w8_matmul_experts.down, paged_decode_attention,
+                      decode_attention):
+                w.launches = 0
+            for _ in range(steps):
+                row = r.step()
+                for o, s in zip(out, slots):
+                    o.append(int(row[s]))
+            seqs[dev] = out
+            if dev == "cuda":
+                got = {"w8_matmul_experts": w8_matmul_experts.launches,
+                       "w8_matmul_experts_up": w8_matmul_experts.up.launches,
+                       "w8_matmul_experts_down":
+                           w8_matmul_experts.down.launches,
+                       "w8_matmul": w8_matmul.launches,
+                       "decode": (paged_decode_attention if paged
+                                  else decode_attention).launches}
+                want = {"w8_matmul_experts": 3 * L * steps,
+                        "w8_matmul_experts_up": 2 * L * steps,
+                        "w8_matmul_experts_down": L * steps,
+                        "w8_matmul": (4 * L + 1) * steps,
+                        "decode": L * steps}
+                print(f"moe parity {layout}: launches {json.dumps(got)}",
+                      flush=True)
+                if got != want:
+                    raise AssertionError(f"moe parity {layout}: launches "
+                                         f"{got}, expected {want}")
+                launches[layout] = got
+            del r
+        print(f"moe parity {layout}: {seqs['cuda']}", flush=True)
+        if seqs["cuda"] != seqs["cpu"]:
+            raise AssertionError(f"moe greedy tokens differ between cuda "
+                                 f"and cpu ({layout}): {seqs}")
+    return launches
+
+
+def _weight_bytes(params: dict) -> dict:
+    """Bytes of a parameter tree on the device by group: the expert
+    stacks, the attention projections (and router, norms), embed + head."""
+    def nbytes(t):
+        if hasattr(t, "q"):
+            return (t.q.numel() * t.q.element_size()
+                    + t.scale.numel() * t.scale.element_size())
+        return t.numel() * t.element_size()
+
+    out = {"experts": 0, "attention": 0, "embed_head": 0}
+    for k, v in params["layers"].items():
+        out["experts" if k in ("w_gate", "w_up", "w_down")
+            else "attention"] += nbytes(v)
+    out["embed_head"] = sum(nbytes(params[k]) for k in params
+                            if k != "layers")
+    out["total"] = sum(out.values())
+    return out
+
+
+def _chats(url: str, name: str, n: int = 5, max_tokens: int = 32) -> dict:
+    """The serves' five greedy chats (the last streamed), concurrently:
+    {"results": by index, "wall_s", "ttft_s", "tokens"}."""
+    prompts = ["Write a haiku about paged attention.",
+               "What is the capital of France?",
+               "List three prime numbers.",
+               "Explain continuous batching in one sentence.",
+               "Say hello."][:n]
+    results: dict = {}
+    errors: list = []
+
+    def body(i, stream=False):
+        return {"model": name, "max_tokens": max_tokens, "temperature": 0,
+                "stream": stream,
+                "messages": [{"role": "user", "content": prompts[i]}]}
+
+    def plain(i):
+        try:
+            results[i] = json.loads(_post(url, body(i)).read())
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    def streamed(i):
+        try:
+            t = time.monotonic()
+            ttft, text, last = None, "", None
+            with _post(url, body(i, stream=True)) as r:
+                for line in r:
+                    line = line.strip()
+                    if not line.startswith(b"data: {"):
+                        continue
+                    frame = json.loads(line[6:])
+                    delta = frame["choices"][0]["delta"].get("content")
+                    if delta and ttft is None:
+                        ttft = time.monotonic() - t
+                    text += delta or ""
+                    last = frame
+            results[i] = {"text": text, "ttft_s": ttft, "last": last}
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=plain, args=(i,))
+               for i in range(n - 1)]
+    threads.append(threading.Thread(target=streamed, args=(n - 1,)))
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    ntok = sum(results[i]["usage"]["completion_tokens"]
+               for i in range(n - 1))
+    ntok += results[n - 1]["last"]["usage"]["completion_tokens"]
+    for i in range(n - 1):
+        if results[i]["usage"]["completion_tokens"] <= 0:
+            raise AssertionError(f"{name}: chat {i} returned no tokens")
+    return {"results": results, "wall_s": wall, "tokens": ntok,
+            "ttft_s": results[n - 1]["ttft_s"]}
+
+
+def _counted(sm, wrappers: dict, fn) -> dict:
+    """Run ``fn`` with every wrapper's count at 0; returns the counts and
+    the runner's decode steps, verify windows and prefill chunks in it."""
+    r = sm.runner
+    for w in wrappers.values():
+        w.launches = 0
+    before = (r.decode_steps, r.verify_windows, r.prefill_chunks)
+    res = fn()
+    out = {n: w.launches for n, w in wrappers.items()}
+    out.update(decode_steps=r.decode_steps - before[0],
+               verify_windows=r.verify_windows - before[1],
+               prefill_chunks=r.prefill_chunks - before[2], result=res)
+    return out
+
+
+def _synthetic_serving_model(mcfg, app, cfg, params):
+    """The engine ``build_serving_model`` makes of a paged ``mcfg`` with
+    the default spec settings, on weights the caller drew (the JAX
+    package's bench builds the runner of its synthetic quantized models
+    from ``synthetic_quantized_params`` the same way): a ModelRunner at
+    the config's engine settings, the n-gram self-drafter, the scheduler."""
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.engine.scheduler import Scheduler
+    from localai_tpu_torch.models.manager import ServingModel
+    from localai_tpu_torch.spec import build_spec_engine
+    from localai_tpu_torch.templates.cache import TemplateCache
+    from localai_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    eng = mcfg.engine
+    runner = ModelRunner(
+        cfg, params, num_slots=eng.max_slots,
+        max_ctx=min(mcfg.context_size, cfg.max_position_embeddings),
+        prefill_buckets=eng.prefill_buckets, kv_dtype=eng.kv_dtype,
+        seed=mcfg.seed or 0, paged=True,
+        kv_block_tokens=eng.kv_block_tokens, kv_num_blocks=eng.kv_num_blocks,
+        prefill_chunk=eng.prefill_chunk, device=app.device)
+    spec = build_spec_engine(runner, drafter="ngram",
+                             model_path=app.model_path, gamma=eng.spec_gamma,
+                             dtype=eng.dtype)
+    tokenizer = ByteTokenizer()
+    scheduler = Scheduler(
+        runner, tokenizer,
+        default_max_tokens=mcfg.parameters.max_tokens or 2048,
+        multi_step=eng.decode_steps_per_dispatch,
+        pipeline_depth=eng.pipeline_depth,
+        stream_latency_target=eng.stream_latency_ms / 1000.0, spec=spec)
+    return ServingModel(name=mcfg.name, config=mcfg, runner=runner,
+                        scheduler=scheduler, tokenizer=tokenizer,
+                        templates=TemplateCache(app.model_path))
+
+
+def phase_serve_mixtral(card: str, profile: bool = False) -> dict:
+    """The Mixtral serve, ``mixtral-8x7b-int8``: Mixtral-8x7B-Instruct's
+    published widths and depth (MIXTRAL_8X7B_CONFIG) with int8 weights
+    drawn in quantized form on the card (``synthetic_quantized_params``,
+    as the JAX package's bench builds its synthetic quantized models: the
+    bf16 tree, 93 GB, would not fit), in the engine
+    ``build_serving_model`` makes of the default config (a paged bf16
+    pool, 8 slots, ctx 4096, n-gram speculation on), served through the
+    port's scheduler and HTTP server: five greedy 32-token chats, one
+    streamed. Asserts K1 = 32 per decode step; K4's expert grid 2 x 32 up
+    and 32 down projections and K4 in all 7 x 32 + 1 = 225 launches per
+    decode step, verify window and prefill chunk, exactly; peak device
+    memory under 80 GB. Returns the launch counts."""
+    from localai_tpu_torch.api.server import APIServer
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.config.model_config import ModelConfig
+    from localai_tpu_torch.models.llama import LlamaConfig
+    from localai_tpu_torch.models.manager import ModelManager
+    from localai_tpu_torch.models.registry import synthetic_quantized_params
+    from localai_tpu_torch.ops.attention import paged_decode_attention
+    from localai_tpu_torch.ops.qmatmul import w8_matmul, w8_matmul_experts
+
+    import dataclasses
+
+    class OneModel(ModelManager):
+        """A manager that serves the one engine the phase built."""
+
+        def __init__(self, app, loader, sm):
+            super().__init__(app, loader)
+            self.sm = sm
+
+        def get(self, name):
+            if name != self.sm.name:
+                return super().get(name)
+            self.sm.touch()
+            return self.sm
+
+        def loaded_names(self):
+            return sorted({*super().loaded_names(), self.sm.name})
+
+        def shutdown(self):
+            super().shutdown()
+            self.sm.close()
+
+    wrappers = {"paged_decode_attention": paged_decode_attention,
+                "w8_matmul": w8_matmul,
+                "w8_matmul_experts": w8_matmul_experts,
+                "w8_matmul_experts_up": w8_matmul_experts.up,
+                "w8_matmul_experts_down": w8_matmul_experts.down}
+    cfg = dataclasses.replace(LlamaConfig.from_hf(MIXTRAL_8X7B_CONFIG),
+                              dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = synthetic_quantized_params(cfg, "int8", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.monotonic() - t0
+    wb = _weight_bytes(params)
+    print(f"serve {MIXTRAL}: int8 weights drawn on the card in {draw_s:.1f}s"
+          f": {json.dumps({k: v / 1e9 for k, v in wb.items()})} GB "
+          "(reckoned: 46.7 = 45.10 experts + 1.34 attention + 0.26 embed "
+          "and head, scales beside)", flush=True)
+    mcfg = ModelConfig.from_dict({
+        "name": MIXTRAL, "model": "mixtral-8x7b-instruct",
+        "context_size": 4096,
+        "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
+                   "max_slots": 8, "kv_block_tokens": 64,
+                   "quantization": "int8"}})
+    mcfg.set_defaults()
+    loader = ConfigLoader()
+    loader.register(mcfg)
+    app = AppConfig(device="cuda")
+    sm = manager = server = None
+    try:
+        sm = _synthetic_serving_model(mcfg, app, cfg, params)
+        del params
+        manager = OneModel(app, loader, sm)
+        server = APIServer(manager, "127.0.0.1", 0).start()
+        if sm.scheduler.spec is None or not sm.runner.paged:
+            raise AssertionError(f"{MIXTRAL}: not paged with speculation")
+        chat = server.url + "/v1/chat/completions"
+        json.loads(_post(chat, {"model": MIXTRAL, "max_tokens": 4,
+                                "messages": [{"role": "user",
+                                              "content": "hi"}]}).read())
+        run = _counted(sm, wrappers, lambda: _chats(chat, MIXTRAL))
+        res = run.pop("result")
+        L = cfg.num_layers
+        dispatches = (run["decode_steps"] + run["verify_windows"]
+                      + run["prefill_chunks"])
+        k4 = run["w8_matmul"] + run["w8_matmul_experts"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print("serve: " + json.dumps({
+            "card": card, "model": MIXTRAL, "weights": "int8",
+            "weight_gb": wb["total"] / 1e9, "kv_dtype": "bfloat16",
+            "kv_layout": "paged", "requests": 5, "streaming": 1,
+            "completion_tokens": res["tokens"], "wall_s": res["wall_s"],
+            "tokens_per_s": res["tokens"] / res["wall_s"],
+            "ttft_stream_s": res["ttft_s"], "max_memory_allocated_gb": peak,
+            "k4_launches": k4, **run,
+            **{k: v for k, v in sm.scheduler.metrics().items()
+               if k.startswith("spec_")}}, default=str), flush=True)
+        if run["paged_decode_attention"] != L * run["decode_steps"]:
+            raise AssertionError(f"{MIXTRAL}: K1 launches "
+                                 f"{run['paged_decode_attention']} != {L} x "
+                                 f"{run['decode_steps']} steps")
+        if (run["decode_steps"] <= 0
+                or run["w8_matmul_experts_up"] != 2 * L * dispatches
+                or run["w8_matmul_experts_down"] != L * dispatches
+                or k4 != (7 * L + 1) * dispatches):
+            raise AssertionError(
+                f"{MIXTRAL}: K4 launches {run['w8_matmul']} dense + "
+                f"{run['w8_matmul_experts_up']} expert up + "
+                f"{run['w8_matmul_experts_down']} expert down, expected "
+                f"(7 x {L} + 1) x {dispatches} dispatches")
+        if not peak < 80:
+            raise AssertionError(f"{MIXTRAL}: peak memory {peak} GB")
+        # one plain decode step and one verify window on their own
+        r = sm.runner
+        s = r.acquire_slot()
+        r.admit(s, list(b"Mixtral routes every token to two experts"),
+                temperature=0.0, reserve_tokens=64)
+        one = _counted(sm, wrappers, r.step)
+        props = np.zeros((r.num_slots, 4), np.int32)
+        win = _counted(sm, wrappers, lambda: np.asarray(
+            r.verify_async(props)))
+        r.release(s)
+        for what, c, want in (("decode step", one, (1, 0)),
+                              ("verify window", win, (0, 1))):
+            got = c["w8_matmul"] + c["w8_matmul_experts"]
+            print(f"serve {MIXTRAL}: one {what}: K4 {got} ({c['w8_matmul']}"
+                  f" dense + {c['w8_matmul_experts']} expert grid), K1 "
+                  f"{c['paged_decode_attention']}", flush=True)
+            if ((c["decode_steps"], c["verify_windows"]) != want
+                    or got != 7 * L + 1 or c["w8_matmul_experts_up"] != 2 * L
+                    or c["w8_matmul_experts_down"] != L):
+                raise AssertionError(f"{MIXTRAL}: one {what} launched K4 "
+                                     f"{got} times: {c}")
+        if profile:
+            phase_profile(sm)
+        run["texts"] = [res["results"][i]["choices"][0]["message"]["content"]
+                        for i in range(4)]
+        return run
+    finally:
+        if server is not None:
+            server.shutdown()
+        if manager is not None:
+            manager.shutdown()
+        elif sm is not None:
+            sm.close()
+        sm = manager = server = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+
+# ---------------------------------------------------------------------------
+# GGUF files (the gguf_convert phase; tests/test_torch_gguf.py writes its
+# fixtures with the same functions)
+# ---------------------------------------------------------------------------
+
+GGUF_F32, GGUF_F16, GGUF_Q4_0, GGUF_Q4_1, GGUF_Q8_0 = 0, 1, 2, 3, 8
+GGUF_Q4_K, GGUF_Q6_K = 12, 14
+# ggml type → (elements, bytes) a block
+GGUF_BLOCK = {GGUF_F32: (1, 4), GGUF_F16: (1, 2), GGUF_Q4_0: (32, 18),
+              GGUF_Q4_1: (32, 20), GGUF_Q8_0: (32, 34),
+              GGUF_Q4_K: (256, 144), GGUF_Q6_K: (256, 210)}
+# the f16 fields of a block (byte offset → range of the random value):
+# scales sized so the dequantized weights are of order 0.02 (q4_k: d * 63
+# * 15 and dmin * 63; q6_k: d * 127 * 32; q8_0: d * 127; q4_0: d * 8)
+_GGUF_F16_FIELDS = {GGUF_Q4_0: {0: (1e-3, 4e-3)},
+                    GGUF_Q4_1: {0: (1e-3, 4e-3), 2: (-1e-2, 0.0)},
+                    GGUF_Q8_0: {0: (1e-4, 3e-4)},
+                    GGUF_Q4_K: {0: (1e-5, 3e-5), 2: (1e-5, 3e-5)},
+                    GGUF_Q6_K: {208: (3e-6, 6e-6)}}
+
+
+def gguf_random_blocks(rng, n: int, dt: int) -> bytes:
+    """``n`` elements in ggml type ``dt``: random block bytes whose f16
+    scale fields hold finite values (f32 / f16: N(0, 0.02))."""
+    if dt == GGUF_F32:
+        return (rng.standard_normal(n, dtype=np.float32) * 0.02).tobytes()
+    if dt == GGUF_F16:
+        return (rng.standard_normal(n) * 0.02).astype(np.float16).tobytes()
+    per, nbytes = GGUF_BLOCK[dt]
+    b = rng.integers(0, 256, (n // per, nbytes), dtype=np.uint8)
+    for off, (lo, hi) in _GGUF_F16_FIELDS[dt].items():
+        b[:, off:off + 2] = rng.uniform(lo, hi, (n // per, 1)).astype(
+            np.float16).view(np.uint8)
+    return b.tobytes()
+
+
+def _gguf_str(s: str) -> bytes:
+    b = s.encode()
+    return struct.pack("<Q", len(b)) + b
+
+
+def _gguf_kv(key: str, vtype: int, value) -> bytes:
+    out = _gguf_str(key) + struct.pack("<I", vtype)
+    if vtype == 4:      # u32
+        return out + struct.pack("<I", value)
+    if vtype == 6:      # f32
+        return out + struct.pack("<f", value)
+    if vtype == 8:      # string
+        return out + _gguf_str(value)
+    if vtype == 9:      # array of strings
+        return out + struct.pack("<IQ", 8, len(value)) + b"".join(
+            _gguf_str(v) for v in value)
+    raise ValueError(f"GGUF metadata type {vtype}")
+
+
+def write_gguf(path, metadata: list, tensors: list, seed: int = 0) -> int:
+    """Write a GGUF v3 file (alignment 32): ``metadata`` [(key, type,
+    value)] (u32 4, f32 6, string 8, string array 9), ``tensors`` [(name,
+    shape, ggml type, data)] in file order, ``data`` the tensor's bytes or
+    None for :func:`gguf_random_blocks` from ``seed``. Tensors are written
+    one at a time. Returns the file's bytes."""
+    rng = np.random.default_rng(seed)
+    infos, off, sizes = b"", 0, []
+    for name, shape, dt, _data in tensors:
+        per, nbytes = GGUF_BLOCK[dt]
+        n = int(np.prod(shape, dtype=np.int64))
+        if n % per:
+            raise ValueError(f"{name}: {n} elements in blocks of {per}")
+        size = n // per * nbytes
+        dims = list(reversed(shape))  # ggml ne[]: innermost first
+        infos += _gguf_str(name) + struct.pack("<I", len(dims))
+        infos += b"".join(struct.pack("<Q", d) for d in dims)
+        infos += struct.pack("<IQ", dt, off)
+        off += size + (-size) % 32
+        sizes.append((n, size))
+    body = (b"GGUF" + struct.pack("<IQQ", 3, len(tensors), len(metadata))
+            + b"".join(_gguf_kv(*m) for m in metadata) + infos)
+    total = 0
+    with open(path, "wb") as f:
+        total += f.write(body + b"\0" * ((-len(body)) % 32))
+        for (name, shape, dt, data), (n, size) in zip(tensors, sizes):
+            if data is None:
+                data = gguf_random_blocks(rng, n, dt)
+            if len(data) != size:
+                raise ValueError(f"{name}: {len(data)} bytes, want {size}")
+            total += f.write(data + b"\0" * ((-size) % 32))
+    return total
+
+
+GGUF_MODEL = "mixtral-gguf-int8"
+
+
+def mixtral_gguf_spec(layers: int = 2) -> tuple[list, list]:
+    """(metadata, tensors) of a GGUF at Mixtral-8x7B's widths with
+    ``layers`` layers in llama.cpp's Q4_K_M mix: token_embd and the
+    attention q/k/output Q4_K, attn_v Q8_0, the experts' gate/up Q4_K
+    and down Q6_K, output Q6_K, f32 norms of ones and an f32 router;
+    every quantized block random with finite f16 scales. The vocabulary
+    is 32000 pieces (<unk>, <s>, </s>, then words)."""
+    c = MIXTRAL_8X7B_CONFIG
+    D, F, E = c["hidden_size"], c["intermediate_size"], c["num_local_experts"]
+    H, HKV, V = (c["num_attention_heads"], c["num_key_value_heads"],
+                 c["vocab_size"])
+    hd = D // H
+    ones = np.ones(D, np.float32).tobytes()
+    tensors = [("token_embd.weight", (V, D), GGUF_Q4_K, None),
+               ("output_norm.weight", (D,), GGUF_F32, ones),
+               ("output.weight", (V, D), GGUF_Q6_K, None)]
+    for i in range(layers):
+        b = f"blk.{i}."
+        tensors += [
+            (b + "attn_norm.weight", (D,), GGUF_F32, ones),
+            (b + "attn_q.weight", (H * hd, D), GGUF_Q4_K, None),
+            (b + "attn_k.weight", (HKV * hd, D), GGUF_Q4_K, None),
+            (b + "attn_v.weight", (HKV * hd, D), GGUF_Q8_0, None),
+            (b + "attn_output.weight", (D, H * hd), GGUF_Q4_K, None),
+            (b + "ffn_norm.weight", (D,), GGUF_F32, ones),
+            (b + "ffn_gate_inp.weight", (E, D), GGUF_F32, None),
+            (b + "ffn_gate_exps.weight", (E, F, D), GGUF_Q4_K, None),
+            (b + "ffn_up_exps.weight", (E, F, D), GGUF_Q4_K, None),
+            (b + "ffn_down_exps.weight", (E, D, F), GGUF_Q6_K, None)]
+    words = ["<unk>", "<s>", "</s>"] + [f"w{i}" for i in range(V - 3)]
+    meta = [("general.architecture", 8, "llama"),
+            ("general.name", 8, "mixtral-8x7b-instruct (random blocks)"),
+            ("llama.vocab_size", 4, V),
+            ("llama.embedding_length", 4, D),
+            ("llama.feed_forward_length", 4, F),
+            ("llama.block_count", 4, layers),
+            ("llama.attention.head_count", 4, H),
+            ("llama.attention.head_count_kv", 4, HKV),
+            ("llama.expert_count", 4, E),
+            ("llama.expert_used_count", 4, c["num_experts_per_tok"]),
+            ("llama.context_length", 4, c["max_position_embeddings"]),
+            ("llama.rope.freq_base", 6, c["rope_theta"]),
+            ("llama.attention.layer_norm_rms_epsilon", 6, c["rms_norm_eps"]),
+            ("tokenizer.ggml.tokens", 9, words),
+            ("tokenizer.ggml.bos_token_id", 4, 1),
+            ("tokenizer.ggml.eos_token_id", 4, 2)]
+    return meta, tensors
+
+
+def phase_gguf_convert(card: str) -> dict:
+    """A GGUF at Mixtral-8x7B's widths (2 layers, Q4_K_M mix) written
+    here, converted by ``util convert`` in a subprocess of the real
+    entry point, then served from a one-line YAML with ``quantization:
+    int8`` (quantized layer by layer as the checkpoint is read) through
+    ``cli.main.build_server``: two greedy chats, the converted WordLevel
+    tokenizer, K1 2 per decode step and the expert grid 3 per layer.
+    Prints the GGUF's bytes, the convert and load seconds and the bf16
+    bytes written. Returns the launch counts."""
+    import os
+    import pathlib
+
+    from localai_tpu_torch.cli.main import build_server
+    from localai_tpu_torch.models.quant import QuantizedTensor
+    from localai_tpu_torch.ops.attention import paged_decode_attention
+    from localai_tpu_torch.ops.qmatmul import w8_matmul, w8_matmul_experts
+
+    root = pathlib.Path(_scratch_dir("gguf-", 10_000_000_000))
+    src = root / "mixtral-8x7b-instruct.Q4_K_M.gguf"
+    out, models = root / "mixtral-8x7b-instruct", root / "models"
+    saved_env = {k: os.environ.get(k) for k in (
+        "LOCALAI_MODELS_PATH", "LOCALAI_ADDRESS", "LOCALAI_PORT",
+        "LOCALAI_CONFIG_PATH")}
+    server = None
+    try:
+        meta, tensors = mixtral_gguf_spec(2)
+        t0 = time.monotonic()
+        gguf_bytes = write_gguf(src, meta, tensors, seed=1)
+        write_s = time.monotonic() - t0
+        repo = pathlib.Path(__file__).resolve().parent
+        t0 = time.monotonic()
+        res = subprocess.run(
+            [sys.executable, "-m", "localai_tpu_torch.cli.main", "util",
+             "convert", str(src), str(out)], cwd=repo, capture_output=True,
+            text=True, timeout=900,
+            env={**os.environ, "PYTHONPATH": str(repo)})
+        convert_s = time.monotonic() - t0
+        if res.returncode != 0 or "converted" not in res.stdout:
+            raise AssertionError(f"util convert: rc {res.returncode}\n"
+                                 f"{res.stdout}\n{res.stderr[-4000:]}")
+        written = (out / "model.safetensors").stat().st_size
+        src.unlink()
+        models.mkdir()
+        (models / f"{GGUF_MODEL}.yaml").write_text(
+            f"{{model: {out}, context_size: 2048, engine: "
+            "{quantization: int8, max_slots: 8}}\n")
+        os.environ.update({
+            "LOCALAI_MODELS_PATH": str(models),
+            "LOCALAI_ADDRESS": "127.0.0.1", "LOCALAI_PORT": "0",
+            "LOCALAI_CONFIG_PATH": str(root / "configuration")})
+        server = build_server(["run"]).start()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        sm = server.manager.get(GGUF_MODEL)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        cfg = sm.runner.cfg
+        lay = sm.runner.params["layers"]
+        c = MIXTRAL_8X7B_CONFIG
+        want = (2, c["num_local_experts"], c["hidden_size"],
+                c["intermediate_size"])
+        if ((cfg.num_layers, cfg.num_experts, cfg.hidden_size,
+             cfg.intermediate_size) != want
+                or not isinstance(lay["w_up"], QuantizedTensor)
+                or tuple(lay["w_up"].q.shape) != want
+                or type(sm.tokenizer).__name__ != "HFTokenizer"):
+            raise AssertionError(f"{GGUF_MODEL}: not the converted Mixtral "
+                                 f"served in int8: {cfg}")
+        print(f"gguf {GGUF_MODEL}: {gguf_bytes / 1e9:.3f} GB GGUF written "
+              f"in {write_s:.1f}s, converted by util convert in "
+              f"{convert_s:.1f}s to {written / 1e9:.3f} GB of bf16, loaded "
+              f"(int8 on load) in {load_s:.1f}s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB over "
+              f"{base:.2f} GB allocated before; card {card}", flush=True)
+        wrappers = {"paged_decode_attention": paged_decode_attention,
+                    "w8_matmul": w8_matmul,
+                    "w8_matmul_experts": w8_matmul_experts,
+                    "w8_matmul_experts_up": w8_matmul_experts.up,
+                    "w8_matmul_experts_down": w8_matmul_experts.down}
+        run = _counted(sm, wrappers, lambda: _chats(
+            server.url + "/v1/chat/completions", GGUF_MODEL, n=2,
+            max_tokens=16))
+        res = run.pop("result")
+        L = cfg.num_layers
+        dispatches = (run["decode_steps"] + run["verify_windows"]
+                      + run["prefill_chunks"])
+        texts = [res["results"][0]["choices"][0]["message"]["content"],
+                 res["results"][1]["text"]]
+        print(f"gguf {GGUF_MODEL}: 2 chats, {res['tokens']} tokens in "
+              f"{res['wall_s']:.2f}s: {json.dumps(run)}; texts "
+              f"{json.dumps([t[:80] for t in texts])}", flush=True)
+        if (run["paged_decode_attention"] != L * run["decode_steps"]
+                or run["w8_matmul_experts_up"] != 2 * L * dispatches
+                or run["w8_matmul_experts_down"] != L * dispatches
+                or run["decode_steps"] <= 0):
+            raise AssertionError(f"{GGUF_MODEL}: launches {run}")
+        return {"gguf_bytes": gguf_bytes, "convert_s": convert_s,
+                "load_s": load_s, "bf16_bytes": written, **run}
+    finally:
+        if server is not None:
+            server.shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        server = sm = lay = None
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _entry(name, source, replaces, launches, rec) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3301,7 +4107,9 @@ def main() -> int:
     k1 = phase_kernel()
     attn = phase_attention()
     qmm = phase_qmatmul()
+    experts = phase_moe_kernel(card)
     parity = phase_parity()
+    moe = phase_moe_parity()
     spec = phase_spec_parity()
     phase_frozen_parity()
     phase_templated_parity()
@@ -3323,6 +4131,8 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     served["checkpoint"] = phase_serve_checkpoint(card)["launches"]
+    gguf = phase_gguf_convert(card)
+    served["mixtral"] = phase_serve_mixtral(card, profile=profile)
     src = "localai_tpu_torch/csrc/"
     k1_src = src + "paged_decode_attention.cu"
     k1_tpu = "localai_tpu/ops/attention.py:458"
@@ -3384,6 +4194,37 @@ def main() -> int:
                "localai_tpu/ops/qmatmul.py:135",
                spec["paged-int4"]["w4_matmul in windows"],
                qmm["w4-m40"]["w_gate/w_up"]),
+        # Mixtral-8x7B's expert products on K4's expert grid in the Mixtral
+        # serve (decode steps, verify windows, prefill chunks): the gate and
+        # up projections (x shared by every expert), times of one at M = 8;
+        # the down projections (each expert its own rows). The JAX package
+        # computes them as einsums outside Pallas (models/quant.py moe_up /
+        # moe_down), which is what these entries name
+        _entry("w8_matmul_experts", src + "w8_matmul.cu",
+               "localai_tpu/models/quant.py:309",
+               served["mixtral"]["w8_matmul_experts_up"], experts["up-m8"]),
+        _entry("w8_matmul_experts_down", src + "w8_matmul.cu",
+               "localai_tpu/models/quant.py:321",
+               served["mixtral"]["w8_matmul_experts_down"],
+               experts["down-m8"]),
+        # f32 experts (the CUDA-core path): up projections of the
+        # moe_parity phase's paged run; times of the f32 up projection at
+        # Mixtral's widths, M = 8
+        _entry("w8_matmul_experts_f32", src + "w8_matmul.cu",
+               "localai_tpu/models/quant.py:309",
+               moe["paged"]["w8_matmul_experts_up"], experts["up-m8-f32"]),
+        # the dense projections and lm_head of the Mixtral serve (wq/wo's
+        # 4096 x 4096 at M = 8 for times) and of the GGUF serve
+        _entry("w8_matmul_mixtral", src + "w8_matmul.cu",
+               "localai_tpu/ops/qmatmul.py:67",
+               served["mixtral"]["w8_matmul"], qmm["w8"]["wq/wo"]),
+        _entry("paged_decode_attention_mixtral", k1_src, k1_tpu,
+               served["mixtral"]["paged_decode_attention"], k1["bf16"]),
+        # the up projections of the served GGUF conversion (Mixtral's
+        # widths, 2 layers)
+        _entry("w8_matmul_experts_gguf", src + "w8_matmul.cu",
+               "localai_tpu/models/quant.py:309",
+               gguf["w8_matmul_experts_up"], experts["up-m8"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

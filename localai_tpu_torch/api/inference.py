@@ -1,10 +1,12 @@
-"""Tool-grammar and multimodal-text wiring shared by the chat endpoint.
+"""Tool-grammar and multimodal-text wiring shared by the chat endpoint,
+and the per-request generation deadline.
 
 Port of the constrained-decoding part of ``localai_tpu/api/inference.py``
 (``ToolContext``, ``ToolGrammarError``, ``prepare_tools``,
 ``response_format_constraint``, ``parse_tool_calls``), of the text half of
 its ``prepare_multimodal`` (the port has no vision tower yet, so images
-and videos become placeholders in the text and are not fetched), and of
+and videos become placeholders in the text and are not fetched), of its
+``request_deadline_s``, and of
 the request
 helpers of ``localai_tpu/api/schema.py`` (``tool_definitions``,
 ``tool_choice_name``, ``tools_disabled``), written over the parsed JSON
@@ -23,6 +25,16 @@ from localai_tpu_torch import functions as fx
 from localai_tpu_torch.templates.chat import multimodal_placeholders
 
 log = logging.getLogger(__name__)
+
+
+def request_deadline_s(cfg: Any) -> float:
+    """The per-request generation deadline in seconds: the settings'
+    ``request_deadline_s`` (``--request-deadline-s`` /
+    ``LOCALAI_REQUEST_DEADLINE_S``), or 600 when it is not positive.
+    Expiry cancels the generation (its decode slot frees on the next
+    engine step) and the request ends with 504."""
+    v = cfg.request_deadline_s
+    return float(v) if v and v > 0 else 600.0
 
 
 def _function_def(f: dict) -> dict:

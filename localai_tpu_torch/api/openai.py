@@ -44,7 +44,6 @@ from localai_tpu_torch.templates.chat import (
 )
 
 SSE_DONE = b"data: [DONE]\n\n"
-REQUEST_TIMEOUT_S = 600.0
 
 
 class APIError(Exception):
@@ -313,11 +312,14 @@ def chat_messages(raw: Any) -> list[dict]:
     return out
 
 
-def _wait(*handles: GenHandle) -> None:
-    """Join generations; on timeout cancel them all (the slots free on
-    the next engine step). A handle that failed with no output is a
-    backend failure (502), not an empty completion."""
-    deadline = time.monotonic() + REQUEST_TIMEOUT_S
+def _wait(manager, *handles: GenHandle) -> None:
+    """Join generations within the request deadline
+    (``inference.request_deadline_s`` of the manager's settings); on
+    expiry cancel them all (the slots free on the next engine step) and
+    answer 504. A handle that failed with no output is a backend failure
+    (502), not an empty completion."""
+    timeout = inf.request_deadline_s(manager.app)
+    deadline = time.monotonic() + timeout
     try:
         for h in handles:
             h.result(max(0.0, deadline - time.monotonic()))
@@ -325,8 +327,9 @@ def _wait(*handles: GenHandle) -> None:
         for h in handles:
             h.cancel()
         if isinstance(e, TimeoutError):
-            raise APIError(504, "generation exceeded the request deadline "
-                                "and was cancelled") from None
+            raise APIError(504, f"generation exceeded the {timeout:.0f}s "
+                                "request deadline and was cancelled"
+                           ) from None
         raise
     for h in handles:
         if h.finish_reason == "error" and not h.text:
@@ -414,7 +417,7 @@ def chat(manager, body: dict):
     for i in range(n):
         handles.append(sm.scheduler.submit(gr if i == 0
                                            else extra_choice(i)))
-    _wait(*handles)
+    _wait(manager, *handles)
     choices = []
     for i, h in enumerate(handles):
         text = finetune_result(sm.config, "", h.text)
@@ -538,7 +541,7 @@ def completions(manager, body: dict):
     for raw, prompt in zip(prompts, templated):
         handles = [sm.scheduler.submit(_gen_request(
             sm, body, prompt, stream, seed_offset=i)) for i in range(n)]
-        _wait(*handles)
+        _wait(manager, *handles)
         for h in handles:
             prompt_total += h.prompt_tokens
             completion_total += h.completion_tokens
@@ -590,7 +593,7 @@ def edits(manager, body: dict) -> dict:
         prompt = build_edit_prompt(sm.templates, sm.config, text_in,
                                    instruction)
         h = sm.scheduler.submit(_gen_request(sm, body, prompt, False))
-        _wait(h)
+        _wait(manager, h)
         ptotal += h.prompt_tokens
         ctotal += h.completion_tokens
         choices.append({"index": i,

@@ -8,17 +8,18 @@ Port of ``localai_tpu/cli/main.py`` for what the port has:
   util checkpoint-info PATH  tensor names, dtypes and shapes of safetensors
   util scan                  pickle-format weights under the models dir
   util usecase-heuristic M   the usecases a model config serves
+  util convert GGUF [OUT]    a GGUF checkpoint → a checkpoint dir
   version
 
 ``run`` takes the JAX package's flags with their defaults, each also read
 from ``LOCALAI_<NAME>`` (``_env_default``), then builds the settings as
 the JAX package does: ``AppConfig.from_env`` overridden by the flags.
 ``--device cpu`` is the port's own (the card is the default). A flag or
-variable of a feature the port has not yet (SLO shedding, request
-deadlines, the batch lane, fleets, autoscaling, meshes, the JAX platform,
-JSON logs) stops ``run`` with exit code 2 and the ROADMAP item that brings
-it; none is dropped silently. ``models install|available`` wait for the
-gallery (ROADMAP item 21), ``util convert`` for the GGUF reader (item 20).
+variable of a feature the port has not yet (SLO shedding, the batch
+lane, fleets, autoscaling, meshes, the JAX platform, JSON logs) stops
+``run`` with exit code 2 and the ROADMAP item that brings it; none is
+dropped silently. ``models install|available`` wait for the gallery
+(ROADMAP item 21).
 
 :func:`build_server` builds the settings, the model registry, the config
 watcher and the bound server from ``argv`` and the environment;
@@ -71,7 +72,6 @@ UNPORTED_RUN_FLAGS = {
     "--slo-e2e-p95-ms": ("slo_e2e_p95_ms", 0.0, 15),
     "--slo-queue-p95-ms": ("slo_queue_p95_ms", 0.0, 15),
     "--slo-burn-threshold": ("slo_burn_threshold", 2.0, 15),
-    "--request-deadline-s": ("request_deadline_s", 600.0, 20),
     "--batch-concurrency": ("batch_concurrency", 2, 14),
     "--batch-expiry-h": ("batch_expiry_h", 24.0, 14),
     "--fleet-replicas": ("fleet_replicas", 0, 23),
@@ -93,7 +93,7 @@ UNPORTED_RUN_FLAGS = {
 }
 _WHAT = {11: "device plumbing (the port takes --device instead)",
          14: "the batch lane", 15: "telemetry and SLO shedding",
-         19: "multi-GPU parallelism", 20: "the rest of the process settings",
+         19: "multi-GPU parallelism",
          23: "fleets, autoscaling and the worker tier"}
 
 
@@ -129,6 +129,10 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--enable-watchdog-busy", action="store_true")
     run.add_argument("--watchdog-idle-timeout", type=float, default=15 * 60)
     run.add_argument("--watchdog-busy-timeout", type=float, default=5 * 60)
+    run.add_argument("--request-deadline-s", type=float, default=None,
+                     help="per-request generation deadline in seconds; "
+                          "expiry cancels the generation and frees its "
+                          "decode slot (default 600)")
     # the port's own: LOCALAI_DEVICE only, never a bare DEVICE variable
     run.add_argument("--device", default=os.environ.get("LOCALAI_DEVICE",
                                                         "cuda"),
@@ -184,9 +188,16 @@ def build_parser() -> argparse.ArgumentParser:
     uh.add_argument("name")
     uh.add_argument("--models-path",
                     default=_env_default("models_path", "models"))
-    cv = util_sub.add_parser("convert", help="not ported yet (ROADMAP item "
-                                             "20: the GGUF reader)")
-    cv.add_argument("rest", nargs=argparse.REMAINDER)
+    cv = util_sub.add_parser(
+        "convert",
+        help="convert a GGUF checkpoint (f32/f16/q8_0/q4_0/q4_1/q4_k/q6_k) "
+             "to the safetensors checkpoint layout; serve the result with "
+             "quantization: int4/int8 for q4/q8-class bandwidth")
+    cv.add_argument("gguf", help="path to the .gguf file")
+    cv.add_argument("out", nargs="?", default=None,
+                    help="output dir (default: <gguf stem> next to it)")
+    cv.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32", "float16"])
 
     sub.add_parser("version", help="print version")
     return p
@@ -253,6 +264,8 @@ def app_config(args) -> AppConfig:
         watchdog_busy=args.enable_watchdog_busy,
         watchdog_idle_timeout=args.watchdog_idle_timeout,
         watchdog_busy_timeout=args.watchdog_busy_timeout,
+        # None = flag not given → LOCALAI_REQUEST_DEADLINE_S stands
+        request_deadline_s=args.request_deadline_s,
         device=args.device,
     )
 
@@ -345,8 +358,15 @@ def _run_util(args, parser) -> int:
                 print(uc)
         return 0
     if args.util_command == "convert":
-        parser.error("util convert is not ported yet (ROADMAP item 20: the "
-                     "GGUF reader, utils/gguf.py)")
+        from localai_tpu_torch.utils.gguf import convert_gguf
+
+        src = Path(args.gguf)
+        if not src.is_file():
+            parser.error(f"{src}: not a file")
+        out = Path(args.out) if args.out else src.with_suffix("")
+        convert_gguf(src, out, dtype=args.dtype)
+        print(f"converted {src} -> {out}")
+        return 0
     parser.error("unknown util subcommand")
     return 2
 

@@ -5,9 +5,9 @@ feature reads, with the JAX package's defaults, each also read from
 ``LOCALAI_<FIELD>`` by :meth:`AppConfig.from_env`. ``device`` is the
 port's own (the card unless ``cpu`` is asked for), read from
 ``LOCALAI_DEVICE`` alike. The fields of features the port has not yet
-(SLO shedding, request deadlines, the batch lane, fleets, autoscaling,
-meshes, the JAX platform) are not here: ``cli/main.py`` refuses their
-flags and variables rather than dropping them.
+(SLO shedding, the batch lane, fleets, autoscaling, meshes, the JAX
+platform) are not here: ``cli/main.py`` refuses their flags and
+variables rather than dropping them.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ class AppConfig:
     watchdog_busy: bool = False
     watchdog_idle_timeout: float = 15 * 60.0
     watchdog_busy_timeout: float = 5 * 60.0
+
+    # per-request wall-clock deadline of a non-streamed generation
+    # (LOCALAI_REQUEST_DEADLINE_S / --request-deadline-s): expiry cancels
+    # the generation, so its decode slot frees, and the client gets 504
+    request_deadline_s: float = 600.0
 
     device: str = "cuda"            # "cuda" (default) or "cpu", explicitly
 

@@ -27,21 +27,23 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// The quantized matmuls stage MT rows of x [M, K] in shared memory, KC
-// columns at a time, as xs[m][k] with row stride KC.
+// The quantized matmuls stage MT rows of x [M, K] (rows ldx elements
+// apart in device memory) in shared memory, KC columns at a time, as
+// xs[m][k] with row stride KC.
 
 // Start the async copy of x rows [m0, m0 + MT) x columns [kc, kc + kn)
 // into xs, zero-filled for rows past M, as one committed cp.async group.
-// kn is a multiple of 16 bytes' worth of elements (K % 128 == 0).
+// kn is a multiple of 16 bytes' worth of elements (K % 128 == 0), and so
+// is ldx.
 template <int MT, int KC, typename T>
-__device__ __forceinline__ void stage_x(T* xs, const T* x, int M, int K,
+__device__ __forceinline__ void stage_x(T* xs, const T* x, int M, int ldx,
                                         int m0, int kc, int kn) {
   constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16-byte copy
   const int per_row = kn / kVec;
   for (int e = threadIdx.x; e < MT * per_row; e += blockDim.x) {
     const int m = e / per_row, c = e - m * per_row;
     const bool live = m0 + m < M;
-    const T* src = live ? x + (size_t)(m0 + m) * K + kc + c * kVec : x;
+    const T* src = live ? x + (size_t)(m0 + m) * ldx + kc + c * kVec : x;
     __pipeline_memcpy_async(xs + m * KC + c * kVec, src, 16, live ? 0 : 16);
   }
   __pipeline_commit();
@@ -53,16 +55,16 @@ __device__ __forceinline__ void stage_x(T* xs, const T* x, int M, int K,
 // the block must call it.
 template <int MT, int KC, typename T, typename Body>
 __device__ __forceinline__ void over_chunks(unsigned char* raw, const T* x,
-                                            int M, int K, int m0,
+                                            int M, int K, int ldx, int m0,
                                             Body body) {
   T* const xs0 = reinterpret_cast<T*>(raw);
   T* const xs1 = xs0 + MT * KC;
   const int nchunks = (K + KC - 1) / KC;
-  stage_x<MT, KC>(xs0, x, M, K, m0, 0, min(KC, K));
+  stage_x<MT, KC>(xs0, x, M, ldx, m0, 0, min(KC, K));
   for (int ci = 0; ci < nchunks; ++ci) {
     const int kc = ci * KC;
     if (ci + 1 < nchunks) {
-      stage_x<MT, KC>((ci & 1) ? xs0 : xs1, x, M, K, m0, kc + KC,
+      stage_x<MT, KC>((ci & 1) ? xs0 : xs1, x, M, ldx, m0, kc + KC,
                       min(KC, K - kc - KC));
       __pipeline_wait_prior(1);
     } else {

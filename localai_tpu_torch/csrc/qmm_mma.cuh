@@ -30,10 +30,15 @@
 // ldmatrix; K4's [N, K] table orders K inside two steps its own way (its
 // policy in w8_matmul.cu).
 //
-// Split K: blockIdx.z is the split. With one split the CTA writes out in
-// x's dtype; with more it writes f32 partials [splits, M, N] (a scratch
-// from the caller), and qmm_reduce_kernel folds them in split order 0, 1,
-// ... — the same sum every run (no atomics).
+// Split K: blockIdx.z is e * splits + the split. With one split the CTA
+// writes out in x's dtype; with more it writes f32 partials
+// [E, splits, M, N] (a scratch from the caller), and qmm_reduce_kernel
+// folds them in split order 0, 1, ... — the same sum every run (no
+// atomics).
+//
+// Experts (K4's MoE path, Batch below): one launch computes E products of
+// one shape, expert e on blockIdx.z / splits, each at its own offsets of
+// x, the weight, the scale and out. A batch of one is a plain product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,6 +54,17 @@ constexpr int kWarpsN = kBN / kWarpN;   // warps along N
 constexpr int kWarpsK = 2;              // warps sharing a column block
 constexpr int kThreads = 32 * kWarpsN * kWarpsK;
 constexpr int kBK = 128;                // K rows per stage; split edges
+
+// E products of one shape in one launch: expert e reads x + e * sx (rows
+// ldx elements apart), the weight at q + e * sq bytes, scale + e * ss, and
+// writes out + e * so (rows ldo elements apart). sx = 0 when every expert
+// reads the same rows (an MoE up projection). A plain product is
+// dense(K, N).
+struct Batch {
+  int E, ldx, ldo;
+  long long sx, sq, ss, so;
+};
+inline Batch dense(int K, int N) { return Batch{1, K, N, 0, 0, 0, 0}; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -175,8 +191,9 @@ __global__ void __launch_bounds__(kThreads)
                const uint8_t* __restrict__ q,        // W's layout
                const float* __restrict__ scale,      // [K/g, N] or [N]
                __nv_bfloat16* __restrict__ out,      // [M, N]
-               float* __restrict__ partial,          // [splits, M, N]
-               int M, int K, int N, int group, int split_k) {
+               float* __restrict__ partial,          // [E, splits, M, N]
+               int M, int K, int N, int group, int splits, int split_k,
+               Batch b) {
   constexpr int MT = 8 * MI;
   constexpr int S = W::kStages;
   constexpr int kWBytes = W::kWBytes;
@@ -184,7 +201,9 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kStage = kWBytes + MT * kXStride * 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * MT;
-  const int kb = blockIdx.z * split_k;
+  const int ex = blockIdx.z / splits;  // the expert; then the split
+  const int kb = (blockIdx.z - ex * splits) * split_k;
+  x += ex * b.sx, q += ex * b.sq, scale += ex * b.ss, out += ex * b.so;
   const int nst = min(K - kb, split_k) / kBK;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wn = warp % kWarpsN, kw = warp / kWarpsN;
@@ -200,7 +219,7 @@ __global__ void __launch_bounds__(kThreads)
       const int r = e / (kBK / 8), c = e % (kBK / 8);
       const bool live = m0 + r < M;
       cp_async16(xs + r * kXStride + c * 8,
-                 live ? x + (size_t)(m0 + r) * K + k0 + c * 8 : x, live);
+                 live ? x + (size_t)(m0 + r) * b.ldx + k0 + c * 8 : x, live);
     }
   };
 
@@ -323,7 +342,7 @@ __global__ void __launch_bounds__(kThreads)
         o.y = pack_bf16x2(v[2], v[3]);
         o.z = pack_bf16x2(v[4], v[5]);
         o.w = pack_bf16x2(v[6], v[7]);
-        *reinterpret_cast<uint4*>(out + (size_t)m * N + n0 + col) = o;
+        *reinterpret_cast<uint4*>(out + (size_t)m * b.ldo + n0 + col) = o;
       } else {
         float4* p = reinterpret_cast<float4*>(
             partial + ((size_t)blockIdx.z * M + m) * N + n0 + col);
@@ -334,30 +353,33 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // out = (sum over splits, in split order, of partial) [* scale[n]], four
-// columns a thread
+// columns a thread; expert blockIdx.y of the batch
 template <bool kScaled>
 __global__ void qmm_reduce_kernel(const float* __restrict__ partial,
                                   const float* __restrict__ scale,
                                   __nv_bfloat16* __restrict__ out, int M,
-                                  int N, int splits) {
+                                  int N, int splits, Batch b) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int n4 = M * N / 4;
   if (i >= n4) return;
-  const float4* p = reinterpret_cast<const float4*>(partial);
+  const int ex = blockIdx.y;
+  const float4* p =
+      reinterpret_cast<const float4*>(partial) + (size_t)ex * splits * n4;
   float4 s = p[i];
   for (int k = 1; k < splits; ++k) {
     const float4 v = p[(size_t)k * n4 + i];
     s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
   }
+  const int m = 4 * i / N, n = 4 * i - m * N;  // N % 4 == 0: one row
   if (kScaled) {
     const float4 c =
-        __ldg(reinterpret_cast<const float4*>(scale + (4 * i) % N));
+        __ldg(reinterpret_cast<const float4*>(scale + ex * b.ss + n));
     s.x *= c.x, s.y *= c.y, s.z *= c.z, s.w *= c.w;
   }
   uint2 o;
   o.x = pack_bf16x2(s.x, s.y);
   o.y = pack_bf16x2(s.z, s.w);
-  reinterpret_cast<uint2*>(out)[i] = o;
+  *reinterpret_cast<uint2*>(out + ex * b.so + (size_t)m * b.ldo + n) = o;
 }
 
 template <class W, int MI>
@@ -365,12 +387,12 @@ constexpr int smem_bytes() {
   return W::kStages * (W::kWBytes + 8 * MI * W::kXStride * 2);
 }
 
-// Launch the tile walk (and, with splits > 1, the fold) on stream st;
-// returns the first cudaError_t, 0 on success.
+// Launch the tile walk over the batch b (and, with splits > 1, the fold)
+// on stream st; returns the first cudaError_t, 0 on success.
 template <class W, int MI>
 int launch_tiles(const void* x, const void* q, const void* scale, void* out,
                  void* partial, int M, int K, int N, int group, int splits,
-                 int split_k, cudaStream_t st) {
+                 int split_k, const Batch& b, cudaStream_t st) {
   constexpr int bytes = smem_bytes<W, MI>();
   // above 48 KB a block takes dynamic shared memory only after this
   // opt-in; setting it twice from two threads is harmless
@@ -382,18 +404,20 @@ int launch_tiles(const void* x, const void* q, const void* scale, void* out,
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
-  dim3 grid(N / kBN, (M + 8 * MI - 1) / (8 * MI), splits);
+  dim3 grid(N / kBN, (M + 8 * MI - 1) / (8 * MI), b.E * splits);
   qmm_kernel<W, MI><<<grid, kThreads, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
       static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
       splits > 1 ? static_cast<float*>(partial) : nullptr, M, K, N, group,
-      split_k);
+      splits, split_k, b);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   const int n4 = M * N / 4;
-  qmm_reduce_kernel<!W::kGrouped><<<(n4 + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<const float*>(scale),
-      static_cast<__nv_bfloat16*>(out), M, N, splits);
+  qmm_reduce_kernel<!W::kGrouped>
+      <<<dim3((n4 + 255) / 256, b.E), 256, 0, st>>>(
+          static_cast<const float*>(partial),
+          static_cast<const float*>(scale),
+          static_cast<__nv_bfloat16*>(out), M, N, splits, b);
   return (int)cudaGetLastError();
 }
 

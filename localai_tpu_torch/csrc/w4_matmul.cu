@@ -86,7 +86,7 @@ __global__ void __launch_bounds__(kThreads) w4_kernel(
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[m][c] = part[m][c] = 0.f;
 
-  over_chunks<kMT, kKC>(xs_raw, x, M, K, m0, [&](const T* xs, int kc,
+  over_chunks<kMT, kKC>(xs_raw, x, M, K, K, m0, [&](const T* xs, int kc,
                                                    int kn) {
 #pragma unroll 2
     for (int rb = 0; rb < kn; rb += kRB) {
@@ -238,16 +238,17 @@ extern "C" int w4_matmul(const void* x, const void* q, const void* scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16) return launch_f32(x, q, scale, out, M, K, N, group, st);
   if (!qmm::plan_ok(M, K, N, group, splits, split_k, partial)) return -1;
+  const qmm::Batch b = qmm::dense(K, N);
   switch (mi) {
     case 1:
       return qmm::launch_tiles<W4, 1>(x, q, scale, out, partial, M, K, N,
-                                      group, splits, split_k, st);
+                                      group, splits, split_k, b, st);
     case 2:
       return qmm::launch_tiles<W4, 2>(x, q, scale, out, partial, M, K, N,
-                                      group, splits, split_k, st);
+                                      group, splits, split_k, b, st);
     case 4:
       return qmm::launch_tiles<W4, 4>(x, q, scale, out, partial, M, K, N,
-                                      group, splits, split_k, st);
+                                      group, splits, split_k, b, st);
   }
   return -1;
 }

@@ -34,6 +34,19 @@
 //     columns reads the 4 contiguous rows with 4-byte loads along K (x
 //     staged the same way), a warp reduction at the end.
 //
+// Experts (w8_matmul_experts): the expert products of a sparse-MoE layer,
+// x [M, K] or [M, E, K] times an int8 stack q [E, K, N] with scale [E, N]
+// -> out [M, E, N], in ONE launch: the expert is on the grid's z axis
+// (qmm::Batch: per-expert offsets of x, q, scale and out, and row strides
+// of x and out), so a layer's gate, up and down projections are three
+// launches whatever E is. An up projection reads the same x rows for
+// every expert (x offset 0); a down projection reads expert e's own rows
+// x[:, e]. The JAX package computes these products as XLA einsums over
+// the dequantized stack (localai_tpu/models/quant.py moe_up / moe_down);
+// the bound is the same as K4's, the E * K * N weight bytes. At
+// Mixtral-8x7B's widths (D 4096, F 14336, E 8) a decode layer streams
+// 1.409 GB of experts.
+//
 // Plain C interface (bound with ctypes); launches on the caller's stream
 // and returns cudaGetLastError() after each launch.
 
@@ -42,6 +55,7 @@
 
 namespace {
 
+namespace qmm = localai::qmm;
 using localai::from_f32;
 using localai::over_chunks;
 using localai::to_f32;
@@ -65,13 +79,15 @@ __device__ __forceinline__ float s8(uint32_t v, int b) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) w8_kn_kernel(
-    const T* __restrict__ x,          // [M, K]
+    const T* __restrict__ x,          // [M, K], rows b.ldx apart
     const int8_t* __restrict__ q,     // [K, N]
     const float* __restrict__ scale,  // [N]
-    T* __restrict__ out,              // [M, N]
-    int M, int K, int N) {
+    T* __restrict__ out,              // [M, N], rows b.ldo apart
+    int M, int K, int N, qmm::Batch b) {
   __shared__ __align__(16) unsigned char xs_raw[2 * kMT * kKC * sizeof(T)];
   __shared__ float red[kWarps][kMT][kBN];
+  const int ex = blockIdx.z;  // the expert of a batch (0: a plain product)
+  x += ex * b.sx, q += ex * b.sq, scale += ex * b.ss, out += ex * b.so;
   const int m0 = blockIdx.x * kMT;
   const int n0 = blockIdx.y * kBN;
   const int tid = threadIdx.x;
@@ -85,7 +101,8 @@ __global__ void __launch_bounds__(kThreads) w8_kn_kernel(
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[m][c] = 0.f;
 
-  over_chunks<kMT, kKC>(xs_raw, x, M, K, m0, [&](const T* xs, int kc, int kn) {
+  over_chunks<kMT, kKC>(xs_raw, x, M, K, b.ldx, m0,
+                        [&](const T* xs, int kc, int kn) {
 #pragma unroll 4
     for (int k = tk; k < kn; k += kTK) {
       const uint4 raw =
@@ -129,7 +146,7 @@ __global__ void __launch_bounds__(kThreads) w8_kn_kernel(
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[w][m][c];
     const int n = n0 + c;
-    out[(size_t)(m0 + m) * N + n] = from_f32<T>(s * scale[n]);
+    out[(size_t)(m0 + m) * b.ldo + n] = from_f32<T>(s * scale[n]);
   }
 }
 
@@ -151,7 +168,8 @@ __global__ void __launch_bounds__(kThreadsT) w8_nk_kernel(
 #pragma unroll
     for (int m = 0; m < kMT; ++m) acc[j][m] = 0.f;
 
-  over_chunks<kMT, kKC>(xs_raw, x, M, K, m0, [&](const T* xs, int kc, int kn) {
+  over_chunks<kMT, kKC>(xs_raw, x, M, K, K, m0,
+                        [&](const T* xs, int kc, int kn) {
     if (n0 >= N) return;
     for (int k = 4 * lane; k < kn; k += 128) {
       float xv[kMT][4];
@@ -194,7 +212,8 @@ __global__ void __launch_bounds__(kThreadsT) w8_nk_kernel(
 
 template <typename T>
 int launch(const void* x, const void* q, const void* scale, void* out, int M,
-           int K, int N, int transpose_w, cudaStream_t stream) {
+           int K, int N, int transpose_w, const qmm::Batch& b,
+           cudaStream_t stream) {
   const int mb = (M + kMT - 1) / kMT;
   if (transpose_w) {
     const int cols = (kThreadsT / 32) * kColsT;
@@ -203,15 +222,14 @@ int launch(const void* x, const void* q, const void* scale, void* out, int M,
         static_cast<const T*>(x), static_cast<const int8_t*>(q),
         static_cast<const float*>(scale), static_cast<T*>(out), M, K, N);
   } else {
-    dim3 grid(mb, N / kBN);
+    dim3 grid(mb, N / kBN, b.E);
     w8_kn_kernel<T><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const int8_t*>(q),
-        static_cast<const float*>(scale), static_cast<T*>(out), M, K, N);
+        static_cast<const float*>(scale), static_cast<T*>(out), M, K, N, b);
   }
   return (int)cudaGetLastError();
 }
 
-namespace qmm = localai::qmm;
 using qmm::i8x2_to_bf16x2;
 
 // K4's weight policy for the tile walk (qmm_mma.cuh)
@@ -332,19 +350,19 @@ struct W8T {
 template <class P>
 int launch_tiles(const void* x, const void* q, const void* scale, void* out,
                  void* partial, int M, int K, int N, int mi, int splits,
-                 int split_k, cudaStream_t st) {
+                 int split_k, const qmm::Batch& b, cudaStream_t st) {
   const int group = qmm::kBK;  // no groups: splits on stage edges
   if (!qmm::plan_ok(M, K, N, group, splits, split_k, partial)) return -1;
   switch (mi) {
     case 1:
       return qmm::launch_tiles<P, 1>(x, q, scale, out, partial, M, K, N,
-                                     group, splits, split_k, st);
+                                     group, splits, split_k, b, st);
     case 2:
       return qmm::launch_tiles<P, 2>(x, q, scale, out, partial, M, K, N,
-                                     group, splits, split_k, st);
+                                     group, splits, split_k, b, st);
     case 4:
       return qmm::launch_tiles<P, 4>(x, q, scale, out, partial, M, K, N,
-                                     group, splits, split_k, st);
+                                     group, splits, split_k, b, st);
   }
   return -1;
 }
@@ -362,11 +380,39 @@ extern "C" int w8_matmul(const void* x, const void* q, const void* scale,
                          int split_k, void* stream) {
   if (M <= 0 || K % 128 || N % 128) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const qmm::Batch b = qmm::dense(K, N);
   if (is_bf16 && transpose_w)
     return launch_tiles<W8T>(x, q, scale, out, partial, M, K, N, mi, splits,
-                             split_k, st);
+                             split_k, b, st);
   if (is_bf16)
     return launch_tiles<W8>(x, q, scale, out, partial, M, K, N, mi, splits,
-                            split_k, st);
-  return launch<float>(x, q, scale, out, M, K, N, transpose_w, st);
+                            split_k, b, st);
+  return launch<float>(x, q, scale, out, M, K, N, transpose_w, b, st);
+}
+
+// The E expert products of one MoE projection in one launch:
+// out[m, e, :] = (x_e[m, :] @ q[e]) * scale[e], x_e = x[m, :] when
+// shared_x (every expert reads the same rows, x [M, K]) else x[m, e, :]
+// (x [M, E, K]); q [E, K, N] int8, scale [E, N], out [M, E, N]. The plan
+// (mi, splits, split_k) and the scratch [E, splits, M, N] are as for
+// w8_matmul, the split plan counting E times the column tiles. Returns 0,
+// a cudaError_t, or -1 for a shape the kernels do not take.
+extern "C" int w8_matmul_experts(const void* x, const void* q,
+                                 const void* scale, void* out, void* partial,
+                                 int M, int K, int N, int E, int shared_x,
+                                 int is_bf16, int mi, int splits,
+                                 int split_k, void* stream) {
+  if (M <= 0 || E <= 0 || K % 128 || N % 128) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const qmm::Batch b{E,
+                     shared_x ? K : E * K,
+                     E * N,
+                     shared_x ? 0LL : (long long)K,
+                     (long long)K * N,
+                     (long long)N,
+                     (long long)N};
+  if (is_bf16)
+    return launch_tiles<W8>(x, q, scale, out, partial, M, K, N, mi, splits,
+                            split_k, b, st);
+  return launch<float>(x, q, scale, out, M, K, N, 0, b, st);
 }

@@ -210,6 +210,8 @@ class ModelRunner:
         # fresh contiguous prefills (each launches the prefill kernel once
         # per layer; embeddings launch it too, outside this count)
         self.fresh_prefills = 0
+        # chunked paged prefill dispatches (each runs the trunk once)
+        self.prefill_chunks = 0
         self._init_device_state()
 
     def _init_device_state(self) -> None:
@@ -525,6 +527,7 @@ class ModelRunner:
         write = kvc.paged_prefill_write(table_row, offset, length)
         hidden, _ = mdl.forward(cfg, self.params, tokens, positions, write,
                                 self.kv.stacked(), mask, self.rope)
+        self.prefill_chunks += 1
         if prompt is None:
             return None
         return self._prefill_tail(hidden, length, slot, prompt,

@@ -14,6 +14,10 @@ policy instead of returning a new stacked cache.
   * Matmul weights may be ``quant.QuantizedTensor`` (int8 / int4): every
     product goes through ``quant.matmul`` / ``matmul_t`` and the embedding
     gather through ``quant.embed_rows``, as in the JAX package.
+  * Mixtral-class sparse MoE (``num_experts`` > 0): expert-stacked MLP
+    weights and a router, in the JAX package's dense formulation (every
+    expert runs on every token; the renormalized top-k router weights
+    select), through ``quant.moe_up`` / ``moe_down``.
 """
 
 from __future__ import annotations
@@ -48,8 +52,9 @@ class LlamaConfig:
     attention_bias: bool = False          # Qwen2-style qkv bias
     rope_scaling: Optional[dict] = None   # HF rope_scaling dict
     sliding_window: Optional[int] = None  # Mistral-style (mask-only)
-    num_experts: int = 0                  # sparse MoE MLP (not ported yet)
-    num_experts_per_tok: int = 2
+    num_experts: int = 0                  # Mixtral-class sparse MoE MLP
+                                          # (0 = dense mlp)
+    num_experts_per_tok: int = 2          # router top-k
     dtype: str = "bfloat16"
 
     @property
@@ -88,12 +93,6 @@ def torch_dtype(name: str) -> torch.dtype:
                 "float32": torch.float32}[str(name)]
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}") from None
-
-
-def _check_dense(cfg: LlamaConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "sparse MoE (num_experts > 0) is not ported to PyTorch yet")
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +180,6 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def param_shapes(cfg: LlamaConfig) -> dict:
     """Shapes of the stacked-parameter tree (same as the JAX package)."""
-    _check_dense(cfg)
     D, F_, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     shapes = {
@@ -199,6 +197,15 @@ def param_shapes(cfg: LlamaConfig) -> dict:
             "w_down": (L, F_, D),
         },
     }
+    if cfg.num_experts:
+        E = cfg.num_experts
+        # Mixtral-class sparse MoE: expert-stacked ffn + a small router
+        shapes["layers"].update({
+            "moe_gate": (L, D, E),
+            "w_gate": (L, E, D, F_),
+            "w_up": (L, E, D, F_),
+            "w_down": (L, E, F_, D),
+        })
     if cfg.attention_bias:
         shapes["layers"]["bq"] = (L, Hq * hd)
         shapes["layers"]["bk"] = (L, Hkv * hd)
@@ -213,8 +220,8 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     """Random init (testing / benchmarking with synthetic weights): norm
     gains 1, everything else N(0, 0.02). ``generator`` must live on
     ``device`` (default: the generator's own device); stacked layer
-    weights are drawn one layer at a time so the float32 draw never
-    exceeds one layer slice."""
+    weights are drawn one matrix at a time (a layer's, or an expert's in
+    a layer) so the float32 draw never exceeds one matrix."""
     device = torch.device(device if device is not None else generator.device)
     dtype = torch_dtype(cfg.dtype)
 
@@ -222,7 +229,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         if len(shape) == 1:  # norm gains
             return torch.ones(shape, dtype=dtype, device=device)
         out = torch.empty(shape, dtype=dtype, device=device)
-        rows = out.view(-1, *shape[-2:]) if len(shape) == 3 else [out]
+        rows = out.view(-1, *shape[-2:]) if len(shape) >= 3 else [out]
         for r in rows:
             r.copy_(torch.randn(r.shape, generator=generator,
                                 dtype=torch.float32, device=device) * 0.02)
@@ -244,8 +251,9 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig,
     ``jax.tree.map(np.asarray, tree)``: objects with ``q``, ``scale``,
     ``axis`` and ``mode``) become ``quant.QuantizedTensor``: int8 ``q``
     goes across as it is, an int4 ``q`` (``ml_dtypes.int4``) through
-    ``astype(np.int8)`` and the port's w4 packing; ``scale`` stays f32."""
-    _check_dense(cfg)
+    ``astype(np.int8)`` and the port's w4 packing; ``scale`` stays f32.
+    Expert stacks (plain or per-channel int8 over axis 2) and the router
+    go across alike."""
     dtype = torch_dtype(cfg.dtype)
     device = resolve_device(device)
 
@@ -303,9 +311,37 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, attend):
     x = x + quant.matmul(attn, lp["wo"])
 
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    if "moe_gate" in lp:
+        return x + _moe_mlp(cfg, h, lp)
     gated = (F.silu(quant.matmul(h, lp["w_gate"]))
              * quant.matmul(h, lp["w_up"]))
     return x + quant.matmul(gated, lp["w_down"])
+
+
+def _moe_mlp(cfg: LlamaConfig, h, lp):
+    """Mixtral-class sparse MoE MLP, as the JAX package computes it.
+
+    Routing as HF's MixtralSparseMoeBlock: the router product in the
+    compute dtype, cast to f32; softmax over ALL experts, top-k,
+    renormalize the selected weights. Compute is the dense formulation:
+    every expert runs on every token and the router weights (zero off the
+    top-k) select, the weighting cast to the expert output's dtype before
+    the sum over E, in the JAX package's order. A decode step streams
+    every expert's weights once anyway; on the card each of the three
+    expert projections is one K4 launch over all experts
+    (``quant.moe_up`` / ``moe_down``)."""
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    logits = quant.matmul(h, lp["moe_gate"]).float()            # [B, T, E]
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, k, dim=-1)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    # scatter the renormalized top-k back to a dense [B, T, E] weighting
+    wfull = (F.one_hot(topi, E).to(topv.dtype) * topv[..., None]).sum(-2)
+    g = quant.moe_up(h, lp["w_gate"])                           # [B, T, E, F]
+    u = quant.moe_up(h, lp["w_up"])
+    a = F.silu(g) * u
+    d = quant.moe_down(a, lp["w_down"])                         # [B, T, E, D]
+    return torch.einsum("...te,...ted->...td", wfull.to(d.dtype), d)
 
 
 def _grouped_attn(cfg: LlamaConfig, q, keys, values, mask):
@@ -345,7 +381,6 @@ def forward(
     ``t[i]`` of the stacked tensors) and returned for symmetry with the
     JAX signature. Positions past the RoPE table (padding rows of a
     bucketed chunk) read its last row, like JAX's clamped gather."""
-    _check_dense(cfg)
     cos_t, sin_t = rope
     pos = positions.clamp(max=cos_t.shape[0] - 1)
     cos = cos_t[pos][:, :, None, :]  # [B, T, 1, hd/2]

@@ -6,8 +6,17 @@ a leading axis. The ``safetensors`` package is not a dependency of the
 port: :func:`read_safetensors_index` parses the format itself (an 8-byte
 little-endian header length, a JSON header, then raw little-endian
 tensor bytes) and each tensor is read on demand through
-``torch.frombuffer``; :func:`write_llama_checkpoint` writes the same
-layout.
+``torch.frombuffer``; :func:`write_safetensors` writes the format one
+tensor at a time, and :func:`write_llama_checkpoint` the checkpoint
+layout. Mixtral checkpoints (``block_sparse_moe.gate`` and
+``experts.{j}.w1/w3/w2``) stack into the expert layout [L, E, K, N].
+
+With ``quantization`` set, :func:`load_llama_params` quantizes each
+layer's weights as they are read (``quant.quantize_layer``), so the
+compute-dtype tree never exists whole on the device: Mixtral-8x7B is 93 GB
+in bf16 and 46.7 GB in int8, and the card holds 80. The JAX package
+quantizes the loaded tree; per-channel and per-group scales depend on
+one layer's slice alone, so the bytes are the same.
 """
 
 from __future__ import annotations
@@ -15,10 +24,11 @@ from __future__ import annotations
 import json
 import struct
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Iterable, Optional
 
 import torch
 
+from localai_tpu_torch.models import quant
 from localai_tpu_torch.models.llama import (
     LlamaConfig,
     param_shapes,
@@ -89,9 +99,13 @@ def load_llama_params(
     dtype: str = "bfloat16",
     device: str | torch.device = "cuda",
     hf: Optional[dict] = None,
+    quantization: str = "",
+    group: int = 128,
 ) -> tuple[LlamaConfig, dict]:
-    """Load an HF llama/mistral/qwen2 checkpoint into the stacked
-    parameter dict, in ``dtype`` on ``device``."""
+    """Load an HF llama/mistral/qwen2/mixtral checkpoint into the
+    stacked parameter dict, in ``dtype`` on ``device``. ``quantization``
+    ("int8" / "int4") quantizes each layer's weights as they are read,
+    giving what ``quant.quantize_params`` gives for the whole tree."""
     model_dir = Path(model_dir)
     device = resolve_device(device)
     if hf is None:
@@ -106,35 +120,47 @@ def load_llama_params(
         t = read_tensor(tensors[name]).to(device=device, dtype=dt)
         return t.T.contiguous() if transpose else t
 
-    def stack(fmt: str, transpose: bool) -> torch.Tensor:
-        return torch.stack([get(fmt.format(i=i), transpose)
-                            for i in range(cfg.num_layers)])
+    def one_layer(key: str, i: int) -> torch.Tensor:
+        L = f"{body}layers.{i}."
+        if key in _MOE_EXPERTS and cfg.num_experts:
+            # Mixtral: experts.{j}.w1/w3/w2 (gate/up/down) → [E, K, N]
+            return torch.stack([
+                get(f"{L}block_sparse_moe.experts.{j}."
+                    f"{_MOE_EXPERTS[key]}.weight", True)
+                for j in range(cfg.num_experts)])
+        hf_name, transpose = _HF_LAYER_NAMES[key]
+        return get(L + hf_name, transpose)
 
-    param_shapes(cfg)  # MoE checkpoints raise here: not ported yet
-    L = body + "layers.{i}."
-    layers = {
-        "attn_norm": stack(L + "input_layernorm.weight", False),
-        "wq": stack(L + "self_attn.q_proj.weight", True),
-        "wk": stack(L + "self_attn.k_proj.weight", True),
-        "wv": stack(L + "self_attn.v_proj.weight", True),
-        "wo": stack(L + "self_attn.o_proj.weight", True),
-        "mlp_norm": stack(L + "post_attention_layernorm.weight", False),
-        "w_gate": stack(L + "mlp.gate_proj.weight", True),
-        "w_up": stack(L + "mlp.up_proj.weight", True),
-        "w_down": stack(L + "mlp.down_proj.weight", True),
-    }
+    def stack(key: str):
+        return quant.stack_layers((
+            quant.quantize_layer(key, one_layer(key, i), quantization,
+                                 group) if quantization
+            else one_layer(key, i) for i in range(cfg.num_layers)),
+            cfg.num_layers)
+
+    keys = ["attn_norm", "wq", "wk", "wv", "wo", "mlp_norm"]
+    if cfg.num_experts:
+        keys.append("moe_gate")
+    keys += ["w_gate", "w_up", "w_down"]
     if cfg.attention_bias:
-        layers["bq"] = stack(L + "self_attn.q_proj.bias", False)
-        layers["bk"] = stack(L + "self_attn.k_proj.bias", False)
-        layers["bv"] = stack(L + "self_attn.v_proj.bias", False)
+        keys += ["bq", "bk", "bv"]
+    layers = {key: stack(key) for key in keys}
+    embed = get(body + "embed_tokens.weight")
     params: dict = {
-        "embed": get(body + "embed_tokens.weight"),
+        "embed": (quant.quantize_tensor(embed, axis=1) if quantization
+                  else embed),
         "final_norm": get(body + "norm.weight"),
         "layers": layers,
     }
+    del embed
     if not cfg.tie_word_embeddings:
         if head in tensors:
-            params["lm_head"] = get(head, transpose=True)
+            w = get(head, transpose=True)
+            params["lm_head"] = (
+                w if not quantization else
+                quant.quantize_tensor4(w, 0, group)
+                if quantization == "int4" else quant.quantize_tensor(w, 0))
+            del w
         else:
             cfg = LlamaConfig(**{**cfg.__dict__, "tie_word_embeddings": True})
     _check_shapes(cfg, params)
@@ -143,6 +169,7 @@ def load_llama_params(
 
 _HF_LAYER_NAMES = {
     "attn_norm": ("input_layernorm.weight", False),
+    "moe_gate": ("block_sparse_moe.gate.weight", True),
     "wq": ("self_attn.q_proj.weight", True),
     "wk": ("self_attn.k_proj.weight", True),
     "wv": ("self_attn.v_proj.weight", True),
@@ -155,6 +182,41 @@ _HF_LAYER_NAMES = {
     "bk": ("self_attn.k_proj.bias", False),
     "bv": ("self_attn.v_proj.bias", False),
 }
+# Mixtral's per-expert names of the expert stacks (MixtralSparseMoeBlock:
+# w1 gate, w3 up, w2 down)
+_MOE_EXPERTS = {"w_gate": "w1", "w_up": "w3", "w_down": "w2"}
+
+
+def write_safetensors(path: str | Path,
+                      tensors: Iterable[tuple[str, tuple, torch.dtype,
+                                              Callable[[], torch.Tensor]]]
+                      ) -> int:
+    """Write a ``.safetensors`` file from (name, shape, dtype, getter)
+    entries in file order: the header from the shapes, then each getter's
+    tensor, cast to its dtype, one at a time, so the file never sits whole
+    in host memory. Returns the bytes written."""
+    names = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+    entries = list(tensors)
+    header, offset = {}, 0
+    for name, shape, dt, _get in entries:
+        n = dt.itemsize
+        for d in shape:
+            n *= d
+        header[name] = {"dtype": names[dt], "shape": list(shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for name, shape, dt, get in entries:
+            t = get().detach().to(dt).contiguous().to("cpu")
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != the "
+                                 f"header's {tuple(shape)}")
+            f.write(memoryview(t.view(torch.uint8).numpy()))
+    return 8 + len(raw) + offset
 
 
 def write_llama_checkpoint(model_dir: str | Path, cfg: LlamaConfig,
@@ -168,35 +230,30 @@ def write_llama_checkpoint(model_dir: str | Path, cfg: LlamaConfig,
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     dt = torch_dtype(dtype)
-    st_name = {v: k for k, v in SAFETENSORS_DTYPES.items()}[dt]
     tensors = {"model.embed_tokens.weight": lambda: params["embed"],
                "model.norm.weight": lambda: params["final_norm"]}
     for key, stacked in params["layers"].items():
-        hf, transpose = _HF_LAYER_NAMES[key]
         for i in range(cfg.num_layers):
-            tensors[f"model.layers.{i}.{hf}"] = (
+            prefix = f"model.layers.{i}."
+            if key in _MOE_EXPERTS and stacked.dim() == 4:
+                for j in range(cfg.num_experts):
+                    tensors[f"{prefix}block_sparse_moe.experts.{j}."
+                            f"{_MOE_EXPERTS[key]}.weight"] = (
+                        lambda t=stacked, i=i, j=j: t[i, j].T)
+                continue
+            hf, transpose = _HF_LAYER_NAMES[key]
+            tensors[prefix + hf] = (
                 lambda t=stacked, i=i, tr=transpose: t[i].T if tr else t[i])
     if "lm_head" in params:
         tensors["lm_head.weight"] = lambda: params["lm_head"].T
-    header, offset = {}, 0
-    for name, get in tensors.items():
-        shape = list(get().shape)
-        n = dt.itemsize
-        for d in shape:
-            n *= d
-        header[name] = {"dtype": st_name, "shape": shape,
-                        "data_offsets": [offset, offset + n]}
-        offset += n
-    raw = json.dumps(header).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(model_dir / "model.safetensors", "wb") as f:
-        f.write(struct.pack("<Q", len(raw)))
-        f.write(raw)
-        for get in tensors.values():
-            t = get().detach().to(dt).contiguous().to("cpu")
-            f.write(memoryview(t.view(torch.uint8).numpy()))
+    write_safetensors(model_dir / "model.safetensors",
+                      [(name, tuple(get().shape), dt, get)
+                       for name, get in tensors.items()])
+    extra = ({"model_type": "mixtral", "num_local_experts": cfg.num_experts,
+              "num_experts_per_tok": cfg.num_experts_per_tok}
+             if cfg.num_experts else {"model_type": "llama"})
     (model_dir / "config.json").write_text(json.dumps({
-        "model_type": "llama", "vocab_size": cfg.vocab_size,
+        **extra, "vocab_size": cfg.vocab_size,
         "hidden_size": cfg.hidden_size,
         "intermediate_size": cfg.intermediate_size,
         "num_hidden_layers": cfg.num_layers,

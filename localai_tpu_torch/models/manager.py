@@ -7,8 +7,10 @@ use. The engine runs the paged layout unless ``engine.kv_paged`` is false
 (on one device nothing else forces the contiguous one, as in the JAX
 package's ``build_runner``; ``LOCALAI_KV_PAGED=0`` and ``LOCALAI_KV_DTYPE``
 apply as there); ``engine.quantization`` (int8/int4) quantizes
-the weights on the device after they are built or loaded, as the JAX
-package does. Speculative decoding is on by default for paged engines
+the weights on the device, a debug preset's after it is drawn and a
+checkpoint's layer by layer as it is read (the JAX package quantizes the
+loaded tree: the same bytes, without a whole compute-dtype tree on the
+card). Speculative decoding is on by default for paged engines
 (the n-gram self-drafter) and for any engine with a ``draft_model``, as
 in the JAX package. Each serving model carries a ``TemplateCache`` over
 the models dir, as the JAX package's does. The manager loads
@@ -31,7 +33,6 @@ from localai_tpu_torch.config.loader import ConfigLoader
 from localai_tpu_torch.config.model_config import ModelConfig
 from localai_tpu_torch.engine.runner import ModelRunner
 from localai_tpu_torch.engine.scheduler import Scheduler
-from localai_tpu_torch.models.quant import quantize_params
 from localai_tpu_torch.models.registry import LoadedModel, resolve_model
 from localai_tpu_torch.templates.cache import TemplateCache
 
@@ -73,11 +74,8 @@ def build_runner(mcfg: ModelConfig, app: AppConfig,
     eng = mcfg.engine
     model = resolve_model(mcfg.model or mcfg.name,
                           model_path=app.model_path, dtype=eng.dtype,
-                          seed=mcfg.seed or 0, device=app.device)
-    if eng.quantization:
-        # the bf16 tree is dropped with the old LoadedModel once quantized
-        model = dataclasses.replace(model, params=quantize_params(
-            model.params, eng.quantization, device=app.device))
+                          seed=mcfg.seed or 0, device=app.device,
+                          quantization=eng.quantization or "")
     ctx = min(mcfg.context_size or app.context_size,
               model.cfg.max_position_embeddings)
     # paged unless the config says otherwise or LOCALAI_KV_PAGED=0 (an

@@ -16,6 +16,14 @@ the JAX package computes there without a Pallas kernel:
 ``(x @ q.to(x.dtype)) * scale.to(x.dtype)``, or the per-group einsum for
 w4.
 
+Sparse-MoE expert stacks ([E, K, N] a layer) are per-channel int8 in
+every mode, as in the JAX package. ``moe_up`` / ``moe_down`` send an
+aligned stack to ``ops.qmatmul.w8_matmul_experts`` (K4, one launch per
+projection, every row count); the JAX package's einsum over the
+dequantized stack stays for unaligned debug widths and unquantized
+stacks. On the card an aligned stack never takes that einsum: it would
+write a bf16 copy of every expert matrix (2.8 GB a Mixtral-8x7B layer).
+
 **w4 storage.** torch has no int4 dtype, so a w4 ``q`` is uint8 with two
 nibbles per byte, packed along the contraction axis: byte i holds rows 2i
 (low nibble) and 2i+1 (high nibble) of one output column, so a [K, N]
@@ -32,7 +40,7 @@ because its bytes are compared with JAX's byte for byte.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Iterable
 
 import torch
 
@@ -59,6 +67,14 @@ class QuantizedTensor:
     axis: int
     mode: str = "w8"
     group: int = 0
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        """The logical weight's shape (a w4 ``q`` holds half of ``axis``)."""
+        shape = list(self.q.shape)
+        if self.mode == "w4":
+            shape[self.axis] *= 2
+        return tuple(shape)
 
     def __getitem__(self, i: int) -> "QuantizedTensor":
         """Slice of a stacked [L, ...] weight along its leading axis (the
@@ -205,6 +221,32 @@ def matmul_t(x: torch.Tensor, w: Any) -> torch.Tensor:
     return (x @ w.q.T.to(x.dtype)) * w.scale.to(x.dtype)
 
 
+def moe_up(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """x [..., D] against an expert stack w [E, D, F] → [..., E, F]."""
+    if not isinstance(w, QuantizedTensor):
+        return torch.einsum("...d,edf->...ef", x, w)
+    lead = x.shape[:-1]
+    if qmatmul.experts_eligible(tuple(x.shape), w.q, w.scale):
+        y = qmatmul.w8_matmul_experts(x.reshape(-1, x.shape[-1]), w.q,
+                                      w.scale)
+        return y.reshape(*lead, *y.shape[1:])
+    acc = torch.einsum("...d,edf->...ef", x, w.q.to(x.dtype))
+    return acc * w.scale.to(x.dtype)          # scale [E, F]
+
+
+def moe_down(a: torch.Tensor, w: Any) -> torch.Tensor:
+    """a [..., E, F] against an expert stack w [E, F, D] → [..., E, D]."""
+    if not isinstance(w, QuantizedTensor):
+        return torch.einsum("...ef,efd->...ed", a, w)
+    lead = a.shape[:-2]
+    if qmatmul.experts_eligible(tuple(a.shape), w.q, w.scale):
+        y = qmatmul.w8_matmul_experts(
+            a.reshape(-1, *a.shape[-2:]).contiguous(), w.q, w.scale)
+        return y.reshape(*lead, *y.shape[1:])
+    acc = torch.einsum("...ef,efd->...ed", a, w.q.to(a.dtype))
+    return acc * w.scale.to(a.dtype)          # scale [E, D]
+
+
 def embed_rows(w: Any, tokens: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
     """Embedding gather for plain or per-row-quantized tables."""
@@ -218,41 +260,52 @@ def embed_rows(w: Any, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # which params get quantized, and the contraction axis of each stacked
-# [L, K, N] layer weight; norm gains and qkv biases stay as they are
+# [L, K, N] layer weight; norm gains, qkv biases and the MoE router
+# (``moe_gate``, in the compute dtype) stay as they are
 _LAYER_AXES = {
     "wq": 1, "wk": 1, "wv": 1, "wo": 1,
     "w_gate": 1, "w_up": 1, "w_down": 1,
 }
+_EXPERTS = ("w_gate", "w_up", "w_down")
 
 
-def _quantize_stacked(w: torch.Tensor, axis: int, mode: str,
-                      group: int, device: torch.device) -> QuantizedTensor:
-    """Quantize a stacked [L, K, N] weight one layer slice at a time, so
-    no f32 copy of the whole stack ever exists."""
-    L = w.shape[0]
-    K = w.shape[axis]
-    if mode == "w4":
-        g = _group_size(K, group)
-        qshape = list(w.shape)
-        qshape[axis] //= 2
-        sshape = list(w.shape)
-        sshape[axis] = K // g
-        q = torch.empty(qshape, dtype=torch.uint8, device=device)
-        scale = torch.empty(sshape, dtype=torch.float32, device=device)
-        for i in range(L):
-            qi, si = _quantize4(w[i].to(device), axis - 1, g)
-            q[i] = pack_w4(qi, axis - 1)
-            scale[i] = si
-        return QuantizedTensor(q, scale, axis, "w4", g)
-    q = torch.empty(w.shape, dtype=torch.int8, device=device)
-    sshape = list(w.shape)
-    del sshape[axis]
-    scale = torch.empty(sshape, dtype=torch.float32, device=device)
-    for i in range(L):
-        t = quantize_tensor(w[i].to(device), axis - 1)
-        q[i] = t.q
-        scale[i] = t.scale
-    return QuantizedTensor(q, scale, axis)
+def quantize_layer(name: str, w: torch.Tensor, mode: str, group: int = 128
+                   ) -> Any:
+    """One layer's slice of stacked weight ``name`` (``w`` without the
+    L axis) as ``quantize_params`` quantizes it: an expert stack [E, K, N]
+    per-channel int8 over K in every mode; another matmul weight [K, N]
+    int8 or group-wise int4 over K (``mode`` "int8" / "int4"); the rest
+    (norms, biases, the router) as it is. Scales of one [E, K] slice
+    depend on that slice alone, so quantizing layer by layer as a
+    checkpoint is read gives the bytes of quantizing the whole stack."""
+    if name not in _LAYER_AXES:
+        return w
+    if name in _EXPERTS and w.dim() == 3:
+        return quantize_tensor(w, 1)
+    if mode == "int4":
+        return quantize_tensor4(w, 0, group)
+    return quantize_tensor(w, 0)
+
+
+def stack_layers(parts: Iterable[Any], n: int) -> Any:
+    """Stack ``n`` per-layer slices (tensors, or ``QuantizedTensor``
+    slices of one kind) along a new leading L axis, into storage
+    allocated at the first slice and filled as the slices come: the slices
+    are never held beside the stack."""
+    out = None
+    for i, p in enumerate(parts):
+        if isinstance(p, QuantizedTensor):
+            if out is None:
+                out = QuantizedTensor(p.q.new_empty((n, *p.q.shape)),
+                                      p.scale.new_empty((n, *p.scale.shape)),
+                                      p.axis + 1, p.mode, p.group)
+            out.q[i] = p.q
+            out.scale[i] = p.scale
+        else:
+            if out is None:
+                out = p.new_empty((n, *p.shape))
+            out[i] = p
+    return out
 
 
 def quantize_params(params: dict, mode: str = "int8", group: int = 128,
@@ -262,27 +315,26 @@ def quantize_params(params: dict, mode: str = "int8", group: int = 128,
     embed goes per-row int8 (axis 1) in both modes, so the gather and the
     tied-embedding logits stay exact per channel; lm_head per output
     column (axis 0, or group-wise int4 over D); stacked layer weights over
-    their K axis. ``mode``: ``"int8"`` or ``"int4"``. ``"int8_w8a8"`` (an
-    int8×int8 dot with dynamic activation quantization in the JAX package,
-    no Pallas kernel) is not ported."""
+    their K axis; expert stacks [L, E, K, N] per-channel int8 over K
+    (axis 2) in both modes, as in the JAX package. ``mode``: ``"int8"`` or
+    ``"int4"``. ``"int8_w8a8"`` (an int8×int8 dot with dynamic activation
+    quantization in the JAX package, no Pallas kernel) is not ported."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"unsupported quantization mode {mode!r} (the "
                          "port has int8 and int4)")
     device = resolve_device(device)
-    wmode = "w4" if mode == "int4" else "w8"
     out = dict(params)
     out["embed"] = quantize_tensor(params["embed"].to(device), axis=1)
     if "lm_head" in params:
         head = params["lm_head"].to(device)
-        out["lm_head"] = (quantize_tensor4(head, 0, group) if wmode == "w4"
+        out["lm_head"] = (quantize_tensor4(head, 0, group) if mode == "int4"
                           else quantize_tensor(head, 0))
-    layers = dict(params["layers"])
-    for name, axis in _LAYER_AXES.items():
-        layers[name] = _quantize_stacked(layers[name], axis, wmode, group,
-                                         device)
-    for name, w in layers.items():
-        if name not in _LAYER_AXES:
-            layers[name] = w.to(device)
+    layers = {}
+    for name, w in params["layers"].items():
+        # one layer slice at a time: no f32 copy of a whole stack exists
+        layers[name] = (stack_layers((quantize_layer(
+            name, w[i].to(device), mode, group) for i in range(len(w))),
+            len(w)) if name in _LAYER_AXES else w.to(device))
     out["layers"] = layers
     out["final_norm"] = params["final_norm"].to(device)
     return out

@@ -12,9 +12,21 @@ from __future__ import annotations
 import dataclasses
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from localai_tpu_torch.models.llama import LlamaConfig, init_params
+from localai_tpu_torch.models.llama import (
+    LlamaConfig,
+    init_params,
+    param_shapes,
+    torch_dtype,
+)
+from localai_tpu_torch.models.quant import (
+    QuantizedTensor,
+    _group_size,
+    quantize_params,
+)
+from localai_tpu_torch.ops.qmatmul import pack_w4
 from localai_tpu_torch.utils.device import resolve_device
 from localai_tpu_torch.utils.tokenizer import (
     ByteTokenizer,
@@ -67,7 +79,12 @@ def resolve_model(
     dtype: str = "bfloat16",
     seed: int = 0,
     device: str | torch.device | None = "cuda",
+    quantization: str = "",
 ) -> LoadedModel:
+    """``quantization`` ("int8" / "int4") gives the weights of
+    ``quant.quantize_params``: a debug preset's drawn tree is quantized on
+    the device, a checkpoint's layers as they are read (the bf16 tree of
+    Mixtral-8x7B would not fit the card)."""
     dev = resolve_device(device)
     if ref.startswith("debug:"):
         name = ref.split(":", 1)[1]
@@ -77,8 +94,10 @@ def resolve_model(
             )
         cfg = dataclasses.replace(DEBUG_PRESETS[name], dtype=dtype)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return LoadedModel(cfg, init_params(cfg, gen, dev), ByteTokenizer(),
-                           ref)
+        params = init_params(cfg, gen, dev)
+        if quantization:
+            params = quantize_params(params, quantization, device=dev)
+        return LoadedModel(cfg, params, ByteTokenizer(), ref)
 
     for cand in (Path(ref), Path(model_path) / ref):
         if (cand / "config.json").exists():
@@ -89,13 +108,95 @@ def resolve_model(
 
             hf = read_hf_config(cand)
             cfg, params = load_llama_params(cand, dtype=dtype, device=dev,
-                                            hf=hf)
+                                            hf=hf, quantization=quantization)
             cfg = dataclasses.replace(cfg, dtype=dtype)
             return LoadedModel(cfg, params, load_tokenizer(cand), ref)
     raise FileNotFoundError(
         f"model ref {ref!r} not found (looked for config.json under {ref} and "
         f"{Path(model_path) / ref})"
     )
+
+
+def synthetic_quantized_params(
+        cfg: LlamaConfig, mode: str = "int8", group: int = 128,
+        seed: int = 0, device: str | torch.device | None = "cuda") -> dict:
+    """Random weights drawn directly in quantized form, as the JAX
+    package's ``synthetic_quantized_params``: a model whose bf16 tree does
+    not fit the card (Mixtral-8x7B: 93 GB) does in int8 (46.7 GB).
+
+    Shapes, dtypes, axes and scales are the JAX package's: every matmul
+    weight is uniform random int8 bits clamped to [-127, 127] (``mode``
+    "int8"), or their arithmetic high nibble clamped to [-7, 7] in groups
+    of ``group`` (``"int4"``, packed by ``pack_w4``), with the constant
+    scale 0.02 / 127 (or / 7), so activations stay in the range of
+    ``init_params``' N(0, 0.02) draws; embed is per-row int8 in both
+    modes; expert stacks [L, E, K, N] are per-channel int8 over K in both;
+    norms are ones, qkv biases zeros, and the router N(0, 0.02) in the
+    compute dtype. The values are drawn by a seeded ``torch.Generator`` on
+    ``device``, so they differ from the JAX package's. Each stack is drawn
+    one [K, N] matrix at a time into its int8 storage: no f32 or int64
+    temporary of a whole stack exists."""
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"unsupported synthetic quant mode {mode!r} (the "
+                         "port has int8 and int4)")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = torch_dtype(cfg.dtype)
+    shapes = param_shapes(cfg)
+
+    def bits(shape) -> torch.Tensor:
+        return torch.randint(-128, 128, shape, generator=gen,
+                             dtype=torch.int8, device=dev)
+
+    def qweight(shape, axis, nbits):
+        lead = int(np.prod(shape[:-2], dtype=np.int64))
+        if nbits == 4:
+            K = shape[axis]
+            g = _group_size(K, group)
+            qshape = shape[:axis] + (K // 2,) + shape[axis + 1:]
+            sshape = shape[:axis] + (K // g,) + shape[axis + 1:]
+            q = torch.empty(qshape, dtype=torch.uint8, device=dev)
+            for r in q.view(lead, *qshape[-2:]):
+                r.copy_(pack_w4((bits(shape[-2:]) >> 4).clamp_(min=-7),
+                                axis - len(shape) + 2))
+            return QuantizedTensor(q, torch.full(sshape, 0.02 / 7,
+                                                 device=dev), axis, "w4", g)
+        q = torch.empty(shape, dtype=torch.int8, device=dev)
+        for r in q.view(lead, *shape[-2:]):
+            r.copy_(bits(shape[-2:]).clamp_(min=-127))
+        sshape = shape[:axis] + shape[axis + 1:]
+        return QuantizedTensor(q, torch.full(sshape, 0.02 / 127, device=dev),
+                               axis)
+
+    def router(shape) -> torch.Tensor:
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for r in out:
+            r.copy_(torch.randn(r.shape, generator=gen, device=dev) * 0.02)
+        return out
+
+    bits_mm = 4 if mode == "int4" else 8
+    params: dict = {
+        # embeddings stay int8 in int4 mode too (quant.quantize_params)
+        "embed": qweight(shapes["embed"], 1, 8),
+        "final_norm": torch.ones(shapes["final_norm"], dtype=dtype,
+                                 device=dev),
+    }
+    if "lm_head" in shapes:
+        params["lm_head"] = qweight(shapes["lm_head"], 0, bits_mm)
+    layers = {}
+    for name, shape in shapes["layers"].items():
+        if name in ("attn_norm", "mlp_norm"):
+            layers[name] = torch.ones(shape, dtype=dtype, device=dev)
+        elif name in ("bq", "bk", "bv"):
+            layers[name] = torch.zeros(shape, dtype=dtype, device=dev)
+        elif name == "moe_gate":   # the router stays in the compute dtype
+            layers[name] = router(shape)
+        elif len(shape) == 4:      # expert stacks: int8 in every mode
+            layers[name] = qweight(shape, 2, 8)
+        else:
+            layers[name] = qweight(shape, 1, bits_mm)
+    params["layers"] = layers
+    return params
 
 
 def resolve_tokenizer(ref: str, model_path: str | Path = "models"

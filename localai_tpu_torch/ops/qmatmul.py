@@ -19,6 +19,15 @@ different selection.
 
 The w4 weight layout is defined here, once: :func:`pack_w4`.
 
+``w8_matmul_experts`` runs the expert products of a sparse-MoE layer on
+K4 in one launch per projection (the expert on the grid's z axis). The
+JAX package computes them as XLA einsums over the dequantized int8 stack
+(``models/quant.py`` ``moe_up`` / ``moe_down``, outside Pallas); routing
+them to K4 is the same function with another selection, as for the dense
+projections. ``w8_matmul_experts.launches`` counts its launches, and
+``w8_matmul_experts.up.launches`` / ``.down.launches`` those of the up
+(shared x) and down projections.
+
 bf16 x takes a tensor-core tile (``csrc/qmm_mma.cuh``) whose K is split
 over CUDA blocks by :func:`qmm_split_plan`; ``w4_matmul_split_ref`` and
 ``w8_matmul_split_ref`` are plain models of that partition (tests only).
@@ -30,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import types
 from typing import Optional
 
 import torch
@@ -118,7 +128,7 @@ def _mi(M: int) -> int:
 
 
 def qmm_split_plan(M: int, K: int, N: int, group: int, sms: int,
-                   kind: str) -> tuple[int, int, int]:
+                   kind: str, experts: int = 1) -> tuple[int, int, int]:
     """(mi, splits, split_k) of the bf16 tile of ``kind`` ("w8" or "w4")
     for x [M, K] against a [K, N] weight on a card of ``sms`` SMs: ``mi``
     n8 tiles of x rows per CUDA block (1 up to M = 8, 2 up to 16, else 4),
@@ -129,13 +139,17 @@ def qmm_split_plan(M: int, K: int, N: int, group: int, sms: int,
     (a wide weight, a long M); a narrower one aims at
     ``QMM_CTAS_PER_SM[kind]`` blocks per SM, with splits of at least
     QMM_MIN_SPLIT_K rows (N = 1024 at M = 8: 8 column tiles, 16 splits of
-    256 rows). Shapes in, never data."""
-    if (min(M, K, N, group, sms) < 1 or N % QMM_BN or group % QMM_BK
-            or K % group or kind not in QMM_CTAS_PER_SM):
+    256 rows). ``experts`` products of one shape in one launch (an MoE
+    projection, :func:`w8_matmul_experts`) multiply the tiles: Mixtral's
+    8 experts x 112 column tiles of an up projection at M = 8 fill the
+    card unsplit. Shapes in, never data."""
+    if (min(M, K, N, group, sms, experts) < 1 or N % QMM_BN
+            or group % QMM_BK or K % group or kind not in QMM_CTAS_PER_SM):
         raise ValueError(f"no qmm split plan for M={M}, K={K}, N={N}, "
-                         f"group={group}, sms={sms}, kind {kind!r}")
+                         f"group={group}, sms={sms}, kind {kind!r}, "
+                         f"experts={experts}")
     mi = _mi(M)
-    tiles = (N // QMM_BN) * -(-M // (8 * mi))
+    tiles = experts * (N // QMM_BN) * -(-M // (8 * mi))
     groups = K // group
     most = max(1, K // max(group, QMM_MIN_SPLIT_K))
     want = (1 if tiles >= sms else
@@ -146,10 +160,10 @@ def qmm_split_plan(M: int, K: int, N: int, group: int, sms: int,
 
 @functools.lru_cache(maxsize=None)
 def _device_plan(M: int, K: int, N: int, group: int, kind: str,
-                 index: int) -> tuple[int, int, int]:
+                 index: int, experts: int = 1) -> tuple[int, int, int]:
     """``qmm_split_plan`` on card ``index``, once per shape."""
     return qmm_split_plan(M, K, N, group, torch.cuda.get_device_properties(
-        index).multi_processor_count, kind)
+        index).multi_processor_count, kind, experts)
 
 
 def _forced_plan(M: int, K: int, group: int,
@@ -175,6 +189,18 @@ def w8_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     accumulator, then a cast to x's dtype."""
     w = q.float()
     acc = x.float() @ (w.T if transpose_w else w)
+    return (acc * scale.float()).to(x.dtype)
+
+
+def w8_matmul_experts_ref(x: torch.Tensor, q: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """The E expert products of one MoE projection: x [M, K] (every
+    expert reads the same rows) or [M, E, K] (expert e reads x[:, e])
+    against the int8 stack q [E, K, N] with scale [E, N] → [M, E, N]:
+    f32 accumulation, each expert's per-output-channel scale on its f32
+    accumulator, one cast to x's dtype — K4's math per expert."""
+    eq = "mk,ekn->men" if x.dim() == 2 else "mek,ekn->men"
+    acc = torch.einsum(eq, x.float(), q.float())
     return (acc * scale.float()).to(x.dtype)
 
 
@@ -237,12 +263,16 @@ def w4_matmul_split_ref(x: torch.Tensor, q: torch.Tensor,
 # x, q, scale, out, partial; M, K, N, transpose_w | group, is_bf16, mi,
 # splits, split_k; stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# w8_matmul_experts: x, q, scale, out, partial; M, K, N, E, shared_x,
+# is_bf16, mi, splits, split_k; stream
+_EXPERT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                    + [ctypes.c_void_p])
 
 
-def _fn(name: str):
-    fn = getattr(_build.load(name), name)
+def _fn(name: str, source: Optional[str] = None, argtypes=_ARGTYPES):
+    fn = getattr(_build.load(source or name), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -271,16 +301,16 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _plan(x: torch.Tensor, K: int, N: int, group: int, kind: str,
-          k_splits: Optional[int]):
+          k_splits: Optional[int], experts: int = 1):
     """(plan, scratch) of the bf16 tile: the card's plan, or ``k_splits``
-    splits when given, and an f32 scratch [splits, M, N] from the caching
-    allocator when K is split (None otherwise)."""
+    splits when given, and an f32 scratch [experts x splits, M, N] from
+    the caching allocator when K is split (None otherwise)."""
     M = x.shape[0]
     if k_splits is None:
-        plan = _device_plan(M, K, N, group, kind, x.device.index)
+        plan = _device_plan(M, K, N, group, kind, x.device.index, experts)
     else:
         plan = _forced_plan(M, K, group, k_splits)
-    scratch = (torch.empty((plan[1], M, N), dtype=torch.float32,
+    scratch = (torch.empty((experts * plan[1], M, N), dtype=torch.float32,
                            device=x.device) if plan[1] > 1 else None)
     return plan, scratch
 
@@ -358,3 +388,62 @@ def w4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
 
 
 w4_matmul.launches = 0
+
+
+def experts_eligible(x_shape: tuple, q: torch.Tensor,
+                     scale: torch.Tensor) -> bool:
+    """An int8 expert stack q [E, K, N] with scale [E, N], 128-aligned K
+    and N, and x [..., K] (shared rows) or [..., E, K]. Any number of rows:
+    the expert kernel has no Pallas counterpart whose M gate it keeps."""
+    if q.dim() != 3 or scale.dim() != 2 or q.dtype != torch.int8:
+        return False
+    E, K, N = q.shape
+    return (tuple(scale.shape) == (E, N) and x_shape[-1] == K
+            and K % 128 == 0 and N % 128 == 0)
+
+
+def w8_matmul_experts(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                      *, k_splits: Optional[int] = None) -> torch.Tensor:
+    """The E expert products of one MoE projection on K4, one launch: x
+    [M, K] (``moe_up``: every expert reads the same rows) or [M, E, K]
+    (``moe_down``: expert e reads x[:, e]) against q [E, K, N] int8 with
+    scale [E, N] → [M, E, N] in x's dtype. CPU tensors take
+    :func:`w8_matmul_experts_ref`; CUDA tensors launch the kernel or raise.
+    bf16 x takes the tensor-core tile, K split by :func:`qmm_split_plan`
+    over all E experts' tiles (``k_splits`` forces a count); f32 x the
+    CUDA-core kernel."""
+    if x.device.type == "cpu":
+        return w8_matmul_experts_ref(x, q, scale)
+    _check(x, q, scale)
+    E = q.shape[0] if q.dim() == 3 else 0
+    shared = x.dim() == 2
+    if (not (shared or (x.dim() == 3 and x.shape[1] == E))
+            or not experts_eligible(tuple(x.shape), q, scale)):
+        raise ValueError(
+            f"w8 expert kernel does not take x {tuple(x.shape)}, q "
+            f"{tuple(q.shape)} {q.dtype}, scale {tuple(scale.shape)}")
+    M = x.shape[0]
+    _, K, N = q.shape
+    out = torch.empty((M, E, N), dtype=x.dtype, device=x.device)
+    tiled = x.dtype == torch.bfloat16
+    (mi, splits, split_k), scratch = (
+        _plan(x, K, N, QMM_BK, "w8", k_splits, E) if tiled
+        else ((0, 0, 0), None))
+    rc = _fn("w8_matmul_experts", "w8_matmul", _EXPERT_ARGTYPES)(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else 0,
+        M, K, N, E, int(shared), int(tiled), mi, splits, split_k,
+        _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"w8 expert kernel launch failed (code {rc})")
+    _build.count_launch(w8_matmul_experts)
+    _build.count_launch(w8_matmul_experts.up if shared
+                        else w8_matmul_experts.down)
+    return out
+
+
+w8_matmul_experts.launches = 0
+# the launches of up projections (gate and up: x shared by every expert)
+# and of down projections (each expert its own rows), counted apart
+w8_matmul_experts.up = types.SimpleNamespace(launches=0)
+w8_matmul_experts.down = types.SimpleNamespace(launches=0)

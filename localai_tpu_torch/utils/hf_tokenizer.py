@@ -16,7 +16,10 @@ the format's sections in the order ``tokenizers`` runs them for
      ``Sequence``);
   4. model: ``BPE`` (ranked merges, ``ignore_merges``, ``unk_token``,
      ``fuse_unk``, ``byte_fallback``, ``continuing_subword_prefix``,
-     ``end_of_word_suffix``), with a word → ids cache.
+     ``end_of_word_suffix``), with a word → ids cache; or ``WordLevel``
+     (one vocabulary entry a word, else ``unk_token``: the model of the
+     ``tokenizer.json`` that ``utils/gguf.py`` writes from a GGUF's
+     vocabulary, which has no pre-tokenizer, so a whole text is one word).
 
 ``decode(ids)`` maps ids to tokens (added tokens to their content) and
 runs the decoder (``ByteLevel``, ``Metaspace``, ``Replace``,
@@ -685,6 +688,34 @@ class _AddedTokens:
         return out
 
 
+class WordLevel:
+    """The ``WordLevel`` model of ``tokenizers``: a word is its vocabulary
+    entry's id, or ``unk_token``'s (an error when that is not in the
+    vocabulary either, as there)."""
+
+    def __init__(self, spec: dict):
+        if "unk_token" not in spec:
+            raise ValueError("tokenizer.json: WordLevel needs unk_token")
+        self.vocab: dict[str, int] = dict(spec["vocab"])
+        self.vocab_r = {i: t for t, i in self.vocab.items()}
+        self.unk_token: str = spec["unk_token"]
+
+    def tokenize(self, word: str) -> tuple[int, ...]:
+        if not word:
+            return ()
+        tid = self.vocab.get(word)
+        if tid is None:
+            tid = self.vocab.get(self.unk_token)
+            if tid is None:
+                raise ValueError(f"tokenizer.json: WordLevel unk_token "
+                                 f"{self.unk_token!r} is not in the "
+                                 "vocabulary")
+        return (tid,)
+
+
+_MODELS = {"BPE": BPE, "WordLevel": WordLevel}
+
+
 # ---------------------------------------------------------------------------
 # The tokenizer
 
@@ -697,10 +728,11 @@ class TokenizerJSON:
     def __init__(self, spec: dict):
         model = spec.get("model") or {}
         kind = model.get("type") or ("BPE" if "merges" in model else None)
-        if kind != "BPE":
+        if kind not in _MODELS:
             raise ValueError(f"tokenizer.json: model {kind!r} is not "
-                             "supported (this reader has BPE only)")
-        self.model = BPE(model)
+                             "supported (this reader has "
+                             f"{' and '.join(_MODELS)})")
+        self.model = _MODELS[kind](model)
         self.normalize = _normalizer(spec.get("normalizer"))
         self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
         self._decoder = _decoder(spec.get("decoder"))

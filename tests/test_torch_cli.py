@@ -10,8 +10,10 @@ the idle and busy watchdogs, ``single_active_backend`` and
 ``preload_models`` of the port's model manager with sub-second timeouts;
 the subcommands (``tokenize``, ``models list``, ``util scan`` /
 ``usecase-heuristic`` / ``checkpoint-info``, ``version``) printing what
-the JAX package's print; and an unported ``run`` setting refused with exit
-code 2.
+the JAX package's print; an unported ``run`` setting refused with exit
+code 2; and the request deadline (``--request-deadline-s``,
+``LOCALAI_REQUEST_DEADLINE_S``) resolved as the JAX package resolves it
+and cancelling a generation at its expiry with 504.
 """
 
 import json
@@ -90,7 +92,8 @@ SETTINGS = {
         "LOCALAI_CONFIG_PATH": "/srv/conf", "LOCALAI_LOAD_TO_MEMORY": "a,b",
         "LOCALAI_OPAQUE_ERRORS": "false", "LOCALAI_SINGLE_ACTIVE_BACKEND": "1",
         "LOCALAI_WATCHDOG_IDLE_TIMEOUT": "5", "LOCALAI_CORS": "false",
-        "LOCALAI_PRELOAD_MODELS": "x", "LOCALAI_LOG_LEVEL": "debug"},
+        "LOCALAI_PRELOAD_MODELS": "x", "LOCALAI_LOG_LEVEL": "debug",
+        "LOCALAI_REQUEST_DEADLINE_S": "30"},
         ["run"]),
     "flags": ({}, [
         "run", "m1", "m2", "--address", "1.2.3.4", "--port", "9",
@@ -98,12 +101,13 @@ SETTINGS = {
         "--no-cors", "--opaque-errors", "--single-active-backend",
         "--preload-models", "a,b", "--enable-watchdog-idle",
         "--enable-watchdog-busy", "--watchdog-idle-timeout", "0.5",
-        "--watchdog-busy-timeout", "0.25"]),
+        "--watchdog-busy-timeout", "0.25", "--request-deadline-s", "45"]),
     "flags-over-environment": ({
         "LOCALAI_ADDRESS": "127.0.0.9", "LOCALAI_API_KEYS": "envkey",
-        "LOCALAI_PORT": "1", "LOCALAI_OPAQUE_ERRORS": "1"},
+        "LOCALAI_PORT": "1", "LOCALAI_OPAQUE_ERRORS": "1",
+        "LOCALAI_REQUEST_DEADLINE_S": "30"},
         ["--log-level", "warn", "run", "--address", "0.0.0.1", "--api-keys",
-         "flagkey", "--port", "2"]),
+         "flagkey", "--port", "2", "--request-deadline-s", "12.5"]),
 }
 
 
@@ -142,7 +146,6 @@ def test_bare_device_variable_is_not_read(clean_env):
 @pytest.mark.parametrize("argv,env,item", [
     (["run", "--fleet-replicas", "2"], {}, 23),
     (["run", "--slo-ttft-p95-ms", "200"], {}, 15),
-    (["run", "--request-deadline-s", "30"], {}, 20),
     (["run", "--batch-concurrency", "4"], {}, 14),
     (["run", "--batch-concurrency", "0"], {}, 14),
     (["run", "--autoscale"], {}, 23),
@@ -152,7 +155,7 @@ def test_bare_device_variable_is_not_read(clean_env):
     (["run"], {"LOCALAI_FLEET_REPLICAS": "2"}, 23),
     (["run"], {"LOCALAI_SLO_E2E_P95_MS": "900"}, 15),
     (["run"], {"LOCALAI_MESH": "data=1,model=2"}, 19),
-], ids=["fleet", "slo", "deadline", "batch", "batch-0", "autoscale", "mesh", "platform",
+], ids=["fleet", "slo", "batch", "batch-0", "autoscale", "mesh", "platform",
         "log-json", "env-fleet", "env-slo", "env-mesh"])
 def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
                                       item):
@@ -545,10 +548,94 @@ def test_tokenize_reads_no_weights(cli_models, capsys, clean_env,
 
 
 @pytest.mark.parametrize("argv", [["models", "install", "x"],
-                                  ["models", "available"],
-                                  ["util", "convert", "a.gguf"]])
+                                  ["models", "available"]])
 def test_unported_subcommand_names_its_item(capsys, argv):
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
     assert e.value.code == 2
     assert "ROADMAP item" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# the request deadline
+
+
+@pytest.mark.parametrize("value,want", [
+    (None, 600.0), (5.0, 5.0), (0.25, 0.25), (0.0, 600.0), (-3.0, 600.0),
+], ids=["default", "settings", "short", "zero", "negative"])
+def test_request_deadline_resolution_as_on_the_reference(clean_env, value,
+                                                         want):
+    """From settings, as the JAX package resolves it when its API tier has
+    an AppConfig (the variable reaches both through ``from_env``)."""
+    from localai_tpu.api import inference as jax_inf
+    from localai_tpu.config.app_config import AppConfig as JaxAppConfig
+    from localai_tpu_torch.api import inference as inf
+
+    kw = {} if value is None else {"request_deadline_s": value}
+    clean_env.setenv("LOCALAI_REQUEST_DEADLINE_S", "7.5")  # not read here
+    assert inf.request_deadline_s(AppConfig(**kw)) == \
+        jax_inf.request_deadline_s(JaxAppConfig(**kw)) == want
+
+
+def _hold(manager, name):
+    """A chat that would decode far past any sub-millisecond deadline."""
+    from localai_tpu_torch.api import openai
+
+    return openai.chat(manager, {
+        "model": name, "max_tokens": 100, "temperature": 0,
+        "ignore_eos": True,
+        "messages": [{"role": "user", "content": "hold this slot"}]})
+
+
+@pytest.mark.parametrize("via", ["settings", "flag", "environment"])
+def test_request_deadline_cancels_the_generation(clean_env, tmp_path, via):
+    """At expiry the request ends with 504 naming the deadline, and the
+    cancelled generation leaves its slot on the next engine step, long
+    before the 100 tokens it asked for."""
+    from localai_tpu_torch.api.openai import APIError
+
+    (tmp_path / "tiny.yaml").write_text(_yaml("tiny", "debug:tiny"))
+    argv = ["run", "--device", "cpu", "--address", "127.0.0.1", "--port",
+            "0", "--models-path", str(tmp_path)]
+    if via == "flag":
+        argv += ["--request-deadline-s", "0.001"]
+    elif via == "environment":
+        clean_env.setenv("LOCALAI_REQUEST_DEADLINE_S", "0.001")
+    server = cli.build_server(argv)
+    manager = server.manager
+    try:
+        if via == "settings":
+            manager.app.request_deadline_s = 0.001
+        assert manager.app.request_deadline_s == 0.001
+        sm = manager.get("tiny")
+        with pytest.raises(APIError) as e:
+            _hold(manager, "tiny")
+        assert e.value.status == 504
+        assert "request deadline" in e.value.message
+        assert _wait_for(lambda: not sm.busy, timeout=30)
+        # a generous deadline lets the same request finish
+        manager.app.request_deadline_s = 600.0
+        out = _hold(manager, "tiny")
+        assert out["usage"]["completion_tokens"] == 100
+    finally:
+        server.shutdown()
+
+
+def test_request_deadline_answers_504_over_http(clean_env, tmp_path):
+    (tmp_path / "tiny.yaml").write_text(_yaml("tiny", "debug:tiny"))
+    clean_env.setenv("LOCALAI_REQUEST_DEADLINE_S", "0.001")
+    server = cli.build_server(["run", "--device", "cpu", "--address",
+                               "127.0.0.1", "--port", "0", "--models-path",
+                               str(tmp_path)]).start()
+    try:
+        req = urllib.request.Request(
+            server.url + "/v1/chat/completions", data=json.dumps({
+                "model": "tiny", "max_tokens": 100, "ignore_eos": True,
+                "messages": [{"role": "user", "content": "hold"}]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(req, timeout=120)
+        assert e.value.code == 504
+        assert "deadline" in e.value.read().decode()
+    finally:
+        server.shutdown()

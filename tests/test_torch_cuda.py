@@ -971,3 +971,153 @@ def test_cuda_checkpoint_with_tokenizer_json_serves(tmp_path, monkeypatch):
         assert k1.launches - before == cfg.num_layers * steps
     finally:
         server.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# K4's expert grid (sparse-MoE projections, one launch over all experts)
+
+
+def _expert_inputs(M, E, K, N, shared, seed):
+    """x [M, K] (shared rows) or [M, E, K], and a [E, K, N] stack
+    quantized per channel over K on the card."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(M, K) if shared else (M, E, K)).astype(np.float32)
+    w = (rng.normal(size=(E, K, N)) * 0.02).astype(np.float32)
+    qt = tq.quantize_tensor(torch.from_numpy(w).cuda(), 1)
+    return torch.from_numpy(x).cuda(), qt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [8, 40, 1, 300])
+@pytest.mark.parametrize("kind", ["up", "down"])
+def test_cuda_w8_experts_matches_plain(kind, M, dtype):
+    """One launch computes every expert's product, held per expert and
+    row against ``w8_matmul_experts_ref``: moe_up reads the same rows
+    for every expert, moe_down each expert's own."""
+    _card()
+    dt = getattr(torch, dtype)
+    E, D, F = 4, 256, 640
+    K, N = (D, F) if kind == "up" else (F, D)
+    x, qt = _expert_inputs(M, E, K, N, kind == "up", M + len(kind))
+    xc = x.to(dt)
+    counted = (tqm.w8_matmul_experts.up if kind == "up"
+               else tqm.w8_matmul_experts.down)
+    before = tqm.w8_matmul_experts.launches, counted.launches
+    got = tqm.w8_matmul_experts(xc, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert (tqm.w8_matmul_experts.launches, counted.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == (M, E, N) and got.dtype == dt
+    want = tqm.w8_matmul_experts_ref(xc.float(), qt.q, qt.scale)
+    for e in range(E):
+        _row_check(got[:, e], want[:, e], dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 40])
+@pytest.mark.parametrize("kind", ["up", "down"])
+def test_cuda_w8_experts_every_split_matches_plain(kind, M):
+    """The bf16 tile at every split count K allows (the scratch holds E x
+    splits partials), and the card's own plan."""
+    _card()
+    E, D, F = 4, 512, 1024
+    K, N = (D, F) if kind == "up" else (F, D)
+    x, qt = _expert_inputs(M, E, K, N, kind == "up", 3 * M)
+    xb = x.to(torch.bfloat16)
+    want = tqm.w8_matmul_experts_ref(xb.float(), qt.q, qt.scale)
+    for splits in [None] + _split_counts(K // 128):
+        got = tqm.w8_matmul_experts(xb, qt.q, qt.scale, k_splits=splits)
+        torch.cuda.synchronize()
+        for e in range(E):
+            _row_check(got[:, e], want[:, e], torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["up", "down"])
+def test_cuda_w8_experts_at_mixtral_widths(kind):
+    """Mixtral-8x7B's expert projections (8 experts, D 4096, F 14336) at
+    a decode step's M = 8, in bf16."""
+    _card()
+    E, D, F = 8, 4096, 14336
+    K, N = (D, F) if kind == "up" else (F, D)
+    x, qt = _expert_inputs(8, E, K, N, kind == "up", 11)
+    xb = x.to(torch.bfloat16)
+    got = tqm.w8_matmul_experts(xb, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    want = tqm.w8_matmul_experts_ref(xb.float(), qt.q, qt.scale)
+    for e in range(E):
+        _row_check(got[:, e], want[:, e], torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_w8_experts_refuses_what_it_does_not_take():
+    _card()
+    x, qt = _expert_inputs(8, 4, 256, 256, True, 1)
+    with pytest.raises(ValueError):
+        tqm.w8_matmul_experts(x[:, :128], qt.q, qt.scale)
+    with pytest.raises(ValueError):       # an expert axis of another size
+        tqm.w8_matmul_experts(x[:, None].expand(8, 3, 256).contiguous(),
+                              qt.q, qt.scale)
+    with pytest.raises(ValueError):
+        tqm.w8_matmul_experts(x.half(), qt.q, qt.scale)
+
+
+def _moe_runner(paged, dev, weights="int8"):
+    """debug:small's widths with 4 experts (top 2), f32 compute, int8 or
+    int4 weights (the experts per-channel int8 in both), made on the CPU
+    from a seed and moved to ``dev``."""
+    import dataclasses
+
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models import llama as tl
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+
+    cfg = dataclasses.replace(DEBUG_PRESETS["small"], dtype="float32",
+                              num_experts=4, num_experts_per_tok=2)
+    params = tq.quantize_params(
+        tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+        weights, device="cpu")
+
+    def to(p):
+        return ({k: to(v) for k, v in p.items()} if isinstance(p, dict)
+                else p.to(dev))
+
+    kw = dict(kv_block_tokens=16, prefill_chunk=32) if paged else {}
+    return ModelRunner(cfg, to(params), num_slots=4, max_ctx=256,
+                       kv_dtype="float32", paged=paged, device=dev, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["int8", "int4"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged",
+                                                      "contiguous"])
+def test_cuda_moe_runner_matches_the_cpu(paged, weights):
+    """Greedy tokens of a MoE runner on the card equal the CPU's; each
+    decode step launches the expert kernel 3 times a layer (gate, up,
+    down over all experts, int8 in both modes) and the dense K4 (int8)
+    or K5 (int4) 4 times a layer plus the lm_head."""
+    _card()
+    prompts = [list(b"mixture of experts"), list(b"abcabcabcabcabc")]
+    dense = tqm.w8_matmul if weights == "int8" else tqm.w4_matmul
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = _moe_runner(paged, dev, weights)
+        slots = [r.acquire_slot() for _ in prompts]
+        toks = [[r.admit(s, p, temperature=0.0)]
+                for s, p in zip(slots, prompts)]
+        ex, mm = tqm.w8_matmul_experts.launches, dense.launches
+        up, down = (tqm.w8_matmul_experts.up.launches,
+                    tqm.w8_matmul_experts.down.launches)
+        for _ in range(6):
+            row = r.step()
+            for t, s in zip(toks, slots):
+                t.append(int(row[s]))
+        if dev == "cuda":
+            L = r.cfg.num_layers
+            assert tqm.w8_matmul_experts.launches - ex == 6 * 3 * L
+            assert tqm.w8_matmul_experts.up.launches - up == 6 * 2 * L
+            assert tqm.w8_matmul_experts.down.launches - down == 6 * L
+            assert dense.launches - mm == 6 * (4 * L + 1)
+        out[dev] = toks
+    assert out["cuda"] == out["cpu"]

@@ -199,11 +199,6 @@ def test_init_params_shapes_and_seed():
     assert torch.all(a["final_norm"] == 1)
 
 
-def test_moe_is_refused():
-    with pytest.raises(NotImplementedError):
-        tl.param_shapes(T_PRESETS["tiny-moe"])
-
-
 @pytest.mark.parametrize("bias", [False, True])
 def test_safetensors_loader_matches_jax(tmp_path, bias):
     cfg_j = dataclasses.replace(_cfg("bias"), attention_bias=bias)
