@@ -149,7 +149,35 @@ Phases (any failure raises and the script exits non-zero):
      five greedy chats through the HTTP server, K1 32 a decode step and
      K4 225 a decode step, verify window and prefill chunk exactly, peak
      memory under 80 GB; it prints the weight bytes, tokens/s, the
-     streamed TTFT and the launch counts.
+     streamed TTFT and the launch counts;
+  8. image and video chat (LLaVA), run after the templated parity phase
+     (media, vision parity, group-1 kernels) and before the Mixtral serve
+     (the LLaVA serve): ``media`` decodes the committed fixtures of
+     ``tests/data/media`` (a 640x480 4:2:0 JPEG, an 800x600 progressive
+     JPEG, a 512x512 RGBA PNG, a 4-frame GIF; written by
+     ``scripts/make_media_fixtures.py``) with the port's stdlib + numpy
+     readers and holds each to its committed PIL decode (PNG and GIF byte
+     for byte, JPEG within max 2 / mean 0.25), printing host ms to decode
+     and to preprocess; ``vision_parity``: a float32 LLaVA of debug:small's
+     widths with the ``vit`` tower, card against CPU — tower embeddings
+     within 1e-4, greedy tokens of an image + video chat through the
+     scheduler equal on a paged engine with speculation and on a
+     contiguous one, K1 = L per paged step, K3 = L per contiguous
+     prefill, K2 = L per contiguous step exactly; the group-1 cases: K1,
+     K2 and K3 at Llama-2-7B's shape (Hq = Hkv = 32, hd 128, 8 slots,
+     bf16; K3 at T = 640, 2048 and a 2048 bucket of 640 rows) against
+     their plain versions, timed beside SDPA with their plans; then the
+     tenth serve, ``llava-1.5-7b-bf16``: LLaVA-1.5-7B's published widths
+     and depth (llava-hf/llava-1.5-7b-hf's config.json) with bf16 weights
+     drawn on the card, the default paged config with speculation, five
+     greedy 32-token chats over HTTP (the JPEG streamed, the progressive
+     JPEG, the PNG, the GIF as a video_url, a text-only one), then the
+     same weights on a contiguous engine with two image chats; it prints
+     the weight bytes (text, tower, projector), peak memory, tokens/s,
+     the streamed TTFT and its parts (fetch + decode, preprocess, tower
+     encode and multimodal prefill on CUDA events) and the launches, K1 =
+     32 per paged step, K3 = 32 per contiguous prefill and K2 = 32 per
+     contiguous step asserted exactly.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -169,6 +197,7 @@ import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -795,9 +824,12 @@ def phase_qmatmul() -> dict:
 
 
 def _to(params, dev):
-    """A parameter tree (tensors and QuantizedTensors) on ``dev``."""
+    """A parameter tree (tensors and QuantizedTensors in dicts and lists)
+    on ``dev``."""
     if isinstance(params, dict):
         return {k: _to(v, dev) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_to(v, dev) for v in params]
     return params.to(dev)
 
 
@@ -3653,6 +3685,28 @@ def _synthetic_serving_model(mcfg, app, cfg, params):
                         templates=TemplateCache(app.model_path))
 
 
+def _one_model_manager(app, loader, sm):
+    """A ModelManager that serves the one engine a phase built by hand
+    (``sm``) beside whatever its loader names."""
+    from localai_tpu_torch.models.manager import ModelManager
+
+    class OneModel(ModelManager):
+        def get(self, name):
+            if name != sm.name:
+                return super().get(name)
+            sm.touch()
+            return sm
+
+        def loaded_names(self):
+            return sorted({*super().loaded_names(), sm.name})
+
+        def shutdown(self):
+            super().shutdown()
+            sm.close()
+
+    return OneModel(app, loader)
+
+
 def phase_serve_mixtral(card: str, profile: bool = False) -> dict:
     """The Mixtral serve, ``mixtral-8x7b-int8``: Mixtral-8x7B-Instruct's
     published widths and depth (MIXTRAL_8X7B_CONFIG) with int8 weights
@@ -3671,32 +3725,11 @@ def phase_serve_mixtral(card: str, profile: bool = False) -> dict:
     from localai_tpu_torch.config.loader import ConfigLoader
     from localai_tpu_torch.config.model_config import ModelConfig
     from localai_tpu_torch.models.llama import LlamaConfig
-    from localai_tpu_torch.models.manager import ModelManager
     from localai_tpu_torch.models.registry import synthetic_quantized_params
     from localai_tpu_torch.ops.attention import paged_decode_attention
     from localai_tpu_torch.ops.qmatmul import w8_matmul, w8_matmul_experts
 
     import dataclasses
-
-    class OneModel(ModelManager):
-        """A manager that serves the one engine the phase built."""
-
-        def __init__(self, app, loader, sm):
-            super().__init__(app, loader)
-            self.sm = sm
-
-        def get(self, name):
-            if name != self.sm.name:
-                return super().get(name)
-            self.sm.touch()
-            return self.sm
-
-        def loaded_names(self):
-            return sorted({*super().loaded_names(), self.sm.name})
-
-        def shutdown(self):
-            super().shutdown()
-            self.sm.close()
 
     wrappers = {"paged_decode_attention": paged_decode_attention,
                 "w8_matmul": w8_matmul,
@@ -3731,7 +3764,7 @@ def phase_serve_mixtral(card: str, profile: bool = False) -> dict:
     try:
         sm = _synthetic_serving_model(mcfg, app, cfg, params)
         del params
-        manager = OneModel(app, loader, sm)
+        manager = _one_model_manager(app, loader, sm)
         server = APIServer(manager, "127.0.0.1", 0).start()
         if sm.scheduler.spec is None or not sm.runner.paged:
             raise AssertionError(f"{MIXTRAL}: not paged with speculation")
@@ -3808,6 +3841,565 @@ def phase_serve_mixtral(card: str, profile: bool = False) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
+
+
+# ---------------------------------------------------------------------------
+# image and video chat (LLaVA): media fixtures, the vision parity phase,
+# the group-1 kernel cases and the LLaVA-1.5-7B serve
+# ---------------------------------------------------------------------------
+
+MEDIA_DIR = Path(__file__).resolve().parent / "tests" / "data" / "media"
+# the files scripts/make_media_fixtures.py writes (with PIL, where it is
+# installed), each beside its PIL decode as <name>.ref.png
+MEDIA_FIXTURES = ("photo.jpg", "progressive.jpg", "rgba.png", "video.gif")
+# the CPU tests' JPEG tolerance against libjpeg-turbo (max, mean)
+JPEG_TOL = (2, 0.25)
+# LLaVA-1.5-7B as llava-hf/llava-1.5-7b-hf's config.json describes it; its
+# text_config names vocab_size 32064, max_position_embeddings 4096 and
+# rms_norm_eps 1e-5 and leaves the rest at transformers' LlamaConfig
+# defaults (Llama-2-7B: 4096 wide, 11008, 32 layers, 32 heads, no GQA,
+# untied head), written out here; vision_config is CLIP ViT-L/14-336
+# (hidden_act quick_gelu, the CLIPVisionConfig default)
+LLAVA_15_7B_CONFIG = {
+    "model_type": "llava", "image_token_index": 32000,
+    "vision_feature_layer": -2, "vision_feature_select_strategy": "default",
+    "projector_hidden_act": "gelu",
+    "text_config": {
+        "model_type": "llama", "vocab_size": 32064, "hidden_size": 4096,
+        "intermediate_size": 11008, "num_hidden_layers": 32,
+        "num_attention_heads": 32, "num_key_value_heads": 32,
+        "max_position_embeddings": 4096, "rms_norm_eps": 1e-5,
+        "rope_theta": 10000.0, "tie_word_embeddings": False},
+    "vision_config": {
+        "model_type": "clip_vision_model", "hidden_size": 1024,
+        "image_size": 336, "intermediate_size": 4096,
+        "num_attention_heads": 16, "num_hidden_layers": 24,
+        "patch_size": 14, "projection_dim": 768,
+        "hidden_act": "quick_gelu"},
+}
+LLAVA = "llava-1.5-7b-bf16"
+
+
+def _data_uri(name: str) -> str:
+    import base64
+
+    mime = {"jpg": "image/jpeg", "png": "image/png",
+            "gif": "image/gif"}[name.rsplit(".", 1)[1]]
+    return (f"data:{mime};base64,"
+            + base64.b64encode((MEDIA_DIR / name).read_bytes()).decode())
+
+
+def phase_media() -> dict:
+    """Decode each committed fixture with the port (no PIL on this
+    machine) and hold it to its committed PIL decode: PNG and GIF byte for
+    byte, JPEG within the CPU tests' tolerance. Prints host ms to decode
+    and to ``preprocess`` (to 336 x 336) each; returns them by file."""
+    from localai_tpu_torch.models.vision import VisionConfig, preprocess
+    from localai_tpu_torch.utils import media
+
+    cfg = VisionConfig()
+    out = {}
+    for name in MEDIA_FIXTURES:
+        data = (MEDIA_DIR / name).read_bytes()
+        ref = media.decode_image((MEDIA_DIR / (name + ".ref.png"))
+                                 .read_bytes())
+        t0 = time.perf_counter()
+        frames = (media.decode_video_frames(data) if name.endswith(".gif")
+                  else [media.decode_image(data)])
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        got = np.concatenate(frames, axis=0)
+        if got.shape != ref.shape:
+            raise AssertionError(f"media {name}: shape {got.shape} != "
+                                 f"{ref.shape}")
+        d = np.abs(got.astype(np.int64) - ref)
+        limit = JPEG_TOL if name.endswith(".jpg") else (0, 0.0)
+        t0 = time.perf_counter()
+        preprocess(frames, cfg)
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        rec = {"file": name, "bytes": len(data), "frames": len(frames),
+               "shape": list(frames[0].shape), "decode_ms": decode_ms,
+               "preprocess_ms": pre_ms, "max_abs_diff": int(d.max()),
+               "mean_abs_diff": float(d.mean()), "tolerance": limit}
+        print("media " + json.dumps(rec), flush=True)
+        if d.max() > limit[0] or d.mean() > limit[1]:
+            raise AssertionError(f"media {name}: decode differs from PIL's "
+                                 f"({int(d.max())}, {float(d.mean())})")
+        out[name] = rec
+    return out
+
+
+def _mm_request(sm, text: str, images: list, vid_frames: Optional[list]):
+    """(prompt ids, rows, positions) of a prompt with [img-N] / [vid-0]
+    placeholders, expanded as the chat endpoint expands them."""
+    from localai_tpu_torch.api.inference import (
+        MMContent,
+        expand_image_placeholders,
+    )
+
+    groups = []
+    items = list(images)
+    if vid_frames:
+        groups.append((len(items), len(vid_frames)))
+        items += vid_frames
+    mm = MMContent(embeds=sm.vision.encode(items), video_groups=groups)
+    return expand_image_placeholders(sm, text, mm)
+
+
+def phase_vision_parity() -> dict:
+    """A small LLaVA in float32 (debug:small's widths with the ``vit``
+    tower, weights drawn on the CPU), card against CPU: the tower's
+    embeddings of the fixtures within 1e-4; greedy tokens of an image
+    chat (beside a text one) through the scheduler equal on a paged
+    engine with n-gram speculation and on a contiguous one; launches
+    exact: K1 = L per paged decode step, K3 = L per contiguous prefill
+    (the multimodal one included), K2 = L per contiguous decode step.
+    Returns the card's launches by layout."""
+    import dataclasses
+    import types
+
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.engine.scheduler import GenRequest, Scheduler
+    from localai_tpu_torch.models import vision
+    from localai_tpu_torch.models.registry import resolve_model
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
+    from localai_tpu_torch.spec import NGramDrafter, SpecEngine
+    from localai_tpu_torch.utils import media
+    from localai_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    wrappers = {"paged_decode_attention": paged_decode_attention,
+                "decode_attention": decode_attention,
+                "prefill_attention": prefill_attention}
+    model = resolve_model("debug:small", dtype="float32", device="cpu")
+    L = model.cfg.num_layers
+    vcfg = dataclasses.replace(vision.DEBUG_PRESETS["vit"], dtype="float32",
+                               projection_dim=model.cfg.hidden_size)
+    vparams = vision.init_params(vcfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+    imgs = [media.decode_image((MEDIA_DIR / n).read_bytes())
+            for n in ("photo.jpg", "rgba.png")]
+    frames = media.decode_video_frames((MEDIA_DIR / "video.gif")
+                                       .read_bytes())
+    sms = {dev: types.SimpleNamespace(
+        vision=vision.VisionTower(vcfg, _to(vparams, dev), dev),
+        tokenizer=ByteTokenizer(), image_token_id=5)
+        for dev in ("cuda", "cpu")}
+    emb = {dev: sm.vision.encode(imgs + frames) for dev, sm in sms.items()}
+    err = float(np.abs(emb["cuda"] - emb["cpu"]).max())
+    print(f"vision parity: tower embeddings {emb['cuda'].shape}, max abs "
+          f"diff card vs CPU {err} (tolerance 1e-4)", flush=True)
+    if not err <= 1e-4:
+        raise AssertionError("vision tower embeddings differ between the "
+                             "card and the CPU")
+    prompt, rows, pos = _mm_request(
+        sms["cpu"], "<user>what is in [img-0] and [img-1]? [vid-0]",
+        imgs, frames)
+    text = list(b"<user>no image here, just text.")
+    launches = {}
+    for paged in (True, False):
+        mode = "paged-spec" if paged else "contiguous"
+        toks = {}
+        for dev in ("cuda", "cpu"):
+            r = ModelRunner(model.cfg, _to(model.params, dev), num_slots=2,
+                            max_ctx=256, kv_dtype="float32",
+                            kv_block_tokens=16, prefill_chunk=32,
+                            paged=paged, device=dev)
+            spec = (SpecEngine(r, NGramDrafter(2, gamma=4), gamma=4)
+                    if paged else None)
+            sched = Scheduler(r, ByteTokenizer(), multi_step=4, spec=spec)
+            for w in wrappers.values():
+                w.launches = 0
+            try:
+                hs = [sched.submit(GenRequest(
+                    prompt=p, max_new_tokens=24, temperature=0.0,
+                    ignore_eos=True, mm_embeds=m, mm_positions=q))
+                    for p, m, q in ((prompt, rows, pos),
+                                    (text, None, None))]
+                toks[dev] = [h.result(300).token_ids for h in hs]
+            finally:
+                sched.shutdown()
+            counts = {n: w.launches for n, w in wrappers.items()}
+            counts.update(decode_steps=r.decode_steps,
+                          fresh_prefills=r.fresh_prefills,
+                          verify_windows=r.verify_windows)
+            print(f"vision parity {mode} {dev}: prompt {len(prompt)} ids "
+                  f"({len(pos)} image rows), tokens {toks[dev]}, launches "
+                  f"{json.dumps(counts)}", flush=True)
+            if dev == "cuda":
+                if paged:
+                    want = {"paged_decode_attention": L * r.decode_steps,
+                            "decode_attention": 0, "prefill_attention": 0}
+                else:
+                    want = {"paged_decode_attention": 0,
+                            "decode_attention": L * r.decode_steps,
+                            "prefill_attention": L * r.fresh_prefills}
+                if (any(counts[k] != v for k, v in want.items())
+                        or r.decode_steps <= 0
+                        or (not paged and r.fresh_prefills != 2)):
+                    raise AssertionError(f"vision parity {mode}: launches "
+                                         f"{counts}, expected {want}")
+                launches[mode] = counts
+            del r
+        if toks["cuda"] != toks["cpu"]:
+            raise AssertionError(f"vision parity {mode}: greedy tokens "
+                                 "differ between the card and the CPU")
+    return launches
+
+
+def phase_kernel_llava() -> dict:
+    """K1, K2 and K3 at Llama-2-7B's shape (Hq = Hkv = 32, a GQA group of
+    1, hd 128, 8 slots, bf16), each against its plain version and timed
+    beside SDPA, with the plan it takes: K1 over 64-entry tables at
+    positions 63-4095, K2 over a 4096-row cache, K3 at T = 640 and 2048
+    and at the contiguous LLaVA serve's shape (a 2048 bucket holding a
+    ~640-token image prompt)."""
+    g1 = {"Hq": 32, "Hkv": 32, "hd": 128}
+    return {
+        "k1": kernel_case("llava-g1-bf16", torch.bfloat16, timed=True,
+                          seed=60, **g1),
+        "k2": decode_case("k2-llava-g1-bf16", torch.bfloat16, timed=True,
+                          seed=61, **g1),
+        "k3-T640": prefill_case("k3-llava-g1-T640-bf16", torch.bfloat16,
+                                640, seed=62, **g1),
+        "k3-T2048": prefill_case("k3-llava-g1-T2048-bf16", torch.bfloat16,
+                                 2048, seed=63, **g1),
+        "k3-served": prefill_case("k3-llava-g1-T2048-len640-bf16",
+                                  torch.bfloat16, 2048, length=640, seed=64,
+                                  **g1),
+    }
+
+
+LLAVA_CHATS = [  # (text, image fixtures, video fixture), one streamed
+    ("Describe this photo.", ["photo.jpg"], None),
+    ("What colours are in this picture?", ["progressive.jpg"], None),
+    ("Is there transparency in this image?", ["rgba.png"], None),
+    ("What moves in this clip?", [], "video.gif"),
+    ("Say hello in three languages.", [], None),
+]
+
+
+def _llava_body(i: int, max_tokens: int = 32, stream: bool = False) -> dict:
+    text, imgs, vid = LLAVA_CHATS[i]
+    parts = [{"type": "text", "text": text}]
+    parts += [{"type": "image_url", "image_url": {"url": _data_uri(n)}}
+              for n in imgs]
+    if vid:
+        parts.append({"type": "video_url",
+                      "video_url": {"url": _data_uri(vid)}})
+    return {"model": LLAVA, "max_tokens": max_tokens, "temperature": 0,
+            "stream": stream, "ignore_eos": True,
+            "messages": [{"role": "user", "content": parts if imgs or vid
+                          else text}]}
+
+
+def _llava_chats(url: str, which: list[int], streamed: int) -> dict:
+    """The LLaVA chats ``which`` concurrently, ``streamed`` among them
+    streamed: {"tokens", "wall_s", "ttft_s", "texts"}."""
+    results, errors = {}, []
+
+    def run(i):
+        try:
+            if i != streamed:
+                results[i] = json.loads(_post(url, _llava_body(i)).read())
+                return
+            t = time.monotonic()
+            ttft, text, last = None, "", None
+            with _post(url, _llava_body(i, stream=True)) as r:
+                for line in r:
+                    line = line.strip()
+                    if not line.startswith(b"data: {"):
+                        continue
+                    frame = json.loads(line[6:])
+                    delta = frame["choices"][0]["delta"].get("content")
+                    if delta and ttft is None:
+                        ttft = time.monotonic() - t
+                    text += delta or ""
+                    last = frame
+            results[i] = {"ttft_s": ttft, "text": text, "last": last}
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in which]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    ntok = 0
+    for i in which:
+        usage = (results[i]["last"] if i == streamed
+                 else results[i])["usage"]
+        if usage["completion_tokens"] <= 0:
+            raise AssertionError(f"{LLAVA}: chat {i} returned no tokens")
+        ntok += usage["completion_tokens"]
+    return {"tokens": ntok, "wall_s": wall,
+            "ttft_s": results[streamed]["ttft_s"] if streamed in results
+            else None,
+            "texts": {i: results[i]["text"] if i == streamed else
+                      results[i]["choices"][0]["message"]["content"]
+                      for i in which}}
+
+
+def _count_calls(obj, name: str) -> list:
+    """Record each call of ``obj.name`` (an instance attribute wrapping
+    the method, dropped with the instance); returns the record."""
+    calls: list = []
+    method = getattr(type(obj), name)
+
+    def counted(*a, **k):
+        calls.append(1)
+        return method(obj, *a, **k)
+
+    setattr(obj, name, counted)
+    return calls
+
+
+def _ttft_parts(sm) -> dict:
+    """The first image chat's time to first token, part by part, on an
+    idle engine: fetch + decode of its data URI and preprocess (host ms),
+    the tower's encode and the multimodal prefill (CUDA events around
+    each; the prefill is a paged or contiguous ``admit`` of the expanded
+    prompt on a free slot, its first token fetched)."""
+    from localai_tpu_torch.api.inference import (
+        MMContent,
+        expand_image_placeholders,
+    )
+    from localai_tpu_torch.models import vision
+    from localai_tpu_torch.utils import media
+
+    text, imgs, _ = LLAVA_CHATS[0]
+    t0 = time.perf_counter()
+    img = media.fetch_image(_data_uri(imgs[0]))
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batch = torch.from_numpy(vision.preprocess([img], sm.vision.cfg))
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        x = batch.to("cuda")
+        a.record()
+        emb = vision.forward(sm.vision.cfg, sm.vision.params, x)
+        b.record()
+        emb = emb.float().cpu().numpy()
+    torch.cuda.synchronize()
+    encode_ms = a.elapsed_time(b)
+    ids, rows, pos = expand_image_placeholders(
+        sm, f"<user>{text} [img-0]\n<assistant>",
+        MMContent(embeds=emb, video_groups=[]))
+    r = sm.runner
+    s = r.acquire_slot()
+    t0 = time.perf_counter()
+    a.record()
+    r.admit(s, ids, temperature=0.0, mm_embeds=rows, mm_positions=pos,
+            reserve_tokens=len(ids) + 8)
+    b.record()
+    torch.cuda.synchronize()
+    prefill_wall = (time.perf_counter() - t0) * 1e3
+    r.release(s)
+    return {"fetch_decode_ms": fetch_ms, "preprocess_ms": pre_ms,
+            "encode_ms": encode_ms, "mm_prefill_ms": a.elapsed_time(b),
+            "mm_prefill_wall_ms": prefill_wall, "prompt_ids": len(ids),
+            "path": r.last_prefill_path}
+
+
+def phase_serve_llava(card: str) -> dict:
+    """The LLaVA serve, ``llava-1.5-7b-bf16``: LLaVA-1.5-7B's published
+    widths and depth (LLAVA_15_7B_CONFIG) with bf16 weights drawn on the
+    card, the language model in the engine ``build_serving_model`` makes
+    of the default config (paged pool, 8 slots, ctx 4096, n-gram
+    speculation on) with the CLIP tower and projector beside it, served
+    over HTTP: five greedy 32-token chats, one streamed, carrying the
+    JPEG, the progressive JPEG, the RGBA PNG, the GIF as a video_url, and
+    none. Then the same weights on a contiguous engine: two image chats.
+    Asserts K1 = 32 per paged decode step, K3 = 32 per contiguous
+    (multimodal) prefill and K2 = 32 per contiguous decode step exactly,
+    the image chats through the multimodal prefill, peak memory under
+    80 GB. Returns the launches of both engines."""
+    import dataclasses
+
+    from localai_tpu_torch.api.server import APIServer
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.config.model_config import ModelConfig
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.engine.scheduler import Scheduler
+    from localai_tpu_torch.models import vision
+    from localai_tpu_torch.models.llama import LlamaConfig, init_params
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
+
+    wrappers = {"paged_decode_attention": paged_decode_attention,
+                "decode_attention": decode_attention,
+                "prefill_attention": prefill_attention}
+    hf = LLAVA_15_7B_CONFIG
+    cfg = dataclasses.replace(LlamaConfig.from_hf(hf["text_config"]),
+                              dtype="bfloat16")
+    vcfg = dataclasses.replace(vision.VisionConfig.from_hf(
+        hf["vision_config"], projection_dim=cfg.hidden_size,
+        feature_layer=hf["vision_feature_layer"]), dtype="bfloat16")
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, "cuda")
+    vparams = vision.init_params(vcfg, gen, "cuda")
+    torch.cuda.synchronize()
+    draw_s = time.monotonic() - t0
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    wb = {"text": nbytes(params),
+          "tower": nbytes(vparams) - nbytes(vparams["projector"]),
+          "projector": nbytes(vparams["projector"])}
+    print(f"serve {LLAVA}: bf16 weights drawn on the card in {draw_s:.1f}s"
+          f": {json.dumps({k: v / 1e9 for k, v in wb.items()})} GB "
+          "(reckoned: 13.48 text + 0.61 tower + 0.04 projector)",
+          flush=True)
+    mcfg = ModelConfig.from_dict({
+        "name": LLAVA, "model": "llava-hf/llava-1.5-7b-hf",
+        "context_size": 4096,
+        "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
+                   "max_slots": 8, "kv_block_tokens": 64}})
+    mcfg.set_defaults()
+    loader = ConfigLoader()
+    loader.register(mcfg)
+    app = AppConfig(device="cuda")
+    tower = vision.VisionTower(vcfg, vparams, "cuda")
+    out = {}
+    sm = manager = server = None
+    try:
+        sm = _synthetic_serving_model(mcfg, app, cfg, params)
+        sm.vision, sm.image_token_id = tower, hf["image_token_index"]
+        if sm.scheduler.spec is None or not sm.runner.paged:
+            raise AssertionError(f"{LLAVA}: not paged with speculation")
+        mm_prefills = _count_calls(sm.runner, "_prefill_paged_mm_fn")
+        manager = _one_model_manager(app, loader, sm)
+        server = APIServer(manager, "127.0.0.1", 0).start()
+        chat = server.url + "/v1/chat/completions"
+        json.loads(_post(chat, _llava_body(0, max_tokens=2)).read())
+        mm_prefills.clear()
+        run = _counted(sm, wrappers, lambda: _llava_chats(
+            chat, list(range(5)), streamed=0))
+        res = run.pop("result")
+        n_mm = len(mm_prefills)
+        parts = _ttft_parts(sm)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print("serve: " + json.dumps({
+            "card": card, "model": LLAVA, "weights": "bfloat16",
+            "weight_gb": {k: v / 1e9 for k, v in wb.items()},
+            "kv_dtype": "bfloat16", "kv_layout": "paged", "requests": 5,
+            "streaming": 1, "image_chats": 3, "video_chats": 1,
+            "mm_prefills": n_mm,
+            "completion_tokens": res["tokens"], "wall_s": res["wall_s"],
+            "tokens_per_s": res["tokens"] / res["wall_s"],
+            "ttft_stream_s": res["ttft_s"], "ttft_parts": parts,
+            "max_memory_allocated_gb": peak, **run,
+            **{k: v for k, v in sm.scheduler.metrics().items()
+               if k.startswith("spec_")}}, default=str), flush=True)
+        if (run["paged_decode_attention"] != L * run["decode_steps"]
+                or run["decode_steps"] <= 0 or run["decode_attention"]
+                or run["prefill_attention"]):
+            raise AssertionError(f"{LLAVA}: launches {run}, expected K1 = "
+                                 f"{L} x {run['decode_steps']} steps only")
+        if n_mm != 4:
+            raise AssertionError(f"{LLAVA}: {n_mm} multimodal "
+                                 "prefills, expected 4 (3 images, 1 video)")
+        if parts["path"] != "paged_mm":
+            raise AssertionError(f"{LLAVA}: prefill path {parts['path']}")
+        if not peak < 80:
+            raise AssertionError(f"{LLAVA}: peak memory {peak} GB")
+        out["paged"] = run
+    finally:
+        if server is not None:
+            server.shutdown()
+        if manager is not None:
+            manager.shutdown()
+        elif sm is not None:
+            sm.close()
+        sm = manager = server = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the same weights on a contiguous engine: K3 prefills the image
+    # prompt in one dispatch, K2 decodes
+    from localai_tpu_torch.models.manager import ServingModel
+    from localai_tpu_torch.templates.cache import TemplateCache
+    from localai_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    eng = mcfg.engine
+    left = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        runner = ModelRunner(cfg, params, num_slots=eng.max_slots,
+                             max_ctx=4096, kv_dtype="bfloat16", paged=False,
+                             prefill_buckets=eng.prefill_buckets,
+                             device="cuda")
+        tok = ByteTokenizer()
+        sm = ServingModel(
+            name=LLAVA, config=mcfg, runner=runner, tokenizer=tok,
+            scheduler=Scheduler(runner, tok, multi_step=
+                                eng.decode_steps_per_dispatch,
+                                pipeline_depth=eng.pipeline_depth),
+            templates=TemplateCache(app.model_path), vision=tower,
+            image_token_id=hf["image_token_index"])
+        manager = _one_model_manager(app, loader, sm)
+        server = APIServer(manager, "127.0.0.1", 0).start()
+        chat = server.url + "/v1/chat/completions"
+        json.loads(_post(chat, _llava_body(2, max_tokens=2)).read())
+        before = runner.fresh_prefills
+        run = _counted(sm, wrappers, lambda: _llava_chats(
+            chat, [0, 1], streamed=1))
+        res = run.pop("result")
+        prefills = runner.fresh_prefills - before
+        parts = _ttft_parts(sm)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print("serve: " + json.dumps({
+            "card": card, "model": LLAVA, "kv_layout": "contiguous",
+            "requests": 2, "image_chats": 2, "fresh_prefills": prefills,
+            "completion_tokens": res["tokens"], "wall_s": res["wall_s"],
+            "tokens_per_s": res["tokens"] / res["wall_s"],
+            "ttft_stream_s": res["ttft_s"], "ttft_parts": parts,
+            "allocated_before_gb": left, "max_memory_allocated_gb": peak,
+            **run}, default=str), flush=True)
+        if (prefills != 2 or run["prefill_attention"] != L * prefills
+                or run["decode_attention"] != L * run["decode_steps"]
+                or run["decode_steps"] <= 0
+                or run["paged_decode_attention"]):
+            raise AssertionError(f"{LLAVA} contiguous: launches {run}, "
+                                 f"{prefills} prefills")
+        if parts["path"] != "mm":
+            raise AssertionError(f"{LLAVA}: prefill path {parts['path']}")
+        if not peak < 80:
+            raise AssertionError(f"{LLAVA}: peak memory {peak} GB")
+        out["contiguous"] = run
+    finally:
+        if server is not None:
+            server.shutdown()
+        if manager is not None:
+            manager.shutdown()
+        elif sm is not None:
+            sm.close()
+        sm = manager = server = runner = tower = None
+        del params, vparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4113,6 +4705,9 @@ def main() -> int:
     spec = phase_spec_parity()
     phase_frozen_parity()
     phase_templated_parity()
+    phase_media()
+    phase_vision_parity()
+    llava_k = phase_kernel_llava()
     profile = "--profile" in sys.argv[1:]
     bf16 = phase_serve(card, profile=profile)
     served = {"": bf16["launches"],
@@ -4132,6 +4727,7 @@ def main() -> int:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     served["checkpoint"] = phase_serve_checkpoint(card)["launches"]
     gguf = phase_gguf_convert(card)
+    served["llava"] = phase_serve_llava(card)
     served["mixtral"] = phase_serve_mixtral(card, profile=profile)
     src = "localai_tpu_torch/csrc/"
     k1_src = src + "paged_decode_attention.cu"
@@ -4225,6 +4821,20 @@ def main() -> int:
         _entry("w8_matmul_experts_gguf", src + "w8_matmul.cu",
                "localai_tpu/models/quant.py:309",
                gguf["w8_matmul_experts_up"], experts["up-m8"]),
+        # LLaVA-1.5-7B (Llama-2-7B: 32 query and 32 KV heads, a GQA group
+        # of 1): K1 on the paged serve's decode steps, K2 and K3 on the
+        # contiguous serve's image chats; times of the group-1 cases (K3
+        # at the served shape, a 2048 bucket holding 640 rows)
+        _entry("paged_decode_attention_llava", k1_src, k1_tpu,
+               served["llava"]["paged"]["paged_decode_attention"],
+               llava_k["k1"]),
+        _entry("decode_attention_llava", k2_src, k2_tpu,
+               served["llava"]["contiguous"]["decode_attention"],
+               llava_k["k2"]),
+        _entry("prefill_attention_llava", src + "prefill_attention.cu",
+               "localai_tpu/ops/attention.py:337",
+               served["llava"]["contiguous"]["prefill_attention"],
+               llava_k["k3-served"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,14 +3,14 @@ and the per-request generation deadline.
 
 Port of the constrained-decoding part of ``localai_tpu/api/inference.py``
 (``ToolContext``, ``ToolGrammarError``, ``prepare_tools``,
-``response_format_constraint``, ``parse_tool_calls``), of the text half of
-its ``prepare_multimodal`` (the port has no vision tower yet, so images
-and videos become placeholders in the text and are not fetched), of its
-``request_deadline_s``, and of
-the request
-helpers of ``localai_tpu/api/schema.py`` (``tool_definitions``,
-``tool_choice_name``, ``tools_disabled``), written over the parsed JSON
-body, since the port has no pydantic request model.
+``response_format_constraint``, ``parse_tool_calls``), of its multimodal
+part (``MMContent``, ``prepare_multimodal``: image and video parts become
+[img-N]/[vid-N] placeholders, fetched and decoded concurrently and
+encoded by the model's vision tower; ``expand_image_placeholders``), of
+its ``request_deadline_s``, and of the request helpers of
+``localai_tpu/api/schema.py`` (``tool_definitions``, ``tool_choice_name``,
+``tools_disabled``), written over the parsed JSON body, since the port
+has no pydantic request model.
 """
 
 from __future__ import annotations
@@ -18,8 +18,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import re
 import uuid
 from typing import Any, Optional
+
+import numpy as np
 
 from localai_tpu_torch import functions as fx
 from localai_tpu_torch.templates.chat import multimodal_placeholders
@@ -226,14 +229,28 @@ def _media_parts(content: Any, kind: str) -> list[str]:
     return out
 
 
-def prepare_multimodal(sm, messages: list[dict]) -> list[dict]:
-    """Messages with image or video parts → their text with [img-N]/
-    [vid-N] placeholders (``template.multimodal``, or the default), ids
-    running across messages. The port has no vision tower (ROADMAP A8),
-    so such a request is served as text, with the JAX package's warning
-    for a model without one."""
+@dataclasses.dataclass
+class MMContent:
+    """Encoded multimodal conditioning: per-item patch embeddings plus the
+    row spans videos occupy (a video = several sampled frames)."""
+
+    embeds: Any                                  # [n_rows, n_patches, D]
+    video_groups: list[tuple[int, int]]          # [vid-N] → (start, count)
+
+
+def prepare_multimodal(sm, messages: list[dict]
+                       ) -> tuple[list[dict], Optional[MMContent]]:
+    """Messages with image or video parts → (their text with [img-N]/
+    [vid-N] placeholders — ``template.multimodal``, or the default —, ids
+    running across messages; the encoded media, or None when the request
+    has none or the model has no vision tower). Media are fetched and
+    decoded concurrently (at most 8 at a time, so latency is the slowest
+    item's, not the sum); a video's sampled frames are encoded like
+    images and injected as consecutive blocks. Raises ``MediaError`` for
+    a reference that cannot be fetched or decoded."""
     out: list[dict] = []
-    n_img = n_vid = 0
+    refs: list[str] = []
+    vid_refs: list[str] = []
     for m in messages:
         imgs = _media_parts(m.get("content"), "image")
         vids = _media_parts(m.get("content"), "video")
@@ -242,13 +259,81 @@ def prepare_multimodal(sm, messages: list[dict]) -> list[dict]:
                 sm.config.template.multimodal or "",
                 _text_content(m.get("content")),
                 n_images=len(imgs), n_video=len(vids),
-                first_image_id=n_img, first_video_id=n_vid))
-            n_img += len(imgs)
-            n_vid += len(vids)
+                first_image_id=len(refs), first_video_id=len(vid_refs)))
+            refs.extend(imgs)
+            vid_refs.extend(vids)
         out.append(m)
-    if n_img or n_vid:
+    if not refs and not vid_refs:
+        return out, None
+    if sm.vision is None:
         log.warning(
             "model %s received %d image(s)/%d video(s) but has no vision "
             "tower (set mmproj or use a llava checkpoint); serving "
-            "text-only", sm.name, n_img, n_vid)
-    return out
+            "text-only", sm.name, len(refs), len(vid_refs))
+        return out, None
+    from concurrent.futures import ThreadPoolExecutor
+
+    from localai_tpu_torch.utils.media import fetch_image, fetch_video_frames
+
+    with ThreadPoolExecutor(max_workers=min(8, len(refs) + len(vid_refs))) \
+            as pool:
+        img_it = pool.map(fetch_image, refs)
+        vid_it = pool.map(fetch_video_frames, vid_refs)
+        images = list(img_it)
+        frame_lists = list(vid_it)
+    video_groups: list[tuple[int, int]] = []
+    start = len(images)
+    frames: list = []
+    for fl in frame_lists:
+        video_groups.append((start, len(fl)))
+        frames.extend(fl)
+        start += len(fl)
+    return out, MMContent(embeds=sm.vision.encode(images + frames),
+                          video_groups=video_groups)
+
+
+def expand_image_placeholders(sm, prompt: str, mm: Any
+                              ) -> tuple[list[int], Optional[np.ndarray],
+                                         Optional[np.ndarray]]:
+    """Tokenize a prompt with [img-N]/[vid-N] placeholders: each image
+    placeholder becomes n_patches image-token ids (a video: n_frames x
+    n_patches), and the matching embedding rows [n_mm, D] and prompt
+    positions [n_mm] are returned for the prefill's scatter. ``mm`` is an
+    :class:`MMContent` or a raw [n, patches, D] array (images only)."""
+    if isinstance(mm, MMContent):
+        embeds, video_groups = mm.embeds, mm.video_groups
+    else:
+        embeds, video_groups = mm, []
+    n_images = embeds.shape[0] - sum(c for _, c in video_groups)
+    segs = re.split(r"\[(img|vid)-(\d+)\]", prompt)
+    tokens = sm.tokenizer.encode(segs[0], add_bos=True)
+    rows, poss = [], []
+    n_patches = embeds.shape[1]
+
+    def inject(row_start: int, count: int) -> None:
+        start = len(tokens)
+        tokens.extend([sm.image_token_id] * (n_patches * count))
+        poss.extend(range(start, start + n_patches * count))
+        rows.append(embeds[row_start:row_start + count].reshape(
+            count * n_patches, -1))
+
+    for i in range(1, len(segs), 3):
+        kind, idx = segs[i], int(segs[i + 1])
+        if kind == "img" and 0 <= idx < n_images:
+            inject(idx, 1)
+        elif kind == "vid" and 0 <= idx < len(video_groups):
+            inject(*video_groups[idx])
+        tail = segs[i + 2]
+        if tail:
+            tokens.extend(sm.tokenizer.encode(tail, add_bos=False))
+    injected = sum(r.shape[0] // n_patches for r in rows)
+    if injected < embeds.shape[0]:
+        # a custom template.multimodal without the media loops eats the
+        # placeholders: say so instead of silently serving text only
+        log.warning(
+            "%d of %d encoded media item(s) had no [img-N]/[vid-N] "
+            "placeholder in the rendered prompt (check template.multimodal)",
+            embeds.shape[0] - injected, embeds.shape[0])
+    if not rows:
+        return tokens, None, None
+    return tokens, np.concatenate(rows, 0), np.asarray(poss, np.int32)

@@ -21,7 +21,10 @@ completions serve constrained decoding as the JAX package does
 with a 400 (the JAX package reads it nowhere), and so are tools and a
 non-text ``response_format`` on ``/v1/completions``, which the JAX
 package ignores there: a silent no-op would serve something else than
-was asked for.
+was asked for. A chat's ``image_url`` and ``video_url`` parts go through
+the model's vision tower (``api.inference.prepare_multimodal``); a
+reference that cannot be fetched or decoded is a 400, as on the JAX
+package.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from localai_tpu_torch.templates.chat import (
     build_completion_prompt,
     build_edit_prompt,
 )
+from localai_tpu_torch.utils.media import MediaError
 
 SSE_DONE = b"data: [DONE]\n\n"
 
@@ -198,9 +202,13 @@ def _choices(body: dict) -> int:
 
 
 def _gen_request(sm, body: dict, prompt: str, stream: bool,
-                 constraint=None, seed_offset: int = 0) -> GenRequest:
+                 constraint=None, seed_offset: int = 0,
+                 mm: Any = None) -> GenRequest:
     """Request body over the model's YAML defaults → GenRequest; choice
-    ``seed_offset`` of an ``n`` > 1 request samples with ``seed + i``."""
+    ``seed_offset`` of an ``n`` > 1 request samples with ``seed + i``.
+    With encoded media (``mm``, an ``inference.MMContent``) the prompt's
+    placeholders expand into image-token ids whose rows the prefill
+    replaces with the media's embeddings."""
     _refuse_grammar(body)
     cfg = sm.config
     p = cfg.parameters.merged_with({
@@ -221,8 +229,14 @@ def _gen_request(sm, body: dict, prompt: str, stream: bool,
     seed = p.seed
     if seed is not None and seed_offset:
         seed = seed + seed_offset
+    mm_rows = mm_pos = None
+    if mm is not None:
+        tokens, mm_rows, mm_pos = inf.expand_image_placeholders(sm, prompt,
+                                                                mm)
+    else:
+        tokens = sm.tokenizer.encode(prompt, add_bos=True)
     return GenRequest(
-        prompt=sm.tokenizer.encode(prompt, add_bos=True),
+        prompt=tokens,
         max_new_tokens=p.max_tokens or 2048,
         temperature=p.temperature, top_k=p.top_k, top_p=p.top_p,
         min_p=p.min_p, repeat_penalty=p.repeat_penalty,
@@ -230,7 +244,8 @@ def _gen_request(sm, body: dict, prompt: str, stream: bool,
         frequency_penalty=p.frequency_penalty, seed=seed,
         logit_bias=logit_bias,
         stop=tuple(cfg.stopwords) + tuple(stops), constraint=constraint,
-        ignore_eos=bool(body.get("ignore_eos")), stream=stream)
+        ignore_eos=bool(body.get("ignore_eos")), stream=stream,
+        mm_embeds=mm_rows, mm_positions=mm_pos)
 
 
 _MESSAGE_FIELDS = ("role", "name", "content", "tool_calls", "function_call")
@@ -382,7 +397,7 @@ def chat(manager, body: dict):
     submits every choice at once, each with ``seed + i`` and a constraint
     of its own."""
     sm, model = _serving(manager, body, "chat")
-    messages = inf.prepare_multimodal(sm, chat_messages(body.get("messages")))
+    raw_messages = chat_messages(body.get("messages"))
     stream = bool(body.get("stream"))
     n = _choices(body)
     try:
@@ -391,9 +406,13 @@ def chat(manager, body: dict):
         raise APIError(400, str(e)) from e
     rf_constraint = (None if tctx is not None
                      else inf.response_format_constraint(sm, body))
+    try:
+        messages, mm = inf.prepare_multimodal(sm, raw_messages)
+    except MediaError as e:  # a bad image or video reference
+        raise APIError(400, str(e)) from e
     prompt = _chat_prompt(sm, messages, tctx)
     constraint = tctx.constraint if tctx is not None else rf_constraint
-    gr = _gen_request(sm, body, prompt, stream, constraint)
+    gr = _gen_request(sm, body, prompt, stream, constraint, mm=mm)
     rid = new_id("chatcmpl")
 
     def extra_choice(i: int) -> GenRequest:
@@ -404,7 +423,8 @@ def chat(manager, body: dict):
             c = inf.prepare_tools(sm, body).constraint
         elif rf_constraint is not None:
             c = inf.response_format_constraint(sm, body)
-        return _gen_request(sm, body, prompt, stream, c, seed_offset=i)
+        return _gen_request(sm, body, prompt, stream, c, seed_offset=i,
+                            mm=mm)
 
     if stream:
         if n > 1 and tctx is None:

@@ -4,7 +4,7 @@ Port of the fields of ``localai_tpu/config/model_config.py`` that the port
 reads (the JAX package validates with pydantic, which the port's runtime
 does not depend on). Unknown keys are ignored; keys that would ask for a
 feature the port does not have yet — ``int8_w8a8`` quantization,
-self-extend (``engine.grp_attn_n > 1``), a vision tower (``mmproj``), the
+self-extend (``engine.grp_attn_n > 1``), the
 prompt cache (``prompt_cache_path``), a raw ``grammar`` string (which the
 JAX package declares and reads nowhere) and the backends whose engines
 are not ported (``UNPORTED_BACKENDS``) — raise a clear error at load
@@ -19,7 +19,8 @@ int4 on the paged layout only), the contiguous KV layout
 (``engine.kv_paged: false``), embeddings (``embeddings: true``) and
 speculative decoding (``engine.spec``, ``spec_drafter``, ``spec_gamma``,
 ``n_draft``, ``draft_model``: on by default for paged engines, as in the
-JAX package) are served.
+JAX package) and a vision tower (``mmproj``: a llava checkpoint directory
+or ``debug:vit``; ``image_token_id``) are served.
 """
 
 from __future__ import annotations
@@ -177,7 +178,11 @@ class ModelConfig:
     model: str = ""                    # weights ref: "debug:*" or a dir
     embeddings: bool = False           # serve /v1/embeddings (and rerank)
     known_usecases: Optional[list[str]] = None
-    mmproj: Optional[str] = None       # vision tower: refused (not ported)
+    mmproj: Optional[str] = None       # vision tower ref (dir or debug:)
+    image_token_id: Optional[int] = None  # placeholder id for image spans
+                                          # (default: HF image_token_index
+                                          # or 0; embeddings are injected
+                                          # over these positions anyway)
     context_size: Optional[int] = None
     seed: Optional[int] = None         # random-weight presets + sampling
     system_prompt: str = ""            # SystemPrompt of the templates
@@ -239,10 +244,6 @@ class ModelConfig:
             raise ValueError(
                 f"model {self.name or self.model!r}: self-extend "
                 f"(engine.grp_attn_n={self.engine.grp_attn_n}) is not "
-                "ported yet")
-        if self.mmproj:
-            raise ValueError(
-                f"model {self.name or self.model!r}: vision (mmproj) is not "
                 "ported yet")
         if self.prompt_cache_path:
             raise ValueError(

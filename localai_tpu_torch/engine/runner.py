@@ -30,6 +30,11 @@ the JAX package become plain methods:
     memory followed by a CUDA event (:class:`AsyncTokens`).
   * ``embed`` touches neither the KV cache nor the decode state, so the
     HTTP threads call it while the engine thread decodes.
+  * A multimodal prompt (``mm_embeds`` / ``mm_positions`` on ``admit`` or
+    ``begin_admit``: image rows from the vision tower, scattered over the
+    placeholder positions) is prefilled in one dispatch on either layout
+    — through the prefill kernel on a contiguous runner, one unchunked
+    paged dispatch otherwise — and never shares or reuses a prefix.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from localai_tpu_torch.engine import kvcache as kvc
 from localai_tpu_torch.engine import paged as pgd
 from localai_tpu_torch.engine import sampling as smp
 from localai_tpu_torch.models import llama as mdl
+from localai_tpu_torch.models import quant
 from localai_tpu_torch.models.llama import LlamaConfig
 from localai_tpu_torch.utils.device import resolve_device
 
@@ -474,19 +480,49 @@ class ModelRunner:
 
     @torch.no_grad()
     def _prefill_fn(self, tokens: torch.Tensor, length: int, slot: int,
-                    prompt: list[int]) -> torch.Tensor:
-        """Fresh contiguous prefill: the bucketed prompt [1, T] is written
-        into the slot's cache rows [0, T) and attends over itself through
-        the prefill kernel; samples the first token."""
+                    prompt: list[int],
+                    embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Fresh contiguous prefill: the bucketed prompt [1, T] (or its
+        ``embeds`` [1, T, D]) is written into the slot's cache rows
+        [0, T) and attends over itself through the prefill kernel;
+        samples the first token."""
         bucket = tokens.shape[1]
         positions = torch.arange(bucket, dtype=torch.int32,
                                  device=self.device)[None, :]
         hidden, _ = mdl.forward(self.cfg, self.params, tokens, positions,
                                 kvc.prefill_write(slot), self.kv.stacked(),
                                 None, self.rope,
-                                attn=self._prefill_attn(length))
+                                attn=self._prefill_attn(length),
+                                embeds=embeds)
         self.fresh_prefills += 1
         return self._prefill_tail(hidden, length, slot, prompt, length)
+
+    def _mm_embeds(self, tokens: torch.Tensor, mm_embeds: np.ndarray,
+                   mm_positions: np.ndarray) -> torch.Tensor:
+        """Token embeddings [1, T, D] with the image-embedding rows
+        scattered over their placeholder positions (< the prompt length).
+        Ids past the vocabulary gather its last row, as the JAX package's
+        clamped gather does (their rows are replaced anyway)."""
+        dtype = mdl.torch_dtype(self.cfg.dtype)
+        ids = tokens.clamp(0, self.cfg.vocab_size - 1)
+        x = quant.embed_rows(self.params["embed"], ids, dtype)
+        pos = torch.from_numpy(np.asarray(mm_positions, np.int64)).to(
+            self.device)
+        rows = torch.from_numpy(np.asarray(mm_embeds, np.float32)).to(
+            self.device)
+        x[0, pos] = rows.to(dtype)
+        return x
+
+    @torch.no_grad()
+    def _prefill_mm_fn(self, tokens: torch.Tensor, length: int, slot: int,
+                       prompt: list[int], mm_embeds: np.ndarray,
+                       mm_positions: np.ndarray) -> torch.Tensor:
+        """Multimodal contiguous prefill: the token embeddings with the
+        image rows scattered in, through the fresh prefill (K3) in one
+        dispatch."""
+        return self._prefill_fn(
+            tokens, length, slot, prompt,
+            embeds=self._mm_embeds(tokens, mm_embeds, mm_positions))
 
     @torch.no_grad()
     def _prefill_resume_fn(self, tokens: torch.Tensor, length: int,
@@ -512,6 +548,7 @@ class ModelRunner:
     def _prefill_paged_fn(self, tokens: torch.Tensor, length: int,
                           offset: int, table_row: torch.Tensor, slot: int,
                           prompt: Optional[list[int]],
+                          embeds: Optional[torch.Tensor] = None,
                           ) -> Optional[torch.Tensor]:
         """One chunked-prefill dispatch: write ``length`` real tokens of
         the chunk at positions [offset, offset+length) through the slot's
@@ -526,12 +563,25 @@ class ModelRunner:
                                device=self.device)
         write = kvc.paged_prefill_write(table_row, offset, length)
         hidden, _ = mdl.forward(cfg, self.params, tokens, positions, write,
-                                self.kv.stacked(), mask, self.rope)
+                                self.kv.stacked(), mask, self.rope,
+                                embeds=embeds)
         self.prefill_chunks += 1
         if prompt is None:
             return None
         return self._prefill_tail(hidden, length, slot, prompt,
                                   offset + length)
+
+    @torch.no_grad()
+    def _prefill_paged_mm_fn(self, tokens: torch.Tensor, length: int,
+                             table_row: torch.Tensor, slot: int,
+                             prompt: list[int], mm_embeds: np.ndarray,
+                             mm_positions: np.ndarray) -> torch.Tensor:
+        """Multimodal paged prefill: one dispatch, never chunked (the
+        scattered image rows ride one program, as in ``_prefill_mm_fn``),
+        offset 0, always samples."""
+        return self._prefill_paged_fn(
+            tokens, length, 0, table_row, slot, prompt,
+            embeds=self._mm_embeds(tokens, mm_embeds, mm_positions))
 
     # -- host API --------------------------------------------------------
 
@@ -560,6 +610,8 @@ class ModelRunner:
               resident: Optional[list[int]] = None,
               valid_n: Optional[int] = None,
               reserve_tokens: Optional[int] = None, spec_tokens: int = 0,
+              mm_embeds: Optional[np.ndarray] = None,
+              mm_positions: Optional[np.ndarray] = None,
               **sampling) -> int:
         """Prefill a prompt into a slot; returns the first sampled token.
 
@@ -570,11 +622,16 @@ class ModelRunner:
         previous prompt + generation) shares a long-enough prefix with the
         prompt, the prefix KV is kept and only the tail is prefilled.
         ``valid_n`` is the slot's KV frontier from a batched
-        ``slot_positions()`` read (None reads it here)."""
+        ``slot_positions()`` read (None reads it here). ``mm_embeds``
+        [n_mm, D] float32 rows replace the token embeddings at
+        ``mm_positions`` [n_mm] (image placeholders): such a prompt is
+        prefilled in one dispatch and never reuses a prefix."""
         if self.paged:
             adm = self.begin_admit(slot, prompt,
                                    reserve_tokens=reserve_tokens,
-                                   spec_tokens=spec_tokens, **sampling)
+                                   spec_tokens=spec_tokens,
+                                   mm_embeds=mm_embeds,
+                                   mm_positions=mm_positions, **sampling)
             if adm is None:
                 raise RuntimeError(
                     f"KV block pool exhausted: cannot reserve {len(prompt)} "
@@ -589,8 +646,9 @@ class ModelRunner:
         if n > self.max_ctx - 1:
             raise ValueError(
                 f"prompt ({n} tokens) exceeds context {self.max_ctx}")
+        mm = mm_embeds is not None and len(mm_embeds) > 0
         lcp = (self.reusable_prefix(slot, resident, prompt, valid_n)
-               if resident else 0)
+               if resident and mm_embeds is None else 0)
         self.last_prefix_reused = lcp
         tail = prompt[lcp:]
         bucket = (self._resume_bucket(len(tail), lcp) if lcp
@@ -603,6 +661,10 @@ class ModelRunner:
             self.last_prefill_path = "resume"
             tok = self._prefill_resume_fn(tokens, len(tail), lcp, slot,
                                           prompt)
+        elif mm:
+            self.last_prefill_path = "mm"
+            tok = self._prefill_mm_fn(tokens, n, slot, prompt, mm_embeds,
+                                      mm_positions)
         else:
             self.last_prefill_path = "full"
             tok = self._prefill_fn(tokens, n, slot, prompt)
@@ -627,15 +689,18 @@ class ModelRunner:
     def begin_admit(self, slot: int, prompt: list[int], *,
                     reserve_tokens: Optional[int] = None,
                     spec_tokens: int = 0,
+                    mm_embeds: Optional[np.ndarray] = None,
+                    mm_positions: Optional[np.ndarray] = None,
                     **sampling) -> Optional["PagedAdmission"]:
         """Start a chunked paged admission: reserve blocks (sharing pooled
         prefix blocks where the prompt allows), arm the slot's sampling
         state, and return a PagedAdmission whose ``step_chunk()`` the
         caller drives. ``spec_tokens`` reserves speculation rows past the
         decode worst case (a verify window writes up to gamma rows beyond
-        the frontier), recorded apart by the allocator. Returns None when
-        the pool cannot cover the reservation (the scheduler keeps the
-        request queued)."""
+        the frontier), recorded apart by the allocator. A multimodal
+        prompt (``mm_embeds``) shares no pooled prefix: its rows depend on
+        the image, not on the token ids. Returns None when the pool cannot
+        cover the reservation (the scheduler keeps the request queued)."""
         if not self.paged:
             raise RuntimeError("begin_admit needs the paged KV layout")
         if not prompt:
@@ -657,22 +722,30 @@ class ModelRunner:
                 f"reservation of {reserve + spec_tokens} tokens ({need} "
                 f"blocks) exceeds the block pool "
                 f"({self.allocator.num_blocks - 1} blocks)")
-        shared = self.allocator.allocate(slot, reserve, prompt=prompt,
+        mm = mm_embeds is not None and len(mm_embeds) > 0
+        shared = self.allocator.allocate(slot, reserve,
+                                         prompt=None if mm else prompt,
                                          spec_tokens=spec_tokens)
         if shared is None:
             return None
-        self.last_prefill_path = "paged_shared" if shared else "paged"
+        self.last_prefill_path = ("paged_mm" if mm else
+                                  "paged_shared" if shared else "paged")
         self.last_prefix_reused = shared
         self._prepare_slot(slot, **sampling)
-        return PagedAdmission(self, slot, list(prompt), shared)
+        return PagedAdmission(self, slot, list(prompt), shared,
+                              mm_embeds=mm_embeds if mm else None,
+                              mm_positions=mm_positions)
 
-    def _finish_paged_admit(self, slot: int, prompt: list[int]) -> None:
+    def _finish_paged_admit(self, slot: int, prompt: list[int],
+                            mm: bool = False) -> None:
         """Final-chunk bookkeeping: expose the block table to the decode
         step, publish the prompt's full blocks to the prefix pool (their
-        contents are dispatched by now), mark the slot live."""
+        contents are dispatched by now; token-keyed sharing means nothing
+        for a multimodal prompt), mark the slot live."""
         self.block_tables[slot] = torch.from_numpy(
             self.allocator.table_row(slot)).to(self.device)
-        self.allocator.register_prefix(slot, prompt)
+        if not mm:
+            self.allocator.register_prefix(slot, prompt)
         self._active_slots.add(slot)
 
     def reusable_prefix(self, slot: int, resident: Optional[list[int]],
@@ -825,34 +898,55 @@ class PagedAdmission:
     the first token."""
 
     def __init__(self, runner: ModelRunner, slot: int, prompt: list[int],
-                 start: int):
+                 start: int, mm_embeds: Optional[np.ndarray] = None,
+                 mm_positions: Optional[np.ndarray] = None):
         self.runner = runner
         self.slot = slot
         self.prompt = prompt
         self.pos = start                     # next position to prefill
+        self.mm_embeds = mm_embeds           # multimodal: one dispatch
+        self.mm_positions = mm_positions
         self.done = False
+
+    @property
+    def chunks_remaining(self) -> int:
+        if self.done:
+            return 0
+        if self.mm_embeds is not None:
+            return 1
+        return max(1, -(-(len(self.prompt) - self.pos)
+                        // self.runner.prefill_chunk))
 
     def step_chunk(self) -> Optional[int]:
         """Dispatch the next prefill chunk; returns the first sampled
         token once the admission is complete, else None."""
         assert not self.done
         r = self.runner
-        rem = len(self.prompt) - self.pos
-        take = min(rem, r.prefill_chunk)
-        last = take == rem
-        bucket = r.bucket_for(take)
-        padded = np.zeros((1, bucket), np.int32)
-        padded[0, :take] = self.prompt[self.pos:self.pos + take]
-        table_row = torch.from_numpy(r.allocator.table_row(self.slot))
-        tok = r._prefill_paged_fn(
-            torch.from_numpy(padded).to(r.device), take, self.pos,
-            table_row.to(r.device), self.slot,
-            self.prompt if last else None)
+        n = len(self.prompt)
+        table_row = torch.from_numpy(r.allocator.table_row(self.slot)).to(
+            r.device)
+        if self.mm_embeds is not None:
+            padded = np.zeros((1, r.bucket_for(n)), np.int32)
+            padded[0, :n] = self.prompt
+            tok = r._prefill_paged_mm_fn(
+                torch.from_numpy(padded).to(r.device), n, table_row,
+                self.slot, self.prompt, self.mm_embeds, self.mm_positions)
+            take, last = n, True
+        else:
+            rem = n - self.pos
+            take = min(rem, r.prefill_chunk)
+            last = take == rem
+            padded = np.zeros((1, r.bucket_for(take)), np.int32)
+            padded[0, :take] = self.prompt[self.pos:self.pos + take]
+            tok = r._prefill_paged_fn(
+                torch.from_numpy(padded).to(r.device), take, self.pos,
+                table_row, self.slot, self.prompt if last else None)
         self.pos += take
         if not last:
             return None
         self.done = True
-        r._finish_paged_admit(self.slot, self.prompt)
+        r._finish_paged_admit(self.slot, self.prompt,
+                              mm=self.mm_embeds is not None)
         return int(tok)  # the prefill/decode handoff sync
 
     def abort(self) -> None:

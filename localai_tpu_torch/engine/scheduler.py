@@ -25,6 +25,10 @@ A lean port of ``localai_tpu/engine/scheduler.py``. One engine thread:
     others the full dispatch. No verify window runs then; windows resume
     (after a drafter resync) once no constrained slot is live;
   * bans the ids a padded model vocab has beyond the tokenizer's;
+  * passes a multimodal request's image rows (``GenRequest.mm_embeds`` /
+    ``mm_positions``) to its admission; such a slot keeps no resident
+    token record, so its KV is never reused and no verify window runs
+    while it is live (its drafts could not be resynced);
   * detokenizes incrementally, checks EOS / stop strings / max_tokens /
     context exhaustion, and releases the slot.
 
@@ -86,6 +90,10 @@ class GenRequest:
     # an SSE client is attached: the scheduler bounds delivery lag by
     # shrinking the per-dispatch step count while this request is active
     stream: bool = False
+    # multimodal injection: image-embedding rows [n_mm, D] scattered over
+    # placeholder token positions [n_mm] during prefill (see ModelRunner)
+    mm_embeds: Optional[Any] = None
+    mm_positions: Optional[Any] = None
 
 
 class StreamItem:
@@ -202,8 +210,8 @@ class Scheduler:
         self._prefills: "deque[_PendingPrefill]" = deque()
         # each slot's prompt + generated tokens (engine thread only): the
         # record contiguous prefix reuse is scored against and drafters
-        # are seeded from
-        self._resident: dict[int, list[int]] = {}
+        # are seeded from; None for a multimodal slot
+        self._resident: dict[int, Optional[list[int]]] = {}
         # speculative decoding: slot operations route through the spec
         # engine so the drafter mirrors the target. After any plain
         # dispatch the drafts are stale (_spec_dirty: resync every slot
@@ -425,11 +433,19 @@ class Scheduler:
                for n in slots.values()):
             return False
         if self._spec_dirty:
+            # the drafts are stale for every active slot: rebuild them from
+            # the resident records (a multimodal slot has none: wait until
+            # it finishes)
+            if any(self._resident.get(s) is None for s in slots):
+                return False
             for s in slots:
                 self.spec.resync_draft(s, self._resident[s])
             self._spec_dirty = False
             self._spec_stale.clear()
         elif self._spec_stale:
+            if any(self._resident.get(s) is None
+                   for s in self._spec_stale if s in slots):
+                return False  # a multimodal slot: no record to seed from
             for s in list(self._spec_stale):
                 if s in slots:
                     self.spec.resync_draft(s, self._resident[s])
@@ -600,7 +616,8 @@ class Scheduler:
             min_p=req.min_p, repeat_penalty=req.repeat_penalty,
             presence_penalty=req.presence_penalty,
             frequency_penalty=req.frequency_penalty, seed=req.seed,
-            bias_row=self._compose_bias(base, mask))
+            bias_row=self._compose_bias(base, mask),
+            mm_embeds=req.mm_embeds, mm_positions=req.mm_positions)
         if not self._chunked:
             first = self._engine.admit(slot, req.prompt,
                                        resident=self._resident.get(slot),
@@ -643,7 +660,11 @@ class Scheduler:
         record the resident tokens (the runner's empty-prompt
         normalization [0] keeps the record aligned with the cache rows)
         and consume the first token."""
-        self._resident[slot] = list(handle.request.prompt) or [0]
+        # multimodal KV mixes injected embeddings with token ids, so the
+        # token record alone can't prove prefix equality: never reuse it
+        self._resident[slot] = (
+            None if handle.request.mm_embeds is not None
+            else list(handle.request.prompt) or [0])
         ctx = _SlotCtx(
             handle=handle,
             detok=IncrementalDetokenizer(self.tokenizer.decode),

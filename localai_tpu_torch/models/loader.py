@@ -49,6 +49,15 @@ def read_hf_config(model_dir: str | Path) -> dict:
         return json.load(f)
 
 
+def load_hf_config(model_dir: str | Path) -> LlamaConfig:
+    """The language model's config: a llava composite checkpoint describes
+    it in ``text_config``."""
+    hf = read_hf_config(model_dir)
+    if hf.get("model_type") == "llava":
+        return LlamaConfig.from_hf(hf.get("text_config", {}))
+    return LlamaConfig.from_hf(hf)
+
+
 def read_safetensors_index(path: str | Path) -> dict[str, tuple]:
     """name → (path, byte offset, byte count, torch dtype, shape) for every
     tensor of one .safetensors file."""
@@ -110,10 +119,20 @@ def load_llama_params(
     device = resolve_device(device)
     if hf is None:
         hf = read_hf_config(model_dir)
+    # tensor-name layout: plain llama vs llava composite (the classic
+    # language_model.model.* layout, or model.language_model.* in
+    # transformers >= 4.52 exports)
     body, head = "model.", "lm_head.weight"
+    is_llava = hf.get("model_type") == "llava"
+    if is_llava:
+        body, head = "language_model.model.", "language_model.lm_head.weight"
     if cfg is None:
-        cfg = LlamaConfig.from_hf(hf)
+        cfg = LlamaConfig.from_hf(hf.get("text_config", {}) if is_llava
+                                  else hf)
     tensors = _open_safetensors(model_dir)
+    if body + "embed_tokens.weight" not in tensors and \
+            "model.language_model.embed_tokens.weight" in tensors:
+        body, head = "model.language_model.", "lm_head.weight"
     dt = torch_dtype(dtype)
 
     def get(name: str, transpose: bool = False) -> torch.Tensor:

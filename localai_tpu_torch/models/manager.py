@@ -49,6 +49,8 @@ class ServingModel:
     scheduler: Scheduler
     tokenizer: Any
     templates: TemplateCache          # over the models dir
+    vision: Any = None                # models.vision.VisionTower, or None
+    image_token_id: int = 0           # the id image placeholders expand to
     loaded_at: float = dataclasses.field(default_factory=time.monotonic)
     last_used: float = dataclasses.field(default_factory=time.monotonic)
 
@@ -156,6 +158,20 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
         stream_latency_target=eng.stream_latency_ms / 1000.0,
         spec=spec,
     )
+    # vision tower: the explicit mmproj ref, or the llava checkpoint itself;
+    # on the engine's device, in its dtype
+    vision = None
+    vt_ref = mcfg.mmproj or (str(model.model_dir)
+                             if model.hf_type == "llava" else None)
+    if vt_ref:
+        from localai_tpu_torch.models.vision import resolve_vision_tower
+
+        vision = resolve_vision_tower(
+            vt_ref, projection_dim=model.cfg.hidden_size,
+            model_path=app.model_path, seed=mcfg.seed or 0,
+            dtype=eng.dtype, device=runner.device)
+        log.info("loaded vision tower %s: %d patches -> D=%d", vt_ref,
+                 vision.n_patches, model.cfg.hidden_size)
     log.info("loaded model %s (%s) in %.1fs on %s: slots=%d ctx=%d "
              "kv=%s %s; attention: decode=%s prefill=%s", mcfg.name,
              mcfg.model, time.monotonic() - t0, runner.device,
@@ -163,9 +179,13 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
              "paged" if runner.paged else "contiguous", runner.kv_dtype,
              runner.paged_attn_impl if runner.paged else runner.attn_impl,
              runner.attn_impl)
-    return ServingModel(name=mcfg.name, config=mcfg, runner=runner,
-                        scheduler=scheduler, tokenizer=model.tokenizer,
-                        templates=TemplateCache(app.model_path))
+    return ServingModel(
+        name=mcfg.name, config=mcfg, runner=runner, scheduler=scheduler,
+        tokenizer=model.tokenizer, templates=TemplateCache(app.model_path),
+        vision=vision,
+        image_token_id=(mcfg.image_token_id
+                        if mcfg.image_token_id is not None
+                        else (model.image_token_id or 0)))
 
 
 class ModelManager:

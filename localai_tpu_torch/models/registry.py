@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -71,6 +72,9 @@ class LoadedModel:
     params: dict
     tokenizer: Tokenizer
     ref: str
+    model_dir: Optional[Path] = None
+    hf_type: str = ""                  # config.json model_type ("llava", ...)
+    image_token_id: Optional[int] = None  # HF image_token_index when present
 
 
 def resolve_model(
@@ -110,7 +114,10 @@ def resolve_model(
             cfg, params = load_llama_params(cand, dtype=dtype, device=dev,
                                             hf=hf, quantization=quantization)
             cfg = dataclasses.replace(cfg, dtype=dtype)
-            return LoadedModel(cfg, params, load_tokenizer(cand), ref)
+            return LoadedModel(cfg, params, load_tokenizer(cand), ref,
+                               model_dir=cand,
+                               hf_type=hf.get("model_type", ""),
+                               image_token_id=hf.get("image_token_index"))
     raise FileNotFoundError(
         f"model ref {ref!r} not found (looked for config.json under {ref} and "
         f"{Path(model_path) / ref})"

@@ -237,12 +237,34 @@ def _yaml(tmp_path, engine, **extra):
 
 @pytest.mark.parametrize("engine,extra,match", [
     ({"grp_attn_n": 4}, {}, "self-extend"),
-    ({}, {"mmproj": "debug:vision"}, "mmproj"),
     ({"kv_paged": False, "kv_dtype": "int4"}, {}, "int4"),
 ])
 def test_unported_config_is_refused_at_load(tmp_path, engine, extra, match):
     with pytest.raises(ValueError, match=match):
         load_config_file(_yaml(tmp_path, engine, **extra))
+
+
+def test_mmproj_config_loads_a_tower_beside_a_contiguous_runner(tmp_path):
+    """``mmproj`` (once refused at load) gives the model a vision tower
+    in the engine's dtype on its device; an unknown preset fails the
+    load, as on the JAX package."""
+    from localai_tpu_torch.models.manager import build_serving_model
+
+    engine = {"kv_paged": False, "dtype": "float32", "kv_dtype": "float32",
+              "max_slots": 1}
+    cfg = load_config_file(_yaml(tmp_path, engine, mmproj="debug:vit"))
+    sm = build_serving_model(cfg, AppConfig(device="cpu"))
+    try:
+        assert not sm.runner.paged and sm.vision is not None
+        assert sm.vision.device.type == "cpu"
+        assert sm.vision.params["projector"]["w2"].shape == (
+            sm.runner.cfg.hidden_size, sm.runner.cfg.hidden_size)
+        assert sm.image_token_id == 0
+    finally:
+        sm.close()
+    bad = load_config_file(_yaml(tmp_path, engine, mmproj="debug:vision"))
+    with pytest.raises(ValueError, match="unknown debug vision preset"):
+        build_serving_model(bad, AppConfig(device="cpu"))
 
 
 def test_kv_paged_false_builds_a_contiguous_runner(tmp_path):

@@ -30,7 +30,7 @@ SOURCES = (sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
            + sorted((REPO / "scripts").glob("*.py")))
 # packages the machine with the card does not have
 ABSENT_ON_CARD = {"aiohttp", "pydantic", "yaml", "safetensors", "tokenizers",
-                  "transformers", "jinja2", "grpc", "ml_dtypes"}
+                  "transformers", "jinja2", "grpc", "ml_dtypes", "PIL"}
 
 
 def _port_modules() -> list[str]:
@@ -134,6 +134,38 @@ def test_sources_never_import_jinja2_or_yaml(path):
             names = [str(node.args[0].value)]
         for n in names:
             assert n.split(".")[0] not in ("jinja2", "yaml"), n
+
+
+def test_vision_and_media_modules_are_covered():
+    """The multimodal path (the PNG/JPEG/GIF readers, the bicubic resize,
+    media ingestion, the vision tower) is among the modules and sources
+    the rules above check."""
+    mods = set(_port_modules())
+    for m in ("utils.png", "utils.jpeg", "utils.gif", "utils.resample",
+              "utils.media", "models.vision"):
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    assert {"utils/png.py", "utils/jpeg.py", "utils/gif.py",
+            "utils/media.py", "models/vision.py"} <= rel
+
+
+@pytest.mark.parametrize("path", [p for p in SOURCES
+                                  if p.parent != REPO / "scripts"],
+                         ids=lambda p: p.name if p.parent == REPO else
+                         str(p.relative_to(PKG_DIR)))
+def test_sources_never_import_pil(path):
+    """Not at module level and not inside a function: the card's machine
+    has no PIL, so the port decodes and resizes images itself (the
+    fixture generator under scripts/ is the one user of PIL)."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            assert n.split(".")[0] != "PIL", n
 
 
 BLOCKED_SERVE = r"""
