@@ -177,7 +177,29 @@ Phases (any failure raises and the script exits non-zero):
      the streamed TTFT and its parts (fetch + decode, preprocess, tower
      encode and multimodal prefill on CUDA events) and the launches, K1 =
      32 per paged step, K3 = 32 per contiguous prefill and K2 = 32 per
-     contiguous step asserted exactly.
+     contiguous step asserted exactly;
+  9. the rest of the text families, which launch none of K1–K5 (each
+     phase asserts it): ``recurrent_parity`` (after the vision phases):
+     Mamba and RWKV at small depth in float32 from checkpoint
+     directories written here (with a byte-level BPE tokenizer.json),
+     loaded by ``resolve_mamba`` / ``resolve_rwkv`` on the card and on
+     the CPU — prefill logits within 1e-4 of the largest, the decode
+     step against the prefill's next position, 32 greedy tokens equal;
+     after the Mixtral serve, ``mamba-2.8b-bf16`` (state-spaces/
+     mamba-2.8b-hf's widths and depth, 2.77 B parameters) and
+     ``rwkv-4-7b-bf16`` (RWKV/rwkv-4-7b-pile's, 7.39 B), bf16 weights
+     drawn on the card, each served as ``backend: mamba | rwkv`` over HTTP
+     with five greedy 32-token chats (one streamed), printing the weight
+     bytes, peak memory, tokens/s, the streamed TTFT, prefill ms at 128,
+     512 and 2048 tokens (CUDA events) and a decode step's ms, launches
+     and device idle share (torch.profiler); then ``encoders``:
+     ``/v1/rerank`` on a cross-encoder at ms-marco-MiniLM-L-6-v2's widths
+     (a query against 32 documents, then four more requests) and
+     ``/v1/embeddings`` on a sentence encoder at bge-large-en-v1.5's (64
+     inputs of 10–400 tokens), float32 checkpoints with a 30522-id
+     WordPiece tokenizer.json written here, scores and vectors within
+     1e-4 of the CPU's; ms a request, inputs/s and the forward on CUDA
+     events.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -196,6 +218,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 from typing import Optional
@@ -2516,6 +2539,31 @@ def _train_bpe(words: dict, vocab: dict, merges: list, limit: int) -> None:
             seqs[w] = out
 
 
+def _fill_merges(vocab: dict, merges: list, limit: int) -> None:
+    """Merges of two learned tokens in a fixed order until the vocabulary
+    holds ``limit`` tokens: token i + tail j along the diagonals i + j =
+    0, 1, 2, ...; each new token joins both lists (a tail has no space or
+    newline)."""
+    toks = list(vocab)[256:]
+    ws = set("ĠĊĉč")
+    tails = [t for t in toks if not set(t) & ws]
+    s = 0
+    while len(vocab) < limit:
+        for i in range(max(0, s - len(tails) + 1), min(s + 1, len(toks))):
+            a, b = toks[i], tails[s - i]
+            new = a + b
+            if new in vocab or "<|" in new:
+                continue
+            merges.append(f"{a} {b}")
+            vocab[new] = len(vocab)
+            toks.append(new)
+            if not set(a) & ws:
+                tails.append(new)
+            if len(vocab) == limit:
+                break
+        s += 1
+
+
 def llama3_tokenizer_spec() -> dict:
     """A Llama-3-shaped ``tokenizer.json`` (as a dict): byte-level BPE
     with Llama-3's split pattern and ``ignore_merges``, 128000 regular
@@ -2536,26 +2584,7 @@ def llama3_tokenizer_spec() -> dict:
     vocab = {BYTE_CHAR[b]: b for b in range(256)}
     merges: list = []
     _train_bpe(words, vocab, merges, LLAMA3_REGULAR_TOKENS)
-    # fill: token i + tail j along the diagonals i + j = 0, 1, 2, ...;
-    # each new token joins both lists (a tail has no space or newline)
-    toks = list(vocab)[256:]
-    ws = set("ĠĊĉč")
-    tails = [t for t in toks if not set(t) & ws]
-    s = 0
-    while len(vocab) < LLAMA3_REGULAR_TOKENS:
-        for i in range(max(0, s - len(tails) + 1), min(s + 1, len(toks))):
-            a, b = toks[i], tails[s - i]
-            new = a + b
-            if new in vocab or "<|" in new:
-                continue
-            merges.append(f"{a} {b}")
-            vocab[new] = len(vocab)
-            toks.append(new)
-            if not set(a) & ws:
-                tails.append(new)
-            if len(vocab) == LLAMA3_REGULAR_TOKENS:
-                break
-        s += 1
+    _fill_merges(vocab, merges, LLAMA3_REGULAR_TOKENS)
     bos = LLAMA3_SPECIAL_TOKENS[0]
     return {
         "version": "1.0", "truncation": None, "padding": None,
@@ -3572,9 +3601,11 @@ def _weight_bytes(params: dict) -> dict:
     return out
 
 
-def _chats(url: str, name: str, n: int = 5, max_tokens: int = 32) -> dict:
-    """The serves' five greedy chats (the last streamed), concurrently:
-    {"results": by index, "wall_s", "ttft_s", "tokens"}."""
+def _chats(url: str, name: str, n: int = 5, max_tokens: int = 32,
+           extra: Optional[dict] = None) -> dict:
+    """The serves' five greedy chats (the last streamed), concurrently,
+    each body with ``extra``'s fields: {"results": by index, "wall_s",
+    "ttft_s", "tokens"}."""
     prompts = ["Write a haiku about paged attention.",
                "What is the capital of France?",
                "List three prime numbers.",
@@ -3586,7 +3617,8 @@ def _chats(url: str, name: str, n: int = 5, max_tokens: int = 32) -> dict:
     def body(i, stream=False):
         return {"model": name, "max_tokens": max_tokens, "temperature": 0,
                 "stream": stream,
-                "messages": [{"role": "user", "content": prompts[i]}]}
+                "messages": [{"role": "user", "content": prompts[i]}],
+                **(extra or {})}
 
     def plain(i):
         try:
@@ -4658,6 +4690,667 @@ def phase_gguf_convert(card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the rest of the text families: Mamba and RWKV on the recurrent-state
+# engine, the BERT cross-encoder and sentence encoder
+# ---------------------------------------------------------------------------
+
+# state-spaces/mamba-2.8b-hf's published config.json (its widths)
+MAMBA_28B_CONFIG = {
+    "architectures": ["MambaForCausalLM"], "model_type": "mamba",
+    "vocab_size": 50280, "hidden_size": 2560, "intermediate_size": 5120,
+    "num_hidden_layers": 64, "state_size": 16, "conv_kernel": 4,
+    "time_step_rank": 160, "use_bias": False, "use_conv_bias": True,
+    "layer_norm_epsilon": 1e-5, "tie_word_embeddings": True,
+    "bos_token_id": 0, "eos_token_id": 0, "pad_token_id": 0,
+    "torch_dtype": "float32"}
+# RWKV/rwkv-4-7b-pile's published config.json (its widths)
+RWKV_4_7B_CONFIG = {
+    "architectures": ["RwkvForCausalLM"], "model_type": "rwkv",
+    "vocab_size": 50277, "hidden_size": 4096, "attention_hidden_size": 4096,
+    "intermediate_size": 16384, "num_hidden_layers": 32,
+    "layer_norm_epsilon": 1e-5, "context_length": 1024, "rescale_every": 6,
+    "tie_word_embeddings": False, "bos_token_id": 0, "eos_token_id": 0}
+# cross-encoder/ms-marco-MiniLM-L-6-v2's published config.json
+MINILM_L6_CE_CONFIG = {
+    "architectures": ["BertForSequenceClassification"], "model_type": "bert",
+    "vocab_size": 30522, "hidden_size": 384, "intermediate_size": 1536,
+    "num_hidden_layers": 6, "num_attention_heads": 12,
+    "max_position_embeddings": 512, "type_vocab_size": 2,
+    "layer_norm_eps": 1e-12, "pad_token_id": 0, "hidden_act": "gelu",
+    "id2label": {"0": "LABEL_0"}, "label2id": {"LABEL_0": 0}}
+# BAAI/bge-large-en-v1.5's published config.json
+BGE_LARGE_CONFIG = {
+    "architectures": ["BertModel"], "model_type": "bert",
+    "vocab_size": 30522, "hidden_size": 1024, "intermediate_size": 4096,
+    "num_hidden_layers": 24, "num_attention_heads": 16,
+    "max_position_embeddings": 512, "type_vocab_size": 2,
+    "layer_norm_eps": 1e-12, "pad_token_id": 0, "hidden_act": "gelu"}
+MAMBA = "mamba-2.8b-bf16"
+RWKV = "rwkv-4-7b-bf16"
+RERANKER = "ms-marco-minilm-l6-f32"
+EMBEDDER = "bge-large-en-v1.5-f32"
+# the special tokens of bert-base-uncased's vocab.txt, at their ids
+BERT_SPECIALS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102,
+                 "[MASK]": 103}
+BERT_VOCAB = 30522
+
+
+def _corpus_words() -> list:
+    """The lowercased words of ``TOKENIZER_CORPUS`` in order of first use
+    (punctuation split off, as BertPreTokenizer splits it)."""
+    seen: dict = {}
+    for w in re.findall(r"[A-Za-z]+|[^\sA-Za-z]", TOKENIZER_CORPUS.lower()):
+        seen.setdefault(w, None)
+    return list(seen)
+
+
+def bert_tokenizer_spec() -> dict:
+    """A bert-base-uncased-shaped ``tokenizer.json`` (as a dict) of 30522
+    ids: [PAD] 0, [unused0..98], [UNK] 100, [CLS] 101, [SEP] 102, [MASK]
+    103, [unused99..], then every printable ASCII and Latin-1 character,
+    the same with the ``##`` prefix, the words of ``TOKENIZER_CORPUS``,
+    and two- and three-letter pieces (bare and ``##``) up to the size;
+    BertNormalizer
+    (lowercase, strip accents), BertPreTokenizer, WordPiece with its
+    decoder."""
+    ids = {i: t for t, i in BERT_SPECIALS.items()}
+    vocab = {ids.get(i, f"[unused{i - 1 if i < 100 else i - 5}]"): i
+             for i in range(999)}
+    chars = [chr(c) for c in range(33, 127)] + [
+        chr(c) for c in range(0xA1, 0x100) if chr(c).isprintable()]
+    pieces = chars + ["##" + c for c in chars] + _corpus_words()
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    pieces += [a + b for a in letters for b in letters]
+    pieces += ["##" + a + b for a in letters for b in letters]
+    pieces += [a + b + c for a in letters for b in letters for c in letters]
+    pieces += ["##" + a + b + c for a in letters for b in letters
+               for c in letters]
+    for t in pieces:
+        if len(vocab) == BERT_VOCAB:
+            break
+        vocab.setdefault(t, len(vocab))
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for t, i in BERT_SPECIALS.items()]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None,
+                       "lowercase": True},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": None,
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                  "continuing_subword_prefix": "##",
+                  "max_input_chars_per_word": 100, "vocab": vocab}}
+
+
+def small_bpe_spec(regular: int = 1024) -> dict:
+    """A byte-level BPE ``tokenizer.json`` (as a dict) with ``regular``
+    tokens (the 256 bytes, the stdlib trainer's merges over
+    ``TOKENIZER_CORPUS`` with GPT-2's split pattern, then
+    ``_fill_merges``'s) and ``<|endoftext|>`` at id ``regular``: the
+    recurrent models' tokenizer here (a served model's covers its whole
+    vocabulary, so every sampled id decodes to text)."""
+    from localai_tpu_torch.utils.hf_tokenizer import (
+        BYTE_CHAR,
+        GPT2_PATTERN,
+        onig_regex,
+    )
+
+    words: dict = {}
+    for w in onig_regex(GPT2_PATTERN).findall(TOKENIZER_CORPUS):
+        w = "".join(BYTE_CHAR[b] for b in w.encode("utf-8"))
+        words[w] = words.get(w, 0) + 1
+    vocab = {BYTE_CHAR[b]: b for b in range(256)}
+    merges: list = []
+    _train_bpe(words, vocab, merges, regular)
+    _fill_merges(vocab, merges, regular)
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": len(vocab), "content": "<|endoftext|>",
+                          "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False,
+                          "special": True}],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                          "trim_offsets": True, "use_regex": True},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "vocab": vocab, "merges": merges}}
+
+
+def _write_json(path, obj) -> None:
+    Path(path).write_text(json.dumps(obj, ensure_ascii=False),
+                          encoding="utf-8")
+
+
+def _events_ms(fn) -> tuple:
+    """(ms on CUDA events around one call of ``fn``, its result)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), out
+
+
+def _all_kernels() -> dict:
+    """Every kernel wrapper of the port, by name (K1–K5 and the expert
+    grid), for phases that must launch none of them."""
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
+    from localai_tpu_torch.ops.qmatmul import (
+        w4_matmul,
+        w8_matmul,
+        w8_matmul_experts,
+    )
+
+    return {"paged_decode_attention": paged_decode_attention,
+            "decode_attention": decode_attention,
+            "prefill_attention": prefill_attention, "w8_matmul": w8_matmul,
+            "w4_matmul": w4_matmul, "w8_matmul_experts": w8_matmul_experts}
+
+
+def _no_launches(what: str, kernels: dict) -> None:
+    launched = {k: w.launches for k, w in kernels.items() if w.launches}
+    if launched:
+        raise AssertionError(f"{what} launched kernels of another path: "
+                             f"{launched}")
+
+
+def _recurrent(kind: str):
+    """(module, config class, LM class) of ``mamba`` or ``rwkv``."""
+    if kind == "mamba":
+        from localai_tpu_torch.models import mamba as m
+
+        return m, m.MambaConfig, m.MambaLM
+    from localai_tpu_torch.models import rwkv as m
+
+    return m, m.RwkvConfig, m.RwkvLM
+
+
+def _prefill_fn(kind: str, mod, params, cfg):
+    """ids → the serving prefill's [B, V] logits (head at the last row)."""
+    if kind == "mamba":
+        return lambda ids: mod.forward_prefill(params, cfg, ids,
+                                               full=False)[0]
+    return lambda ids: mod.forward(params, cfg, ids, None, full=False)[0]
+
+
+def _step_fn(kind: str, mod, params, cfg):
+    """(token [B], states) → (logits [B, V], states)."""
+    if kind == "mamba":
+        return lambda tok, st: mod.forward_step(params, cfg, tok, st)
+
+    def step(tok, st):
+        logits, st = mod.forward(params, cfg, tok[:, None], st)
+        return logits[:, -1], st
+    return step
+
+
+def _full_logits(kind: str, mod, params, cfg, ids):
+    """(logits at every position [B, L, V], states) of a fresh prefill."""
+    if kind == "mamba":
+        return mod.forward_prefill(params, cfg, ids)
+    return mod.forward(params, cfg, ids)
+
+
+PARITY_RECURRENT = {
+    "mamba": {"model_type": "mamba", "vocab_size": 1025, "hidden_size": 128,
+              "intermediate_size": 256, "num_hidden_layers": 4,
+              "state_size": 16, "conv_kernel": 4, "time_step_rank": 8,
+              "use_bias": False, "use_conv_bias": True,
+              "layer_norm_epsilon": 1e-5, "eos_token_id": 1024},
+    "rwkv": {"model_type": "rwkv", "vocab_size": 1025, "hidden_size": 128,
+             "attention_hidden_size": 128, "intermediate_size": 512,
+             "num_hidden_layers": 4, "layer_norm_epsilon": 1e-5,
+             "eos_token_id": 1024},
+}
+
+
+def _noised(params: dict, seed: int) -> dict:
+    """The drawn parameters with every vector (norms, biases, decays,
+    D) and mix weight moved off its constant, so the recurrences are not
+    degenerate."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in params.items():
+        if v.dim() == 1 or "time_mix" in k:
+            v = v + 0.3 * torch.randn(v.shape, generator=g).to(v.dtype)
+        out[k] = v
+    return out
+
+
+def phase_recurrent_parity() -> dict:
+    """Mamba and RWKV at small depth in float32, card against CPU: a
+    checkpoint directory written here (HF layout, the small BPE
+    tokenizer.json) loads through ``resolve_mamba`` / ``resolve_rwkv`` on
+    both; prefill logits within 1e-4 of the largest, the decode step's
+    logits against the prefill's at the next position (on each device and
+    across), and 32 greedy tokens equal. Neither path launches K1–K5."""
+    from localai_tpu_torch.models.loader import write_checkpoint
+
+    kernels = _all_kernels()
+    for w in kernels.values():
+        w.launches = 0
+    root = Path(_scratch_dir("recurrent-parity-", 200_000_000))
+    out: dict = {}
+    try:
+        _write_json(root / "tokenizer.json", small_bpe_spec())
+        for kind, hf in PARITY_RECURRENT.items():
+            mod, cfg_cls, _ = _recurrent(kind)
+            cfg = cfg_cls.from_hf(hf)
+            params = _noised(mod.init_params(
+                cfg, torch.Generator().manual_seed(7), "cpu"), 8)
+            if kind == "mamba":   # an own head: a tied one echoes the input
+                params["lm_head.weight"] = 0.05 * torch.randn(
+                    cfg.vocab_size, cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(9))
+            ckpt = root / kind
+            write_checkpoint(ckpt, hf, params)
+            shutil.copy(root / "tokenizer.json", ckpt / "tokenizer.json")
+            resolve = getattr(mod, f"resolve_{kind}")
+            lms = {dev: resolve(str(ckpt), dtype="float32", device=dev)
+                   for dev in ("cuda", "cpu")}
+            prompt = lms["cpu"].tokenizer.encode(
+                TOKENIZER_CORPUS[:400], add_bos=False)
+            rec: dict = {"prompt_ids": len(prompt)}
+            logits = {}
+            with torch.no_grad():
+                for dev, lm in lms.items():
+                    ids = torch.tensor([prompt], device=dev)
+                    full, _ = _full_logits(kind, mod, lm.params, lm.cfg, ids)
+                    _, st = _full_logits(kind, mod, lm.params, lm.cfg,
+                                         ids[:, :-1])
+                    stepped, _ = _step_fn(kind, mod, lm.params, lm.cfg)(
+                        ids[:, -1], st)
+                    logits[dev] = (full.float().cpu(), stepped.float().cpu())
+            ref = logits["cpu"][0]
+            scale = float(ref.abs().max())
+            err = float((logits["cuda"][0] - ref).abs().max())
+            rec["prefill_max_abs_err"] = err
+            rec["prefill_largest_logit"] = scale
+            for dev in ("cuda", "cpu"):
+                step_err = float((logits[dev][1][0] - ref[0, -1]).abs().max())
+                rec[f"step_vs_prefill_{dev}"] = step_err
+                if not step_err <= 1e-4 * scale:
+                    raise AssertionError(
+                        f"{kind}: the {dev} step's logits are {step_err} "
+                        f"from the prefill's (largest {scale})")
+            if not (torch.isfinite(ref).all() and err <= 1e-4 * scale):
+                raise AssertionError(f"{kind}: card prefill logits {err} "
+                                     f"from the CPU's (largest {scale})")
+            toks = {dev: lm.generate(prompt, max_new_tokens=32, eos_ids=set())
+                    for dev, lm in lms.items()}
+            if toks["cuda"] != toks["cpu"] or len(toks["cpu"]) != 32:
+                raise AssertionError(f"{kind}: greedy tokens differ: "
+                                     f"{toks}")
+            rec["greedy_tokens"] = toks["cuda"]
+            print(f"recurrent_parity {kind}: {json.dumps(rec)}", flush=True)
+            out[kind] = rec
+            del lms
+        _no_launches("recurrent parity", kernels)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _recurrent_profile(kind: str, mod, params, cfg, steps: int = 8) -> dict:
+    """A decode step at the served widths: a 128-token prefill, then
+    ``steps`` steps timed plain (wall) and under torch.profiler (device
+    busy time and kernel launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = _step_fn(kind, mod, params, cfg)
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 1024, (1, 128), generator=g).to("cuda")
+    with torch.no_grad():
+        if kind == "mamba":
+            _, states = mod.forward_prefill(params, cfg, ids, full=False)
+        else:
+            _, states = mod.forward(params, cfg, ids, None, full=False)
+        tok = torch.tensor([5], device="cuda")
+
+        def run(n, st):
+            for _ in range(n):
+                logits, st = step(tok, st)
+            return logits, st
+
+        _, states = run(2, states)       # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, states = run(steps, states)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, states = run(steps, states)
+            torch.cuda.synchronize()
+            wall_prof = (time.perf_counter() - t0) / steps
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{kind}: non-finite decode logits")
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in ev) / 1e3 / steps
+    return {"decode_ms_per_token": wall * 1e3,
+            "decode_ms_per_token_profiled": wall_prof * 1e3,
+            "device_busy_ms_per_token": busy,
+            "device_idle_share_vs_plain_wall": max(0.0, 1 - busy / (
+                wall * 1e3)),
+            "device_idle_share_vs_profiled_wall": max(0.0, 1 - busy / (
+                wall_prof * 1e3)),
+            "launches_per_token": sum(e.count for e in ev) / steps}
+
+
+def _drawn_recurrent_model(mcfg, app, lm):
+    """The facade ``backend: mamba | rwkv`` builds (``MambaServingModel``),
+    over a model the phase drew on the card instead of one resolved from
+    the config's ``model``: the same scheduler, templates and surface."""
+    from localai_tpu_torch.models.mamba_serving import (
+        MambaScheduler,
+        MambaServingModel,
+    )
+    from localai_tpu_torch.templates.cache import TemplateCache
+
+    class Drawn(MambaServingModel):
+        def __init__(self):
+            self.name, self.config = mcfg.name, mcfg
+            self.lm, self.tokenizer = lm, lm.tokenizer
+            self.templates = TemplateCache(app.model_path)
+            self.vision, self.image_token_id = None, 0
+            self.scheduler = MambaScheduler(lm, lm.tokenizer)
+            self.loaded_at = self.last_used = time.monotonic()
+
+    return Drawn()
+
+
+def phase_serve_recurrent(card: str, kind: str) -> dict:
+    """The recurrent serves: ``mamba-2.8b-bf16`` (state-spaces/mamba-2.8b-
+    hf's widths and depth) or ``rwkv-4-7b-bf16`` (RWKV/rwkv-4-7b-pile's),
+    bf16 weights drawn on the card (the float32 tensors of the JAX
+    package's loaders in float32), served as ``backend: mamba | rwkv``
+    through the port's HTTP server: five greedy 32-token chats (one
+    streamed; generations run one at a time, as in the JAX package). It
+    prints the weight bytes, peak memory, tokens/s, the streamed TTFT,
+    prefill ms on CUDA events at 128, 512 and 2048 tokens, and a decode
+    step's ms, launches and device idle share; K1–K5 launch never."""
+    from localai_tpu_torch.api.server import APIServer
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.config.model_config import ModelConfig
+    from localai_tpu_torch.utils.tokenizer import load_tokenizer
+
+    name, hf = ((MAMBA, MAMBA_28B_CONFIG) if kind == "mamba"
+                else (RWKV, RWKV_4_7B_CONFIG))
+    mod, cfg_cls, lm_cls = _recurrent(kind)
+    cfg = cfg_cls.from_hf(hf)
+    kernels = _all_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    root = Path(_scratch_dir(f"{kind}-serve-", 10_000_000))
+    _write_json(root / "tokenizer.json", small_bpe_spec(cfg.vocab_size - 1))
+    t0 = time.monotonic()
+    params = mod.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda", dtype="bfloat16")
+    torch.cuda.synchronize()
+    draw_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in params.values())
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    print(f"serve {name}: bf16 weights drawn on the card in {draw_s:.1f}s: "
+          f"{n_params / 1e9:.3f} B parameters, {weight_bytes / 1e9:.3f} GB",
+          flush=True)
+    mcfg = ModelConfig.from_dict({"name": name, "backend": kind,
+                                  "model": name,
+                                  "engine": {"dtype": "bfloat16"}})
+    mcfg.set_defaults()
+    loader = ConfigLoader()
+    loader.register(mcfg)
+    app = AppConfig(device="cuda")
+    lm = lm_cls(cfg, params, load_tokenizer(root))
+    sm = _drawn_recurrent_model(mcfg, app, lm)
+    manager = _one_model_manager(app, loader, sm)
+    server = APIServer(manager, "127.0.0.1", 0).start()
+    try:
+        chat = server.url + "/v1/chat/completions"
+        json.loads(_post(chat, {"model": name, "max_tokens": 4,
+                                "messages": [{"role": "user",
+                                              "content": "hi"}]}).read())
+        for w in kernels.values():
+            w.launches = 0
+        res = _chats(chat, name, extra={"ignore_eos": True})
+        if res["tokens"] != 5 * 32:
+            raise AssertionError(f"{name}: {res['tokens']} tokens, not "
+                                 "5 x 32")
+        peaks = {"chats": torch.cuda.max_memory_allocated() / 1e9}
+        prefill = {}
+        with torch.no_grad():
+            fn = _prefill_fn(kind, mod, params, cfg)
+            g = torch.Generator().manual_seed(2)
+            for T in (128, 512, 2048):
+                ids = torch.randint(0, 1024, (1, T), generator=g).to("cuda")
+                torch.cuda.reset_peak_memory_stats()
+                ms, logits = _events_ms(lambda: fn(ids))
+                if not torch.isfinite(logits).all():
+                    raise AssertionError(f"{name}: non-finite logits at "
+                                         f"T={T}")
+                prefill[T] = ms
+                peaks[f"prefill_{T}"] = (torch.cuda.max_memory_allocated()
+                                         / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        prof = _recurrent_profile(kind, mod, params, cfg)
+        peaks["decode"] = torch.cuda.max_memory_allocated() / 1e9
+        _no_launches(name, kernels)
+        peak = max(peaks.values())
+        rec = {"card": card, "model": name, "backend": kind,
+               "weights": "bfloat16", "parameters_b": n_params / 1e9,
+               "weight_gb": weight_bytes / 1e9, "draw_s": draw_s,
+               "requests": 5, "streaming": 1,
+               "completion_tokens": res["tokens"], "wall_s": res["wall_s"],
+               "tokens_per_s": res["tokens"] / res["wall_s"],
+               "ttft_stream_s": res["ttft_s"],
+               "prefill_ms": prefill, **prof,
+               "max_memory_allocated_gb": peak, "peak_gb_by_part": peaks,
+               "k1_k5_launches": 0}
+        print("serve: " + json.dumps(rec), flush=True)
+        if not peak < 80:
+            raise AssertionError(f"{name}: peak memory {peak} GB")
+        return rec
+    finally:
+        server.shutdown()
+        manager.shutdown()
+        sm = lm = params = manager = server = None
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _documents(rng, n: int, lo: int, hi: int) -> list:
+    """``n`` texts of ``lo``..``hi`` corpus words each (every word one
+    WordPiece token of ``bert_tokenizer_spec``'s vocabulary)."""
+    words = [w for w in _corpus_words() if w.isascii() and w.isalpha()]
+    return [" ".join(rng.choice(words, int(rng.integers(lo, hi + 1))))
+            for _ in range(n)]
+
+
+def phase_encoders(card: str) -> dict:
+    """The encoders through the port's server, with the 30522-id
+    WordPiece tokenizer.json written here: ``/v1/rerank`` on a
+    cross-encoder at cross-encoder/ms-marco-MiniLM-L-6-v2's widths (one
+    query against 32 documents of 30–300 words, then four more requests)
+    and ``/v1/embeddings`` on a sentence encoder at BAAI/bge-large-en-
+    v1.5's (64 inputs of 10–400 tokens; a token array is refused), both
+    float32 checkpoints of seeded weights drawn on the CPU and loaded from
+    a models dir by the manager. Scores and vectors are held to the CPU's
+    on the same checkpoints within 1e-4 (all 32 scores, all 64 vectors).
+    Prints ms a request and inputs/s (wall), the encoder forward on CUDA
+    events, peak memory; K1–K5 launch never."""
+    from localai_tpu_torch.api.server import APIServer
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.models.loader import write_checkpoint
+    from localai_tpu_torch.models.manager import ModelManager
+    from localai_tpu_torch.models.reranker import (
+        BertConfig,
+        embed_forward,
+        forward,
+        hf_tensors,
+        init_params,
+        resolve_reranker,
+        resolve_sentence_encoder,
+    )
+
+    kernels = _all_kernels()
+    root = Path(_scratch_dir("encoders-", 3_000_000_000))
+    models = root / "models"
+    models.mkdir()
+    spec = bert_tokenizer_spec()
+    server = manager = None
+    try:
+        for sub, hf, head, seed in (("minilm-ce", MINILM_L6_CE_CONFIG, True,
+                                     11),
+                                    ("bge-large", BGE_LARGE_CONFIG, False,
+                                     12)):
+            cfg = BertConfig.from_hf(hf)
+            params = init_params(cfg, torch.Generator().manual_seed(seed),
+                                 "cpu")
+            write_checkpoint(root / sub, hf, hf_tensors(
+                params, root="bert." if head else "", head=head))
+            _write_json(root / sub / "tokenizer.json", spec)
+            del params
+        (models / "r.yaml").write_text(
+            f"name: {RERANKER}\nbackend: reranker\nmodel: "
+            f"{root / 'minilm-ce'}\n")
+        (models / "e.yaml").write_text(
+            f"name: {EMBEDDER}\nbackend: bert-embeddings\nmodel: "
+            f"{root / 'bge-large'}\n")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        loader = ConfigLoader(models)
+        loader.load_from_path()
+        manager = ModelManager(AppConfig(model_path=str(models),
+                                         device="cuda"), loader)
+        server = APIServer(manager, "127.0.0.1", 0).start()
+        for w in kernels.values():
+            w.launches = 0
+        rng = np.random.default_rng(0)
+        query = "how does a cache keep the hot set close to the processor"
+        docs = _documents(rng, 32, 30, 300)
+        more = [(_documents(rng, 1, 5, 12)[0], _documents(rng, 8, 30, 120))
+                for _ in range(4)]
+        rr = server.url + "/v1/rerank"
+        t0 = time.monotonic()
+        first = json.loads(_post(rr, {"model": RERANKER, "query": query,
+                                      "documents": docs}).read())
+        load_s = time.monotonic() - t0
+        walls = []
+        for q, ds in [(query, docs)] + more:
+            t0 = time.monotonic()
+            out = json.loads(_post(rr, {"model": RERANKER, "query": q,
+                                        "documents": ds}).read())
+            walls.append(time.monotonic() - t0)
+            if len(out["results"]) != len(ds):
+                raise AssertionError(f"{RERANKER}: {len(out['results'])} "
+                                     f"results for {len(ds)} documents")
+        card_scores = np.zeros(len(docs))
+        for r in first["results"]:
+            card_scores[r["index"]] = r["relevance_score"]
+        ce = manager.get_reranker(RERANKER).encoder
+        cpu_ce = resolve_reranker(str(root / "minilm-ce"), device="cpu")
+        cpu_scores, ntok = cpu_ce.score_with_usage(query, docs)
+        ce_err = float(np.abs(card_scores - cpu_scores).max())
+        if not (np.isfinite(card_scores).all() and ce_err <= 1e-4
+                and first["usage"]["total_tokens"] == ntok):
+            raise AssertionError(f"{RERANKER}: card scores {ce_err} from "
+                                 f"the CPU's; usage {first['usage']} vs "
+                                 f"{ntok}")
+        L = max(len(ce.tokenizer.encode(d)) for d in docs) + 3
+        ids = torch.randint(1000, BERT_VOCAB, (32, 512)).to("cuda")
+        seg = torch.zeros_like(ids)
+        mask = torch.ones_like(ids, dtype=torch.bool)
+        with torch.no_grad():
+            ce_fwd_ms, _ = _events_ms(lambda: forward(
+                ce.params, ce.cfg, ids, seg, mask))
+        rerank = {"request_ms": [w * 1e3 for w in walls],
+                  "first_request_s_with_load": load_s,
+                  "pairs_per_s": sum(len(ds) for _, ds in [(query, docs)]
+                                     + more) / sum(walls),
+                  "forward_ms_32x512_events": ce_fwd_ms,
+                  "longest_pair_tokens": L, "max_abs_err_vs_cpu": ce_err,
+                  "total_tokens": ntok}
+        # embeddings: 64 inputs of 10..400 tokens
+        texts = _documents(rng, 62, 10, 400) + _documents(rng, 1, 400, 400) \
+            + _documents(rng, 1, 10, 10)
+        em_url = server.url + "/v1/embeddings"
+        json.loads(_post(em_url, {"model": EMBEDDER,
+                                  "input": "warm up"}).read())
+        t0 = time.monotonic()
+        emb = json.loads(_post(em_url, {"model": EMBEDDER,
+                                        "input": texts}).read())
+        em_wall = time.monotonic() - t0
+        vecs = np.asarray([d["embedding"] for d in emb["data"]])
+        try:
+            _post(em_url, {"model": EMBEDDER, "input": [[101, 2000, 102]]})
+            raise AssertionError(f"{EMBEDDER}: a token array was accepted")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise
+        cpu_em = resolve_sentence_encoder(str(root / "bge-large"),
+                                          device="cpu")
+        cpu_vecs, _ = cpu_em.embed_with_usage(texts)
+        em_err = float(np.abs(vecs - cpu_vecs).max())
+        norms = np.linalg.norm(vecs, axis=1)
+        if not (vecs.shape == (64, BGE_LARGE_CONFIG["hidden_size"])
+                and np.isfinite(vecs).all()
+                and np.allclose(norms, 1.0, atol=1e-4) and em_err <= 1e-4):
+            raise AssertionError(f"{EMBEDDER}: vectors {vecs.shape}, "
+                                 f"{em_err} from the CPU's")
+        em = manager.get_embedder(EMBEDDER).encoder
+        ids = torch.randint(1000, BERT_VOCAB, (64, 512)).to("cuda")
+        seg = torch.zeros_like(ids)
+        mask = torch.ones_like(ids, dtype=torch.bool)
+        with torch.no_grad():
+            em_fwd_ms, _ = _events_ms(lambda: embed_forward(
+                em.params, em.cfg, ids, seg, mask))
+        tok_lens = [len(em.tokenizer.encode(t)) for t in texts]
+        embed = {"request_ms": em_wall * 1e3, "inputs_per_s": 64 / em_wall,
+                 "input_tokens": [min(tok_lens), max(tok_lens)],
+                 "usage_tokens": emb["usage"]["prompt_tokens"],
+                 "forward_ms_64x512_events": em_fwd_ms,
+                 "max_abs_err_vs_cpu": em_err}
+        _no_launches("the encoders", kernels)
+        rec = {"card": card, "rerank": rerank, "embeddings": embed,
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "k1_k5_launches": 0}
+        print("encoders: " + json.dumps(rec), flush=True)
+        return rec
+    finally:
+        if server is not None:
+            server.shutdown()
+        if manager is not None:
+            manager.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _entry(name, source, replaces, launches, rec) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4708,6 +5401,7 @@ def main() -> int:
     phase_media()
     phase_vision_parity()
     llava_k = phase_kernel_llava()
+    phase_recurrent_parity()
     profile = "--profile" in sys.argv[1:]
     bf16 = phase_serve(card, profile=profile)
     served = {"": bf16["launches"],
@@ -4729,6 +5423,9 @@ def main() -> int:
     gguf = phase_gguf_convert(card)
     served["llava"] = phase_serve_llava(card)
     served["mixtral"] = phase_serve_mixtral(card, profile=profile)
+    phase_serve_recurrent(card, "mamba")
+    phase_serve_recurrent(card, "rwkv")
+    phase_encoders(card)
     src = "localai_tpu_torch/csrc/"
     k1_src = src + "paged_decode_attention.cu"
     k1_tpu = "localai_tpu/ops/attention.py:458"

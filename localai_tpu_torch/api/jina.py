@@ -1,18 +1,24 @@
 """Jina-compatible rerank endpoint: POST /v1/rerank.
 
-Port of the LLM-embedding branch of ``localai_tpu/api/jina.py``: the query
-and each document are mean-pooled through the LLM engine
-(``runner.embed``) and scored by the cosine of their vectors. Models with
-a cross-encoder or sentence-encoder backend (``models/reranker.py`` in the
-JAX package, not ported) are refused.
+Port of ``localai_tpu/api/jina.py``: a cross-encoder (``backend:
+reranker``, or a bert-class checkpoint with no backend) scores every
+(query, document) pair jointly in one batched forward
+(``models/reranker.py``); any other model mean-pools the query and each
+document through the LLM engine (``runner.embed``) and scores by the
+cosine of their vectors.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from localai_tpu_torch.api.openai import APIError, _model_name, _serving
-from localai_tpu_torch.config.model_config import CROSS_ENCODER_BACKENDS
+from localai_tpu_torch.api.openai import (
+    APIError,
+    _load_failed,
+    _model_name,
+    _runner,
+    _serving,
+)
 
 
 def _unit(v: np.ndarray) -> np.ndarray:
@@ -32,18 +38,29 @@ def rerank(manager, body: dict) -> dict:
     if top_n < 1:
         raise APIError(400, "top_n must be >= 1")
     name = _model_name(manager, body)
-    backend = manager.loader.get(name).backend
-    if backend in CROSS_ENCODER_BACKENDS:
-        raise APIError(400, f"model {name!r} uses the {backend!r} backend: "
-                            "cross-encoder reranking is not ported yet")
+    if manager.is_reranker(manager.loader.get(name)):
+        # joint (query ⊕ document) scoring
+        try:
+            rm = manager.get_reranker(name)
+        except FileNotFoundError as e:
+            raise _load_failed(e) from None
+        raw, total_tokens = rm.score(query, documents)
+        return _rerank_response(name, documents, [float(s) for s in raw],
+                                total_tokens, top_n)
     sm, model = _serving(manager, {"model": name}, "rerank")
+    runner = _runner(sm, "rerank")
     q_toks = sm.tokenizer.encode(query, add_bos=True)
-    q_vec = _unit(np.asarray(sm.runner.embed(q_toks)))
+    q_vec = _unit(np.asarray(runner.embed(q_toks)))
     scores, total_tokens = [], len(q_toks)
     for doc in documents:
         d_toks = sm.tokenizer.encode(doc, add_bos=True)
         total_tokens += len(d_toks)
-        scores.append(float(q_vec @ _unit(np.asarray(sm.runner.embed(d_toks)))))
+        scores.append(float(q_vec @ _unit(np.asarray(runner.embed(d_toks)))))
+    return _rerank_response(model, documents, scores, total_tokens, top_n)
+
+
+def _rerank_response(model: str, documents: list[str], scores: list[float],
+                     total_tokens: int, top_n: int) -> dict:
     order = sorted(range(len(documents)), key=lambda i: -scores[i])[:top_n]
     return {"model": model,
             "usage": {"total_tokens": total_tokens,

@@ -141,7 +141,21 @@ def _serving(manager, body: dict, usecase: Optional[str] = None):
     try:
         return manager.get(name), name
     except FileNotFoundError as e:
-        raise APIError(500, f"model load failed: {e}") from None
+        raise _load_failed(e) from None
+
+
+def _load_failed(e: Exception) -> APIError:
+    return APIError(500, f"model load failed: {e}")
+
+
+def _runner(sm, usecase: str):
+    """The llama engine's runner of a serving model: embeddings and
+    cosine rerank need it, and a recurrent or remote model has none."""
+    runner = getattr(sm, "runner", None)
+    if runner is None:
+        raise APIError(400, f"model {sm.name!r} ({sm.config.backend}) "
+                            f"does not serve {usecase}")
+    return runner
 
 
 def finetune_result(cfg, prompt: str, text: str, *,
@@ -625,9 +639,11 @@ def edits(manager, body: dict) -> dict:
 
 def embeddings(manager, body: dict) -> dict:
     """POST /v1/embeddings: ``input`` is a string, a list of strings, one
-    token array or a list of token arrays; each input is mean-pooled
-    through the LLM engine (``runner.embed``), on this request's thread."""
-    sm, model = _serving(manager, body, "embeddings")
+    token array or a list of token arrays. A sentence encoder (``backend:
+    bert-embeddings | sentencetransformers``) embeds the texts in one
+    batched forward and refuses token arrays (they would carry another
+    vocabulary's ids); any other model mean-pools each input through the
+    LLM engine (``runner.embed``). On this request's thread."""
     raw = body.get("input")
     if raw is None:
         inputs = [""]
@@ -640,7 +656,21 @@ def embeddings(manager, body: dict) -> dict:
     else:
         raise APIError(400, "input must be a string, a list of strings or "
                             "token arrays")
-    vocab = sm.runner.cfg.vocab_size
+    name = _model_name(manager, body)
+    if manager.is_embedder(manager.loader.get(name)):
+        if not all(isinstance(t, str) for t in inputs):
+            raise APIError(400, "token-array input is not supported for "
+                                "sentence-encoder backends; send text")
+        try:
+            em = manager.get_embedder(name)
+        except FileNotFoundError as e:
+            raise _load_failed(e) from None
+        vecs, ptokens = em.embed(inputs)
+        return embeddings_response(name, [[float(x) for x in v]
+                                          for v in vecs], ptokens)
+    sm, model = _serving(manager, {"model": name}, "embeddings")
+    runner = _runner(sm, "embeddings")
+    vocab = runner.cfg.vocab_size
     vectors, prompt_tokens = [], 0
     for item in inputs:
         if isinstance(item, list):
@@ -650,7 +680,7 @@ def embeddings(manager, body: dict) -> dict:
         else:
             toks = sm.tokenizer.encode(str(item), add_bos=True)
         prompt_tokens += len(toks)
-        vectors.append([float(x) for x in sm.runner.embed(toks)])
+        vectors.append([float(x) for x in runner.embed(toks)])
     return embeddings_response(model, vectors, prompt_tokens)
 
 

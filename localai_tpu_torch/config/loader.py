@@ -5,8 +5,8 @@ dirs). Files are read by the port's own YAML reader
 (``config.yaml_subset``, PyYAML's ``safe_load`` meaning, stdlib only), in
 every environment. Each config then goes through backend and chat-default
 autodetection (``models.detect.autodetect_config``), as on the JAX
-package; a detected backend the port has no engine for is refused, naming
-it.
+package; a detected backend the port has no engine for (whisper, vits,
+diffusers) is refused, naming it.
 """
 
 from __future__ import annotations
@@ -16,10 +16,7 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-from localai_tpu_torch.config.model_config import (
-    CROSS_ENCODER_BACKENDS,
-    ModelConfig,
-)
+from localai_tpu_torch.config.model_config import ModelConfig
 from localai_tpu_torch.config.yaml_subset import safe_load
 
 log = logging.getLogger(__name__)
@@ -76,12 +73,6 @@ class ConfigLoader:
             log.warning("backend autodetect for %s failed: %s",
                         cfg.name, e)
         if cfg.backend and not explicit:
-            if cfg.backend in CROSS_ENCODER_BACKENDS:
-                raise ValueError(
-                    f"model {cfg.name!r}: its checkpoint is detected as "
-                    f"backend {cfg.backend!r}, which is not ported yet; it "
-                    "needs the cross-encoder and sentence encoder "
-                    "(ROADMAP A8: models/reranker.py)")
             cfg.check_supported()
 
     def register(self, cfg: ModelConfig) -> None:

@@ -19,8 +19,12 @@ int4 on the paged layout only), the contiguous KV layout
 (``engine.kv_paged: false``), embeddings (``embeddings: true``) and
 speculative decoding (``engine.spec``, ``spec_drafter``, ``spec_gamma``,
 ``n_draft``, ``draft_model``: on by default for paged engines, as in the
-JAX package) and a vision tower (``mmproj``: a llava checkpoint directory
-or ``debug:vit``; ``image_token_id``) are served.
+JAX package), a vision tower (``mmproj``: a llava checkpoint directory
+or ``debug:vit``; ``image_token_id``), the cross-encoder and sentence
+encoder (``backend: reranker | bert-embeddings | sentencetransformers``),
+the recurrent-state engine (``backend: mamba | rwkv``) and the remote-API
+client (``backend: huggingface | langchain-huggingface`` with
+``api_token`` and ``api_base``) are served.
 """
 
 from __future__ import annotations
@@ -30,10 +34,6 @@ from typing import Any, Optional
 
 
 KV_DTYPES = ("bfloat16", "float32", "int8", "int4")
-# backends whose models are sentence encoders or cross-encoders
-# (models/reranker.py in the JAX package), which the port has not ported
-CROSS_ENCODER_BACKENDS = ("reranker", "bert-embeddings",
-                          "sentencetransformers")
 # every usecase flag, in the JAX package's order (its ``Usecase`` enum)
 USECASES = ("chat", "completion", "edit", "embeddings", "image",
             "transcript", "tts", "sound_generation", "rerank", "tokenize",
@@ -43,19 +43,9 @@ SERVED_USECASES = ("chat", "completion", "edit", "embeddings", "rerank")
 # backend names served by the LLM engine (the JAX package's list)
 LLM_BACKENDS = ("", "jax", "jax-llm", "transformers", "worker",
                 "huggingface", "langchain-huggingface", "mamba", "rwkv")
-# LLM backends the JAX package routes to another engine than the llama
-# runner (its ModelManager._load), which the port has not ported: served
-# by the llama runner they would answer with another model
-_REMOTE_API = ("the HTTP client to a remote inference API "
-               "(models/hf_api.py; not a device path, refused until the "
-               "API layer is ported in full)")
+# backends whose engines the port has not ported: served by the llama
+# runner they would answer with another model
 UNPORTED_BACKENDS = {
-    "mamba": "the recurrent-state engine (ROADMAP A8: models/mamba.py, "
-             "models/mamba_serving.py)",
-    "rwkv": "the recurrent-state engine (ROADMAP A8: models/rwkv.py, "
-            "models/mamba_serving.py)",
-    "huggingface": _REMOTE_API,
-    "langchain-huggingface": _REMOTE_API,
     "whisper": "the speech-to-text engine (ROADMAP A9: models/whisper.py, "
                "audio/mel.py)",
     "vits": "the text-to-speech engine (ROADMAP A9: audio/vits.py)",
@@ -179,6 +169,8 @@ class ModelConfig:
     embeddings: bool = False           # serve /v1/embeddings (and rerank)
     known_usecases: Optional[list[str]] = None
     mmproj: Optional[str] = None       # vision tower ref (dir or debug:)
+    api_token: str = ""                # remote-API backends (huggingface)
+    api_base: str = ""
     image_token_id: Optional[int] = None  # placeholder id for image spans
                                           # (default: HF image_token_index
                                           # or 0; embeddings are injected

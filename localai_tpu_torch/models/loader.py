@@ -295,3 +295,33 @@ def _check_shapes(cfg: LlamaConfig, params: dict) -> None:
             if tuple(t.shape) != tuple(shape):
                 raise ValueError(f"param {name}.{k}: shape "
                                  f"{tuple(t.shape)} != expected {shape}")
+
+
+def read_checkpoint_tensors(model_dir: str | Path, dtype: str,
+                            device: torch.device,
+                            keep_f32: Callable[[str, torch.Tensor], bool]
+                            ) -> dict[str, torch.Tensor]:
+    """Every tensor of a checkpoint directory by its HF name, on
+    ``device``: float32 where ``keep_f32(name, tensor)`` holds, else
+    ``dtype`` (the recurrent models' loaders)."""
+    dt = torch_dtype(dtype)
+    out = {}
+    for name, entry in _open_safetensors(Path(model_dir)).items():
+        t = read_tensor(entry)
+        out[name] = t.to(device=device, dtype=torch.float32
+                         if keep_f32(name, t) else dt)
+    return out
+
+
+def write_checkpoint(model_dir: str | Path, hf_config: dict,
+                     params: dict[str, torch.Tensor]) -> Path:
+    """``config.json`` + one ``model.safetensors`` holding ``params`` by
+    name, each tensor in its own dtype (the recurrent models' HF layout
+    is their parameter dict's)."""
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    (model_dir / "config.json").write_text(json.dumps(hf_config))
+    write_safetensors(model_dir / "model.safetensors", [
+        (name, tuple(t.shape), t.dtype, (lambda t=t: t))
+        for name, t in params.items()])
+    return model_dir

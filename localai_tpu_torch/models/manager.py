@@ -16,7 +16,16 @@ in the JAX package. Each serving model carries a ``TemplateCache`` over
 the models dir, as the JAX package's does. The manager loads
 ``preload_models`` at start, evicts the other models before a load under
 ``single_active_backend``, and runs the JAX package's idle/busy watchdog.
-The prompt cache and the self-healing supervisor are not ported yet.
+As in the JAX package's ``ModelManager._load``, ``backend: mamba | rwkv``
+builds the recurrent-state engine (``models/mamba_serving.py``) and
+``backend: huggingface | langchain-huggingface`` the remote-API client
+(``models/hf_api.py``); cross-encoders and sentence encoders
+(``models/reranker.py``) load through ``get_reranker`` /
+``get_embedder`` into :class:`RerankServingModel` /
+:class:`EmbeddingServingModel`. Every kind shares one registry, so
+eviction, the watchdog, ``shutdown_model`` and preload treat them alike;
+a name asked for as another kind is reloaded (when idle). The prompt
+cache and the self-healing supervisor are not ported yet.
 """
 
 from __future__ import annotations
@@ -67,6 +76,81 @@ class ServingModel:
 
     def close(self) -> None:
         self.scheduler.shutdown()
+
+
+@dataclasses.dataclass
+class _EncoderServingModel:
+    """A loaded BERT-class encoder under the manager's lifecycle (watchdog,
+    eviction): in-flight accounting around each call, and the encoder
+    snapshot a call holds while an eviction may drop the model's own."""
+
+    name: str
+    config: ModelConfig
+    encoder: Any                      # models.reranker.CrossEncoder or
+                                      # SentenceEncoder
+    loaded_at: float = dataclasses.field(default_factory=time.monotonic)
+    last_used: float = dataclasses.field(default_factory=time.monotonic)
+    _inflight: int = 0
+    _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+
+    def touch(self) -> None:
+        self.last_used = time.monotonic()
+
+    @property
+    def busy(self) -> bool:
+        with self._lock:
+            return self._inflight > 0
+
+    def alive(self) -> bool:
+        return self.encoder is not None
+
+    def close(self) -> None:
+        self.encoder = None   # frees the weights once in-flight calls end
+
+    def _call(self, method: str, *args):
+        enc = self.encoder    # snapshot: an eviction mid-request keeps it
+        if enc is None:
+            raise RuntimeError(f"model {self.name} was evicted")
+        with self._lock:
+            self._inflight += 1
+        try:
+            return getattr(enc, method)(*args)
+        finally:
+            with self._lock:
+                self._inflight -= 1
+            self.touch()
+
+
+@dataclasses.dataclass
+class RerankServingModel(_EncoderServingModel):
+    """A cross-encoder (the JAX package's ``RerankServingModel``)."""
+
+    scored: int = 0
+
+    def engine_metrics(self) -> dict:
+        return {"type": "rerank", "pairs_scored": self.scored}
+
+    def score(self, query: str, documents: list[str]):
+        """(scores, total input tokens)."""
+        out = self._call("score_with_usage", query, documents)
+        self.scored += len(documents)
+        return out
+
+
+@dataclasses.dataclass
+class EmbeddingServingModel(_EncoderServingModel):
+    """A sentence encoder (the JAX package's ``EmbeddingServingModel``)."""
+
+    embedded: int = 0
+
+    def engine_metrics(self) -> dict:
+        return {"type": "embeddings", "texts_embedded": self.embedded}
+
+    def embed(self, texts: list[str]):
+        """(vectors, total input tokens)."""
+        out = self._call("embed_with_usage", texts)
+        self.embedded += len(texts)
+        return out
 
 
 def build_runner(mcfg: ModelConfig, app: AppConfig,
@@ -196,7 +280,8 @@ class ModelManager:
                  loader: Optional[ConfigLoader] = None):
         self.app = app or AppConfig()
         self.loader = loader or ConfigLoader(self.app.model_path)
-        self._models: dict[str, ServingModel] = {}
+        self._models: dict[str, Any] = {}   # every kind of serving model
+        self._reranker_detect: dict[tuple, tuple[bool, float]] = {}
         self._lock = threading.RLock()        # guards _models
         self._load_lock = threading.Lock()    # one load at a time: a load
                                               # holds the card
@@ -209,15 +294,58 @@ class ModelManager:
         with self._lock:
             return sorted(self._models)
 
-    def get(self, name: str) -> ServingModel:
-        """Load-or-get; a model whose engine died is reloaded. Under
-        ``single_active_backend`` the other idle models are evicted before
-        a load."""
-        sm = self._cached(name)
+    def get(self, name: str) -> Any:
+        """Load-or-get a text-generation model (a llama engine, the
+        recurrent engine or a remote client); a model whose engine died is
+        reloaded. Under ``single_active_backend`` the other idle models
+        are evicted before a load."""
+        return self._get_typed(name, self._load, "llm")
+
+    def get_reranker(self, name: str) -> RerankServingModel:
+        """Load-or-get a cross-encoder."""
+        return self._get_typed(name, self._load_reranker, "rerank")
+
+    def get_embedder(self, name: str) -> EmbeddingServingModel:
+        """Load-or-get a BERT-class sentence encoder."""
+        return self._get_typed(name, self._load_embedder, "embed")
+
+    def is_embedder(self, mcfg: ModelConfig) -> bool:
+        """``/v1/embeddings`` goes to the sentence encoder for
+        ``backend: bert-embeddings | sentencetransformers`` (set in the
+        YAML or by autodetection)."""
+        return mcfg.backend in ("bert-embeddings", "sentencetransformers")
+
+    def is_reranker(self, mcfg: ModelConfig) -> bool:
+        """``/v1/rerank`` goes to the cross-encoder for ``backend:
+        reranker``, or, with no backend, for a bert-class checkpoint. The
+        checkpoint sniff is cached: a hit sticks, a miss expires after
+        30 s (a checkpoint installed later is picked up)."""
+        if mcfg.backend == "reranker":
+            return True
+        if mcfg.backend:
+            return False
+        key = (mcfg.name, mcfg.model)
+        now = time.monotonic()
+        with self._lock:
+            hit = self._reranker_detect.get(key)
+        if hit is not None:
+            found, at = hit
+            if found or now - at < 30.0:
+                return found
+        from localai_tpu_torch.models.reranker import is_reranker_checkpoint
+
+        found = is_reranker_checkpoint(mcfg.model or mcfg.name,
+                                       self.app.model_path)
+        with self._lock:
+            self._reranker_detect[key] = (found, now)
+        return found
+
+    def _get_typed(self, name: str, load, kind: str) -> Any:
+        sm = self._cached(name, kind)
         if sm is not None:
             return sm
         with self._load_lock:
-            sm = self._cached(name)   # a racing load won?
+            sm = self._cached(name, kind)   # a racing load won?
             if sm is not None:
                 return sm
             mcfg = self.loader.get(name)
@@ -228,15 +356,32 @@ class ModelManager:
                     for other in list(self._models):
                         if not self._models[other].busy:
                             self._evict_locked(other)
-            sm = build_serving_model(mcfg, self.app)
+            sm = load(mcfg)
             with self._lock:
                 self._models[name] = sm
             return sm
 
-    def _cached(self, name: str) -> Optional[ServingModel]:
+    @staticmethod
+    def _kind(sm: Any) -> str:
+        return ("rerank" if isinstance(sm, RerankServingModel)
+                else "embed" if isinstance(sm, EmbeddingServingModel)
+                else "llm")
+
+    def _cached(self, name: str, kind: str) -> Optional[Any]:
+        """The loaded model of that name and kind, alive; a dead one, or
+        an idle one of another kind, is evicted (None), a busy one of
+        another kind refused."""
         with self._lock:
             sm = self._models.get(name)
             if sm is None:
+                return None
+            have = self._kind(sm)
+            if have != kind:
+                if sm.busy:
+                    raise RuntimeError(
+                        f"model {name!r} is busy serving as {have}")
+                log.info("model %s switching to %s; reloading", name, kind)
+                self._evict_locked(name)
                 return None
             if not sm.alive():
                 log.warning("model %s engine died; reloading", name)
@@ -244,6 +389,44 @@ class ModelManager:
                 return None
             sm.touch()
             return sm
+
+    def _load(self, mcfg: ModelConfig) -> Any:
+        """The JAX package's routing of a text-generation config."""
+        if mcfg.backend in ("huggingface", "langchain-huggingface"):
+            from localai_tpu_torch.models.hf_api import HFApiServingModel
+
+            return HFApiServingModel(mcfg, self.app)
+        if mcfg.backend in ("mamba", "rwkv"):
+            from localai_tpu_torch.models.mamba_serving import (
+                MambaServingModel,
+            )
+
+            return MambaServingModel(mcfg, self.app)
+        return build_serving_model(mcfg, self.app)
+
+    def _load_reranker(self, mcfg: ModelConfig) -> RerankServingModel:
+        from localai_tpu_torch.models.reranker import resolve_reranker
+
+        t0 = time.monotonic()
+        enc = resolve_reranker(mcfg.model or mcfg.name,
+                               model_path=self.app.model_path,
+                               seed=mcfg.seed or 0, device=self.app.device)
+        log.info("loaded reranker %s in %.1fs", mcfg.name,
+                 time.monotonic() - t0)
+        return RerankServingModel(name=mcfg.name, config=mcfg, encoder=enc)
+
+    def _load_embedder(self, mcfg: ModelConfig) -> EmbeddingServingModel:
+        from localai_tpu_torch.models.reranker import resolve_sentence_encoder
+
+        t0 = time.monotonic()
+        enc = resolve_sentence_encoder(mcfg.model or mcfg.name,
+                                       model_path=self.app.model_path,
+                                       seed=mcfg.seed or 0,
+                                       device=self.app.device)
+        log.info("loaded sentence encoder %s in %.1fs", mcfg.name,
+                 time.monotonic() - t0)
+        return EmbeddingServingModel(name=mcfg.name, config=mcfg,
+                                     encoder=enc)
 
     def preload(self) -> None:
         """Load ``load_to_memory`` (else ``preload_models``) now, as the
@@ -257,9 +440,20 @@ class ModelManager:
                             name)
         for name in self.app.load_to_memory or self.app.preload_models:
             try:
-                self.get(name)
+                self._preload(name)
             except Exception as e:  # noqa: BLE001 — keep serving the rest
                 log.warning("eager load of %s failed: %s", name, e)
+
+    def _preload(self, name: str) -> None:
+        """Load a model as the kind its config routes to: a cross-encoder
+        or sentence encoder through its typed get, else ``get``."""
+        mcfg = self.loader.get(name)
+        if mcfg is not None and self.is_embedder(mcfg):
+            self.get_embedder(name)
+        elif mcfg is not None and self.is_reranker(mcfg):
+            self.get_reranker(name)
+        else:
+            self.get(name)
 
     def _evict_locked(self, name: str) -> None:
         sm = self._models.pop(name, None)
@@ -325,7 +519,12 @@ class _Watchdog(threading.Thread):
                 elif app.watchdog_busy and sm.busy:
                     self._cancel_stuck(sm)
 
-    def _cancel_stuck(self, sm: ServingModel) -> None:
+    def _cancel_stuck(self, sm: Any) -> None:
+        """Cancel a llama engine's requests older than the busy timeout;
+        as in the JAX package, the other kinds are left to finish (the
+        recurrent and remote ones serve one request a thread)."""
+        if not isinstance(sm, ServingModel):
+            return
         timeout = self.manager.app.watchdog_busy_timeout
         for handle in sm.scheduler.handles_older_than(timeout):
             log.warning("watchdog: cancelling stuck request %d (>%ds)",

@@ -140,28 +140,6 @@ def init_params(cfg: VisionConfig, generator: torch.Generator,
     return walk(param_shapes(cfg))
 
 
-def params_from_numpy(tree: Any, device: str | torch.device = "cuda"
-                      ) -> Params:
-    """Carry the JAX package's tower tree (nested dicts and lists of numpy
-    arrays) across to torch tensors on ``device``, each in its own dtype
-    (bfloat16 arrives as ``ml_dtypes.bfloat16`` and goes across as its
-    int16 bit pattern)."""
-    device = resolve_device(device)
-
-    def conv(a):
-        if isinstance(a, dict):
-            return {k: conv(v) for k, v in a.items()}
-        if isinstance(a, (list, tuple)):
-            return [conv(v) for v in a]
-        a = np.array(a)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.view(np.int16)).view(
-                torch.bfloat16).to(device)
-        return torch.from_numpy(a).to(device)
-
-    return conv(tree)
-
-
 def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5
                ) -> torch.Tensor:
     """LayerNorm computed in float32 (``image/unet.py::layer_norm``)."""

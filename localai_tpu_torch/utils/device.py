@@ -6,6 +6,9 @@ The port runs on the card by default. A caller that wants the CPU says so
 
 from __future__ import annotations
 
+from typing import Any
+
+import numpy as np
 import torch
 
 
@@ -19,3 +22,24 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def params_from_numpy(tree: Any, device: str | torch.device = "cuda") -> Any:
+    """Carry a parameter tree of the JAX package (nested dicts and lists of
+    numpy arrays) across to torch tensors on ``device``, each in its own
+    dtype (bfloat16 arrives as ``ml_dtypes.bfloat16`` and goes across as
+    its int16 bit pattern)."""
+    device = resolve_device(device)
+
+    def conv(a):
+        if isinstance(a, dict):
+            return {k: conv(v) for k, v in a.items()}
+        if isinstance(a, (list, tuple)):
+            return [conv(v) for v in a]
+        a = np.array(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).view(
+                torch.bfloat16).to(device)
+        return torch.from_numpy(a).to(device)
+
+    return conv(tree)

@@ -10,23 +10,39 @@ the format's sections in the order ``tokenizers`` runs them for
      (special ones included), leftmost-longest; ``single_word``,
      ``lstrip``, ``rstrip`` and ``normalized`` are honoured;
   2. normalizer (``NFC``/``NFKC``/``NFD``/``NFKD``, ``Sequence``,
-     ``Prepend``, ``Replace``, ``Strip``) on each piece between added
-     tokens;
+     ``Prepend``, ``Replace``, ``Strip``, ``BertNormalizer``) on each
+     piece between added tokens;
   3. pre-tokenizer (``ByteLevel``, ``Split``, ``Metaspace``, ``Digits``,
-     ``Sequence``);
+     ``BertPreTokenizer``, ``Sequence``);
   4. model: ``BPE`` (ranked merges, ``ignore_merges``, ``unk_token``,
      ``fuse_unk``, ``byte_fallback``, ``continuing_subword_prefix``,
      ``end_of_word_suffix``), with a word → ids cache; or ``WordLevel``
      (one vocabulary entry a word, else ``unk_token``: the model of the
      ``tokenizer.json`` that ``utils/gguf.py`` writes from a GGUF's
-     vocabulary, which has no pre-tokenizer, so a whole text is one word).
+     vocabulary, which has no pre-tokenizer, so a whole text is one word);
+     or ``WordPiece`` (greedy longest-match-first over the vocabulary,
+     ``continuing_subword_prefix`` on every piece after a word's first,
+     ``unk_token`` for a word with no split or longer than
+     ``max_input_chars_per_word``: BERT's model).
 
 ``decode(ids)`` maps ids to tokens (added tokens to their content) and
 runs the decoder (``ByteLevel``, ``Metaspace``, ``Replace``,
-``ByteFallback``, ``Fuse``, ``Strip``, ``Sequence``) over all of them,
+``ByteFallback``, ``Fuse``, ``Strip``, ``WordPiece``, ``Sequence``) over
+all of them,
 as ``decode(ids, skip_special_tokens=False)`` does. The post-processor is
 never run (the serving path never asks for it). A component this reader
-does not implement fails at load with a ``ValueError`` naming it.
+does not implement fails at load with a ``ValueError`` naming it, and so
+does a BERT component without a field that ``tokenizers`` requires.
+``token_to_id`` looks a token up among the added tokens, then in the
+model's vocabulary, as ``tokenizers`` does.
+
+The BERT components classify characters with this interpreter's
+``unicodedata`` (Unicode 15.0): control characters (Cc, Cf, Co, Cs, but
+tab, line feed and carriage return) are removed, White_Space becomes a
+space, punctuation is ASCII punctuation or a ``P*`` category, accents are
+the ``Mn`` marks of NFD. ``tokenizers`` takes these classes from older
+tables (and lowercases with newer ones), so a few hundred code points
+assigned or reclassified since differ (recorded in ROADMAP).
 
 The regexes of the format are Oniguruma's. ``\\p{..}``, ``\\s``, ``\\d``
 and ``\\w`` are rewritten into explicit character classes built from
@@ -305,6 +321,8 @@ def _normalizer(spec: Optional[dict]) -> Normalizer:
         return lambda s: pre + s if s else s
     if kind == "Replace":
         return _replacer(spec)
+    if kind == "BertNormalizer":
+        return _bert_normalizer(spec)
     if kind == "Strip":
         ws = "".join(_white_space())
         left, right = spec.get("strip_left", True), spec.get("strip_right",
@@ -318,6 +336,84 @@ def _normalizer(spec: Optional[dict]) -> Normalizer:
             return s
         return strip
     raise ValueError(f"tokenizer.json: normalizer {kind!r} is not supported")
+
+
+def _required(spec: dict, kind: str, *fields: str) -> list:
+    """The fields ``tokenizers`` needs to read a component, else a
+    ``ValueError`` naming the component and the field."""
+    missing = [f for f in fields if f not in spec]
+    if missing:
+        raise ValueError(f"tokenizer.json: {kind} needs the field "
+                         f"{missing[0]!r}")
+    return [spec[f] for f in fields]
+
+
+# BERT's Chinese-character blocks (CJK ideographs and their extensions;
+# ``tokenizers``' ``is_chinese_char``)
+_CJK = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF),
+        (0x2A700, 0x2B73F), (0x2B740, 0x2B81F), (0x2B920, 0x2CEAF),
+        (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
+
+
+def _is_cjk(c: str) -> bool:
+    cp = ord(c)
+    return any(lo <= cp <= hi for lo, hi in _CJK)
+
+
+def _bert_drops(c: str) -> bool:
+    """``clean_text`` removes NUL, U+FFFD and control characters (tab,
+    line feed and carriage return are white space instead)."""
+    if c in "\t\n\r":
+        return False
+    return c in "\0\ufffd" or unicodedata.category(c) in ("Cc", "Cf",
+                                                           "Co", "Cs")
+
+
+def _bert_normalizer(spec: dict) -> Normalizer:
+    """``BertNormalizer``: ``clean_text``, then ``handle_chinese_chars``
+    (spaces around each CJK ideograph), ``strip_accents`` (NFD without
+    ``Mn`` marks; null follows ``lowercase``), ``lowercase`` (each
+    character's own lowercase mapping, no final-sigma rule)."""
+    clean, chinese, lower = _required(spec, "BertNormalizer", "clean_text",
+                                      "handle_chinese_chars", "lowercase")
+    strip = spec.get("strip_accents")
+    if strip is None:
+        strip = lower
+    ws = _white_space()
+    cat = unicodedata.category
+
+    def run(s: str) -> str:
+        if clean:
+            s = "".join(" " if c in ws else c for c in s
+                        if not _bert_drops(c))
+        if chinese:
+            s = "".join(f" {c} " if _is_cjk(c) else c for c in s)
+        if strip:
+            s = "".join(c for c in unicodedata.normalize("NFD", s)
+                        if cat(c) != "Mn")
+        if lower:
+            s = "".join(c.lower() for c in s)
+        return s
+    return run
+
+
+_ASCII_PUNCT = frozenset("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+
+
+def _is_bert_punct(c: str) -> bool:
+    return c in _ASCII_PUNCT or unicodedata.category(c)[0] == "P"
+
+
+def _bert_pre_tokenize(s: str, first: bool) -> list[tuple[str, bool]]:
+    """``BertPreTokenizer``: split on white space (removed), then isolate
+    each punctuation character."""
+    ws = _white_space()
+    out: list[tuple[str, bool]] = []
+    for a, b in _split(s, _char_matches(lambda c: c in ws, s), "Removed"):
+        word = s[a:b]
+        out.extend((word[c:d], first and a + c == 0) for c, d in _split(
+            word, _char_matches(_is_bert_punct, word), "Isolated"))
+    return out
 
 
 def _replacer(spec: dict) -> Callable[[str], str]:
@@ -416,6 +512,8 @@ def _pre_tokenizer(spec: Optional[dict]) -> PreTokenizer:
             return _pieces(s, first, _split(
                 s, _char_matches(lambda c: c == rep, s), "MergedWithNext"))
         return _each(metaspace)
+    if kind == "BertPreTokenizer":
+        return _each(_bert_pre_tokenize)
     if kind == "Digits":
         behavior = ("Isolated" if spec.get("individual_digits", False)
                     else "Contiguous")
@@ -593,6 +691,19 @@ def _decoder(spec: Optional[dict]) -> Optional[Decoder]:
         return _byte_fallback
     if kind == "Fuse":
         return lambda tokens: ["".join(tokens)]
+    if kind == "WordPiece":
+        prefix, cleanup = _required(spec, "WordPiece decoder", "prefix",
+                                    "cleanup")
+
+        def wordpiece(tokens: list[str]) -> list[str]:
+            out = []
+            for i, t in enumerate(tokens):
+                if i:
+                    t = (t.replace(prefix, "", 1) if t.startswith(prefix)
+                         else " " + t)
+                out.append(_cleanup(t) if cleanup else t)
+            return out
+        return wordpiece
     if kind == "Strip":
         content = spec["content"]
         start, stop = int(spec.get("start", 0)), int(spec.get("stop", 0))
@@ -609,6 +720,20 @@ def _decoder(spec: Optional[dict]) -> Optional[Decoder]:
             return out
         return strip
     raise ValueError(f"tokenizer.json: decoder {kind!r} is not supported")
+
+
+# the WordPiece decoder's ``cleanup``: tokenization artefacts of English
+# punctuation and contractions, replaced in this order
+_CLEANUP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","),
+            (" ' ", "'"), (" n't", "n't"), (" 'm", "'m"),
+            (" do not", " don't"), (" 's", "'s"), (" 've", "'ve"),
+            (" 're", "'re"))
+
+
+def _cleanup(t: str) -> str:
+    for old, new in _CLEANUP:
+        t = t.replace(old, new)
+    return t
 
 
 _BYTE_TOKEN = re.compile(r"<0x([0-9A-Fa-f]{2})>")
@@ -713,7 +838,64 @@ class WordLevel:
         return (tid,)
 
 
-_MODELS = {"BPE": BPE, "WordLevel": WordLevel}
+class WordPiece:
+    """The ``WordPiece`` model of ``tokenizers`` (BERT's): a word longer
+    than ``max_input_chars_per_word`` characters is ``unk_token``; else it
+    is cut greedily into the longest vocabulary entries from its start,
+    each piece after the first looked up with
+    ``continuing_subword_prefix``, and a word with a remainder no entry
+    matches is ``unk_token`` whole."""
+
+    def __init__(self, spec: dict):
+        vocab, unk, prefix, max_chars = _required(
+            spec, "WordPiece model", "vocab", "unk_token",
+            "continuing_subword_prefix", "max_input_chars_per_word")
+        self.vocab: dict[str, int] = dict(vocab)
+        self.vocab_r = {i: t for t, i in self.vocab.items()}
+        self.unk_token: str = unk
+        self.prefix: str = prefix
+        self.max_chars = int(max_chars)
+        self._cache: dict[str, tuple[int, ...]] = {}
+
+    def _unk(self) -> tuple[int, ...]:
+        tid = self.vocab.get(self.unk_token)
+        if tid is None:
+            raise ValueError(f"tokenizer.json: WordPiece unk_token "
+                             f"{self.unk_token!r} is not in the vocabulary")
+        return (tid,)
+
+    def tokenize(self, word: str) -> tuple[int, ...]:
+        if not word:
+            return ()
+        hit = self._cache.get(word)
+        if hit is None:
+            hit = self._pieces(word)
+            if len(self._cache) < BPE.CACHE_WORDS:
+                self._cache[word] = hit
+        return hit
+
+    def _pieces(self, word: str) -> tuple[int, ...]:
+        if len(word) > self.max_chars:
+            return self._unk()
+        ids: list[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            while end > start:
+                piece = word[start:end]
+                tid = self.vocab.get(self.prefix + piece if start
+                                     else piece)
+                if tid is not None:
+                    ids.append(tid)
+                    break
+                end -= 1
+            else:
+                return self._unk()
+            start = end
+        return tuple(ids)
+
+
+_MODELS = {"BPE": BPE, "WordLevel": WordLevel, "WordPiece": WordPiece}
 
 
 # ---------------------------------------------------------------------------
@@ -738,6 +920,7 @@ class TokenizerJSON:
         self._decoder = _decoder(spec.get("decoder"))
         added = list(spec.get("added_tokens") or [])
         self.added_r = {int(t["id"]): t["content"] for t in added}
+        self.added = {t["content"]: int(t["id"]) for t in added}
         raw = [t for t in added if not t.get("normalized", False)]
         norm = [t for t in added if t.get("normalized", False)]
         self._raw_split = _AddedTokens(raw, [t["content"] for t in raw])
@@ -766,6 +949,12 @@ class TokenizerJSON:
                 for word, _ in self.pre_tokenize([(normalized[c:d], first)]):
                     ids.extend(self.model.tokenize(word))
         return ids
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        """The id of ``token``: an added token's, else the vocabulary's,
+        else None."""
+        tid = self.added.get(token)
+        return tid if tid is not None else self.model.vocab.get(token)
 
     def id_to_token(self, i: int) -> Optional[str]:
         tok = self.added_r.get(i)

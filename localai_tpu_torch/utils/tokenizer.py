@@ -13,7 +13,7 @@ refused here, naming the missing file.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Protocol, Sequence
+from typing import Optional, Protocol, Sequence
 
 from localai_tpu_torch.utils.hf_tokenizer import TokenizerJSON
 
@@ -115,6 +115,12 @@ class HFTokenizer:
 
     def decode(self, ids: Sequence[int]) -> str:
         return self._decode(ids)
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        """The id of ``token`` (an added token's, else the vocabulary's),
+        or None: ``tokenizers``' ``token_to_id``, which the JAX package's
+        encoders ask for ``[CLS]``/``[SEP]``/``[PAD]``."""
+        return self._tok.token_to_id(token)
 
 
 def load_tokenizer(model_dir: str | Path) -> Tokenizer:

@@ -336,45 +336,77 @@ def test_function_section_loads_into_equal_fields(tmp_path, function):
 
 
 UNPORTED = ("mamba", "rwkv", "huggingface", "langchain-huggingface")
+# each backend's model ref: the recurrent presets, a remote repo name
+BACKEND_MODEL = {"mamba": "debug:mamba-tiny", "rwkv": "debug:rwkv-tiny",
+                 "huggingface": "org/remote-model",
+                 "langchain-huggingface": "org/remote-model"}
+
+
+def _both_managers(models):
+    """The port's and the JAX package's manager over one models dir."""
+    from localai_tpu.config.loader import ConfigLoader as JaxConfigLoader
+    from localai_tpu.models.manager import ModelManager as JaxManager
+
+    loader = JaxConfigLoader(models)
+    loader.load_from_path()
+    jm = JaxManager(JaxAppConfig(model_path=str(models)), loader)
+    port_loader = ConfigLoader(models)
+    port_loader.load_from_path()
+    pm = ModelManager(AppConfig(model_path=str(models), device="cpu"),
+                      port_loader)
+    return pm, jm
 
 
 @pytest.mark.parametrize("backend", UNPORTED)
 def test_backend_of_another_engine_fails_at_load(tmp_path, backend):
     """The JAX package routes these backends away from the llama runner
     (to the recurrent-state engine or to a remote-API client); the port
-    has neither, so it refuses them at load and names the backend instead
-    of serving a llama model."""
-    p = tmp_path / "b.yaml"
-    p.write_text(yaml.safe_dump({"name": "b", "model": "debug:tiny",
-                                 "backend": backend}))
-    with pytest.raises(ValueError, match=f"backend '{backend}'"):
-        load_config_file(p)
-    # a config built in code, past the loader, is refused by the build
-    with pytest.raises(ValueError, match=f"backend '{backend}'"):
-        build_serving_model(ModelConfig(name="b", model="debug:tiny",
-                                        backend=backend),
-                            AppConfig(device="cpu"))
+    loads the YAML and its manager builds the same kind of serving model
+    (a remote client holds its ``api_token``; it contacts nothing until a
+    request comes)."""
+    doc = {"name": "b", "model": BACKEND_MODEL[backend], "backend": backend,
+           "api_token": "tok", "api_base": "http://127.0.0.1:9"}
+    (tmp_path / "b.yaml").write_text(yaml.safe_dump(doc))
+    cfg = load_config_file(tmp_path / "b.yaml")
+    assert (cfg.backend, cfg.api_token, cfg.api_base) == (
+        backend, "tok", "http://127.0.0.1:9")
+    pm, jm = _both_managers(tmp_path)
+    try:
+        ours, ref = pm.get("b"), jm.get("b")
+        assert type(ours).__name__ == type(ref).__name__ == (
+            "MambaServingModel" if backend in ("mamba", "rwkv")
+            else "HFApiServingModel")
+        assert not hasattr(ours, "runner")
+        assert (ours.vision, ours.image_token_id) == (None, 0)
+        assert pm.loaded_names() == ["b"]
+    finally:
+        pm.shutdown()
+        jm.shutdown_all()
 
 
 def test_mamba_yaml_builds_the_recurrent_engine_on_the_reference(tmp_path):
-    """One YAML with ``backend: mamba``: the JAX package serves it with its
-    MambaServingModel, the port refuses it at load (it would otherwise
-    have built a llama runner)."""
-    from localai_tpu.config.loader import ConfigLoader as JaxConfigLoader
-    from localai_tpu.models.mamba_serving import MambaServingModel
-    from localai_tpu.models.manager import ModelManager as JaxManager
+    """One YAML with ``backend: mamba``: both packages serve it with their
+    MambaServingModel, and the port's answers a greedy generation through
+    its scheduler (the two presets draw different random weights; token
+    parity on shared weights is tests/test_torch_mamba.py's)."""
+    from localai_tpu.models.mamba_serving import MambaServingModel as JaxMamba
+    from localai_tpu_torch.models.mamba_serving import MambaServingModel
 
     (tmp_path / "m.yaml").write_text(yaml.safe_dump(
         {"name": "m", "model": "debug:mamba-tiny", "backend": "mamba"}))
-    loader = JaxConfigLoader(tmp_path)
-    loader.load_from_path()
-    jm = JaxManager(JaxAppConfig(model_path=str(tmp_path)), loader)
+    pm, jm = _both_managers(tmp_path)
     try:
-        assert isinstance(jm.get("m"), MambaServingModel)
+        assert isinstance(jm.get("m"), JaxMamba)
+        sm = pm.get("m")
+        assert isinstance(sm, MambaServingModel)
+        h = sm.scheduler.submit(GenRequest(
+            prompt=sm.tokenizer.encode("hello", add_bos=True),
+            max_new_tokens=8, temperature=0.0)).result(60)
+        assert h.finish_reason in ("length", "stop")
+        assert len(h.token_ids) <= 8 and not sm.busy
     finally:
+        pm.shutdown()
         jm.shutdown_all()
-    with pytest.raises(ValueError, match="backend 'mamba'"):
-        load_config_file(tmp_path / "m.yaml")
 
 
 # -- prompt templates over HTTP ---------------------------------------------

@@ -41,7 +41,13 @@ from test_torch_llama import (  # noqa: E402
     one_torch_thread,  # noqa: F401 — autouse fixture
     write_hf_checkpoint,
 )
+from test_torch_reranker import (  # noqa: E402
+    CKPT_CFG,
+    _jax_params,
+    write_bert_checkpoint,
+)
 from test_torch_runner import _model  # noqa: E402
+from test_torch_tokenizer import _wordpiece  # noqa: E402
 
 RUNNER_KW = dict(num_slots=2, max_ctx=160, prefill_buckets=[32],
                  kv_dtype="float32")
@@ -108,6 +114,10 @@ def served(tmp_path_factory):
                          dtype="float32")
     ckpt = write_hf_checkpoint(root / "ckpt", cfg,
                                jl.init_params(jax.random.key(11), cfg))
+    bert = write_bert_checkpoint(root / "bert", CKPT_CFG,
+                                 _jax_params(CKPT_CFG, 3),
+                                 _wordpiece(lowercase=True,
+                                            strip_accents=None))
     models = root / "models"
     models.mkdir()
     base = {"model": str(ckpt), "context_size": 128, "roles": ROLES}
@@ -118,7 +128,7 @@ def served(tmp_path_factory):
               "engine": {**ENGINE, "kv_paged": False,
                          "prefill_buckets": [32, 64]}},
         "m": {"engine": ENGINE},
-        "r": {"backend": "reranker", "engine": ENGINE},
+        "r": {"backend": "reranker", "model": str(bert)},
     }
     for name, extra in docs.items():
         (models / f"{name}.yaml").write_text(yaml.safe_dump(
@@ -128,7 +138,7 @@ def served(tmp_path_factory):
     server = APIServer(ModelManager(AppConfig(model_path=str(models),
                                               device="cpu"), loader),
                        "127.0.0.1", 0).start()
-    yield server, str(ckpt), loader
+    yield server, str(ckpt), loader, str(bert)
     server.shutdown()
 
 
@@ -206,19 +216,28 @@ def test_rerank_orders_by_embedding_cosine(served):
 
 
 def test_rerank_refuses_a_cross_encoder(served):
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(served[0], "/rerank", {"model": "r", "query": "q",
-                                     "documents": ["d"]})
-    assert e.value.code == 400
-    assert "cross-encoder" in json.loads(e.value.read())["error"]["message"]
-    assert "r" not in served[0].manager.loaded_names()
+    """A ``backend: reranker`` model used to be refused here; it now scores
+    (query, document) pairs with the cross-encoder, as the JAX package's
+    ``/v1/rerank`` does."""
+    from localai_tpu.models.reranker import resolve_reranker
+
+    docs = ["a cat sat on the mat", "the processor", "caches"]
+    out = _post(served[0], "/rerank", {"model": "r", "query": "cat",
+                                       "documents": docs})
+    want, n = resolve_reranker(served[3]).score_with_usage("cat", docs)
+    order = sorted(range(len(docs)), key=lambda i: -want[i])
+    assert [r["index"] for r in out["results"]] == order
+    got = [r["relevance_score"] for r in out["results"]]
+    np.testing.assert_allclose(got, [want[i] for i in order], atol=1e-5)
+    assert out["usage"] == {"total_tokens": n, "prompt_tokens": n}
+    assert "r" in served[0].manager.loaded_names()
 
 
 def test_contiguous_chat_matches_jax_and_embeds_beside_it(served):
     """``kv_paged: false`` serves the JAX contiguous scheduler's greedy
     text, while embeddings requests run on their own threads beside the
     engine thread's decode steps."""
-    server, ckpt, loader = served
+    server, ckpt, loader, _ = served
     sm = server.manager.get("c")
     assert not sm.runner.paged
     messages = [{"role": "user", "content": "tell me a story about a dog"}]

@@ -150,6 +150,21 @@ def test_vision_and_media_modules_are_covered():
             "utils/media.py", "models/vision.py"} <= rel
 
 
+def test_encoder_recurrent_and_remote_modules_are_covered():
+    """The BERT encoders, the recurrent-state models and their serving
+    facade, and the remote-API client are among the modules and sources
+    the rules above check: nothing of ``jax`` or ``localai_tpu``, and only
+    the stdlib, numpy and torch at module level."""
+    mods = set(_port_modules())
+    for m in ("models.reranker", "models.mamba", "models.rwkv",
+              "models.mamba_serving", "models.hf_api"):
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    assert {"models/reranker.py", "models/mamba.py", "models/rwkv.py",
+            "models/mamba_serving.py", "models/hf_api.py"} <= rel
+
+
 @pytest.mark.parametrize("path", [p for p in SOURCES
                                   if p.parent != REPO / "scripts"],
                          ids=lambda p: p.name if p.parent == REPO else

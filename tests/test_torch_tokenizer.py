@@ -23,6 +23,7 @@ text; streamed deltas of ``IncrementalDetokenizer`` over both decoders
 are compared too. Components the reader lacks are refused at load.
 """
 
+import functools
 import json
 import sys
 import unicodedata
@@ -456,7 +457,7 @@ UNSUPPORTED = [
     ("model", {"type": "Unigram", "vocab": [["a", 0.0]]}, "Unigram"),
     ("normalizer", {"type": "BertNormalizer"}, "BertNormalizer"),
     ("normalizer", {"type": "Lowercase"}, "Lowercase"),
-    ("pre_tokenizer", {"type": "BertPreTokenizer"}, "BertPreTokenizer"),
+    ("pre_tokenizer", {"type": "Whitespace"}, "Whitespace"),
     ("pre_tokenizer", {"type": "Split", "pattern": {"Regex": r"\p{Xx}"},
                        "behavior": "Isolated", "invert": False}, "Xx"),
     ("decoder", {"type": "WordPiece"}, "WordPiece"),
@@ -467,6 +468,9 @@ UNSUPPORTED = [
                          ids=[u[2] for u in UNSUPPORTED])
 def test_unknown_component_is_refused_at_load(tmp_path, section, value,
                                               named):
+    """A component the reader lacks, or a BERT component without a field
+    that ``tokenizers`` requires (these three specs fail in
+    ``Tokenizer.from_str`` too), is refused at load, naming it."""
     spec = {"model": {"type": "BPE", "vocab": {"a": 0, "b": 1},
                       "merges": []}, "added_tokens": []}
     spec[section] = value
@@ -667,3 +671,216 @@ def test_token_bytes_table_at_llama3_size(pairs):
     JAX package's over ``tokenizers``."""
     port, ref = pairs["smoke"]
     assert token_bytes_table(port) == jax_token_bytes_table(ref)
+
+
+# ---------------------------------------------------------------------------
+# WordPiece (BERT): BertNormalizer, BertPreTokenizer, the model, the decoder
+
+REPO_TEXT = [line for name in ("README.md", "SURVEY.md")
+             for line in (Path(__file__).resolve().parents[1] / name)
+             .read_text(encoding="utf-8").splitlines() if line.strip()]
+BERT_SPECIAL_TOKENS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+# what BERT's components treat specially: CJK, accents, control and
+# format characters, Unicode and ASCII punctuation, long words, unknowns
+BERT_CORPUS = CORPUS + REPO_TEXT[:40] + [
+    "Le café est très bon. Über straße naïve résumé Ñandú ÅÇÉÎÕÜ",
+    "ΣΑΣ ΟΔΟΣ İstanbul ǅemal ﬁnal ß",
+    "東京は日本の首都です。北京是中国的首都。𠀋𡈽 ideographs 가나다",
+    "x\x00y�z\x07\x1b tab\there nl\nthere cr\rhere \x85nel ​zw",
+    "soft­hyphen bidi‎‮marks⁦",
+    "¿Qué? ¡Sí! «quote» — dash… “curly” ‘single’ (paren) [br] {c}",
+    "$5.00 & 100% #tag @user ^caret `tick` ~tilde |pipe| \\slash",
+    "a" * 30 + " " + "b" * 101 + " ok supercalifragilisticexpialidocious",
+    "[CLS] hello [SEP] world[MASK] [UNK] [unused1]",
+    "don't do not it's they're I'm we've you're can't won't",
+    "emoji 😀🎉 unknown ⟁⟂ symbols ∑∫√",
+]
+
+
+def _wordpiece(lowercase: bool, strip_accents, max_chars: int = 100,
+               vocab_size: int = 2000) -> dict:
+    """A WordPiece trained with ``tokenizers`` on the repo's README and
+    SURVEY, with BERT's normalizer, pre-tokenizer and decoder."""
+    tok = Tokenizer(models.WordPiece(unk_token="[UNK]",
+                                     max_input_chars_per_word=max_chars))
+    tok.normalizer = normalizers.BertNormalizer(
+        lowercase=lowercase, strip_accents=strip_accents)
+    tok.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+    tok.decoder = decoders.WordPiece()
+    tok.train_from_iterator(REPO_TEXT, trainers.WordPieceTrainer(
+        vocab_size=vocab_size, special_tokens=BERT_SPECIAL_TOKENS,
+        show_progress=False))
+    return json.loads(tok.to_str())
+
+
+WORDPIECES = {
+    "wp-uncased": dict(lowercase=True, strip_accents=None),
+    "wp-cased": dict(lowercase=False, strip_accents=None),
+    "wp-uncased-accents": dict(lowercase=True, strip_accents=False),
+    "wp-cased-strip": dict(lowercase=False, strip_accents=True),
+    "wp-short-words": dict(lowercase=True, strip_accents=None, max_chars=6),
+}
+WP_NAMES = sorted(WORDPIECES) + ["bert-smoke"]
+
+
+@pytest.fixture(scope="module")
+def wp_pairs(tmp_path_factory) -> dict:
+    """name → (port tokenizer, JAX package's tokenizer) over one dir."""
+    root = tmp_path_factory.mktemp("wordpiece")
+    specs = {k: _wordpiece(**v) for k, v in WORDPIECES.items()}
+    specs["bert-smoke"] = chip_smoke.bert_tokenizer_spec()
+    out = {}
+    for name, spec in specs.items():
+        d = _write(root / name, spec, {"model_type": "bert"})
+        out[name] = (port_tok.load_tokenizer(d), jax_tok.load_tokenizer(d))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bert_char_divergent(c: str) -> bool:
+    """Whether BERT's normalizer and pre-tokenizer treat ``c`` differently
+    here and in ``tokenizers`` (whose character classes come from other
+    Unicode versions): the pipelines compared on ``a{c}b`` in both
+    casings."""
+    for lower, strip in ((True, None), (False, False), (False, True)):
+        ref_n = normalizers.BertNormalizer(lowercase=lower,
+                                           strip_accents=strip)
+        port_n = hf_tokenizer._normalizer(_spec_of("normalizer", ref_n))
+        text = f"a{c}b"
+        if port_n(text) != ref_n.normalize_str(text):
+            return True
+        words = [w for w, _ in pre_tokenizers.BertPreTokenizer()
+                 .pre_tokenize_str(text)]
+        if [w for w, _ in hf_tokenizer._bert_pre_tokenize(text, True)] \
+                != words:
+            return True
+    return False
+
+
+def _bert_divergent(text: str) -> bool:
+    return any(_bert_char_divergent(c) for c in set(text))
+
+
+def test_wordpiece_corpus_has_no_recorded_divergence():
+    assert not any(_bert_divergent(t) for t in BERT_CORPUS)
+
+
+@pytest.mark.parametrize("name", WP_NAMES)
+def test_wordpiece_loads_with_the_reference_attributes(wp_pairs, name):
+    port, ref = wp_pairs[name]
+    assert port.vocab_size == ref.vocab_size
+    for tok in BERT_SPECIAL_TOKENS + ["the", "##s", "no-such-token"]:
+        assert port.token_to_id(tok) == ref._tok.token_to_id(tok), tok
+
+
+@pytest.mark.parametrize("name", WP_NAMES)
+@pytest.mark.parametrize("k", range(len(BERT_CORPUS)))
+def test_wordpiece_encode_decode_equal_on_the_corpus(wp_pairs, name, k):
+    port, ref = wp_pairs[name]
+    text = BERT_CORPUS[k]
+    ids = ref.encode(text, add_bos=False)
+    assert port.encode(text, add_bos=True) == ids, text
+    assert port.decode(ids) == ref.decode(ids)
+
+
+@pytest.mark.parametrize("name", WP_NAMES)
+def test_wordpiece_decode_equal_on_arbitrary_ids(wp_pairs, name):
+    """Random id runs (special tokens, ``##`` pieces next to words and
+    punctuation, the cleanup's contractions) decode alike."""
+    port, ref = wp_pairs[name]
+    rng = np.random.default_rng(11)
+    V = ref.vocab_size
+    for _ in range(300):
+        ids = [int(i) for i in rng.integers(0, V, rng.integers(1, 12))]
+        assert port.decode(ids) == ref.decode(ids), ids
+
+
+@pytest.mark.parametrize("name", WP_NAMES)
+@settings(max_examples=50, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(text=st.text(st.characters(blacklist_categories=("Cs",)),
+                    max_size=40))
+def test_wordpiece_encode_equal_on_arbitrary_text(wp_pairs, name, text):
+    """Equal ids, except where a character of the text is classed
+    otherwise by ``tokenizers``' Unicode tables; decode is equal always."""
+    port, ref = wp_pairs[name]
+    ids = ref.encode(text)
+    got = port.encode(text)
+    if not _bert_divergent(text):
+        assert got == ids
+    assert port.decode(ids) == ref.decode(ids)
+    assert port.decode(got) == ref.decode(got)
+
+
+# (text, stage): a character of each class whose Unicode data differs
+# between this interpreter (15.0) and ``tokenizers`` 0.22.2's tables
+BERT_DIVERGENT = [
+    ("x࢐y", "clean_text"),     # Cf since Unicode 14: removed here
+    ("x⹃y", "punctuation"),    # Po since Unicode 10: isolated here
+    ("x࢘y", "strip_accents"),  # Mn since Unicode 14: stripped here
+    ("xᲉy", "lowercase"),      # Unicode 16: lowercased there only
+]
+
+
+@pytest.mark.parametrize("text,stage", BERT_DIVERGENT,
+                         ids=[b[1] for b in BERT_DIVERGENT])
+def test_recorded_bert_unicode_divergences(text, stage):
+    """The port classes characters with this interpreter's ``unicodedata``;
+    ``tokenizers`` takes BERT's classes from older tables (and lowercases
+    with newer ones): each of these characters is divergent, and the
+    same text without it is not."""
+    assert _bert_divergent(text)
+    assert not _bert_divergent(text.replace(text[1], ""))
+    if stage == "lowercase":
+        assert unicodedata.category(text[1]) == "Cn"
+
+
+def test_bert_components_equal_tokenizers():
+    """BertNormalizer in every setting, BertPreTokenizer and the WordPiece
+    decoder (cleanup on and off) against their ``tokenizers``
+    counterparts."""
+    texts = [t for t in BERT_CORPUS + PLAIN if not _bert_divergent(t)]
+    for lower in (True, False):
+        for strip in (None, True, False):
+            for clean in (True, False):
+                for chinese in (True, False):
+                    ref = normalizers.BertNormalizer(
+                        clean_text=clean, handle_chinese_chars=chinese,
+                        strip_accents=strip, lowercase=lower)
+                    port = hf_tokenizer._normalizer(
+                        _spec_of("normalizer", ref))
+                    for text in texts:
+                        assert port(text) == ref.normalize_str(text), text
+    pre = pre_tokenizers.BertPreTokenizer()
+    port_pre = hf_tokenizer._pre_tokenizer(_spec_of("pre_tokenizer", pre))
+    for text in texts:
+        assert [w for w, _ in port_pre([(text, True)])] == [
+            w for w, _ in pre.pre_tokenize_str(text)], text
+    pieces = ["##s", "##ing", "the", "cat", ".", ",", "?", "!", "'", "n",
+              "##'", "'t", "n't", "'m", "'s", "'ve", "'re", "do", "not",
+              "[CLS]", "##", "a", "##b", " "]
+    rng = np.random.default_rng(4)
+    for cleanup in (True, False):
+        ref = decoders.WordPiece(prefix="##", cleanup=cleanup)
+        port = hf_tokenizer._decoder(_spec_of("decoder", ref))
+        for _ in range(400):
+            toks = [pieces[int(i)] for i in rng.integers(
+                0, len(pieces), rng.integers(0, 8))]
+            assert "".join(port(toks)) == ref.decode(toks), toks
+
+
+def test_bert_smoke_tokenizer_shape():
+    """The smoke's 30522-id file: bert-base-uncased's special ids, every
+    ASCII word of the corpus (what its documents are made of) one token."""
+    spec = chip_smoke.bert_tokenizer_spec()
+    vocab = spec["model"]["vocab"]
+    assert len(vocab) == 30522 == len(set(vocab.values()))
+    assert sorted(vocab.values()) == list(range(30522))
+    assert {t: vocab[t] for t in BERT_SPECIAL_TOKENS} == {
+        "[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103}
+    port = hf_tokenizer.TokenizerJSON(spec)
+    words = [w for w in chip_smoke._corpus_words()
+             if w.isascii() and w.isalpha()]
+    assert len(words) > 100
+    for w in words:
+        assert port.encode(w) == [vocab[w]], w

@@ -3,7 +3,7 @@ package's, on the CPU.
 
 The JAX package's tower weights (seeded, float32, every leaf perturbed so
 biases and gains are not trivial) are carried across with
-``models.vision.params_from_numpy``. Held equal: ``preprocess`` (PIL's
+``utils.device.params_from_numpy``. Held equal: ``preprocess`` (PIL's
 bicubic against the port's) and ``patchify``; the tower's ``forward``
 within 1e-5 at the ``vit`` preset and at a wider one (head dim 64,
 ``feature_layer`` -2, tanh GELU); a llava checkpoint in both tensor
@@ -58,6 +58,7 @@ from localai_tpu_torch.engine.scheduler import GenRequest, Scheduler  # noqa: E4
 from localai_tpu_torch.models import llama as tl  # noqa: E402
 from localai_tpu_torch.models import loader as tloader  # noqa: E402
 from localai_tpu_torch.models import vision as tv  # noqa: E402
+from localai_tpu_torch.utils.device import params_from_numpy  # noqa: E402
 from localai_tpu_torch.models.manager import ModelManager, build_runner  # noqa: E402
 from localai_tpu_torch.spec import NGramDrafter, SpecEngine  # noqa: E402
 from localai_tpu_torch.utils.tokenizer import ByteTokenizer  # noqa: E402
@@ -100,7 +101,7 @@ def towers(cfg, seed: int = 0):
     tree = tower_tree(cfg, seed)
     jt = jv.VisionTower(cfg, jax.tree.map(jnp.asarray, tree))
     tt = tv.VisionTower(tv.VisionConfig(**dataclasses.asdict(cfg)),
-                        tv.params_from_numpy(tree, "cpu"))
+                        params_from_numpy(tree, "cpu"))
     return jt, tt
 
 
