@@ -199,7 +199,34 @@ Phases (any failure raises and the script exits non-zero):
      inputs of 10–400 tokens), float32 checkpoints with a 30522-id
      WordPiece tokenizer.json written here, scores and vectors within
      1e-4 of the CPU's; ms a request, inputs/s and the forward on CUDA
-     events.
+     events;
+ 10. the engine's last three load refusals, lifted: ``w8a8`` (after the
+     K4/K5 cases) holds the int8_w8a8 product (``quant.int8_matmul``:
+     torch._int_mm, rows padded past its 16-row floor) equal to the exact
+     float64 product at Llama-3-8B's projections and lm_head at M = 8, 40
+     and 256 and the edges 1, 16 and 17, and a tied table, timing the
+     whole w8a8 matmul, the product, K4 on the same weight and a bf16
+     torch.matmul; after the parity phase, card = CPU greedy tokens
+     (debug:small, float32) for int8_w8a8 weights over an int8 pool
+     (paged: K1 launches, K4 none), for self-extend (ga_n 4, ga_w 32) on
+     the contiguous layout past a trained context cut to 64, float32 and
+     int8 caches (no kernel launches), and for the disk prompt cache: a
+     cold serve and a warm one from its directory on the paged and
+     contiguous layouts, float32 and int8, on both devices, and the
+     card's directory read by the CPU; after the speculating bf16 serve,
+     three serves of debug:llama3-8b over HTTP, five chats each (one
+     streamed): ``llama3-8b-w8a8`` (int8_w8a8 weights, an int8 pool, the
+     default paged layout with speculation: K1 32 a plain step, K4 0,
+     weight bytes and peak memory), ``llama3-8b-bf16-selfextend``
+     (grp_attn_n 2, grp_attn_w 2048, context 16384: the manager's
+     contiguous layout without speculation, no kernel launch, then a
+     12000-token prompt past the trained 8192, its TTFT and peak memory)
+     and ``llama3-8b-bf16-promptcache`` (the default paged layout with
+     speculation and ``prompt_cache_path``: a chat behind a ~2000-token
+     system prompt stores one entry, the server restarts on the directory
+     and answers from it; the cold and warm TTFT, the entry's bytes, the
+     writer's store ms, the lookup and load ms, and how many of the five
+     texts equal the speculating cache-less server's).
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -227,7 +254,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 # float32: absolute; bfloat16: per slot (per row for the matmuls),
 # relative to that slot's largest output (the output's bf16 rounding is at
 # most 2**-8 of it), so a long-context slot, whose outputs are small, is
@@ -5351,6 +5379,545 @@ def phase_encoders(card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# -- self-extend, int8_w8a8 weights and the disk prompt cache ----------------
+
+# rows of the w8a8 product's timed cases (a decode step, a verify window of
+# 8 slots x (gamma 4 + 1), a prefill chunk's cap) and its untimed edges
+# around torch._int_mm's 16-row floor (the padded rows)
+W8A8_MS = (8, SPEC_M, 256)
+W8A8_EDGES = (1, 16, 17)
+SE_PROMPTS = [[(i * 7 + 3) % 256 for i in range(150)], list(b"hi there")]
+PC_PROMPT = list(b"A shared system prompt that the disk cache keeps: "
+                 b"be brief, be right.")
+# the prompt-cache serve's shared system prompt (~2000 byte tokens)
+PC_PREFIX = " ".join(
+    f"Rule {i}: answer in plain words, cite the manual section {i}."
+    for i in range(1, 400))[:2000]
+
+
+def w8a8_case(M, K, N, *, seed, timed=True, transpose=False) -> dict:
+    """The int8_w8a8 product at x [M, K] against a weight [K, N] (or, with
+    ``transpose``, an [N, K] table) quantized by the port's own quantizer
+    from a seeded normal draw: ``int8_matmul`` (torch._int_mm, rows padded
+    past its 16-row floor, K and N to multiples of 8) must equal the
+    exact float64 product. Timed:
+    the whole w8a8 matmul (per-token quantize of bf16 x, product, both
+    scales), the product alone, the float64 plain version, K4 on the same
+    weight as w8 (where K4 takes the shape), and a bf16 torch.matmul,
+    beside the bound at the int8 peak."""
+    from localai_tpu_torch.models import quant as tq
+    from localai_tpu_torch.ops import qmatmul as qmm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((N, K) if transpose else (K, N), generator=g,
+                    device="cuda") * 0.02
+    x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+    axis = 1 if transpose else 0
+    qt = tq.quantize_tensor(w, axis, "w8a8")
+    xq, _ = tq.quantize_lastdim(x)
+    got = tq.int8_matmul(xq, qt.q, transpose)
+    want = tq.int8_matmul_ref(xq, qt.q, transpose)
+    torch.cuda.synchronize()
+    rec = {"case": f"w8a8{'-T' if transpose else ''}", "M": M, "K": K,
+           "N": N, "exact": bool(torch.equal(got, want)),
+           "max_abs_err": float((got - want).abs().max())}
+    del got, want
+    if timed:
+        mm = tq.matmul_t if transpose else tq.matmul
+        w8 = tq.quantize_tensor(w, axis)
+        w_bf16 = w.to(torch.bfloat16)
+        if transpose:
+            w_bf16 = w_bf16.T
+        nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+        rec.update(
+            ms=time_ms(lambda: mm(x, qt)),
+            product_ms=time_ms(lambda: tq.int8_matmul(xq, qt.q, transpose)),
+            plain_ms=time_ms(lambda: tq.int8_matmul_ref(xq, qt.q, transpose),
+                             iters=5, warmup=1),
+            # K4 takes 128-aligned widths only (not a 32001-id vocabulary)
+            k4_ms=(time_ms(lambda: mm(x, w8)) if qmm.eligible(
+                tuple(x.shape), w8.q, w8.scale, transpose) else None),
+            bf16_ms=time_ms(lambda: torch.matmul(x, w_bf16)),
+            **_bound(nbytes, 2 * M * K * N, torch.int8))
+        del w8, w_bf16
+    print("w8a8 case", json.dumps(rec), flush=True)
+    if not rec["exact"]:
+        raise AssertionError(f"w8a8 product M={M} K={K} N={N}"
+                             f"{' (transposed)' if transpose else ''} "
+                             f"differs from the exact product")
+    return rec
+
+
+def phase_w8a8() -> dict:
+    """The int8_w8a8 product at Llama-3-8B's projections and lm_head at
+    M = 8, 40 and 256 (timed) and 1, 16 and 17 (exactness only), a tied
+    lm_head table, and a 32001-id lm_head (timed) and tied table;
+    prints each step's sum against K4 and bf16.
+    Returns the timed records by "<shape>-m<M>"."""
+    out: dict = {}
+    seed = 700
+    for label, ((K, N), _) in SHAPES_8B.items():
+        for M in W8A8_MS + W8A8_EDGES:
+            seed += 1
+            rec = w8a8_case(M, K, N, seed=seed, timed=M in W8A8_MS)
+            if M in W8A8_MS:
+                out[f"{label}-m{M}"] = rec
+    w8a8_case(8, 2048, 128256, seed=seed + 1, transpose=True, timed=False)
+    # a vocabulary of 32001 ids (a Llama-2 fine-tune's added pad token):
+    # N off a multiple of 8, in the lm_head and a tied table
+    for M in W8A8_MS + W8A8_EDGES:
+        seed += 2
+        out[f"lm_head-v32001-m{M}"] = w8a8_case(
+            M, 4096, 32001, seed=seed, timed=M in W8A8_MS)
+        w8a8_case(M, 4096, 32001, seed=seed + 1, transpose=True, timed=False)
+    count = {s: (c * L_8B if c else 1) for s, (_, c) in SHAPES_8B.items()}
+    for M in W8A8_MS:
+        step = {f: sum(out[f"{s}-m{M}"][f] * n for s, n in count.items())
+                for f in ("ms", "product_ms", "k4_ms", "bf16_ms",
+                          "bound_ms")}
+        print(f"w8a8 matmuls of one 8B forward at M={M} (7 projections x "
+              f"{L_8B} layers + lm_head, from the cases above): "
+              + json.dumps(step), flush=True)
+    return out
+
+
+def _greedy_rows(r, prompts, steps: int = 16) -> list:
+    out, slots = [], []
+    for p in prompts:
+        s = r.acquire_slot()
+        out.append([r.admit(s, list(p), temperature=0.0)])
+        slots.append(s)
+    for _ in range(steps):
+        toks = r.step()
+        for o, s in zip(out, slots):
+            o.append(int(toks[s]))
+    return out
+
+
+def phase_w8a8_selfextend_parity() -> dict:
+    """Card = CPU greedy tokens (debug:small, float32): int8_w8a8 weights
+    with an int8 pool on the paged layout (K1 launches, K4 none), and
+    self-extend (ga_n 4, ga_w 32) on the contiguous layout past a trained
+    context shortened to 64, float32 and int8 caches (no kernel launch).
+    Returns the card runs' launches by mode."""
+    import dataclasses
+
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models.quant import quantize_params
+    from localai_tpu_torch.models.registry import resolve_model
+
+    kernels = _all_kernels()
+    model = resolve_model("debug:small", dtype="float32", device="cpu")
+    short = dataclasses.replace(model.cfg, max_position_embeddings=64)
+    runs = [("paged-w8a8-int8", model.cfg,
+             quantize_params(model.params, "int8_w8a8", device="cpu"),
+             dict(kv_dtype="int8", kv_block_tokens=16, prefill_chunk=32,
+                  paged=True)),
+            ("selfextend-float32", short, model.params,
+             dict(kv_dtype="float32", paged=False, ga_n=4, ga_w=32)),
+            ("selfextend-int8", short, model.params,
+             dict(kv_dtype="int8", paged=False, ga_n=4, ga_w=32))]
+    launches = {}
+    for mode, cfg, params, kw in runs:
+        prompts = SE_PROMPTS if "selfextend" in mode else [
+            list(b"The paged kernel walks each block table"), list(b"hi")]
+        seqs = {}
+        for dev in ("cuda", "cpu"):
+            r = ModelRunner(cfg, _to(params, dev), num_slots=4, max_ctx=256,
+                            prefill_buckets=[64, 128, 256], device=dev, **kw)
+            for w in kernels.values():
+                w.launches = 0
+            seqs[dev] = _greedy_rows(r, prompts)
+            counts = {n: w.launches for n, w in kernels.items()}
+            print(f"parity {mode} {dev} (attention {r.attn_impl}): "
+                  f"{seqs[dev]} launches {json.dumps(counts)}", flush=True)
+            if dev == "cuda":
+                launches[mode] = counts
+                if "selfextend" in mode:
+                    _no_launches(f"parity {mode}", kernels)
+                elif counts["paged_decode_attention"] <= 0 or counts[
+                        "w8_matmul"]:
+                    raise AssertionError(f"parity {mode}: launches {counts}"
+                                         " (want K1 > 0, K4 0)")
+            del r
+        if seqs["cuda"] != seqs["cpu"]:
+            raise AssertionError(
+                f"greedy tokens differ between cuda and cpu ({mode})")
+    return launches
+
+
+def phase_prompt_cache_parity() -> dict:
+    """The disk prompt cache, card = CPU (debug:small, float32): on the
+    paged and contiguous layouts with float32 and int8 KV, a cold serve
+    stores the prompt, a new runner and scheduler on the directory serve
+    it again from a hit with the cold tokens, on both devices alike; and
+    the directory the card wrote is served by the CPU with those tokens.
+    Returns the card runs' launches by mode."""
+    import tempfile
+
+    from localai_tpu_torch.engine.promptcache import PromptKVCache
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.engine.scheduler import GenRequest, Scheduler
+    from localai_tpu_torch.models.registry import resolve_model
+
+    kernels = _all_kernels()
+    model = resolve_model("debug:small", dtype="float32", device="cpu")
+    root = tempfile.mkdtemp(prefix="prompt-cache-parity-")
+    launches = {}
+
+    def serve(dev, params, kw, path):
+        r = ModelRunner(model.cfg, params, num_slots=2, max_ctx=256,
+                        prefill_buckets=[64, 128], device=dev, **kw)
+        cache = PromptKVCache(path)
+        s = Scheduler(r, model.tokenizer, multi_step=4, prompt_cache=cache)
+        try:
+            toks = s.generate(GenRequest(prompt=list(PC_PROMPT),
+                                         max_new_tokens=12, temperature=0.0,
+                                         ignore_eos=True),
+                              timeout=300).token_ids
+        finally:
+            s.shutdown()
+        return toks, cache, r.total_prefix_reused
+
+    try:
+        for paged in (True, False):
+            for kv in ("float32", "int8"):
+                mode = f"{'paged' if paged else 'contiguous'}-{kv}"
+                kw = dict(kv_dtype=kv, paged=paged)
+                if paged:
+                    kw.update(kv_block_tokens=16, prefill_chunk=32)
+                toks, paths = {}, {}
+                for dev in ("cuda", "cpu"):
+                    params = _to(model.params, dev)
+                    path = paths[dev] = f"{root}/{mode}-{dev}"
+                    for w in kernels.values():
+                        w.launches = 0
+                    cold, c1, _ = serve(dev, params, kw, path)
+                    warm, c2, reused = serve(dev, params, kw, path)
+                    if not (c1.stores == 1 and c2.hits == 1 and reused > 0):
+                        raise AssertionError(
+                            f"prompt cache {mode} {dev}: stores {c1.stores}"
+                            f", hits {c2.hits}, reused {reused}")
+                    if dev == "cuda":
+                        launches[mode] = {n: w.launches
+                                          for n, w in kernels.items()}
+                        k = ("paged_decode_attention" if paged
+                             else "decode_attention")
+                        if launches[mode][k] <= 0:
+                            raise AssertionError(f"prompt cache {mode}: no "
+                                                 f"{k} launch")
+                    toks[dev] = (cold, warm)
+                    del params
+                read, c3, _ = serve("cpu", model.params, kw, paths["cuda"])
+                on_card, on_cpu = toks["cuda"], toks["cpu"]
+                print(f"prompt cache parity {mode}: cold/warm cuda "
+                      f"{on_card}, cpu {on_cpu}, the card's directory on "
+                      f"the cpu {read} (hits {c3.hits}); card launches "
+                      f"{json.dumps(launches[mode])}", flush=True)
+                if not (on_card[0] == on_card[1] == on_cpu[0] == on_cpu[1]
+                        == read and c3.hits == 1):
+                    raise AssertionError(f"prompt cache parity {mode}: "
+                                         "tokens differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+class _Served:
+    """One engine from a model YAML document, built by the port's manager
+    (``build_serving_model``, as a user's YAML is) and served over HTTP;
+    the model is freed on exit so the next phase's peak memory is its
+    own."""
+
+    def __init__(self, doc: dict, models_path: Optional[str] = None):
+        from localai_tpu_torch.api.server import APIServer
+        from localai_tpu_torch.config.app_config import AppConfig
+        from localai_tpu_torch.config.loader import ConfigLoader
+        from localai_tpu_torch.config.model_config import ModelConfig
+        from localai_tpu_torch.models.manager import ModelManager
+
+        mcfg = ModelConfig.from_dict(doc)
+        mcfg.set_defaults()
+        loader = ConfigLoader()
+        loader.register(mcfg)
+        app = AppConfig(device="cuda")
+        if models_path is not None:
+            app.model_path = models_path
+        self.name = mcfg.name
+        self.manager = ModelManager(app, loader)
+        self.server = APIServer(self.manager, "127.0.0.1", 0).start()
+        self.chat = self.server.url + "/v1/chat/completions"
+        t0 = time.monotonic()
+        try:
+            self.sm = self.manager.get(self.name)
+        except BaseException:
+            self.__exit__()
+            raise
+        torch.cuda.synchronize()
+        self.load_s = time.monotonic() - t0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.manager.shutdown()
+        self.sm = self.manager = self.server = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _streamed_chat(url: str, body: dict) -> dict:
+    """One streamed chat: {"text", "ttft_s", "tokens", "finish"}."""
+    t = time.monotonic()
+    ttft, text, last = None, "", None
+    with _post(url, {**body, "stream": True}) as r:
+        for line in r:
+            line = line.strip()
+            if not line.startswith(b"data: {"):
+                continue
+            frame = json.loads(line[6:])
+            delta = frame["choices"][0]["delta"].get("content")
+            if delta and ttft is None:
+                ttft = time.monotonic() - t
+            text += delta or ""
+            last = frame
+    return {"text": text, "ttft_s": ttft,
+            "tokens": last["usage"]["completion_tokens"],
+            "finish": last["choices"][0].get("finish_reason")}
+
+
+def _five_chats(srv, card: str, kernels: dict, extra: dict) -> tuple:
+    """The serves' warm-up chat, then the five chats (one streamed) with
+    every count at 0 just before and read just after; prints and returns
+    the serve's record (``extra`` joins it)."""
+    _chats(srv.chat, srv.name, n=1)
+    torch.cuda.reset_peak_memory_stats()
+    run = _counted(srv.sm, kernels, lambda: _chats(srv.chat, srv.name))
+    chats = run.pop("result")
+    rec = {"card": card, "model": srv.name, "requests": 5, "streaming": 1,
+           "kv_layout": "paged" if srv.sm.runner.paged else "contiguous",
+           "kv_dtype": srv.sm.runner.kv_dtype,
+           "speculation": srv.sm.scheduler.spec is not None,
+           "completion_tokens": chats["tokens"], "wall_s": chats["wall_s"],
+           "tokens_per_s": chats["tokens"] / chats["wall_s"],
+           "ttft_stream_s": chats["ttft_s"], "launches": run,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9, **extra}
+    return rec, chats
+
+
+def _check_k1(name: str, run: dict, L: int) -> None:
+    """K1 once per layer per plain decode step, and nothing else."""
+    want = L * run["decode_steps"]
+    if run["decode_steps"] <= 0 or run["paged_decode_attention"] != want:
+        raise AssertionError(f"{name}: K1 launches "
+                             f"{run['paged_decode_attention']}, expected "
+                             f"{want} ({L} x {run['decode_steps']} steps)")
+    other = {k: run[k] for k in ("decode_attention", "prefill_attention",
+                                 "w8_matmul", "w4_matmul",
+                                 "w8_matmul_experts") if run[k]}
+    if other:
+        raise AssertionError(f"{name}: launches of another path {other}")
+
+
+def phase_serve_w8a8(card: str) -> dict:
+    """``llama3-8b-w8a8``: debug:llama3-8b (Llama-3-8B's widths and depth,
+    seeded random weights drawn on the card) with ``quantization:
+    int8_w8a8`` and an int8 pool, the default paged layout with
+    speculation; five chats over HTTP, one streamed. Asserts K1 32 a plain
+    decode step and K4 0 (no w8a8 projection reaches it). Returns the
+    launch counts."""
+    doc = {"name": "llama3-8b-w8a8", "model": "debug:llama3-8b",
+           "context_size": 4096,
+           "engine": {"dtype": "bfloat16", "kv_dtype": "int8",
+                      "max_slots": 8, "kv_block_tokens": 64,
+                      "quantization": "int8_w8a8"}}
+    with _Served(doc) as srv:
+        runner = srv.sm.runner
+        if not (runner.paged and srv.sm.scheduler.spec is not None
+                and runner.params["layers"]["wq"].mode == "w8a8"):
+            raise AssertionError(f"{srv.name}: not a paged w8a8 engine "
+                                 "with speculation")
+        wb = _weight_bytes(runner.params)["total"]
+        rec, _ = _five_chats(srv, card, _all_kernels(), {
+            "weights": "int8_w8a8", "weight_gb": wb / 1e9,
+            "load_s": srv.load_s})
+        print("serve: " + json.dumps(rec), flush=True)
+        _check_k1(srv.name, rec["launches"], runner.cfg.num_layers)
+        return rec["launches"]
+
+
+def phase_serve_selfextend(card: str) -> dict:
+    """``llama3-8b-bf16-selfextend``: debug:llama3-8b in bf16 with
+    ``grp_attn_n: 2``, ``grp_attn_w: 2048`` and ``context_size: 16384``
+    (twice the trained 8192) and no layout key: the manager must take the
+    contiguous layout with speculation off. Five chats (one streamed),
+    then a prompt of about 12000 tokens, past the trained context,
+    answered with one token (its wall is the TTFT) and then with 32.
+    Asserts no kernel launch (K2 and K3 take roped K only). Returns the
+    launch counts."""
+    doc = {"name": "llama3-8b-bf16-selfextend", "model": "debug:llama3-8b",
+           "context_size": 16384,
+           "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
+                      "max_slots": 8, "grp_attn_n": 2, "grp_attn_w": 2048}}
+    kernels = _all_kernels()
+    with _Served(doc) as srv:
+        runner = srv.sm.runner
+        if runner.paged or srv.sm.scheduler.spec is not None or (
+                runner.max_ctx != 16384 or runner.attn_impl != "plain"):
+            raise AssertionError(
+                f"{srv.name}: paged {runner.paged}, speculation "
+                f"{srv.sm.scheduler.spec is not None}, context "
+                f"{runner.max_ctx}, attention {runner.attn_impl}")
+        rec, _ = _five_chats(srv, card, kernels, {
+            "weights": "bfloat16", "grp_attn_n": 2, "grp_attn_w": 2048,
+            "context": runner.max_ctx, "load_s": srv.load_s})
+        text = " ".join(f"Item {i} of the inventory list: a crate of "
+                        f"{i % 17} bolts." for i in range(1, 400))[:12000]
+
+        def long_chat(max_tokens):
+            t0 = time.monotonic()
+            out = json.loads(_post(srv.chat, {
+                "model": srv.name, "max_tokens": max_tokens,
+                "temperature": 0,
+                "messages": [{"role": "user", "content": text}]}).read())
+            return time.monotonic() - t0, out
+
+        torch.cuda.reset_peak_memory_stats()
+        # TTFT as the wall of a one-token answer (random weights may
+        # stream bytes that decode to no text for a while)
+        long = _counted(srv.sm, kernels,
+                        lambda: (long_chat(1), long_chat(32)))
+        (ttft, _), (wall, got) = long.pop("result")
+        if got["usage"]["completion_tokens"] <= 0:
+            raise AssertionError(f"{srv.name}: the long prompt returned no "
+                                 "tokens")
+        rec["long_prompt"] = {
+            "prompt_tokens": got["usage"]["prompt_tokens"], "ttft_s": ttft,
+            "wall_s": wall,
+            "completion_tokens": got["usage"]["completion_tokens"],
+            "finish": got["choices"][0]["finish_reason"], "launches": long,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9}
+        print("serve: " + json.dumps(rec), flush=True)
+        for run in (rec["launches"], long):
+            if any(run[k] for k in kernels):
+                raise AssertionError(f"{srv.name}: kernel launches {run}")
+        return rec["launches"]
+
+
+def phase_serve_prompt_cache(card: str, ref_texts: Optional[list] = None
+                             ) -> dict:
+    """``llama3-8b-bf16-promptcache``: debug:llama3-8b in bf16, the default
+    paged layout with speculation, and ``prompt_cache_path``. The five
+    chats (K1 32 a plain step), then a streamed chat behind a shared
+    system prompt of about 2000 tokens (cold), which stores one entry;
+    the server restarts on the directory and answers a streamed chat
+    sharing the prefix (warm, a hit) and the cold chat again. Prints the
+    TTFTs, the entry's bytes against 131072 B a token, the writer's store
+    ms, the lookup and load ms, and how many of the five texts equal
+    ``ref_texts`` (the cache-less bf16 server's). Raises unless the cold
+    chat asked again on a hit gives the cold text. Returns the launch
+    counts of the five chats and the restarted server's two chats."""
+    root = _scratch_dir("prompt-cache-serve-", 2_000_000_000)
+    doc = {"name": "llama3-8b-bf16-promptcache", "model": "debug:llama3-8b",
+           "context_size": 4096, "prompt_cache_path": "pc",
+           "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
+                      "max_slots": 8, "kv_block_tokens": 64}}
+    kernels = _all_kernels()
+
+    def shared(question):
+        return {"model": doc["name"], "max_tokens": 32, "temperature": 0,
+                "messages": [{"role": "system", "content": PC_PREFIX},
+                             {"role": "user", "content": question}]}
+
+    try:
+        with _Served(doc, models_path=root) as srv:
+            if not (srv.sm.runner.paged and srv.sm.scheduler.spec is not None
+                    and srv.sm.scheduler.prompt_cache is not None):
+                raise AssertionError(f"{srv.name}: not a paged engine with "
+                                     "speculation and a prompt cache")
+            rec, chats = _five_chats(srv, card, kernels, {
+                "weights": "bfloat16", "load_s": srv.load_s})
+            _check_k1(srv.name, rec["launches"], srv.sm.runner.cfg.num_layers)
+            texts = [chats["results"][i]["choices"][0]["message"]["content"]
+                     for i in range(4)] + [chats["results"][4]["text"]]
+            if ref_texts is not None:
+                rec["texts_equal_to_cacheless"] = sum(
+                    a == b for a, b in zip(texts, ref_texts))
+            sched, cache = srv.sm.scheduler, srv.sm.scheduler.prompt_cache
+            # the five chats' entries stored first, so the writer's
+            # seconds below are the shared-prefix entry's alone
+            stores = -1
+            while stores != cache.stores or not sched._pc_queue.empty():
+                stores = cache.stores
+                time.sleep(0.5)
+            store0 = sched.pc_seconds["store_s"]
+            cold = _streamed_chat(srv.chat, shared("Which rule is first?"))
+
+            def longest():
+                with cache._lock:
+                    return max(cache._index.items(),
+                               key=lambda kv: len(kv[1]))
+
+            deadline = time.monotonic() + 120
+            while (len(longest()[1]) < len(PC_PREFIX)
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            key, toks = longest()
+            m = sched.metrics()["prompt_cache"]
+            cfg = srv.sm.runner.cfg
+            entry = {"tokens": len(toks),
+                     "bytes": (Path(cache.dir) / f"{key}.npz").stat().st_size,
+                     # K and V, bf16, every layer and KV head
+                     "reckoned_bytes": len(toks) * cfg.num_layers * 2
+                     * cfg.num_kv_heads * cfg.hd * 2,
+                     "store_ms": 1e3 * (m["store_s"] - store0),
+                     "stores": m["stores"]}
+            if len(toks) < len(PC_PREFIX):
+                raise AssertionError(f"{srv.name}: the shared-prefix chat "
+                                     "stored no entry")
+        with _Served(doc, models_path=root) as srv:
+            sched = srv.sm.scheduler
+            seconds = []
+
+            def chat(question):
+                out = _streamed_chat(srv.chat, shared(question))
+                seconds.append(dict(sched.pc_seconds))
+                return out
+
+            run = _counted(srv.sm, kernels, lambda: (
+                chat("Which rule is last?"), chat("Which rule is first?")))
+            warm, again = run.pop("result")
+            m = sched.metrics()["prompt_cache"]
+            if m["hits"] < 2 or srv.sm.runner.total_prefix_reused < 2000:
+                raise AssertionError(f"{srv.name}: restarted without reuse:"
+                                     f" {m}, reused "
+                                     f"{srv.sm.runner.total_prefix_reused}")
+            _check_k1(srv.name + " (restarted)", run,
+                      srv.sm.runner.cfg.num_layers)
+            rec.update(
+                cold_ttft_s=cold["ttft_s"], warm_ttft_s=warm["ttft_s"],
+                repeat_ttft_s=again["ttft_s"], entry=entry,
+                # the warm chat's own lookup (index scan + npz read) and
+                # load (host to card, the scatter into its blocks)
+                lookup_ms=1e3 * seconds[0]["lookup_s"],
+                load_ms=1e3 * seconds[0]["load_s"],
+                restarted_hits=m["hits"],
+                prefix_reused=srv.sm.runner.total_prefix_reused,
+                repeat_text_equal=again["text"] == cold["text"],
+                restarted_launches=run)
+        print("serve: " + json.dumps(rec), flush=True)
+        if not rec["repeat_text_equal"]:
+            raise AssertionError(f"{srv.name}: the cold chat asked again on "
+                                 "a cache hit gave another text: "
+                                 f"{again['text']!r} vs {cold['text']!r}")
+        return {k: n + run[k] for k, n in rec["launches"].items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _entry(name, source, replaces, launches, rec) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5392,8 +5959,11 @@ def main() -> int:
     k1 = phase_kernel()
     attn = phase_attention()
     qmm = phase_qmatmul()
+    phase_w8a8()
     experts = phase_moe_kernel(card)
     parity = phase_parity()
+    phase_w8a8_selfextend_parity()
+    phase_prompt_cache_parity()
     moe = phase_moe_parity()
     spec = phase_spec_parity()
     phase_frozen_parity()
@@ -5409,8 +5979,13 @@ def main() -> int:
                                         profile=profile)["launches"]}
     for q in ("int8", "int4"):
         served[q] = phase_serve(card, q, profile=profile)["launches"]
-    served["spec"] = phase_serve(card, spec=True, profile=profile,
-                                 ref_texts=bf16["texts"])["launches"]
+    spec_serve = phase_serve(card, spec=True, profile=profile,
+                             ref_texts=bf16["texts"])
+    served["spec"] = spec_serve["launches"]
+    served["w8a8"] = phase_serve_w8a8(card)
+    phase_serve_selfextend(card)
+    served["promptcache"] = phase_serve_prompt_cache(
+        card, ref_texts=spec_serve["texts"])
     served["tools"] = phase_serve_tools(card)["launches"]
     served["templates"] = phase_serve_templates(card)["launches"]
     ckpt_root = _scratch_dir("checkpoint-parity-", 2_000_000_000)
@@ -5477,6 +6052,14 @@ def main() -> int:
         # tokenizer.json): K1 once per layer per decode step
         _entry("paged_decode_attention_checkpoint", k1_src, k1_tpu,
                served["checkpoint"]["paged_decode_attention"], k1["bf16"]),
+        # int8_w8a8 weights over an int8 pool: K1 once per layer per plain
+        # decode step (K4 never: the w8a8 products take torch._int_mm)
+        _entry("paged_decode_attention_w8a8", k1_src, k1_tpu,
+               served["w8a8"]["paged_decode_attention"], k1["int8"]),
+        # the prompt-cache serve's five chats and, restarted on the same
+        # directory, its two chats that hit the cache
+        _entry("paged_decode_attention_promptcache", k1_src, k1_tpu,
+               served["promptcache"]["paged_decode_attention"], k1["bf16"]),
         # verify windows (M = slots x 5 rows): launches inside the windows
         # of the spec parity phase, times at M = 40 (8 slots)
         _entry("w8_matmul_verify", src + "w8_matmul.cu",

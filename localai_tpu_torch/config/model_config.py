@@ -3,9 +3,7 @@
 Port of the fields of ``localai_tpu/config/model_config.py`` that the port
 reads (the JAX package validates with pydantic, which the port's runtime
 does not depend on). Unknown keys are ignored; keys that would ask for a
-feature the port does not have yet — ``int8_w8a8`` quantization,
-self-extend (``engine.grp_attn_n > 1``), the
-prompt cache (``prompt_cache_path``), a raw ``grammar`` string (which the
+feature the port does not have yet — a raw ``grammar`` string (which the
 JAX package declares and reads nowhere) and the backends whose engines
 are not ported (``UNPORTED_BACKENDS``) — raise a clear error at load
 instead of serving something else than was asked for. Prompt templates
@@ -13,8 +11,11 @@ instead of serving something else than was asked for. Prompt templates
 ``chat``, ``completion``, ``edit``, ``functions``, a Jinja
 ``chat_template`` and ``use_tokenizer_template``, rendered by the port's
 own engine in ``templates/``), function calling (a ``function`` section,
-:class:`FunctionsConfig`), int8 and int4 weights
-(``engine.quantization``), int8/int4 KV storage (``engine.kv_dtype``;
+:class:`FunctionsConfig`), int8, int8_w8a8 and int4 weights
+(``engine.quantization``), self-extend (``engine.grp_attn_n`` > 1 with
+``grp_attn_w``), the disk prompt cache (``prompt_cache_path``,
+``prompt_cache_all``, ``prompt_cache_ro``), int8/int4 KV storage
+(``engine.kv_dtype``;
 int4 on the paged layout only), the contiguous KV layout
 (``engine.kv_paged: false``), embeddings (``embeddings: true``) and
 speculative decoding (``engine.spec``, ``spec_drafter``, ``spec_gamma``,
@@ -34,6 +35,7 @@ from typing import Any, Optional
 
 
 KV_DTYPES = ("bfloat16", "float32", "int8", "int4")
+QUANTIZATIONS = ("int8", "int8_w8a8", "int4")
 # every usecase flag, in the JAX package's order (its ``Usecase`` enum)
 USECASES = ("chat", "completion", "edit", "embeddings", "image",
             "transcript", "tts", "sound_generation", "rerank", "tokenize",
@@ -140,8 +142,12 @@ class EngineConfig:
     # contiguous slot cache (one device: nothing else forces contiguous)
     kv_paged: Optional[bool] = None
     prefill_buckets: Optional[list[int]] = None  # default 128/512/2048/8192
-    grp_attn_n: int = 1                 # self-extend: refused when > 1
-    quantization: Optional[str] = None  # weights: int8 | int4
+    # self-extend (engine.selfextend): grp_attn_n > 1 serves up to
+    # max_position_embeddings * grp_attn_n on the contiguous layout;
+    # grp_attn_w (the neighbour window) must be a multiple of it
+    grp_attn_n: int = 1
+    grp_attn_w: int = 512
+    quantization: Optional[str] = None  # weights: int8 | int8_w8a8 | int4
     # speculative decoding (localai_tpu_torch.spec), as the JAX package
     # reads it: spec None = on for paged engines (LOCALAI_SPEC=0 turns it
     # off) and for any engine with a draft_model; spec_drafter auto |
@@ -186,7 +192,12 @@ class ModelConfig:
     trimspace: list[str] = dataclasses.field(default_factory=list)
     trimsuffix: list[str] = dataclasses.field(default_factory=list)
     f16: Optional[bool] = None         # false -> engine.dtype float32
-    prompt_cache_path: Optional[str] = None  # refused: not ported yet
+    # the disk prompt KV cache (engine.promptcache): a directory, relative
+    # to the models dir unless absolute; _all keeps the generation too,
+    # _ro reads and never writes
+    prompt_cache_path: Optional[str] = None
+    prompt_cache_all: bool = False
+    prompt_cache_ro: bool = False
     grammar: str = ""                  # refused: read nowhere by the
                                        # JAX package
     function: FunctionsConfig = dataclasses.field(
@@ -223,24 +234,14 @@ class ModelConfig:
     def check_supported(self) -> None:
         """Raise for config that asks for what the port cannot serve yet."""
         quant = self.engine.quantization
-        if quant and quant not in ("int8", "int4"):
+        if quant and quant not in QUANTIZATIONS:
             raise ValueError(
                 f"model {self.name or self.model!r}: quantization {quant!r} "
-                "is not supported by the PyTorch port (it serves int8 and "
-                "int4 weights; int8_w8a8 is not ported yet)")
+                f"is not one of {QUANTIZATIONS}")
         if self.engine.kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"model {self.name or self.model!r}: kv_dtype "
                 f"{self.engine.kv_dtype!r} is not one of {KV_DTYPES}")
-        if self.engine.grp_attn_n > 1:
-            raise ValueError(
-                f"model {self.name or self.model!r}: self-extend "
-                f"(engine.grp_attn_n={self.engine.grp_attn_n}) is not "
-                "ported yet")
-        if self.prompt_cache_path:
-            raise ValueError(
-                f"model {self.name or self.model!r}: the prompt cache "
-                "(prompt_cache_path) is not ported yet")
         if self.grammar:
             raise ValueError(
                 f"model {self.name or self.model!r}: a raw grammar string "

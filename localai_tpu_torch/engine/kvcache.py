@@ -320,6 +320,28 @@ def verify_write(positions: torch.Tensor):
     return write
 
 
+def dequantized(rows, dt: torch.dtype) -> torch.Tensor:
+    """A decode write's exposed cache (the tensor, or a scaled (cache,
+    scales) pair) in the compute dtype ``dt``, dequantized as the JAX
+    package's non-kernel decode write exposes it."""
+    if isinstance(rows, tuple):
+        cache, scales = rows
+        return cache.to(dt) * scales[..., None].to(dt)
+    return rows.to(dt)
+
+
+def prefill_mask(cfg: LlamaConfig, seq_len: int, length: int,
+                 device: str | torch.device = "cuda") -> torch.Tensor:
+    """[1, T, T] causal mask of a fresh chunk limited to the real
+    ``length`` rows (the self-extend prefill's; the prefill kernel masks
+    by itself)."""
+    t = torch.arange(seq_len, device=resolve_device(device))
+    m = (t[None, :, None] >= t[None, None, :]) & (t[None, None, :] < length)
+    if cfg.sliding_window:
+        m &= t[None, None, :] > t[None, :, None] - cfg.sliding_window
+    return m
+
+
 def verify_mask(cfg: LlamaConfig, positions: torch.Tensor, T: int,
                 max_ctx: int) -> torch.Tensor:
     """[S, T, C] mask for the speculative verify forward: window token t

@@ -35,6 +35,17 @@ the JAX package become plain methods:
     placeholder positions) is prefilled in one dispatch on either layout
     — through the prefill kernel on a contiguous runner, one unchunked
     paged dispatch otherwise — and never shares or reuses a prefix.
+  * Self-extend (``ga_n`` > 1, contiguous only): the cache holds unroped
+    K and every attention site (decode, fresh and resume prefill,
+    ``embed``) runs ``engine.selfextend``'s plain attention with the real
+    RoPE table; the kernels, which assume roped K, are not called.
+  * KV export and import for the disk prompt cache (``engine.
+    promptcache``): ``snapshot_prefix`` copies a slot's first rows on the
+    engine's stream, ``pack_prefix`` brings them to the host after that
+    copy (a CUDA event orders it; another thread may call it), and
+    ``load_prefix`` writes exported rows into a slot, contiguous or paged,
+    so the next admission resumes past them. The format is the JAX
+    package's: a directory written by either package is read by the other.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from localai_tpu_torch import ops
 from localai_tpu_torch.engine import kvcache as kvc
 from localai_tpu_torch.engine import paged as pgd
 from localai_tpu_torch.engine import sampling as smp
+from localai_tpu_torch.engine import selfextend as se
 from localai_tpu_torch.models import llama as mdl
 from localai_tpu_torch.models import quant
 from localai_tpu_torch.models.llama import LlamaConfig
@@ -139,6 +151,8 @@ class ModelRunner:
         kv_block_tokens: Optional[int] = None,
         kv_num_blocks: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
+        ga_n: int = 1,
+        ga_w: int = 512,
         device: str | torch.device | None = "cuda",
     ):
         self.cfg = cfg
@@ -152,6 +166,20 @@ class ModelRunner:
         self.rope = mdl.rope_table(cfg, self.max_ctx, freq_base=rope_freq_base,
                                    freq_scale=rope_freq_scale,
                                    device=self.device)
+        # self-extend (engine.selfextend): serves past the trained context
+        # with an unroped cache; forward() sees the identity table and the
+        # self-extend attend applies the real one (_se_rope) per score set
+        if ga_n > 1 and ga_w % ga_n:
+            raise ValueError(f"ga_w ({ga_w}) must be a multiple of "
+                             f"ga_n ({ga_n})")
+        self.ga_n, self.ga_w = ga_n, ga_w
+        if ga_n > 1:
+            if paged:
+                raise ValueError("paged KV cache is incompatible with "
+                                 "self-extend (its cache rows are unroped "
+                                 "and regrouped per slot row)")
+            self._se_rope = self.rope
+            self.rope = se.identity_rope(self.rope)
         self.paged = bool(paged)
         self.kv_dtype = kv_dtype
         dtype = mdl.torch_dtype(cfg.dtype)
@@ -160,11 +188,18 @@ class ModelRunner:
         # prefill/embeddings attention (K3) on every runner, contiguous
         # decode attention (K2) on a contiguous one; each raises on the
         # card for a shape its kernel was not compiled for (and for int4
-        # storage without the paged pool, which init_cache refuses too)
-        self.attn_impl, why = ops.select_attn_impl(
-            device=self.device, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, dtype=dtype,
-            kv_dtype=None if self.paged else kv_t, max_ctx=self.max_ctx)
+        # storage without the paged pool, which init_cache refuses too);
+        # self-extend takes neither: K2/K3 assume pre-roped K (the JAX
+        # package forces its XLA attention there)
+        if ga_n > 1:
+            self.attn_impl, why = "plain", (
+                "self-extend: the cache holds unroped K, so every attention "
+                "site runs engine.selfextend's plain attention")
+        else:
+            self.attn_impl, why = ops.select_attn_impl(
+                device=self.device, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, dtype=dtype,
+                kv_dtype=None if self.paged else kv_t, max_ctx=self.max_ctx)
         if why:
             log.info("attention: %s (%s)", self.attn_impl, why)
         self.paged_attn_impl = ""
@@ -206,6 +241,7 @@ class ModelRunner:
         self._seed = seed
         self.last_prefill_path = ""
         self.last_prefix_reused = 0
+        self.total_prefix_reused = 0
         # decode steps issued (each launches the attention once per layer)
         self.decode_steps = 0
         # speculative verify windows run (plain attention: no decode
@@ -214,7 +250,8 @@ class ModelRunner:
         # step_frozen_n dispatches (their steps count in decode_steps)
         self.frozen_dispatches = 0
         # fresh contiguous prefills (each launches the prefill kernel once
-        # per layer; embeddings launch it too, outside this count)
+        # per layer, none under self-extend; embeddings launch it too,
+        # outside this count)
         self.fresh_prefills = 0
         # chunked paged prefill dispatches (each runs the trunk once)
         self.prefill_chunks = 0
@@ -225,6 +262,9 @@ class ModelRunner:
         if self.paged:
             self.allocator = pgd.BlockAllocator(
                 self.num_blocks, self.block_tokens, self.max_blocks)
+            # disk prompt-cache rows loaded into a slot's fresh blocks (the
+            # only slot-resident reuse that survives release)
+            self._loaded_rows: dict[int, int] = {}
             self.block_tables = torch.zeros(
                 (self.num_slots, self.max_blocks), dtype=torch.int32,
                 device=dev)
@@ -276,13 +316,25 @@ class ModelRunner:
                 return ops.decode_attention(q, keys, values, pos, k_scale,
                                             v_scale, sliding_window=window)
 
-        def attn(q, keys, values, _mask):  # q [S,1,Hq,hd]; keys = cache
-            if isinstance(keys, tuple):  # (cache, scales): scaled storage
-                (keys, k_scale), (values, v_scale) = keys, values
-            else:
-                k_scale = v_scale = None
-            return kernel(q[:, 0].contiguous(), keys, values, k_scale,
-                          v_scale)[:, None]
+        if self.ga_n > 1:
+            # every slot's whole row, dequantized in the compute dtype as
+            # the JAX package's decode write exposes it, under the decode
+            # mask (the verify mask of a one-token window)
+            attend = self._se_attn(pos[:, None], torch.arange(
+                self.max_ctx, device=self.device))
+            mask = kvc.verify_mask(cfg, pos, 1, self.max_ctx)
+
+            def attn(q, keys, values, _mask):
+                return attend(q, kvc.dequantized(keys, q.dtype),
+                              kvc.dequantized(values, q.dtype), mask)
+        else:
+            def attn(q, keys, values, _mask):  # q [S,1,Hq,hd]; keys = cache
+                if isinstance(keys, tuple):  # (cache, scales): scaled
+                    (keys, k_scale), (values, v_scale) = keys, values
+                else:
+                    k_scale = v_scale = None
+                return kernel(q[:, 0].contiguous(), keys, values, k_scale,
+                              v_scale)[:, None]
 
         hidden, _ = mdl.forward(cfg, self.params, st.tokens[:, None],
                                 pos[:, None], write, self.kv.stacked(), None,
@@ -443,10 +495,23 @@ class ModelRunner:
                 self.block_tables, self.state.positions, self.max_ctx),
             self.ctx_pad)
 
-    def _prefill_attn(self, length: int):
-        """Attention override for a fresh chunk (contiguous prefill,
-        embeddings): ``ops.prefill_attention`` over the head-major chunk,
-        masked to the real ``length``."""
+    def _se_attn(self, qpos: torch.Tensor, kpos: torch.Tensor):
+        """The self-extend attend over the real RoPE table (ga_n > 1): the
+        single construction point of the four attention sites."""
+        return se.build_attend(self.cfg, self._se_rope, self.ga_n,
+                               self.ga_w, qpos, kpos)
+
+    def _prefill_attn(self, length: int, bucket: int):
+        """Attention override for a fresh ``bucket``-row chunk (contiguous
+        prefill, embeddings): ``ops.prefill_attention`` over the
+        head-major chunk, masked to the real ``length``; under self-extend
+        its attend under the same causal mask."""
+        if self.ga_n > 1:
+            pos = torch.arange(bucket, device=self.device)
+            attend = self._se_attn(pos[None], pos)
+            mask = kvc.prefill_mask(self.cfg, bucket, length, self.device)
+            return lambda q, keys, values, _mask: attend(q, keys, values,
+                                                         mask)
         window = self.cfg.sliding_window
 
         def attn(q, keys, values, _mask):  # q [1,T,Hq,hd], keys [1,Hkv,T,hd]
@@ -492,7 +557,7 @@ class ModelRunner:
         hidden, _ = mdl.forward(self.cfg, self.params, tokens, positions,
                                 kvc.prefill_write(slot), self.kv.stacked(),
                                 None, self.rope,
-                                attn=self._prefill_attn(length),
+                                attn=self._prefill_attn(length, bucket),
                                 embeds=embeds)
         self.fresh_prefills += 1
         return self._prefill_tail(hidden, length, slot, prompt, length)
@@ -538,9 +603,12 @@ class ModelRunner:
                                           device=self.device)[None, :]
         mask = kvc.resume_mask(cfg, bucket, offset, self.max_ctx,
                                device=self.device)
+        attn = (self._se_attn(positions, torch.arange(
+            self.max_ctx, device=self.device)) if self.ga_n > 1 else None)
         hidden, _ = mdl.forward(cfg, self.params, tokens, positions,
                                 kvc.resume_write(slot, offset),
-                                self.kv.stacked(), mask, self.rope)
+                                self.kv.stacked(), mask, self.rope,
+                                attn=attn)
         return self._prefill_tail(hidden, length, slot, prompt,
                                   offset + length)
 
@@ -616,7 +684,8 @@ class ModelRunner:
         """Prefill a prompt into a slot; returns the first sampled token.
 
         Paged: all chunks of a ``begin_admit`` (``reserve_tokens`` rows
-        reserved, plus ``spec_tokens`` rows of speculation lookahead).
+        reserved, plus ``spec_tokens`` rows of speculation lookahead;
+        ``resident`` reuses rows ``load_prefix`` just loaded).
         Contiguous: one dispatch (``spec_tokens`` is ignored); when
         ``resident`` (the slot's
         previous prompt + generation) shares a long-enough prefix with the
@@ -630,6 +699,7 @@ class ModelRunner:
             adm = self.begin_admit(slot, prompt,
                                    reserve_tokens=reserve_tokens,
                                    spec_tokens=spec_tokens,
+                                   resident=resident, valid_n=valid_n,
                                    mm_embeds=mm_embeds,
                                    mm_positions=mm_positions, **sampling)
             if adm is None:
@@ -650,6 +720,7 @@ class ModelRunner:
         lcp = (self.reusable_prefix(slot, resident, prompt, valid_n)
                if resident and mm_embeds is None else 0)
         self.last_prefix_reused = lcp
+        self.total_prefix_reused += lcp
         tail = prompt[lcp:]
         bucket = (self._resume_bucket(len(tail), lcp) if lcp
                   else self.bucket_for(n))
@@ -689,6 +760,8 @@ class ModelRunner:
     def begin_admit(self, slot: int, prompt: list[int], *,
                     reserve_tokens: Optional[int] = None,
                     spec_tokens: int = 0,
+                    resident: Optional[list[int]] = None,
+                    valid_n: Optional[int] = None,
                     mm_embeds: Optional[np.ndarray] = None,
                     mm_positions: Optional[np.ndarray] = None,
                     **sampling) -> Optional["PagedAdmission"]:
@@ -697,10 +770,13 @@ class ModelRunner:
         state, and return a PagedAdmission whose ``step_chunk()`` the
         caller drives. ``spec_tokens`` reserves speculation rows past the
         decode worst case (a verify window writes up to gamma rows beyond
-        the frontier), recorded apart by the allocator. A multimodal
-        prompt (``mm_embeds``) shares no pooled prefix: its rows depend on
-        the image, not on the token ids. Returns None when the pool cannot
-        cover the reservation (the scheduler keeps the request queued)."""
+        the frontier), recorded apart by the allocator. A slot holding
+        rows ``load_prefix`` just loaded for ``resident`` keeps them and
+        grows its table (the first chunk starts past them); otherwise
+        they are released. A multimodal prompt (``mm_embeds``) shares no
+        pooled prefix: its rows depend on the image, not on the token ids.
+        Returns None when the pool cannot cover the reservation (the
+        scheduler keeps the request queued)."""
         if not self.paged:
             raise RuntimeError("begin_admit needs the paged KV layout")
         if not prompt:
@@ -723,16 +799,34 @@ class ModelRunner:
                 f"blocks) exceeds the block pool "
                 f"({self.allocator.num_blocks - 1} blocks)")
         mm = mm_embeds is not None and len(mm_embeds) > 0
-        shared = self.allocator.allocate(slot, reserve,
-                                         prompt=None if mm else prompt,
-                                         spec_tokens=spec_tokens)
-        if shared is None:
-            return None
-        self.last_prefill_path = ("paged_mm" if mm else
-                                  "paged_shared" if shared else "paged")
-        self.last_prefix_reused = shared
+        lcp = 0
+        if resident and not mm and self._loaded_rows.get(slot):
+            # rows just loaded from the disk prompt cache: the only
+            # slot-resident reuse of the paged layout (pool sharing covers
+            # the rest)
+            lcp = self.reusable_prefix(slot, resident, prompt, valid_n)
+        if lcp:
+            if not self.allocator.extend(slot, reserve,
+                                         spec_tokens=spec_tokens):
+                self.allocator.release(slot)
+                self._loaded_rows.pop(slot, None)
+                return None
+            self.last_prefill_path = "paged_resume"
+        else:
+            if slot in self.allocator.tables:  # stale loaded rows
+                self.allocator.release(slot)
+            self._loaded_rows.pop(slot, None)
+            lcp = self.allocator.allocate(slot, reserve,
+                                          prompt=None if mm else prompt,
+                                          spec_tokens=spec_tokens)
+            if lcp is None:
+                return None
+            self.last_prefill_path = ("paged_mm" if mm else
+                                      "paged_shared" if lcp else "paged")
+        self.last_prefix_reused = lcp
+        self.total_prefix_reused += lcp
         self._prepare_slot(slot, **sampling)
-        return PagedAdmission(self, slot, list(prompt), shared,
+        return PagedAdmission(self, slot, list(prompt), lcp,
                               mm_embeds=mm_embeds if mm else None,
                               mm_positions=mm_positions)
 
@@ -746,23 +840,28 @@ class ModelRunner:
             self.allocator.table_row(slot)).to(self.device)
         if not mm:
             self.allocator.register_prefix(slot, prompt)
+        self._loaded_rows.pop(slot, None)
         self._active_slots.add(slot)
 
     def reusable_prefix(self, slot: int, resident: Optional[list[int]],
                         prompt: list[int],
                         valid_n: Optional[int] = None) -> int:
-        """Tokens of ``resident`` (the slot's previous prompt + generation)
-        that a contiguous admit() would reuse for ``prompt``, every
-        feasibility gate applied: KV validity (``valid_n`` rows, default
-        the slot's position: the last sampled token's KV is never
-        written), last-token recompute, the minimum worthwhile length, and
-        the tail bucket fitting inside the context. The scheduler ranks
-        free slots with this same function. A paged runner frees a slot's
-        rows at release (its prefix sharing is the allocator's pool): 0."""
-        if self.paged or not resident or not prompt:
+        """Tokens of ``resident`` (the slot's previous prompt + generation,
+        or a disk prompt-cache hit's tokens) that an admission would reuse
+        for ``prompt``, every feasibility gate applied: KV validity
+        (``valid_n`` rows, default the slot's position on a contiguous
+        runner — the last sampled token's KV is never written — and the
+        rows ``load_prefix`` loaded on a paged one, whose other rows are
+        freed at release), last-token recompute, the minimum worthwhile
+        length, and on a contiguous runner the tail bucket fitting inside
+        the context (a paged chunk's overshoot goes to the trash block).
+        The scheduler ranks free slots and disk hits with this same
+        function."""
+        if not resident or not prompt:
             return 0
         if valid_n is None:
-            valid_n = self.slot_position(slot)
+            valid_n = (self._loaded_rows.get(slot, 0) if self.paged
+                       else self.slot_position(slot))
         lcp = 0
         for a, b in zip(resident[:valid_n], prompt):
             if a != b:
@@ -772,9 +871,19 @@ class ModelRunner:
         lcp = min(lcp, len(prompt) - 1)
         if lcp < self.prefix_reuse_min:
             return 0
+        if self.paged:
+            return lcp
         if self._resume_bucket(len(prompt) - lcp, lcp) is None:
             return 0
         return lcp
+
+    def resident_rows(self, slot: int, default: int) -> int:
+        """KV rows of ``slot`` that prefix reuse may count on: on a
+        contiguous runner the frontier the caller read (``default``); on a
+        paged one only rows just loaded from the disk prompt cache."""
+        if not self.paged:
+            return default
+        return min(default, self._loaded_rows.get(slot, 0))
 
     def _resume_bucket(self, tail_len: int, offset: int) -> Optional[int]:
         """Smallest prefill bucket holding the tail that also fits in the
@@ -854,7 +963,7 @@ class ModelRunner:
                                      device=self.device)[None, :]
             hidden, _ = mdl.forward(self.cfg, self.params, tokens, positions,
                                     kvc.chunk_write, None, None, self.rope,
-                                    attn=self._prefill_attn(n))
+                                    attn=self._prefill_attn(n, bucket))
             # pool in f32: a bf16 sum over thousands of rows loses the
             # precision the embeddings exist to provide
             pooled = hidden[0, :n].float().sum(dim=0) / n
@@ -870,6 +979,7 @@ class ModelRunner:
         self.state.active[slot] = False
         if self.paged:
             self.allocator.release(slot)
+            self._loaded_rows.pop(slot, None)
             self.block_tables[slot] = 0
             self.state.positions[slot] = 0
         self._active_slots.discard(slot)
@@ -886,6 +996,141 @@ class ModelRunner:
 
     def slot_position(self, slot: int) -> int:
         return int(self.slot_positions()[slot])
+
+    # -- prompt-cache persistence (engine.promptcache) -------------------
+
+    def snapshot_prefix(self, slot: int, n: Optional[int] = None) -> dict:
+        """A copy of one slot's first ``n`` KV rows (default: its
+        position) on the device, taken on the engine's stream: the cache
+        is updated in place by the next dispatch, so a view would change
+        under a reader on another thread. On the card a CUDA event is
+        recorded after the copies; :meth:`pack_prefix` waits for it alone.
+        Rows are [L, H, n, hd] (int4: hd/2, nibble-packed), scales
+        [L, H, n], whatever the layout: paged and contiguous runners
+        share one export format."""
+        p = n if n is not None else self.slot_position(slot)
+        out: dict = {"kv_dtype": str(self.kv_dtype),
+                     # a self-extend cache stores UNroped K: a roped-cache
+                     # runner must never load these rows, nor the reverse
+                     "kv_rope": "raw" if self.ga_n > 1 else "roped"}
+        kv = self.kv
+        if self.paged:
+            bt = self.block_tokens
+            table = self.allocator.tables.get(slot, [])
+            nb = min(max(1, -(-p // bt)), len(table))
+            p = min(p, nb * bt)
+            blocks = torch.tensor(table[:nb] or [0], dtype=torch.long,
+                                  device=self.device)
+
+            def rows(t):  # [L, N, H, bt, ...] -> [L, H, p, ...]
+                g = t[:, blocks].transpose(1, 2)
+                return g.reshape(*g.shape[:2], -1,
+                                 *g.shape[4:])[:, :, :p].contiguous()
+        else:
+            def rows(t):  # [L, S, H, C, ...] -> [L, H, p, ...]
+                return t[:, slot, :, :p].clone()
+
+        out["k"], out["v"] = rows(kv.k), rows(kv.v)
+        if kv.k_scale is not None:
+            out["k_scale"] = rows(kv.k_scale)
+            out["v_scale"] = rows(kv.v_scale)
+        if self.device.type == "cuda":
+            out["event"] = torch.cuda.Event()
+            out["event"].record()
+        return out
+
+    @staticmethod
+    def pack_prefix(snapshot: dict) -> dict:
+        """A :meth:`snapshot_prefix` as npz-ready numpy, in the JAX
+        package's format: bfloat16 rows as their uint16 bits beside a
+        ``<name>_bf16`` marker, scaled caches with their scales. On the
+        card the host copy runs on a stream of its own after the
+        snapshot's event, so it waits for the snapshot and not for what
+        the engine dispatched since."""
+        out: dict = {"kv_dtype": np.asarray(snapshot["kv_dtype"]),
+                     "kv_rope": np.asarray(snapshot.get("kv_rope", "roped"))}
+        names = [n for n in ("k", "v", "k_scale", "v_scale") if n in snapshot]
+        event = snapshot.get("event")
+        if event is not None:
+            stream = torch.cuda.Stream(snapshot["k"].device)
+            stream.wait_event(event)
+            with torch.cuda.stream(stream):
+                host = {n: snapshot[n].cpu() for n in names}
+        else:
+            host = {n: snapshot[n] for n in names}
+        for name, t in host.items():
+            if t.dtype == torch.bfloat16:
+                out[name] = t.view(torch.int16).numpy().view(np.uint16)
+                out[f"{name}_bf16"] = np.asarray(1)
+            else:
+                out[name] = t.numpy()
+        return out
+
+    def export_prefix(self, slot: int, n: Optional[int] = None) -> dict:
+        """:meth:`snapshot_prefix` + :meth:`pack_prefix` in one call."""
+        return self.pack_prefix(self.snapshot_prefix(slot, n))
+
+    def load_prefix(self, slot: int, arrays: dict, n: int) -> bool:
+        """Write exported KV rows ``arrays`` (the :meth:`pack_prefix`
+        format) into ``slot`` and set its frontier to ``n``: the next
+        admission of a prompt sharing them resumes past them. False on
+        any mismatch (KV dtype, RoPE flavour, shape, context, a missing
+        scale), and the caller prefills in full."""
+        if str(arrays.get("kv_dtype")) != str(self.kv_dtype):
+            return False
+        want_rope = "raw" if self.ga_n > 1 else "roped"
+        if str(arrays.get("kv_rope", "roped")) != want_rope:
+            return False
+        if n > self.max_ctx - 1:
+            return False
+        L, H, hd = self.cfg.num_layers, self.cfg.num_kv_heads, self.cfg.hd
+        if str(self.kv_dtype) == "int4":
+            hd //= 2  # int4 exports stay nibble-packed along head_dim
+        names = ("k", "v", "k_scale", "v_scale") if self.kv.k_scale is not \
+            None else ("k", "v")
+        if any(name not in arrays for name in names):
+            return False
+        new = {}
+        for name in names:
+            a = np.asarray(arrays[name])
+            want = (L, H, n, hd) if name in ("k", "v") else (L, H, n)
+            if a.shape != want:
+                return False
+            if f"{name}_bf16" in arrays:
+                t = torch.from_numpy(np.ascontiguousarray(a).view(
+                    np.int16)).view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(np.ascontiguousarray(a))
+            new[name] = t.to(self.device)
+        kv = self.kv
+        cache = {"k": kv.k, "v": kv.v, "k_scale": kv.k_scale,
+                 "v_scale": kv.v_scale}
+        if self.paged:
+            if slot in self.allocator.tables:
+                self.allocator.release(slot)
+            self._loaded_rows.pop(slot, None)
+            if self.allocator.allocate(slot, n) is None:
+                return False
+            bt = self.block_tokens
+            pos = torch.arange(n, device=self.device)
+            table = torch.tensor(self.allocator.tables[slot],
+                                 dtype=torch.long, device=self.device)
+            blk, off = table[pos // bt], pos % bt
+            for name, t in new.items():
+                # advanced indices (blk, off) around the head slice put the
+                # row axis first: [n, L, H, ...]
+                cache[name][:, blk, :, off] = t.movedim(2, 0).to(
+                    cache[name].dtype)
+            self.block_tables[slot] = torch.from_numpy(
+                self.allocator.table_row(slot)).to(self.device)
+            self._loaded_rows[slot] = n
+        else:
+            for name, t in new.items():
+                cache[name][:, slot, :, :n] = t.to(cache[name].dtype)
+        self.state.positions[slot] = n
+        self.state.active[slot] = False
+        self._active_slots.discard(slot)
+        return True
 
 
 class PagedAdmission:

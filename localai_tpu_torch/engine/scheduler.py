@@ -30,10 +30,18 @@ A lean port of ``localai_tpu/engine/scheduler.py``. One engine thread:
     token record, so its KV is never reused and no verify window runs
     while it is live (its drafts could not be resynced);
   * detokenizes incrementally, checks EOS / stop strings / max_tokens /
-    context exhaustion, and releases the slot.
+    context exhaustion, and releases the slot;
+  * with a disk prompt cache (``prompt_cache``, an
+    ``engine.promptcache.PromptKVCache``): at admission the entry sharing
+    the longest prefix with the prompt is scored by the runner's
+    ``reusable_prefix`` and loaded into the slot when it beats the slot's
+    own resident prefix (never for a multimodal prompt); a request that
+    ends with stop or length stores its prompt's KV rows (with
+    ``prompt_cache_all`` its generation's too) through a writer thread:
+    the engine thread only takes a device snapshot.
 
-Left out of this slice (see ROADMAP): the prompt cache, the background
-batch lane, SLO shedding, telemetry and the self-healing supervisor.
+Left out of this slice (see ROADMAP): the background batch lane, SLO
+shedding, telemetry and the self-healing supervisor.
 """
 
 from __future__ import annotations
@@ -192,9 +200,22 @@ class Scheduler:
     def __init__(self, runner: ModelRunner, tokenizer: Any,
                  *, default_max_tokens: int = 2048, pipeline_depth: int = 2,
                  multi_step: int = 16, stream_latency_target: float = 0.1,
-                 spec: Optional[Any] = None):
+                 spec: Optional[Any] = None,
+                 prompt_cache: Optional[Any] = None,
+                 prompt_cache_all: bool = False):
         self.runner = runner
         self.tokenizer = tokenizer
+        # the disk prompt KV cache: stores run on the writer thread (the
+        # host copy and the npz write), the engine thread only enqueues a
+        # device snapshot
+        self.prompt_cache = None
+        self.prompt_cache_all = prompt_cache_all
+        self._pc_queue: "queue.Queue[Optional[tuple]]" = queue.Queue()
+        self._pc_thread: Optional[threading.Thread] = None
+        # seconds in the admit-time lookup (index scan + npz read), in
+        # load_prefix, and on the writer thread (host copy + npz write)
+        self.pc_seconds = {"lookup_s": 0.0, "load_s": 0.0, "store_s": 0.0}
+        self.attach_prompt_cache(prompt_cache)
         self.default_max_tokens = default_max_tokens
         self.pipeline_depth = max(1, pipeline_depth)
         # tokens decoded per dispatch; with an SSE stream attached the size
@@ -256,6 +277,36 @@ class Scheduler:
         self._stopping = True
         self._wake.set()
         self._thread.join(timeout)
+        if self._pc_thread is not None:
+            self._pc_queue.put(None)  # the writer drains the queue first
+            self._pc_thread.join(timeout)
+            self._pc_thread = None
+
+    def attach_prompt_cache(self, prompt_cache: Optional[Any]) -> None:
+        """Attach a prompt KV cache (no-op for None or when one is
+        attached) and start the writer thread for a writable one."""
+        if prompt_cache is None or self.prompt_cache is not None:
+            return
+        self.prompt_cache = prompt_cache
+        if not prompt_cache.read_only and self._pc_thread is None:
+            self._pc_thread = threading.Thread(
+                target=self._pc_writer, name="prompt-cache", daemon=True)
+            self._pc_thread.start()
+
+    def _pc_writer(self) -> None:
+        """Writer loop: bring each snapshot to the host and store it."""
+        while True:
+            item = self._pc_queue.get()
+            if item is None:
+                return
+            tokens, snapshot = item
+            try:
+                t0 = time.perf_counter()
+                self.prompt_cache.store(tokens,
+                                        self.runner.pack_prefix(snapshot))
+                self.pc_seconds["store_s"] += time.perf_counter() - t0
+            except Exception as e:  # noqa: BLE001 — cache ≠ serving
+                log.warning("prompt-cache store failed: %s", e)
 
     # -- engine thread ---------------------------------------------------
 
@@ -485,6 +536,9 @@ class Scheduler:
                "frozen_dispatches": self.runner.frozen_dispatches,
                "constrained_tokens": self.constrained_tokens,
                "constraint_host_s": self.constraint_host_s}
+        if self.prompt_cache is not None:
+            out["prompt_cache"] = {**self.prompt_cache.stats(),
+                                   **self.pc_seconds}
         if self._chunked:
             out["kv_blocks_spec_reserved"] = (
                 self.runner.allocator.stats().spec_reserved)
@@ -611,7 +665,31 @@ class Scheduler:
         # prefill samples, so the first token is already constrained
         mask = (req.constraint.allowed_mask()
                 if req.constraint is not None else None)
+        resident = self._resident.get(slot)
+        # a paged runner keeps no rows past release (only rows loaded
+        # below count), so it needs no frontier read
+        valid_n = self.runner.resident_rows(
+            slot, self.runner.max_ctx if positions is None
+            else int(positions[slot]))
+        if self.prompt_cache is not None and req.mm_embeds is None:
+            mem_lcp = (self.runner.reusable_prefix(slot, resident, req.prompt,
+                                                   valid_n=valid_n)
+                       if resident else 0)
+            t0 = time.perf_counter()
+            hit = self.prompt_cache.lookup(req.prompt)
+            t1 = time.perf_counter()
+            self.pc_seconds["lookup_s"] += t1 - t0
+            # the disk hit is scored through the same feasibility gates as
+            # the resident record (validity: its own row count)
+            disk_lcp = (self.runner.reusable_prefix(
+                slot, hit.tokens, req.prompt, valid_n=hit.n)
+                if hit is not None else 0)
+            if (disk_lcp > mem_lcp
+                    and self.runner.load_prefix(slot, hit.arrays, hit.n)):
+                resident, valid_n = hit.tokens, hit.n
+                self.pc_seconds["load_s"] += time.perf_counter() - t1
         sampling = dict(
+            resident=resident, valid_n=valid_n,
             temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
             min_p=req.min_p, repeat_penalty=req.repeat_penalty,
             presence_penalty=req.presence_penalty,
@@ -619,10 +697,7 @@ class Scheduler:
             bias_row=self._compose_bias(base, mask),
             mm_embeds=req.mm_embeds, mm_positions=req.mm_positions)
         if not self._chunked:
-            first = self._engine.admit(slot, req.prompt,
-                                       resident=self._resident.get(slot),
-                                       valid_n=int(positions[slot]),
-                                       **sampling)
+            first = self._engine.admit(slot, req.prompt, **sampling)
             self._activate_slot(slot, handle, first, base, mask is not None)
             return True
         # reserve the worst case so decode can never run out of blocks
@@ -821,5 +896,22 @@ class Scheduler:
     def _release(self, slot: int, ctx: _SlotCtx, reason: str) -> None:
         with self._lock:
             self._slots.pop(slot, None)
+        pc = self.prompt_cache
+        r = self._resident.get(slot)
+        if (pc is not None and not pc.read_only and r
+                and reason in ("stop", "length")):
+            # the prompt's rows, or with prompt_cache_all the generation's
+            # too (the last sampled token has no KV row); the length comes
+            # from the host record, so no device read
+            pos = min(len(r) - 1, self.runner.max_ctx - 1)
+            keep = (pos if self.prompt_cache_all
+                    else min(ctx.handle.prompt_tokens, pos))
+            if keep >= pc.min_prefix:
+                try:
+                    self._pc_queue.put((list(r[:keep]),
+                                        self.runner.snapshot_prefix(
+                                            slot, keep)))
+                except Exception as e:  # noqa: BLE001 — cache ≠ serving
+                    log.warning("prompt-cache snapshot failed: %s", e)
         self._engine.release(slot)
         ctx.handle._finish(reason)

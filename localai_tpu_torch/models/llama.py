@@ -250,7 +250,7 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig,
     Quantized leaves (the JAX package's ``QuantizedTensor`` after
     ``jax.tree.map(np.asarray, tree)``: objects with ``q``, ``scale``,
     ``axis`` and ``mode``) become ``quant.QuantizedTensor``: int8 ``q``
-    goes across as it is, an int4 ``q`` (``ml_dtypes.int4``) through
+    (w8, w8a8) goes across as it is, an int4 ``q`` (``ml_dtypes.int4``) through
     ``astype(np.int8)`` and the port's w4 packing; ``scale`` stays f32.
     Expert stacks (plain or per-channel int8 over axis 2) and the router
     go across alike."""
@@ -265,9 +265,8 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig,
 
     def conv(a):
         if hasattr(a, "q") and hasattr(a, "scale"):  # a quantized leaf
-            if a.mode not in ("w8", "w4"):
-                raise ValueError(f"quantized mode {a.mode!r} is not ported "
-                                 "(the port has w8 and w4)")
+            if a.mode not in ("w8", "w8a8", "w4"):
+                raise ValueError(f"unknown quantized mode {a.mode!r}")
             scale = tensor(a.scale).to(device=device, dtype=torch.float32)
             if a.mode == "w4":
                 q = torch.from_numpy(np.asarray(a.q).astype(np.int8))
@@ -276,7 +275,7 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig,
                     quant.pack_w4(q, axis).to(device), scale, axis, "w4",
                     q.shape[axis] // scale.shape[axis])
             return quant.QuantizedTensor(tensor(a.q).to(device), scale,
-                                         a.axis % np.ndim(a.q))
+                                         a.axis % np.ndim(a.q), a.mode)
         return tensor(a).to(device=device, dtype=dtype)
 
     return {k: ({kk: conv(vv) for kk, vv in v.items()} if isinstance(v, dict)

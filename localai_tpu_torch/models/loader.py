@@ -113,7 +113,8 @@ def load_llama_params(
 ) -> tuple[LlamaConfig, dict]:
     """Load an HF llama/mistral/qwen2/mixtral checkpoint into the
     stacked parameter dict, in ``dtype`` on ``device``. ``quantization``
-    ("int8" / "int4") quantizes each layer's weights as they are read,
+    ("int8" / "int8_w8a8" / "int4") quantizes each layer's weights as they
+    are read,
     giving what ``quant.quantize_params`` gives for the whole tree."""
     model_dir = Path(model_dir)
     device = resolve_device(device)
@@ -166,8 +167,8 @@ def load_llama_params(
     layers = {key: stack(key) for key in keys}
     embed = get(body + "embed_tokens.weight")
     params: dict = {
-        "embed": (quant.quantize_tensor(embed, axis=1) if quantization
-                  else embed),
+        "embed": (quant.quantize_table(embed, 1, quantization, group)
+                  if quantization else embed),
         "final_norm": get(body + "norm.weight"),
         "layers": layers,
     }
@@ -176,9 +177,8 @@ def load_llama_params(
         if head in tensors:
             w = get(head, transpose=True)
             params["lm_head"] = (
-                w if not quantization else
-                quant.quantize_tensor4(w, 0, group)
-                if quantization == "int4" else quant.quantize_tensor(w, 0))
+                quant.quantize_table(w, 0, quantization, group)
+                if quantization else w)
             del w
         else:
             cfg = LlamaConfig(**{**cfg.__dict__, "tie_word_embeddings": True})

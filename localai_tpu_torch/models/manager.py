@@ -12,7 +12,12 @@ checkpoint's layer by layer as it is read (the JAX package quantizes the
 loaded tree: the same bytes, without a whole compute-dtype tree on the
 card). Speculative decoding is on by default for paged engines
 (the n-gram self-drafter) and for any engine with a ``draft_model``, as
-in the JAX package. Each serving model carries a ``TemplateCache`` over
+in the JAX package. ``engine.grp_attn_n`` > 1 (self-extend) lifts the
+context ceiling to ``max_position_embeddings * grp_attn_n``, takes the
+contiguous layout when the config leaves the layout open, and turns
+speculation off with a warning; ``prompt_cache_path`` gives the scheduler
+a disk prompt KV cache (a relative path lives under the models dir).
+Each serving model carries a ``TemplateCache`` over
 the models dir, as the JAX package's does. The manager loads
 ``preload_models`` at start, evicts the other models before a load under
 ``single_active_backend``, and runs the JAX package's idle/busy watchdog.
@@ -24,8 +29,8 @@ builds the recurrent-state engine (``models/mamba_serving.py``) and
 ``get_embedder`` into :class:`RerankServingModel` /
 :class:`EmbeddingServingModel`. Every kind shares one registry, so
 eviction, the watchdog, ``shutdown_model`` and preload treat them alike;
-a name asked for as another kind is reloaded (when idle). The prompt
-cache and the self-healing supervisor are not ported yet.
+a name asked for as another kind is reloaded (when idle). The
+self-healing supervisor is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,11 +40,13 @@ import logging
 import os
 import threading
 import time
+from pathlib import Path
 from typing import Any, Optional
 
 from localai_tpu_torch.config.app_config import AppConfig
 from localai_tpu_torch.config.loader import ConfigLoader
 from localai_tpu_torch.config.model_config import ModelConfig
+from localai_tpu_torch.engine.promptcache import PromptKVCache
 from localai_tpu_torch.engine.runner import ModelRunner
 from localai_tpu_torch.engine.scheduler import Scheduler
 from localai_tpu_torch.models.registry import LoadedModel, resolve_model
@@ -162,15 +169,18 @@ def build_runner(mcfg: ModelConfig, app: AppConfig,
                           model_path=app.model_path, dtype=eng.dtype,
                           seed=mcfg.seed or 0, device=app.device,
                           quantization=eng.quantization or "")
+    # self-extend lifts the trained-context ceiling by the group factor
     ctx = min(mcfg.context_size or app.context_size,
-              model.cfg.max_position_embeddings)
-    # paged unless the config says otherwise or LOCALAI_KV_PAGED=0 (an
-    # explicit per-model kv_paged wins); LOCALAI_KV_DTYPE replaces a
-    # default bfloat16 KV dtype, except int4 on a contiguous engine, which
-    # keeps its dtype with a warning (the JAX package's build_runner)
+              model.cfg.max_position_embeddings * max(eng.grp_attn_n, 1))
+    # paged unless the config says otherwise, self-extend asks for the
+    # contiguous layout, or LOCALAI_KV_PAGED=0 (an explicit per-model
+    # kv_paged wins); LOCALAI_KV_DTYPE replaces a default bfloat16 KV
+    # dtype, except int4 on a contiguous engine, which keeps its dtype
+    # with a warning (the JAX package's build_runner)
     paged = eng.kv_paged
     if paged is None:
-        paged = os.environ.get("LOCALAI_KV_PAGED", "") != "0"
+        paged = (eng.grp_attn_n <= 1
+                 and os.environ.get("LOCALAI_KV_PAGED", "") != "0")
     kv_dtype = eng.kv_dtype
     env_kv = os.environ.get("LOCALAI_KV_DTYPE", "").strip()
     if env_kv and kv_dtype == "bfloat16":
@@ -193,6 +203,8 @@ def build_runner(mcfg: ModelConfig, app: AppConfig,
         kv_block_tokens=eng.kv_block_tokens,
         kv_num_blocks=eng.kv_num_blocks,
         prefill_chunk=eng.prefill_chunk,
+        ga_n=eng.grp_attn_n,
+        ga_w=eng.grp_attn_w,
         device=app.device,
     )
     return model, runner
@@ -214,7 +226,11 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
     if spec_want is None:
         spec_want = ((runner.paged or bool(eng.draft_model))
                      and os.environ.get("LOCALAI_SPEC", "") != "0")
-    if spec_want:
+    if spec_want and eng.grp_attn_n > 1:
+        log.warning(
+            "%s: speculative decoding is not supported with self-extend "
+            "(grp_attn_n>1); serving without it", mcfg.name)
+    elif spec_want:
         from localai_tpu_torch.spec import build_spec_engine
 
         drafter = (os.environ.get("LOCALAI_SPEC_DRAFTER", "")
@@ -234,6 +250,18 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
         log.info("%s: speculative decoding on (%s drafter, gamma=%d, %s "
                  "KV)", mcfg.name, spec.drafter.name, spec.gamma,
                  "paged" if spec.paged else "contiguous")
+    prompt_cache = None
+    if mcfg.prompt_cache_path:
+        pc_path = Path(mcfg.prompt_cache_path)
+        if not pc_path.is_absolute():
+            pc_path = Path(app.model_path) / pc_path
+        prompt_cache = PromptKVCache(pc_path,
+                                     read_only=mcfg.prompt_cache_ro,
+                                     min_prefix=runner.prefix_reuse_min)
+        log.info("%s: prompt KV cache at %s (%s%s)", mcfg.name, pc_path,
+                 "ro, " if mcfg.prompt_cache_ro else "",
+                 "prompt+generation" if mcfg.prompt_cache_all
+                 else "prompt only")
     scheduler = Scheduler(
         runner, model.tokenizer,
         default_max_tokens=mcfg.parameters.max_tokens or 2048,
@@ -241,6 +269,8 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
         pipeline_depth=eng.pipeline_depth,
         stream_latency_target=eng.stream_latency_ms / 1000.0,
         spec=spec,
+        prompt_cache=prompt_cache,
+        prompt_cache_all=mcfg.prompt_cache_all,
     )
     # vision tower: the explicit mmproj ref, or the llava checkpoint itself;
     # on the engine's device, in its dtype

@@ -1,10 +1,17 @@
-"""Weight-only int8 / int4 quantization for the llama engine.
+"""Int8 / int4 weight quantization for the llama engine.
 
 Port of ``localai_tpu/models/quant.py``. Same recipes, bit for bit:
 
   * int8 (mode ``"w8"``): symmetric per output channel, scale =
     max|w| / 127 over the contraction axis, q = round(w / scale) in
     [-127, 127] (``torch.round`` rounds half to even, like ``jnp.round``).
+  * int8_w8a8 (mode ``"w8a8"``): the int8 weight of ``"w8"``, and the
+    activations quantized per token with :func:`quantize_lastdim` (the
+    scaled int8 KV recipe); the int8 x int8 product accumulates in int32
+    (:func:`int8_matmul`) and both scales are applied to the f32
+    accumulator in the JAX package's order, so f32 results equal its
+    bit for bit. The JAX package computes this product in XLA, outside
+    any Pallas kernel, so the port takes the library's ``torch._int_mm``.
   * int4 (mode ``"w4"``): symmetric per (group of ``group`` contraction
     rows, output channel), scale = max|w| / 7, q in [-7, 7].
 
@@ -53,13 +60,19 @@ from localai_tpu_torch.utils.device import resolve_device
 class QuantizedTensor:
     """A quantized weight.
 
-    q:     int8 with the weight's shape (w8), or uint8 packed along
+    q:     int8 with the weight's shape (w8, w8a8), or uint8 packed along
            ``axis`` (w4: that axis has half the rows, see :func:`pack_w4`).
-    scale: f32. w8: the weight's shape without ``axis`` (one scale per
-           output channel). w4: ``axis`` kept at size K / group.
+    scale: f32. w8/w8a8: the weight's shape without ``axis`` (one scale
+           per output channel). w4: ``axis`` kept at size K / group.
     axis:  the contraction axis of the logical weight.
-    mode:  ``"w8"`` | ``"w4"``.
+    mode:  ``"w8"`` | ``"w8a8"`` | ``"w4"``.
     group: contraction rows per scale (w4); 0 for w8.
+
+    A w8a8 matmul weight ([..., K, N], contracted over K) is stored
+    column-major in its last two dims (:func:`_column_major`): its shape
+    and values are the JAX package's, its memory the [N, K] layout in
+    which ``torch._int_mm`` takes the weight 4-8x faster on the card
+    than a row-major one.
     """
 
     q: torch.Tensor
@@ -67,6 +80,10 @@ class QuantizedTensor:
     axis: int
     mode: str = "w8"
     group: int = 0
+
+    def __post_init__(self) -> None:
+        if self.mode == "w8a8" and self.axis == self.q.dim() - 2:
+            self.q = _column_major(self.q)
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -89,17 +106,32 @@ class QuantizedTensor:
                                self.axis, self.mode, self.group)
 
 
+def _column_major(q: torch.Tensor) -> torch.Tensor:
+    """``q`` [..., K, N] with the same shape and values, stored as
+    [..., N, K] in memory (a transposed view of a contiguous tensor);
+    returned as it is when it is stored so already."""
+    if q.stride(-2) == 1 and q.stride(-1) == q.shape[-2]:
+        return q
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 # ---------------------------------------------------------------------------
 # quantizers
 # ---------------------------------------------------------------------------
 
-def quantize_tensor(w: torch.Tensor, axis: int) -> QuantizedTensor:
-    """Symmetric per-channel int8: scale = amax|w| / 127 over ``axis``."""
+# ``quantization`` settings and the mode of the matmul weights they give
+QUANT_MODES = {"int8": "w8", "int8_w8a8": "w8a8", "int4": "w4"}
+
+
+def quantize_tensor(w: torch.Tensor, axis: int,
+                    mode: str = "w8") -> QuantizedTensor:
+    """Symmetric per-channel int8: scale = amax|w| / 127 over ``axis``;
+    ``mode`` "w8" or "w8a8" (the same bytes, another product)."""
     wf = w.float()
     scale = wf.abs().amax(dim=axis).clamp(min=1e-8) / 127.0
     q = torch.round(wf / scale.unsqueeze(axis)).clamp(-127, 127).to(
         torch.int8)
-    return QuantizedTensor(q=q, scale=scale, axis=axis)
+    return QuantizedTensor(q=q, scale=scale, axis=axis, mode=mode)
 
 
 def _group_size(K: int, group: int) -> int:
@@ -184,10 +216,73 @@ def dequantize_tensor(qt: QuantizedTensor,
     return qt.q.to(dtype) * qt.scale.unsqueeze(qt.axis).to(dtype)
 
 
+# torch._int_mm on a CUDA tensor takes more than 16 rows of x, and K and N
+# multiples of 8: int8_matmul pads every product to these rules
+INT_MM_MIN_ROWS = 17
+INT_MM_ALIGN = 8
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor,
+                transpose_w: bool = False) -> torch.Tensor:
+    """Exact int8 x int8 product, accumulated in int32: xq [M, K] against
+    wq [K, N] (``transpose_w``: wq is [N, K] and the product takes its
+    transpose). The library's ``torch._int_mm`` on both devices, every
+    shape brought to its CUDA rules by zero padding, which adds nothing
+    to the kept sums:
+
+      * fewer than ``INT_MM_MIN_ROWS`` rows of x (decode): zero rows;
+      * K off a multiple of 8: zero columns of x and zero rows of a copy
+        of w (no served model has such a K);
+      * N off a multiple of 8 (a vocabulary of 32001 ids in the lm_head
+        or a tied table): the aligned columns are a view of w as it is
+        stored, and the last 1-7 columns a copy padded with zeros to 8,
+        product of its own.
+    """
+    w = wq.t() if transpose_w else wq
+    M, K = xq.shape
+    N = w.shape[1]
+    if K % INT_MM_ALIGN:
+        pad = -K % INT_MM_ALIGN
+        xq = torch.cat([xq, xq.new_zeros(M, pad)], dim=1)
+        w = torch.cat([w, w.new_zeros(pad, N)])
+    if M < INT_MM_MIN_ROWS:
+        xq = torch.cat([xq, xq.new_zeros(INT_MM_MIN_ROWS - M, xq.shape[1])])
+    n_al = N - N % INT_MM_ALIGN
+    parts = [torch._int_mm(xq, w[:, :n_al])] if n_al else []
+    if n_al < N:
+        tail = w.new_zeros(INT_MM_ALIGN, w.shape[0]).t()   # column-major
+        tail[:, :N - n_al] = w[:, n_al:]
+        parts.append(torch._int_mm(xq, tail)[:, :N - n_al])
+    acc = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return acc[:M]
+
+
+def int8_matmul_ref(xq: torch.Tensor, wq: torch.Tensor,
+                    transpose_w: bool = False) -> torch.Tensor:
+    """:func:`int8_matmul`'s plain version on any device: the product in
+    float64, exact while |sum| < 2**53 (int8 x int8 over any K a model
+    has), as int32."""
+    w = wq.t() if transpose_w else wq
+    return (xq.double() @ w.double()).to(torch.int32)
+
+
+def _w8a8(x: torch.Tensor, w: "QuantizedTensor",
+          transpose_w: bool) -> torch.Tensor:
+    """x @ w (or w.T) for a w8a8 weight, in the JAX package's arithmetic:
+    x quantized per token, the int32 product in f32, times x's scale,
+    times the weight's per-output-channel scale, cast to x's dtype."""
+    xq, xs = quantize_lastdim(x)
+    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), w.q, transpose_w)
+    acc = acc.reshape(*x.shape[:-1], acc.shape[-1]).float()
+    return (acc * xs[..., None] * w.scale).to(x.dtype)
+
+
 def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     """x @ w for plain or quantized [K, N] weights."""
     if not isinstance(w, QuantizedTensor):
         return x @ w
+    if w.mode == "w8a8":   # before K4: a w8a8 weight never reaches it
+        return _w8a8(x, w, transpose_w=False)
     lead = x.shape[:-1]
     if w.mode == "w4":
         if qmatmul.w4_eligible(x.shape, w.q, w.scale):
@@ -212,6 +307,8 @@ def matmul_t(x: torch.Tensor, w: Any) -> torch.Tensor:
     in int4 mode too, so there is no w4 branch."""
     if not isinstance(w, QuantizedTensor):
         return x @ w.T.to(x.dtype)
+    if w.mode == "w8a8":
+        return _w8a8(x, w, transpose_w=True)
     if w.mode != "w8":
         raise ValueError(f"matmul_t takes per-row int8 tables, got {w.mode}")
     if qmatmul.eligible(x.shape, w.q, w.scale, transpose_w=True):
@@ -273,18 +370,32 @@ def quantize_layer(name: str, w: torch.Tensor, mode: str, group: int = 128
                    ) -> Any:
     """One layer's slice of stacked weight ``name`` (``w`` without the
     L axis) as ``quantize_params`` quantizes it: an expert stack [E, K, N]
-    per-channel int8 over K in every mode; another matmul weight [K, N]
-    int8 or group-wise int4 over K (``mode`` "int8" / "int4"); the rest
-    (norms, biases, the router) as it is. Scales of one [E, K] slice
-    depend on that slice alone, so quantizing layer by layer as a
-    checkpoint is read gives the bytes of quantizing the whole stack."""
+    per-channel int8 (w8) over K in every mode; another matmul weight
+    [K, N] int8, int8 for w8a8 or group-wise int4 over K (``mode``
+    "int8" / "int8_w8a8" / "int4"); the rest (norms, biases, the router)
+    as it is. Scales of one [E, K] slice depend on that slice alone, so
+    quantizing layer by layer as a checkpoint is read gives the bytes of
+    quantizing the whole stack."""
     if name not in _LAYER_AXES:
         return w
     if name in _EXPERTS and w.dim() == 3:
         return quantize_tensor(w, 1)
     if mode == "int4":
         return quantize_tensor4(w, 0, group)
-    return quantize_tensor(w, 0)
+    return quantize_tensor(w, 0, QUANT_MODES[mode])
+
+
+def quantize_table(w: torch.Tensor, axis: int, mode: str,
+                   group: int = 128) -> QuantizedTensor:
+    """The embedding table (``axis`` 1, per row) or lm_head (``axis`` 0,
+    per output column) as ``quantize_params`` quantizes it: int8 in the
+    mode's product, except that the embedding stays w8 in int4 mode (the
+    gather and the tied logits keep their exact per-channel form) while
+    the lm_head goes group-wise int4."""
+    if mode == "int4":
+        return (quantize_tensor(w, axis) if axis == 1
+                else quantize_tensor4(w, axis, group))
+    return quantize_tensor(w, axis, QUANT_MODES[mode])
 
 
 def stack_layers(parts: Iterable[Any], n: int) -> Any:
@@ -296,7 +407,12 @@ def stack_layers(parts: Iterable[Any], n: int) -> Any:
     for i, p in enumerate(parts):
         if isinstance(p, QuantizedTensor):
             if out is None:
-                out = QuantizedTensor(p.q.new_empty((n, *p.q.shape)),
+                q = p.q.new_empty((n, *p.q.shape))
+                if p.q.dim() == 2 and p.q.stride(0) == 1:
+                    # a column-major slice: column-major storage (no copy)
+                    q = p.q.new_empty((n, p.q.shape[1],
+                                       p.q.shape[0])).transpose(1, 2)
+                out = QuantizedTensor(q,
                                       p.scale.new_empty((n, *p.scale.shape)),
                                       p.axis + 1, p.mode, p.group)
             out.q[i] = p.q
@@ -312,23 +428,22 @@ def quantize_params(params: dict, mode: str = "int8", group: int = 128,
                     device: str | torch.device | None = "cuda") -> dict:
     """Quantize a llama parameter tree's matmul weights onto ``device``.
 
-    embed goes per-row int8 (axis 1) in both modes, so the gather and the
+    embed goes per-row int8 (axis 1) in every mode, so the gather and the
     tied-embedding logits stay exact per channel; lm_head per output
     column (axis 0, or group-wise int4 over D); stacked layer weights over
-    their K axis; expert stacks [L, E, K, N] per-channel int8 over K
-    (axis 2) in both modes, as in the JAX package. ``mode``: ``"int8"`` or
-    ``"int4"``. ``"int8_w8a8"`` (an int8×int8 dot with dynamic activation
-    quantization in the JAX package, no Pallas kernel) is not ported."""
-    if mode not in ("int8", "int4"):
-        raise ValueError(f"unsupported quantization mode {mode!r} (the "
-                         "port has int8 and int4)")
+    their K axis; expert stacks [L, E, K, N] per-channel int8 (w8) over K
+    (axis 2) in every mode, as in the JAX package. ``mode``: ``"int8"``,
+    ``"int8_w8a8"`` (embed, lm_head and layer matmuls in mode w8a8) or
+    ``"int4"``."""
+    if mode not in QUANT_MODES:
+        raise ValueError(f"unsupported quantization mode {mode!r} (want "
+                         f"one of {sorted(QUANT_MODES)})")
     device = resolve_device(device)
     out = dict(params)
-    out["embed"] = quantize_tensor(params["embed"].to(device), axis=1)
+    out["embed"] = quantize_table(params["embed"].to(device), 1, mode, group)
     if "lm_head" in params:
-        head = params["lm_head"].to(device)
-        out["lm_head"] = (quantize_tensor4(head, 0, group) if mode == "int4"
-                          else quantize_tensor(head, 0))
+        out["lm_head"] = quantize_table(params["lm_head"].to(device), 0, mode,
+                                        group)
     layers = {}
     for name, w in params["layers"].items():
         # one layer slice at a time: no f32 copy of a whole stack exists

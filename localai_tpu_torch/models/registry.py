@@ -23,6 +23,7 @@ from localai_tpu_torch.models.llama import (
     torch_dtype,
 )
 from localai_tpu_torch.models.quant import (
+    QUANT_MODES,
     QuantizedTensor,
     _group_size,
     quantize_params,
@@ -85,7 +86,7 @@ def resolve_model(
     device: str | torch.device | None = "cuda",
     quantization: str = "",
 ) -> LoadedModel:
-    """``quantization`` ("int8" / "int4") gives the weights of
+    """``quantization`` ("int8" / "int8_w8a8" / "int4") gives the weights of
     ``quant.quantize_params``: a debug preset's drawn tree is quantized on
     the device, a checkpoint's layers as they are read (the bf16 tree of
     Mixtral-8x7B would not fit the card)."""
@@ -133,8 +134,10 @@ def synthetic_quantized_params(
 
     Shapes, dtypes, axes and scales are the JAX package's: every matmul
     weight is uniform random int8 bits clamped to [-127, 127] (``mode``
-    "int8"), or their arithmetic high nibble clamped to [-7, 7] in groups
-    of ``group`` (``"int4"``, packed by ``pack_w4``), with the constant
+    "int8", or "int8_w8a8" with embed, lm_head and the layer matmuls in
+    mode w8a8), or their arithmetic high nibble clamped to [-7, 7] in
+    groups of ``group`` (``"int4"``, packed by ``pack_w4``), with the
+    constant
     scale 0.02 / 127 (or / 7), so activations stay in the range of
     ``init_params``' N(0, 0.02) draws; embed is per-row int8 in both
     modes; expert stacks [L, E, K, N] are per-channel int8 over K in both;
@@ -143,9 +146,8 @@ def synthetic_quantized_params(
     ``device``, so they differ from the JAX package's. Each stack is drawn
     one [K, N] matrix at a time into its int8 storage: no f32 or int64
     temporary of a whole stack exists."""
-    if mode not in ("int8", "int4"):
-        raise ValueError(f"unsupported synthetic quant mode {mode!r} (the "
-                         "port has int8 and int4)")
+    if mode not in QUANT_MODES:
+        raise ValueError(f"unsupported synthetic quant mode {mode!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg.dtype)
@@ -155,7 +157,9 @@ def synthetic_quantized_params(
         return torch.randint(-128, 128, shape, generator=gen,
                              dtype=torch.int8, device=dev)
 
-    def qweight(shape, axis, nbits):
+    mm8 = "w8a8" if mode == "int8_w8a8" else "w8"
+
+    def qweight(shape, axis, nbits, mm="w8"):
         lead = int(np.prod(shape[:-2], dtype=np.int64))
         if nbits == 4:
             K = shape[axis]
@@ -173,7 +177,7 @@ def synthetic_quantized_params(
             r.copy_(bits(shape[-2:]).clamp_(min=-127))
         sshape = shape[:axis] + shape[axis + 1:]
         return QuantizedTensor(q, torch.full(sshape, 0.02 / 127, device=dev),
-                               axis)
+                               axis, mm)
 
     def router(shape) -> torch.Tensor:
         out = torch.empty(shape, dtype=dtype, device=dev)
@@ -184,12 +188,12 @@ def synthetic_quantized_params(
     bits_mm = 4 if mode == "int4" else 8
     params: dict = {
         # embeddings stay int8 in int4 mode too (quant.quantize_params)
-        "embed": qweight(shapes["embed"], 1, 8),
+        "embed": qweight(shapes["embed"], 1, 8, mm8),
         "final_norm": torch.ones(shapes["final_norm"], dtype=dtype,
                                  device=dev),
     }
     if "lm_head" in shapes:
-        params["lm_head"] = qweight(shapes["lm_head"], 0, bits_mm)
+        params["lm_head"] = qweight(shapes["lm_head"], 0, bits_mm, mm8)
     layers = {}
     for name, shape in shapes["layers"].items():
         if name in ("attn_norm", "mlp_norm"):
@@ -201,7 +205,7 @@ def synthetic_quantized_params(
         elif len(shape) == 4:      # expert stacks: int8 in every mode
             layers[name] = qweight(shape, 2, 8)
         else:
-            layers[name] = qweight(shape, 1, bits_mm)
+            layers[name] = qweight(shape, 1, bits_mm, mm8)
     params["layers"] = layers
     return params
 

@@ -301,6 +301,11 @@ def build_spec_engine(target: ModelRunner, *,
     draft_ref is configured, ngram otherwise. Environment:
     ``LOCALAI_SPEC_GAMMA`` (window size), ``LOCALAI_SPEC_NGRAM_MAX`` /
     ``LOCALAI_SPEC_NGRAM_MIN`` (lookup n-gram lengths)."""
+    if target.ga_n > 1:
+        # a self-extend target has an unroped cache and an identity RoPE
+        # table: the verify forward would attend position-blind
+        raise ValueError("speculative decoding is not supported with "
+                         "self-extend (grp_attn_n > 1)")
     if gamma is None:
         gamma = _env_num("LOCALAI_SPEC_GAMMA", 4)
     gamma = max(1, int(gamma))

@@ -303,13 +303,24 @@ def test_text_response_format_is_served(two_servers):
 
 
 @pytest.mark.parametrize("doc,what", [
-    ({"prompt_cache_path": "cache"}, "prompt cache"),
+    # the prompt cache, refused once, now loads into the JAX package's
+    # fields (what None)
+    ({"prompt_cache_path": "cache", "prompt_cache_all": True,
+      "prompt_cache_ro": True}, None),
     # a divergence: the JAX package declares the key and reads it nowhere
     ({"grammar": "root ::= \"x\""}, "reads it nowhere"),
-])
+], ids=["doc0-prompt cache", "doc1-reads it nowhere"])
 def test_config_for_unported_features_fails_at_load(tmp_path, doc, what):
     p = tmp_path / "u.yaml"
     p.write_text(yaml.safe_dump({"name": "u", "model": "debug:tiny", **doc}))
+    if what is None:
+        cfg = load_config_file(p)
+        jcfg = JaxModelConfig(**yaml.safe_load(p.read_text()))
+        assert (cfg.prompt_cache_path, cfg.prompt_cache_all,
+                cfg.prompt_cache_ro) == (jcfg.prompt_cache_path,
+                                         jcfg.prompt_cache_all,
+                                         jcfg.prompt_cache_ro)
+        return
     with pytest.raises(ValueError, match=what):
         load_config_file(p)
 

@@ -236,10 +236,17 @@ def _yaml(tmp_path, engine, **extra):
 
 
 @pytest.mark.parametrize("engine,extra,match", [
-    ({"grp_attn_n": 4}, {}, "self-extend"),
+    # self-extend, refused once, now loads (match None): the runner it
+    # builds is tests/test_torch_selfextend.py's
+    pytest.param({"grp_attn_n": 4, "grp_attn_w": 64}, {}, None,
+                 id="engine0-extra0-self-extend"),
     ({"kv_paged": False, "kv_dtype": "int4"}, {}, "int4"),
 ])
 def test_unported_config_is_refused_at_load(tmp_path, engine, extra, match):
+    if match is None:
+        cfg = load_config_file(_yaml(tmp_path, engine, **extra))
+        assert (cfg.engine.grp_attn_n, cfg.engine.grp_attn_w) == (4, 64)
+        return
     with pytest.raises(ValueError, match=match):
         load_config_file(_yaml(tmp_path, engine, **extra))
 

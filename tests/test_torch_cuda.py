@@ -1121,3 +1121,62 @@ def test_cuda_moe_runner_matches_the_cpu(paged, weights):
             assert dense.launches - mm == 6 * (4 * L + 1)
         out[dev] = toks
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 40, 256])
+@pytest.mark.parametrize("K,N,transpose", [(4096, 1024, False),
+                                           (14336, 4096, False),
+                                           (2048, 8192, True),
+                                           (4096, 32001, False),
+                                           (4096, 32001, True),
+                                           (4100, 1000, False)])
+def test_cuda_int8_product_is_exact(M, K, N, transpose):
+    """The w8a8 product (torch._int_mm, rows padded past its 16-row
+    floor, K and N padded to multiples of 8: a 32001-id vocabulary in
+    the lm_head and a tied table) on a weight in its served column-major
+    storage equals the exact float64 product, bit for bit."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(M * 7 + K)
+    w = torch.randn((N, K) if transpose else (K, N), generator=g,
+                    device="cuda")
+    qt = tq.quantize_tensor(w, 1 if transpose else 0, "w8a8")
+    xq = torch.randint(-127, 128, (M, K), generator=g, device="cuda",
+                       dtype=torch.int8)
+    got = tq.int8_matmul(xq, qt.q, transpose)
+    assert got.shape == (M, N) and got.dtype == torch.int32
+    assert torch.equal(got, tq.int8_matmul_ref(xq, qt.q, transpose))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+def test_cuda_selfextend_runner_matches_the_cpu(kv):
+    """Self-extend (ga_n 4, ga_w 32) past a trained context cut to 64 on
+    the contiguous layout: the card's greedy tokens equal the CPU's, and
+    neither K2 nor K3 launches (they take roped K only)."""
+    import dataclasses
+
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models.registry import resolve_model
+
+    _card()
+    model = resolve_model("debug:small", dtype="float32", device="cpu")
+    cfg = dataclasses.replace(model.cfg, max_position_embeddings=64)
+    prompt = [(i * 7 + 3) % 256 for i in range(150)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(dev))
+                  for k, v in model.params.items()}
+        r = ModelRunner(cfg, params, num_slots=2, max_ctx=256,
+                        prefill_buckets=[64, 256], kv_dtype=kv, paged=False,
+                        ga_n=4, ga_w=32, device=dev)
+        before = (tops.decode_attention.launches,
+                  tops.prefill_attention.launches)
+        s = r.acquire_slot()
+        toks = [r.admit(s, prompt, temperature=0.0)]
+        toks += [int(r.step()[s]) for _ in range(8)]
+        assert (tops.decode_attention.launches,
+                tops.prefill_attention.launches) == before
+        out[dev] = toks
+    assert out["cuda"] == out["cpu"]

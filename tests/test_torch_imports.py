@@ -165,6 +165,18 @@ def test_encoder_recurrent_and_remote_modules_are_covered():
             "models/mamba_serving.py", "models/hf_api.py"} <= rel
 
 
+def test_selfextend_and_promptcache_modules_are_covered():
+    """Self-extend and the disk prompt cache, the last two modules of the
+    JAX package's engine directory, are among the modules and sources the
+    rules above check."""
+    mods = set(_port_modules())
+    for m in ("engine.selfextend", "engine.promptcache"):
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    assert {"engine/selfextend.py", "engine/promptcache.py"} <= rel
+
+
 @pytest.mark.parametrize("path", [p for p in SOURCES
                                   if p.parent != REPO / "scripts"],
                          ids=lambda p: p.name if p.parent == REPO else

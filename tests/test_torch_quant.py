@@ -148,17 +148,34 @@ def test_quantize_params_equals_jax_tree(mode, preset):
 
 
 def test_quantize_params_refuses_w8a8():
-    with pytest.raises(ValueError, match="int8_w8a8"):
-        tq.quantize_params({}, "int8_w8a8", device="cpu")
+    """int8_w8a8 (once refused) quantizes as the JAX package does (the
+    whole tree: tests/test_torch_w8a8.py); an unknown mode is refused."""
+    w = _w((8, 4), 0)
+    got = tq.quantize_params(
+        {"embed": torch.from_numpy(w), "final_norm": torch.ones(4),
+         "layers": {}}, "int8_w8a8", device="cpu")["embed"]
+    want = jq.quantize_tensor(jnp.asarray(w), 1)
+    assert got.mode == "w8a8" and got.axis == 1
+    assert torch.equal(got.q, torch.from_numpy(np.array(want.q)))
+    assert torch.equal(got.scale, torch.from_numpy(np.array(want.scale)))
+    with pytest.raises(ValueError, match="int2"):
+        tq.quantize_params({}, "int2", device="cpu")
 
 
 def test_params_from_numpy_refuses_w8a8_leaves():
+    """A w8a8 leaf of the JAX package (once refused) carries across with
+    its mode; an unknown mode is refused."""
     cfg = tl.LlamaConfig(vocab_size=8, hidden_size=4, num_layers=1,
                          num_heads=1, num_kv_heads=1, dtype="float32")
     leaf = jq.quantize_tensor(jnp.ones((8, 4)), 1)
     leaf = jax.tree.map(np.asarray, dataclasses.replace(leaf, mode="w8a8"))
-    with pytest.raises(ValueError, match="w8a8"):
-        tl.params_from_numpy({"embed": leaf}, cfg, device="cpu")
+    got = tl.params_from_numpy({"embed": leaf}, cfg, device="cpu")["embed"]
+    assert (got.mode, got.axis) == ("w8a8", 1)
+    assert torch.equal(got.q, torch.from_numpy(np.array(leaf.q)))
+    with pytest.raises(ValueError, match="w2"):
+        tl.params_from_numpy(
+            {"embed": dataclasses.replace(leaf, mode="w2")}, cfg,
+            device="cpu")
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 256, 384), (3, 64, 40),
