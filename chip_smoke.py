@@ -4109,6 +4109,280 @@ def phase_vision_parity() -> dict:
     return launches
 
 
+# GQA groups past the powers of two (K1/K2 on the next compiled
+# group capacity with the rows past the group masked, K3 with the group
+# read at run time), each at a published checkpoint's heads:
+# (q heads, kv heads, head dim)
+GROUP_SHAPES = {
+    "g3": (24, 8, 128),     # Llama-3.2-3B
+    "g5": (40, 8, 128),     # Qwen2.5-14B
+    "g6": (48, 8, 128),     # Mixtral-8x22B
+    "g7": (28, 4, 128),     # Qwen2.5-7B
+    "g16": (128, 8, 128),   # Llama-3.1-405B
+    "g3-hd64": (9, 3, 64),  # SmolLM-135M
+    "g7-hd64": (14, 2, 64),  # Qwen2.5-0.5B
+}
+GROUP_TIMED = "g7"          # timed next to its bound and SDPA
+GROUP_T = 2048              # K3's prompt; and a length below it that
+GROUP_LEN = 1999            # leaves a block's left-over rows masked
+
+
+def phase_kernel_groups() -> dict:
+    """K1 (bf16 and int8 pools, at the split plan), K2 (bf16 cache) and K3
+    (bf16, T = 2048 and a length of 1999 below it) at every group of
+    ``GROUP_SHAPES``, each against its plain version at the phase's
+    tolerances; the ``GROUP_TIMED`` cases timed beside their bound and
+    SDPA. Returns those timed records."""
+    timed = {}
+    for i, (name, (Hq, Hkv, hd)) in enumerate(GROUP_SHAPES.items()):
+        t = name == GROUP_TIMED
+        shape = {"Hq": Hq, "Hkv": Hkv, "hd": hd}
+        rec = {
+            "k1": kernel_case(f"{name}-k1-bf16", torch.bfloat16, timed=t,
+                              seed=70 + i, **shape),
+            "k1-int8": kernel_case(f"{name}-k1-int8", torch.bfloat16,
+                                   pool="int8", timed=t, seed=80 + i,
+                                   **shape),
+            "k2": decode_case(f"{name}-k2-bf16", torch.bfloat16, timed=t,
+                              seed=90 + i, **shape),
+            "k3": prefill_case(f"{name}-k3-T{GROUP_T}-bf16", torch.bfloat16,
+                               GROUP_T, seed=100 + i, timed=t, **shape),
+        }
+        prefill_case(f"{name}-k3-T{GROUP_T}-len{GROUP_LEN}-bf16",
+                     torch.bfloat16, GROUP_T, length=GROUP_LEN,
+                     seed=110 + i, timed=False, **shape)
+        if t:
+            timed = rec
+    return timed
+
+
+def _group_cfg(g: int):
+    """A small llama config at GQA group ``g`` (two kv heads of head dim
+    64, two layers, the qwen2 family's q/k/v biases), float32."""
+    from localai_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=512, hidden_size=2 * g * 64,
+                       intermediate_size=512, num_layers=2,
+                       num_heads=2 * g, num_kv_heads=2,
+                       max_position_embeddings=512, attention_bias=True,
+                       dtype="float32")
+
+
+def phase_group_parity() -> dict:
+    """cuda/cpu parity at GQA groups 3 and 7 on small float32 models:
+    greedy tokens equal on the paged layout (float32 and int8 pools) and
+    the contiguous one, and the contiguous runner's embed vectors (K3)
+    within 1e-4 of their largest entry, as ``phase_parity`` holds them;
+    returns the card runs' launches by mode."""
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models.llama import init_params
+    from localai_tpu_torch.ops.attention import (
+        decode_attention,
+        paged_decode_attention,
+        prefill_attention,
+    )
+
+    wrappers = {"paged_decode_attention": paged_decode_attention,
+                "decode_attention": decode_attention,
+                "prefill_attention": prefill_attention}
+    prompts = [list(b"A group of seven query heads shares a kv head"),
+               list(b"hi"), list(range(3, 120))]
+    launches = {}
+    for g in (3, 7):
+        cfg = _group_cfg(g)
+        params = init_params(cfg, torch.Generator().manual_seed(g), "cpu")
+        for paged, kv in ((True, "float32"), (True, "int8"),
+                          (False, "float32")):
+            mode = f"g{g}-{'paged' if paged else 'contiguous'}-{kv}"
+            seqs, vecs = {}, {}
+            for dev in ("cuda", "cpu"):
+                r = ModelRunner(cfg, _to(params, dev), num_slots=4,
+                                max_ctx=256, kv_dtype=kv,
+                                kv_block_tokens=16, prefill_chunk=32,
+                                paged=paged, device=dev)
+                for w in wrappers.values():
+                    w.launches = 0
+                slots = [r.acquire_slot() for _ in prompts]
+                out = [[r.admit(s, p, temperature=0.0)]
+                       for s, p in zip(slots, prompts)]
+                for _ in range(16):
+                    toks = r.step()
+                    for o, s in zip(out, slots):
+                        o.append(int(toks[s]))
+                seqs[dev] = out
+                counts = {n: w.launches for n, w in wrappers.items()}
+                if not paged:
+                    vecs[dev] = [r.embed(p) for p in prompts[:2]]
+                if dev == "cuda":
+                    need = (["paged_decode_attention"] if paged
+                            else ["decode_attention", "prefill_attention"])
+                    if any(counts[n] <= 0 for n in need):
+                        raise AssertionError(f"group parity {mode}: no "
+                                             f"launch of {need}: {counts}")
+                    launches[mode] = counts
+                del r
+            print(f"group parity {mode}: {seqs['cuda']} launches "
+                  f"{json.dumps(launches[mode])}", flush=True)
+            if seqs["cuda"] != seqs["cpu"]:
+                raise AssertionError(f"group parity {mode}: greedy tokens "
+                                     "differ between cuda and cpu")
+            for a, b in zip(vecs.get("cuda", ()), vecs.get("cpu", ())):
+                err = float(abs(a - b).max())
+                tol = 1e-4 * float(abs(b).max())
+                print(f"group parity {mode} embed: max abs diff {err} "
+                      f"(tolerance {tol})", flush=True)
+                if not err <= tol:
+                    raise AssertionError(f"group parity {mode}: embed "
+                                         "differs between cuda and cpu")
+    return launches
+
+
+# Qwen2.5-7B-Instruct's config.json as published on Hugging Face (28 query
+# and 4 kv heads: a GQA group of 7)
+QWEN25_7B_CONFIG = {
+    "architectures": ["Qwen2ForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 151643, "eos_token_id": 151645, "hidden_act": "silu",
+    "hidden_size": 3584, "initializer_range": 0.02,
+    "intermediate_size": 18944, "max_position_embeddings": 32768,
+    "max_window_layers": 28, "model_type": "qwen2",
+    "num_attention_heads": 28, "num_hidden_layers": 28,
+    "num_key_value_heads": 4, "rms_norm_eps": 1e-06, "rope_theta": 1000000.0,
+    "sliding_window": 131072, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "transformers_version": "4.43.1",
+    "use_cache": True, "use_sliding_window": False, "vocab_size": 152064}
+QWEN = "qwen2.5-7b-bf16"
+# the spans of one served request, in order (the JAX package's
+# EngineTelemetry)
+REQUEST_SPANS = ["queued", "admitted", "prefill", "decode", "drained"]
+
+
+def _get(url: str) -> tuple:
+    """(status, body bytes, wall ms) of a GET."""
+    t0 = time.monotonic()
+    with urllib.request.urlopen(url, timeout=60) as r:
+        body = r.read()
+        return r.status, body, (time.monotonic() - t0) * 1e3
+
+
+def _series(text: str, name: str, model: str) -> float:
+    """The sum of ``name``'s samples labelled ``model`` in an OpenMetrics
+    scrape."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(name + "{") and f'model="{model}"' in line:
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def phase_telemetry(srv, chats: list) -> dict:
+    """After a serve: the scrape's TTFT count and requests equal the chats
+    served, its generated tokens the tokens the clients were sent; one
+    trace per chat at /v1/traces with the request spans in order, each
+    under its HTTP span's trace id; /healthz and /version answer 200.
+    ``chats`` is every chat of the serve (``_chats`` results)."""
+    url = srv.server.url
+    n = sum(len(c["results"]) for c in chats)
+    tokens = sum(c["tokens"] for c in chats)
+    status, body, scrape_ms = _get(url + "/metrics")
+    text = body.decode()
+    got = {"ttft_count": _series(text, "localai_ttft_seconds_count",
+                                 srv.name),
+           "requests": _series(text, "localai_requests_total", srv.name),
+           "tokens": _series(text, "localai_tokens_generated_total",
+                             srv.name)}
+    if status != 200 or got != {"ttft_count": n, "requests": n,
+                                "tokens": tokens}:
+        raise AssertionError(f"{srv.name}: /metrics gave {got}, served "
+                             f"{n} chats of {tokens} tokens")
+    status, body, traces_ms = _get(
+        url + f"/v1/traces?kind=request&model={srv.name}&limit=500")
+    traces = json.loads(body)["traces"]
+    names = [[c["name"] for c in t["children"]] for t in traces]
+    if len(traces) != n or any(x != REQUEST_SPANS for x in names):
+        raise AssertionError(f"{srv.name}: /v1/traces holds {len(traces)} "
+                             f"traces for {n} chats: {names}")
+    _, body, _ = _get(url + "/v1/traces?kind=http&limit=500")
+    http_ids = {t["trace_id"] for t in json.loads(body)["traces"]}
+    if any(t["trace_id"] not in http_ids for t in traces):
+        raise AssertionError(f"{srv.name}: an engine trace has no HTTP span "
+                             "under its trace id")
+    for path in ("/healthz", "/version"):
+        if _get(url + path)[0] != 200:
+            raise AssertionError(f"{path} did not answer 200")
+    rec = {"model": srv.name, "chats": n, "tokens": tokens,
+           "scrape_ms": scrape_ms, "scrape_bytes": len(text),
+           "traces_ms": traces_ms, **got}
+    print("telemetry: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_serve_qwen(card: str) -> dict:
+    """``qwen2.5-7b-bf16``, the group-7 serve: a checkpoint directory with
+    Qwen2.5-7B-Instruct's config.json (full widths and depth: 28 query /
+    4 kv heads), seeded random bf16 weights drawn on the card and written
+    once by ``models.loader.write_llama_checkpoint``, and the smoke's
+    128256-id tokenizer.json; loaded from a YAML naming the directory,
+    paged, ``spec: false``. A warm-up chat, then five greedy 32-token chats
+    (one streamed) with every count at 0: K1 28 launches a plain decode
+    step and no other kernel; then ``phase_telemetry``. Returns the
+    launches, the serve's record and the telemetry's."""
+    import pathlib
+
+    from localai_tpu_torch.models.llama import LlamaConfig, init_params
+
+    root = pathlib.Path(_scratch_dir("qwen-serve-", 16_500_000_000))
+    ckpt, models = root / "Qwen2.5-7B-Instruct", root / "models"
+    try:
+        cfg = LlamaConfig.from_hf(QWEN25_7B_CONFIG)  # bfloat16
+        t0 = time.monotonic()
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(17), "cuda")
+        torch.cuda.synchronize()
+        draw_s = time.monotonic() - t0
+        written = write_checkpoint_dir(ckpt, cfg, params, "bfloat16",
+                                       QWEN25_7B_CONFIG)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        size = sum(f.stat().st_size for f in ckpt.iterdir())
+        print(f"checkpoint {QWEN}: {size / 1e9:.2f} GB written in "
+              f"{written['weights_s']:.1f}s (weights drawn on the card in "
+              f"{draw_s:.1f}s); card {card}", flush=True)
+        models.mkdir()
+        doc = {"name": QWEN, "model": str(ckpt), "context_size": 4096,
+               "engine": {"max_slots": 8, "kv_block_tokens": 64,
+                          "spec": False}}
+        with _Served(doc, models_path=str(models)) as srv:
+            r = srv.sm.runner
+            if (r.cfg.num_heads, r.cfg.num_kv_heads, r.cfg.num_layers) != (
+                    28, 4, 28) or not r.paged or r.paged_attn_impl != \
+                    "kernel" or srv.sm.scheduler.spec is not None:
+                raise AssertionError(f"{QWEN}: not a paged group-7 engine "
+                                     "on the kernels without speculation")
+            warm = _chats(srv.chat, srv.name, n=1)
+            torch.cuda.reset_peak_memory_stats()
+            run = _counted(srv.sm, _all_kernels(),
+                           lambda: _chats(srv.chat, srv.name))
+            chats = run.pop("result")
+            rec = {"card": card, "model": QWEN, "checkpoint_gb": size / 1e9,
+                   "checkpoint_write_s": written["weights_s"],
+                   "load_s": srv.load_s, "requests": 5, "streaming": 1,
+                   "completion_tokens": chats["tokens"],
+                   "wall_s": chats["wall_s"],
+                   "tokens_per_s": chats["tokens"] / chats["wall_s"],
+                   "ttft_stream_s": chats["ttft_s"], "launches": run,
+                   "max_memory_allocated_gb":
+                       torch.cuda.max_memory_allocated() / 1e9}
+            print("serve: " + json.dumps(rec), flush=True)
+            _check_k1(QWEN, run, 28)
+            tele = phase_telemetry(srv, [warm, chats])
+        return {"launches": run, "serve": rec, "telemetry": tele}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_kernel_llava() -> dict:
     """K1, K2 and K3 at Llama-2-7B's shape (Hq = Hkv = 32, a GQA group of
     1, hd 128, 8 slots, bf16), each against its plain version and timed
@@ -5971,6 +6245,10 @@ def main() -> int:
     phase_media()
     phase_vision_parity()
     llava_k = phase_kernel_llava()
+    t_groups = time.monotonic()
+    groups_k = phase_kernel_groups()
+    group_parity = phase_group_parity()
+    print(f"group phases: {time.monotonic() - t_groups:.1f}s", flush=True)
     phase_recurrent_parity()
     profile = "--profile" in sys.argv[1:]
     bf16 = phase_serve(card, profile=profile)
@@ -5995,6 +6273,9 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     served["checkpoint"] = phase_serve_checkpoint(card)["launches"]
+    t_qwen = time.monotonic()
+    served["qwen"] = phase_serve_qwen(card)["launches"]
+    print(f"group-7 serve: {time.monotonic() - t_qwen:.1f}s", flush=True)
     gguf = phase_gguf_convert(card)
     served["llava"] = phase_serve_llava(card)
     served["mixtral"] = phase_serve_mixtral(card, profile=profile)
@@ -6115,6 +6396,22 @@ def main() -> int:
                "localai_tpu/ops/attention.py:337",
                served["llava"]["contiguous"]["prefill_attention"],
                llava_k["k3-served"]),
+        # a GQA group of 7 (Qwen2.5-7B: 28 query / 4 kv heads): K1 on the
+        # group-7 serve's decode steps, its int8 pool on the group-7
+        # parity run's; K2 and K3 on that parity run's contiguous engine;
+        # times at Qwen2.5-7B's heads (K3 at T = 2048)
+        _entry("paged_decode_attention_group7", k1_src, k1_tpu,
+               served["qwen"]["paged_decode_attention"], groups_k["k1"]),
+        _entry("paged_decode_attention_int8_group7", k1_src, k1_tpu,
+               group_parity["g7-paged-int8"]["paged_decode_attention"],
+               groups_k["k1-int8"]),
+        _entry("decode_attention_group7", k2_src, k2_tpu,
+               group_parity["g7-contiguous-float32"]["decode_attention"],
+               groups_k["k2"]),
+        _entry("prefill_attention_group7", src + "prefill_attention.cu",
+               "localai_tpu/ops/attention.py:337",
+               group_parity["g7-contiguous-float32"]["prefill_attention"],
+               groups_k["k3"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,6 +15,7 @@ has no pydantic request model.
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import json
 import logging
@@ -25,9 +26,39 @@ from typing import Any, Optional
 import numpy as np
 
 from localai_tpu_torch import functions as fx
+from localai_tpu_torch.obs import logging as obs_logging
 from localai_tpu_torch.templates.chat import multimodal_placeholders
 
 log = logging.getLogger(__name__)
+
+
+# the request's X-Correlation-ID header, bound to the handler's thread by
+# api.server for the duration of the request (the JAX package reads it off
+# its aiohttp request)
+_CORRELATION_ID: contextvars.ContextVar[str] = contextvars.ContextVar(
+    "localai_correlation_id", default="")
+
+
+def bind_correlation_id(cid: str) -> contextvars.Token:
+    return _CORRELATION_ID.set(cid)
+
+
+def unbind_correlation_id(token: contextvars.Token) -> None:
+    _CORRELATION_ID.reset(token)
+
+
+def correlation_id() -> str:
+    """The request's X-Correlation-ID header ("" when none); callers fall
+    back to their response id."""
+    return _CORRELATION_ID.get()
+
+
+def trace_id() -> str:
+    """The trace id the server's request wrapper bound for this request:
+    the engine's lifecycle spans group under it, so
+    /debug/timeline/{id} shows the HTTP span and every generation it
+    spawned together ("" outside a served request)."""
+    return obs_logging.current_trace_id()
 
 
 def request_deadline_s(cfg: Any) -> float:

@@ -217,12 +217,14 @@ def _choices(body: dict) -> int:
 
 def _gen_request(sm, body: dict, prompt: str, stream: bool,
                  constraint=None, seed_offset: int = 0,
-                 mm: Any = None) -> GenRequest:
+                 mm: Any = None, rid: str = "") -> GenRequest:
     """Request body over the model's YAML defaults → GenRequest; choice
     ``seed_offset`` of an ``n`` > 1 request samples with ``seed + i``.
     With encoded media (``mm``, an ``inference.MMContent``) the prompt's
     placeholders expand into image-token ids whose rows the prefill
-    replaces with the media's embeddings."""
+    replaces with the media's embeddings. The correlation id is the
+    request's X-Correlation-ID, else the response id ``rid``; the trace id
+    the server bound, else the correlation id."""
     _refuse_grammar(body)
     cfg = sm.config
     p = cfg.parameters.merged_with({
@@ -240,6 +242,7 @@ def _gen_request(sm, body: dict, prompt: str, stream: bool,
                 logit_bias[int(k)] = float(v)
             except (TypeError, ValueError):
                 continue
+    cid = inf.correlation_id() or rid
     seed = p.seed
     if seed is not None and seed_offset:
         seed = seed + seed_offset
@@ -259,7 +262,8 @@ def _gen_request(sm, body: dict, prompt: str, stream: bool,
         logit_bias=logit_bias,
         stop=tuple(cfg.stopwords) + tuple(stops), constraint=constraint,
         ignore_eos=bool(body.get("ignore_eos")), stream=stream,
-        mm_embeds=mm_rows, mm_positions=mm_pos)
+        mm_embeds=mm_rows, mm_positions=mm_pos,
+        correlation_id=cid, trace_id=inf.trace_id() or cid)
 
 
 _MESSAGE_FIELDS = ("role", "name", "content", "tool_calls", "function_call")
@@ -426,8 +430,8 @@ def chat(manager, body: dict):
         raise APIError(400, str(e)) from e
     prompt = _chat_prompt(sm, messages, tctx)
     constraint = tctx.constraint if tctx is not None else rf_constraint
-    gr = _gen_request(sm, body, prompt, stream, constraint, mm=mm)
     rid = new_id("chatcmpl")
+    gr = _gen_request(sm, body, prompt, stream, constraint, mm=mm, rid=rid)
 
     def extra_choice(i: int) -> GenRequest:
         """Choice i > 0 needs a fresh constraint (FSM state is
@@ -438,7 +442,7 @@ def chat(manager, body: dict):
         elif rf_constraint is not None:
             c = inf.response_format_constraint(sm, body)
         return _gen_request(sm, body, prompt, stream, c, seed_offset=i,
-                            mm=mm)
+                            mm=mm, rid=rid)
 
     if stream:
         if n > 1 and tctx is None:
@@ -567,14 +571,15 @@ def completions(manager, body: dict):
     rid = new_id("cmpl")
     if stream:
         handles = [sm.scheduler.submit(_gen_request(
-            sm, body, prompt, stream, seed_offset=i))
+            sm, body, prompt, stream, seed_offset=i, rid=rid))
             for prompt in templated for i in range(n)]
         return _completions_stream(handles, rid, model)
     choices = []
     prompt_total = completion_total = 0
     for raw, prompt in zip(prompts, templated):
         handles = [sm.scheduler.submit(_gen_request(
-            sm, body, prompt, stream, seed_offset=i)) for i in range(n)]
+            sm, body, prompt, stream, seed_offset=i, rid=rid))
+            for i in range(n)]
         _wait(manager, *handles)
         for h in handles:
             prompt_total += h.prompt_tokens
@@ -626,7 +631,8 @@ def edits(manager, body: dict) -> dict:
     for i, text_in in enumerate(inputs):
         prompt = build_edit_prompt(sm.templates, sm.config, text_in,
                                    instruction)
-        h = sm.scheduler.submit(_gen_request(sm, body, prompt, False))
+        h = sm.scheduler.submit(_gen_request(sm, body, prompt, False,
+                                             rid=rid))
         _wait(manager, h)
         ptotal += h.prompt_tokens
         ctotal += h.completion_tokens

@@ -1,22 +1,30 @@
 """HTTP server for the port, on the standard library's ThreadingHTTPServer.
 
-Routes (the JAX package's aiohttp server has many more), each OpenAI one
-also under the JAX package's unversioned alias:
+Routes (the JAX package's aiohttp server has more), each OpenAI one also
+under the JAX package's unversioned alias:
   * POST /v1/chat/completions, /chat/completions  (plain JSON, or SSE with
     ``"stream": true``)
   * POST /v1/completions, /completions
   * POST /v1/edits, /edits
   * POST /v1/embeddings, /embeddings
   * POST /v1/rerank, /rerank
+  * POST /v1/tokenize, /tokenize, /backend/monitor, /backend/shutdown
   * GET  /v1/models, /models  (``?filter=<regex>``)
-  * GET  /readyz
+  * GET  /, /healthz, /readyz, /version, /metrics, /system,
+    /backend/metrics
+  * GET  /v1/traces, /v1/traces/{trace_id}, /debug/timeline/{request_id}
 One thread per connection; each request blocks its own thread on the
 scheduler handle while the engine thread batches all of them.
 
-Around every route, as the JAX package's middlewares do: bearer-key auth
-against ``AppConfig.api_keys`` (constant-time comparison; the paths of
-``AUTH_EXEMPT`` are open; a 401 otherwise), CORS headers and ``OPTIONS``
-answered 204 while ``cors`` is on, and, under ``opaque_errors``, 500
+Around every route, as the JAX package's middlewares do: a trace id for
+the request (``X-Trace-ID`` or ``X-Correlation-ID``, else a new one),
+bound to the handler's thread for the JSON logs and answered in an
+``X-Trace-ID`` header; an HTTP span in the trace store (not for the
+scrape and trace paths of ``TRACE_SKIP``); ``localai_api_call_seconds``
+by the matched route's pattern; bearer-key auth against
+``AppConfig.api_keys`` (constant-time comparison; the paths of
+``AUTH_EXEMPT`` are open; a 401 otherwise); CORS headers and ``OPTIONS``
+answered 204 while ``cors`` is on; and, under ``opaque_errors``, 500
 bodies that say only "internal error".
 """
 
@@ -24,14 +32,22 @@ from __future__ import annotations
 
 import json
 import logging
+import re
 import secrets
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from localai_tpu_torch.api import inference as inf
 from localai_tpu_torch.api import jina
+from localai_tpu_torch.api import localai as la
 from localai_tpu_torch.api import openai as oa
+from localai_tpu_torch.api import traces
 from localai_tpu_torch.models.manager import ModelManager
+from localai_tpu_torch.obs import logging as obs_logging
+from localai_tpu_torch.obs import trace as obs_trace
+from localai_tpu_torch.obs.metrics import REGISTRY
 
 log = logging.getLogger(__name__)
 
@@ -39,17 +55,64 @@ _POST = {"/v1/chat/completions": oa.chat, "/chat/completions": oa.chat,
          "/v1/completions": oa.completions, "/completions": oa.completions,
          "/v1/edits": oa.edits, "/edits": oa.edits,
          "/v1/embeddings": oa.embeddings, "/embeddings": oa.embeddings,
-         "/v1/rerank": jina.rerank, "/rerank": jina.rerank}
+         "/v1/rerank": jina.rerank, "/rerank": jina.rerank,
+         "/v1/tokenize": la.tokenize, "/tokenize": la.tokenize,
+         "/backend/monitor": la.backend_monitor,
+         "/backend/shutdown": la.backend_shutdown}
 _GET = {"/v1/models": oa.list_models, "/models": oa.list_models,
-        "/readyz": lambda manager, query: oa.readyz(manager)}
+        "/readyz": lambda manager, query: oa.readyz(manager),
+        "/healthz": la.healthz, "/version": la.version,
+        "/metrics": la.metrics, "/system": la.system,
+        "/backend/metrics": la.engine_metrics,
+        "/v1/traces": traces.list_traces}
+# GET routes with one path parameter: (pattern, compiled, handler)
+_GET_PARAM = [(pattern, re.compile("^" + re.sub(r"\{\w+\}", "([^/]+)",
+                                                pattern) + "$"), fn)
+              for pattern, fn in (
+                  ("/v1/traces/{trace_id}", traces.trace_detail),
+                  ("/debug/timeline/{request_id}", traces.timeline))]
 # paths reachable without an API key (the JAX package's AUTH_EXEMPT; the
 # web UI's own exemptions come with the UI, ROADMAP item 22)
 AUTH_EXEMPT = {"/", "/healthz", "/readyz", "/version", "/swagger",
                "/swagger/doc.json"}
+# observability/probe paths whose HTTP spans are scrape noise: they get a
+# trace id but are not recorded (the JAX package's lists)
+TRACE_SKIP = {"/metrics", "/healthz", "/readyz", "/v1/traces", "/v1/slo",
+              "/debug/devices", "/debug/programs", "/debug/stacks",
+              "/debug/flight", "/debug/fleet/flight", "/debug/profiles",
+              "/debug/kv", "/debug/faults"}
+TRACE_SKIP_PREFIXES = ("/debug/timeline/", "/v1/traces/")
+
+
+def welcome(manager, query) -> dict:
+    """GET /: the JAX package's JSON welcome (its browser UI waits for
+    ROADMAP item 22)."""
+    return {"message": "LocalAI-TPU", "models": manager.loader.names(),
+            "endpoints": sorted({"/", *_POST, *_GET,
+                                 *(p for p, _, _ in _GET_PARAM)})}
+
+
+_GET["/"] = welcome
+
+
+def _route(method: str, path: str):
+    """(canonical path, handler, path parameters) of a request, or None:
+    the canonical path is the route's pattern, never the raw URL."""
+    table = _POST if method == "POST" else _GET if method == "GET" else {}
+    if path in table:
+        return path, table[path], ()
+    if method == "GET":
+        for pattern, rx, fn in _GET_PARAM:
+            m = rx.match(path)
+            if m:
+                return pattern, fn, (urllib.parse.unquote(m.group(1)),)
+    return None
 
 
 class _Handler(BaseHTTPRequestHandler):
     server: "_HTTPServer"
+    _trace_id = ""      # set per request by _traced
+    _status = 500
 
     def log_message(self, fmt, *args):  # route access logs to logging
         log.debug("%s " + fmt, self.address_string(), *args)
@@ -63,15 +126,24 @@ class _Handler(BaseHTTPRequestHandler):
                              "GET, POST, DELETE, OPTIONS")
             self.send_header("Access-Control-Allow-Headers",
                              "Authorization, Content-Type")
+        if self._trace_id:
+            self.send_header("X-Trace-ID", self._trace_id)
         super().end_headers()
 
-    def _json(self, status: int, payload: dict) -> None:
-        body = json.dumps(payload).encode("utf-8")
+    def send_response(self, code, message=None) -> None:
+        self._status = code
+        super().send_response(code, message)
+
+    def _send(self, status: int, body: bytes, ctype: str) -> None:
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
+
+    def _json(self, status: int, payload: dict) -> None:
+        self._send(status, json.dumps(payload).encode("utf-8"),
+                   "application/json")
 
     def _error(self, status: int, message: str,
                kind: str = "invalid_request_error") -> None:
@@ -98,52 +170,60 @@ class _Handler(BaseHTTPRequestHandler):
         self._error(500, "internal error" if opaque
                     else f"{type(e).__name__}: {e}", "internal_error")
 
-    def do_OPTIONS(self):  # noqa: N802 — http.server's naming
-        if self.server.manager.app.cors:
-            self.send_response(204)
-            self.send_header("Content-Length", "0")
-            self.end_headers()
-        elif self._admitted(self.path.split("?", 1)[0]):
-            self._error(405, "method not allowed")
-
-    def do_GET(self):  # noqa: N802
-        path, _, qs = self.path.partition("?")
-        if not self._admitted(path):
-            return
-        fn = _GET.get(path)
-        if fn is None:
-            return self._error(404, f"no route {self.path}")
-        query = {k: v[-1] for k, v in urllib.parse.parse_qs(qs).items()}
-        try:
-            out = fn(self.server.manager, query)
-        except Exception as e:  # noqa: BLE001 — report, keep serving
-            return self._internal_error(e)
-        self._json(200, out)
-
-    def do_POST(self):  # noqa: N802
+    def _traced(self, serve, preflight: bool = False) -> None:
+        """The JAX package's trace and metrics middlewares around one
+        request: the trace id is bound to this thread (each connection
+        has a thread and so a context of its own) for the JSON logs and
+        the engine's spans; an admitted request's time lands in
+        ``localai_api_call_seconds`` under its route's pattern; the HTTP
+        span is recorded unless the path is scrape noise. A CORS
+        ``preflight`` is answered before auth and the route metrics, as
+        the JAX package's CORS middleware answers it."""
         path = self.path.split("?", 1)[0]
-        if not self._admitted(path):
-            return
-        fn = _POST.get(path)
-        if fn is None:
-            return self._error(404, f"no route {self.path}")
+        self._trace_id = tid = (self.headers.get("X-Trace-ID")
+                                or self.headers.get("X-Correlation-ID")
+                                or obs_trace.new_trace_id())
+        self._status = 500
+        route = _route(self.command, path)
+        canonical = route[0] if route else "(unmatched)"
+        log_token = obs_logging.bind_trace_id(tid)
+        cid_token = inf.bind_correlation_id(
+            self.headers.get("X-Correlation-ID", ""))
+        t0 = time.monotonic()
         try:
-            n = int(self.headers.get("Content-Length") or 0)
-            body = json.loads(self.rfile.read(n) or b"{}")
-            if not isinstance(body, dict):
-                raise ValueError("body must be a JSON object")
-        except ValueError as e:
-            return self._error(400, f"invalid JSON body: {e}")
-        try:
-            out = fn(self.server.manager, body)
-        except oa.APIError as e:
-            return self._error(e.status, e.message)
-        except (ValueError, TypeError) as e:
-            return self._error(400, str(e))
-        except Exception as e:  # noqa: BLE001 — report, keep serving
-            return self._internal_error(e)
+            if preflight:
+                serve(path, route)
+            elif self._admitted(path):
+                try:
+                    serve(path, route)
+                finally:
+                    REGISTRY.api_call.observe(
+                        time.monotonic() - t0, method=self.command,
+                        path=canonical)
+        finally:
+            inf.unbind_correlation_id(cid_token)
+            obs_logging.unbind_trace_id(log_token)
+            if (path not in TRACE_SKIP
+                    and not path.startswith(TRACE_SKIP_PREFIXES)):
+                tr = obs_trace.RequestTrace(
+                    tid, f"http-{id(self):x}", kind="http",
+                    method=self.command, path=canonical,
+                    status=self._status)
+                tr.t0 = t0
+                span = tr.begin("http", method=self.command, path=canonical,
+                                status=self._status)
+                span.t0 = t0  # the span covers the whole handler
+                tr.end("http")
+                obs_trace.STORE.record(tr)
+
+    def _reply(self, out) -> None:
+        """A handler's answer: a dict as JSON, a str as OpenMetrics text,
+        else an iterator of SSE frames."""
         if isinstance(out, dict):
             return self._json(200, out)
+        if isinstance(out, str):
+            return self._send(200, out.encode("utf-8"),
+                              "text/plain; charset=utf-8")
         # SSE: HTTP/1.0 semantics — the stream ends when the connection
         # closes, so no length or chunking is needed
         self.send_response(200)
@@ -157,6 +237,57 @@ class _Handler(BaseHTTPRequestHandler):
                 self.wfile.flush()
         except (BrokenPipeError, ConnectionResetError):
             out.close()  # cancels the generation
+
+    def do_OPTIONS(self):  # noqa: N802 — http.server's naming
+        if self.server.manager.app.cors:
+            def preflight(path, route):
+                self.send_response(204)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            return self._traced(preflight, preflight=True)
+        self._traced(lambda path, route: self._error(405,
+                                                     "method not allowed"))
+
+    def do_GET(self):  # noqa: N802
+        def serve(path, route):
+            if route is None:
+                return self._error(404, f"no route {self.path}")
+            _, fn, params = route
+            qs = self.path.partition("?")[2]
+            query = {k: v[-1] for k, v in urllib.parse.parse_qs(qs).items()}
+            try:
+                out = fn(self.server.manager, query, *params)
+            except oa.APIError as e:
+                return self._error(e.status, e.message)
+            except Exception as e:  # noqa: BLE001 — report, keep serving
+                return self._internal_error(e)
+            self._reply(out)
+
+        self._traced(serve)
+
+    def do_POST(self):  # noqa: N802
+        def serve(path, route):
+            if route is None:
+                return self._error(404, f"no route {self.path}")
+            try:
+                n = int(self.headers.get("Content-Length") or 0)
+                body = json.loads(self.rfile.read(n) or b"{}")
+                if not isinstance(body, dict):
+                    raise ValueError("body must be a JSON object")
+            except ValueError as e:
+                return self._error(400, f"invalid JSON body: {e}")
+            try:
+                out = route[1](self.server.manager, body)
+            except oa.APIError as e:
+                return self._error(e.status, e.message)
+            except (ValueError, TypeError) as e:
+                return self._error(400, str(e))
+            except Exception as e:  # noqa: BLE001 — report, keep serving
+                return self._internal_error(e)
+            self._reply(out)
+
+        self._traced(serve)
 
 
 class _HTTPServer(ThreadingHTTPServer):

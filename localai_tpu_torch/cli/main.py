@@ -16,7 +16,7 @@ from ``LOCALAI_<NAME>`` (``_env_default``), then builds the settings as
 the JAX package does: ``AppConfig.from_env`` overridden by the flags.
 ``--device cpu`` is the port's own (the card is the default). A flag or
 variable of a feature the port has not yet (SLO shedding, the batch
-lane, fleets, autoscaling, meshes, the JAX platform, JSON logs) stops
+lane, fleets, autoscaling, meshes, the JAX platform) stops
 ``run`` with exit code 2 and the ROADMAP item that brings it; none is
 dropped silently. ``models install|available`` wait for the gallery
 (ROADMAP item 21).
@@ -45,6 +45,7 @@ from localai_tpu_torch.config.watcher import (
     attach_standard_handlers,
 )
 from localai_tpu_torch.models.manager import ModelManager
+from localai_tpu_torch.obs import logging as obs_logging
 from localai_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -92,7 +93,9 @@ UNPORTED_RUN_FLAGS = {
     "--platform": ("platform", None, 11),
 }
 _WHAT = {11: "device plumbing (the port takes --device instead)",
-         14: "the batch lane", 15: "telemetry and SLO shedding",
+         14: "the batch lane",
+         15: "telemetry part 2: SLO shedding, the flight recorder, the "
+             "usage ledger",
          19: "multi-GPU parallelism",
          23: "fleets, autoscaling and the worker tier"}
 
@@ -104,7 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-level", default=_env_default("log_level", "info"),
                    choices=["error", "warn", "info", "debug", "trace"])
     p.add_argument("--log-format", default=_env_default("log_format", "text"),
-                   choices=["text", "json"])
+                   choices=["text", "json"],
+                   help="json = one structured object per line, with the "
+                        "request trace id bound by the server")
     sub = p.add_subparsers(dest="command")
 
     run = sub.add_parser("run", help="start the API server (default)")
@@ -232,18 +237,16 @@ def _unported_settings(args) -> list[str]:
                     else flag)
             out.append(f"{what} is not ported yet (ROADMAP item {item}: "
                        f"{_WHAT[item]})")
-    if args.log_format != "text":
-        out.append("--log-format json / LOCALAI_LOG_FORMAT is not ported "
-                   f"yet (ROADMAP item 15: {_WHAT[15]})")
     return out
 
 
-def _setup_logging(level: str) -> None:
-    logging.basicConfig(
-        level={"error": logging.ERROR, "warn": logging.WARNING,
-               "info": logging.INFO, "debug": logging.DEBUG,
-               "trace": logging.DEBUG}[level],
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+def _setup_logging(level: str, fmt: str) -> None:
+    """The root logger in ``fmt`` (text, or one JSON object a line with
+    the request's trace id, ``obs.logging``)."""
+    obs_logging.setup(fmt, {"error": logging.ERROR,
+                            "warn": logging.WARNING, "info": logging.INFO,
+                            "debug": logging.DEBUG,
+                            "trace": logging.DEBUG}[level])
 
 
 def app_config(args) -> AppConfig:
@@ -375,7 +378,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(argv if argv is not None else sys.argv[1:])
     parser = build_parser()
     args = parser.parse_args(argv)
-    _setup_logging(args.log_level)
+    _setup_logging(args.log_level, args.log_format)
     cmd = args.command or "run"
     if cmd == "version":
         print(__version__)

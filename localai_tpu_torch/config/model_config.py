@@ -147,6 +147,11 @@ class EngineConfig:
     # grp_attn_w (the neighbour window) must be a multiple of it
     grp_attn_n: int = 1
     grp_attn_w: int = 512
+    # the JAX package's attention choice (auto | pallas | pallas_interpret
+    # | xla; LOCALAI_ATTN_IMPL / LOCALAI_PAGED_ATTN_IMPL when auto): read
+    # and checked at load (ops.resolve_attn_impl); the port runs one
+    # attention path per device whatever it says
+    attn_impl: str = "auto"
     quantization: Optional[str] = None  # weights: int8 | int8_w8a8 | int4
     # speculative decoding (localai_tpu_torch.spec), as the JAX package
     # reads it: spec None = on for paged engines (LOCALAI_SPEC=0 turns it

@@ -50,6 +50,12 @@
 // moving that kernel onto a shared walk slowed it by 15-30% on the card
 // with no change to its memory instructions. Not done yet: wgmma/TMA.
 //
+// GQA groups as in the paged kernel: pass 1 is compiled for G = 1, 2, 4,
+// 8 and 16, and a group g of 1..16 runs on the smallest G >= g with rows
+// r >= g masked (no q load, no partial written; partials and the merge's
+// grid laid out by g). Masked rows cost FMAs under a bytes-bound walk;
+// one instantiation a group would quadruple this source's nvcc time.
+//
 // Plain C interface (bound with ctypes); launches both passes on the
 // caller's stream and returns cudaGetLastError() after each launch.
 
@@ -137,10 +143,10 @@ __global__ void __launch_bounds__(HD) decode_kernel(
     const float* __restrict__ k_scale,   // [S, Hkv, C] (Q != 0)
     const float* __restrict__ v_scale,   // [S, Hkv, C] (Q != 0)
     const int* __restrict__ positions,   // [S]
-    float* __restrict__ part_m,          // [S, Hkv, splits, G]
-    float* __restrict__ part_l,          // [S, Hkv, splits, G]
-    float* __restrict__ part_acc,        // [S, Hkv, splits, G, HD]
-    int Hkv, int C, int window, int tps, float sm_scale) {
+    float* __restrict__ part_m,          // [S, Hkv, splits, g]
+    float* __restrict__ part_l,          // [S, Hkv, splits, g]
+    float* __restrict__ part_acc,        // [S, Hkv, splits, g, HD]
+    int Hkv, int g, int C, int window, int tps, float sm_scale) {
   using Tile = Rows<T, Q, HD>;
   constexpr int kWarps = HD / 32;
   constexpr int tile = kTile * Tile::kRowBytes;         // bytes
@@ -169,22 +175,25 @@ __global__ void __launch_bounds__(HD) decode_kernel(
   const int b1 = min(walk.y, k * tps + tps);
   const size_t row = (size_t)s * Hkv + h;  // this (slot, head)'s C rows
   const size_t slot_part = row * gridDim.x + k;  // (s, h, k)
-  float* acc_out = part_acc + slot_part * G * HD;
+  float* acc_out = part_acc + slot_part * g * HD;
   if (b0 >= b1) {  // no live tile: the merge's identity, no tile load
 #pragma unroll
-    for (int r = 0; r < G; ++r) acc_out[r * HD + tid] = 0.f;
-    if (tid < G) {
-      part_m[slot_part * G + tid] = kNegInf;
-      part_l[slot_part * G + tid] = 0.f;
+    for (int r = 0; r < G; ++r)
+      if (r < g) acc_out[r * HD + tid] = 0.f;
+    if (tid < g) {
+      part_m[slot_part * g + tid] = kNegInf;
+      part_l[slot_part * g + tid] = 0.f;
     }
     return;
   }
   const char* kb = static_cast<const char*>(k_cache) + row * C * Tile::kRowBytes;
   const char* vb = static_cast<const char*>(v_cache) + row * C * Tile::kRowBytes;
 
-  const T* qrow = q + row * G * HD;
+  // rows r >= g (a group run on a larger compiled G) load no q
+  const T* qrow = q + row * g * HD;
 #pragma unroll
-  for (int r = 0; r < G; ++r) qs[r * HD + tid] = to_f32(qrow[r * HD + tid]) * sm_scale;
+  for (int r = 0; r < G; ++r)
+    qs[r * HD + tid] = r < g ? to_f32(qrow[r * HD + tid]) * sm_scale : 0.f;
   if (tid < G) {
     row_m[tid] = kNegInf;
     row_l[tid] = 0.f;
@@ -305,10 +314,11 @@ __global__ void __launch_bounds__(HD) decode_kernel(
   }
 
 #pragma unroll
-  for (int r = 0; r < G; ++r) acc_out[r * HD + tid] = acc[r];
-  if (tid < G) {
-    part_m[slot_part * G + tid] = row_m[tid];
-    part_l[slot_part * G + tid] = row_l[tid];
+  for (int r = 0; r < G; ++r)
+    if (r < g) acc_out[r * HD + tid] = acc[r];
+  if (tid < g) {
+    part_m[slot_part * g + tid] = row_m[tid];
+    part_l[slot_part * g + tid] = row_l[tid];
   }
 }
 
@@ -316,28 +326,28 @@ __global__ void __launch_bounds__(HD) decode_kernel(
 // folds splits [lo/tps, (nb-1)/tps], the ones pass 1 found live.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD) decode_kernel_merge(
-    const float* __restrict__ part_m,    // [S, Hkv, splits, G]
-    const float* __restrict__ part_l,    // [S, Hkv, splits, G]
-    const float* __restrict__ part_acc,  // [S, Hkv, splits, G, HD]
+    const float* __restrict__ part_m,    // [S, Hkv, splits, g]
+    const float* __restrict__ part_l,    // [S, Hkv, splits, g]
+    const float* __restrict__ part_acc,  // [S, Hkv, splits, g, HD]
     const int* __restrict__ positions,   // [S]
     T* __restrict__ out,                 // [S, Hq, HD]
-    int G, int splits, int C, int window, int tps) {
-  const int hq = blockIdx.x;  // q head = kv head * G + r
+    int g, int splits, int C, int window, int tps) {
+  const int hq = blockIdx.x;  // q head = kv head * g + r
   const int s = blockIdx.y;
   const int Hq = gridDim.x;
-  const int h = hq / G;
-  const int r = hq - h * G;
+  const int h = hq / g;
+  const int r = hq - h * g;
   const int2 walk =
       walk_range(positions[s], (C + kTile - 1) / kTile, window);
   const int k0 = walk.x / tps;
   const int k1 = walk.x < walk.y ? (walk.y - 1) / tps + 1 : k0;
-  const size_t first = ((size_t)s * (Hq / G) + h) * splits;  // part (s, h, 0)
+  const size_t first = ((size_t)s * (Hq / g) + h) * splits;  // part (s, h, 0)
   float mx = kNegInf;
   for (int k = k0; k < k1; ++k)
-    mx = fmaxf(mx, part_m[(first + k) * G + r]);
+    mx = fmaxf(mx, part_m[(first + k) * g + r]);
   float num = 0.f, den = 0.f;
   for (int k = k0; k < k1; ++k) {
-    const size_t i = (first + k) * G + r;
+    const size_t i = (first + k) * g + r;
     const float w = expf(part_m[i] - mx);
     num += w * part_acc[i * HD + threadIdx.x];
     den += w * part_l[i];
@@ -351,7 +361,7 @@ struct Args {
   const void *q, *k, *v, *ks, *vs, *positions;
   float *part_m, *part_l, *part_acc;
   void* out;
-  int S, Hkv, C, window, tps, splits;
+  int S, Hkv, g, C, window, tps, splits;
   float sm_scale;
   cudaStream_t stream;
 };
@@ -372,33 +382,34 @@ int launch(const Args& a) {
   decode_kernel<T, Q, HD, G><<<grid, HD, smem, a.stream>>>(
       static_cast<const T*>(a.q), a.k, a.v, static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.positions),
-      a.part_m, a.part_l, a.part_acc, a.Hkv, a.C, a.window, a.tps,
+      a.part_m, a.part_l, a.part_acc, a.Hkv, a.g, a.C, a.window, a.tps,
       a.sm_scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_kernel_merge<T, HD><<<dim3(a.Hkv * G, a.S), HD, 0, a.stream>>>(
+  // one block per (q head, slot): Hq = Hkv * g, the partials' layout
+  decode_kernel_merge<T, HD><<<dim3(a.Hkv * a.g, a.S), HD, 0, a.stream>>>(
       a.part_m, a.part_l, a.part_acc, static_cast<const int*>(a.positions),
-      static_cast<T*>(a.out), G, a.splits, a.C, a.window, a.tps);
+      static_cast<T*>(a.out), a.g, a.splits, a.C, a.window, a.tps);
   return (int)cudaGetLastError();
 }
 
+// group a.g on the smallest compiled G >= a.g (rows r >= a.g masked)
 template <typename T, int Q, int HD>
-int launch_g(int G, const Args& a) {
-  switch (G) {
-    case 1: return launch<T, Q, HD, 1>(a);
-    case 2: return launch<T, Q, HD, 2>(a);
-    case 4: return launch<T, Q, HD, 4>(a);
-    case 8: return launch<T, Q, HD, 8>(a);
-    default: return -1;
-  }
+int launch_g(const Args& a) {
+  if (a.g <= 1) return launch<T, Q, HD, 1>(a);
+  if (a.g <= 2) return launch<T, Q, HD, 2>(a);
+  if (a.g <= 4) return launch<T, Q, HD, 4>(a);
+  if (a.g <= 8) return launch<T, Q, HD, 8>(a);
+  if (a.g <= 16) return launch<T, Q, HD, 16>(a);
+  return -1;
 }
 
 template <typename T, int Q>
-int launch_hd(int hd, int G, const Args& a) {
+int launch_hd(int hd, const Args& a) {
   switch (hd) {
-    case 32: return launch_g<T, Q, 32>(G, a);
-    case 64: return launch_g<T, Q, 64>(G, a);
-    case 128: return launch_g<T, Q, 128>(G, a);
+    case 32: return launch_g<T, Q, 32>(a);
+    case 64: return launch_g<T, Q, 64>(a);
+    case 128: return launch_g<T, Q, 128>(a);
     default: return -1;
   }
 }
@@ -408,7 +419,8 @@ int launch_hd(int hd, int G, const Args& a) {
 // quantized: 0 = the cache holds q's dtype (k_scale/v_scale unused),
 // 1 = scaled int8 (C must be a multiple of 4: scale rows move in 16-byte
 // chunks). part is f32 scratch of S*Hq*splits*(hd + 2) floats: m and l
-// [S, Hkv, splits, G] each, then acc [S, Hkv, splits, G, hd]. The splits
+// [S, Hkv, splits, g] each, then acc [S, Hkv, splits, g, hd], with
+// g = Hq / Hkv, 1..16. The splits
 // of tiles_per_split kTile-row tiles must cover the ceil(C / kTile) tiles
 // exactly. Returns 0 on success, a cudaError_t after a failed launch, or
 // -1 for a (head_dim, group, dtype) combination that was not compiled or
@@ -426,17 +438,17 @@ extern "C" int decode_attention(
       splits < 1 || (long long)(splits - 1) * tiles_per_split >= ntiles ||
       (long long)splits * tiles_per_split < ntiles)
     return -1;
-  const int G = Hq / Hkv;
+  const int g = Hq / Hkv;
   float* part_m = static_cast<float*>(part);
   const size_t n = (size_t)S * Hq * splits;  // (slot, kv head, split, row)
   const Args a{q, k_cache, v_cache, k_scale, v_scale, positions,
-               part_m, part_m + n, part_m + 2 * n, out, S, Hkv, C, window,
+               part_m, part_m + n, part_m + 2 * n, out, S, Hkv, g, C, window,
                tiles_per_split, splits, sm_scale,
                static_cast<cudaStream_t>(stream)};
   if (is_bf16) {
-    return quantized ? launch_hd<__nv_bfloat16, 1>(hd, G, a)
-                     : launch_hd<__nv_bfloat16, 0>(hd, G, a);
+    return quantized ? launch_hd<__nv_bfloat16, 1>(hd, a)
+                     : launch_hd<__nv_bfloat16, 0>(hd, a);
   }
-  return quantized ? launch_hd<float, 1>(hd, G, a)
-                   : launch_hd<float, 0>(hd, G, a);
+  return quantized ? launch_hd<float, 1>(hd, a)
+                   : launch_hd<float, 0>(hd, a);
 }

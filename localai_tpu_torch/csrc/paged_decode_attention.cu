@@ -65,6 +65,18 @@
 // 32 q heads, against 134 MB of bf16 K/V in full tables. One split
 // (bps = MB) computes what the single walk did. Not done yet: wgmma/TMA.
 //
+// GQA groups: the group is the template parameter G of pass 1 (the
+// length of the per-thread acc[G] and dot[G] registers and of the q and
+// score rows in shared memory), compiled for G = 1, 2, 4, 8 and 16. A
+// group g of 1..16 runs on the smallest compiled G >= g with rows r >= g
+// masked: such a row loads no q (its q row is zero, so its scores and
+// statistics stay finite) and writes no partial, and the partials and the
+// merge's grid are laid out by g, not G. Masking, not one instantiation a
+// group: the kernel is bound by the K/V bytes, which every row shares, so
+// a masked row costs only its FMAs, while sixteen groups would quadruple
+// this source's instantiations (3 head dims x 3 pools x 2 dtypes each) and
+// its nvcc time, which every run on a fresh machine pays at first use.
+//
 // Plain C interface (bound with ctypes); launches both passes on the
 // caller's stream and returns cudaGetLastError() after each launch.
 
@@ -150,10 +162,10 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
     const float* __restrict__ v_scale,   // [N, Hkv, bt] (P != 0)
     const int* __restrict__ tables,      // [S, MB]
     const int* __restrict__ positions,   // [S]
-    float* __restrict__ part_m,          // [S, Hkv, splits, G]
-    float* __restrict__ part_l,          // [S, Hkv, splits, G]
-    float* __restrict__ part_acc,        // [S, Hkv, splits, G, HD]
-    int Hkv, int bt, int MB, int window, int bps, float sm_scale) {
+    float* __restrict__ part_m,          // [S, Hkv, splits, g]
+    float* __restrict__ part_l,          // [S, Hkv, splits, g]
+    float* __restrict__ part_acc,        // [S, Hkv, splits, g, HD]
+    int Hkv, int g, int bt, int MB, int window, int bps, float sm_scale) {
   using Tile = Pool<T, P, HD>;
   constexpr int kWarps = HD / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -174,27 +186,30 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int Hq = Hkv * G;
+  const int Hq = Hkv * g;
   const int pos = positions[s];
   const int2 walk = walk_range(pos, bt, MB, window);
   // this split's share of the walk [lo, nb)
   const int b0 = max(walk.x, k * bps);
   const int b1 = min(walk.y, k * bps + bps);
   const size_t slot_part = ((size_t)s * Hkv + h) * gridDim.x + k;  // (s,h,k)
-  float* acc_out = part_acc + slot_part * G * HD;
+  float* acc_out = part_acc + slot_part * g * HD;
   if (b0 >= b1) {  // no live block: the merge's identity, no tile load
 #pragma unroll
-    for (int r = 0; r < G; ++r) acc_out[r * HD + tid] = 0.f;
-    if (tid < G) {
-      part_m[slot_part * G + tid] = kNegInf;
-      part_l[slot_part * G + tid] = 0.f;
+    for (int r = 0; r < G; ++r)
+      if (r < g) acc_out[r * HD + tid] = 0.f;
+    if (tid < g) {
+      part_m[slot_part * g + tid] = kNegInf;
+      part_l[slot_part * g + tid] = 0.f;
     }
     return;
   }
 
-  const T* qrow = q + ((size_t)s * Hq + (size_t)h * G) * HD;
+  // rows r >= g (a group run on a larger compiled G) load no q
+  const T* qrow = q + ((size_t)s * Hq + (size_t)h * g) * HD;
 #pragma unroll
-  for (int r = 0; r < G; ++r) qs[r * HD + tid] = to_f32(qrow[r * HD + tid]) * sm_scale;
+  for (int r = 0; r < G; ++r)
+    qs[r * HD + tid] = r < g ? to_f32(qrow[r * HD + tid]) * sm_scale : 0.f;
   if (tid < G) {
     row_m[tid] = kNegInf;
     row_l[tid] = 0.f;
@@ -305,10 +320,11 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
   }
 
 #pragma unroll
-  for (int r = 0; r < G; ++r) acc_out[r * HD + tid] = acc[r];
-  if (tid < G) {
-    part_m[slot_part * G + tid] = row_m[tid];
-    part_l[slot_part * G + tid] = row_l[tid];
+  for (int r = 0; r < G; ++r)
+    if (r < g) acc_out[r * HD + tid] = acc[r];
+  if (tid < g) {
+    part_m[slot_part * g + tid] = row_m[tid];
+    part_l[slot_part * g + tid] = row_l[tid];
   }
 }
 
@@ -316,27 +332,27 @@ __global__ void __launch_bounds__(HD) paged_decode_kernel(
 // folds splits [lo/bps, (nb-1)/bps], the ones pass 1 found live.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD) paged_decode_kernel_merge(
-    const float* __restrict__ part_m,    // [S, Hkv, splits, G]
-    const float* __restrict__ part_l,    // [S, Hkv, splits, G]
-    const float* __restrict__ part_acc,  // [S, Hkv, splits, G, HD]
+    const float* __restrict__ part_m,    // [S, Hkv, splits, g]
+    const float* __restrict__ part_l,    // [S, Hkv, splits, g]
+    const float* __restrict__ part_acc,  // [S, Hkv, splits, g, HD]
     const int* __restrict__ positions,   // [S]
     T* __restrict__ out,                 // [S, Hq, HD]
-    int G, int splits, int bt, int MB, int window, int bps) {
-  const int hq = blockIdx.x;  // q head = kv head * G + r
+    int g, int splits, int bt, int MB, int window, int bps) {
+  const int hq = blockIdx.x;  // q head = kv head * g + r
   const int s = blockIdx.y;
   const int Hq = gridDim.x;
-  const int h = hq / G;
-  const int r = hq - h * G;
+  const int h = hq / g;
+  const int r = hq - h * g;
   const int2 walk = walk_range(positions[s], bt, MB, window);
   const int k0 = walk.x / bps;
   const int k1 = walk.x < walk.y ? (walk.y - 1) / bps + 1 : k0;
-  const size_t first = ((size_t)s * (Hq / G) + h) * splits;  // part (s, h, 0)
+  const size_t first = ((size_t)s * (Hq / g) + h) * splits;  // part (s, h, 0)
   float mx = kNegInf;
   for (int k = k0; k < k1; ++k)
-    mx = fmaxf(mx, part_m[(first + k) * G + r]);
+    mx = fmaxf(mx, part_m[(first + k) * g + r]);
   float num = 0.f, den = 0.f;
   for (int k = k0; k < k1; ++k) {
-    const size_t i = (first + k) * G + r;
+    const size_t i = (first + k) * g + r;
     const float w = expf(part_m[i] - mx);
     num += w * part_acc[i * HD + threadIdx.x];
     den += w * part_l[i];
@@ -350,7 +366,7 @@ struct Args {
   const void *q, *k, *v, *ks, *vs, *tables, *positions;
   float *part_m, *part_l, *part_acc;
   void* out;
-  int S, Hkv, bt, MB, window, bps, splits;
+  int S, Hkv, g, bt, MB, window, bps, splits;
   float sm_scale;
   cudaStream_t stream;
 };
@@ -372,42 +388,44 @@ int launch(const Args& a) {
       static_cast<const T*>(a.q), a.k, a.v, static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
       static_cast<const int*>(a.positions), a.part_m, a.part_l, a.part_acc,
-      a.Hkv, a.bt, a.MB, a.window, a.bps, a.sm_scale);
+      a.Hkv, a.g, a.bt, a.MB, a.window, a.bps, a.sm_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_decode_kernel_merge<T, HD><<<dim3(a.Hkv * G, a.S), HD, 0, a.stream>>>(
+  // one block per (q head, slot): Hq = Hkv * g, the partials' layout
+  paged_decode_kernel_merge<T, HD><<<dim3(a.Hkv * a.g, a.S), HD, 0,
+                                     a.stream>>>(
       a.part_m, a.part_l, a.part_acc, static_cast<const int*>(a.positions),
-      static_cast<T*>(a.out), G, a.splits, a.bt, a.MB, a.window, a.bps);
+      static_cast<T*>(a.out), a.g, a.splits, a.bt, a.MB, a.window, a.bps);
   return (int)cudaGetLastError();
 }
 
+// group a.g on the smallest compiled G >= a.g (rows r >= a.g masked)
 template <typename T, int P, int HD>
-int launch_g(int G, const Args& a) {
-  switch (G) {
-    case 1: return launch<T, P, HD, 1>(a);
-    case 2: return launch<T, P, HD, 2>(a);
-    case 4: return launch<T, P, HD, 4>(a);
-    case 8: return launch<T, P, HD, 8>(a);
-    default: return -1;
-  }
+int launch_g(const Args& a) {
+  if (a.g <= 1) return launch<T, P, HD, 1>(a);
+  if (a.g <= 2) return launch<T, P, HD, 2>(a);
+  if (a.g <= 4) return launch<T, P, HD, 4>(a);
+  if (a.g <= 8) return launch<T, P, HD, 8>(a);
+  if (a.g <= 16) return launch<T, P, HD, 16>(a);
+  return -1;
 }
 
 template <typename T, int P>
-int launch_hd(int hd, int G, const Args& a) {
+int launch_hd(int hd, const Args& a) {
   switch (hd) {
-    case 32: return launch_g<T, P, 32>(G, a);
-    case 64: return launch_g<T, P, 64>(G, a);
-    case 128: return launch_g<T, P, 128>(G, a);
+    case 32: return launch_g<T, P, 32>(a);
+    case 64: return launch_g<T, P, 64>(a);
+    case 128: return launch_g<T, P, 128>(a);
     default: return -1;
   }
 }
 
 template <typename T>
-int launch_pool(int pool, int hd, int G, const Args& a) {
+int launch_pool(int pool, int hd, const Args& a) {
   switch (pool) {
-    case 0: return launch_hd<T, 0>(hd, G, a);
-    case 1: return launch_hd<T, 1>(hd, G, a);
-    case 2: return launch_hd<T, 2>(hd, G, a);
+    case 0: return launch_hd<T, 0>(hd, a);
+    case 1: return launch_hd<T, 1>(hd, a);
+    case 2: return launch_hd<T, 2>(hd, a);
     default: return -1;
   }
 }
@@ -417,7 +435,8 @@ int launch_pool(int pool, int hd, int G, const Args& a) {
 // pool: 0 = the pool holds q's dtype (k_scale/v_scale unused), 1 = scaled
 // int8, 2 = scaled int4 (halves layout, last dim hd/2).
 // part is f32 scratch of S*Hq*splits*(hd + 2) floats: m and l
-// [S, Hkv, splits, G] each, then acc [S, Hkv, splits, G, hd]. The splits
+// [S, Hkv, splits, g] each, then acc [S, Hkv, splits, g, hd], with
+// g = Hq / Hkv, 1..16. The splits
 // of blocks_per_split table entries must cover [0, MB) exactly:
 // (splits - 1) * blocks_per_split < MB <= splits * blocks_per_split.
 // Returns 0 on success, a cudaError_t after a failed launch, or -1 for a
@@ -435,13 +454,13 @@ extern "C" int paged_decode_attention(
       splits < 1 || (long long)(splits - 1) * blocks_per_split >= MB ||
       (long long)splits * blocks_per_split < MB)
     return -1;
-  const int G = Hq / Hkv;
+  const int g = Hq / Hkv;
   float* part_m = static_cast<float*>(part);
   const size_t n = (size_t)S * Hq * splits;  // (slot, kv head, split, row)
   const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, positions,
-               part_m, part_m + n, part_m + 2 * n, out, S, Hkv, bt, MB,
+               part_m, part_m + n, part_m + 2 * n, out, S, Hkv, g, bt, MB,
                window, blocks_per_split, splits, sm_scale,
                static_cast<cudaStream_t>(stream)};
-  if (is_bf16) return launch_pool<__nv_bfloat16>(pool, hd, G, a);
-  return launch_pool<float>(pool, hd, G, a);
+  if (is_bf16) return launch_pool<__nv_bfloat16>(pool, hd, a);
+  return launch_pool<float>(pool, hd, a);
 }

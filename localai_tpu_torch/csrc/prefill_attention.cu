@@ -49,6 +49,16 @@
 //     warp per 8 rows keeps the running max and denominator.
 // Not done yet: wgmma/TMA, and a split of long rows over several blocks.
 //
+// GQA groups: the group G = Hq / Hkv (1..16) is a run-time argument, not
+// a template parameter. A block of R rows (64 f32; 64 or 128 bf16) takes
+// BQ = R / G positions, rows r < BQ * G mapping to (q0 + r / G, head
+// r % G). When G does not divide R (G = 3, 5, 6, 7, ...), the R % G rows
+// left over would map to the next block's first position and write its
+// output twice (or read past T): they take position T instead (row_pos),
+// so they load no q and write no output, and cost R % G rows of
+// tensor-core work (2 of 128 at G = 3, 6 and 7, 3 at G = 5; 12 at most).
+// Only the row map reads G, so one instantiation serves every group.
+//
 // Plain C interface (bound with ctypes); launches on the caller's stream
 // and returns cudaGetLastError() after the launch.
 
@@ -65,6 +75,15 @@ constexpr int kRows = 64;         // f32 query rows (position x group) a block
 constexpr int kBK = 64;           // keys per tile
 constexpr int kThreads = 256;
 constexpr int kPS = kBK + 4;      // f32 row stride of the score tile
+constexpr int kMaxGroup = 16;     // the wrappers' gate (KERNEL_GROUPS)
+
+// The query position of row r of a block of rows whose first position is
+// q0, at group g with bq = rows / g positions a block: q0 + r / g for the
+// bq * g mapped rows; a row left over (r >= bq * g) takes Tn, so it loads
+// no q and writes no output.
+__device__ __forceinline__ int row_pos(int r, int q0, int g, int bq, int Tn) {
+  return r < bq * g ? q0 + r / g : Tn;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -100,15 +119,15 @@ struct Layout {
       kQBytes + kPBytes + kStatBytes + 4 * kTileBytes;
 };
 
-template <typename T, int HD, int G>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) prefill_kernel(
     const T* __restrict__ q,    // [T, Hq, HD]
     const T* __restrict__ k,    // [Hkv, T, HD]
     const T* __restrict__ v,    // [Hkv, T, HD]
     T* __restrict__ out,        // [T, Hq, HD]
-    int Tn, int length, int window, float sm_scale) {
+    int Tn, int G, int length, int window, float sm_scale) {
   using L = Layout<T, HD>;
-  constexpr int BQ = kRows / G;     // query positions per block
+  const int BQ = kRows / G;         // query positions per block
   constexpr int DC = HD / 16;       // output columns per thread
   constexpr int kChunks = L::kRowBytes / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -131,7 +150,7 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
 
   for (int e = tid; e < kRows * HD; e += kThreads) {
     const int r = e / HD, d = e % HD;
-    const int t = q0 + r / G;
+    const int t = row_pos(r, q0, G, BQ, Tn);
     qs[r * L::kQS + d] =
         t < Tn ? to_f32(q[((size_t)t * Hq + h * G + r % G) * HD + d]) * sm_scale
                : 0.f;
@@ -220,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const int r = ty * 4 + a;
-      const int qpos = q0 + r / G;
+      const int qpos = row_pos(r, q0, G, BQ, Tn);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int j = tx + 16 * c;
@@ -277,7 +296,7 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int r = ty * 4 + a;
-    const int t = q0 + r / G;
+    const int t = row_pos(r, q0, G, BQ, Tn);
     if (t >= Tn) continue;
     const float l = fmaxf(row_l[r], 1e-30f);
     T* orow = out + ((size_t)t * Hq + h * G + r % G) * HD + tx * DC;
@@ -370,16 +389,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // shared memory feeds MT mma: at MT = 2 a 128-row block reads each staged
 // tile once per 32 rows, and the tensor cores, not shared memory, set
 // the pace.
-template <int HD, int G, int MT>
+template <int HD, int MT>
 __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q,  // [T, Hq, HD]
     const __nv_bfloat16* __restrict__ k,  // [Hkv, T, HD]
     const __nv_bfloat16* __restrict__ v,  // [Hkv, T, HD]
     __nv_bfloat16* __restrict__ out,      // [T, Hq, HD]
-    int Tn, int length, int window, float sm_scale) {
+    int Tn, int G, int length, int window, float sm_scale) {
   constexpr int kWarpRows = 16 * MT;
   constexpr int kBlockRows = kWarpRows * kMmaWarps;
-  constexpr int BQ = kBlockRows / G;  // query positions per block
+  const int BQ = kBlockRows / G;      // query positions per block
   constexpr int kPad = mma_pad<HD>();
   constexpr int kChunks = HD * 2 / 16;
   constexpr int kTileBytes = kBK * kPad;
@@ -407,10 +426,11 @@ __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
   // one FFMA and one ex2 per score
   const float scale2 = sm_scale * kLog2e;
 
-  // q rows (position x group) into shared memory, zero past T
+  // q rows (position x group) into shared memory, zero past T and in the
+  // rows left over
   for (int e = tid; e < kBlockRows * kChunks; e += kMmaThreads) {
     const int r = e / kChunks, c = e % kChunks;
-    const int pos = q0 + r / G;
+    const int pos = row_pos(r, q0, G, BQ, Tn);
     unsigned char* dst = qsm + r * kPad + 16 * c;
     if (pos < Tn) {
       __pipeline_memcpy_async(
@@ -462,7 +482,8 @@ __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int half = 0; half < 2; ++half)
-      qpos[mt][half] = q0 + (warp * kWarpRows + 16 * mt + g + 8 * half) / G;
+      qpos[mt][half] =
+          row_pos(warp * kWarpRows + 16 * mt + g + 8 * half, q0, G, BQ, Tn);
   // this lane's ldmatrix row addresses: in q (m16 tile 0, k16 step 0), in
   // a K tile (n8 pair 0, k16 step 0) and in a V tile (k16 step 0, n8 pair
   // 0)
@@ -647,74 +668,63 @@ __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
 struct Args {
   const void *q, *k, *v;
   void* out;
-  int Tn, Hkv, length, window, rows;
+  int Tn, Hkv, G, length, window, rows;
   float sm_scale;
   cudaStream_t stream;
 };
 
 // the f32 kernel on the CUDA cores
-template <int HD, int G>
+template <int HD>
 int launch_f32(const Args& a) {
   constexpr size_t smem = Layout<float, HD>::kSmem;
   static_assert(smem <= (size_t)kMaxSmem, "tiles exceed shared memory");
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        prefill_kernel<float, HD, G>,
+        prefill_kernel<float, HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  constexpr int BQ = kRows / G;
+  const int BQ = kRows / a.G;  // positions a block; the rest masked
   dim3 grid(a.Hkv, (a.Tn + BQ - 1) / BQ);
-  prefill_kernel<float, HD, G><<<grid, kThreads, smem, a.stream>>>(
+  prefill_kernel<float, HD><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out), a.Tn,
-      a.length, a.window, a.sm_scale);
+      a.G, a.length, a.window, a.sm_scale);
   return (int)cudaGetLastError();
 }
 
 // the bf16 kernel on the tensor cores, MT m16 tiles a warp
-template <int HD, int G, int MT>
+template <int HD, int MT>
 int launch_mma(const Args& a) {
   constexpr size_t smem = mma_smem<HD, MT>();
   static_assert(smem <= (size_t)kMaxSmem, "tiles exceed shared memory");
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        prefill_mma_kernel<HD, G, MT>,
+        prefill_mma_kernel<HD, MT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  constexpr int BQ = 16 * MT * kMmaWarps / G;
+  const int BQ = 16 * MT * kMmaWarps / a.G;  // positions a block
   dim3 grid(a.Hkv, (a.Tn + BQ - 1) / BQ);
-  prefill_mma_kernel<HD, G, MT><<<grid, kMmaThreads, smem, a.stream>>>(
+  prefill_mma_kernel<HD, MT><<<grid, kMmaThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<__nv_bfloat16*>(a.out), a.Tn, a.length, a.window,
+      static_cast<__nv_bfloat16*>(a.out), a.Tn, a.G, a.length, a.window,
       a.sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD, int G>
-int launch(bool bf16, const Args& a) {
-  if (!bf16) return launch_f32<HD, G>(a);
-  switch (a.rows) {
-    case 64: return launch_mma<HD, G, 1>(a);
-    case 128: return launch_mma<HD, G, 2>(a);
-    default: return -1;
-  }
-}
-
 template <int HD>
-int launch_g(int G, bool bf16, const Args& a) {
-  switch (G) {
-    case 1: return launch<HD, 1>(bf16, a);
-    case 2: return launch<HD, 2>(bf16, a);
-    case 4: return launch<HD, 4>(bf16, a);
-    case 8: return launch<HD, 8>(bf16, a);
+int launch(bool bf16, const Args& a) {
+  if (!bf16) return launch_f32<HD>(a);
+  switch (a.rows) {
+    case 64: return launch_mma<HD, 1>(a);
+    case 128: return launch_mma<HD, 2>(a);
     default: return -1;
   }
 }
@@ -723,20 +733,21 @@ int launch_g(int G, bool bf16, const Args& a) {
 
 // rows: query rows (position x group) a bf16 CUDA block takes, 64 or 128
 // (the f32 kernel always takes kRows). Returns 0 on success, a
-// cudaError_t after a failed launch, or -1 for a (head_dim, group, dtype,
-// rows) combination that was not compiled.
+// cudaError_t after a failed launch, or -1 for a head dim or rows that
+// were not compiled, or a group outside 1..16.
 extern "C" int prefill_attention(const void* q, const void* k, const void* v,
                                  void* out, int T, int Hq, int Hkv, int hd,
                                  int length, int window, int rows,
                                  int is_bf16, float sm_scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv || T <= 0) return -1;
   const int G = Hq / Hkv;
-  const Args a{q, k, v, out, T, Hkv, length, window, rows, sm_scale,
+  if (G > kMaxGroup) return -1;
+  const Args a{q, k, v, out, T, Hkv, G, length, window, rows, sm_scale,
                static_cast<cudaStream_t>(stream)};
   switch (hd) {
-    case 32: return launch_g<32>(G, is_bf16 != 0, a);
-    case 64: return launch_g<64>(G, is_bf16 != 0, a);
-    case 128: return launch_g<128>(G, is_bf16 != 0, a);
+    case 32: return launch<32>(is_bf16 != 0, a);
+    case 64: return launch<64>(is_bf16 != 0, a);
+    case 128: return launch<128>(is_bf16 != 0, a);
     default: return -1;
   }
 }

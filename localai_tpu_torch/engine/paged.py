@@ -50,11 +50,16 @@ class BlockStats:
     free: int           # immediately free
     cached: int         # prefix-pool blocks reclaimable on demand
     used: int           # referenced by at least one live sequence
+    high_watermark: int = 0  # max concurrently-used blocks since init
     spec_reserved: int = 0  # blocks held purely for speculative lookahead
 
     @property
     def available(self) -> int:
         return self.free + self.cached
+
+    @property
+    def utilization(self) -> float:
+        return self.used / self.total if self.total else 0.0
 
 
 class BlockAllocator:
@@ -82,6 +87,9 @@ class BlockAllocator:
         # prefix pool: chain-hash of covered tokens -> block id, LRU order
         self._prefix: "OrderedDict[str, int]" = OrderedDict()
         self._block_key: dict[int, str] = {}
+        # lifetime counters (telemetry)
+        self._watermark = 0
+        self.shared_tokens_total = 0
 
     # -- sizing -----------------------------------------------------------
 
@@ -178,6 +186,8 @@ class BlockAllocator:
             bid = self._free.pop()
             self._ref[bid] = 1
             fresh.append(bid)
+        used = self.num_blocks - 1 - len(self._free) - self._reclaimable()
+        self._watermark = max(self._watermark, used)
         return fresh
 
     def allocate(self, seq: int, tokens: int,
@@ -214,6 +224,7 @@ class BlockAllocator:
             self.shared_blocks[seq] = len(shared)
             if nb_spec:
                 self.spec_blocks[seq] = nb_spec
+            self.shared_tokens_total += len(shared) * self.block_tokens
         return len(shared) * self.block_tokens
 
     def extend(self, seq: int, tokens: int, spec_tokens: int = 0) -> bool:
@@ -273,6 +284,7 @@ class BlockAllocator:
                 free=free,
                 cached=cached,
                 used=total - free - cached,
+                high_watermark=self._watermark,
                 spec_reserved=sum(self.spec_blocks.values()),
             )
 

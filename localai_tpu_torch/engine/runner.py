@@ -153,6 +153,7 @@ class ModelRunner:
         prefill_chunk: Optional[int] = None,
         ga_n: int = 1,
         ga_w: int = 512,
+        attn_impl: str = "auto",
         device: str | torch.device | None = "cuda",
     ):
         self.cfg = cfg
@@ -191,6 +192,20 @@ class ModelRunner:
         # storage without the paged pool, which init_cache refuses too);
         # self-extend takes neither: K2/K3 assume pre-roped K (the JAX
         # package forces its XLA attention there)
+        # the JAX package's attention setting is read and checked as that
+        # package reads it (an unknown value raises here), and moves
+        # nothing: one attention path per device. Self-extend overrides it
+        # there too (its XLA attend), so it is not read then
+        if ga_n <= 1:
+            named = {ops.resolve_attn_impl(attn_impl)}
+            if paged:
+                named.add(ops.resolve_attn_impl(attn_impl, paged=True))
+            if "xla" in named:
+                log.info(
+                    "attn_impl 'xla' names the JAX package's XLA attention "
+                    "on a TPU; the port keeps one attention path per device "
+                    "(the CUDA kernels on the card, their plain versions on "
+                    "the CPU), so %s runs that path", self.device)
         if ga_n > 1:
             self.attn_impl, why = "plain", (
                 "self-extend: the cache holds unroped K, so every attention "
@@ -1152,6 +1167,8 @@ class PagedAdmission:
         self.mm_embeds = mm_embeds           # multimodal: one dispatch
         self.mm_positions = mm_positions
         self.done = False
+        self.prefix_reused = start           # shared/loaded rows (telemetry)
+        self.path = runner.last_prefill_path
 
     @property
     def chunks_remaining(self) -> int:

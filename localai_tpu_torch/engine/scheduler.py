@@ -38,10 +38,14 @@ A lean port of ``localai_tpu/engine/scheduler.py``. One engine thread:
     own resident prefix (never for a multimodal prompt); a request that
     ends with stop or length stores its prompt's KV rows (with
     ``prompt_cache_all`` its generation's too) through a writer thread:
-    the engine thread only takes a device snapshot.
+    the engine thread only takes a device snapshot;
+  * feeds the request lifecycle to ``obs.EngineTelemetry`` (queued at
+    submit, admitted, prefill done, finished at every release, error and
+    cancel) from host fields of the handle, and answers ``metrics()`` in
+    the JAX package's keys and shapes for the subsystems the port has.
 
 Left out of this slice (see ROADMAP): the background batch lane, SLO
-shedding, telemetry and the self-healing supervisor.
+shedding, the flight recorder and the self-healing supervisor.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ import numpy as np
 
 from localai_tpu_torch.engine.runner import NAN_TOKEN, ModelRunner
 from localai_tpu_torch.engine.stream import IncrementalDetokenizer, StopChecker
+from localai_tpu_torch.obs.engine import EngineTelemetry
 
 log = logging.getLogger(__name__)
 
@@ -102,6 +107,10 @@ class GenRequest:
     # placeholder token positions [n_mm] during prefill (see ModelRunner)
     mm_embeds: Optional[Any] = None
     mm_positions: Optional[Any] = None
+    # the request's X-Correlation-ID (else its response id) and the trace
+    # id its HTTP span carries: the engine's spans group under the latter
+    correlation_id: str = ""
+    trace_id: str = ""
 
 
 class StreamItem:
@@ -130,10 +139,17 @@ class GenHandle:
         self.prompt_tokens = len(req.prompt)
         self._done = threading.Event()
         self.cancelled = False
-        self.t_submit = time.monotonic()   # the busy watchdog's clock
+        # host timing mirror (telemetry, the busy watchdog's clock)
+        self.t_submit = time.monotonic()
+        self.t_first_token: Optional[float] = None
+        self.t_done: Optional[float] = None
+        # lifecycle trace (obs.RequestTrace), attached by the scheduler
+        self.trace = None
 
     # engine-thread side -------------------------------------------------
     def _emit(self, delta: str, token_id: Optional[int]) -> None:
+        if self.t_first_token is None:
+            self.t_first_token = time.monotonic()
         if token_id is not None:
             self.token_ids.append(token_id)
         if delta:
@@ -143,6 +159,7 @@ class GenHandle:
 
     def _finish(self, reason: str) -> None:
         self.finish_reason = reason
+        self.t_done = time.monotonic()
         self._q.put(StreamItem("", None, reason))
         self._done.set()
 
@@ -166,6 +183,14 @@ class GenHandle:
     @property
     def completion_tokens(self) -> int:
         return len(self.token_ids)
+
+    @property
+    def tokens_per_second(self) -> float:
+        if self.t_first_token is None:
+            return 0.0
+        end = self.t_done or time.monotonic()
+        dt = end - self.t_first_token
+        return (len(self.token_ids) - 1) / dt if dt > 0 else 0.0
 
 
 @dataclasses.dataclass
@@ -202,9 +227,18 @@ class Scheduler:
                  multi_step: int = 16, stream_latency_target: float = 0.1,
                  spec: Optional[Any] = None,
                  prompt_cache: Optional[Any] = None,
-                 prompt_cache_all: bool = False):
+                 prompt_cache_all: bool = False,
+                 telemetry: Optional[EngineTelemetry] = None):
         self.runner = runner
         self.tokenizer = tokenizer
+        # request lifecycle → spans + latency histograms (host fields only)
+        self.telemetry = telemetry or EngineTelemetry()
+        # lifetime counters of metrics(), written on the engine thread
+        # under _lock
+        self.total_prompt_tokens = 0
+        self.total_generated_tokens = 0
+        self.total_preemptions = 0    # cancelled / engine-error slot exits
+        self.total_prefill_chunks = 0
         # the disk prompt KV cache: stores run on the writer thread (the
         # host copy and the npz write), the engine thread only enqueues a
         # device snapshot
@@ -266,6 +300,7 @@ class Scheduler:
 
     def submit(self, req: GenRequest) -> GenHandle:
         handle = GenHandle(req, next(self._ids))
+        handle.trace = self.telemetry.queued(handle)
         self._pending.put(handle)
         self._wake.set()
         return handle
@@ -425,8 +460,11 @@ class Scheduler:
                 with self._lock:
                     failed = list(self._slots.items())
                     self._slots.clear()
+                    self.total_preemptions += len(failed)
                 for slot, ctx in failed:
                     self._engine.release(slot)
+                    self.telemetry.finished(ctx.handle.trace, ctx.handle,
+                                            "error")
                     ctx.handle._finish("error")
 
     def _constrained_slots(self) -> set[int]:
@@ -523,25 +561,77 @@ class Scheduler:
                     if now - ctx.handle.t_submit > timeout]
 
     def metrics(self) -> dict:
-        """Engine counters under the JAX package's names: occupancy,
-        dispatches, and with a speculative engine the spec_* series."""
+        """Live engine metrics in the JAX package's keys and shapes (its
+        ``Scheduler.metrics()``) for the subsystems the port has: slots,
+        occupancy, KV utilization, the paged pool and chunked prefill,
+        lifetime token / prefix-reuse / preemption totals, dispatches, the
+        prompt cache and the spec_* series; plus the port's constrained
+        decoding counters. Host reads only: ``step_time_ema`` is seconds
+        per decoded token."""
+        num_slots = self.runner.num_slots
         with self._lock:
-            active = len(self._slots)
-        out = {"active_slots": active,
-               "num_slots": self.runner.num_slots,
-               "queue_depth": self._pending.qsize(),
-               "dispatches": self._dispatch_seq,
-               "last_dispatch_steps": self.last_dispatch_steps,
-               "step_time_ema": self._step_ema,
-               "frozen_dispatches": self.runner.frozen_dispatches,
-               "constrained_tokens": self.constrained_tokens,
-               "constraint_host_s": self.constraint_host_s}
+            active = [
+                {
+                    "slot": s,
+                    "prompt_tokens_processed": c.handle.prompt_tokens,
+                    "tokens_generated": c.handle.completion_tokens,
+                    "tokens_per_second": c.handle.tokens_per_second,
+                    "correlation_id": c.handle.request.correlation_id,
+                }
+                for s, c in self._slots.items()
+            ]
+            kv_utilization = self._kv_utilization()
+            # one snapshot: a scrape must not mix half-updated totals
+            totals = {
+                "prompt": self.total_prompt_tokens,
+                "generated": self.total_generated_tokens,
+                "preemptions": self.total_preemptions,
+                "prefill_chunks": self.total_prefill_chunks,
+            }
+        paged_stats = {}
+        alloc = self.runner.allocator
+        if alloc is not None:
+            st = alloc.stats()
+            paged_stats = {
+                "kv_block_tokens": self.runner.block_tokens,
+                # "kernel" (K1 on the card) | "torch" (its plain version):
+                # the localai_paged_kernel_impl one-hot
+                "paged_attn_impl": self.runner.paged_attn_impl,
+                "kv_dtype": str(self.runner.kv_dtype),
+                "kv_blocks_total": st.total,
+                # free = immediately free + reclaimable prefix-pool cache
+                "kv_blocks_free": st.free + st.cached,
+                "kv_blocks_used": st.used,
+                "kv_blocks_cached": st.cached,
+                "kv_block_watermark": st.high_watermark,
+                "kv_blocks_spec_reserved": st.spec_reserved,
+                "kv_overcommit_ratio": self.runner.kv_overcommit,
+                "kv_shared_tokens": alloc.shared_tokens_total,
+                "prefill_chunks": totals["prefill_chunks"],
+                "prefill_chunk_queue_depth": sum(
+                    p.adm.chunks_remaining for p in list(self._prefills)),
+            }
+        out = {
+            "active_slots": active,
+            "num_slots": num_slots,
+            "occupancy": len(active) / num_slots if num_slots else 0.0,
+            "kv_utilization": kv_utilization,
+            **paged_stats,
+            "queue_depth": self._pending.qsize(),
+            "total_prompt_tokens": totals["prompt"],
+            "total_generated_tokens": totals["generated"],
+            "prefix_tokens_reused": self.runner.total_prefix_reused,
+            "last_dispatch_steps": self.last_dispatch_steps,
+            "dispatches": self._dispatch_seq,
+            "preemptions": totals["preemptions"],
+            "step_time_ema": self._step_ema,  # seconds per decoded token
+            "frozen_dispatches": self.runner.frozen_dispatches,
+            "constrained_tokens": self.constrained_tokens,
+            "constraint_host_s": self.constraint_host_s,
+        }
         if self.prompt_cache is not None:
             out["prompt_cache"] = {**self.prompt_cache.stats(),
                                    **self.pc_seconds}
-        if self._chunked:
-            out["kv_blocks_spec_reserved"] = (
-                self.runner.allocator.stats().spec_reserved)
         if self.spec is not None:
             out.update({
                 "spec_acceptance_rate": self.spec.acceptance_rate,
@@ -554,6 +644,21 @@ class Scheduler:
                 "spec_drafter": self.spec.drafter.name,
                 "spec_gamma": self.spec.gamma})
         return out
+
+    def _kv_utilization(self) -> float:
+        """Fraction of KV capacity holding live context: the paged pool's
+        used / allocatable blocks (reservations included), or on the
+        contiguous layout the live rows of the host token record over
+        slots x context. The caller holds ``_lock``."""
+        alloc = self.runner.allocator
+        if alloc is not None:
+            return alloc.stats().utilization
+        num_slots, max_ctx = self.runner.num_slots, self.runner.max_ctx
+        if not num_slots:
+            return 0.0
+        rows = sum(min(c.handle.prompt_tokens + c.generated, max_ctx)
+                   for c in self._slots.values())
+        return rows / (num_slots * max_ctx)
 
     def _observe_step_time(self, dt: float) -> None:
         if dt <= 0:
@@ -615,6 +720,10 @@ class Scheduler:
                 except queue.Empty:
                     return admitted
             if handle.cancelled:
+                # abandoned while still queued: not a slot exit, so not a
+                # preemption
+                self.telemetry.finished(handle.trace, handle, "cancelled",
+                                        preempted=False)
                 handle._finish("cancelled")
                 continue
             if not self._reservation_fits(handle.request):
@@ -638,6 +747,9 @@ class Scheduler:
             except Exception as e:  # noqa: BLE001 — bad request ≠ dead engine
                 log.warning("admit failed: %s", e)
                 self._engine.release(slot)
+                with self._lock:
+                    self.total_preemptions += 1
+                self.telemetry.finished(handle.trace, handle, "error")
                 handle._finish("error")
         return admitted
 
@@ -697,7 +809,13 @@ class Scheduler:
             bias_row=self._compose_bias(base, mask),
             mm_embeds=req.mm_embeds, mm_positions=req.mm_positions)
         if not self._chunked:
+            self.telemetry.admitted(
+                handle.trace, slot=slot,
+                queue_wait=time.monotonic() - handle.t_submit)
             first = self._engine.admit(slot, req.prompt, **sampling)
+            self.telemetry.prefill_done(
+                handle.trace, path=self.runner.last_prefill_path,
+                prefix_reused=self.runner.last_prefix_reused)
             self._activate_slot(slot, handle, first, base, mask is not None)
             return True
         # reserve the worst case so decode can never run out of blocks
@@ -707,6 +825,9 @@ class Scheduler:
                                        reserve_tokens=reserve, **sampling)
         if adm is None:
             return False
+        self.telemetry.admitted(
+            handle.trace, slot=slot,
+            queue_wait=time.monotonic() - handle.t_submit)
         self._prefills.append(_PendingPrefill(slot=slot, handle=handle,
                                               adm=adm, base=base,
                                               mask_set=mask is not None))
@@ -750,6 +871,7 @@ class Scheduler:
         )
         with self._lock:
             self._slots[slot] = ctx
+            self.total_prompt_tokens += handle.prompt_tokens
         if self.spec is not None and self._chunked:
             # a chunked admission bypassed spec.admit: seed this slot's
             # drafter from its resident record before the next window
@@ -765,6 +887,9 @@ class Scheduler:
         if pf.handle.cancelled:
             self._prefills.popleft()
             pf.adm.abort()   # frees the blocks, slot returns to free list
+            with self._lock:
+                self.total_preemptions += 1
+            self.telemetry.finished(pf.handle.trace, pf.handle, "cancelled")
             pf.handle._finish("cancelled")
             return True
         try:
@@ -773,11 +898,18 @@ class Scheduler:
             log.warning("prefill failed: %s", e)
             self._prefills.popleft()
             pf.adm.abort()
+            with self._lock:
+                self.total_preemptions += 1
+            self.telemetry.finished(pf.handle.trace, pf.handle, "error")
             pf.handle._finish("error")
             return True
+        with self._lock:
+            self.total_prefill_chunks += 1
         if first is None:
             return True
         self._prefills.popleft()
+        self.telemetry.prefill_done(pf.handle.trace, path=pf.adm.path,
+                                    prefix_reused=pf.adm.prefix_reused)
         self._activate_slot(pf.slot, pf.handle, first, pf.base, pf.mask_set)
         return True
 
@@ -896,6 +1028,9 @@ class Scheduler:
     def _release(self, slot: int, ctx: _SlotCtx, reason: str) -> None:
         with self._lock:
             self._slots.pop(slot, None)
+            self.total_generated_tokens += ctx.handle.completion_tokens
+            if reason in ("cancelled", "error"):
+                self.total_preemptions += 1
         pc = self.prompt_cache
         r = self._resident.get(slot)
         if (pc is not None and not pc.read_only and r
@@ -914,4 +1049,7 @@ class Scheduler:
                 except Exception as e:  # noqa: BLE001 — cache ≠ serving
                     log.warning("prompt-cache snapshot failed: %s", e)
         self._engine.release(slot)
+        # retire the trace before _finish unblocks the client: a traces
+        # query racing the response must not see a half-annotated trace
+        self.telemetry.finished(ctx.handle.trace, ctx.handle, reason)
         ctx.handle._finish(reason)

@@ -50,6 +50,7 @@ from localai_tpu_torch.engine.promptcache import PromptKVCache
 from localai_tpu_torch.engine.runner import ModelRunner
 from localai_tpu_torch.engine.scheduler import Scheduler
 from localai_tpu_torch.models.registry import LoadedModel, resolve_model
+from localai_tpu_torch.obs.engine import EngineTelemetry
 from localai_tpu_torch.templates.cache import TemplateCache
 
 log = logging.getLogger(__name__)
@@ -80,6 +81,9 @@ class ServingModel:
     def alive(self) -> bool:
         """The engine thread is the health signal (dead → reload)."""
         return self.scheduler.alive()
+
+    def engine_metrics(self) -> dict:
+        return self.scheduler.metrics()
 
     def close(self) -> None:
         self.scheduler.shutdown()
@@ -205,6 +209,7 @@ def build_runner(mcfg: ModelConfig, app: AppConfig,
         prefill_chunk=eng.prefill_chunk,
         ga_n=eng.grp_attn_n,
         ga_w=eng.grp_attn_w,
+        attn_impl=eng.attn_impl,
         device=app.device,
     )
     return model, runner
@@ -271,6 +276,7 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
         spec=spec,
         prompt_cache=prompt_cache,
         prompt_cache_all=mcfg.prompt_cache_all,
+        telemetry=EngineTelemetry(model=mcfg.name),
     )
     # vision tower: the explicit mmproj ref, or the llava checkpoint itself;
     # on the engine's device, in its dtype
@@ -510,6 +516,29 @@ class ModelManager:
                 return False
             self._evict_locked(name)
             return True
+
+    # -- observability -----------------------------------------------------
+
+    def metrics(self) -> dict:
+        """Each loaded model's ``engine_metrics()`` (host reads)."""
+        with self._lock:
+            models = list(self._models.items())
+        return {name: sm.engine_metrics() for name, sm in models}
+
+    def monitor(self, name: str) -> dict:
+        """One model's status (the JAX package's ``monitor``)."""
+        with self._lock:
+            sm = self._models.get(name)
+        if sm is None:
+            return {"loaded": False, "name": name}
+        return {
+            "loaded": True,
+            "name": name,
+            "busy": sm.busy,
+            "age_seconds": time.monotonic() - sm.loaded_at,
+            "idle_seconds": time.monotonic() - sm.last_used,
+            **sm.engine_metrics(),
+        }
 
     def shutdown(self) -> None:
         if self._watchdog is not None:

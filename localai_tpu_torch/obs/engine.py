@@ -1,0 +1,103 @@
+"""EngineTelemetry: the scheduler-facing facade of the obs subsystem.
+
+Turns request lifecycle events into spans (queued → prefill → decode, with
+``admitted``/``drained`` markers) and per-request histogram observations
+(queue wait, TTFT, TPOT), as ``localai_tpu/obs/engine.py`` does.
+Everything runs on host timestamps the scheduler already holds (the
+handle's ``t_submit`` / ``t_first_token`` / ``t_done``): no device read,
+no synchronisation.
+
+One instance per scheduler (the manager names it after the model).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Optional
+
+from localai_tpu_torch.obs.metrics import REGISTRY, Registry
+from localai_tpu_torch.obs.trace import STORE, RequestTrace, TraceStore
+
+# finish reasons that mean the request left its slot early
+PREEMPT_REASONS = ("cancelled", "error")
+
+
+class EngineTelemetry:
+    def __init__(self, model: str = "", *,
+                 registry: Optional[Registry] = None,
+                 store: Optional[TraceStore] = None):
+        self.model = model
+        self.registry = registry or REGISTRY
+        self.store = store or STORE
+
+    # -- request lifecycle ------------------------------------------------
+
+    def queued(self, handle: Any) -> RequestTrace:
+        """Called at submit(); returns the trace the scheduler attaches to
+        the handle."""
+        req = handle.request
+        tid = (getattr(req, "trace_id", "") or req.correlation_id
+               or f"req-{self.model or 'engine'}-{handle.id}")
+        tr = RequestTrace(
+            tid, f"{self.model or 'engine'}-{handle.id}", model=self.model,
+            prompt_tokens=handle.prompt_tokens,
+        )
+        tr.begin("queued")
+        self.store.start(tr)
+        return tr
+
+    def admitted(self, tr: Optional[RequestTrace], *, slot: int,
+                 queue_wait: float) -> None:
+        if tr is None:
+            return
+        tr.end("queued", seconds=round(queue_wait, 6))
+        tr.event("admitted", slot=slot)
+        tr.begin("prefill", slot=slot)
+        tr.annotate(queue_wait_ms=round(queue_wait * 1e3, 3))
+        self.registry.queue_wait.observe(queue_wait, model=self.model)
+
+    def prefill_done(self, tr: Optional[RequestTrace], *, path: str = "",
+                     prefix_reused: int = 0) -> None:
+        if tr is None:
+            return
+        tr.end("prefill", path=path, prefix_reused=prefix_reused)
+        tr.begin("decode")
+
+    def finished(self, tr: Optional[RequestTrace], handle: Any,
+                 reason: str, preempted: Optional[bool] = None) -> None:
+        """Terminal event for every path: natural stop, length, cancel,
+        admit failure, engine error. Derives TTFT/TPOT from the handle's
+        host-side timing mirror and retires the trace. ``preempted`` marks
+        a request that left a decode slot before natural completion;
+        it defaults from the reason, but a request cancelled while still
+        queued passes False (queue abandonment is not slot churn)."""
+        if tr is None:
+            return
+        n = handle.completion_tokens
+        ttft = tpot = None
+        if handle.t_first_token is not None:
+            ttft = handle.t_first_token - handle.t_submit
+            t_end = handle.t_done or time.monotonic()
+            if n > 1:
+                tpot = (t_end - handle.t_first_token) / (n - 1)
+        tr.end("decode", tokens=n)
+        tr.event("drained", finish_reason=reason)
+        tr.annotate(
+            finish_reason=reason,
+            completion_tokens=n,
+            ttft_ms=None if ttft is None else round(ttft * 1e3, 3),
+            tpot_ms=None if tpot is None else round(tpot * 1e3, 3),
+            tokens_per_second=round(handle.tokens_per_second, 3),
+        )
+        if ttft is not None:
+            self.registry.ttft.observe(ttft, model=self.model)
+        if tpot is not None:
+            self.registry.tpot.observe(tpot, model=self.model)
+        self.registry.requests.inc(model=self.model, finish_reason=reason)
+        if preempted is None:
+            preempted = reason in PREEMPT_REASONS
+        if preempted:
+            self.registry.preemptions.inc(model=self.model, reason=reason)
+        # the usage ledger's and the SLO observatory's feeds (ROADMAP
+        # item 15, part 2; localai_tpu/obs/engine.py) go here
+        self.store.finish(tr)

@@ -3,22 +3,33 @@
 ``select_paged_attn_impl`` reports the paged decode attention path (K1),
 ``select_attn_impl`` the contiguous decode (K2) and prefill (K3) path, in
 the spirit of the functions of the same names in
-``localai_tpu/ops/__init__.py``. The runner always calls the wrappers of
-``ops.attention``; each launches its CUDA kernel for CUDA tensors
-("kernel") and runs its plain PyTorch version for CPU tensors ("torch").
-The TPU's Mosaic tiling gates (128-aligned head dims and contexts) do not
-apply on Hopper; the card's gates are the head dims, GQA groups, dtypes
-and KV storage kinds (bf16/f32, scaled int8, int4 for pools only) the
-kernels were compiled for. A shape a kernel does not take raises — it is
-not rerouted. The JAX package keeps its int4 pool off the Pallas kernel
-unless hd % 256 == 0 (the packed hd/2 lane axis must tile for Mosaic);
-the CUDA kernel takes int4 at every compiled head dim, hd=128 included.
+``localai_tpu/ops/__init__.py``. There is one attention path per device:
+on a CUDA device both return "kernel" or raise, and the runner's wrappers
+launch the CUDA kernels; on the CPU both return "torch", and the wrappers
+run their plain PyTorch versions. No shape is sent to a plain version on
+the card: a shape the kernels do not take is refused when the runner is
+built. The card's gates are the head dims (32/64/128), the GQA groups
+(1-16: K1/K2 run a group on the next compiled group capacity with the
+rows past it masked, K3 reads it at run time), the dtypes, the KV storage
+kinds (bf16/f32 in the compute dtype, scaled int8, int4 for pools only),
+the shared memory of a ``block_tokens`` tile, quantized pools' bt % 4 and
+an int8 contiguous cache's context % 4. The TPU's Mosaic tiling gates
+(128-aligned head dims and contexts) do not apply on Hopper. The JAX
+package keeps its int4 pool off the Pallas kernel unless hd % 256 == 0
+(the packed hd/2 lane axis must tile for Mosaic); the CUDA kernel takes
+int4 at every compiled head dim, hd=128 included.
+
+``resolve_attn_impl`` reads and checks the JAX package's attention
+setting (``engine.attn_impl``, ``LOCALAI_ATTN_IMPL``,
+``LOCALAI_PAGED_ATTN_IMPL``) as that package does, and selects nothing:
+every accepted value runs the one path of the device.
 
 ``ops.qmatmul`` holds the quantized-weight matmul kernels (w8, w4).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -42,9 +53,34 @@ __all__ = [
     "paged_decode_attention_ref",
     "prefill_attention",
     "prefill_attention_ref",
+    "resolve_attn_impl",
     "select_attn_impl",
     "select_paged_attn_impl",
 ]
+
+
+# the values the JAX package accepts: "pallas" (its TPU kernels), "xla"
+# (its plain XLA attention), "pallas_interpret" (the kernels interpreted,
+# for its CPU tests), "auto"
+ATTN_IMPLS = ("auto", "pallas", "pallas_interpret", "xla")
+
+
+def resolve_attn_impl(requested: str = "auto", *, paged: bool = False) -> str:
+    """The attention setting as the JAX package resolves it: an explicit
+    per-model value wins; "auto" or "" takes ``LOCALAI_ATTN_IMPL`` (with
+    ``paged``: ``LOCALAI_PAGED_ATTN_IMPL``). Returns the value (one of
+    ``ATTN_IMPLS``) and raises ``ValueError`` with the JAX package's
+    message for any other. It moves nothing: the runner logs a value that
+    names the TPU's XLA path and runs its device's one path whatever the
+    value."""
+    impl = requested
+    if impl in ("auto", ""):
+        impl = os.environ.get("LOCALAI_PAGED_ATTN_IMPL" if paged
+                              else "LOCALAI_ATTN_IMPL", "") or "auto"
+    if impl not in ATTN_IMPLS:
+        what = "paged attention" if paged else "attention"
+        raise ValueError(f"unknown {what} impl {impl!r}")
+    return impl
 
 
 def _kv_storage(kv_dtype, dtype, kernel: str) -> tuple[str, torch.dtype]:

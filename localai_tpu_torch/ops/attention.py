@@ -45,7 +45,12 @@ _NEG_INF = -1e30
 
 # what the three sources are compiled for
 KERNEL_HEAD_DIMS = (32, 64, 128)
-KERNEL_GROUPS = (1, 2, 4, 8)
+# every GQA group of the llama/mistral/qwen2 checkpoints (Llama-3.1-405B's
+# 128 q / 8 kv heads is the largest). K1/K2 are compiled for the group
+# capacities of DECODE_GROUPS and run a group on the smallest capacity
+# that holds it, rows past the group masked; K3 reads the group at run time
+KERNEL_GROUPS = tuple(range(1, 17))
+DECODE_GROUPS = (1, 2, 4, 8, 16)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # KV storage the decode kernels read: the compute dtype itself (""), or
 # scaled int8 / int4 (the template parameter P = 0, 1, 2; K2 has no int4)
@@ -127,15 +132,43 @@ PREFILL_BLOCKS_PER_SM = 2   # 128-row blocks that fit an SM at once
 def prefill_block_rows(T: int, Hq: int, Hkv: int, sms: int) -> int:
     """Query rows a bf16 K3 CUDA block takes for a ``T``-token prompt of
     ``Hq`` query and ``Hkv`` kv heads on a card of ``sms`` SMs: 128 when
-    128-row blocks (one per kv head and 128 / (Hq/Hkv) positions) still
-    number ``PREFILL_BLOCKS_PER_SM`` per SM, else 64. Shapes in only."""
+    128-row blocks (one per kv head and 128 // (Hq/Hkv) positions,
+    ``prefill_grid``) still number ``PREFILL_BLOCKS_PER_SM`` per SM, else
+    64. Shapes in only."""
     if min(T, Hq, Hkv, sms) < 1 or Hq % Hkv:
         raise ValueError(f"no prefill plan for T={T}, Hq={Hq}, Hkv={Hkv}, "
                          f"sms={sms}")
     rows = PREFILL_ROWS[-1]
-    blocks = Hkv * -(-T * (Hq // Hkv) // rows)
+    blocks = Hkv * prefill_grid(T, Hq // Hkv, rows)[1]
     return (rows if blocks >= PREFILL_BLOCKS_PER_SM * sms
             else PREFILL_ROWS[0])
+
+
+def prefill_grid(T: int, g: int, rows: int) -> tuple[int, int]:
+    """(positions a block, blocks a kv head) of K3 at GQA group ``g`` with
+    ``rows``-row CUDA blocks: ``rows // g`` positions, and enough blocks to
+    cover ``T`` (the launch's grid in ``csrc/prefill_attention.cu``)."""
+    if not 1 <= g <= rows:
+        raise ValueError(f"group {g} does not fit a {rows}-row block")
+    bq = rows // g
+    return bq, -(-T // bq)
+
+
+def prefill_row_map(block: int, T: int, g: int,
+                    rows: int) -> list[Optional[tuple[int, int]]]:
+    """The (position, q head within the kv head's group) that each row
+    of K3's CUDA block ``block`` (in launch order) loads and writes, or
+    None for a row that loads no q and writes nothing: the kernel's
+    ``row_pos`` map in plain Python, for tests. Rows r < bq * g map to
+    (q0 + r // g, r % g); the ``rows % g`` rows left over, and rows whose
+    position falls at or past ``T``, are masked."""
+    bq, _ = prefill_grid(T, g, rows)
+    q0 = block * bq
+    out: list[Optional[tuple[int, int]]] = []
+    for r in range(rows):
+        pos = q0 + r // g if r < bq * g else T
+        out.append((pos, r % g) if pos < T else None)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,13 +177,26 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def decode_group(g: int) -> int:
+    """The compiled group capacity G (``DECODE_GROUPS``) that K1/K2 run a
+    GQA group ``g`` of ``KERNEL_GROUPS`` on: the smallest G >= g; rows
+    r >= g of G are masked (no q load, nothing written)."""
+    for G in DECODE_GROUPS:
+        if g <= G:
+            return G
+    raise ValueError(f"GQA group {g} above the kernels' "
+                     f"{KERNEL_GROUPS[-1]}")
+
+
 def kernel_smem_bytes(dtype: torch.dtype, hd: int, g: int, bt: int,
                       pool: str = "") -> int:
-    """Shared memory one decode CUDA block uses (mirrors ``smem_bytes`` in
-    ``csrc/paged_decode_attention.cu`` and ``csrc/decode_attention.cu``):
+    """Shared memory one decode CUDA block uses at GQA group ``g``
+    (mirrors ``smem_bytes`` in ``csrc/paged_decode_attention.cu`` and
+    ``csrc/decode_attention.cu``, instantiated at ``decode_group(g)``):
     two stages of K and V tiles (and of their scale rows for a quantized
     pool), q rows, scores, row stats. ``dtype`` is the compute dtype of
     q."""
+    g = decode_group(g)
     if pool == "int8":
         row = hd
     elif pool == "int4":
@@ -170,7 +216,8 @@ def shape_gate(dtype: torch.dtype, hd: int, g: int,
     if hd not in KERNEL_HEAD_DIMS:
         return f"head_dim {hd} (kernel compiled for {KERNEL_HEAD_DIMS})"
     if g not in KERNEL_GROUPS:
-        return f"GQA group {g} (kernel compiled for {KERNEL_GROUPS})"
+        return (f"GQA group {g} (kernels take groups {KERNEL_GROUPS[0]}-"
+                f"{KERNEL_GROUPS[-1]})")
     return ""
 
 

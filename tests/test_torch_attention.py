@@ -137,7 +137,7 @@ def test_select_impl_on_card_is_the_kernel_or_raises():
             block_tokens=64, kv_dtype=pool, dtype=torch.bfloat16) == (
                 "kernel", "")
     for bad in (dict(head_dim=16), dict(kv_dtype=torch.float16),
-                dict(num_heads=24), dict(block_tokens=512,
+                dict(num_heads=136), dict(block_tokens=512,
                                          kv_dtype=torch.float32),
                 dict(kv_dtype=torch.bfloat16, dtype=torch.float32),
                 dict(kv_dtype="int8", dtype=torch.float16),

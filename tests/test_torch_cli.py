@@ -151,7 +151,8 @@ def test_bare_device_variable_is_not_read(clean_env):
     (["run", "--autoscale"], {}, 23),
     (["run", "--mesh", "data=2"], {}, 19),
     (["run", "--platform", "cpu"], {}, 11),
-    (["--log-format", "json", "run"], {}, 15),
+    # JSON logs are served; an SLO flag beside them still exits 2
+    (["--log-format", "json", "run", "--slo-ttft-p95-ms", "200"], {}, 15),
     (["run"], {"LOCALAI_FLEET_REPLICAS": "2"}, 23),
     (["run"], {"LOCALAI_SLO_E2E_P95_MS": "900"}, 15),
     (["run"], {"LOCALAI_MESH": "data=1,model=2"}, 19),

@@ -322,7 +322,7 @@ def test_select_attn_impl_gates():
     assert tops.select_attn_impl(**card) == ("kernel", "")
     assert tops.select_attn_impl(**card, kv_dtype="int8", max_ctx=4096) == (
         "kernel", "")
-    for bad in (dict(head_dim=96), dict(num_heads=48),
+    for bad in (dict(head_dim=96), dict(num_heads=136),
                 dict(kv_dtype="int4"), dict(kv_dtype=torch.float32),
                 dict(kv_dtype="int8", max_ctx=4098)):
         with pytest.raises(ValueError):

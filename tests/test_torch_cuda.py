@@ -397,6 +397,176 @@ def test_cuda_prefill_bf16_groups_and_head_dims(G, hd, rows):
     _prefill_check(300, 250, 90, hd, 4 * G, 4, rows, 3 * G + hd)
 
 
+# GQA groups the kernels take beyond the powers of two: K1/K2 run them on
+# the next compiled group capacity with the rows past the group masked, K3
+# reads the group at run time (its left-over rows masked)
+NEW_GROUPS = (3, 5, 6, 7, 11, 16)
+
+
+def _group_pool(G, hd, seed, pool=""):
+    """Two kv heads at group G over 8-entry tables of 64-token blocks
+    (positions on block edges and a split's), in float32, or an int8/int4
+    pool by the port's quantizers: (q, k, v, tables, pos, scales)."""
+    S, Hkv, bt, MB = 4, 2, 64, 8
+    rng = np.random.default_rng(seed)
+    N = S * MB + 1
+    q = rng.normal(size=(S, G * Hkv, hd)).astype(np.float32)
+    k = rng.normal(size=(N, Hkv, bt, hd)).astype(np.float32)
+    v = rng.normal(size=(N, Hkv, bt, hd)).astype(np.float32)
+    tables = (rng.permutation(N - 1) + 1).astype(np.int32).reshape(S, MB)
+    pos = np.asarray([0, 64, 300, 511], np.int32)
+    q, k, v, tables, pos = [torch.from_numpy(a).cuda()
+                            for a in (q, k, v, tables, pos)]
+    if not pool:
+        return q, k, v, tables, pos, ()
+    quantize = (tq.quantize_lastdim4 if pool == "int4"
+                else tq.quantize_lastdim)
+    k, ks = quantize(k)
+    v, vs = quantize(v)
+    return q, k, v, tables, pos, (ks, vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [None, 1])
+@pytest.mark.parametrize("pool", ["", "int8", "int4"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", NEW_GROUPS)
+def test_cuda_paged_kernel_at_new_groups(G, hd, dtype, pool, split):
+    """K1 at GQA groups that are not compiled capacities, on float and
+    scaled pools, at the split plan and the finest split."""
+    _card()
+    dt = getattr(torch, dtype)
+    q, k, v, tables, pos, scales = _group_pool(G, hd, 40 + G + hd, pool)
+    if not pool:
+        k, v = k.to(dt), v.to(dt)
+    q = q.to(dt)
+    before = tops.paged_decode_attention.launches
+    got = tops.paged_decode_attention(q, k, v, tables, pos, *scales,
+                                      split_blocks=split)
+    torch.cuda.synchronize()
+    assert tops.paged_decode_attention.launches == before + 1
+    want = tops.paged_decode_attention_ref(
+        q.float(), k if pool else k.float(), v if pool else v.float(),
+        tables, pos, *scales)
+    _slot_check(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", NEW_GROUPS)
+def test_cuda_decode_kernel_at_new_groups(G, hd, kv):
+    """K2 at GQA groups that are not compiled capacities: float caches in
+    the compute dtype, an int8 cache with a bf16 q."""
+    _card()
+    q, k, v, pos = _contiguous_inputs(50 + G, hd=hd, Hq=2 * G, Hkv=2)
+    scales = ()
+    if kv == "int8":
+        q = q.to(torch.bfloat16)
+        k, ks = tq.quantize_lastdim(k)
+        v, vs = tq.quantize_lastdim(v)
+        scales = (ks, vs)
+        dt = torch.bfloat16
+    else:
+        dt = getattr(torch, kv)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    before = tops.decode_attention.launches
+    got = tops.decode_attention(q, k, v, pos, *scales)
+    torch.cuda.synchronize()
+    assert tops.decode_attention.launches == before + 1
+    want = tops.decode_attention_ref(q.float(), k if scales else k.float(),
+                                     v if scales else v.float(), pos,
+                                     *scales)
+    _slot_check(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", NEW_GROUPS)
+def test_cuda_prefill_bf16_at_new_groups(G, hd, rows):
+    """K3 bf16 at GQA groups that leave rows of a block over, with T not
+    a multiple of the block and a length below it (the left-over rows meet
+    the length mask), and a window."""
+    _card()
+    _prefill_check(301, 250, None, hd, 2 * G, 2, rows, 5 * G + hd)
+    _prefill_check(257, 257, 90, hd, 2 * G, 2, rows, 7 * G + hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", NEW_GROUPS)
+def test_cuda_prefill_f32_at_new_groups(G):
+    """K3 float32 (64-row blocks on the CUDA cores) at the same groups."""
+    _card()
+    rng = np.random.default_rng(60 + G)
+    T, length, hd, Hkv = 201, 180, 128, 2
+    q, k, v = [torch.from_numpy(rng.normal(size=shp).astype(np.float32))
+               .cuda() for shp in ((T, G * Hkv, hd), (Hkv, T, hd),
+                                   (Hkv, T, hd))]
+    got = tops.prefill_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    _slot_check(got, tops.prefill_attention_ref(q, k, v, length),
+                torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+@pytest.mark.parametrize("name,heads,kv_heads", [
+    ("llama-3.2-3b", 24, 8), ("qwen2.5-7b", 28, 4), ("qwen2.5-14b", 40, 8)])
+def test_cuda_runner_builds_at_published_groups(name, heads, kv_heads,
+                                                paged):
+    """A runner at Llama-3.2-3B's, Qwen2.5-7B's and Qwen2.5-14B's heads
+    (hd 128, one layer, a small vocabulary, seeded bf16 weights) builds on
+    the card, takes the kernels and decodes the CPU's greedy tokens."""
+    _card()
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=heads * 128,
+                      intermediate_size=512, num_layers=1, num_heads=heads,
+                      num_kv_heads=kv_heads, max_position_embeddings=512,
+                      attention_bias=name.startswith("qwen"),
+                      dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(heads), "cpu")
+    to = functools.partial(_tree_to, device="cuda")
+    seqs = {}
+    for dev, p in (("cuda", to(params)), ("cpu", params)):
+        r = ModelRunner(cfg, p, num_slots=2, max_ctx=256, kv_dtype="float32",
+                        kv_block_tokens=16, prefill_chunk=32, paged=paged,
+                        device=dev)
+        want = "kernel" if dev == "cuda" else "torch"
+        assert (r.paged_attn_impl if paged else r.attn_impl) == want
+        wrapper = (tops.paged_decode_attention if paged
+                   else tops.decode_attention)
+        before = wrapper.launches
+        s = r.acquire_slot()
+        out = [r.admit(s, list(b"grouped query heads"), temperature=0.0)]
+        for _ in range(6):
+            out.append(int(r.step()[s]))
+        seqs[dev] = out
+        assert wrapper.launches - before == (6 if dev == "cuda" else 0)
+    assert seqs["cuda"] == seqs["cpu"]
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+def test_cuda_group_above_16_is_refused():
+    """A group above 16 raises on the card, naming the group."""
+    _card()
+    q = torch.zeros((2, 17, 64), device="cuda")
+    k = torch.zeros((1, 2, 64), device="cuda")
+    with pytest.raises(ValueError, match="GQA group 17"):
+        tops.prefill_attention(q, k, k, 2)
+
+
 @pytest.mark.cuda
 def test_cuda_prefill_refuses_bad_block_rows():
     """block_rows outside PREFILL_ROWS raises; nothing falls back."""
