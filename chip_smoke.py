@@ -6192,6 +6192,440 @@ def phase_serve_prompt_cache(card: str, ref_texts: Optional[list] = None
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# speech and sound: whisper transcription, VITS voices with cloning, the
+# parametric voice and MusicGen-class sound generation (no K1–K5 on these
+# paths: the JAX package computes them in XLA, the port in plain torch)
+# ---------------------------------------------------------------------------
+
+# openai/whisper-large-v3's published config.json (its widths and depth;
+# the checkpoint is published in float16)
+WHISPER_LARGE_V3_CONFIG = {
+    "architectures": ["WhisperForConditionalGeneration"],
+    "model_type": "whisper", "d_model": 1280,
+    "encoder_attention_heads": 20, "decoder_attention_heads": 20,
+    "encoder_layers": 32, "decoder_layers": 32, "encoder_ffn_dim": 5120,
+    "decoder_ffn_dim": 5120, "num_mel_bins": 128, "vocab_size": 51866,
+    "max_source_positions": 1500, "max_target_positions": 448,
+    "bos_token_id": 50257, "eos_token_id": 50257, "pad_token_id": 50256,
+    "decoder_start_token_id": 50258, "torch_dtype": "float16"}
+WHISPER = "whisper-large-v3-f32"
+# facebook/mms-tts-eng's published config.json is the VitsConfig defaults
+# (hidden 192, 6 layers, HiFi-GAN 512 x (8, 8, 2, 2), 16 kHz); its
+# vocab.json holds 38 symbols
+MMS_VOCAB = "_ abcdefghijklmnopqrstuvwxyz0123456789"
+VITS = "vits-mms-tts-eng"
+VITS_CLONE = "vits-mms-tts-eng-speakers"
+# a voice drawn at this std gives ~1-3 frames (256 samples each) a symbol
+VITS_STD = 0.02
+VITS_MAX_FRAMES_PER_ID = 20     # the ceiling the smoke asserts
+AUDIO_TEXTS = [
+    "Hello there.",
+    "The quick brown fox jumps over the lazy dog.",
+    "Speech on the card: a voice drawn from a seed, read at sixteen "
+    "kilohertz, one sentence after another, until the paragraph ends.",
+]
+
+
+def _speech_like(seconds: float, seed: int = 0) -> np.ndarray:
+    """A voiced, amplitude-modulated tone with noise at 16 kHz."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    f0 = 120 + 30 * np.sin(2 * np.pi * 0.7 * t)
+    x = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / 16000) * (
+        0.5 + 0.5 * np.sin(2 * np.pi * 3 * t))
+    return (x + 0.02 * rng.normal(size=t.size)).astype(np.float32)
+
+
+def _multipart(fields: dict) -> tuple[bytes, str]:
+    boundary = "----chip-smoke-audio"
+    out = b""
+    for name, value in fields.items():
+        out += f"--{boundary}\r\n".encode()
+        if isinstance(value, bytes):
+            out += (f'Content-Disposition: form-data; name="{name}"; '
+                    'filename="a.wav"\r\nContent-Type: audio/wav\r\n\r\n'
+                    ).encode() + value + b"\r\n"
+        else:
+            out += (f'Content-Disposition: form-data; name="{name}"\r\n\r\n'
+                    f"{value}\r\n").encode()
+    return out + f"--{boundary}--\r\n".encode(), \
+        f"multipart/form-data; boundary={boundary}"
+
+
+def _post_raw(url: str, data: bytes, ctype: str,
+              timeout: float = 600) -> tuple[int, bytes, str]:
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read(), r.headers.get("Content-Type", "")
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the largest |b|."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+
+
+def phase_whisper_parity() -> dict:
+    """Card = CPU for whisper on a small float32 preset with large-v3's
+    mel bins and vocabulary (d_model 384, 6 heads, 4 + 4 layers): per
+    chunk of a 35-s recording, encoder states within 1e-4 of their
+    largest value and greedy token ids equal."""
+    from localai_tpu_torch.audio import mel as tmel
+    from localai_tpu_torch.models import whisper as twh
+
+    cfg = twh.WhisperConfig.from_hf({**WHISPER_LARGE_V3_CONFIG,
+                                     "d_model": 384,
+                                     "encoder_attention_heads": 6,
+                                     "encoder_layers": 4,
+                                     "decoder_layers": 4,
+                                     "encoder_ffn_dim": 1536,
+                                     "max_target_positions": 96})
+    params = twh.init_params(cfg, seed=21, device="cpu")
+    cpu = twh.WhisperModel(cfg, params, device="cpu")
+    card = twh.WhisperModel(cfg, _to(params, "cuda"), device="cuda")
+    out = []
+    for chunk in tmel.chunk_audio(_speech_like(35.0, 3)):
+        err = _rel_err(card.encode_chunk(chunk), cpu.encode_chunk(chunk))
+        ids_card = card.transcribe_chunk(chunk)
+        ids_cpu = cpu.transcribe_chunk(chunk)
+        if err > 1e-4 or ids_card != ids_cpu:
+            raise AssertionError(f"whisper card != CPU: encoder {err}, ids "
+                                 f"{ids_card[:12]} vs {ids_cpu[:12]}")
+        out.append({"encoder_rel_err": err, "tokens": len(ids_card)})
+    print("whisper_parity: " + json.dumps(out), flush=True)
+    return {"chunks": out}
+
+
+def _write_vits_voice(path, cfg, seed: int) -> None:
+    """A VITS checkpoint dir: config.json, safetensors of seeded weights
+    at ``VITS_STD``, a 38-symbol vocab.json, tokenizer_config.json."""
+    import dataclasses
+
+    from localai_tpu_torch.audio.vits import init_params
+    from localai_tpu_torch.models.loader import write_checkpoint
+
+    tensors = {k: torch.from_numpy(v)
+               for k, v in init_params(cfg, seed, VITS_STD).items()}
+    write_checkpoint(path, {"model_type": "vits",
+                            **dataclasses.asdict(cfg)}, tensors)
+    _write_json(Path(path) / "vocab.json",
+                {ch: i for i, ch in enumerate(MMS_VOCAB)})
+    _write_json(Path(path) / "tokenizer_config.json",
+                {"do_lower_case": True, "add_blank": True,
+                 "pad_token": "_"})
+
+
+def phase_vits_parity(root: Path) -> dict:
+    """Card = CPU for VITS at mms-tts-eng's widths from one checkpoint
+    dir: waveforms within 1e-4 at zero noise and at the default noise
+    scales (the draws come from the same CPU generator), and a
+    multi-speaker copy conditioned on a ``SpeakerEncoder`` embedding
+    (embedding within 1e-5, waveform within 1e-4)."""
+    from localai_tpu_torch.audio import speaker as tsp
+    from localai_tpu_torch.audio.vits import VitsConfig, load_hf_vits
+
+    out = {}
+    for sub, cfg in (("mms", VitsConfig()),
+                     ("mms-speakers", VitsConfig(num_speakers=4,
+                                                 speaker_embedding_size=256))):
+        _write_vits_voice(root / sub, cfg, seed=31)
+        card = load_hf_vits(root / sub, "cuda")
+        cpu = load_hf_vits(root / sub, "cpu")
+        emb = None
+        if cfg.num_speakers > 1:
+            ref = _speech_like(3.0, 9)
+            e_card = tsp.SpeakerEncoder(device="cuda").embed(ref)
+            e_cpu = tsp.SpeakerEncoder(device="cpu").embed(ref)
+            if float(np.abs(e_card - e_cpu).max()) > 1e-5:
+                raise AssertionError("speaker embedding card != CPU")
+            emb = tsp.SpeakerEncoder(device="cpu").project(e_cpu, 256)
+        for noise in (0.0, None):
+            kw = {} if noise is None else {"noise_scale": noise,
+                                           "noise_scale_duration": noise}
+            a = card.synthesize(AUDIO_TEXTS[1], speaker_embedding=emb, **kw)
+            b = cpu.synthesize(AUDIO_TEXTS[1], speaker_embedding=emb, **kw)
+            err = (float(np.abs(a - b).max()) if a.shape == b.shape
+                   else float("inf"))
+            if not (np.isfinite(a).all() and err <= 1e-4):
+                raise AssertionError(f"vits {sub} card != CPU: {a.shape} vs "
+                                     f"{b.shape}, {err}")
+            out[f"{sub}-{'zero' if noise == 0 else 'default'}-noise"] = {
+                "max_abs_err": err, "samples": int(a.shape[0]),
+                "frames": card.last_frames}
+    print("vits_parity: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_musicgen_parity() -> dict:
+    """Card = CPU for the MusicGen-class generator (the serving preset,
+    seeded weights drawn on the CPU): greedy codes of 3 s equal, the
+    EnCodec audio within 1e-4."""
+    from localai_tpu_torch.audio.musicgen import MusicGenerator
+
+    card, cpu = MusicGenerator(device="cuda"), MusicGenerator(device="cpu")
+    text = "rain on a tin roof"
+    c_card = card.generate_codes(text, 3.0, temperature=0.0)
+    c_cpu = cpu.generate_codes(text, 3.0, temperature=0.0)
+    if not torch.equal(c_card.cpu(), c_cpu):
+        raise AssertionError("musicgen greedy codes card != CPU")
+    a, b = card.decode(c_card), cpu.decode(c_cpu)
+    err = float(np.abs(a - b).max())
+    if err > 1e-4:
+        raise AssertionError(f"musicgen audio card != CPU: {err}")
+    rec = {"codes": list(c_card.shape), "audio_max_abs_err": err}
+    print("musicgen_parity: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _draw_whisper(cfg, seed: int) -> dict:
+    """Whisper weights in the port's init scheme (gains 1, 1-D leaves 0,
+    the rest N(0, 0.02)), drawn on the card's generator."""
+    from localai_tpu_torch.models import whisper as twh
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(name, shape):
+        if name in twh._GAIN_NAMES:
+            return torch.ones(shape, device="cuda")
+        if len(shape) == 1:
+            return torch.zeros(shape, device="cuda")
+        return torch.randn(shape, generator=g, device="cuda") * 0.02
+
+    return {n: ({k: mk(k, s) for k, s in v.items()} if isinstance(v, dict)
+                else mk(n, v))
+            for n, v in twh.param_shapes(cfg).items()}
+
+
+def _timed(fn, store: list):
+    """``fn`` wrapped: each call's CUDA-event ms (and result) appended."""
+    def run(*args, **kwargs):
+        ms, out = _events_ms(lambda: fn(*args, **kwargs))
+        store.append((ms, out))
+        return out
+    return run
+
+
+def _decode_profile(model, chunk, limit: int = 16) -> dict:
+    """One chunk's KV-cached greedy decode, capped at ``limit`` tokens
+    (the profiler's post-processing grows with its ~900 events a token),
+    under torch.profiler: device busy time over the host wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from localai_tpu_torch.models import whisper as twh
+    from localai_tpu_torch.utils.device import full_f32
+
+    cfg = model.cfg
+    enc = model.encode_chunk(chunk)
+    prompt = [cfg.sot, cfg.lang_base, cfg.token_transcribe,
+              cfg.token_notimestamps]
+    with torch.inference_mode(), full_f32():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ids = twh.decode_greedy(cfg, model.params, prompt, enc, limit)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in ev) / 1e6
+    return {"tokens": len(ids), "wall_ms_per_token": wall * 1e3 / len(ids),
+            "device_busy_ms_per_token": busy * 1e3 / len(ids),
+            "device_idle_share": max(0.0, 1 - busy / wall),
+            "launches_per_token": sum(e.count for e in ev) / len(ids)}
+
+
+def phase_serve_audio(card: str, root: Path) -> dict:
+    """The audio routes through the port's server on the card, from one
+    models dir: ``whisper-large-v3-f32`` (openai/whisper-large-v3's
+    widths and depth, seeded weights written as a float16 checkpoint with
+    a 50257-id byte-level BPE tokenizer.json, loaded from a ``backend:
+    whisper`` YAML and widened to float32) answers multipart
+    transcriptions of a 5-s (verbose_json), a 30-s and a 65-s (3 chunks)
+    recording; ``vits-mms-tts-eng`` answers three ``/v1/audio/speech``
+    requests, a multi-speaker copy one with a reference voice from its
+    ``audio_path`` (the cloning path), the Elevenlabs route and ``/tts``
+    on a ``debug:`` model the parametric voice, and
+    ``/v1/sound-generation`` 3 s and 10 s. Prints load s, peak memory,
+    encoder ms a chunk and decode ms a token (CUDA events around the
+    served calls), tokens a chunk, real-time factors (audio s / wall s)
+    and the device idle share of a chunk's decode (torch.profiler)."""
+    from localai_tpu_torch.api.server import APIServer
+    from localai_tpu_torch.audio import wav as twav
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.models import whisper as twh
+    from localai_tpu_torch.models.loader import write_safetensors
+    from localai_tpu_torch.models.manager import ModelManager
+
+    models = root / "models"
+    models.mkdir()
+    cfg = twh.WhisperConfig.from_hf(WHISPER_LARGE_V3_CONFIG)
+    t0 = time.monotonic()
+    params = _draw_whisper(cfg, seed=41)
+    n_params = sum(t.numel() for v in params.values()
+                   for t in (v.values() if isinstance(v, dict) else [v]))
+    ckpt = root / "whisper-large-v3"
+    ckpt.mkdir()
+    getters = twh.hf_tensors(cfg, params)
+    nbytes = write_safetensors(ckpt / "model.safetensors", [
+        (name, tuple(get().shape), torch.float16, get)
+        for name, get in getters.items()])
+    _write_json(ckpt / "config.json", WHISPER_LARGE_V3_CONFIG)
+    _write_json(ckpt / "tokenizer.json", small_bpe_spec(50257))
+    del params, getters
+    write_s = time.monotonic() - t0
+    (root / "voices").mkdir()
+    (root / "voices" / "alice.wav").write_bytes(
+        twav.write_wav(_speech_like(3.0, 9)))
+    write_models_dir(models, {
+        "stt": f"name: {WHISPER}\nbackend: whisper\nmodel: {ckpt}\n",
+        "mms": f"name: {VITS}\nbackend: vits\nmodel: {root / 'mms'}\n",
+        "clone": (f"name: {VITS_CLONE}\nbackend: vits\nmodel: "
+                  f"{root / 'mms-speakers'}\ntts:\n  audio_path: "
+                  f"{root / 'voices'}\n  voice: alice\n"),
+        "speak": "name: speak\nbackend: tts\nmodel: debug:tts\n"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loader = ConfigLoader(models)
+    loader.load_from_path()
+    manager = ModelManager(AppConfig(model_path=str(models), device="cuda"),
+                           loader)
+    server = APIServer(manager, "127.0.0.1", 0).start()
+    enc_times: list = []
+    dec_times: list = []
+    orig_enc, orig_dec = twh.WhisperModel.encode_chunk, twh.decode_greedy
+    try:
+        t0 = time.monotonic()
+        sm = manager.get_whisper(WHISPER)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        twh.WhisperModel.encode_chunk = _timed(orig_enc, enc_times)
+        twh.decode_greedy = _timed(orig_dec, dec_times)
+        url = server.url
+        stt = []
+        for seconds, fmt, chunks in ((5.0, "verbose_json", 1),
+                                     (30.0, "json", 1), (65.0, "text", 3)):
+            wav = twav.write_wav(_speech_like(seconds, int(seconds)))
+            data, ctype = _multipart({"file": wav, "model": WHISPER,
+                                      "response_format": fmt})
+            n_dec = len(dec_times)
+            t0 = time.monotonic()
+            status, body, rtype = _post_raw(
+                url + "/v1/audio/transcriptions", data, ctype)
+            wall = time.monotonic() - t0
+            if fmt == "text":
+                ok = rtype.startswith("text/plain") and body.endswith(b"\n")
+            else:
+                out = json.loads(body)
+                keys = ({"task", "duration", "text", "segments"}
+                        if fmt == "verbose_json" else {"text", "segments"})
+                ok = set(out) == keys and len(out["segments"]) == chunks
+            toks = [len(ids) for _, ids in dec_times[n_dec:]]
+            if status != 200 or not ok or len(toks) != chunks or max(
+                    toks) > cfg.max_target_positions - 4:
+                raise AssertionError(f"{WHISPER}: {seconds} s {fmt}: "
+                                     f"{status} {body[:200]!r} {toks}")
+            stt.append({"audio_s": seconds, "format": fmt, "wall_s": wall,
+                        "chunks": chunks, "tokens_per_chunk": toks,
+                        "real_time_factor": seconds / wall})
+        twh.WhisperModel.encode_chunk, twh.decode_greedy = orig_enc, orig_dec
+        enc_ms = [ms for ms, _ in enc_times]
+        dec_ms_tok = [ms / max(len(ids), 1) for ms, ids in dec_times]
+        t0 = time.monotonic()
+        prof = _decode_profile(sm.model, _speech_like(30.0, 30))
+        prof["profile_s"] = time.monotonic() - t0
+        whisper_rec = {
+            "params": n_params, "checkpoint_gb_f16": nbytes / 1e9,
+            "write_s": write_s, "load_s": load_s,
+            "peak_gb_after_load": load_peak,
+            "encoder_ms_per_chunk": enc_ms,
+            "decode_ms_per_token": dec_ms_tok, "requests": stt,
+            "decode_profile": prof}
+        manager.shutdown_model(WHISPER, force=True)
+        del sm
+        gc.collect()
+        torch.cuda.empty_cache()
+        tts = []
+        for path, body in (
+                [("/v1/audio/speech", {"model": VITS, "input": t})
+                 for t in AUDIO_TEXTS]
+                + [("/v1/text-to-speech/alice", {"text": AUDIO_TEXTS[1]}),
+                   ("/v1/audio/speech", {"model": VITS_CLONE,
+                                         "input": AUDIO_TEXTS[1]}),
+                   ("/tts", {"model": "speak", "input": AUDIO_TEXTS[1]}),
+                   ("/v1/sound-generation", {"text": "rain on a tin roof",
+                                             "duration_seconds": 3}),
+                   ("/v1/sound-generation", {"text": "wind in the trees",
+                                             "duration_seconds": 10})]):
+            t0 = time.monotonic()
+            r = _post(url + path, body)
+            audio = twav.read_wav(r.read())
+            wall = time.monotonic() - t0
+            rec = {"path": path, "model": body.get("model", ""),
+                   "ms": wall * 1e3, "audio_s": audio.size / 16000,
+                   "real_time_factor": audio.size / 16000 / wall}
+            vits_name = body.get("model") if body.get("model") in (
+                VITS, VITS_CLONE) else None
+            if vits_name:
+                voice = manager.get_vits(vits_name).model
+                ids = len(voice.tokenizer.encode(body["input"]))
+                rec.update(frames=voice.last_frames, ids=ids)
+                if voice.last_frames > VITS_MAX_FRAMES_PER_ID * ids:
+                    raise AssertionError(f"{vits_name}: {voice.last_frames}"
+                                         f" frames for {ids} ids")
+            if (r.headers.get("Content-Type") != "audio/wav"
+                    or not np.isfinite(audio).all() or audio.size < 1600):
+                raise AssertionError(f"{path}: {r.headers} {audio.size}")
+            tts.append(rec)
+        want = [3.0, 10.0]
+        got = [x["audio_s"] for x in tts if "sound" in x["path"]]
+        if got != want:
+            raise AssertionError(f"sound-generation lengths {got} != {want}")
+        return {"whisper": whisper_rec, "speech": tts,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        twh.WhisperModel.encode_chunk, twh.decode_greedy = orig_enc, orig_dec
+        server.shutdown()
+        manager.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_audio(card: str) -> dict:
+    """The audio group: card = CPU for whisper, VITS and MusicGen, then
+    the audio serve; K1–K5 launch never (every count zeroed first). Its
+    command time is printed."""
+    kernels = _all_kernels()
+    for w in kernels.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    root = Path(_scratch_dir("audio-", 5_000_000_000))
+    parity, phase_s = {}, {}
+    try:
+        for name, run in (("whisper", phase_whisper_parity),
+                          ("vits", lambda: phase_vits_parity(root)),
+                          ("musicgen", phase_musicgen_parity),
+                          ("serve", lambda: phase_serve_audio(card, root))):
+            t1 = time.monotonic()
+            parity[name] = run()
+            phase_s[name] = time.monotonic() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _no_launches("the audio group", kernels)
+    serve = parity.pop("serve")
+    rec = {"card": card, "parity": parity, **serve, "phase_s": phase_s,
+           "k1_k5_launches": 0, "group_s": time.monotonic() - t0}
+    print("audio: " + json.dumps(rec), flush=True)
+    return rec
+
+
 def _entry(name, source, replaces, launches, rec) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6282,6 +6716,7 @@ def main() -> int:
     phase_serve_recurrent(card, "mamba")
     phase_serve_recurrent(card, "rwkv")
     phase_encoders(card)
+    phase_audio(card)
     src = "localai_tpu_torch/csrc/"
     k1_src = src + "paged_decode_attention.cu"
     k1_tpu = "localai_tpu/ops/attention.py:458"

@@ -9,12 +9,17 @@ under the JAX package's unversioned alias:
   * POST /v1/embeddings, /embeddings
   * POST /v1/rerank, /rerank
   * POST /v1/tokenize, /tokenize, /backend/monitor, /backend/shutdown
+  * POST /v1/audio/transcriptions (multipart/form-data), /v1/audio/speech,
+    /tts, /v1/text-to-speech/{voice_id}, /v1/sound-generation,
+    /sound-generation (``api.audio``; ``audio/wav`` bodies)
   * GET  /v1/models, /models  (``?filter=<regex>``)
   * GET  /, /healthz, /readyz, /version, /metrics, /system,
     /backend/metrics
   * GET  /v1/traces, /v1/traces/{trace_id}, /debug/timeline/{request_id}
 One thread per connection; each request blocks its own thread on the
-scheduler handle while the engine thread batches all of them.
+scheduler handle while the engine thread batches all of them. A request
+body is read up to ``MAX_BODY_BYTES`` (64 MiB, the JAX package's
+``client_max_size``); a longer one is a 413.
 
 Around every route, as the JAX package's middlewares do: a trace id for
 the request (``X-Trace-ID`` or ``X-Correlation-ID``, else a new one),
@@ -39,6 +44,7 @@ import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from localai_tpu_torch.api import audio
 from localai_tpu_torch.api import inference as inf
 from localai_tpu_torch.api import jina
 from localai_tpu_torch.api import localai as la
@@ -58,19 +64,35 @@ _POST = {"/v1/chat/completions": oa.chat, "/chat/completions": oa.chat,
          "/v1/rerank": jina.rerank, "/rerank": jina.rerank,
          "/v1/tokenize": la.tokenize, "/tokenize": la.tokenize,
          "/backend/monitor": la.backend_monitor,
-         "/backend/shutdown": la.backend_shutdown}
+         "/backend/shutdown": la.backend_shutdown,
+         "/v1/audio/transcriptions": audio.transcriptions,
+         "/v1/audio/speech": audio.speech, "/tts": audio.speech,
+         "/v1/sound-generation": audio.sound_generation,
+         "/sound-generation": audio.sound_generation}
+# POST routes whose body is multipart/form-data (the handler takes the
+# parsed fields), not JSON
+_MULTIPART = {"/v1/audio/transcriptions"}
+MAX_BODY_BYTES = 64 << 20
 _GET = {"/v1/models": oa.list_models, "/models": oa.list_models,
         "/readyz": lambda manager, query: oa.readyz(manager),
         "/healthz": la.healthz, "/version": la.version,
         "/metrics": la.metrics, "/system": la.system,
         "/backend/metrics": la.engine_metrics,
         "/v1/traces": traces.list_traces}
-# GET routes with one path parameter: (pattern, compiled, handler)
-_GET_PARAM = [(pattern, re.compile("^" + re.sub(r"\{\w+\}", "([^/]+)",
-                                                pattern) + "$"), fn)
-              for pattern, fn in (
-                  ("/v1/traces/{trace_id}", traces.trace_detail),
-                  ("/debug/timeline/{request_id}", traces.timeline))]
+
+
+def _param_routes(routes) -> list:
+    """Routes with one path parameter: (pattern, compiled, handler)."""
+    return [(pattern, re.compile("^" + re.sub(r"\{\w+\}", "([^/]+)",
+                                              pattern) + "$"), fn)
+            for pattern, fn in routes]
+
+
+_GET_PARAM = _param_routes((
+    ("/v1/traces/{trace_id}", traces.trace_detail),
+    ("/debug/timeline/{request_id}", traces.timeline)))
+_POST_PARAM = _param_routes((
+    ("/v1/text-to-speech/{voice_id}", audio.elevenlabs_tts),))
 # paths reachable without an API key (the JAX package's AUTH_EXEMPT; the
 # web UI's own exemptions come with the UI, ROADMAP item 22)
 AUTH_EXEMPT = {"/", "/healthz", "/readyz", "/version", "/swagger",
@@ -89,7 +111,7 @@ def welcome(manager, query) -> dict:
     ROADMAP item 22)."""
     return {"message": "LocalAI-TPU", "models": manager.loader.names(),
             "endpoints": sorted({"/", *_POST, *_GET,
-                                 *(p for p, _, _ in _GET_PARAM)})}
+                                 *(p for p, _, _ in _GET_PARAM + _POST_PARAM)})}
 
 
 _GET["/"] = welcome
@@ -101,11 +123,12 @@ def _route(method: str, path: str):
     table = _POST if method == "POST" else _GET if method == "GET" else {}
     if path in table:
         return path, table[path], ()
-    if method == "GET":
-        for pattern, rx, fn in _GET_PARAM:
-            m = rx.match(path)
-            if m:
-                return pattern, fn, (urllib.parse.unquote(m.group(1)),)
+    params = (_GET_PARAM if method == "GET" else _POST_PARAM
+              if method == "POST" else [])
+    for pattern, rx, fn in params:
+        m = rx.match(path)
+        if m:
+            return pattern, fn, (urllib.parse.unquote(m.group(1)),)
     return None
 
 
@@ -217,13 +240,17 @@ class _Handler(BaseHTTPRequestHandler):
                 obs_trace.STORE.record(tr)
 
     def _reply(self, out) -> None:
-        """A handler's answer: a dict as JSON, a str as OpenMetrics text,
-        else an iterator of SSE frames."""
+        """A handler's answer: a dict as JSON, a str as plain text
+        (OpenMetrics, a text transcript), a (content type, bytes) pair as
+        that body, else an iterator of SSE frames."""
         if isinstance(out, dict):
             return self._json(200, out)
         if isinstance(out, str):
             return self._send(200, out.encode("utf-8"),
                               "text/plain; charset=utf-8")
+        if isinstance(out, tuple):
+            ctype, body = out
+            return self._send(200, body, ctype)
         # SSE: HTTP/1.0 semantics — the stream ends when the connection
         # closes, so no length or chunking is needed
         self.send_response(200)
@@ -270,15 +297,29 @@ class _Handler(BaseHTTPRequestHandler):
         def serve(path, route):
             if route is None:
                 return self._error(404, f"no route {self.path}")
+            canonical, fn, params = route
             try:
                 n = int(self.headers.get("Content-Length") or 0)
-                body = json.loads(self.rfile.read(n) or b"{}")
-                if not isinstance(body, dict):
-                    raise ValueError("body must be a JSON object")
+            except ValueError:
+                return self._error(400, "invalid Content-Length")
+            if n > MAX_BODY_BYTES:
+                return self._error(413, f"request body of {n} bytes is "
+                                        f"over {MAX_BODY_BYTES}")
+            raw = self.rfile.read(n)
+            try:
+                if canonical in _MULTIPART:
+                    body = audio.parse_multipart(
+                        self.headers.get("Content-Type", ""), raw)
+                else:
+                    body = json.loads(raw or b"{}")
+                    if not isinstance(body, dict):
+                        raise ValueError("body must be a JSON object")
+            except oa.APIError as e:
+                return self._error(e.status, e.message)
             except ValueError as e:
                 return self._error(400, f"invalid JSON body: {e}")
             try:
-                out = route[1](self.server.manager, body)
+                out = fn(self.server.manager, body, *params)
             except oa.APIError as e:
                 return self._error(e.status, e.message)
             except (ValueError, TypeError) as e:

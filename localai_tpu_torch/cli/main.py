@@ -9,12 +9,18 @@ Port of ``localai_tpu/cli/main.py`` for what the port has:
   util scan                  pickle-format weights under the models dir
   util usecase-heuristic M   the usecases a model config serves
   util convert GGUF [OUT]    a GGUF checkpoint → a checkpoint dir
+  tts TEXT...                synthesize speech to a wav file
+  transcript FILE            transcribe a wav file
+  sound-generation TEXT...   generate audio from a text description
   version
 
 ``run`` takes the JAX package's flags with their defaults, each also read
 from ``LOCALAI_<NAME>`` (``_env_default``), then builds the settings as
 the JAX package does: ``AppConfig.from_env`` overridden by the flags.
-``--device cpu`` is the port's own (the card is the default). A flag or
+``--device cpu`` is the port's own (the card is the default), and so is
+it on ``tts``, ``transcript`` and ``sound-generation``, which take the
+JAX package's flags: the JAX package runs those three on the CPU
+(``JAX_PLATFORMS=cpu``), the port on the card unless asked. A flag or
 variable of a feature the port has not yet (SLO shedding, the batch
 lane, fleets, autoscaling, meshes, the JAX platform) stops
 ``run`` with exit code 2 and the ROADMAP item that brings it; none is
@@ -204,8 +210,102 @@ def build_parser() -> argparse.ArgumentParser:
     cv.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32", "float16"])
 
+    # the audio subcommands: the JAX package's flags, and --device
+    def device_flag(parser) -> None:
+        parser.add_argument(
+            "--device", default=os.environ.get("LOCALAI_DEVICE", "cuda"),
+            choices=("cuda", "cpu"),
+            help="the card (default), or the CPU")
+
+    tts = sub.add_parser("tts", help="synthesize speech to a wav file")
+    tts.add_argument("text", nargs="+")
+    tts.add_argument("--model", "-m", default="")
+    tts.add_argument("--voice", "-v", default="alloy")
+    tts.add_argument("--language", "-l", default="")
+    tts.add_argument("--output-file", "-o", default="tts.wav")
+    tts.add_argument("--models-path", default=_env_default(
+        "models_path", "models"))
+    device_flag(tts)
+
+    tr = sub.add_parser("transcript", help="transcribe a wav file")
+    tr.add_argument("filename")
+    tr.add_argument("--model", "-m", default="")
+    tr.add_argument("--language", "-l", default="")
+    tr.add_argument("--translate", action="store_true")
+    tr.add_argument("--models-path", default=_env_default(
+        "models_path", "models"))
+    device_flag(tr)
+
+    sg = sub.add_parser("sound-generation",
+                        help="generate audio from a text description")
+    sg.add_argument("text", nargs="+")
+    sg.add_argument("--model", "-m", default="")
+    sg.add_argument("--duration", "-d", type=float, default=3.0)
+    sg.add_argument("--output-file", "-o", default="sound.wav")
+    device_flag(sg)
+
     sub.add_parser("version", help="print version")
     return p
+
+
+def _run_audio(cmd: str, args, parser) -> int:
+    """``tts``, ``transcript`` and ``sound-generation``, as the JAX
+    package runs them, on ``args.device``."""
+    from localai_tpu_torch.audio import read_wav, write_wav
+
+    resolve_device(args.device)
+    if cmd == "tts":
+        from localai_tpu_torch.audio.tts import synthesize
+
+        voice = args.voice
+        if args.model:
+            loader = ConfigLoader(args.models_path)
+            loader.load_from_path()
+            mcfg = loader.get(args.model)
+            if mcfg is not None and mcfg.tts.voice:
+                voice = mcfg.tts.voice
+        samples = synthesize(" ".join(args.text), voice=voice,
+                             device=args.device)
+        Path(args.output_file).write_bytes(write_wav(samples))
+        print(args.output_file)
+        return 0
+    if cmd == "sound-generation":
+        from localai_tpu_torch.audio.tts import generate_sound
+
+        samples = generate_sound(" ".join(args.text),
+                                 duration=args.duration, device=args.device)
+        Path(args.output_file).write_bytes(write_wav(samples))
+        print(args.output_file)
+        return 0
+    from localai_tpu_torch.models import whisper as wh
+
+    loader = ConfigLoader(args.models_path)
+    loader.load_from_path()
+    name = args.model
+    if not name:
+        name = next((n for n in loader.names()
+                     if loader.get(n).has_usecase("transcript")), "")
+    mcfg = loader.get(name) if name else None
+    ref = (mcfg.model if mcfg else name) or name
+    if not ref:
+        parser.error("no transcription model configured; pass --model")
+    if ref.startswith("debug:"):
+        model = wh.debug_model(device=args.device)
+    else:
+        for cand in (Path(ref), Path(args.models_path) / ref):
+            if (cand / "config.json").exists():
+                model = wh.load_hf_whisper(cand, device=args.device)
+                break
+        else:
+            parser.error(f"whisper model {ref!r} not found")
+    audio = read_wav(Path(args.filename).read_bytes())
+    result = model.transcribe(audio, language=args.language or None,
+                              translate=args.translate)
+    for seg in result.get("segments", []):
+        print(f"[{seg['start']:7.2f}s → {seg['end']:7.2f}s] "
+              f"{seg['text']}")
+    print(result.get("text", ""))
+    return 0
 
 
 def _unported_settings(args) -> list[str]:
@@ -417,6 +517,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 0
     if cmd == "util":
         return _run_util(args, parser)
+    if cmd in ("tts", "transcript", "sound-generation"):
+        return _run_audio(cmd, args, parser)
     parser.error(f"unknown command {cmd!r}")
     return 2
 

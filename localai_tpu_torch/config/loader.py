@@ -5,8 +5,8 @@ dirs). Files are read by the port's own YAML reader
 (``config.yaml_subset``, PyYAML's ``safe_load`` meaning, stdlib only), in
 every environment. Each config then goes through backend and chat-default
 autodetection (``models.detect.autodetect_config``), as on the JAX
-package; a detected backend the port has no engine for (whisper, vits,
-diffusers) is refused, naming it.
+package; a detected backend the port has no engine for (diffusers) is
+refused, naming it.
 """
 
 from __future__ import annotations

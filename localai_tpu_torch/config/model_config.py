@@ -23,9 +23,11 @@ speculative decoding (``engine.spec``, ``spec_drafter``, ``spec_gamma``,
 JAX package), a vision tower (``mmproj``: a llava checkpoint directory
 or ``debug:vit``; ``image_token_id``), the cross-encoder and sentence
 encoder (``backend: reranker | bert-embeddings | sentencetransformers``),
-the recurrent-state engine (``backend: mamba | rwkv``) and the remote-API
+the recurrent-state engine (``backend: mamba | rwkv``), the remote-API
 client (``backend: huggingface | langchain-huggingface`` with
-``api_token`` and ``api_base``) are served.
+``api_token`` and ``api_base``), speech-to-text (``backend: whisper``)
+and VITS voices (``backend: vits``, with a ``tts:`` section,
+:class:`TTSConfig`) are served.
 """
 
 from __future__ import annotations
@@ -41,16 +43,14 @@ USECASES = ("chat", "completion", "edit", "embeddings", "image",
             "transcript", "tts", "sound_generation", "rerank", "tokenize",
             "vision")
 # the usecases the port serves
-SERVED_USECASES = ("chat", "completion", "edit", "embeddings", "rerank")
+SERVED_USECASES = ("chat", "completion", "edit", "embeddings", "transcript",
+                   "tts", "sound_generation", "rerank")
 # backend names served by the LLM engine (the JAX package's list)
 LLM_BACKENDS = ("", "jax", "jax-llm", "transformers", "worker",
                 "huggingface", "langchain-huggingface", "mamba", "rwkv")
 # backends whose engines the port has not ported: served by the llama
 # runner they would answer with another model
 UNPORTED_BACKENDS = {
-    "whisper": "the speech-to-text engine (ROADMAP A9: models/whisper.py, "
-               "audio/mel.py)",
-    "vits": "the text-to-speech engine (ROADMAP A9: audio/vits.py)",
     "diffusers": "the image pipeline (ROADMAP A10: image/)",
 }
 
@@ -126,6 +126,25 @@ class FunctionsConfig:
         default_factory=list)
     capture_llm_results: list[str] = dataclasses.field(default_factory=list)
     grammar: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class TTSConfig:
+    """The ``tts:`` section (the JAX package's TTSConfig): the default
+    ``voice`` and a reference recording for cloning (``audio_path``: a wav
+    file, or a directory of ``<voice>.wav``, relative to the models dir
+    unless absolute). Other keys are kept in ``extra``, as the JAX
+    package's model keeps them."""
+
+    voice: Optional[str] = None
+    audio_path: Optional[str] = None
+    extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, data: Optional[dict]) -> "TTSConfig":
+        data = dict(data or {})
+        return cls(voice=data.pop("voice", None),
+                   audio_path=data.pop("audio_path", None), extra=data)
 
 
 @dataclasses.dataclass
@@ -214,6 +233,7 @@ class ModelConfig:
     template: TemplateConfig = dataclasses.field(
         default_factory=TemplateConfig)
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+    tts: TTSConfig = dataclasses.field(default_factory=TTSConfig)
 
     def __post_init__(self) -> None:
         if self.f16 is False:  # the JAX package's _apply_compat
@@ -231,6 +251,7 @@ class ModelConfig:
                 **_pick(EngineConfig, data.pop("engine", None))),
             "function": FunctionsConfig(
                 **_pick(FunctionsConfig, data.pop("function", None))),
+            "tts": TTSConfig.from_dict(data.pop("tts", None)),
         }
         cfg = cls(**_pick(cls, data), **sub)
         cfg.check_supported()

@@ -27,7 +27,10 @@ builds the recurrent-state engine (``models/mamba_serving.py``) and
 (``models/hf_api.py``); cross-encoders and sentence encoders
 (``models/reranker.py``) load through ``get_reranker`` /
 ``get_embedder`` into :class:`RerankServingModel` /
-:class:`EmbeddingServingModel`. Every kind shares one registry, so
+:class:`EmbeddingServingModel`, and whisper and VITS voices
+(``models/whisper.py``, ``audio/vits.py``) through ``get_whisper`` /
+``get_vits`` into :class:`AudioServingModel`. Every kind shares one
+registry, so
 eviction, the watchdog, ``shutdown_model`` and preload treat them alike;
 a name asked for as another kind is reloaded (when idle). The
 self-healing supervisor is not ported yet.
@@ -161,6 +164,58 @@ class EmbeddingServingModel(_EncoderServingModel):
         """(vectors, total input tokens)."""
         out = self._call("embed_with_usage", texts)
         self.embedded += len(texts)
+        return out
+
+
+@dataclasses.dataclass
+class AudioServingModel:
+    """A loaded whisper or VITS model under the manager's lifecycle
+    (watchdog, eviction, ``/backend/monitor``): the JAX package's
+    ``AudioServingModel``."""
+
+    name: str
+    config: ModelConfig
+    model: Any                        # WhisperModel | VitsTTS
+    kind: str = "whisper"             # "whisper" | "vits"
+    loaded_at: float = dataclasses.field(default_factory=time.monotonic)
+    last_used: float = dataclasses.field(default_factory=time.monotonic)
+    _inflight: int = 0
+    _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+    served: int = 0
+
+    def touch(self) -> None:
+        self.last_used = time.monotonic()
+
+    @property
+    def busy(self) -> bool:
+        with self._lock:
+            return self._inflight > 0
+
+    def alive(self) -> bool:
+        return self.model is not None
+
+    def close(self) -> None:
+        self.model = None
+
+    def engine_metrics(self) -> dict:
+        return {"type": self.kind, "requests_served": self.served}
+
+    def run(self, fn_name: str, *args, **kwargs):
+        """Invoke a model method with busy accounting (watchdog-visible);
+        snapshots the model so a concurrent eviction cannot drop it
+        mid-request."""
+        model = self.model
+        if model is None:
+            raise RuntimeError(f"{self.kind} model {self.name} was evicted")
+        with self._lock:
+            self._inflight += 1
+        try:
+            out = getattr(model, fn_name)(*args, **kwargs)
+        finally:
+            with self._lock:
+                self._inflight -= 1
+        self.served += 1
+        self.touch()
         return out
 
 
@@ -345,6 +400,14 @@ class ModelManager:
         """Load-or-get a BERT-class sentence encoder."""
         return self._get_typed(name, self._load_embedder, "embed")
 
+    def get_whisper(self, name: str) -> AudioServingModel:
+        """Load-or-get a whisper speech-to-text model."""
+        return self._get_typed(name, self._load_whisper, "whisper")
+
+    def get_vits(self, name: str) -> AudioServingModel:
+        """Load-or-get a VITS voice."""
+        return self._get_typed(name, self._load_vits, "vits")
+
     def is_embedder(self, mcfg: ModelConfig) -> bool:
         """``/v1/embeddings`` goes to the sentence encoder for
         ``backend: bert-embeddings | sentencetransformers`` (set in the
@@ -401,6 +464,7 @@ class ModelManager:
     def _kind(sm: Any) -> str:
         return ("rerank" if isinstance(sm, RerankServingModel)
                 else "embed" if isinstance(sm, EmbeddingServingModel)
+                else sm.kind if isinstance(sm, AudioServingModel)
                 else "llm")
 
     def _cached(self, name: str, kind: str) -> Optional[Any]:
@@ -464,6 +528,41 @@ class ModelManager:
         return EmbeddingServingModel(name=mcfg.name, config=mcfg,
                                      encoder=enc)
 
+    def _checkpoint_dir(self, ref: str, what: str) -> Path:
+        """A checkpoint ref (a path, or a name under the models dir) → its
+        directory with a ``config.json``."""
+        for cand in (Path(ref), Path(self.app.model_path) / ref):
+            if (cand / "config.json").exists():
+                return cand
+        raise FileNotFoundError(f"{what} model {ref!r} not found")
+
+    def _load_whisper(self, mcfg: ModelConfig) -> AudioServingModel:
+        from localai_tpu_torch.models import whisper as wh
+
+        ref = mcfg.model or mcfg.name
+        t0 = time.monotonic()
+        if ref.startswith("debug:"):
+            model = wh.debug_model(mcfg.seed or 0, device=self.app.device)
+        else:
+            model = wh.load_hf_whisper(self._checkpoint_dir(ref, "whisper"),
+                                       device=self.app.device)
+        log.info("loaded whisper %s in %.1fs", mcfg.name,
+                 time.monotonic() - t0)
+        return AudioServingModel(name=mcfg.name, config=mcfg, model=model,
+                                 kind="whisper")
+
+    def _load_vits(self, mcfg: ModelConfig) -> AudioServingModel:
+        from localai_tpu_torch.audio.vits import load_hf_vits
+
+        ref = mcfg.model or mcfg.name
+        t0 = time.monotonic()
+        model = load_hf_vits(self._checkpoint_dir(ref, "vits"),
+                             device=self.app.device)
+        log.info("loaded vits voice %s in %.1fs", mcfg.name,
+                 time.monotonic() - t0)
+        return AudioServingModel(name=mcfg.name, config=mcfg, model=model,
+                                 kind="vits")
+
     def preload(self) -> None:
         """Load ``load_to_memory`` (else ``preload_models``) now, as the
         JAX package's ``serve`` does. A name no config has is a gallery
@@ -481,10 +580,15 @@ class ModelManager:
                 log.warning("eager load of %s failed: %s", name, e)
 
     def _preload(self, name: str) -> None:
-        """Load a model as the kind its config routes to: a cross-encoder
-        or sentence encoder through its typed get, else ``get``."""
+        """Load a model as the kind its config routes to: a cross-encoder,
+        sentence encoder, whisper model or VITS voice through its typed
+        get, else ``get``."""
         mcfg = self.loader.get(name)
-        if mcfg is not None and self.is_embedder(mcfg):
+        if mcfg is not None and mcfg.backend == "whisper":
+            self.get_whisper(name)
+        elif mcfg is not None and mcfg.backend == "vits":
+            self.get_vits(name)
+        elif mcfg is not None and self.is_embedder(mcfg):
             self.get_embedder(name)
         elif mcfg is not None and self.is_reranker(mcfg):
             self.get_reranker(name)

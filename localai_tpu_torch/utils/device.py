@@ -6,7 +6,9 @@ The port runs on the card by default. A caller that wants the CPU says so
 
 from __future__ import annotations
 
-from typing import Any
+import contextlib
+import threading
+from typing import Any, Iterator
 
 import numpy as np
 import torch
@@ -43,3 +45,35 @@ def params_from_numpy(tree: Any, device: str | torch.device = "cuda") -> Any:
         return torch.from_numpy(a).to(device)
 
     return conv(tree)
+
+
+_f32_lock = threading.Lock()
+_f32_depth = 0
+_f32_saved: tuple = ()
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """Float32 convs and matmuls in full float32 on the card for the
+    duration: cuDNN's TF32 (on by default) and cuBLAS's are turned off,
+    and restored when the last of any concurrent holders leaves (a count,
+    so two requests on two threads cannot restore under each other). The
+    audio models are float32 in the JAX package, where a float32 product
+    is a float32 product. The flags are process-wide: a float32 product
+    of another model that runs meanwhile is exact too."""
+    global _f32_depth, _f32_saved
+    with _f32_lock:
+        if _f32_depth == 0:
+            _f32_saved = (torch.backends.cudnn.allow_tf32,
+                          torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _f32_depth += 1
+    try:
+        yield
+    finally:
+        with _f32_lock:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _f32_saved

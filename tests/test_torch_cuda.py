@@ -1350,3 +1350,81 @@ def test_cuda_selfextend_runner_matches_the_cpu(kv):
                 tops.prefill_attention.launches) == before
         out[dev] = toks
     assert out["cuda"] == out["cpu"]
+
+
+# -- speech and sound: no kernel of the port on these paths; card = CPU ------
+
+
+def _speech_like(seconds: float, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    x = 0.3 * np.sin(2 * np.pi * np.cumsum(120 + 30 * np.sin(
+        2 * np.pi * 0.7 * t)) / 16000)
+    return (x + 0.02 * rng.normal(size=t.size)).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_matches_the_cpu():
+    """A float32 whisper with large-v3's mel bins and vocabulary: encoder
+    states within 1e-4 of their largest value, greedy ids equal per
+    chunk, TF32 off inside the model and restored after."""
+    _card()
+    from localai_tpu_torch.audio import mel as tmel
+    from localai_tpu_torch.models import whisper as twh
+
+    cfg = twh.WhisperConfig(n_mels=128, d_model=256, n_heads=4,
+                            n_enc_layers=3, n_dec_layers=3, d_ff=1024,
+                            vocab_size=51866, max_target_positions=64)
+    params = twh.init_params(cfg, seed=3, device="cpu")
+    cpu = twh.WhisperModel(cfg, params, device="cpu")
+    card = twh.WhisperModel(cfg, {k: ({kk: vv.cuda() for kk, vv in v.items()}
+                                      if isinstance(v, dict) else v.cuda())
+                                  for k, v in params.items()},
+                            device="cuda")
+    before = torch.backends.cudnn.allow_tf32
+    for chunk in tmel.chunk_audio(_speech_like(40.0)):
+        a, b = card.encode_chunk(chunk).cpu(), cpu.encode_chunk(chunk)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+        assert card.transcribe_chunk(chunk) == cpu.transcribe_chunk(chunk)
+    assert torch.backends.cudnn.allow_tf32 == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speakers", [1, 4])
+def test_cuda_vits_matches_the_cpu(speakers):
+    """mms-tts-eng's widths (the VitsConfig defaults), seeded weights:
+    the waveform within 1e-4 at zero and at the default noise (drawn from
+    the same CPU generator), single- and multi-speaker."""
+    _card()
+    from localai_tpu_torch.audio import vits as tv
+
+    cfg = tv.VitsConfig(num_speakers=speakers,
+                        speaker_embedding_size=256 if speakers > 1 else 0)
+    state = tv.init_params(cfg, seed=5)
+    ids = np.asarray([[0, 5, 0, 9, 0, 3, 0, 17, 0, 2, 0]], np.int64)
+    emb = (np.random.default_rng(0).normal(size=256).astype(np.float32)
+           if speakers > 1 else None)
+    out = []
+    for dev in ("cuda", "cpu"):
+        voice = tv.VitsTTS(cfg, tv._P(state, dev), None)
+        out.append([voice._forward(
+            ids, np.ones(ids.shape, np.float32), noise_scale=n,
+            noise_scale_duration=n, speaking_rate=1.0, speaker_id=None,
+            seed=7, speaker_embedding=emb) for n in (0.0, 0.667)])
+    for a, b in zip(*out):
+        assert a.shape == b.shape
+        assert float(np.abs(a - b).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_musicgen_matches_the_cpu():
+    """The serving preset: greedy codes equal, EnCodec audio within
+    1e-4."""
+    _card()
+    from localai_tpu_torch.audio.musicgen import MusicGenerator
+
+    card, cpu = MusicGenerator(device="cuda"), MusicGenerator(device="cpu")
+    a = card.generate_codes("rain", 1.0, temperature=0.0)
+    b = cpu.generate_codes("rain", 1.0, temperature=0.0)
+    assert torch.equal(a.cpu(), b)
+    assert float(np.abs(card.decode(a) - cpu.decode(b)).max()) <= 1e-4

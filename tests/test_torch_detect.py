@@ -9,8 +9,8 @@ hold a ``classifier.weight``), and for an LLM the checkpoint's own
 and stopwords. Each tiny checkpoint dir here is written by the test; the
 port must set the same ``backend``, ``chat_template`` and ``stopwords``
 as ``autodetect_config`` of the JAX package. A detected backend the port
-has no engine for (whisper, vits, diffusers) is refused when the config
-loads, naming it.
+has no engine for (diffusers) is refused when the config loads, naming
+it.
 """
 
 import json
@@ -144,19 +144,24 @@ def _write_yaml(models, name, doc):
 
 @pytest.mark.parametrize("family,backend", [
     ("mamba", "mamba"), ("rwkv", "rwkv"), ("whisper", "whisper"),
-    ("vits", "vits"), ("bert", "bert-embeddings")])
+    ("vits", "vits"), ("bert", "bert-embeddings"),
+    ("diffusers", "diffusers")])
 def test_detected_unported_backend_is_refused_at_load(tmp_path, family,
                                                       backend):
     """The JAX package routes these checkpoints to another engine. The
-    port has the recurrent engine (mamba, rwkv) and the sentence encoder
-    (bert) now, so those YAMLs load with the detected backend, as on the
-    JAX package; it has no speech engine, so the loader still refuses
-    whisper and vits, naming the backend."""
-    _checkpoint(tmp_path, "ckpt", FAMILY_CONFIGS[family],
-                classifier=False if family == "bert" else None)
+    port has the recurrent engine (mamba, rwkv), the sentence encoder
+    (bert) and the speech engines (whisper, vits) now, so those YAMLs load
+    with the detected backend, as on the JAX package; it has no image
+    pipeline, so the loader still refuses a diffusers layout, naming the
+    backend."""
+    d = _checkpoint(tmp_path, "ckpt",
+                    FAMILY_CONFIGS.get(family, {"model_type": "llama"}),
+                    classifier=False if family == "bert" else None)
+    if family == "diffusers":
+        (d / "model_index.json").write_text("{}")
     _write_yaml(tmp_path, "m", {"name": "m", "model": "ckpt"})
     loader = ConfigLoader(tmp_path)
-    if family in ("whisper", "vits"):
+    if family == "diffusers":
         with pytest.raises(ValueError, match=f"backend '{backend}'"):
             loader.load_from_path()
         return

@@ -177,6 +177,24 @@ def test_selfextend_and_promptcache_modules_are_covered():
     assert {"engine/selfextend.py", "engine/promptcache.py"} <= rel
 
 
+def test_audio_modules_are_covered():
+    """Speech and sound (wav I/O, the mel frontend, whisper, VITS, the
+    speaker encoder, the parametric voice, MusicGen and their routes) are
+    among the modules and sources the rules above check: nothing of
+    ``jax`` or ``localai_tpu``, and only the stdlib, numpy and torch at
+    module level (scipy's resampler is imported inside ``read_wav``)."""
+    mods = set(_port_modules())
+    for m in ("audio", "audio.wav", "audio.mel", "audio.vits",
+              "audio.speaker", "audio.tts", "audio.musicgen",
+              "models.whisper", "api.audio"):
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    assert {"audio/wav.py", "audio/mel.py", "audio/vits.py",
+            "audio/speaker.py", "audio/tts.py", "audio/musicgen.py",
+            "models/whisper.py", "api/audio.py"} <= rel
+
+
 @pytest.mark.parametrize("path", [p for p in SOURCES
                                   if p.parent != REPO / "scripts"],
                          ids=lambda p: p.name if p.parent == REPO else
