@@ -227,6 +227,27 @@ Phases (any failure raises and the script exits non-zero):
      and answers from it; the cold and warm TTFT, the entry's bytes, the
      writer's store ms, the lookup and load ms, and how many of the five
      texts equal the speculating cache-less server's).
+ 11. image generation (after the audio group), which launches none of
+     K1–K5 (asserted): ``image_parity`` holds the card to the CPU in
+     float32 at debug widths on the SD-1 layout (1x1 proj_in, one
+     encoder, a ControlNet) and the SDXL layout (1 and 2 transformer
+     blocks by level, heads per level, two encoders, text_time): UNet
+     eps, VAE decode and encode, CLIP states and pooled output within
+     1e-4 of the largest output, 4-step generations (euler_a, dpmpp_2m)
+     with latents within 1e-4 and pixels within 1; then
+     ``sdxl-base-1.0-bf16``: SDXL base 1.0's published configs (3.47 B
+     params) drawn in bf16 on the card, written as a diffusers directory
+     with CLIP-format tokenizers, served from a ``backend: diffusers``
+     YAML: two 1024x1024 images of 20 steps (``b64_json``, then ``url``
+     fetched back), PNGs decoded at the requested size, latents finite,
+     one bf16 UNet step within 2e-2 of float32 and one CFG step
+     profiled; then SD-1.5's widths served twice, with a rank-8 kohya
+     LoRA at 0.8 (99 merges asserted) and with a ControlNet of
+     sd-controlnet-canny's config given an edge image in ``file``: two
+     512x512 images each. It prints load and write seconds, bytes, peak
+     memory, text-encode / UNet-step / VAE-decode ms (CUDA events),
+     seconds an image, images a minute, the profiled step's launches
+     and idle share, and its own seconds.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -236,6 +257,8 @@ Exits non-zero without a result when no CUDA device is visible.
 
 from __future__ import annotations
 
+import base64
+import dataclasses
 import gc
 import json
 import re
@@ -6626,6 +6649,676 @@ def phase_audio(card: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# image generation (the SD-1.x / SDXL UNet pipeline)
+
+SDXL_BASE = "sdxl-base-1.0-bf16"
+SD15_LORA = "sd-1.5-bf16-lora"
+SD15_CN = "sd-1.5-bf16-controlnet"
+# the request sizes and steps of the image serves
+SDXL_SIZE, SD15_SIZE, IMAGE_STEPS = 1024, 512, 20
+CLIP_VOCAB = 49408
+_CLIP_DOWN = ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"]
+# stabilityai/stable-diffusion-xl-base-1.0's unet/, vae/, text_encoder/
+# and text_encoder_2/ config.json, as published
+SDXL_UNET_CONFIG = {
+    "_class_name": "UNet2DConditionModel", "act_fn": "silu",
+    "addition_embed_type": "text_time", "addition_embed_type_num_heads": 64,
+    "addition_time_embed_dim": 256, "attention_head_dim": [5, 10, 20],
+    "block_out_channels": [320, 640, 1280], "center_input_sample": False,
+    "class_embed_type": None, "conv_in_kernel": 3, "conv_out_kernel": 3,
+    "cross_attention_dim": 2048,
+    "down_block_types": ["DownBlock2D", "CrossAttnDownBlock2D",
+                         "CrossAttnDownBlock2D"],
+    "downsample_padding": 1, "flip_sin_to_cos": True, "freq_shift": 0,
+    "in_channels": 4, "layers_per_block": 2,
+    "mid_block_type": "UNetMidBlock2DCrossAttn", "norm_eps": 1e-05,
+    "norm_num_groups": 32, "num_attention_heads": None, "out_channels": 4,
+    "projection_class_embeddings_input_dim": 2816, "sample_size": 128,
+    "transformer_layers_per_block": [1, 2, 10],
+    "up_block_types": ["CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+                       "UpBlock2D"],
+    "use_linear_projection": True}
+SDXL_VAE_CONFIG = {
+    "_class_name": "AutoencoderKL", "act_fn": "silu",
+    "block_out_channels": [128, 256, 512, 512],
+    "down_block_types": ["DownEncoderBlock2D"] * 4, "force_upcast": True,
+    "in_channels": 3, "latent_channels": 4, "layers_per_block": 2,
+    "norm_num_groups": 32, "out_channels": 3, "sample_size": 1024,
+    "scaling_factor": 0.13025, "up_block_types": ["UpDecoderBlock2D"] * 4}
+CLIP_L_CONFIG = {
+    "architectures": ["CLIPTextModel"], "attention_dropout": 0.0,
+    "bos_token_id": 0, "dropout": 0.0, "eos_token_id": 2,
+    "hidden_act": "quick_gelu", "hidden_size": 768,
+    "initializer_factor": 1.0, "initializer_range": 0.02,
+    "intermediate_size": 3072, "layer_norm_eps": 1e-05,
+    "max_position_embeddings": 77, "model_type": "clip_text_model",
+    "num_attention_heads": 12, "num_hidden_layers": 12, "pad_token_id": 1,
+    "projection_dim": 768, "torch_dtype": "float16", "vocab_size": 49408}
+SDXL_TEXT2_CONFIG = {
+    **CLIP_L_CONFIG, "architectures": ["CLIPTextModelWithProjection"],
+    "hidden_act": "gelu", "hidden_size": 1280, "intermediate_size": 5120,
+    "num_attention_heads": 20, "num_hidden_layers": 32,
+    "projection_dim": 1280}
+# stable-diffusion-v1-5/stable-diffusion-v1-5's unet/ and vae/ (its
+# text_encoder/ is CLIP_L_CONFIG), and lllyasviel/sd-controlnet-canny's
+SD15_UNET_CONFIG = {
+    "_class_name": "UNet2DConditionModel", "act_fn": "silu",
+    "attention_head_dim": 8, "block_out_channels": [320, 640, 1280, 1280],
+    "center_input_sample": False, "cross_attention_dim": 768,
+    "down_block_types": _CLIP_DOWN, "downsample_padding": 1,
+    "flip_sin_to_cos": True, "freq_shift": 0, "in_channels": 4,
+    "layers_per_block": 2, "mid_block_scale_factor": 1, "norm_eps": 1e-05,
+    "norm_num_groups": 32, "out_channels": 4, "sample_size": 64,
+    "up_block_types": ["UpBlock2D"] + ["CrossAttnUpBlock2D"] * 3}
+SD15_VAE_CONFIG = {**SDXL_VAE_CONFIG, "sample_size": 512,
+                   "scaling_factor": 0.18215}
+SD15_VAE_CONFIG.pop("force_upcast")
+CANNY_CONFIG = {
+    "_class_name": "ControlNetModel", "act_fn": "silu",
+    "attention_head_dim": 8, "block_out_channels": [320, 640, 1280, 1280],
+    "class_embed_type": None,
+    "conditioning_embedding_out_channels": [16, 32, 96, 256],
+    "controlnet_conditioning_channel_order": "rgb",
+    "cross_attention_dim": 768, "down_block_types": _CLIP_DOWN,
+    "downsample_padding": 1, "flip_sin_to_cos": True, "freq_shift": 0,
+    "in_channels": 4, "layers_per_block": 2, "mid_block_scale_factor": 1,
+    "norm_eps": 1e-05, "norm_num_groups": 32, "num_class_embeds": None,
+    "only_cross_attention": False,
+    "projection_class_embeddings_input_dim": None,
+    "resnet_time_scale_shift": "default", "upcast_attention": False,
+    "use_linear_projection": False}
+IMAGE_PROMPTS = ["a lighthouse on a cliff at dusk, oil painting",
+                 "a red fox in fresh snow|blurry, low quality"]
+
+
+def _clip_fill(vocab: dict, merges: list, limit: int) -> None:
+    """Merges of two tokens in a fixed order (``_fill_merges``'s
+    diagonals) until the vocabulary holds ``limit``: a head is a token
+    without ``</w>`` (a word ends only once)."""
+    toks = list(vocab)
+    heads = [t for t in toks if not t.endswith("</w>")]
+    s = 0
+    while len(vocab) < limit:
+        for i in range(max(0, s - len(toks) + 1), min(s + 1, len(heads))):
+            a, b = heads[i], toks[s - i]
+            new = a + b
+            if new in vocab:
+                continue
+            merges.append(f"{a} {b}")
+            vocab[new] = len(vocab)
+            toks.append(new)
+            if not new.endswith("</w>"):
+                heads.append(new)
+            if len(vocab) == limit:
+                break
+        s += 1
+
+
+def clip_vocab(size: int) -> tuple[dict, list]:
+    """A CLIP-format vocabulary of ``size`` ids: the 256 byte symbols,
+    their ``</w>`` forms, the merges a stdlib BPE learns over
+    ``TOKENIZER_CORPUS`` (lowercased, split on CLIP's pattern), merges of
+    earlier tokens up to ``size - 2``, then <|startoftext|> and
+    <|endoftext|> as the last two ids, as in CLIP's vocab.json."""
+    from localai_tpu_torch.utils.hf_tokenizer import (
+        BYTE_CHAR,
+        CLIP_PATTERN,
+        onig_regex,
+    )
+
+    syms = [BYTE_CHAR[b] for b in range(256)]
+    vocab = {s: i for i, s in enumerate(syms + [s + "</w>" for s in syms])}
+    words: dict = {}
+    for w in onig_regex(CLIP_PATTERN).findall(TOKENIZER_CORPUS.lower()):
+        chars = [BYTE_CHAR[b] for b in w.encode("utf-8")]
+        key = tuple(chars[:-1] + [chars[-1] + "</w>"])
+        words[key] = words.get(key, 0) + 1
+    merges: list = []
+    _train_bpe(words, vocab, merges, size - 2)
+    _clip_fill(vocab, merges, size - 2)
+    vocab["<|startoftext|>"] = size - 2
+    vocab["<|endoftext|>"] = size - 1
+    return vocab, merges
+
+
+def write_clip_tokenizer(d, pad: Optional[str] = None) -> None:
+    """``vocab.json``, ``merges.txt`` and ``tokenizer_config.json`` of a
+    CLIP tokenizer directory of ``CLIP_VOCAB`` ids (``pad`` "!" as SDXL's
+    tokenizer_2)."""
+    vocab, merges = clip_vocab(CLIP_VOCAB)
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    _write_json(d / "vocab.json", vocab)
+    (d / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges)
+                                  + "\n", encoding="utf-8")
+    _write_json(d / "tokenizer_config.json", {
+        "bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+        "unk_token": "<|endoftext|>", "pad_token": pad or "<|endoftext|>",
+        "model_max_length": 77})
+
+
+def _perturbed(tree, seed: int, std: float = 0.05):
+    """Every leaf plus seeded noise, so gains and biases are not 1 and 0
+    (drawn on the CPU; float32)."""
+    from localai_tpu_torch.image.loader import map_tree
+
+    g = torch.Generator().manual_seed(seed)
+    return map_tree(tree, lambda t: t.float()
+                    + std * torch.randn(t.shape, generator=g))
+
+
+def _image_layouts():
+    """Debug-width float32 layouts of the card = CPU checks: SD-1 (1x1
+    proj_in, one encoder) and SDXL (no attention at level 0, 1 and 2
+    blocks by level, heads per level, two encoders, text_time)."""
+    from localai_tpu_torch.image.clip import CLIPTextConfig
+    from localai_tpu_torch.image.unet import UNetConfig
+    from localai_tpu_torch.image.vae import VAEConfig
+
+    clip1 = CLIPTextConfig(vocab_size=300, hidden_size=48,
+                           intermediate_size=96, num_layers=3, num_heads=4,
+                           max_length=12, eos_token_id=299, dtype="float32")
+    clip2 = CLIPTextConfig(vocab_size=300, hidden_size=32,
+                           intermediate_size=64, num_layers=3, num_heads=2,
+                           max_length=12, eos_token_id=299,
+                           activation="gelu", projection_dim=24,
+                           dtype="float32")
+    vae = VAEConfig(base_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                    dtype="float32")
+    return {
+        "sd1": dict(unet=UNetConfig(
+            model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+            attn_levels=(0, 1), transformer_depth=2, num_heads=4,
+            context_dim=48, dtype="float32"), vae=vae, text=clip1),
+        "sdxl": dict(unet=UNetConfig(
+            model_channels=32, channel_mult=(1, 2, 2), num_res_blocks=1,
+            attn_levels=(1, 2), depth_per_level=(1, 1, 2),
+            heads_per_level=(2, 2, 4), context_dim=80, addition_embed=True,
+            addition_time_embed_dim=8, addition_in_dim=72, dtype="float32"),
+            vae=vae, text=clip1, text2=clip2)}
+
+
+def phase_image_parity() -> dict:
+    """Card = CPU at debug widths in float32 (TF32 off), on the SD-1 and
+    the SDXL layout: the UNet's eps (with ControlNet residuals on SD-1),
+    the VAE's decode and encode, CLIP's states and pooled output within
+    1e-4 of the largest output; 4-step ``generate`` with euler_a and
+    dpmpp_2m (a ControlNet and a control image on SD-1's dpmpp_2m run):
+    latents within 1e-4, uint8 pixels within 1."""
+    from localai_tpu_torch.image import clip as tclip
+    from localai_tpu_torch.image import controlnet as tcn
+    from localai_tpu_torch.image import unet as tunet
+    from localai_tpu_torch.image import vae as tvae
+    from localai_tpu_torch.image.loader import map_tree
+    from localai_tpu_torch.image.pipeline import DiffusionPipeline
+    from localai_tpu_torch.utils.device import full_f32
+    from localai_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    out = {}
+    rng = np.random.default_rng(61)
+    for layout, cfgs in _image_layouts().items():
+        ucfg = cfgs["unet"]
+        trees = {"unet": tunet.init_params(ucfg, 1, "cpu"),
+                 "vae": tvae.init_params(cfgs["vae"], 2, "cpu"),
+                 "text": tclip.init_params(cfgs["text"], 3, "cpu")}
+        if "text2" in cfgs:
+            trees["text2"] = tclip.init_params(cfgs["text2"], 4, "cpu")
+        else:
+            trees["cn"] = tcn.init_params(ucfg, 5, "cpu",
+                                          cond_channels=(8, 16))
+        trees = {k: _perturbed(v, 10 + i)
+                 for i, (k, v) in enumerate(trees.items())}
+        dev = {d: {k: map_tree(v, lambda t, d=d: t.to(d))
+                   for k, v in trees.items()} for d in ("cuda", "cpu")}
+        lat = torch.from_numpy(rng.normal(size=(2, 4, 16, 16)).astype(
+            np.float32))
+        ts = torch.tensor([999.0, 17.5])
+        ctx = torch.from_numpy(rng.normal(size=(2, 7, ucfg.context_dim))
+                               .astype(np.float32))
+        extra = {}
+        if ucfg.addition_embed:
+            extra = {"pooled_text": torch.from_numpy(rng.normal(
+                size=(2, 24)).astype(np.float32)),
+                "time_ids": torch.tensor([[64.0, 48, 0, 0, 64, 48]] * 2)}
+        ids = torch.from_numpy(rng.integers(1, 298, (2, 12)))
+        ids[:, -2:] = 299
+        img = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 32, 32)).astype(
+            np.float32))
+        errs: dict = {}
+        res = {}
+        with torch.inference_mode(), full_f32():
+            for d in ("cuda", "cpu"):
+                p = dev[d]
+                mv = lambda t, d=d: t.to(d)  # noqa: E731
+                ex = {k: mv(v) for k, v in extra.items()}
+                r = {"eps": tunet.forward(ucfg, p["unet"], mv(lat), mv(ts),
+                                          mv(ctx), **ex),
+                     "decode": tvae.decode(cfgs["vae"], p["vae"],
+                                           mv(lat[:1])),
+                     "encode": tvae.encode(cfgs["vae"], p["vae"], mv(img)),
+                     "clip": tclip.forward(cfgs["text"], p["text"], mv(ids),
+                                           clip_skip=2)}
+                if "cn" in p:
+                    cimg = mv(torch.rand((2, 3, 32, 32),
+                                         generator=torch.Generator()
+                                         .manual_seed(7)))
+                    down, mid = tcn.forward(ucfg, p["cn"], mv(lat), mv(ts),
+                                            mv(ctx), cimg, 0.8)
+                    r["eps_controlnet"] = tunet.forward(
+                        ucfg, p["unet"], mv(lat), mv(ts), mv(ctx),
+                        down_residuals=down, mid_residual=mid)
+                if "text2" in p:
+                    h, pooled = tclip.encode_sdxl(cfgs["text2"], p["text2"],
+                                                  mv(ids))
+                    r["clip2"], r["pooled"] = h, pooled
+                res[d] = r
+        for k in res["cpu"]:
+            errs[k] = _rel_err(res["cuda"][k], res["cpu"][k])
+        pipes = {}
+        for d in ("cuda", "cpu"):
+            p = dev[d]
+            pipes[d] = DiffusionPipeline(
+                ucfg, p["unet"], cfgs["vae"], p["vae"], cfgs["text"],
+                p["text"], ByteTokenizer(), device=d,
+                text2_cfg=cfgs.get("text2"), text2_params=p.get("text2"))
+            if "cn" in p:
+                pipes[d].controlnet_cfg = ucfg
+                pipes[d].controlnet_params = p["cn"]
+        ctrl = rng.integers(0, 256, (80, 48, 3), np.uint8)
+        for sched in ("euler_a", "dpmpp_2m"):
+            kw = dict(steps=4, seed=11, scheduler=sched, width=64,
+                      height=64, negative_prompt="blurry")
+            if layout == "sd1" and sched == "dpmpp_2m":
+                kw.update(control_image=ctrl, control_scale=0.7)
+            a = pipes["cuda"].generate("a red fox", **kw)
+            b = pipes["cpu"].generate("a red fox", **kw)
+            errs[f"latents-{sched}"] = _rel_err(a.latents, b.latents)
+            errs[f"pixels-{sched}"] = int(np.abs(
+                a.image.astype(int) - b.image.astype(int)).max())
+        bad = {k: v for k, v in errs.items()
+               if v > (1 if k.startswith("pixels") else 1e-4)}
+        if bad:
+            raise AssertionError(f"image parity ({layout}): card != CPU: "
+                                 f"{bad}")
+        out[layout] = errs
+    print("image parity: " + json.dumps(out), flush=True)
+    return out
+
+
+def _draw_pipeline(root: Path, configs: dict, seed: int) -> dict:
+    """Seeded bf16 weights drawn on the card at the configs' widths,
+    written as a diffusers directory with the published config.json
+    files and CLIP tokenizers; returns params, bytes and seconds."""
+    from localai_tpu_torch.image import clip as tclip
+    from localai_tpu_torch.image import unet as tunet
+    from localai_tpu_torch.image import vae as tvae
+    from localai_tpu_torch.image.clip import CLIPTextConfig
+    from localai_tpu_torch.image.loader import write_diffusers_pipeline
+    from localai_tpu_torch.image.unet import UNetConfig
+    from localai_tpu_torch.image.vae import VAEConfig
+
+    t0 = time.monotonic()
+    ucfg = UNetConfig.from_hf(configs["unet"])
+    vcfg = VAEConfig.from_hf(configs["vae"])
+    pairs = {"unet": (ucfg, tunet.init_params(ucfg, seed, "cuda")),
+             "vae": (vcfg, tvae.init_params(vcfg, seed + 1, "cuda"))}
+    subdirs = {"unet": "unet", "vae": "vae", "text": "text_encoder",
+               "text2": "text_encoder_2"}
+    for key in ("text", "text2"):
+        if key in configs:
+            c = CLIPTextConfig.from_hf(configs[key])
+            pairs[key] = (c, tclip.init_params(c, seed + 2 + len(pairs),
+                                               "cuda"))
+    n_params = {k: sum(t.numel() for t in _leaves(p))
+                for k, (_, p) in pairs.items()}
+    nbytes = write_diffusers_pipeline(root, dtype="bfloat16", **pairs)
+    for key, sub in subdirs.items():
+        if key in configs:
+            _write_json(root / sub / "config.json", configs[key])
+    write_clip_tokenizer(root / "tokenizer")
+    if "text2" in configs:
+        write_clip_tokenizer(root / "tokenizer_2", pad="!")
+    del pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, "params_total": sum(n_params.values()),
+            "checkpoint_gb": nbytes / 1e9,
+            "write_s": time.monotonic() - t0}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def _step_profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall, the device's
+    busy time and idle share, and the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in ev) / 1e6
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
+            "device_idle_share": max(0.0, 1 - busy / wall),
+            "launches": sum(e.count for e in ev)}
+
+
+def _image_request(url: str, body: dict) -> tuple[dict, float]:
+    t0 = time.monotonic()
+    with _post(url + "/v1/images/generations", body) as r:
+        out = json.loads(r.read())
+    return out, time.monotonic() - t0
+
+
+def _check_png(data: bytes, size: int) -> None:
+    from localai_tpu_torch.utils import png
+
+    img = png.decode(data)
+    if img.shape != (size, size, 3):
+        raise AssertionError(f"PNG of shape {img.shape}, not "
+                             f"{(size, size, 3)}")
+
+
+def _timed_pipeline(pipe, times: dict) -> None:
+    """CUDA-event times of a pipeline's text encode, UNet steps and VAE
+    decode, and the latents of each image (instance wrappers)."""
+    for name in ("_prepare_cond", "_unet_step", "_decode", "generate"):
+        store = times.setdefault(name, [])
+        setattr(pipe, name, _timed(getattr(pipe, name), store))
+
+
+def _times_record(times: dict, walls: list) -> dict:
+    step = [ms for ms, _ in times["_unet_step"]]
+    lat = [r.latents for _, r in times["generate"]]
+    if not all(bool(torch.isfinite(x).all()) for x in lat):
+        raise AssertionError("latents are not finite")
+    return {"text_encode_ms": [ms for ms, _ in times["_prepare_cond"]],
+            "unet_ms_per_step": [min(step), float(np.median(step)),
+                                 max(step)],
+            "unet_steps": len(step),
+            "vae_decode_ms": [ms for ms, _ in times["_decode"]],
+            "wall_s_per_image": walls,
+            "images_per_minute": 60.0 / float(np.median(walls))}
+
+
+def phase_serve_sdxl(card: str, root: Path) -> dict:
+    """``sdxl-base-1.0-bf16``: SDXL base 1.0's widths and depth (its
+    published config.json files), seeded bf16 weights drawn on the card and
+    written as a diffusers directory, served from a ``backend: diffusers``
+    YAML through the HTTP server: 1024x1024, 20 steps, the default
+    scheduler, ``b64_json``, then one ``url`` request fetched back. One
+    full-width UNet step in bf16 against the same step in float32 (TF32
+    off) within 2e-2 of the largest output, and one CFG step profiled."""
+    from localai_tpu_torch.api.server import APIServer
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.image import unet as tunet
+    from localai_tpu_torch.image.loader import map_tree
+    from localai_tpu_torch.models.manager import ModelManager
+
+    ckpt = root / "sdxl-base-1.0"
+    rec = _draw_pipeline(ckpt, {"unet": SDXL_UNET_CONFIG,
+                                "vae": SDXL_VAE_CONFIG,
+                                "text": CLIP_L_CONFIG,
+                                "text2": SDXL_TEXT2_CONFIG}, seed=71)
+    models = root / "models-sdxl"
+    write_models_dir(models, {SDXL_BASE: f"name: {SDXL_BASE}\nbackend: "
+                              f"diffusers\nmodel: {ckpt}\n"})
+    torch.cuda.reset_peak_memory_stats()
+    loader = ConfigLoader(models)
+    loader.load_from_path()
+    manager = ModelManager(AppConfig(model_path=str(models), device="cuda",
+                                     image_path=str(root / "images")),
+                           loader)
+    server = APIServer(manager, "127.0.0.1", 0).start()
+    try:
+        t0 = time.monotonic()
+        sm = manager.get_image(SDXL_BASE)
+        torch.cuda.synchronize()
+        rec["load_s"] = time.monotonic() - t0
+        rec["peak_gb_after_load"] = torch.cuda.max_memory_allocated() / 1e9
+        pipe = sm.pipeline
+        times: dict = {}
+        _timed_pipeline(pipe, times)
+        walls = []
+        body = {"model": SDXL_BASE, "prompt": IMAGE_PROMPTS[0],
+                "size": f"{SDXL_SIZE}x{SDXL_SIZE}", "step": IMAGE_STEPS,
+                "seed": 1, "response_format": "b64_json"}
+        out, wall = _image_request(server.url, body)
+        walls.append(wall)
+        _check_png(base64.b64decode(out["data"][0]["b64_json"]), SDXL_SIZE)
+        out, wall = _image_request(server.url, {
+            **body, "prompt": IMAGE_PROMPTS[1], "seed": 2,
+            "response_format": "url"})
+        walls.append(wall)
+        with urllib.request.urlopen(out["data"][0]["url"], timeout=60) as r:
+            if r.headers.get("Content-Type") != "image/png":
+                raise AssertionError(f"url answer: {r.headers}")
+            _check_png(r.read(), SDXL_SIZE)
+        rec.update(_times_record(times, walls))
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # one CFG step, profiled (the served pipeline's own call)
+        lat = SDXL_SIZE // pipe.vae_cfg.downscale
+        g = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn((1, 4, lat, lat), generator=g, device="cuda")
+        with torch.inference_mode():
+            cond = pipe._prepare_cond(IMAGE_PROMPTS[0], "", SDXL_SIZE,
+                                      SDXL_SIZE)
+            rec["unet_step_profile"] = _step_profile(
+                lambda: pipe._unet_step(x, 14.6, 999.0, cond, 7.0))
+            # bf16 against float32 on one full-width step (batch 1)
+            ucfg = pipe.unet_cfg
+            ctx = cond["context"][1:]
+            kw = {"pooled_text": cond["pooled"][1:],
+                  "time_ids": cond["time_ids"][1:]}
+            ts = torch.tensor([500.0], device="cuda")
+            eps16 = tunet.forward(ucfg, pipe.unet_params, x, ts, ctx, **kw)
+            p32 = map_tree(pipe.unet_params, lambda t: t.float())
+            cfg32 = dataclasses.replace(ucfg, dtype="float32")
+            eps32 = tunet.forward(cfg32, p32, x, ts, ctx, **kw)
+            del p32
+        err = _rel_err(eps16, eps32)
+        rec["bf16_vs_f32_step_rel_err"] = err
+        if not err <= 2e-2:
+            raise AssertionError(f"{SDXL_BASE}: a bf16 UNet step is {err} "
+                                 "of the largest output from float32")
+        return rec
+    finally:
+        server.shutdown()
+        manager.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _lora_tensors(ucfg, tcfg, rank: int = 8, seed: int = 0) -> list:
+    """A rank-``rank`` kohya LoRA over every UNet attention projection,
+    the first ResBlock conv of each down level, and the text encoder's
+    q/k/v/out projections (entries for ``write_safetensors``)."""
+    g = torch.Generator().manual_seed(seed)
+    mods = []
+    mc = ucfg.model_channels
+    for lvl in ucfg.attn_levels:
+        ch = mc * ucfg.channel_mult[lvl]
+        for j in range(ucfg.num_res_blocks):
+            for a, kv in (("attn1", ch), ("attn2", ucfg.context_dim)):
+                base = (f"unet_down_blocks_{lvl}_attentions_{j}_"
+                        f"transformer_blocks_0_{a}")
+                mods += [(f"{base}_to_q", ch, ch, 0),
+                         (f"{base}_to_k", kv, ch, 0),
+                         (f"{base}_to_v", kv, ch, 0),
+                         (f"{base}_to_out_0", ch, ch, 0)]
+        cin = mc * (ucfg.channel_mult[lvl - 1] if lvl else 1)
+        mods.append((f"unet_down_blocks_{lvl}_resnets_0_conv1", cin, ch, 3))
+    for i in range(tcfg.num_layers):
+        for p in ("q", "k", "v", "out"):
+            mods.append((f"te_text_model_encoder_layers_{i}_self_attn_"
+                         f"{p}_proj", tcfg.hidden_size, tcfg.hidden_size, 0))
+    out = []
+    for name, cin, cout, k in mods:
+        kk = (k, k) if k else ()
+        one = (1, 1) if k else ()
+        down = torch.randn((rank, cin) + kk, generator=g) * 0.02
+        up = torch.randn((cout, rank) + one, generator=g) * 0.02
+        out += [(f"lora_{name}.lora_down.weight", tuple(down.shape),
+                 torch.float16, (lambda t=down: t)),
+                (f"lora_{name}.lora_up.weight", tuple(up.shape),
+                 torch.float16, (lambda t=up: t)),
+                (f"lora_{name}.alpha", (), torch.float16,
+                 (lambda: torch.tensor(float(rank))))]
+    return out
+
+
+def _edge_image(size: int) -> np.ndarray:
+    """A canny-like control image: white edges of circles and lines on
+    black."""
+    y, x = np.mgrid[:size, :size] / size
+    edges = np.zeros((size, size), bool)
+    for cx, cy, r in ((0.3, 0.4, 0.2), (0.7, 0.6, 0.15)):
+        edges |= np.abs(np.hypot(x - cx, y - cy) - r) < 0.004
+    edges |= np.abs(y - 0.85) < 0.003
+    return np.repeat(edges[..., None], 3, axis=2).astype(np.uint8) * 255
+
+
+def phase_serve_sd15(card: str, root: Path) -> dict:
+    """SD-1.5's widths and depth (its published configs), seeded bf16
+    weights written once and served twice over HTTP: ``sd-1.5-bf16-lora``
+    with a rank-8 kohya LoRA at ``lora_scale`` 0.8 (merged at load; the
+    merge count asserted), and ``sd-1.5-bf16-controlnet`` with a
+    ControlNet of sd-controlnet-canny's config attached and an edge image
+    as ``file``: 512x512, 20 steps, ``b64_json``."""
+    from localai_tpu_torch.api.server import APIServer
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.image import controlnet as tcn
+    from localai_tpu_torch.image import lora as tlora
+    from localai_tpu_torch.image.clip import CLIPTextConfig
+    from localai_tpu_torch.image.loader import write_controlnet
+    from localai_tpu_torch.image.unet import UNetConfig
+    from localai_tpu_torch.models.loader import write_safetensors
+    from localai_tpu_torch.models.manager import ModelManager
+    from localai_tpu_torch.utils import png
+
+    ckpt = root / "sd-1.5"
+    rec = _draw_pipeline(ckpt, {"unet": SD15_UNET_CONFIG,
+                                "vae": SD15_VAE_CONFIG,
+                                "text": CLIP_L_CONFIG}, seed=81)
+    ucfg = UNetConfig.from_hf(SD15_UNET_CONFIG)
+    lora = _lora_tensors(ucfg, CLIPTextConfig.from_hf(CLIP_L_CONFIG))
+    rec["lora_bytes"] = write_safetensors(root / "sd15-lora.safetensors",
+                                          lora)
+    rec["lora_layers"] = len(lora) // 3
+    t0 = time.monotonic()
+    cn_cfg = UNetConfig.from_hf(CANNY_CONFIG)
+    cn = tcn.init_params(cn_cfg, 91, "cuda", cond_channels=tuple(
+        CANNY_CONFIG["conditioning_embedding_out_channels"]))
+    rec["controlnet_params"] = sum(t.numel() for t in _leaves(cn))
+    rec["controlnet_gb"] = write_controlnet(root / "canny", cn_cfg, cn,
+                                            dtype="bfloat16") / 1e9
+    _write_json(root / "canny" / "config.json", CANNY_CONFIG)
+    rec["controlnet_write_s"] = time.monotonic() - t0
+    del cn
+    gc.collect()
+    torch.cuda.empty_cache()
+    models = root / "models-sd15"
+    write_models_dir(models, {
+        SD15_LORA: (f"name: {SD15_LORA}\nbackend: diffusers\nmodel: {ckpt}"
+                    f"\nlora_adapter: {root / 'sd15-lora.safetensors'}\n"
+                    "lora_scale: 0.8\n"),
+        SD15_CN: (f"name: {SD15_CN}\nbackend: diffusers\nmodel: {ckpt}\n"
+                  f"diffusers:\n  control_net: {root / 'canny'}\n"
+                  "  control_scale: 0.9\n")})
+    loader = ConfigLoader(models)
+    loader.load_from_path()
+    manager = ModelManager(AppConfig(model_path=str(models), device="cuda",
+                                     image_path=str(root / "images")),
+                           loader)
+    server = APIServer(manager, "127.0.0.1", 0).start()
+    merged: list = []
+    apply_lora = tlora.apply_lora
+    tlora.apply_lora = lambda *a, **k: merged.append(
+        apply_lora(*a, **k)) or merged[-1]
+    served = {}
+    try:
+        edge = base64.b64encode(png.encode(_edge_image(SD15_SIZE))).decode()
+        for name, extra in ((SD15_LORA, {}), (SD15_CN, {"file": edge})):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            sm = manager.get_image(name)
+            torch.cuda.synchronize()
+            m = {"load_s": time.monotonic() - t0,
+                 "peak_gb_after_load": torch.cuda.max_memory_allocated()
+                 / 1e9}
+            times: dict = {}
+            _timed_pipeline(sm.pipeline, times)
+            walls = []
+            for i, prompt in enumerate(IMAGE_PROMPTS):
+                out, wall = _image_request(server.url, {
+                    "model": name, "prompt": prompt,
+                    "size": f"{SD15_SIZE}x{SD15_SIZE}", "step": IMAGE_STEPS,
+                    "seed": 10 + i, "response_format": "b64_json", **extra})
+                walls.append(wall)
+                _check_png(base64.b64decode(out["data"][0]["b64_json"]),
+                           SD15_SIZE)
+            m.update(_times_record(times, walls))
+            m["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            served[name] = m
+        if merged != [rec["lora_layers"]]:
+            raise AssertionError(f"LoRA merges {merged}, not "
+                                 f"[{rec['lora_layers']}]")
+        if manager.get_image(SD15_CN).pipeline.controlnet_params is None:
+            raise AssertionError(f"{SD15_CN}: no ControlNet attached")
+        return {**rec, "served": served}
+    finally:
+        tlora.apply_lora = apply_lora
+        server.shutdown()
+        manager.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_image(card: str) -> dict:
+    """The image group: card = CPU at debug widths, then the SDXL and
+    SD-1.5 serves; K1–K5 launch never (every count zeroed first). Its
+    command time is printed."""
+    kernels = _all_kernels()
+    for w in kernels.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    root = Path(_scratch_dir("image-", 12_000_000_000))
+    phase_s, rec = {}, {"card": card}
+    try:
+        for name, run in (("parity", phase_image_parity),
+                          ("sdxl", lambda: phase_serve_sdxl(card, root)),
+                          ("sd15", lambda: phase_serve_sd15(card, root))):
+            t1 = time.monotonic()
+            rec[name] = run()
+            phase_s[name] = time.monotonic() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _no_launches("the image group", kernels)
+    rec.update(phase_s=phase_s, k1_k5_launches=0,
+               group_s=time.monotonic() - t0)
+    print("image: " + json.dumps(rec), flush=True)
+    return rec
+
+
 def _entry(name, source, replaces, launches, rec) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6717,6 +7410,7 @@ def main() -> int:
     phase_serve_recurrent(card, "rwkv")
     phase_encoders(card)
     phase_audio(card)
+    phase_image(card)
     src = "localai_tpu_torch/csrc/"
     k1_src = src + "paged_decode_attention.cu"
     k1_tpu = "localai_tpu/ops/attention.py:458"

@@ -12,6 +12,8 @@ under the JAX package's unversioned alias:
   * POST /v1/audio/transcriptions (multipart/form-data), /v1/audio/speech,
     /tts, /v1/text-to-speech/{voice_id}, /v1/sound-generation,
     /sound-generation (``api.audio``; ``audio/wav`` bodies)
+  * POST /v1/images/generations, GET /generated-images/{name}
+    (``api.images``; PNG)
   * GET  /v1/models, /models  (``?filter=<regex>``)
   * GET  /, /healthz, /readyz, /version, /metrics, /system,
     /backend/metrics
@@ -44,7 +46,7 @@ import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from localai_tpu_torch.api import audio
+from localai_tpu_torch.api import audio, images
 from localai_tpu_torch.api import inference as inf
 from localai_tpu_torch.api import jina
 from localai_tpu_torch.api import localai as la
@@ -68,10 +70,13 @@ _POST = {"/v1/chat/completions": oa.chat, "/chat/completions": oa.chat,
          "/v1/audio/transcriptions": audio.transcriptions,
          "/v1/audio/speech": audio.speech, "/tts": audio.speech,
          "/v1/sound-generation": audio.sound_generation,
-         "/sound-generation": audio.sound_generation}
+         "/sound-generation": audio.sound_generation,
+         "/v1/images/generations": images.generations}
 # POST routes whose body is multipart/form-data (the handler takes the
 # parsed fields), not JSON
 _MULTIPART = {"/v1/audio/transcriptions"}
+# POST routes whose handler also takes the request's base URL (url answers)
+_BASE_URL = {"/v1/images/generations"}
 MAX_BODY_BYTES = 64 << 20
 _GET = {"/v1/models": oa.list_models, "/models": oa.list_models,
         "/readyz": lambda manager, query: oa.readyz(manager),
@@ -90,7 +95,8 @@ def _param_routes(routes) -> list:
 
 _GET_PARAM = _param_routes((
     ("/v1/traces/{trace_id}", traces.trace_detail),
-    ("/debug/timeline/{request_id}", traces.timeline)))
+    ("/debug/timeline/{request_id}", traces.timeline),
+    ("/generated-images/{name}", images.serve_generated)))
 _POST_PARAM = _param_routes((
     ("/v1/text-to-speech/{voice_id}", audio.elevenlabs_tts),))
 # paths reachable without an API key (the JAX package's AUTH_EXEMPT; the
@@ -318,8 +324,13 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._error(e.status, e.message)
             except ValueError as e:
                 return self._error(400, f"invalid JSON body: {e}")
+            kw = {}
+            if canonical in _BASE_URL:
+                host = self.headers.get("Host") or "{}:{}".format(
+                    *self.server.server_address[:2])
+                kw["base_url"] = f"http://{host}"
             try:
-                out = fn(self.server.manager, body, *params)
+                out = fn(self.server.manager, body, *params, **kw)
             except oa.APIError as e:
                 return self._error(e.status, e.message)
             except (ValueError, TypeError) as e:

@@ -22,6 +22,9 @@ class AppConfig:
     # paths
     model_path: str = "models"      # dir of model YAMLs / checkpoints
     config_path: str = "configuration"   # api_keys.json (config.watcher)
+    # where /v1/images/generations stores url-format images, served at
+    # /generated-images/<name> (LOCALAI_IMAGE_PATH, as the JAX package)
+    image_path: str = "generated_images"
 
     # server
     address: str = "0.0.0.0"

@@ -5,8 +5,7 @@ dirs). Files are read by the port's own YAML reader
 (``config.yaml_subset``, PyYAML's ``safe_load`` meaning, stdlib only), in
 every environment. Each config then goes through backend and chat-default
 autodetection (``models.detect.autodetect_config``), as on the JAX
-package; a detected backend the port has no engine for (diffusers) is
-refused, naming it.
+package, and the detected config is checked again (``check_supported``).
 """
 
 from __future__ import annotations
@@ -62,8 +61,8 @@ class ConfigLoader:
 
     def _autodetect(self, cfg: ModelConfig) -> None:
         """Backend selection for bare ``model:`` configs by checkpoint
-        sniff, and the family's chat defaults (``models/detect.py``); a
-        detected backend the port has no engine for is refused."""
+        sniff, and the family's chat defaults (``models/detect.py``); the
+        completed config is checked again."""
         explicit = cfg.backend
         try:
             from localai_tpu_torch.models.detect import autodetect_config

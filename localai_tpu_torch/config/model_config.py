@@ -4,9 +4,9 @@ Port of the fields of ``localai_tpu/config/model_config.py`` that the port
 reads (the JAX package validates with pydantic, which the port's runtime
 does not depend on). Unknown keys are ignored; keys that would ask for a
 feature the port does not have yet — a raw ``grammar`` string (which the
-JAX package declares and reads nowhere) and the backends whose engines
-are not ported (``UNPORTED_BACKENDS``) — raise a clear error at load
-instead of serving something else than was asked for. Prompt templates
+JAX package declares and reads nowhere) and a FLUX-class image model —
+raise a clear error at load instead of serving something else than was
+asked for. Prompt templates
 (``template:``, :class:`TemplateConfig`: Go or Jinja ``chat_message``,
 ``chat``, ``completion``, ``edit``, ``functions``, a Jinja
 ``chat_template`` and ``use_tokenizer_template``, rendered by the port's
@@ -25,9 +25,13 @@ or ``debug:vit``; ``image_token_id``), the cross-encoder and sentence
 encoder (``backend: reranker | bert-embeddings | sentencetransformers``),
 the recurrent-state engine (``backend: mamba | rwkv``), the remote-API
 client (``backend: huggingface | langchain-huggingface`` with
-``api_token`` and ``api_base``), speech-to-text (``backend: whisper``)
-and VITS voices (``backend: vits``, with a ``tts:`` section,
-:class:`TTSConfig`) are served.
+``api_token`` and ``api_base``), speech-to-text (``backend: whisper``),
+VITS voices (``backend: vits``, with a ``tts:`` section,
+:class:`TTSConfig`) and image generation (``backend: diffusers``, with a
+``diffusers:`` section, :class:`DiffusionConfig`, and ``lora_adapter`` /
+``lora_scale``) are served. Of the image models, only the FLUX class is
+refused (ROADMAP item 10 part 2): ``debug:flux-tiny`` here, a FLUX
+layout when it loads (``image.pipeline.resolve_image_model``).
 """
 
 from __future__ import annotations
@@ -43,16 +47,13 @@ USECASES = ("chat", "completion", "edit", "embeddings", "image",
             "transcript", "tts", "sound_generation", "rerank", "tokenize",
             "vision")
 # the usecases the port serves
-SERVED_USECASES = ("chat", "completion", "edit", "embeddings", "transcript",
-                   "tts", "sound_generation", "rerank")
+SERVED_USECASES = ("chat", "completion", "edit", "embeddings", "image",
+                   "transcript", "tts", "sound_generation", "rerank")
 # backend names served by the LLM engine (the JAX package's list)
 LLM_BACKENDS = ("", "jax", "jax-llm", "transformers", "worker",
                 "huggingface", "langchain-huggingface", "mamba", "rwkv")
-# backends whose engines the port has not ported: served by the llama
-# runner they would answer with another model
-UNPORTED_BACKENDS = {
-    "diffusers": "the image pipeline (ROADMAP A10: image/)",
-}
+# the FLUX-class debug preset (the JAX package's debug:flux-tiny)
+FLUX_DEBUG_REF = "debug:flux-tiny"
 
 
 def _pick(cls, data: Optional[dict]) -> dict:
@@ -73,6 +74,7 @@ class PredictionParams:
     presence_penalty: Optional[float] = None
     repeat_penalty: Optional[float] = None
     seed: Optional[int] = None
+    n: int = 1                         # images a prompt (the image API)
 
     def merged_with(self, overrides: dict[str, Any]) -> "PredictionParams":
         """Request-over-config merge: explicitly given request fields win."""
@@ -148,6 +150,33 @@ class TTSConfig:
 
 
 @dataclasses.dataclass
+class DiffusionConfig:
+    """The ``diffusers:`` section (the JAX package's DiffusionConfig):
+    the pipeline's default scheduler, guidance, clip skip and steps, and a
+    ControlNet loaded beside it (``control_net``, a directory or a name
+    under the models dir) with its ``control_scale``. Other keys are kept
+    in ``extra``."""
+
+    scheduler_type: Optional[str] = None
+    cfg_scale: Optional[float] = None
+    clip_skip: Optional[int] = None
+    pipeline_type: Optional[str] = None
+    enable_parameters: Optional[str] = None
+    steps: Optional[int] = None
+    control_net: Optional[str] = None
+    control_scale: float = 1.0
+    extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, data: Optional[dict]) -> "DiffusionConfig":
+        data = dict(data or {})
+        known = _pick(cls, data)
+        known.pop("extra", None)
+        return cls(**known, extra={k: v for k, v in data.items()
+                                   if k not in known})
+
+
+@dataclasses.dataclass
 class EngineConfig:
     """Serving-engine knobs the port reads."""
 
@@ -201,6 +230,10 @@ class ModelConfig:
     mmproj: Optional[str] = None       # vision tower ref (dir or debug:)
     api_token: str = ""                # remote-API backends (huggingface)
     api_base: str = ""
+    # a LoRA merged into an image model's weights at load (a file, or a
+    # path under the models dir)
+    lora_adapter: str = ""
+    lora_scale: float = 1.0
     image_token_id: Optional[int] = None  # placeholder id for image spans
                                           # (default: HF image_token_index
                                           # or 0; embeddings are injected
@@ -234,6 +267,8 @@ class ModelConfig:
         default_factory=TemplateConfig)
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
     tts: TTSConfig = dataclasses.field(default_factory=TTSConfig)
+    diffusers: DiffusionConfig = dataclasses.field(
+        default_factory=DiffusionConfig)
 
     def __post_init__(self) -> None:
         if self.f16 is False:  # the JAX package's _apply_compat
@@ -252,6 +287,8 @@ class ModelConfig:
             "function": FunctionsConfig(
                 **_pick(FunctionsConfig, data.pop("function", None))),
             "tts": TTSConfig.from_dict(data.pop("tts", None)),
+            "diffusers": DiffusionConfig.from_dict(
+                data.pop("diffusers", None)),
         }
         cfg = cls(**_pick(cls, data), **sub)
         cfg.check_supported()
@@ -274,12 +311,11 @@ class ModelConfig:
                 "(grammar) is not served: the JAX package declares the key "
                 "and reads it nowhere, so no constraint could honour it; "
                 "use tools or response_format for constrained decoding")
-        backend = (self.backend or "").lower()
-        if backend in UNPORTED_BACKENDS:
+        if (self.model or self.name) == FLUX_DEBUG_REF:
             raise ValueError(
-                f"model {self.name or self.model!r}: backend {backend!r} "
-                f"is not ported yet; it needs "
-                f"{UNPORTED_BACKENDS[backend]}")
+                f"model {self.name or self.model!r}: {FLUX_DEBUG_REF} is a "
+                "FLUX-class image model, not ported yet (ROADMAP item 10 "
+                "part 2)")
         if self.engine.kv_dtype == "int4" and self.engine.kv_paged is False:
             raise ValueError(
                 f"model {self.name or self.model!r}: kv_dtype int4 needs "

@@ -234,7 +234,8 @@ def write_safetensors(path: str | Path,
             if tuple(t.shape) != tuple(shape):
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != the "
                                  f"header's {tuple(shape)}")
-            f.write(memoryview(t.view(torch.uint8).numpy()))
+            # flattened first: a 0-d tensor (a LoRA's alpha) has no byte view
+            f.write(memoryview(t.reshape(-1).view(torch.uint8).numpy()))
     return 8 + len(raw) + offset
 
 

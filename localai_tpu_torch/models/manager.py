@@ -29,7 +29,10 @@ builds the recurrent-state engine (``models/mamba_serving.py``) and
 ``get_embedder`` into :class:`RerankServingModel` /
 :class:`EmbeddingServingModel`, and whisper and VITS voices
 (``models/whisper.py``, ``audio/vits.py``) through ``get_whisper`` /
-``get_vits`` into :class:`AudioServingModel`. Every kind shares one
+``get_vits`` into :class:`AudioServingModel`, and diffusion pipelines
+(``image/``) through ``get_image`` into :class:`ImageServingModel`, with
+the ``diffusers:`` section's defaults, a ``lora_adapter`` (relative to the
+models dir unless absolute) and a ``control_net``. Every kind shares one
 registry, so
 eviction, the watchdog, ``shutdown_model`` and preload treat them alike;
 a name asked for as another kind is reloaded (when idle). The
@@ -38,13 +41,14 @@ self-healing supervisor is not ported yet.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
 import threading
 import time
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Iterator, Optional
 
 from localai_tpu_torch.config.app_config import AppConfig
 from localai_tpu_torch.config.loader import ConfigLoader
@@ -215,6 +219,64 @@ class AudioServingModel:
             with self._lock:
                 self._inflight -= 1
         self.served += 1
+        self.touch()
+        return out
+
+
+@dataclasses.dataclass
+class ImageServingModel:
+    """A loaded diffusion pipeline under the manager's lifecycle
+    (watchdog, eviction, ``/backend/monitor``): the JAX package's
+    ``ImageServingModel``."""
+
+    name: str
+    config: ModelConfig
+    pipeline: Any                     # image.pipeline.DiffusionPipeline
+    loaded_at: float = dataclasses.field(default_factory=time.monotonic)
+    last_used: float = dataclasses.field(default_factory=time.monotonic)
+    _inflight: int = 0
+    _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+    generated: int = 0
+    kind: str = "image"
+
+    def touch(self) -> None:
+        self.last_used = time.monotonic()
+
+    @property
+    def busy(self) -> bool:
+        with self._lock:
+            return self._inflight > 0
+
+    @contextlib.contextmanager
+    def in_use(self) -> Iterator["ImageServingModel"]:
+        """Holds the busy flag across a multi-image request, so an
+        eviction sweep cannot drop the pipeline between its images."""
+        with self._lock:
+            self._inflight += 1
+        try:
+            yield self
+        finally:
+            with self._lock:
+                self._inflight -= 1
+
+    def alive(self) -> bool:
+        return self.pipeline is not None
+
+    def close(self) -> None:
+        self.pipeline = None  # frees the weights once in-flight calls end
+
+    def engine_metrics(self) -> dict:
+        return {"type": "image", "images_generated": self.generated}
+
+    def generate(self, *args, **kwargs):
+        """Run the pipeline with busy accounting; a snapshot of the
+        pipeline keeps an in-flight request going through an eviction."""
+        pipe = self.pipeline
+        if pipe is None:
+            raise RuntimeError(f"image model {self.name} was evicted")
+        with self.in_use():
+            out = pipe.generate(*args, **kwargs)
+        self.generated += 1
         self.touch()
         return out
 
@@ -408,6 +470,10 @@ class ModelManager:
         """Load-or-get a VITS voice."""
         return self._get_typed(name, self._load_vits, "vits")
 
+    def get_image(self, name: str) -> ImageServingModel:
+        """Load-or-get a diffusion pipeline."""
+        return self._get_typed(name, self._load_image, "image")
+
     def is_embedder(self, mcfg: ModelConfig) -> bool:
         """``/v1/embeddings`` goes to the sentence encoder for
         ``backend: bert-embeddings | sentencetransformers`` (set in the
@@ -464,7 +530,8 @@ class ModelManager:
     def _kind(sm: Any) -> str:
         return ("rerank" if isinstance(sm, RerankServingModel)
                 else "embed" if isinstance(sm, EmbeddingServingModel)
-                else sm.kind if isinstance(sm, AudioServingModel)
+                else sm.kind if isinstance(sm, (AudioServingModel,
+                                                ImageServingModel))
                 else "llm")
 
     def _cached(self, name: str, kind: str) -> Optional[Any]:
@@ -563,6 +630,37 @@ class ModelManager:
         return AudioServingModel(name=mcfg.name, config=mcfg, model=model,
                                  kind="vits")
 
+    def _load_image(self, mcfg: ModelConfig) -> ImageServingModel:
+        """The JAX package's ``_load_image``: the ``diffusers:`` defaults,
+        a LoRA merged at load, a ControlNet attached."""
+        from localai_tpu_torch.image import resolve_image_model
+
+        kwargs: dict[str, Any] = {}
+        d = mcfg.diffusers
+        if d.scheduler_type:
+            kwargs["default_scheduler"] = d.scheduler_type
+        if d.steps:
+            kwargs["default_steps"] = d.steps
+        if d.cfg_scale is not None:
+            kwargs["default_cfg_scale"] = d.cfg_scale
+        if d.clip_skip:
+            kwargs["clip_skip"] = d.clip_skip
+        if mcfg.lora_adapter:
+            lp = Path(mcfg.lora_adapter)
+            if not lp.is_absolute():
+                lp = Path(self.app.model_path) / lp
+            kwargs["lora_adapter"] = str(lp)
+            kwargs["lora_scale"] = mcfg.lora_scale
+        t0 = time.monotonic()
+        pipe = resolve_image_model(mcfg.model or mcfg.name,
+                                   model_path=self.app.model_path,
+                                   device=self.app.device, **kwargs)
+        if d.control_net:
+            pipe.attach_controlnet(d.control_net, self.app.model_path)
+        log.info("loaded image model %s in %.1fs", mcfg.name,
+                 time.monotonic() - t0)
+        return ImageServingModel(name=mcfg.name, config=mcfg, pipeline=pipe)
+
     def preload(self) -> None:
         """Load ``load_to_memory`` (else ``preload_models``) now, as the
         JAX package's ``serve`` does. A name no config has is a gallery
@@ -581,11 +679,13 @@ class ModelManager:
 
     def _preload(self, name: str) -> None:
         """Load a model as the kind its config routes to: a cross-encoder,
-        sentence encoder, whisper model or VITS voice through its typed
-        get, else ``get``."""
+        sentence encoder, whisper model, VITS voice or diffusion pipeline
+        through its typed get, else ``get``."""
         mcfg = self.loader.get(name)
         if mcfg is not None and mcfg.backend == "whisper":
             self.get_whisper(name)
+        elif mcfg is not None and mcfg.backend == "diffusers":
+            self.get_image(name)
         elif mcfg is not None and mcfg.backend == "vits":
             self.get_vits(name)
         elif mcfg is not None and self.is_embedder(mcfg):

@@ -28,9 +28,9 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
 
 def params_from_numpy(tree: Any, device: str | torch.device = "cuda") -> Any:
     """Carry a parameter tree of the JAX package (nested dicts and lists of
-    numpy arrays) across to torch tensors on ``device``, each in its own
-    dtype (bfloat16 arrives as ``ml_dtypes.bfloat16`` and goes across as
-    its int16 bit pattern)."""
+    numpy arrays; None kept) across to torch tensors on ``device``, each in
+    its own dtype (bfloat16 arrives as ``ml_dtypes.bfloat16`` and goes
+    across as its int16 bit pattern)."""
     device = resolve_device(device)
 
     def conv(a):
@@ -38,6 +38,8 @@ def params_from_numpy(tree: Any, device: str | torch.device = "cuda") -> Any:
             return {k: conv(v) for k, v in a.items()}
         if isinstance(a, (list, tuple)):
             return [conv(v) for v in a]
+        if a is None:
+            return None
         a = np.array(a)
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.view(np.int16)).view(

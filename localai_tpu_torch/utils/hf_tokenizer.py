@@ -10,8 +10,8 @@ the format's sections in the order ``tokenizers`` runs them for
      (special ones included), leftmost-longest; ``single_word``,
      ``lstrip``, ``rstrip`` and ``normalized`` are honoured;
   2. normalizer (``NFC``/``NFKC``/``NFD``/``NFKD``, ``Sequence``,
-     ``Prepend``, ``Replace``, ``Strip``, ``BertNormalizer``) on each
-     piece between added tokens;
+     ``Prepend``, ``Replace``, ``Strip``, ``Lowercase``,
+     ``BertNormalizer``) on each piece between added tokens;
   3. pre-tokenizer (``ByteLevel``, ``Split``, ``Metaspace``, ``Digits``,
      ``BertPreTokenizer``, ``Sequence``);
   4. model: ``BPE`` (ranked merges, ``ignore_merges``, ``unk_token``,
@@ -27,12 +27,18 @@ the format's sections in the order ``tokenizers`` runs them for
 
 ``decode(ids)`` maps ids to tokens (added tokens to their content) and
 runs the decoder (``ByteLevel``, ``Metaspace``, ``Replace``,
-``ByteFallback``, ``Fuse``, ``Strip``, ``WordPiece``, ``Sequence``) over
-all of them,
-as ``decode(ids, skip_special_tokens=False)`` does. The post-processor is
-never run (the serving path never asks for it). A component this reader
+``ByteFallback``, ``Fuse``, ``Strip``, ``WordPiece``, ``BPEDecoder``,
+``Sequence``) over all of them,
+as ``decode(ids, skip_special_tokens=False)`` does. The post-processor
+runs only for ``encode(text, add_special_tokens=True)`` (the CLIP
+tokenizers of the image pipeline ask for it), and only
+``RobertaProcessing`` is read: a single sequence between its ``cls`` and
+``sep`` ids; any other fails when asked for. A component this reader
 does not implement fails at load with a ``ValueError`` naming it, and so
 does a BERT component without a field that ``tokenizers`` requires.
+:func:`clip_tokenizer_spec` builds, from a CLIP ``vocab.json`` and
+``merges.txt``, the ``tokenizer.json`` that ``transformers``'
+``CLIPConverter`` builds for ``CLIPTokenizerFast``.
 ``token_to_id`` looks a token up among the added tokens, then in the
 model's vocabulary, as ``tokenizers`` does.
 
@@ -323,6 +329,10 @@ def _normalizer(spec: Optional[dict]) -> Normalizer:
         return _replacer(spec)
     if kind == "BertNormalizer":
         return _bert_normalizer(spec)
+    if kind == "Lowercase":
+        # each character's own lowercase mapping (Rust's char::to_lowercase:
+        # no final-sigma rule)
+        return lambda s: "".join(c.lower() for c in s)
     if kind == "Strip":
         ws = "".join(_white_space())
         left, right = spec.get("strip_left", True), spec.get("strip_right",
@@ -704,6 +714,11 @@ def _decoder(spec: Optional[dict]) -> Optional[Decoder]:
                 out.append(_cleanup(t) if cleanup else t)
             return out
         return wordpiece
+    if kind == "BPEDecoder":
+        suffix = spec.get("suffix", "</w>")
+        return lambda tokens: [
+            t.replace(suffix, "" if i == len(tokens) - 1 else " ")
+            for i, t in enumerate(tokens)]
     if kind == "Strip":
         content = spec["content"]
         start, stop = int(spec.get("start", 0)), int(spec.get("stop", 0))
@@ -918,6 +933,7 @@ class TokenizerJSON:
         self.normalize = _normalizer(spec.get("normalizer"))
         self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
         self._decoder = _decoder(spec.get("decoder"))
+        self._post = spec.get("post_processor")
         added = list(spec.get("added_tokens") or [])
         self.added_r = {int(t["id"]): t["content"] for t in added}
         self.added = {t["content"]: int(t["id"]) for t in added}
@@ -933,7 +949,22 @@ class TokenizerJSON:
     def from_file(cls, path: str | Path) -> "TokenizerJSON":
         return cls(json.loads(Path(path).read_text(encoding="utf-8")))
 
-    def encode(self, text: str) -> list[int]:
+    def encode(self, text: str, add_special_tokens: bool = False
+               ) -> list[int]:
+        ids = self._encode(text)
+        return self.post_process(ids) if add_special_tokens else ids
+
+    def post_process(self, ids: list[int]) -> list[int]:
+        """The post-processor over one sequence: ``RobertaProcessing``
+        wraps it in its ``cls`` and ``sep`` ids."""
+        kind = (self._post or {}).get("type")
+        if kind != "RobertaProcessing":
+            raise ValueError(f"tokenizer.json: post-processor {kind!r} is "
+                             "not supported (this reader has "
+                             "RobertaProcessing)")
+        return [int(self._post["cls"][1]), *ids, int(self._post["sep"][1])]
+
+    def _encode(self, text: str) -> list[int]:
         ids: list[int] = []
         for a, b, tid in self._raw_split.split(text):
             if tid is not None:
@@ -965,3 +996,66 @@ class TokenizerJSON:
         if self._decoder is None:
             return " ".join(tokens)
         return "".join(self._decoder(tokens))
+
+
+# the pre-tokenizer split of transformers' CLIPConverter
+CLIP_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]"
+                r"|[^\s\p{L}\p{N}]+")
+# the merges CLIPTokenizer reads from merges.txt: the lines after the
+# version header, at most 49152 - 256 - 2 of them
+CLIP_MAX_MERGES = 49152 - 256 - 2
+
+
+def read_clip_merges(text: str) -> list[list[str]]:
+    """``merges.txt`` as ``CLIPTokenizer`` reads it."""
+    lines = text.strip().split("\n")[1:CLIP_MAX_MERGES + 1]
+    return [line.split() for line in lines]
+
+
+def clip_tokenizer_spec(vocab: dict[str, int], merges: list, *,
+                        bos: str = "<|startoftext|>",
+                        eos: str = "<|endoftext|>",
+                        unk: str = "<|endoftext|>",
+                        specials: Sequence[str] = ()) -> dict:
+    """The ``tokenizer.json`` of ``CLIPTokenizerFast`` over a CLIP
+    ``vocab.json`` and ``merges.txt`` (``transformers``' ``CLIPConverter``):
+    NFC, white-space runs to one space and lowercase; a split on CLIP's
+    pattern (matches kept, the rest removed), then ``ByteLevel`` without a
+    prefix space; BPE with ``</w>`` ending each word and ``unk`` for
+    anything else; ``RobertaProcessing`` between ``bos`` and ``eos``. The
+    special tokens (``bos``, ``eos``, ``unk`` and ``specials``, in that
+    order, each once) are added, normalized, as ``transformers`` adds
+    them."""
+    added, seen = [], set()
+    for tok in (bos, eos, unk, *specials):
+        if tok in seen or tok not in vocab:
+            continue
+        seen.add(tok)
+        added.append({"id": vocab[tok], "content": tok, "single_word": False,
+                      "lstrip": False, "rstrip": False, "normalized": True,
+                      "special": True})
+    return {
+        "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "NFC"},
+            {"type": "Replace", "pattern": {"Regex": r"\s+"},
+             "content": " "},
+            {"type": "Lowercase"}]},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": CLIP_PATTERN},
+             "behavior": "Removed", "invert": True},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": True}]},
+        "post_processor": {"type": "RobertaProcessing",
+                           "sep": [eos, vocab.get(eos)],
+                           "cls": [bos, vocab.get(bos)],
+                           "trim_offsets": False,
+                           "add_prefix_space": False},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": unk,
+                  "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "</w>", "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }

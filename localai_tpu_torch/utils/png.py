@@ -1,4 +1,5 @@
-"""PNG and APNG decoding with the stdlib's ``zlib`` and numpy.
+"""PNG and APNG decoding with the stdlib's ``zlib`` and numpy, and an
+8-bit RGB PNG encoder.
 
 The counterpart of PIL's PNG reader as ``localai_tpu/utils/media.py``
 reaches it (``Image.open(...).convert("RGB")``, ``seek(i)`` for the frames
@@ -22,6 +23,13 @@ PNGs itself, byte for byte as PIL 12 does.
     the next frame, blend op source, or over, which is PIL's
     ``paste(frame, box, mask)`` with the frame's alpha as the weight of
     every channel (``BLEND`` of ``libImaging/Paste.c``), alpha included.
+
+:func:`encode` writes what the image endpoint returns (the counterpart of
+PIL's ``Image.fromarray(rgb).save(buf, "PNG")``): 8-bit RGB, no
+interlace, every row with the Sub filter, one zlib stream at level 6 in
+one IDAT. Its bytes are not PIL's (PIL chooses filters and chunking of
+its own); its pixels, read back by PIL or by :func:`decode`, are the
+array's.
 """
 
 from __future__ import annotations
@@ -359,3 +367,27 @@ def decode(data: bytes) -> np.ndarray:
     """PNG bytes → RGB uint8 [H, W, 3]: the first frame, as PIL's
     ``Image.open(...).convert("RGB")``."""
     return next(PNGImage(data).frames())
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def encode(rgb: np.ndarray, level: int = 6) -> bytes:
+    """uint8 [H, W, 3] → PNG bytes (8-bit RGB, the Sub filter)."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode takes uint8 [H, W, 3], not {rgb.dtype} "
+                         f"{list(rgb.shape)}")
+    h, w = rgb.shape[:2]
+    if h < 1 or w < 1:
+        raise ValueError(f"cannot encode an empty {w}x{h} image")
+    rows = rgb.reshape(h, w * 3)
+    sub = rows.copy()
+    sub[:, 3:] -= rows[:, :-3]            # Sub: each byte minus its left
+    raw = np.concatenate([np.ones((h, 1), np.uint8), sub], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))

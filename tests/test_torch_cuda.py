@@ -1428,3 +1428,76 @@ def test_cuda_musicgen_matches_the_cpu():
     b = cpu.generate_codes("rain", 1.0, temperature=0.0)
     assert torch.equal(a.cpu(), b)
     assert float(np.abs(card.decode(a) - cpu.decode(b)).max()) <= 1e-4
+
+
+def _image_layout(name):
+    import chip_smoke
+
+    return chip_smoke._image_layouts()[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["sd1", "sdxl"])
+def test_cuda_image_models_match_the_cpu(layout):
+    """Debug-width float32 UNet (its eps), VAE (decode, encode) and CLIP
+    (states; SDXL's pooled output) on the card against the CPU, within
+    1e-4 of the largest output, TF32 off inside ``full_f32``."""
+    _card()
+    import chip_smoke
+    from localai_tpu_torch.image import clip as tclip
+    from localai_tpu_torch.image import unet as tunet
+    from localai_tpu_torch.image import vae as tvae
+    from localai_tpu_torch.image.loader import map_tree
+    from localai_tpu_torch.utils.device import full_f32
+
+    cfgs = _image_layout(layout)
+    rng = np.random.default_rng(3)
+    trees = {"unet": tunet.init_params(cfgs["unet"], 1, "cpu"),
+             "vae": tvae.init_params(cfgs["vae"], 2, "cpu"),
+             "text": tclip.init_params(cfgs["text2"] if layout == "sdxl"
+                                       else cfgs["text"], 3, "cpu")}
+    trees = {k: chip_smoke._perturbed(v, i) for i, (k, v) in
+             enumerate(trees.items())}
+    lat = torch.from_numpy(rng.normal(size=(2, 4, 16, 16)).astype(
+        np.float32))
+    ts = torch.tensor([999.0, 3.5])
+    ctx = torch.from_numpy(rng.normal(
+        size=(2, 5, cfgs["unet"].context_dim)).astype(np.float32))
+    kw = {}
+    if layout == "sdxl":
+        kw = {"pooled_text": torch.randn(2, 24),
+              "time_ids": torch.tensor([[64.0, 64, 0, 0, 64, 64]] * 2)}
+    ids = torch.from_numpy(rng.integers(1, 299, (2, 12)))
+    img = torch.rand(1, 3, 32, 32) * 2 - 1
+    out = {}
+    with torch.inference_mode(), full_f32():
+        for dev in ("cuda", "cpu"):
+            p = {k: map_tree(v, lambda t, d=dev: t.to(d))
+                 for k, v in trees.items()}
+            tcfg = cfgs["text2"] if layout == "sdxl" else cfgs["text"]
+            out[dev] = [
+                tunet.forward(cfgs["unet"], p["unet"], lat.to(dev),
+                              ts.to(dev), ctx.to(dev),
+                              **{k: v.to(dev) for k, v in kw.items()}),
+                tvae.decode(cfgs["vae"], p["vae"], lat[:1].to(dev)),
+                tvae.encode(cfgs["vae"], p["vae"], img.to(dev)),
+                *(tclip.encode_sdxl(tcfg, p["text"], ids.to(dev))
+                  if layout == "sdxl"
+                  else [tclip.forward(tcfg, p["text"], ids.to(dev))])]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert chip_smoke._rel_err(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_image_generate_matches_the_cpu():
+    """The smoke's image parity phase: 4-step euler_a and dpmpp_2m
+    generations on both layouts (a ControlNet on one), card = CPU:
+    latents within 1e-4, pixels within 1; no kernel launched."""
+    _card()
+    import chip_smoke
+
+    kernels = chip_smoke._all_kernels()
+    before = {k: w.launches for k, w in kernels.items()}
+    out = chip_smoke.phase_image_parity()
+    assert set(out) == {"sd1", "sdxl"}
+    assert {k: w.launches for k, w in kernels.items()} == before

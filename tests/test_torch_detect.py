@@ -8,9 +8,9 @@ hold a ``classifier.weight``), and for an LLM the checkpoint's own
 ``tokenizer_config.json`` chat template, or else the family's template
 and stopwords. Each tiny checkpoint dir here is written by the test; the
 port must set the same ``backend``, ``chat_template`` and ``stopwords``
-as ``autodetect_config`` of the JAX package. A detected backend the port
-has no engine for (diffusers) is refused when the config loads, naming
-it.
+as ``autodetect_config`` of the JAX package. Every detected backend now
+has an engine on the port (diffusers since the image pipeline), so each
+such YAML loads with the JAX package's backend.
 """
 
 import json
@@ -150,10 +150,10 @@ def test_detected_unported_backend_is_refused_at_load(tmp_path, family,
                                                       backend):
     """The JAX package routes these checkpoints to another engine. The
     port has the recurrent engine (mamba, rwkv), the sentence encoder
-    (bert) and the speech engines (whisper, vits) now, so those YAMLs load
-    with the detected backend, as on the JAX package; it has no image
-    pipeline, so the loader still refuses a diffusers layout, naming the
-    backend."""
+    (bert), the speech engines (whisper, vits) and the image pipeline
+    (diffusers) now, so those YAMLs load with the detected backend, as on
+    the JAX package (the name is kept from when the port refused some of
+    them)."""
     d = _checkpoint(tmp_path, "ckpt",
                     FAMILY_CONFIGS.get(family, {"model_type": "llama"}),
                     classifier=False if family == "bert" else None)
@@ -161,10 +161,6 @@ def test_detected_unported_backend_is_refused_at_load(tmp_path, family,
         (d / "model_index.json").write_text("{}")
     _write_yaml(tmp_path, "m", {"name": "m", "model": "ckpt"})
     loader = ConfigLoader(tmp_path)
-    if family == "diffusers":
-        with pytest.raises(ValueError, match=f"backend '{backend}'"):
-            loader.load_from_path()
-        return
     loader.load_from_path()
     ref = JaxModelConfig(name="m", model="ckpt")
     jax_autodetect(ref, tmp_path)

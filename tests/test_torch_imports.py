@@ -9,6 +9,7 @@ renders every kind of template and serves with both blocked.
 """
 
 import ast
+import dataclasses
 import json
 import os
 import pkgutil
@@ -339,3 +340,109 @@ def test_sources_never_import_tokenizers_or_transformers(path):
             names = [str(node.args[0].value)]
         for n in names:
             assert n.split(".")[0] not in ("tokenizers", "transformers"), n
+
+
+def test_image_modules_are_covered():
+    """The image pipeline (samplers, CLIP, UNet, VAE, ControlNet, LoRA,
+    the diffusers loader, the pipeline, the image routes, the PNG
+    encoder) is among the modules and sources the rules above check."""
+    mods = set(_port_modules())
+    for m in ("image", "image.schedulers", "image.clip", "image.unet",
+              "image.vae", "image.controlnet", "image.lora", "image.loader",
+              "image.pipeline", "api.images", "utils.png"):
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    assert {"image/unet.py", "image/loader.py", "image/lora.py",
+            "image/pipeline.py", "api/images.py"} <= rel
+
+
+BLOCKED_IMAGE = r"""
+import base64, importlib, json, sys
+pkg, ref, root = sys.argv[1], sys.argv[2], sys.argv[3]
+LACKING = ("PIL", "safetensors", "transformers", "tokenizers", "ml_dtypes",
+           "jax", ref)
+for name in LACKING:
+    sys.modules[name] = None
+images = importlib.import_module(pkg + ".api.images")
+png = importlib.import_module(pkg + ".utils.png")
+AppConfig = importlib.import_module(pkg + ".config.app_config").AppConfig
+ConfigLoader = importlib.import_module(pkg + ".config.loader").ConfigLoader
+ModelManager = importlib.import_module(pkg + ".models.manager").ModelManager
+loader = ConfigLoader(root + "/models")
+loader.load_from_path()
+manager = ModelManager(AppConfig(model_path=root + "/models", device="cpu",
+                                 image_path=root + "/images"), loader)
+edge = base64.b64encode(png.encode(
+    __import__("numpy").full((40, 40, 3), 200, "uint8"))).decode()
+sizes = []
+for name, extra in (("sd-lora", {}), ("sd-cn", {"file": edge})):
+    out = images.generations(manager, {
+        "model": name, "prompt": "a cat|dog", "size": "64x64", "step": 2,
+        "seed": 1, "response_format": "b64_json", **extra})
+    sizes.append(png.decode(base64.b64decode(
+        out["data"][0]["b64_json"])).shape)
+sm = manager.get_image("sd-cn")
+print(json.dumps({"sizes": sizes,
+                  "tokenizer": type(sm.pipeline.tokenizer).__name__,
+                  "controlnet": sm.pipeline.controlnet_params is not None,
+                  "imported": [m for m in LACKING
+                               if sys.modules.get(m) is not None]}))
+manager.shutdown()
+"""
+
+
+def test_image_models_serve_without_the_packages_the_card_lacks(tmp_path):
+    """In a fresh interpreter where PIL, safetensors, transformers,
+    tokenizers, ml_dtypes, JAX and the JAX package cannot be imported:
+    a diffusers directory with a CLIP tokenizer (vocab.json + merges.txt)
+    loads with a kohya LoRA merged, and another YAML over it attaches a
+    ControlNet; both answer /v1/images/generations with a PNG (the
+    control image given as base64)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from localai_tpu_torch.image import controlnet as tcn
+    from localai_tpu_torch.image import loader as tload
+    from localai_tpu_torch.models.loader import write_safetensors
+
+    cfgs = chip_smoke._image_layouts()["sd1"]
+    cfgs = {k: dataclasses.replace(v, dtype="bfloat16")
+            for k, v in cfgs.items()}
+    # a CLIP-format vocabulary holds the 512 byte symbols and two specials
+    cfgs["text"] = dataclasses.replace(cfgs["text"], vocab_size=600,
+                                       eos_token_id=599)
+    from localai_tpu_torch.image import clip as tclip
+    from localai_tpu_torch.image import unet as tunet
+    from localai_tpu_torch.image import vae as tvae
+
+    ckpt = tmp_path / "sd"
+    tload.write_diffusers_pipeline(
+        ckpt, unet=(cfgs["unet"], tunet.init_params(cfgs["unet"], 1, "cpu")),
+        vae=(cfgs["vae"], tvae.init_params(cfgs["vae"], 2, "cpu")),
+        text=(cfgs["text"], tclip.init_params(cfgs["text"], 3, "cpu")),
+        dtype="bfloat16")
+    size = chip_smoke.CLIP_VOCAB
+    try:
+        chip_smoke.CLIP_VOCAB = cfgs["text"].vocab_size
+        chip_smoke.write_clip_tokenizer(ckpt / "tokenizer")
+    finally:
+        chip_smoke.CLIP_VOCAB = size
+    write_safetensors(tmp_path / "lora.safetensors",
+                      chip_smoke._lora_tensors(cfgs["unet"], cfgs["text"],
+                                               rank=2))
+    tload.write_controlnet(tmp_path / "cn", cfgs["unet"], tcn.init_params(
+        cfgs["unet"], 4, "cpu", cond_channels=(8, 16)))
+    models = tmp_path / "models"
+    chip_smoke.write_models_dir(models, {
+        "sd-lora": (f"name: sd-lora\nbackend: diffusers\nmodel: {ckpt}\n"
+                    f"lora_adapter: {tmp_path / 'lora.safetensors'}\n"),
+        "sd-cn": (f"name: sd-cn\nbackend: diffusers\nmodel: {ckpt}\n"
+                  f"diffusers:\n  control_net: {tmp_path / 'cn'}\n")})
+    res = subprocess.run(
+        [sys.executable, "-c", BLOCKED_IMAGE, PKG, PKG.rsplit("_", 1)[0],
+         str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == {
+        "sizes": [[64, 64, 3]] * 2, "tokenizer": "ClipTokenizer",
+        "controlnet": True, "imported": []}

@@ -456,7 +456,10 @@ UNSUPPORTED = [
                "unk_token": "a"}, "WordPiece"),
     ("model", {"type": "Unigram", "vocab": [["a", 0.0]]}, "Unigram"),
     ("normalizer", {"type": "BertNormalizer"}, "BertNormalizer"),
-    ("normalizer", {"type": "Lowercase"}, "Lowercase"),
+    # Lowercase is read since the CLIP tokenizers need it; Precompiled
+    # (SentencePiece's, FLUX's T5) is not
+    ("normalizer", {"type": "Precompiled", "precompiled_charsmap": ""},
+     "Precompiled"),
     ("pre_tokenizer", {"type": "Whitespace"}, "Whitespace"),
     ("pre_tokenizer", {"type": "Split", "pattern": {"Regex": r"\p{Xx}"},
                        "behavior": "Isolated", "invert": False}, "Xx"),
