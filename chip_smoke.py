@@ -261,6 +261,7 @@ import base64
 import dataclasses
 import gc
 import json
+import os
 import re
 import shutil
 import struct
@@ -3653,9 +3654,10 @@ def _weight_bytes(params: dict) -> dict:
 
 
 def _chats(url: str, name: str, n: int = 5, max_tokens: int = 32,
-           extra: Optional[dict] = None) -> dict:
+           extra: Optional[dict] = None, key: Optional[str] = None) -> dict:
     """The serves' five greedy chats (the last streamed), concurrently,
-    each body with ``extra``'s fields: {"results": by index, "wall_s",
+    each body with ``extra``'s fields (and a bearer ``key`` when given):
+    {"results": by index (each with its client wall "wall_s"), "wall_s",
     "ttft_s", "tokens"}."""
     prompts = ["Write a haiku about paged attention.",
                "What is the capital of France?",
@@ -3673,7 +3675,9 @@ def _chats(url: str, name: str, n: int = 5, max_tokens: int = 32,
 
     def plain(i):
         try:
-            results[i] = json.loads(_post(url, body(i)).read())
+            t = time.monotonic()
+            results[i] = json.loads(_post(url, body(i), key=key).read())
+            results[i]["wall_s"] = time.monotonic() - t
         except Exception as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
 
@@ -3681,7 +3685,7 @@ def _chats(url: str, name: str, n: int = 5, max_tokens: int = 32,
         try:
             t = time.monotonic()
             ttft, text, last = None, "", None
-            with _post(url, body(i, stream=True)) as r:
+            with _post(url, body(i, stream=True), key=key) as r:
                 for line in r:
                     line = line.strip()
                     if not line.startswith(b"data: {"):
@@ -3692,7 +3696,8 @@ def _chats(url: str, name: str, n: int = 5, max_tokens: int = 32,
                         ttft = time.monotonic() - t
                     text += delta or ""
                     last = frame
-            results[i] = {"text": text, "ttft_s": ttft, "last": last}
+            results[i] = {"text": text, "ttft_s": ttft, "last": last,
+                          "wall_s": time.monotonic() - t}
         except Exception as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
 
@@ -3782,6 +3787,9 @@ def _one_model_manager(app, loader, sm):
 
         def loaded_names(self):
             return sorted({*super().loaded_names(), sm.name})
+
+        def loaded_snapshot(self):
+            return {**super().loaded_snapshot(), sm.name: sm}
 
         def shutdown(self):
             super().shutdown()
@@ -4279,10 +4287,12 @@ QWEN = "qwen2.5-7b-bf16"
 REQUEST_SPANS = ["queued", "admitted", "prefill", "decode", "drained"]
 
 
-def _get(url: str) -> tuple:
-    """(status, body bytes, wall ms) of a GET."""
+def _get(url: str, key: Optional[str] = None) -> tuple:
+    """(status, body bytes, wall ms) of a GET (with a bearer ``key``)."""
     t0 = time.monotonic()
-    with urllib.request.urlopen(url, timeout=60) as r:
+    req = urllib.request.Request(
+        url, headers={"Authorization": f"Bearer {key}"} if key else {})
+    with urllib.request.urlopen(req, timeout=60) as r:
         body = r.read()
         return r.status, body, (time.monotonic() - t0) * 1e3
 
@@ -4297,17 +4307,20 @@ def _series(text: str, name: str, model: str) -> float:
     return total
 
 
-def phase_telemetry(srv, chats: list) -> dict:
+def phase_telemetry(srv, chats: list, key: Optional[str] = None) -> dict:
     """After a serve: the scrape's TTFT count and requests equal the chats
     served, its generated tokens the tokens the clients were sent; one
     trace per chat at /v1/traces with the request spans in order, each
     under its HTTP span's trace id; /healthz and /version answer 200.
-    ``chats`` is every chat of the serve (``_chats`` results)."""
+    ``chats`` is every chat of the serve (``_chats`` results); ``key`` the
+    server's API key, if it has one."""
     url = srv.server.url
     n = sum(len(c["results"]) for c in chats)
     tokens = sum(c["tokens"] for c in chats)
-    status, body, scrape_ms = _get(url + "/metrics")
+    status, body, scrape_ms = _get(url + "/metrics", key)
     text = body.decode()
+    # the first scrape pays each family's first use; a second one, warm
+    scrape_again_ms = _get(url + "/metrics", key)[2]
     got = {"ttft_count": _series(text, "localai_ttft_seconds_count",
                                  srv.name),
            "requests": _series(text, "localai_requests_total", srv.name),
@@ -4318,13 +4331,13 @@ def phase_telemetry(srv, chats: list) -> dict:
         raise AssertionError(f"{srv.name}: /metrics gave {got}, served "
                              f"{n} chats of {tokens} tokens")
     status, body, traces_ms = _get(
-        url + f"/v1/traces?kind=request&model={srv.name}&limit=500")
+        url + f"/v1/traces?kind=request&model={srv.name}&limit=500", key)
     traces = json.loads(body)["traces"]
     names = [[c["name"] for c in t["children"]] for t in traces]
     if len(traces) != n or any(x != REQUEST_SPANS for x in names):
         raise AssertionError(f"{srv.name}: /v1/traces holds {len(traces)} "
                              f"traces for {n} chats: {names}")
-    _, body, _ = _get(url + "/v1/traces?kind=http&limit=500")
+    _, body, _ = _get(url + "/v1/traces?kind=http&limit=500", key)
     http_ids = {t["trace_id"] for t in json.loads(body)["traces"]}
     if any(t["trace_id"] not in http_ids for t in traces):
         raise AssertionError(f"{srv.name}: an engine trace has no HTTP span "
@@ -4333,9 +4346,245 @@ def phase_telemetry(srv, chats: list) -> dict:
         if _get(url + path)[0] != 200:
             raise AssertionError(f"{path} did not answer 200")
     rec = {"model": srv.name, "chats": n, "tokens": tokens,
-           "scrape_ms": scrape_ms, "scrape_bytes": len(text),
+           "scrape_ms": scrape_ms, "scrape_again_ms": scrape_again_ms,
+           "scrape_bytes": len(text),
            "traces_ms": traces_ms, **got}
     print("telemetry: " + json.dumps(rec), flush=True)
+    return rec
+
+
+QWEN_KEY = "sk-observatory-smoke-key"
+# phase-only settings of the observed serve: history snapshots every
+# second, a flight ring that holds every dispatch of the serve
+OBSERVATORY_ENV = {"LOCALAI_HISTORY_SNAPSHOT_S": "1",
+                   "LOCALAI_FLIGHT_CAPACITY": "4096"}
+
+
+def _trace_idle(events: list) -> dict:
+    """The card's idle share over a Chrome trace's window: 1 - the union
+    of its CUDA kernel intervals over the span of its complete ("X")
+    events, CPU and device."""
+    timed = [e for e in events if e.get("ph") == "X"
+             and isinstance(e.get("ts"), (int, float))]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in timed
+                   if e.get("cat") == "kernel")
+    if not spans:
+        return {"kernels": 0, "window_ms": 0.0, "idle_share": None}
+    t0 = min(e["ts"] for e in timed)
+    t1 = max(e["ts"] + e.get("dur", 0) for e in timed)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    window = max(1e-9, t1 - t0)
+    return {"kernels": len(spans), "window_ms": window / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / window}
+
+
+def _record_us(n: int = 10_000) -> float:
+    """Median host µs of one ``FlightRecorder.record`` call."""
+    from localai_tpu_torch.obs.flight import FlightRecorder
+
+    rec = FlightRecorder(512)
+    times = []
+    for i in range(n):
+        t = time.perf_counter()
+        rec.record(program="decode_n", steps=16, dispatch_ms=30.0,
+                   occupancy=0.5, queue_depth=1, kv_utilization=0.2,
+                   tokens=16, gap_ms=1.0, sched_ms=0.5, launch_ms=20.0,
+                   sync_ms=8.0)
+        times.append(time.perf_counter() - t)
+    return float(np.median(times)) * 1e6
+
+
+def phase_observatory(srv, chats: list, key: str, dirs: dict) -> dict:
+    """The engine observatory of a served model, read with the engine idle
+    after ``chats`` (every chat of the serve, warm-up included): one flight
+    record per dispatch, whose tokens sum to the tokens the clients were
+    sent; the anatomy's phases tile every record; the usage ledger's
+    identity (goodput + cancelled + error tokens == the ring's total) and
+    one hashed tenant for the key, which appears in neither /metrics nor
+    /v1/usage; one SLO event per chat, its TTFT p95 inside the clients'
+    walls; the census's weights and KV equal the runner's tensors and its
+    bytes in use ``torch.cuda.memory_allocated()``; the decode programs'
+    achieved GB/s at most 105% of the roofline; a 2 s ``POST
+    /backend/trace`` during a streamed chat holds K1's kernel; a history
+    snapshot under ``dirs["history"]``. Prints one ``observatory:`` line
+    (TPOT beside ``step_ms_p50``, the anatomy's fractions, the trace's
+    idle share beside the bubble estimate of the same dispatches, the
+    record's host µs)."""
+    from localai_tpu_torch.obs import device as tdev
+    from localai_tpu_torch.obs.ledger import LEDGER, derive_tenant
+
+    url, name, sched = srv.server.url, srv.name, srv.sm.scheduler
+    r = srv.sm.runner
+
+    def get_json(path):
+        status, body, ms = _get(url + path, key)
+        if status != 200:
+            raise AssertionError(f"{path} answered {status}")
+        return json.loads(body), body.decode(), ms
+
+    served = sum(c["tokens"] for c in chats)
+    n_chats = sum(len(c["results"]) for c in chats)
+    # -- flight ring: one record per dispatch, tokens = tokens sent --------
+    fl, _, _ = get_json("/debug/flight?limit=4096")
+    ring = fl["models"][name]
+    recs = ring["records"]
+    m = sched.metrics()
+    want = m["dispatches"] + m["prefill_chunks"]
+    if len(recs) != want or ring["dispatches"] != want:
+        raise AssertionError(f"{name}: {len(recs)} flight records for "
+                             f"{want} dispatches")
+    if sum(x["tokens"] for x in recs) != served or \
+            ring["tokens_total"] != served:
+        raise AssertionError(f"{name}: flight tokens "
+                             f"{sum(x['tokens'] for x in recs)} for "
+                             f"{served} sent")
+    for x in recs:
+        if (x["gap_ms"] + x["sched_ms"] + x["launch_ms"] + x["sync_ms"]
+                > x["dispatch_ms"] + 4e-3):
+            raise AssertionError(f"{name}: phases over the wall: {x}")
+    streamed = chats[-1]["results"][len(chats[-1]["results"]) - 1]
+    n_str = streamed["last"]["usage"]["completion_tokens"]
+    tpot_ms = ((streamed["wall_s"] - streamed["ttft_s"]) / max(1, n_str - 1)
+               * 1e3)
+    an, _, _ = get_json("/debug/anatomy?window=0")
+    a = an["models"][name]
+    # -- ledger identity, one hashed tenant, no raw key --------------------
+    g = LEDGER.goodput_totals(name)
+    if g["flight_tokens"] != sched.flight.total_tokens:
+        raise AssertionError(f"{name}: ledger {g} against the ring's "
+                             f"{sched.flight.total_tokens} tokens")
+    usage, usage_text, _ = get_json("/v1/usage")
+    rows = [x for x in usage["data"] if x["model"] == name]
+    tenant = derive_tenant(key)
+    if [x["tenant"] for x in rows] != [tenant] or \
+            rows[0]["delivered_tokens"] != served:
+        raise AssertionError(f"{name}: /v1/usage rows {rows}")
+    _, raw, scrape_ms = _get(url + "/metrics", key)
+    metrics_text = raw.decode()
+    if key in usage_text or key in metrics_text:
+        raise AssertionError("the raw API key is exposed")
+    # -- SLO: one event per chat, TTFT p95 inside the clients' walls -------
+    slo, _, _ = get_json("/v1/slo")
+    w = slo["models"][name]["windows"]["30m"]
+    walls = [x["wall_s"] * 1e3 for c in chats for x in c["results"].values()]
+    if w["count"] != n_chats or not (
+            0 < w["ttft_ms"]["p95"] <= max(walls)):
+        raise AssertionError(f"{name}: /v1/slo {w} for {n_chats} chats "
+                             f"of walls {walls}")
+    # -- census against the runner and the allocator -----------------------
+    dv, _, _ = get_json("/debug/devices?probe=0")
+    allocated = torch.cuda.memory_allocated()
+    cats = dv["census"]["by_category"]
+    weights = sum(t.numel() * t.element_size()
+                  for t in tdev._param_tensors(r.params))
+    kv = sum(t.numel() * t.element_size() for t in (r.kv.k, r.kv.v))
+    in_use = dv["devices"][0]["memory"]["bytes_in_use"]
+    if cats["weights"] != weights or cats["kv_cache"] != kv or \
+            in_use != allocated or dv["census"]["total_bytes"] != allocated:
+        raise AssertionError(f"{name}: census {dv['census']}, in use "
+                             f"{in_use}, allocated {allocated}, weights "
+                             f"{weights}, kv {kv}")
+    probe, _, _ = get_json("/debug/devices?probe_timeout=30")
+    if not probe["probe"]["ok"]:
+        raise AssertionError(f"device probe failed: {probe['probe']}")
+    # -- program costs: the decode programs under the roofline -------------
+    pr, _, _ = get_json("/debug/programs")
+    peak = pr["roofline"]["peak_gbps"]
+    S, ctx = r.num_slots, r.ctx_pad
+    decode = [x for x in pr["programs"]
+              if x["program"] in ("decode", "decode_n")
+              and x.get("achieved_gbps") is not None
+              and x["bytes_accessed"] == r._cost(
+                  S, x["statics"].get("n", 1), ctx, S * ctx,
+                  S)["bytes_accessed"]]
+    if not decode or any(x["achieved_gbps"] > 1.05 * peak for x in decode):
+        raise AssertionError(f"{name}: decode programs {decode} against "
+                             f"{peak} GB/s")
+    top = max(decode, key=lambda x: x["dispatches"])
+    # -- a 2 s capture while a chat streams: K1 among its kernels ----------
+    body = {"model": name, "max_tokens": 256, "temperature": 0,
+            "ignore_eos": True, "stream": True,
+            "messages": [{"role": "user", "content": "Count slowly."}]}
+    done = threading.Event()
+    errors: list = []
+
+    def stream():
+        try:
+            with _post(url + "/v1/chat/completions", body, key=key) as resp:
+                for _line in resp:
+                    pass
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+        finally:
+            done.set()
+
+    th = threading.Thread(target=stream)
+    th.start()
+    time.sleep(1.0)   # the chat is decoding
+    t_cap = time.monotonic()
+    with _post(url + "/backend/trace", {"seconds": 2.0}, key=key) as resp:
+        cap = json.loads(resp.read())
+    t_end = time.monotonic()
+    th.join()
+    if errors:
+        raise errors[0]
+    with open(os.path.join(cap["trace_dir"], "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    if not any("paged_decode_kernel" in k for k in kernels):
+        raise AssertionError(f"the trace holds no K1 launch: "
+                             f"{sorted(kernels)[:20]}")
+    idle = _trace_idle(events)
+    same = [x for x in sched.flight.snapshot()
+            if t_cap <= x["ts"] <= t_end and not x["compile"]]
+    wall = sum(x["dispatch_ms"] for x in same)
+    bubble = (sum(max(0.0, x["gap_ms"] + x["sched_ms"] + x["launch_ms"]
+                      - x["sync_ms"]) for x in same) / wall
+              if wall else None)
+    # -- a history snapshot ------------------------------------------------
+    hist = os.path.join(dirs["history"], "history.json")
+    deadline = time.monotonic() + 10
+    while not os.path.exists(hist) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if not os.path.exists(hist):
+        raise AssertionError(f"no history snapshot at {hist}")
+    rec = {
+        "model": name, "records": len(recs), "dispatches": want,
+        "tokens": served, "chats": n_chats,
+        "step_ms_p50": ring["percentiles"]["step_ms_p50"],
+        "step_ms_p99": ring["percentiles"]["step_ms_p99"],
+        "tpot_streamed_ms": tpot_ms,
+        "host_overhead_fraction": a["host_overhead_fraction"],
+        "device_bubble_fraction": a["device_bubble_fraction"],
+        "phase_share": a["phase_share"],
+        "phase_ms_p50": {ph: a[f"{ph}_ms_p50"]
+                         for ph in ("gap", "sched", "launch", "sync")},
+        "ledger": {"delivered": g["delivered_tokens"],
+                   "flight_tokens": g["flight_tokens"],
+                   "tenant": tenant},
+        "slo_ttft_ms": w["ttft_ms"], "slo_tpot_ms": w["tpot_ms"],
+        "census": cats, "bytes_in_use": in_use,
+        "weights_gb": weights / 1e9, "kv_gb": kv / 1e9,
+        "probe_s": probe["probe"]["seconds"],
+        "roofline": pr["roofline"], "decode_program": {
+            k: top.get(k) for k in ("program", "statics", "dispatches",
+                                    "dispatch_seconds_ema",
+                                    "achieved_gbps", "bandwidth_fraction",
+                                    "achieved_gflops", "flops_fraction")},
+        "trace": {**idle, "k1_kernels": sorted(
+            k for k in kernels if "paged_decode" in k),
+            "bubble_estimate_same_dispatches": bubble,
+            "dispatches_in_window": len(same)},
+        "scrape_ms": scrape_ms, "scrape_bytes": len(metrics_text),
+        "record_us": _record_us()}
+    print("observatory: " + json.dumps(rec), flush=True)
     return rec
 
 
@@ -4345,16 +4594,26 @@ def phase_serve_qwen(card: str) -> dict:
     4 kv heads), seeded random bf16 weights drawn on the card and written
     once by ``models.loader.write_llama_checkpoint``, and the smoke's
     128256-id tokenizer.json; loaded from a YAML naming the directory,
-    paged, ``spec: false``. A warm-up chat, then five greedy 32-token chats
-    (one streamed) with every count at 0: K1 28 launches a plain decode
-    step and no other kernel; then ``phase_telemetry``. Returns the
-    launches, the serve's record and the telemetry's."""
+    paged, ``spec: false``, served with one API key, loose SLO targets (no
+    shedding), history and profiles under temp dirs. A warm-up chat, then
+    five greedy 32-token chats (one streamed) with every count at 0: K1 28
+    launches a plain decode step and no other kernel; then
+    ``phase_telemetry`` and ``phase_observatory``. Returns the launches,
+    the serve's record, the telemetry's and the observatory's."""
     import pathlib
 
     from localai_tpu_torch.models.llama import LlamaConfig, init_params
+    from localai_tpu_torch.obs import compile as obs_compile
+    from localai_tpu_torch.obs import history as obs_history
 
     root = pathlib.Path(_scratch_dir("qwen-serve-", 16_500_000_000))
     ckpt, models = root / "Qwen2.5-7B-Instruct", root / "models"
+    dirs = {"history": str(root / "history"),
+            "profiles": str(root / "profiles"),
+            "assets": str(root / "assets")}
+    env = {**OBSERVATORY_ENV, "LOCALAI_HISTORY_DIR": dirs["history"],
+           "LOCALAI_PROFILE_DIR": dirs["profiles"]}
+    saved = {k: os.environ.get(k) for k in env}
     try:
         cfg = LlamaConfig.from_hf(QWEN25_7B_CONFIG)  # bfloat16
         t0 = time.monotonic()
@@ -4375,17 +4634,23 @@ def phase_serve_qwen(card: str) -> dict:
         doc = {"name": QWEN, "model": str(ckpt), "context_size": 4096,
                "engine": {"max_slots": 8, "kv_block_tokens": 64,
                           "spec": False}}
-        with _Served(doc, models_path=str(models)) as srv:
+        os.environ.update(env)
+        # the catalog is process-wide: this serve's programs alone
+        obs_compile.CATALOG.reset()
+        with _Served(doc, models_path=str(models), app={
+                "api_keys": [QWEN_KEY], "slo_ttft_p95_ms": 600_000.0,
+                "slo_e2e_p95_ms": 600_000.0,
+                "backend_assets_path": dirs["assets"]}) as srv:
             r = srv.sm.runner
             if (r.cfg.num_heads, r.cfg.num_kv_heads, r.cfg.num_layers) != (
                     28, 4, 28) or not r.paged or r.paged_attn_impl != \
                     "kernel" or srv.sm.scheduler.spec is not None:
                 raise AssertionError(f"{QWEN}: not a paged group-7 engine "
                                      "on the kernels without speculation")
-            warm = _chats(srv.chat, srv.name, n=1)
+            warm = _chats(srv.chat, srv.name, n=1, key=QWEN_KEY)
             torch.cuda.reset_peak_memory_stats()
             run = _counted(srv.sm, _all_kernels(),
-                           lambda: _chats(srv.chat, srv.name))
+                           lambda: _chats(srv.chat, srv.name, key=QWEN_KEY))
             chats = run.pop("result")
             rec = {"card": card, "model": QWEN, "checkpoint_gb": size / 1e9,
                    "checkpoint_write_s": written["weights_s"],
@@ -4398,9 +4663,23 @@ def phase_serve_qwen(card: str) -> dict:
                        torch.cuda.max_memory_allocated() / 1e9}
             print("serve: " + json.dumps(rec), flush=True)
             _check_k1(QWEN, run, 28)
-            tele = phase_telemetry(srv, [warm, chats])
-        return {"launches": run, "serve": rec, "telemetry": tele}
+            tele = phase_telemetry(srv, [warm, chats], key=QWEN_KEY)
+            t_obs = time.monotonic()
+            obs = phase_observatory(srv, [warm, chats], QWEN_KEY, dirs)
+            print(f"observatory phase: {time.monotonic() - t_obs:.1f}s",
+                  flush=True)
+        return {"launches": run, "serve": rec, "telemetry": tele,
+                "observatory": obs}
     finally:
+        # the history writer stops with the serve; later servers start
+        # without this phase's settings
+        obs_history.HISTORY.stop()
+        obs_history.HISTORY.configure(None)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5926,7 +6205,8 @@ class _Served:
     the model is freed on exit so the next phase's peak memory is its
     own."""
 
-    def __init__(self, doc: dict, models_path: Optional[str] = None):
+    def __init__(self, doc: dict, models_path: Optional[str] = None,
+                 app: Optional[dict] = None):
         from localai_tpu_torch.api.server import APIServer
         from localai_tpu_torch.config.app_config import AppConfig
         from localai_tpu_torch.config.loader import ConfigLoader
@@ -5937,7 +6217,7 @@ class _Served:
         mcfg.set_defaults()
         loader = ConfigLoader()
         loader.register(mcfg)
-        app = AppConfig(device="cuda")
+        app = AppConfig(device="cuda", **(app or {}))
         if models_path is not None:
             app.model_path = models_path
         self.name = mcfg.name

@@ -10,7 +10,8 @@ encoded by the model's vision tower; ``expand_image_placeholders``), of
 its ``request_deadline_s``, and of the request helpers of
 ``localai_tpu/api/schema.py`` (``tool_definitions``, ``tool_choice_name``,
 ``tools_disabled``), written over the parsed JSON body, since the port
-has no pydantic request model.
+has no pydantic request model; and of its SLO admission hook,
+:func:`shed_check`.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ from typing import Any, Optional
 import numpy as np
 
 from localai_tpu_torch import functions as fx
+from localai_tpu_torch.obs import ledger as obs_ledger
 from localai_tpu_torch.obs import logging as obs_logging
+from localai_tpu_torch.obs import slo as obs_slo
 from localai_tpu_torch.templates.chat import multimodal_placeholders
 
 log = logging.getLogger(__name__)
@@ -69,6 +72,31 @@ def request_deadline_s(cfg: Any) -> float:
     engine step) and the request ends with 504."""
     v = cfg.request_deadline_s
     return float(v) if v and v > 0 else 600.0
+
+
+def shed_check(model: str, scheduler: Any = None) -> None:
+    """SLO burn-rate admission control (``obs.slo``): when the observatory
+    says ``model`` is out of its error budget on both the fast and slow
+    windows, refuse new work with 429 and ``Retry-After`` instead of
+    queueing it into a latency spiral. Recovery is automatic: shed
+    requests never become SLO events, so the fast window drains. A no-op
+    with no targets configured."""
+    from localai_tpu_torch.api.openai import APIError
+
+    if not obs_slo.SLO.should_shed(model):
+        return
+    retry = obs_slo.SLO.shed(model)
+    note = getattr(scheduler, "note_shed", None)
+    if note is not None:
+        note()
+    # one whole refused request for the waste decomposition, in the
+    # caller's tenant bucket: the only tier that ever sees it
+    obs_ledger.LEDGER.note_waste("shed", model=model,
+                                 tenant=obs_ledger.current_tenant(),
+                                 requests=1)
+    raise APIError(429, f"model {model!r} is shedding load (SLO burn rate "
+                        f"over threshold); retry after {retry}s",
+                   headers={"Retry-After": str(retry)})
 
 
 def _function_def(f: dict) -> dict:

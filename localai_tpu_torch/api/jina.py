@@ -5,13 +5,15 @@ reranker``, or a bert-class checkpoint with no backend) scores every
 (query, document) pair jointly in one batched forward
 (``models/reranker.py``); any other model mean-pools the query and each
 document through the LLM engine (``runner.embed``) and scores by the
-cosine of their vectors.
+cosine of their vectors. SLO admission control refuses it with 429 under
+overload, as it does generation (``api.inference.shed_check``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from localai_tpu_torch.api import inference as inf
 from localai_tpu_torch.api.openai import (
     APIError,
     _load_failed,
@@ -38,6 +40,8 @@ def rerank(manager, body: dict) -> dict:
     if top_n < 1:
         raise APIError(400, "top_n must be >= 1")
     name = _model_name(manager, body)
+    # SLO admission control: rerank rides the same engine capacity
+    inf.shed_check(name)
     if manager.is_reranker(manager.loader.get(name)):
         # joint (query ⊕ document) scoring
         try:

@@ -1,22 +1,32 @@
 """LocalAI-specific endpoints of the port: health, version, metrics,
-system info, tokenize, backend monitor/metrics/shutdown.
+system info, tokenize, backend monitor/metrics/shutdown/trace, the SLO
+observatory (``/v1/slo``) and usage accounting (``/v1/usage``).
 
 Port of the routes of ``localai_tpu/api/localai.py`` that the port can
 serve, written, as ``api.openai`` is, as framework-free functions over
 parsed JSON (``api.server`` maps HTTP onto them): GET handlers take
-``(manager, query)``, POST handlers ``(manager, body)``. The JAX package's
-fleet, SLO, usage and profiler routes wait for those subsystems (ROADMAP
-items 15 part 2 and 23). ``/readyz`` stays in ``api.openai``.
+``(manager, query)``, POST handlers ``(manager, body)``. The JAX
+package's fleet routes (``/v1/fleet``, ``/v1/fleet/{model}/swap``,
+``/federated/register``) wait for fleets (ROADMAP item 23). ``/readyz``
+stays in ``api.openai``.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
 from localai_tpu_torch import __version__
 from localai_tpu_torch.api.openai import APIError, _model_name, _serving
+from localai_tpu_torch.obs import device as obs_device
+from localai_tpu_torch.obs import profiler as obs_profiler
+from localai_tpu_torch.obs import slo as obs_slo
+from localai_tpu_torch.obs.history import HISTORY
+from localai_tpu_torch.obs.ledger import LEDGER
 from localai_tpu_torch.obs.metrics import REGISTRY, update_engine_gauges
 from localai_tpu_torch.obs.trace import STORE
+from localai_tpu_torch.utils.paths import verify_path
 
 
 def healthz(manager, query) -> dict:
@@ -31,10 +41,21 @@ def metrics(manager, query) -> str:
     """GET /metrics: the OpenMetrics text. The engine series are refreshed
     here, at scrape time, from each model's ``metrics()`` dict (host reads
     only: counters are monotone totals, gauges point-in-time); the decode
-    loop never touches the registry."""
+    loop never touches the registry. Every scrape is also a history tick,
+    exports the usage ledger, refreshes the device-memory gauges (host
+    metadata, never a kernel: the probe lives in /debug/devices) and the
+    SLO burn-rate and shedding gauges."""
     for name, m in manager.metrics().items():
         if isinstance(m, dict):
             update_engine_gauges(name, m)
+            HISTORY.observe_engine(name, m)
+    LEDGER.export(REGISTRY)
+    HISTORY.observe_ledger(LEDGER)
+    runners = [r for r in (getattr(sm, "runner", None)
+                           for sm in manager.loaded_snapshot().values())
+               if r is not None]
+    obs_device.update_device_gauges(runners)
+    obs_slo.SLO.export_gauges()
     # trace-store sizing receipt (LOCALAI_TRACE_CAPACITY): dashboards can
     # tell "trace evicted from the ring" from "trace never recorded"
     REGISTRY.trace_ring_size.set(STORE.capacity)
@@ -91,3 +112,62 @@ def backend_shutdown(manager, body: dict) -> dict:
 def engine_metrics(manager, query) -> dict:
     """GET /backend/metrics: every loaded model's ``metrics()`` dict."""
     return manager.metrics()
+
+
+def slo_report(manager, query) -> dict:
+    """GET /v1/slo: per-model sliding-window (1m/5m/30m) TTFT / TPOT /
+    e2e / queue-wait percentiles, burn rates against the configured p95
+    targets, and shedding state (``obs.slo``)."""
+    return obs_slo.SLO.report()
+
+
+def _float_query(query: dict, name: str):
+    raw = query.get(name)
+    if raw is None or raw == "":
+        return None
+    try:
+        return float(raw)
+    except ValueError:
+        raise APIError(400, f"{name} must be a number") from None
+
+
+def usage(manager, query) -> dict:
+    """GET /v1/usage: the usage ledger's per-(tenant, model, lane) panes
+    and the goodput/waste decomposition (``obs.ledger``). ``?since=<unix
+    ts>`` or ``?window=<seconds>`` aggregate the bounded event ring
+    instead of the lifetime totals (``coverage_start`` says how far back
+    it reaches). Tenants are ``t-<sha256/12>`` buckets or ``anonymous`` —
+    a raw API key never appears. (The JAX package's ``?replicas=1`` fleet
+    drill-down comes with fleets, ROADMAP item 23.)"""
+    return LEDGER.usage_payload(since=_float_query(query, "since"),
+                                window=_float_query(query, "window"))
+
+
+def backend_trace(manager, body: dict) -> dict:
+    """POST {seconds?, dir?} → a ``torch.profiler`` capture (CPU and CUDA
+    activity, a Chrome-trace JSON ``<trace_dir>/trace.json``) of
+    ``seconds`` (0.1–60, default 3) while serving goes on, under
+    ``<backend assets>/<dir>``
+    (default ``traces``; ``dir`` must stay under the backend assets).
+    One capture at a time, shared with the anomaly profiler: a second
+    one is a 409."""
+    try:
+        seconds = float(body.get("seconds", 3.0))
+    except (TypeError, ValueError):
+        raise APIError(400, "seconds must be a number") from None
+    if not 0.1 <= seconds <= 60.0:
+        raise APIError(400, "seconds must be in [0.1, 60]")
+    base = manager.app.backend_assets_path or "."
+    try:
+        out = verify_path(str(body.get("dir", "traces")), base)
+    except ValueError as e:
+        raise APIError(400, str(e)) from None
+    prof = obs_profiler.PROFILER
+    if not prof.acquire_capture():
+        raise APIError(409, "a trace capture is already running")
+    try:
+        path = str(out / time.strftime("trace-%Y%m%d-%H%M%S"))
+        obs_profiler.torch_capture(path, seconds)
+    finally:
+        prof.release_capture()
+    return {"trace_dir": path, "seconds": seconds}

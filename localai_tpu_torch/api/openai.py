@@ -39,6 +39,7 @@ from typing import Any, Iterator, Optional
 
 from localai_tpu_torch.api import inference as inf
 from localai_tpu_torch.engine.scheduler import GenHandle, GenRequest
+from localai_tpu_torch.obs import ledger as obs_ledger
 from localai_tpu_torch.templates.chat import (
     apply_tokenizer_template,
     build_chat_prompt,
@@ -51,12 +52,15 @@ SSE_DONE = b"data: [DONE]\n\n"
 
 
 class APIError(Exception):
-    """An error the server reports as ``{"error": ...}`` with a status."""
+    """An error the server reports as ``{"error": ...}`` with a status
+    (and ``headers``, e.g. a shed 429's ``Retry-After``)."""
 
-    def __init__(self, status: int, message: str):
+    def __init__(self, status: int, message: str,
+                 headers: Optional[dict] = None):
         super().__init__(message)
         self.status = status
         self.message = message
+        self.headers = dict(headers or {})
 
 
 def sse_event(payload: Any) -> bytes:
@@ -263,7 +267,8 @@ def _gen_request(sm, body: dict, prompt: str, stream: bool,
         stop=tuple(cfg.stopwords) + tuple(stops), constraint=constraint,
         ignore_eos=bool(body.get("ignore_eos")), stream=stream,
         mm_embeds=mm_rows, mm_positions=mm_pos,
-        correlation_id=cid, trace_id=inf.trace_id() or cid)
+        correlation_id=cid, trace_id=inf.trace_id() or cid,
+        tenant=obs_ledger.current_tenant())
 
 
 _MESSAGE_FIELDS = ("role", "name", "content", "tool_calls", "function_call")
@@ -415,6 +420,9 @@ def chat(manager, body: dict):
     submits every choice at once, each with ``seed + i`` and a constraint
     of its own."""
     sm, model = _serving(manager, body, "chat")
+    # SLO admission control before any prompt build or constraint compile:
+    # a 429 must cost the overloaded engine nothing
+    inf.shed_check(model, getattr(sm, "scheduler", None))
     raw_messages = chat_messages(body.get("messages"))
     stream = bool(body.get("stream"))
     n = _choices(body)
@@ -562,6 +570,7 @@ def completions(manager, body: dict):
     of a list goes through the ``completion`` template and runs ``n``
     choices; choice ``p * n + i`` is prompt p's i-th."""
     sm, model = _serving(manager, body, "completion")
+    inf.shed_check(model, getattr(sm, "scheduler", None))
     prompts = _prompt_list(body)
     stream = bool(body.get("stream"))
     _refuse_completion_constraints(body)
@@ -621,6 +630,7 @@ def edits(manager, body: dict) -> dict:
     JAX package reads it) goes through the ``edit`` template with
     ``instruction``; one choice each, ``object: "edit"``."""
     sm, model = _serving(manager, body, "edit")
+    inf.shed_check(model, getattr(sm, "scheduler", None))
     inputs = _prompt_list(body)
     instruction = body.get("instruction") or ""
     if not isinstance(instruction, str):
@@ -663,6 +673,9 @@ def embeddings(manager, body: dict) -> dict:
         raise APIError(400, "input must be a string, a list of strings or "
                             "token arrays")
     name = _model_name(manager, body)
+    # SLO admission control covers embeddings (the same engine capacity),
+    # checked before any model load
+    inf.shed_check(name)
     if manager.is_embedder(manager.loader.get(name)):
         if not all(isinstance(t, str) for t in inputs):
             raise APIError(400, "token-array input is not supported for "

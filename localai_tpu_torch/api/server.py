@@ -16,8 +16,11 @@ under the JAX package's unversioned alias:
     (``api.images``; PNG)
   * GET  /v1/models, /models  (``?filter=<regex>``)
   * GET  /, /healthz, /readyz, /version, /metrics, /system,
-    /backend/metrics
+    /backend/metrics, /v1/slo, /v1/usage; POST /backend/trace
   * GET  /v1/traces, /v1/traces/{trace_id}, /debug/timeline/{request_id}
+  * GET  /debug/devices, /debug/programs, /debug/stacks, /debug/flight,
+    /debug/anatomy, /debug/profiles, /debug/history,
+    /debug/history/{series}, /debug/kv (``api.debug``)
 One thread per connection; each request blocks its own thread on the
 scheduler handle while the engine thread batches all of them. A request
 body is read up to ``MAX_BODY_BYTES`` (64 MiB, the JAX package's
@@ -30,9 +33,17 @@ bound to the handler's thread for the JSON logs and answered in an
 scrape and trace paths of ``TRACE_SKIP``); ``localai_api_call_seconds``
 by the matched route's pattern; bearer-key auth against
 ``AppConfig.api_keys`` (constant-time comparison; the paths of
-``AUTH_EXEMPT`` are open; a 401 otherwise); CORS headers and ``OPTIONS``
-answered 204 while ``cors`` is on; and, under ``opaque_errors``, 500
-bodies that say only "internal error".
+``AUTH_EXEMPT`` are open; a 401 otherwise), which also stamps the
+request's usage-ledger tenant (``obs.ledger.derive_tenant`` of the key,
+``anonymous`` without one — never the raw key); CORS headers and
+``OPTIONS`` answered 204 while ``cors`` is on; and, under
+``opaque_errors``, 500 bodies that say only "internal error". An error
+answer carries its ``APIError``'s headers (a shed 429's ``Retry-After``).
+
+At construction the server configures the process-wide SLO observatory
+from the settings (``slo_*``), restores the metrics history from
+``LOCALAI_HISTORY_DIR`` and arms the anomaly profiler when
+``LOCALAI_PROFILE_ON_ANOMALY=1``, as the JAX package's server does.
 """
 
 from __future__ import annotations
@@ -46,14 +57,18 @@ import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from localai_tpu_torch.api import audio, images
+from localai_tpu_torch.api import audio, debug, images
 from localai_tpu_torch.api import inference as inf
 from localai_tpu_torch.api import jina
 from localai_tpu_torch.api import localai as la
 from localai_tpu_torch.api import openai as oa
 from localai_tpu_torch.api import traces
 from localai_tpu_torch.models.manager import ModelManager
+from localai_tpu_torch.obs import history as obs_history
+from localai_tpu_torch.obs import ledger as obs_ledger
 from localai_tpu_torch.obs import logging as obs_logging
+from localai_tpu_torch.obs import profiler as obs_profiler
+from localai_tpu_torch.obs import slo as obs_slo
 from localai_tpu_torch.obs import trace as obs_trace
 from localai_tpu_torch.obs.metrics import REGISTRY
 
@@ -67,6 +82,7 @@ _POST = {"/v1/chat/completions": oa.chat, "/chat/completions": oa.chat,
          "/v1/tokenize": la.tokenize, "/tokenize": la.tokenize,
          "/backend/monitor": la.backend_monitor,
          "/backend/shutdown": la.backend_shutdown,
+         "/backend/trace": la.backend_trace,
          "/v1/audio/transcriptions": audio.transcriptions,
          "/v1/audio/speech": audio.speech, "/tts": audio.speech,
          "/v1/sound-generation": audio.sound_generation,
@@ -83,7 +99,8 @@ _GET = {"/v1/models": oa.list_models, "/models": oa.list_models,
         "/healthz": la.healthz, "/version": la.version,
         "/metrics": la.metrics, "/system": la.system,
         "/backend/metrics": la.engine_metrics,
-        "/v1/traces": traces.list_traces}
+        "/v1/slo": la.slo_report, "/v1/usage": la.usage,
+        "/v1/traces": traces.list_traces, **debug.GET}
 
 
 def _param_routes(routes) -> list:
@@ -96,7 +113,8 @@ def _param_routes(routes) -> list:
 _GET_PARAM = _param_routes((
     ("/v1/traces/{trace_id}", traces.trace_detail),
     ("/debug/timeline/{request_id}", traces.timeline),
-    ("/generated-images/{name}", images.serve_generated)))
+    ("/generated-images/{name}", images.serve_generated),
+    *debug.GET_PARAM))
 _POST_PARAM = _param_routes((
     ("/v1/text-to-speech/{voice_id}", audio.elevenlabs_tts),))
 # paths reachable without an API key (the JAX package's AUTH_EXEMPT; the
@@ -175,23 +193,36 @@ class _Handler(BaseHTTPRequestHandler):
                    "application/json")
 
     def _error(self, status: int, message: str,
-               kind: str = "invalid_request_error") -> None:
-        self._json(status, {"error": {"message": message, "type": kind,
-                                      "code": status}})
+               kind: str = "invalid_request_error",
+               headers: dict | None = None) -> None:
+        body = json.dumps({"error": {"message": message, "type": kind,
+                                     "code": status}}).encode("utf-8")
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
 
-    def _admitted(self, path: str) -> bool:
+    def _api_error(self, e: "oa.APIError") -> None:
+        self._error(e.status, e.message, headers=e.headers)
+
+    def _admitted(self, path: str):
         """Key auth: no keys configured, an exempt path, or a bearer
-        token equal to one of the keys; otherwise answer 401."""
+        token equal to one of the keys; otherwise answer 401. The
+        admitted request's ledger tenant (``derive_tenant`` of its key,
+        ``anonymous`` without one), or None after the 401."""
         keys = self.server.manager.app.api_keys
         if not keys or path in AUTH_EXEMPT:
-            return True
+            return obs_ledger.ANONYMOUS
         token = self.headers.get("Authorization", "").removeprefix(
             "Bearer ").strip()
         if token and any(secrets.compare_digest(token, k) for k in keys):
-            return True
+            return obs_ledger.derive_tenant(token)
         self._error(401, "invalid or missing API key",
                     "authentication_error")
-        return False
+        return None
 
     def _internal_error(self, e: Exception) -> None:
         log.exception("request failed")
@@ -222,10 +253,12 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             if preflight:
                 serve(path, route)
-            elif self._admitted(path):
+            elif (tenant := self._admitted(path)) is not None:
+                tenant_token = obs_ledger.set_current_tenant(tenant)
                 try:
                     serve(path, route)
                 finally:
+                    obs_ledger.reset_current_tenant(tenant_token)
                     REGISTRY.api_call.observe(
                         time.monotonic() - t0, method=self.command,
                         path=canonical)
@@ -292,7 +325,7 @@ class _Handler(BaseHTTPRequestHandler):
             try:
                 out = fn(self.server.manager, query, *params)
             except oa.APIError as e:
-                return self._error(e.status, e.message)
+                return self._api_error(e)
             except Exception as e:  # noqa: BLE001 — report, keep serving
                 return self._internal_error(e)
             self._reply(out)
@@ -332,7 +365,7 @@ class _Handler(BaseHTTPRequestHandler):
             try:
                 out = fn(self.server.manager, body, *params, **kw)
             except oa.APIError as e:
-                return self._error(e.status, e.message)
+                return self._api_error(e)
             except (ValueError, TypeError) as e:
                 return self._error(400, str(e))
             except Exception as e:  # noqa: BLE001 — report, keep serving
@@ -357,6 +390,15 @@ class APIServer:
     def __init__(self, manager: ModelManager, address: str = "127.0.0.1",
                  port: int = 8080):
         self.manager = manager
+        app = manager.app
+        # the process-wide SLO observatory's targets from the settings
+        # (all zero: no shedding), the metrics history's restore and
+        # writer (LOCALAI_HISTORY_DIR), and the anomaly profiler
+        # (LOCALAI_PROFILE_ON_ANOMALY=1), as the JAX package's server
+        obs_slo.SLO.configure(targets=obs_slo.targets_from_config(app),
+                              burn_threshold=app.slo_burn_threshold)
+        obs_history.install_from_env()
+        obs_profiler.install_from_env(str(app.backend_assets_path or "."))
         self._httpd = _HTTPServer((address, port), manager)
         self.address, self.port = self._httpd.server_address[:2]
         self._thread: threading.Thread | None = None

@@ -20,9 +20,12 @@ the JAX package does: ``AppConfig.from_env`` overridden by the flags.
 ``--device cpu`` is the port's own (the card is the default), and so is
 it on ``tts``, ``transcript`` and ``sound-generation``, which take the
 JAX package's flags: the JAX package runs those three on the CPU
-(``JAX_PLATFORMS=cpu``), the port on the card unless asked. A flag or
-variable of a feature the port has not yet (SLO shedding, the batch
-lane, fleets, autoscaling, meshes, the JAX platform) stops
+(``JAX_PLATFORMS=cpu``), the port on the card unless asked. The SLO
+flags (``--slo-ttft-p95-ms``, ``--slo-tpot-p95-ms``, ``--slo-e2e-p95-ms``,
+``--slo-queue-p95-ms``, ``--slo-burn-threshold``; ``None`` = the
+``LOCALAI_SLO_*`` variable stands) reach the SLO observatory through
+``AppConfig``. A flag or variable of a feature the port has not yet (the
+batch lane, fleets, autoscaling, meshes, the JAX platform) stops
 ``run`` with exit code 2 and the ROADMAP item that brings it; none is
 dropped silently. ``models install|available`` wait for the gallery
 (ROADMAP item 21).
@@ -74,11 +77,6 @@ def _env_bool(name: str, fallback: bool = False) -> bool:
 # run flags of features the port has not yet: flag → (AppConfig field of
 # the JAX package, the JAX package's default, the ROADMAP item)
 UNPORTED_RUN_FLAGS = {
-    "--slo-ttft-p95-ms": ("slo_ttft_p95_ms", 0.0, 15),
-    "--slo-tpot-p95-ms": ("slo_tpot_p95_ms", 0.0, 15),
-    "--slo-e2e-p95-ms": ("slo_e2e_p95_ms", 0.0, 15),
-    "--slo-queue-p95-ms": ("slo_queue_p95_ms", 0.0, 15),
-    "--slo-burn-threshold": ("slo_burn_threshold", 2.0, 15),
     "--batch-concurrency": ("batch_concurrency", 2, 14),
     "--batch-expiry-h": ("batch_expiry_h", 24.0, 14),
     "--fleet-replicas": ("fleet_replicas", 0, 23),
@@ -100,8 +98,6 @@ UNPORTED_RUN_FLAGS = {
 }
 _WHAT = {11: "device plumbing (the port takes --device instead)",
          14: "the batch lane",
-         15: "telemetry part 2: SLO shedding, the flight recorder, the "
-             "usage ledger",
          19: "multi-GPU parallelism",
          23: "fleets, autoscaling and the worker tier"}
 
@@ -140,6 +136,20 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--enable-watchdog-busy", action="store_true")
     run.add_argument("--watchdog-idle-timeout", type=float, default=15 * 60)
     run.add_argument("--watchdog-busy-timeout", type=float, default=5 * 60)
+    # SLO observatory targets (obs.slo): p95 latency bounds in ms; when
+    # the error-budget burn rate exceeds --slo-burn-threshold on both the
+    # 1m and 5m windows, new generation work is refused with 429
+    run.add_argument("--slo-ttft-p95-ms", type=float, default=None,
+                     help="p95 time-to-first-token target (ms); 0 = off")
+    run.add_argument("--slo-tpot-p95-ms", type=float, default=None,
+                     help="p95 time-per-output-token target (ms)")
+    run.add_argument("--slo-e2e-p95-ms", type=float, default=None,
+                     help="p95 end-to-end request latency target (ms)")
+    run.add_argument("--slo-queue-p95-ms", type=float, default=None,
+                     help="p95 queue-wait target (ms)")
+    run.add_argument("--slo-burn-threshold", type=float, default=None,
+                     help="error-budget burn rate that triggers shedding "
+                          "(default 2.0)")
     run.add_argument("--request-deadline-s", type=float, default=None,
                      help="per-request generation deadline in seconds; "
                           "expiry cancels the generation and frees its "
@@ -367,6 +377,12 @@ def app_config(args) -> AppConfig:
         watchdog_busy=args.enable_watchdog_busy,
         watchdog_idle_timeout=args.watchdog_idle_timeout,
         watchdog_busy_timeout=args.watchdog_busy_timeout,
+        # None = flag not given → LOCALAI_SLO_* (from_env) stands
+        slo_ttft_p95_ms=args.slo_ttft_p95_ms,
+        slo_tpot_p95_ms=args.slo_tpot_p95_ms,
+        slo_e2e_p95_ms=args.slo_e2e_p95_ms,
+        slo_queue_p95_ms=args.slo_queue_p95_ms,
+        slo_burn_threshold=args.slo_burn_threshold,
         # None = flag not given → LOCALAI_REQUEST_DEADLINE_S stands
         request_deadline_s=args.request_deadline_s,
         device=args.device,

@@ -5,9 +5,9 @@ feature reads, with the JAX package's defaults, each also read from
 ``LOCALAI_<FIELD>`` by :meth:`AppConfig.from_env`. ``device`` is the
 port's own (the card unless ``cpu`` is asked for), read from
 ``LOCALAI_DEVICE`` alike. The fields of features the port has not yet
-(SLO shedding, the batch lane, fleets, autoscaling, meshes, the JAX
-platform) are not here: ``cli/main.py`` refuses their flags and
-variables rather than dropping them.
+(the batch lane, fleets, autoscaling, meshes, the JAX platform) are not
+here: ``cli/main.py`` refuses their flags and variables rather than
+dropping them.
 """
 
 from __future__ import annotations
@@ -25,6 +25,9 @@ class AppConfig:
     # where /v1/images/generations stores url-format images, served at
     # /generated-images/<name> (LOCALAI_IMAGE_PATH, as the JAX package)
     image_path: str = "generated_images"
+    # generated assets: POST /backend/trace captures and the anomaly
+    # profiler's default manifest dir live under it
+    backend_assets_path: str = "backend-assets"
 
     # server
     address: str = "0.0.0.0"
@@ -50,6 +53,17 @@ class AppConfig:
     # (LOCALAI_REQUEST_DEADLINE_S / --request-deadline-s): expiry cancels
     # the generation, so its decode slot frees, and the client gets 504
     request_deadline_s: float = 600.0
+
+    # SLO observatory + burn-rate load shedding (obs.slo): p95 latency
+    # targets in ms (0 = no target; LOCALAI_SLO_TTFT_P95_MS, ...; CLI
+    # --slo-*-p95-ms). When the fast (1m) AND slow (5m) error-budget burn
+    # rates exceed slo_burn_threshold, new work is refused with 429 +
+    # Retry-After until the fast window recovers
+    slo_ttft_p95_ms: float = 0.0
+    slo_tpot_p95_ms: float = 0.0
+    slo_e2e_p95_ms: float = 0.0
+    slo_queue_p95_ms: float = 0.0
+    slo_burn_threshold: float = 2.0
 
     device: str = "cuda"            # "cuda" (default) or "cpu", explicitly
 

@@ -90,6 +90,7 @@ class BlockAllocator:
         # lifetime counters (telemetry)
         self._watermark = 0
         self.shared_tokens_total = 0
+        self.evictions_total = 0     # prefix-pool blocks evicted (LRU)
 
     # -- sizing -----------------------------------------------------------
 
@@ -169,6 +170,7 @@ class BlockAllocator:
         bid = self._prefix.pop(victim)
         del self._block_key[bid]
         self._ref[bid] = 0
+        self.evictions_total += 1
         return bid
 
     # -- allocate / release ----------------------------------------------
@@ -273,6 +275,12 @@ class BlockAllocator:
             t = list(self.tables.get(seq, []))
         row[: len(t)] = t[: self.max_blocks_per_seq]
         return row
+
+    def tables_snapshot(self) -> dict[int, int]:
+        """{seq: table length} under the lock — the /debug/kv view (the
+        engine thread inserts and pops tables concurrently)."""
+        with self._lock:
+            return {seq: len(t) for seq, t in self.tables.items()}
 
     def stats(self) -> BlockStats:
         with self._lock:

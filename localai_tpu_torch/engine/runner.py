@@ -46,6 +46,14 @@ the JAX package become plain methods:
     ``load_prefix`` writes exported rows into a slot, contiguous or paged,
     so the next admission resumes past them. The format is the JAX
     package's: a directory written by either package is read by the other.
+  * Observability (``obs``): every program entry point is wrapped by
+    ``obs.compile.watch`` under the JAX package's program names (the first
+    call of a shape counts as its compile and lands in the cost catalog
+    with the port's reckoned FLOPs and bytes); the synchronous entry
+    points (``step``, ``step_n``, ``step_frozen_n``) leave their wall
+    split into issue and blocking read in ``last_launch_ms`` /
+    ``last_sync_ms`` for the dispatch anatomy; every blocking device read
+    here is guarded by the stall watchdog's ``device`` channel.
 """
 
 from __future__ import annotations
@@ -53,6 +61,8 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import time
+import weakref
 from typing import Any, Optional
 
 import numpy as np
@@ -66,6 +76,8 @@ from localai_tpu_torch.engine import selfextend as se
 from localai_tpu_torch.models import llama as mdl
 from localai_tpu_torch.models import quant
 from localai_tpu_torch.models.llama import LlamaConfig
+from localai_tpu_torch.obs import compile as obs_compile
+from localai_tpu_torch.obs import watchdog as obs_watchdog
 from localai_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -159,6 +171,15 @@ class ModelRunner:
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
+        # stall watchdog guarding this runner's blocking device reads (the
+        # scheduler rebinds it to its own instance)
+        self.watchdog = obs_watchdog.WATCHDOG
+        # dispatch-anatomy scratch (obs.anatomy): the synchronous entry
+        # points split their wall into the eager call's return (the host
+        # issuing the kernels) and the blocking read, for the caller to
+        # harvest; overwritten every call
+        self.last_launch_ms = 0.0
+        self.last_sync_ms = 0.0
         self.num_slots = num_slots
         self.max_ctx = max_ctx or cfg.max_position_embeddings
         buckets = sorted(prefill_buckets or [128, 512, 2048, 8192])
@@ -271,6 +292,85 @@ class ModelRunner:
         # chunked paged prefill dispatches (each runs the trunk once)
         self.prefill_chunks = 0
         self._init_device_state()
+        self._watch_programs()
+
+    def _watch_programs(self) -> None:
+        """Wrap each program entry point with ``obs.compile.watch`` under
+        the JAX package's program names, each with its cost reckoning. The
+        wrappers look the method up at call time through a weak reference
+        (no cycle through the runner; a method patched on the instance
+        still runs)."""
+        ref = weakref.ref(self)
+
+        def prog(method: str, program: str, cost):
+            def call(*a, **k):
+                return getattr(ref(), method)(*a, **k)
+
+            def reckon(*a, **k):
+                r = ref()
+                return None if r is None else cost(r, *a, **k)
+
+            return obs_compile.watch(call, program, cost=reckon)
+
+        S = self.num_slots
+        ctx = self.ctx_pad if self.paged else self.max_ctx
+
+        def decode(r, *_a, n=1):   # decode, decode_n, decode_frozen_n
+            return r._cost(S, n, ctx, S * ctx, S)
+
+        def verify(r, proposals):
+            T = S * (proposals.shape[1] + 1)
+            return r._cost(T, 1, ctx, S * ctx, T)
+
+        def fresh(r, tokens, *_a, **_k):
+            T = tokens.shape[1]
+            return r._cost(T, 1, T, 0, T)
+
+        def resume(r, tokens, *_a, **_k):
+            T = tokens.shape[1]
+            return r._cost(T, 1, self.max_ctx, self.max_ctx, T)
+
+        def chunk(r, tokens, *_a, **_k):
+            T = tokens.shape[1]
+            return r._cost(T, 1, ctx, ctx, T)
+
+        def embed(r, tokens, *_a, **_k):
+            T = tokens.shape[1]
+            return r._cost(T, 1, T, 0, 0)
+
+        self._decode_prog = prog("_decode_fn", "decode", decode)
+        self._decode_n_prog = prog("_decode_n_fn", "decode_n", decode)
+        self._decode_frozen_n_prog = prog("_decode_frozen_n_fn",
+                                          "decode_frozen_n", decode)
+        self._verify_prog = prog(
+            "_verify_paged_fn" if self.paged else "_verify_fn", "verify",
+            verify)
+        self._prefill_prog = prog("_prefill_fn", "prefill", fresh)
+        self._prefill_mm_prog = prog("_prefill_mm_fn", "prefill_mm", fresh)
+        self._prefill_resume_prog = prog("_prefill_resume_fn",
+                                         "prefill_resume", resume)
+        self._prefill_paged_prog = prog("_prefill_paged_fn",
+                                        "prefill_chunk", chunk)
+        self._prefill_paged_mm_prog = prog("_prefill_paged_mm_fn",
+                                           "prefill_mm", chunk)
+        self._embed_prog = prog("_embed_fn", "embed", embed)
+
+    def _cost(self, tokens_per_step: int, steps: int, attended: int,
+              kv_rows: int, new_rows: int) -> dict:
+        """The program cost catalog's reckoning (``obs.compile``) for this
+        runner's weights and KV row size: ``tokens_per_step`` tokens a
+        step, each attending ``attended`` rows; ``kv_rows`` cached rows
+        read and ``new_rows`` written a step."""
+        kv = self.kv
+        rows = (self.num_blocks * self.block_tokens if self.paged
+                else self.num_slots * self.max_ctx)
+        total = sum(t.numel() * t.element_size()
+                    for t in (kv.k, kv.v, kv.k_scale, kv.v_scale)
+                    if t is not None)
+        return obs_compile.reckon_cost(
+            self.cfg, self.params, tokens_per_step=tokens_per_step,
+            steps=steps, attended_rows=attended, kv_rows=kv_rows,
+            kv_row_bytes=total // max(1, rows), new_rows=new_rows)
 
     def _init_device_state(self) -> None:
         cfg, dev = self.cfg, self.device
@@ -745,17 +845,18 @@ class ModelRunner:
         self._prepare_slot(slot, **sampling)
         if lcp:
             self.last_prefill_path = "resume"
-            tok = self._prefill_resume_fn(tokens, len(tail), lcp, slot,
-                                          prompt)
+            tok = self._prefill_resume_prog(tokens, len(tail), lcp, slot,
+                                            prompt)
         elif mm:
             self.last_prefill_path = "mm"
-            tok = self._prefill_mm_fn(tokens, n, slot, prompt, mm_embeds,
-                                      mm_positions)
+            tok = self._prefill_mm_prog(tokens, n, slot, prompt, mm_embeds,
+                                        mm_positions)
         else:
             self.last_prefill_path = "full"
-            tok = self._prefill_fn(tokens, n, slot, prompt)
+            tok = self._prefill_prog(tokens, n, slot, prompt)
         self._active_slots.add(slot)
-        return int(tok)  # the prefill/decode handoff sync
+        with self.watchdog.guard("device"):
+            return int(tok)  # the prefill/decode handoff sync
 
     def _prepare_slot(self, slot: int, *, temperature=None, top_k=None,
                       top_p=None, min_p=None, repeat_penalty=None,
@@ -908,22 +1009,37 @@ class ModelRunner:
                 return b
         return None
 
+    def _read(self, t0: float, tokens: AsyncTokens) -> np.ndarray:
+        """The synchronous entry points' blocking read, guarded, with
+        their wall split for the anatomy (issue since ``t0``, then the
+        read)."""
+        t1 = time.perf_counter()
+        with self.watchdog.guard("device"):
+            out = np.asarray(tokens)
+        self.last_launch_ms = (t1 - t0) * 1e3
+        self.last_sync_ms = (time.perf_counter() - t1) * 1e3
+        return out
+
     def step(self) -> np.ndarray:
-        """One decode iteration over all slots; returns sampled tokens [S]."""
-        return np.asarray(self.step_async())
+        """One decode iteration over all slots; returns sampled tokens [S].
+        Synchronous: the blocking read is the API (constrained slots need
+        the token before the next dispatch)."""
+        t0 = time.perf_counter()
+        return self._read(t0, self.step_async())
 
     def step_async(self) -> AsyncTokens:
         """Like step() but returns without waiting for the device."""
-        return AsyncTokens(self._decode_fn())
+        return AsyncTokens(self._decode_prog())
 
     def step_n(self, n: int) -> np.ndarray:
         """n decode iterations; returns tokens [n, S]."""
-        return np.asarray(self.step_n_async(n))
+        t0 = time.perf_counter()
+        return self._read(t0, self.step_n_async(n))
 
     def step_n_async(self, n: int) -> AsyncTokens:
         """n decode iterations (a Python loop of single steps); the [n, S]
         result comes back asynchronously."""
-        return AsyncTokens(self._decode_n_fn(n))
+        return AsyncTokens(self._decode_n_prog(n=n))
 
     def step_frozen_n(self, freeze: np.ndarray, n: int) -> np.ndarray:
         """n decode iterations where ``freeze``-masked slots ([S] bool)
@@ -931,11 +1047,12 @@ class ModelRunner:
         for frozen slots). Synchronous by contract: the frozen slots'
         constraints need the sampled token on the host before the next
         dispatch. Both KV layouts."""
+        t0 = time.perf_counter()
         freeze = np.asarray(freeze, bool)
         frozen = {int(s) for s in np.nonzero(freeze)[0]}
         mask = torch.from_numpy(freeze).to(self.device)
-        return np.asarray(AsyncTokens(
-            self._decode_frozen_n_fn(mask, frozen, n)))
+        return self._read(t0, AsyncTokens(
+            self._decode_frozen_n_prog(mask, frozen, n=n)))
 
     def verify_async(self, proposals) -> AsyncTokens:
         """One speculative verify dispatch over all slots: score the
@@ -945,9 +1062,7 @@ class ModelRunner:
         asynchronously. Both KV layouts."""
         proposals = torch.as_tensor(proposals, dtype=torch.int32,
                                     device=self.device)
-        if self.paged:
-            return AsyncTokens(self._verify_paged_fn(proposals))
-        return AsyncTokens(self._verify_fn(proposals))
+        return AsyncTokens(self._verify_prog(proposals))
 
     def set_bias(self, slot: int, bias_row: Optional[np.ndarray]) -> None:
         """Replace one slot's [V] additive logit-bias row (None clears)."""
@@ -972,8 +1087,14 @@ class ModelRunner:
         bucket = self.bucket_for(n)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = prompt
+        return self._embed_prog(torch.from_numpy(padded), n)
+
+    def _embed_fn(self, padded: torch.Tensor, n: int) -> np.ndarray:
+        """The embeddings forward of a bucketed [1, T] prompt with ``n``
+        real rows (host tensor in, host vector out)."""
+        bucket = padded.shape[1]
         with torch.no_grad():  # per thread: this is not the engine's thread
-            tokens = torch.from_numpy(padded).to(self.device)
+            tokens = padded.to(self.device)
             positions = torch.arange(bucket, dtype=torch.int32,
                                      device=self.device)[None, :]
             hidden, _ = mdl.forward(self.cfg, self.params, tokens, positions,
@@ -1007,7 +1128,8 @@ class ModelRunner:
 
     def slot_positions(self) -> np.ndarray:
         """Every slot's KV frontier in ONE [S] transfer."""
-        return self.state.positions.cpu().numpy()
+        with self.watchdog.guard("device"):
+            return self.state.positions.cpu().numpy()
 
     def slot_position(self, slot: int) -> int:
         return int(self.slot_positions()[slot])
@@ -1169,6 +1291,10 @@ class PagedAdmission:
         self.done = False
         self.prefix_reused = start           # shared/loaded rows (telemetry)
         self.path = runner.last_prefill_path
+        # dispatch-anatomy scratch of the last step_chunk(): the issue span
+        # vs the final chunk's first-token read (obs.anatomy)
+        self.last_launch_ms = 0.0
+        self.last_sync_ms = 0.0
 
     @property
     def chunks_remaining(self) -> int:
@@ -1185,12 +1311,13 @@ class PagedAdmission:
         assert not self.done
         r = self.runner
         n = len(self.prompt)
+        t0 = time.perf_counter()
         table_row = torch.from_numpy(r.allocator.table_row(self.slot)).to(
             r.device)
         if self.mm_embeds is not None:
             padded = np.zeros((1, r.bucket_for(n)), np.int32)
             padded[0, :n] = self.prompt
-            tok = r._prefill_paged_mm_fn(
+            tok = r._prefill_paged_mm_prog(
                 torch.from_numpy(padded).to(r.device), n, table_row,
                 self.slot, self.prompt, self.mm_embeds, self.mm_positions)
             take, last = n, True
@@ -1200,16 +1327,24 @@ class PagedAdmission:
             last = take == rem
             padded = np.zeros((1, r.bucket_for(take)), np.int32)
             padded[0, :take] = self.prompt[self.pos:self.pos + take]
-            tok = r._prefill_paged_fn(
+            tok = r._prefill_paged_prog(
                 torch.from_numpy(padded).to(r.device), take, self.pos,
                 table_row, self.slot, self.prompt if last else None)
         self.pos += take
         if not last:
+            # issue only: no read on an intermediate chunk
+            self.last_launch_ms = (time.perf_counter() - t0) * 1e3
+            self.last_sync_ms = 0.0
             return None
         self.done = True
         r._finish_paged_admit(self.slot, self.prompt,
                               mm=self.mm_embeds is not None)
-        return int(tok)  # the prefill/decode handoff sync
+        t1 = time.perf_counter()
+        with r.watchdog.guard("device"):
+            first = int(tok)  # the prefill/decode handoff sync
+        self.last_launch_ms = (t1 - t0) * 1e3
+        self.last_sync_ms = (time.perf_counter() - t1) * 1e3
+        return first
 
     def abort(self) -> None:
         """Abandon a part-way admission: frees the blocks and leaves the

@@ -127,8 +127,14 @@ def sample(
     scaled = torch.where(keep_p & keep_mp, scaled, float("-inf"))
     final = torch.softmax(scaled, dim=-1)
     for i in rows:
-        pick = torch.multinomial(final[i], 1, generator=generators[i])
-        tokens[i] = idx[i, pick[0]].to(torch.int32)
+        # torch.multinomial's one-sample draw (argmax of p / q, q ~ Exp(1)
+        # from the row's generator: the same draws and the same pick),
+        # without its validity checks, which read the device; the pick is
+        # gathered on the device too (a 0-dim tensor index reads it back)
+        q = torch.empty_like(final[i]).exponential_(1,
+                                                    generator=generators[i])
+        pick = torch.argmax(final[i] / q, dim=-1, keepdim=True)
+        tokens[i:i + 1] = idx[i].gather(0, pick).to(torch.int32)
     return tokens
 
 

@@ -42,10 +42,19 @@ A lean port of ``localai_tpu/engine/scheduler.py``. One engine thread:
   * feeds the request lifecycle to ``obs.EngineTelemetry`` (queued at
     submit, admitted, prefill done, finished at every release, error and
     cancel) from host fields of the handle, and answers ``metrics()`` in
-    the JAX package's keys and shapes for the subsystems the port has.
+    the JAX package's keys and shapes for the subsystems the port has;
+  * writes one flight-ring record (``obs.flight``) at every drain point —
+    the pipelined drain, the constrained lane's synchronous dispatch, each
+    speculative window and each prefill chunk — with its dispatch-anatomy
+    phases (``obs.anatomy``: gap, sched, launch, sync), feeds measured
+    dispatch latency to the program catalog (``obs.compile``) and rejected
+    draft tokens to the usage ledger, guards its drain with the stall
+    watchdog (channel ``engine:<model>``) and shares the watchdog with its
+    runner (channel ``device``); the API counts SLO refusals through
+    :meth:`Scheduler.note_shed`.
 
-Left out of this slice (see ROADMAP): the background batch lane, SLO
-shedding, the flight recorder and the self-healing supervisor.
+Left out (see ROADMAP): the background batch lane, the NaN quarantine
+and the self-healing supervisor, fleets.
 """
 
 from __future__ import annotations
@@ -63,6 +72,12 @@ import numpy as np
 
 from localai_tpu_torch.engine.runner import NAN_TOKEN, ModelRunner
 from localai_tpu_torch.engine.stream import IncrementalDetokenizer, StopChecker
+from localai_tpu_torch.obs import anatomy as obs_anatomy
+from localai_tpu_torch.obs import compile as obs_compile
+from localai_tpu_torch.obs import flight as obs_flight
+from localai_tpu_torch.obs import ledger as obs_ledger
+from localai_tpu_torch.obs import profiler as obs_profiler
+from localai_tpu_torch.obs import watchdog as obs_watchdog
 from localai_tpu_torch.obs.engine import EngineTelemetry
 
 log = logging.getLogger(__name__)
@@ -111,6 +126,10 @@ class GenRequest:
     # id its HTTP span carries: the engine's spans group under the latter
     correlation_id: str = ""
     trace_id: str = ""
+    # usage accounting (obs.ledger): the derive_tenant() bucket of the
+    # request's API key, stamped by the server's auth check; "" leaves the
+    # request out of the ledger
+    tenant: str = ""
 
 
 class StreamItem:
@@ -228,11 +247,43 @@ class Scheduler:
                  spec: Optional[Any] = None,
                  prompt_cache: Optional[Any] = None,
                  prompt_cache_all: bool = False,
-                 telemetry: Optional[EngineTelemetry] = None):
+                 telemetry: Optional[EngineTelemetry] = None,
+                 watchdog: Optional[obs_watchdog.Watchdog] = None,
+                 flight: Optional[obs_flight.FlightRecorder] = None):
         self.runner = runner
         self.tokenizer = tokenizer
         # request lifecycle → spans + latency histograms (host fields only)
         self.telemetry = telemetry or EngineTelemetry()
+        # the ledger's KV-block-seconds unit follows a paged runner's block
+        self.telemetry.kv_block_tokens = getattr(runner, "block_tokens", 16)
+        # stall watchdog: the drain here and the runner's blocking syncs
+        # are heartbeat-guarded (channels "engine:<model>" and "device")
+        self.watchdog = watchdog or obs_watchdog.WATCHDOG
+        runner.watchdog = self.watchdog
+        self._wd_channel = (f"engine:{self.telemetry.model}"
+                            if self.telemetry.model else "engine")
+        self.watchdog.start()
+        # flight recorder: one record per drain, host mirrors only
+        self.flight = (flight if flight is not None
+                       else obs_flight.FlightRecorder())
+        self._tokens_emitted = 0      # host token counter (_consume)
+        self._flight_mark = 0         # emitted count at the last record
+        self.watchdog.add_context(f"flight:{self._wd_channel}",
+                                  self._flight_forensics)
+        # anomaly profiler: the ring is watched (weakly) for step-time p99
+        # regressions — a dict insert unless LOCALAI_PROFILE_ON_ANOMALY
+        # armed the manager
+        obs_profiler.PROFILER.watch_flight(
+            self.telemetry.model or "engine", self.flight)
+        # dispatch-anatomy accumulators (obs.anatomy): measured host-phase
+        # seconds since the last flight record, taken and reset by
+        # _take_anat(). Engine thread only.
+        self._anat_sched_s = 0.0    # admit/select/host-mirror spans
+        self._anat_launch_s = 0.0   # eager runner call-return spans
+        self._anat_overlap_s = 0.0  # wall other records already account
+        # requests refused by SLO admission control (the API's 429s): a
+        # mirror for metrics(); localai_requests_shed_total is obs.slo's
+        self.shed_total = 0
         # lifetime counters of metrics(), written on the engine thread
         # under _lock
         self.total_prompt_tokens = 0
@@ -311,6 +362,9 @@ class Scheduler:
     def shutdown(self, timeout: float = 10.0) -> None:
         self._stopping = True
         self._wake.set()
+        self.watchdog.remove_context(f"flight:{self._wd_channel}")
+        obs_profiler.PROFILER.unwatch_flight(
+            self.telemetry.model or "engine")
         self._thread.join(timeout)
         if self._pc_thread is not None:
             self._pc_queue.put(None)  # the writer drains the queue first
@@ -352,29 +406,56 @@ class Scheduler:
 
         def drain_one() -> None:
             toks, seq, k, pipelined, t_issue, fresh = inflight.popleft()
-            rows = np.asarray(toks)  # waits on the copy started at dispatch
+            t_sync = time.monotonic()  # anatomy: the result-fetch block
+            with self.watchdog.guard(self._wd_channel):
+                rows = np.asarray(toks)  # waits on the copy started at
+                                         # dispatch
             now = time.monotonic()
+            sync_s = now - t_sync
             # per-token timing for the adaptive streaming dispatch size: a
             # dispatch issued behind another in flight is measured from the
             # previous drain; the first dispatch of a shape is skipped
             dt = (now - self._last_drain_t
                   if pipelined and self._last_drain_t is not None
                   else now - t_issue)
+            window = None
+            k_eff = k
             if k == 0:  # a speculative window: rows carry SKIP sentinels
                 window = self.spec.observe_window(rows)
                 # its step count is its measured yield: mean emitted
                 # tokens per active slot-window
-                k = (max(1, round(window["emitted"] / window["windows"]))
-                     if window["windows"] else 0)
-            if not fresh and k > 0:
-                self._observe_step_time(dt / k)
+                k_eff = (max(1, round(window["emitted"]
+                                      / window["windows"]))
+                         if window["windows"] else 0)
+            if not fresh and k_eff > 0:
+                self._observe_step_time(dt / k_eff)
+                # measured dispatch latency for the program catalog
+                obs_compile.note_latency(
+                    "verify" if k == 0
+                    else "decode_n" if k > 1 else "decode",
+                    dt, steps=k_eff)
             self._last_drain_t = now
             if rows.ndim == 1:
                 rows = rows[None]
             self._process_rows(rows, seq)
+            self._flight_record(
+                "spec" if k == 0 else ("decode_n" if k > 1 else "decode"),
+                k_eff, dt, fresh,
+                spec_proposed=window["proposed"] if window else 0,
+                spec_accepted=window["accepted"] if window else 0,
+                sync_s=sync_s)
 
         while not self._stopping:
+            t_adm = time.monotonic()
             admitted = self._admit_pending()
+            adm_s = time.monotonic() - t_adm
+            if admitted and not self._chunked:
+                # a one-shot admission dispatches and syncs a whole prefill
+                # inside _admit_pending: device work, not scheduling, kept
+                # out of the next record's gap as overlap
+                self._anat_overlap_s += adm_s
+            else:
+                self._anat_sched_s += adm_s
             chunked = self._step_prefill_chunk()
             if not self._slots:
                 self._last_drain_t = None  # idle gap would pollute the EMA
@@ -384,6 +465,10 @@ class Scheduler:
                 if self._prefills:
                     continue
                 if not admitted and not chunked:
+                    # true idle: the poll spans belong to no record
+                    self._anat_sched_s = 0.0
+                    self._anat_launch_s = 0.0
+                    self._anat_overlap_s = 0.0
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                 continue
@@ -424,6 +509,13 @@ class Scheduler:
                     t_issue = time.monotonic()
                     # None: the drafter declined, decode plainly
                     spec_rows = self.spec.step_spec_async()
+                    # anatomy: proposal + verify issue (the host drafter's
+                    # work rides in launch); a declined proposal issued
+                    # nothing, so its host work is scheduling
+                    if spec_rows is not None:
+                        self._anat_launch_s += time.monotonic() - t_issue
+                    else:
+                        self._anat_sched_s += time.monotonic() - t_issue
                 if spec_rows is not None:
                     self._dispatch_seq += 1
                     fresh = "spec" not in self._seen_shapes
@@ -448,6 +540,9 @@ class Scheduler:
                 else:
                     tokens = self.runner.step_async()
                 self.last_dispatch_steps = steps
+                # anatomy: the eager call's return — the host issuing every
+                # kernel of the dispatch
+                self._anat_launch_s += time.monotonic() - t_issue
                 inflight.append((tokens, self._dispatch_seq, steps,
                                  bool(inflight), t_issue, fresh))
                 if len(inflight) >= self.pipeline_depth:
@@ -482,6 +577,7 @@ class Scheduler:
         frozen = None
         if len(constrained) == len(self._slots) or steps == 1:
             shape: Any = 1
+            program = "decode"
             t0 = time.monotonic()
             rows = self.runner.step()[None]
         else:
@@ -489,14 +585,23 @@ class Scheduler:
             freeze[list(constrained)] = True
             frozen = constrained
             shape = ("frozen", steps)
+            program = "decode_frozen_n"
             t0 = time.monotonic()
             rows = self.runner.step_frozen_n(freeze, steps)
         dt = time.monotonic() - t0
-        if shape in self._seen_shapes:
-            self._observe_step_time(dt / rows.shape[0])
+        # anatomy: the runner split its own wall into issue vs the blocking
+        # read (last_launch_ms / last_sync_ms)
+        self._anat_launch_s += self.runner.last_launch_ms * 1e-3
+        fresh = shape not in self._seen_shapes
+        n = rows.shape[0]
+        if not fresh:
+            self._observe_step_time(dt / n)
+            obs_compile.note_latency(program, dt, steps=n)
         self._seen_shapes.add(shape)
-        self.last_dispatch_steps = rows.shape[0]
+        self.last_dispatch_steps = n
         self._process_rows(rows, self._dispatch_seq, frozen=frozen)
+        self._flight_record(program, n, dt, fresh,
+                            sync_s=self.runner.last_sync_ms * 1e-3)
         self._last_drain_t = None  # sync path: the drain clock is stale
 
     def _spec_ready(self) -> bool:
@@ -569,6 +674,8 @@ class Scheduler:
         decoding counters. Host reads only: ``step_time_ema`` is seconds
         per decoded token."""
         num_slots = self.runner.num_slots
+        pct = self.flight.percentiles()
+        anat = obs_anatomy.summarize(self.flight)
         with self._lock:
             active = [
                 {
@@ -587,6 +694,7 @@ class Scheduler:
                 "generated": self.total_generated_tokens,
                 "preemptions": self.total_preemptions,
                 "prefill_chunks": self.total_prefill_chunks,
+                "shed": self.shed_total,
             }
         paged_stats = {}
         alloc = self.runner.allocator
@@ -624,7 +732,14 @@ class Scheduler:
             "last_dispatch_steps": self.last_dispatch_steps,
             "dispatches": self._dispatch_seq,
             "preemptions": totals["preemptions"],
+            "shed_total": totals["shed"],
             "step_time_ema": self._step_ema,  # seconds per decoded token
+            "step_ms_p50": pct["step_ms_p50"],
+            "step_ms_p99": pct["step_ms_p99"],
+            # dispatch anatomy (obs.anatomy) over the same ring
+            "host_overhead_fraction": anat["host_overhead_fraction"],
+            "device_bubble_fraction": anat["device_bubble_fraction"],
+            "dispatch_phase_ms": obs_anatomy.phase_quantiles(anat),
             "frozen_dispatches": self.runner.frozen_dispatches,
             "constrained_tokens": self.constrained_tokens,
             "constraint_host_s": self.constraint_host_s,
@@ -649,7 +764,8 @@ class Scheduler:
         """Fraction of KV capacity holding live context: the paged pool's
         used / allocatable blocks (reservations included), or on the
         contiguous layout the live rows of the host token record over
-        slots x context. The caller holds ``_lock``."""
+        slots x context. The caller holds ``_lock`` or is the engine thread
+        (the only writer of ``_slots``)."""
         alloc = self.runner.allocator
         if alloc is not None:
             return alloc.stats().utilization
@@ -659,6 +775,81 @@ class Scheduler:
         rows = sum(min(c.handle.prompt_tokens + c.generated, max_ctx)
                    for c in self._slots.values())
         return rows / (num_slots * max_ctx)
+
+    def note_shed(self) -> None:
+        """Record one SLO admission-control refusal against this engine
+        (the API calls it when it answers 429 for this model)."""
+        with self._lock:
+            self.shed_total += 1
+
+    def _take_anat(self, dt: float, sync_s: float) -> dict:
+        """Take and reset the anatomy accumulators into phase ms for a
+        record accounting the wall interval ``dt`` (seconds). Clamp order
+        is by trust: the measured ``sync`` first, then the measured
+        ``launch``, then the accumulated ``sched``, then the wall other
+        records already account (``overlap``); ``gap`` is the remainder,
+        so gap + sched + launch + sync <= dispatch_ms for every record.
+        Engine thread only."""
+        wall = max(0.0, dt)
+        sync = min(max(0.0, sync_s), wall)
+        launch = min(self._anat_launch_s, wall - sync)
+        sched = min(self._anat_sched_s, wall - sync - launch)
+        overlap = min(self._anat_overlap_s, wall - sync - launch - sched)
+        gap = max(0.0, wall - sync - launch - sched - overlap)
+        self._anat_sched_s = 0.0
+        self._anat_launch_s = 0.0
+        self._anat_overlap_s = 0.0
+        return {"gap_ms": gap * 1e3, "sched_ms": sched * 1e3,
+                "launch_ms": launch * 1e3, "sync_ms": sync * 1e3}
+
+    def _flight_record(self, program: str, steps: int, dt: float,
+                       fresh: bool, spec_proposed: int = 0,
+                       spec_accepted: int = 0, sync_s: float = 0.0,
+                       phases: Optional[dict] = None) -> None:
+        """One flight-ring record at a drain point, after the rows were
+        processed (occupancy and tokens are the dispatch's end state): a
+        handful of host reads and one in-place ring row. ``phases``
+        pre-built (prefill chunks) leave the accumulators to the next
+        decode record. Engine thread only."""
+        emitted = self._tokens_emitted
+        num_slots = self.runner.num_slots
+        if phases is None:
+            phases = self._take_anat(dt, sync_s)
+        self.flight.record(
+            program=program,
+            steps=steps,
+            dispatch_ms=dt * 1e3,
+            occupancy=len(self._slots) / num_slots if num_slots else 0.0,
+            queue_depth=self._pending.qsize(),
+            kv_utilization=self._kv_utilization(),
+            tokens=emitted - self._flight_mark,
+            preemptions=self.total_preemptions,
+            spec_accept=(self.spec.acceptance_rate
+                         if self.spec is not None else None),
+            spec_proposed=spec_proposed,
+            spec_accepted=spec_accepted,
+            gap_ms=phases["gap_ms"],
+            sched_ms=phases["sched_ms"],
+            launch_ms=phases["launch_ms"],
+            sync_ms=phases["sync_ms"],
+            compile=fresh,
+        )
+        self._flight_mark = emitted
+        if spec_proposed > spec_accepted:
+            # rejected draft tokens: device work the ring never counts as
+            # emitted (the waste decomposition's spec_rejected class)
+            obs_ledger.LEDGER.note_waste(
+                "spec_rejected", tokens=spec_proposed - spec_accepted,
+                model=self.telemetry.model or "engine")
+
+    def _flight_forensics(self) -> dict:
+        """Watchdog context provider: the last engine records, attached to
+        every ``kind="stall"`` trace (host only)."""
+        return {
+            "channel": self._wd_channel,
+            "records": self.flight.snapshot(limit=32),
+            **self.flight.percentiles(),
+        }
 
     def _observe_step_time(self, dt: float) -> None:
         if dt <= 0:
@@ -892,6 +1083,7 @@ class Scheduler:
             self.telemetry.finished(pf.handle.trace, pf.handle, "cancelled")
             pf.handle._finish("cancelled")
             return True
+        t0 = time.monotonic()
         try:
             first = pf.adm.step_chunk()
         except Exception as e:  # noqa: BLE001 — fail this request only
@@ -903,8 +1095,22 @@ class Scheduler:
             self.telemetry.finished(pf.handle.trace, pf.handle, "error")
             pf.handle._finish("error")
             return True
+        dt = time.monotonic() - t0
         with self._lock:
             self.total_prefill_chunks += 1
+        # anatomy: the admission split its own wall into issue vs the final
+        # chunk's first-token read; the rest of this span is chunk staging
+        # (sched). Pre-built phases leave the accumulators to the next
+        # decode record, and the whole span is overlap there
+        wall_ms = max(0.0, dt) * 1e3
+        sync_ms = min(pf.adm.last_sync_ms, wall_ms)
+        launch_ms = min(pf.adm.last_launch_ms, wall_ms - sync_ms)
+        self._flight_record(
+            "prefill_chunk", 0, dt, False,
+            phases={"gap_ms": 0.0,
+                    "sched_ms": wall_ms - sync_ms - launch_ms,
+                    "launch_ms": launch_ms, "sync_ms": sync_ms})
+        self._anat_overlap_s += dt
         if first is None:
             return True
         self._prefills.popleft()
@@ -992,6 +1198,7 @@ class Scheduler:
             self._release(slot, ctx, "stop")
             return
         ctx.generated += 1
+        self._tokens_emitted += 1  # the flight ring's per-record tokens
         delta = ctx.detok.push(token_id)
         handle._emit(ctx.stopper.push(delta), token_id)
         if ctx.stopper.stopped is not None:

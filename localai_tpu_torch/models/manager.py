@@ -447,6 +447,12 @@ class ModelManager:
         with self._lock:
             return sorted(self._models)
 
+    def loaded_snapshot(self) -> dict[str, Any]:
+        """name → serving model of every loaded model (a copy: the debug
+        routes walk it while loads and evictions go on)."""
+        with self._lock:
+            return dict(self._models)
+
     def get(self, name: str) -> Any:
         """Load-or-get a text-generation model (a llama engine, the
         recurrent engine or a remote client); a model whose engine died is

@@ -1,8 +1,10 @@
 """EngineTelemetry: the scheduler-facing facade of the obs subsystem.
 
 Turns request lifecycle events into spans (queued → prefill → decode, with
-``admitted``/``drained`` markers) and per-request histogram observations
-(queue wait, TTFT, TPOT), as ``localai_tpu/obs/engine.py`` does.
+``admitted``/``drained`` markers), per-request histogram observations
+(queue wait, TTFT, TPOT), one SLO event per finished request
+(``obs.slo``) and one usage-ledger entry per finished request that carries
+a tenant (``obs.ledger``), as ``localai_tpu/obs/engine.py`` does.
 Everything runs on host timestamps the scheduler already holds (the
 handle's ``t_submit`` / ``t_first_token`` / ``t_done``): no device read,
 no synchronisation.
@@ -15,20 +17,31 @@ from __future__ import annotations
 import time
 from typing import Any, Optional
 
+from localai_tpu_torch.obs import ledger as obs_ledger
+from localai_tpu_torch.obs import slo as obs_slo
 from localai_tpu_torch.obs.metrics import REGISTRY, Registry
 from localai_tpu_torch.obs.trace import STORE, RequestTrace, TraceStore
 
 # finish reasons that mean the request left its slot early
 PREEMPT_REASONS = ("cancelled", "error")
+# finish reasons the SLO observatory counts: natural completions plus
+# backend errors (a cancel is a client action, not a serving outcome;
+# shed requests never reach a slot at all)
+SLO_REASONS = ("stop", "length", "error")
 
 
 class EngineTelemetry:
     def __init__(self, model: str = "", *,
                  registry: Optional[Registry] = None,
-                 store: Optional[TraceStore] = None):
+                 store: Optional[TraceStore] = None,
+                 slo: Optional[obs_slo.SLOTracker] = None):
         self.model = model
         self.registry = registry or REGISTRY
         self.store = store or STORE
+        self.slo = slo or obs_slo.SLO
+        # the ledger's KV-block-seconds unit: the scheduler sets it from a
+        # paged runner's block size (16 otherwise, the JAX package's)
+        self.kv_block_tokens = 16
 
     # -- request lifecycle ------------------------------------------------
 
@@ -98,6 +111,38 @@ class EngineTelemetry:
             preempted = reason in PREEMPT_REASONS
         if preempted:
             self.registry.preemptions.inc(model=self.model, reason=reason)
-        # the usage ledger's and the SLO observatory's feeds (ROADMAP
-        # item 15, part 2; localai_tpu/obs/engine.py) go here
+        # usage accounting (obs.ledger), gated on the request's tenant
+        # stamp: a direct scheduler submit stays unattributed
+        tenant = getattr(getattr(handle, "request", None), "tenant", "")
+        if tenant:
+            t_end = handle.t_done or time.monotonic()
+            queue_wait_ms = tr.attrs.get("queue_wait_ms") or 0.0
+            service_s = max(
+                0.0, (t_end - handle.t_submit) - queue_wait_ms / 1e3)
+            ledger_reason = reason
+            if reason == "error" and getattr(handle, "nan_poisoned", False):
+                ledger_reason = "nan_quarantine"
+            obs_ledger.LEDGER.note_request(
+                tenant=tenant,
+                model=self.model or "engine",
+                lane="interactive",
+                reason=ledger_reason,
+                tokens=n,
+                prompt_tokens=handle.prompt_tokens,
+                dispatch_ms=service_s * 1e3,
+                queue_wait_ms=queue_wait_ms,
+                kv_block_s=obs_ledger.kv_block_seconds(
+                    handle.prompt_tokens, n, service_s,
+                    self.kv_block_tokens),
+            )
+        if reason in SLO_REASONS:
+            t_end = handle.t_done or time.monotonic()
+            self.slo.observe(
+                self.model or "engine",
+                ttft_ms=None if ttft is None else ttft * 1e3,
+                tpot_ms=None if tpot is None else tpot * 1e3,
+                e2e_ms=(t_end - handle.t_submit) * 1e3,
+                queue_ms=tr.attrs.get("queue_wait_ms"),
+                error=(reason == "error"),
+            )
         self.store.finish(tr)

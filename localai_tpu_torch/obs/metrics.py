@@ -4,16 +4,21 @@ A copy of ``localai_tpu/obs/metrics.py``'s registry (``Histogram``,
 ``Counter``, ``Gauge``, ``render()``: the same text, label escaping and
 buckets) holding the families the port feeds, under the JAX package's
 names, help text and labels: the API-call histogram, per-request latency
-histograms (TTFT, TPOT, queue wait), request and token counters, and the
+histograms (TTFT, TPOT, queue wait), request and token counters, the
 engine's gauges and counters (batch occupancy, KV utilization, the paged
 pool, chunked prefill, dispatches, prompt-cache and prefix reuse,
-speculation). Event-time series are observed by
-``obs.engine.EngineTelemetry``; point-in-time gauges are refreshed at
-scrape time by ``update_engine_gauges`` from the scheduler's ``metrics()``
-dict, so the decode loop never touches the registry. Families of the
-subsystems the port does not have yet (flight recorder, SLO, batch lane,
-fleet, faults, XLA compiles, device health, usage ledger, KV tiering) come
-with them (ROADMAP item 15, part 2, and the items named there).
+speculation), first-dispatch counts, the flight recorder's step times and
+the dispatch anatomy, SLO burn rates and shedding, the stall watchdog,
+device health and memory, anomaly profiles, and the usage ledger's
+tenant, goodput and waste series. Event-time series are observed by their
+owners (``obs.engine``, ``obs.slo``, ``obs.watchdog``, ``obs.compile``,
+``obs.profiler``); point-in-time gauges are refreshed at scrape time by
+``update_engine_gauges`` from the scheduler's ``metrics()`` dict, so the
+decode loop never touches the registry. Four help texts name the port's
+machinery where the JAX package's name JAX's (first-dispatch counts,
+profiler captures, the memory census). Families of the subsystems the
+port does not have yet (batch lane, fleet, faults and self-healing,
+tuning table, KV tiering) come with them.
 """
 
 from __future__ import annotations
@@ -257,6 +262,59 @@ class Registry:
             "Mean emitted tokens per active slot-window (>1 = the "
             "verify-k dispatch beats single-step decode)",
         )
+        # the JAX package's names; on the port a "compilation" is the
+        # first call of a program shape (obs.compile)
+        self.compile_count = Counter(
+            "localai_xla_compile_total",
+            "Program first dispatches per shape (the port runs eagerly: "
+            "the first call pays kernel loads and allocator growth)",
+        )
+        self.compile_seconds = Counter(
+            "localai_xla_compile_seconds_total",
+            "Wall seconds spent in first dispatches per program shape",
+        )
+        # -- flight recorder + SLO observatory (obs.flight / obs.slo) -----
+        self.step_time_ms = Gauge(
+            "localai_step_time_ms",
+            "Per-token decode step time over the flight ring's resident "
+            "dispatches — the last N, not a time window, so an idle "
+            "engine reports its most recent activity (quantile label: "
+            "p50/p99)",
+        )
+        self.dispatch_phase_ms = Gauge(
+            "localai_dispatch_phase_ms",
+            "Dispatch-anatomy phase time over the flight ring's recent "
+            "window, compile rows excluded (phase label: gap/sched/"
+            "launch/sync, quantile label: p50/p90/p99 — see obs.anatomy "
+            "for phase semantics)",
+        )
+        self.host_overhead_fraction = Gauge(
+            "localai_host_overhead_fraction",
+            "Share of windowed dispatch wall time the host spent NOT "
+            "blocked on the device (gap+sched+launch over dispatch "
+            "wall) — the number fused multi-step dispatch must drive down",
+        )
+        self.device_bubble_fraction = Gauge(
+            "localai_device_bubble_fraction",
+            "Estimated share of windowed dispatch wall time the device "
+            "sat idle: host phases not covered by a later result-fetch "
+            "block (estimator — see obs.anatomy caveats)",
+        )
+        self.slo_burn_rate = Gauge(
+            "localai_slo_burn_rate",
+            "Error-budget burn rate per model and window "
+            "(1.0 = burning exactly the error budget)",
+        )
+        self.overload_shedding = Gauge(
+            "localai_overload_shedding",
+            "1 while new generation work for the model is refused (429) "
+            "by SLO burn-rate admission control",
+        )
+        self.requests_shed = Counter(
+            "localai_requests_shed_total",
+            "Generation requests refused with 429 by SLO burn-rate "
+            "admission control",
+        )
         # the port's labels: its paged decode attention is the CUDA kernel
         # (K1) on the card and the kernel's plain version on the CPU
         self.paged_kernel_impl = Gauge(
@@ -268,6 +326,110 @@ class Registry:
             "localai_trace_ring_size",
             "Finished-trace ring capacity per trace kind "
             "(LOCALAI_TRACE_CAPACITY; default 256)",
+        )
+        self.profiles_captured = Counter(
+            "localai_profiles_captured_total",
+            "Anomaly-triggered torch.profiler captures by trigger "
+            "(stall/slo_shed/step_p99_regression) — each one is listed "
+            "with its triggering trace id at GET /debug/profiles",
+        )
+        # -- stall forensics + device health (obs.watchdog / obs.device) --
+        self.engine_stalled = Gauge(
+            "localai_engine_stalled",
+            "1 while a guarded device round-trip has made no progress past "
+            "the watchdog deadline (per channel)",
+        )
+        self.last_progress_age = Gauge(
+            "localai_last_progress_age_seconds",
+            "Seconds since the last heartbeat on an armed watchdog channel",
+        )
+        self.stalls = Counter(
+            "localai_stalls_total",
+            "Watchdog trips (stack-dump forensic spans recorded)",
+        )
+        self.device_ok = Gauge(
+            "localai_device_ok",
+            "1 when the last timeout-guarded device liveness probe succeeded",
+        )
+        self.device_probe_seconds = Gauge(
+            "localai_device_probe_seconds",
+            "Round-trip wall seconds of the last device liveness probe",
+        )
+        self.hbm_bytes_in_use = Gauge(
+            "localai_hbm_bytes_in_use",
+            "Device memory in use per device (memory_stats)",
+        )
+        self.hbm_peak_bytes = Gauge(
+            "localai_hbm_peak_bytes_in_use",
+            "Peak device memory in use per device (memory_stats)",
+        )
+        self.hbm_bytes_limit = Gauge(
+            "localai_hbm_bytes_limit",
+            "Device memory capacity per device (memory_stats)",
+        )
+        self.hbm_live_bytes = Gauge(
+            "localai_hbm_live_bytes",
+            "Device memory by category (kv_cache/weights: the loaded "
+            "runners' tensors; other: the rest the allocator holds)",
+        )
+        # -- usage accounting plane (obs.ledger) ---------------------------
+        # tenant labels are ALWAYS derive_tenant() outputs (hashed key /
+        # anonymous / overflow) — never a raw API key; cardinality is
+        # bounded by the ledger's tenant LRU
+        self.tenant_requests = Counter(
+            "localai_tenant_requests_total",
+            "Finished generation requests per (tenant, model, lane) "
+            "ledger pane (tenant = hashed API key bucket)",
+        )
+        self.tenant_tokens = Counter(
+            "localai_tenant_tokens_total",
+            "Delivered (goodput) completion tokens per tenant pane",
+        )
+        self.tenant_prompt_tokens = Counter(
+            "localai_tenant_prompt_tokens_total",
+            "Prompt tokens processed per tenant pane",
+        )
+        self.tenant_dispatch_ms = Counter(
+            "localai_tenant_dispatch_ms_total",
+            "Engine-resident service milliseconds (submit→done minus "
+            "queue wait) attributed per tenant pane",
+        )
+        self.tenant_queue_wait_ms = Counter(
+            "localai_tenant_queue_wait_ms_total",
+            "Milliseconds requests waited for a decode slot per tenant "
+            "pane",
+        )
+        self.tenant_kv_block_seconds = Counter(
+            "localai_tenant_kv_block_seconds_total",
+            "Paged-KV memory cost per tenant pane: context blocks × "
+            "slot-resident seconds (PagedAttention block-seconds)",
+        )
+        self.tenant_lru_evictions = Counter(
+            "localai_tenant_lru_evictions_total",
+            "Tenant panes folded into the `overflow` bucket when the "
+            "ledger's LRU exceeded LOCALAI_TENANT_MAX",
+        )
+        self.goodput_tokens = Counter(
+            "localai_goodput_tokens_total",
+            "Tokens delivered by naturally finished requests "
+            "(stop/length) per model — the goodput side of the "
+            "decomposition",
+        )
+        self.goodput_ratio = Gauge(
+            "localai_goodput_ratio",
+            "delivered / (delivered + waste) tokens per model (1.0 with "
+            "no recorded waste)",
+        )
+        self.waste_tokens = Counter(
+            "localai_waste_tokens_total",
+            "Wasted work in tokens per model by reason (spec_rejected/"
+            "failover_reprefill/migration_reprefill/cancelled/error/"
+            "nan_quarantine — reprefill classes count prompt tokens)",
+        )
+        self.waste_requests = Counter(
+            "localai_waste_requests_total",
+            "Requests whose work was (partly) wasted, per model by "
+            "reason (shed counts refused admissions)",
         )
 
     def _all(self) -> list:
@@ -287,7 +449,7 @@ def update_engine_gauges(name: str, m: dict,
                          registry: Optional[Registry] = None) -> None:
     """Refresh the point-in-time engine series for one model from its
     scheduler's ``metrics()`` dict (the JAX package's function, less the
-    feeds of unported subsystems). Called at /metrics scrape time —
+    feeds of unported subsystems: batch lane, KV tier, quarantine). Called at /metrics scrape time —
     counters are synced with ``set_total`` (monotone), gauges
     overwritten."""
     reg = registry or REGISTRY
@@ -325,6 +487,12 @@ def update_engine_gauges(name: str, m: dict,
                 reg.paged_kernel_impl.set(
                     1.0 if impl == label else 0.0, model=name, impl=label)
     reg.decode_dispatches.set_total(m.get("dispatches", 0), model=name)
+    if m.get("shed_total"):
+        # shed admissions are whole-request waste (no tokens were ever
+        # generated); the requests_shed family stays owned by obs.slo —
+        # this is the decomposition's view of the same monotone count
+        reg.waste_requests.set_total(m["shed_total"], model=name,
+                                     reason="shed")
     reg.prefix_reused.set_total(m.get("prefix_tokens_reused", 0), model=name)
     pc = m.get("prompt_cache")
     if pc:
@@ -344,8 +512,33 @@ def update_engine_gauges(name: str, m: dict,
             m.get("spec_accepted_tokens", 0), model=name)
         reg.spec_tokens_per_dispatch.set(
             m.get("spec_tokens_per_dispatch", 0.0), model=name)
-    # the flight recorder's step-time percentiles and the dispatch
-    # anatomy's phase gauges are synced here (ROADMAP item 15, part 2)
+        # waste decomposition (obs.ledger): rejected draft tokens are
+        # device work the flight ring never counted; set_total max-merges
+        # with the ledger's own export of the same cell
+        rejected = (m.get("spec_draft_tokens", 0)
+                    - m.get("spec_accepted_tokens", 0))
+        if rejected > 0:
+            reg.waste_tokens.set_total(rejected, model=name,
+                                       reason="spec_rejected")
+    # windowed step-time percentiles from the flight ring (absent until a
+    # post-first-dispatch record lands)
+    for q in ("p50", "p99"):
+        v = m.get(f"step_ms_{q}")
+        if v is not None:
+            reg.step_time_ms.set(v, model=name, quantile=q)
+    # dispatch anatomy (obs.anatomy): windowed phase percentiles + the
+    # derived host/bubble fractions; absent keys leave the gauges alone
+    for ph, qs in (m.get("dispatch_phase_ms") or {}).items():
+        for q, v in qs.items():
+            if v is not None:
+                reg.dispatch_phase_ms.set(v, model=name, phase=ph,
+                                          quantile=q)
+    v = m.get("host_overhead_fraction")
+    if v is not None:
+        reg.host_overhead_fraction.set(v, model=name)
+    v = m.get("device_bubble_fraction")
+    if v is not None:
+        reg.device_bubble_fraction.set(v, model=name)
 
 
 REGISTRY = Registry()

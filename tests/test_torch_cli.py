@@ -145,19 +145,15 @@ def test_bare_device_variable_is_not_read(clean_env):
 
 @pytest.mark.parametrize("argv,env,item", [
     (["run", "--fleet-replicas", "2"], {}, 23),
-    (["run", "--slo-ttft-p95-ms", "200"], {}, 15),
     (["run", "--batch-concurrency", "4"], {}, 14),
     (["run", "--batch-concurrency", "0"], {}, 14),
     (["run", "--autoscale"], {}, 23),
     (["run", "--mesh", "data=2"], {}, 19),
     (["run", "--platform", "cpu"], {}, 11),
-    # JSON logs are served; an SLO flag beside them still exits 2
-    (["--log-format", "json", "run", "--slo-ttft-p95-ms", "200"], {}, 15),
     (["run"], {"LOCALAI_FLEET_REPLICAS": "2"}, 23),
-    (["run"], {"LOCALAI_SLO_E2E_P95_MS": "900"}, 15),
     (["run"], {"LOCALAI_MESH": "data=1,model=2"}, 19),
-], ids=["fleet", "slo", "batch", "batch-0", "autoscale", "mesh", "platform",
-        "log-json", "env-fleet", "env-slo", "env-mesh"])
+], ids=["fleet", "batch", "batch-0", "autoscale", "mesh", "platform",
+        "env-fleet", "env-mesh"])
 def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
                                       item):
     for k, v in env.items():
@@ -167,6 +163,43 @@ def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
                                  str(tmp_path)])
     assert e.value.code == 2
     assert f"ROADMAP item {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,env,targets,burn", [
+    (["run", "--slo-ttft-p95-ms", "200"], {}, {"ttft_ms": 200.0}, 2.0),
+    # JSON logs beside an SLO flag: both served
+    (["--log-format", "json", "run", "--slo-ttft-p95-ms", "200",
+      "--slo-burn-threshold", "3.5"], {}, {"ttft_ms": 200.0}, 3.5),
+    (["run", "--slo-tpot-p95-ms", "40"],
+     {"LOCALAI_SLO_E2E_P95_MS": "900", "LOCALAI_SLO_QUEUE_P95_MS": "50",
+      "LOCALAI_SLO_BURN_THRESHOLD": "4"},
+     {"tpot_ms": 40.0, "e2e_ms": 900.0, "queue_ms": 50.0}, 4.0),
+], ids=["slo", "log-json", "env-slo"])
+def test_slo_setting_reaches_the_observatory(clean_env, root_logging,
+                                             tmp_path, argv, env, targets,
+                                             burn):
+    """An SLO flag or ``LOCALAI_SLO_*`` variable configures the
+    process-wide SLO observatory's targets when the server is built, as
+    on the JAX package (whose ``main`` builds the same targets)."""
+    from localai_tpu.obs import slo as jax_slo
+    from localai_tpu_torch.obs import slo as port_slo
+
+    for k, v in env.items():
+        clean_env.setenv(k, v)
+    seen = []
+    clean_env.setattr(jax_server, "serve", seen.append)
+    assert jax_cli.main(argv) == 0
+    server = cli.build_server(argv + ["--device", "cpu", "--address",
+                                      "127.0.0.1", "--port", "0",
+                                      "--models-path", str(tmp_path)])
+    try:
+        assert port_slo.SLO.targets == targets
+        assert port_slo.SLO.burn_threshold == burn
+        assert jax_slo.targets_from_config(seen[0]) == targets
+        assert seen[0].slo_burn_threshold == burn
+    finally:
+        server.shutdown()
+        port_slo.SLO.configure(targets={}, burn_threshold=2.0)
 
 
 @pytest.mark.parametrize("env", [{"LOCALAI_FLEET_REPLICAS": "0"},

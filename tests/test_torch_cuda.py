@@ -1501,3 +1501,135 @@ def test_cuda_image_generate_matches_the_cpu():
     out = chip_smoke.phase_image_parity()
     assert set(out) == {"sd1", "sdxl"}
     assert {k: w.launches for k, w in kernels.items()} == before
+
+
+# -- the engine observatory on the card (obs.device, /backend/trace) ----------
+
+
+def _small_runner(paged=True):
+    """debug:small in float32 (head dim 32, one the kernels take) on the
+    card, weights from a CPU seed."""
+    import dataclasses
+
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models import llama as tl
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+
+    cfg = dataclasses.replace(DEBUG_PRESETS["small"], dtype="float32")
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def to(p):
+        return ({k: to(v) for k, v in p.items()} if isinstance(p, dict)
+                else p.to("cuda"))
+
+    kw = dict(kv_block_tokens=16, prefill_chunk=32) if paged else {}
+    return ModelRunner(cfg, to(params), num_slots=4, max_ctx=256,
+                       kv_dtype="float32", paged=paged, device="cuda", **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_probe_and_device_memory():
+    """The probe's add and synchronize answer on the card; the memory
+    entry is the caching allocator's reading."""
+    _card()
+    from localai_tpu_torch.obs import device as tdev
+    from localai_tpu_torch.obs.metrics import Registry
+
+    reg = Registry()
+    res = tdev.probe_device(timeout=30.0, registry=reg)
+    assert res.ok and res.device == torch.cuda.get_device_name(0)
+    assert "localai_device_ok 1" in reg.render()
+    torch.cuda.synchronize()
+    mem = tdev.device_memory(reg)[0]
+    assert mem["platform"] == "gpu"
+    assert mem["memory"]["bytes_in_use"] == torch.cuda.memory_allocated(0)
+    assert mem["memory"]["bytes_limit"] == \
+        torch.cuda.get_device_properties(0).total_memory
+    rl = tdev.roofline()
+    assert rl["source"] in ("table", "assumed")
+    assert "tpu" not in rl["device_kind"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [True, False], ids=["paged",
+                                                      "contiguous"])
+def test_cuda_census_against_memory_allocated(paged):
+    """The census's KV is the pool's bytes, its weights the parameters'
+    bytes, and its total the allocator's ``memory_allocated()``."""
+    _card()
+    from localai_tpu_torch.obs import device as tdev
+
+    r = _small_runner(paged)
+    torch.cuda.synchronize()
+    census = tdev.hbm_census(tdev.known_arrays([r]))
+    kv = sum(t.numel() * t.element_size() for t in (r.kv.k, r.kv.v))
+    weights = sum(t.numel() * t.element_size()
+                  for t in tdev._param_tensors(r.params))
+    cats = census["by_category"]
+    assert cats["kv_cache"] == kv and cats["weights"] == weights
+    assert census["total_bytes"] == sum(
+        torch.cuda.memory_allocated(i)
+        for i in range(torch.cuda.device_count()))
+    del r
+
+
+@pytest.mark.cuda
+def test_cuda_backend_trace_holds_a_k1_launch(tmp_path):
+    """``POST /backend/trace`` on a paged server on the card while chats
+    stream: the Chrome trace's CUDA kernel events include K1, launched by
+    the engine thread while the capture ran on an HTTP thread."""
+    _card()
+    import json
+    import threading
+    import urllib.request
+
+    from localai_tpu_torch.api.server import APIServer
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.models.manager import ModelManager
+
+    models = tmp_path / "models"
+    models.mkdir()
+    (models / "obs-small.yaml").write_text(json.dumps({
+        "name": "obs-small", "model": "debug:small", "context_size": 256,
+        "engine": {"max_slots": 4, "kv_block_tokens": 16, "spec": False,
+                   "dtype": "float32", "kv_dtype": "float32"}}))
+    loader = ConfigLoader(models)
+    loader.load_from_path()
+    srv = APIServer(ModelManager(AppConfig(
+        model_path=str(models), device="cuda",
+        backend_assets_path=str(tmp_path / "assets")), loader),
+        "127.0.0.1", 0).start()
+
+    def post(path, body):
+        req = urllib.request.Request(
+            srv.url + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read())
+
+    chat = {"model": "obs-small", "max_tokens": 64, "temperature": 0,
+            "ignore_eos": True,
+            "messages": [{"role": "user", "content": "hello"}]}
+    stop = threading.Event()
+    try:
+        post("/v1/chat/completions", chat)   # load + first shapes
+
+        def chats():
+            while not stop.is_set():
+                post("/v1/chat/completions", chat)
+
+        t = threading.Thread(target=chats)
+        t.start()
+        try:
+            out = post("/backend/trace", {"seconds": 2.0})
+        finally:
+            stop.set()
+            t.join()
+        with open(out["trace_dir"] + "/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        assert any("paged_decode_kernel" in n for n in kernels), \
+            sorted(set(kernels))[:30]
+    finally:
+        srv.shutdown()

@@ -119,7 +119,11 @@ def test_welcome_as_the_jax_server(servers):
     assert port["endpoints"] == sorted(port["endpoints"])
     assert set(port["endpoints"]) <= set(ref["endpoints"])
     for path in ("/metrics", "/v1/traces/{trace_id}", "/v1/tokenize",
-                 "/debug/timeline/{request_id}", "/system"):
+                 "/debug/timeline/{request_id}", "/system", "/v1/slo",
+                 "/v1/usage", "/backend/trace", "/debug/devices",
+                 "/debug/programs", "/debug/stacks", "/debug/flight",
+                 "/debug/anatomy", "/debug/profiles", "/debug/history",
+                 "/debug/history/{series}", "/debug/kv"):
         assert path in port["endpoints"]
 
 

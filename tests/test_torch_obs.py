@@ -56,16 +56,20 @@ from test_torch_llama import one_torch_thread  # noqa: E402,F401
 ENGINE = dict(max_slots=2, kv_block_tokens=16, prefill_chunk=32,
               dtype="float32", kv_dtype="float32")
 # Scheduler.metrics() keys of the JAX package's subsystems the port does
-# not have yet (ROADMAP item 15 part 2, and the items named there)
+# not have yet (the batch lane, ROADMAP item 14; the supervisor and the NaN
+# quarantine, item 17)
 UNPORTED_KEYS = {
     "batch_queue_depth", "batch_slots",                  # batch lane
-    "shed_total",                                        # SLO shedding
     "engine_state", "rebuilds", "nan_rows",              # supervisor and
     "quarantined_slots", "kv_invariant_violations",      # NaN quarantine
-    "step_ms_p50", "step_ms_p99",                        # flight recorder
-    "host_overhead_fraction", "device_bubble_fraction",  # dispatch
-    "dispatch_phase_ms",                                 # anatomy
 }
+# families whose help names the port's machinery where the JAX package's
+# names its own (a first call for an XLA compile, torch.profiler for
+# jax.profiler, the allocator census for live jax arrays); name, type and
+# labels are the JAX package's
+PORT_HELP = {"localai_paged_kernel_impl", "localai_xla_compile_total",
+             "localai_xla_compile_seconds_total",
+             "localai_profiles_captured_total", "localai_hbm_live_bytes"}
 # the port's own: constrained decoding's host cost
 PORT_KEYS = {"frozen_dispatches", "constrained_tokens", "constraint_host_s"}
 
@@ -96,8 +100,11 @@ def test_registries_render_alike():
     shared = [m for m in port._all() if m.name in theirs]
     assert len(shared) == len(port._all())   # every port family is theirs
     for m in shared:
-        if m.name == "localai_paged_kernel_impl":
-            continue   # the port's help names its own labels
+        if m.name in PORT_HELP:
+            # the port's help names its own machinery: the samples agree
+            assert m.render().split("\n")[1:] == theirs[m.name].render(
+                ).split("\n")[1:] or m.name == "localai_paged_kernel_impl"
+            continue
         assert m.render() == theirs[m.name].render(), m.name
         assert type(m).__name__ == type(theirs[m.name]).__name__
     # the exposition ends with a newline and holds the escaped label
@@ -118,7 +125,12 @@ METRICS_DICT = {
     "dispatches": 12, "prompt_cache": {"hits": 1, "misses": 3},
     "spec_acceptance_rate": 0.5, "spec_windows": 7, "spec_accept_rate": 0.4,
     "spec_draft_tokens": 20, "spec_accepted_tokens": 8,
-    "spec_tokens_per_dispatch": 1.5,
+    "spec_tokens_per_dispatch": 1.5, "shed_total": 2,
+    "step_ms_p50": 3.5, "step_ms_p99": 9.25,
+    "host_overhead_fraction": 0.8125, "device_bubble_fraction": 0.625,
+    "dispatch_phase_ms": {"gap": {"p50": 0.5, "p90": 1.0, "p99": 2.0},
+                          "launch": {"p50": 20.0, "p90": 25.0, "p99": 30.0},
+                          "sync": {"p50": 1.0, "p99": 3.0}},
 }
 
 
@@ -132,7 +144,7 @@ def test_update_engine_gauges_alike(impl, label):
                                         "paged_attn_impl": label}, ref)
     theirs = {m.name: m for m in ref._all()}
     for m in port._all():
-        if m.name == "localai_paged_kernel_impl":
+        if m.name in PORT_HELP:
             continue
         assert m.render() == theirs[m.name].render(), m.name
     # the one-hot, under the port's labels
