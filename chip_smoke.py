@@ -247,7 +247,20 @@ Phases (any failure raises and the script exits non-zero):
      512x512 images each. It prints load and write seconds, bytes, peak
      memory, text-encode / UNet-step / VAE-decode ms (CUDA events),
      seconds an image, images a minute, the profiled step's launches
-     and idle share, and its own seconds.
+     and idle share, and its own seconds;
+ 12. ``qwen2.5-7b-bf16`` (after the checkpoint serve): Qwen2.5-7B's
+     published config (a GQA group of 7) served from a 15.2 GB
+     checkpoint with one API key, K1 28 a decode step; then
+     ``phase_telemetry``, ``phase_observatory`` and ``phase_self_healing``
+     on the same server: a ``decode.nan`` fault fails one of four chats
+     and quarantines its slot while the other three texts stay the
+     unarmed ones; an ``engine.drain`` hang past a 2 s stall deadline
+     rebuilds the engine (the next chat's text unchanged, the pool on new
+     storage, 0 KV-sweep violations; the rebuild's and probe's time and
+     the peak memory across it printed); a 16-line batch uploaded through
+     ``/v1/files`` runs on the background lane beside two streamed chats,
+     each line's text its interactive chat's (its wall, lines/s and the
+     chats' TTFT printed).
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -259,6 +272,7 @@ from __future__ import annotations
 
 import base64
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -1257,13 +1271,20 @@ def phase_frozen_parity() -> dict:
     return launches
 
 
-def _post(url: str, body: dict, timeout: float = 600,
-          key: Optional[str] = None):
-    headers = {"Content-Type": "application/json"}
+def _post(url: str, body, timeout: float = 600,
+          key: Optional[str] = None, method: Optional[str] = None,
+          ctype: str = "application/json", cid: str = ""):
+    """The open response of a request: ``body`` a dict sent as JSON, raw
+    bytes, or None (a GET); ``key`` a bearer token, ``cid`` an
+    X-Correlation-ID."""
+    headers = {"Content-Type": ctype}
     if key is not None:
         headers["Authorization"] = f"Bearer {key}"
-    req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers=headers)
+    if cid:
+        headers["X-Correlation-ID"] = cid
+    data = (json.dumps(body).encode() if isinstance(body, dict) else body)
+    req = urllib.request.Request(url, data=data, headers=headers,
+                                 method=method)
     return urllib.request.urlopen(req, timeout=timeout)
 
 
@@ -4509,28 +4530,35 @@ def phase_observatory(srv, chats: list, key: str, dirs: dict) -> dict:
                              f"{peak} GB/s")
     top = max(decode, key=lambda x: x["dispatches"])
     # -- a 2 s capture while a chat streams: K1 among its kernels ----------
-    body = {"model": name, "max_tokens": 256, "temperature": 0,
+    # the chat outlasts the capture, however long the profiler takes to
+    # start in a large process (the window opens only once it has): the
+    # client hangs up once the capture is written, and the server cancels
+    # the chat
+    body = {"model": name, "max_tokens": 2048, "temperature": 0,
             "ignore_eos": True, "stream": True,
             "messages": [{"role": "user", "content": "Count slowly."}]}
-    done = threading.Event()
+    captured = threading.Event()
     errors: list = []
 
     def stream():
         try:
             with _post(url + "/v1/chat/completions", body, key=key) as resp:
                 for _line in resp:
-                    pass
+                    if captured.is_set():
+                        break
         except Exception as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
-        finally:
-            done.set()
 
     th = threading.Thread(target=stream)
     th.start()
     time.sleep(1.0)   # the chat is decoding
     t_cap = time.monotonic()
-    with _post(url + "/backend/trace", {"seconds": 2.0}, key=key) as resp:
-        cap = json.loads(resp.read())
+    try:
+        with _post(url + "/backend/trace", {"seconds": 2.0},
+                   key=key) as resp:
+            cap = json.loads(resp.read())
+    finally:
+        captured.set()
     t_end = time.monotonic()
     th.join()
     if errors:
@@ -4539,8 +4567,9 @@ def phase_observatory(srv, chats: list, key: str, dirs: dict) -> dict:
         events = json.load(f)["traceEvents"]
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
     if not any("paged_decode_kernel" in k for k in kernels):
-        raise AssertionError(f"the trace holds no K1 launch: "
-                             f"{sorted(kernels)[:20]}")
+        raise AssertionError(
+            f"the trace holds no K1 launch: {sorted(kernels)[:20]} "
+            f"({len(events)} events, capture {t_end - t_cap:.1f} s)")
     idle = _trace_idle(events)
     same = [x for x in sched.flight.snapshot()
             if t_cap <= x["ts"] <= t_end and not x["compile"]]
@@ -4588,6 +4617,333 @@ def phase_observatory(srv, chats: list, key: str, dirs: dict) -> dict:
     return rec
 
 
+SELF_HEAL_ENV = {"LOCALAI_STALL_DEADLINE_S": "2", "LOCALAI_KV_CHECK": "1"}
+SELF_HEAL_PROMPTS = ["Name a colour.", "Count to five.",
+                     "What is two plus two?", "Name a planet."]
+BATCH_PROMPTS = [f"Give me fact number {i} about the sea." for i in range(16)]
+
+
+def _request(url: str, key: Optional[str] = None, body=None,
+             method: Optional[str] = None, ctype: str = "application/json",
+             cid: str = "") -> tuple:
+    """(status, parsed JSON or raw bytes) of one call (``_post``'s
+    arguments); an HTTP error is a status with no body, not an exception
+    (the NaN-poisoned chat's 5xx)."""
+    try:
+        with _post(url, body, timeout=600, key=key, method=method,
+                   ctype=ctype, cid=cid) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, None
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw
+
+
+def _concurrent(fn, args: list) -> list:
+    """``fn(*a)`` for each of ``args`` on threads of their own, in order."""
+    out: list = [None] * len(args)
+    errors: list = []
+
+    def run(i, a):
+        try:
+            out[i] = fn(*a)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, a))
+               for i, a in enumerate(args)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _upload_form(fields: dict, files: dict) -> tuple:
+    """(content type, body) of a multipart/form-data upload."""
+    boundary = "smoke" + os.urandom(8).hex()
+    parts = []
+    for name, value in fields.items():
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                     f'name="{name}"\r\n\r\n{value}\r\n'.encode())
+    for name, (fname, data) in files.items():
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                     f'name="{name}"; filename="{fname}"\r\n'
+                     'Content-Type: application/jsonl\r\n\r\n'.encode()
+                     + data + b"\r\n")
+    return (f"multipart/form-data; boundary={boundary}",
+            b"".join(parts) + f"--{boundary}--\r\n".encode())
+
+
+def phase_self_healing(srv, card: str, key: str) -> dict:
+    """Self-healing and the batch lane on the served Qwen2.5-7B engine
+    (after the observatory phase, on the same server and API key). The
+    phase sets ``SELF_HEAL_ENV`` (a 2 s stall deadline, which the
+    process-wide watchdog re-reads here, and the drain-time KV sweep),
+    clears the SLO targets (the errors it causes on purpose must not shed
+    its own requests) and arms every fault through ``POST /debug/faults``:
+
+      1. NaN quarantine: four concurrent greedy 32-token chats, then the
+         same four with ``decode.nan`` armed on one's correlation id: that
+         chat ends in an error, the other three texts equal the unarmed
+         ones, ``nan_rows`` is 1 and ``quarantined_slots`` 1 until the
+         window of dispatches passes, and the hold the engine logged
+         (poisoning to release, in dispatches) is at least that window;
+         K1 launches 28 a decode step;
+      2. stall → rebuild: an ``engine.drain`` hang past the deadline under
+         a streamed chat: the stream ends in an error, ``rebuilds`` is 1,
+         the engine serves again, the next chat's greedy text equals its
+         pre-fault text, the KV sweep saw 0 violations, and the old engine
+         thread exits; the rebuild's wall, its probe's and the peak memory
+         across it are printed;
+      3. batch lane: 16 chat lines uploaded through ``/v1/files`` run as a
+         batch while two streamed interactive chats run: the job completes,
+         each line's text equals the same request served interactively,
+         ``localai_batch_lines_total{result="completed"}`` reads 16; the
+         job's wall, its lines/s and the interactive TTFT beside it are
+         printed, and K1 launches 28 a decode step.
+
+    Prints one ``self_healing:`` line; every number stands beside the
+    card's name and power limit."""
+    from localai_tpu_torch.obs import slo as obs_slo
+    from localai_tpu_torch.obs import watchdog as obs_watchdog
+
+    t_phase = time.monotonic()
+    url, name, sched = srv.server.url, srv.name, srv.sm.scheduler
+    chat_url = url + "/v1/chat/completions"
+    wd = obs_watchdog.WATCHDOG
+    saved = {k: os.environ.get(k) for k in SELF_HEAL_ENV}
+    saved_wd = (wd.deadline, wd.poll_interval)
+    os.environ.update(SELF_HEAL_ENV)
+    # the process-wide watchdog read the deadline when it was made: restart
+    # its thread on the phase's setting
+    wd.stop()
+    wd.deadline = float(SELF_HEAL_ENV["LOCALAI_STALL_DEADLINE_S"])
+    wd.poll_interval = max(0.25, wd.deadline / 4.0)
+    wd.start()
+    # the server's scheduler was built before the phase: the drill turns
+    # its drain-time sweep on
+    sched.kv_check = True
+    obs_slo.SLO.configure(targets={})
+
+    def body(prompt, n=32, **extra):
+        return {"model": name, "max_tokens": n, "temperature": 0,
+                "messages": [{"role": "user", "content": prompt}], **extra}
+
+    def arm(spec):
+        status, out = _request(url + "/debug/faults", key, spec)
+        if status != 200 or out["armed"]["site"] != spec["site"]:
+            raise AssertionError(f"arming {spec} answered {status} {out}")
+
+    def text(res):
+        return res[1]["choices"][0]["message"]["content"]
+
+    try:
+        sup = sched.supervisor
+        if sup is None:
+            raise AssertionError(f"{name}: no self-healing supervisor")
+        # -- 1. NaN quarantine ---------------------------------------------
+        cids = [f"self-heal-{i}" for i in range(len(SELF_HEAL_PROMPTS))]
+        calls = [(chat_url, key, body(p), None, "application/json", c)
+                 for p, c in zip(SELF_HEAL_PROMPTS, cids)]
+        ref = _concurrent(_request, calls)
+        if any(r[0] != 200 for r in ref):
+            raise AssertionError(f"unarmed chats: {[r[0] for r in ref]}")
+        arm({"site": "decode.nan", "mode": "nan", "match": cids[0],
+             "times": 1})
+        run = _counted(srv.sm, _all_kernels(),
+                       lambda: _concurrent(_request, calls))
+        armed = run.pop("result")
+        m = sched.metrics()
+        poisoned = armed[0]
+        if not (poisoned[0] >= 500 or poisoned[1]["choices"][0][
+                "finish_reason"] == "error"):
+            raise AssertionError(f"the poisoned chat answered {poisoned}")
+        others = [text(a) == text(r) for a, r in zip(armed[1:], ref[1:])]
+        if not all(others) or any(a[0] != 200 for a in armed[1:]):
+            raise AssertionError(f"co-batched chats changed: {others}")
+        if m["nan_rows"] != 1 or m["quarantined_slots"] != 1:
+            raise AssertionError(f"nan_rows {m['nan_rows']}, quarantined "
+                                 f"{m['quarantined_slots']}")
+        _check_k1(name, run, 28)
+        drains = 0
+        while sched.metrics()["quarantined_slots"] and drains < 40:
+            drains += 1
+            if _request(chat_url, key, body("Say hello.", 16))[0] != 200:
+                raise AssertionError("a chat failed in the quarantine")
+        if sched.metrics()["quarantined_slots"]:
+            raise AssertionError("the quarantined slot never came back")
+        # the hold as the engine logged it: the dispatch sequence at the
+        # poisoning and at the release
+        _, poisoned_at, released_at = sched.quarantine_log[-1]
+        window = int(os.environ.get("LOCALAI_NAN_QUARANTINE_DISPATCHES")
+                     or 16)
+        held = released_at - poisoned_at
+        if held < window:
+            raise AssertionError(f"the slot was held {held} dispatches, "
+                                 f"not {window}")
+        nan_rec = {"nan_rows": m["nan_rows"], "window_setting": window,
+                   "poisoned_at_dispatch": poisoned_at,
+                   "released_at_dispatch": released_at,
+                   "held_dispatches": held,
+                   "chats_to_release": drains, "launches": run,
+                   "poisoned_status": poisoned[0]}
+        print("self_healing nan: " + json.dumps({"card": card, **nan_rec}),
+              flush=True)
+        # -- 2. stall → rebuild ----------------------------------------------
+        before = _request(chat_url, key, body("Say hello."))
+        old_thread = sched._thread
+        old_ptr = srv.sm.runner.kv.k.data_ptr()
+        kv_bytes = sum(t.numel() * t.element_size()
+                       for t in (srv.sm.runner.kv.k, srv.sm.runner.kv.v))
+        torch.cuda.synchronize()
+        allocated_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        stream: dict = {}
+
+        def streamed():
+            try:
+                stream.update(_streamed_chat(
+                    chat_url, body("Tell a long story.", 256,
+                                   ignore_eos=True), key))
+            except urllib.error.HTTPError as e:  # a 5xx before the stream
+                stream["status"] = e.code
+
+        th = threading.Thread(target=streamed)
+        th.start()
+        deadline = time.monotonic() + 60
+        while not any(c.handle.t_first_token
+                      for c in list(sched._slots.values())) and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        t_arm = time.monotonic()
+        arm({"site": "engine.drain", "mode": "hang", "delay_s": 6.0,
+             "times": 1})
+        th.join(120)
+        deadline = time.monotonic() + 120
+        while sched.rebuilds < 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        t_rebuilt = time.monotonic()
+        if stream.get("finish") != "error" and stream.get("status", 200) < 500:
+            raise AssertionError(f"the in-flight chat ended {stream}")
+        m = sched.metrics()
+        if m["rebuilds"] != 1 or m["engine_state"] != "serving":
+            raise AssertionError(f"rebuilds {m['rebuilds']}, state "
+                                 f"{m['engine_state']}")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        after = _request(chat_url, key, body("Say hello."))
+        if after[0] != 200 or text(after) != text(before):
+            raise AssertionError(f"after the rebuild: {after} vs {before}")
+        old_thread.join(30)
+        if old_thread.is_alive():
+            raise AssertionError("the fenced engine thread did not exit")
+        if srv.sm.runner.kv.k.data_ptr() == old_ptr:
+            raise AssertionError("the rebuilt pool reuses the old storage")
+        _, kvdbg = _request(url + "/debug/kv", key)
+        seen = kvdbg["models"][name]["violations_seen"]
+        if m["kv_invariant_violations"] != 0 or seen != 0:
+            raise AssertionError(f"KV sweep: {m['kv_invariant_violations']}"
+                                 f" / {seen} violations")
+        _, fstat = _request(url + "/debug/faults", key)
+        rebuild_rec = {
+            "rebuild_s": sched.last_rebuild_s,
+            "probe_ms": sched.last_probe_s * 1e3,
+            "stall_to_rebuilt_s": t_rebuilt - t_arm,
+            "kv_pool_gb": kv_bytes / 1e9,
+            "allocated_before_gb": allocated_before / 1e9,
+            "peak_across_rebuild_gb": peak / 1e9,
+            "peak_over_before_gb": (peak - allocated_before) / 1e9,
+            "stream": {k: stream.get(k) for k in ("finish", "tokens",
+                                                  "status")},
+            "supervisor": fstat["supervisors"][name],
+            "kv_violations": m["kv_invariant_violations"]}
+        print("self_healing rebuild: " + json.dumps({"card": card, **rebuild_rec}),
+              flush=True)
+        # -- 3. batch lane ---------------------------------------------------
+        inter = _concurrent(_request, [(chat_url, key, body(p))
+                                       for p in BATCH_PROMPTS])
+        if any(r[0] != 200 for r in inter):
+            raise AssertionError("an interactive reference chat failed")
+        lines = [json.dumps({"custom_id": f"line-{i}", "method": "POST",
+                             "url": "/v1/chat/completions",
+                             "body": body(p)})
+                 for i, p in enumerate(BATCH_PROMPTS)]
+        ctype, upload = _upload_form(
+            {"purpose": "batch"},
+            {"file": ("smoke.jsonl", ("\n".join(lines) + "\n").encode())})
+
+        def batch_run():
+            _, f = _request(url + "/v1/files", key, upload, ctype=ctype)
+            t0 = time.monotonic()
+            _, job = _request(url + "/v1/batches", key, {
+                "endpoint": "/v1/chat/completions", "input_file_id": f["id"]})
+            chats = _concurrent(_streamed_chat, [
+                (chat_url, body(p, 64), key)
+                for p in ("Describe a forest.", "Describe a river.")])
+            while time.monotonic() - t0 < 300:
+                _, job = _request(url + f"/v1/batches/{job['id']}", key)
+                if job["status"] in ("completed", "failed", "cancelled",
+                                     "expired"):
+                    break
+                time.sleep(0.1)
+            return job, time.monotonic() - t0, chats
+
+        run = _counted(srv.sm, _all_kernels(), batch_run)
+        job, job_s, chats = run.pop("result")
+        if job["status"] != "completed" or job["request_counts"] != {
+                "total": 16, "completed": 16, "failed": 0}:
+            raise AssertionError(f"batch job ended {job}")
+        _, out = _request(url + f"/v1/files/{job['output_file_id']}/content",
+                          key)
+        recs = {r["custom_id"]: r for r in (
+            json.loads(x) for x in out.decode().splitlines())}
+        same = [recs[f"line-{i}"]["response"]["body"]["choices"][0][
+            "message"]["content"] == text(inter[i]) for i in range(16)]
+        if not all(same):
+            raise AssertionError(f"batch texts differ from interactive: "
+                                 f"{same}")
+        if any(c.get("finish") not in ("stop", "length") for c in chats):
+            raise AssertionError(f"interactive chats beside the job: {chats}")
+        _, scrape, _ = _get(url + "/metrics", key)
+        lines_ok = sum(float(x.rsplit(" ", 1)[1])
+                       for x in scrape.decode().splitlines()
+                       if x.startswith('localai_batch_lines_total{'
+                                       'result="completed"}'))
+        if lines_ok != 16:
+            raise AssertionError(f"batch lines counted {lines_ok}")
+        _check_k1(name, run, 28)
+        batch_rec = {"lines": 16, "job_wall_s": job_s,
+                     "lines_per_s": 16 / job_s,
+                     "tokens": sum(r["response"]["body"]["usage"][
+                         "completion_tokens"] for r in recs.values()),
+                     "interactive_ttft_s": [c["ttft_s"] for c in chats],
+                     "interactive_tokens": [c["tokens"] for c in chats],
+                     "launches": run}
+        print("self_healing batch: " + json.dumps({"card": card, **batch_rec}),
+              flush=True)
+        rec = {"card": card, "model": name, "nan": nan_rec,
+               "rebuild": rebuild_rec, "batch": batch_rec,
+               "phase_s": time.monotonic() - t_phase}
+        print("self_healing: " + json.dumps(rec), flush=True)
+        return rec
+    finally:
+        _request(url + "/debug/faults", key, method="DELETE")
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        wd.stop()
+        wd.deadline, wd.poll_interval = saved_wd
+        wd.start()
+        sched.kv_check = False
+
+
 def phase_serve_qwen(card: str) -> dict:
     """``qwen2.5-7b-bf16``, the group-7 serve: a checkpoint directory with
     Qwen2.5-7B-Instruct's config.json (full widths and depth: 28 query /
@@ -4610,7 +4966,8 @@ def phase_serve_qwen(card: str) -> dict:
     ckpt, models = root / "Qwen2.5-7B-Instruct", root / "models"
     dirs = {"history": str(root / "history"),
             "profiles": str(root / "profiles"),
-            "assets": str(root / "assets")}
+            "assets": str(root / "assets"),
+            "uploads": str(root / "uploads")}
     env = {**OBSERVATORY_ENV, "LOCALAI_HISTORY_DIR": dirs["history"],
            "LOCALAI_PROFILE_DIR": dirs["profiles"]}
     saved = {k: os.environ.get(k) for k in env}
@@ -4640,7 +4997,9 @@ def phase_serve_qwen(card: str) -> dict:
         with _Served(doc, models_path=str(models), app={
                 "api_keys": [QWEN_KEY], "slo_ttft_p95_ms": 600_000.0,
                 "slo_e2e_p95_ms": 600_000.0,
-                "backend_assets_path": dirs["assets"]}) as srv:
+                "backend_assets_path": dirs["assets"],
+                "upload_path": dirs["uploads"],
+                "batch_concurrency": 6}) as srv:
             r = srv.sm.runner
             if (r.cfg.num_heads, r.cfg.num_kv_heads, r.cfg.num_layers) != (
                     28, 4, 28) or not r.paged or r.paged_attn_impl != \
@@ -4668,8 +5027,12 @@ def phase_serve_qwen(card: str) -> dict:
             obs = phase_observatory(srv, [warm, chats], QWEN_KEY, dirs)
             print(f"observatory phase: {time.monotonic() - t_obs:.1f}s",
                   flush=True)
+            t_heal = time.monotonic()
+            heal = phase_self_healing(srv, card, QWEN_KEY)
+            print(f"self-healing phase: {time.monotonic() - t_heal:.1f}s",
+                  flush=True)
         return {"launches": run, "serve": rec, "telemetry": tele,
-                "observatory": obs}
+                "observatory": obs, "self_healing": heal}
     finally:
         # the history writer stops with the serve; later servers start
         # without this phase's settings
@@ -5180,8 +5543,8 @@ def mixtral_gguf_spec(layers: int = 2) -> tuple[list, list]:
 
 
 def phase_gguf_convert(card: str) -> dict:
-    """A GGUF at Mixtral-8x7B's widths (2 layers, Q4_K_M mix) written
-    here, converted by ``util convert`` in a subprocess of the real
+    """A GGUF at Mixtral-8x7B's widths (``SMOKE_LAYERS`` deep, Q4_K_M
+    mix) written here, converted by ``util convert`` in a subprocess of the real
     entry point, then served from a one-line YAML with ``quantization:
     int8`` (quantized layer by layer as the checkpoint is read) through
     ``cli.main.build_server``: two greedy chats, the converted WordLevel
@@ -5204,7 +5567,7 @@ def phase_gguf_convert(card: str) -> dict:
         "LOCALAI_CONFIG_PATH")}
     server = None
     try:
-        meta, tensors = mixtral_gguf_spec(2)
+        meta, tensors = mixtral_gguf_spec(SMOKE_LAYERS["gguf"])
         t0 = time.monotonic()
         gguf_bytes = write_gguf(src, meta, tensors, seed=1)
         write_s = time.monotonic() - t0
@@ -5241,7 +5604,8 @@ def phase_gguf_convert(card: str) -> dict:
         cfg = sm.runner.cfg
         lay = sm.runner.params["layers"]
         c = MIXTRAL_8X7B_CONFIG
-        want = (2, c["num_local_experts"], c["hidden_size"],
+        want = (SMOKE_LAYERS["gguf"], c["num_local_experts"],
+                c["hidden_size"],
                 c["intermediate_size"])
         if ((cfg.num_layers, cfg.num_experts, cfg.hidden_size,
              cfg.intermediate_size) != want
@@ -5332,6 +5696,11 @@ BGE_LARGE_CONFIG = {
     "layer_norm_eps": 1e-12, "pad_token_id": 0, "hidden_act": "gelu"}
 MAMBA = "mamba-2.8b-bf16"
 RWKV = "rwkv-4-7b-bf16"
+# depths cut to keep the smoke inside its 1200 s (the widths stay the
+# published ones): the recurrent serves' loop prefills, the sentence
+# encoder's CPU reference and the GGUF's conversion on the host scale
+# with them
+SMOKE_LAYERS = {"mamba": 16, "rwkv": 8, "bge-large": 6, "gguf": 1}
 RERANKER = "ms-marco-minilm-l6-f32"
 EMBEDDER = "bge-large-en-v1.5-f32"
 # the special tokens of bert-base-uncased's vocab.txt, at their ids
@@ -5685,11 +6054,12 @@ def _drawn_recurrent_model(mcfg, app, lm):
 
 def phase_serve_recurrent(card: str, kind: str) -> dict:
     """The recurrent serves: ``mamba-2.8b-bf16`` (state-spaces/mamba-2.8b-
-    hf's widths and depth) or ``rwkv-4-7b-bf16`` (RWKV/rwkv-4-7b-pile's),
-    bf16 weights drawn on the card (the float32 tensors of the JAX
-    package's loaders in float32), served as ``backend: mamba | rwkv``
-    through the port's HTTP server: five greedy 32-token chats (one
-    streamed; generations run one at a time, as in the JAX package). It
+    hf's widths) or ``rwkv-4-7b-bf16`` (RWKV/rwkv-4-7b-pile's), at the
+    depths of ``SMOKE_LAYERS``, bf16 weights drawn on the card (the
+    float32 tensors of the JAX package's loaders in float32), served as
+    ``backend: mamba | rwkv`` through the port's HTTP server: five
+    greedy 32-token chats (one streamed; generations run one at a time,
+    as in the JAX package). It
     prints the weight bytes, peak memory, tokens/s, the streamed TTFT,
     prefill ms on CUDA events at 128, 512 and 2048 tokens, and a decode
     step's ms, launches and device idle share; K1–K5 launch never."""
@@ -5701,6 +6071,7 @@ def phase_serve_recurrent(card: str, kind: str) -> dict:
 
     name, hf = ((MAMBA, MAMBA_28B_CONFIG) if kind == "mamba"
                 else (RWKV, RWKV_4_7B_CONFIG))
+    hf = {**hf, "num_hidden_layers": SMOKE_LAYERS[kind]}
     mod, cfg_cls, lm_cls = _recurrent(kind)
     cfg = cfg_cls.from_hf(hf)
     kernels = _all_kernels()
@@ -5798,7 +6169,8 @@ def phase_encoders(card: str) -> dict:
     cross-encoder at cross-encoder/ms-marco-MiniLM-L-6-v2's widths (one
     query against 32 documents of 30–300 words, then four more requests)
     and ``/v1/embeddings`` on a sentence encoder at BAAI/bge-large-en-
-    v1.5's (64 inputs of 10–400 tokens; a token array is refused), both
+    v1.5's (at the depth of ``SMOKE_LAYERS``; 64 inputs of 10–400
+    tokens; a token array is refused), both
     float32 checkpoints of seeded weights drawn on the CPU and loaded from
     a models dir by the manager. Scores and vectors are held to the CPU's
     on the same checkpoints within 1e-4 (all 32 scores, all 64 vectors).
@@ -5828,8 +6200,11 @@ def phase_encoders(card: str) -> dict:
     try:
         for sub, hf, head, seed in (("minilm-ce", MINILM_L6_CE_CONFIG, True,
                                      11),
-                                    ("bge-large", BGE_LARGE_CONFIG, False,
-                                     12)):
+                                    ("bge-large", {
+                                        **BGE_LARGE_CONFIG,
+                                        "num_hidden_layers":
+                                            SMOKE_LAYERS["bge-large"]},
+                                     False, 12)):
             cfg = BertConfig.from_hf(hf)
             params = init_params(cfg, torch.Generator().manual_seed(seed),
                                  "cpu")
@@ -6244,24 +6619,29 @@ class _Served:
         torch.cuda.empty_cache()
 
 
-def _streamed_chat(url: str, body: dict) -> dict:
-    """One streamed chat: {"text", "ttft_s", "tokens", "finish"}."""
+def _streamed_chat(url: str, body: dict, key: Optional[str] = None) -> dict:
+    """One streamed chat (with a bearer ``key``): {"text", "ttft_s",
+    "status", "tokens", "finish"}; an error in the stream is its finish
+    reason."""
     t = time.monotonic()
     ttft, text, last = None, "", None
-    with _post(url, {**body, "stream": True}) as r:
+    with _post(url, {**body, "stream": True}, key=key) as r:
         for line in r:
             line = line.strip()
             if not line.startswith(b"data: {"):
                 continue
             frame = json.loads(line[6:])
-            delta = frame["choices"][0]["delta"].get("content")
-            if delta and ttft is None:
-                ttft = time.monotonic() - t
-            text += delta or ""
+            if frame.get("choices"):
+                delta = frame["choices"][0]["delta"].get("content")
+                if delta and ttft is None:
+                    ttft = time.monotonic() - t
+                text += delta or ""
             last = frame
-    return {"text": text, "ttft_s": ttft,
-            "tokens": last["usage"]["completion_tokens"],
-            "finish": last["choices"][0].get("finish_reason")}
+    return {"text": text, "ttft_s": ttft, "status": r.status,
+            "tokens": (last or {}).get("usage", {}).get(
+                "completion_tokens", 0),
+            "finish": (last or {}).get("choices", [{}])[0].get(
+                "finish_reason")}
 
 
 def _five_chats(srv, card: str, kernels: dict, extra: dict) -> tuple:
@@ -7828,6 +8208,25 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+
+def _phase_timer(fn):
+    """``fn``, printing its wall time as it returns: every phase reports
+    what it costs of the smoke's 1200 s."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t = time.monotonic()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            print(f"phase time {fn.__name__}: {time.monotonic() - t:.1f}s",
+                  flush=True)
+    return run
+
+
+for _name in [n for n in globals() if n.startswith("phase_")]:
+    globals()[_name] = _phase_timer(globals()[_name])
 
 
 if __name__ == "__main__":

@@ -36,8 +36,11 @@ from localai_tpu_torch.config.model_config import ModelConfig
 WAV = "audio/wav"
 
 
-def parse_multipart(ctype: str, body: bytes) -> dict[str, bytes]:
-    """A ``multipart/form-data`` body → {field name: raw bytes}. Raises
+def parse_multipart(ctype: str, body: bytes,
+                    filenames: dict[str, str] | None = None
+                    ) -> dict[str, bytes]:
+    """A ``multipart/form-data`` body → {field name: raw bytes}; a given
+    ``filenames`` dict receives each file field's ``filename``. Raises
     ``APIError`` 400 for another content type or a malformed body."""
     m = re.search(r'boundary="?([^";]+)"?', ctype or "")
     if not (ctype or "").startswith("multipart/") or m is None:
@@ -53,8 +56,12 @@ def parse_multipart(ctype: str, body: bytes) -> dict[str, bytes]:
         if not sep or name is None:
             raise APIError(400, "malformed multipart/form-data body")
         # the CRLF before the next delimiter belongs to the delimiter
-        fields[name.group(1).decode("utf-8", "replace")] = \
-            data.removesuffix(b"\r\n")
+        field = name.group(1).decode("utf-8", "replace")
+        fields[field] = data.removesuffix(b"\r\n")
+        fname = re.search(
+            rb'(?im)^content-disposition:.*?\bfilename="([^"]*)"', head)
+        if filenames is not None and fname is not None:
+            filenames[field] = fname.group(1).decode("utf-8", "replace")
     return fields
 
 

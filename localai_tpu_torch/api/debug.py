@@ -37,16 +37,25 @@ multi-resolution metrics history (``?res=1|10|300``, ``?since=<unix
 ts>``).
 
 ``GET /debug/kv`` — per-model paged block-pool audit: allocator stats,
-live tables and ``BlockAllocator.check_invariants()``.
+live tables, ``BlockAllocator.check_invariants()`` and the violations the
+scheduler's drain-time sweep has seen (``LOCALAI_KV_CHECK=1``).
 
-Left out: ``/debug/fleet/flight`` (fleets, ROADMAP item 23) and
-``/debug/faults`` (fault injection, item 17): 404 like any unported route.
+``GET /debug/faults`` — the fault-injection registry (``faults``): whether
+anything is armed, the injection sites, the armed specs with their hit
+and fire counts, and each supervised engine's ``status()``. ``POST`` a
+spec (``{"site", "mode", "after", "times", "match", "delay_s"}``) to arm
+it; ``DELETE`` (``?site=`` for one site) clears. Like every route but the
+exempt ones it needs the API key when keys are set.
+
+Left out: ``/debug/fleet/flight`` (fleets, ROADMAP item 23): 404 like any
+unported route.
 """
 
 from __future__ import annotations
 
 import time
 
+from localai_tpu_torch import faults
 from localai_tpu_torch.api.openai import APIError
 from localai_tpu_torch.obs import anatomy as obs_anatomy
 from localai_tpu_torch.obs import compile as obs_compile
@@ -184,15 +193,48 @@ def kv(manager, query) -> dict:
             "shared_tokens_total": alloc.shared_tokens_total,
             "evictions_total": alloc.evictions_total,
             "invariant_violations": alloc.check_invariants(),
-            # the JAX package's drain-time sweep (LOCALAI_KV_CHECK) comes
-            # with self-healing (ROADMAP item 17)
-            "violations_seen": 0,
+            # the scheduler's drain-time sweep (LOCALAI_KV_CHECK=1)
+            "violations_seen": getattr(getattr(sm, "scheduler", None),
+                                       "kv_invariant_violations", 0),
         }
     return {"models": models}
+
+
+def faults_get(manager, query) -> dict:
+    supervisors = {}
+    for name, sm in manager.loaded_snapshot().items():
+        sup = getattr(getattr(sm, "scheduler", None), "supervisor", None)
+        if sup is not None:
+            supervisors[name] = sup.status()
+    return {"active": faults.active(), "sites": faults.SITES,
+            "armed": faults.snapshot(), "supervisors": supervisors}
+
+
+_SPEC_FIELDS = {"site", "mode", "after", "times", "match", "delay_s"}
+
+
+def faults_post(manager, body: dict) -> dict:
+    if not body.get("site"):
+        raise APIError(400, 'need {"site": ..., ...}')
+    unknown = set(body) - _SPEC_FIELDS
+    if unknown:
+        raise APIError(400, f"unknown fields {sorted(unknown)}")
+    try:
+        spec = faults.arm(faults.FaultSpec(**body))
+    except (TypeError, ValueError) as e:
+        raise APIError(400, str(e)) from None
+    return {"armed": spec.to_dict()}
+
+
+def faults_delete(manager, query) -> dict:
+    return {"cleared": faults.clear(query.get("site") or None)}
 
 
 GET = {"/debug/devices": devices, "/debug/programs": programs,
        "/debug/stacks": stacks, "/debug/flight": flight,
        "/debug/anatomy": anatomy, "/debug/profiles": profiles,
-       "/debug/history": history_index, "/debug/kv": kv}
+       "/debug/history": history_index, "/debug/kv": kv,
+       "/debug/faults": faults_get}
+POST = {"/debug/faults": faults_post}
+DELETE = {"/debug/faults": faults_delete}
 GET_PARAM = (("/debug/history/{series}", history_series),)

@@ -28,7 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
-from localai_tpu_torch.api.openai import APIError
+from localai_tpu_torch.api.openai import APIError, request_body
 
 PNG = "image/png"
 
@@ -89,6 +89,7 @@ def _image_model(manager, name: str):
 def generations(manager, body: dict, base_url: str = "") -> dict:
     """POST /v1/images/generations. ``base_url`` (scheme and host of the
     request) prefixes the url answers."""
+    body = request_body(body)
     name = body.get("model") or ""
     mcfg = manager.loader.get(name)
     if mcfg is None:

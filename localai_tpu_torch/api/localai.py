@@ -43,8 +43,9 @@ def metrics(manager, query) -> str:
     only: counters are monotone totals, gauges point-in-time); the decode
     loop never touches the registry. Every scrape is also a history tick,
     exports the usage ledger, refreshes the device-memory gauges (host
-    metadata, never a kernel: the probe lives in /debug/devices) and the
-    SLO burn-rate and shedding gauges."""
+    metadata, never a kernel: the probe lives in /debug/devices), the
+    SLO burn-rate and shedding gauges, and the batch lane's job-state and
+    lane-paused gauges."""
     for name, m in manager.metrics().items():
         if isinstance(m, dict):
             update_engine_gauges(name, m)
@@ -59,6 +60,14 @@ def metrics(manager, query) -> str:
     # trace-store sizing receipt (LOCALAI_TRACE_CAPACITY): dashboards can
     # tell "trace evicted from the ring" from "trace never recorded"
     REGISTRY.trace_ring_size.set(STORE.capacity)
+    # the batch lane: the job-state gauge and the lane-paused flag (host
+    # reads of the job store and the executor)
+    batch = getattr(manager, "batch_state", None)
+    if batch is not None:
+        batch.batches.export_gauges()
+        svc = batch.executor
+        REGISTRY.batch_lane_paused.set(
+            1 if (svc is not None and svc.paused) else 0)
     return REGISTRY.render()
 
 

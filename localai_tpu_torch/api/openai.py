@@ -30,6 +30,7 @@ package.
 from __future__ import annotations
 
 import json
+import math
 import queue
 import re
 import threading
@@ -212,11 +213,9 @@ def _refuse_completion_constraints(body: dict) -> None:
 
 
 def _choices(body: dict) -> int:
-    """The request's ``n`` (1 when absent or below 1)."""
-    try:
-        return max(1, int(body.get("n") or 1))
-    except (TypeError, ValueError):
-        raise APIError(400, "n must be an integer") from None
+    """The request's ``n`` (1 when absent or below 1) of a body
+    :func:`request_body` read."""
+    return max(1, body.get("n") or 1)
 
 
 def _gen_request(sm, body: dict, prompt: str, stream: bool,
@@ -350,6 +349,129 @@ def chat_messages(raw: Any) -> list[dict]:
     return out
 
 
+
+# the JAX package's request schema (api/schema.py OpenAIRequest), field by
+# field, for the checks and coercions pydantic runs in its lax mode
+_FLOATS = ("temperature", "top_p", "min_p", "presence_penalty",
+           "frequency_penalty", "repeat_penalty")
+_INTS = ("top_k", "max_tokens", "n", "seed")
+_REQUIRED_INTS = ("mode", "step")
+_BOOLS = ("ignore_eos", "echo", "stream")
+_STRS = ("model", "instruction", "suffix", "size", "file", "user")
+_OPT_STRS = ("grammar", "language", "backend")
+_STR_OR_STRS = ("prompt", "stop")
+_STR_OR_DICT = ("tool_choice", "function_call", "response_format")
+_LISTS_OF_DICTS = ("tools", "functions")
+_TRUE = {"1", "on", "t", "true", "y", "yes"}
+_FALSE = {"0", "off", "f", "false", "n", "no"}
+# a string pydantic reads as an int: digits (with single underscores
+# between them), optionally a fraction of zeros
+_INT_STR = re.compile(r"\s*[+-]?[0-9]+(?:_[0-9]+)*(?:\.0+)?\s*")
+
+
+def _as_float(v: Any) -> Optional[float]:
+    """``v`` read as a float field in pydantic's lax mode, else None."""
+    if isinstance(v, (bool, int, float)) or (isinstance(v, str)
+                                             and v.isascii()):
+        try:
+            return float(v)
+        except (ValueError, OverflowError):
+            return None
+    return None
+
+
+def _as_int(v: Any) -> Optional[int]:
+    """``v`` read as an int field in pydantic's lax mode, else None."""
+    if isinstance(v, int):
+        return int(v)
+    if isinstance(v, float):
+        ok = math.isfinite(v) and v == int(v) and abs(v) < 2 ** 63
+        return int(v) if ok else None
+    if isinstance(v, str) and v.isascii() and _INT_STR.fullmatch(v):
+        return int(v.strip().split(".")[0])
+    return None
+
+
+def _as_bool(v: Any) -> Optional[bool]:
+    """``v`` read as a bool field in pydantic's lax mode, else None."""
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, (int, float)) and v in (0, 1):
+        return bool(v)
+    if isinstance(v, str) and v.lower() in _TRUE | _FALSE:
+        return v.lower() in _TRUE
+    return None
+
+
+def request_body(body: Any) -> dict:
+    """``body`` as the JAX package's request schema reads it, for every
+    route and lane that takes one (chat, completions, edits, embeddings
+    and each batch line): numbers and booleans coerced as pydantic's lax
+    mode coerces them (numeric strings, integral floats, 0/1 and yes/no
+    words), the other fields type-checked, the messages checked by
+    :func:`chat_messages`. What the schema refuses is a 400 ``invalid
+    request: <field>: <why>; ...`` (the JAX message is pydantic's own
+    wording; ROADMAP §C)."""
+    if not isinstance(body, dict):
+        raise APIError(400, "invalid request: the body must be an object")
+    out = dict(body)
+    errors = []
+
+    def coerce(fields, read, why, optional=True):
+        for k in fields:
+            if k not in body or (optional and body[k] is None):
+                continue
+            v = read(body[k])
+            if v is None:
+                errors.append(f"{k}: {why}")
+            else:
+                out[k] = v
+
+    coerce(_FLOATS, _as_float, "not a number")
+    coerce(_INTS, _as_int, "not an integer")
+    coerce(_REQUIRED_INTS, _as_int, "not an integer", optional=False)
+    coerce(_BOOLS, _as_bool, "not a boolean", optional=False)
+    for k in _STRS:
+        if k in body and not isinstance(body[k], str):
+            errors.append(f"{k}: not a string")
+    for k in _OPT_STRS:
+        if body.get(k) is not None and not isinstance(body[k], str):
+            errors.append(f"{k}: not a string")
+    for k in _STR_OR_STRS:
+        v = body.get(k)
+        if v is not None and not isinstance(v, str) and not (
+                isinstance(v, list) and all(isinstance(x, str) for x in v)):
+            errors.append(f"{k}: not a string or a list of strings")
+    for k in _STR_OR_DICT:
+        v = body.get(k)
+        if v is not None and not isinstance(v, (str, dict)):
+            errors.append(f"{k}: not a string or an object")
+    for k in _LISTS_OF_DICTS:
+        v = body.get(k)
+        if v is not None and not (isinstance(v, list) and all(
+                isinstance(x, dict) for x in v)):
+            errors.append(f"{k}: not a list of objects")
+    bias = body.get("logit_bias")
+    if bias is not None:
+        vals = ({k: _as_float(x) for k, x in bias.items()}
+                if isinstance(bias, dict) else None)
+        if vals is None or None in vals.values():
+            errors.append("logit_bias: not an object of numbers")
+        else:
+            out["logit_bias"] = vals
+    v = body.get("input")
+    if v is not None and not isinstance(v, (str, list)):
+        errors.append("input: not a string or a list")
+    if "messages" in body:
+        try:
+            chat_messages(body["messages"])
+        except APIError as e:
+            errors.append(f"messages: {e.message}")
+    if errors:
+        raise APIError(400, "invalid request: " + "; ".join(errors))
+    return out
+
+
 def _wait(manager, *handles: GenHandle) -> None:
     """Join generations within the request deadline
     (``inference.request_deadline_s`` of the manager's settings); on
@@ -419,6 +541,7 @@ def chat(manager, body: dict):
     request; a tools answer is parsed into ``tool_calls``. ``n`` > 1
     submits every choice at once, each with ``seed + i`` and a constraint
     of its own."""
+    body = request_body(body)
     sm, model = _serving(manager, body, "chat")
     # SLO admission control before any prompt build or constraint compile:
     # a 429 must cost the overloaded engine nothing
@@ -553,15 +676,11 @@ def _chat_stream_n(handles: list[GenHandle], rid: str,
 
 
 def _prompt_list(body: dict) -> list[str]:
-    """``prompt`` as a list of strings (one string, or a list of them)."""
+    """``prompt`` as a list of strings (one string, or a list of them) of
+    a body :func:`request_body` read."""
     raw = body.get("prompt")
     if isinstance(raw, list):
-        if not all(isinstance(p, str) for p in raw):
-            raise APIError(400, "prompt must be a string or a list of "
-                                "strings")
         return list(raw) or [""]
-    if raw is not None and not isinstance(raw, str):
-        raise APIError(400, "prompt must be a string or a list of strings")
     return [raw or ""]
 
 
@@ -569,6 +688,7 @@ def completions(manager, body: dict):
     """POST /v1/completions → a response dict, or SSE frames. Each prompt
     of a list goes through the ``completion`` template and runs ``n``
     choices; choice ``p * n + i`` is prompt p's i-th."""
+    body = request_body(body)
     sm, model = _serving(manager, body, "completion")
     inf.shed_check(model, getattr(sm, "scheduler", None))
     prompts = _prompt_list(body)
@@ -629,12 +749,11 @@ def edits(manager, body: dict) -> dict:
     """POST /v1/edits: each input (``prompt``, a string or a list, as the
     JAX package reads it) goes through the ``edit`` template with
     ``instruction``; one choice each, ``object: "edit"``."""
+    body = request_body(body)
     sm, model = _serving(manager, body, "edit")
     inf.shed_check(model, getattr(sm, "scheduler", None))
     inputs = _prompt_list(body)
     instruction = body.get("instruction") or ""
-    if not isinstance(instruction, str):
-        raise APIError(400, "instruction must be a string")
     rid = new_id("edit")
     choices = []
     ptotal = ctotal = 0
@@ -660,6 +779,7 @@ def embeddings(manager, body: dict) -> dict:
     batched forward and refuses token arrays (they would carry another
     vocabulary's ids); any other model mean-pools each input through the
     LLM engine (``runner.embed``). On this request's thread."""
+    body = request_body(body)
     raw = body.get("input")
     if raw is None:
         inputs = [""]

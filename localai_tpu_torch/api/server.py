@@ -20,7 +20,13 @@ under the JAX package's unversioned alias:
   * GET  /v1/traces, /v1/traces/{trace_id}, /debug/timeline/{request_id}
   * GET  /debug/devices, /debug/programs, /debug/stacks, /debug/flight,
     /debug/anatomy, /debug/profiles, /debug/history,
-    /debug/history/{series}, /debug/kv (``api.debug``)
+    /debug/history/{series}, /debug/kv; GET/POST/DELETE /debug/faults
+    (``api.debug``)
+  * GET  /v1/files, /v1/files/{file_id}, /v1/files/{file_id}/content;
+    POST /v1/files (multipart/form-data); DELETE /v1/files/{file_id}
+    (``api.assistants``, each also unversioned)
+  * POST /v1/batches, /v1/batches/{batch_id}/cancel; GET /v1/batches,
+    /v1/batches/{batch_id} (``api.batches``)
 One thread per connection; each request blocks its own thread on the
 scheduler handle while the engine thread batches all of them. A request
 body is read up to ``MAX_BODY_BYTES`` (64 MiB, the JAX package's
@@ -40,10 +46,14 @@ request's usage-ledger tenant (``obs.ledger.derive_tenant`` of the key,
 ``opaque_errors``, 500 bodies that say only "internal error". An error
 answer carries its ``APIError``'s headers (a shed 429's ``Retry-After``).
 
-At construction the server configures the process-wide SLO observatory
-from the settings (``slo_*``), restores the metrics history from
-``LOCALAI_HISTORY_DIR`` and arms the anomaly profiler when
-``LOCALAI_PROFILE_ON_ANOMALY=1``, as the JAX package's server does.
+At construction the server arms the ``LOCALAI_FAULT_*`` fault specs,
+configures the process-wide SLO observatory from the settings
+(``slo_*``), restores the metrics history from ``LOCALAI_HISTORY_DIR``,
+arms the anomaly profiler when ``LOCALAI_PROFILE_ON_ANOMALY=1`` and opens
+the file registry and batch job store under ``upload_path``
+(``api.batches.BatchState``; the batch executor starts at the first job,
+or at once when a job survived a restart), as the JAX package's server
+does. Shutdown stops the executor before the engines.
 """
 
 from __future__ import annotations
@@ -57,7 +67,8 @@ import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from localai_tpu_torch.api import audio, debug, images
+from localai_tpu_torch import faults
+from localai_tpu_torch.api import assistants, audio, batches, debug, images
 from localai_tpu_torch.api import inference as inf
 from localai_tpu_torch.api import jina
 from localai_tpu_torch.api import localai as la
@@ -87,10 +98,11 @@ _POST = {"/v1/chat/completions": oa.chat, "/chat/completions": oa.chat,
          "/v1/audio/speech": audio.speech, "/tts": audio.speech,
          "/v1/sound-generation": audio.sound_generation,
          "/sound-generation": audio.sound_generation,
-         "/v1/images/generations": images.generations}
+         "/v1/images/generations": images.generations,
+         **assistants.UPLOAD, **batches.POST, **debug.POST}
 # POST routes whose body is multipart/form-data (the handler takes the
 # parsed fields), not JSON
-_MULTIPART = {"/v1/audio/transcriptions"}
+_MULTIPART = {"/v1/audio/transcriptions", *assistants.UPLOAD}
 # POST routes whose handler also takes the request's base URL (url answers)
 _BASE_URL = {"/v1/images/generations"}
 MAX_BODY_BYTES = 64 << 20
@@ -100,7 +112,9 @@ _GET = {"/v1/models": oa.list_models, "/models": oa.list_models,
         "/metrics": la.metrics, "/system": la.system,
         "/backend/metrics": la.engine_metrics,
         "/v1/slo": la.slo_report, "/v1/usage": la.usage,
-        "/v1/traces": traces.list_traces, **debug.GET}
+        "/v1/traces": traces.list_traces, **debug.GET, **assistants.GET,
+        **batches.GET}
+_DELETE = {**debug.DELETE}
 
 
 def _param_routes(routes) -> list:
@@ -114,9 +128,11 @@ _GET_PARAM = _param_routes((
     ("/v1/traces/{trace_id}", traces.trace_detail),
     ("/debug/timeline/{request_id}", traces.timeline),
     ("/generated-images/{name}", images.serve_generated),
-    *debug.GET_PARAM))
+    *debug.GET_PARAM, *assistants.GET_PARAM, *batches.GET_PARAM))
 _POST_PARAM = _param_routes((
-    ("/v1/text-to-speech/{voice_id}", audio.elevenlabs_tts),))
+    ("/v1/text-to-speech/{voice_id}", audio.elevenlabs_tts),
+    *batches.POST_PARAM))
+_DELETE_PARAM = _param_routes(assistants.DELETE_PARAM)
 # paths reachable without an API key (the JAX package's AUTH_EXEMPT; the
 # web UI's own exemptions come with the UI, ROADMAP item 22)
 AUTH_EXEMPT = {"/", "/healthz", "/readyz", "/version", "/swagger",
@@ -134,8 +150,9 @@ def welcome(manager, query) -> dict:
     """GET /: the JAX package's JSON welcome (its browser UI waits for
     ROADMAP item 22)."""
     return {"message": "LocalAI-TPU", "models": manager.loader.names(),
-            "endpoints": sorted({"/", *_POST, *_GET,
-                                 *(p for p, _, _ in _GET_PARAM + _POST_PARAM)})}
+            "endpoints": sorted({"/", *_POST, *_GET, *_DELETE,
+                                 *(p for p, _, _ in _GET_PARAM + _POST_PARAM
+                                   + _DELETE_PARAM)})}
 
 
 _GET["/"] = welcome
@@ -144,11 +161,11 @@ _GET["/"] = welcome
 def _route(method: str, path: str):
     """(canonical path, handler, path parameters) of a request, or None:
     the canonical path is the route's pattern, never the raw URL."""
-    table = _POST if method == "POST" else _GET if method == "GET" else {}
+    table = {"POST": _POST, "GET": _GET, "DELETE": _DELETE}.get(method, {})
     if path in table:
         return path, table[path], ()
-    params = (_GET_PARAM if method == "GET" else _POST_PARAM
-              if method == "POST" else [])
+    params = {"GET": _GET_PARAM, "POST": _POST_PARAM,
+              "DELETE": _DELETE_PARAM}.get(method, [])
     for pattern, rx, fn in params:
         m = rx.match(path)
         if m:
@@ -316,21 +333,26 @@ class _Handler(BaseHTTPRequestHandler):
                                                      "method not allowed"))
 
     def do_GET(self):  # noqa: N802
-        def serve(path, route):
-            if route is None:
-                return self._error(404, f"no route {self.path}")
-            _, fn, params = route
-            qs = self.path.partition("?")[2]
-            query = {k: v[-1] for k, v in urllib.parse.parse_qs(qs).items()}
-            try:
-                out = fn(self.server.manager, query, *params)
-            except oa.APIError as e:
-                return self._api_error(e)
-            except Exception as e:  # noqa: BLE001 — report, keep serving
-                return self._internal_error(e)
-            self._reply(out)
+        self._traced(self._serve_query)
 
-        self._traced(serve)
+    def do_DELETE(self):  # noqa: N802
+        self._traced(self._serve_query)
+
+    def _serve_query(self, path, route) -> None:
+        """A GET or DELETE: the handler takes the query string's
+        parameters (the last value of each) and the path parameters."""
+        if route is None:
+            return self._error(404, f"no route {self.path}")
+        _, fn, params = route
+        qs = self.path.partition("?")[2]
+        query = {k: v[-1] for k, v in urllib.parse.parse_qs(qs).items()}
+        try:
+            out = fn(self.server.manager, query, *params)
+        except oa.APIError as e:
+            return self._api_error(e)
+        except Exception as e:  # noqa: BLE001 — report, keep serving
+            return self._internal_error(e)
+        self._reply(out)
 
     def do_POST(self):  # noqa: N802
         def serve(path, route):
@@ -346,9 +368,13 @@ class _Handler(BaseHTTPRequestHandler):
                                         f"over {MAX_BODY_BYTES}")
             raw = self.rfile.read(n)
             try:
+                kw = {}
                 if canonical in _MULTIPART:
+                    if canonical in assistants.UPLOAD:
+                        kw["filenames"] = {}
                     body = audio.parse_multipart(
-                        self.headers.get("Content-Type", ""), raw)
+                        self.headers.get("Content-Type", ""), raw,
+                        kw.get("filenames"))
                 else:
                     body = json.loads(raw or b"{}")
                     if not isinstance(body, dict):
@@ -357,7 +383,6 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._error(e.status, e.message)
             except ValueError as e:
                 return self._error(400, f"invalid JSON body: {e}")
-            kw = {}
             if canonical in _BASE_URL:
                 host = self.headers.get("Host") or "{}:{}".format(
                     *self.server.server_address[:2])
@@ -399,6 +424,11 @@ class APIServer:
                               burn_threshold=app.slo_burn_threshold)
         obs_history.install_from_env()
         obs_profiler.install_from_env(str(app.backend_assets_path or "."))
+        # fault injection: LOCALAI_FAULT_* specs armed once, at boot
+        faults.install_from_env()
+        # /v1/files + /v1/batches: the registry and the job store, reloaded
+        # from upload_path (jobs that survived a restart resume now)
+        manager.batch_state = batches.BatchState(app, manager)
         self._httpd = _HTTPServer((address, port), manager)
         self.address, self.port = self._httpd.server_address[:2]
         self._thread: threading.Thread | None = None
@@ -418,12 +448,15 @@ class APIServer:
         self._httpd.serve_forever()
 
     def shutdown(self) -> None:
-        """Stop accepting requests, the config watcher, then every
-        engine."""
+        """Stop accepting requests, the config watcher, the batch
+        executor, then every engine."""
         if self.watcher is not None:
             self.watcher.stop()
         if self._thread is not None:
             self._httpd.shutdown()
             self._thread.join()
         self._httpd.server_close()
+        # the executor stops before the engines: an in-progress job stays
+        # durable and resumes from its output file at the next boot
+        self.manager.batch_state.shutdown()
         self.manager.shutdown()

@@ -24,8 +24,9 @@ JAX package's flags: the JAX package runs those three on the CPU
 flags (``--slo-ttft-p95-ms``, ``--slo-tpot-p95-ms``, ``--slo-e2e-p95-ms``,
 ``--slo-queue-p95-ms``, ``--slo-burn-threshold``; ``None`` = the
 ``LOCALAI_SLO_*`` variable stands) reach the SLO observatory through
-``AppConfig``. A flag or variable of a feature the port has not yet (the
-batch lane, fleets, autoscaling, meshes, the JAX platform) stops
+``AppConfig``. ``--batch-concurrency`` and ``--batch-expiry-h`` reach the batch
+executor through ``AppConfig``. A flag or variable of a feature the port
+has not yet (fleets, autoscaling, meshes, the JAX platform) stops
 ``run`` with exit code 2 and the ROADMAP item that brings it; none is
 dropped silently. ``models install|available`` wait for the gallery
 (ROADMAP item 21).
@@ -77,8 +78,6 @@ def _env_bool(name: str, fallback: bool = False) -> bool:
 # run flags of features the port has not yet: flag → (AppConfig field of
 # the JAX package, the JAX package's default, the ROADMAP item)
 UNPORTED_RUN_FLAGS = {
-    "--batch-concurrency": ("batch_concurrency", 2, 14),
-    "--batch-expiry-h": ("batch_expiry_h", 24.0, 14),
     "--fleet-replicas": ("fleet_replicas", 0, 23),
     "--fleet-prefill-replicas": ("fleet_prefill_replicas", 0, 23),
     "--fleet-backend": ("fleet_backend", "worker", 23),
@@ -97,7 +96,6 @@ UNPORTED_RUN_FLAGS = {
     "--platform": ("platform", None, 11),
 }
 _WHAT = {11: "device plumbing (the port takes --device instead)",
-         14: "the batch lane",
          19: "multi-GPU parallelism",
          23: "fleets, autoscaling and the worker tier"}
 
@@ -160,6 +158,13 @@ def build_parser() -> argparse.ArgumentParser:
                      choices=("cuda", "cpu"),
                      help="the card (default), or the CPU for small debug "
                           "models and tests")
+    # offline batch subsystem (batch/): background-lane settings
+    run.add_argument("--batch-concurrency", type=int, default=None,
+                     help="max in-flight batch lines on the scheduler's "
+                          "background lane (default 2)")
+    run.add_argument("--batch-expiry-h", type=float, default=None,
+                     help="hours before a non-terminal batch job expires "
+                          "(default 24)")
     # not ported yet: parsed as the JAX package parses them, and refused
     # when set (_unported_settings)
     for flag, (fld, default, _item) in UNPORTED_RUN_FLAGS.items():
@@ -385,6 +390,9 @@ def app_config(args) -> AppConfig:
         slo_burn_threshold=args.slo_burn_threshold,
         # None = flag not given → LOCALAI_REQUEST_DEADLINE_S stands
         request_deadline_s=args.request_deadline_s,
+        # None = flag not given → LOCALAI_BATCH_* stands
+        batch_concurrency=args.batch_concurrency,
+        batch_expiry_h=args.batch_expiry_h,
         device=args.device,
     )
 

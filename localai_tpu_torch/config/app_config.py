@@ -5,9 +5,9 @@ feature reads, with the JAX package's defaults, each also read from
 ``LOCALAI_<FIELD>`` by :meth:`AppConfig.from_env`. ``device`` is the
 port's own (the card unless ``cpu`` is asked for), read from
 ``LOCALAI_DEVICE`` alike. The fields of features the port has not yet
-(the batch lane, fleets, autoscaling, meshes, the JAX platform) are not
-here: ``cli/main.py`` refuses their flags and variables rather than
-dropping them.
+(fleets, autoscaling, meshes, the JAX platform) are not here:
+``cli/main.py`` refuses their flags and variables rather than dropping
+them.
 """
 
 from __future__ import annotations
@@ -28,6 +28,9 @@ class AppConfig:
     # generated assets: POST /backend/trace captures and the anomaly
     # profiler's default manifest dir live under it
     backend_assets_path: str = "backend-assets"
+    # /v1/files uploads (uploadedFiles.json) and the batch jobs' state
+    # and results (batch_jobs/) live under it
+    upload_path: str = "uploaded_files"
 
     # server
     address: str = "0.0.0.0"
@@ -36,6 +39,7 @@ class AppConfig:
     cors_allow_origins: str = "*"
     api_keys: list[str] = field(default_factory=list)
     opaque_errors: bool = False
+    upload_limit_mb: int = 15       # the largest /v1/files upload
 
     # model management
     preload_models: list[str] = field(default_factory=list)
@@ -53,6 +57,14 @@ class AppConfig:
     # (LOCALAI_REQUEST_DEADLINE_S / --request-deadline-s): expiry cancels
     # the generation, so its decode slot frees, and the client gets 504
     request_deadline_s: float = 600.0
+
+    # offline batch subsystem (localai_tpu_torch.batch): max in-flight
+    # batch lines the executor keeps submitted on the scheduler's
+    # background lane, and how long a non-terminal job may live before it
+    # expires (LOCALAI_BATCH_CONCURRENCY / LOCALAI_BATCH_EXPIRY_H; CLI
+    # --batch-concurrency / --batch-expiry-h)
+    batch_concurrency: int = 2
+    batch_expiry_h: float = 24.0
 
     # SLO observatory + burn-rate load shedding (obs.slo): p95 latency
     # targets in ms (0 = no target; LOCALAI_SLO_TTFT_P95_MS, ...; CLI

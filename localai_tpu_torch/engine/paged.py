@@ -34,6 +34,8 @@ from typing import Optional
 
 import numpy as np
 
+from localai_tpu_torch.faults import registry as _faults
+
 
 def block_tokens_default() -> int:
     """Tokens per KV block (``LOCALAI_KV_BLOCK_TOKENS``, default 64)."""
@@ -203,6 +205,9 @@ class BlockAllocator:
         recorded as speculation blocks. Returns the shared-token count, or
         None when the pool cannot cover the reservation (the caller queues
         the request). ``seq`` must not already hold a table."""
+        if _faults.ACTIVE and _faults.apply("paged.allocate",
+                                            key=str(seq)) is not None:
+            return None  # injected exhaustion: report the pool full
         nb = self.blocks_for(tokens + spec_tokens)
         nb_spec = nb - self.blocks_for(tokens)
         shared = self.match_prefix(prompt) if prompt else []
@@ -298,13 +303,26 @@ class BlockAllocator:
 
     def check_invariants(self) -> list[str]:
         """Block-conservation audit from refcount ground truth. Returns
-        violation strings (empty = healthy): every allocatable block is
-        free (refcount 0) or referenced (≥ 1), the free list holds no
-        duplicates and never the trash block, table blocks are live
-        non-trash blocks (shared leading ones also pool-referenced), each
-        speculation reservation is a tail of its own table that never
-        entered the prefix pool, and the prefix pool's key↔block indices
-        agree."""
+        violation strings (empty = healthy). Invariants:
+
+          * every allocatable block is exactly one of {free, referenced};
+            free blocks carry refcount 0, referenced ones ≥ 1 — so
+            ``free + used + cached == total`` by construction;
+          * the free list holds no duplicates and never the trash block;
+          * every table block id is a live (ref ≥ 1) non-trash block, and
+            a table's shared leading blocks are also pool-referenced
+            (ref ≥ 2);
+          * every prefix-pool chain entry maps to a live block and the
+            key↔block indices agree;
+          * each speculation reservation is a tail of its own table that
+            never entered the prefix pool;
+          * the live blocks are exactly those reachable from a table or
+            the prefix pool (the conservation census).
+
+        The JAX package's audit, less its host-tier checks (the port has
+        no KV tier). O(blocks + table rows) under the lock — called from
+        scheduler drains only behind ``LOCALAI_KV_CHECK`` and surfaced at
+        ``/debug/kv``."""
         problems: list[str] = []
         with self._lock:
             free_set = set(self._free)
@@ -312,6 +330,8 @@ class BlockAllocator:
                 problems.append("free list holds duplicate block ids")
             if 0 in free_set:
                 problems.append("trash block 0 is on the free list")
+            if self._ref[0] < 1:
+                problems.append("trash block 0 lost its standing reference")
             for bid in range(1, self.num_blocks):
                 ref = int(self._ref[bid])
                 if bid in free_set and ref != 0:
@@ -323,13 +343,19 @@ class BlockAllocator:
             for seq, table in self.tables.items():
                 shared = self.shared_blocks.get(seq, 0)
                 for i, bid in enumerate(table):
-                    if bid == 0 or bid in free_set:
+                    if bid == 0:
+                        problems.append(f"seq {seq} table maps trash block")
+                        continue
+                    if bid in free_set:
                         problems.append(
-                            f"seq {seq} table block {bid} is not live")
-                    elif int(self._ref[bid]) < (2 if i < shared else 1):
+                            f"seq {seq} table block {bid} is on the "
+                            "free list")
+                    want = 2 if i < shared else 1
+                    if int(self._ref[bid]) < want:
                         problems.append(
-                            f"seq {seq} block {bid} refcount "
-                            f"{int(self._ref[bid])} too low")
+                            f"seq {seq} {'shared ' if i < shared else ''}"
+                            f"block {bid} refcount {int(self._ref[bid])} "
+                            f"< {want}")
             for seq, nspec in self.spec_blocks.items():
                 table = self.tables.get(seq)
                 if table is None:
@@ -342,18 +368,47 @@ class BlockAllocator:
                         f"seq {seq} speculation reservation {nspec} "
                         f"outside its table of {len(table)} blocks")
                     continue
-                # a rejected draft row in a shared block would poison
-                # every sharer
+                # speculation blocks are the table TAIL and must never be
+                # shared through the prefix pool (a rejected draft row in
+                # a shared block would poison every sharer)
                 for bid in table[len(table) - nspec:]:
                     if bid in self._block_key:
                         problems.append(
                             f"seq {seq} speculation block {bid} leaked "
                             "into the prefix pool")
             for key, bid in self._prefix.items():
+                if int(self._ref[bid]) < 1:
+                    problems.append(
+                        f"cached chain block {bid} refcount "
+                        f"{int(self._ref[bid])} < 1")
                 if self._block_key.get(bid) != key:
                     problems.append(
                         f"prefix pool and block-key index disagree on "
                         f"block {bid}")
             if len(self._block_key) != len(self._prefix):
                 problems.append("block-key index size != prefix pool size")
+            # conservation, derived INDEPENDENTLY of stats() (whose
+            # ``used`` is total - free - cached by construction): every
+            # live block must be reachable from a table or the prefix
+            # pool, and the reachable census must add up block by block
+            table_ids = {bid for t in self.tables.values() for bid in t}
+            pool_ids = set(self._prefix.values())
+            live = {bid for bid in range(1, self.num_blocks)
+                    if int(self._ref[bid]) > 0 and bid not in free_set}
+            for bid in sorted(live - table_ids - pool_ids):
+                problems.append(
+                    f"block {bid} leaked: refcount {int(self._ref[bid])} "
+                    "but referenced by no table or pool entry")
+            free = len(self._free)
+            cached = self._reclaimable()
+            total = self.num_blocks - 1
+            used = total - free - cached
+            used_census = len(
+                (table_ids | pool_ids)
+                - {bid for bid in pool_ids if int(self._ref[bid]) == 1})
+            if used_census != used:
+                problems.append(
+                    f"conservation broken: {used_census} blocks live in "
+                    f"tables/pool vs used {used} "
+                    f"(free {free}, cached {cached}, total {total})")
         return problems

@@ -400,6 +400,21 @@ class ModelRunner:
         # transitions, so liveness queries never touch the device
         self._active_slots: set[int] = set()
 
+    def reinit(self) -> None:
+        """Self-healing engine rebuild (``faults.supervisor``): drop the
+        possibly-corrupt serving state and allocate a fresh KV pool,
+        decode state, block tables, allocator, per-slot generators and
+        slot lists in the original layout. The old tensors are rebound,
+        never zeroed or reused: an abandoned engine thread that wakes from
+        a wedged round-trip may still hold them, and whatever it writes
+        there the rebuilt engine never reads (they are freed when it
+        drops them). Callers own slot bookkeeping — every previously
+        admitted request must already be failed. A sticky CUDA error is
+        not mended here: the next launch raises again."""
+        self._init_device_state()
+        self.last_prefill_path = ""
+        self.last_prefix_reused = 0
+
     # -- device programs -------------------------------------------------
 
     def _sample_generators(self, slots) -> list[Optional[torch.Generator]]:

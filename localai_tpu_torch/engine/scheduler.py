@@ -42,7 +42,7 @@ A lean port of ``localai_tpu/engine/scheduler.py``. One engine thread:
   * feeds the request lifecycle to ``obs.EngineTelemetry`` (queued at
     submit, admitted, prefill done, finished at every release, error and
     cancel) from host fields of the handle, and answers ``metrics()`` in
-    the JAX package's keys and shapes for the subsystems the port has;
+    the JAX package's keys and shapes;
   * writes one flight-ring record (``obs.flight``) at every drain point —
     the pipelined drain, the constrained lane's synchronous dispatch, each
     speculative window and each prefill chunk — with its dispatch-anatomy
@@ -51,17 +51,38 @@ A lean port of ``localai_tpu/engine/scheduler.py``. One engine thread:
     draft tokens to the usage ledger, guards its drain with the stall
     watchdog (channel ``engine:<model>``) and shares the watchdog with its
     runner (channel ``device``); the API counts SLO refusals through
-    :meth:`Scheduler.note_shed`.
+    :meth:`Scheduler.note_shed`;
+  * admits on two lanes: interactive requests first, background batch
+    requests (``GenRequest.priority`` ``PRIORITY_BATCH``, the batch
+    executor's lines) only when no interactive request is queued; a held
+    batch request goes back to its own lane, so it never blocks an
+    interactive admission;
+  * guards every decode row for non-finite logits: a poisoned row
+    (``NAN_TOKEN``) fails only its own request and holds its slot out of
+    admission for ``LOCALAI_NAN_QUARANTINE_DISPATCHES`` dispatches
+    (default 16) while the co-batched streams go on;
+  * heals itself under ``faults.EngineSupervisor``: :meth:`rebuild` fences
+    the wedged engine thread off (an epoch it checks after every drain and
+    before every launch), fails the requests holding engine state, has
+    the runner allocate fresh device state, probes it from an abandonable
+    thread and starts a new engine thread on the queued requests;
+    :meth:`mark_failed` latches the failed state, after which ``submit``
+    fails fast;
+  * hosts the fault sites ``engine.dispatch``, ``engine.drain`` and
+    ``decode.nan`` (behind the one ``faults.ACTIVE`` boolean) and, under
+    ``LOCALAI_KV_CHECK=1``, sweeps the block allocator's invariants at
+    every drain (``kv_invariant_violations``).
 
-Left out (see ROADMAP): the background batch lane, the NaN quarantine
-and the self-healing supervisor, fleets.
+Left out (see ROADMAP): fleets.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
+import os
 import queue
 import threading
 import time
@@ -72,6 +93,7 @@ import numpy as np
 
 from localai_tpu_torch.engine.runner import NAN_TOKEN, ModelRunner
 from localai_tpu_torch.engine.stream import IncrementalDetokenizer, StopChecker
+from localai_tpu_torch.faults import registry as _faults
 from localai_tpu_torch.obs import anatomy as obs_anatomy
 from localai_tpu_torch.obs import compile as obs_compile
 from localai_tpu_torch.obs import flight as obs_flight
@@ -81,6 +103,19 @@ from localai_tpu_torch.obs import watchdog as obs_watchdog
 from localai_tpu_torch.obs.engine import EngineTelemetry
 
 log = logging.getLogger(__name__)
+
+
+class _EngineAbandoned(Exception):
+    """Raised inside a fenced-off engine thread (a rebuild bumped the
+    epoch while it sat in a blocked round-trip): exit without touching
+    the rebuilt engine's state."""
+
+
+# admission lanes: interactive requests (a client waiting) are admitted
+# strictly before background batch work — a batch line fills a slot only
+# when no interactive request is queued
+PRIORITY_INTERACTIVE = 0
+PRIORITY_BATCH = 1
 
 
 class TokenConstraint(Protocol):
@@ -130,6 +165,9 @@ class GenRequest:
     # request's API key, stamped by the server's auth check; "" leaves the
     # request out of the ledger
     tenant: str = ""
+    # admission lane: PRIORITY_BATCH requests queue on the background lane
+    # and are admitted only when the interactive lane is empty
+    priority: int = PRIORITY_INTERACTIVE
 
 
 class StreamItem:
@@ -164,6 +202,13 @@ class GenHandle:
         self.t_done: Optional[float] = None
         # lifecycle trace (obs.RequestTrace), attached by the scheduler
         self.trace = None
+        # NaN-guard receipt: set by Scheduler._poisoned just before the
+        # error release, so the ledger classifies the waste as
+        # nan_quarantine instead of a generic error
+        self.nan_poisoned = False
+        # global admission order (the engine thread stamps it at admit):
+        # lane-ordering tests and forensics read it; None until admitted
+        self.admit_index: Optional[int] = None
 
     # engine-thread side -------------------------------------------------
     def _emit(self, delta: str, token_id: Optional[int]) -> None:
@@ -336,15 +381,53 @@ class Scheduler:
         # a request the block pool couldn't cover yet (FIFO: it blocks the
         # queue until blocks free)
         self._held: Optional[GenHandle] = None
+        # two-lane admission: interactive requests drain strictly before
+        # the background batch lane (see _next_pending)
         self._pending: "queue.Queue[GenHandle]" = queue.Queue()
+        self._pending_batch: "queue.Queue[GenHandle]" = queue.Queue()
+        self._admit_seq = 0
         self._slots: dict[int, _SlotCtx] = {}
         self._ids = itertools.count()
         self._wake = threading.Event()
         self._stopping = False
         self._lock = threading.Lock()
         self._dispatch_seq = 0
-        self._thread = threading.Thread(target=self._run, name="engine",
-                                        daemon=True)
+        # self-healing (faults.supervisor): rebuild() bumps _epoch so a
+        # wedged engine thread — parked in a round-trip that may never
+        # return — is fenced off and exits when it unblocks, while a fresh
+        # thread takes over the runner's fresh state. rebuild() and
+        # mark_failed() run only on the supervisor's single recovery
+        # thread, the sole owner of the engine structures while the fenced
+        # thread is parked. failed latches after the supervisor exhausts
+        # its rebuild budget: submit() then fails fast and the manager's
+        # dead-engine reload takes over.
+        self._epoch = 0
+        self.failed = False
+        self.rebuilds = 0
+        self.supervisor = None          # set by EngineSupervisor
+        # the last rebuild's wall and its probe's (seconds)
+        self.last_rebuild_s: Optional[float] = None
+        self.last_probe_s: Optional[float] = None
+        # NaN/inf decode guard: a slot whose logits row went non-finite
+        # fails only its own request and is held out of admission for a
+        # fixed number of dispatches (localai_nan_rows_total counts them)
+        self._quarantined: dict[int, int] = {}  # slot -> release dispatch
+        # each released slot's hold: (slot, dispatch sequence when it was
+        # poisoned, when it was released)
+        self.quarantine_log: deque = deque(maxlen=64)
+        self.nan_rows = 0
+        try:
+            self._nan_quarantine = int(os.environ.get(
+                "LOCALAI_NAN_QUARANTINE_DISPATCHES", "16") or 16)
+        except ValueError:
+            self._nan_quarantine = 16
+        # block-leak invariant sweep (BlockAllocator.check_invariants) at
+        # every drain — debug runs and fault drills only; a drill may turn
+        # it on for a live engine
+        self.kv_check = os.environ.get("LOCALAI_KV_CHECK", "") == "1"
+        self.kv_invariant_violations = 0
+        self._thread = threading.Thread(target=self._run, args=(0,),
+                                        name="engine", daemon=True)
         self._thread.start()
 
     # -- public API ------------------------------------------------------
@@ -352,7 +435,22 @@ class Scheduler:
     def submit(self, req: GenRequest) -> GenHandle:
         handle = GenHandle(req, next(self._ids))
         handle.trace = self.telemetry.queued(handle)
-        self._pending.put(handle)
+        # the failed check and the enqueue are one step against
+        # mark_failed(), which flips the flag under the same lock before
+        # draining: a handle reaches a queue only while that drain is
+        # still obliged to pop it
+        with self._lock:
+            rejected = self.failed
+            if not rejected:
+                lane = (self._pending_batch
+                        if req.priority >= PRIORITY_BATCH
+                        else self._pending)
+                lane.put(handle)
+        if rejected:
+            # the supervisor exhausted its rebuild budget: a clean, instant
+            # error instead of a queue on a dead engine
+            self._fail_handle(handle, preempted=False)
+            return handle
         self._wake.set()
         return handle
 
@@ -362,6 +460,8 @@ class Scheduler:
     def shutdown(self, timeout: float = 10.0) -> None:
         self._stopping = True
         self._wake.set()
+        if self.supervisor is not None:
+            self.supervisor.detach()
         self.watchdog.remove_context(f"flight:{self._wd_channel}")
         obs_profiler.PROFILER.unwatch_flight(
             self.telemetry.model or "engine")
@@ -397,9 +497,222 @@ class Scheduler:
             except Exception as e:  # noqa: BLE001 — cache ≠ serving
                 log.warning("prompt-cache store failed: %s", e)
 
+    # -- self-healing (faults.supervisor drives these) -------------------
+
+    def _fail_handle(self, handle: GenHandle, reason: str = "error",
+                     *, preempted: bool = True) -> None:
+        self.telemetry.finished(handle.trace, handle, reason,
+                                preempted=preempted)
+        handle._finish(reason)
+
+    def rebuild(self, probe_timeout: float = 30.0) -> None:
+        """Tear down and re-initialize the engine after a suspected-wedged
+        dispatch (the EngineSupervisor calls it off-thread while the engine
+        thread is presumed parked in a round-trip that may never return).
+
+        Fences the old engine thread off (epoch bump: it exits whenever
+        its blocked call returns, checking the epoch after every drain and
+        before every launch), fails every request holding engine state
+        with a clean ``error`` (the API answers 5xx), has the runner (and a
+        speculating engine's drafter) allocate fresh device state — new
+        tensors, never the old ones reused —, probes the device from an
+        abandonable thread, then starts a fresh engine thread that resumes
+        the queued requests. Raises if the probe fails or times out — the
+        supervisor escalates.
+
+        Runs only on the supervisor's single recovery thread, the sole
+        owner of the engine structures while the fenced thread is parked
+        (``_lock`` still guards the cross-thread ``_slots`` views)."""
+        if self.spec is not None and not getattr(
+                self.spec, "supports_rebuild", False):
+            raise RuntimeError(
+                "engine rebuild is not supported with this speculative "
+                "engine")
+        if self._stopping:
+            raise RuntimeError("scheduler is shutting down")
+        t0 = time.monotonic()
+        self._epoch += 1
+        epoch = self._epoch
+        with self._lock:
+            failed = list(self._slots.items())
+            self._slots.clear()
+            self.total_preemptions += len(failed) + len(self._prefills)
+        log.warning("engine rebuild: fencing old engine thread "
+                    "(epoch %d), draining %d active slots",
+                    epoch - 1, len(failed))
+        for _slot, ctx in failed:
+            self._fail_handle(ctx.handle)
+        for pf in list(self._prefills):
+            self._fail_handle(pf.handle)
+        self._prefills.clear()
+        # the held request has no engine state (its reservation is only
+        # attempted at admit): it survives and is retried against the
+        # fresh pool, like the queued requests
+        self._resident.clear()
+        self._quarantined.clear()
+        self._spec_dirty = False
+        self._spec_stale.clear()
+        self._last_drain_t = None
+        self._anat_sched_s = self._anat_launch_s = self._anat_overlap_s = 0.0
+        # the fenced thread never leaves its wedged guard, so its arm() has
+        # no disarm(): drop the channel, or the leaked armed count fires a
+        # spurious stall (and rebuild) every idle gap
+        self.watchdog.reset(self._wd_channel)
+        self.runner.reinit()
+        if self.spec is not None:
+            # the drafter's state referenced the old pool: reset it too
+            self.spec.reinit()
+        self._probe(probe_timeout)
+        self.rebuilds += 1
+        self.last_rebuild_s = time.monotonic() - t0
+        self._thread = threading.Thread(target=self._run, args=(epoch,),
+                                        name="engine", daemon=True)
+        self._thread.start()
+        self._wake.set()
+
+    def _probe(self, timeout: float) -> None:
+        """One real admit + release on the rebuilt runner, in a side thread
+        (on the runner's device, named explicitly: a new thread's current
+        CUDA device is not the engine's), so a still-dead device costs
+        ``timeout`` seconds and an abandoned daemon instead of wedging the
+        supervisor."""
+        done = threading.Event()
+        err: list = []
+        runner = self.runner
+
+        def probe() -> None:
+            slot = None
+            try:
+                import torch
+
+                scope = (torch.cuda.device(runner.device)
+                         if runner.device.type == "cuda"
+                         else contextlib.nullcontext())
+                with scope:
+                    slot = runner.acquire_slot()
+                    if slot is None:
+                        raise RuntimeError("no free slot after reinit")
+                    runner.admit(slot, [1, 2, 3], temperature=0.0)
+                    runner.release(slot)
+            except Exception as e:  # noqa: BLE001 — reported to the waiter
+                err.append(e)
+                if slot is not None:
+                    try:
+                        runner.release(slot)
+                    except Exception:  # noqa: BLE001
+                        pass
+            finally:
+                done.set()
+
+        t0 = time.monotonic()
+        t = threading.Thread(target=probe, name="engine-probe", daemon=True)
+        t.start()
+        if not done.wait(timeout):
+            raise RuntimeError(
+                f"probe dispatch made no progress in {timeout}s")
+        if err:
+            raise RuntimeError(f"probe dispatch failed: {err[0]}")
+        self.last_probe_s = time.monotonic() - t0
+
+    def mark_failed(self) -> None:
+        """Terminal state: the supervisor exhausted its rebuild budget.
+        Every queued, held or active request resolves with a clean error,
+        later submits fail fast, and the engine thread is fenced off (it
+        exits, so ``alive()`` goes false and the manager's dead-engine
+        reload takes over)."""
+        self._epoch += 1  # fence whatever engine thread still exists
+        with self._lock:
+            # the flag flip and the slot collection share the lock
+            # submit()'s check-and-enqueue holds: every handle that beat
+            # the flip is already in a queue the drain below pops
+            self.failed = True
+            failed = list(self._slots.items())
+            self._slots.clear()
+            self.total_preemptions += len(failed)
+        for _slot, ctx in failed:
+            self._fail_handle(ctx.handle)
+        for pf in list(self._prefills):
+            self._fail_handle(pf.handle)
+        self._prefills.clear()
+        if self._held is not None:
+            self._fail_handle(self._held, preempted=False)
+            self._held = None
+        while True:
+            handle = self._next_pending()
+            if handle is None:
+                break
+            self._fail_handle(handle, preempted=False)
+
+    # -- fault injection (no-ops unless armed) ---------------------------
+
+    def _inject_slot_faults(self) -> None:
+        """decode.nan site: poison the bias row of the first active slot
+        whose correlation/trace id matches an armed spec — its next logits
+        row goes NaN on the device and the per-row guard must catch it.
+        Runs only while faults.ACTIVE."""
+        with self._lock:
+            slots = {s: c.handle.request for s, c in self._slots.items()}
+        for slot, req in slots.items():
+            key = req.correlation_id or req.trace_id or str(slot)
+            spec = _faults.fire("decode.nan", key=key)
+            if spec is None:
+                continue
+            row = np.full(self.runner.cfg.vocab_size, np.nan, np.float32)
+            self._engine.set_bias(slot, row)
+
+    def _poisoned(self, slot: int, ctx: _SlotCtx) -> None:
+        """The device-side per-row finite guard flagged this slot's logits
+        (NAN_TOKEN in the sampled row): fail only the affected request with
+        ``error`` and hold the slot out of admission for
+        ``LOCALAI_NAN_QUARANTINE_DISPATCHES`` dispatches — co-batched slots
+        keep streaming untouched."""
+        self.nan_rows += 1
+        self.telemetry.registry.nan_rows.inc(
+            model=self.telemetry.model or "engine")
+        log.error(
+            "non-finite logits for slot %d (request %s): failing the "
+            "request, quarantining the slot for %d dispatches",
+            slot, ctx.handle.request.correlation_id or ctx.handle.id,
+            self._nan_quarantine)
+        # the ledger's waste class for this failure is nan_quarantine
+        ctx.handle.nan_poisoned = True
+        self._release(slot, ctx, "error")
+        # _release returned the slot to the free list: pull it back out
+        # until the quarantine window passes
+        if self._engine.acquire_slot(slot) is not None:
+            self._quarantined[slot] = (self._dispatch_seq
+                                       + self._nan_quarantine)
+
+    def _unquarantine(self) -> None:
+        for slot, release_at in list(self._quarantined.items()):
+            if self._dispatch_seq >= release_at:
+                del self._quarantined[slot]
+                self._engine.release(slot)
+                self.quarantine_log.append(
+                    (slot, release_at - self._nan_quarantine,
+                     self._dispatch_seq))
+                log.info("slot %d leaves NaN quarantine", slot)
+
     # -- engine thread ---------------------------------------------------
 
-    def _run(self) -> None:
+    def _run(self, epoch: int) -> None:
+        """Engine-thread entry: the loop until shutdown — or until a
+        rebuild fences this thread off (``_epoch`` moved past ours while we
+        sat in a blocked round-trip); then exit silently: the replacement
+        thread owns the state."""
+        try:
+            self._run_loop(epoch)
+        except _EngineAbandoned:
+            log.warning("engine thread (epoch %d) abandoned after rebuild",
+                        epoch)
+
+    def _fence(self, epoch: int) -> None:
+        """Before a launch: a fenced thread must not touch the runner's
+        fresh state (its tensors were rebound by the rebuild)."""
+        if self._epoch != epoch:
+            raise _EngineAbandoned
+
+    def _run_loop(self, epoch: int) -> None:
         # each entry: (tokens, dispatch seq, steps, pipelined, issue time,
         # first dispatch of its shape)
         inflight: deque[tuple[Any, int, int, bool, float, bool]] = deque()
@@ -408,8 +721,13 @@ class Scheduler:
             toks, seq, k, pipelined, t_issue, fresh = inflight.popleft()
             t_sync = time.monotonic()  # anatomy: the result-fetch block
             with self.watchdog.guard(self._wd_channel):
+                if _faults.ACTIVE:  # chaos: wedge/raise inside the guard
+                    _faults.apply("engine.drain", key=self._wd_channel)
                 rows = np.asarray(toks)  # waits on the copy started at
                                          # dispatch
+            # a rebuild replaced this engine while we were parked in the
+            # round-trip above: the state is no longer ours
+            self._fence(epoch)
             now = time.monotonic()
             sync_s = now - t_sync
             # per-token timing for the adaptive streaming dispatch size: a
@@ -445,7 +763,12 @@ class Scheduler:
                 spec_accepted=window["accepted"] if window else 0,
                 sync_s=sync_s)
 
-        while not self._stopping:
+        while not self._stopping and self._epoch == epoch:
+            if _faults.ACTIVE:
+                # decode.nan chaos: poison a matching active slot's bias
+                # row so its next logits go non-finite — the device-side
+                # guard must catch it
+                self._inject_slot_faults()
             t_adm = time.monotonic()
             admitted = self._admit_pending()
             adm_s = time.monotonic() - t_adm
@@ -456,6 +779,7 @@ class Scheduler:
                 self._anat_overlap_s += adm_s
             else:
                 self._anat_sched_s += adm_s
+            self._fence(epoch)
             chunked = self._step_prefill_chunk()
             if not self._slots:
                 self._last_drain_t = None  # idle gap would pollute the EMA
@@ -473,6 +797,10 @@ class Scheduler:
                     self._wake.clear()
                 continue
             try:
+                self._fence(epoch)
+                if _faults.ACTIVE:  # chaos: a dispatch that raises/stalls
+                    _faults.apply("engine.dispatch", key="decode")
+                    self._fence(epoch)
                 if self._constrained_slots():
                     # a constrained slot's bias row must follow its last
                     # token: drain the pipeline so the rows refreshed from
@@ -547,7 +875,13 @@ class Scheduler:
                                  bool(inflight), t_issue, fresh))
                 if len(inflight) >= self.pipeline_depth:
                     drain_one()
+            except _EngineAbandoned:
+                raise
             except Exception:  # noqa: BLE001 — engine must not die silently
+                if self._epoch != epoch:
+                    # a rebuild raced this dispatch; the new engine owns
+                    # the slots — do not fail them from the fenced thread
+                    raise _EngineAbandoned from None
                 # a verify window that raises fails the active requests
                 # as a decode step that raises does
                 log.exception("decode step failed; failing active requests")
@@ -651,11 +985,13 @@ class Scheduler:
         """Work in flight: an occupied slot, a prefill, a held or a
         queued request."""
         return (bool(self._slots) or bool(self._prefills)
-                or self._held is not None or not self._pending.empty())
+                or self._held is not None or not self._pending.empty()
+                or not self._pending_batch.empty())
 
     def alive(self) -> bool:
-        """The engine thread runs (dead → the manager reloads)."""
-        return self._thread.is_alive()
+        """The engine thread runs and the engine is not marked failed
+        (dead or failed → the manager reloads)."""
+        return self._thread.is_alive() and not self.failed
 
     def handles_older_than(self, timeout: float) -> list[GenHandle]:
         """The handles in a slot that were submitted more than ``timeout``
@@ -667,11 +1003,11 @@ class Scheduler:
 
     def metrics(self) -> dict:
         """Live engine metrics in the JAX package's keys and shapes (its
-        ``Scheduler.metrics()``) for the subsystems the port has: slots,
-        occupancy, KV utilization, the paged pool and chunked prefill,
-        lifetime token / prefix-reuse / preemption totals, dispatches, the
-        prompt cache and the spec_* series; plus the port's constrained
-        decoding counters. Host reads only: ``step_time_ema`` is seconds
+        ``Scheduler.metrics()``): slots, occupancy, KV utilization, the
+        paged pool and chunked prefill, both admission lanes, lifetime
+        token / prefix-reuse / preemption totals, dispatches, the
+        self-healing and NaN-guard counters, the prompt cache and the
+        spec_* series; plus the port's constrained decoding counters. Host reads only: ``step_time_ema`` is seconds
         per decoded token."""
         num_slots = self.runner.num_slots
         pct = self.flight.percentiles()
@@ -688,6 +1024,7 @@ class Scheduler:
                 for s, c in self._slots.items()
             ]
             kv_utilization = self._kv_utilization()
+            batch_slots = self._batch_slots()
             # one snapshot: a scrape must not mix half-updated totals
             totals = {
                 "prompt": self.total_prompt_tokens,
@@ -695,6 +1032,7 @@ class Scheduler:
                 "preemptions": self.total_preemptions,
                 "prefill_chunks": self.total_prefill_chunks,
                 "shed": self.shed_total,
+                "failed": self.failed,
             }
         paged_stats = {}
         alloc = self.runner.allocator
@@ -726,6 +1064,8 @@ class Scheduler:
             "kv_utilization": kv_utilization,
             **paged_stats,
             "queue_depth": self._pending.qsize(),
+            "batch_queue_depth": self._pending_batch.qsize(),
+            "batch_slots": batch_slots,
             "total_prompt_tokens": totals["prompt"],
             "total_generated_tokens": totals["generated"],
             "prefix_tokens_reused": self.runner.total_prefix_reused,
@@ -733,6 +1073,12 @@ class Scheduler:
             "dispatches": self._dispatch_seq,
             "preemptions": totals["preemptions"],
             "shed_total": totals["shed"],
+            # self-healing + NaN-guard surface (faults)
+            "engine_state": "failed" if totals["failed"] else "serving",
+            "rebuilds": self.rebuilds,
+            "nan_rows": self.nan_rows,
+            "quarantined_slots": len(self._quarantined),
+            "kv_invariant_violations": self.kv_invariant_violations,
             "step_time_ema": self._step_ema,  # seconds per decoded token
             "step_ms_p50": pct["step_ms_p50"],
             "step_ms_p99": pct["step_ms_p99"],
@@ -759,6 +1105,11 @@ class Scheduler:
                 "spec_drafter": self.spec.drafter.name,
                 "spec_gamma": self.spec.gamma})
         return out
+
+    def _batch_slots(self) -> int:
+        """Occupied slots serving background batch-lane requests."""
+        return sum(1 for c in self._slots.values()
+                   if c.handle.request.priority >= PRIORITY_BATCH)
 
     def _kv_utilization(self) -> float:
         """Fraction of KV capacity holding live context: the paged pool's
@@ -820,6 +1171,7 @@ class Scheduler:
             steps=steps,
             dispatch_ms=dt * 1e3,
             occupancy=len(self._slots) / num_slots if num_slots else 0.0,
+            batch_slots=self._batch_slots(),
             queue_depth=self._pending.qsize(),
             kv_utilization=self._kv_utilization(),
             tokens=emitted - self._flight_mark,
@@ -841,6 +1193,23 @@ class Scheduler:
             obs_ledger.LEDGER.note_waste(
                 "spec_rejected", tokens=spec_proposed - spec_accepted,
                 model=self.telemetry.model or "engine")
+        if self.kv_check:
+            self._check_kv_invariants()
+
+    def _check_kv_invariants(self) -> None:
+        """Debug-flag drain sweep: the block allocator must conserve its
+        pool (free + used + cached == total, refcount sanity) after every
+        dispatch. Violations log, count, and feed
+        localai_kv_invariant_violations_total — they mean a leak."""
+        alloc = self.runner.allocator
+        if alloc is None:
+            return
+        problems = alloc.check_invariants()
+        if problems:
+            self.kv_invariant_violations += len(problems)
+            self.telemetry.registry.kv_invariant_violations.inc(
+                len(problems), model=self.telemetry.model or "engine")
+            log.error("KV block invariants violated: %s", problems)
 
     def _flight_forensics(self) -> dict:
         """Watchdog context provider: the last engine records, attached to
@@ -897,7 +1266,31 @@ class Scheduler:
         need = alloc.blocks_for(reserve) - len(alloc.match_prefix(req.prompt))
         return alloc.stats().available >= need
 
+    def _next_pending(self) -> Optional[GenHandle]:
+        """Two-lane admission pop: the interactive lane drains strictly
+        first; a batch request is handed out only when the interactive
+        queue is empty at this instant."""
+        try:
+            return self._pending.get_nowait()
+        except queue.Empty:
+            pass
+        try:
+            return self._pending_batch.get_nowait()
+        except queue.Empty:
+            return None
+
+    def _hold(self, handle: GenHandle) -> None:
+        """Park a request the block pool cannot cover yet: an interactive
+        one holds its place (FIFO); a batch one goes back to its own lane,
+        so it never blocks an interactive admission behind a full pool."""
+        if handle.request.priority >= PRIORITY_BATCH:
+            self._pending_batch.put(handle)
+        else:
+            self._held = handle
+
     def _admit_pending(self) -> bool:
+        if self._quarantined:
+            self._unquarantine()
         admitted = False
         while self._engine.free_slots():
             if self._held is not None:
@@ -906,9 +1299,8 @@ class Scheduler:
                     return admitted
                 handle, self._held = self._held, None
             else:
-                try:
-                    handle = self._pending.get_nowait()
-                except queue.Empty:
+                handle = self._next_pending()
+                if handle is None:
                     return admitted
             if handle.cancelled:
                 # abandoned while still queued: not a slot exit, so not a
@@ -918,7 +1310,7 @@ class Scheduler:
                 handle._finish("cancelled")
                 continue
             if not self._reservation_fits(handle.request):
-                self._held = handle
+                self._hold(handle)
                 return admitted
             positions = None
             if self._chunked:
@@ -932,7 +1324,7 @@ class Scheduler:
             try:
                 if not self._start(slot, handle, positions):
                     self._engine.release(slot)
-                    self._held = handle
+                    self._hold(handle)
                     return admitted
                 admitted = True
             except Exception as e:  # noqa: BLE001 — bad request ≠ dead engine
@@ -999,10 +1391,14 @@ class Scheduler:
             frequency_penalty=req.frequency_penalty, seed=req.seed,
             bias_row=self._compose_bias(base, mask),
             mm_embeds=req.mm_embeds, mm_positions=req.mm_positions)
+        background = req.priority >= PRIORITY_BATCH
         if not self._chunked:
+            handle.admit_index = self._admit_seq  # engine thread writes it
+            self._admit_seq += 1
             self.telemetry.admitted(
                 handle.trace, slot=slot,
-                queue_wait=time.monotonic() - handle.t_submit)
+                queue_wait=time.monotonic() - handle.t_submit,
+                background=background)
             first = self._engine.admit(slot, req.prompt, **sampling)
             self.telemetry.prefill_done(
                 handle.trace, path=self.runner.last_prefill_path,
@@ -1016,9 +1412,12 @@ class Scheduler:
                                        reserve_tokens=reserve, **sampling)
         if adm is None:
             return False
+        handle.admit_index = self._admit_seq
+        self._admit_seq += 1
         self.telemetry.admitted(
             handle.trace, slot=slot,
-            queue_wait=time.monotonic() - handle.t_submit)
+            queue_wait=time.monotonic() - handle.t_submit,
+            background=background)
         self._prefills.append(_PendingPrefill(slot=slot, handle=handle,
                                               adm=adm, base=base,
                                               mask_set=mask is not None))
@@ -1172,10 +1571,9 @@ class Scheduler:
                     continue
                 tok = int(rows[i, slot])
                 if tok == NAN_TOKEN:
-                    # non-finite logits row: fail THIS request only
-                    log.warning("slot %d: non-finite logits; failing its "
-                                "request", slot)
-                    self._release(slot, ctx, "error")
+                    # per-row NaN/inf guard sentinel: fail THIS request,
+                    # quarantine the slot, keep the rest of the batch
+                    self._poisoned(slot, ctx)
                     continue
                 if tok < 0:  # SKIP: this slot's window ended earlier
                     continue
@@ -1260,3 +1658,7 @@ class Scheduler:
         # query racing the response must not see a half-annotated trace
         self.telemetry.finished(ctx.handle.trace, ctx.handle, reason)
         ctx.handle._finish(reason)
+        if reason in ("stop", "length") and self.supervisor is not None:
+            # a natural completion closes any open incident: the
+            # supervisor's rebuild budget refills
+            self.supervisor.note_healthy()

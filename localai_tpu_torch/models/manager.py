@@ -35,8 +35,10 @@ the ``diffusers:`` section's defaults, a ``lora_adapter`` (relative to the
 models dir unless absolute) and a ``control_net``. Every kind shares one
 registry, so
 eviction, the watchdog, ``shutdown_model`` and preload treat them alike;
-a name asked for as another kind is reloaded (when idle). The
-self-healing supervisor is not ported yet.
+a name asked for as another kind is reloaded (when idle). Every LLM
+engine gets the self-healing ``faults.EngineSupervisor`` unless
+``LOCALAI_SELF_HEAL=0``; an engine it marks failed reads as not alive, so
+the next request reloads the model, as a dead engine thread does.
 """
 
 from __future__ import annotations
@@ -395,6 +397,17 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
         prompt_cache_all=mcfg.prompt_cache_all,
         telemetry=EngineTelemetry(model=mcfg.name),
     )
+    # self-healing supervisor (localai_tpu_torch.faults): a watchdog stall
+    # on this engine's channel escalates trace → drain with 5xx → runner
+    # re-init → probe dispatch, bounded and backed off, then marks the
+    # model failed (the dead-engine reload here takes over from there).
+    # Speculating engines rebuild too (SpecEngine.reinit).
+    # LOCALAI_SELF_HEAL=0 disables it.
+    if ((spec is None or getattr(spec, "supports_rebuild", False))
+            and os.environ.get("LOCALAI_SELF_HEAL", "1") != "0"):
+        from localai_tpu_torch.faults import EngineSupervisor
+
+        EngineSupervisor(scheduler)
     # vision tower: the explicit mmproj ref, or the llava checkpoint itself;
     # on the engine's device, in its dtype
     vision = None

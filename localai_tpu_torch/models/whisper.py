@@ -251,7 +251,11 @@ def decode_logits(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
     """tokens [Tmax] (padded), length → logits [V] at length-1 (the
     teacher-forced decoder over the whole buffer)."""
     Tmax = tokens.shape[0]
-    x = params["embed"][tokens] + params["pos"][:Tmax]
+    # an id past the table (a checkpoint whose vocabulary is smaller than
+    # the special ids) reads the last row, as the JAX package's gather
+    # clamps it
+    V = params["embed"].shape[0]
+    x = params["embed"][tokens.clamp(0, V - 1)] + params["pos"][:Tmax]
     t = torch.arange(Tmax, device=x.device)
     causal = (t[:, None] >= t[None, :]) & (t[None, :] < length)
     for i in range(cfg.n_dec_layers):
@@ -297,6 +301,8 @@ def cached_step(cfg: WhisperConfig, params: Params, token: int, t: int,
     and the attention products batched matmuls over the heads: a step is
     host-bound, so fewer launches are the step's time."""
     H, hd, D = cfg.n_heads, cfg.hd, cfg.d_model
+    # an id past the table reads its last row (the JAX gather's clamp)
+    token = min(max(int(token), 0), params["embed"].shape[0] - 1)
     x = (params["embed"][token] + params["pos"][t])[None]      # [1, D]
     scale = math.sqrt(hd)
     for i, lp in enumerate(layers or decoder_layers(cfg, params)):

@@ -41,6 +41,7 @@ import threading
 import time
 from typing import Any, Callable, Optional
 
+from localai_tpu_torch.faults import registry as _faults
 from localai_tpu_torch.obs.metrics import REGISTRY, Registry
 
 
@@ -185,6 +186,10 @@ def watch(fn: Callable, program: str,
         if not fresh:
             CATALOG.dispatched(program, key)
             return fn(*args, **kwargs)
+        if _faults.ACTIVE:
+            # chaos: a compile failure is a first-dispatch failure — on the
+            # port the first call of a program shape — raised before it runs
+            _faults.apply("engine.compile", key=program)
         t0 = time.monotonic()
         out = fn(*args, **kwargs)
         dt = time.monotonic() - t0

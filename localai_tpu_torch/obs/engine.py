@@ -60,14 +60,19 @@ class EngineTelemetry:
         return tr
 
     def admitted(self, tr: Optional[RequestTrace], *, slot: int,
-                 queue_wait: float) -> None:
+                 queue_wait: float, background: bool = False) -> None:
+        """``background`` marks a batch-lane request: it waits in the
+        queue by design (admitted only when the interactive lane is
+        empty), so its queue wait stays out of the interactive latency
+        histogram; its trace still records it."""
         if tr is None:
             return
         tr.end("queued", seconds=round(queue_wait, 6))
         tr.event("admitted", slot=slot)
         tr.begin("prefill", slot=slot)
         tr.annotate(queue_wait_ms=round(queue_wait * 1e3, 3))
-        self.registry.queue_wait.observe(queue_wait, model=self.model)
+        if not background:
+            self.registry.queue_wait.observe(queue_wait, model=self.model)
 
     def prefill_done(self, tr: Optional[RequestTrace], *, path: str = "",
                      prefix_reused: int = 0) -> None:
@@ -83,9 +88,18 @@ class EngineTelemetry:
         host-side timing mirror and retires the trace. ``preempted`` marks
         a request that left a decode slot before natural completion;
         it defaults from the reason, but a request cancelled while still
-        queued passes False (queue abandonment is not slot churn)."""
+        queued passes False (queue abandonment is not slot churn).
+
+        Background batch-lane requests (``request.priority > 0``) never
+        become SLO events and stay out of the TTFT/TPOT histograms: a batch
+        line queues behind all interactive work by design, so counting it
+        would let an offline job trip shedding of the interactive traffic
+        the lane exists to protect. Request and preemption counters,
+        traces and the ledger (lane ``batch``) still record them."""
         if tr is None:
             return
+        background = getattr(getattr(handle, "request", None),
+                             "priority", 0) > 0
         n = handle.completion_tokens
         ttft = tpot = None
         if handle.t_first_token is not None:
@@ -102,9 +116,9 @@ class EngineTelemetry:
             tpot_ms=None if tpot is None else round(tpot * 1e3, 3),
             tokens_per_second=round(handle.tokens_per_second, 3),
         )
-        if ttft is not None:
+        if ttft is not None and not background:
             self.registry.ttft.observe(ttft, model=self.model)
-        if tpot is not None:
+        if tpot is not None and not background:
             self.registry.tpot.observe(tpot, model=self.model)
         self.registry.requests.inc(model=self.model, finish_reason=reason)
         if preempted is None:
@@ -125,7 +139,7 @@ class EngineTelemetry:
             obs_ledger.LEDGER.note_request(
                 tenant=tenant,
                 model=self.model or "engine",
-                lane="interactive",
+                lane="batch" if background else "interactive",
                 reason=ledger_reason,
                 tokens=n,
                 prompt_tokens=handle.prompt_tokens,
@@ -135,7 +149,7 @@ class EngineTelemetry:
                     handle.prompt_tokens, n, service_s,
                     self.kv_block_tokens),
             )
-        if reason in SLO_REASONS:
+        if reason in SLO_REASONS and not background:
             t_end = handle.t_done or time.monotonic()
             self.slo.observe(
                 self.model or "engine",

@@ -8,17 +8,19 @@ histograms (TTFT, TPOT, queue wait), request and token counters, the
 engine's gauges and counters (batch occupancy, KV utilization, the paged
 pool, chunked prefill, dispatches, prompt-cache and prefix reuse,
 speculation), first-dispatch counts, the flight recorder's step times and
-the dispatch anatomy, SLO burn rates and shedding, the stall watchdog,
-device health and memory, anomaly profiles, and the usage ledger's
-tenant, goodput and waste series. Event-time series are observed by their
+the dispatch anatomy, SLO burn rates and shedding, the batch lane, fault
+injection and self-healing (injected faults, NaN rows and quarantined
+slots, rebuilds, the failed latch, KV invariant violations), the stall
+watchdog, device health and memory, anomaly profiles, and the usage
+ledger's tenant, goodput and waste series. Event-time series are observed by their
 owners (``obs.engine``, ``obs.slo``, ``obs.watchdog``, ``obs.compile``,
 ``obs.profiler``); point-in-time gauges are refreshed at scrape time by
 ``update_engine_gauges`` from the scheduler's ``metrics()`` dict, so the
 decode loop never touches the registry. Four help texts name the port's
 machinery where the JAX package's name JAX's (first-dispatch counts,
 profiler captures, the memory census). Families of the subsystems the
-port does not have yet (batch lane, fleet, faults and self-healing,
-tuning table, KV tiering) come with them.
+port does not have yet (fleet, tuning table, KV tiering) come with
+them.
 """
 
 from __future__ import annotations
@@ -315,12 +317,65 @@ class Registry:
             "Generation requests refused with 429 by SLO burn-rate "
             "admission control",
         )
+        # -- offline batch subsystem (localai_tpu_torch.batch) -------------
+        self.batch_jobs = Gauge(
+            "localai_batch_jobs",
+            "Batch jobs by lifecycle state "
+            "(validating/in_progress/completed/failed/cancelled/expired)",
+        )
+        self.batch_lines = Counter(
+            "localai_batch_lines_total",
+            "Batch input lines drained by result (completed/failed)",
+        )
+        self.batch_lane_paused = Gauge(
+            "localai_batch_lane_paused",
+            "1 while the background batch lane is paused because the SLO "
+            "observatory reports overload shedding (in-flight lines are "
+            "requeued, never failed)",
+        )
+        self.batch_queue_depth = Gauge(
+            "localai_batch_queue_depth",
+            "Requests waiting in the scheduler's background batch lane",
+        )
+        # -- fault injection + self-healing (localai_tpu_torch.faults) -----
+        self.faults_injected = Counter(
+            "localai_faults_injected_total",
+            "Deterministic faults fired by injection site "
+            "(LOCALAI_FAULT_* / POST /debug/faults — 0 in production)",
+        )
+        self.nan_rows = Counter(
+            "localai_nan_rows_total",
+            "Decode logits rows caught non-finite by the per-row NaN/inf "
+            "guard (the affected request fails `error`, its slot is "
+            "quarantined; co-batched requests keep streaming)",
+        )
+        self.quarantined_slots = Gauge(
+            "localai_quarantined_slots",
+            "Decode slots currently held out of admission by the NaN "
+            "quarantine",
+        )
+        self.engine_rebuilds = Counter(
+            "localai_engine_rebuilds_total",
+            "Self-healing engine rebuilds completed (stall → drain → "
+            "runner re-init → probe dispatch → engine thread restart)",
+        )
+        self.engine_failed = Gauge(
+            "localai_engine_failed",
+            "1 after the supervisor exhausted its bounded rebuild budget "
+            "and marked the model failed (submits fail fast)",
+        )
         # the port's labels: its paged decode attention is the CUDA kernel
         # (K1) on the card and the kernel's plain version on the CPU
         self.paged_kernel_impl = Gauge(
             "localai_paged_kernel_impl",
             "1 for the paged decode attention implementation each engine "
             "selected (impl=kernel|torch)",
+        )
+        self.kv_invariant_violations = Counter(
+            "localai_kv_invariant_violations_total",
+            "BlockAllocator.check_invariants violations observed at "
+            "scheduler drains (LOCALAI_KV_CHECK=1) — any nonzero value "
+            "is a block leak",
         )
         self.trace_ring_size = Gauge(
             "localai_trace_ring_size",
@@ -449,7 +504,8 @@ def update_engine_gauges(name: str, m: dict,
                          registry: Optional[Registry] = None) -> None:
     """Refresh the point-in-time engine series for one model from its
     scheduler's ``metrics()`` dict (the JAX package's function, less the
-    feeds of unported subsystems: batch lane, KV tier, quarantine). Called at /metrics scrape time —
+    KV tier's feeds, which the port has not). Called at /metrics scrape
+    time —
     counters are synced with ``set_total`` (monotone), gauges
     overwritten."""
     reg = registry or REGISTRY
@@ -469,6 +525,8 @@ def update_engine_gauges(name: str, m: dict,
     if occupancy is not None:
         reg.batch_occupancy.set(occupancy, model=name)
     reg.queue_depth.set(m.get("queue_depth", 0), model=name)
+    if "batch_queue_depth" in m:
+        reg.batch_queue_depth.set(m["batch_queue_depth"], model=name)
     if "kv_utilization" in m:
         reg.kv_utilization.set(m["kv_utilization"], model=name)
     if "kv_blocks_total" in m:  # paged KV engines only
@@ -493,6 +551,11 @@ def update_engine_gauges(name: str, m: dict,
         # this is the decomposition's view of the same monotone count
         reg.waste_requests.set_total(m["shed_total"], model=name,
                                      reason="shed")
+    if "quarantined_slots" in m:
+        # point-in-time NaN-quarantine census; the nan_rows/rebuilds
+        # counter families are event-time (scheduler/supervisor are their
+        # sole writers) and deliberately not synced here
+        reg.quarantined_slots.set(m["quarantined_slots"], model=name)
     reg.prefix_reused.set_total(m.get("prefix_tokens_reused", 0), model=name)
     pc = m.get("prompt_cache")
     if pc:

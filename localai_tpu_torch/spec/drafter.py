@@ -40,7 +40,8 @@ class Drafter(Protocol):
     draft state after the target's prefill, ``observe`` feeds drained
     window tokens back (host drafters build history from it), ``resync``
     rebuilds a slot after non-speculative dispatches advanced the target
-    without the drafter, and ``release`` drops a slot."""
+    without the drafter, ``release`` drops a slot, and ``reinit`` resets
+    everything (the self-healing engine rebuild)."""
 
     name: str
     gamma: int
@@ -55,6 +56,7 @@ class Drafter(Protocol):
     def resync(self, slot: int, resident: list[int],
                target_positions) -> None: ...
     def release(self, slot: int) -> None: ...
+    def reinit(self) -> None: ...
     def stats(self) -> dict: ...
 
 
@@ -202,6 +204,11 @@ class NGramDrafter:
         self._history.pop(slot, None)
         self._mirror.pop(slot, None)
 
+    def reinit(self) -> None:
+        self._history.clear()
+        self._mirror.clear()
+        self.last_hits = None
+
     def stats(self) -> dict:
         return {"drafter": self.name, "lookup_hits": self.lookup_hits,
                 "lookup_misses": self.lookup_misses}
@@ -271,6 +278,10 @@ class ModelDrafter:
 
     def release(self, slot: int) -> None:
         self.runner.release(slot)
+
+    def reinit(self) -> None:
+        """Fresh draft KV and state (a rebuilt target's slots are empty)."""
+        self.runner.reinit()
 
     def stats(self) -> dict:
         return {"drafter": self.name,

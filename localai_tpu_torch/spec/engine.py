@@ -19,8 +19,9 @@ The scheduler drives :meth:`step_spec_async` like multi-step decode;
 each dispatch returns ``[gamma+1, S]`` token rows where SKIP (-1) marks
 positions past a slot's accepted window, and ``observe_window`` folds
 the drained rows into acceptance counters and the drafter's history.
-The JAX package's fault-injection sites and engine rebuild wait for the
-port's self-healing subsystem."""
+The ``spec.draft`` fault site garbles every proposal (any mode but
+raise) or fails the drafter mid-window (raise); :meth:`SpecEngine.reinit`
+is the self-healing rebuild's hook (``supports_rebuild``)."""
 
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import Any, Optional
 import numpy as np
 
 from localai_tpu_torch.engine.runner import ModelRunner
+from localai_tpu_torch.faults import registry as _faults
 from localai_tpu_torch.spec.drafter import Drafter, ModelDrafter, NGramDrafter
 
 log = logging.getLogger(__name__)
@@ -50,7 +52,11 @@ class SpecEngine:
     Implements the scheduler's engine surface (slot lifecycle + spec
     windows) by handing state operations to the target and proposal
     operations to the drafter. Every mutator runs on the scheduler's
-    engine thread."""
+    engine thread (or its single-owner recovery thread)."""
+
+    # self-healing: a rebuild re-inits the target and the drafter (both
+    # expose reinit())
+    supports_rebuild = True
 
     def __init__(self, target: ModelRunner, drafter: Drafter,
                  gamma: Optional[int] = None,
@@ -114,7 +120,31 @@ class SpecEngine:
             self.last_skip_reason = "declined"
             return None
         self._pending_hits = getattr(self.drafter, "last_hits", None)
+        if _faults.ACTIVE:
+            spec = _faults.apply("spec.draft", key=self.drafter.name)
+            if spec is not None:
+                # divergent-draft chaos: every proposal replaced with
+                # deterministic garbage — acceptance collapses, rollback
+                # and co-batched streams must stay byte-correct
+                props = self._garble(props)
         return t.verify_async(props)
+
+    def _garble(self, props):
+        """The JAX package's garbage proposals, ``(p * 31 + 17) % V``, on
+        the proposals' own device and dtype."""
+        V = self.target.cfg.vocab_size
+        if isinstance(props, np.ndarray):
+            return (props.astype(np.int64) * 31 + 17) % V
+        return ((props.long() * 31 + 17) % V).to(props.dtype)
+
+    def reinit(self) -> None:
+        """Self-healing rebuild hook: the scheduler re-inits the target
+        runner itself; this resets the drafter (draft KV / history) and
+        the acceptance-backoff state."""
+        self.drafter.reinit()
+        self._recent.clear()
+        self._cooldown_left = 0
+        self._pending_hits = None
 
     def suppressed_tick(self) -> bool:
         """True while the acceptance backoff suppresses windows; each call

@@ -145,8 +145,12 @@ def test_bare_device_variable_is_not_read(clean_env):
 
 @pytest.mark.parametrize("argv,env,item", [
     (["run", "--fleet-replicas", "2"], {}, 23),
-    (["run", "--batch-concurrency", "4"], {}, 14),
-    (["run", "--batch-concurrency", "0"], {}, 14),
+    # ported: the batch lane's settings reach AppConfig as on the JAX
+    # package (item None)
+    (["run", "--batch-concurrency", "4", "--batch-expiry-h", "0.5"], {},
+     None),
+    (["run", "--batch-concurrency", "0"], {"LOCALAI_BATCH_EXPIRY_H": "2"},
+     None),
     (["run", "--autoscale"], {}, 23),
     (["run", "--mesh", "data=2"], {}, 19),
     (["run", "--platform", "cpu"], {}, 11),
@@ -156,8 +160,26 @@ def test_bare_device_variable_is_not_read(clean_env):
         "env-fleet", "env-mesh"])
 def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
                                       item):
+    """An unported setting exits 2 naming its ROADMAP item; a ported one
+    (``item`` None: the batch lane's) builds the server with the value in
+    its AppConfig, equal to the JAX package's."""
     for k, v in env.items():
         clean_env.setenv(k, v)
+    if item is None:
+        seen = []
+        clean_env.setattr(jax_server, "serve", seen.append)
+        assert jax_cli.main(argv) == 0
+        server = cli.build_server(argv + [
+            "--device", "cpu", "--address", "127.0.0.1", "--port", "0",
+            "--models-path", str(tmp_path)])
+        try:
+            app = server.manager.app
+            assert (app.batch_concurrency, app.batch_expiry_h) == (
+                seen[0].batch_concurrency, seen[0].batch_expiry_h)
+            assert app.batch_concurrency == int(argv[2])
+        finally:
+            server.shutdown()
+        return
     with pytest.raises(SystemExit) as e:
         cli.build_server(argv + ["--device", "cpu", "--models-path",
                                  str(tmp_path)])

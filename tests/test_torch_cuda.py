@@ -15,6 +15,7 @@ large one. Inputs come from a numpy seed.
 """
 
 import functools
+import time
 
 import numpy as np
 import pytest
@@ -1633,3 +1634,130 @@ def test_cuda_backend_trace_holds_a_k1_launch(tmp_path):
             sorted(set(kernels))[:30]
     finally:
         srv.shutdown()
+
+
+# -- self-healing on the card (faults, Scheduler.rebuild) ---------------------
+
+
+def _small_on(dev):
+    """debug:small in float32 on ``dev`` (paged, 4 slots), weights from a
+    CPU seed, so the card and the CPU serve the same model."""
+    import dataclasses
+
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models import llama as tl
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+
+    cfg = dataclasses.replace(DEBUG_PRESETS["small"], dtype="float32")
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def to(p):
+        return ({k: to(v) for k, v in p.items()} if isinstance(p, dict)
+                else p.to(dev))
+
+    return ModelRunner(cfg, to(params), num_slots=4, max_ctx=256,
+                       kv_dtype="float32", kv_block_tokens=16,
+                       prefill_chunk=32, device=dev)
+
+
+def _greedy(text, n, **kw):
+    from localai_tpu_torch.engine.scheduler import GenRequest
+
+    return GenRequest(prompt=list(text.encode()), max_new_tokens=n,
+                      temperature=0.0, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_nan_quarantine_keeps_cobatched_streams():
+    """``decode.nan`` poisons one slot's bias row on the card: that request
+    fails, its slot is quarantined, and the co-batched greedy stream
+    equals the same stream without the fault and the CPU's; K1 launches
+    through it all."""
+    _card()
+    from localai_tpu_torch import faults
+    from localai_tpu_torch.engine.scheduler import Scheduler
+    from localai_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    out = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            sched = Scheduler(_small_on(dev), ByteTokenizer())
+            try:
+                ref = sched.generate(_greedy("co-batched survivor", 24),
+                                     timeout=300)
+                faults.arm(faults.FaultSpec(site="decode.nan", mode="nan",
+                                            match="poison-me", times=1))
+                k1 = tops.paged_decode_attention.launches
+                bad = sched.submit(_greedy("poison target", 200,
+                                           ignore_eos=True,
+                                           correlation_id="poison-me"))
+                good = sched.submit(_greedy("co-batched survivor", 24))
+                bad.result(300)
+                good.result(300)
+                m = sched.metrics()
+                out[dev] = (ref.token_ids, good.token_ids)
+                assert bad.finish_reason == "error"
+                assert good.token_ids == ref.token_ids
+                assert m["nan_rows"] == 1 and m["quarantined_slots"] == 1
+                if dev == "cuda":
+                    assert tops.paged_decode_attention.launches > k1
+            finally:
+                faults.clear()
+                sched.shutdown()
+    finally:
+        faults.clear()
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_serves_again():
+    """An ``engine.drain`` hang past the watchdog's deadline rebuilds the
+    engine on the card: the wedged request ends in an error, the rebuilt
+    pool lies on new storage, and the next greedy request equals the
+    CPU's."""
+    _card()
+    from localai_tpu_torch import faults
+    from localai_tpu_torch.engine.scheduler import Scheduler
+    from localai_tpu_torch.faults import EngineSupervisor
+    from localai_tpu_torch.obs.metrics import Registry
+    from localai_tpu_torch.obs.trace import TraceStore
+    from localai_tpu_torch.obs.watchdog import Watchdog
+    from localai_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    cpu = Scheduler(_small_on("cpu"), ByteTokenizer())
+    try:
+        want = cpu.generate(_greedy("after rebuild", 16), timeout=300)
+    finally:
+        cpu.shutdown()
+    reg = Registry()
+    wd = Watchdog(deadline=0.4, registry=reg, store=TraceStore(),
+                  poll_interval=0.1)
+    runner = _small_on("cuda")
+    sched = Scheduler(runner, ByteTokenizer(), watchdog=wd)
+    EngineSupervisor(sched, registry=reg, backoff_s=0.05,
+                     probe_timeout_s=120.0)
+    try:
+        old_k = runner.kv.k
+        wedged = sched.submit(_greedy("about to wedge", 200,
+                                      ignore_eos=True))
+        deadline = time.monotonic() + 120
+        while wedged.t_first_token is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        faults.arm(faults.FaultSpec(site="engine.drain", mode="hang",
+                                    delay_s=2.0, times=1))
+        wedged.result(120)
+        assert wedged.finish_reason == "error"
+        deadline = time.monotonic() + 120
+        while sched.rebuilds == 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert sched.rebuilds == 1 and not sched.failed
+        assert runner.kv.k is not old_k
+        assert runner.kv.k.data_ptr() != old_k.data_ptr()
+        faults.clear()
+        got = sched.generate(_greedy("after rebuild", 16), timeout=300)
+        assert got.token_ids == want.token_ids
+        assert runner.allocator.check_invariants() == []
+    finally:
+        faults.clear()
+        sched.shutdown()
+        wd.stop()

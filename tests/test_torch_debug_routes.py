@@ -9,7 +9,8 @@ after the same greedy chat on each:
     ``/kv`` answer 200 with the JAX server's key sets and value types
     (``/debug/programs``' rows: the keys both catalogs have; the port has
     no ``memory_analysis`` sizes), and a bad query parameter is a 400 on
-    both; ``/debug/fleet/flight`` and ``/debug/faults`` stay unported
+    both; ``/debug/faults`` answers as the JAX server's (its site table
+    and the supervisor status), ``/debug/fleet/flight`` stays unported
     (404 on the port);
   * the flight ring's records hold ``gap + sched + launch + sync <=
     dispatch_ms`` and their tokens sum to the tokens served;
@@ -208,7 +209,20 @@ def test_history_series_as_the_jax_server(servers):
 
 @pytest.mark.parametrize("path", ["/debug/fleet/flight", "/debug/faults"])
 def test_unported_debug_routes_are_404(servers, path):
-    assert _call(servers["port"] + path)[0] == 404
+    """``/debug/fleet/flight`` waits for fleets (404 on the port);
+    ``/debug/faults`` is ported: it answers 200 on both servers with the
+    same keys, the same injection-site table and the supervisor status
+    of the served model."""
+    if path == "/debug/fleet/flight":
+        assert _call(servers["port"] + path)[0] == 404
+        return
+    port, ref = _both(servers, path)
+    assert _keys(port) == _keys(ref)
+    assert port["sites"] == ref["sites"]
+    assert port["active"] is ref["active"] is False
+    assert port["armed"] == ref["armed"] == []
+    assert _keys(port["supervisors"][MODEL]) == \
+        _keys(ref["supervisors"][MODEL])
 
 
 def test_flight_tiles_and_counts(servers):

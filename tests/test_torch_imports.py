@@ -357,6 +357,26 @@ def test_image_modules_are_covered():
             "image/pipeline.py", "api/images.py"} <= rel
 
 
+def test_faults_and_batch_modules_are_covered():
+    """Self-healing and the batch lane (the fault registry, the
+    supervisor, the file and job stores, the executor, the files and
+    batches routes) are among the modules and sources the rules above
+    check: nothing of ``jax`` or the JAX package (no pydantic for the
+    executor's line validation), only the stdlib, numpy and torch at
+    module level."""
+    mods = set(_port_modules())
+    for m in ("faults", "faults.registry", "faults.supervisor", "batch",
+              "batch.store", "batch.executor", "api.batches",
+              "api.assistants"):
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    assert {"faults/__init__.py", "faults/registry.py",
+            "faults/supervisor.py", "batch/__init__.py", "batch/store.py",
+            "batch/executor.py", "api/batches.py",
+            "api/assistants.py"} <= rel
+
+
 BLOCKED_IMAGE = r"""
 import base64, importlib, json, sys
 pkg, ref, root = sys.argv[1], sys.argv[2], sys.argv[3]

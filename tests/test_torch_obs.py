@@ -14,8 +14,8 @@ the JAX package's, on the CPU.
     TPOT and queue-wait observation each;
   * ``Scheduler.metrics()`` has the JAX package's keys and value types on
     paged, contiguous and speculating engines, less the keys of
-    subsystems the port has not yet (``UNPORTED_KEYS``) and plus the
-    port's constrained-decoding counters (``PORT_KEYS``);
+    subsystems the port has not yet (``UNPORTED_KEYS``, none now) and
+    plus the port's constrained-decoding counters (``PORT_KEYS``);
   * the JSON log lines of two concurrent requests carry their own trace
     ids, and ``--log-format json`` installs the JSON formatter.
 """
@@ -56,13 +56,10 @@ from test_torch_llama import one_torch_thread  # noqa: E402,F401
 ENGINE = dict(max_slots=2, kv_block_tokens=16, prefill_chunk=32,
               dtype="float32", kv_dtype="float32")
 # Scheduler.metrics() keys of the JAX package's subsystems the port does
-# not have yet (the batch lane, ROADMAP item 14; the supervisor and the NaN
-# quarantine, item 17)
-UNPORTED_KEYS = {
-    "batch_queue_depth", "batch_slots",                  # batch lane
-    "engine_state", "rebuilds", "nan_rows",              # supervisor and
-    "quarantined_slots", "kv_invariant_violations",      # NaN quarantine
-}
+# not have yet: none since the batch lane (batch_queue_depth, batch_slots)
+# and self-healing (engine_state, rebuilds, nan_rows, quarantined_slots,
+# kv_invariant_violations) came
+UNPORTED_KEYS: set = set()
 # families whose help names the port's machinery where the JAX package's
 # names its own (a first call for an XLA compile, torch.profiler for
 # jax.profiler, the allocator census for live jax arrays); name, type and
@@ -126,6 +123,9 @@ METRICS_DICT = {
     "spec_acceptance_rate": 0.5, "spec_windows": 7, "spec_accept_rate": 0.4,
     "spec_draft_tokens": 20, "spec_accepted_tokens": 8,
     "spec_tokens_per_dispatch": 1.5, "shed_total": 2,
+    "batch_queue_depth": 5, "batch_slots": 1, "engine_state": "serving",
+    "rebuilds": 1, "nan_rows": 2, "quarantined_slots": 1,
+    "kv_invariant_violations": 0,
     "step_ms_p50": 3.5, "step_ms_p99": 9.25,
     "host_overhead_fraction": 0.8125, "device_bubble_fraction": 0.625,
     "dispatch_phase_ms": {"gap": {"p50": 0.5, "p90": 1.0, "p99": 2.0},

@@ -255,3 +255,33 @@ def test_log_mel_feeds_the_encoder_as_in_the_jax_package(both):
     want = np.asarray(ref._encode(ref.params, mel_ref))
     np.testing.assert_allclose(ours.encode_chunk(audio).numpy(), want,
                                atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("vocab", [300, 503])
+def test_small_vocabulary_decodes_as_the_jax_package(vocab):
+    """A checkpoint whose vocabulary is smaller than whisper's special ids
+    (the prompt's sot / language / task / no-timestamps ids sit past its
+    table): the JAX package's gather clamps an out-of-range id to the
+    table's last row and decodes on; the port clamps the same way, so the
+    ids are equal and the teacher-forced logits agree within 1e-4."""
+    cfg = dataclasses.replace(jwh.DEBUG_CONFIG, vocab_size=vocab)
+    ref = jwh.WhisperModel(cfg, jwh.init_params(jax.random.key(5), cfg))
+    ours = twh.WhisperModel(
+        cfg, twh.from_jax_params(jax.tree.map(np.asarray, ref.params),
+                                 "cpu"), device="cpu")
+    audio = tmel.chunk_audio(_speech_like(6.0, 2))[0]
+    assert ours.transcribe_chunk(audio, max_tokens=6) == \
+        ref.transcribe_chunk(audio, max_tokens=6)
+    rng = np.random.default_rng(1)
+    enc = rng.normal(size=(40, cfg.d_model)).astype(np.float32)
+    tokens = np.asarray([cfg.sot, cfg.lang_base, cfg.token_transcribe,
+                         cfg.token_notimestamps, 7, vocab - 1, 0, 0],
+                        np.int32)
+    for n in (1, 4, 6):
+        want = np.asarray(jwh.decode_logits(cfg, ref.params,
+                                            jnp.asarray(tokens),
+                                            jnp.int32(n), jnp.asarray(enc)))
+        got = twh.decode_logits(ours.cfg, ours.params,
+                                torch.from_numpy(tokens).long(), n,
+                                torch.from_numpy(enc))
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
