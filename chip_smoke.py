@@ -117,9 +117,9 @@ Phases (any failure raises and the script exits non-zero):
      point in subprocesses (``tokenize`` gives the golden ids, ``version``,
      ``run`` with ``LOCALAI_KV_DTYPE=int8`` serves from an int8 pool on the
      card, ``run --fleet-replicas 2`` exits 2); then the eighth serve,
-     ``llama3-8b-bf16-checkpoint``: a 16 GB bf16 checkpoint directory with
-     Meta-Llama-3-8B-Instruct's config.json (full widths and depth,
-     seeded random weights) is served through ``cli.main.build_server``
+     ``llama3-8b-bf16-checkpoint``: a bf16 checkpoint directory with
+     Meta-Llama-3-8B-Instruct's config.json (full widths, the depth of
+     ``SMOKE_LAYERS``, seeded random weights) is served through ``cli.main.build_server``
      with ``LOCALAI_MODELS_PATH``, ``LOCALAI_API_KEYS`` and
      ``LOCALAI_ADDRESS``: 401 without or with a wrong key, eight
      concurrent greedy chats with their golden prompt ids (the streamed
@@ -247,10 +247,26 @@ Phases (any failure raises and the script exits non-zero):
      512x512 images each. It prints load and write seconds, bytes, peak
      memory, text-encode / UNet-step / VAE-decode ms (CUDA events),
      seconds an image, images a minute, the profiled step's launches
-     and idle share, and its own seconds;
+     and idle share, and its own seconds. Then FLUX: ``flux_parity``
+     holds the card to the CPU at ``debug:flux-tiny``'s widths in
+     float32 (T5 with and without a mask, the MMDiT's velocity within
+     1e-4; a 3-step generation and a 0.5-strength img2img, latents within
+     1e-4, pixels within 1); then ``flux.1-dev-f32``: FLUX.1-dev's
+     published transformer/, text_encoder_2/ (T5-v1.1-XXL's encoder),
+     vae/ and scheduler/ configs with CLIP-L (16.87 B params), seeded
+     weights drawn on the card entry by entry and streamed to disk in
+     bf16 (33.7 GB, T5 in two shards; the VAE with quant convs, which the
+     published one lacks and the reference's loader needs), a Unigram
+     tokenizer_2 of 32000 pieces and 100 extra ids with a ``Precompiled``
+     charsmap from the port's writers, served from a ``backend:
+     diffusers`` YAML in float32 (TF32 off): a 1024x1024 image of 4 steps
+     and a 512x512 img2img from it; load seconds, peak memory, T5 /
+     MMDiT-step / VAE ms, seconds an image, one full-width double and
+     single block card = CPU within 1e-4 at 1152 tokens;
  12. ``qwen2.5-7b-bf16`` (after the checkpoint serve): Qwen2.5-7B's
-     published config (a GQA group of 7) served from a 15.2 GB
-     checkpoint with one API key, K1 28 a decode step; then
+     published config (a GQA group of 7; the depth of ``SMOKE_LAYERS``)
+     served from a checkpoint with one API key, K1 once per layer a
+     decode step; then
      ``phase_telemetry``, ``phase_observatory`` and ``phase_self_healing``
      on the same server: a ``decode.nan`` fault fails one of four chats
      and quarantines its slot while the other three texts stay the
@@ -2846,7 +2862,7 @@ def phase_serve_checkpoint(card: str) -> dict:
         prefill_attention,
     )
 
-    root = pathlib.Path(_scratch_dir("checkpoint-serve-", 17_500_000_000))
+    root = pathlib.Path(_scratch_dir("checkpoint-serve-", 6_500_000_000))
     ckpt, models = root / "Meta-Llama-3-8B-Instruct", root / "models"
     saved_env = {k: os.environ.get(k) for k in (
         "LOCALAI_MODELS_PATH", "LOCALAI_API_KEYS", "LOCALAI_ADDRESS",
@@ -2858,9 +2874,13 @@ def phase_serve_checkpoint(card: str) -> dict:
                               device="cuda")
         torch.cuda.synchronize()
         draw_s = time.monotonic() - t0
-        hf_config = LLAMA3_8B_CONFIG
-        written = write_checkpoint_dir(ckpt, model.cfg, model.params,
-                                       "bfloat16", hf_config)
+        # SMOKE_LAYERS' depth: the first layers of the drawn stacks
+        hf_config = {**LLAMA3_8B_CONFIG,
+                     "num_hidden_layers": SMOKE_LAYERS["checkpoint"]}
+        written = write_checkpoint_dir(
+            ckpt, dataclasses.replace(model.cfg,
+                                      num_layers=SMOKE_LAYERS["checkpoint"]),
+            model.params, "bfloat16", hf_config)
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -3053,8 +3073,8 @@ def phase_serve_checkpoint(card: str) -> dict:
                 os.environ[k] = v
         if server is not None:
             server.shutdown()
-        # drop this frame's references before collecting, so the 16 GB
-        # model does not outlive the phase
+        # drop this frame's references before collecting, so the model
+        # does not outlive the phase
         server = manager = sm = tok = None
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
@@ -4693,7 +4713,7 @@ def phase_self_healing(srv, card: str, key: str) -> dict:
          ones, ``nan_rows`` is 1 and ``quarantined_slots`` 1 until the
          window of dispatches passes, and the hold the engine logged
          (poisoning to release, in dispatches) is at least that window;
-         K1 launches 28 a decode step;
+         K1 launches once per layer a decode step;
       2. stall → rebuild: an ``engine.drain`` hang past the deadline under
          a streamed chat: the stream ends in an error, ``rebuilds`` is 1,
          the engine serves again, the next chat's greedy text equals its
@@ -4705,7 +4725,7 @@ def phase_self_healing(srv, card: str, key: str) -> dict:
          each line's text equals the same request served interactively,
          ``localai_batch_lines_total{result="completed"}`` reads 16; the
          job's wall, its lines/s and the interactive TTFT beside it are
-         printed, and K1 launches 28 a decode step.
+         printed, and K1 launches once per layer a decode step.
 
     Prints one ``self_healing:`` line; every number stands beside the
     card's name and power limit."""
@@ -4769,7 +4789,7 @@ def phase_self_healing(srv, card: str, key: str) -> dict:
         if m["nan_rows"] != 1 or m["quarantined_slots"] != 1:
             raise AssertionError(f"nan_rows {m['nan_rows']}, quarantined "
                                  f"{m['quarantined_slots']}")
-        _check_k1(name, run, 28)
+        _check_k1(name, run, srv.sm.runner.cfg.num_layers)
         drains = 0
         while sched.metrics()["quarantined_slots"] and drains < 40:
             drains += 1
@@ -4916,7 +4936,7 @@ def phase_self_healing(srv, card: str, key: str) -> dict:
                                        'result="completed"}'))
         if lines_ok != 16:
             raise AssertionError(f"batch lines counted {lines_ok}")
-        _check_k1(name, run, 28)
+        _check_k1(name, run, srv.sm.runner.cfg.num_layers)
         batch_rec = {"lines": 16, "job_wall_s": job_s,
                      "lines_per_s": 16 / job_s,
                      "tokens": sum(r["response"]["body"]["usage"][
@@ -4946,14 +4966,14 @@ def phase_self_healing(srv, card: str, key: str) -> dict:
 
 def phase_serve_qwen(card: str) -> dict:
     """``qwen2.5-7b-bf16``, the group-7 serve: a checkpoint directory with
-    Qwen2.5-7B-Instruct's config.json (full widths and depth: 28 query /
-    4 kv heads), seeded random bf16 weights drawn on the card and written
+    Qwen2.5-7B-Instruct's config.json (full widths, 28 query / 4 kv
+    heads; the depth of ``SMOKE_LAYERS``), seeded random bf16 weights drawn on the card and written
     once by ``models.loader.write_llama_checkpoint``, and the smoke's
     128256-id tokenizer.json; loaded from a YAML naming the directory,
     paged, ``spec: false``, served with one API key, loose SLO targets (no
     shedding), history and profiles under temp dirs. A warm-up chat, then
-    five greedy 32-token chats (one streamed) with every count at 0: K1 28
-    launches a plain decode step and no other kernel; then
+    five greedy 32-token chats (one streamed) with every count at 0: K1
+    once per layer a plain decode step and no other kernel; then
     ``phase_telemetry`` and ``phase_observatory``. Returns the launches,
     the serve's record, the telemetry's and the observatory's."""
     import pathlib
@@ -4962,7 +4982,7 @@ def phase_serve_qwen(card: str) -> dict:
     from localai_tpu_torch.obs import compile as obs_compile
     from localai_tpu_torch.obs import history as obs_history
 
-    root = pathlib.Path(_scratch_dir("qwen-serve-", 16_500_000_000))
+    root = pathlib.Path(_scratch_dir("qwen-serve-", 7_000_000_000))
     ckpt, models = root / "Qwen2.5-7B-Instruct", root / "models"
     dirs = {"history": str(root / "history"),
             "profiles": str(root / "profiles"),
@@ -4972,14 +4992,15 @@ def phase_serve_qwen(card: str) -> dict:
            "LOCALAI_PROFILE_DIR": dirs["profiles"]}
     saved = {k: os.environ.get(k) for k in env}
     try:
-        cfg = LlamaConfig.from_hf(QWEN25_7B_CONFIG)  # bfloat16
+        hf = {**QWEN25_7B_CONFIG,
+              "num_hidden_layers": SMOKE_LAYERS["qwen"]}
+        cfg = LlamaConfig.from_hf(hf)  # bfloat16
         t0 = time.monotonic()
         params = init_params(cfg, torch.Generator(device="cuda")
                              .manual_seed(17), "cuda")
         torch.cuda.synchronize()
         draw_s = time.monotonic() - t0
-        written = write_checkpoint_dir(ckpt, cfg, params, "bfloat16",
-                                       QWEN25_7B_CONFIG)
+        written = write_checkpoint_dir(ckpt, cfg, params, "bfloat16", hf)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5002,7 +5023,8 @@ def phase_serve_qwen(card: str) -> dict:
                 "batch_concurrency": 6}) as srv:
             r = srv.sm.runner
             if (r.cfg.num_heads, r.cfg.num_kv_heads, r.cfg.num_layers) != (
-                    28, 4, 28) or not r.paged or r.paged_attn_impl != \
+                    28, 4, cfg.num_layers) or not r.paged or \
+                    r.paged_attn_impl != \
                     "kernel" or srv.sm.scheduler.spec is not None:
                 raise AssertionError(f"{QWEN}: not a paged group-7 engine "
                                      "on the kernels without speculation")
@@ -5021,7 +5043,7 @@ def phase_serve_qwen(card: str) -> dict:
                    "max_memory_allocated_gb":
                        torch.cuda.max_memory_allocated() / 1e9}
             print("serve: " + json.dumps(rec), flush=True)
-            _check_k1(QWEN, run, 28)
+            _check_k1(QWEN, run, cfg.num_layers)
             tele = phase_telemetry(srv, [warm, chats], key=QWEN_KEY)
             t_obs = time.monotonic()
             obs = phase_observatory(srv, [warm, chats], QWEN_KEY, dirs)
@@ -5699,8 +5721,12 @@ RWKV = "rwkv-4-7b-bf16"
 # depths cut to keep the smoke inside its 1200 s (the widths stay the
 # published ones): the recurrent serves' loop prefills, the sentence
 # encoder's CPU reference and the GGUF's conversion on the host scale
-# with them
-SMOKE_LAYERS = {"mamba": 16, "rwkv": 8, "bge-large": 6, "gguf": 1}
+# with them; whisper-large-v3 (32 + 32 layers), the Qwen2.5-7B serve
+# (28) and the Llama-3-8B checkpoint serve (32) were cut when the FLUX.1-dev
+# serve joined the image group: their checkpoints' writes and loads and
+# their host-bound decode steps scale with the depth
+SMOKE_LAYERS = {"mamba": 16, "rwkv": 8, "bge-large": 6, "gguf": 1,
+                "whisper": 8, "qwen": 8, "checkpoint": 8}
 RERANKER = "ms-marco-minilm-l6-f32"
 EMBEDDER = "bge-large-en-v1.5-f32"
 # the special tokens of bert-base-uncased's vocab.txt, at their ids
@@ -5836,8 +5862,15 @@ def _all_kernels() -> dict:
             "w4_matmul": w4_matmul, "w8_matmul_experts": w8_matmul_experts}
 
 
-def _no_launches(what: str, kernels: dict) -> None:
-    launched = {k: w.launches for k, w in kernels.items() if w.launches}
+def _no_launches(what: str, kernels: dict,
+                 before: Optional[dict] = None) -> None:
+    """Fail if a wrapper of ``kernels`` launched since its count was 0, or
+    since the counts ``before`` (a snapshot taken by a phase that runs
+    inside a group whose counts must stay whole)."""
+    before = before or {}
+    launched = {k: w.launches - before.get(k, 0)
+                for k, w in kernels.items()
+                if w.launches != before.get(k, 0)}
     if launched:
         raise AssertionError(f"{what} launched kernels of another path: "
                              f"{launched}")
@@ -7125,7 +7158,7 @@ def _decode_profile(model, chunk, limit: int = 16) -> dict:
 def phase_serve_audio(card: str, root: Path) -> dict:
     """The audio routes through the port's server on the card, from one
     models dir: ``whisper-large-v3-f32`` (openai/whisper-large-v3's
-    widths and depth, seeded weights written as a float16 checkpoint with
+    widths, the depth of ``SMOKE_LAYERS``, seeded weights written as a float16 checkpoint with
     a 50257-id byte-level BPE tokenizer.json, loaded from a ``backend:
     whisper`` YAML and widened to float32) answers multipart
     transcriptions of a 5-s (verbose_json), a 30-s and a 65-s (3 chunks)
@@ -7147,7 +7180,9 @@ def phase_serve_audio(card: str, root: Path) -> dict:
 
     models = root / "models"
     models.mkdir()
-    cfg = twh.WhisperConfig.from_hf(WHISPER_LARGE_V3_CONFIG)
+    hf = {**WHISPER_LARGE_V3_CONFIG, "encoder_layers": SMOKE_LAYERS[
+        "whisper"], "decoder_layers": SMOKE_LAYERS["whisper"]}
+    cfg = twh.WhisperConfig.from_hf(hf)
     t0 = time.monotonic()
     params = _draw_whisper(cfg, seed=41)
     n_params = sum(t.numel() for v in params.values()
@@ -7158,7 +7193,7 @@ def phase_serve_audio(card: str, root: Path) -> dict:
     nbytes = write_safetensors(ckpt / "model.safetensors", [
         (name, tuple(get().shape), torch.float16, get)
         for name, get in getters.items()])
-    _write_json(ckpt / "config.json", WHISPER_LARGE_V3_CONFIG)
+    _write_json(ckpt / "config.json", hf)
     _write_json(ckpt / "tokenizer.json", small_bpe_spec(50257))
     del params, getters
     write_s = time.monotonic() - t0
@@ -7456,6 +7491,99 @@ def write_clip_tokenizer(d, pad: Optional[str] = None) -> None:
         "bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
         "unk_token": "<|endoftext|>", "pad_token": pad or "<|endoftext|>",
         "model_max_length": 77})
+
+
+def nfkc_charsmap_table() -> dict:
+    """The smoke's ``precompiled_charsmap`` content: the NFKC mappings of
+    full-width forms, circled and super/subscript digits, ligatures,
+    compatibility jamo, Roman numerals and wide spaces, and ``e`` U+0301
+    → U+00E9."""
+    import unicodedata
+
+    cps = (list(range(0xFF01, 0xFF5F)) + list(range(0x2460, 0x2474))
+           + list(range(0x2070, 0x209D)) + list(range(0xFB00, 0xFB07))
+           + list(range(0x3131, 0x318F)) + list(range(0x2160, 0x2180))
+           + [0x00A0, 0x3000, 0x2126, 0x212B, 0x00BD, 0x2026])
+    table = {}
+    for cp in cps:
+        n = unicodedata.normalize("NFKC", chr(cp))
+        if n != chr(cp):
+            table[chr(cp)] = n
+    table["é"] = "é"
+    return table
+
+
+def t5_unigram_spec(pieces: int = 32000, extra_ids: int = 100) -> dict:
+    """A T5-format ``tokenizer.json`` built by the port's own writers
+    (no ``tokenizers`` on the card's machine): ``pieces`` Unigram pieces
+    (<pad>, </s>, <unk>; every character of ``TOKENIZER_CORPUS``,
+    printable ASCII and "▁"; the corpus's "▁"-prefixed substrings up to 8
+    characters scored by log frequency; then joins of earlier pieces in a
+    fixed order, scored below them), ``extra_ids`` ``<extra_id_N>``
+    tokens, ``nfkc_charsmap_table`` as the ``Precompiled`` charsmap, and
+    ``T5Converter``'s normalizer, Metaspace and ``$A </s>`` template."""
+    import math
+    import unicodedata
+
+    from localai_tpu_torch.utils import spm
+
+    text = unicodedata.normalize("NFKC", TOKENIZER_CORPUS)
+    counts: dict = {}
+    for w in text.split():
+        w = "▁" + w
+        for i in range(len(w)):
+            for j in range(i + 1, min(len(w), i + 8) + 1):
+                counts[w[i:j]] = counts.get(w[i:j], 0) + 1
+    total = sum(counts.values())
+    chars = sorted(set(text) - set(" \n\t") | set(map(chr, range(33, 127)))
+                   | {"▁"})
+    scored = {c: math.log((counts.get(c, 0) + 1) / total) for c in chars}
+    for s, n in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])):
+        if len(scored) >= pieces - 3:
+            break
+        if n > 1 and s not in scored:
+            scored[s] = math.log(n / total)
+    base = sorted(scored, key=lambda s: (-scored[s], s))
+    low = min(scored.values()) - 1.0
+    k = 0
+    while len(scored) < pieces - 3:
+        a, b = base[k % len(base)], base[(k // len(base) + 1) % len(base)]
+        k += 1
+        if a + b not in scored and "▁" not in b:
+            scored[a + b] = low - 1e-4 * len(scored)
+    model = spm.ModelProto(
+        pieces=[spm.Piece("<pad>", 0.0, spm.CONTROL),
+                spm.Piece("</s>", 0.0, spm.CONTROL),
+                spm.Piece("<unk>", 0.0, spm.UNKNOWN)]
+        + [spm.Piece(s, sc) for s, sc in scored.items()],
+        unk_id=2,
+        precompiled_charsmap=spm.charsmap_bytes(nfkc_charsmap_table()))
+    spec = spm.t5_tokenizer_spec(model, extra_ids=extra_ids)
+    n = len(model.pieces)
+    spec["added_tokens"].append(
+        {"id": 2, "content": "<unk>", "single_word": False, "lstrip": False,
+         "rstrip": False, "normalized": False, "special": True})
+    spec["added_tokens"] += [
+        {"id": n + extra_ids - 1 - i, "content": f"<extra_id_{i}>",
+         "single_word": False, "lstrip": False, "rstrip": False,
+         "normalized": False, "special": True} for i in range(extra_ids)]
+    spec["added_tokens"].sort(key=lambda t: t["id"])
+    return spec
+
+
+def write_t5_tokenizer(d, pieces: int = 32000, extra_ids: int = 100) -> int:
+    """FLUX's ``tokenizer_2/``: ``t5_unigram_spec`` as ``tokenizer.json``
+    and a ``tokenizer_config.json`` naming ``T5TokenizerFast``. Returns
+    the vocabulary size."""
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    spec = t5_unigram_spec(pieces, extra_ids)
+    _write_json(d / "tokenizer.json", spec)
+    _write_json(d / "tokenizer_config.json", {
+        "tokenizer_class": "T5TokenizerFast", "extra_ids": extra_ids,
+        "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>",
+        "model_max_length": 512})
+    return len(spec["model"]["vocab"])
 
 
 def _perturbed(tree, seed: int, std: float = 0.05):
@@ -7953,10 +8081,420 @@ def phase_serve_sd15(card: str, root: Path) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# FLUX (the rectified-flow MMDiT with CLIP and T5 conditioning)
+
+FLUX_DEV = "flux.1-dev-f32"
+# black-forest-labs/FLUX.1-dev's transformer/, text_encoder_2/ (T5-v1.1-XXL's
+# encoder), vae/ and scheduler/ config.json files, as published; its
+# text_encoder/ is CLIP_L_CONFIG
+FLUX_DEV_TRANSFORMER_CONFIG = {
+    "_class_name": "FluxTransformer2DModel", "attention_head_dim": 128,
+    "axes_dims_rope": [16, 56, 56], "guidance_embeds": True,
+    "in_channels": 64, "joint_attention_dim": 4096,
+    "num_attention_heads": 24, "num_layers": 19, "num_single_layers": 38,
+    "patch_size": 1, "pooled_projection_dim": 768}
+FLUX_DEV_T5_CONFIG = {
+    "architectures": ["T5EncoderModel"], "classifier_dropout": 0.0,
+    "d_ff": 10240, "d_kv": 64, "d_model": 4096, "decoder_start_token_id": 0,
+    "dense_act_fn": "gelu_new", "dropout_rate": 0.1, "eos_token_id": 1,
+    "feed_forward_proj": "gated-gelu", "initializer_factor": 1.0,
+    "is_encoder_decoder": True, "is_gated_act": True,
+    "layer_norm_epsilon": 1e-06, "model_type": "t5",
+    "num_decoder_layers": 24, "num_heads": 64, "num_layers": 24,
+    "output_past": True, "pad_token_id": 0,
+    "relative_attention_max_distance": 128,
+    "relative_attention_num_buckets": 32, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32128}
+# the published VAE sets use_quant_conv / use_post_quant_conv false and
+# ships no quant convs, which the JAX package's loader (and the port's, a
+# limit of the reference it keeps) cannot read: written here with them
+FLUX_DEV_VAE_CONFIG = {
+    "_class_name": "AutoencoderKL", "act_fn": "silu",
+    "block_out_channels": [128, 256, 512, 512],
+    "down_block_types": ["DownEncoderBlock2D"] * 4, "force_upcast": True,
+    "in_channels": 3, "latent_channels": 16, "latents_mean": None,
+    "latents_std": None, "layers_per_block": 2,
+    "mid_block_add_attention": True, "norm_num_groups": 32,
+    "out_channels": 3, "sample_size": 1024, "scaling_factor": 0.3611,
+    "shift_factor": 0.1159, "up_block_types": ["UpDecoderBlock2D"] * 4,
+    "use_post_quant_conv": True, "use_quant_conv": True}
+FLUX_DEV_SCHEDULER_CONFIG = {
+    "_class_name": "FlowMatchEulerDiscreteScheduler",
+    "base_image_seq_len": 256, "base_shift": 0.5, "max_image_seq_len": 4096,
+    "max_shift": 1.15, "num_train_timesteps": 1000, "shift": 3.0,
+    "use_dynamic_shifting": True}
+FLUX_SIZE, FLUX_I2I_SIZE, FLUX_STEPS = 1024, 512, 4
+FLUX_T5_PIECES, FLUX_T5_EXTRA_IDS = 32000, 100
+# bytes of the directory at full depth in bf16, with room to spare
+FLUX_DIR_BYTES = 36_000_000_000
+
+
+def _flux_debug_configs() -> dict:
+    """``debug:flux-tiny``'s configs (``image.flux.DEBUG_CONFIGS``) with
+    the VAE and CLIP in float32, for the card = CPU checks."""
+    from localai_tpu_torch.image.flux import DEBUG_CONFIGS
+
+    return {k: dataclasses.replace(c, dtype="float32")
+            for k, c in DEBUG_CONFIGS.items()}
+
+
+def phase_flux_parity() -> dict:
+    """Card = CPU at ``debug:flux-tiny``'s widths in float32 (TF32 off):
+    T5's states (with and without a key mask) and the MMDiT's velocity
+    within 1e-4 of the largest output; one whole ``generate`` (3 steps,
+    the same seeded CPU draw on both devices) and a 0.5-strength img2img:
+    latents within 1e-4, pixels within 1."""
+    from localai_tpu_torch.image import clip as tclip
+    from localai_tpu_torch.image import mmdit as tmm
+    from localai_tpu_torch.image import t5 as tt5
+    from localai_tpu_torch.image import vae as tvae
+    from localai_tpu_torch.image.flux import FluxPipeline
+    from localai_tpu_torch.image.loader import map_tree
+    from localai_tpu_torch.utils.device import full_f32
+    from localai_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    c = _flux_debug_configs()
+    trees = {"mmdit": _perturbed(tmm.init_params(c["mmdit"], 1, "cpu"), 11,
+                                 std=0.02),
+             "vae": _perturbed(tvae.init_params(c["vae"], 2, "cpu"), 12),
+             "clip": _perturbed(tclip.init_params(c["clip"], 3, "cpu"), 13),
+             "t5": _perturbed(tt5.init_params(c["t5"], 4, "cpu"), 14)}
+    dev = {d: {k: map_tree(v, lambda t, d=d: t.to(d))
+               for k, v in trees.items()} for d in ("cuda", "cpu")}
+    rng = np.random.default_rng(71)
+    ids = torch.from_numpy(rng.integers(0, 258, (2, 24)))
+    mask = torch.ones((2, 24), dtype=torch.bool)
+    mask[1, 17:] = False
+    mc = c["mmdit"]
+    img = torch.from_numpy(rng.normal(size=(1, 64, 16)).astype(np.float32))
+    txt = torch.from_numpy(rng.normal(size=(1, 9, 32)).astype(np.float32))
+    pooled = torch.from_numpy(rng.normal(size=(1, 64)).astype(np.float32))
+    img_ids = torch.zeros((64, 3))
+    img_ids[:, 1] = torch.arange(64) // 8
+    img_ids[:, 2] = torch.arange(64) % 8
+    res: dict = {}
+    with torch.inference_mode(), full_f32():
+        for d in ("cuda", "cpu"):
+            p = dev[d]
+            mv = lambda t, d=d: t.to(d)  # noqa: E731
+            res[d] = {
+                "t5": tt5.encode(c["t5"], p["t5"], mv(ids)),
+                "t5_masked": tt5.encode(c["t5"], p["t5"], mv(ids),
+                                        mv(mask)),
+                "velocity": tmm.forward(
+                    mc, p["mmdit"], mv(img), mv(txt), mv(pooled),
+                    mv(torch.tensor([0.7])), mv(img_ids),
+                    mv(torch.zeros((9, 3))),
+                    guidance=mv(torch.tensor([3.5])))}
+    errs = {k: _rel_err(res["cuda"][k], res["cpu"][k]) for k in res["cpu"]}
+    pipes = {d: FluxPipeline(mc, dev[d]["mmdit"], c["vae"], dev[d]["vae"],
+                             c["clip"], dev[d]["clip"], ByteTokenizer(),
+                             c["t5"], dev[d]["t5"], ByteTokenizer(),
+                             device=d) for d in ("cuda", "cpu")}
+    init = rng.integers(0, 256, (80, 48, 3), np.uint8)
+    for name, kw in (("generate", {}),
+                     ("img2img", {"init_image": init, "strength": 0.5})):
+        a, b = (pipes[d].generate("a red fox", width=64, height=64,
+                                  steps=3, seed=9, **kw)
+                for d in ("cuda", "cpu"))
+        errs[f"latents-{name}"] = _rel_err(a.latents, b.latents)
+        errs[f"pixels-{name}"] = int(np.abs(
+            a.image.astype(int) - b.image.astype(int)).max())
+    bad = {k: v for k, v in errs.items()
+           if v > (1 if k.startswith("pixels") else 1e-4)}
+    if bad:
+        raise AssertionError(f"FLUX parity: card != CPU: {bad}")
+    print("flux parity: " + json.dumps(errs), flush=True)
+    return errs
+
+
+def _flux_drawer(kind_of, seed: int, shapes: dict):
+    """``get(path, layer, transposed)`` drawing each entry of the file on
+    the card from its own generator (``seed`` + the entry's ordinal, in
+    the order the writer asks): ones, zeros, or a gaussian times the
+    scale ``kind_of(path, shape)`` gives; ``shapes`` is the tree's
+    ``param_shapes``."""
+    from localai_tpu_torch.image.loader import entry_shape
+
+    count = [0]
+
+    def get(path, layer, tr):
+        s = entry_shape(shapes, path, layer, tr)
+        kind = kind_of(path, s)
+        count[0] += 1
+        if kind == "ones":
+            return torch.ones(s, device="cuda")
+        if kind == "zeros":
+            return torch.zeros(s, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(seed + count[0])
+        return torch.randn(s, generator=g, device="cuda").mul_(kind)
+    return get
+
+
+def _write_flux_dev(root: Path, depth: Optional[tuple] = None) -> dict:
+    """FLUX.1-dev's directory at its published configs (``depth`` (double,
+    single, T5 layers) cuts the depth, never the widths): the MMDiT (the
+    JAX package's init: 0.02-std weights, zero biases, unit qk gains) and
+    T5-XXL's encoder (fan-in-scaled weights, unit norm gains) drawn on the
+    card entry by entry and streamed to disk in bf16, T5 in two shards;
+    CLIP-L and the VAE drawn whole; CLIP's and T5's tokenizers from the
+    smoke's writers. Returns params, bytes and seconds."""
+    from localai_tpu_torch.image import clip as tclip
+    from localai_tpu_torch.image import loader as tload
+    from localai_tpu_torch.image import mmdit as tmm
+    from localai_tpu_torch.image import t5 as tt5
+    from localai_tpu_torch.image import vae as tvae
+    from localai_tpu_torch.image.clip import CLIPTextConfig
+    from localai_tpu_torch.image.vae import VAEConfig
+
+    t0 = time.monotonic()
+    thf, t5hf = dict(FLUX_DEV_TRANSFORMER_CONFIG), dict(FLUX_DEV_T5_CONFIG)
+    if depth:
+        thf.update(num_layers=depth[0], num_single_layers=depth[1])
+        t5hf.update(num_layers=depth[2])
+    mcfg = tmm.FluxConfig.from_hf(thf)
+    t5cfg = tt5.T5Config.from_hf(t5hf)
+    mshapes, tshapes = tmm.param_shapes(mcfg), tt5.param_shapes(t5cfg)
+
+    def mmdit_kind(path, s):
+        kind = tmm.leaf_kind(path[-1])
+        return 0.02 if kind == "normal" else kind
+
+    def t5_kind(path, s):
+        if path[-1] in ("ln1", "ln2", "final_ln"):
+            return "ones"
+        if path[-1] in ("embed", "rel_embed"):
+            return 1.0
+        return 1.0 / float(np.sqrt(s[-1]))      # [out, in] on disk
+
+    ccfg = CLIPTextConfig.from_hf(CLIP_L_CONFIG)
+    vcfg = VAEConfig.from_hf(FLUX_DEV_VAE_CONFIG)
+    clip = tclip.init_params(ccfg, 91, "cuda")
+    vae = tvae.init_params(vcfg, 92, "cuda")
+    n = tload.write_diffusers_pipeline(
+        root, vae=(vcfg, vae), text=(ccfg, clip), dtype="bfloat16",
+        transformer=(mcfg, _flux_drawer(mmdit_kind, 1000, mshapes)),
+        t5=(t5cfg, _flux_drawer(t5_kind, 5000, tshapes)), t5_shards=2,
+        configs={"transformer": thf, "text_encoder_2": t5hf,
+                 "text_encoder": CLIP_L_CONFIG, "vae": FLUX_DEV_VAE_CONFIG})
+    (root / "scheduler").mkdir(exist_ok=True)
+    _write_json(root / "scheduler" / "scheduler_config.json",
+                FLUX_DEV_SCHEDULER_CONFIG)
+    write_clip_tokenizer(root / "tokenizer")
+    vocab = write_t5_tokenizer(root / "tokenizer_2", FLUX_T5_PIECES,
+                               FLUX_T5_EXTRA_IDS)
+    params = {"mmdit": sum(int(np.prod(s)) for s in _leaves(mshapes)),
+              "t5": sum(int(np.prod(s)) for s in _leaves(tshapes)),
+              "clip": sum(t.numel() for t in _leaves(clip)),
+              "vae": sum(t.numel() for t in _leaves(vae))}
+    del clip, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return {"params": params, "params_total": sum(params.values()),
+            "t5_vocab": vocab, "checkpoint_gb": n / 1e9,
+            "write_s": time.monotonic() - t0}
+
+
+def _flux_block_check(pipe, tokens_img: int = 1024) -> dict:
+    """One full-width double block and one single block of the served
+    MMDiT (layer 0 of each) at 512²'s 1152 tokens (1024 image + 128 text)
+    on the card against the CPU, float32 with TF32 off: within 1e-4 of
+    the largest output; each block's card ms (CUDA events around the
+    block alone, its inputs already on the card)."""
+    from localai_tpu_torch.image import mmdit as tmm
+    from localai_tpu_torch.image.loader import map_tree
+    from localai_tpu_torch.utils.device import full_f32
+
+    cfg = pipe.cfg
+    g = torch.Generator().manual_seed(81)
+    D, T = cfg.dim, pipe.max_t5_len
+    side = int(round(tokens_img ** 0.5))
+    x = torch.randn((1, tokens_img, D), generator=g)
+    c = torch.randn((1, T, D), generator=g)
+    temb = torch.nn.functional.silu(torch.randn((1, D), generator=g))
+    ids = torch.zeros((T + tokens_img, 3))
+    ids[T:, 1] = torch.arange(tokens_img) // side
+    ids[T:, 2] = torch.arange(tokens_img) % side
+    blocks = {"double": tmm._at(pipe.params["double"], 0),
+              "single": tmm._at(pipe.params["single"], 0)}
+    out: dict = {}
+    with torch.inference_mode(), full_f32():
+        for d in ("cuda", "cpu"):
+            p = {k: map_tree(v, lambda t, d=d: t.to(d))
+                 for k, v in blocks.items()}
+            cos, sin = tmm.rope_3d(cfg, ids.to(d))
+            # inputs on the device first: the events time the blocks alone
+            xi, ci, ti = x.to(d), c.to(d), temb.to(d)
+            cxi = torch.cat([ci, xi], 1)
+            run_d = lambda: tmm.double_block(  # noqa: E731
+                cfg, p["double"], xi, ci, ti, cos, sin)
+            run_s = lambda: tmm.single_block(  # noqa: E731
+                cfg, p["single"], cxi, ti, cos, sin)
+            if d == "cuda":
+                run_d(), run_s()
+                ms_d, xd = _events_ms(run_d)
+                ms_s, xs = _events_ms(run_s)
+                out["double_ms"], out["single_ms"] = ms_d, ms_s
+            else:
+                xd, xs = run_d(), run_s()
+            out[d] = (xd[0], xd[1], xs)
+            del p
+    errs = [_rel_err(a, b) for a, b in zip(out.pop("cuda"), out.pop("cpu"))]
+    rec = {"tokens": tokens_img + T, "double_x_rel_err": errs[0],
+           "double_c_rel_err": errs[1], "single_rel_err": errs[2],
+           **out}
+    if max(errs) > 1e-4:
+        raise AssertionError(f"FLUX blocks: card != CPU at full width: "
+                             f"{rec}")
+    return rec
+
+
+def phase_serve_flux(card: str) -> dict:
+    """``flux.1-dev-f32``: FLUX.1-dev's widths and depth (its published
+    configs), seeded bf16 weights drawn on the card and streamed to disk
+    (~33.7 GB), served from a ``backend: diffusers`` YAML through the HTTP
+    server in the JAX package's float32 (the MMDiT and T5; CLIP and the
+    VAE in their configs' bf16), TF32 off: one 1024x1024 request of 4
+    steps (``b64_json``), then a 512x512 img2img request from that image
+    (``file``, strength 0.75: 3 steps). Prints load seconds, peak memory
+    after the load and across the requests, T5-encode / MMDiT-step /
+    VAE-decode ms (CUDA events around the served calls), seconds an image,
+    the full-width double and single block card = CPU check at 1152
+    tokens, and K1–K5 launches (0, asserted). The depth is cut only when
+    neither scratch location has room for the full directory."""
+    from localai_tpu_torch.api.server import APIServer
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.image import t5 as tt5
+    from localai_tpu_torch.image.flux import FluxPipeline
+    from localai_tpu_torch.models.manager import ModelManager
+    from localai_tpu_torch.utils import png
+
+    t5_encode = tt5.encode
+    kernels = _all_kernels()
+    # a snapshot, not a reset: the image group's counts run across it
+    before = {k: w.launches for k, w in kernels.items()}
+    depth = None
+    try:
+        root = Path(_scratch_dir("flux-", FLUX_DIR_BYTES))
+    except AssertionError as e:
+        # a third of the depth fits in a third of the room
+        root = Path(_scratch_dir("flux-", FLUX_DIR_BYTES // 3))
+        depth = (7, 13, 8)
+        print(f"flux: full depth does not fit ({e}); depth cut to "
+              f"{depth}", flush=True)
+    try:
+        rec = {"card": card, "depth_cut": depth,
+               **_write_flux_dev(root / "flux.1-dev", depth)}
+        print("flux write: " + json.dumps(rec), flush=True)
+        models = root / "models"
+        write_models_dir(models, {FLUX_DEV: (
+            f"name: {FLUX_DEV}\nbackend: diffusers\n"
+            f"model: {root / 'flux.1-dev'}\n")})
+        loader = ConfigLoader(models)
+        loader.load_from_path()
+        manager = ModelManager(AppConfig(model_path=str(models),
+                                         device="cuda",
+                                         image_path=str(root / "images")),
+                               loader)
+        server = APIServer(manager, "127.0.0.1", 0).start()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            sm = manager.get_image(FLUX_DEV)
+            torch.cuda.synchronize()
+            rec["load_s"] = time.monotonic() - t0
+            rec["allocated_gb_after_load"] = \
+                torch.cuda.memory_allocated() / 1e9
+            rec["peak_gb_after_load"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+            pipe = sm.pipeline
+            if not isinstance(pipe, FluxPipeline):
+                raise AssertionError(f"{FLUX_DEV}: loaded a "
+                                     f"{type(pipe).__name__}")
+            if {t.dtype for t in _leaves(pipe.params)} != {torch.float32}:
+                raise AssertionError("the MMDiT is not float32")
+            times: dict = {}
+            for name in ("_encode", "_velocity", "_decode", "_encode_img",
+                         "generate"):
+                setattr(pipe, name, _timed(getattr(pipe, name),
+                                           times.setdefault(name, [])))
+            # T5 alone inside the text encode (the pipeline calls the
+            # module's function)
+            tt5.encode = _timed(t5_encode, times.setdefault("t5", []))
+            requests = []
+            body = {"model": FLUX_DEV, "prompt": IMAGE_PROMPTS[0],
+                    "size": f"{FLUX_SIZE}x{FLUX_SIZE}", "step": FLUX_STEPS,
+                    "seed": 3, "response_format": "b64_json"}
+            out, wall = _image_request(server.url, body)
+            first = base64.b64decode(out["data"][0]["b64_json"])
+            _check_png(first, FLUX_SIZE)
+            requests.append({"size": FLUX_SIZE, "wall_s": wall,
+                             "steps": len(times["_velocity"])})
+            steps_before = len(times["_velocity"])
+            small = png.encode(png.decode(first)[::2, ::2].copy())
+            out, wall = _image_request(server.url, {
+                **body, "prompt": IMAGE_PROMPTS[1], "seed": 4,
+                "size": f"{FLUX_I2I_SIZE}x{FLUX_I2I_SIZE}",
+                "file": base64.b64encode(small).decode()})
+            _check_png(base64.b64decode(out["data"][0]["b64_json"]),
+                       FLUX_I2I_SIZE)
+            requests.append({"size": FLUX_I2I_SIZE, "img2img": True,
+                             "wall_s": wall, "steps":
+                             len(times["_velocity"]) - steps_before})
+            lat = [r.latents for _, r in times["generate"]]
+            if not all(bool(torch.isfinite(x).all()) for x in lat):
+                raise AssertionError("FLUX latents are not finite")
+            step_ms = [ms for ms, _ in times["_velocity"]]
+            rec.update(
+                requests=requests,
+                t5_encode_ms=[ms for ms, _ in times["t5"]],
+                text_encode_ms=[ms for ms, _ in times["_encode"]],
+                mmdit_ms_per_step_1024=step_ms[:steps_before],
+                mmdit_ms_per_step_512=step_ms[steps_before:],
+                vae_decode_ms=[ms for ms, _ in times["_decode"]],
+                vae_encode_ms=[ms for ms, _ in times["_encode_img"]],
+                s_per_image=[r["wall_s"] for r in requests],
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if requests[0]["steps"] != FLUX_STEPS or \
+                    requests[1]["steps"] != int(FLUX_STEPS * 0.75):
+                raise AssertionError(f"FLUX steps: {requests}")
+            rec["blocks"] = _flux_block_check(pipe)
+            if depth:
+                # the full-depth float32 peak, from the measured bytes of
+                # each loaded block
+                def per_layer(tree, n):
+                    return sum(t.nbytes for t in tree.values()) / n
+                missing = (
+                    (19 - depth[0]) * per_layer(pipe.params["double"],
+                                                depth[0])
+                    + (38 - depth[1]) * per_layer(pipe.params["single"],
+                                                  depth[1])
+                    + (24 - depth[2]) * per_layer(pipe.t5_params["layers"],
+                                                  depth[2]))
+                rec["full_depth_peak_gb_reckoned"] = \
+                    rec["peak_gb"] + missing / 1e9
+        finally:
+            tt5.encode = t5_encode
+            server.shutdown()
+            manager.shutdown()
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _no_launches(FLUX_DEV, kernels, before)
+    rec["k1_k5_launches"] = 0
+    print("flux: " + json.dumps(rec), flush=True)
+    return rec
+
+
 def phase_image(card: str) -> dict:
     """The image group: card = CPU at debug widths, then the SDXL and
-    SD-1.5 serves; K1–K5 launch never (every count zeroed first). Its
-    command time is printed."""
+    SD-1.5 serves, then FLUX's card = CPU check and its FLUX.1-dev serve
+    (a scratch directory of its own); K1–K5 launch never (every count
+    zeroed first). Its command time is printed."""
     kernels = _all_kernels()
     for w in kernels.values():
         w.launches = 0
@@ -7972,6 +8510,12 @@ def phase_image(card: str) -> dict:
             phase_s[name] = time.monotonic() - t1
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    _no_launches("the image group's UNet paths", kernels)
+    for name, run in (("flux_parity", phase_flux_parity),
+                      ("flux", lambda: phase_serve_flux(card))):
+        t1 = time.monotonic()
+        rec[name] = run()
+        phase_s[name] = time.monotonic() - t1
     _no_launches("the image group", kernels)
     rec.update(phase_s=phase_s, k1_k5_launches=0,
                group_s=time.monotonic() - t0)
@@ -7996,6 +8540,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from localai_tpu_torch.ops import _build
 
+    t_smoke = time.monotonic()
     card = nvidia_smi_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}",
@@ -8202,6 +8747,7 @@ def main() -> int:
                group_parity["g7-contiguous-float32"]["prefill_attention"],
                groups_k["k3"]),
     ]
+    print(f"smoke wall: {time.monotonic() - t_smoke:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

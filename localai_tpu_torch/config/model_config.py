@@ -3,10 +3,9 @@
 Port of the fields of ``localai_tpu/config/model_config.py`` that the port
 reads (the JAX package validates with pydantic, which the port's runtime
 does not depend on). Unknown keys are ignored; keys that would ask for a
-feature the port does not have yet — a raw ``grammar`` string (which the
-JAX package declares and reads nowhere) and a FLUX-class image model —
-raise a clear error at load instead of serving something else than was
-asked for. Prompt templates
+feature the port does not have — a raw ``grammar`` string, which the
+JAX package declares and reads nowhere — raise a clear error at load
+instead of serving something else than was asked for. Prompt templates
 (``template:``, :class:`TemplateConfig`: Go or Jinja ``chat_message``,
 ``chat``, ``completion``, ``edit``, ``functions``, a Jinja
 ``chat_template`` and ``use_tokenizer_template``, rendered by the port's
@@ -29,9 +28,9 @@ client (``backend: huggingface | langchain-huggingface`` with
 VITS voices (``backend: vits``, with a ``tts:`` section,
 :class:`TTSConfig`) and image generation (``backend: diffusers``, with a
 ``diffusers:`` section, :class:`DiffusionConfig`, and ``lora_adapter`` /
-``lora_scale``) are served. Of the image models, only the FLUX class is
-refused (ROADMAP item 10 part 2): ``debug:flux-tiny`` here, a FLUX
-layout when it loads (``image.pipeline.resolve_image_model``).
+``lora_scale``) are served, FLUX-class models included
+(``debug:flux-tiny`` or a ``transformer/`` layout,
+``image.pipeline.resolve_image_model``).
 """
 
 from __future__ import annotations
@@ -52,8 +51,6 @@ SERVED_USECASES = ("chat", "completion", "edit", "embeddings", "image",
 # backend names served by the LLM engine (the JAX package's list)
 LLM_BACKENDS = ("", "jax", "jax-llm", "transformers", "worker",
                 "huggingface", "langchain-huggingface", "mamba", "rwkv")
-# the FLUX-class debug preset (the JAX package's debug:flux-tiny)
-FLUX_DEBUG_REF = "debug:flux-tiny"
 
 
 def _pick(cls, data: Optional[dict]) -> dict:
@@ -311,11 +308,6 @@ class ModelConfig:
                 "(grammar) is not served: the JAX package declares the key "
                 "and reads it nowhere, so no constraint could honour it; "
                 "use tools or response_format for constrained decoding")
-        if (self.model or self.name) == FLUX_DEBUG_REF:
-            raise ValueError(
-                f"model {self.name or self.model!r}: {FLUX_DEBUG_REF} is a "
-                "FLUX-class image model, not ported yet (ROADMAP item 10 "
-                "part 2)")
         if self.engine.kv_dtype == "int4" and self.engine.kv_paged is False:
             raise ValueError(
                 f"model {self.name or self.model!r}: kv_dtype int4 needs "

@@ -19,6 +19,12 @@ convs, as there.
 :func:`write_diffusers_pipeline` writes a tree back in the same layout
 (the tests and ``chip_smoke.py`` write seeded checkpoints with it), and
 :func:`from_jax_params` carries a JAX package tree across (HWIO → OIHW).
+FLUX's ``transformer/`` (an MMDiT) and ``text_encoder_2/`` (T5's
+encoder, any number of shards) go through one table of entries each
+(:func:`mmdit_entries`, :func:`t5_entries`: file name, tree path, layer,
+transposed), which :func:`load_entries` reads, casting every leaf on the
+device as it arrives and filling each stacked leaf in place, and
+:func:`write_sharded` writes.
 The CLIP tokenizer is read from ``tokenizer.json``, or from ``vocab.json``
 + ``merges.txt`` as ``CLIPTokenizerFast`` converts them
 (``utils.hf_tokenizer.clip_tokenizer_spec``); a directory with neither
@@ -28,13 +34,17 @@ does.
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
+import math
 from pathlib import Path
 from typing import Any, Callable, Optional
 
 import torch
 
+from localai_tpu_torch.image import mmdit as _mmdit
+from localai_tpu_torch.image import t5 as _t5
 from localai_tpu_torch.image.clip import CLIPTextConfig
 from localai_tpu_torch.image.unet import UNetConfig, torch_dtype
 from localai_tpu_torch.image.vae import VAEConfig
@@ -316,6 +326,255 @@ def load_text_encoder(d: Path) -> tuple[CLIPTextConfig, PyTree]:
 
 
 # ---------------------------------------------------------------------------
+# FLUX: the MMDiT and T5's encoder, cast leaf by leaf on the device
+
+
+def cast_leaf(a: torch.Tensor, dtype: torch.dtype,
+              device: str | torch.device, transpose: bool = False
+              ) -> torch.Tensor:
+    """One tensor on ``device`` in the JAX package's cast (more than one
+    dimension → ``dtype``, a vector → float32), [out, in] → [in, out]
+    when ``transpose``, contiguous; cast on the device (the bus carries
+    the file's bytes), with one allocation of the result beside them."""
+    a = a.to(device)
+    if transpose:
+        a = a.t()
+    want = dtype if a.dim() > 1 else torch.float32
+    if a.dtype == want and a.is_contiguous():
+        return a
+    return torch.empty(a.shape, dtype=want, device=a.device).copy_(a)
+
+
+def leaf(t: dict, name: str, dtype: torch.dtype,
+         device: str | torch.device, transpose: bool = False
+         ) -> torch.Tensor:
+    """One tensor of the file, as :func:`cast_leaf` casts it."""
+    return cast_leaf(_np(t, name), dtype, device, transpose)
+
+
+def stacked(t: dict, names: list, dtype: torch.dtype,
+            device: str | torch.device, transpose: bool = False
+            ) -> torch.Tensor:
+    """The tensors ``names`` stacked as one [len(names), ...] leaf in
+    ``dtype`` on ``device``, allocated once and filled layer by layer (no
+    per-layer device copies held at once)."""
+    first = _np(t, names[0])
+    shape = tuple(first.shape[::-1]) if transpose else tuple(first.shape)
+    out = torch.empty((len(names),) + shape, dtype=dtype,
+                      device=resolve_device(device))
+    for i, name in enumerate(names):
+        a = (first if i == 0 else _np(t, name)).to(out.device)
+        out[i].copy_(a.t() if transpose else a)
+    return out
+
+
+# FluxTransformer2DModel's linears (weight leaf, bias leaf, diffusers
+# prefix), its per-head norm gains (leaf, name) and the embedders
+_MMDIT_TOP = (("x_embed_w", "x_embed_b", "x_embedder"),
+              ("ctx_embed_w", "ctx_embed_b", "context_embedder"),
+              ("norm_out_w", "norm_out_b", "norm_out.linear"),
+              ("proj_out_w", "proj_out_b", "proj_out"))
+_MMDIT_MLPS = (("time_mlp", "time_text_embed.timestep_embedder"),
+               ("text_mlp", "time_text_embed.text_embedder"),
+               ("guid_mlp", "time_text_embed.guidance_embedder"))
+_DOUBLE_LIN = (("mod_x_w", "mod_x_b", "norm1.linear"),
+               ("mod_c_w", "mod_c_b", "norm1_context.linear"),
+               ("wq_x", "bq_x", "attn.to_q"), ("wk_x", "bk_x", "attn.to_k"),
+               ("wv_x", "bv_x", "attn.to_v"),
+               ("wo_x", "bo_x", "attn.to_out.0"),
+               ("wq_c", "bq_c", "attn.add_q_proj"),
+               ("wk_c", "bk_c", "attn.add_k_proj"),
+               ("wv_c", "bv_c", "attn.add_v_proj"),
+               ("wo_c", "bo_c", "attn.to_add_out"),
+               ("ff_x_w1", "ff_x_b1", "ff.net.0.proj"),
+               ("ff_x_w2", "ff_x_b2", "ff.net.2"),
+               ("ff_c_w1", "ff_c_b1", "ff_context.net.0.proj"),
+               ("ff_c_w2", "ff_c_b2", "ff_context.net.2"))
+_DOUBLE_NORM = (("qn_x", "attn.norm_q"), ("kn_x", "attn.norm_k"),
+                ("qn_c", "attn.norm_added_q"), ("kn_c", "attn.norm_added_k"))
+_SINGLE_LIN = (("mod_w", "mod_b", "norm.linear"), ("wq", "bq", "attn.to_q"),
+               ("wk", "bk", "attn.to_k"), ("wv", "bv", "attn.to_v"),
+               ("mlp_w", "mlp_b", "proj_mlp"), ("out_w", "out_b", "proj_out"))
+_SINGLE_NORM = (("qn", "attn.norm_q"), ("kn", "attn.norm_k"))
+
+
+def mmdit_entries(cfg) -> list[tuple[str, tuple, Optional[int], bool]]:
+    """Every tensor of a ``FluxTransformer2DModel`` state dict as
+    (diffusers name, leaf path in the MMDiT tree, layer index of a stacked
+    leaf or None, stored transposed), in one fixed order: what the loader
+    reads and the writer writes."""
+    out: list = []
+
+    def lin(w, b, prefix, path=(), layer=None):
+        out.append((f"{prefix}.weight", path + (w,), layer, True))
+        out.append((f"{prefix}.bias", path + (b,), layer, False))
+
+    for w, b, prefix in _MMDIT_TOP:
+        lin(w, b, prefix)
+    for key, prefix in _MMDIT_MLPS:
+        if key == "guid_mlp" and not cfg.guidance_embeds:
+            continue
+        lin("w1", "b1", f"{prefix}.linear_1", (key,))
+        lin("w2", "b2", f"{prefix}.linear_2", (key,))
+    for block, n, lins, norms, fmt in (
+            ("double", cfg.num_layers, _DOUBLE_LIN, _DOUBLE_NORM,
+             "transformer_blocks.{i}."),
+            ("single", cfg.num_single_layers, _SINGLE_LIN, _SINGLE_NORM,
+             "single_transformer_blocks.{i}.")):
+        for i in range(n):
+            pre = fmt.format(i=i)
+            for w, b, name in lins:
+                lin(w, b, pre + name, (block,), i)
+            for key, name in norms:
+                out.append((f"{pre}{name}.weight", (block, key), i, False))
+    return out
+
+
+def _assemble(entries: list, get_leaf, get_stack) -> dict:
+    """A tree from (name, path, layer, transposed) entries: a leaf per
+    unstacked path, one stacked leaf per path of layered entries."""
+    tree: dict = {}
+    groups: dict = {}
+    for name, path, layer, tr in entries:
+        if layer is None:
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = get_leaf(name, tr)
+        else:
+            groups.setdefault(path, (tr, []))[1].append(name)
+    for path, (tr, names) in groups.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = get_stack(names, tr)
+    return tree
+
+
+def load_entries(d: Path, entries: list, dtype: str,
+                 device: str | torch.device = "cuda") -> dict:
+    """The tensors of a directory's ``*.safetensors`` (shards included)
+    named by ``entries`` (:func:`mmdit_entries`, :func:`t5_entries`) as
+    a tree on ``device`` in ``dtype`` (vectors float32), each leaf cast on
+    the device as it arrives and each stacked leaf filled in place."""
+    t = _open_dir(d)
+    dt = torch_dtype(dtype)
+    device = resolve_device(device)
+    return _assemble(
+        entries,
+        lambda name, tr: leaf(t, name, dt, device, transpose=tr),
+        lambda names, tr: stacked(t, names, dt, device, transpose=tr))
+
+
+def load_mmdit(d: Path, cfg, device: str | torch.device = "cuda") -> dict:
+    """A diffusers ``transformer/`` directory → the MMDiT tree."""
+    return load_entries(d, mmdit_entries(cfg), cfg.dtype, device)
+
+
+def t5_entries(cfg) -> list[tuple[str, tuple, Optional[int], bool]]:
+    """Every tensor of a ``T5EncoderModel`` state dict, as
+    :func:`mmdit_entries` lists the MMDiT's."""
+    out: list = [("shared.weight", ("embed",), None, False),
+                 (_t5.T5_REL_EMBED, ("rel_embed",), None, False)]
+    for i in range(cfg.num_layers):
+        for key, (name, tr) in _t5.T5_LAYER_NAMES.items():
+            out.append((f"encoder.block.{i}.layer.{name}", ("layers", key),
+                        i, tr))
+    out.append(("encoder.final_layer_norm.weight", ("final_ln",), None,
+                False))
+    return out
+
+
+def entry_tensor(tree: dict, path: tuple, layer: Optional[int],
+                 transposed: bool) -> torch.Tensor:
+    """The tensor of one entry in the file's layout, from a tree."""
+    t = tree
+    for k in path:
+        t = t[k]
+    if layer is not None:
+        t = t[layer]
+    return t.t() if transposed else t
+
+
+def entry_shape(shapes: dict, path: tuple, layer: Optional[int],
+                transposed: bool) -> tuple:
+    """The shape of one entry in the file's layout, from a tree's
+    ``param_shapes``."""
+    s = shapes
+    for k in path:
+        s = s[k]
+    s = tuple(s[1:] if layer is not None else s)
+    return s[::-1] if transposed else s
+
+
+def write_entries(path: Path, entries: list, get, dtype: str,
+                  shape) -> int:
+    """One ``.safetensors`` of (name, path, layer, transposed) entries in
+    ``dtype``: ``get(path, layer, transposed)`` gives each tensor in the
+    file's layout as it is written, ``shape(...)`` its shape beforehand."""
+    return write_safetensors(path, [
+        (name, tuple(shape(p, layer, tr)), torch_dtype(dtype),
+         (lambda p=p, layer=layer, tr=tr: get(p, layer, tr)))
+        for name, p, layer, tr in entries])
+
+
+def t5_hf_config(cfg) -> dict:
+    return {"architectures": ["T5EncoderModel"], "model_type": "t5",
+            "vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+            "d_kv": cfg.d_kv, "d_ff": cfg.d_ff,
+            "num_layers": cfg.num_layers, "num_heads": cfg.num_heads,
+            "relative_attention_num_buckets":
+                cfg.relative_attention_num_buckets,
+            "relative_attention_max_distance":
+                cfg.relative_attention_max_distance,
+            "layer_norm_epsilon": cfg.layer_norm_epsilon,
+            "feed_forward_proj": "gated-gelu", "is_gated_act": True,
+            "dense_act_fn": "gelu_new"}
+
+
+def mmdit_hf_config(cfg) -> dict:
+    return {"_class_name": "FluxTransformer2DModel", "patch_size": 1,
+            "in_channels": cfg.in_channels, "num_layers": cfg.num_layers,
+            "num_single_layers": cfg.num_single_layers,
+            "attention_head_dim": cfg.attention_head_dim,
+            "num_attention_heads": cfg.num_attention_heads,
+            "joint_attention_dim": cfg.joint_attention_dim,
+            "pooled_projection_dim": cfg.pooled_projection_dim,
+            "guidance_embeds": cfg.guidance_embeds,
+            "axes_dims_rope": list(cfg.axes_dims_rope)}
+
+
+def write_sharded(d: Path, stem: str, entries: list, get, dtype: str,
+                  shape, shards: int = 1) -> int:
+    """``entries`` (:func:`write_entries`) split in file order into
+    ``shards`` files of about equal bytes (``<stem>-0000k-of-0000n
+    .safetensors`` and the ``<stem>.safetensors.index.json`` of the
+    published layout; one ``<stem>.safetensors`` when ``shards`` is 1).
+    Returns the bytes written."""
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    if shards <= 1:
+        return write_entries(d / f"{stem}.safetensors", entries, get, dtype,
+                             shape)
+    sizes = [math.prod(shape(p, layer, tr)) for _, p, layer, tr in entries]
+    total, acc, cut = sum(sizes), 0, [0]
+    for i, n in enumerate(sizes):
+        acc += n
+        if acc >= total * len(cut) / shards and len(cut) < shards:
+            cut.append(i + 1)
+    cut.append(len(entries))
+    nbytes, weight_map = 0, {}
+    for k in range(shards):
+        fname = f"{stem}-{k + 1:05d}-of-{shards:05d}.safetensors"
+        part = entries[cut[k]:cut[k + 1]]
+        nbytes += write_entries(d / fname, part, get, dtype, shape)
+        weight_map.update({e[0]: fname for e in part})
+    (d / f"{stem}.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": nbytes}, "weight_map": weight_map}))
+    return nbytes
+
+
+# ---------------------------------------------------------------------------
 # the pipeline
 # ---------------------------------------------------------------------------
 
@@ -369,17 +628,16 @@ def map_tree(tree: PyTree, fn: Callable) -> PyTree:
 
 def _to_device(params: PyTree, dtype: str,
                device: str | torch.device) -> PyTree:
-    """The JAX package's cast: more than one dimension → ``dtype``, a
-    vector → float32 (on the device: the bus carries the file's bytes)."""
+    """Every leaf in the JAX package's cast (:func:`cast_leaf`)."""
     dt = torch_dtype(dtype)
-    return map_tree(params, lambda a: a.to(device).to(
-        dt if a.dim() > 1 else torch.float32))
+    return map_tree(params, lambda a: cast_leaf(a, dt, device))
 
 
 def from_jax_params(tree: PyTree, device: str | torch.device = "cuda"
                     ) -> PyTree:
-    """A JAX package image tree (UNet, VAE, CLIP or ControlNet; numpy or
-    JAX arrays, bfloat16 as ``ml_dtypes.bfloat16``) as tensors on
+    """A JAX package image tree (UNet, VAE, CLIP, ControlNet, and FLUX's
+    MMDiT and T5, whose stacked [L, ...] leaves carry across as they are;
+    numpy or JAX arrays, bfloat16 as ``ml_dtypes.bfloat16``) as tensors on
     ``device``, each in its own dtype, conv kernels HWIO → OIHW."""
     return map_tree(params_from_numpy(tree, device), lambda t: t.permute(
         3, 2, 0, 1).contiguous() if t.dim() == 4 else t)
@@ -636,26 +894,61 @@ def write_controlnet(d: Path, cfg: UNetConfig, params: PyTree,
                            dtype)
 
 
-def write_diffusers_pipeline(root: Path, unet: tuple, vae: tuple,
-                             text: tuple, text2: Optional[tuple] = None,
-                             dtype: Optional[str] = None) -> int:
+def write_diffusers_pipeline(root: Path, vae: tuple, text: tuple,
+                             unet: Optional[tuple] = None,
+                             text2: Optional[tuple] = None,
+                             dtype: Optional[str] = None,
+                             transformer: Optional[tuple] = None,
+                             t5: Optional[tuple] = None,
+                             t5_shards: int = 1,
+                             configs: Optional[dict] = None) -> int:
     """A diffusers directory from (config, params) pairs: unet/, vae/,
     text_encoder/ (and text_encoder_2/ for SDXL, whose UNet's
-    proj_in/proj_out are written as linears) and model_index.json. The
-    tokenizer directories are the caller's. Returns the bytes written."""
+    proj_in/proj_out are written as linears) and model_index.json; or,
+    with ``transformer`` and ``t5``, FLUX's transformer/ (an MMDiT) and
+    text_encoder_2/ (T5EncoderModel names, in ``t5_shards`` files), whose
+    params may be a tree or a getter ``get(path, layer, transposed)`` that
+    makes each tensor as it is written (:func:`write_entries`).
+    ``configs`` ({subdirectory: config.json}) replaces the config.json
+    written from a config. The tokenizer and scheduler directories are
+    the caller's. Returns the bytes written."""
     root = Path(root)
+    configs = configs or {}
     sdxl = text2 is not None
-    n = write_component(root / "unet", unet_hf_config(unet[0], sdxl),
-                        unet_tensors(unet[1], sdxl), dtype)
-    n += write_component(root / "vae", vae_hf_config(vae[0]),
+    n = 0
+    if unet is not None:
+        n += write_component(
+            root / "unet",
+            configs.get("unet") or unet_hf_config(unet[0], sdxl),
+            unet_tensors(unet[1], sdxl), dtype)
+    n += write_component(root / "vae",
+                         configs.get("vae") or vae_hf_config(vae[0]),
                          vae_tensors(vae[1]), dtype)
     for sub, pair in (("text_encoder", text), ("text_encoder_2", text2)):
         if pair is not None:
-            n += write_component(root / sub, clip_hf_config(pair[0]),
-                                 clip_tensors(pair[1]), dtype)
-    (root / "model_index.json").write_text(json.dumps({
-        "_class_name": "StableDiffusionXLPipeline" if sdxl
-        else "StableDiffusionPipeline"}))
+            n += write_component(
+                root / sub, configs.get(sub) or clip_hf_config(pair[0]),
+                clip_tensors(pair[1]), dtype)
+    cls = ("StableDiffusionXLPipeline" if sdxl
+           else "StableDiffusionPipeline")
+    for sub, stem, pair, mod, entries, hf, shards in (
+            ("transformer", "diffusion_pytorch_model", transformer, _mmdit,
+             mmdit_entries, mmdit_hf_config, 1),
+            ("text_encoder_2", "model", t5, _t5, t5_entries, t5_hf_config,
+             t5_shards)):
+        if pair is None:
+            continue
+        cfg, src = pair
+        get = src if callable(src) else functools.partial(entry_tensor, src)
+        n += write_sharded(root / sub, stem, entries(cfg), get,
+                           dtype or cfg.dtype,
+                           functools.partial(entry_shape,
+                                             mod.param_shapes(cfg)), shards)
+        (root / sub / "config.json").write_text(
+            json.dumps(configs.get(sub) or hf(cfg)))
+    if transformer is not None:
+        cls = "FluxPipeline"
+    (root / "model_index.json").write_text(json.dumps({"_class_name": cls}))
     return n
 
 

@@ -32,12 +32,6 @@ from localai_tpu_torch.image import unet as unet_mod
 from localai_tpu_torch.image import vae as vae_mod
 from localai_tpu_torch.utils.device import full_f32, resolve_device
 
-# a FLUX-class layout (MMDiT + T5) is ROADMAP item 10 part 2
-FLUX_REFUSAL = ("FLUX-class image models (an MMDiT under transformer/ with "
-                "a T5 text encoder) are not ported yet: ROADMAP item 10 "
-                "part 2")
-
-
 @dataclasses.dataclass
 class GenerationResult:
     image: np.ndarray                       # [H, W, 3] uint8
@@ -376,29 +370,37 @@ def _debug_pipeline(name: str, seed: int = 0,
 
 
 def resolve_image_model(ref: str, model_path: str | Path = "models",
-                        device: str | torch.device = "cuda",
-                        **defaults) -> DiffusionPipeline:
-    """ref → loaded DiffusionPipeline on ``device``:
+                        device: str | torch.device = "cuda", **defaults):
+    """ref → a loaded pipeline on ``device``:
 
     * ``debug:sd-tiny``: the random-weight preset (tests);
+    * ``debug:flux-tiny``: the FLUX-class random-weight preset
+      (``image.flux``);
+    * a FLUX layout (an MMDiT under ``transformer/``, T5 under
+      ``text_encoder_2/``): ``image.flux.FluxPipeline``, without a LoRA
+      (``lora_adapter`` / ``lora_scale`` dropped, as the JAX package
+      drops them);
     * a diffusers-layout dir (model_index.json + unet/ vae/ text_encoder/
-      tokenizer/): an SD-1.x, SD-2.x or SDXL checkpoint.
-
-    ``debug:flux-tiny`` and a FLUX layout (a ``transformer/`` dir) raise
-    ``ValueError`` naming ROADMAP item 10 part 2."""
+      tokenizer/): an SD-1.x, SD-2.x or SDXL checkpoint."""
     if ref.startswith("debug:"):
         name = ref.split(":", 1)[1]
-        if name == "flux-tiny":
-            raise ValueError(f"{ref}: {FLUX_REFUSAL}")
-        if name not in _DEBUG_PRESETS:
-            raise ValueError(f"unknown debug image preset {name!r}; have "
-                             f"{sorted(_DEBUG_PRESETS)}")
         defaults.pop("lora_adapter", None)
         defaults.pop("lora_scale", None)
+        if name == "flux-tiny":
+            from localai_tpu_torch.image.flux import debug_flux_pipeline
+
+            return debug_flux_pipeline(device=device, **defaults)
+        if name not in _DEBUG_PRESETS:
+            raise ValueError(f"unknown debug image preset {name!r}; have "
+                             f"{sorted(_DEBUG_PRESETS) + ['flux-tiny']}")
         return _debug_pipeline(name, device=device, **defaults)
     for cand in (Path(ref), Path(model_path) / ref):
         if (cand / "transformer").is_dir():
-            raise ValueError(f"{cand}: {FLUX_REFUSAL}")
+            from localai_tpu_torch.image.flux import load_flux_pipeline
+
+            defaults.pop("lora_adapter", None)
+            defaults.pop("lora_scale", None)
+            return load_flux_pipeline(cand, device=device, **defaults)
         if (cand / "model_index.json").exists() or (cand / "unet").is_dir():
             from localai_tpu_torch.image.loader import load_diffusers_pipeline
 

@@ -675,6 +675,14 @@ class ModelManager:
                                    model_path=self.app.model_path,
                                    device=self.app.device, **kwargs)
         if d.control_net:
+            if not hasattr(pipe, "attach_controlnet"):
+                # the JAX package fails here with an AttributeError (its
+                # FluxPipeline has no attach_controlnet): an intended
+                # divergence, named
+                raise ValueError(
+                    f"model {mcfg.name!r}: a ControlNet (diffusers."
+                    "control_net) guides the UNet pipelines only; this "
+                    f"is a FLUX-class model ({type(pipe).__name__})")
             pipe.attach_controlnet(d.control_net, self.app.model_path)
         log.info("loaded image model %s in %.1fs", mcfg.name,
                  time.monotonic() - t0)

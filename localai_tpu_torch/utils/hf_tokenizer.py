@@ -11,9 +11,11 @@ the format's sections in the order ``tokenizers`` runs them for
      ``lstrip``, ``rstrip`` and ``normalized`` are honoured;
   2. normalizer (``NFC``/``NFKC``/``NFD``/``NFKD``, ``Sequence``,
      ``Prepend``, ``Replace``, ``Strip``, ``Lowercase``,
-     ``BertNormalizer``) on each piece between added tokens;
+     ``BertNormalizer``, SentencePiece's ``Precompiled`` charsmap over
+     grapheme clusters, ``utils/spm.py``) on each piece between added
+     tokens;
   3. pre-tokenizer (``ByteLevel``, ``Split``, ``Metaspace``, ``Digits``,
-     ``BertPreTokenizer``, ``Sequence``);
+     ``BertPreTokenizer``, ``WhitespaceSplit``, ``Sequence``);
   4. model: ``BPE`` (ranked merges, ``ignore_merges``, ``unk_token``,
      ``fuse_unk``, ``byte_fallback``, ``continuing_subword_prefix``,
      ``end_of_word_suffix``), with a word → ids cache; or ``WordLevel``
@@ -23,7 +25,9 @@ the format's sections in the order ``tokenizers`` runs them for
      or ``WordPiece`` (greedy longest-match-first over the vocabulary,
      ``continuing_subword_prefix`` on every piece after a word's first,
      ``unk_token`` for a word with no split or longer than
-     ``max_input_chars_per_word``: BERT's model).
+     ``max_input_chars_per_word``: BERT's model); or ``Unigram``
+     (SentencePiece's Viterbi over scored pieces, fused unknowns,
+     ``byte_fallback``: T5's model).
 
 ``decode(ids)`` maps ids to tokens (added tokens to their content) and
 runs the decoder (``ByteLevel``, ``Metaspace``, ``Replace``,
@@ -32,8 +36,9 @@ runs the decoder (``ByteLevel``, ``Metaspace``, ``Replace``,
 as ``decode(ids, skip_special_tokens=False)`` does. The post-processor
 runs only for ``encode(text, add_special_tokens=True)`` (the CLIP
 tokenizers of the image pipeline ask for it), and only
-``RobertaProcessing`` is read: a single sequence between its ``cls`` and
-``sep`` ids; any other fails when asked for. A component this reader
+``RobertaProcessing`` (a single sequence between its ``cls`` and ``sep``
+ids) and ``TemplateProcessing`` (its ``single`` template, T5's ``$A
+</s>``) are read; any other fails when asked for. A component this reader
 does not implement fails at load with a ``ValueError`` naming it, and so
 does a BERT component without a field that ``tokenizers`` requires.
 :func:`clip_tokenizer_spec` builds, from a CLIP ``vocab.json`` and
@@ -333,6 +338,12 @@ def _normalizer(spec: Optional[dict]) -> Normalizer:
         # each character's own lowercase mapping (Rust's char::to_lowercase:
         # no final-sigma rule)
         return lambda s: "".join(c.lower() for c in s)
+    if kind == "Precompiled":
+        # SentencePiece's charsmap (T5's tokenizer.json): utils/spm.py
+        from localai_tpu_torch.utils.spm import Charsmap
+
+        (blob,) = _required(spec, "Precompiled", "precompiled_charsmap")
+        return Charsmap.from_base64(blob).normalize
     if kind == "Strip":
         ws = "".join(_white_space())
         left, right = spec.get("strip_left", True), spec.get("strip_right",
@@ -524,6 +535,10 @@ def _pre_tokenizer(spec: Optional[dict]) -> PreTokenizer:
         return _each(metaspace)
     if kind == "BertPreTokenizer":
         return _each(_bert_pre_tokenize)
+    if kind == "WhitespaceSplit":
+        ws = _white_space()
+        return _each(lambda s, first: _pieces(s, first, _split(
+            s, _char_matches(lambda c: c in ws, s), "Removed")))
     if kind == "Digits":
         behavior = ("Isolated" if spec.get("individual_digits", False)
                     else "Contiguous")
@@ -910,7 +925,109 @@ class WordPiece:
         return tuple(ids)
 
 
-_MODELS = {"BPE": BPE, "WordLevel": WordLevel, "WordPiece": WordPiece}
+class Unigram:
+    """The ``Unigram`` model of ``tokenizers`` (SentencePiece's): Viterbi
+    over the pieces that start at each character, a path's score the sum
+    of its pieces' scores (float64, the first candidate kept on a tie); a
+    character no single piece covers is ``unk_id`` at the lowest score
+    less 10, consecutive unknowns fuse into one, and with
+    ``byte_fallback`` an unknown becomes its ``<0xXX>`` byte pieces when
+    all of them are in the vocabulary."""
+
+    UNK_PENALTY = 10.0
+
+    def __init__(self, spec: dict):
+        pieces = [(str(p), float(sc)) for p, sc in spec.get("vocab") or []]
+        self.unk_id: Optional[int] = spec.get("unk_id")
+        if self.unk_id is not None and not 0 <= self.unk_id < len(pieces):
+            raise ValueError(f"tokenizer.json: Unigram unk_id "
+                             f"{self.unk_id} is not in the vocabulary")
+        self.byte_fallback = bool(spec.get("byte_fallback", False))
+        self.scores = [sc for _, sc in pieces]
+        self.vocab: dict[str, int] = {}
+        for i, (p, _) in enumerate(pieces):
+            self.vocab[p] = i
+        self.vocab_r = {i: p for i, (p, _) in enumerate(pieces)}
+        self.min_score = min(self.scores, default=float("inf"))
+        self._lengths = sorted({len(p) for p, _ in pieces if p})
+        self._cache: dict[str, tuple[int, ...]] = {}
+
+    def tokenize(self, word: str) -> tuple[int, ...]:
+        if not word:
+            return ()
+        hit = self._cache.get(word)
+        if hit is None:
+            hit = self._ids(self._viterbi(word))
+            if len(self._cache) < BPE.CACHE_WORDS:
+                self._cache[word] = hit
+        return hit
+
+    def _viterbi(self, s: str) -> list[str]:
+        n = len(s)
+        unk_score = self.min_score - self.UNK_PENALTY
+        # best[end] = (score, start, id) of the best path ending at end
+        best: list[Optional[tuple[float, int, int]]] = [None] * (n + 1)
+        best[0] = (0.0, 0, -1)
+        vocab, scores = self.vocab, self.scores
+        for start in range(n):
+            here = best[start][0]
+            single = False
+            for ln in self._lengths:
+                if start + ln > n:
+                    break
+                tid = vocab.get(s[start:start + ln])
+                if tid is None:
+                    continue
+                cand = scores[tid] + here
+                node = best[start + ln]
+                if node is None or cand > node[0]:
+                    best[start + ln] = (cand, start, tid)
+                if ln == 1:
+                    single = True
+            if not single:
+                if self.unk_id is None:
+                    raise ValueError("tokenizer.json: Unigram needs an "
+                                     "unk_id for a character it lacks")
+                cand = unk_score + here
+                node = best[start + 1]
+                if node is None or cand > node[0]:
+                    best[start + 1] = (cand, start, self.unk_id)
+        out: list[str] = []
+        fused: list[str] = []
+        end = n
+        while end > 0:
+            _, start, tid = best[end]
+            if tid == self.unk_id:
+                fused.append(s[start:end])
+            else:
+                if fused:
+                    out.append("".join(reversed(fused)))
+                    fused = []
+                out.append(s[start:end])
+            end = start
+        if fused:
+            out.append("".join(reversed(fused)))
+        out.reverse()
+        return out
+
+    def _ids(self, pieces: list[str]) -> tuple[int, ...]:
+        ids: list[int] = []
+        for p in pieces:
+            tid = self.vocab.get(p)
+            if tid is not None:
+                ids.append(tid)
+                continue
+            if self.byte_fallback:
+                bs = [self.vocab.get(f"<0x{b:02X}>") for b in p.encode()]
+                if None not in bs:
+                    ids.extend(bs)
+                    continue
+            ids.append(self.unk_id)
+        return tuple(ids)
+
+
+_MODELS = {"BPE": BPE, "WordLevel": WordLevel, "WordPiece": WordPiece,
+           "Unigram": Unigram}
 
 
 # ---------------------------------------------------------------------------
@@ -956,13 +1073,25 @@ class TokenizerJSON:
 
     def post_process(self, ids: list[int]) -> list[int]:
         """The post-processor over one sequence: ``RobertaProcessing``
-        wraps it in its ``cls`` and ``sep`` ids."""
+        wraps it in its ``cls`` and ``sep`` ids; ``TemplateProcessing``
+        lays out its ``single`` template (``$A`` and special tokens)."""
         kind = (self._post or {}).get("type")
-        if kind != "RobertaProcessing":
-            raise ValueError(f"tokenizer.json: post-processor {kind!r} is "
-                             "not supported (this reader has "
-                             "RobertaProcessing)")
-        return [int(self._post["cls"][1]), *ids, int(self._post["sep"][1])]
+        if kind == "RobertaProcessing":
+            return [int(self._post["cls"][1]), *ids,
+                    int(self._post["sep"][1])]
+        if kind == "TemplateProcessing":
+            out: list[int] = []
+            for piece in self._post["single"]:
+                if "Sequence" in piece:
+                    out.extend(ids)
+                else:
+                    tok = piece["SpecialToken"]["id"]
+                    out.extend(int(i) for i in
+                               self._post["special_tokens"][tok]["ids"])
+            return out
+        raise ValueError(f"tokenizer.json: post-processor {kind!r} is not "
+                         "supported (this reader has RobertaProcessing and "
+                         "TemplateProcessing)")
 
     def _encode(self, text: str) -> list[int]:
         ids: list[int] = []

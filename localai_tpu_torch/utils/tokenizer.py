@@ -6,8 +6,14 @@ reads ``tokenizer.json`` with the port's own reader
 (``utils/hf_tokenizer.py``, stdlib only) where the JAX package imports
 ``tokenizers``: the card's machine has neither ``tokenizers`` nor
 ``transformers``. A checkpoint with a ``tokenizer_config.json`` and no
-``tokenizer.json`` (the JAX package hands it to ``transformers``) is
-refused here, naming the missing file.
+``tokenizer.json`` (the JAX package hands it to ``transformers``'
+``AutoTokenizer``) is read when it is a T5 tokenizer over a SentencePiece
+Unigram ``spiece.model`` / ``tokenizer.model``: ``utils/spm.py`` decodes
+the protobuf and builds the ``tokenizer.json`` that ``transformers``'
+``T5Converter`` builds (``extra_ids``, ``legacy`` and
+``add_prefix_space`` of ``tokenizer_config.json`` included). Any other
+such checkpoint (a BPE ``tokenizer.model``, another tokenizer class) is
+refused at load, naming what it has (ROADMAP §C 11).
 """
 
 from __future__ import annotations
@@ -56,13 +62,10 @@ class HFTokenizer:
     def __init__(self, model_dir: str | Path):
         model_dir = Path(model_dir)
         tok_json = model_dir / "tokenizer.json"
-        if not tok_json.exists():
-            raise ValueError(
-                f"{model_dir}: no tokenizer.json; the port reads a "
-                "checkpoint's tokenizer from tokenizer.json only (a "
-                "tokenizer.model / tokenizer_config.json-only tokenizer "
-                "needs transformers, which the port does not use)")
-        self._tok = TokenizerJSON.from_file(tok_json)
+        if tok_json.exists():
+            self._tok = TokenizerJSON.from_file(tok_json)
+        else:
+            self._tok = TokenizerJSON(sentencepiece_spec(model_dir))
         self.vocab_size = self._tok.vocab_size
         self._decode = self._tok.decode
         self._encode = self._tok.encode
@@ -121,6 +124,50 @@ class HFTokenizer:
         or None: ``tokenizers``' ``token_to_id``, which the JAX package's
         encoders ask for ``[CLS]``/``[SEP]``/``[PAD]``."""
         return self._tok.token_to_id(token)
+
+
+SPM_FILES = ("spiece.model", "tokenizer.model")
+T5_CLASSES = ("T5Tokenizer", "T5TokenizerFast")
+
+
+def sentencepiece_spec(model_dir: str | Path) -> dict:
+    """The ``tokenizer.json`` of a directory holding
+    ``tokenizer_config.json`` and a SentencePiece model but no
+    ``tokenizer.json``: T5's Unigram tokenizer as ``T5Converter`` builds
+    it. Anything else raises a ``ValueError`` naming it."""
+    import json
+
+    from localai_tpu_torch.utils import spm
+
+    model_dir = Path(model_dir)
+    found = [model_dir / n for n in SPM_FILES if (model_dir / n).exists()]
+    if not found:
+        raise ValueError(
+            f"{model_dir}: no tokenizer.json and no SentencePiece model "
+            f"({' or '.join(SPM_FILES)}); the port reads one of them")
+    cfg: dict = {}
+    p = model_dir / "tokenizer_config.json"
+    if p.exists():
+        cfg = json.loads(p.read_text(encoding="utf-8"))
+    model = spm.read_model(found[0].read_bytes())
+    if model.model_type != spm.UNIGRAM:
+        raise ValueError(
+            f"{found[0]}: a {spm.MODEL_TYPES.get(model.model_type, '?')} "
+            "SentencePiece model without tokenizer.json; the port reads "
+            "T5's Unigram model only (ROADMAP §C 11)")
+    cls = cfg.get("tokenizer_class")
+    if cls not in T5_CLASSES:
+        raise ValueError(
+            f"{model_dir}: tokenizer_class {cls!r} over a SentencePiece "
+            "model without tokenizer.json; the port builds "
+            f"{' / '.join(T5_CLASSES)} only (ROADMAP §C 11)")
+
+    def flag(key: str) -> bool:
+        return True if cfg.get(key) is None else bool(cfg[key])
+
+    return spm.t5_tokenizer_spec(
+        model, extra_ids=int(cfg.get("extra_ids", 100)),
+        legacy=flag("legacy"), add_prefix_space=flag("add_prefix_space"))
 
 
 def load_tokenizer(model_dir: str | Path) -> Tokenizer:

@@ -189,12 +189,15 @@ def test_decoders_and_lowercase():
 
 
 def test_post_processor_other_than_roberta_is_refused_when_asked():
+    """A post-processor the reader lacks (it has RobertaProcessing and,
+    since T5's tokenizers, TemplateProcessing) fails when asked for."""
     spec = {"model": {"type": "WordLevel", "vocab": {"a": 0, "[UNK]": 1},
                       "unk_token": "[UNK]"},
-            "post_processor": {"type": "TemplateProcessing"}}
+            "post_processor": {"type": "BertProcessing",
+                               "sep": ["[UNK]", 1], "cls": ["[UNK]", 1]}}
     tok = hft.TokenizerJSON(spec)
     assert tok.encode("a") == [0]
-    with pytest.raises(ValueError, match="TemplateProcessing"):
+    with pytest.raises(ValueError, match="BertProcessing"):
         tok.encode("a", add_special_tokens=True)
 
 

@@ -1504,6 +1504,56 @@ def test_cuda_image_generate_matches_the_cpu():
     assert {k: w.launches for k, w in kernels.items()} == before
 
 
+@pytest.mark.cuda
+def test_cuda_flux_matches_the_cpu():
+    """The smoke's FLUX parity phase: ``debug:flux-tiny``'s widths in
+    float32 (T5 with and without a mask, the MMDiT's velocity, a 3-step
+    generate and a 0.5-strength img2img from one seeded CPU draw) card =
+    CPU within 1e-4, pixels within 1; no kernel launched."""
+    _card()
+    import chip_smoke
+
+    kernels = chip_smoke._all_kernels()
+    before = {k: w.launches for k, w in kernels.items()}
+    errs = chip_smoke.phase_flux_parity()
+    assert max(v for k, v in errs.items() if not k.startswith("pixels")) \
+        <= 1e-4
+    assert {k: w.launches for k, w in kernels.items()} == before
+
+
+@pytest.mark.cuda
+def test_cuda_flux_tiny_preset_matches_the_cpu():
+    """``debug:flux-tiny`` as the router builds it, its weights drawn on
+    the CPU, the VAE and CLIP widened to float32, then copied to the card:
+    a 2-step generation and a 0.5-strength img2img, latents within 1e-4
+    of the CPU's, pixels within 1."""
+    _card()
+    import dataclasses
+
+    import chip_smoke
+    from localai_tpu_torch.image.loader import map_tree
+    from localai_tpu_torch.image.pipeline import resolve_image_model
+
+    pipes = {}
+    for dev in ("cpu", "cuda"):
+        p = resolve_image_model("debug:flux-tiny", device="cpu")
+        p.vae_cfg = dataclasses.replace(p.vae_cfg, dtype="float32")
+        p.clip_cfg = dataclasses.replace(p.clip_cfg, dtype="float32")
+        p.device = torch.device(dev)
+        for name in ("params", "vae_params", "clip_params", "t5_params"):
+            setattr(p, name, map_tree(getattr(p, name),
+                                      lambda t, d=dev: t.float().to(d)))
+        pipes[dev] = p
+    init = np.random.default_rng(4).integers(0, 256, (64, 64, 3), np.uint8)
+    for kw in ({}, {"init_image": init, "strength": 0.5}):
+        a = pipes["cuda"].generate("a fox", width=64, height=64, seed=2,
+                                   **kw)
+        b = pipes["cpu"].generate("a fox", width=64, height=64, seed=2,
+                                  **kw)
+        assert chip_smoke._rel_err(a.latents, b.latents) <= 1e-4
+        assert np.abs(a.image.astype(int) - b.image.astype(int)).max() <= 1
+
+
 # -- the engine observatory on the card (obs.device, /backend/trace) ----------
 
 

@@ -10,8 +10,8 @@ A LoRA in the kohya layout and in the diffusers/peft layout (linear, 3x3
 and 1x1 conv targets, text-encoder targets, alpha present and missing)
 merges to the JAX package's weights bit for bit, a ControlNet directory
 loads alike, a bfloat16 directory (which the JAX package's numpy reader
-cannot open) round-trips exactly on the port, and a FLUX layout or
-``debug:flux-tiny`` is refused at load, naming ROADMAP item 10 part 2.
+cannot open) round-trips exactly on the port, and a FLUX layout and
+``debug:flux-tiny`` route to the FLUX pipeline.
 """
 
 import json
@@ -252,20 +252,24 @@ def test_controlnet_directory_loads_alike(tmp_path, sdxl):
     assert hf["conditioning_embedding_out_channels"] == [8, 16]
 
 
-def test_flux_layouts_are_refused_by_name(tmp_path):
+def test_flux_layouts_route_to_flux(tmp_path):
+    """``debug:flux-tiny`` and a ``transformer/`` layout load as FLUX
+    pipelines (a LoRA dropped, as the JAX package drops it), the config
+    loads, and a ref with no layout is still a ``FileNotFoundError``
+    (the FLUX directory itself: tests/test_torch_flux.py)."""
     from localai_tpu_torch.config.model_config import ModelConfig
+    from localai_tpu_torch.image.flux import FluxPipeline
 
+    pipe = resolve_image_model("debug:flux-tiny", device="cpu",
+                               lora_adapter="x", lora_scale=0.5)
+    assert isinstance(pipe, FluxPipeline) and pipe.ref == "debug:flux-tiny"
+    assert ModelConfig.from_dict({"name": "f", "backend": "diffusers",
+                                  "model": "debug:flux-tiny"}).model == \
+        "debug:flux-tiny"
     flux = tmp_path / "flux"
     (flux / "transformer").mkdir(parents=True)
     (flux / "model_index.json").write_text("{}")
-    with pytest.raises(ValueError, match="ROADMAP item 10 part 2"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         resolve_image_model(str(flux), device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP item 10 part 2"):
-        resolve_image_model("flux", tmp_path, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP item 10 part 2"):
-        resolve_image_model("debug:flux-tiny", device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP item 10 part 2"):
-        ModelConfig.from_dict({"name": "f", "backend": "diffusers",
-                               "model": "debug:flux-tiny"})
     with pytest.raises(FileNotFoundError):
         resolve_image_model("missing", tmp_path, device="cpu")

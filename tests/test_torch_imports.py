@@ -357,6 +357,88 @@ def test_image_modules_are_covered():
             "image/pipeline.py", "api/images.py"} <= rel
 
 
+def test_flux_modules_are_covered():
+    """FLUX (T5, the MMDiT, the pipeline) and SentencePiece's formats
+    (``utils/spm.py``) are among the modules and sources the rules above
+    check."""
+    mods = set(_port_modules())
+    for m in ("image.t5", "image.mmdit", "image.flux", "utils.spm"):
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    assert {"image/t5.py", "image/mmdit.py", "image/flux.py",
+            "utils/spm.py"} <= rel
+
+
+def test_sentencepiece_model_needs_no_package_the_card_lacks(tmp_path):
+    """ROADMAP §C 11's Unigram half: in a fresh interpreter where
+    importing ``tokenizers``, ``transformers``, ``sentencepiece`` and
+    ``google.protobuf`` fails (as on the card's machine), a T5 directory
+    with ``spiece.model`` and ``tokenizer_config.json`` loads and
+    encodes, and none of them is imported."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from localai_tpu_torch.utils import spm
+
+    spec = chip_smoke.t5_unigram_spec(300, 5)
+    pieces = [spm.Piece(p, s, spm.CONTROL if p in ("<pad>", "</s>")
+                        else spm.UNKNOWN if p == "<unk>" else spm.NORMAL)
+              for p, s in spec["model"]["vocab"][:300]]
+    (tmp_path / "spiece.model").write_bytes(_model_proto(
+        pieces, spm.charsmap_bytes({"ｆ": "f"})))
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "T5Tokenizer", "extra_ids": 5}))
+    blocked = ("tokenizers", "transformers", "sentencepiece", "google",
+               "google.protobuf")
+    code = (
+        "import sys, json, importlib\n"
+        f"for name in {blocked!r}:\n"
+        "    sys.modules[name] = None\n"
+        "tok = importlib.import_module(sys.argv[1] + '.utils.tokenizer')\n"
+        "t = tok.load_tokenizer(sys.argv[2])\n"
+        "ids = t.encode('ｆast caches </s>')\n"
+        "print(json.dumps([type(t).__name__, t.vocab_size, ids[-1],\n"
+        "                  t.decode(ids)]))\n")
+    res = subprocess.run(
+        [sys.executable, "-c", code, PKG, str(tmp_path)], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert res.returncode == 0, res.stderr[-3000:]
+    name, size, last, text = json.loads(res.stdout.strip().splitlines()[-1])
+    assert (name, size, last) == ("HFTokenizer", 305, 1)
+    assert text == "fast caches</s>"
+
+
+def _model_proto(pieces, charsmap: bytes) -> bytes:
+    """A Unigram ``ModelProto`` (unk id 2) in protobuf's wire format,
+    written by hand."""
+    import struct
+
+    def varint(v: int) -> bytes:
+        out = bytearray()
+        while True:
+            b, v = v & 0x7F, v >> 7
+            out.append(b | (0x80 if v else 0))
+            if not v:
+                return bytes(out)
+
+    def field(num: int, wt: int, payload) -> bytes:
+        if wt == 0:
+            return varint(num << 3) + varint(payload)
+        if wt == 5:
+            return varint(num << 3 | 5) + payload
+        return varint(num << 3 | 2) + varint(len(payload)) + payload
+
+    data = b""
+    for p in pieces:
+        data += field(1, 2, field(1, 2, p.piece.encode())
+                      + field(2, 5, struct.pack("<f", p.score))
+                      + field(3, 0, p.type))
+    data += field(2, 2, field(3, 0, 1) + field(40, 0, 2))
+    data += field(3, 2, field(2, 2, charsmap))
+    return data
+
+
 def test_faults_and_batch_modules_are_covered():
     """Self-healing and the batch lane (the fault registry, the
     supervisor, the file and job stores, the executor, the files and

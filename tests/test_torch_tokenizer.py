@@ -454,13 +454,12 @@ def test_resolve_tokenizer_reads_no_weights(tok_dirs, tmp_path):
 UNSUPPORTED = [
     ("model", {"type": "WordPiece", "vocab": {"a": 0},
                "unk_token": "a"}, "WordPiece"),
-    ("model", {"type": "Unigram", "vocab": [["a", 0.0]]}, "Unigram"),
     ("normalizer", {"type": "BertNormalizer"}, "BertNormalizer"),
-    # Lowercase is read since the CLIP tokenizers need it; Precompiled
-    # (SentencePiece's, FLUX's T5) is not
-    ("normalizer", {"type": "Precompiled", "precompiled_charsmap": ""},
-     "Precompiled"),
+    # Lowercase is read since the CLIP tokenizers need it, Precompiled
+    # since FLUX's T5 does; SentencePiece's Nmt normalizer is not
+    ("normalizer", {"type": "Nmt"}, "Nmt"),
     ("pre_tokenizer", {"type": "Whitespace"}, "Whitespace"),
+    ("pre_tokenizer", {"type": "UnicodeScripts"}, "UnicodeScripts"),
     ("pre_tokenizer", {"type": "Split", "pattern": {"Regex": r"\p{Xx}"},
                        "behavior": "Isolated", "invert": False}, "Xx"),
     ("decoder", {"type": "WordPiece"}, "WordPiece"),
@@ -483,14 +482,19 @@ def test_unknown_component_is_refused_at_load(tmp_path, section, value,
 
 
 def test_config_only_directory_is_refused_at_load(tmp_path):
-    """ROADMAP §C (open): a checkpoint with ``tokenizer_config.json`` and
-    no ``tokenizer.json`` (a ``tokenizer.model`` of SentencePiece) goes to
-    ``transformers.AutoTokenizer`` in the reference; the port refuses it
-    at load, naming the missing file, instead of failing at the first
-    request."""
-    (tmp_path / "tokenizer_config.json").write_text("{}")
-    (tmp_path / "tokenizer.model").write_bytes(b"\x0a\x00")
-    with pytest.raises(ValueError, match="tokenizer.json"):
+    """ROADMAP §C 11, its open BPE half: a checkpoint with
+    ``tokenizer_config.json`` and no ``tokenizer.json`` whose
+    ``tokenizer.model`` is a SentencePiece BPE model (Llama-2's, Mistral's)
+    goes to ``transformers.AutoTokenizer`` in the reference; the port
+    refuses it at load, naming the model type and §C 11, instead of
+    failing at the first request (its Unigram half, T5's, is read:
+    tests/test_torch_spm.py)."""
+    (tmp_path / "tokenizer_config.json").write_text(
+        '{"tokenizer_class": "LlamaTokenizer"}')
+    # a ModelProto: one piece "a", trainer_spec.model_type = 2 (BPE)
+    (tmp_path / "tokenizer.model").write_bytes(
+        b"\x0a\x03\x0a\x01a\x12\x02\x18\x02")
+    with pytest.raises(ValueError, match=r"BPE .*tokenizer\.json.*§C 11"):
         port_tok.load_tokenizer(tmp_path)
 
 
