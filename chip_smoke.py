@@ -277,6 +277,33 @@ Phases (any failure raises and the script exits non-zero):
      ``/v1/files`` runs on the background lane beside two streamed chats,
      each line's text its interactive chat's (its wall, lines/s and the
      chats' TTFT printed).
+ 13. the tuning table, the vector store and the gallery:
+     ``autotune`` (after the K1 cases) runs ``tools.autotune``'s sweep at
+     its llama3-8b preset (hd 128, 8 kv heads, group 4, 4 slots, ctx 512)
+     over bf16, int8 and int4 pools at blocks 16/32/64/128, K1 and its
+     plain version captured in CUDA graphs whose replays are timed on
+     CUDA events, the fastest K1 point of each key installed (the
+     default block's where the two are within their runs' spread), each
+     kernel point held to its plain one (the K1
+     tolerances); ``gallery_serve`` (after the checkpoint serve, whose
+     Llama-3-8B checkpoint it keeps) serves a gallery index (an anchor
+     and ``!!merge <<:``), a definition YAML and the checkpoint's files
+     with their sha256 from a stdlib HTTP server in this process,
+     installs through ``/models/galleries``, ``/models/available``,
+     ``/models/apply`` and ``/models/jobs/{uuid}`` (a progress between 0
+     and 100 % seen), then, with ``LOCALAI_TUNE_CACHE`` at a table whose
+     ``hd128_kv8_bfloat16_tp1`` entry sets ``block_tokens`` 32, streams a
+     greedy chat on the installed name: one tuning-table hit in
+     ``/metrics``, the runner at bt 32, K1 L per decode step and K2–K5
+     none, the ids equal to the same checkpoint's served by path with
+     ``LOCALAI_KV_BLOCK_TOKENS=32``; ``/models/delete/{name}`` takes it
+     out of ``/v1/models``; K1 at bt 32 held to its plain version and
+     timed. ``stores`` puts 262144 keys of width 1024 (bge-large's) in a
+     store on the card and 1024 more over ``/stores/set``, then 64
+     ``/stores/find`` at topk 10 held to a float64 numpy top-k (the same
+     rows in the same order, one query on tied keys lower row first,
+     similarities within 1e-5); it prints the rebuild time, find p50/p99
+     and the store's bytes on the card.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -2833,7 +2860,7 @@ def phase_tokenizer_timing(ckpt: str) -> dict:
             "trie_nodes": trie.n_nodes, "trie_build_ms": trie_ms}
 
 
-def phase_serve_checkpoint(card: str) -> dict:
+def phase_serve_checkpoint(card: str, root: Optional[Path] = None) -> dict:
     """The eighth serve, ``llama3-8b-bf16-checkpoint``: a checkpoint
     directory with Meta-Llama-3-8B-Instruct's config.json (full widths and
     depth), seeded random bf16 weights, generation_config.json and the
@@ -2848,7 +2875,9 @@ def phase_serve_checkpoint(card: str) -> dict:
     prompt ids and the streamed deltas join to that chat's text; a chat
     whose logit_bias puts +100 on <|eot_id|> stops after one token with
     empty content; a ``tool_choice: required`` chat decodes inside its
-    DFA over the real vocabulary; K1 launches 32 per decode step."""
+    DFA over the real vocabulary; K1 launches 32 per decode step. With
+    ``root`` the checkpoint is written under it and kept (the gallery
+    serve serves its files); the caller removes it."""
     import os
     import pathlib
     import shutil
@@ -2862,7 +2891,9 @@ def phase_serve_checkpoint(card: str) -> dict:
         prefill_attention,
     )
 
-    root = pathlib.Path(_scratch_dir("checkpoint-serve-", 6_500_000_000))
+    keep = root is not None
+    if root is None:
+        root = pathlib.Path(_scratch_dir("checkpoint-serve-", 6_500_000_000))
     ckpt, models = root / "Meta-Llama-3-8B-Instruct", root / "models"
     saved_env = {k: os.environ.get(k) for k in (
         "LOCALAI_MODELS_PATH", "LOCALAI_API_KEYS", "LOCALAI_ADDRESS",
@@ -3076,7 +3107,10 @@ def phase_serve_checkpoint(card: str) -> dict:
         # drop this frame's references before collecting, so the model
         # does not outlive the phase
         server = manager = sm = tok = None
-        shutil.rmtree(root, ignore_errors=True)
+        if keep:
+            shutil.rmtree(models, ignore_errors=True)
+        else:
+            shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -8523,6 +8557,493 @@ def phase_image(card: str) -> dict:
     return rec
 
 
+# -- the tuning table's sweep, the gallery and the vector store ----------
+
+AUTOTUNE_DTYPES = ("bfloat16", "int8", "int4")
+AUTOTUNE_BLOCKS = (16, 32, 64, 128)
+AUTOTUNE_CTX = 512
+GALLERY = "smoke"
+GALLERY_MODEL = "llama3-8b-gallery"
+GALLERY_BLOCK = 32        # the table's block size for the gallery serve
+GALLERY_CHAT = {"messages": [{"role": "user", "content":
+                              "Name three rivers of Europe."}],
+                "max_tokens": 32, "temperature": 0}
+STORE_KEYS = 262144       # bge-large-en-v1.5's width: 1 GiB of f32 keys
+STORE_HTTP_KEYS = 1024
+STORE_DIM = 1024
+STORE_FINDS = 64
+STORE_TOPK = 10
+
+
+def phase_autotune(card: str) -> dict:
+    """``tools.autotune``'s sweep at its ``llama3-8b`` preset (head dim
+    128, 8 kv heads, group 4, 4 slots, a 512-row context) over bf16, int8
+    and int4 pools at blocks 16/32/64/128: K1 ("pallas", at one buffer
+    depth: it moves nothing on K1) and its plain version ("xla"), each
+    point's 10 calls captured once in a CUDA graph and its replays timed
+    on CUDA events, best of 3; the fastest K1 point of each key
+    installed, or the default block's where the two are within the
+    spread of their runs. Every kernel point's output is then held
+    against its plain version on the same inputs (bf16: per slot,
+    relative; float32 q over a scaled pool: absolute — the K1 cases'
+    tolerances). Prints the points, the table and each key's sweep
+    seconds; K2–K5 launch 0 in the sweep."""
+    import tempfile
+
+    from localai_tpu_torch.obs.metrics import REGISTRY
+    from localai_tpu_torch.ops import tuning
+    from localai_tpu_torch.ops.attention import paged_decode_attention_ref
+    from localai_tpu_torch.tools import autotune
+
+    hd, kv = autotune.PRESET_SHAPES["llama3-8b"]
+    kernels = _all_kernels()
+    for w in kernels.values():
+        w.launches = 0
+    path = os.path.join(tempfile.mkdtemp(prefix="autotune-"), "tuning.json")
+    table = tuning.TuningTable(path=path)
+    t0 = time.monotonic()
+    records = autotune.sweep(
+        [(hd, kv)], list(AUTOTUNE_DTYPES), [1],
+        block_candidates=list(AUTOTUNE_BLOCKS), buffer_candidates=[2],
+        impls=[autotune.PLAIN_IMPL, autotune.KERNEL_IMPL],
+        ctx=AUTOTUNE_CTX, interpret=False, table=table, device="cuda")
+    sweep_s = time.monotonic() - t0
+    launches = {k: w.launches for k, w in kernels.items()}
+    failed = [r for r in records if "error" in r]
+    if failed:
+        raise AssertionError(f"autotune: failed points {failed}")
+    # a point's wrapper calls: 2 warm-ups and the 10 captured calls (the
+    # graph's replays launch K1 without calling it)
+    want = len(AUTOTUNE_DTYPES) * len(AUTOTUNE_BLOCKS) * (2 + 10)
+    if launches != {**{k: 0 for k in kernels},
+                    "paged_decode_attention": want}:
+        raise AssertionError(f"autotune: launches {launches}, expected "
+                             f"{want} of K1 and none of another kernel")
+    checks = []
+    for dt in AUTOTUNE_DTYPES:
+        for bt in AUTOTUNE_BLOCKS:
+            inp = autotune.point_inputs(hd, kv, dt, block_tokens=bt,
+                                        ctx=AUTOTUNE_CTX, device="cuda")
+            out = autotune.point_fn(inp, autotune.KERNEL_IMPL)()
+            torch.cuda.synchronize()
+            q = inp["q"]
+            ref_kv = ((inp["k"], inp["v"]) if inp["k_scale"] is not None
+                      else (inp["k"].float(), inp["v"].float()))
+            ref = paged_decode_attention_ref(
+                q.float(), *ref_kv, inp["tables"], inp["positions"],
+                inp["k_scale"], inp["v_scale"])
+            err, ok = _check_rows(f"autotune-{dt}-bt{bt}", out, ref,
+                                  q.dtype)
+            checks.append({"kv_dtype": dt, "block_tokens": bt,
+                           "max_abs_err": err})
+            if not ok:
+                raise AssertionError(f"autotune: K1 at {dt} bt {bt} "
+                                     "disagrees with its plain version")
+    table.save()
+    tuning.reset()
+    back = tuning.TuningTable.load(path)
+    if back.entries != table.entries or len(back.entries) != len(
+            AUTOTUNE_DTYPES):
+        raise AssertionError(f"autotune: table {back.entries}")
+    for key, e in back.entries.items():
+        if e.impl != autotune.KERNEL_IMPL:
+            raise AssertionError(f"autotune: {key} installed {e}")
+    seconds = {dict(k)["key"]: v for k, v in
+               REGISTRY.autotune_sweep_seconds._series.items()}
+    out = {"card": card, "preset": "llama3-8b", "head_dim": hd,
+           "kv_heads": kv, "group": 4, "slots": 4, "ctx": AUTOTUNE_CTX,
+           "points": [r for r in records if "us" in r],
+           "table": {k: e.to_dict() for k, e in back.entries.items()},
+           "sweep_seconds": seconds, "sweep_s": sweep_s,
+           "k1_launches": launches["paged_decode_attention"],
+           "checks": checks}
+    print("autotune: " + json.dumps(out), flush=True)
+    return out
+
+
+def _quiet_files_server(root):
+    """A stdlib HTTP server of the files under ``root`` on a free
+    localhost port, serving on a thread of its own."""
+    import http.server
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def __init__(self, *a, **k):
+            super().__init__(*a, directory=str(root), **k)
+
+        def log_message(self, *a):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd
+
+
+def _metric(url: str, name: str, labels: str) -> float:
+    """A sample of ``/metrics`` (0 when the series is absent)."""
+    for line in _get(url + "/metrics")[1].decode().splitlines():
+        if line.startswith(f"{name}{{{labels}}} "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def _get_json(url: str):
+    return json.loads(_get(url)[1])
+
+
+def phase_gallery_serve(card: str, ckpt: Path) -> dict:
+    """A gallery install that ends in a chat on the card. A stdlib HTTP
+    server (in this process) serves a gallery index that defines an entry
+    with an anchor and derives the installed one with ``!!merge <<:``, a
+    definition YAML, and the files of the Llama-3-8B checkpoint that
+    ``phase_serve_checkpoint`` wrote (published widths, the depth of
+    ``SMOKE_LAYERS``), each with its sha256. Through the port's server
+    (``cli.main.build_server``): ``POST /models/galleries``, ``GET
+    /models/available`` (the entry listed, not installed), ``POST
+    /models/apply``, ``/models/jobs/{uuid}`` polled until processed with a
+    progress between 0 and 100 % seen on the way. With
+    ``LOCALAI_TUNE_CACHE`` at a table whose ``hd128_kv8_bfloat16_tp1``
+    entry sets ``block_tokens`` 32, the installed model loads (one lookup:
+    ``localai_autotune_lookups_total{result="hit"}`` rises by exactly 1 in
+    ``/metrics``, the runner's block size is 32) and streams a greedy
+    chat: K1 launches L per decode step, K2–K5 none; its token ids equal
+    those of the same checkpoint served by path with
+    ``LOCALAI_KV_BLOCK_TOKENS=32``. ``POST /models/delete/{name}`` then
+    takes the name out of ``/v1/models`` and the files off the disk. K1
+    at bt 32 is held against its plain version and timed."""
+    import concurrent.futures
+    import shutil
+
+    from localai_tpu_torch.cli.main import build_server
+    from localai_tpu_torch.ops import tuning
+    from localai_tpu_torch.utils.downloader import sha256_file
+
+    root = ckpt.parent
+    httpd = None
+    files = sorted(p for p in ckpt.iterdir() if p.is_file())
+    t0 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(len(files)) as ex:
+        shas = dict(zip(files, ex.map(sha256_file, files)))
+    sha_s = time.monotonic() - t0
+    total = sum(p.stat().st_size for p in files)
+    httpd = _quiet_files_server(root)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    gal = root / "gallery"
+    gal.mkdir(exist_ok=True)
+    (gal / "index.yaml").write_text(
+        "- &llama3\n"
+        "  name: llama3-8b-gallery-base\n"
+        "  description: \"Meta-Llama-3-8B-Instruct's widths, seeded "
+        "weights\"\n"
+        "  license: llama3\n"
+        f"  url: {base}/gallery/llama3.yaml\n"
+        "  tags:\n  - llm\n  - chat\n"
+        f"- !!merge <<: *llama3\n  name: {GALLERY_MODEL}\n")
+    lines = ["config_file:", f"  model: {ckpt.name}", "files:"]
+    for p in files:
+        lines += [f"  - filename: {ckpt.name}/{p.name}",
+                  f"    uri: {base}/{ckpt.name}/{p.name}",
+                  f"    sha256: {shas[p]}"]
+    (gal / "llama3.yaml").write_text("\n".join(lines) + "\n")
+    models = root / "gallery-models"
+    models.mkdir()
+    bypath = "llama3-8b-bf16-bypath"
+    (models / f"{bypath}.yaml").write_text(f"model: {ckpt}\n")
+    table = root / "tuning.json"
+    hf = json.loads((ckpt / "config.json").read_text())
+    hd = hf.get("head_dim") or hf["hidden_size"] // hf["num_attention_heads"]
+    key = tuning.shape_key(hd, hf["num_key_value_heads"], "bfloat16", 1)
+    tuning.TuningTable({key: tuning.TuneEntry(impl="pallas",
+                                              block_tokens=GALLERY_BLOCK)},
+                       path=str(table)).save()
+    saved_env = {k: os.environ.get(k) for k in (
+        "LOCALAI_MODELS_PATH", "LOCALAI_ADDRESS", "LOCALAI_PORT",
+        "LOCALAI_CONFIG_PATH", "LOCALAI_TUNE_CACHE", "LOCALAI_API_KEYS",
+        "LOCALAI_KV_BLOCK_TOKENS")}
+    server = sm = None
+    kernels = _all_kernels()
+    try:
+        os.environ.update({
+            "LOCALAI_MODELS_PATH": str(models),
+            "LOCALAI_ADDRESS": "127.0.0.1", "LOCALAI_PORT": "0",
+            "LOCALAI_CONFIG_PATH": str(root / "gallery-configuration"),
+            "LOCALAI_TUNE_CACHE": str(table)})
+        for k in ("LOCALAI_API_KEYS", "LOCALAI_KV_BLOCK_TOKENS"):
+            os.environ.pop(k, None)
+        tuning.reset()
+        server = build_server(["run"]).start()
+        url = server.url
+        added = json.loads(_post(url + "/models/galleries", {
+            "name": GALLERY, "url": f"{base}/gallery/index.yaml"}).read())
+        listed = {m["name"]: m for m in _get_json(url + "/models/available")}
+        entry = listed.get(GALLERY_MODEL)
+        if (added["name"] != GALLERY or entry is None
+                or entry["gallery"] != GALLERY or entry["installed"]
+                or entry["license"] != "llama3"
+                or entry["tags"] != ["llm", "chat"]):
+            raise AssertionError(f"gallery: /models/available lists "
+                                 f"{entry}")
+        t0 = time.monotonic()
+        job = json.loads(_post(url + "/models/apply", {
+            "id": f"{GALLERY}@{GALLERY_MODEL}"}).read())
+        partial, polls = [], 0
+        while True:
+            st = _get_json(url + job["status"])
+            polls += 1
+            if st["processed"]:
+                break
+            if 0.0 < st["progress"] < 100.0:
+                partial.append(st["progress"])
+            if time.monotonic() - t0 > 300:
+                raise AssertionError(f"gallery: install stuck at {st}")
+            time.sleep(0.05)
+        install_s = time.monotonic() - t0
+        if st["error"] or st["progress"] != 100.0 or not partial:
+            raise AssertionError(f"gallery: install ended {st}, partial "
+                                 f"progress seen {partial[:3]}")
+        names = {m["id"] for m in _get_json(url + "/v1/models")["data"]}
+        listed = {m["name"]: m for m in _get_json(url + "/models/available")}
+        if GALLERY_MODEL not in names or \
+                not listed[GALLERY_MODEL]["installed"]:
+            raise AssertionError(f"gallery: {GALLERY_MODEL} not served "
+                                 f"after its install ({sorted(names)})")
+        installed = models / ckpt.name
+        for p in files:
+            if (installed / p.name).stat().st_size != p.stat().st_size:
+                raise AssertionError(f"gallery: {p.name} not installed")
+        hit = 'result="hit"'
+        hits0 = _metric(url, "localai_autotune_lookups_total", hit)
+        t0 = time.monotonic()
+        sm = server.manager.get(GALLERY_MODEL)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        hits = _metric(url, "localai_autotune_lookups_total", hit) - hits0
+        if hits != 1 or sm.runner.block_tokens != GALLERY_BLOCK:
+            raise AssertionError(f"gallery: {hits} tuning-table hits, "
+                                 f"block_tokens {sm.runner.block_tokens}")
+
+        def greedy(name: str, model, stream: bool) -> dict:
+            handles: list = []
+
+            def recorded(req, _submit=model.scheduler.submit):
+                h = _submit(req)
+                handles.append(h)
+                return h
+
+            model.scheduler.submit = recorded
+            for w in kernels.values():
+                w.launches = 0
+            steps0 = model.runner.decode_steps
+            body = dict(GALLERY_CHAT, model=name, stream=stream)
+            t = time.monotonic()
+            ttft, text = None, ""
+            if stream:
+                with _post(url + "/v1/chat/completions", body) as r:
+                    for line in r:
+                        if not line.startswith(b"data: {"):
+                            continue
+                        d = json.loads(line[6:])["choices"][0]["delta"]
+                        if d.get("content"):
+                            ttft = ttft or time.monotonic() - t
+                            text += d["content"]
+            else:
+                text = json.loads(_post(url + "/v1/chat/completions",
+                                        body).read())["choices"][0][
+                    "message"]["content"]
+            wall = time.monotonic() - t
+            launches = {k: w.launches for k, w in kernels.items()}
+            steps = model.runner.decode_steps - steps0
+            L = model.runner.cfg.num_layers
+            want = {**{k: 0 for k in kernels},
+                    "paged_decode_attention": L * steps}
+            if steps <= 0 or launches != want or len(handles) != 1:
+                raise AssertionError(f"gallery: {name} launches {launches}"
+                                     f", expected {want}")
+            return {"ids": list(handles[0].token_ids), "text": text,
+                    "wall_s": wall, "ttft_s": ttft, "decode_steps": steps,
+                    "launches": launches,
+                    "verify_windows": model.runner.verify_windows}
+
+        served = greedy(GALLERY_MODEL, sm, stream=True)
+        server.manager.shutdown_model(GALLERY_MODEL, force=True)
+        sm = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.environ["LOCALAI_KV_BLOCK_TOKENS"] = str(GALLERY_BLOCK)
+        ref_model = server.manager.get(bypath)
+        if ref_model.runner.block_tokens != GALLERY_BLOCK:
+            raise AssertionError("gallery: the by-path model is not at "
+                                 f"bt {GALLERY_BLOCK}")
+        ref = greedy(bypath, ref_model, stream=False)
+        server.manager.shutdown_model(bypath, force=True)
+        ref_model = None
+        if served["ids"] != ref["ids"]:
+            raise AssertionError(f"gallery: installed ids {served['ids']} "
+                                 f"!= by-path ids {ref['ids']}")
+        t0 = time.monotonic()
+        job = json.loads(_post(url + f"/models/delete/{GALLERY_MODEL}",
+                               {}).read())
+        while not (st := _get_json(url + job["status"]))["processed"]:
+            if time.monotonic() - t0 > 120:
+                raise AssertionError(f"gallery: delete stuck at {st}")
+            time.sleep(0.05)
+        delete_s = time.monotonic() - t0
+        names = {m["id"] for m in _get_json(url + "/v1/models")["data"]}
+        if st["error"] or GALLERY_MODEL in names or installed.exists() \
+                or (models / f"{GALLERY_MODEL}.yaml").exists():
+            raise AssertionError(f"gallery: delete left {st} {names}")
+        case = kernel_case("gallery-bt32", torch.bfloat16,
+                           bt=GALLERY_BLOCK, MB=4096 // GALLERY_BLOCK,
+                           timed=True, seed=12)
+        out = {"card": card, "model": GALLERY_MODEL, "files": len(files),
+               "bytes": total, "sha256_s": sha_s, "install_s": install_s,
+               "install_gb_per_s": total / install_s / 1e9,
+               "progress_seen": [partial[0], partial[-1], len(partial)],
+               "polls": polls, "load_s": load_s, "tuning_hits": hits,
+               "tuning_key": key, "block_tokens": GALLERY_BLOCK,
+               "delete_s": delete_s,
+               "served": {k: v for k, v in served.items() if k != "ids"},
+               "ids_equal_by_path": True, "tokens": len(served["ids"])}
+        print("gallery serve: " + json.dumps(out), flush=True)
+        return {"launches": served["launches"], "k1_bt32": case,
+                "figures": out}
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tuning.reset()
+        if server is not None:
+            server.shutdown()
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        server = sm = None
+        shutil.rmtree(models, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_stores(card: str) -> dict:
+    """The vector store on the card at bge-large-en-v1.5's embedding
+    width: 262144 keys of width 1024 through ``VectorStore.set`` in
+    batches and 1024 more through ``POST /stores/set``, then 64 ``POST
+    /stores/find`` at ``topk`` 10, each held against a float64 numpy
+    cosine top-k on the host (lower row first on equal scores): the same
+    rows in the same order, similarities within 1e-5. One query points
+    along five stored keys that are power-of-two multiples of one vector
+    (equal scores to the last bit): they must come back lower row first.
+    Prints the set and rebuild times, find p50/p99 and the store's bytes
+    on the card; K1–K5 launch 0."""
+    import tempfile
+
+    from localai_tpu_torch.cli.main import build_server
+
+    kernels = _all_kernels()
+    for w in kernels.values():
+        w.launches = 0
+    rng = np.random.default_rng(23)
+    n = STORE_KEYS + STORE_HTTP_KEYS
+    keys = rng.standard_normal((n, STORE_DIM), dtype=np.float32)
+    tie = rng.standard_normal(STORE_DIM, dtype=np.float32)
+    tie_rows = tuple(int(STORE_KEYS * f) for f in (0.004, 0.19, 0.5, 0.76)
+                     ) + (STORE_KEYS + 7,)
+    for j, row in enumerate(tie_rows):
+        keys[row] = tie * np.float32(2.0 ** (j - 2))
+    models = tempfile.mkdtemp(prefix="stores-models-")
+    srv = build_server(["run", "--models-path", models, "--address",
+                        "127.0.0.1", "--port", "0"]).start()
+    try:
+        store = srv.manager.stores.get("default")
+        t0 = time.monotonic()
+        batch = 16384
+        for i in range(0, STORE_KEYS, batch):
+            j = min(i + batch, STORE_KEYS)
+            store.set(keys[i:j], [str(r).encode() for r in range(i, j)])
+        set_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        _post(srv.url + "/stores/set", {
+            "keys": keys[STORE_KEYS:].tolist(),
+            "values": [str(r) for r in range(STORE_KEYS, n)]}).read()
+        http_set_s = time.monotonic() - t0
+        if len(store) != n:
+            raise AssertionError(f"stores: {len(store)} keys, not {n}")
+        find = srv.url + "/stores/find"
+        t0 = time.monotonic()
+        _post(find, {"key": rng.standard_normal(STORE_DIM).tolist(),
+                     "topk": STORE_TOPK}).read()
+        first_s = time.monotonic() - t0
+        rebuild_s = store.last_rebuild_s
+        nbytes = store.device_bytes()
+        # queries: noisy copies of stored keys, fresh random ones, and
+        # the tied direction
+        queries = []
+        for i in range(STORE_FINDS - 1):
+            if i % 2:
+                q = rng.standard_normal(STORE_DIM)
+            else:
+                q = keys[rng.integers(n)] + 0.3 * rng.standard_normal(
+                    STORE_DIM)
+            queries.append(q.astype(np.float32))
+        queries.insert(STORE_FINDS // 2, tie)
+        walls, answers = [], []
+        for q in queries:
+            t = time.monotonic()
+            answers.append(json.loads(_post(find, {
+                "key": q.tolist(), "topk": STORE_TOPK}).read()))
+            walls.append(time.monotonic() - t)
+        # the float64 reference on the host
+        mat = keys.astype(np.float64)
+        norms = np.linalg.norm(mat, axis=1)
+        qs = np.stack(queries).astype(np.float64)
+        qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+        sims = (mat @ qs.T) / norms[:, None]
+        gaps = []
+        rows = np.arange(n)
+        for j, ans in enumerate(answers):
+            col = sims[:, j]
+            # score first, then the lower row (scores equal to 1e-12 tie)
+            order = np.lexsort((rows, -np.round(col, 12)))[:STORE_TOPK + 1]
+            want = [str(r) for r in order[:STORE_TOPK]]
+            if j != STORE_FINDS // 2:     # not the tied query
+                gaps.append(float(np.min(-np.diff(col[order]))))
+            if ans["values"] != want:
+                raise AssertionError(f"stores: find {j} gave rows "
+                                     f"{ans['values']}, float64 {want}")
+            err = np.max(np.abs(np.asarray(ans["similarities"])
+                                - col[order[:STORE_TOPK]]))
+            if err > 1e-5:
+                raise AssertionError(f"stores: find {j} similarities off "
+                                     f"by {err}")
+            got = np.asarray(ans["keys"], np.float32)
+            if not np.array_equal(got, keys[order[:STORE_TOPK]]):
+                raise AssertionError(f"stores: find {j} keys differ")
+        tie_ans = answers[STORE_FINDS // 2]["values"][:len(tie_rows)]
+        if tie_ans != [str(r) for r in sorted(tie_rows)]:
+            raise AssertionError(f"stores: tied keys came back {tie_ans}")
+        _no_launches("phase_stores", kernels)
+        ms = sorted(w * 1e3 for w in walls)
+        out = {"card": card, "keys": n, "dim": STORE_DIM,
+               "capacity_rows": nbytes // (STORE_DIM * 4 + 5),
+               "device_bytes": nbytes, "set_s": set_s,
+               "http_set_1024_s": http_set_s, "first_find_s": first_s,
+               "rebuild_s": rebuild_s, "finds": len(walls),
+               "find_ms_p50": ms[len(ms) // 2],
+               "find_ms_p99": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+               "min_f64_gap_top11": min(gaps),
+               "tie_rows": list(tie_rows)}
+        print("stores: " + json.dumps(out), flush=True)
+        return out
+    finally:
+        srv.manager.stores.drop("default")
+        srv.shutdown()
+        srv = None
+        shutil.rmtree(models, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _entry(name, source, replaces, launches, rec) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -8535,6 +9056,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
+    # no tuning table in HOME moves a serve's block size: the serves run
+    # at the block sizes they name (phase_gallery_serve sets its own)
+    os.environ["LOCALAI_TUNE_CACHE"] = "0"
     # float32 products in full float32 on the card, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8563,6 +9087,7 @@ def main() -> int:
               f"{sum(int(x) > 0 for x in spills)} with spill stores",
               flush=True)
     k1 = phase_kernel()
+    phase_autotune(card)
     attn = phase_attention()
     qmm = phase_qmatmul()
     phase_w8a8()
@@ -8604,7 +9129,19 @@ def main() -> int:
         phase_entry_point(card, ckpt_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
-    served["checkpoint"] = phase_serve_checkpoint(card)["launches"]
+    # the checkpoint serve writes the Llama-3-8B checkpoint once; the
+    # gallery serve installs it over HTTP and serves it from the table's
+    # block size
+    ckpt_root = Path(_scratch_dir("checkpoint-serve-", 13_000_000_000))
+    try:
+        served["checkpoint"] = phase_serve_checkpoint(
+            card, root=ckpt_root)["launches"]
+        gallery = phase_gallery_serve(
+            card, ckpt_root / "Meta-Llama-3-8B-Instruct")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    served["gallery"] = gallery["launches"]
+    phase_stores(card)
     t_qwen = time.monotonic()
     served["qwen"] = phase_serve_qwen(card)["launches"]
     print(f"group-7 serve: {time.monotonic() - t_qwen:.1f}s", flush=True)
@@ -8746,6 +9283,12 @@ def main() -> int:
                "localai_tpu/ops/attention.py:337",
                group_parity["g7-contiguous-float32"]["prefill_attention"],
                groups_k["k3"]),
+        # the gallery-installed Llama-3-8B, served at the tuning table's
+        # block size of 32: K1 once per layer per decode step; times of
+        # K1 at bt 32 (8 slots, contexts to 4096)
+        _entry("paged_decode_attention_gallery", k1_src, k1_tpu,
+               served["gallery"]["paged_decode_attention"],
+               gallery["k1_bt32"]),
     ]
     print(f"smoke wall: {time.monotonic() - t_smoke:.1f}s")
     print(json.dumps({"kernels": kernels}))

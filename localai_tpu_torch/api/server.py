@@ -27,6 +27,11 @@ under the JAX package's unversioned alias:
     (``api.assistants``, each also unversioned)
   * POST /v1/batches, /v1/batches/{batch_id}/cancel; GET /v1/batches,
     /v1/batches/{batch_id} (``api.batches``)
+  * POST /stores/set, /stores/get, /stores/delete, /stores/find
+    (``api.stores``; the vector stores on the app's device)
+  * POST /models/apply, /models/delete/{name}; GET /models/available,
+    /models/jobs, /models/jobs/{uuid}; GET/POST/DELETE /models/galleries
+    (``api.gallery``; DELETE takes a JSON body, as on the JAX package)
 One thread per connection; each request blocks its own thread on the
 scheduler handle while the engine thread batches all of them. A request
 body is read up to ``MAX_BODY_BYTES`` (64 MiB, the JAX package's
@@ -69,8 +74,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from localai_tpu_torch import faults
 from localai_tpu_torch.api import assistants, audio, batches, debug, images
+from localai_tpu_torch.api import gallery as gallery_api
 from localai_tpu_torch.api import inference as inf
 from localai_tpu_torch.api import jina
+from localai_tpu_torch.api import stores as stores_api
 from localai_tpu_torch.api import localai as la
 from localai_tpu_torch.api import openai as oa
 from localai_tpu_torch.api import traces
@@ -82,6 +89,7 @@ from localai_tpu_torch.obs import profiler as obs_profiler
 from localai_tpu_torch.obs import slo as obs_slo
 from localai_tpu_torch.obs import trace as obs_trace
 from localai_tpu_torch.obs.metrics import REGISTRY
+from localai_tpu_torch.stores import StoreRegistry
 
 log = logging.getLogger(__name__)
 
@@ -99,7 +107,8 @@ _POST = {"/v1/chat/completions": oa.chat, "/chat/completions": oa.chat,
          "/v1/sound-generation": audio.sound_generation,
          "/sound-generation": audio.sound_generation,
          "/v1/images/generations": images.generations,
-         **assistants.UPLOAD, **batches.POST, **debug.POST}
+         **assistants.UPLOAD, **batches.POST, **debug.POST,
+         **stores_api.POST, **gallery_api.POST}
 # POST routes whose body is multipart/form-data (the handler takes the
 # parsed fields), not JSON
 _MULTIPART = {"/v1/audio/transcriptions", *assistants.UPLOAD}
@@ -113,8 +122,8 @@ _GET = {"/v1/models": oa.list_models, "/models": oa.list_models,
         "/backend/metrics": la.engine_metrics,
         "/v1/slo": la.slo_report, "/v1/usage": la.usage,
         "/v1/traces": traces.list_traces, **debug.GET, **assistants.GET,
-        **batches.GET}
-_DELETE = {**debug.DELETE}
+        **batches.GET, **gallery_api.GET}
+_DELETE = {**debug.DELETE, **gallery_api.DELETE_BODY}
 
 
 def _param_routes(routes) -> list:
@@ -128,10 +137,11 @@ _GET_PARAM = _param_routes((
     ("/v1/traces/{trace_id}", traces.trace_detail),
     ("/debug/timeline/{request_id}", traces.timeline),
     ("/generated-images/{name}", images.serve_generated),
-    *debug.GET_PARAM, *assistants.GET_PARAM, *batches.GET_PARAM))
+    *debug.GET_PARAM, *assistants.GET_PARAM, *batches.GET_PARAM,
+    *gallery_api.GET_PARAM))
 _POST_PARAM = _param_routes((
     ("/v1/text-to-speech/{voice_id}", audio.elevenlabs_tts),
-    *batches.POST_PARAM))
+    *batches.POST_PARAM, *gallery_api.POST_PARAM))
 _DELETE_PARAM = _param_routes(assistants.DELETE_PARAM)
 # paths reachable without an API key (the JAX package's AUTH_EXEMPT; the
 # web UI's own exemptions come with the UI, ROADMAP item 22)
@@ -343,9 +353,18 @@ class _Handler(BaseHTTPRequestHandler):
         parameters (the last value of each) and the path parameters."""
         if route is None:
             return self._error(404, f"no route {self.path}")
-        _, fn, params = route
+        canonical, fn, params = route
         qs = self.path.partition("?")[2]
         query = {k: v[-1] for k, v in urllib.parse.parse_qs(qs).items()}
+        if self.command == "DELETE" and canonical in gallery_api.DELETE_BODY:
+            # the JAX package's DELETE with a JSON body
+            try:
+                n = int(self.headers.get("Content-Length") or 0)
+                query = json.loads(self.rfile.read(n) or b"{}")
+                if not isinstance(query, dict):
+                    raise ValueError("body must be a JSON object")
+            except ValueError:
+                return self._error(400, "invalid JSON body")
         try:
             out = fn(self.server.manager, query, *params)
         except oa.APIError as e:
@@ -429,6 +448,10 @@ class APIServer:
         # /v1/files + /v1/batches: the registry and the job store, reloaded
         # from upload_path (jobs that survived a restart resume now)
         manager.batch_state = batches.BatchState(app, manager)
+        # /stores/*: the vector stores, on the app's device; /models/*:
+        # the galleries and the install job runner
+        manager.stores = StoreRegistry(device=app.device)
+        manager.gallery = gallery_api.GalleryState(app, manager.loader)
         self._httpd = _HTTPServer((address, port), manager)
         self.address, self.port = self._httpd.server_address[:2]
         self._thread: threading.Thread | None = None
@@ -459,4 +482,5 @@ class APIServer:
         # the executor stops before the engines: an in-progress job stays
         # durable and resumes from its output file at the next boot
         self.manager.batch_state.shutdown()
+        self.manager.gallery.shutdown()
         self.manager.shutdown()

@@ -4,6 +4,9 @@ Port of ``localai_tpu/cli/main.py`` for what the port has:
 
   run [MODEL ...]            serve the OpenAI-compatible API (the default)
   models list                the configured models
+  models available           models of the galleries, the shipped index
+                             and the embedded library (``--galleries``)
+  models install REF         install a gallery model, short name or URL
   tokenize TEXT --model M    token ids, through the model's tokenizer only
   util checkpoint-info PATH  tensor names, dtypes and shapes of safetensors
   util scan                  pickle-format weights under the models dir
@@ -17,8 +20,11 @@ Port of ``localai_tpu/cli/main.py`` for what the port has:
 ``run`` takes the JAX package's flags with their defaults, each also read
 from ``LOCALAI_<NAME>`` (``_env_default``), then builds the settings as
 the JAX package does: ``AppConfig.from_env`` overridden by the flags.
-``--device cpu`` is the port's own (the card is the default), and so is
-it on ``tts``, ``transcript`` and ``sound-generation``, which take the
+``--device cpu`` is the port's own (the card is the default);
+``--platform`` is read as the JAX package reads it: ``cpu`` runs on the
+CPU, ``cuda``/``gpu`` on the card, and any other value, or one that
+contradicts ``--device``, exits 2 naming it. ``--device`` is also
+on ``tts``, ``transcript`` and ``sound-generation``, which take the
 JAX package's flags: the JAX package runs those three on the CPU
 (``JAX_PLATFORMS=cpu``), the port on the card unless asked. The SLO
 flags (``--slo-ttft-p95-ms``, ``--slo-tpot-p95-ms``, ``--slo-e2e-p95-ms``,
@@ -26,10 +32,8 @@ flags (``--slo-ttft-p95-ms``, ``--slo-tpot-p95-ms``, ``--slo-e2e-p95-ms``,
 ``LOCALAI_SLO_*`` variable stands) reach the SLO observatory through
 ``AppConfig``. ``--batch-concurrency`` and ``--batch-expiry-h`` reach the batch
 executor through ``AppConfig``. A flag or variable of a feature the port
-has not yet (fleets, autoscaling, meshes, the JAX platform) stops
-``run`` with exit code 2 and the ROADMAP item that brings it; none is
-dropped silently. ``models install|available`` wait for the gallery
-(ROADMAP item 21).
+has not yet (fleets, autoscaling, meshes) stops ``run`` with exit code
+2 and the ROADMAP item that brings it; none is dropped silently.
 
 :func:`build_server` builds the settings, the model registry, the config
 watcher and the bound server from ``argv`` and the environment;
@@ -39,6 +43,7 @@ watcher and the bound server from ``argv`` and the environment;
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -93,10 +98,8 @@ UNPORTED_RUN_FLAGS = {
     "--autoscale-zero-idle-s": ("autoscale_zero_idle_s", 0.0, 23),
     "--autoscale-standby-hosts": ("autoscale_standby_hosts", [], 23),
     "--mesh": ("mesh_shape", None, 19),
-    "--platform": ("platform", None, 11),
 }
-_WHAT = {11: "device plumbing (the port takes --device instead)",
-         19: "multi-GPU parallelism",
+_WHAT = {19: "multi-GPU parallelism",
          23: "fleets, autoscaling and the worker tier"}
 
 
@@ -153,11 +156,14 @@ def build_parser() -> argparse.ArgumentParser:
                           "expiry cancels the generation and frees its "
                           "decode slot (default 600)")
     # the port's own: LOCALAI_DEVICE only, never a bare DEVICE variable
-    run.add_argument("--device", default=os.environ.get("LOCALAI_DEVICE",
-                                                        "cuda"),
-                     choices=("cuda", "cpu"),
-                     help="the card (default), or the CPU for small debug "
-                          "models and tests")
+    # (None here: not given; run_device resolves it with --platform)
+    run.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                     help="the card (default; LOCALAI_DEVICE), or the CPU "
+                          "for small debug models and tests")
+    # the JAX package's platform switch, read as it reads it: cpu runs on
+    # the CPU, cuda/gpu on the card; any other platform exits 2
+    run.add_argument("--platform", default=_env_default("platform", None),
+                     help="cpu, or cuda/gpu (the card); as --device")
     # offline batch subsystem (batch/): background-lane settings
     run.add_argument("--batch-concurrency", type=int, default=None,
                      help="max in-flight batch lines on the scheduler's "
@@ -172,7 +178,7 @@ def build_parser() -> argparse.ArgumentParser:
         if isinstance(default, bool):
             run.add_argument(flag, action="store_true",
                              default=_env_bool(name))
-        elif fld in ("mesh_shape", "platform"):
+        elif fld == "mesh_shape":
             run.add_argument(flag, default=_env_default(name, None))
         else:
             run.add_argument(
@@ -186,10 +192,17 @@ def build_parser() -> argparse.ArgumentParser:
     models_sub = models.add_subparsers(dest="models_command")
     mlist = models_sub.add_parser("list", help="list configured models")
     mlist.add_argument("--models-path", default="models")
-    for name in ("install", "available"):
-        m = models_sub.add_parser(name, help="not ported yet (ROADMAP "
-                                             "item 21: the gallery)")
-        m.add_argument("rest", nargs=argparse.REMAINDER)
+    minstall = models_sub.add_parser(
+        "install", help="install from gallery/embedded library/URL")
+    minstall.add_argument("ref", help="name, gallery@name, or URL")
+    minstall.add_argument("--models-path", default="models")
+    minstall.add_argument("--name", default="", help="install under this name")
+    minstall.add_argument("--galleries", default="",
+                          help="JSON list of {name,url} galleries")
+    mavail = models_sub.add_parser(
+        "available", help="list models available to install")
+    mavail.add_argument("--models-path", default="models")
+    mavail.add_argument("--galleries", default="")
 
     tok = sub.add_parser("tokenize", help="tokenize text with a model")
     tok.add_argument("text")
@@ -355,6 +368,30 @@ def _unported_settings(args) -> list[str]:
     return out
 
 
+# --platform's values and the device each names
+PLATFORM_DEVICES = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+
+
+def run_device(args) -> str:
+    """The run command's device: ``--device`` (else ``LOCALAI_DEVICE``)
+    and ``--platform`` (else ``LOCALAI_PLATFORM`` / ``PLATFORM``), the
+    card when neither is set. Raises ValueError for a platform the port
+    does not run on, or one that contradicts the device."""
+    device = args.device or os.environ.get("LOCALAI_DEVICE") or None
+    plat = args.platform
+    if not plat:
+        return device or "cuda"
+    want = PLATFORM_DEVICES.get(str(plat).lower())
+    if want is None:
+        raise ValueError(f"--platform {plat!r}: the port runs on "
+                         f"{'/'.join(PLATFORM_DEVICES)} (a CUDA card or the "
+                         "CPU)")
+    if device and device != want:
+        raise ValueError(f"--platform {plat!r} contradicts --device "
+                         f"{device!r}")
+    return want
+
+
 def _setup_logging(level: str, fmt: str) -> None:
     """The root logger in ``fmt`` (text, or one JSON object a line with
     the request's trace id, ``obs.logging``)."""
@@ -393,7 +430,7 @@ def app_config(args) -> AppConfig:
         # None = flag not given → LOCALAI_BATCH_* stands
         batch_concurrency=args.batch_concurrency,
         batch_expiry_h=args.batch_expiry_h,
-        device=args.device,
+        device=run_device(args),
     )
 
 
@@ -413,7 +450,10 @@ def build_server(argv: Optional[Sequence[str]] = None) -> APIServer:
     refused = _unported_settings(args)
     if refused:
         parser.error("; ".join(refused))
-    cfg = app_config(args)
+    try:
+        cfg = app_config(args)
+    except ValueError as e:
+        parser.error(str(e))
     resolve_device(cfg.device)   # no card and no --device cpu: fail now
     loader = ConfigLoader(cfg.model_path)
     loader.load_from_path(context_size=cfg.context_size)
@@ -431,6 +471,45 @@ def build_server(argv: Optional[Sequence[str]] = None) -> APIServer:
     log.info("serving %s on %s (device %s)", loader.names(), server.url,
              cfg.device)
     return server
+
+
+def _models_gallery(args, parser) -> int:
+    """``models available`` lists the galleries' models, the shipped
+    index and the embedded library; ``models install REF`` installs one
+    into ``--models-path``, printing per-file progress."""
+    from localai_tpu_torch.gallery import (
+        EMBEDDED_MODELS,
+        Gallery,
+        available_models,
+        install_model,
+        resolve_ref,
+    )
+
+    galleries = [Gallery(name=g["name"], url=g["url"])
+                 for g in (json.loads(args.galleries)
+                           if args.galleries else [])]
+    if args.models_command == "available":
+        for m in available_models(galleries, args.models_path):
+            mark = "*" if m.installed else " "
+            print(f"{mark} {m.id}\t{m.description}")
+        for name, m in sorted(EMBEDDED_MODELS.items()):
+            print(f"  embedded@{name}\t{m.description}")
+        return 0
+    ref = args.ref
+    model = resolve_ref(galleries, ref, name=args.name)
+    if model is None:
+        parser.error(f"model {ref!r} not found in embedded library "
+                     "or configured galleries")
+
+    def progress(fn, done, total):
+        pct = f"{100.0 * done / total:5.1f}%" if total else "?"
+        print(f"\r{fn}: {pct}", end="", flush=True)
+
+    path = install_model(model, args.models_path,
+                         install_name=args.name or model.name,
+                         progress=progress)
+    print(f"\ninstalled → {path}")
+    return 0
 
 
 def _checkpoint_info(args, parser) -> int:
@@ -524,8 +603,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 print(name)
             return 0
         if args.models_command in ("install", "available"):
-            parser.error(f"models {args.models_command} is not ported yet "
-                         "(ROADMAP item 21: the gallery)")
+            return _models_gallery(args, parser)
         parser.error("unknown models subcommand")
     if cmd == "tokenize":
         from localai_tpu_torch.models.registry import resolve_tokenizer

@@ -4,10 +4,10 @@ Port of ``localai_tpu/config/app_config.py``: every field a ported
 feature reads, with the JAX package's defaults, each also read from
 ``LOCALAI_<FIELD>`` by :meth:`AppConfig.from_env`. ``device`` is the
 port's own (the card unless ``cpu`` is asked for), read from
-``LOCALAI_DEVICE`` alike. The fields of features the port has not yet
-(fleets, autoscaling, meshes, the JAX platform) are not here:
-``cli/main.py`` refuses their flags and variables rather than dropping
-them.
+``LOCALAI_DEVICE`` alike (``--platform`` is read into it by the CLI).
+The fields of features the port has not yet (fleets, autoscaling,
+meshes) are not here: ``cli/main.py`` refuses their flags and variables
+rather than dropping them.
 """
 
 from __future__ import annotations
@@ -41,7 +41,11 @@ class AppConfig:
     opaque_errors: bool = False
     upload_limit_mb: int = 15       # the largest /v1/files upload
 
-    # model management
+    # model management: the galleries ({name, url} each) the /models/*
+    # routes and preload resolve refs in; autoload_galleries is the JAX
+    # package's field, read and moving nothing there as here
+    galleries: list[dict] = field(default_factory=list)
+    autoload_galleries: bool = True
     preload_models: list[str] = field(default_factory=list)
     load_to_memory: list[str] = field(default_factory=list)
     context_size: int = 4096        # default when a model sets none
@@ -97,6 +101,9 @@ class AppConfig:
                 value = env.lower() in ("1", "true", "yes", "on")
             elif f.type == "list[str]":
                 value = [s for s in env.split(",") if s]
+            elif f.type == "list[dict]":
+                continue    # not read from the environment (as the JAX
+                            # package: no LOCALAI_GALLERIES)
             else:
                 value = env
             setattr(cfg, f.name, value)

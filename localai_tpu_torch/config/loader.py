@@ -1,7 +1,8 @@
 """Model-config registry: load YAML files from a models dir.
 
 Port of ``localai_tpu/config/loader.py`` (single-document files and whole
-dirs). Files are read by the port's own YAML reader
+dirs; ``load_single`` and ``remove`` keep it in step with gallery installs
+and deletes). Files are read by the port's own YAML reader
 (``config.yaml_subset``, PyYAML's ``safe_load`` meaning, stdlib only), in
 every environment. Each config then goes through backend and chat-default
 autodetection (``models.detect.autodetect_config``), as on the JAX
@@ -59,6 +60,18 @@ class ConfigLoader:
                 raise ValueError(f"{entry}: {e}") from None
             self.register(cfg)
 
+    def load_single(self, path: str | Path,
+                    context_size: int = 4096) -> ModelConfig:
+        """Register one config file (a gallery install's), named by its
+        ``name:`` or else its file stem."""
+        cfg = load_config_file(path)
+        if not cfg.name:
+            cfg.name = Path(path).stem
+        cfg.set_defaults(context_size=context_size)
+        self._autodetect(cfg)
+        self.register(cfg)
+        return cfg
+
     def _autodetect(self, cfg: ModelConfig) -> None:
         """Backend selection for bare ``model:`` configs by checkpoint
         sniff, and the family's chat defaults (``models/detect.py``); the
@@ -77,6 +90,14 @@ class ConfigLoader:
     def register(self, cfg: ModelConfig) -> None:
         with self._lock:
             self._configs[cfg.name] = cfg
+
+    def remove(self, name: str) -> None:
+        with self._lock:
+            self._configs.pop(name, None)
+
+    def exists(self, name: str) -> bool:
+        with self._lock:
+            return name in self._configs
 
     def get(self, name: str) -> Optional[ModelConfig]:
         with self._lock:

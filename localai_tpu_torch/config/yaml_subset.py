@@ -12,6 +12,12 @@ PyYAML's ``safe_load`` gives it:
   * plain, single- and double-quoted scalars over one or several lines
     (folded as PyYAML folds them), with YAML's double-quote escapes;
   * flow sequences and flow mappings, over one or several lines;
+  * anchors (``&a``) and aliases (``*a``), an alias giving the anchored
+    node's value (an undefined or a second definition raises, as in
+    PyYAML);
+  * merge keys, ``<<:`` or ``!!merge <<:``, of a mapping or a sequence of
+    mappings (the first mapping of a sequence wins, a later merge key over
+    an earlier one, explicit keys over all), with PyYAML's key order;
   * comments, a leading ``---`` and a closing ``...``.
 
 Plain scalars resolve as PyYAML's ``SafeLoader`` resolves them (YAML 1.1):
@@ -21,15 +27,20 @@ value are None, and the int and float patterns are PyYAML's own (so
 scanning rules (folding, block scalar indentation and chomping, the end
 of a plain scalar) follow PyYAML's scanner line by line.
 
-Anything else — anchors, aliases, tags, directives, several documents,
-complex (``?``) keys, merge keys, timestamps — raises a ``ValueError``
-that names the line: the reader never guesses.
+Anything else — a tag other than ``!!merge`` on a mapping key,
+directives, several documents, complex (``?``) keys, timestamps — raises
+a ``ValueError`` that names the line: the reader never guesses.
+
+``safe_dump`` writes the values model configs hold (mappings, sequences,
+strings — multi-line ones as literal block scalars —, numbers, booleans,
+None) as block YAML that both this reader and PyYAML's ``safe_load`` read
+back to the object dumped.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any
+from typing import Any, Optional
 
 _WS_END = "\0 \t\n"          # what may follow ':' or '-' as an indicator
 _FLOW_IND = ",[]{}"
@@ -58,6 +69,11 @@ _ESCAPES = {"0": "\0", "a": "\x07", "b": "\x08", "t": "\t", "\t": "\t",
             " ": " ", '"': '"', "\\": "\\", "/": "/", "N": "\x85",
             "_": "\xa0", "L": "\u2028", "P": "\u2029"}
 _ESCAPE_CODES = {"x": 2, "u": 4, "U": 8}
+# an anchor's or alias's name (PyYAML's scan_anchor) and what may end it
+_ANCHOR_NAME = re.compile(r"[0-9A-Za-z_-]+")
+_ANCHOR_END = "\0 \t\n?:,]}%@`"
+# the merge key of a flow mapping, apart from a plain "<<" value
+_MERGE = object()
 
 
 def safe_load(text: str) -> Any:
@@ -137,6 +153,7 @@ class _Reader:
         self.s = text
         self.i = 0
         self.flow = 0
+        self.anchors: dict[str, Any] = {}
 
     # -- positions -----------------------------------------------------
 
@@ -208,12 +225,6 @@ class _Reader:
 
     def refuse_indicator(self) -> None:
         ch = self.peek()
-        if ch == "&":
-            self.fail("anchors (&) are not supported by the port's YAML "
-                      "reader")
-        if ch == "*":
-            self.fail("aliases (*) are not supported by the port's YAML "
-                      "reader")
         if ch == "!":
             self.fail("tags (!) are not supported by the port's YAML "
                       "reader")
@@ -222,6 +233,81 @@ class _Reader:
                       "YAML reader")
         if ch in "%@`":
             self.fail(f"{ch!r} cannot start a value")
+
+    # -- anchors, aliases, merge keys -----------------------------------
+
+    def anchor_name(self, what: str) -> str:
+        """The name after '&' or '*' (here)."""
+        self.i += 1
+        m = _ANCHOR_NAME.match(self.s, self.i)
+        if m is None or (m.end() < len(self.s)
+                         and self.s[m.end()] not in _ANCHOR_END):
+            self.fail(f"expected alphabetic or numeric characters in an "
+                      f"{what}")
+        self.i = m.end()
+        return m.group()
+
+    def properties(self) -> tuple[Any, Any]:
+        """A node's anchor and tag (either order), and the spaces after
+        them; (None, None) when neither is here."""
+        anchor = tag = None
+        while self.peek() in "&!":
+            if self.peek() == "&":
+                if anchor is not None:
+                    self.fail("a node has two anchors")
+                anchor = self.anchor_name("anchor")
+            else:
+                if tag is not None:
+                    self.fail("a node has two tags")
+                begin = self.i
+                while self.peek() not in "\0 \t\n":
+                    self.i += 1
+                tag = self.s[begin:self.i]
+            self.skip_spaces()
+        return anchor, tag
+
+    def refuse_tag(self, tag) -> None:
+        """A tag on a node that is not a mapping key: never taken."""
+        if tag is not None:
+            self.fail(f"tags (!) are not supported by the port's YAML "
+                      f"reader ({tag})")
+
+    def define(self, anchor, value) -> None:
+        if anchor is None:
+            return
+        if anchor in self.anchors:
+            self.fail(f"found duplicate anchor {anchor!r}")
+        self.anchors[anchor] = value
+
+    def alias(self) -> Any:
+        name = self.anchor_name("alias")
+        if name not in self.anchors:
+            self.fail(f"found undefined alias {name!r}")
+        return self.anchors[name]
+
+    @staticmethod
+    def merge_pairs(value, line: int) -> list:
+        """The (key, value) pairs a merge key (on ``line``) adds, in
+        PyYAML's order: a sequence's mappings last to first, so the first
+        wins."""
+        if isinstance(value, dict):
+            return list(value.items())
+        if isinstance(value, list) and all(isinstance(v, dict)
+                                           for v in value):
+            return [kv for v in reversed(value) for kv in v.items()]
+        raise ValueError(f"line {line}: expected a mapping or list of "
+                         "mappings for merging")
+
+    def build_mapping(self, merges: list, pairs: list) -> dict:
+        """PyYAML's flatten_mapping then construct_mapping: every merged
+        pair first, in merge-key order, then the explicit pairs."""
+        out: dict = {}
+        try:
+            for key, value in merges + pairs:
+                out[key] = value
+        except TypeError:
+            self.fail("complex (collection) keys are not supported")
+        return out
 
     def is_entry(self) -> bool:
         return self.peek() == "-" and self.peek(1) in _WS_END
@@ -236,6 +322,23 @@ class _Reader:
         if self.is_entry():
             return self.block_sequence(self.column)
         col = self.column
+        if self.peek() in "&!":
+            start = self.i
+            anchor, tag = self.properties()
+            if self.peek() not in "#\0\n":
+                rest = self.i
+                if self.scan_key_candidate():
+                    # the properties are the first key's
+                    self.i = start
+                    return self.block_mapping(col)
+                self.i = rest
+                self.refuse_tag(tag)
+                value = self.node_on_line(indent)
+            else:
+                self.refuse_tag(tag)
+                value = self.block_node(indent)
+            self.define(anchor, value)
+            return value
         if self.peek() in "|>":
             return self.block_scalar(indent)
         self.refuse_indicator()
@@ -244,8 +347,24 @@ class _Reader:
             self.i = start
             return self.block_mapping(col)
         self.i = start
+        if self.peek() == "*":
+            value = self.alias()
+            self.end_of_line()
+            return value
         value = self.inline_value(indent)
         return value
+
+    def node_on_line(self, indent: int) -> Any:
+        """The content after a node's properties, on their line."""
+        if self.peek() == "*":
+            self.fail("an alias cannot have an anchor or a tag")
+        if self.is_entry():
+            self.fail("a block sequence cannot start on its properties' "
+                      "line")
+        if self.peek() in "|>":
+            return self.block_scalar(indent)
+        self.refuse_indicator()
+        return self.inline_value(indent)
 
     def scan_key_candidate(self) -> bool:
         """Whether the node here is an implicit key: a one-line scalar
@@ -273,19 +392,24 @@ class _Reader:
             self.i += 1
 
     def block_mapping(self, col: int) -> dict:
-        out: dict = {}
+        pairs: list = []
+        merges: list = []
         while True:
-            self.refuse_indicator()
-            key = self.key_scalar()
+            key, merge = self.key_node()
             self.skip_spaces()
             if not (self.peek() == ":" and self.peek(1) in _WS_END):
                 self.fail("expected ':' after a mapping key")
             self.i += 1
-            out[key] = self.mapping_value(col)
+            line = self.line()
+            value = self.mapping_value(col)
+            if merge:
+                merges.extend(self.merge_pairs(value, line))
+            else:
+                pairs.append((key, value))
             self.skip_to_content()
             if self.peek() == "\0" or self.at_doc_marker() or \
                     self.column < col:
-                return out
+                return self.build_mapping(merges, pairs)
             if self.column > col:
                 self.fail("bad indentation of a mapping entry")
             if self.is_entry():
@@ -297,18 +421,43 @@ class _Reader:
                 self.fail("expected a mapping key ('key: value')")
             self.i = start
 
-    def key_scalar(self) -> Any:
+    def key_node(self) -> tuple[Any, bool]:
+        """A block mapping's key with its properties, and whether it is a
+        merge key (a plain ``<<``, or any key tagged ``!!merge``)."""
         line = self.line()
+        anchor, tag = self.properties()
+        if tag is not None and tag != "!!merge":
+            self.refuse_tag(tag)
+        merge = tag is not None
         ch = self.peek()
-        if ch in "'\"":
-            return self.quoted(ch == '"')
-        begin = self.i
-        while not (self.peek() == ":" and self.peek(1) in _WS_END):
-            self.i += 1
-        return resolve_plain(self.s[begin:self.i].rstrip(" \t"), line)
+        if ch == "*":
+            if anchor is not None or tag is not None:
+                self.fail("an alias cannot have an anchor or a tag")
+            key = self.alias()
+        elif ch in "'\"":
+            key = self.quoted(ch == '"')
+        else:
+            self.refuse_indicator()
+            begin = self.i
+            while not (self.peek() == ":" and self.peek(1) in _WS_END):
+                self.i += 1
+            raw = self.s[begin:self.i].rstrip(" \t")
+            if raw == "<<":
+                key, merge = raw, True
+            else:
+                key = resolve_plain(raw, line)
+        self.define(anchor, key)
+        return key, merge
 
     def mapping_value(self, col: int) -> Any:
         self.skip_spaces()
+        anchor, tag = self.properties()
+        self.refuse_tag(tag)
+        value = self.mapping_content(col, anchor is not None)
+        self.define(anchor, value)
+        return value
+
+    def mapping_content(self, col: int, anchored: bool) -> Any:
         if self.peek() in "#\0\n":
             self.skip_to_content()
             if self.peek() == "\0" or self.at_doc_marker():
@@ -316,6 +465,12 @@ class _Reader:
             if self.column == col and self.is_entry():
                 return self.block_sequence(col)   # at the key's column
             return self.block_node(col)
+        if self.peek() == "*":
+            if anchored:
+                self.fail("an alias cannot have an anchor or a tag")
+            value = self.alias()
+            self.end_of_line()
+            return value
         if self.is_entry():
             self.fail("a block sequence cannot start on its key's line")
         if self.peek() in "|>":
@@ -606,10 +761,24 @@ class _Reader:
             else:
                 return
 
-    def flow_node(self) -> Any:
+    def flow_node(self, key: bool = False) -> Any:
+        """A flow node with its properties; a flow mapping's merge key
+        (``key``) comes back as ``_MERGE``."""
         self.flow_skip()
-        ch = self.peek()
         line = self.line()
+        anchor, tag = self.properties()
+        if tag is not None and not (key and tag == "!!merge"):
+            self.refuse_tag(tag)
+        if self.peek() == "*":
+            if anchor is not None or tag is not None:
+                self.fail("an alias cannot have an anchor or a tag")
+            return self.alias()
+        value = self.flow_content(line, key)
+        self.define(anchor, value)
+        return _MERGE if tag is not None else value
+
+    def flow_content(self, line: int, key: bool) -> Any:
+        ch = self.peek()
         if ch in "[{":
             return self.flow_collection()
         if ch in "'\"":
@@ -619,14 +788,18 @@ class _Reader:
             if ch in ",]}:":
                 return None   # an empty node
             self.fail(f"{ch!r} cannot start a value")
-        return resolve_plain(self.plain(-1), line)
+        raw = self.plain(-1)
+        if key and raw == "<<":
+            return _MERGE
+        return resolve_plain(raw, line)
 
     def flow_collection(self) -> Any:
         opener = self.peek()
         closer = "]" if opener == "[" else "}"
         self.i += 1
         self.flow += 1
-        out: Any = [] if opener == "[" else {}
+        out: list = []
+        merges: list = []
         while True:
             self.flow_skip()
             if self.peek() == closer:
@@ -638,7 +811,8 @@ class _Reader:
             if self.peek() == "?" and self.peek(1) in _WS_END:
                 self.fail("complex keys (?) are not supported by the "
                           "port's YAML reader")
-            key = self.flow_node()
+            line = self.line()
+            key = self.flow_node(key=opener == "{")
             self.flow_skip()
             if self.peek() == ":":
                 self.i += 1
@@ -652,15 +826,162 @@ class _Reader:
                 value = None
             if opener == "[":
                 out.append(key)
+            elif key is _MERGE:
+                merges.extend(self.merge_pairs(value, line))
             else:
-                try:
-                    out[key] = value
-                except TypeError:
-                    self.fail("complex (collection) keys are not supported")
+                out.append((key, value))
             if self.peek() == ",":
                 self.i += 1
             elif self.peek() != closer:
                 self.fail(f"expected ',' or {closer!r} in a flow "
                           "collection")
         self.flow -= 1
-        return out
+        return out if opener == "[" else self.build_mapping(merges, out)
+
+
+# -- the writer -----------------------------------------------------------
+
+# characters a plain scalar may not start with (indicators, space)
+_PLAIN_FIRST_BAD = set(" -?:,[]{}#&*!|>'\"%@`")
+# characters the literal block scalar does not carry (line breaks YAML
+# normalizes, the BOM); a string with one goes double-quoted
+_LITERAL_BAD = {"\r", "\x85", "\u2028", "\u2029", "\ufeff"}
+
+
+def _printable(ch: str) -> bool:
+    """Whether PyYAML's reader takes ``ch`` raw (its NON_PRINTABLE set)."""
+    o = ord(ch)
+    return (ch in "\t\n" or 0x20 <= o <= 0x7e or o == 0x85
+            or 0xa0 <= o <= 0xd7ff or 0xe000 <= o <= 0xfffd
+            or 0x10000 <= o <= 0x10ffff)
+
+
+def _plain_ok(s: str) -> bool:
+    if not s or s[0] in _PLAIN_FIRST_BAD or s[-1] in " :":
+        return False
+    if not all(0x20 <= ord(c) <= 0x7e for c in s):
+        return False
+    if ": " in s or " #" in s or s.startswith(("---", "...")):
+        return False
+    try:
+        return resolve_plain(s) == s and isinstance(resolve_plain(s), str)
+    except ValueError:
+        return False
+
+
+def _double_quoted(s: str) -> str:
+    out = ['"']
+    for ch in s:
+        o = ord(ch)
+        if ch in '"\\':
+            out.append("\\" + ch)
+        elif 0x20 <= o <= 0x7e:
+            out.append(ch)
+        elif ch == "\n":
+            out.append("\\n")
+        elif ch == "\t":
+            out.append("\\t")
+        elif ch in _LITERAL_BAD or not _printable(ch) or 0x7f <= o < 0xa0:
+            out.append(f"\\x{o:02X}" if o < 0x100 else
+                       f"\\u{o:04X}" if o < 0x10000 else f"\\U{o:08X}")
+        else:
+            out.append(ch)
+    out.append('"')
+    return "".join(out)
+
+
+def _scalar(value: Any) -> str:
+    """A one-line scalar: plain when it reads back as itself, else
+    double-quoted."""
+    if value is None:
+        return "null"
+    if value is True:
+        return "true"
+    if value is False:
+        return "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)   # PyYAML's float pattern
+        return text
+    if isinstance(value, str):
+        return value if _plain_ok(value) else _double_quoted(value)
+    raise TypeError(f"cannot dump {type(value).__name__} as YAML")
+
+
+def _literal(s: str) -> Optional[list[str]]:
+    """A multi-line string as a literal block scalar: its header and its
+    lines (content written two columns past the parent's), or None when
+    it should go double-quoted."""
+    if "\n" not in s or any(c in _LITERAL_BAD or not _printable(c)
+                            for c in s):
+        return None
+    body = s.rstrip("\n")
+    trailing = len(s) - len(body)
+    if not body.strip(" \t\n"):
+        return None
+    chomp = {0: "-", 1: ""}.get(trailing, "+")
+    # an explicit indentation when the first line would mislead the
+    # detection (it starts with a space, or is empty)
+    indicator = "2" if body[0] in " \n\t" else ""
+    lines = body.split("\n") + [""] * max(trailing - 1, 0)
+    return ["|" + indicator + chomp] + lines
+
+
+def _value_lines(head: str, value: Any, indent: int,
+                 sort_keys: bool) -> list[str]:
+    """``head`` (a key and ':', or '-', at column ``indent``) followed by
+    ``value``."""
+    pad = " " * (indent + 2)
+    if isinstance(value, (dict, list, tuple)) and value:
+        sub = _block(value, indent + 2, sort_keys)
+        if head.endswith("-"):
+            # a compact entry: the collection starts on the dash's line
+            return [head + " " + sub[0][indent + 2:]] + sub[1:]
+        return [head] + sub
+    if isinstance(value, dict):
+        return [head + " {}"]
+    if isinstance(value, (list, tuple)):
+        return [head + " []"]
+    if isinstance(value, str):
+        lit = _literal(value)
+        if lit is not None:
+            return [head + " " + lit[0]] + [pad + ln if ln else ""
+                                            for ln in lit[1:]]
+    return [head + " " + _scalar(value)]
+
+
+def _block(obj: Any, indent: int, sort_keys: bool) -> list[str]:
+    """The lines of a non-empty mapping or sequence whose entries start
+    at column ``indent``."""
+    pad = " " * indent
+    out: list[str] = []
+    if isinstance(obj, dict):
+        items = sorted(obj.items()) if sort_keys else obj.items()
+        for k, v in items:
+            if isinstance(k, (dict, list, tuple)):
+                raise TypeError("cannot dump a collection as a mapping key")
+            out.extend(_value_lines(pad + _scalar(k) + ":", v, indent,
+                                    sort_keys))
+    else:
+        for v in obj:
+            out.extend(_value_lines(pad + "-", v, indent, sort_keys))
+    return out
+
+
+def safe_dump(obj: Any, sort_keys: bool = False) -> str:
+    """``obj`` as block YAML that this module's ``safe_load`` and PyYAML's
+    read back to ``obj``: mappings (with scalar keys), sequences, strings
+    (multi-line ones as literal block scalars, strings that would read as
+    another type quoted), ints, floats, booleans and None. The text is
+    not PyYAML's byte for byte."""
+    if isinstance(obj, (dict, list, tuple)) and obj:
+        return "\n".join(_block(obj, 0, sort_keys)) + "\n"
+    lines = _value_lines("", obj, 0, sort_keys)
+    return "\n".join([lines[0].lstrip(" ")] + lines[1:]) + "\n"

@@ -78,6 +78,7 @@ from localai_tpu_torch.models import quant
 from localai_tpu_torch.models.llama import LlamaConfig
 from localai_tpu_torch.obs import compile as obs_compile
 from localai_tpu_torch.obs import watchdog as obs_watchdog
+from localai_tpu_torch.ops import tuning
 from localai_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -239,9 +240,55 @@ class ModelRunner:
         if why:
             log.info("attention: %s (%s)", self.attn_impl, why)
         self.paged_attn_impl = ""
+        self.paged_num_buffers = 2
         if self.paged:
-            self.block_tokens = max(8, int(kv_block_tokens
+            # per-shape tuned defaults (ops.tuning, written by
+            # tools.autotune), one lookup a construction, keyed as the JAX
+            # package keys it: the explicit kwarg and LOCALAI_KV_BLOCK_TOKENS
+            # win, then the table, then the built-in default
+            tuned = tuning.lookup(cfg.hd, cfg.num_kv_heads, kv_dtype, 1)
+            try:
+                env_bt = int(
+                    os.environ.get("LOCALAI_KV_BLOCK_TOKENS", "") or 0)
+            except ValueError:
+                env_bt = 0
+            tuned_bt = tuned.block_tokens if tuned else 0
+            if tuned_bt and not (kv_block_tokens or env_bt) \
+                    and self.device.type == "cuda":
+                # a table written for another card or dtype may name a
+                # block K1 cannot take: it degrades to the default
+                why = ops.paged_gate(
+                    num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                    head_dim=cfg.hd, block_tokens=max(8, tuned_bt),
+                    kv_dtype=kv_t, dtype=dtype)
+                if why:
+                    log.warning(
+                        "tuning entry %s (block_tokens %d) dropped: %s; "
+                        "using the default", tuning.shape_key(
+                            cfg.hd, cfg.num_kv_heads, kv_dtype, 1),
+                        tuned_bt, why)
+                    tuned_bt = 0
+            self.block_tokens = max(8, int(kv_block_tokens or env_bt
+                                           or tuned_bt
                                            or pgd.block_tokens_default()))
+            # the TPU kernel's DMA depth, read and kept as the JAX package
+            # keeps it; K1's cp.async ring has two stages whatever it says
+            try:
+                env_buf = int(
+                    os.environ.get("LOCALAI_PAGED_NUM_BUFFERS", "") or 0)
+            except ValueError:
+                env_buf = 0
+            self.paged_num_buffers = max(2, int(
+                env_buf or (tuned.num_buffers if tuned else 0) or 2))
+            if self.paged_num_buffers != 2:
+                log.info("num_buffers %d names the TPU kernel's DMA depth; "
+                         "the paged decode kernel's copy ring has two "
+                         "stages, so it has no effect",
+                         self.paged_num_buffers)
+            if tuned is not None and tuned.impl == "xla":
+                log.info("tuned impl 'xla' names the JAX package's "
+                         "gather+XLA path; the port keeps one attention "
+                         "path per device")
             self.max_blocks = -(-self.max_ctx // self.block_tokens)
             self.ctx_pad = self.max_blocks * self.block_tokens
             # the pool, as the JAX package sizes it: kv_num_blocks or

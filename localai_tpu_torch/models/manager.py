@@ -689,15 +689,34 @@ class ModelManager:
         return ImageServingModel(name=mcfg.name, config=mcfg, pipeline=pipe)
 
     def preload(self) -> None:
-        """Load ``load_to_memory`` (else ``preload_models``) now, as the
-        JAX package's ``serve`` does. A name no config has is a gallery
-        reference there, which the port cannot install yet (ROADMAP item
-        21); a failed load is logged and serving goes on."""
+        """Install, then load, as the JAX package's ``serve`` does: a
+        ``preload_models`` name no config has is a model ref (an embedded
+        short name, a definition URL, a ``gallery@name`` of the configured
+        galleries, a shipped index name), installed into the models dir
+        and registered; then ``load_to_memory`` (else ``preload_models``)
+        loads. A failed install or load is logged and serving goes on."""
+        from localai_tpu_torch.gallery import (
+            Gallery,
+            install_model,
+            resolve_ref,
+        )
+
+        galleries = [Gallery(name=g.get("name", ""), url=g.get("url", ""))
+                     for g in self.app.galleries]
         for name in self.app.preload_models:
-            if self.loader.get(name) is None:
-                log.warning("preload: unknown model ref %r (installing from "
-                            "a gallery is not ported: ROADMAP item 21)",
-                            name)
+            if self.loader.exists(name):
+                continue
+            try:
+                m = resolve_ref(galleries, name)
+                if m is None:
+                    log.warning("preload: unknown model ref %r", name)
+                    continue
+                path = install_model(m, self.app.model_path,
+                                     install_name="" if m.url else name)
+                self.loader.load_single(
+                    path, context_size=self.app.context_size)
+            except Exception as e:  # noqa: BLE001
+                log.warning("preload of %s failed: %s", name, e)
         for name in self.app.load_to_memory or self.app.preload_models:
             try:
                 self._preload(name)

@@ -12,15 +12,15 @@ the dispatch anatomy, SLO burn rates and shedding, the batch lane, fault
 injection and self-healing (injected faults, NaN rows and quarantined
 slots, rebuilds, the failed latch, KV invariant violations), the stall
 watchdog, device health and memory, anomaly profiles, and the usage
-ledger's tenant, goodput and waste series. Event-time series are observed by their
+ledger's tenant, goodput and waste series, and the kernel tuning
+table's lookups, entries and sweep seconds. Event-time series are observed by their
 owners (``obs.engine``, ``obs.slo``, ``obs.watchdog``, ``obs.compile``,
 ``obs.profiler``); point-in-time gauges are refreshed at scrape time by
 ``update_engine_gauges`` from the scheduler's ``metrics()`` dict, so the
 decode loop never touches the registry. Four help texts name the port's
 machinery where the JAX package's name JAX's (first-dispatch counts,
 profiler captures, the memory census). Families of the subsystems the
-port does not have yet (fleet, tuning table, KV tiering) come with
-them.
+port does not have yet (fleet, KV tiering) come with them.
 """
 
 from __future__ import annotations
@@ -363,6 +363,23 @@ class Registry:
             "localai_engine_failed",
             "1 after the supervisor exhausted its bounded rebuild budget "
             "and marked the model failed (submits fail fast)",
+        )
+        # the tuning table (ops.tuning) and its sweep (tools.autotune)
+        self.autotune_lookups = Counter(
+            "localai_autotune_lookups_total",
+            "Per-shape kernel tuning-table lookups (ops.tuning) by "
+            "result=hit|miss — a fleet whose table stopped matching its "
+            "serving shapes shows an all-miss ratio here",
+        )
+        self.autotune_entries = Gauge(
+            "localai_autotune_table_entries",
+            "Entries in the loaded kernel tuning table "
+            "(LOCALAI_TUNE_CACHE; 0 = defaults everywhere)",
+        )
+        self.autotune_sweep_seconds = Gauge(
+            "localai_autotune_sweep_seconds",
+            "Wall seconds of the last tools/autotune.py sweep per shape "
+            "key",
         )
         # the port's labels: its paged decode attention is the CUDA kernel
         # (K1) on the card and the kernel's plain version on the CPU

@@ -24,6 +24,11 @@ setting (``engine.attn_impl``, ``LOCALAI_ATTN_IMPL``,
 ``LOCALAI_PAGED_ATTN_IMPL``) as that package does, and selects nothing:
 every accepted value runs the one path of the device.
 
+``paged_gate`` says why K1 cannot take a paged shape ("" when it can):
+``select_paged_attn_impl`` raises on its reason, the runner drops a
+tuning table entry's block size on it (``ops.tuning``) and keeps the
+default, and the sweep (``tools.autotune``) skips a block on it.
+
 ``ops.qmatmul`` holds the quantized-weight matmul kernels (w8, w4).
 """
 
@@ -54,6 +59,7 @@ __all__ = [
     "prefill_attention",
     "prefill_attention_ref",
     "resolve_attn_impl",
+    "paged_gate",
     "select_attn_impl",
     "select_paged_attn_impl",
 ]
@@ -96,26 +102,41 @@ def _kv_storage(kv_dtype, dtype, kernel: str) -> tuple[str, torch.dtype]:
     return "", kv_dtype
 
 
+def paged_gate(*, num_heads: int, num_kv_heads: int, head_dim: int,
+               block_tokens: int, kv_dtype: torch.dtype | str,
+               dtype: torch.dtype | None = None) -> str:
+    """Why K1 on the card cannot take this paged shape, as the message to
+    raise ("" when it can): a pure function of the shape and the dtypes,
+    which ``select_paged_attn_impl`` takes."""
+    if num_heads % num_kv_heads:
+        return f"heads ({num_heads} q / {num_kv_heads} kv) not grouped"
+    try:
+        pool, qdtype = _kv_storage(kv_dtype, dtype, "paged decode")
+    except ValueError as e:
+        return str(e)
+    why = kernel_gate(qdtype, head_dim, num_heads // num_kv_heads,
+                      block_tokens, pool)
+    return f"paged decode kernel does not take {why}" if why else ""
+
+
 def select_paged_attn_impl(*, device: torch.device, num_heads: int,
                            num_kv_heads: int, head_dim: int,
                            block_tokens: int,
                            kv_dtype: torch.dtype | str,
                            dtype: torch.dtype | None = None,
                            ) -> tuple[str, str]:
-    """Returns (impl, reason): "kernel" on a CUDA device (raising when the
-    kernel cannot take the shape), "torch" on the CPU. ``kv_dtype`` is the
-    pool's torch dtype, or "int8"/"int4" for a scaled pool; ``dtype`` is
-    the compute dtype (q), which a float pool must equal."""
+    """Returns (impl, reason): "kernel" on a CUDA device (raising
+    ``paged_gate``'s reason when the kernel cannot take the shape),
+    "torch" on the CPU. ``kv_dtype`` is the pool's torch dtype, or
+    "int8"/"int4" for a scaled pool; ``dtype`` is the compute dtype (q),
+    which a float pool must equal."""
     if torch.device(device).type != "cuda":
         return "torch", "CPU tensors: the wrapper runs its plain version"
-    if num_heads % num_kv_heads:
-        raise ValueError(f"heads ({num_heads} q / {num_kv_heads} kv) "
-                         "not grouped")
-    pool, qdtype = _kv_storage(kv_dtype, dtype, "paged decode")
-    why = kernel_gate(qdtype, head_dim, num_heads // num_kv_heads,
-                      block_tokens, pool)
+    why = paged_gate(num_heads=num_heads, num_kv_heads=num_kv_heads,
+                     head_dim=head_dim, block_tokens=block_tokens,
+                     kv_dtype=kv_dtype, dtype=dtype)
     if why:
-        raise ValueError(f"paged decode kernel does not take {why}")
+        raise ValueError(why)
     return "kernel", ""
 
 

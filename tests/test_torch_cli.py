@@ -153,15 +153,22 @@ def test_bare_device_variable_is_not_read(clean_env):
      None),
     (["run", "--autoscale"], {}, 23),
     (["run", "--mesh", "data=2"], {}, 19),
-    (["run", "--platform", "cpu"], {}, 11),
+    # ported: --platform cpu runs on the CPU, as the JAX package's forces
+    # its CPU platform (item None)
+    (["run", "--platform", "cpu"], {}, None),
     (["run"], {"LOCALAI_FLEET_REPLICAS": "2"}, 23),
     (["run"], {"LOCALAI_MESH": "data=1,model=2"}, 19),
+    # refused: a platform the port does not run on, named (item: the
+    # text the refusal names)
+    (["run", "--platform", "tpu"], {}, "'tpu'"),
+    (["run"], {"LOCALAI_PLATFORM": "tpu"}, "'tpu'"),
 ], ids=["fleet", "batch", "batch-0", "autoscale", "mesh", "platform",
-        "env-fleet", "env-mesh"])
+        "env-fleet", "env-mesh", "platform-tpu", "env-platform-tpu"])
 def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
                                       item):
-    """An unported setting exits 2 naming its ROADMAP item; a ported one
-    (``item`` None: the batch lane's) builds the server with the value in
+    """An unported setting exits 2 naming its ROADMAP item, a refused one
+    (``item`` a string) exits 2 naming it; a ported one (``item`` None:
+    the batch lane's, the platform) builds the server with the value in
     its AppConfig, equal to the JAX package's."""
     for k, v in env.items():
         clean_env.setenv(k, v)
@@ -176,7 +183,10 @@ def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
             app = server.manager.app
             assert (app.batch_concurrency, app.batch_expiry_h) == (
                 seen[0].batch_concurrency, seen[0].batch_expiry_h)
-            assert app.batch_concurrency == int(argv[2])
+            if "--platform" in argv:
+                assert seen[0].platform == "cpu" and app.device == "cpu"
+            else:
+                assert app.batch_concurrency == int(argv[2])
         finally:
             server.shutdown()
         return
@@ -184,7 +194,36 @@ def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
         cli.build_server(argv + ["--device", "cpu", "--models-path",
                                  str(tmp_path)])
     assert e.value.code == 2
-    assert f"ROADMAP item {item}" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if isinstance(item, str):
+        assert f"--platform {item}" in err and "ROADMAP" not in err
+    else:
+        assert f"ROADMAP item {item}" in err
+
+
+@pytest.mark.parametrize("argv,env,device", [
+    (["run", "--platform", "cpu"], {}, "cpu"),
+    (["run", "--platform", "gpu"], {}, "cuda"),
+    (["run", "--platform", "CUDA"], {}, "cuda"),
+    (["run", "--platform", "cpu", "--device", "cpu"], {}, "cpu"),
+    (["run"], {"LOCALAI_PLATFORM": "cpu"}, "cpu"),
+    (["run"], {"PLATFORM": "cpu"}, "cpu"),
+    (["run", "--platform", "cuda"], {"LOCALAI_DEVICE": "cpu"},
+     "contradicts"),
+    (["run", "--platform", "cpu", "--device", "cuda"], {}, "contradicts"),
+])
+def test_platform_selects_the_device(clean_env, argv, env, device):
+    """``--platform`` (and ``LOCALAI_PLATFORM`` / ``PLATFORM``) as the JAX
+    package reads it: cpu is the CPU, cuda/gpu the card; one that
+    contradicts ``--device`` is refused naming both."""
+    for k, v in env.items():
+        clean_env.setenv(k, v)
+    args = cli.build_parser().parse_args(argv)
+    if device == "contradicts":
+        with pytest.raises(ValueError, match="contradicts --device"):
+            cli.app_config(args)
+        return
+    assert cli.app_config(args).device == device
 
 
 @pytest.mark.parametrize("argv,env,targets,burn", [
@@ -518,15 +557,20 @@ def test_single_active_backend_evicts_the_other_model(models_dir):
 
 
 def test_preload_loads_at_start(models_dir, caplog):
+    """A configured name loads; a gallery ref (the embedded library's
+    ``debug-tiny``) installs into the models dir, registers and loads, as
+    on the JAX package; an unknown ref logs that package's warning."""
     path, loader = models_dir
     m = port_manager.ModelManager(AppConfig(
-        model_path=str(path), device="cpu", preload_models=["b", "nope"]),
-        loader)
+        model_path=str(path), device="cpu",
+        preload_models=["b", "debug-tiny", "nope"]), loader)
     try:
         with caplog.at_level(logging.WARNING):
             m.preload()
-        assert m.loaded_names() == ["b"]
-        assert "nope" in caplog.text and "ROADMAP item 21" in caplog.text
+        assert m.loaded_names() == ["b", "debug-tiny"]
+        assert (path / "debug-tiny.yaml").exists()
+        assert "preload: unknown model ref 'nope'" in caplog.text
+        assert "ROADMAP" not in caplog.text
     finally:
         m.shutdown()
 
@@ -605,11 +649,17 @@ def test_tokenize_reads_no_weights(cli_models, capsys, clean_env,
 
 @pytest.mark.parametrize("argv", [["models", "install", "x"],
                                   ["models", "available"]])
-def test_unported_subcommand_names_its_item(capsys, argv):
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv)
-    assert e.value.code == 2
-    assert "ROADMAP item" in capsys.readouterr().err
+def test_unported_subcommand_names_its_item(capsys, tmp_path, argv):
+    """Ported with the gallery: both subcommands answer as the JAX
+    package's — an unknown ref exits 2 naming it, the listing prints the
+    shipped index and the embedded library."""
+    argv = argv + ["--models-path", str(tmp_path)]
+    port, ref = _outputs(argv, capsys)
+    assert port == ref
+    if argv[1] == "install":
+        assert port[0] == 2
+    else:
+        assert port[0] == 0 and "embedded@debug-tiny" in port[1]
 
 
 # ---------------------------------------------------------------------------

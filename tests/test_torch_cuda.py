@@ -1811,3 +1811,113 @@ def test_cuda_rebuild_serves_again():
         faults.clear()
         sched.shutdown()
         wd.stop()
+
+
+# -- the vector store, the tuning table and its sweep on the card ----------
+
+
+@pytest.mark.cuda
+def test_cuda_store_find_equals_the_cpu_store():
+    """One seeded sequence of sets, deletes (a freed row reused) and
+    finds on a store on the card and one on the CPU: the same rows in the
+    same order, equal scores lower row first (power-of-two multiples of
+    one vector), similarities within 1e-6."""
+    _card()
+    from localai_tpu_torch.stores import VectorStore
+
+    rng = np.random.default_rng(5)
+    keys = rng.normal(size=(300, 48)).astype(np.float32)
+    tie = keys[0].copy()
+    for j, row in enumerate((17, 90, 211)):
+        keys[row] = tie * np.float32(2.0 ** (j + 1))
+    stores = {d: VectorStore(device=d) for d in ("cuda", "cpu")}
+    reused = rng.normal(size=48).astype(np.float32)
+    for st in stores.values():
+        st.set(keys, [str(i).encode() for i in range(len(keys))])
+        st.delete([keys[40], keys[41]])
+        st.set([reused], [b"reused"])
+    rng = np.random.default_rng(6)
+    queries = [tie, np.zeros(48, np.float32)] + [
+        rng.normal(size=48).astype(np.float32) for _ in range(8)]
+    for q in queries:
+        got = {d: st.find(q, 12) for d, st in stores.items()}
+        assert got["cuda"][1] == got["cpu"][1]
+        assert got["cuda"][0] == got["cpu"][0]
+        np.testing.assert_allclose(got["cuda"][2], got["cpu"][2],
+                                   atol=1e-6)
+    ties = stores["cuda"].find(tie, 4)[1]
+    assert ties == [b"0", b"17", b"90", b"211"]
+
+
+@pytest.mark.cuda
+def test_cuda_runner_drops_a_refused_tuned_block(tmp_path, monkeypatch,
+                                                 caplog):
+    """A table entry whose block size K1 cannot take at this shape (f32,
+    head dim 128, bt 128: 262144 B of tiles) is dropped on the card with
+    one warning naming the entry and the gate's reason; the runner loads
+    at the default 64. On the CPU the same entry applies."""
+    import json
+    import logging
+
+    _card()
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models.llama import LlamaConfig, init_params
+    from localai_tpu_torch.ops import tuning
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256,
+                      intermediate_size=256, num_layers=1, num_heads=2,
+                      num_kv_heads=1, max_position_embeddings=512,
+                      dtype="float32")
+    path = tmp_path / "tuning.json"
+    key = tuning.shape_key(128, 1, "float32", 1)
+    path.write_text(json.dumps({key: {"impl": "pallas",
+                                      "block_tokens": 128}}))
+    monkeypatch.setenv(tuning.ENV_CACHE, str(path))
+    monkeypatch.delenv("LOCALAI_KV_BLOCK_TOKENS", raising=False)
+    tuning.reset()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    try:
+        with caplog.at_level(logging.WARNING):
+            r = ModelRunner(cfg, _tree_to(params, "cuda"), num_slots=2,
+                            max_ctx=256, kv_dtype="float32", paged=True,
+                            device="cuda")
+        dropped = [m for m in caplog.messages if key in m]
+        assert r.block_tokens == 64 and r.paged_attn_impl == "kernel"
+        assert len(dropped) == 1 and "shared memory" in dropped[0]
+        cpu = ModelRunner(cfg, params, num_slots=2, max_ctx=256,
+                          kv_dtype="float32", paged=True, device="cpu")
+        assert cpu.block_tokens == 128
+    finally:
+        tuning.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("block_tokens", [16, 32, 64, 128])
+def test_cuda_sweep_kernel_point_equals_plain(kv_dtype, block_tokens):
+    """The sweep's kernel point (K1 on ``tools.autotune``'s inputs at the
+    llama3-8b preset) equals its plain point at every candidate block."""
+    _card()
+    from localai_tpu_torch.tools import autotune
+
+    hd, kv = autotune.PRESET_SHAPES["llama3-8b"]
+    inp = autotune.point_inputs(hd, kv, kv_dtype, block_tokens=block_tokens,
+                                device="cuda")
+    before = tops.paged_decode_attention.launches
+    got = autotune.point_fn(inp, autotune.KERNEL_IMPL)()
+    torch.cuda.synchronize()
+    assert tops.paged_decode_attention.launches == before + 1
+    q = inp["q"]
+    kvs = ((inp["k"], inp["v"]) if inp["k_scale"] is not None
+           else (inp["k"].float(), inp["v"].float()))
+    want = tops.paged_decode_attention_ref(
+        q.float(), *kvs, inp["tables"], inp["positions"], inp["k_scale"],
+        inp["v_scale"])
+    _slot_check(got, want, q.dtype)
+    for impl in (autotune.KERNEL_IMPL, autotune.PLAIN_IMPL):
+        runs = []
+        us = autotune.measure_point(hd, kv, kv_dtype, impl=impl,
+                                    block_tokens=block_tokens,
+                                    num_buffers=2, reps=2, device="cuda",
+                                    runs=runs)
+        assert us == min(runs) > 0 and len(runs) == 2

@@ -31,7 +31,8 @@ SOURCES = (sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
            + sorted((REPO / "scripts").glob("*.py")))
 # packages the machine with the card does not have
 ABSENT_ON_CARD = {"aiohttp", "pydantic", "yaml", "safetensors", "tokenizers",
-                  "transformers", "jinja2", "grpc", "ml_dtypes", "PIL"}
+                  "transformers", "jinja2", "grpc", "ml_dtypes", "PIL",
+                  "requests", "httpx"}
 
 
 def _port_modules() -> list[str]:
@@ -548,3 +549,34 @@ def test_image_models_serve_without_the_packages_the_card_lacks(tmp_path):
     assert json.loads(res.stdout.strip().splitlines()[-1]) == {
         "sizes": [[64, 64, 3]] * 2, "tokenizer": "ClipTokenizer",
         "controlnet": True, "imported": []}
+
+
+def test_tuning_store_and_gallery_modules_are_covered():
+    """The tuning table and its sweep, the vector store and the gallery
+    (with its downloader and registry client on ``urllib``) are among the
+    modules and sources the rules above check: nothing of ``jax`` or
+    ``localai_tpu``, only the stdlib, numpy and torch at module level, and
+    no ``requests``, ``pydantic``, ``yaml`` or ``aiohttp`` anywhere."""
+    mods = set(_port_modules())
+    new = ("ops.tuning", "tools", "tools.autotune", "stores", "stores.store",
+           "api.stores", "api.gallery", "gallery", "gallery.models",
+           "gallery.embedded", "gallery.index_data", "gallery.index",
+           "gallery.service", "utils.downloader", "utils.oci")
+    for m in new:
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    files = {m.replace(".", "/") + ".py" for m in new
+             if m not in ("tools", "stores", "gallery")}
+    assert files <= rel
+    for path in (PKG_DIR / f for f in files):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                assert n.split(".")[0] not in (
+                    "requests", "pydantic", "yaml", "aiohttp", "httpx"), \
+                    (path.name, n)
