@@ -303,7 +303,22 @@ Phases (any failure raises and the script exits non-zero):
      ``/stores/find`` at topk 10 held to a float64 numpy top-k (the same
      rows in the same order, one query on tied keys lower row first,
      similarities within 1e-5); it prints the rebuild time, find p50/p99
-     and the store's bytes on the card.
+     and the store's bytes on the card. ``kv_tier`` holds the host KV
+     tier's pool round trip byte for byte (bf16, float32, int8, int4
+     pools at Llama-3-8B's block shape) and serves debug:llama3-8b at full
+     width and depth with ``LOCALAI_KV_TIER_MB`` unset and at 1024: a
+     prefix evicted by two others reloads 15+ of its 16 blocks from
+     pinned host memory, the texts equal the tier-off serve's, K1
+     launches L a plain step; it prints spill and reload ms and GB/s and
+     the reloaded TTFT against the cold one. ``fleet`` serves an 8-layer
+     Llama-3-8B-width checkpoint through in-process fleets (``run
+     --fleet-backend inprocess``): prefix affinity, a disaggregated
+     1100-token prefill, a live migration, a failover with respawn (the
+     killed replica's memory freed at its stop), the fleet flight view
+     and a stitched trace, then the autoscaler's scale-out and drain with
+     every request answered; texts equal a single engine's, K1 launches
+     L per decode step summed over every replica engine, nothing is left
+     on the card after each fleet, the peak stays under 75 GB.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -5760,7 +5775,7 @@ RWKV = "rwkv-4-7b-bf16"
 # serve joined the image group: their checkpoints' writes and loads and
 # their host-bound decode steps scale with the depth
 SMOKE_LAYERS = {"mamba": 16, "rwkv": 8, "bge-large": 6, "gguf": 1,
-                "whisper": 8, "qwen": 8, "checkpoint": 8}
+                "whisper": 8, "qwen": 8, "checkpoint": 8, "fleet": 8}
 RERANKER = "ms-marco-minilm-l6-f32"
 EMBEDDER = "bge-large-en-v1.5-f32"
 # the special tokens of bert-base-uncased's vocab.txt, at their ids
@@ -9044,6 +9059,785 @@ def phase_stores(card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# -- the KV economy and the in-process fleet (ROADMAP item 23 part 1) -----
+
+KV_TIER = "llama3-8b-bf16-kv-tier"
+KV_TIER_MB = 1024
+KV_TIER_NEW = 32            # max_tokens of each chat
+KV_TIER_PROMPT = 1056       # prompt tokens a chat: 16 full 64-token blocks
+KV_TIER_BT = 64
+FLEET = "llama3-8b-bf16-fleet"
+FLEET_THRESHOLD = 512       # --fleet-disagg-threshold
+FLEET_STREAM = 128          # tokens of the migrated stream
+# a byte-level model writes ASCII only under this bias (ids 128–255 of
+# the byte tokenizer are the non-ASCII bytes): a live migration drops a
+# multi-byte character the donor's detokenizer holds at the boundary, on
+# both packages, so the drill compares texts that have none
+ASCII_ONLY = {str(i): -100 for i in range(128, 256)}
+_WORDS = ("paged", "block", "prefix", "tier", "host", "spill", "reload",
+          "chain", "hash", "pool", "card", "fleet", "replica", "router",
+          "decode", "prefill", "token", "cache", "stream", "batch")
+
+
+def _prose(seed: int, nbytes: int) -> str:
+    """``nbytes`` of seeded ASCII words."""
+    rng = np.random.default_rng(seed)
+    out = ""
+    while len(out) < nbytes:
+        out += _WORDS[int(rng.integers(len(_WORDS)))] + " "
+    return out[:nbytes]
+
+
+def _env(updates: dict) -> dict:
+    """Set (value) or unset (None) environment variables; returns the
+    previous values for ``_env`` to restore."""
+    saved = {k: os.environ.get(k) for k in updates}
+    for k, v in updates.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    return saved
+
+
+def _sse_chat(url: str, body: dict, headers: Optional[dict] = None,
+              on_delta=None) -> dict:
+    """One streamed chat: {"text", "ttft_s", "wall_s", "prompt_tokens",
+    "completion_tokens", "finish"}; ``on_delta(n)`` runs after the n-th
+    content delta."""
+    req = urllib.request.Request(
+        url, data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t = time.monotonic()
+    ttft, text, last, n = None, "", None, 0
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            line = line.strip()
+            if not line.startswith(b"data: {"):
+                continue
+            frame = json.loads(line[6:])
+            if frame.get("choices"):
+                delta = frame["choices"][0]["delta"].get("content")
+                if delta:
+                    if ttft is None:
+                        ttft = time.monotonic() - t
+                    text += delta
+                    n += 1
+                    if on_delta is not None:
+                        on_delta(n)
+            last = frame
+    usage = (last or {}).get("usage", {})
+    return {"text": text, "ttft_s": ttft, "wall_s": time.monotonic() - t,
+            "prompt_tokens": usage.get("prompt_tokens", 0),
+            "completion_tokens": usage.get("completion_tokens", 0),
+            "finish": ((last or {}).get("choices") or [{}])[0].get(
+                "finish_reason")}
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
+
+
+def _pool_round_trip(cfg) -> dict:
+    """``pack_block`` / ``load_block`` on the card at ``cfg``'s pool shape
+    (bt 64) for bf16, float32, int8 and int4 pools: the block's bytes come
+    back bit for bit and no other block moves. {kv_dtype: payload bytes}."""
+    from localai_tpu_torch.engine import kvcache as kvc
+    from localai_tpu_torch.engine.runner import ModelRunner
+
+    out = {}
+    for kv_dtype in ("bfloat16", "float32", "int8", "int4"):
+        holder = type("PoolHolder", (), {})()
+        holder.paged, holder.device = True, torch.device("cuda")
+        holder.kv = kvc.init_paged_cache(cfg, 4, KV_TIER_BT, kv_dtype,
+                                         device="cuda")
+        pool = ModelRunner._pool_tensors(holder)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        for t in pool.values():
+            if t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+            else:
+                t.copy_(torch.randint(-128, 128, t.shape, generator=g,
+                                      device="cuda", dtype=torch.int8))
+        before = {n: t.clone() for n, t in pool.items()}
+        holder._pool_tensors = lambda h=holder: ModelRunner._pool_tensors(h)
+        payload = ModelRunner.pack_block(holder, 2).wait()
+        for n, t in pool.items():
+            if not payload[n].is_pinned() or not torch.equal(
+                    payload[n].view(torch.uint8),
+                    before[n][:, 2].cpu().view(torch.uint8)):
+                raise AssertionError(f"kv tier: {kv_dtype} {n} spill "
+                                     "payload is not the block's bytes")
+            t[:, 2].zero_()
+        ModelRunner.load_block(holder, 2, payload)
+        torch.cuda.synchronize()
+        for n, t in pool.items():
+            if not torch.equal(t.view(torch.uint8),
+                               before[n].view(torch.uint8)):
+                raise AssertionError(f"kv tier: {kv_dtype} {n} reload is "
+                                     "not bit for bit")
+        out[kv_dtype] = sum(a.nbytes for a in payload.values())
+        del holder, pool, before, payload
+    torch.cuda.empty_cache()
+    return out
+
+
+def _copy_times(runner) -> dict:
+    """Device ms of one block's spill (``pack_block``: the gather and the
+    copy into pinned memory) and reload (``load_block``), best of 5, on
+    CUDA events, with GB/s; the same spill done as one copy per layer,
+    and the host ms the engine thread spends issuing each."""
+    bid = 1
+    nbytes = sum(t[:, bid].numel() * t.element_size()
+                 for t in runner._pool_tensors().values())
+    spill, reload, per_layer, host_spill, host_reload = [], [], [], [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ms, payload = _events_ms(lambda: runner.pack_block(bid))
+        host_spill.append((time.perf_counter() - t0) * 1e3)
+        spill.append(ms)
+        t0 = time.perf_counter()
+        ms, _ = _events_ms(lambda: runner.load_block(bid, payload))
+        host_reload.append((time.perf_counter() - t0) * 1e3)
+        reload.append(ms)
+        host = {n: torch.empty(t[:, bid].shape, dtype=t.dtype,
+                               pin_memory=True)
+                for n, t in runner._pool_tensors().items()}
+
+        def layers():
+            for n, t in runner._pool_tensors().items():
+                for lay in range(t.shape[0]):
+                    host[n][lay].copy_(t[lay, bid], non_blocking=True)
+
+        per_layer.append(_events_ms(layers)[0])
+    best = {"spill": min(spill), "reload": min(reload),
+            "spill_per_layer": min(per_layer)}
+    return {"block_bytes": nbytes,
+            **{f"{k}_ms": v for k, v in best.items()},
+            **{f"{k}_gb_s": nbytes / (v * 1e-3) / 1e9
+               for k, v in best.items()},
+            "host_spill_ms": min(host_spill),
+            "host_reload_ms": min(host_reload)}
+
+
+def phase_kv_tier(card: str) -> dict:
+    """The host KV tier on the main path: ``debug:llama3-8b`` (Llama-3-8B's
+    widths and all 32 layers, seeded bf16 weights drawn on the card),
+    bf16 paged at bt 64, through ``cli.main.build_server`` over HTTP. The
+    pool holds the trash block, two 1024-token prefixes (16 blocks each,
+    8 MiB a block) and one live chat's blocks past its prefix, so a third
+    prefix evicts the oldest. Four streamed chats over system prompts A,
+    B, C, then A again, each of ``KV_TIER_PROMPT`` prompt tokens, first
+    with ``LOCALAI_KV_TIER_MB`` unset (no tier), then with it at 1024:
+    the second A reloads at least 15 of its 16 blocks from host memory,
+    the greedy texts equal the tier-off serve's, ``spills_total`` and
+    ``reloads_total`` are above 0, ``check_invariants()`` is empty, and
+    K1 launches L a plain decode step in both serves (K2–K5 never).
+    Before the serves, the pool round trip (``pack_block`` /
+    ``load_block``) is checked byte for byte on the card for bf16,
+    float32, int8 and int4 pools at this shape. Prints ms and GB/s of a
+    spill and a reload (and the spill as one copy per layer), the TTFT of
+    the second A against the first (cold), and the peak memory."""
+    from localai_tpu_torch.cli.main import build_server
+    from localai_tpu_torch.config.model_config import ModelConfig
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+    from localai_tpu_torch.templates.cache import TemplateCache
+    from localai_tpu_torch.templates.chat import build_chat_prompt
+
+    cfg = dataclasses.replace(DEBUG_PRESETS["llama3-8b"], dtype="bfloat16")
+    L = cfg.num_layers
+    payload_bytes = _pool_round_trip(cfg)
+    print("kv tier round trip: " + json.dumps(payload_bytes), flush=True)
+    root = Path(_scratch_dir("kv-tier-", 1 << 20))
+    models = root / "models"
+    models.mkdir()
+    doc = {"name": KV_TIER, "model": "debug:llama3-8b", "context_size": 2048,
+           "seed": 11, "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
+                                  "max_slots": 2,
+                                  "kv_block_tokens": KV_TIER_BT}}
+    mcfg = ModelConfig.from_dict(doc)
+    mcfg.set_defaults()
+    templates = TemplateCache(str(models))
+
+    def messages(tag: int) -> list:
+        user = {"role": "user", "content": "Summarize the notes."}
+        probe = build_chat_prompt(templates, mcfg, [
+            {"role": "system", "content": "x"}, user])
+        # the byte tokenizer: a token a byte, and the BOS id
+        n = KV_TIER_PROMPT - 1 - (len(probe.encode()) - 1)
+        return [{"role": "system", "content": _prose(tag, n)}, user]
+
+    chats = [messages(t) for t in (1, 2, 3, 1)]
+    # blocks of one live chat: its prompt, the answer and the n-gram
+    # drafter's lookahead; its 16 full prompt blocks join the prefix pool
+    live = -(-(KV_TIER_PROMPT + KV_TIER_NEW + 8) // KV_TIER_BT)
+    doc["engine"]["kv_num_blocks"] = 1 + 2 * 16 + (live - 16)
+    (models / f"{KV_TIER}.yaml").write_text(json.dumps(doc))
+    kernels = _all_kernels()
+    runs = {}
+    try:
+        for tier in (None, KV_TIER_MB):
+            saved = _env({"LOCALAI_MODELS_PATH": models,
+                          "LOCALAI_ADDRESS": "127.0.0.1",
+                          "LOCALAI_PORT": "0", "LOCALAI_KV_TIER_MB": tier})
+            server = None
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                server = build_server(["run"]).start()
+                sm = server.manager.get(KV_TIER)
+                torch.cuda.synchronize()
+                url = server.url + "/v1/chat/completions"
+                body = {"model": KV_TIER, "max_tokens": KV_TIER_NEW,
+                        "temperature": 0}
+                run = _counted(sm, kernels, lambda: [
+                    _sse_chat(url, {**body, "messages": m}) for m in chats])
+                res = run.pop("result")
+                _check_k1(f"{KV_TIER} tier={tier}", run, L)
+                alloc = sm.runner.allocator
+                problems = alloc.check_invariants()
+                if problems:
+                    raise AssertionError(f"{KV_TIER}: {problems[:3]}")
+                bad = [r["prompt_tokens"] for r in res
+                       if not 16 * KV_TIER_BT < r["prompt_tokens"]
+                       <= 17 * KV_TIER_BT]
+                if bad:
+                    raise AssertionError(f"{KV_TIER}: prompt tokens {bad}, "
+                                         "not 16 full blocks and a tail")
+                rec = {"tier_mb": tier, "texts": [r["text"] for r in res],
+                       "ttft_s": [r["ttft_s"] for r in res],
+                       "evictions": alloc.evictions_total,
+                       "tier": alloc.tier_stats(),
+                       "metrics": {k: v for k, v in
+                                   sm.scheduler.metrics().items()
+                                   if k.startswith("kv_tier_")},
+                       "launches": run,
+                       "max_memory_allocated_gb":
+                           torch.cuda.max_memory_allocated() / 1e9,
+                       "memory_before_gb": base / 1e9}
+                if tier:
+                    rec["copy"] = _copy_times(sm.runner)
+                runs[tier] = rec
+                print(f"kv tier serve ({card}): " + json.dumps(
+                    {k: v for k, v in rec.items() if k != "texts"}),
+                    flush=True)
+            finally:
+                if server is not None:
+                    server.shutdown()
+                _env(saved)
+                sm = server = alloc = None
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    on, off = runs[KV_TIER_MB], runs[None]
+    if on["texts"] != off["texts"]:
+        raise AssertionError("kv tier: greedy texts differ from the serve "
+                             "with the tier off")
+    ts = on["tier"]
+    if ts is None or ts["spills_total"] <= 0 or ts["reloads_total"] < 15:
+        raise AssertionError(f"kv tier: the second A did not reload from "
+                             f"host memory ({ts})")
+    if off["tier"] is not None:
+        raise AssertionError("kv tier: a tier without LOCALAI_KV_TIER_MB")
+    if on["max_memory_allocated_gb"] > 75.0:
+        raise AssertionError("kv tier: peak memory over 75 GB")
+    out = {"card": card, "spills": ts["spills_total"],
+           "reloads": ts["reloads_total"],
+           "ttft_first_a_s": on["ttft_s"][0],
+           "ttft_second_a_s": on["ttft_s"][3],
+           "ttft_second_a_off_s": off["ttft_s"][3], **on["copy"],
+           "payload_bytes": payload_bytes,
+           "peak_gb": on["max_memory_allocated_gb"],
+           "launches": on["launches"], "launches_off": off["launches"]}
+    print("kv tier: " + json.dumps(out), flush=True)
+    return out
+
+
+class _FleetSteps:
+    """Decode steps of every replica engine a fleet ran since this was
+    made: engines started later count from 0, a retired or restarted
+    engine up to the last ``note()`` before it went."""
+
+    def __init__(self, fm):
+        import weakref
+
+        self._ref = weakref.ref
+        self.fm = fm
+        self.entries: list = []      # [weak runner, start, last]
+        self.note(first=True)
+
+    def note(self, first: bool = False) -> None:
+        for r in self.fm.pool.members():
+            sm = r.sm
+            if sm is None:
+                continue
+            run = sm.runner
+            for e in self.entries:
+                if e[0]() is run:
+                    e[2] = run.decode_steps
+                    break
+            else:
+                self.entries.append([self._ref(run),
+                                     run.decode_steps if first else 0,
+                                     run.decode_steps])
+
+    def total(self) -> int:
+        self.note()
+        return sum(last - start for _, start, last in self.entries)
+
+
+def _fleet_check_k1(what: str, kernels: dict, steps: int, L: int) -> None:
+    want = L * steps
+    got = kernels["paged_decode_attention"].launches
+    if steps <= 0 or got != want:
+        raise AssertionError(f"{what}: K1 launches {got}, expected {want} "
+                             f"({L} x {steps} decode steps over the "
+                             "replicas)")
+    _no_launches(what, {k: w for k, w in kernels.items()
+                        if k != "paged_decode_attention"})
+
+
+def _get_json(url: str):
+    with urllib.request.urlopen(url, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def phase_fleet(card: str) -> dict:
+    """In-process fleets of ``debug:llama3-8b`` at Llama-3-8B's widths and
+    ``SMOKE_LAYERS["fleet"]`` layers (a bf16 checkpoint of seeded weights
+    drawn on the card, with no tokenizer file: the byte tokenizer), bf16
+    paged, through ``cli.main.build_server`` over HTTP. A single engine
+    serves the reference texts first. Then ``--fleet-backend inprocess
+    --fleet-replicas 2 --fleet-prefill-replicas 1
+    --fleet-disagg-threshold 512``:
+      (a) four chats sharing a 256-token system prompt land on one decode
+          replica (``/v1/fleet`` routed reasons), texts = the reference;
+      (b) an 1100-token prompt prefills on ``p0``, its KV chunks go to the
+          decode replica, which resumes without prefilling those rows;
+      (c) ``migrate_inflight`` moves a live 128-token stream to the other
+          decode replica; its text equals the stream without migration;
+      (d) ``kill()`` of the decode replica a prompt routes to: the request
+          fails over (reason ``failover``), its text is equal, the replica
+          respawns healthy and the card holds no more memory than before;
+      (f) ``/debug/fleet/flight`` merges the replicas' rings and
+          ``/v1/traces/{id}`` stitches the replicas that served (b);
+    then a second server with ``--fleet-replicas 2`` and the autoscaler
+    on, its thresholds lowered by ``LOCALAI_AUTOSCALE_*``:
+      (e) a burst scales out to 3 decode replicas, idleness drains one
+          back in (``FleetScheduler.drain``), every request answered, and
+          the retired replica's weights and pool leave the card.
+    K1 launches L per decode step summed over every replica engine of each
+    server (K2–K5 never); peak memory stays under 75 GB."""
+    from localai_tpu_torch.cli.main import build_server
+    from localai_tpu_torch.models import llama as tl
+    from localai_tpu_torch.models.loader import write_llama_checkpoint
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+
+    L = SMOKE_LAYERS["fleet"]
+    cfg = dataclasses.replace(DEBUG_PRESETS["llama3-8b"], dtype="bfloat16",
+                              num_layers=L)
+    root = Path(_scratch_dir("fleet-", 7_000_000_000))
+    models, ckpt = root / "models", root / "llama3-8b-fleet"
+    kernels = _all_kernels()
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+
+    def released(what: str) -> float:
+        """The card's allocated bytes once ``what`` was shut down: every
+        engine of it freed (fails on anything left of it)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - base
+        print(f"fleet: {left / 1e9:.3f} GB still allocated after {what}",
+              flush=True)
+        if left > 0.25e9:
+            raise AssertionError(f"fleet: {left / 1e9:.2f} GB left on the "
+                                 f"card after {what}")
+        return left / 1e9
+
+    try:
+        t0 = time.monotonic()
+        params = tl.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(11), "cuda")
+        write_llama_checkpoint(ckpt, cfg, params, dtype="bfloat16")
+        (ckpt / "config.json").write_text(json.dumps(
+            {**LLAMA3_8B_CONFIG, "num_hidden_layers": L}))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"fleet checkpoint: {L} layers written in "
+              f"{time.monotonic() - t0:.1f}s", flush=True)
+        models.mkdir()
+        (models / f"{FLEET}.yaml").write_text(json.dumps(
+            {"name": FLEET, "model": str(ckpt), "context_size": 4096,
+             "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
+                        "max_slots": 8, "kv_block_tokens": 64}}))
+        system = _prose(21, 256)
+        questions = ["Write a haiku about paged attention.",
+                     "What is the capital of France?",
+                     "List three prime numbers.",
+                     "Explain continuous batching in one sentence."]
+        affinity = [{"model": FLEET, "max_tokens": 32, "temperature": 0,
+                     "messages": [{"role": "system", "content": system},
+                                  {"role": "user", "content": q}]}
+                    for q in questions]
+        long_body = {"model": FLEET, "max_tokens": 32, "temperature": 0,
+                     "messages": [{"role": "user",
+                                   "content": _prose(22, 1100)}]}
+        stream_body = {"model": FLEET, "max_tokens": FLEET_STREAM,
+                       "temperature": 0, "ignore_eos": True,
+                       "logit_bias": ASCII_ONLY,
+                       "messages": [{"role": "user", "content":
+                                     "Stream across the fleet " * 4}]}
+        failover_body = {"model": FLEET, "max_tokens": 32, "temperature": 0,
+                         "messages": [{"role": "user", "content":
+                                       _prose(23, 300)}]}
+        base_env = {"LOCALAI_MODELS_PATH": models,
+                    "LOCALAI_ADDRESS": "127.0.0.1", "LOCALAI_PORT": "0"}
+        # the reference: one engine of the same checkpoint
+        saved = _env(base_env)
+        server = None
+        try:
+            server = build_server(["run"]).start()
+            url = server.url + "/v1/chat/completions"
+            sm = server.manager.get(FLEET)
+            run = _counted(sm, kernels, lambda: {
+                "affinity": [json.loads(_post(url, b).read())
+                             for b in affinity],
+                "long": json.loads(_post(url, long_body).read()),
+                "stream": _sse_chat(url, stream_body),
+                "failover": json.loads(_post(url, failover_body).read())})
+            ref = run.pop("result")
+            _check_k1(f"{FLEET} single engine", run, L)
+        finally:
+            if server is not None:
+                server.shutdown()
+            _env(saved)
+            sm = server = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        out = {"card": card, "layers": L,
+               "left_after_single_gb": released("the single engine")}
+
+        def text(resp):
+            return resp["choices"][0]["message"]["content"]
+
+        saved = _env(base_env)
+        try:
+            server = build_server([
+                "run", "--fleet-backend", "inprocess", "--fleet-replicas",
+                "2", "--fleet-prefill-replicas", "1",
+                "--fleet-disagg-threshold", str(FLEET_THRESHOLD)]).start()
+            url = server.url + "/v1/chat/completions"
+            t0 = time.monotonic()
+            fm = server.manager.get(FLEET)
+            out["boot_s"] = time.monotonic() - t0
+            one_bytes = _tree_bytes(fm.pool.members()[0].sm.runner.params) \
+                + _tree_bytes(fm.pool.members()[0].sm.runner._pool_tensors())
+            handles: list = []
+
+            def recorded(req, _submit=fm.scheduler.submit):
+                h = _submit(req)
+                handles.append(h)
+                return h
+
+            fm.scheduler.submit = recorded
+            for w in kernels.values():
+                w.launches = 0
+            steps = _FleetSteps(fm)
+            # (a) affinity
+            got = []
+            for i, b in enumerate(affinity):
+                hdr = {"X-Trace-ID": f"fleet-a-{i}"}
+                req = urllib.request.Request(
+                    url, data=json.dumps(b).encode(),
+                    headers={"Content-Type": "application/json", **hdr})
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    got.append(text(json.loads(r.read())))
+            status = _get_json(server.url + "/v1/fleet")["models"][FLEET]
+            served = {r["id"]: r["dispatched"] for r in status["replicas"]
+                      if r["role"] == "decode" and r["dispatched"]}
+            routed = status["router"]["routed"]
+            if (got != [text(r) for r in ref["affinity"]]
+                    or len(served) != 1
+                    or routed["affinity"] + routed["directory"] < 4):
+                raise AssertionError(f"fleet (a): served {served}, routed "
+                                     f"{routed}, texts equal "
+                                     f"{got == [text(r) for r in ref['affinity']]}")
+            out["a"] = {"served": served, "routed": dict(routed)}
+            # (b) disaggregation
+            before = dict(transfers=fm.scheduler.prefix_transfers,
+                          nbytes=fm.scheduler.prefix_transfer_bytes)
+            decs = {r.id: r.sm.scheduler.metrics()["prompt_cache"]
+                    for r in fm.pool.members() if r.role == "decode"}
+            chunks0 = {r.id: r.sm.runner.prefill_chunks
+                       for r in fm.pool.members()}
+            req = urllib.request.Request(
+                url, data=json.dumps(long_body).encode(),
+                headers={"Content-Type": "application/json",
+                         "X-Trace-ID": "fleet-b"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                long_resp = json.loads(r.read())
+            hits = {r.id: r.sm.scheduler.metrics()["prompt_cache"]
+                    for r in fm.pool.members() if r.role == "decode"}
+            dest = [rid for rid in hits
+                    if hits[rid]["hits"] > decs[rid]["hits"]]
+            chunks = {r.id: r.sm.runner.prefill_chunks - chunks0[r.id]
+                      for r in fm.pool.members()}
+            moved = fm.scheduler.prefix_transfer_bytes - before["nbytes"]
+            if (fm.scheduler.prefix_transfers != before["transfers"] + 1
+                    or len(dest) != 1
+                    or hits[dest[0]]["hit_tokens"]
+                    - decs[dest[0]]["hit_tokens"] < 1024
+                    or chunks[dest[0]] > 1
+                    or text(long_resp) != text(ref["long"])):
+                raise AssertionError(f"fleet (b): transfers "
+                                     f"{fm.scheduler.prefix_transfers}, "
+                                     f"dest {dest}, chunks {chunks}")
+            out["b"] = {"prompt_tokens": long_resp["usage"]["prompt_tokens"],
+                        "chunk_bytes": moved, "decode_replica": dest[0],
+                        "prefill_chunks": chunks}
+            # (c) live migration of a streamed request
+            res: dict = {}
+            mig_thread: list = []
+
+            def migrate(n):
+                if n == 4 and not mig_thread:
+                    h = handles[-1]
+                    res["donor"] = fm.scheduler._active[h.id][1].id
+                    th = threading.Thread(target=lambda: res.setdefault(
+                        "ok", fm.scheduler.migrate_inflight(h, timeout=60)))
+                    th.start()
+                    mig_thread.append(th)
+
+            mig0 = fm.scheduler.migrations
+            streamed = _sse_chat(url, stream_body, on_delta=migrate)
+            mig_thread[0].join(120)
+            if (res.get("ok") is not True
+                    or fm.scheduler.migrations != mig0 + 1
+                    or streamed["text"] != ref["stream"]["text"]
+                    or streamed["completion_tokens"] != FLEET_STREAM):
+                raise AssertionError(f"fleet (c): migrated {res}, tokens "
+                                     f"{streamed['completion_tokens']}, "
+                                     "text equal "
+                                     f"{streamed['text'] == ref['stream']['text']}")
+            out["c"] = {"donor": res["donor"],
+                        "tokens": streamed["completion_tokens"]}
+            # (d) failover and respawn: the replica the request routes to
+            # is killed as the request is submitted (the probe's route
+            # counts once in the router's reasons)
+            steps.note()
+            before_mem = torch.cuda.memory_allocated()
+            victim = {}
+
+            def kill_routed(req, _submit=recorded):
+                if not victim:
+                    t, _ = fm.router.route(req.prompt)
+                    t.kill()
+                    steps.note()
+                    victim["id"] = t.id
+                    victim["r"] = t
+                    start = t.start
+
+                    def measured_start():
+                        # the pool's respawn: stop() ran, start() comes
+                        torch.cuda.synchronize()
+                        victim["after_stop"] = torch.cuda.memory_allocated()
+                        del t.start
+                        return start()
+
+                    t.start = measured_start
+                return _submit(req)
+
+            fm.scheduler.submit = kill_routed
+            fail0 = fm.scheduler.failovers
+            fresp = json.loads(_post(url, failover_body).read())
+            fm.scheduler.submit = recorded
+            rep = victim["r"]
+            t0 = time.monotonic()
+            while rep.state != "healthy" and time.monotonic() - t0 < 300:
+                time.sleep(0.1)
+            respawn_s = time.monotonic() - t0
+            torch.cuda.synchronize()
+            gc.collect()
+            after_mem = torch.cuda.memory_allocated()
+            routed = _get_json(server.url + "/v1/fleet")["models"][FLEET][
+                "router"]["routed"]
+            freed = before_mem - victim.get("after_stop", before_mem)
+            if (text(fresp) != text(ref["failover"])
+                    or fm.scheduler.failovers != fail0 + 1
+                    or routed["failover"] < 1 or rep.state != "healthy"
+                    or freed < 0.9 * one_bytes
+                    or after_mem > before_mem + 0.1 * one_bytes):
+                raise AssertionError(f"fleet (d): state {rep.state}, "
+                                     f"failovers {fm.scheduler.failovers}, "
+                                     f"memory {before_mem} → "
+                                     f"{victim.get('after_stop')} (stopped) "
+                                     f"→ {after_mem}, a replica "
+                                     f"{one_bytes}")
+            out["d"] = {"killed": victim["id"], "respawn_s": respawn_s,
+                        "memory_before_gb": before_mem / 1e9,
+                        "freed_at_stop_gb": freed / 1e9,
+                        "memory_after_gb": after_mem / 1e9}
+            # (f) the flight view and a stitched trace
+            flight = _get_json(server.url + "/debug/fleet/flight")[
+                "models"][FLEET]
+            trace = _get_json(server.url + "/v1/traces/fleet-b")
+            tagged = {e["replica"] for e in trace["waterfall"]
+                      if e["replica"]}
+            rings = {r["replica"] for r in flight["records"]}
+            if (not any(t.endswith("/p0") for t in tagged)
+                    or dest[0] not in tagged or len(rings) < 2):
+                raise AssertionError(f"fleet (f): waterfall replicas "
+                                     f"{tagged}, flight rings {rings}")
+            out["f"] = {"waterfall_replicas": sorted(tagged),
+                        "flight_records": flight["count"]}
+            total = steps.total()
+            _fleet_check_k1(f"{FLEET} (a)–(d)", kernels, total, L)
+            out["launches"] = kernels["paged_decode_attention"].launches
+            out["decode_steps"] = total
+            out["routed"] = dict(routed)
+        finally:
+            server.shutdown()
+            _env(saved)
+            server = fm = steps = rep = victim = handles = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["left_after_fleet_gb"] = released("the first fleet")
+        out["e"] = _fleet_autoscale(card, base_env, kernels, L)
+        out["left_after_autoscale_gb"] = released("the autoscaled fleet")
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if out["peak_gb"] > 75.0:
+            raise AssertionError(f"fleet: peak memory {out['peak_gb']:.1f} "
+                                 "GB over 75 GB")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    print("fleet: " + json.dumps(out), flush=True)
+    return out
+
+
+def _fleet_autoscale(card: str, base_env: dict, kernels: dict,
+                     L: int) -> dict:
+    """(e): the autoscaler over a 2-replica fleet, its thresholds lowered
+    by the ``LOCALAI_AUTOSCALE_*`` variables: a burst of 48 chats scales
+    out to 3 decode replicas, then idleness drains one back in."""
+    from localai_tpu_torch.cli.main import build_server
+
+    env = {**base_env, "LOCALAI_AUTOSCALE": "1",
+           "LOCALAI_AUTOSCALE_MIN": "2", "LOCALAI_AUTOSCALE_MAX": "3",
+           "LOCALAI_AUTOSCALE_INTERVAL_S": "0.25",
+           "LOCALAI_AUTOSCALE_IN_IDLE_S": "3",
+           "LOCALAI_AUTOSCALE_OUT_QUEUE": "1",
+           "LOCALAI_AUTOSCALE_OUT_COOLDOWN_S": "0",
+           "LOCALAI_AUTOSCALE_IN_COOLDOWN_S": "1"}
+    saved = _env(env)
+    server = None
+    try:
+        server = build_server(["run", "--fleet-backend", "inprocess",
+                               "--fleet-replicas", "2"]).start()
+        url = server.url + "/v1/chat/completions"
+        fm = server.manager.get(FLEET)
+        pool = fm.pool
+        one_bytes = _tree_bytes(pool.members()[0].sm.runner.params) \
+            + _tree_bytes(pool.members()[0].sm.runner._pool_tensors())
+        for w in kernels.values():
+            w.launches = 0
+        steps = _FleetSteps(fm)
+        drains: list = []
+        freed: list = []
+        remove, drain = pool.remove, fm.scheduler.drain
+
+        def noted_remove(rid, **kw):
+            steps.note()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            ok = remove(rid, **kw)
+            gc.collect()
+            torch.cuda.synchronize()
+            freed.append(before - torch.cuda.memory_allocated())
+            return ok
+
+        def noted_drain(rid, timeout=30.0):
+            r = drain(rid, timeout=timeout)
+            drains.append({rid: r})
+            return r
+
+        pool.remove, fm.scheduler.drain = noted_remove, noted_drain
+        results, errors, peak = [], [], [0]
+
+        def one(i):
+            try:
+                b = {"model": FLEET, "max_tokens": 64, "temperature": 0,
+                     "messages": [{"role": "user",
+                                   "content": f"burst request {i}"}]}
+                results.append(json.loads(_post(url, b).read()))
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(48)]
+        for t in threads:
+            t.start()
+        seen: dict = {}
+        while True:
+            n = len(pool.healthy("decode"))
+            peak[0] = max(peak[0], n)
+            if n >= 3:
+                seen.setdefault("out_s", time.monotonic() - t0)
+            elif "out_s" in seen:
+                seen.setdefault("in_s", time.monotonic() - t0)
+            steps.note()
+            if not any(t.is_alive() for t in threads):
+                seen.setdefault("burst_s", time.monotonic() - t0)
+                if peak[0] >= 3 or time.monotonic() - t0 > 90:
+                    break
+            time.sleep(0.1)
+        for t in threads:
+            t.join()
+        if errors or len(results) != 48 or any(
+                r["usage"]["completion_tokens"] <= 0 for r in results):
+            raise AssertionError(f"fleet (e): {len(errors)} of 48 burst "
+                                 "requests failed")
+        while len(pool.healthy("decode")) > 2 \
+                and time.monotonic() - t0 < 240:
+            steps.note()
+            time.sleep(0.1)
+        seen.setdefault("in_s", time.monotonic() - t0)
+        auto = fm.autoscaler.snapshot()
+        if (peak[0] < 3 or len(pool.healthy("decode")) != 2
+                or auto["decisions"]["scale_out"] < 1
+                or auto["decisions"]["scale_in"] < 1
+                or any(v["failed"] for d in drains for v in d.values())
+                or not freed or min(freed) < 0.8 * one_bytes):
+            raise AssertionError(f"fleet (e): peak {peak[0]} replicas, now "
+                                 f"{len(pool.healthy('decode'))}, "
+                                 f"decisions {auto['decisions']}, drains "
+                                 f"{drains}, freed {freed}")
+        total = steps.total()
+        _fleet_check_k1(f"{FLEET} (e)", kernels, total, L)
+        # seconds from the burst's start: its last answer, 3 replicas
+        # healthy, back to 2
+        return {**seen, "peak_replicas": peak[0],
+                "decisions": auto["decisions"], "drains": drains,
+                "freed_gb": [f / 1e9 for f in freed],
+                "replica_gb": one_bytes / 1e9,
+                "launches": kernels["paged_decode_attention"].launches,
+                "decode_steps": total}
+    finally:
+        if server is not None:
+            server.shutdown()
+        _env(saved)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _entry(name, source, replaces, launches, rec) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -9142,6 +9936,8 @@ def main() -> int:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     served["gallery"] = gallery["launches"]
     phase_stores(card)
+    tier = phase_kv_tier(card)
+    fleet = phase_fleet(card)
     t_qwen = time.monotonic()
     served["qwen"] = phase_serve_qwen(card)["launches"]
     print(f"group-7 serve: {time.monotonic() - t_qwen:.1f}s", flush=True)
@@ -9289,6 +10085,14 @@ def main() -> int:
         _entry("paged_decode_attention_gallery", k1_src, k1_tpu,
                served["gallery"]["paged_decode_attention"],
                gallery["k1_bt32"]),
+        # the host KV tier's serve (32 layers, bf16 at bt 64): K1 once per
+        # layer per decode step, reloaded blocks included
+        _entry("paged_decode_attention_kv_tier", k1_src, k1_tpu,
+               tier["launches"]["paged_decode_attention"], k1["bf16"]),
+        # the in-process fleets (SMOKE_LAYERS["fleet"] layers): K1 once per
+        # layer per decode step of every replica engine of both servers
+        _entry("paged_decode_attention_fleet", k1_src, k1_tpu,
+               fleet["launches"] + fleet["e"]["launches"], k1["bf16"]),
     ]
     print(f"smoke wall: {time.monotonic() - t_smoke:.1f}s")
     print(json.dumps({"kernels": kernels}))

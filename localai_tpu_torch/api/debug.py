@@ -36,9 +36,17 @@ issuing the eager step's kernels (see ``obs.anatomy`` for the caveats).
 multi-resolution metrics history (``?res=1|10|300``, ``?since=<unix
 ts>``).
 
+``GET /debug/fleet/flight`` — every fleet's replicas' flight rings
+merged into one table with a ``replica`` column, and a pane per replica
+(percentiles, anatomy fractions; a dead replica's pane says its state)
+(``obs.fleetview.fleet_flight``; ``?since=``, ``?limit=`` as above).
+
 ``GET /debug/kv`` — per-model paged block-pool audit: allocator stats,
-live tables, ``BlockAllocator.check_invariants()`` and the violations the
-scheduler's drain-time sweep has seen (``LOCALAI_KV_CHECK=1``).
+live tables, ``BlockAllocator.check_invariants()``, the violations the
+scheduler's drain-time sweep has seen (``LOCALAI_KV_CHECK=1``) and, with
+a host KV tier, its ``tier_stats()``; a fleet's entry is its KV economy:
+the prefix directory, sibling fetches, migrations and the replicas' tier
+sums.
 
 ``GET /debug/faults`` — the fault-injection registry (``faults``): whether
 anything is armed, the injection sites, the armed specs with their hit
@@ -46,9 +54,6 @@ and fire counts, and each supervised engine's ``status()``. ``POST`` a
 spec (``{"site", "mode", "after", "times", "match", "delay_s"}``) to arm
 it; ``DELETE`` (``?site=`` for one site) clears. Like every route but the
 exempt ones it needs the API key when keys are set.
-
-Left out: ``/debug/fleet/flight`` (fleets, ROADMAP item 23): 404 like any
-unported route.
 """
 
 from __future__ import annotations
@@ -147,6 +152,19 @@ def flight(manager, query) -> dict:
     return {"now_monotonic": round(time.monotonic(), 6), "models": models}
 
 
+def fleet_flight(manager, query) -> dict:
+    from localai_tpu_torch.obs import fleetview
+
+    since = _number(query, "since", 0.0, float,
+                    "a number (a record's monotonic ts)")
+    limit = max(1, min(_number(query, "limit", 256, int, "an integer"),
+                       4096))
+    models = {name: fleetview.fleet_flight(sm, since=since, limit=limit)
+              for name, sm in manager.loaded_snapshot().items()
+              if getattr(sm, "pool", None) is not None}
+    return {"now_monotonic": round(time.monotonic(), 6), "models": models}
+
+
 def anatomy(manager, query) -> dict:
     window = _number(query, "window", obs_anatomy.DEFAULT_WINDOW_S, float,
                      "a number (seconds)")
@@ -180,8 +198,27 @@ def history_series(manager, query, name: str) -> dict:
 def kv(manager, query) -> dict:
     models = {}
     for name, sm in manager.loaded_snapshot().items():
+        sched = getattr(sm, "scheduler", None)
         alloc = getattr(getattr(sm, "runner", None), "allocator", None)
         if alloc is None:
+            # a fleet facade has no allocator of its own: its KV economy
+            directory = getattr(sched, "directory", None)
+            if directory is not None:
+                models[name] = {
+                    "directory": directory.stats(),
+                    "sibling_transfers": sched.sibling_transfers,
+                    "sibling_fallbacks": sched.sibling_fallbacks,
+                    "migrations": sched.migrations,
+                    "migration_fallbacks": sched.migration_fallbacks,
+                }
+                m = sched.metrics()
+                if "kv_tier_spills" in m:
+                    models[name]["tier"] = {
+                        "blocks": m.get("kv_tier_blocks", 0),
+                        "bytes": m.get("kv_tier_bytes", 0),
+                        "spills_total": m.get("kv_tier_spills", 0),
+                        "reloads_total": m.get("kv_tier_reloads", 0),
+                    }
             continue  # contiguous / non-LLM engines
         st = alloc.stats()
         models[name] = {
@@ -194,9 +231,12 @@ def kv(manager, query) -> dict:
             "evictions_total": alloc.evictions_total,
             "invariant_violations": alloc.check_invariants(),
             # the scheduler's drain-time sweep (LOCALAI_KV_CHECK=1)
-            "violations_seen": getattr(getattr(sm, "scheduler", None),
-                                       "kv_invariant_violations", 0),
+            "violations_seen": getattr(sched, "kv_invariant_violations",
+                                       0),
         }
+        ts = alloc.tier_stats()
+        if ts is not None:
+            models[name]["tier"] = ts
     return {"models": models}
 
 
@@ -234,7 +274,7 @@ GET = {"/debug/devices": devices, "/debug/programs": programs,
        "/debug/stacks": stacks, "/debug/flight": flight,
        "/debug/anatomy": anatomy, "/debug/profiles": profiles,
        "/debug/history": history_index, "/debug/kv": kv,
-       "/debug/faults": faults_get}
+       "/debug/faults": faults_get, "/debug/fleet/flight": fleet_flight}
 POST = {"/debug/faults": faults_post}
 DELETE = {"/debug/faults": faults_delete}
 GET_PARAM = (("/debug/history/{series}", history_series),)

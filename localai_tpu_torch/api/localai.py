@@ -6,9 +6,10 @@ Port of the routes of ``localai_tpu/api/localai.py`` that the port can
 serve, written, as ``api.openai`` is, as framework-free functions over
 parsed JSON (``api.server`` maps HTTP onto them): GET handlers take
 ``(manager, query)``, POST handlers ``(manager, body)``. The JAX
-package's fleet routes (``/v1/fleet``, ``/v1/fleet/{model}/swap``,
-``/federated/register``) wait for fleets (ROADMAP item 23). ``/readyz``
-stays in ``api.openai``.
+package's fleet routes ``GET /v1/fleet`` and ``POST
+/v1/fleet/{model}/swap`` serve the port's in-process fleets;
+``/federated/register`` stays absent until the port has remote replicas
+(ROADMAP item 23, part 2). ``/readyz`` stays in ``api.openai``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,13 @@ def metrics(manager, query) -> str:
             HISTORY.observe_engine(name, m)
     LEDGER.export(REGISTRY)
     HISTORY.observe_ledger(LEDGER)
+    # the fleets' replica-state and directory gauges (host reads; the
+    # routed / transfer counters are event-driven)
+    for sm in manager.loaded_snapshot().values():
+        export = getattr(getattr(sm, "scheduler", None), "export_gauges",
+                         None)
+        if export is not None:
+            export()
     runners = [r for r in (getattr(sm, "runner", None)
                            for sm in manager.loaded_snapshot().values())
                if r is not None]
@@ -146,10 +154,61 @@ def usage(manager, query) -> dict:
     ts>`` or ``?window=<seconds>`` aggregate the bounded event ring
     instead of the lifetime totals (``coverage_start`` says how far back
     it reaches). Tenants are ``t-<sha256/12>`` buckets or ``anonymous`` —
-    a raw API key never appears. (The JAX package's ``?replicas=1`` fleet
-    drill-down comes with fleets, ROADMAP item 23.)"""
-    return LEDGER.usage_payload(since=_float_query(query, "since"),
-                                window=_float_query(query, "window"))
+    a raw API key never appears. ``?replicas=1`` adds the fleets'
+    per-replica panes under ``replicas`` (``obs.fleetview.fleet_usage``;
+    an in-process replica shares this process's ledger and says
+    ``shared_ledger``)."""
+    out = LEDGER.usage_payload(since=_float_query(query, "since"),
+                               window=_float_query(query, "window"))
+    if query.get("replicas") not in (None, "", "0"):
+        from localai_tpu_torch.obs.fleetview import fleet_usage
+
+        panes = {}
+        for name, sm in manager.loaded_snapshot().items():
+            if getattr(sm, "pool", None) is not None:
+                panes[name] = fleet_usage(sm)
+        out["replicas"] = panes
+    return out
+
+
+def fleet_status(manager, query) -> dict:
+    """GET /v1/fleet: per-model replica states, dial health, routing
+    counters by reason (affinity / directory / least_loaded / failover /
+    queue_override, and route-around), prefix transfers, the directory,
+    migrations, per-replica shedding and the autoscaler (``fleet``).
+    Models served by one engine are listed with ``fleet: false``."""
+    app = manager.app
+    out: dict = {}
+    for name, sm in manager.loaded_snapshot().items():
+        status_fn = getattr(sm, "fleet_status", None)
+        out[name] = ({"fleet": True, **status_fn()} if status_fn
+                     else {"fleet": False})
+    return {
+        "configured_replicas": app.fleet_replicas,
+        "configured_prefill_replicas": app.fleet_prefill_replicas,
+        "backend": app.fleet_backend,
+        "models": out,
+    }
+
+
+def fleet_swap(manager, body: dict, model: str):
+    """POST /v1/fleet/{model}/swap: the hot weight swap — boot fresh
+    replicas (``{"checkpoint": "ref"}`` switches weights; an empty body
+    recycles the current ones), shift router traffic, drain and retire
+    the old generation. 200 with the result, 409 when the swap did not
+    happen or the model is not fleet-served, 404 when it is not
+    loaded."""
+    checkpoint = body.get("checkpoint")
+    if checkpoint is not None and not isinstance(checkpoint, str):
+        raise APIError(400, "checkpoint must be a string")
+    sm = manager.loaded_snapshot().get(model)
+    if sm is None:
+        raise APIError(404, f"model {model!r} is not loaded")
+    swap_fn = getattr(sm, "swap", None)
+    if swap_fn is None:
+        raise APIError(409, f"model {model!r} is not fleet-served")
+    result = swap_fn(checkpoint)
+    return (200 if result.get("ok") else 409), {"model": model, **result}
 
 
 def backend_trace(manager, body: dict) -> dict:

@@ -17,9 +17,11 @@ under the JAX package's unversioned alias:
   * GET  /v1/models, /models  (``?filter=<regex>``)
   * GET  /, /healthz, /readyz, /version, /metrics, /system,
     /backend/metrics, /v1/slo, /v1/usage; POST /backend/trace
+  * GET  /v1/fleet; POST /v1/fleet/{model}/swap (``api.localai``; the
+    in-process fleets of ``fleet``)
   * GET  /v1/traces, /v1/traces/{trace_id}, /debug/timeline/{request_id}
   * GET  /debug/devices, /debug/programs, /debug/stacks, /debug/flight,
-    /debug/anatomy, /debug/profiles, /debug/history,
+    /debug/fleet/flight, /debug/anatomy, /debug/profiles, /debug/history,
     /debug/history/{series}, /debug/kv; GET/POST/DELETE /debug/faults
     (``api.debug``)
   * GET  /v1/files, /v1/files/{file_id}, /v1/files/{file_id}/content;
@@ -121,6 +123,7 @@ _GET = {"/v1/models": oa.list_models, "/models": oa.list_models,
         "/metrics": la.metrics, "/system": la.system,
         "/backend/metrics": la.engine_metrics,
         "/v1/slo": la.slo_report, "/v1/usage": la.usage,
+        "/v1/fleet": la.fleet_status,
         "/v1/traces": traces.list_traces, **debug.GET, **assistants.GET,
         **batches.GET, **gallery_api.GET}
 _DELETE = {**debug.DELETE, **gallery_api.DELETE_BODY}
@@ -141,6 +144,7 @@ _GET_PARAM = _param_routes((
     *gallery_api.GET_PARAM))
 _POST_PARAM = _param_routes((
     ("/v1/text-to-speech/{voice_id}", audio.elevenlabs_tts),
+    ("/v1/fleet/{model}/swap", la.fleet_swap),
     *batches.POST_PARAM, *gallery_api.POST_PARAM))
 _DELETE_PARAM = _param_routes(assistants.DELETE_PARAM)
 # paths reachable without an API key (the JAX package's AUTH_EXEMPT; the
@@ -308,13 +312,16 @@ class _Handler(BaseHTTPRequestHandler):
     def _reply(self, out) -> None:
         """A handler's answer: a dict as JSON, a str as plain text
         (OpenMetrics, a text transcript), a (content type, bytes) pair as
-        that body, else an iterator of SSE frames."""
+        that body, a (status, dict) pair as JSON with that status, else an
+        iterator of SSE frames."""
         if isinstance(out, dict):
             return self._json(200, out)
         if isinstance(out, str):
             return self._send(200, out.encode("utf-8"),
                               "text/plain; charset=utf-8")
         if isinstance(out, tuple):
+            if isinstance(out[0], int):
+                return self._json(*out)
             ctype, body = out
             return self._send(200, body, ctype)
         # SSE: HTTP/1.0 semantics — the stream ends when the connection

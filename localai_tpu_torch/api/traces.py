@@ -1,23 +1,26 @@
 """Tracing endpoints: recent span trees and per-request timelines.
 
 Port of ``localai_tpu/api/traces.py`` over the local trace store
-(``obs.trace.STORE``); the fleet's stitched replica halves come with the
-fleet (ROADMAP item 23), so ``/v1/traces/{id}`` answers the JAX package's
-body with no replica pane.
+(``obs.trace.STORE``).
 
 ``GET /v1/traces`` — newest-first span trees (``?limit=N``,
 ``?kind=request|http``, ``?model=name``).
 
-``GET /v1/traces/{trace_id}`` — every trace of one trace id (or engine
-request id) and their spans merged into one time-ordered waterfall.
+``GET /v1/traces/{trace_id}`` — one stitched waterfall for one trace id:
+the front door's spans plus every fleet replica's half, harvested from
+the replicas the spans name and skew-anchored to the local dispatch span
+(``obs.fleetview.stitch``); a dead replica is an ``unreachable`` pane.
 
 ``GET /debug/timeline/{request_id}`` — the same traces as one flat,
-time-ordered timeline with offsets from the earliest span.
+time-ordered timeline with offsets from the earliest span; when the trace
+crossed fleet replicas, the stitched waterfall rides along under
+``fleet``.
 """
 
 from __future__ import annotations
 
 from localai_tpu_torch.api.openai import APIError
+from localai_tpu_torch.obs import fleetview
 from localai_tpu_torch.obs.trace import STORE, mono_to_wall
 
 
@@ -43,24 +46,32 @@ def _find(ident: str) -> list:
     return hits
 
 
+def _harvest_tid(ident: str, hits: list):
+    """The genuine trace id to harvest replicas by: ``ident`` also matches
+    engine request ids (per-replica counters), which must never be sent
+    to a replica as a trace id."""
+    tids = {t.trace_id for t in hits}
+    return ident if ident in tids else (
+        next(iter(tids)) if len(tids) == 1 else None)
+
+
+def _stitched(manager, tid: str, local: list[dict]) -> dict:
+    """Harvest every fleet-served model's replicas named by this trace's
+    spans and stitch one waterfall."""
+    harvested: dict[str, dict] = {}
+    for sm in manager.loaded_snapshot().values():
+        if getattr(sm, "pool", None) is not None:
+            harvested.update(fleetview.harvest_for_trace(sm, tid, local))
+    return fleetview.stitch(tid, local, harvested)
+
+
 def trace_detail(manager, query: dict, trace_id: str) -> dict:
-    """The JAX package's stitched body for a trace that crossed no
-    replica: the local traces and their spans as one waterfall."""
-    local = [t.to_dict() for t in _find(trace_id)]
-    origin = min((float(t["start_unix"]) for t in local), default=0.0)
-    events = [{
-        "replica": "",
-        "source": tr.get("request_id", ""),
-        "kind": tr.get("kind", ""),
-        "name": span.get("name", ""),
-        "offset_ms": round(
-            (float(span.get("start_unix") or origin) - origin) * 1e3, 3),
-        "duration_ms": span.get("duration_ms"),
-        "attrs": span.get("attrs") or {},
-    } for tr in local for span in tr.get("children", ())]
-    events.sort(key=lambda e: e["offset_ms"])
-    return {"trace_id": trace_id, "start_unix": round(origin, 6),
-            "traces": local, "replicas": {}, "waterfall": events}
+    hits = _find(trace_id)
+    local = [t.to_dict() for t in hits]
+    harvest_tid = _harvest_tid(trace_id, hits)
+    if harvest_tid is None:
+        return fleetview.stitch(trace_id, local, {})
+    return _stitched(manager, harvest_tid, local)
 
 
 def timeline(manager, query: dict, request_id: str) -> dict:
@@ -79,9 +90,16 @@ def timeline(manager, query: dict, request_id: str) -> dict:
                 "attrs": dict(s.attrs),
             })
     events.sort(key=lambda e: e["offset_ms"])
-    return {
+    local = [t.to_dict() for t in hits]
+    body = {
         "request_id": request_id,
         "start_unix": round(mono_to_wall(origin), 6),
-        "traces": [t.to_dict() for t in hits],
+        "traces": local,
         "timeline": events,
     }
+    harvest_tid = _harvest_tid(request_id, hits)
+    if harvest_tid is not None and fleetview.replica_ids_for_trace(local):
+        stitched = _stitched(manager, harvest_tid, local)
+        body["fleet"] = {"replicas": stitched["replicas"],
+                         "waterfall": stitched["waterfall"]}
+    return body

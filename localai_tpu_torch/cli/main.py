@@ -31,9 +31,16 @@ flags (``--slo-ttft-p95-ms``, ``--slo-tpot-p95-ms``, ``--slo-e2e-p95-ms``,
 ``--slo-queue-p95-ms``, ``--slo-burn-threshold``; ``None`` = the
 ``LOCALAI_SLO_*`` variable stands) reach the SLO observatory through
 ``AppConfig``. ``--batch-concurrency`` and ``--batch-expiry-h`` reach the batch
-executor through ``AppConfig``. A flag or variable of a feature the port
-has not yet (fleets, autoscaling, meshes) stops ``run`` with exit code
-2 and the ROADMAP item that brings it; none is dropped silently.
+executor through ``AppConfig``. The fleet and autoscale flags
+(``--fleet-*``, ``--autoscale*``, and their ``LOCALAI_FLEET_*`` /
+``LOCALAI_AUTOSCALE_*`` variables) reach the manager's fleets the same
+way; those that need the port's own transport (the worker backend, the
+JAX package's default, so ``--fleet-replicas 2`` needs
+``--fleet-backend inprocess``; ``--fleet-hosts``;
+``--fleet-device-pinning``; ``--autoscale-standby-hosts``) exit 2 naming
+ROADMAP item 23 (``fleet_refusals``). A flag or variable of a feature the
+port has not yet (meshes) stops ``run`` with exit code 2 and the ROADMAP
+item that brings it; none is dropped silently.
 
 :func:`build_server` builds the settings, the model registry, the config
 watcher and the bound server from ``argv`` and the environment;
@@ -52,7 +59,7 @@ from typing import Optional, Sequence
 
 from localai_tpu_torch import __version__
 from localai_tpu_torch.api.server import APIServer
-from localai_tpu_torch.config.app_config import AppConfig
+from localai_tpu_torch.config.app_config import AppConfig, fleet_refusals
 from localai_tpu_torch.config.loader import ConfigLoader
 from localai_tpu_torch.config.model_config import USECASES
 from localai_tpu_torch.config.watcher import (
@@ -83,26 +90,9 @@ def _env_bool(name: str, fallback: bool = False) -> bool:
 # run flags of features the port has not yet: flag → (AppConfig field of
 # the JAX package, the JAX package's default, the ROADMAP item)
 UNPORTED_RUN_FLAGS = {
-    "--fleet-replicas": ("fleet_replicas", 0, 23),
-    "--fleet-prefill-replicas": ("fleet_prefill_replicas", 0, 23),
-    "--fleet-backend": ("fleet_backend", "worker", 23),
-    "--fleet-disagg-threshold": ("fleet_disagg_threshold", 512, 23),
-    "--fleet-device-pinning": ("fleet_device_pinning", False, 23),
-    "--fleet-hosts": ("fleet_hosts", [], 23),
-    "--fleet-rpc-timeout-s": ("fleet_rpc_timeout_s", 120.0, 23),
-    "--autoscale": ("autoscale", False, 23),
-    "--autoscale-min": ("autoscale_min", 1, 23),
-    "--autoscale-max": ("autoscale_max", 4, 23),
-    "--autoscale-interval-s": ("autoscale_interval_s", 5.0, 23),
-    "--autoscale-in-idle-s": ("autoscale_in_idle_s", 120.0, 23),
-    "--autoscale-zero-idle-s": ("autoscale_zero_idle_s", 0.0, 23),
-    "--autoscale-standby-hosts": ("autoscale_standby_hosts", [], 23),
     "--mesh": ("mesh_shape", None, 19),
 }
-_WHAT = {19: "multi-GPU parallelism",
-         23: "fleets, autoscaling and the worker tier"}
-
-
+_WHAT = {19: "multi-GPU parallelism"}
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="localai_tpu_torch",
@@ -171,6 +161,55 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--batch-expiry-h", type=float, default=None,
                      help="hours before a non-terminal batch job expires "
                           "(default 24)")
+    # fleets (fleet): in-process replicas behind one cache-aware router
+    run.add_argument("--fleet-replicas", type=int, default=None,
+                     help="serve each LLM from N engine replicas behind "
+                          "one cache-aware router (0/1 = single engine)")
+    run.add_argument("--fleet-prefill-replicas", type=int, default=None,
+                     help="dedicated prefill replicas for disaggregated "
+                          "serving: long prompts prefill here and hand "
+                          "their KV prefix to a decode replica (default 0)")
+    run.add_argument("--fleet-backend", default=None,
+                     choices=["worker", "inprocess"],
+                     help="replica shape: inprocess engines (worker "
+                          "processes, the JAX package's default, are "
+                          "refused until the port has its own transport)")
+    run.add_argument("--fleet-disagg-threshold", type=int, default=None,
+                     help="prompt tokens at which a request takes the "
+                          "disaggregated prefill path (default 512)")
+    run.add_argument("--fleet-device-pinning", action="store_true",
+                     default=_env_bool("fleet_device_pinning"),
+                     help="refused: pins worker processes to devices")
+    run.add_argument("--fleet-hosts", default=None,
+                     help="refused: remote workers to adopt")
+    run.add_argument("--fleet-rpc-timeout-s", type=float, default=None,
+                     help="per-reply inactivity deadline on cross-"
+                          "replica streams (default 120; 0 disables)")
+    # elastic capacity (fleet.autoscale)
+    run.add_argument("--autoscale", action="store_true",
+                     default=_env_bool("autoscale"),
+                     help="telemetry-driven fleet autoscaling: scale "
+                          "decode replicas between --autoscale-min/max "
+                          "off queue depth, SLO burn, and KV pressure; "
+                          "drain-based scale-in loses no request")
+    run.add_argument("--autoscale-min", type=int, default=None,
+                     help="decode replica floor the autoscaler holds "
+                          "(default 1)")
+    run.add_argument("--autoscale-max", type=int, default=None,
+                     help="decode replica ceiling for scale-out "
+                          "(default 4)")
+    run.add_argument("--autoscale-interval-s", type=float, default=None,
+                     help="seconds between autoscale control-loop ticks "
+                          "(default 5)")
+    run.add_argument("--autoscale-in-idle-s", type=float, default=None,
+                     help="a replica idle this long (fleet above the "
+                          "floor) is drained and retired (default 120)")
+    run.add_argument("--autoscale-zero-idle-s", type=float, default=None,
+                     help="all replicas idle this long → scale the model "
+                          "to zero; the next request boots one and waits "
+                          "for it (0 = off, the default)")
+    run.add_argument("--autoscale-standby-hosts", default=None,
+                     help="refused: remote standby workers")
     # not ported yet: parsed as the JAX package parses them, and refused
     # when set (_unported_settings)
     for flag, (fld, default, _item) in UNPORTED_RUN_FLAGS.items():
@@ -184,9 +223,7 @@ def build_parser() -> argparse.ArgumentParser:
             run.add_argument(
                 flag, default=None,
                 type=(type(default) if isinstance(default, (int, float))
-                      else str),
-                choices=(["worker", "inprocess"]
-                         if flag == "--fleet-backend" else None))
+                      else str))
 
     models = sub.add_parser("models", help="model management")
     models_sub = models.add_subparsers(dest="models_command")
@@ -430,6 +467,25 @@ def app_config(args) -> AppConfig:
         # None = flag not given → LOCALAI_BATCH_* stands
         batch_concurrency=args.batch_concurrency,
         batch_expiry_h=args.batch_expiry_h,
+        # None = flag not given → LOCALAI_FLEET_* / LOCALAI_AUTOSCALE_*
+        # stand (the JAX package's precedence)
+        fleet_replicas=args.fleet_replicas,
+        fleet_prefill_replicas=args.fleet_prefill_replicas,
+        fleet_backend=args.fleet_backend,
+        fleet_disagg_threshold=args.fleet_disagg_threshold,
+        fleet_device_pinning=args.fleet_device_pinning or None,
+        fleet_hosts=([h for h in args.fleet_hosts.split(",") if h]
+                     if args.fleet_hosts is not None else None),
+        fleet_rpc_timeout_s=args.fleet_rpc_timeout_s,
+        autoscale=args.autoscale or None,
+        autoscale_min=args.autoscale_min,
+        autoscale_max=args.autoscale_max,
+        autoscale_interval_s=args.autoscale_interval_s,
+        autoscale_in_idle_s=args.autoscale_in_idle_s,
+        autoscale_zero_idle_s=args.autoscale_zero_idle_s,
+        autoscale_standby_hosts=(
+            [h for h in args.autoscale_standby_hosts.split(",") if h]
+            if args.autoscale_standby_hosts is not None else None),
         device=run_device(args),
     )
 
@@ -454,6 +510,9 @@ def build_server(argv: Optional[Sequence[str]] = None) -> APIServer:
         cfg = app_config(args)
     except ValueError as e:
         parser.error(str(e))
+    refused = fleet_refusals(cfg)
+    if refused:
+        parser.error("; ".join(refused))
     resolve_device(cfg.device)   # no card and no --device cpu: fail now
     loader = ConfigLoader(cfg.model_path)
     loader.load_from_path(context_size=cfg.context_size)

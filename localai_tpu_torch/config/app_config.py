@@ -5,9 +5,13 @@ feature reads, with the JAX package's defaults, each also read from
 ``LOCALAI_<FIELD>`` by :meth:`AppConfig.from_env`. ``device`` is the
 port's own (the card unless ``cpu`` is asked for), read from
 ``LOCALAI_DEVICE`` alike (``--platform`` is read into it by the CLI).
-The fields of features the port has not yet (fleets, autoscaling,
-meshes) are not here: ``cli/main.py`` refuses their flags and variables
-rather than dropping them.
+The fleet and autoscale fields are the JAX package's, with its defaults;
+of their values, those that need the port's own transport (the worker
+replica backend, ``fleet_hosts``, ``fleet_device_pinning``,
+``autoscale_standby_hosts``) are refused by ``cli/main.py`` at ``run``
+and by the manager at a fleet's load, naming ROADMAP item 23. The fields
+of meshes are not here: the CLI refuses ``--mesh`` rather than dropping
+it.
 """
 
 from __future__ import annotations
@@ -81,6 +85,39 @@ class AppConfig:
     slo_queue_p95_ms: float = 0.0
     slo_burn_threshold: float = 2.0
 
+    # fleets (fleet): serve each LLM from N data-parallel engine replicas
+    # behind one facade; 0/1 = a single engine. fleet_backend=inprocess
+    # builds N engines in this process (the port's only backend: the
+    # default, worker, needs the port's own transport, ROADMAP item 23
+    # part 2). fleet_prefill_replicas adds dedicated prefill replicas:
+    # prompts >= fleet_disagg_threshold tokens prefill there and hand
+    # their KV prefix to a decode replica. fleet_rpc_timeout_s bounds the
+    # silence between two replies of a replica's stream (0 = none).
+    # Env: LOCALAI_FLEET_REPLICAS etc.; CLI: --fleet-replicas etc.
+    fleet_replicas: int = 0
+    fleet_prefill_replicas: int = 0
+    fleet_backend: str = "worker"
+    fleet_disagg_threshold: int = 512
+    fleet_hosts: list[str] = field(default_factory=list)
+    fleet_rpc_timeout_s: float = 120.0
+    fleet_device_pinning: bool = False
+
+    # elastic capacity (fleet.autoscale): the closed-loop controller that
+    # scales each fleet between autoscale_min and autoscale_max decode
+    # replicas off queue depth / SLO burn / KV pressure, retires a
+    # replica idle past autoscale_in_idle_s, and, when
+    # autoscale_zero_idle_s > 0, scales a wholly idle model to zero
+    # replicas and boots one for the next request. Overload thresholds and
+    # cooldowns are environment-only (LOCALAI_AUTOSCALE_OUT_*,
+    # LOCALAI_AUTOSCALE_{IN,OUT}_COOLDOWN_S, ...)
+    autoscale: bool = False
+    autoscale_min: int = 1
+    autoscale_max: int = 4
+    autoscale_interval_s: float = 5.0
+    autoscale_in_idle_s: float = 120.0
+    autoscale_zero_idle_s: float = 0.0
+    autoscale_standby_hosts: list[str] = field(default_factory=list)
+
     device: str = "cuda"            # "cuda" (default) or "cpu", explicitly
 
     @classmethod
@@ -111,3 +148,37 @@ class AppConfig:
             if v is not None:
                 setattr(cfg, k, v)
         return cfg
+
+
+# fleet settings that need the port's own transport between processes
+# and hosts (ROADMAP item 23, part 2): field → what it asks for
+NEEDS_TRANSPORT = {
+    "fleet_hosts": "--fleet-hosts / LOCALAI_FLEET_HOSTS (remote replicas)",
+    "fleet_device_pinning": "--fleet-device-pinning / "
+                            "LOCALAI_FLEET_DEVICE_PINNING (worker "
+                            "processes pinned to devices)",
+    "autoscale_standby_hosts": "--autoscale-standby-hosts / "
+                               "LOCALAI_AUTOSCALE_STANDBY_HOSTS (remote "
+                               "standby replicas)",
+}
+
+
+def fleet_refusals(cfg: AppConfig) -> list[str]:
+    """Each fleet setting of ``cfg`` that needs the port's own transport,
+    as a message naming ROADMAP item 23: the worker replica backend (the
+    JAX package's default, so ``--fleet-replicas 2`` alone is refused),
+    remote hosts, device pinning and standby hosts. None of them runs
+    in-process in silence."""
+    out = []
+    if cfg.fleet_replicas > 1 and cfg.fleet_backend != "inprocess":
+        out.append(f"--fleet-backend {cfg.fleet_backend} (the JAX "
+                   "package's default: worker) runs replicas as worker "
+                   "processes, which need the "
+                   "port's own transport (ROADMAP item 23 part 2: the "
+                   "worker tier); pass --fleet-backend inprocess")
+    for fld, what in NEEDS_TRANSPORT.items():
+        if getattr(cfg, fld):
+            out.append(f"{what} needs the port's own transport (ROADMAP "
+                       "item 23 part 2: the worker tier and remote "
+                       "replicas)")
+    return out

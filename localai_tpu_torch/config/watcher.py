@@ -6,7 +6,7 @@ mtimes of registered files and runs each file's handler when it changes
 JSON array of keys) adds keys to the ones the server started with;
 removing it restores them. ``external_backends.json`` registers remote
 workers, which belong to the worker tier the port has not yet (ROADMAP
-item 23): its presence is logged as an error and nothing is registered.
+item 23, part 2): its presence is logged as an error and nothing is registered.
 """
 
 from __future__ import annotations
@@ -109,8 +109,8 @@ def attach_standard_handlers(watcher: ConfigWatcher, app) -> None:
     def on_external_backends(data: Optional[bytes]) -> None:
         if data is not None:
             log.error("%s/external_backends.json registers remote workers, "
-                      "which the port does not have yet (ROADMAP item 23: "
-                      "the worker tier); nothing is registered",
+                      "which the port does not have yet (ROADMAP item 23 "
+                      "part 2: the worker tier); nothing is registered",
                       watcher.dir)
 
     watcher.register("api_keys.json", on_api_keys)

@@ -18,6 +18,12 @@ blocks. All allocation state lives here on the host.
     in a refcounted pool; a later prompt with the same leading blocks maps
     them read-only and prefills only the tail.
   * **Block 0 is the trash block**, the write target of inactive slots.
+  * **An optional host tier under the prefix pool**
+    (``fleet.kveconomy.tiering.HostTier``, attached by the runner when
+    ``LOCALAI_KV_TIER_MB`` is set): an evicted pool block's rows spill
+    to host memory, and a chain walk that misses the pool but hits the
+    tier re-onboards the block and walks on. The allocator stays
+    device-blind: pack and load are the runner's callbacks.
 
 All mutation happens on the scheduler's engine thread; the lock guards
 the read side (stats from API threads).
@@ -93,6 +99,12 @@ class BlockAllocator:
         self._watermark = 0
         self.shared_tokens_total = 0
         self.evictions_total = 0     # prefix-pool blocks evicted (LRU)
+        # the optional host spill tier (attach_tier) and its counters
+        self._tier = None
+        self._tier_pack = None
+        self._tier_load = None
+        self.spills_total = 0
+        self.reloads_total = 0
 
     # -- sizing -----------------------------------------------------------
 
@@ -103,6 +115,72 @@ class BlockAllocator:
         """Prefix-pool blocks held only by the pool (evictable). Caller
         holds the lock."""
         return sum(1 for b in self._prefix.values() if self._ref[b] == 1)
+
+    # -- HBM→host tiering -------------------------------------------------
+
+    def attach_tier(self, tier, *, pack, load) -> None:
+        """Wire the host-RAM spill tier under the prefix pool.
+
+        ``pack(bid) -> payload dict`` copies one pool block's raw rows to
+        host memory; ``load(bid, payload)`` writes them back. Both are the
+        runner's, so this module never touches the device. Call before
+        serving starts."""
+        with self._lock:
+            self._tier = tier
+            self._tier_pack = pack
+            self._tier_load = load
+
+    def _spill(self, key: str, bid: int) -> None:
+        """Best-effort park of an evicted pool block in the host tier.
+        Caller holds the lock; a failed spill is a plain eviction."""
+        try:
+            payload = self._tier_pack(bid)
+            if payload is not None and self._tier.put(key, payload):
+                self.spills_total += 1
+        except Exception:  # noqa: BLE001 — a failed spill is a plain evict
+            pass
+
+    def _reload(self, key: str, exclude: list[int]) -> Optional[int]:
+        """Re-onboard a spilled chain block into a free (or freshly
+        evicted) pool block; returns its id as a pool-referenced prefix
+        entry, or None. Caller holds the lock. ``exclude`` keeps blocks
+        already matched by this walk (pool-referenced only until
+        allocate() pins them) from being picked as eviction victims."""
+        if not self._tier.contains(key):
+            return None
+        if self._free:
+            bid = self._free.pop()
+        else:
+            bid = self._evict_one(exclude=exclude)
+            if bid is None:
+                return None
+        payload = self._tier.take(key)
+        if payload is None:  # raced away (budget churn)
+            self._free.append(bid)
+            return None
+        try:
+            self._tier_load(bid, payload)
+        except Exception:  # noqa: BLE001 — a corrupt spill is a miss
+            self._free.append(bid)
+            return None
+        self._prefix[key] = bid
+        self._block_key[bid] = key
+        self._ref[bid] = 1
+        self.reloads_total += 1
+        return bid
+
+    def tier_stats(self) -> Optional[dict]:
+        """The spill tier's accounting (None when tiering is off)."""
+        with self._lock:
+            tier = self._tier
+            spills = self.spills_total
+            reloads = self.reloads_total
+        if tier is None:
+            return None
+        s = tier.stats()
+        s["spills_total"] = spills
+        s["reloads_total"] = reloads
+        return s
 
     # -- prefix sharing ---------------------------------------------------
 
@@ -131,6 +209,10 @@ class BlockAllocator:
         with self._lock:
             for key in self._chain(prompt, nb, bt):
                 bid = self._prefix.get(key)
+                if bid is None and self._tier is not None:
+                    # a pool miss, maybe a host hit: re-onboard the
+                    # spilled block and keep walking the chain
+                    bid = self._reload(key, exclude=out)
                 if bid is None:
                     break
                 out.append(bid)
@@ -160,19 +242,31 @@ class BlockAllocator:
                 self._block_key[bid] = key
                 self._ref[bid] += 1
                 added += 1
+                if self._tier is not None:
+                    # this chain just re-materialized in the pool from a
+                    # fresh prefill: a spilled copy is stale now (a block
+                    # is pool-resident XOR spilled, audited below)
+                    self._tier.discard(key)
         return added
 
-    def _evict_one(self) -> Optional[int]:
+    def _evict_one(self, exclude: Optional[list[int]] = None,
+                   ) -> Optional[int]:
         """Drop the LRU pool-only block; returns its id. Caller holds the
-        lock."""
+        lock. With a tier attached the victim's rows spill to host memory
+        first (best effort). ``exclude`` shields blocks a chain walk
+        already claimed (pool-referenced only until allocate pins them)
+        from victim selection."""
+        shielded = set(exclude or ())
         victim = next((k for k, b in self._prefix.items()
-                       if self._ref[b] == 1), None)
+                       if self._ref[b] == 1 and b not in shielded), None)
         if victim is None:
             return None
         bid = self._prefix.pop(victim)
         del self._block_key[bid]
         self._ref[bid] = 0
         self.evictions_total += 1
+        if self._tier is not None:
+            self._spill(victim, bid)
         return bid
 
     # -- allocate / release ----------------------------------------------
@@ -317,12 +411,13 @@ class BlockAllocator:
           * each speculation reservation is a tail of its own table that
             never entered the prefix pool;
           * the live blocks are exactly those reachable from a table or
-            the prefix pool (the conservation census).
+            the prefix pool (the conservation census);
+          * with a host tier attached, a chain lives in the pool XOR the
+            tier, and the tier holds no more bytes than its budget.
 
-        The JAX package's audit, less its host-tier checks (the port has
-        no KV tier). O(blocks + table rows) under the lock — called from
-        scheduler drains only behind ``LOCALAI_KV_CHECK`` and surfaced at
-        ``/debug/kv``."""
+        The JAX package's audit. O(blocks + table rows) under the lock —
+        called from scheduler drains only behind ``LOCALAI_KV_CHECK`` and
+        surfaced at ``/debug/kv``."""
         problems: list[str] = []
         with self._lock:
             free_set = set(self._free)
@@ -387,6 +482,21 @@ class BlockAllocator:
                         f"block {bid}")
             if len(self._block_key) != len(self._prefix):
                 problems.append("block-key index size != prefix pool size")
+            if self._tier is not None:
+                # tier residency: a chain in the pool AND the tier means a
+                # reload forgot to consume its spill (stale host rows
+                # would shadow newer pool contents on the next churn)
+                pool_keys = set(self._prefix)
+                for key in self._tier.keys():
+                    if key in pool_keys:
+                        problems.append(
+                            f"chain {key[:12]}… resident in the HBM pool "
+                            "AND spilled to the host tier")
+                ts = self._tier.stats()
+                if ts["bytes"] > ts["budget_bytes"]:
+                    problems.append(
+                        f"host tier over budget: {ts['bytes']} bytes "
+                        f"held vs {ts['budget_bytes']} budgeted")
             # conservation, derived INDEPENDENTLY of stats() (whose
             # ``used`` is total - free - cached by construction): every
             # live block must be reachable from a table or the prefix

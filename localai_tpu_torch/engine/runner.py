@@ -46,6 +46,11 @@ the JAX package become plain methods:
     ``load_prefix`` writes exported rows into a slot, contiguous or paged,
     so the next admission resumes past them. The format is the JAX
     package's: a directory written by either package is read by the other.
+  * The host spill tier (``LOCALAI_KV_TIER_MB``, read at every paged init
+    and ``reinit``): ``pack_block`` copies an evicted pool block to pinned
+    host memory asynchronously on the engine's stream, with a CUDA event
+    after it; ``load_block`` writes a spilled block back in place before
+    the next dispatch (``fleet.kveconomy.tiering``).
   * Observability (``obs``): every program entry point is wrapped by
     ``obs.compile.watch`` under the JAX package's program names (the first
     call of a shape counts as its compile and lands in the cost catalog
@@ -433,6 +438,18 @@ class ModelRunner:
             self.kv = kvc.init_paged_cache(cfg, self.num_blocks,
                                            self.block_tokens, self.kv_dtype,
                                            device=dev)
+            # the host spill tier under the prefix pool
+            # (LOCALAI_KV_TIER_MB, off by default), read at every init and
+            # reinit: a rebuilt pool starts cold, and stale spills of the
+            # old pool must not shadow it
+            from localai_tpu_torch.fleet.kveconomy.tiering import (
+                tier_from_env,
+            )
+
+            tier = tier_from_env()
+            if tier is not None:
+                self.allocator.attach_tier(tier, pack=self.pack_block,
+                                           load=self.load_block)
         else:
             self.allocator = self.block_tables = None
             self.kv = kvc.init_cache(cfg, self.num_slots, self.max_ctx,
@@ -1195,6 +1212,57 @@ class ModelRunner:
 
     def slot_position(self, slot: int) -> int:
         return int(self.slot_positions()[slot])
+
+    # -- the host spill tier (fleet.kveconomy.tiering) -------------------
+
+    def _pool_tensors(self) -> dict:
+        kv = self.kv
+        out = {"k": kv.k, "v": kv.v}
+        if kv.k_scale is not None:
+            out["k_scale"], out["v_scale"] = kv.k_scale, kv.v_scale
+        return out
+
+    def pack_block(self, bid: int):
+        """One pool block's raw rows in host memory: the spill payload of
+        the allocator's host tier. Rows keep the pool dtype byte for byte
+        (bf16 stays bf16, int4 nibble-packed, scales f32), so a spill and
+        its reload are an identity. On the card each tensor's block goes
+        to pinned memory by one asynchronous copy on the current stream,
+        ordered before whatever later overwrites the block, and the
+        payload carries the event recorded after the copies
+        (``BlockPayload.wait`` before a host read); the engine thread does
+        not wait."""
+        from localai_tpu_torch.fleet.kveconomy.tiering import BlockPayload
+
+        if not self.paged:
+            return None
+        out = BlockPayload()
+        cuda = self.device.type == "cuda"
+        for name, t in self._pool_tensors().items():
+            src = t[:, bid]
+            if cuda:
+                host = torch.empty(src.shape, dtype=src.dtype,
+                                   pin_memory=True)
+                host.copy_(src, non_blocking=True)
+            else:
+                host = src.clone()
+            out[name] = host
+        if cuda:
+            out.event = torch.cuda.Event()
+            out.event.record()
+        return out
+
+    def load_block(self, bid: int, payload: dict) -> None:
+        """Write a spilled block's rows back into pool block ``bid`` in
+        place (a tier reload; the inverse of :meth:`pack_block`), on the
+        current stream, before the next dispatch reads the pool."""
+        for name, t in self._pool_tensors().items():
+            src = payload[name]
+            if (tuple(src.shape) != tuple(t.shape[:1] + t.shape[2:])
+                    or src.dtype != t.dtype):
+                raise ValueError(f"spilled {name} rows ({src.dtype}, "
+                                 f"{tuple(src.shape)}) do not fit the pool")
+            t[:, bid].copy_(src, non_blocking=True)
 
     # -- prompt-cache persistence (engine.promptcache) -------------------
 

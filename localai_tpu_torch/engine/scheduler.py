@@ -73,7 +73,12 @@ A lean port of ``localai_tpu/engine/scheduler.py``. One engine thread:
     ``LOCALAI_KV_CHECK=1``, sweeps the block allocator's invariants at
     every drain (``kv_invariant_violations``).
 
-Left out (see ROADMAP): fleets.
+Under a fleet (``fleet.serving``) each in-process replica is one
+scheduler: its release exports a migrating request's prompt + generation
+KV (``GenHandle.migrate_export``), and a replica's in-memory prefix cache
+fronts a configured disk cache (``attach_prompt_cache(layer=True)``).
+With a host KV tier attached to the block allocator, ``metrics()``
+reports the ``kv_tier_*`` keys.
 """
 
 from __future__ import annotations
@@ -202,6 +207,11 @@ class GenHandle:
         self.t_done: Optional[float] = None
         # lifecycle trace (obs.RequestTrace), attached by the scheduler
         self.trace = None
+        # live-migration export flag (fleet.kveconomy): a migration
+        # cancels the request but still needs its prompt + generation KV
+        # snapshotted into the prompt cache at release; set by the
+        # replica's migrate_out before cancel()
+        self.migrate_export = False
         # NaN-guard receipt: set by Scheduler._poisoned just before the
         # error release, so the ledger classifies the waste as
         # nan_quarantine instead of a generic error
@@ -471,11 +481,23 @@ class Scheduler:
             self._pc_thread.join(timeout)
             self._pc_thread = None
 
-    def attach_prompt_cache(self, prompt_cache: Optional[Any]) -> None:
-        """Attach a prompt KV cache (no-op for None or when one is
-        attached) and start the writer thread for a writable one."""
-        if prompt_cache is None or self.prompt_cache is not None:
+    def attach_prompt_cache(self, prompt_cache: Optional[Any],
+                            *, layer: bool = False) -> None:
+        """Attach a prompt KV cache and start the writer thread for a
+        writable one. A no-op for None or when a cache is attached —
+        unless ``layer=True`` and the attached cache lacks the
+        store-signalling surface the fleet's prefix export waits on
+        (``wait_for``): then the new cache fronts it (``fallthrough``), so
+        a configured disk prompt cache keeps working under a fleet
+        replica's in-memory prefix cache (``fleet.prefix``). Safe while
+        the engine thread runs: it reads the attribute once an admission
+        or release."""
+        if prompt_cache is None:
             return
+        if self.prompt_cache is not None:
+            if not layer or hasattr(self.prompt_cache, "wait_for"):
+                return
+            prompt_cache.fallthrough = self.prompt_cache
         self.prompt_cache = prompt_cache
         if not prompt_cache.read_only and self._pc_thread is None:
             self._pc_thread = threading.Thread(
@@ -1057,6 +1079,15 @@ class Scheduler:
                 "prefill_chunk_queue_depth": sum(
                     p.adm.chunks_remaining for p in list(self._prefills)),
             }
+            ts = alloc.tier_stats()
+            if ts is not None:
+                paged_stats.update({
+                    "kv_tier_blocks": ts["entries"],
+                    "kv_tier_bytes": ts["bytes"],
+                    "kv_tier_budget_bytes": ts["budget_bytes"],
+                    "kv_tier_spills": ts["spills_total"],
+                    "kv_tier_reloads": ts["reloads_total"],
+                })
         out = {
             "active_slots": active,
             "num_slots": num_slots,
@@ -1638,13 +1669,17 @@ class Scheduler:
                 self.total_preemptions += 1
         pc = self.prompt_cache
         r = self._resident.get(slot)
+        # a live migration cancels the request but exports its KV
+        migrating = reason == "cancelled" and ctx.handle.migrate_export
         if (pc is not None and not pc.read_only and r
-                and reason in ("stop", "length")):
+                and (reason in ("stop", "length") or migrating)):
             # the prompt's rows, or with prompt_cache_all the generation's
             # too (the last sampled token has no KV row); the length comes
-            # from the host record, so no device read
+            # from the host record, so no device read. A migration export
+            # always keeps the generation: the destination resumes from
+            # the full token record's frontier
             pos = min(len(r) - 1, self.runner.max_ctx - 1)
-            keep = (pos if self.prompt_cache_all
+            keep = (pos if (self.prompt_cache_all or migrating)
                     else min(ctx.handle.prompt_tokens, pos))
             if keep >= pc.min_prefix:
                 try:

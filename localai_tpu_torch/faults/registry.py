@@ -11,11 +11,11 @@ run on every test pass instead of only in production incidents.
 
 The port fires ``engine.dispatch``, ``engine.drain``, ``engine.compile``
 (a program shape's first call: the port compiles nothing at run time),
-``decode.nan``, ``paged.allocate`` and ``spec.draft``. ``SITES`` lists
-the JAX package's ten, so ``GET /debug/faults`` answers the same table;
-the worker and fleet sites (``worker.stream``, ``fleet.*``) can be armed
-but never fire on the port until the worker tier and fleets are ported
-(ROADMAP item 23).
+``decode.nan``, ``paged.allocate`` and ``spec.draft``, and, in its
+in-process fleets, ``worker.stream`` (an in-process replica's reply
+stream), ``fleet.dial``, ``fleet.respawn``, ``fleet.transport`` and
+``fleet.sibling``: all ten of the JAX package's ``SITES``, so ``GET
+/debug/faults`` answers the same table.
 
 Zero overhead when disarmed
 ---------------------------

@@ -52,7 +52,7 @@ import time
 from pathlib import Path
 from typing import Any, Iterator, Optional
 
-from localai_tpu_torch.config.app_config import AppConfig
+from localai_tpu_torch.config.app_config import AppConfig, fleet_refusals
 from localai_tpu_torch.config.loader import ConfigLoader
 from localai_tpu_torch.config.model_config import ModelConfig
 from localai_tpu_torch.engine.promptcache import PromptKVCache
@@ -577,7 +577,23 @@ class ModelManager:
             return sm
 
     def _load(self, mcfg: ModelConfig) -> Any:
-        """The JAX package's routing of a text-generation config."""
+        """The JAX package's routing of a text-generation config. With
+        ``fleet_replicas`` > 1 an LLM is served by a fleet of engine
+        replicas behind one facade (``fleet``); embeddings- and
+        rerank-capable models keep the single-engine path, as in the JAX
+        package (the fleet facade speaks only the generation stream, and
+        /v1/embeddings and /v1/rerank need the runner's ``embed``)."""
+        app = self.app
+        if ((app.fleet_replicas > 1 or app.fleet_hosts)
+                and mcfg.backend in ("", "worker")):
+            if (mcfg.has_usecase("embeddings")
+                    or mcfg.has_usecase("rerank")):
+                log.warning(
+                    "model %s: embeddings/rerank-capable models are not "
+                    "fleet-served; keeping the single-engine path",
+                    mcfg.name)
+            else:
+                return self._load_fleet(mcfg)
         if mcfg.backend in ("huggingface", "langchain-huggingface"):
             from localai_tpu_torch.models.hf_api import HFApiServingModel
 
@@ -589,6 +605,47 @@ class ModelManager:
 
             return MambaServingModel(mcfg, self.app)
         return build_serving_model(mcfg, self.app)
+
+    def _load_fleet(self, mcfg: ModelConfig) -> Any:
+        """A FleetServingModel: ``fleet_replicas`` decode and
+        ``fleet_prefill_replicas`` prefill engines in this process
+        (``fleet_backend: inprocess``), each built by
+        :func:`build_serving_model` under its replica id as its model
+        name, so its telemetry does not double-count the fleet's. The
+        factory reads the model config from a holder at spawn time, so a
+        hot swap's rebinding makes later spawns boot the new checkpoint.
+        Settings that need the port's own transport (the worker backend,
+        remote hosts, device pinning, standby hosts) raise, naming
+        ROADMAP item 23: none of them runs in-process in silence."""
+        from localai_tpu_torch.fleet import FleetServingModel
+        from localai_tpu_torch.fleet.replica import InProcessReplica
+
+        app = self.app
+        refused = fleet_refusals(app)
+        if refused:
+            raise RuntimeError(f"model {mcfg.name!r}: "
+                               + "; ".join(refused))
+        cfg_ref = {"mcfg": mcfg}
+
+        def factory(rid: str, role: str):
+            live = cfg_ref["mcfg"]
+            rcfg = dataclasses.replace(live, name=rid,
+                                       model=live.model or live.name)
+            return InProcessReplica(
+                rid, role, lambda: build_serving_model(rcfg, app))
+
+        fm = FleetServingModel(
+            mcfg, app, factory,
+            replicas=app.fleet_replicas,
+            prefill_replicas=app.fleet_prefill_replicas,
+        )
+        fm.cfg_ref = cfg_ref
+        if app.autoscale:
+            from localai_tpu_torch.fleet.autoscale import AutoscaleController
+
+            fm.autoscaler = AutoscaleController(fm, manager=self)
+            fm.autoscaler.start()
+        return fm
 
     def _load_reranker(self, mcfg: ModelConfig) -> RerankServingModel:
         from localai_tpu_torch.models.reranker import resolve_reranker

@@ -33,9 +33,9 @@ failover_reprefill    prompt tokens re-prefilled after a replica failover
 migration_reprefill   prompt tokens re-prefilled by a migration fallback
 ====================  ====================================================
 
-``nan_quarantine``, ``failover_reprefill`` and ``migration_reprefill``
-exist here, and nothing on the port feeds them yet (the NaN quarantine
-and fleets come later).
+``nan_quarantine`` is fed by the scheduler's NaN quarantine,
+``failover_reprefill`` and ``migration_reprefill`` by the fleet's
+dispatch thread (``fleet.serving``).
 
 Per engine the token-emitting classes reconcile exactly against the
 flight ring: ``goodput_tokens + cancelled + error + nan_quarantine tokens

@@ -19,8 +19,12 @@ owners (``obs.engine``, ``obs.slo``, ``obs.watchdog``, ``obs.compile``,
 ``update_engine_gauges`` from the scheduler's ``metrics()`` dict, so the
 decode loop never touches the registry. Four help texts name the port's
 machinery where the JAX package's name JAX's (first-dispatch counts,
-profiler captures, the memory census). Families of the subsystems the
-port does not have yet (fleet, KV tiering) come with them.
+profiler captures, the memory census). The fleet's families
+(``localai_fleet_*``, the KV tier's four ``localai_kv_tier_*``, the
+autoscaler's decisions and target, model swaps) are fed by ``fleet`` and
+at scrape time; those of remote replicas (adoptions, evictions, redials,
+their backoff) read 0 until the port has remote replicas (ROADMAP item
+23, part 2).
 """
 
 from __future__ import annotations
@@ -337,6 +341,146 @@ class Registry:
             "localai_batch_queue_depth",
             "Requests waiting in the scheduler's background batch lane",
         )
+        # -- fleet router (fleet) --------------------------------------
+        self.fleet_replicas = Gauge(
+            "localai_fleet_replicas",
+            "Engine replicas per model by lifecycle state "
+            "(starting/healthy/dead/respawning)",
+        )
+        self.fleet_routed = Counter(
+            "localai_fleet_routed_total",
+            "Requests placed by the fleet router by reason "
+            "(affinity/directory/least_loaded/failover/queue_override)",
+        )
+        self.fleet_prefix_transfers = Counter(
+            "localai_fleet_prefix_transfers_total",
+            "Disaggregated prefill→decode KV-prefix handoffs completed",
+        )
+        self.fleet_prefix_transfer_bytes = Counter(
+            "localai_fleet_prefix_transfer_bytes_total",
+            "Packed KV-prefix bytes streamed between replicas over "
+            "TransferPrefix",
+        )
+        # -- fleet KV economy (fleet.kveconomy) ----------------------------
+        self.fleet_directory_entries = Gauge(
+            "localai_fleet_directory_entries",
+            "Prefix keys tracked by the fleet prefix directory "
+            "(which replica holds which prefix blocks)",
+        )
+        self.fleet_directory_hits = Counter(
+            "localai_fleet_directory_hits_total",
+            "Routing probes the prefix directory answered with a live "
+            "holder (request placed on known-warm KV)",
+        )
+        self.fleet_directory_misses = Counter(
+            "localai_fleet_directory_misses_total",
+            "Routing probes the prefix directory could not answer "
+            "(unknown key or no eligible holder — ring heuristic decides)",
+        )
+        self.fleet_directory_drops = Counter(
+            "localai_fleet_directory_drops_total",
+            "Directory entries invalidated: stale holders dropped after "
+            "a failed fetch + whole-replica invalidations on death",
+        )
+        self.fleet_sibling_transfers = Counter(
+            "localai_fleet_sibling_transfers_total",
+            "Directory-driven sibling KV-prefix fetches completed "
+            "(prefix pulled over TransferPrefix instead of re-prefilled)",
+        )
+        self.fleet_sibling_transfer_bytes = Counter(
+            "localai_fleet_sibling_transfer_bytes_total",
+            "Packed KV bytes moved by sibling prefix fetches",
+        )
+        self.fleet_sibling_fallbacks = Counter(
+            "localai_fleet_sibling_fallbacks_total",
+            "Sibling fetches that failed (stale directory entry / dying "
+            "donor) and fell back to a plain local prefill",
+        )
+        self.fleet_migrations = Counter(
+            "localai_fleet_migrations_total",
+            "Live in-flight slot migrations completed (request resumed "
+            "on the destination replica mid-generation)",
+        )
+        self.fleet_migration_fallbacks = Counter(
+            "localai_fleet_migration_fallbacks_total",
+            "Live migrations that could not complete and fell back "
+            "(full re-prefill re-dispatch, or error if already streamed)",
+        )
+        self.kv_tier_blocks = Gauge(
+            "localai_kv_tier_blocks",
+            "Cold prefix blocks currently resident in the host-RAM KV "
+            "tier (spilled out of HBM)",
+        )
+        self.kv_tier_bytes = Gauge(
+            "localai_kv_tier_bytes",
+            "Host-RAM bytes held by the KV tier (bounded by "
+            "LOCALAI_KV_TIER_MB)",
+        )
+        self.kv_tier_spills = Counter(
+            "localai_kv_tier_spills_total",
+            "Prefix blocks spilled HBM→host RAM at eviction instead of "
+            "being discarded",
+        )
+        self.kv_tier_reloads = Counter(
+            "localai_kv_tier_reloads_total",
+            "Spilled prefix blocks re-onboarded host RAM→HBM on a "
+            "prefix-match hit (a prefill saved by the tier)",
+        )
+        self.fleet_respawn_backoff = Gauge(
+            "localai_fleet_respawn_backoff_s",
+            "Current jittered-exponential respawn hold per dead replica "
+            "(0 after a successful rejoin)",
+        )
+        # cross-host fleet (remote replica adoption + network faults):
+        # remotes are evicted-with-redial, never respawned — this process
+        # does not own a peer's lifecycle
+        self.fleet_adoptions = Counter(
+            "localai_fleet_adoptions_total",
+            "Remote replicas adopted into a fleet pool (static "
+            "LOCALAI_FLEET_HOSTS entries + federation-registry joins)",
+        )
+        self.fleet_evictions = Counter(
+            "localai_fleet_evictions_total",
+            "Remote replicas evicted from routing after consecutive "
+            "failed health dials (partition / refused / flapping peer)",
+        )
+        self.fleet_redials = Counter(
+            "localai_fleet_redials_total",
+            "Evicted remote replicas successfully redialed back into "
+            "the routing ring",
+        )
+        self.fleet_redial_backoff = Gauge(
+            "localai_fleet_redial_backoff_s",
+            "Current jittered-exponential redial hold per evicted remote "
+            "replica (0 after a successful rejoin)",
+        )
+        self.fleet_rpc_retries = Counter(
+            "localai_fleet_rpc_retries_total",
+            "Bounded jittered retries of idempotent cross-host fleet "
+            "RPCs, by rpc name (fleet.net.call_with_retries)",
+        )
+        self.fleet_rpc_deadlines = Counter(
+            "localai_fleet_rpc_deadline_exceeded_total",
+            "Cross-host fleet RPCs (dispatch/prefill stream inactivity "
+            "or control-plane calls) that blew "
+            "LOCALAI_FLEET_RPC_TIMEOUT_S",
+        )
+        # -- elastic capacity (fleet.autoscale) ----------------------------
+        self.autoscale_decisions = Counter(
+            "localai_autoscale_decisions_total",
+            "Autoscale policy decisions applied per model by action "
+            "(scale_out/scale_in/scale_to_zero/cold_start/swap/none)",
+        )
+        self.fleet_target_replicas = Gauge(
+            "localai_fleet_target_replicas",
+            "Decode replica count the autoscale controller is steering "
+            "the fleet toward (0 while scaled to zero)",
+        )
+        self.model_swaps = Counter(
+            "localai_model_swaps_total",
+            "Hot weight swaps completed (fresh replicas booted on the "
+            "new checkpoint, traffic shifted, old replicas drained)",
+        )
         # -- fault injection + self-healing (localai_tpu_torch.faults) -----
         self.faults_injected = Counter(
             "localai_faults_injected_total",
@@ -520,9 +664,8 @@ PAGED_IMPLS = ("kernel", "torch")
 def update_engine_gauges(name: str, m: dict,
                          registry: Optional[Registry] = None) -> None:
     """Refresh the point-in-time engine series for one model from its
-    scheduler's ``metrics()`` dict (the JAX package's function, less the
-    KV tier's feeds, which the port has not). Called at /metrics scrape
-    time —
+    scheduler's ``metrics()`` dict (the JAX package's function). Called
+    at /metrics scrape time —
     counters are synced with ``set_total`` (monotone), gauges
     overwritten."""
     reg = registry or REGISTRY
@@ -561,6 +704,14 @@ def update_engine_gauges(name: str, m: dict,
             for label in PAGED_IMPLS:
                 reg.paged_kernel_impl.set(
                     1.0 if impl == label else 0.0, model=name, impl=label)
+    if "kv_tier_spills" in m:
+        # the host KV tier is attached (one engine, or a fleet's roll-up,
+        # which carries the tier sums without the kv_blocks pane)
+        reg.kv_tier_blocks.set(m.get("kv_tier_blocks", 0), model=name)
+        reg.kv_tier_bytes.set(m.get("kv_tier_bytes", 0), model=name)
+        reg.kv_tier_spills.set_total(m.get("kv_tier_spills", 0), model=name)
+        reg.kv_tier_reloads.set_total(
+            m.get("kv_tier_reloads", 0), model=name)
     reg.decode_dispatches.set_total(m.get("dispatches", 0), model=name)
     if m.get("shed_total"):
         # shed admissions are whole-request waste (no tokens were ever

@@ -16,6 +16,7 @@ code 2; and the request deadline (``--request-deadline-s``,
 and cancelling a generation at its expiry with 504.
 """
 
+import dataclasses
 import json
 import logging
 import os
@@ -143,6 +144,11 @@ def test_bare_device_variable_is_not_read(clean_env):
     assert cli.app_config(args).device == "cuda"
 
 
+# the fleet and autoscale settings, compared with the JAX package's
+FLEET_FIELDS = [f.name for f in dataclasses.fields(AppConfig)
+                if f.name.startswith(("fleet_", "autoscale"))]
+
+
 @pytest.mark.parametrize("argv,env,item", [
     (["run", "--fleet-replicas", "2"], {}, 23),
     # ported: the batch lane's settings reach AppConfig as on the JAX
@@ -151,7 +157,7 @@ def test_bare_device_variable_is_not_read(clean_env):
      None),
     (["run", "--batch-concurrency", "0"], {"LOCALAI_BATCH_EXPIRY_H": "2"},
      None),
-    (["run", "--autoscale"], {}, 23),
+    (["run", "--autoscale"], {}, None),
     (["run", "--mesh", "data=2"], {}, 19),
     # ported: --platform cpu runs on the CPU, as the JAX package's forces
     # its CPU platform (item None)
@@ -162,14 +168,34 @@ def test_bare_device_variable_is_not_read(clean_env):
     # text the refusal names)
     (["run", "--platform", "tpu"], {}, "'tpu'"),
     (["run"], {"LOCALAI_PLATFORM": "tpu"}, "'tpu'"),
+    # ported: in-process fleets and their autoscaler reach AppConfig as on
+    # the JAX package (item None); what needs the port's own transport
+    # (worker replicas, remote hosts, device pinning, standby hosts) is
+    # refused naming item 23
+    (["run", "--fleet-backend", "inprocess", "--fleet-replicas", "2",
+      "--fleet-prefill-replicas", "1", "--fleet-disagg-threshold", "256",
+      "--fleet-rpc-timeout-s", "30"], {}, None),
+    (["run"], {"LOCALAI_FLEET_REPLICAS": "2",
+               "LOCALAI_FLEET_BACKEND": "inprocess",
+               "LOCALAI_AUTOSCALE_MAX": "3"}, None),
+    (["run", "--fleet-backend", "worker", "--fleet-replicas", "3"], {}, 23),
+    (["run", "--fleet-backend", "inprocess", "--fleet-hosts", "h:1"], {},
+     23),
+    (["run"], {"LOCALAI_FLEET_HOSTS": "h:1,h:2"}, 23),
+    (["run", "--fleet-device-pinning"], {}, 23),
+    (["run", "--autoscale-standby-hosts", "h:1"], {}, 23),
 ], ids=["fleet", "batch", "batch-0", "autoscale", "mesh", "platform",
-        "env-fleet", "env-mesh", "platform-tpu", "env-platform-tpu"])
+        "env-fleet", "env-mesh", "platform-tpu", "env-platform-tpu",
+        "fleet-inprocess", "env-fleet-inprocess", "fleet-worker",
+        "fleet-hosts", "env-fleet-hosts", "fleet-pinning",
+        "autoscale-standby"])
 def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
                                       item):
     """An unported setting exits 2 naming its ROADMAP item, a refused one
     (``item`` a string) exits 2 naming it; a ported one (``item`` None:
-    the batch lane's, the platform) builds the server with the value in
-    its AppConfig, equal to the JAX package's."""
+    the batch lane's, the platform, in-process fleets and the autoscaler)
+    builds the server with the value in its AppConfig, equal to the JAX
+    package's."""
     for k, v in env.items():
         clean_env.setenv(k, v)
     if item is None:
@@ -181,12 +207,18 @@ def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
             "--models-path", str(tmp_path)])
         try:
             app = server.manager.app
-            assert (app.batch_concurrency, app.batch_expiry_h) == (
-                seen[0].batch_concurrency, seen[0].batch_expiry_h)
+            for f in ("batch_concurrency", "batch_expiry_h",
+                      *FLEET_FIELDS):
+                assert getattr(app, f) == getattr(seen[0], f), f
             if "--platform" in argv:
                 assert seen[0].platform == "cpu" and app.device == "cpu"
-            else:
+            elif "--batch-concurrency" in argv:
                 assert app.batch_concurrency == int(argv[2])
+            elif "--autoscale" in argv:
+                assert app.autoscale is True
+            else:
+                assert app.fleet_replicas == 2
+                assert app.fleet_backend == "inprocess"
         finally:
             server.shutdown()
         return
@@ -199,6 +231,9 @@ def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
         assert f"--platform {item}" in err and "ROADMAP" not in err
     else:
         assert f"ROADMAP item {item}" in err
+    if "--fleet-replicas" in argv or "LOCALAI_FLEET_REPLICAS" in env:
+        # the worker backend's refusal says what runs on the port
+        assert "--fleet-backend inprocess" in err
 
 
 @pytest.mark.parametrize("argv,env,device", [

@@ -1921,3 +1921,110 @@ def test_cuda_sweep_kernel_point_equals_plain(kv_dtype, block_tokens):
                                     num_buffers=2, reps=2, device="cuda",
                                     runs=runs)
         assert us == min(runs) > 0 and len(runs) == 2
+
+
+# -- the host KV tier on the card ---------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8", "int4"])
+def test_cuda_pool_block_round_trip_is_bit_exact(kv_dtype, monkeypatch):
+    """``pack_block`` copies a card pool block into pinned host memory
+    behind a CUDA event; after ``wait()`` the payload holds the block's
+    bytes, and ``load_block`` writes them back bit for bit without
+    touching another block; the payload's bytes equal a CPU pool's."""
+    _card()
+    monkeypatch.delenv("LOCALAI_KV_TIER_MB", raising=False)
+    from localai_tpu_torch.fleet.kveconomy.tiering import payload_nbytes
+
+    runners = {dev: _small_tiered(dev, kv_dtype) for dev in ("cuda", "cpu")}
+    r = runners["cuda"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    pool = r._pool_tensors()
+    for t in pool.values():
+        if t.is_floating_point():
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+        else:
+            t.copy_(torch.randint(-128, 128, t.shape, generator=g,
+                                  device="cuda", dtype=torch.int8))
+    before = {n: t.clone() for n, t in pool.items()}
+    payload = r.pack_block(5)
+    assert payload.event is not None
+    payload.wait()
+    for n, t in pool.items():
+        assert payload[n].is_pinned() and payload[n].dtype == t.dtype
+        assert torch.equal(payload[n].view(torch.uint8),
+                           before[n][:, 5].cpu().view(torch.uint8)), n
+        t[:, 5].zero_()
+    r.load_block(5, payload)
+    torch.cuda.synchronize()
+    for n, t in pool.items():
+        assert torch.equal(t.view(torch.uint8), before[n].view(torch.uint8))
+    assert payload_nbytes(payload) == payload_nbytes(
+        runners["cpu"].pack_block(5))
+
+
+def _small_tiered(dev, kv_dtype="float32"):
+    """debug:small on ``dev`` with a 12-block pool: a few prompts evict.
+    A bf16 pool computes in bf16 (the kernel takes a float pool in the
+    compute dtype), every other pool in float32."""
+    import dataclasses
+
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.models import llama as tl
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+
+    cfg = dataclasses.replace(
+        DEBUG_PRESETS["small"],
+        dtype="bfloat16" if kv_dtype == "bfloat16" else "float32")
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def to(p):
+        return ({k: to(v) for k, v in p.items()} if isinstance(p, dict)
+                else p.to(dev))
+
+    return ModelRunner(cfg, to(params), num_slots=2, max_ctx=96,
+                       prefill_buckets=[16, 32], kv_dtype=kv_dtype,
+                       paged=True, kv_block_tokens=16, prefill_chunk=16,
+                       kv_num_blocks=12, device=dev)
+
+
+def _tier_drill(r):
+    """A reference chain, cold fillers until it spills, the chain again:
+    (first ids, second ids)."""
+    def generate(prompt, steps):
+        s = r.acquire_slot()
+        out = [int(r.admit(s, list(prompt), temperature=0.0))]
+        out += [int(r.step()[s]) for _ in range(steps)]
+        r.release(s)
+        return out
+
+    prompt = list(b"spill me to host ram and bring me back intact")
+    first = generate(prompt, 5)
+    filler = 0
+    while r.allocator.spills_total < 1 and filler < 12:
+        generate([60 + filler] * 33, 2)
+        filler += 1
+    return first, generate(prompt, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["float32", "int4"])
+def test_cuda_tiered_runner_equals_the_cpu(kv_dtype, monkeypatch):
+    """``LOCALAI_KV_TIER_MB`` on the card: the evicted chain spills to
+    pinned memory, the next hit reloads it, K1 decodes over the reloaded
+    blocks, and the greedy ids and tier counters equal the CPU's."""
+    _card()
+    monkeypatch.setenv("LOCALAI_KV_TIER_MB", "8")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = _small_tiered(dev, kv_dtype)
+        k1 = tops.paged_decode_attention.launches
+        first, again = _tier_drill(r)
+        a = r.allocator
+        assert a.spills_total >= 1 and a.reloads_total >= 1
+        assert first == again and a.check_invariants() == []
+        if dev == "cuda":
+            assert tops.paged_decode_attention.launches > k1
+        out[dev] = (first, a.tier_stats())
+    assert out["cuda"] == out["cpu"]

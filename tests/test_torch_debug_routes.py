@@ -10,8 +10,9 @@ after the same greedy chat on each:
     (``/debug/programs``' rows: the keys both catalogs have; the port has
     no ``memory_analysis`` sizes), and a bad query parameter is a 400 on
     both; ``/debug/faults`` answers as the JAX server's (its site table
-    and the supervisor status), ``/debug/fleet/flight`` stays unported
-    (404 on the port);
+    and the supervisor status), and so does ``/debug/fleet/flight`` (no
+    fleet-served model here; the fleets' own view is held in
+    ``tests/test_torch_fleetview.py``);
   * the flight ring's records hold ``gap + sched + launch + sync <=
     dispatch_ms`` and their tokens sum to the tokens served;
   * ``/debug/devices``' census counts the runner's KV pool and weights
@@ -209,15 +210,17 @@ def test_history_series_as_the_jax_server(servers):
 
 @pytest.mark.parametrize("path", ["/debug/fleet/flight", "/debug/faults"])
 def test_unported_debug_routes_are_404(servers, path):
-    """``/debug/fleet/flight`` waits for fleets (404 on the port);
-    ``/debug/faults`` is ported: it answers 200 on both servers with the
-    same keys, the same injection-site table and the supervisor status
-    of the served model."""
-    if path == "/debug/fleet/flight":
-        assert _call(servers["port"] + path)[0] == 404
-        return
+    """Both routes are ported now (the name is kept from when the port
+    answered ``/debug/fleet/flight`` with 404): they answer 200 on both
+    servers with the same keys. ``/debug/fleet/flight`` lists no model,
+    the served one being a single engine; ``/debug/faults`` has the same
+    injection-site table and the supervisor status of the served
+    model."""
     port, ref = _both(servers, path)
     assert _keys(port) == _keys(ref)
+    if path == "/debug/fleet/flight":
+        assert port["models"] == ref["models"] == {}
+        return
     assert port["sites"] == ref["sites"]
     assert port["active"] is ref["active"] is False
     assert port["armed"] == ref["armed"] == []

@@ -1,9 +1,11 @@
 """The port's telemetry (its obs package and the scheduler's feeds) against
 the JAX package's, on the CPU.
 
-  * the two registries, fed the same observations (labels that need
-    escaping included), render the same OpenMetrics text for every family
-    they share; ``update_engine_gauges`` fed one metrics dict gives the
+  * the two registries hold the same families (the fleet's, the KV
+    tier's and the autoscaler's included) and, fed the same observations
+    (labels that need escaping included), render the same OpenMetrics
+    text for each; ``update_engine_gauges`` fed one metrics dict (a host
+    KV tier's keys included) gives the
     same series, the paged-kernel one-hot aside (the port's labels are
     kernel/torch where the JAX package's are pallas/lax);
   * ``RequestTrace.to_dict()`` and the trace store behave alike (shapes,
@@ -87,6 +89,29 @@ def _feed(reg):
     reg.tokens_generated.set_total(30, model="m")   # monotone: stays 40
     reg.batch_occupancy.set(0.5, model="m")
     reg.trace_ring_size.set(256)
+    # the fleet's families (fleet, fleet.kveconomy, fleet.autoscale)
+    for state in ("starting", "healthy", "dead", "respawning", "evicted"):
+        reg.fleet_replicas.set(1 if state == "healthy" else 0, model="m",
+                               state=state)
+    reg.fleet_routed.inc(model="m", reason="affinity")
+    reg.fleet_routed.inc(2, model="m", reason="failover")
+    reg.fleet_prefix_transfers.inc(model="m")
+    reg.fleet_prefix_transfer_bytes.inc(1 << 20, model="m")
+    reg.fleet_directory_entries.set(3, model="m")
+    reg.fleet_directory_hits.set_total(5, model="m")
+    reg.fleet_directory_misses.set_total(2, model="m")
+    reg.fleet_directory_drops.set_total(1, model="m")
+    reg.fleet_sibling_transfers.inc(model="m")
+    reg.fleet_sibling_transfer_bytes.inc(4096, model="m")
+    reg.fleet_sibling_fallbacks.inc(model="m")
+    reg.fleet_migrations.inc(model="m")
+    reg.fleet_migration_fallbacks.inc(model="m")
+    reg.fleet_respawn_backoff.set(1.25, model="m", replica="m/r0")
+    reg.fleet_rpc_retries.inc(rpc="transfer_prefix")
+    reg.fleet_rpc_deadlines.inc(model="m")
+    reg.autoscale_decisions.inc(model="m", action="scale_out")
+    reg.fleet_target_replicas.set(2, model="m")
+    reg.model_swaps.inc(model="m")
 
 
 def test_registries_render_alike():
@@ -96,6 +121,7 @@ def test_registries_render_alike():
     theirs = {m.name: m for m in ref._all()}
     shared = [m for m in port._all() if m.name in theirs]
     assert len(shared) == len(port._all())   # every port family is theirs
+    assert len(shared) == len(theirs)        # and every one of theirs
     for m in shared:
         if m.name in PORT_HELP:
             # the port's help names its own machinery: the samples agree
@@ -131,6 +157,10 @@ METRICS_DICT = {
     "dispatch_phase_ms": {"gap": {"p50": 0.5, "p90": 1.0, "p99": 2.0},
                           "launch": {"p50": 20.0, "p90": 25.0, "p99": 30.0},
                           "sync": {"p50": 1.0, "p99": 3.0}},
+    # a host KV tier under the pool (LOCALAI_KV_TIER_MB)
+    "kv_tier_blocks": 7, "kv_tier_bytes": 7 << 20,
+    "kv_tier_budget_bytes": 1 << 30, "kv_tier_spills": 9,
+    "kv_tier_reloads": 2,
 }
 
 
