@@ -319,6 +319,14 @@ Phases (any failure raises and the script exits non-zero):
      every request answered; texts equal a single engine's, K1 launches
      L per decode step summed over every replica engine, nothing is left
      on the card after each fleet, the peak stays under 75 GB.
+     ``http_surfaces`` serves debug:llama3-8b at full width and depth
+     and GETs every web UI page, ``/swagger`` and its document (with and
+     without ``Accept: text/html``), streams the chat page's own request
+     (greedy text, ``first_sse_write`` on its trace), creates and deletes
+     an assistant and its file, then streams the same chat through the
+     port's federation router over two front doors of the engine (peer
+     token checked), stops one for a failover and health sweeps; K1
+     launches L a decode step on both paths, nothing is left on the card.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -4400,8 +4408,10 @@ def _series(text: str, name: str, model: str) -> float:
 def phase_telemetry(srv, chats: list, key: Optional[str] = None) -> dict:
     """After a serve: the scrape's TTFT count and requests equal the chats
     served, its generated tokens the tokens the clients were sent; one
-    trace per chat at /v1/traces with the request spans in order, each
-    under its HTTP span's trace id; /healthz and /version answer 200.
+    trace per chat at /v1/traces with the request spans in order (and
+    ``first_sse_write`` once after the prefill on a streamed chat's, as
+    the JAX package's SSE writers mark it), each under its HTTP span's
+    trace id; /healthz and /version answer 200.
     ``chats`` is every chat of the serve (``_chats`` results); ``key`` the
     server's API key, if it has one."""
     url = srv.server.url
@@ -4424,9 +4434,19 @@ def phase_telemetry(srv, chats: list, key: Optional[str] = None) -> dict:
         url + f"/v1/traces?kind=request&model={srv.name}&limit=500", key)
     traces = json.loads(body)["traces"]
     names = [[c["name"] for c in t["children"]] for t in traces]
-    if len(traces) != n or any(x != REQUEST_SPANS for x in names):
+    # a streamed chat that sent content also marks its first SSE write
+    streamed = sum(1 for c in chats for r in c["results"].values()
+                   if "last" in r and r["text"])
+    marked = [x for x in names if "first_sse_write" in x]
+    if (len(traces) != n or len(marked) != streamed
+            or any([s for s in x if s != "first_sse_write"] != REQUEST_SPANS
+                   for x in names)
+            or any(x.count("first_sse_write") != 1
+                   or x.index("first_sse_write") < x.index("prefill")
+                   for x in marked)):
         raise AssertionError(f"{srv.name}: /v1/traces holds {len(traces)} "
-                             f"traces for {n} chats: {names}")
+                             f"traces for {n} chats ({streamed} streamed): "
+                             f"{names}")
     _, body, _ = _get(url + "/v1/traces?kind=http&limit=500", key)
     http_ids = {t["trace_id"] for t in json.loads(body)["traces"]}
     if any(t["trace_id"] not in http_ids for t in traces):
@@ -9838,6 +9858,304 @@ def _fleet_autoscale(card: str, base_env: dict, kernels: dict,
         torch.cuda.empty_cache()
 
 
+HTTP_MODEL = "llama3-8b-bf16-http"
+HTTP_NEW = 32                # the model's max_tokens: the chat page sends none
+HTTP_TOKEN = "smoke-peer-token"
+HTTP_TTFT_PAIRS = 24         # direct/router TTFT pairs of a 2-token chat
+HTTP_PROXY_PAIRS = 100       # direct/router pairs of GET /v1/models
+# the web UI's pages, each GET with and without Accept: text/html
+HTTP_PAGES = ("/", "/browse", "/chat/", f"/chat/{HTTP_MODEL}",
+              "/text2image/", "/tts/", "/talk/", f"/talk/{HTTP_MODEL}",
+              "/swarm", "/slo", "/fleet", "/usage", "/batches", "/swagger")
+_URL_HOST = re.compile(r"(?:https?:)?//([\w.\-\[\]:]+?)(?::\d+)?[/\"'\s]")
+
+
+def _http_get(url: str, accept: Optional[str] = None) -> tuple:
+    """(status, content type, body) of a GET."""
+    req = urllib.request.Request(
+        url, headers={"Accept": accept} if accept else {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers.get("Content-Type", ""), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type", ""), e.read()
+
+
+def _check_pages(base: str) -> dict:
+    """Every page and the OpenAPI document, GET with and without
+    ``Accept: text/html``: 200, HTML (JSON for ``/`` asked without it and
+    for doc.json), and no host named but loopback."""
+    kinds = {}
+    for path in HTTP_PAGES + ("/swagger/doc.json",):
+        for accept in ("text/html", None):
+            status, ctype, body = _http_get(base + path, accept)
+            want = ("application/json" if path == "/swagger/doc.json"
+                    or (path == "/" and accept is None) else "text/html")
+            hosts = set(_URL_HOST.findall(body.decode("utf-8", "replace")))
+            if (status != 200 or not ctype.startswith(want)
+                    or hosts - {"127.0.0.1", "localhost", "::1", "[::1]"}):
+                raise AssertionError(f"http surfaces: GET {path} (Accept "
+                                     f"{accept}): {status} {ctype}, hosts "
+                                     f"{sorted(hosts)}")
+            kinds[f"{path} {accept or '*/*'}"] = want
+    spec = json.loads(_http_get(base + "/swagger/doc.json")[2])
+    if "/v1/chat/completions" not in spec["paths"] or "/swarm/nodes" not in \
+            spec["paths"]:
+        raise AssertionError("http surfaces: doc.json misses a route")
+    return {"gets": len(kinds), "spec_paths": len(spec["paths"])}
+
+
+def _check_assistants(base: str) -> dict:
+    """Create, list, modify and delete an assistant, and upload, attach,
+    list, get and detach a file of it."""
+    def call(path, body=None, method=None, ctype="application/json"):
+        return _request(base + path, body=body, method=method, ctype=ctype)
+
+    st, a = call("/v1/assistants", {"model": HTTP_MODEL, "name": "smoke",
+                                    "tools": [{"type": "retrieval"}]})
+    aid = a["id"] if st == 200 else None
+    ctype, form = _upload_form({"purpose": "assistants"},
+                               {"file": ("notes.txt", b"the smoke's notes")})
+    steps = [(st, a)]
+    steps.append(call("/v1/assistants"))
+    steps.append(call(f"/v1/assistants/{aid}",
+                      {"model": HTTP_MODEL, "name": "renamed"}))
+    st, f = call("/v1/files", form, ctype=ctype)
+    steps.append((st, f))
+    fid = f["id"] if st == 200 else None
+    steps.append(call(f"/v1/assistants/{aid}/files", {"file_id": fid}))
+    steps.append(call(f"/v1/assistants/{aid}/files"))
+    steps.append(call(f"/v1/assistants/{aid}/files/{fid}"))
+    steps.append(call(f"/v1/assistants/{aid}/files/{fid}", method="DELETE"))
+    steps.append(call(f"/v1/assistants/{aid}", method="DELETE"))
+    steps.append(call(f"/v1/assistants/{aid}"))
+    codes = [s for s, _ in steps]
+    if (codes != [200] * 9 + [404] or steps[1][1][0]["id"] != aid
+            or steps[2][1]["name"] != "renamed"
+            or steps[5][1]["data"][0]["id"] != fid
+            or not steps[8][1]["deleted"]):
+        raise AssertionError(f"http surfaces: assistants answered {codes}")
+    return {"calls": len(steps), "codes": codes}
+
+
+def _router_cost(base: str, rbase: str, chat: dict) -> dict:
+    """The router's added latency, measured in pairs taken in turns (the
+    order inside a pair alternating) on the server ``base`` directly and
+    through the router ``rbase``: the TTFT of one streamed ``chat`` over
+    ``HTTP_TTFT_PAIRS`` pairs, and the wall of ``GET /v1/models`` (no
+    engine work, so the proxy's own cost stands out of less noise) over
+    ``HTTP_PROXY_PAIRS`` pairs. Each is the median of the pairs'
+    differences, beside the spread (10th to 90th percentile) of the
+    differences and of the direct samples."""
+
+    def chat_ttft(b):
+        t = _sse_chat(b + "/v1/chat/completions", chat)["ttft_s"]
+        if t is None:
+            raise AssertionError("http surfaces (d): a chat streamed no "
+                                 "content")
+        return t
+
+    def models_wall(b):
+        t = time.monotonic()
+        code = _http_get(b + "/v1/models")[0]
+        if code != 200:
+            raise AssertionError(f"http surfaces (d): /v1/models {code}")
+        return time.monotonic() - t
+
+    def q(xs, f):
+        return float(np.quantile(xs, f))
+
+    out = {}
+    for name, fn, n in (("ttft", chat_ttft, HTTP_TTFT_PAIRS),
+                        ("models_get", models_wall, HTTP_PROXY_PAIRS)):
+        direct, routed = [], []
+        for i in range(n):
+            if i % 2 == 0:
+                direct.append(fn(base))
+                routed.append(fn(rbase))
+            else:
+                routed.append(fn(rbase))
+                direct.append(fn(base))
+        diffs = [1e3 * (r - d) for d, r in zip(direct, routed)]
+        direct = [1e3 * t for t in direct]
+        out[name] = {"pairs": n,
+                     "direct_ms": [q(direct, f) for f in (0.1, 0.5, 0.9)],
+                     "router_ms_median": q([1e3 * t for t in routed], 0.5),
+                     "router_added_ms_median": q(diffs, 0.5),
+                     "router_added_ms_p10_p90": [q(diffs, 0.1),
+                                                 q(diffs, 0.9)]}
+    return out
+
+
+def phase_http_surfaces(card: str) -> dict:
+    """The web UI, Swagger, assistants and the federation router on the
+    main path: ``debug:llama3-8b`` (Llama-3-8B's widths and all 32 layers,
+    seeded bf16 weights drawn on the card), bf16 paged at bt 64, through
+    ``cli.main.build_server`` over HTTP. The lm_head columns of printable
+    bytes are scaled by 4 after the draw, so the byte tokenizer's greedy
+    text is printable (the chat page's body carries no logit bias):
+      (a) every web UI page, ``/swagger`` and ``/swagger/doc.json`` answer
+          200 with their content type, with and without ``Accept:
+          text/html``, and name no host but loopback;
+      (b) the chat page's own streamed body (model, messages, stream)
+          gives the greedy text of the same chat unstreamed, its trace
+          carries ``first_sse_write``, and K1 launches L a decode step;
+      (c) an assistant and an assistant file are created, listed,
+          modified, read and deleted;
+      (d) the port's ``FederatedServer`` on loopback over the server and a
+          second ``Listener`` on the same engine: both register with the
+          peer token (a wrong one is a 401), the streamed chat through the
+          router gives the same text and the node stats show it, then the
+          second node stops, the router fails over to the first (the
+          stopped node marked offline by that request alone: the router's
+          own sweeps are held off) and two health sweeps keep it offline;
+          K1 launches L a decode step over (d); the router's added
+          latency on a 2-token chat's TTFT and on ``GET /v1/models``,
+          direct and routed in turns (``_router_cost``);
+    then everything stops and the card holds what it held before."""
+    from localai_tpu_torch.api.server import Listener
+    from localai_tpu_torch.cli.main import build_server
+    from localai_tpu_torch.federation import FederatedServer
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+
+    L = DEBUG_PRESETS["llama3-8b"].num_layers
+    t_phase = time.monotonic()
+    root = Path(_scratch_dir("http-", 1 << 20))
+    models = root / "models"
+    models.mkdir()
+    (models / f"{HTTP_MODEL}.yaml").write_text(json.dumps({
+        "name": HTTP_MODEL, "model": "debug:llama3-8b",
+        "context_size": 2048, "seed": 13,
+        "parameters": {"max_tokens": HTTP_NEW, "temperature": 0},
+        "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
+                   "max_slots": 4, "kv_block_tokens": 64}}))
+    kernels = _all_kernels()
+    gc.collect()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    saved = _env({"LOCALAI_MODELS_PATH": models,
+                  "LOCALAI_ADDRESS": "127.0.0.1", "LOCALAI_PORT": "0",
+                  "LOCALAI_CONFIG_PATH": root / "conf",
+                  "LOCALAI_UPLOAD_PATH": root / "uploads"})
+    server = second = router = sm = None
+    out = {"card": card, "layers": L}
+    try:
+        server = build_server(["run"]).start()
+        t0 = time.monotonic()
+        sm = server.manager.get(HTTP_MODEL)
+        with torch.no_grad():
+            sm.runner.params["lm_head"][:, 32:127] *= 4
+        torch.cuda.synchronize()
+        out["load_s"] = time.monotonic() - t0
+        out["pages"] = _check_pages(server.url)
+        page = _http_get(server.url + f"/chat/{HTTP_MODEL}")[2].decode()
+        if ("fetch('/v1/chat/completions'" not in page
+                or "messages: HISTORY, stream: true" not in page):
+            raise AssertionError("http surfaces: the chat page sends "
+                                 "another request than the phase's")
+        # (b) the chat page's request, as its script builds it
+        chat = {"model": HTTP_MODEL, "stream": True, "messages": [
+            {"role": "user", "content": "Say hello to the web UI."}]}
+        url = server.url + "/v1/chat/completions"
+        plain = json.loads(_post(url, {**chat, "stream": False}).read())
+        want = plain["choices"][0]["message"]["content"]
+        ui = _counted(sm, kernels, lambda: _sse_chat(
+            url, chat, headers={"X-Trace-ID": "http-ui-chat"}))
+        got = ui.pop("result")
+        _check_k1(f"{HTTP_MODEL} chat page", ui, L)
+        trace = json.loads(_http_get(
+            server.url + "/v1/traces/http-ui-chat")[2])
+        marks = [c["name"] for t in trace["traces"]
+                 if t["kind"] == "request" for c in t["children"]]
+        if (got["text"] != want or not want.strip()
+                or got["completion_tokens"] != HTTP_NEW
+                or marks.count("first_sse_write") != 1):
+            raise AssertionError(f"http surfaces (b): text {got['text']!r} "
+                                 f"vs {want!r}, tokens "
+                                 f"{got['completion_tokens']}, spans "
+                                 f"{marks}")
+        out["ui"] = {"text": want, "ttft_s": got["ttft_s"],
+                     "launches": ui}
+        # (c) assistants
+        out["assistants"] = _check_assistants(server.url)
+        # (d) the federation router over two front doors of one engine
+        second = Listener(server.manager, "127.0.0.1", 0).start()
+        # no health sweep of its own during the drill: the failover is the
+        # request's, the eviction the sweeps called after it
+        router = FederatedServer([], peer_token=HTTP_TOKEN,
+                                 health_interval=3600).start()
+        reg = router.url + "/federated/register"
+        wrong = _request(reg, key="not-the-token",
+                         body={"address": f"127.0.0.1:{server.port}"})[0]
+        regs = [_request(reg, key=HTTP_TOKEN,
+                         body={"address": f"127.0.0.1:{p}"})[0]
+                for p in (server.port, second.port)]
+        if wrong != 401 or regs != [200, 200] or len(router.nodes()) != 2:
+            raise AssertionError(f"http surfaces (d): register {regs}, "
+                                 f"wrong token {wrong}")
+        rurl = router.url + "/v1/chat/completions"
+        node_b = next(n for n in router.nodes()
+                      if n.id == f"127.0.0.1:{second.port}")
+
+        def through_router():
+            first = _sse_chat(rurl, chat)
+            served = {n.id: n.requests_served for n in router.nodes()}
+            second.close()
+            node_b.requests_served = -1          # chosen first: it is down
+            again = _sse_chat(rurl, chat)
+            return first, served, again
+
+        fed = _counted(sm, kernels, through_router)
+        first, served, again = fed.pop("result")
+        _check_k1(f"{HTTP_MODEL} federation", fed, L)
+        failed_over = (node_b.online, node_b.failures)
+        router.check_health()
+        router.check_health()
+        listed = json.loads(_http_get(router.url + "/federated/nodes")[2])
+        states = {n["id"]: n["online"] for n in listed["nodes"]}
+        if (first["text"] != want or again["text"] != want
+                or sum(served.values()) != 1 or failed_over != (False, 1)
+                or states != {f"127.0.0.1:{server.port}": True,
+                              node_b.id: False}
+                or node_b.failures != 3):
+            raise AssertionError(f"http surfaces (d): texts "
+                                 f"{first['text']!r} / {again['text']!r}, "
+                                 f"served {served}, after the failover "
+                                 f"{failed_over}, nodes {states}, "
+                                 f"failures {node_b.failures}")
+        # the router's added latency (node A only; node B is offline)
+        out["federation"] = {
+            "launches": fed, "served": served,
+            "after_failover": failed_over,
+            "failures_after_sweeps": node_b.failures,
+            "nodes": states, "router_cost": _router_cost(
+                server.url, router.url, {**chat, "max_tokens": 2})}
+    finally:
+        if router is not None:
+            router.shutdown()
+        if second is not None:
+            second.close()
+        if server is not None:
+            server.shutdown()
+        _env(saved)
+        sm = server = second = router = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base_mem
+    out["left_gb"] = left / 1e9
+    if left > 0.25e9:
+        raise AssertionError(f"http surfaces: {left / 1e9:.2f} GB left on "
+                             "the card after teardown")
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"http surfaces ({card}): " + json.dumps(
+        {k: v for k, v in out.items() if k != "ui"}
+        | {"ui": {k: v for k, v in out["ui"].items() if k != "text"}}),
+        flush=True)
+    return out
+
+
 def _entry(name, source, replaces, launches, rec) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -9938,6 +10256,7 @@ def main() -> int:
     phase_stores(card)
     tier = phase_kv_tier(card)
     fleet = phase_fleet(card)
+    http = phase_http_surfaces(card)
     t_qwen = time.monotonic()
     served["qwen"] = phase_serve_qwen(card)["launches"]
     print(f"group-7 serve: {time.monotonic() - t_qwen:.1f}s", flush=True)
@@ -10093,6 +10412,15 @@ def main() -> int:
         # layer per decode step of every replica engine of both servers
         _entry("paged_decode_attention_fleet", k1_src, k1_tpu,
                fleet["launches"] + fleet["e"]["launches"], k1["bf16"]),
+        # the web UI's chat page (32 layers, bf16 at bt 64): K1 once per
+        # layer per decode step of its streamed chat; the same chat
+        # through the federation router, and again after a failover
+        _entry("paged_decode_attention_ui", k1_src, k1_tpu,
+               http["ui"]["launches"]["paged_decode_attention"],
+               k1["bf16"]),
+        _entry("paged_decode_attention_federation", k1_src, k1_tpu,
+               http["federation"]["launches"]["paged_decode_attention"],
+               k1["bf16"]),
     ]
     print(f"smoke wall: {time.monotonic() - t_smoke:.1f}s")
     print(json.dumps({"kernels": kernels}))

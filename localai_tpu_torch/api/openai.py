@@ -24,12 +24,12 @@ package ignores there: a silent no-op would serve something else than
 was asked for. A chat's ``image_url`` and ``video_url`` parts go through
 the model's vision tower (``api.inference.prepare_multimodal``); a
 reference that cannot be fetched or decoded is a 400, as on the JAX
-package.
+package. A streamed answer records ``first_sse_write`` on its request's
+trace after its first content frame (``api.streams.mark_first_write``).
 """
 
 from __future__ import annotations
 
-import json
 import math
 import queue
 import re
@@ -39,6 +39,11 @@ import uuid
 from typing import Any, Iterator, Optional
 
 from localai_tpu_torch.api import inference as inf
+from localai_tpu_torch.api.streams import (
+    SSE_DONE,
+    mark_first_write,
+    sse_event,
+)
 from localai_tpu_torch.engine.scheduler import GenHandle, GenRequest
 from localai_tpu_torch.obs import ledger as obs_ledger
 from localai_tpu_torch.templates.chat import (
@@ -48,9 +53,6 @@ from localai_tpu_torch.templates.chat import (
     build_edit_prompt,
 )
 from localai_tpu_torch.utils.media import MediaError
-
-SSE_DONE = b"data: [DONE]\n\n"
-
 
 class APIError(Exception):
     """An error the server reports as ``{"error": ...}`` with a status
@@ -62,13 +64,6 @@ class APIError(Exception):
         self.status = status
         self.message = message
         self.headers = dict(headers or {})
-
-
-def sse_event(payload: Any) -> bytes:
-    """One ``data: {json}`` SSE frame."""
-    return b"data: " + json.dumps(
-        payload, separators=(",", ":"), ensure_ascii=False
-    ).encode("utf-8") + b"\n\n"
 
 
 def new_id(prefix: str) -> str:
@@ -629,6 +624,7 @@ def _chat_stream(handle: GenHandle, rid: str, model: str, cfg,
             else:
                 yield sse_event(chat_chunk(rid, model,
                                            {"content": item.delta}))
+                mark_first_write(handle)
     except BaseException:
         handle.cancel()  # client went away: free the decode slot now
         raise
@@ -663,6 +659,7 @@ def _chat_stream_n(handles: list[GenHandle], rid: str,
             elif item.delta:
                 yield sse_event(chat_chunk(rid, model,
                                            {"content": item.delta}, index=i))
+                mark_first_write(handles[i])
     except BaseException:
         for h in handles:
             h.cancel()
@@ -738,6 +735,8 @@ def _completions_stream(handles: list[GenHandle], rid: str,
                 rid, model, [{"index": i, "text": text,
                               "finish_reason": finish}],
                 usage(h.prompt_tokens, h.completion_tokens)))
+            if finish is None:
+                mark_first_write(h)
     except BaseException:
         for h in handles:
             h.cancel()

@@ -25,8 +25,12 @@ under the JAX package's unversioned alias:
     /debug/history/{series}, /debug/kv; GET/POST/DELETE /debug/faults
     (``api.debug``)
   * GET  /v1/files, /v1/files/{file_id}, /v1/files/{file_id}/content;
-    POST /v1/files (multipart/form-data); DELETE /v1/files/{file_id}
-    (``api.assistants``, each also unversioned)
+    POST /v1/files (multipart/form-data); DELETE /v1/files/{file_id};
+    GET/POST /v1/assistants; GET/POST/DELETE
+    /v1/assistants/{assistant_id}; GET/POST
+    /v1/assistants/{assistant_id}/files; GET/DELETE
+    /v1/assistants/{assistant_id}/files/{file_id} (``api.assistants``,
+    each also unversioned)
   * POST /v1/batches, /v1/batches/{batch_id}/cancel; GET /v1/batches,
     /v1/batches/{batch_id} (``api.batches``)
   * POST /stores/set, /stores/get, /stores/delete, /stores/find
@@ -34,6 +38,12 @@ under the JAX package's unversioned alias:
   * POST /models/apply, /models/delete/{name}; GET /models/available,
     /models/jobs, /models/jobs/{uuid}; GET/POST/DELETE /models/galleries
     (``api.gallery``; DELETE takes a JSON body, as on the JAX package)
+  * GET  /swagger, /swagger/doc.json (``api.openapi``: the OpenAPI
+    document of this table)
+  * GET  the web UI's pages (``api.ui``): /browse, /chat/[model],
+    /text2image/[model], /tts/[model], /talk/[model], /swarm,
+    /swarm/nodes, /slo, /fleet, /usage, /batches, and / for a browser
+    (``Accept: text/html``); none of them under ``disable_webui``
 One thread per connection; each request blocks its own thread on the
 scheduler handle while the engine thread batches all of them. A request
 body is read up to ``MAX_BODY_BYTES`` (64 MiB, the JAX package's
@@ -48,7 +58,8 @@ by the matched route's pattern; bearer-key auth against
 ``AppConfig.api_keys`` (constant-time comparison; the paths of
 ``AUTH_EXEMPT`` are open; a 401 otherwise), which also stamps the
 request's usage-ledger tenant (``obs.ledger.derive_tenant`` of the key,
-``anonymous`` without one — never the raw key); CORS headers and
+``anonymous`` without one — never the raw key; a GET of a web UI page
+is open while the UI is on); CORS headers and
 ``OPTIONS`` answered 204 while ``cors`` is on; and, under
 ``opaque_errors``, 500 bodies that say only "internal error". An error
 answer carries its ``APIError``'s headers (a shed 429's ``Retry-After``).
@@ -82,7 +93,7 @@ from localai_tpu_torch.api import jina
 from localai_tpu_torch.api import stores as stores_api
 from localai_tpu_torch.api import localai as la
 from localai_tpu_torch.api import openai as oa
-from localai_tpu_torch.api import traces
+from localai_tpu_torch.api import openapi, traces, ui
 from localai_tpu_torch.models.manager import ModelManager
 from localai_tpu_torch.obs import history as obs_history
 from localai_tpu_torch.obs import ledger as obs_ledger
@@ -109,8 +120,8 @@ _POST = {"/v1/chat/completions": oa.chat, "/chat/completions": oa.chat,
          "/v1/sound-generation": audio.sound_generation,
          "/sound-generation": audio.sound_generation,
          "/v1/images/generations": images.generations,
-         **assistants.UPLOAD, **batches.POST, **debug.POST,
-         **stores_api.POST, **gallery_api.POST}
+         **assistants.POST, **assistants.UPLOAD, **batches.POST,
+         **debug.POST, **stores_api.POST, **gallery_api.POST}
 # POST routes whose body is multipart/form-data (the handler takes the
 # parsed fields), not JSON
 _MULTIPART = {"/v1/audio/transcriptions", *assistants.UPLOAD}
@@ -125,12 +136,12 @@ _GET = {"/v1/models": oa.list_models, "/models": oa.list_models,
         "/v1/slo": la.slo_report, "/v1/usage": la.usage,
         "/v1/fleet": la.fleet_status,
         "/v1/traces": traces.list_traces, **debug.GET, **assistants.GET,
-        **batches.GET, **gallery_api.GET}
+        **batches.GET, **gallery_api.GET, **openapi.GET}
 _DELETE = {**debug.DELETE, **gallery_api.DELETE_BODY}
 
 
 def _param_routes(routes) -> list:
-    """Routes with one path parameter: (pattern, compiled, handler)."""
+    """Routes with path parameters: (pattern, compiled, handler)."""
     return [(pattern, re.compile("^" + re.sub(r"\{\w+\}", "([^/]+)",
                                               pattern) + "$"), fn)
             for pattern, fn in routes]
@@ -145,10 +156,10 @@ _GET_PARAM = _param_routes((
 _POST_PARAM = _param_routes((
     ("/v1/text-to-speech/{voice_id}", audio.elevenlabs_tts),
     ("/v1/fleet/{model}/swap", la.fleet_swap),
-    *batches.POST_PARAM, *gallery_api.POST_PARAM))
+    *assistants.POST_PARAM, *batches.POST_PARAM, *gallery_api.POST_PARAM))
 _DELETE_PARAM = _param_routes(assistants.DELETE_PARAM)
 # paths reachable without an API key (the JAX package's AUTH_EXEMPT; the
-# web UI's own exemptions come with the UI, ROADMAP item 22)
+# web UI's pages have their own exemption, ui.UI_PREFIXES / UI_EXACT)
 AUTH_EXEMPT = {"/", "/healthz", "/readyz", "/version", "/swagger",
                "/swagger/doc.json"}
 # observability/probe paths whose HTTP spans are scrape noise: they get a
@@ -161,29 +172,50 @@ TRACE_SKIP_PREFIXES = ("/debug/timeline/", "/v1/traces/")
 
 
 def welcome(manager, query) -> dict:
-    """GET /: the JAX package's JSON welcome (its browser UI waits for
-    ROADMAP item 22)."""
+    """GET /: the JAX package's JSON welcome (a browser gets the web UI's
+    home, ``ui.home``, unless ``disable_webui``)."""
     return {"message": "LocalAI-TPU", "models": manager.loader.names(),
-            "endpoints": sorted({"/", *_POST, *_GET, *_DELETE,
-                                 *(p for p, _, _ in _GET_PARAM + _POST_PARAM
-                                   + _DELETE_PARAM)})}
+            "endpoints": sorted({p for _, p, _ in route_table(manager.app)})}
 
 
 _GET["/"] = welcome
+# the GET routes with the web UI's pages
+_GET_WEBUI = {**_GET, **ui.GET}
+_GET_PARAM_WEBUI = _GET_PARAM + _param_routes(ui.GET_PARAM)
 
 
-def _route(method: str, path: str):
+def _tables(method: str, webui: bool) -> tuple:
+    """(exact paths, parameter routes) a request of ``method`` may match."""
+    if method == "GET":
+        return ((_GET_WEBUI, _GET_PARAM_WEBUI) if webui
+                else (_GET, _GET_PARAM))
+    return ({"POST": _POST, "DELETE": _DELETE}.get(method, {}),
+            {"POST": _POST_PARAM, "DELETE": _DELETE_PARAM}.get(method, []))
+
+
+def route_table(app) -> list:
+    """(method, path pattern, handler) of every route the server matches
+    under the settings ``app`` (the welcome's endpoints and the OpenAPI
+    document read it)."""
+    out = []
+    for method in ("GET", "POST", "DELETE"):
+        exact, params = _tables(method, not app.disable_webui)
+        out += [(method, p, fn) for p, fn in exact.items()]
+        out += [(method, p, fn) for p, _, fn in params]
+    return out
+
+
+def _route(method: str, path: str, webui: bool = True):
     """(canonical path, handler, path parameters) of a request, or None:
     the canonical path is the route's pattern, never the raw URL."""
-    table = {"POST": _POST, "GET": _GET, "DELETE": _DELETE}.get(method, {})
+    table, params = _tables(method, webui)
     if path in table:
         return path, table[path], ()
-    params = {"GET": _GET_PARAM, "POST": _POST_PARAM,
-              "DELETE": _DELETE_PARAM}.get(method, [])
     for pattern, rx, fn in params:
         m = rx.match(path)
         if m:
-            return pattern, fn, (urllib.parse.unquote(m.group(1)),)
+            return pattern, fn, tuple(urllib.parse.unquote(g)
+                                      for g in m.groups())
     return None
 
 
@@ -244,9 +276,13 @@ class _Handler(BaseHTTPRequestHandler):
         token equal to one of the keys; otherwise answer 401. The
         admitted request's ledger tenant (``derive_tenant`` of its key,
         ``anonymous`` without one), or None after the 401."""
-        keys = self.server.manager.app.api_keys
+        app = self.server.manager.app
+        keys = app.api_keys
         if not keys or path in AUTH_EXEMPT:
             return obs_ledger.ANONYMOUS
+        if (self.command == "GET" and not app.disable_webui
+                and (path.startswith(ui.UI_PREFIXES) or path in ui.UI_EXACT)):
+            return obs_ledger.ANONYMOUS     # a page: its data needs the key
         token = self.headers.get("Authorization", "").removeprefix(
             "Bearer ").strip()
         if token and any(secrets.compare_digest(token, k) for k in keys):
@@ -275,7 +311,8 @@ class _Handler(BaseHTTPRequestHandler):
                                 or self.headers.get("X-Correlation-ID")
                                 or obs_trace.new_trace_id())
         self._status = 500
-        route = _route(self.command, path)
+        route = _route(self.command, path,
+                       not self.server.manager.app.disable_webui)
         canonical = route[0] if route else "(unmatched)"
         log_token = obs_logging.bind_trace_id(tid)
         cid_token = inf.bind_correlation_id(
@@ -361,6 +398,9 @@ class _Handler(BaseHTTPRequestHandler):
         if route is None:
             return self._error(404, f"no route {self.path}")
         canonical, fn, params = route
+        if (canonical == "/" and not self.server.manager.app.disable_webui
+                and ui.wants_html(self.headers)):
+            fn = ui.home
         qs = self.path.partition("?")[2]
         query = {k: v[-1] for k, v in urllib.parse.parse_qs(qs).items()}
         if self.command == "DELETE" and canonical in gallery_api.DELETE_BODY:
@@ -401,6 +441,11 @@ class _Handler(BaseHTTPRequestHandler):
                     body = audio.parse_multipart(
                         self.headers.get("Content-Type", ""), raw,
                         kw.get("filenames"))
+                elif canonical in assistants.JSON_ANY:
+                    try:
+                        body = json.loads(raw)
+                    except ValueError:
+                        return self._error(400, assistants.PARSE_ERROR)
                 else:
                     body = json.loads(raw or b"{}")
                     if not isinstance(body, dict):
@@ -434,6 +479,40 @@ class _HTTPServer(ThreadingHTTPServer):
         self.manager = manager
 
 
+class Listener:
+    """One address serving a manager's routes on a thread of its own
+    (port 0 binds a free port). An :class:`APIServer` listens through
+    one; another over the same manager is a second front door to the
+    same engines, and ``close`` stops only it."""
+
+    def __init__(self, manager: ModelManager, address: str = "127.0.0.1",
+                 port: int = 0):
+        self._httpd = _HTTPServer((address, port), manager)
+        self.address, self.port = self._httpd.server_address[:2]
+        self._thread: threading.Thread | None = None
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.address}:{self.port}"
+
+    def start(self) -> "Listener":
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="http", daemon=True)
+        self._thread.start()
+        return self
+
+    def serve_forever(self) -> None:
+        self._httpd.serve_forever()
+
+    def close(self) -> None:
+        """Stop accepting requests and release the address."""
+        if self._thread is not None:
+            self._httpd.shutdown()
+            self._thread.join()
+            self._thread = None
+        self._httpd.server_close()
+
+
 class APIServer:
     """The port's OpenAI-compatible server over one ModelManager. Port 0
     binds a free port (read ``.port`` after construction)."""
@@ -453,15 +532,19 @@ class APIServer:
         # fault injection: LOCALAI_FAULT_* specs armed once, at boot
         faults.install_from_env()
         # /v1/files + /v1/batches: the registry and the job store, reloaded
-        # from upload_path (jobs that survived a restart resume now)
+        # from upload_path (jobs that survived a restart resume now);
+        # /v1/assistants: the assistants, reloaded from config_path, their
+        # files in that registry
         manager.batch_state = batches.BatchState(app, manager)
+        manager.assistants = assistants.AssistantStore(
+            app.config_path, app.upload_path,
+            registry=manager.batch_state.files)
         # /stores/*: the vector stores, on the app's device; /models/*:
         # the galleries and the install job runner
         manager.stores = StoreRegistry(device=app.device)
         manager.gallery = gallery_api.GalleryState(app, manager.loader)
-        self._httpd = _HTTPServer((address, port), manager)
-        self.address, self.port = self._httpd.server_address[:2]
-        self._thread: threading.Thread | None = None
+        self._listener = Listener(manager, address, port)
+        self.address, self.port = self._listener.address, self._listener.port
         self.watcher = None     # a config.watcher.ConfigWatcher, if any
 
     @property
@@ -469,23 +552,18 @@ class APIServer:
         return f"http://{self.address}:{self.port}"
 
     def start(self) -> "APIServer":
-        self._thread = threading.Thread(target=self._httpd.serve_forever,
-                                        name="http", daemon=True)
-        self._thread.start()
+        self._listener.start()
         return self
 
     def serve_forever(self) -> None:
-        self._httpd.serve_forever()
+        self._listener.serve_forever()
 
     def shutdown(self) -> None:
         """Stop accepting requests, the config watcher, the batch
         executor, then every engine."""
         if self.watcher is not None:
             self.watcher.stop()
-        if self._thread is not None:
-            self._httpd.shutdown()
-            self._thread.join()
-        self._httpd.server_close()
+        self._listener.close()
         # the executor stops before the engines: an in-progress job stays
         # durable and resumes from its output file at the next boot
         self.manager.batch_state.shutdown()

@@ -15,6 +15,10 @@ Port of ``localai_tpu/cli/main.py`` for what the port has:
   tts TEXT...                synthesize speech to a wav file
   transcript FILE            transcribe a wav file
   sound-generation TEXT...   generate audio from a text description
+  federated                  a federation router over instances
+                             (``--peers``, ``--random-worker``,
+                             ``--target-worker``, ``--peer-token``)
+  explorer --router URL      the discovery dashboard over routers
   version
 
 ``run`` takes the JAX package's flags with their defaults, each also read
@@ -38,9 +42,16 @@ way; those that need the port's own transport (the worker backend, the
 JAX package's default, so ``--fleet-replicas 2`` needs
 ``--fleet-backend inprocess``; ``--fleet-hosts``;
 ``--fleet-device-pinning``; ``--autoscale-standby-hosts``) exit 2 naming
-ROADMAP item 23 (``fleet_refusals``). A flag or variable of a feature the
-port has not yet (meshes) stops ``run`` with exit code 2 and the ROADMAP
-item that brings it; none is dropped silently.
+ROADMAP item 23 (``fleet_refusals``). ``--disable-webui`` and the
+federation flags (``--federated``, ``--federated-router``,
+``--federated-advertise``, ``--peer-token``, ``--swarm-routers``) reach
+``AppConfig`` over their ``LOCALAI_*`` variables (the JAX package reads
+them from the environment alone; ``p2p`` has no flag on either and is read
+from ``LOCALAI_P2P`` only); with ``federated``
+and a router, ``build_server`` announces the instance to it. A flag or
+variable of a feature the port has not yet (meshes) stops ``run`` with
+exit code 2 and the ROADMAP item that brings it; none is dropped
+silently.
 
 :func:`build_server` builds the settings, the model registry, the config
 watcher and the bound server from ``argv`` and the environment;
@@ -53,6 +64,7 @@ import argparse
 import json
 import logging
 import os
+import socket
 import sys
 from pathlib import Path
 from typing import Optional, Sequence
@@ -66,6 +78,8 @@ from localai_tpu_torch.config.watcher import (
     ConfigWatcher,
     attach_standard_handlers,
 )
+from localai_tpu_torch.federation import FederatedServer, announce
+from localai_tpu_torch.federation.explorer import serve_explorer
 from localai_tpu_torch.models.manager import ModelManager
 from localai_tpu_torch.obs import logging as obs_logging
 from localai_tpu_torch.utils.device import resolve_device
@@ -210,6 +224,21 @@ def build_parser() -> argparse.ArgumentParser:
                           "for it (0 = off, the default)")
     run.add_argument("--autoscale-standby-hosts", default=None,
                      help="refused: remote standby workers")
+    # the web UI and the federation (None = not given: LOCALAI_* stands)
+    run.add_argument("--disable-webui", action="store_true", default=None,
+                     help="serve no web UI pages (/ answers JSON)")
+    run.add_argument("--federated", action="store_true", default=None,
+                     help="announce this instance to --federated-router")
+    run.add_argument("--federated-router", default=None,
+                     help="the federation router's base URL")
+    run.add_argument("--federated-advertise", default=None,
+                     help="the address peers reach this instance at "
+                          "(default http://<hostname>:<port>)")
+    run.add_argument("--peer-token", default=None,
+                     help="shared secret of /federated/register")
+    run.add_argument("--swarm-routers", default=None,
+                     help="comma-separated routers the swarm page may "
+                          "query besides --federated-router")
     # not ported yet: parsed as the JAX package parses them, and refused
     # when set (_unported_settings)
     for flag, (fld, default, _item) in UNPORTED_RUN_FLAGS.items():
@@ -308,6 +337,39 @@ def build_parser() -> argparse.ArgumentParser:
     sg.add_argument("--duration", "-d", type=float, default=3.0)
     sg.add_argument("--output-file", "-o", default="sound.wav")
     device_flag(sg)
+
+    exp = sub.add_parser(
+        "explorer", help="multi-network discovery dashboard over "
+                         "federation routers (dial-test + eviction)")
+    exp.add_argument("--address", default="0.0.0.0")
+    exp.add_argument("--port", type=int, default=8085)
+    exp.add_argument("--router", required=True,
+                     help="federation router base URL (more can be "
+                          "registered at runtime via POST /api/networks)")
+    exp.add_argument("--db", default="",
+                     help="JSON file persisting the tracked-network list")
+    exp.add_argument("--interval", type=float, default=50.0,
+                     help="seconds between dial-test sweeps")
+    exp.add_argument("--failure-threshold", type=int, default=3,
+                     help="consecutive failures before a network is "
+                          "evicted from the database")
+
+    fed = sub.add_parser(
+        "federated", help="run a federation router over instances")
+    fed.add_argument("--address", default=_env_default("address", "0.0.0.0"))
+    fed.add_argument("--port", type=int,
+                     default=int(_env_default("port", 8080)))
+    fed.add_argument("--peers", default=_env_default("peers", ""),
+                     help="comma-separated instance addresses (host:port)")
+    fed.add_argument("--random-worker", action="store_true",
+                     default=_env_bool("random_worker"),
+                     help="random selection instead of least-used")
+    fed.add_argument("--target-worker",
+                     default=_env_default("target_worker", ""),
+                     help="pin all traffic to one instance")
+    fed.add_argument("--peer-token",
+                     default=_env_default("peer_token", ""),
+                     help="shared secret for /federated/register")
 
     sub.add_parser("version", help="print version")
     return p
@@ -486,6 +548,12 @@ def app_config(args) -> AppConfig:
         autoscale_standby_hosts=(
             [h for h in args.autoscale_standby_hosts.split(",") if h]
             if args.autoscale_standby_hosts is not None else None),
+        disable_webui=args.disable_webui,
+        federated=args.federated,
+        federated_router=args.federated_router,
+        federated_advertise=args.federated_advertise,
+        peer_token=args.peer_token,
+        swarm_routers=args.swarm_routers,
         device=run_device(args),
     )
 
@@ -527,6 +595,11 @@ def build_server(argv: Optional[Sequence[str]] = None) -> APIServer:
         raise
     server.watcher = watcher
     watcher.start()
+    if cfg.federated and cfg.federated_router:
+        # join a federation: announce this instance to the router
+        own = cfg.federated_advertise or (
+            f"http://{socket.gethostname()}:{server.port}")
+        announce(cfg.federated_router, own, cfg.peer_token)
     log.info("serving %s on %s (device %s)", loader.names(), server.url,
              cfg.device)
     return server
@@ -680,6 +753,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return _run_util(args, parser)
     if cmd in ("tts", "transcript", "sound-generation"):
         return _run_audio(cmd, args, parser)
+    if cmd == "explorer":
+        serve_explorer(args.router, args.address, args.port,
+                       db_path=args.db or None, interval=args.interval,
+                       failure_threshold=args.failure_threshold)
+        return 0
+    if cmd == "federated":
+        FederatedServer(
+            [a.strip() for a in args.peers.split(",") if a.strip()],
+            load_balanced=not args.random_worker,
+            worker_target=args.target_worker,
+            peer_token=args.peer_token,
+        ).serve(args.address, args.port)
+        return 0
     parser.error(f"unknown command {cmd!r}")
     return 2
 

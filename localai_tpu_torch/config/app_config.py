@@ -5,7 +5,9 @@ feature reads, with the JAX package's defaults, each also read from
 ``LOCALAI_<FIELD>`` by :meth:`AppConfig.from_env`. ``device`` is the
 port's own (the card unless ``cpu`` is asked for), read from
 ``LOCALAI_DEVICE`` alike (``--platform`` is read into it by the CLI).
-The fleet and autoscale fields are the JAX package's, with its defaults;
+The web UI switch (``disable_webui``) and the federation fields are the
+JAX package's, with its defaults. The fleet and autoscale fields are the
+JAX package's, with its defaults;
 of their values, those that need the port's own transport (the worker
 replica backend, ``fleet_hosts``, ``fleet_device_pinning``,
 ``autoscale_standby_hosts``) are refused by ``cli/main.py`` at ``run``
@@ -43,6 +45,9 @@ class AppConfig:
     cors_allow_origins: str = "*"
     api_keys: list[str] = field(default_factory=list)
     opaque_errors: bool = False
+    # no web UI: its pages are not routed and ``/`` answers JSON to a
+    # browser too (LOCALAI_DISABLE_WEBUI / --disable-webui)
+    disable_webui: bool = False
     upload_limit_mb: int = 15       # the largest /v1/files upload
 
     # model management: the galleries ({name, url} each) the /models/*
@@ -117,6 +122,20 @@ class AppConfig:
     autoscale_in_idle_s: float = 120.0
     autoscale_zero_idle_s: float = 0.0
     autoscale_standby_hosts: list[str] = field(default_factory=list)
+
+    # federation (federation/): with ``federated`` set, ``run`` announces
+    # this instance to the router at ``federated_router`` as
+    # ``federated_advertise`` (default http://<hostname>:<port>), with the
+    # shared ``peer_token``; the swarm page's /swarm/nodes may query that
+    # router, those of ``swarm_routers`` (comma-separated) and this
+    # server's own port on loopback. ``p2p`` is the JAX package's field,
+    # read from LOCALAI_P2P alone (no flag) and moving nothing there as here
+    p2p: bool = False
+    federated: bool = False
+    federated_router: str = ""
+    federated_advertise: str = ""
+    peer_token: str = ""
+    swarm_routers: str = ""
 
     device: str = "cuda"            # "cuda" (default) or "cpu", explicitly
 

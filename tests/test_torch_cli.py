@@ -13,7 +13,11 @@ the subcommands (``tokenize``, ``models list``, ``util scan`` /
 the JAX package's print; an unported ``run`` setting refused with exit
 code 2; and the request deadline (``--request-deadline-s``,
 ``LOCALAI_REQUEST_DEADLINE_S``) resolved as the JAX package resolves it
-and cancelling a generation at its expiry with 504.
+and cancelling a generation at its expiry with 504; ``disable_webui`` and
+the federation settings from the ``run`` flags and the environment equal
+the JAX package's from the environment, the ``federated`` and
+``explorer`` subcommands build what the JAX package's build, and ``run
+--federated`` announces the instance to its router.
 """
 
 import dataclasses
@@ -780,3 +784,137 @@ def test_request_deadline_answers_504_over_http(clean_env, tmp_path):
         assert "deadline" in e.value.read().decode()
     finally:
         server.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the web UI switch, the federation settings and subcommands
+
+WEB_FED_FIELDS = ["disable_webui", "federated", "federated_router",
+                  "federated_advertise", "peer_token", "swarm_routers"]
+WEB_FED = {
+    "webui-off": (["--disable-webui"], {"LOCALAI_DISABLE_WEBUI": "1"}),
+    "federated": (["--federated", "--federated-router", "http://r:8080",
+                   "--federated-advertise", "http://me:1", "--peer-token",
+                   "tok"],
+                  {"LOCALAI_FEDERATED": "true",
+                   "LOCALAI_FEDERATED_ROUTER": "http://r:8080",
+                   "LOCALAI_FEDERATED_ADVERTISE": "http://me:1",
+                   "LOCALAI_PEER_TOKEN": "tok"}),
+    "swarm": (["--swarm-routers", "http://a:1,http://b:2"],
+              {"LOCALAI_SWARM_ROUTERS": "http://a:1,http://b:2",
+               "LOCALAI_P2P": "yes"}),
+    "defaults": ([], {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WEB_FED))
+def test_webui_and_federation_settings_as_on_the_reference(
+        clean_env, root_logging, name):
+    """The JAX package reads these from the environment alone: its
+    ``AppConfig`` from the variables equals the port's from the same
+    variables and the port's from the ``run`` flags. ``p2p`` has no flag
+    on either package: the port reads it from ``LOCALAI_P2P`` as the JAX
+    package does, and ``run --p2p`` is refused as an unknown flag."""
+    flags, env = WEB_FED[name]
+    for k, v in env.items():
+        clean_env.setenv(k, v)
+    seen = []
+    clean_env.setattr(jax_server, "serve", seen.append)
+    assert jax_cli.main(["run"]) == 0
+    from_env = cli.app_config(cli.build_parser().parse_args(["run"]))
+    for k in env:
+        clean_env.delenv(k)
+    from_flags = cli.app_config(cli.build_parser().parse_args(
+        ["run", *flags]))
+    for f in WEB_FED_FIELDS:
+        assert getattr(from_env, f) == getattr(from_flags, f) == \
+            getattr(seen[0], f), f
+    assert from_env.p2p == seen[0].p2p == ("LOCALAI_P2P" in env)
+    assert from_flags.p2p is False
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["run", "--p2p"])
+
+
+FEDERATED_RUNS = {
+    "defaults": (["federated"], {}),
+    "flags": (["federated", "--peers", "a:1, b:2", "--random-worker",
+               "--target-worker", "b:2", "--peer-token", "t", "--address",
+               "127.0.0.1", "--port", "9"], {}),
+    "environment": (["federated"], {
+        "LOCALAI_PEERS": "x:1", "LOCALAI_PEER_TOKEN": "e",
+        "LOCALAI_RANDOM_WORKER": "1", "LOCALAI_TARGET_WORKER": "x:1",
+        "LOCALAI_PORT": "7", "LOCALAI_ADDRESS": "127.0.0.2"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FEDERATED_RUNS))
+def test_federated_subcommand_as_the_reference(clean_env, root_logging,
+                                               name):
+    """``federated`` builds the same router from the same flags and
+    variables (its blocking ``serve`` replaced by a recorder)."""
+    from localai_tpu.federation import FederatedServer as JaxFed
+    from localai_tpu_torch.federation import FederatedServer
+
+    argv, env = FEDERATED_RUNS[name]
+    for k, v in env.items():
+        clean_env.setenv(k, v)
+    seen = []
+
+    def record(self, address, port):
+        seen.append({"nodes": sorted(n.snapshot()["address"]
+                                     for n in self.nodes()),
+                     "load_balanced": self.load_balanced,
+                     "worker_target": self.worker_target,
+                     "peer_token": self.peer_token,
+                     "address": address, "port": port})
+
+    clean_env.setattr(FederatedServer, "serve", record)
+    clean_env.setattr(JaxFed, "serve", record)
+    assert cli.main(list(argv)) == 0
+    assert jax_cli.main(list(argv)) == 0
+    assert len(seen) == 2 and seen[0] == seen[1]
+
+
+@pytest.mark.parametrize("argv", [
+    ["explorer", "--router", "http://r:1"],
+    ["explorer", "--router", "http://r:1/", "--address", "127.0.0.1",
+     "--port", "9", "--db", "nets.json", "--interval", "7.5",
+     "--failure-threshold", "5"],
+], ids=["defaults", "flags"])
+def test_explorer_subcommand_as_the_reference(clean_env, root_logging, argv):
+    from localai_tpu.federation import explorer as jexplorer
+
+    seen = []
+
+    def record(*args, **kwargs):
+        seen.append((args, kwargs))
+
+    clean_env.setattr(cli, "serve_explorer", record)
+    clean_env.setattr(jexplorer, "serve_explorer", record)
+    assert cli.main(list(argv)) == 0
+    assert jax_cli.main(list(argv)) == 0
+    assert len(seen) == 2 and seen[0] == seen[1]
+
+
+def test_run_announces_to_the_federation_router(clean_env, tmp_path):
+    """``run --federated --federated-router URL`` registers the instance
+    with the router as it starts, with the peer token."""
+    from localai_tpu_torch.federation import FederatedServer
+
+    router = FederatedServer([], peer_token="tok",
+                             health_interval=3600).start()
+    server = None
+    try:
+        server = cli.build_server([
+            "run", "--device", "cpu", "--address", "127.0.0.1", "--port",
+            "0", "--models-path", str(tmp_path), "--federated",
+            "--federated-router", router.url, "--federated-advertise",
+            "http://127.0.0.1:9", "--peer-token", "tok"])
+        deadline = time.monotonic() + 30
+        while not router.nodes() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert [n.id for n in router.nodes()] == ["127.0.0.1:9"]
+    finally:
+        if server is not None:
+            server.shutdown()
+        router.shutdown()

@@ -352,9 +352,26 @@ def fleets(tmp_path_factory):
     jloader.load_from_path(context_size=256)
     jmgr = JaxManager(JaxApp(model_path=str(models), **FLEET_APP), jloader)
     fm, jfm = mgr.get("tiny"), jmgr.get("tiny")
+    for f in (fm, jfm):
+        _gate_sweeps(f.pool)
     yield mgr, fm, jmgr, jfm
     mgr.shutdown()
     jmgr.shutdown_all()
+
+
+def _gate_sweeps(pool):
+    """Put the pool's health sweeps behind ``pool.sweep_gate``: while a
+    drill holds the gate no sweep runs, and taking it waits for a sweep in
+    progress to end. The pool's own monitor thread calls ``poll_once``
+    through the instance, so it takes the gate too."""
+    pool.sweep_gate = threading.Lock()
+    sweep = pool.poll_once
+
+    def gated():
+        with pool.sweep_gate:
+            sweep()
+
+    pool.poll_once = gated
 
 
 def _gen(fm, Req, text, max_new=6, **kw):
@@ -429,13 +446,19 @@ def test_failover_reroutes_and_the_replica_respawns(fleets):
     _, fm, _, jfm = fleets
     text = "failover probe prompt, one block"
     targets = []
-    for f in (fm, jfm):
-        target, _ = f.router.route(list(text.encode()))
-        target.kill()
-        targets.append(target)
-    # the killed engine, once its replica is stopped, is freed
-    killed = weakref.ref(targets[0].sm.runner)
-    h, jh = _both(fleets, text)
+    # both pools' health sweeps are held for the drill: a sweep between a
+    # kill and its request would mark the replica dead first, and that
+    # request would be routed around it and count no failover. Held, each
+    # package's request meets its killed replica and fails over, whatever
+    # the machine's speed; the respawn starts from that failover
+    with fm.pool.sweep_gate, jfm.pool.sweep_gate:
+        for f in (fm, jfm):
+            target, _ = f.router.route(list(text.encode()))
+            target.kill()
+            targets.append(target)
+        # the killed engine, once its replica is stopped, is freed
+        killed = weakref.ref(targets[0].sm.runner)
+        h, jh = _both(fleets, text)
     assert h.text == jh.text and h.finish_reason in ("stop", "length")
     assert fm.scheduler.failovers == jfm.scheduler.failovers >= 1
     assert _routed(fm)["failover"] == _routed(jfm)["failover"] >= 1

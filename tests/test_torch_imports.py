@@ -580,3 +580,97 @@ def test_tuning_store_and_gallery_modules_are_covered():
                 assert n.split(".")[0] not in (
                     "requests", "pydantic", "yaml", "aiohttp", "httpx"), \
                     (path.name, n)
+
+
+def test_web_ui_openapi_and_federation_modules_are_covered():
+    """The web UI, the OpenAPI document, the SSE helpers, the assistants
+    and the federation router and explorer are among the modules and
+    sources the rules above check: nothing of ``jax`` or the JAX
+    package, only the stdlib, numpy and torch at module level, and no
+    ``aiohttp``, ``jinja2``, ``httpx`` or ``requests`` anywhere (the
+    pages are strings, the router stands on ``http.server`` and
+    ``http.client``)."""
+    mods = set(_port_modules())
+    new = ("api.streams", "api.ui", "api.openapi", "api.assistants",
+           "federation", "federation.server", "federation.explorer")
+    for m in new:
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    files = {"api/streams.py", "api/ui.py", "api/openapi.py",
+             "api/assistants.py", "federation/__init__.py",
+             "federation/server.py", "federation/explorer.py"}
+    assert files <= rel
+    for path in (PKG_DIR / f for f in files):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                assert n.split(".")[0] not in (
+                    "aiohttp", "jinja2", "httpx", "requests", "pydantic",
+                    "yaml"), (path.name, n)
+
+
+BLOCKED_HTTP = r"""
+import importlib, json, sys, urllib.request
+pkg, ref, root = sys.argv[1], sys.argv[2], sys.argv[3]
+LACKING = ("aiohttp", "jinja2", "httpx", "requests", "pydantic", "yaml",
+           "jax", ref)
+for name in LACKING:
+    sys.modules[name] = None
+server = importlib.import_module(pkg + ".api.server")
+fed = importlib.import_module(pkg + ".federation")
+explorer = importlib.import_module(pkg + ".federation.explorer")
+AppConfig = importlib.import_module(pkg + ".config.app_config").AppConfig
+ConfigLoader = importlib.import_module(pkg + ".config.loader").ConfigLoader
+ModelManager = importlib.import_module(pkg + ".models.manager").ModelManager
+loader = ConfigLoader(root + "/models")
+loader.load_from_path()
+app = AppConfig(model_path=root + "/models", device="cpu",
+                config_path=root + "/conf", upload_path=root + "/up")
+srv = server.APIServer(ModelManager(app, loader), "127.0.0.1", 0).start()
+router = fed.FederatedServer(["127.0.0.1:%d" % srv.port],
+                             health_interval=3600).start()
+ex = explorer.ExplorerServer(router.url, interval=3600).start()
+out = {}
+for base, path in ((srv.url, "/chat/"), (srv.url, "/swagger/doc.json"),
+                   (router.url, "/swarm"), (router.url, "/federated/nodes"),
+                   (ex.url, "/"), (ex.url, "/api/nodes")):
+    with urllib.request.urlopen(base + path, timeout=30) as r:
+        out[path] = [r.status, r.headers["Content-Type"].split(";")[0]]
+ex.shutdown()
+router.shutdown()
+srv.shutdown()
+out["imported"] = [m for m in LACKING if sys.modules.get(m) is not None]
+print(json.dumps(out))
+"""
+
+
+def test_ui_and_federation_serve_without_the_packages_the_card_lacks(
+        tmp_path):
+    """In a fresh interpreter where aiohttp, Jinja2, httpx, requests,
+    pydantic, PyYAML, JAX and the JAX package cannot be imported, the
+    port's server answers a web UI page and its OpenAPI document, its
+    router proxies a page and lists its nodes, and the explorer renders
+    its dashboard and the router's nodes."""
+    models = tmp_path / "models"
+    models.mkdir()
+    (models / "tiny.yaml").write_text(json.dumps({
+        "name": "tiny", "model": "debug:tiny",
+        "engine": {"dtype": "float32", "kv_dtype": "float32"}}))
+    res = subprocess.run(
+        [sys.executable, "-c", BLOCKED_HTTP, PKG, PKG.removesuffix("_torch"),
+         str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {
+        "/chat/": [200, "text/html"],
+        "/swagger/doc.json": [200, "application/json"],
+        "/swarm": [200, "text/html"],
+        "/federated/nodes": [200, "application/json"],
+        "/": [200, "text/html"], "/api/nodes": [200, "application/json"],
+        "imported": []}

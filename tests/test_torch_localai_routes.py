@@ -14,7 +14,9 @@ Both HTTP servers run over one models dir (a tiny random checkpoint):
   * every answer carries ``X-Trace-ID`` (the client's, else a new one);
     the engine's spans group under it at ``/v1/traces``,
     ``/v1/traces/{id}`` and ``/debug/timeline/{id}`` with the JAX server's
-    body shapes; scrape and trace paths record no HTTP span;
+    body shapes; scrape and trace paths record no HTTP span; a streamed
+    chat or completion marks ``first_sse_write`` on each choice's trace
+    that streamed content, as the JAX server does;
   * ``localai_api_call_seconds`` is labelled with the route's pattern
     (never the raw URL), ``(unmatched)`` for an unknown path;
   * ``/backend/metrics``, ``/backend/monitor`` and ``/backend/shutdown``
@@ -244,6 +246,50 @@ def test_trace_bodies_shaped_as_the_jax_server(servers):
         (s1, b1, _), (s2, b2, _) = _both(servers, path)
         assert s1 == s2 == 200
         assert set(json.loads(b1)) == set(json.loads(b2))
+
+
+STREAMED = {
+    "chat": ("/v1/chat/completions", {**CHAT, "stream": True}),
+    "chat-n2": ("/v1/chat/completions", {**CHAT, "stream": True, "n": 2,
+                                         "temperature": 0.7, "seed": 3}),
+    "completions-n2": ("/v1/completions", {
+        "model": MODEL, "prompt": "count", "max_tokens": 6, "n": 2,
+        "stream": True, "temperature": 0.7, "seed": 3}),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(STREAMED))
+def test_streamed_answer_marks_first_sse_write(servers, kind):
+    """A streamed answer records ``first_sse_write`` on each choice's
+    request trace once its first content frame was written, on both
+    servers (the client's TTFT), after the engine's prefill."""
+    path, body = STREAMED[kind]
+    marks = []
+    for s in ("port", "ref"):
+        tid = f"sse-{kind}-{s}"
+        status, text, _ = _call(servers[s] + path, method="POST", body=body,
+                                headers={"X-Trace-ID": tid})
+        assert status == 200 and "data: [DONE]" in text
+        frames = [json.loads(line[6:]) for line in text.splitlines()
+                  if line.startswith("data: {")]
+        content = set()
+        for f in frames:
+            for c in f["choices"]:
+                if (c.get("delta") or {}).get("content") or c.get("text"):
+                    content.add(c["index"])
+        detail = json.loads(_call(servers[s] + f"/v1/traces/{tid}")[1])
+        reqs = [t for t in detail["traces"] if t["kind"] == "request"]
+        assert len(reqs) == body.get("n", 1)
+        names = [[c["name"] for c in t["children"]] for t in reqs]
+        for n in names:
+            if "first_sse_write" in n:
+                assert n.count("first_sse_write") == 1
+                assert n.index("first_sse_write") > n.index("prefill")
+        marks.append((sorted(n.count("first_sse_write") for n in names),
+                      len(content)))
+    # every choice that streamed content is marked once, alike
+    assert marks[0] == marks[1]
+    assert sum(marks[0][0]) == marks[0][1] >= 1
 
 
 def test_api_call_seconds_by_route_pattern(servers):
