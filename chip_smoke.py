@@ -116,7 +116,8 @@ Phases (any failure raises and the script exits non-zero):
      ``tokenizers`` by tests/test_torch_tokenizer.py); the real entry
      point in subprocesses (``tokenize`` gives the golden ids, ``version``,
      ``run`` with ``LOCALAI_KV_DTYPE=int8`` serves from an int8 pool on the
-     card, ``run --fleet-replicas 2`` exits 2); then the eighth serve,
+     card, ``run --mesh data=2`` exits 2 naming ROADMAP item 19); then the
+     eighth serve,
      ``llama3-8b-bf16-checkpoint``: a bf16 checkpoint directory with
      Meta-Llama-3-8B-Instruct's config.json (full widths, the depth of
      ``SMOKE_LAYERS``, seeded random weights) is served through ``cli.main.build_server``
@@ -327,6 +328,20 @@ Phases (any failure raises and the script exits non-zero):
      port's federation router over two front doors of the engine (peer
      token checked), stops one for a failover and health sweeps; K1
      launches L a decode step on both paths, nothing is left on the card.
+     ``worker_tier`` serves debug:llama3-8b at full width and depth in a
+     worker process (``backend: worker``) beside the same model in
+     process: equal streamed text, an Embedding and TokenizeString over
+     the model's own client equal to the engine's, the worker's own
+     launch report (K1 = L x its decode steps, K3 = L x its Embedding
+     calls), a respawn after an orderly stop and after SIGKILL with the
+     dead process's card memory back; then a fleet of three worker
+     processes on the card (``SMOKE_LAYERS["fleet"]`` layers, spawned
+     unpinned with the warning) with equal routed texts, a prefix handed
+     across processes and a failover after SIGKILL; then a remote worker
+     (the ``worker`` subcommand) registered through ``POST
+     /federated/register`` (a wrong token is a 401), served, evicted when
+     killed and rejoined when it is back on its port; no worker process
+     and at most 0.25 GB are left behind.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -3252,7 +3267,8 @@ def phase_entry_point(card: str, root: str) -> dict:
     """The real entry point, in subprocesses: ``tokenize`` gives the
     golden ids (no weights read), ``version`` the package's version,
     ``run`` with ``LOCALAI_KV_DTYPE=int8`` serves a debug model on the
-    card from an int8 pool, and ``run --fleet-replicas 2`` exits 2."""
+    card from an int8 pool, and ``run --mesh data=2`` exits 2 (meshes are
+    ROADMAP item 19)."""
     import os
     import pathlib
     import signal
@@ -3278,12 +3294,12 @@ def phase_entry_point(card: str, root: str) -> dict:
     if res.returncode != 0 or \
             res.stdout.strip() != localai_tpu_torch.__version__:
         raise AssertionError(f"version: {res.stdout} {res.stderr[-2000:]}")
-    res = subprocess.run(cmd + ["run", "--fleet-replicas", "2",
+    res = subprocess.run(cmd + ["run", "--mesh", "data=2",
                                 "--models-path", str(models)],
                          capture_output=True, text=True, env=env,
                          timeout=300, cwd=repo)
-    if res.returncode != 2 or "ROADMAP item 23" not in res.stderr:
-        raise AssertionError(f"run --fleet-replicas 2: rc "
+    if res.returncode != 2 or "ROADMAP item 19" not in res.stderr:
+        raise AssertionError(f"run --mesh data=2: rc "
                              f"{res.returncode}, {res.stderr[-2000:]}")
     dbg = root / "debug-models"
     write_models_dir(dbg, {"small-int8-kv": (
@@ -10164,6 +10180,553 @@ def _entry(name, source, replaces, launches, rec) -> dict:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
 
 
+# -- the worker tier (ROADMAP item 23 part 2) ---------------------------------
+
+WORKER_MODEL = "llama3-8b-bf16-worker"
+WORKER_REF = "llama3-8b-bf16-in-process"
+WORKER_NEW = 24                  # max_tokens of each chat
+WORKER_TOKEN = "smoke-worker-token"
+WORKER_EMBEDS = 2                # Embedding calls over the worker's client
+
+
+def _card_used_gb() -> float:
+    """GB the card holds for live work: every process's use
+    (``mem_get_info``), less this process's allocator cache (free blocks
+    it keeps for its own reuse; a long-lived small block, such as a cuBLAS
+    workspace, can pin a large freed segment past ``empty_cache``)."""
+    free, total = torch.cuda.mem_get_info()
+    cache = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    return (total - free - cache) / 1e9
+
+
+def _worker_report(what: str, report: Optional[dict], L: int,
+                   embeds: Optional[int] = None) -> dict:
+    """A worker's launch report, held to its own counters: K1 = L x its
+    decode steps, K3 = L x its Embedding calls (``embeds``, when given;
+    else none), the other kernels 0."""
+    if report is None:
+        raise AssertionError(f"{what}: the worker printed no launch report")
+    n = report["launches"]
+    want = {"paged_decode_attention": L * report["decode_steps"],
+            "prefill_attention": L * report["embeddings"]}
+    if embeds is not None and report["embeddings"] != embeds:
+        raise AssertionError(f"{what}: {report['embeddings']} Embedding "
+                             f"calls counted, {embeds} made")
+    for k, v in n.items():
+        if v != want.get(k, 0):
+            raise AssertionError(f"{what}: {k} launched {v} times, expected "
+                                 f"{want.get(k, 0)} ({report})")
+    return report
+
+
+def _wait_pids_gone(pids, timeout: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout
+    left = set(pids)
+    while left and time.monotonic() < deadline:
+        for pid in list(left):
+            try:
+                os.kill(pid, 0)
+            except ProcessLookupError:
+                left.discard(pid)
+        time.sleep(0.1)
+    if left:
+        raise AssertionError(f"worker processes {sorted(left)} outlived "
+                             "their stop")
+
+
+def _settle_card() -> float:
+    """Free what this process no longer uses (its garbage, its cuBLAS
+    workspaces, its allocator cache), then ``_card_used_gb``."""
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    return _card_used_gb()
+
+
+def _wait_card_back(to_gb: float, slack_gb: float, what: str,
+                    timeout: float = 60.0) -> float:
+    """Wait until the card's use falls to ``to_gb`` + ``slack_gb`` (a dead
+    process's context is reclaimed by the driver shortly after it dies;
+    a tensor freed by a thread that just ended stays cached until the
+    next ``empty_cache``); returns the use then."""
+    deadline = time.monotonic() + timeout
+    used = _settle_card()
+    while used > to_gb + slack_gb and time.monotonic() < deadline:
+        time.sleep(0.2)
+        used = _settle_card()
+    if used > to_gb + slack_gb:
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().replace("\n", "; ")
+        raise AssertionError(
+            f"{what}: the card holds {used:.2f} GB for live work, "
+            f"{used - to_gb:.2f} GB over {to_gb:.2f} GB (this process: "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; "
+            f"processes on the card: {apps or 'none listed'})")
+    return used
+
+
+def phase_worker_tier(card: str) -> dict:
+    """The worker tier on the card, through ``cli.main.build_server`` over
+    HTTP, with no fallback:
+      (a) ``backend: worker`` at Llama-3-8B's full width and depth
+          (``debug:llama3-8b``, seeded bf16 weights drawn on the card in
+          the worker, bf16 paged at bt 64) beside the same YAML without
+          the backend (the engine in this process, the same weights): a
+          streamed chat's greedy text is the in-process engine's; an
+          Embedding over the model's own client equals ``runner.embed``
+          within 1e-3 of its largest magnitude, TokenizeString the
+          tokenizer's ids; the worker stops in order and its launch report
+          gives K1 = 32 x its decode steps and K3 = 32 x its Embedding
+          calls; the next chat spawns a fresh worker; SIGKILL of it: the
+          chat after respawns it with the same text, and the card gets the
+          dead process's memory back;
+      (b) a fleet of worker processes (``--fleet-replicas 2
+          --fleet-prefill-replicas 1 --fleet-disagg-threshold 512
+          --fleet-device-pinning``: three workers on one card, unpinned
+          with the warning) of an ``SMOKE_LAYERS["fleet"]``-layer
+          checkpoint at the same widths: routed chats equal a single
+          engine's texts; a 1100-token prompt prefills on ``p0`` and its
+          PrefixChunks cross PrefillPrefix → TransferPrefix to a decode
+          worker that resumes without prefilling them; SIGKILL of the
+          decode worker a prompt routes to gives a failover with the same
+          text and a respawned process; every decode worker that stops in
+          order reports K1 = L x its decode steps, K2–K5 0;
+      (c) a remote worker (``cli.main worker`` in a subprocess on
+          loopback) registered into that fleet through ``POST
+          /federated/register`` with the peer token (a wrong one is a
+          401): the short chat the router sends it equals the reference;
+          SIGKILL of it: evicted, never respawned by the pool; restarted
+          on its port: redialed and rejoined;
+      (d) no worker process is left (by pid) and the card holds at most
+          0.25 GB more than before the phase."""
+    import logging
+
+    from localai_tpu_torch.cli.main import build_server
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+
+    L = DEBUG_PRESETS["llama3-8b"].num_layers
+    LF = SMOKE_LAYERS["fleet"]
+    t_phase = time.monotonic()
+    # the workers' own log lines (forwarded by their tails), timestamped:
+    # where a spawn's seconds go
+    tail_log = logging.getLogger("localai_tpu_torch.worker.process")
+    tail_handler = logging.StreamHandler(sys.stdout)
+    tail_handler.setFormatter(logging.Formatter("%(relativeCreated).0fms "
+                                                "%(message)s"))
+    tail_log.addHandler(tail_handler)
+    tail_log.setLevel(logging.INFO)
+    repo = str(Path(__file__).resolve().parent)
+    root = Path(_scratch_dir("worker-", 7_000_000_000))
+    models = root / "models"
+    models.mkdir()
+    engine = {"dtype": "bfloat16", "kv_dtype": "bfloat16", "max_slots": 4,
+              "kv_block_tokens": 64}
+    base = {"model": "debug:llama3-8b", "seed": 17, "context_size": 2048,
+            "engine": engine}
+    (models / f"{WORKER_REF}.yaml").write_text(json.dumps(
+        {"name": WORKER_REF, **base}))
+    (models / f"{WORKER_MODEL}.yaml").write_text(json.dumps(
+        {"name": WORKER_MODEL, "backend": "worker", **base}))
+    torch.cuda.synchronize()
+    used0 = _settle_card()
+    # every worker is a fresh interpreter; where the environment forbids
+    # bytecode files (PYTHONDONTWRITEBYTECODE) and torch ships without
+    # them, each one compiles torch's sources on import (~10 s on the
+    # card's host). The phase's processes share a bytecode cache under
+    # its scratch directory instead, warmed by one import at the start
+    env = {"LOCALAI_MODELS_PATH": models, "LOCALAI_ADDRESS": "127.0.0.1",
+           "LOCALAI_PORT": "0", "LOCALAI_CONFIG_PATH": root / "conf",
+           "LOCALAI_UPLOAD_PATH": root / "uploads",
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "PYTHONPYCACHEPREFIX": root / "pycache",
+           "PYTHONDONTWRITEBYTECODE": None}
+    out = {"card": card, "layers": L, "fleet_layers": LF,
+           "card_used_before_gb": used0}
+    pids: set = set()
+    saved = _env(env)
+    warm = subprocess.Popen([sys.executable, "-c",
+                             "import localai_tpu_torch.models.manager"])
+    server = None
+    try:
+        # (a) backend: worker at full width and depth
+        server = build_server(["run"]).start()
+        url = server.url + "/v1/chat/completions"
+        chat = {"max_tokens": WORKER_NEW, "temperature": 0,
+                "logit_bias": ASCII_ONLY,
+                "messages": [{"role": "user",
+                              "content": "Say hello from the worker."}]}
+        ref_sm = server.manager.get(WORKER_REF)
+        ref = _sse_chat(url, {**chat, "model": WORKER_REF})
+        toks = ref_sm.tokenizer.encode("embed this through the worker",
+                                       add_bos=True)
+        ref_vec = np.asarray(ref_sm.runner.embed(toks), np.float32)
+        t0 = time.monotonic()
+        warm.wait(120)
+        out["bytecode_warm_wait_s"] = time.monotonic() - t0
+        before_spawn = _card_used_gb()
+        t0 = time.monotonic()
+        wsm = server.manager.get(WORKER_MODEL)
+        spawn_s = time.monotonic() - t0
+        pool = server.manager.pool()
+        wp = pool.process(WORKER_MODEL)
+        pids.add(wp.pid)
+        got = _sse_chat(url, {**chat, "model": WORKER_MODEL})
+        client = wsm.client()
+        vecs = [np.asarray(client.embedding(tokens=toks), np.float32)
+                for _ in range(WORKER_EMBEDS)]
+        emb_err = max(float(np.abs(v - ref_vec).max()) for v in vecs)
+        text_ids = client.tokenize("Tokenize me, worker", add_bos=True)
+        peak = _card_used_gb()
+        if (got["text"] != ref["text"] or not ref["text"].strip()
+                or got["completion_tokens"] != WORKER_NEW
+                or emb_err > 1e-3 * float(np.abs(ref_vec).max())
+                or text_ids != ref_sm.tokenizer.encode(
+                    "Tokenize me, worker", add_bos=True)):
+            raise AssertionError(f"worker (a): text {got['text']!r} vs "
+                                 f"{ref['text']!r}, embedding error "
+                                 f"{emb_err}, ids {text_ids[:8]}")
+        pool.shutdown(WORKER_MODEL)            # SIGTERM: an orderly stop
+        rep_a = _worker_report(f"{WORKER_MODEL} worker", wp.launch_report,
+                               L, embeds=WORKER_EMBEDS)
+        after_stop = _wait_card_back(before_spawn, 0.25,
+                                     "worker (a) orderly stop")
+        print(f"worker (a): spawn-to-ready {spawn_s:.1f}s, card "
+              f"{before_spawn:.2f} GB before, {peak:.2f} GB at the "
+              f"worker's peak, {after_stop:.2f} GB after its stop "
+              f"({peak - after_stop:.2f} GB freed)", flush=True)
+        # the next chat spawns a fresh worker
+        t0 = time.monotonic()
+        again = _sse_chat(url, {**chat, "model": WORKER_MODEL})
+        respawn_s = time.monotonic() - t0
+        wp2 = pool.process(WORKER_MODEL)
+        pids.add(wp2.pid)
+        if again["text"] != ref["text"] or wp2.pid == wp.pid:
+            raise AssertionError(f"worker (a): respawned text "
+                                 f"{again['text']!r}, pid {wp2.pid}")
+        # SIGKILL: the card gets the process's memory back, the chat after
+        # respawns it with the same text
+        peak2 = _card_used_gb()
+        wp2.proc.kill()
+        wp2.proc.wait(30)
+        after_kill = _wait_card_back(before_spawn, 0.25,
+                                     "worker (a) after SIGKILL")
+        t0 = time.monotonic()
+        third = _sse_chat(url, {**chat, "model": WORKER_MODEL})
+        kill_respawn_s = time.monotonic() - t0
+        wp3 = pool.process(WORKER_MODEL)
+        pids.add(wp3.pid)
+        if third["text"] != ref["text"] or wp3.pid == wp2.pid:
+            raise AssertionError(f"worker (a): after SIGKILL text "
+                                 f"{third['text']!r}, pid {wp3.pid}")
+        pool.shutdown(WORKER_MODEL)
+        rep_a3 = _worker_report(f"{WORKER_MODEL} respawned worker",
+                                wp3.launch_report, L, embeds=0)
+        after_stop3 = _wait_card_back(before_spawn, 0.25,
+                                      "worker (a) last stop")
+        print(f"worker (a): respawn after a stop {respawn_s:.1f}s, after "
+              f"SIGKILL {kill_respawn_s:.1f}s (spawn, load and one chat); "
+              f"card {peak2:.2f} GB before the kill, {after_kill:.2f} GB "
+              f"after it ({peak2 - after_kill:.2f} GB freed), "
+              f"{after_stop3:.2f} GB after the last stop", flush=True)
+        out["a"] = {"text": ref["text"], "spawn_to_ready_s": spawn_s,
+                    "respawn_s": respawn_s,
+                    "kill_respawn_s": kill_respawn_s,
+                    "embedding_max_abs_err": emb_err,
+                    "worker_peak_gb": peak - before_spawn,
+                    "freed_at_stop_gb": peak - after_stop,
+                    "freed_at_kill_gb": peak2 - after_kill,
+                    "reports": [rep_a, rep_a3]}
+        server.shutdown()
+        server = ref_sm = wsm = client = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["b"], out["c"] = _worker_fleet(root, LF, pids)
+        out["fleet_launches"] = sum(
+            r["launches"]["paged_decode_attention"]
+            for r in out["b"]["reports"])
+    finally:
+        if warm.poll() is None:
+            warm.kill()
+        if server is not None:
+            server.shutdown()
+        _env(saved)
+        tail_log.removeHandler(tail_handler)
+        tail_log.setLevel(logging.NOTSET)
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+    # (d) no worker left, the card as before
+    _wait_pids_gone(pids)
+    out["card_used_after_gb"] = _wait_card_back(used0, 0.25,
+                                                "worker tier teardown")
+    out["launches"] = {
+        "paged_decode_attention": sum(
+            r["launches"]["paged_decode_attention"]
+            for r in out["a"]["reports"]),
+        "prefill_attention": sum(r["launches"]["prefill_attention"]
+                                 for r in out["a"]["reports"])}
+    out["phase_s"] = time.monotonic() - t_phase
+    print("worker_tier: " + json.dumps(out), flush=True)
+    return out
+
+
+def _prompt_cache(metrics: dict, key: str) -> int:
+    """A worker's prefix-cache counter (0 before its first transfer
+    attached the cache)."""
+    return (metrics.get("prompt_cache") or {}).get(key, 0)
+
+
+def _worker_fleet(root: Path, L: int, pids: set) -> tuple:
+    """(b) and (c) of ``phase_worker_tier``: the fleet of worker processes
+    and the remote worker. Returns their records."""
+    from localai_tpu_torch.cli.main import build_server
+    from localai_tpu_torch.models import llama as tl
+    from localai_tpu_torch.models.loader import write_llama_checkpoint
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+
+    cfg = dataclasses.replace(DEBUG_PRESETS["llama3-8b"], dtype="bfloat16",
+                              num_layers=L)
+    models, ckpt = root / "fleet-models", root / "llama3-8b-worker-fleet"
+    params = tl.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(19), "cuda")
+    write_llama_checkpoint(ckpt, cfg, params, dtype="bfloat16")
+    (ckpt / "config.json").write_text(json.dumps(
+        {**LLAMA3_8B_CONFIG, "num_hidden_layers": L}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    models.mkdir()
+    name = "llama3-8b-bf16-worker-fleet"
+    (models / f"{name}.yaml").write_text(json.dumps(
+        {"name": name, "model": str(ckpt), "context_size": 4096,
+         "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
+                    "max_slots": 8, "kv_block_tokens": 64}}))
+    system = _prose(31, 256)
+    bodies = {
+        "affinity": [{"model": name, "max_tokens": 24, "temperature": 0,
+                      "messages": [{"role": "system", "content": system},
+                                   {"role": "user", "content": q}]}
+                     for q in ("What is a worker?", "Name two primes.")],
+        "long": {"model": name, "max_tokens": 24, "temperature": 0,
+                 "messages": [{"role": "user",
+                               "content": _prose(32, 1100)}]},
+        "failover": {"model": name, "max_tokens": 24, "temperature": 0,
+                     "messages": [{"role": "user",
+                                   "content": _prose(33, 300)}]},
+    }
+    # a raw completion under one 64-token block (no chat template): no
+    # affinity key, so least-loaded routing sends it to the replica that
+    # never served, the remote worker just registered
+    remote_body = {"model": name, "prompt": "hi remote", "max_tokens": 16,
+                   "temperature": 0, "logit_bias": ASCII_ONLY}
+
+    def text(resp):
+        return resp["choices"][0]["message"]["content"]
+
+    def chat(url, body):
+        return json.loads(_post(url, body).read())
+
+    def complete(base):
+        return json.loads(_post(base + "/v1/completions",
+                                remote_body).read())["choices"][0]["text"]
+
+    # (c)'s remote worker starts now: its interpreter and torch load while
+    # the reference and the fleet boot
+    port = _free_port()
+    cmd = [sys.executable, "-m", "localai_tpu_torch.cli.main", "worker",
+           "--addr", f"127.0.0.1:{port}"]
+    remote = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.DEVNULL)
+    pids.add(remote.pid)
+    saved = _env({"LOCALAI_MODELS_PATH": models})
+    server = None
+    try:
+        server = build_server(["run"]).start()
+        url = server.url + "/v1/chat/completions"
+        ref = {k: ([text(chat(url, b)) for b in v] if isinstance(v, list)
+                   else text(chat(url, v))) for k, v in bodies.items()}
+        ref["remote"] = complete(server.url)
+    except BaseException:
+        remote.kill()        # no worker outlives a failed phase
+        raise
+    finally:
+        if server is not None:
+            server.shutdown()
+        _env(saved)
+        server = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    saved = _env({"LOCALAI_MODELS_PATH": models,
+                  "LOCALAI_PEER_TOKEN": WORKER_TOKEN,
+                  "LOCALAI_FLEET_REDIAL_BASE_S": "0.5",
+                  "LOCALAI_FLEET_REDIAL_CAP_S": "2"})
+    b: dict = {}
+    c: dict = {}
+    try:
+        t0 = time.monotonic()
+        server = build_server([
+            "run", "--fleet-replicas", "2", "--fleet-prefill-replicas", "1",
+            "--fleet-disagg-threshold", str(FLEET_THRESHOLD),
+            "--fleet-device-pinning"]).start()
+        url = server.url + "/v1/chat/completions"
+        fm = server.manager.get(name)
+        b["boot_s"] = time.monotonic() - t0
+        b["card_used_gb"] = _card_used_gb()
+        members = fm.pool.members()
+        if ({type(r).__name__ for r in members} != {"WorkerReplica"}
+                or len(members) != 3):
+            raise AssertionError(f"worker fleet: replicas {members}")
+        pids.update(r.pid for r in members)
+        got = [text(chat(url, bd)) for bd in bodies["affinity"]]
+        if got != ref["affinity"]:
+            raise AssertionError(f"worker fleet: affinity texts {got} vs "
+                                 f"{ref['affinity']}")
+        # the prefix handed across processes
+        decs = {r.id: r.metrics() for r in members if r.role == "decode"}
+        t0_transfers = fm.scheduler.prefix_transfers
+        long_text = text(chat(url, bodies["long"]))
+        after = {r.id: r.metrics() for r in members if r.role == "decode"}
+        dest = [rid for rid in after
+                if _prompt_cache(after[rid], "hits")
+                > _prompt_cache(decs[rid], "hits")]
+        chunks = {rid: after[rid]["prefill_chunks"]
+                  - decs[rid]["prefill_chunks"] for rid in after}
+        if (long_text != ref["long"]
+                or fm.scheduler.prefix_transfers != t0_transfers + 1
+                or len(dest) != 1
+                or _prompt_cache(after[dest[0]], "hit_tokens")
+                - _prompt_cache(decs[dest[0]], "hit_tokens") < 1024
+                or chunks[dest[0]] > 1):
+            raise AssertionError(f"worker fleet: handoff dest {dest}, "
+                                 f"chunks {chunks}, transfers "
+                                 f"{fm.scheduler.prefix_transfers}, text "
+                                 f"equal {long_text == ref['long']}")
+        b["handoff"] = {"decode_worker": dest[0],
+                        "bytes": fm.scheduler.prefix_transfer_bytes,
+                        "prefill_chunks": chunks}
+        # SIGKILL of the decode worker the prompt routes to
+        victim = {}
+
+        def kill_routed(req, _submit=fm.scheduler.submit):
+            if not victim:
+                t, _ = fm.router.route(req.prompt)
+                victim["r"], victim["pid"] = t, t.pid
+                t.kill()
+            return _submit(req)
+
+        fm.scheduler.submit = kill_routed
+        fail0 = fm.scheduler.failovers
+        ftext = text(chat(url, bodies["failover"]))
+        del fm.scheduler.submit
+        rep = victim["r"]
+        t_kill = time.monotonic()
+        if ftext != ref["failover"] or fm.scheduler.failovers != fail0 + 1:
+            raise AssertionError(f"worker fleet: failover text equal "
+                                 f"{ftext == ref['failover']}, failovers "
+                                 f"{fm.scheduler.failovers}")
+        # (c) the remote worker, registered, served, killed, back, while
+        # the killed decode worker respawns
+        _wait_worker(port)
+        reg = server.url + "/federated/register"
+        wrong = _request(reg, key="not-the-token",
+                         body={"address": f"127.0.0.1:{port}"})[0]
+        t0 = time.monotonic()
+        status, body = _request(reg, key=WORKER_TOKEN,
+                                body={"address": f"127.0.0.1:{port}"})
+        c["register_s"] = time.monotonic() - t0
+        adopted = (body or {}).get("adopted", {}).get(name, {})
+        if wrong != 401 or status != 200 or adopted.get("state") != \
+                "healthy":
+            raise AssertionError(f"worker remote: register {status} "
+                                 f"{body}, wrong token {wrong}")
+        rr = fm.pool.get(adopted["id"])
+        rtext = complete(server.url)
+        if rtext != ref["remote"] or rr.dispatched != 1:
+            raise AssertionError(f"worker remote: text equal "
+                                 f"{rtext == ref['remote']}, dispatched "
+                                 f"{rr.dispatched}")
+        remote.kill()
+        remote.wait(30)
+        fm.pool.note_failure(rr)
+        if rr.state != "evicted" or fm.pool.evictions != 1:
+            raise AssertionError(f"worker remote: state {rr.state} after "
+                                 "SIGKILL")
+        remote = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.DEVNULL)
+        pids.add(remote.pid)
+        _wait_worker(port)
+        t0 = time.monotonic()
+        while rr.state != "healthy" and time.monotonic() - t0 < 120:
+            fm.pool.poll_once()
+            time.sleep(0.2)
+        c["rejoin_s"] = time.monotonic() - t0
+        if rr.state != "healthy" or fm.pool.redials < 1 or rr.respawnable:
+            raise AssertionError(f"worker remote: state {rr.state}, "
+                                 f"redials {fm.pool.redials}")
+        c.update({"address": f"127.0.0.1:{port}",
+                  "evictions": fm.pool.evictions,
+                  "redials": fm.pool.redials, "text": rtext})
+        while rep.state != "healthy" and time.monotonic() - t_kill < 300:
+            time.sleep(0.1)
+        b["healthy_by_s"] = time.monotonic() - t_kill   # checked after (c)
+        # the one respawn is the killed decode worker's: the remote was
+        # redialed, never respawned
+        if (rep.state != "healthy" or rep.pid == victim["pid"]
+                or fm.pool.respawns != 1):
+            raise AssertionError(f"worker fleet: the killed worker is "
+                                 f"{rep.state}, pid {rep.pid}, respawns "
+                                 f"{fm.pool.respawns}")
+        pids.add(rep.pid)
+        b["failover"] = {"killed": rep.id, "pid": victim["pid"],
+                         "new_pid": rep.pid}
+        b["card_used_peak_gb"] = _card_used_gb()
+        server.shutdown()
+        server = None
+        # every decode worker stopped in order reported: K1 = L x steps
+        reports = []
+        for r in members:
+            for i, report in enumerate(r.launch_reports):
+                reports.append(_worker_report(f"{r.id} stop {i}", report,
+                                              L, embeds=0))
+        decode_steps = sum(rp["decode_steps"] for rp in reports)
+        if len(reports) < 3 or decode_steps <= 0:
+            raise AssertionError(f"worker fleet: {len(reports)} reports, "
+                                 f"{decode_steps} decode steps")
+        b["reports"] = reports
+    finally:
+        if server is not None:
+            server.shutdown()
+        if remote is not None and remote.poll() is None:
+            remote.terminate()
+            try:
+                remote.wait(30)
+            except subprocess.TimeoutExpired:
+                remote.kill()
+        _env(saved)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return b, c
+
+
+def _wait_worker(port: int, timeout: float = 120.0) -> None:
+    from localai_tpu_torch.worker.client import WorkerClient
+
+    client = WorkerClient(f"127.0.0.1:{port}")
+    try:
+        deadline = time.monotonic() + timeout
+        while not client.health(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"worker on port {port} never answered")
+            time.sleep(0.2)
+    finally:
+        client.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -10257,6 +10820,7 @@ def main() -> int:
     tier = phase_kv_tier(card)
     fleet = phase_fleet(card)
     http = phase_http_surfaces(card)
+    workers = phase_worker_tier(card)
     t_qwen = time.monotonic()
     served["qwen"] = phase_serve_qwen(card)["launches"]
     print(f"group-7 serve: {time.monotonic() - t_qwen:.1f}s", flush=True)
@@ -10421,6 +10985,17 @@ def main() -> int:
         _entry("paged_decode_attention_federation", k1_src, k1_tpu,
                http["federation"]["launches"]["paged_decode_attention"],
                k1["bf16"]),
+        # the worker tier: K1 and K3 of the 32-layer worker processes,
+        # from their own launch reports (K3 on their Embedding calls), and
+        # K1 of the worker fleet's processes
+        _entry("paged_decode_attention_worker", k1_src, k1_tpu,
+               workers["launches"]["paged_decode_attention"], k1["bf16"]),
+        _entry("prefill_attention_worker", src + "prefill_attention.cu",
+               "localai_tpu/ops/attention.py:337",
+               workers["launches"]["prefill_attention"],
+               attn["k3-T2048-bf16"]),
+        _entry("paged_decode_attention_worker_fleet", k1_src, k1_tpu,
+               workers["fleet_launches"], k1["bf16"]),
     ]
     print(f"smoke wall: {time.monotonic() - t_smoke:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -6,14 +6,17 @@ Port of the routes of ``localai_tpu/api/localai.py`` that the port can
 serve, written, as ``api.openai`` is, as framework-free functions over
 parsed JSON (``api.server`` maps HTTP onto them): GET handlers take
 ``(manager, query)``, POST handlers ``(manager, body)``. The JAX
-package's fleet routes ``GET /v1/fleet`` and ``POST
-/v1/fleet/{model}/swap`` serve the port's in-process fleets;
-``/federated/register`` stays absent until the port has remote replicas
-(ROADMAP item 23, part 2). ``/readyz`` stays in ``api.openai``.
+package's fleet routes ``GET /v1/fleet``, ``POST
+/v1/fleet/{model}/swap`` and the serving instance's ``POST
+/federated/register`` (a remote worker adopted into a fleet) serve the
+port's fleets; the two POST routes take the request's ``Authorization``
+header and are guarded by ``peer_token``, as on the JAX package.
+``/readyz`` stays in ``api.openai``.
 """
 
 from __future__ import annotations
 
+import hmac
 import time
 
 import torch
@@ -191,13 +194,73 @@ def fleet_status(manager, query) -> dict:
     }
 
 
-def fleet_swap(manager, body: dict, model: str):
+def _peer_refused(manager, authorization: str):
+    """The 401 answer when ``peer_token`` is set and the bearer token is
+    not it (compared in constant time), else None."""
+    token = manager.app.peer_token
+    if token and not hmac.compare_digest(
+            authorization.removeprefix("Bearer ").strip(), token):
+        return 401, {"error": "invalid peer token"}
+    return None
+
+
+def fleet_register(manager, body, authorization: str = ""):
+    """POST /federated/register on the serving instance: a remote worker
+    announces itself (``{"address": "host:port", "model": optional,
+    "role": "decode" | "prefill"}``) and is adopted into the matching
+    fleet's pool as a RemoteReplica (dialed and loaded before the answer;
+    one that stops answering dials is evicted and redialed on backoff).
+    The JAX package's statuses and bodies: 401 on a wrong peer token, 400
+    without an address, on an unroutable one or an unknown role, 409 when
+    no fleet, or more than one without ``model``, could take it."""
+    from localai_tpu_torch.federation.server import (
+        validate_advertised_address,
+    )
+
+    refused = _peer_refused(manager, authorization)
+    if refused:
+        return refused
+    try:
+        address = str(body["address"])
+    except Exception:  # noqa: BLE001 — any unreadable body alike
+        return 400, {"error": "address is required"}
+    try:
+        validate_advertised_address(address)
+    except ValueError as e:
+        return 400, {"error": str(e)}
+    role = str(body.get("role", "decode"))
+    if role not in ("decode", "prefill"):
+        return 400, {"error": f"unknown role {role!r} (decode|prefill)"}
+    model = body.get("model")
+    targets = {name: sm for name, sm in manager.loaded_snapshot().items()
+               if (not model or name == model)
+               and hasattr(sm, "adopt_remote")}
+    if not targets:
+        return 409, {"error": (f"model {model!r} is not fleet-served"
+                               if model else "no fleet-served model loaded")}
+    if len(targets) > 1:
+        # a worker holds one model: adopted into two pools, the second
+        # would serve the first one's model under its own name
+        return 409, {"error": "multiple fleet-served models are loaded "
+                              f"({sorted(targets)}); pass \"model\" to say "
+                              "which one the peer serves"}
+    adopted = {name: sm.adopt_remote(address, role)
+               for name, sm in targets.items()}
+    return 200, {"address": address, "adopted": adopted}
+
+
+def fleet_swap(manager, body: dict, model: str, authorization: str = ""):
     """POST /v1/fleet/{model}/swap: the hot weight swap — boot fresh
     replicas (``{"checkpoint": "ref"}`` switches weights; an empty body
     recycles the current ones), shift router traffic, drain and retire
     the old generation. 200 with the result, 409 when the swap did not
     happen or the model is not fleet-served, 404 when it is not
-    loaded."""
+    loaded, 401 on a wrong peer token (it changes serving capacity)."""
+    refused = _peer_refused(manager, authorization)
+    if refused:
+        return refused
+    if not isinstance(body, dict):
+        raise APIError(400, "invalid JSON body: body must be a JSON object")
     checkpoint = body.get("checkpoint")
     if checkpoint is not None and not isinstance(checkpoint, str):
         raise APIError(400, "checkpoint must be a string")

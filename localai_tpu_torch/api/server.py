@@ -17,8 +17,8 @@ under the JAX package's unversioned alias:
   * GET  /v1/models, /models  (``?filter=<regex>``)
   * GET  /, /healthz, /readyz, /version, /metrics, /system,
     /backend/metrics, /v1/slo, /v1/usage; POST /backend/trace
-  * GET  /v1/fleet; POST /v1/fleet/{model}/swap (``api.localai``; the
-    in-process fleets of ``fleet``)
+  * GET  /v1/fleet; POST /v1/fleet/{model}/swap, /federated/register
+    (``api.localai``; the fleets of ``fleet``)
   * GET  /v1/traces, /v1/traces/{trace_id}, /debug/timeline/{request_id}
   * GET  /debug/devices, /debug/programs, /debug/stacks, /debug/flight,
     /debug/fleet/flight, /debug/anatomy, /debug/profiles, /debug/history,
@@ -115,6 +115,7 @@ _POST = {"/v1/chat/completions": oa.chat, "/chat/completions": oa.chat,
          "/backend/monitor": la.backend_monitor,
          "/backend/shutdown": la.backend_shutdown,
          "/backend/trace": la.backend_trace,
+         "/federated/register": la.fleet_register,
          "/v1/audio/transcriptions": audio.transcriptions,
          "/v1/audio/speech": audio.speech, "/tts": audio.speech,
          "/v1/sound-generation": audio.sound_generation,
@@ -127,6 +128,10 @@ _POST = {"/v1/chat/completions": oa.chat, "/chat/completions": oa.chat,
 _MULTIPART = {"/v1/audio/transcriptions", *assistants.UPLOAD}
 # POST routes whose handler also takes the request's base URL (url answers)
 _BASE_URL = {"/v1/images/generations"}
+# POST routes guarded by the peer token: the handler takes the request's
+# Authorization header, and the body as parsed (None when it is not JSON),
+# so a wrong token is a 401 before anything of the body is judged
+_PEER_AUTH = {"/federated/register", "/v1/fleet/{model}/swap"}
 MAX_BODY_BYTES = 64 << 20
 _GET = {"/v1/models": oa.list_models, "/models": oa.list_models,
         "/readyz": lambda manager, query: oa.readyz(manager),
@@ -441,6 +446,13 @@ class _Handler(BaseHTTPRequestHandler):
                     body = audio.parse_multipart(
                         self.headers.get("Content-Type", ""), raw,
                         kw.get("filenames"))
+                elif canonical in _PEER_AUTH:
+                    try:
+                        body = json.loads(raw or b"{}")
+                    except ValueError:
+                        body = None
+                    kw["authorization"] = self.headers.get(
+                        "Authorization", "")
                 elif canonical in assistants.JSON_ANY:
                     try:
                         body = json.loads(raw)

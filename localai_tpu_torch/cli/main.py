@@ -19,6 +19,11 @@ Port of ``localai_tpu/cli/main.py`` for what the port has:
                              (``--peers``, ``--random-worker``,
                              ``--target-worker``, ``--peer-token``)
   explorer --router URL      the discovery dashboard over routers
+  worker --addr HOST:PORT    a model worker (``worker.server``) that a
+                             serving instance adopts by address
+                             (``--fleet-hosts``, ``external_backends``,
+                             ``POST /federated/register``)
+  follower                   refused: exits 2 naming ROADMAP item 19
   version
 
 ``run`` takes the JAX package's flags with their defaults, each also read
@@ -38,11 +43,9 @@ flags (``--slo-ttft-p95-ms``, ``--slo-tpot-p95-ms``, ``--slo-e2e-p95-ms``,
 executor through ``AppConfig``. The fleet and autoscale flags
 (``--fleet-*``, ``--autoscale*``, and their ``LOCALAI_FLEET_*`` /
 ``LOCALAI_AUTOSCALE_*`` variables) reach the manager's fleets the same
-way; those that need the port's own transport (the worker backend, the
-JAX package's default, so ``--fleet-replicas 2`` needs
-``--fleet-backend inprocess``; ``--fleet-hosts``;
-``--fleet-device-pinning``; ``--autoscale-standby-hosts``) exit 2 naming
-ROADMAP item 23 (``fleet_refusals``). ``--disable-webui`` and the
+way: worker-process replicas by default, in-process ones with
+``--fleet-backend inprocess``, remote workers from ``--fleet-hosts`` and
+``--autoscale-standby-hosts``. ``--disable-webui`` and the
 federation flags (``--federated``, ``--federated-router``,
 ``--federated-advertise``, ``--peer-token``, ``--swarm-routers``) reach
 ``AppConfig`` over their ``LOCALAI_*`` variables (the JAX package reads
@@ -71,7 +74,7 @@ from typing import Optional, Sequence
 
 from localai_tpu_torch import __version__
 from localai_tpu_torch.api.server import APIServer
-from localai_tpu_torch.config.app_config import AppConfig, fleet_refusals
+from localai_tpu_torch.config.app_config import AppConfig
 from localai_tpu_torch.config.loader import ConfigLoader
 from localai_tpu_torch.config.model_config import USECASES
 from localai_tpu_torch.config.watcher import (
@@ -175,7 +178,7 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--batch-expiry-h", type=float, default=None,
                      help="hours before a non-terminal batch job expires "
                           "(default 24)")
-    # fleets (fleet): in-process replicas behind one cache-aware router
+    # fleets (fleet): engine replicas behind one cache-aware router
     run.add_argument("--fleet-replicas", type=int, default=None,
                      help="serve each LLM from N engine replicas behind "
                           "one cache-aware router (0/1 = single engine)")
@@ -185,17 +188,21 @@ def build_parser() -> argparse.ArgumentParser:
                           "their KV prefix to a decode replica (default 0)")
     run.add_argument("--fleet-backend", default=None,
                      choices=["worker", "inprocess"],
-                     help="replica shape: inprocess engines (worker "
-                          "processes, the JAX package's default, are "
-                          "refused until the port has its own transport)")
+                     help="replica shape: spawned worker processes "
+                          "(default) or in-process engines")
     run.add_argument("--fleet-disagg-threshold", type=int, default=None,
                      help="prompt tokens at which a request takes the "
                           "disaggregated prefill path (default 512)")
     run.add_argument("--fleet-device-pinning", action="store_true",
                      default=_env_bool("fleet_device_pinning"),
-                     help="refused: pins worker processes to devices")
+                     help="derive each worker replica's "
+                          "CUDA_VISIBLE_DEVICES slice, so --fleet-replicas "
+                          "N partitions the host's cards evenly")
     run.add_argument("--fleet-hosts", default=None,
-                     help="refused: remote workers to adopt")
+                     help="comma-separated host:port remote workers to "
+                          "adopt into every fleet pool (failed remotes are "
+                          "evicted and redialed on backoff, never "
+                          "respawned)")
     run.add_argument("--fleet-rpc-timeout-s", type=float, default=None,
                      help="per-reply inactivity deadline on cross-"
                           "replica streams (default 120; 0 disables)")
@@ -223,7 +230,8 @@ def build_parser() -> argparse.ArgumentParser:
                           "to zero; the next request boots one and waits "
                           "for it (0 = off, the default)")
     run.add_argument("--autoscale-standby-hosts", default=None,
-                     help="refused: remote standby workers")
+                     help="comma-separated host:port standby workers "
+                          "adopted before spawning when scaling out")
     # the web UI and the federation (None = not given: LOCALAI_* stands)
     run.add_argument("--disable-webui", action="store_true", default=None,
                      help="serve no web UI pages (/ answers JSON)")
@@ -269,6 +277,15 @@ def build_parser() -> argparse.ArgumentParser:
         "available", help="list models available to install")
     mavail.add_argument("--models-path", default="models")
     mavail.add_argument("--galleries", default="")
+
+    worker = sub.add_parser("worker", help="start a model worker")
+    worker.add_argument("--addr", default="127.0.0.1:50051")
+    # the JAX package's multi-host follower: refused, naming its item
+    follower = sub.add_parser("follower", help="refused: a multi-host "
+                              "follower (ROADMAP item 19)")
+    for flag in ("--leader", "--model", "--models-path", "--coordinator",
+                 "--num-processes", "--process-id", "--peer-token"):
+        follower.add_argument(flag)
 
     tok = sub.add_parser("tokenize", help="tokenize text with a model")
     tok.add_argument("text")
@@ -578,9 +595,6 @@ def build_server(argv: Optional[Sequence[str]] = None) -> APIServer:
         cfg = app_config(args)
     except ValueError as e:
         parser.error(str(e))
-    refused = fleet_refusals(cfg)
-    if refused:
-        parser.error("; ".join(refused))
     resolve_device(cfg.device)   # no card and no --device cpu: fail now
     loader = ConfigLoader(cfg.model_path)
     loader.load_from_path(context_size=cfg.context_size)
@@ -748,6 +762,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         # tokenizer only: never read weights to encode a string
         tok = resolve_tokenizer(mcfg.model, args.models_path)
         print(tok.encode(args.text))
+        return 0
+    if cmd == "follower":
+        parser.error(f"follower is not ported yet (ROADMAP item 19: "
+                     f"{_WHAT[19]})")
+    if cmd == "worker":
+        from localai_tpu_torch.worker.server import serve_worker
+
+        serve_worker(args.addr)
         return 0
     if cmd == "util":
         return _run_util(args, parser)

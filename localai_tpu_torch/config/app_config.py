@@ -5,15 +5,10 @@ feature reads, with the JAX package's defaults, each also read from
 ``LOCALAI_<FIELD>`` by :meth:`AppConfig.from_env`. ``device`` is the
 port's own (the card unless ``cpu`` is asked for), read from
 ``LOCALAI_DEVICE`` alike (``--platform`` is read into it by the CLI).
-The web UI switch (``disable_webui``) and the federation fields are the
-JAX package's, with its defaults. The fleet and autoscale fields are the
-JAX package's, with its defaults;
-of their values, those that need the port's own transport (the worker
-replica backend, ``fleet_hosts``, ``fleet_device_pinning``,
-``autoscale_standby_hosts``) are refused by ``cli/main.py`` at ``run``
-and by the manager at a fleet's load, naming ROADMAP item 23. The fields
-of meshes are not here: the CLI refuses ``--mesh`` rather than dropping
-it.
+The web UI switch (``disable_webui``), the federation, worker-tier
+(``external_backends``, ``worker_env``, ``parallel_requests``), fleet and
+autoscale fields are the JAX package's, with its defaults. The fields of
+meshes are not here: the CLI refuses ``--mesh`` rather than dropping it.
 """
 
 from __future__ import annotations
@@ -58,7 +53,15 @@ class AppConfig:
     preload_models: list[str] = field(default_factory=list)
     load_to_memory: list[str] = field(default_factory=list)
     context_size: int = 4096        # default when a model sets none
+    # the JAX package's field, read and moving nothing there as here
+    parallel_requests: bool = True
     single_active_backend: bool = False
+    # worker tier (worker/): model name → address of an externally managed
+    # worker (external_backends.json merges into it at run time), and the
+    # extra environment of every spawned worker process (device pinning
+    # fills it per fleet replica); neither is read from the environment
+    external_backends: dict[str, str] = field(default_factory=dict)
+    worker_env: dict[str, str] = field(default_factory=dict)
 
     # watchdog (evict idle models, cancel requests stuck past a timeout)
     watchdog_idle: bool = False
@@ -91,10 +94,13 @@ class AppConfig:
     slo_burn_threshold: float = 2.0
 
     # fleets (fleet): serve each LLM from N data-parallel engine replicas
-    # behind one facade; 0/1 = a single engine. fleet_backend=inprocess
-    # builds N engines in this process (the port's only backend: the
-    # default, worker, needs the port's own transport, ROADMAP item 23
-    # part 2). fleet_prefill_replicas adds dedicated prefill replicas:
+    # behind one facade; 0/1 = a single engine. Replicas are worker
+    # processes (fleet_backend=worker, the default: crash isolation, and
+    # device pinning through worker_env); fleet_backend=inprocess builds
+    # N engines in this process. fleet_hosts adopts remote workers at
+    # host:port (evicted and redialed on failure, never respawned);
+    # fleet_device_pinning derives each worker's CUDA_VISIBLE_DEVICES
+    # slice (fleet.pinning). fleet_prefill_replicas adds prefill replicas:
     # prompts >= fleet_disagg_threshold tokens prefill there and hand
     # their KV prefix to a decode replica. fleet_rpc_timeout_s bounds the
     # silence between two replies of a replica's stream (0 = none).
@@ -157,7 +163,7 @@ class AppConfig:
                 value = env.lower() in ("1", "true", "yes", "on")
             elif f.type == "list[str]":
                 value = [s for s in env.split(",") if s]
-            elif f.type == "list[dict]":
+            elif f.type in ("list[dict]", "dict[str, str]"):
                 continue    # not read from the environment (as the JAX
                             # package: no LOCALAI_GALLERIES)
             else:
@@ -168,36 +174,3 @@ class AppConfig:
                 setattr(cfg, k, v)
         return cfg
 
-
-# fleet settings that need the port's own transport between processes
-# and hosts (ROADMAP item 23, part 2): field → what it asks for
-NEEDS_TRANSPORT = {
-    "fleet_hosts": "--fleet-hosts / LOCALAI_FLEET_HOSTS (remote replicas)",
-    "fleet_device_pinning": "--fleet-device-pinning / "
-                            "LOCALAI_FLEET_DEVICE_PINNING (worker "
-                            "processes pinned to devices)",
-    "autoscale_standby_hosts": "--autoscale-standby-hosts / "
-                               "LOCALAI_AUTOSCALE_STANDBY_HOSTS (remote "
-                               "standby replicas)",
-}
-
-
-def fleet_refusals(cfg: AppConfig) -> list[str]:
-    """Each fleet setting of ``cfg`` that needs the port's own transport,
-    as a message naming ROADMAP item 23: the worker replica backend (the
-    JAX package's default, so ``--fleet-replicas 2`` alone is refused),
-    remote hosts, device pinning and standby hosts. None of them runs
-    in-process in silence."""
-    out = []
-    if cfg.fleet_replicas > 1 and cfg.fleet_backend != "inprocess":
-        out.append(f"--fleet-backend {cfg.fleet_backend} (the JAX "
-                   "package's default: worker) runs replicas as worker "
-                   "processes, which need the "
-                   "port's own transport (ROADMAP item 23 part 2: the "
-                   "worker tier); pass --fleet-backend inprocess")
-    for fld, what in NEEDS_TRANSPORT.items():
-        if getattr(cfg, fld):
-            out.append(f"{what} needs the port's own transport (ROADMAP "
-                       "item 23 part 2: the worker tier and remote "
-                       "replicas)")
-    return out

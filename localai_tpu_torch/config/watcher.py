@@ -4,9 +4,11 @@ Port of ``localai_tpu/config/watcher.py``: a polling thread diffs the
 mtimes of registered files and runs each file's handler when it changes
 (with the file's bytes) or disappears (with None). ``api_keys.json`` (a
 JSON array of keys) adds keys to the ones the server started with;
-removing it restores them. ``external_backends.json`` registers remote
-workers, which belong to the worker tier the port has not yet (ROADMAP
-item 23, part 2): its presence is logged as an error and nothing is registered.
+removing it restores them. ``external_backends.json`` (a JSON object,
+model name → ``host:port`` of an externally managed port worker) merges
+over the registrations the server started with into
+``AppConfig.external_backends``; the manager routes those models to
+their worker.
 """
 
 from __future__ import annotations
@@ -92,9 +94,11 @@ class ConfigWatcher:
 
 
 def attach_standard_handlers(watcher: ConfigWatcher, app) -> None:
-    """``api_keys.json`` onto ``app.api_keys`` (added to the startup keys),
-    and the error for ``external_backends.json``."""
+    """``api_keys.json`` onto ``app.api_keys`` (added to the startup
+    keys), ``external_backends.json`` onto ``app.external_backends`` (over
+    the startup registrations)."""
     startup_keys = list(app.api_keys)
+    startup_backends = dict(app.external_backends)
 
     def on_api_keys(data: Optional[bytes]) -> None:
         dynamic: list[str] = []
@@ -107,11 +111,16 @@ def attach_standard_handlers(watcher: ConfigWatcher, app) -> None:
             k for k in dynamic if k not in startup_keys]
 
     def on_external_backends(data: Optional[bytes]) -> None:
-        if data is not None:
-            log.error("%s/external_backends.json registers remote workers, "
-                      "which the port does not have yet (ROADMAP item 23 "
-                      "part 2: the worker tier); nothing is registered",
-                      watcher.dir)
+        dynamic: dict[str, str] = {}
+        if data:
+            parsed = json.loads(data)
+            if not isinstance(parsed, dict):
+                raise ValueError(
+                    "external_backends.json must be a JSON object")
+            dynamic = {str(k): str(v) for k, v in parsed.items()}
+        merged = dict(startup_backends)
+        merged.update(dynamic)
+        app.external_backends = merged
 
     watcher.register("api_keys.json", on_api_keys)
     watcher.register("external_backends.json", on_external_backends)

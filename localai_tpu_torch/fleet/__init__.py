@@ -1,7 +1,9 @@
-"""Fleets: one model served by N in-process engine replicas.
+"""Fleets: one model served by N engine replicas behind one facade.
 
-Port of ``localai_tpu/fleet`` over in-process replicas (``run
---fleet-backend inprocess --fleet-replicas N``; ROADMAP item 23 part 1):
+Port of ``localai_tpu/fleet``: worker-process replicas (``run
+--fleet-replicas N``, the default backend), in-process ones
+(``--fleet-backend inprocess``) and adopted remote workers
+(``--fleet-hosts``, ``POST /federated/register``):
 
   * :mod:`pool` — ReplicaPool: N replicas booted together, health dials,
     respawn on death with a jittered backoff, runtime spawn and removal;
@@ -16,14 +18,14 @@ Port of ``localai_tpu/fleet`` over in-process replicas (``run
   * :mod:`net` — deadlines (``LOCALAI_FLEET_RPC_TIMEOUT_S``), bounded
     jittered retries and the stream pump with the ``fleet.transport``
     fault site;
-  * :mod:`replica` — ``InProcessReplica``;
+  * :mod:`replica` — ``WorkerReplica``, ``RemoteReplica`` and
+    ``InProcessReplica``;
+  * :mod:`pinning` — per-replica ``CUDA_VISIBLE_DEVICES`` slices
+    (``--fleet-device-pinning``);
   * :mod:`kveconomy` — the prefix directory, the host KV tier under every
     paged engine (``LOCALAI_KV_TIER_MB``) and the migration ticket;
   * :mod:`autoscale` — the capacity controller, its pure policy, density
     and the hot swap.
-
-Worker-process and remote replicas, federation and device pinning wait
-for the port's own transport (ROADMAP item 23, part 2).
 """
 
 from localai_tpu_torch.fleet.net import RpcDeadlineExceeded, bounded_stream
@@ -33,7 +35,11 @@ from localai_tpu_torch.fleet.prefix import (
     assemble_chunks,
     pack_chunks,
 )
-from localai_tpu_torch.fleet.replica import InProcessReplica
+from localai_tpu_torch.fleet.replica import (
+    InProcessReplica,
+    RemoteReplica,
+    WorkerReplica,
+)
 from localai_tpu_torch.fleet.router import Router, affinity_key
 from localai_tpu_torch.fleet.serving import FleetScheduler, FleetServingModel
 
@@ -42,9 +48,11 @@ __all__ = [
     "FleetServingModel",
     "InProcessReplica",
     "PrefixCache",
+    "RemoteReplica",
     "ReplicaPool",
     "Router",
     "RpcDeadlineExceeded",
+    "WorkerReplica",
     "affinity_key",
     "assemble_chunks",
     "bounded_stream",

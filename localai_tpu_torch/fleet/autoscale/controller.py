@@ -1,8 +1,10 @@
 """The closed capacity loop: harvest signals, decide, actuate.
 
 Port of ``localai_tpu/fleet/autoscale/controller.py``. One daemon per
-fleet-served model. Scale-out spawns a fresh replica through the pool's
-own factory (``pool.spawn``: the boot-time path). Scale-in is
+fleet-served model. Scale-out adopts a configured standby host first
+(capacity without a boot), else spawns a fresh replica through the pool's
+own factory (``pool.spawn``: the boot-time path, with device pinning for
+worker replicas). Scale-in is
 drain-based: every in-flight slot is live-migrated off the victim
 (``FleetScheduler.drain``) before it is retired from the pool, so no
 request is lost, and the scale-in is deferred when a request cannot be
@@ -12,9 +14,7 @@ weights and KV pool on the card.
 Scale-to-zero parks ``request_capacity`` on the scheduler's ``on_cold``
 hook: when routing finds no healthy replica, the dispatch thread calls
 it and waits for a cold boot instead of erroring; the held request is
-served by the replica its own arrival booted. The JAX package's
-standby-host adoption (``autoscale_standby_hosts``) waits for the port's
-remote replicas (ROADMAP item 23, part 2).
+served by the replica its own arrival booted.
 """
 
 from __future__ import annotations
@@ -155,6 +155,15 @@ class AutoscaleController:
     # -- actuation ----------------------------------------------------------
 
     def _scale_out(self) -> bool:
+        for addr in self.cfg.standby_hosts:
+            rid = f"{self.fm.name}/{addr}"
+            if self.pool.get(rid) is not None:
+                continue  # already adopted (perhaps evicted, redialing)
+            res = self.fm.adopt_remote(addr)
+            if res.get("state") == "healthy":
+                log.info("autoscale %s: adopted standby %s", self.fm.name,
+                         addr)
+                return True
         return self.pool.spawn("decode", wait=True) is not None
 
     def _scale_in(self, rid: Optional[str]) -> bool:

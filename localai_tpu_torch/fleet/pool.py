@@ -1,7 +1,6 @@
 """ReplicaPool: N live engine replicas for one model, kept alive.
 
-Port of ``localai_tpu/fleet/pool.py`` for replicas this process owns.
-Every replica is booted at start (concurrently: a cold fleet boots in one
+Port of ``localai_tpu/fleet/pool.py``. Every replica is booted at start (concurrently: a cold fleet boots in one
 model load, not N), a monitor thread dial-tests each replica on an
 interval (timing, consecutive failures), and a replica past the failure
 threshold (or whose engine died) is marked ``dead``, taken out of
@@ -13,11 +12,11 @@ pulled for ``/v1/fleet`` and the ``localai_fleet_*`` gauges, never on the
 dispatch path. The fault sites ``fleet.respawn`` and ``fleet.dial`` fire
 here.
 
-The JAX package's pool also adopts remote replicas, which it evicts from
-routing and redials instead of respawning; those come with the port's
-own transport (ROADMAP item 23, part 2), and the snapshot's remote
-counters (``evictions``, ``redials``, ``redial_backoff_s``) read 0 until
-then."""
+Remote replicas (``RemoteReplica``: ``fleet_hosts``, a registration) are
+adopted into the same pool but never respawned: this process does not own
+them, so a failed remote is evicted from routing and redialed on its own
+backoff (``LOCALAI_FLEET_REDIAL_BASE_S`` / ``_CAP_S``), counted in the
+snapshot's ``evictions``, ``redials`` and ``redial_backoff_s``."""
 
 from __future__ import annotations
 
@@ -50,7 +49,8 @@ class ReplicaPool:
                  health_interval: float = 5.0,
                  failure_threshold: int = 3,
                  dial_timeout: float = 2.0,
-                 track_queue_depth: bool = False):
+                 track_queue_depth: bool = False,
+                 remotes: Optional[list[BaseReplica]] = None):
         self.model = model
         self.factory = factory
         self.health_interval = health_interval
@@ -71,16 +71,21 @@ class ReplicaPool:
         self._next_index = {"decode": replicas, "prefill": prefill_replicas}
         self._lock = threading.Lock()
         self._respawning: set[str] = set()
-        # death listeners: called with the replica id once per DEAD
-        # transition (the prefix directory drops every entry naming it: a
-        # respawned engine boots cold)
+        # death listeners: called with the replica id once per DEAD or
+        # EVICTED transition (the prefix directory drops every entry naming
+        # it: a respawned engine boots cold)
         self._death_listeners: list[Callable[[str], None]] = []
         self.respawns = 0
         self.adoptions = 0
+        # remote lifecycle, apart from local respawns: a failed remote is
+        # evicted from routing and redialed on backoff
+        self.evictions = 0
+        self.redials = 0
         # respawn pacing: a replica whose respawn keeps failing is retried
         # on jittered exponential backoff (base doubled per consecutive
         # failure, capped); a successful rejoin resets the clock. Exported
-        # per replica as localai_fleet_respawn_backoff_s
+        # per replica as localai_fleet_respawn_backoff_s (locals) and
+        # localai_fleet_redial_backoff_s (remotes)
         self.respawn_backoff_base = _env_float(
             "LOCALAI_FLEET_RESPAWN_BASE_S", 1.0)
         self.respawn_backoff_cap = _env_float(
@@ -88,9 +93,18 @@ class ReplicaPool:
         self._respawn_failures: dict[str, int] = {}
         self._respawn_after: dict[str, float] = {}
         self.respawn_backoff_s: dict[str, float] = {}
+        self.redial_backoff_base = _env_float(
+            "LOCALAI_FLEET_REDIAL_BASE_S", self.respawn_backoff_base)
+        self.redial_backoff_cap = _env_float(
+            "LOCALAI_FLEET_REDIAL_CAP_S", self.respawn_backoff_cap)
+        self.redial_backoff_s: dict[str, float] = {}
         self._started = False
         self._stop = threading.Event()
         self._monitor: Optional[threading.Thread] = None
+        # statically adopted remotes (fleet_hosts) ride the same adopt()
+        # path as runtime joins, and boot with the locals in start()
+        for r in remotes or []:
+            self.adopt(r)
 
     # -- boot / teardown ---------------------------------------------------
 
@@ -107,7 +121,14 @@ class ReplicaPool:
                 r.dial(self.dial_timeout)
             except Exception as e:  # noqa: BLE001
                 errors[r.id] = e
-                r.state = DEAD
+                # an unreachable remote at boot is evicted with a redial,
+                # and counted like any other eviction
+                r.state = DEAD if r.respawnable else EVICTED
+                if not r.respawnable:
+                    with self._lock:
+                        self.evictions += 1
+                    REGISTRY.fleet_evictions.inc(model=self.model,
+                                                 replica=r.id)
 
         members = self.members()
         threads = [threading.Thread(target=boot, args=(r,),
@@ -147,8 +168,9 @@ class ReplicaPool:
         """Add ``replica`` to the pool at runtime. Returns False on a
         duplicate id. Before ``start()`` the replica rides the normal
         concurrent boot; after it, the boot and first dial run on a
-        background thread (``wait=True`` runs them inline) and a failed
-        boot lands in the respawn path. The router's ring picks the
+        background thread (``wait=True`` runs them inline: a registration
+        wants the verdict) and a failed boot lands in the eviction and
+        redial path (remote) or the respawn path (local). The router's ring picks the
         newcomer up on its next route (only ~1/N of the affinity keyspace
         remaps)."""
         with self._lock:
@@ -213,6 +235,7 @@ class ReplicaPool:
             self._respawn_failures.pop(rid, None)
             self._respawn_after.pop(rid, None)
             self.respawn_backoff_s.pop(rid, None)
+            self.redial_backoff_s.pop(rid, None)
         if stop:
             try:
                 replica.stop()
@@ -250,8 +273,8 @@ class ReplicaPool:
         return min(live, key=lambda r: r.load) if live else None
 
     def add_death_listener(self, fn: Callable[[str], None]) -> None:
-        """Register ``fn(replica_id)`` to run on every DEAD transition
-        (once per incident: ``_mark_dead`` is idempotent)."""
+        """Register ``fn(replica_id)`` to run on every DEAD or EVICTED
+        transition (once per incident: ``_mark_dead`` is idempotent)."""
         with self._lock:
             self._death_listeners.append(fn)
 
@@ -301,42 +324,59 @@ class ReplicaPool:
 
     def _mark_dead(self, r: BaseReplica) -> None:
         # check-and-transition atomically: a dispatch thread's
-        # note_failure can race the monitor sweep here
+        # note_failure can race the monitor sweep here, and an eviction
+        # is counted once an incident
         with self._lock:
             if r.state in (DEAD, EVICTED):
                 return
-            r.state = DEAD
+            r.state = DEAD if r.respawnable else EVICTED
+            if not r.respawnable:
+                self.evictions += 1
             listeners = list(self._death_listeners)
         for fn in listeners:
             try:
                 fn(r.id)
             except Exception:  # noqa: BLE001 — bookkeeping ≠ recovery
                 log.exception("death listener failed for %s", r.id)
-        log.warning("fleet %s: replica %s marked dead "
-                    "(%d consecutive dial failures)",
-                    self.model, r.id, r.failures)
+        if r.respawnable:
+            log.warning("fleet %s: replica %s marked dead "
+                        "(%d consecutive dial failures)",
+                        self.model, r.id, r.failures)
+        else:
+            # a remote's failure is the network's or the peer's: out of
+            # routing, redialed on backoff, no process here to respawn
+            log.warning("fleet %s: remote replica %s evicted "
+                        "(%d consecutive dial failures)",
+                        self.model, r.id, r.failures)
+            REGISTRY.fleet_evictions.inc(model=self.model, replica=r.id)
         self._spawn_respawn(r)
 
     def _spawn_respawn(self, r: BaseReplica) -> None:
-        """Bring a dead replica back on a thread of its own: stop, start,
-        rejoin routing after a dial passes."""
+        """Bring a dead local replica back (respawn: stop, start) or an
+        evicted remote (redial: a fresh dial and LoadModel if it came back
+        empty, never a stop-and-spawn) on a thread of its own; either
+        rejoins routing after a dial passes. A remote keeps state
+        ``evicted`` while its attempt runs."""
         with self._lock:
             if r.id in self._respawning:
                 return
             self._respawning.add(r.id)
-        r.state = RESPAWNING
+        down_state = DEAD if r.respawnable else EVICTED
+        if r.respawnable:
+            r.state = RESPAWNING
 
         def respawn() -> None:
             try:
                 if self._stop.is_set() or r.retired:
-                    r.state = DEAD
+                    r.state = down_state
                     return
                 try:
                     r.stop()
                 except Exception:  # noqa: BLE001
                     pass
-                if _faults.ACTIVE:
-                    # a respawn that keeps failing (exercises backoff)
+                if _faults.ACTIVE and r.respawnable:
+                    # a respawn that keeps failing (exercises backoff;
+                    # remotes take fleet.dial on the dial after start)
                     _faults.apply("fleet.respawn", key=r.id)
                 r.start()
                 if self._stop.is_set() or r.retired:
@@ -346,25 +386,34 @@ class ReplicaPool:
                         r.stop()
                     except Exception:  # noqa: BLE001
                         pass
-                    r.state = DEAD
+                    r.state = down_state
                     return
                 # rejoin routing only after a real dial passes (it flips
                 # RESPAWNING → HEALTHY and records the timing)
                 if r.dial(self.dial_timeout):
                     with self._lock:
-                        self.respawns += 1
+                        if r.respawnable:
+                            self.respawns += 1
+                        else:
+                            self.redials += 1
+                    if not r.respawnable:
+                        r.state = HEALTHY   # dial() flips only from
+                        #                     STARTING/RESPAWNING
+                        REGISTRY.fleet_redials.inc(model=self.model,
+                                                   replica=r.id)
                     self._note_rejoined(r)
-                    log.info("fleet %s: replica %s respawned", self.model,
-                             r.id)
+                    log.info("fleet %s: replica %s %s", self.model, r.id,
+                             "respawned" if r.respawnable else "redialed")
                 else:
-                    r.state = DEAD
+                    r.state = down_state
                     self._note_respawn_failed(r)
             except Exception as e:  # noqa: BLE001
-                r.state = DEAD
+                r.state = down_state
                 backoff = self._note_respawn_failed(r)
-                log.warning("fleet %s: respawn of %s failed: %s "
-                            "(retrying in %.1fs)", self.model, r.id, e,
-                            backoff)
+                log.warning("fleet %s: %s of %s failed: %s "
+                            "(retrying in %.1fs)", self.model,
+                            "respawn" if r.respawnable else "redial",
+                            r.id, e, backoff)
             finally:
                 with self._lock:
                     self._respawning.discard(r.id)
@@ -373,30 +422,39 @@ class ReplicaPool:
                          daemon=True).start()
 
     def _note_respawn_failed(self, r: BaseReplica) -> float:
-        """Advance the replica's jittered exponential respawn backoff:
-        base × 2^consecutive failures, ±25% jitter, capped. The next sweep
-        skips the replica until the hold expires. Returns the delay."""
-        base_s, cap = self.respawn_backoff_base, self.respawn_backoff_cap
+        """Advance the replica's jittered exponential respawn (local) or
+        redial (remote) backoff: base × 2^consecutive failures, ±25%
+        jitter, capped. The next sweep skips the replica until the hold
+        expires. Returns the delay."""
+        if r.respawnable:
+            base_s, cap = self.respawn_backoff_base, self.respawn_backoff_cap
+            gauge = REGISTRY.fleet_respawn_backoff
+        else:
+            base_s, cap = self.redial_backoff_base, self.redial_backoff_cap
+            gauge = REGISTRY.fleet_redial_backoff
         with self._lock:
             n = self._respawn_failures.get(r.id, 0)
             self._respawn_failures[r.id] = n + 1
             base = min(cap, base_s * (2 ** n))
             delay = min(cap, base * (0.75 + 0.5 * random.random()))
-            self.respawn_backoff_s[r.id] = delay
+            book = (self.respawn_backoff_s if r.respawnable
+                    else self.redial_backoff_s)
+            book[r.id] = delay
             self._respawn_after[r.id] = time.monotonic() + delay
-        REGISTRY.fleet_respawn_backoff.set(delay, model=self.model,
-                                           replica=r.id)
+        gauge.set(delay, model=self.model, replica=r.id)
         return delay
 
     def _note_rejoined(self, r: BaseReplica) -> None:
-        """A respawn passed its boot and dial: the backoff clock resets, so
-        the next incident starts from the base again."""
+        """A respawn or redial passed its boot and dial: the backoff clock
+        resets, so the next incident starts from the base again."""
+        gauge = (REGISTRY.fleet_respawn_backoff if r.respawnable
+                 else REGISTRY.fleet_redial_backoff)
         with self._lock:
             self._respawn_failures.pop(r.id, None)
             self._respawn_after.pop(r.id, None)
             self.respawn_backoff_s.pop(r.id, None)
-        REGISTRY.fleet_respawn_backoff.set(0.0, model=self.model,
-                                           replica=r.id)
+            self.redial_backoff_s.pop(r.id, None)
+        gauge.set(0.0, model=self.model, replica=r.id)
 
     # -- observability -----------------------------------------------------
 
@@ -410,6 +468,9 @@ class ReplicaPool:
         reps = []
         for r in self.members():
             snap = r.snapshot()
+            if not r.respawnable:
+                snap["remote"] = True
+                snap["address"] = getattr(r, "address", None)
             if with_metrics and r.state == HEALTHY:
                 m = r.metrics()
                 # step-time percentiles and spec acceptance ride along so
@@ -425,18 +486,20 @@ class ReplicaPool:
             reps.append(snap)
         with self._lock:
             respawns = self.respawns
+            evictions = self.evictions
+            redials = self.redials
             adoptions = self.adoptions
             backoff = dict(self.respawn_backoff_s)
+            redial_backoff = dict(self.redial_backoff_s)
         return {
             "model": self.model,
             "states": self.states(),
             "respawns": respawns,
-            # remote replicas' counters (the JAX package's keys)
-            "evictions": 0,
-            "redials": 0,
+            "evictions": evictions,
+            "redials": redials,
             "adoptions": adoptions,
             "respawn_backoff_s": backoff,
-            "redial_backoff_s": {},
+            "redial_backoff_s": redial_backoff,
             "health_interval_s": self.health_interval,
             "failure_threshold": self.failure_threshold,
             "replicas": reps,

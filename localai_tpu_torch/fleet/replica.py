@@ -1,18 +1,26 @@
 """One engine replica: lifecycle state, dial bookkeeping, dispatch surface.
 
-Port of ``localai_tpu/fleet/replica.py``'s ``BaseReplica`` and
-``InProcessReplica``: a full engine (``models.manager.
-build_serving_model``) inside this process, with the reply and chunk
-schema of the JAX package's gRPC replicas (``worker.server.
-gen_request_from_options`` decodes every request). Each in-process
-replica holds its own weights and KV pool on the card; ``stop()`` drops
-them. The JAX package's worker-process and remote replicas
-(``WorkerReplica``, ``RemoteReplica``) wait for the port's own transport
-(ROADMAP item 23, part 2).
+Port of ``localai_tpu/fleet/replica.py``. Three kinds behind one surface:
+
+  * :class:`WorkerReplica` — a spawned worker process (``worker.process.
+    WorkerProcess`` + ``worker.client.WorkerClient``): crash isolation a
+    replica, device pinning through the spawn environment, KV prefixes
+    crossing the wire as ``PrefixChunk`` streams;
+  * :class:`RemoteReplica` — an externally managed worker dialed at
+    ``host:port`` (``fleet_hosts`` or a ``POST /federated/register``
+    join): the same client, but not respawnable, so a failed remote is
+    evicted from routing and redialed on backoff;
+  * :class:`InProcessReplica` — a full engine (``models.manager.
+    build_serving_model``) inside this process, with the same reply and
+    chunk schema (``worker.server.gen_request_from_options`` decodes
+    every request). It holds its own weights and KV pool on the card;
+    ``stop()`` drops them.
 
 States: ``starting`` → ``healthy`` ⇄ ``dead`` → ``respawning`` →
-``healthy``. "Shedding" is not a stored state: it is derived per route
-from the fleet's per-replica SLO tracker (``fleet.router``)."""
+``healthy`` for replicas this process owns; remotes flip ``healthy`` ⇄
+``evicted`` (a redial instead of a respawn). "Shedding" is not a stored
+state: it is derived per route from the fleet's per-replica SLO tracker
+(``fleet.router``)."""
 
 from __future__ import annotations
 
@@ -32,8 +40,8 @@ STARTING = "starting"
 HEALTHY = "healthy"
 DEAD = "dead"
 RESPAWNING = "respawning"
-# a remote replica out of routing after failed dials (the JAX package's
-# remotes; the pool keeps the state for them)
+# a remote replica out of routing after failed dials: the pool redials it
+# on backoff, never (re)spawns a process it does not own
 EVICTED = "evicted"
 
 
@@ -208,6 +216,178 @@ class BaseReplica:
 
     def stop(self) -> None:
         raise NotImplementedError
+
+
+class _ClientReplica(BaseReplica):
+    """The transport of every client-backed replica (spawned worker
+    processes and adopted remotes): the streaming dispatch, both halves of
+    the prefix handoff, bounded stats pulls and the LoadModel handshake.
+    Subclasses own the lifecycle (spawn or dial) and set ``_client``."""
+
+    mcfg = None
+    app = None
+    _client = None
+
+    def _load_model(self) -> None:
+        from localai_tpu_torch.worker.serving import config_yaml
+
+        res = self._client.load_model(
+            config_yaml=config_yaml(self.mcfg),
+            model_path=str(self.app.model_path))
+        if not res.success:
+            raise RuntimeError(
+                f"replica {self.id} LoadModel failed: {res.message}")
+
+    def _dial(self, timeout: float) -> bool:
+        return self._client is not None and self._client.health(timeout)
+
+    def predict_stream(self, opts, trace_id: str = "",
+                       tenant: str = "") -> Iterator:
+        return self._client.predict_stream(opts, trace_id=trace_id,
+                                           tenant=tenant)
+
+    def prefill_prefix(self, opts, trace_id: str = "") -> Iterator:
+        return self._client.prefill_prefix(opts, trace_id=trace_id)
+
+    def transfer_prefix(self, chunks, trace_id: str = "",
+                        timeout: Optional[float] = None):
+        from localai_tpu_torch.fleet import net
+        from localai_tpu_torch.worker import backend_pb2 as pb
+
+        def as_messages():
+            for c in chunks:
+                yield pb.PrefixChunk(**c) if isinstance(c, dict) else c
+
+        # the transfer moves bulk KV rows: 4x the per-reply bound, never
+        # the 600 s stream default on a partitioned peer. The fleet passes
+        # its configured timeout; the environment is the fallback
+        t = net.rpc_timeout_s() if timeout is None else timeout
+        return self._client.transfer_prefix(
+            as_messages(), timeout=(t * 4 if t > 0 else 600.0),
+            trace_id=trace_id)
+
+    def metrics(self) -> dict:
+        try:
+            # the scrape path: a wedged replica costs seconds
+            return self._client.metrics(timeout=3.0)
+        except Exception as e:  # noqa: BLE001 — stats pull ≠ serving
+            return {"error": str(e)}
+
+    def telemetry(self, trace_id: str = "", since: float = 0.0,
+                  limit: int = 256, recent: int = 20) -> dict:
+        from localai_tpu_torch.fleet import net
+
+        try:
+            # one bounded pull, no retries: the next refresh is the retry
+            t = net.rpc_timeout_s()
+            return self._client.get_telemetry(
+                trace_id=trace_id, since=since, limit=limit, recent=recent,
+                timeout=t if t > 0 else 60.0)
+        except Exception as e:  # noqa: BLE001 — telemetry pull ≠ serving
+            return {"error": str(e), "unreachable": True}
+
+
+class WorkerReplica(_ClientReplica):
+    """A replica backed by its own spawned worker process."""
+
+    def __init__(self, rid: str, role: str, mcfg, app,
+                 *, env: Optional[dict] = None):
+        super().__init__(rid, role)
+        self.mcfg = mcfg
+        self.app = app
+        self._env = dict(env or {})
+        self._wp = None
+        self._client = None
+        # the kernel launch counts each stopped process reported (a
+        # process killed with SIGKILL reports nothing)
+        self.launch_reports: list[dict] = []
+
+    def start(self) -> None:
+        from localai_tpu_torch.worker.process import WorkerProcess
+
+        self._wp = WorkerProcess(self.id, env=self._env or None)
+        self._client = self._wp.start()
+        self._load_model()
+
+    @property
+    def pid(self) -> Optional[int]:
+        return self._wp.pid if self._wp is not None else None
+
+    def process_alive(self) -> bool:
+        return self._wp is not None and self._wp.alive
+
+    def kill(self) -> None:
+        """SIGKILL the worker (tests and failover drills)."""
+        if self._wp is not None and self._wp.proc is not None:
+            self._wp.proc.kill()
+
+    def stop(self) -> None:
+        if self._wp is not None:
+            self._wp.stop()
+            if self._wp.launch_report is not None:
+                self.launch_reports.append(self._wp.launch_report)
+            self._wp = None
+            self._client = None
+
+
+class RemoteReplica(_ClientReplica):
+    """A replica served by an externally managed worker at ``host:port``.
+    This process does not own its lifecycle (``respawnable = False``): on
+    failed dials the pool evicts it from routing and redials on backoff.
+    ``stop()`` only closes the client."""
+
+    respawnable = False
+
+    def __init__(self, rid: str, role: str, address: str,
+                 mcfg=None, app=None, *, dial_timeout: float = 5.0):
+        super().__init__(rid, role)
+        self.address = address
+        self.mcfg = mcfg
+        self.app = app
+        self.dial_timeout = dial_timeout
+        self._client = None
+
+    def start(self) -> None:
+        """Dial (or redial): a fresh client, a health gate, and, because a
+        redial may find a rebooted, empty worker, a Status check that
+        re-issues LoadModel when the peer lost the model. Raises when the
+        peer is unreachable; the pool turns that into an eviction and a
+        backed-off redial."""
+        from localai_tpu_torch.worker.client import WorkerClient
+
+        if self._client is not None:
+            self._client.close()
+        self._client = WorkerClient(self.address)
+        if not self._client.health(self.dial_timeout):
+            raise RuntimeError(
+                f"remote replica {self.id} at {self.address} is "
+                "unreachable")
+        if self.mcfg is not None:
+            self._ensure_loaded()
+
+    def _ensure_loaded(self) -> None:
+        from localai_tpu_torch.fleet import net
+        from localai_tpu_torch.worker import backend_pb2 as pb
+
+        # Status carries no model identity (a worker holds one model), so
+        # READY is taken as "holds this pool's model": the registration
+        # refuses a join that two fleets could claim
+        st = net.call_with_retries(
+            lambda: self._client.status(timeout=self.dial_timeout),
+            rid=self.id, what="status")
+        if st.state in (pb.StatusResponse.READY, pb.StatusResponse.BUSY):
+            return
+        self._load_model()
+
+    def process_alive(self) -> bool:
+        """No local process to poll: the health dial is the only truth
+        about a peer across a network."""
+        return self._client is not None
+
+    def stop(self) -> None:
+        if self._client is not None:
+            self._client.close()
+            self._client = None
 
 
 class InProcessReplica(BaseReplica):

@@ -1,7 +1,6 @@
 """FleetServingModel: one model served by N replicas behind one facade.
 
-Port of ``localai_tpu/fleet/serving.py`` over in-process replicas. The
-serving-model surface the API already speaks (tokenizer and templates
+Port of ``localai_tpu/fleet/serving.py``. The serving-model surface the API already speaks (tokenizer and templates
 local, ``scheduler.submit`` → GenHandle), but submit() routes each
 request across the replica fleet:
 
@@ -22,9 +21,11 @@ request across the replica fleet:
 
 Every request records lifecycle spans under its API trace id (queued →
 route → prefix_transfer? → rpc); in-process replicas record their engine
-spans in the same trace store under their replica ids. The JAX
-package's remote adoption (``adopt_remote``, ``fleet_hosts``) waits for
-the port's own transport (ROADMAP item 23, part 2)."""
+spans in the same trace store under their replica ids, worker and remote
+replicas under the same trace id in their own processes (the call's
+metadata carries it). Remote workers (``fleet_hosts``, or
+``adopt_remote`` on a ``POST /federated/register``) join the same
+pool."""
 
 from __future__ import annotations
 
@@ -774,7 +775,9 @@ class FleetServingModel:
     def __init__(self, mcfg: ModelConfig, app: AppConfig, factory,
                  *, replicas: int, prefill_replicas: int = 0,
                  disagg_threshold: Optional[int] = None,
-                 rpc_timeout_s: Optional[float] = None):
+                 rpc_timeout_s: Optional[float] = None,
+                 remote_hosts: Optional[list[str]] = None):
+        from localai_tpu_torch.fleet.replica import RemoteReplica
         from localai_tpu_torch.models.registry import resolve_tokenizer
         from localai_tpu_torch.templates.cache import TemplateCache
 
@@ -804,10 +807,17 @@ class FleetServingModel:
                 "LOCALAI_FLEET_QUEUE_OVERRIDE", "0") or 0)
         except ValueError:
             queue_override = 0
+        # every host:port of remote_hosts (default: the app's fleet_hosts)
+        # is adopted as a RemoteReplica: the same routing surface, but
+        # evicted and redialed on failure instead of respawned
+        hosts = (remote_hosts if remote_hosts is not None
+                 else list(app.fleet_hosts or []))
+        remotes = [RemoteReplica(f"{mcfg.name}/{host}", "decode", host,
+                                 mcfg, app) for host in hosts]
         self.pool = ReplicaPool(
             mcfg.name, factory,
             replicas=replicas, prefill_replicas=prefill_replicas,
-            track_queue_depth=queue_override > 0,
+            track_queue_depth=queue_override > 0, remotes=remotes,
         )
         self.pool.start()
         from localai_tpu_torch.engine.paged import block_tokens_default
@@ -839,6 +849,23 @@ class FleetServingModel:
         self.autoscaler = None
         self.loaded_at = time.monotonic()
         self.last_used = time.monotonic()
+
+    def adopt_remote(self, address: str, role: str = "decode") -> dict:
+        """Adopt a remote worker at ``address`` into this fleet's pool (the
+        ``POST /federated/register`` join). The dial and LoadModel run
+        inline, so the caller gets the verdict; a peer that fails its
+        first dial lands in the eviction and redial loop."""
+        from localai_tpu_torch.fleet.replica import RemoteReplica
+
+        rid = f"{self.name}/{address}"
+        replica = RemoteReplica(rid, role, address, self.config, self.app)
+        adopted = self.pool.adopt(replica, wait=True)
+        current = self.pool.get(rid)
+        return {
+            "id": rid,
+            "adopted": adopted,
+            "state": current.state if current is not None else "unknown",
+        }
 
     def touch(self) -> None:
         self.last_used = time.monotonic()

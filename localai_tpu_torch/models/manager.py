@@ -21,8 +21,12 @@ Each serving model carries a ``TemplateCache`` over
 the models dir, as the JAX package's does. The manager loads
 ``preload_models`` at start, evicts the other models before a load under
 ``single_active_backend``, and runs the JAX package's idle/busy watchdog.
-As in the JAX package's ``ModelManager._load``, ``backend: mamba | rwkv``
-builds the recurrent-state engine (``models/mamba_serving.py``) and
+As in the JAX package's ``ModelManager._load``, ``backend: worker`` runs
+the engine in a spawned worker process, and a model named in
+``external_backends`` in the worker at that address
+(``worker.serving.WorkerServingModel`` over :meth:`ModelManager.pool`);
+``backend: mamba | rwkv`` builds the recurrent-state engine
+(``models/mamba_serving.py``) and
 ``backend: huggingface | langchain-huggingface`` the remote-API client
 (``models/hf_api.py``); cross-encoders and sentence encoders
 (``models/reranker.py``) load through ``get_reranker`` /
@@ -52,7 +56,7 @@ import time
 from pathlib import Path
 from typing import Any, Iterator, Optional
 
-from localai_tpu_torch.config.app_config import AppConfig, fleet_refusals
+from localai_tpu_torch.config.app_config import AppConfig
 from localai_tpu_torch.config.loader import ConfigLoader
 from localai_tpu_torch.config.model_config import ModelConfig
 from localai_tpu_torch.engine.promptcache import PromptKVCache
@@ -451,10 +455,21 @@ class ModelManager:
         self._lock = threading.RLock()        # guards _models
         self._load_lock = threading.Lock()    # one load at a time: a load
                                               # holds the card
+        self._pool = None                     # WorkerPool, made on demand
         self._watchdog: Optional[_Watchdog] = None
         if self.app.watchdog_idle or self.app.watchdog_busy:
             self._watchdog = _Watchdog(self)
             self._watchdog.start()
+
+    def pool(self):
+        """The worker-process pool (``backend: worker``,
+        ``external_backends``), made at first use."""
+        with self._lock:
+            if self._pool is None:
+                from localai_tpu_torch.worker.process import WorkerPool
+
+                self._pool = WorkerPool()
+            return self._pool
 
     def loaded_names(self) -> list[str]:
         with self._lock:
@@ -578,14 +593,20 @@ class ModelManager:
 
     def _load(self, mcfg: ModelConfig) -> Any:
         """The JAX package's routing of a text-generation config. With
-        ``fleet_replicas`` > 1 an LLM is served by a fleet of engine
-        replicas behind one facade (``fleet``); embeddings- and
-        rerank-capable models keep the single-engine path, as in the JAX
-        package (the fleet facade speaks only the generation stream, and
-        /v1/embeddings and /v1/rerank need the runner's ``embed``)."""
+        ``fleet_replicas`` > 1 (or remote ``fleet_hosts``) an LLM is
+        served by a fleet of engine replicas behind one facade
+        (``fleet``); models of ``external_backends`` and embeddings- and
+        rerank-capable models keep their single-engine paths, as in the
+        JAX package (the fleet facade speaks only the generation stream,
+        and /v1/embeddings and /v1/rerank need the runner's ``embed``).
+        ``backend: worker`` spawns a worker process for the model and an
+        ``external_backends`` entry routes it to that worker; a worker
+        that fails to spawn or load is an error, never an in-process
+        engine."""
         app = self.app
+        ext = app.external_backends.get(mcfg.name)
         if ((app.fleet_replicas > 1 or app.fleet_hosts)
-                and mcfg.backend in ("", "worker")):
+                and not ext and mcfg.backend in ("", "worker")):
             if (mcfg.has_usecase("embeddings")
                     or mcfg.has_usecase("rerank")):
                 log.warning(
@@ -594,6 +615,11 @@ class ModelManager:
                     mcfg.name)
             else:
                 return self._load_fleet(mcfg)
+        if ext or mcfg.backend == "worker":
+            from localai_tpu_torch.worker.serving import WorkerServingModel
+
+            return WorkerServingModel(mcfg, app, self.pool(),
+                                      external_address=ext or None)
         if mcfg.backend in ("huggingface", "langchain-huggingface"):
             from localai_tpu_torch.models.hf_api import HFApiServingModel
 
@@ -608,31 +634,56 @@ class ModelManager:
 
     def _load_fleet(self, mcfg: ModelConfig) -> Any:
         """A FleetServingModel: ``fleet_replicas`` decode and
-        ``fleet_prefill_replicas`` prefill engines in this process
-        (``fleet_backend: inprocess``), each built by
-        :func:`build_serving_model` under its replica id as its model
+        ``fleet_prefill_replicas`` prefill replicas, plus every remote
+        worker of ``fleet_hosts`` (the facade adopts them). ``fleet_backend``
+        picks the local replicas' shape: ``worker`` (the default) spawns
+        one worker process a replica, its environment the serving
+        instance's device under ``worker_env``, with a
+        ``CUDA_VISIBLE_DEVICES`` slice each under
+        ``fleet_device_pinning``; ``inprocess`` builds each engine here
+        with :func:`build_serving_model` under its replica id as its model
         name, so its telemetry does not double-count the fleet's. The
         factory reads the model config from a holder at spawn time, so a
-        hot swap's rebinding makes later spawns boot the new checkpoint.
-        Settings that need the port's own transport (the worker backend,
-        remote hosts, device pinning, standby hosts) raise, naming
-        ROADMAP item 23: none of them runs in-process in silence."""
+        hot swap's rebinding makes later spawns boot the new
+        checkpoint."""
         from localai_tpu_torch.fleet import FleetServingModel
-        from localai_tpu_torch.fleet.replica import InProcessReplica
+        from localai_tpu_torch.fleet.replica import (
+            InProcessReplica,
+            WorkerReplica,
+        )
+        from localai_tpu_torch.worker.process import spawn_env
 
         app = self.app
-        refused = fleet_refusals(app)
-        if refused:
-            raise RuntimeError(f"model {mcfg.name!r}: "
-                               + "; ".join(refused))
         cfg_ref = {"mcfg": mcfg}
+        if app.fleet_backend == "inprocess":
+            def factory(rid: str, role: str):
+                live = cfg_ref["mcfg"]
+                rcfg = dataclasses.replace(live, name=rid,
+                                           model=live.model or live.name)
+                return InProcessReplica(
+                    rid, role, lambda: build_serving_model(rcfg, app))
+        else:
+            total = app.fleet_replicas + app.fleet_prefill_replicas
 
-        def factory(rid: str, role: str):
-            live = cfg_ref["mcfg"]
-            rcfg = dataclasses.replace(live, name=rid,
-                                       model=live.model or live.name)
-            return InProcessReplica(
-                rid, role, lambda: build_serving_model(rcfg, app))
+            def factory(rid: str, role: str):
+                env = dict(app.worker_env or {})
+                if app.fleet_device_pinning:
+                    from localai_tpu_torch.fleet.pinning import (
+                        pinned_worker_env,
+                    )
+
+                    # ids end in rN (decode) / pN (prefill) in pool order:
+                    # prefill replicas take the slices after the decode
+                    # block; runtime spawns (autoscale, hot swap) mint
+                    # higher indexes, folded back into the boot partition
+                    tail = rid.rsplit("/", 1)[-1]
+                    idx = int(tail[1:]) + (app.fleet_replicas
+                                           if tail[0] == "p" else 0)
+                    env = pinned_worker_env(app.worker_env,
+                                            idx % max(total, 1),
+                                            max(total, 1))
+                return WorkerReplica(rid, role, cfg_ref["mcfg"], app,
+                                     env=spawn_env(app.device, env))
 
         fm = FleetServingModel(
             mcfg, app, factory,
@@ -852,8 +903,11 @@ class ModelManager:
             self._watchdog.stop()
         with self._lock:
             models, self._models = list(self._models.values()), {}
+            pool, self._pool = self._pool, None
         for sm in models:
             sm.close()
+        if pool is not None:
+            pool.shutdown_all()
 
 
 class _Watchdog(threading.Thread):

@@ -74,8 +74,10 @@ def _start(name: str):
     if out.exists():
         return None, None, out
     out.parent.mkdir(parents=True, exist_ok=True)
+    # per-process temporaries: two processes (worker processes spawned
+    # together) may build one missing library at once
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    log = open(out.with_suffix(".log"), "w")
+    log = open(out.with_suffix(f".{os.getpid()}.log"), "w")
     proc = subprocess.Popen(
         [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=log, stderr=subprocess.STDOUT)
@@ -91,9 +93,11 @@ def build_all(names=SOURCES) -> dict[str, Path]:
         if proc is None:
             continue
         rc = proc.wait()
+        log = out.with_suffix(f".{os.getpid()}.log")
         if rc != 0:
             raise RuntimeError(f"nvcc failed for {name} (rc={rc}):\n"
-                               + out.with_suffix(".log").read_text())
+                               + log.read_text())
+        os.replace(log, out.with_suffix(".log"))
         os.replace(tmp, out)
     return {n: started[n][2] for n in names}
 

@@ -1,5 +1,12 @@
-"""The worker tier's transport-free parts (``serving``: the request
-options, the stream-fed handle and its reader; ``server``: options →
-engine request). Fleets run them over in-process replicas; the worker
-process, its client and the gRPC servicers wait for the port's own
-transport (ROADMAP item 23, part 2)."""
+"""Process-isolated model workers speaking one narrow contract.
+
+Port of ``localai_tpu/worker``: one worker process a model, spawned,
+health-checked and respawned by the serving instance, all speaking the
+JAX package's ``backend.proto`` messages (``backend_pb2``, the same
+bytes) over the port's own transport (``rpc``: gRPC's message framing on
+one TCP connection a call, not HTTP/2). External workers register by
+address.
+"""
+
+from localai_tpu_torch.worker.client import WorkerClient
+from localai_tpu_torch.worker.process import Watchdog, WorkerPool, WorkerProcess

@@ -154,7 +154,8 @@ FLEET_FIELDS = [f.name for f in dataclasses.fields(AppConfig)
 
 
 @pytest.mark.parametrize("argv,env,item", [
-    (["run", "--fleet-replicas", "2"], {}, 23),
+    # ported: worker-process fleets (the JAX package's default backend)
+    (["run", "--fleet-replicas", "2"], {}, None),
     # ported: the batch lane's settings reach AppConfig as on the JAX
     # package (item None)
     (["run", "--batch-concurrency", "4", "--batch-expiry-h", "0.5"], {},
@@ -166,28 +167,28 @@ FLEET_FIELDS = [f.name for f in dataclasses.fields(AppConfig)
     # ported: --platform cpu runs on the CPU, as the JAX package's forces
     # its CPU platform (item None)
     (["run", "--platform", "cpu"], {}, None),
-    (["run"], {"LOCALAI_FLEET_REPLICAS": "2"}, 23),
+    (["run"], {"LOCALAI_FLEET_REPLICAS": "2"}, None),
     (["run"], {"LOCALAI_MESH": "data=1,model=2"}, 19),
     # refused: a platform the port does not run on, named (item: the
     # text the refusal names)
     (["run", "--platform", "tpu"], {}, "'tpu'"),
     (["run"], {"LOCALAI_PLATFORM": "tpu"}, "'tpu'"),
-    # ported: in-process fleets and their autoscaler reach AppConfig as on
-    # the JAX package (item None); what needs the port's own transport
-    # (worker replicas, remote hosts, device pinning, standby hosts) is
-    # refused naming item 23
+    # ported: fleets of every kind and their autoscaler reach AppConfig as
+    # on the JAX package (item None): in-process and worker replicas,
+    # remote hosts, device pinning, standby hosts
     (["run", "--fleet-backend", "inprocess", "--fleet-replicas", "2",
       "--fleet-prefill-replicas", "1", "--fleet-disagg-threshold", "256",
       "--fleet-rpc-timeout-s", "30"], {}, None),
     (["run"], {"LOCALAI_FLEET_REPLICAS": "2",
                "LOCALAI_FLEET_BACKEND": "inprocess",
                "LOCALAI_AUTOSCALE_MAX": "3"}, None),
-    (["run", "--fleet-backend", "worker", "--fleet-replicas", "3"], {}, 23),
+    (["run", "--fleet-backend", "worker", "--fleet-replicas", "3"], {},
+     None),
     (["run", "--fleet-backend", "inprocess", "--fleet-hosts", "h:1"], {},
-     23),
-    (["run"], {"LOCALAI_FLEET_HOSTS": "h:1,h:2"}, 23),
-    (["run", "--fleet-device-pinning"], {}, 23),
-    (["run", "--autoscale-standby-hosts", "h:1"], {}, 23),
+     None),
+    (["run"], {"LOCALAI_FLEET_HOSTS": "h:1,h:2"}, None),
+    (["run", "--fleet-device-pinning"], {}, None),
+    (["run", "--autoscale-standby-hosts", "h:1"], {}, None),
 ], ids=["fleet", "batch", "batch-0", "autoscale", "mesh", "platform",
         "env-fleet", "env-mesh", "platform-tpu", "env-platform-tpu",
         "fleet-inprocess", "env-fleet-inprocess", "fleet-worker",
@@ -197,9 +198,9 @@ def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
                                       item):
     """An unported setting exits 2 naming its ROADMAP item, a refused one
     (``item`` a string) exits 2 naming it; a ported one (``item`` None:
-    the batch lane's, the platform, in-process fleets and the autoscaler)
-    builds the server with the value in its AppConfig, equal to the JAX
-    package's."""
+    the batch lane's, the platform, every fleet setting and the
+    autoscaler) builds the server with the value in its AppConfig, equal
+    to the JAX package's."""
     for k, v in env.items():
         clean_env.setenv(k, v)
     if item is None:
@@ -220,9 +221,16 @@ def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
                 assert app.batch_concurrency == int(argv[2])
             elif "--autoscale" in argv:
                 assert app.autoscale is True
-            else:
+            elif ("--fleet-prefill-replicas" in argv
+                  or env.get("LOCALAI_FLEET_BACKEND") == "inprocess"):
                 assert app.fleet_replicas == 2
                 assert app.fleet_backend == "inprocess"
+            else:
+                # the setting moved its field off the default, as on the
+                # JAX package (compared field by field above)
+                assert any(getattr(app, f) != getattr(AppConfig(), f)
+                           for f in FLEET_FIELDS), argv
+                assert app.fleet_backend == seen[0].fleet_backend
         finally:
             server.shutdown()
         return
@@ -235,9 +243,6 @@ def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
         assert f"--platform {item}" in err and "ROADMAP" not in err
     else:
         assert f"ROADMAP item {item}" in err
-    if "--fleet-replicas" in argv or "LOCALAI_FLEET_REPLICAS" in env:
-        # the worker backend's refusal says what runs on the port
-        assert "--fleet-backend inprocess" in err
 
 
 @pytest.mark.parametrize("argv,env,device", [
@@ -316,14 +321,25 @@ def test_unported_variable_at_its_default_is_accepted(clean_env, tmp_path,
     server.shutdown()
 
 
+def test_follower_is_refused_naming_item_19(capsys):
+    """The JAX package's ``follower`` (a multi-host SPMD follower) waits
+    for ``parallel/``: exit 2 naming ROADMAP item 19, its flags taken."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(["follower", "--leader", "h:1", "--model", "m",
+                  "--num-processes", "2", "--process-id", "1"])
+    assert e.value.code == 2
+    assert "ROADMAP item 19" in capsys.readouterr().err
+
+
 def test_real_entry_point_refuses_with_exit_2(tmp_path):
+    # a setting still refused: meshes (multi-GPU parallelism, item 19)
     res = subprocess.run(
         [sys.executable, "-m", cli.__name__, "run",
-         "--fleet-replicas", "2", "--device", "cpu", "--models-path",
+         "--mesh", "data=2", "--device", "cpu", "--models-path",
          str(tmp_path)], cwd=REPO, capture_output=True, text=True,
         timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert res.returncode == 2
-    assert "ROADMAP item 23" in res.stderr
+    assert "ROADMAP item 19" in res.stderr
 
 
 # ---------------------------------------------------------------------------
@@ -509,16 +525,51 @@ def test_key_from_api_keys_json_is_admitted_after_the_poll(keyed_servers):
 
 
 def test_external_backends_json_is_refused_with_an_error(tmp_path, caplog):
+    """``external_backends.json`` merges over the startup registrations
+    into ``AppConfig.external_backends`` as on the JAX package (it was
+    refused with an error before the port had a worker tier; the name
+    stays): added, replaced, and the startup entries back once the file
+    goes. A file that is not a JSON object changes nothing, logged."""
+    from localai_tpu.config.app_config import AppConfig as JaxApp
+    from localai_tpu.config.watcher import ConfigWatcher as JaxWatcher
+    from localai_tpu.config.watcher import (
+        attach_standard_handlers as jax_attach,
+    )
     from localai_tpu_torch.config.watcher import (
         ConfigWatcher,
         attach_standard_handlers,
     )
 
-    (tmp_path / "external_backends.json").write_text('{"w": "h:1"}')
-    w = ConfigWatcher(tmp_path)
-    with caplog.at_level(logging.ERROR):
-        attach_standard_handlers(w, AppConfig())
-    assert "ROADMAP item 23" in caplog.text
+    class _State:
+        def __init__(self):
+            self.config = JaxApp(external_backends={"boot": "h:0"})
+
+    app = AppConfig(external_backends={"boot": "h:0"})
+    jstate = _State()
+    w, jw = ConfigWatcher(tmp_path), JaxWatcher(tmp_path)
+    attach_standard_handlers(w, app)
+    jax_attach(jw, jstate)
+    f = tmp_path / "external_backends.json"
+    seen = []
+    for content in ('{"w": "h:1"}', '{"w": "h:2", "boot": "h:9"}',
+                    '["not", "an", "object"]', None):
+        if content is None:
+            f.unlink()
+        else:
+            f.write_text(content)
+            # a fresh mtime for every version of the file
+            t = time.time() + len(seen)
+            os.utime(f, (t, t))
+        with caplog.at_level(logging.ERROR):
+            w.poll_once()
+            jw.poll_once()
+        assert app.external_backends == jstate.config.external_backends
+        seen.append(dict(app.external_backends))
+    assert seen == [{"boot": "h:0", "w": "h:1"},
+                    {"boot": "h:9", "w": "h:2"},
+                    {"boot": "h:9", "w": "h:2"},
+                    {"boot": "h:0"}]
+    assert "must be a JSON object" in caplog.text
 
 
 # ---------------------------------------------------------------------------

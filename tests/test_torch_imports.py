@@ -674,3 +674,83 @@ def test_ui_and_federation_serve_without_the_packages_the_card_lacks(
         "/federated/nodes": [200, "application/json"],
         "/": [200, "text/html"], "/api/nodes": [200, "application/json"],
         "imported": []}
+
+
+def test_worker_tier_modules_are_covered():
+    """The worker tier (its messages, transport, client, process manager,
+    servicers, worker-backed serving and device pinning) is among the
+    modules and sources the rules above check, and no module of the port's
+    ``worker/`` imports ``grpc``, ``google.protobuf`` or ``yaml``
+    anywhere: the card's machine has none of them."""
+    mods = set(_port_modules())
+    new = ("worker.backend_pb2", "worker.rpc", "worker.client",
+           "worker.process", "worker.server", "worker.serving",
+           "fleet.pinning")
+    for m in new:
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    assert {f"{m.replace('.', '/')}.py" for m in new} <= rel
+    for path in sorted((PKG_DIR / "worker").glob("*.py")) + [
+            PKG_DIR / "fleet" / "pinning.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                assert not n.startswith(("grpc", "google", "yaml")), \
+                    (path.name, n)
+
+
+BLOCKED_WORKER = r"""
+import importlib, json, sys
+pkg, ref = sys.argv[1], sys.argv[2]
+LACKING = ("grpc", "google", "google.protobuf", "yaml", "jax", ref)
+for name in LACKING:
+    sys.modules[name] = None
+server = importlib.import_module(pkg + ".worker.server")
+client_mod = importlib.import_module(pkg + ".worker.client")
+pb = importlib.import_module(pkg + ".worker.backend_pb2")
+serving = importlib.import_module(pkg + ".worker.serving")
+ModelConfig = importlib.import_module(
+    pkg + ".config.model_config").ModelConfig
+out = {}
+srvs, clients = [], []
+for _ in range(2):
+    srv, port = server.serve_worker("127.0.0.1:0", block=False)
+    c = client_mod.WorkerClient("127.0.0.1:%d" % port)
+    doc = serving.config_yaml(ModelConfig.from_dict({
+        "name": "tiny", "model": "debug:tiny",
+        "engine": {"dtype": "float32", "kv_dtype": "float32"}}))
+    out.setdefault("load", []).append(c.load_model(config_yaml=doc).success)
+    srvs.append(srv)
+    clients.append(c)
+opts = pb.PredictOptions(tokens=list(range(1, 40)), max_tokens=4,
+                         temperature=0.0)
+frames = list(clients[0].predict_stream(opts))
+out["final"] = [frames[-1].tokens, frames[-1].finish_reason]
+chunks = list(clients[0].prefill_prefix(opts))
+out["transfer"] = clients[1].transfer_prefix(iter(chunks)).success
+for srv in srvs:
+    srv.stop(0).wait(5)
+out["imported"] = [m for m in LACKING if sys.modules.get(m) is not None]
+print(json.dumps(out))
+"""
+
+
+def test_worker_serves_without_the_packages_the_card_lacks():
+    """In a fresh interpreter where grpcio, protobuf, PyYAML, JAX and the
+    JAX package cannot be imported, two port workers load a model from
+    the YAML the serving instance writes, stream a generation and hand a
+    prefix from one to the other."""
+    res = subprocess.run(
+        [sys.executable, "-c", BLOCKED_WORKER, PKG,
+         PKG.removesuffix("_torch")], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(REPO), "LOCALAI_DEVICE": "cpu"})
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"load": [True, True], "final": [4, "length"],
+                   "transfer": True, "imported": []}

@@ -24,8 +24,9 @@ from localai_tpu_torch.api import openapi  # noqa: E402
 from test_torch_ui import _Both, _hosts  # noqa: E402
 from test_torch_llama import one_torch_thread  # noqa: E402,F401
 
-# the one route of the JAX server the port does not serve yet
-WORKER_TIER = {("/federated/register", "post")}
+# routes of the JAX server the port does not serve: none since the worker
+# tier brought POST /federated/register
+WORKER_TIER = set()
 
 
 @pytest.fixture(scope="module")
