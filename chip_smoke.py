@@ -116,7 +116,8 @@ Phases (any failure raises and the script exits non-zero):
      ``tokenizers`` by tests/test_torch_tokenizer.py); the real entry
      point in subprocesses (``tokenize`` gives the golden ids, ``version``,
      ``run`` with ``LOCALAI_KV_DTYPE=int8`` serves from an int8 pool on the
-     card, ``run --mesh data=2`` exits 2 naming ROADMAP item 19); then the
+     card, ``run --mesh data=2`` exits 2 naming ROADMAP item 19 part 2);
+     then the
      eighth serve,
      ``llama3-8b-bf16-checkpoint``: a bf16 checkpoint directory with
      Meta-Llama-3-8B-Instruct's config.json (full widths, the depth of
@@ -342,6 +343,21 @@ Phases (any failure raises and the script exits non-zero):
      /federated/register`` (a wrong token is a 401), served, evicted when
      killed and rejoined when it is back on its port; no worker process
      and at most 0.25 GB are left behind.
+ 14. tensor parallelism (``tensor_parallel``, after the worker tier): an
+     NCCL group of one runs each collective of the reductions once;
+     float32 debug:small at ``model=2`` (leader and spawned follower both
+     on the card, collectives over gloo on CUDA tensors) gives one card's
+     greedy streams byte for byte; then ``llama3-8b-bf16-tp2``
+     (Llama-3-8B's full width and depth, seeded bf16 weights drawn shard
+     by shard, bf16 paged at bt 64, 4 slots) is served through
+     ``build_server(["run", "--mesh", "model=2"])``: three streamed
+     chats and an embedding request, K1 = 32 x decode steps and K3 = 32 x
+     its prefills on each rank (the follower's from its stop report), the
+     follower's token digest the leader's, half the weights a rank, the
+     card's memory back after shutdown; a prefill's logits within
+     ``TP_LOGITS_TOL`` of one card's of the same seed (greedy agreement
+     printed); it prints the reduction mode, the step wall, the
+     collectives' ms a step and K1/K3 timed at a rank's shape.
 The line before last is the card's nvidia-smi name and power limit, the
 line before it the kernels' JSON record; the last line is the result.
 ``--profile`` adds a decode-step breakdown (torch.profiler) at the
@@ -352,12 +368,14 @@ Exits non-zero without a result when no CUDA device is visible.
 from __future__ import annotations
 
 import base64
+import concurrent.futures
 import dataclasses
 import functools
 import gc
 import json
 import os
 import re
+import math
 import shutil
 import struct
 import subprocess
@@ -3267,8 +3285,8 @@ def phase_entry_point(card: str, root: str) -> dict:
     """The real entry point, in subprocesses: ``tokenize`` gives the
     golden ids (no weights read), ``version`` the package's version,
     ``run`` with ``LOCALAI_KV_DTYPE=int8`` serves a debug model on the
-    card from an int8 pool, and ``run --mesh data=2`` exits 2 (meshes are
-    ROADMAP item 19)."""
+    card from an int8 pool, and ``run --mesh data=2`` exits 2 (the data
+    axis is ROADMAP item 19 part 2; ``model`` is served)."""
     import os
     import pathlib
     import signal
@@ -3298,7 +3316,7 @@ def phase_entry_point(card: str, root: str) -> dict:
                                 "--models-path", str(models)],
                          capture_output=True, text=True, env=env,
                          timeout=300, cwd=repo)
-    if res.returncode != 2 or "ROADMAP item 19" not in res.stderr:
+    if res.returncode != 2 or "ROADMAP item 19 part 2" not in res.stderr:
         raise AssertionError(f"run --mesh data=2: rc "
                              f"{res.returncode}, {res.stderr[-2000:]}")
     dbg = root / "debug-models"
@@ -5809,7 +5827,12 @@ RWKV = "rwkv-4-7b-bf16"
 # with them; whisper-large-v3 (32 + 32 layers), the Qwen2.5-7B serve
 # (28) and the Llama-3-8B checkpoint serve (32) were cut when the FLUX.1-dev
 # serve joined the image group: their checkpoints' writes and loads and
-# their host-bound decode steps scale with the depth
+# their host-bound decode steps scale with the depth. Halving them again
+# when the tensor-parallel phase joined broke checks that hold bf16 greedy
+# texts equal across engines (4-layer fleets: a routed text parted from
+# the single engine's; the 4-layer checkpoint: the gallery's bt-32 ids
+# parted from the by-path ones) and the Qwen serve's self-healing check
+# (no released quarantine at 4 layers), so the depths stayed
 SMOKE_LAYERS = {"mamba": 16, "rwkv": 8, "bge-large": 6, "gguf": 1,
                 "whisper": 8, "qwen": 8, "checkpoint": 8, "fleet": 8}
 RERANKER = "ms-marco-minilm-l6-f32"
@@ -10475,6 +10498,395 @@ def phase_worker_tier(card: str) -> dict:
     return out
 
 
+# -- tensor parallelism (ROADMAP item 19 part 1) ------------------------------
+
+TP_MODEL = "llama3-8b-bf16-tp2"
+TP_SMALL = "small-f32-tp2"
+TP_NEW = 16                        # max_tokens of each chat
+TP_GREEDY = 16                     # greedy tokens held to one card's
+TP_EMBEDS = 2                      # inputs of the embedding request
+TP_SEED = 23
+# bf16 logits of the model=2 engine against one card: each rank's partial
+# products of the two row-parallel weights are rounded to bf16 before the
+# sum (one extra rounding of ~2^-9 relative a reduction, 64 reductions
+# deep) and the two halves of each dot product are summed apart; on these
+# random weights that moves a logit by a few hundredths of the largest
+TP_LOGITS_TOL = 0.05
+
+
+def _shapes(tree):
+    """Every leaf shape of a ``param_shapes`` tree."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _shapes(v)
+        else:
+            yield v
+
+
+def _tp_reports(before: int) -> list:
+    from localai_tpu_torch.parallel import multihost as mh
+
+    return mh.REPORTS[before:]
+
+
+def _tp_nccl_one() -> dict:
+    """An NCCL group of one on the card: each collective of the trunk
+    (the row-parallel ``all_reduce`` through ``overlap.Reduce`` with its
+    event timing, ``gather_vocab``'s all-gather and the vocab-parallel
+    embedding's all-reduce) runs once on card tensors."""
+    from localai_tpu_torch.parallel import mesh as pm
+    from localai_tpu_torch.parallel import overlap as ovl
+
+    backend = pm.initialize(f"127.0.0.1:{_free_port()}", 1, 0, "cuda:0")
+    try:
+        mesh = pm.build_mesh(pm.MeshPlan(model=1))
+        x = torch.randn(4, 1, 4096, device="cuda").to(torch.bfloat16)
+        red = ovl.Reduce(mesh)
+        got = red(x.clone())
+        logits = torch.randn(4, 1000, device="cuda")
+        rows = ovl.embed_local(torch.randn(64, 32, device="cuda"),
+                               torch.tensor([[1, 63]], device="cuda"),
+                               torch.float32, mesh)
+        torch.cuda.synchronize()
+        ok = (torch.equal(got, x)
+              and torch.equal(ovl.gather_vocab(logits, mesh), logits)
+              and tuple(rows.shape) == (1, 2, 32))
+        out = {"backend": backend, "ok": ok, "reduce_calls": red.calls,
+               "reduce_ms": red.seconds * 1e3}
+    finally:
+        pm.destroy()
+    print("tensor_parallel nccl group of one: " + json.dumps(out),
+          flush=True)
+    if backend != "nccl" or not ok or out["reduce_calls"] != 1 \
+            or not out["reduce_ms"] > 0:
+        raise AssertionError(f"NCCL group of one: {out}")
+    return out
+
+
+def _tp_small_parity(root: Path, kernels: dict) -> dict:
+    """float32 debug:small: greedy streams of the model=2 engine (both
+    ranks on the card over gloo; one card a rank over NCCL where two are
+    visible) equal one card's, byte for byte; K1 launches L a decode step
+    on the leader."""
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.engine.scheduler import GenRequest
+    from localai_tpu_torch.models.manager import ModelManager
+
+    models = root / "small-models"
+    models.mkdir()
+    (models / f"{TP_SMALL}.yaml").write_text(json.dumps({
+        "name": TP_SMALL, "model": "debug:small", "seed": 5,
+        "context_size": 512, "engine": {
+            "dtype": "float32", "kv_dtype": "float32", "max_slots": 4,
+            "kv_block_tokens": 16}}))
+    prompts = [list(b"tensor parallel on one card"), list(b"abcabcabcabc"),
+               list(b"the follower replays every call")]
+    streams, launches = {}, {}
+    for width in (1, 2):
+        loader = ConfigLoader(models)
+        loader.load_from_path(context_size=512)
+        # model=1: one card, where more than one would auto-mesh it
+        mgr = ModelManager(AppConfig(
+            model_path=str(models), device="cuda",
+            mesh_shape={"model": width}), loader)
+        try:
+            for w in kernels.values():
+                w.launches = 0
+            sm = mgr.get(TP_SMALL)
+            hs = [sm.scheduler.submit(GenRequest(
+                prompt=p, max_new_tokens=24, temperature=0.0))
+                for p in prompts]
+            streams[width] = [h.result(300).token_ids for h in hs]
+            launches[width] = (kernels["paged_decode_attention"].launches,
+                               sm.runner.decode_steps)
+            backend = getattr(sm.runner.mesh, "backend", "")
+        finally:
+            mgr.shutdown()
+    L = 4
+    # one card a rank over NCCL where two cards are visible, else both
+    # ranks on the one card over gloo
+    want = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    out = {"streams_equal": streams[1] == streams[2],
+           "tokens": sum(len(s) for s in streams[2]),
+           "k1": launches[2][0], "decode_steps": launches[2][1],
+           "backend": backend}
+    print("tensor_parallel small parity: " + json.dumps(out), flush=True)
+    if want == "gloo":
+        print("tensor_parallel: model=2 over NCCL (one card a rank) not "
+              "run: one card visible", flush=True)
+    if (not out["streams_equal"] or launches[2][0] != L * launches[2][1]
+            or backend != want):
+        raise AssertionError(f"model=2 small parity: {out}; streams "
+                             f"{streams}")
+    return out
+
+
+def phase_tensor_parallel(card: str) -> dict:
+    """Tensor parallelism on the card (ROADMAP item 19 part 1):
+      (a) an NCCL group of one: each collective of the reductions once;
+      (b) float32 debug:small at ``model=2`` gives one card's greedy
+          streams byte for byte: both ranks on the card over gloo on CUDA
+          tensors, or one card a rank over NCCL where two cards are
+          visible (else it says that run did not happen);
+      (c) ``llama3-8b-bf16-tp2`` (Llama-3-8B's full width and depth,
+          seeded bf16 weights drawn shard by shard, bf16 paged at bt 64, 4
+          slots) served through ``cli.main.build_server(["run", "--mesh",
+          "model=2"])``: the leader (this process) spawns its follower
+          rank on the same card (on the second where there are two);
+          three streamed chats, one embedding
+          request of two inputs, a prefill's logits, 16 timed decode
+          steps. K1 = 32 x decode steps and K3 = 32 x (embedded inputs +
+          logits prefills) on each rank, the follower's from its stop
+          report; the follower's decode steps and token digest equal the
+          leader's; the leader holds half the weights (bytes) and the
+          follower about half (the card's use); the card gets the
+          follower's and the leader's memory back after shutdown;
+      (d) one card, the same seed: the prefill's logits within
+          ``TP_LOGITS_TOL`` of the largest, the greedy tokens that agree
+          with the model=2 engine's reported (not asserted: bf16 on random
+          weights);
+      plus K1 and K3 at a rank's local shape (16 q / 4 kv heads), timed
+      beside their plain versions and SDPA for the kernels line."""
+    import logging
+
+    from localai_tpu_torch.cli.main import build_server
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.engine.scheduler import GenRequest, Scheduler
+    from localai_tpu_torch.models.llama import param_shapes
+    from localai_tpu_torch.models.registry import (
+        DEBUG_PRESETS,
+        resolve_model,
+    )
+
+    L = DEBUG_PRESETS["llama3-8b"].num_layers
+    t_phase = time.monotonic()
+    tail_log = logging.getLogger("localai_tpu_torch.parallel.multihost")
+    tail_handler = logging.StreamHandler(sys.stdout)
+    tail_handler.setFormatter(logging.Formatter("%(relativeCreated).0fms "
+                                                "%(message)s"))
+    tail_log.addHandler(tail_handler)
+    tail_log.setLevel(logging.INFO)
+    repo = str(Path(__file__).resolve().parent)
+    root = Path(_scratch_dir("tensor-parallel-", 1_000_000_000))
+    models = root / "models"
+    models.mkdir()
+    (models / f"{TP_MODEL}.yaml").write_text(json.dumps({
+        "name": TP_MODEL, "model": "debug:llama3-8b", "seed": TP_SEED,
+        "context_size": 2048, "embeddings": True,
+        "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
+                   "max_slots": 4, "kv_block_tokens": 64}}))
+    # the follower is a fresh interpreter: a bytecode cache shared with a
+    # warm-up import (as the worker tier phase's processes share one)
+    env = {"LOCALAI_MODELS_PATH": models, "LOCALAI_ADDRESS": "127.0.0.1",
+           "LOCALAI_PORT": "0", "LOCALAI_CONFIG_PATH": root / "conf",
+           "LOCALAI_UPLOAD_PATH": root / "uploads",
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "PYTHONPYCACHEPREFIX": root / "pycache",
+           "PYTHONDONTWRITEBYTECODE": None}
+    saved = _env(env)
+    warm = subprocess.Popen([sys.executable, "-c",
+                             "import localai_tpu_torch.models.manager"])
+    kernels = _all_kernels()
+    out = {"card": card, "layers": L}
+    server = sm = None
+    try:
+        out["nccl"] = _tp_nccl_one()
+        warm.wait(120)
+        t0 = time.monotonic()
+        out["small"] = _tp_small_parity(root, kernels)
+        out["small"]["s"] = time.monotonic() - t0
+        torch.cuda.synchronize()
+        used0 = _settle_card()
+        alloc0 = torch.cuda.memory_allocated()
+        # the follower's card: the leader's own where one card is visible
+        fcard = 1 if torch.cuda.device_count() >= 2 else 0
+        free1, total1 = torch.cuda.mem_get_info(fcard)
+        for w in kernels.values():
+            w.launches = 0
+        before = len(_tp_reports(0))
+        t0 = time.monotonic()
+        server = build_server(["run", "--mesh", "model=2"]).start()
+        sm = server.manager.get(TP_MODEL)
+        torch.cuda.synchronize()
+        out["load_s"] = time.monotonic() - t0
+        runner = sm.runner
+        cfg = DEBUG_PRESETS["llama3-8b"]
+        if (type(runner).__name__ != "MirroredRunner" or runner.mesh.tp != 2
+                or runner.local_cfg.num_heads != cfg.num_heads // 2
+                or runner.local_cfg.num_kv_heads != cfg.num_kv_heads // 2):
+            raise AssertionError(f"tp2: engine {type(runner).__name__}, "
+                                 f"mesh {runner.mesh}")
+        full = 2 * sum(math.prod(s) for s in _shapes(param_shapes(
+            cfg)))                              # its bf16 weight bytes
+        lead_w = _tree_bytes(runner.params)
+        used_load = _card_used_gb()
+        out.update(backend=runner.mesh.backend,
+                   mode=runner.reduce.mode,
+                   jax_mode=runner.overlap_mode,
+                   jax_mode_why=runner.overlap_why,
+                   leader_weights_gb=lead_w / 1e9,
+                   card_used_by_group_gb=used_load - used0,
+                   leader_reserved_gb=torch.cuda.memory_reserved() / 1e9)
+        # on a shared card: what the group added less what this process
+        # allocated (``_card_used_gb`` already leaves out its cache)
+        out["follower_share_gb"] = (
+            out["card_used_by_group_gb"]
+            - (torch.cuda.memory_allocated() - alloc0) / 1e9
+            if fcard == 0 else
+            (free1 - torch.cuda.mem_get_info(fcard)[0]) / 1e9)
+        # the card's use by the follower (its weights, pool, context and,
+        # on its own card, NCCL's buffers): half the weights and more, far
+        # from a whole copy; its exact weight bytes come in its report
+        if not (0.49 * full < lead_w < 0.51 * full) or not (
+                0.4 * full / 1e9 < out["follower_share_gb"]
+                < 0.85 * full / 1e9):
+            raise AssertionError(f"tp2 memory a rank: {out}")
+        url = server.url + "/v1/chat/completions"
+        chats = [{"model": TP_MODEL, "max_tokens": TP_NEW, "temperature": 0,
+                  "logit_bias": ASCII_ONLY,
+                  "messages": [{"role": "user", "content": q}]}
+                 for q in ("Say hello from two ranks.",
+                           "Name three colours.", "Count to five.")]
+        with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            got = list(ex.map(lambda b: _sse_chat(url, b), chats))
+        emb = json.loads(_post(server.url + "/v1/embeddings", {
+            "model": TP_MODEL, "input": ["two ranks", "one card"]}).read())
+        vecs = [np.asarray(d["embedding"]) for d in emb["data"]]
+        ids = sm.tokenizer.encode("Tensor parallelism splits each layer "
+                                  "over the ranks.", add_bos=True)
+        tp_logits = runner.prompt_logits(ids)
+        tp_greedy = sm.scheduler.generate(GenRequest(
+            prompt=ids, max_new_tokens=TP_GREEDY, temperature=0.0),
+            timeout=300).token_ids
+        # the decode step's wall and its reductions' share (CUDA events
+        # on the leader's stream around each all_reduce)
+        steps0, calls0, secs0 = (runner.decode_steps, runner.reduce.calls,
+                                 runner.reduce.seconds)
+        runner.step_n(2)
+        t0 = time.monotonic()
+        runner.step_n(16)
+        step_ms = (time.monotonic() - t0) * 1e3 / 16
+        out.update(
+            chats=[{k: c[k] for k in ("text", "ttft_s", "wall_s",
+                                      "completion_tokens")} for c in got],
+            tokens_per_s=sum(c["completion_tokens"] for c in got)
+            / max(c["wall_s"] for c in got),
+            step_ms=step_ms,
+            collective_ms_per_step=(runner.reduce.seconds - secs0) * 1e3
+            / (runner.decode_steps - steps0),
+            reductions_per_step=(runner.reduce.calls - calls0)
+            / (runner.decode_steps - steps0))
+        if (any(not c["text"] or c["completion_tokens"] != TP_NEW
+                for c in got) or len(vecs) != TP_EMBEDS
+                or not all(np.isfinite(v).all() for v in vecs)
+                or not np.isfinite(tp_logits).all()):
+            raise AssertionError(f"tp2 serve: {out}")
+        decode_steps = runner.decode_steps
+        digest = runner.digest.hexdigest()
+        lead = {k: w.launches for k, w in kernels.items()}
+        k3_calls = TP_EMBEDS + 1          # embedded inputs + logits prefill
+        want = {"paged_decode_attention": L * decode_steps,
+                "prefill_attention": L * k3_calls}
+        if {k: lead[k] for k in want} != want or any(
+                v for k, v in lead.items() if k not in want):
+            raise AssertionError(f"tp2 leader launches {lead}, expected "
+                                 f"{want}")
+        server.shutdown()
+        server = sm = runner = None
+        reports = _tp_reports(before)
+        if len(reports) != 1:
+            raise AssertionError(f"tp2: follower reports {reports}")
+        rep = reports[0]
+        rm = rep["models"][TP_MODEL]
+        fl = rep["launches"]
+        out["follower_weights_gb"] = rm["weight_bytes"] / 1e9
+        if (rm["digest"] != digest or rm["decode_steps"] != decode_steps
+                or rm["weight_bytes"] != lead_w
+                or fl["paged_decode_attention"] != L * rm["decode_steps"]
+                or fl["prefill_attention"] != L * (
+                    rm["calls"].get("embed", 0)
+                    + rm["calls"].get("prompt_logits", 0))
+                or rm["calls"].get("embed", 0) != TP_EMBEDS
+                or rep["errors"]):
+            raise AssertionError(f"tp2 follower report {rep}; leader "
+                                 f"digest {digest}, {decode_steps} steps")
+        out.update(decode_steps=decode_steps, digest=digest,
+                   leader_launches=lead, follower_launches=fl,
+                   follower_calls=rm["calls"])
+        gc.collect()
+        out["card_used_after_gb"] = _wait_card_back(
+            used0, 0.5, "tensor-parallel shutdown")
+        if fcard:
+            out["follower_card_left_gb"] = (
+                free1 - torch.cuda.mem_get_info(fcard)[0]) / 1e9
+            if out["follower_card_left_gb"] > 0.5:
+                raise AssertionError(f"tp2: the follower's card holds "
+                                     f"{out['follower_card_left_gb']} GB "
+                                     "after shutdown")
+        # (d) one card, the same seed
+        one = resolve_model("debug:llama3-8b", dtype="bfloat16",
+                            seed=TP_SEED, device="cuda")
+        r1 = ModelRunner(one.cfg, one.params, num_slots=4, max_ctx=2048,
+                         kv_dtype="bfloat16", kv_block_tokens=64,
+                         device="cuda")
+        ref = r1.prompt_logits(ids)
+        r1.step_n(2)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        r1.step_n(16)
+        out["one_card_step_ms"] = (time.monotonic() - t0) * 1e3 / 16
+        err = float(np.abs(tp_logits - ref).max())
+        scale = float(np.abs(ref).max())
+        sched1 = Scheduler(r1, one.tokenizer)
+        try:
+            one_greedy = sched1.generate(GenRequest(
+                prompt=ids, max_new_tokens=TP_GREEDY, temperature=0.0),
+                timeout=300).token_ids
+        finally:
+            sched1.shutdown()
+        agree = 0
+        for a, b in zip(tp_greedy, one_greedy):
+            if a != b:
+                break
+            agree += 1
+        out.update(logits_max_abs_err=err, logits_max_abs=scale,
+                   logits_tol=TP_LOGITS_TOL * scale,
+                   argmax_agree=float(np.mean(tp_logits.argmax(-1)
+                                              == ref.argmax(-1))),
+                   greedy_prefix_agree=agree, greedy_len=len(tp_greedy))
+        del one, r1, sched1
+        if err > TP_LOGITS_TOL * scale:
+            raise AssertionError(f"tp2 logits against one card: {err} > "
+                                 f"{TP_LOGITS_TOL} x {scale}")
+        # K1 and K3 at a rank's local shape, for the kernels line
+        out["k1"] = kernel_case("k1-tp2-bf16", torch.bfloat16, S=4, Hq=16,
+                                Hkv=4, MB=32,
+                                positions=(2047, 1300, 700, 100),
+                                timed=True)
+        out["k3"] = prefill_case("k3-tp2-bf16-T128", torch.bfloat16, 128,
+                                 Hq=16, Hkv=4)
+    finally:
+        if warm.poll() is None:
+            warm.kill()
+        if server is not None:
+            server.shutdown()
+        _env(saved)
+        tail_log.removeHandler(tail_handler)
+        tail_log.setLevel(logging.NOTSET)
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {
+        k: out["leader_launches"][k] + out["follower_launches"][k]
+        for k in ("paged_decode_attention", "prefill_attention")}
+    out["phase_s"] = time.monotonic() - t_phase
+    print("tensor_parallel: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("k1", "k3")}),
+        flush=True)
+    return out
+
+
 def _prompt_cache(metrics: dict, key: str) -> int:
     """A worker's prefix-cache counter (0 before its first transfer
     attached the cache)."""
@@ -10821,6 +11233,7 @@ def main() -> int:
     fleet = phase_fleet(card)
     http = phase_http_surfaces(card)
     workers = phase_worker_tier(card)
+    tp = phase_tensor_parallel(card)
     t_qwen = time.monotonic()
     served["qwen"] = phase_serve_qwen(card)["launches"]
     print(f"group-7 serve: {time.monotonic() - t_qwen:.1f}s", flush=True)
@@ -10996,6 +11409,15 @@ def main() -> int:
                attn["k3-T2048-bf16"]),
         _entry("paged_decode_attention_worker_fleet", k1_src, k1_tpu,
                workers["fleet_launches"], k1["bf16"]),
+        # tensor parallelism at model=2 (Llama-3-8B, both ranks on the
+        # card): K1 on each rank's kv-head shard (16 q / 4 kv heads) over
+        # the decode steps of both ranks, K3 on each rank's heads over the
+        # embedded inputs and the logits prefill; times at that local shape
+        _entry("paged_decode_attention_tp", k1_src, k1_tpu,
+               tp["launches"]["paged_decode_attention"], tp["k1"]),
+        _entry("prefill_attention_tp", src + "prefill_attention.cu",
+               "localai_tpu/ops/attention.py:337",
+               tp["launches"]["prefill_attention"], tp["k3"]),
     ]
     print(f"smoke wall: {time.monotonic() - t_smoke:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,10 @@ Port of ``localai_tpu/cli/main.py`` for what the port has:
                              serving instance adopts by address
                              (``--fleet-hosts``, ``external_backends``,
                              ``POST /federated/register``)
-  follower                   refused: exits 2 naming ROADMAP item 19
+  follower --leader H:P --model M --coordinator H:P --num-processes N
+           --process-id R        a tensor-parallel follower rank
+                             (``parallel.multihost``; ``run --mesh
+                             model=N`` spawns its own on one host)
   version
 
 ``run`` takes the JAX package's flags with their defaults, each also read
@@ -51,10 +54,13 @@ federation flags (``--federated``, ``--federated-router``,
 ``AppConfig`` over their ``LOCALAI_*`` variables (the JAX package reads
 them from the environment alone; ``p2p`` has no flag on either and is read
 from ``LOCALAI_P2P`` only); with ``federated``
-and a router, ``build_server`` announces the instance to it. A flag or
-variable of a feature the port has not yet (meshes) stops ``run`` with
-exit code 2 and the ROADMAP item that brings it; none is dropped
-silently.
+and a router, ``build_server`` announces the instance to it. ``--mesh``
+(``LOCALAI_MESH``) reaches ``AppConfig.mesh_shape``: ``model=N`` serves
+each LLM tensor-parallel over N ranks (``parallel/``); an axis but
+``model`` stops ``run`` with exit code 2 naming ROADMAP item 19 part 2.
+With ``LOCALAI_COORDINATOR_ADDRESS`` and ``LOCALAI_NUM_PROCESSES`` > 1
+the server joins a multi-host group as its leader and opens the command
+channel (``LOCALAI_MIRROR_PORT``) before any model loads.
 
 :func:`build_server` builds the settings, the model registry, the config
 watcher and the bound server from ``argv`` and the environment;
@@ -104,12 +110,6 @@ def _env_bool(name: str, fallback: bool = False) -> bool:
     return str(v).lower() in ("1", "true", "yes", "on")
 
 
-# run flags of features the port has not yet: flag → (AppConfig field of
-# the JAX package, the JAX package's default, the ROADMAP item)
-UNPORTED_RUN_FLAGS = {
-    "--mesh": ("mesh_shape", None, 19),
-}
-_WHAT = {19: "multi-GPU parallelism"}
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="localai_tpu_torch",
@@ -247,20 +247,12 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--swarm-routers", default=None,
                      help="comma-separated routers the swarm page may "
                           "query besides --federated-router")
-    # not ported yet: parsed as the JAX package parses them, and refused
-    # when set (_unported_settings)
-    for flag, (fld, default, _item) in UNPORTED_RUN_FLAGS.items():
-        name = flag[2:].replace("-", "_")
-        if isinstance(default, bool):
-            run.add_argument(flag, action="store_true",
-                             default=_env_bool(name))
-        elif fld == "mesh_shape":
-            run.add_argument(flag, default=_env_default(name, None))
-        else:
-            run.add_argument(
-                flag, default=None,
-                type=(type(default) if isinstance(default, (int, float))
-                      else str))
+    # meshes (parallel/): the model axis is served; data, seq, pipe and
+    # expert are refused by name (ROADMAP item 19 part 2)
+    run.add_argument("--mesh", default=_env_default("mesh", None),
+                     help="mesh axes, e.g. model=2 (or model:2); the "
+                          "model axis spawns its follower ranks on this "
+                          "host's cards")
 
     models = sub.add_parser("models", help="model management")
     models_sub = models.add_subparsers(dest="models_command")
@@ -280,12 +272,28 @@ def build_parser() -> argparse.ArgumentParser:
 
     worker = sub.add_parser("worker", help="start a model worker")
     worker.add_argument("--addr", default="127.0.0.1:50051")
-    # the JAX package's multi-host follower: refused, naming its item
-    follower = sub.add_parser("follower", help="refused: a multi-host "
-                              "follower (ROADMAP item 19)")
-    for flag in ("--leader", "--model", "--models-path", "--coordinator",
-                 "--num-processes", "--process-id", "--peer-token"):
-        follower.add_argument(flag)
+    fol = sub.add_parser(
+        "follower",
+        help="tensor-parallel follower rank: replicate a leader's engine "
+             "calls")
+    fol.add_argument("--leader", required=True,
+                     help="leader's mirror channel host:port")
+    fol.add_argument("--model", required=True)
+    fol.add_argument("--models-path",
+                     default=_env_default("models_path", "models"))
+    fol.add_argument("--coordinator",
+                     default=_env_default("coordinator_address", ""),
+                     help="the group's TCP store host:port")
+    fol.add_argument("--num-processes", type=int,
+                     default=int(_env_default("num_processes", 1)))
+    fol.add_argument("--process-id", type=int,
+                     default=int(_env_default("process_id", 1)))
+    fol.add_argument("--peer-token",
+                     default=_env_default("peer_token", ""),
+                     help="shared secret for the mirror channel")
+    fol.add_argument("--device", default=None,
+                     help="this rank's device: cuda (the default), cuda:N, "
+                          "or cpu")
 
     tok = sub.add_parser("tokenize", help="tokenize text with a model")
     tok.add_argument("text")
@@ -452,38 +460,6 @@ def _run_audio(cmd: str, args, parser) -> int:
     return 0
 
 
-def _unported_settings(args) -> list[str]:
-    """Each set flag or ``LOCALAI_*`` variable of a feature the port has
-    not yet, as a message naming its ROADMAP item. A variable counts as
-    set when its value differs from the JAX package's default."""
-    out = []
-    for flag, (fld, default, item) in UNPORTED_RUN_FLAGS.items():
-        v = getattr(args, flag[2:].replace("-", "_"))
-        env = os.environ.get(f"LOCALAI_{fld.upper()}")
-        if fld == "mesh_shape":
-            env = None          # LOCALAI_MESH is the flag's own default
-        given = (v is not None and v is not False and v != ""
-                 and v != default)
-        if env is not None and not given:
-            if isinstance(default, bool):
-                given = (env.lower() in ("1", "true", "yes", "on")) != default
-            elif isinstance(default, (int, float)):
-                try:
-                    given = type(default)(env) != default
-                except ValueError:
-                    given = True
-            elif isinstance(default, list):
-                given = bool([s for s in env.split(",") if s])
-            else:
-                given = env != (default or "")
-        if given:
-            what = (f"{flag} / LOCALAI_{fld.upper()}" if env is not None
-                    else flag)
-            out.append(f"{what} is not ported yet (ROADMAP item {item}: "
-                       f"{_WHAT[item]})")
-    return out
-
-
 # --platform's values and the device each names
 PLATFORM_DEVICES = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
 
@@ -571,8 +547,21 @@ def app_config(args) -> AppConfig:
         federated_advertise=args.federated_advertise,
         peer_token=args.peer_token,
         swarm_routers=args.swarm_routers,
+        mesh_shape=_mesh_shape(args.mesh),
         device=run_device(args),
     )
+
+
+def _mesh_shape(spec: Optional[str]) -> Optional[dict]:
+    """``--mesh`` (or ``LOCALAI_MESH``) as axis sizes; an axis but
+    ``model`` above 1 is refused (ValueError naming ROADMAP item 19
+    part 2)."""
+    from localai_tpu_torch.parallel import mesh as pmesh
+
+    shape = pmesh.parse_mesh_spec(spec) if spec else None
+    if shape:
+        pmesh.refuse_part2(pmesh.MeshPlan(**shape), f"--mesh {spec}")
+    return shape
 
 
 def build_server(argv: Optional[Sequence[str]] = None) -> APIServer:
@@ -588,14 +577,17 @@ def build_server(argv: Optional[Sequence[str]] = None) -> APIServer:
         parser.error("build_server serves the run command")
     if args.command is None:
         args = parser.parse_args(argv + ["run"])
-    refused = _unported_settings(args)
-    if refused:
-        parser.error("; ".join(refused))
     try:
         cfg = app_config(args)
     except ValueError as e:
         parser.error(str(e))
     resolve_device(cfg.device)   # no card and no --device cpu: fail now
+    if cfg.coordinator_address and cfg.num_processes > 1:
+        # a multi-host leader joins the group and opens the command
+        # channel before any model loads (followers connect at boot)
+        from localai_tpu_torch.parallel import multihost as mh
+
+        mh.join_as_leader(cfg)
     loader = ConfigLoader(cfg.model_path)
     loader.load_from_path(context_size=cfg.context_size)
     manager = ModelManager(cfg, loader)
@@ -617,6 +609,94 @@ def build_server(argv: Optional[Sequence[str]] = None) -> APIServer:
     log.info("serving %s on %s (device %s)", loader.names(), server.url,
              cfg.device)
     return server
+
+
+def _run_follower(args, parser) -> int:
+    """A follower rank: load the model config, refuse an unserved mesh
+    before joining anything, join the group, build this rank's engine of
+    ``--model``, then replay the leader's calls until the channel closes;
+    print ``FOLLOWER_REPORT {json}`` (launch counts, each model's counters,
+    weight bytes and token digest) and end the process with 0. It runs on
+    the card unless told ``--device cpu`` (``LOCALAI_DEVICE``), and
+    raises without one."""
+    from localai_tpu_torch.models import manager as mgr
+    from localai_tpu_torch.models.registry import resolve_config
+    from localai_tpu_torch.parallel import multihost as mh
+    from localai_tpu_torch.worker.server import launch_counts
+
+    device = args.device or os.environ.get("LOCALAI_DEVICE") or "cuda"
+    resolve_device(device)
+    app = AppConfig.from_env(model_path=args.models_path, device=device)
+    app.mirror_port = 0
+    loader = ConfigLoader(args.models_path)
+    loader.load_from_path(context_size=app.context_size)
+
+    def config(name: str):
+        mcfg = loader.get(name)
+        if mcfg is None:   # a YAML written since this rank started
+            loader.load_from_path(context_size=app.context_size)
+            mcfg = loader.get(name)
+        if mcfg is None:
+            raise ValueError(f"model {name!r} not found under "
+                             f"{args.models_path}")
+        return mcfg
+
+    try:
+        mcfg = config(args.model)
+        if not app.mesh_shape and not mcfg.sharding_set():
+            # the leader's --mesh: the group's width
+            app.mesh_shape = {"model": args.num_processes}
+        plan = mgr.mesh_plan(mcfg, app, resolve_config(
+            mcfg.model or mcfg.name, app.model_path))
+        if plan is None or plan.model != args.num_processes:
+            raise ValueError(
+                f"model {args.model}: a follower of a {args.num_processes}-"
+                f"rank group serves model={args.num_processes}, the config "
+                f"asks for {plan.model if plan else 1}")
+    except ValueError as e:
+        parser.error(str(e))
+    if not args.coordinator:
+        parser.error("follower needs --coordinator (the group's store)")
+    mh.initialize(args.coordinator, args.num_processes, args.process_id,
+                  device)
+
+    def build(name: str) -> dict:
+        m = config(name)
+        _model, runner = mgr.build_runner(m, app)
+        spec = mgr.build_spec(runner, m, app)
+        out = {name: mh.FollowerEngine(runner)}
+        if spec is not None and spec.drafter.name == "model":
+            out[name + "#draft"] = mh.FollowerEngine(spec.drafter)
+        if runner.device.type == "cuda":
+            # the load's temporaries (each whole matrix drawn or read
+            # before its slice was kept) go back to the card, which the
+            # leader may share
+            import torch
+
+            torch.cuda.empty_cache()
+        return out
+
+    targets = build(args.model)
+    print(f"follower rank {args.process_id} of {args.num_processes} "
+          f"ready ({args.model}); replaying from {args.leader}", flush=True)
+    follower = mh.CommandFollower(args.leader, targets,
+                                  token=args.peer_token, loader=build)
+    rc = 0
+    try:
+        follower.run_forever()
+    except Exception as e:  # noqa: BLE001 — a diverged or broken replay
+        print(f"follower rank {args.process_id}: {e}", file=sys.stderr)
+        rc = 1
+    report = {"rank": args.process_id, "launches": launch_counts(),
+              "replayed": follower.replayed, "errors": follower.errors,
+              "models": follower.report()}
+    follower.close()
+    print(f"{mh.REPORT_PREFIX}{json.dumps(report)}", flush=True)
+    sys.stderr.flush()
+    # exit at once: a group teardown under NCCL waits for every rank, and
+    # the leader tears down after its followers are gone; a follower that
+    # left the leader's state exits 1, and the leader fails its engine
+    os._exit(rc)
 
 
 def _models_gallery(args, parser) -> int:
@@ -764,8 +844,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(tok.encode(args.text))
         return 0
     if cmd == "follower":
-        parser.error(f"follower is not ported yet (ROADMAP item 19: "
-                     f"{_WHAT[19]})")
+        return _run_follower(args, parser)
     if cmd == "worker":
         from localai_tpu_torch.worker.server import serve_worker
 

@@ -7,8 +7,11 @@ port's own (the card unless ``cpu`` is asked for), read from
 ``LOCALAI_DEVICE`` alike (``--platform`` is read into it by the CLI).
 The web UI switch (``disable_webui``), the federation, worker-tier
 (``external_backends``, ``worker_env``, ``parallel_requests``), fleet and
-autoscale fields are the JAX package's, with its defaults. The fields of
-meshes are not here: the CLI refuses ``--mesh`` rather than dropping it.
+autoscale fields are the JAX package's, with its defaults. So are the
+mesh fields: ``mesh_shape`` (``--mesh`` / ``LOCALAI_MESH``, parsed by
+``parallel.mesh.parse_mesh_spec``) and the multi-host group's
+``coordinator_address``, ``num_processes``, ``process_id``,
+``mirror_port`` and ``mirror_followers`` (``parallel.multihost``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass
@@ -143,6 +147,19 @@ class AppConfig:
     peer_token: str = ""
     swarm_routers: str = ""
 
+    # meshes (parallel/): the mesh's axis sizes (None = the manager's
+    # default: model=all cards for a config that asks for none, when more
+    # than one is visible), and the multi-host group this process joins
+    # at start (coordinator host:port, its size and this process's rank)
+    # with the leader's command channel (mirror_port; mirror_followers =
+    # followers to wait for)
+    mesh_shape: Optional[dict[str, int]] = None
+    coordinator_address: str = ""
+    num_processes: int = 1
+    process_id: int = 0
+    mirror_port: int = 0
+    mirror_followers: int = 0
+
     device: str = "cuda"            # "cuda" (default) or "cpu", explicitly
 
     @classmethod
@@ -163,12 +180,20 @@ class AppConfig:
                 value = env.lower() in ("1", "true", "yes", "on")
             elif f.type == "list[str]":
                 value = [s for s in env.split(",") if s]
-            elif f.type in ("list[dict]", "dict[str, str]"):
+            elif f.type in ("list[dict]", "dict[str, str]",
+                            "Optional[dict[str, int]]"):
                 continue    # not read from the environment (as the JAX
                             # package: no LOCALAI_GALLERIES)
             else:
                 value = env
             setattr(cfg, f.name, value)
+        # LOCALAI_MESH takes the CLI's axis syntax ("data=2,model=4" or
+        # "data:2,model:4"), read by the one parser behind --mesh
+        mesh_env = os.environ.get("LOCALAI_MESH")
+        if mesh_env is not None:
+            from localai_tpu_torch.parallel.mesh import parse_mesh_spec
+
+            cfg.mesh_shape = parse_mesh_spec(mesh_env)
         for k, v in overrides.items():
             if v is not None:
                 setattr(cfg, k, v)

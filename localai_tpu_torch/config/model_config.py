@@ -30,7 +30,11 @@ VITS voices (``backend: vits``, with a ``tts:`` section,
 ``diffusers:`` section, :class:`DiffusionConfig`, and ``lora_adapter`` /
 ``lora_scale``) are served, FLUX-class models included
 (``debug:flux-tiny`` or a ``transformer/`` layout,
-``image.pipeline.resolve_image_model``).
+``image.pipeline.resolve_image_model``). A ``sharding:`` section
+(:class:`ShardingConfig`, the JAX package's fields; an unknown key raises)
+and the top-level ``tensor_parallel_size`` alias are read as the JAX
+package reads them; ``models.manager`` serves the ``model`` axis they ask
+for and refuses the others by name.
 """
 
 from __future__ import annotations
@@ -216,6 +220,32 @@ class EngineConfig:
 
 
 @dataclasses.dataclass
+class ShardingConfig:
+    """How to lay the model over a mesh: the JAX package's five fields and
+    defaults (its ``ShardingConfig``, ``extra="forbid"``: an unknown key
+    raises at load, naming it). Only ``tensor_parallel_size`` (the
+    ``model`` axis) is served; the others are refused when set above 1
+    (``data_parallel_size`` 0 or 1: the served default), naming ROADMAP
+    item 19 part 2 (``models.manager``)."""
+
+    tensor_parallel_size: int = 1     # 'model' mesh axis
+    data_parallel_size: int = 0       # 0 = auto: fill remaining devices
+    sequence_parallel_size: int = 1   # 'seq' axis
+    expert_parallel_size: int = 1     # 'expert' axis
+    pipeline_parallel_size: int = 1   # 'pipe' axis
+
+    @classmethod
+    def from_dict(cls, data: Optional[dict]) -> "ShardingConfig":
+        data = dict(data or {})
+        names = {f.name for f in dataclasses.fields(cls)}
+        extra = sorted(set(data) - names)
+        if extra:
+            raise ValueError(f"sharding: unknown field(s) {extra} (have "
+                             f"{sorted(names)})")
+        return cls(**{k: int(v) for k, v in data.items()})
+
+
+@dataclasses.dataclass
 class ModelConfig:
     """One model's declarative config (a YAML document in the models dir)."""
 
@@ -263,12 +293,21 @@ class ModelConfig:
     template: TemplateConfig = dataclasses.field(
         default_factory=TemplateConfig)
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+    sharding: ShardingConfig = dataclasses.field(
+        default_factory=ShardingConfig)
+    # the top-level alias of sharding.tensor_parallel_size (the JAX
+    # package's compat field)
+    tensor_parallel_size: Optional[int] = None
     tts: TTSConfig = dataclasses.field(default_factory=TTSConfig)
     diffusers: DiffusionConfig = dataclasses.field(
         default_factory=DiffusionConfig)
 
     def __post_init__(self) -> None:
-        if self.f16 is False:  # the JAX package's _apply_compat
+        # the JAX package's _apply_compat
+        if (self.tensor_parallel_size
+                and self.sharding.tensor_parallel_size == 1):
+            self.sharding.tensor_parallel_size = self.tensor_parallel_size
+        if self.f16 is False:
             self.engine.dtype = "float32"
 
     @classmethod
@@ -286,10 +325,16 @@ class ModelConfig:
             "tts": TTSConfig.from_dict(data.pop("tts", None)),
             "diffusers": DiffusionConfig.from_dict(
                 data.pop("diffusers", None)),
+            "sharding": ShardingConfig.from_dict(data.pop("sharding", None)),
         }
         cfg = cls(**_pick(cls, data), **sub)
         cfg.check_supported()
         return cfg
+
+    def sharding_set(self) -> bool:
+        """Whether the config asks for a mesh (``sharding:`` off its
+        defaults, or the ``tensor_parallel_size`` alias)."""
+        return self.sharding != ShardingConfig()
 
     def check_supported(self) -> None:
         """Raise for config that asks for what the port cannot serve yet."""

@@ -1,10 +1,14 @@
 """ModelRunner: the prefill/decode executor for one loaded LLM.
 
-Port of ``localai_tpu/engine/runner.py`` for one device (no mesh), in both
-KV layouts: the paged block pool (the serving default) and the contiguous
-slot cache (``paged=False``, the JAX package's layout for multi-host
-mirrors and self-extend). PyTorch runs eagerly, so the jitted programs of
-the JAX package become plain methods:
+Port of ``localai_tpu/engine/runner.py``, in both KV layouts: the paged
+block pool (the serving default) and the contiguous slot cache
+(``paged=False``, the JAX package's layout for multi-host mirrors and
+self-extend), on one device or as one rank of a tensor-parallel mesh
+(``mesh=``, the ``model`` axis: this rank's weight slices, a cache of its
+kv heads, and every program through the trunk with the row-parallel
+reduction of ``parallel.overlap``; ``parallel.multihost`` replays the
+leader's calls on the other ranks). PyTorch runs eagerly, so the jitted
+programs of the JAX package become plain methods:
 
   * ONE decode step serves all slots every iteration (continuous batching
     is slot masking over static [S] shapes); ``step_n`` runs n steps as a
@@ -84,6 +88,7 @@ from localai_tpu_torch.models.llama import LlamaConfig
 from localai_tpu_torch.obs import compile as obs_compile
 from localai_tpu_torch.obs import watchdog as obs_watchdog
 from localai_tpu_torch.ops import tuning
+from localai_tpu_torch.parallel import sharding as shd
 from localai_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -142,6 +147,10 @@ class AsyncTokens:
         else:
             self._host = tokens.clone()
 
+    def ready(self) -> bool:
+        """Whether the host copy is complete (reading will not block)."""
+        return self._event is None or self._event.query()
+
     def __array__(self, dtype=None, copy=None):
         if self._event is not None:
             self._event.synchronize()
@@ -173,10 +182,15 @@ class ModelRunner:
         ga_w: int = 512,
         attn_impl: str = "auto",
         device: str | torch.device | None = "cuda",
+        mesh: Any = None,
     ):
         self.cfg = cfg
-        self.params = params
         self.device = resolve_device(device)
+        self._init_mesh(mesh, cfg, ga_n)
+        if (self.mesh is not None
+                and not shd.is_local(params, cfg, self.mesh)):
+            params = shd.shard_params(params, cfg, self.mesh)
+        self.params = params
         # stall watchdog guarding this runner's blocking device reads (the
         # scheduler rebinds it to its own instance)
         self.watchdog = obs_watchdog.WATCHDOG
@@ -239,8 +253,9 @@ class ModelRunner:
                 "site runs engine.selfextend's plain attention")
         else:
             self.attn_impl, why = ops.select_attn_impl(
-                device=self.device, num_heads=cfg.num_heads,
-                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, dtype=dtype,
+                device=self.device, num_heads=self.local_cfg.num_heads,
+                num_kv_heads=self.local_cfg.num_kv_heads, head_dim=cfg.hd,
+                dtype=dtype,
                 kv_dtype=None if self.paged else kv_t, max_ctx=self.max_ctx)
         if why:
             log.info("attention: %s (%s)", self.attn_impl, why)
@@ -251,7 +266,8 @@ class ModelRunner:
             # tools.autotune), one lookup a construction, keyed as the JAX
             # package keys it: the explicit kwarg and LOCALAI_KV_BLOCK_TOKENS
             # win, then the table, then the built-in default
-            tuned = tuning.lookup(cfg.hd, cfg.num_kv_heads, kv_dtype, 1)
+            tuned = tuning.lookup(cfg.hd, cfg.num_kv_heads, kv_dtype,
+                                  self.tp)
             try:
                 env_bt = int(
                     os.environ.get("LOCALAI_KV_BLOCK_TOKENS", "") or 0)
@@ -265,12 +281,12 @@ class ModelRunner:
                 why = ops.paged_gate(
                     num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                     head_dim=cfg.hd, block_tokens=max(8, tuned_bt),
-                    kv_dtype=kv_t, dtype=dtype)
+                    kv_dtype=kv_t, dtype=dtype, tp=self.tp)
                 if why:
                     log.warning(
                         "tuning entry %s (block_tokens %d) dropped: %s; "
                         "using the default", tuning.shape_key(
-                            cfg.hd, cfg.num_kv_heads, kv_dtype, 1),
+                            cfg.hd, cfg.num_kv_heads, kv_dtype, self.tp),
                         tuned_bt, why)
                     tuned_bt = 0
             self.block_tokens = max(8, int(kv_block_tokens or env_bt
@@ -320,7 +336,8 @@ class ModelRunner:
             self.paged_attn_impl, why = ops.select_paged_attn_impl(
                 device=self.device, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
-                block_tokens=self.block_tokens, kv_dtype=kv_t, dtype=dtype)
+                block_tokens=self.block_tokens, kv_dtype=kv_t, dtype=dtype,
+                tp=self.tp)
             if why:
                 log.info("paged attention: %s (%s)", self.paged_attn_impl,
                          why)
@@ -345,6 +362,68 @@ class ModelRunner:
         self.prefill_chunks = 0
         self._init_device_state()
         self._watch_programs()
+
+    def _init_mesh(self, mesh: Any, cfg: LlamaConfig, ga_n: int) -> None:
+        """A tensor-parallel rank (``mesh``, ``parallel.mesh.Mesh`` with
+        model > 1): its head counts (``local_cfg``) and the row-parallel
+        reduction of its trunk (one ``all_reduce``), which every program of
+        the runner runs. ``overlap_mode`` / ``overlap_why`` report what the
+        JAX package would run for ``LOCALAI_MESH_OVERLAP``
+        (``parallel.overlap.resolve_mode``)."""
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self.tp = self.mesh.tp if self.mesh is not None else 1
+        self.overlap_mode, self.overlap_why, self.reduce = "", "", None
+        self.local_cfg = cfg
+        if self.mesh is None:
+            return
+        from localai_tpu_torch.parallel import mesh as pmesh
+        from localai_tpu_torch.parallel import overlap as ovl
+
+        pmesh.refuse_part2(self.mesh.plan, "ModelRunner")
+        if ga_n > 1:
+            raise ValueError("self-extend (grp_attn_n > 1) is not served "
+                             "on a tensor-parallel mesh")
+        self.local_cfg = shd.local_config(cfg, self.tp)
+        self.overlap_mode, self.overlap_why = ovl.resolve_mode(
+            cfg, self.mesh, os.environ.get("LOCALAI_MESH_OVERLAP", "auto"))
+        self.reduce = ovl.make_reduce(self.mesh)
+        log.info("tensor parallelism: rank %d of %d, %d q / %d kv heads a "
+                 "rank, psum reductions (the JAX package: %s%s)",
+                 self.mesh.rank, self.tp, self.local_cfg.num_heads,
+                 self.local_cfg.num_kv_heads, self.overlap_mode or "GSPMD",
+                 f", {self.overlap_why}" if self.overlap_why else "")
+
+    def _embed(self, tokens: torch.Tensor) -> Optional[torch.Tensor]:
+        """Token embeddings of a rank whose table is vocab-sharded (masked
+        local rows summed over the group); None where ``forward``'s own
+        gather applies."""
+        table = self.params["embed"]
+        if self.mesh is None or table.shape[0] == self.cfg.vocab_size:
+            return None
+        from localai_tpu_torch.parallel import overlap as ovl
+
+        return ovl.embed_local(table, tokens, mdl.torch_dtype(
+            self.cfg.dtype), self.mesh)
+
+    def _forward(self, tokens, positions, write, kv_stack, mask, attn=None,
+                 embeds=None):
+        """``models.llama.forward`` over this runner's weights and RoPE
+        table, as a tensor-parallel rank's trunk on a mesh."""
+        if embeds is None:
+            embeds = self._embed(tokens)
+        return mdl.forward(self.cfg, self.params, tokens, positions, write,
+                           kv_stack, mask, self.rope, attn=attn,
+                           embeds=embeds, reduce=self.reduce)
+
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Logits [..., V]: a vocab-sharded rank's local columns gathered
+        over the group (every rank then samples from the same rows)."""
+        logits = mdl.logits_from_hidden(self.cfg, self.params, hidden)
+        if self.mesh is not None and logits.shape[-1] != self.cfg.vocab_size:
+            from localai_tpu_torch.parallel import overlap as ovl
+
+            logits = ovl.gather_vocab(logits, self.mesh)
+        return logits
 
     def _watch_programs(self) -> None:
         """Wrap each program entry point with ``obs.compile.watch`` under
@@ -420,7 +499,7 @@ class ModelRunner:
                     for t in (kv.k, kv.v, kv.k_scale, kv.v_scale)
                     if t is not None)
         return obs_compile.reckon_cost(
-            self.cfg, self.params, tokens_per_step=tokens_per_step,
+            self.local_cfg, self.params, tokens_per_step=tokens_per_step,
             steps=steps, attended_rows=attended, kv_rows=kv_rows,
             kv_row_bytes=total // max(1, rows), new_rows=new_rows)
 
@@ -435,7 +514,7 @@ class ModelRunner:
             self.block_tables = torch.zeros(
                 (self.num_slots, self.max_blocks), dtype=torch.int32,
                 device=dev)
-            self.kv = kvc.init_paged_cache(cfg, self.num_blocks,
+            self.kv = kvc.init_paged_cache(self.local_cfg, self.num_blocks,
                                            self.block_tokens, self.kv_dtype,
                                            device=dev)
             # the host spill tier under the prefix pool
@@ -452,7 +531,8 @@ class ModelRunner:
                                            load=self.load_block)
         else:
             self.allocator = self.block_tables = None
-            self.kv = kvc.init_cache(cfg, self.num_slots, self.max_ctx,
+            self.kv = kvc.init_cache(self.local_cfg, self.num_slots,
+                                     self.max_ctx,
                                      self.kv_dtype, device=dev)
         self.state = DecodeState.init(self.num_slots, cfg.vocab_size, dev)
         # per-slot generators: a slot's stream advances only when it samples
@@ -530,9 +610,8 @@ class ModelRunner:
                 return kernel(q[:, 0].contiguous(), keys, values, k_scale,
                               v_scale)[:, None]
 
-        hidden, _ = mdl.forward(cfg, self.params, st.tokens[:, None],
-                                pos[:, None], write, self.kv.stacked(), None,
-                                self.rope, attn=attn)
+        hidden, _ = self._forward(st.tokens[:, None], pos[:, None], write,
+                                  self.kv.stacked(), None, attn=attn)
         self.decode_steps += 1
         return self._decode_tail(
             hidden, self._active_slots if sampling is None else sampling)
@@ -583,7 +662,7 @@ class ModelRunner:
         ``sampling``: the slots whose generators may advance."""
         st = self.state
         pos = st.positions
-        logits = mdl.logits_from_hidden(self.cfg, self.params, hidden[:, 0])
+        logits = self._logits(hidden[:, 0])
         tokens = smp.sample(logits, st.params, st.counts,
                             self._sample_generators(sampling), st.bias)
         tokens = torch.where(st.active, tokens, st.tokens)
@@ -665,9 +744,9 @@ class ModelRunner:
             T, dtype=torch.int32, device=self.device)[None, :]
         tokens = torch.cat([st.tokens[:, None], proposals], dim=1)
         mask = kvc.verify_mask(cfg, p0, T, ctx)
-        hidden, _ = mdl.forward(cfg, self.params, tokens, positions, write,
-                                self.kv.stacked(), mask, self.rope)
-        logits = mdl.logits_from_hidden(cfg, self.params, hidden)
+        hidden, _ = self._forward(tokens, positions, write,
+                                  self.kv.stacked(), mask)
+        logits = self._logits(hidden)
         self.verify_windows += 1
         return self._accept_scan(logits, proposals)
 
@@ -722,7 +801,7 @@ class ModelRunner:
         counts from the whole prompt, next write position ``position``."""
         cfg, st = self.cfg, self.state
         last_h = hidden[0, length - 1][None]
-        logits = mdl.logits_from_hidden(cfg, self.params, last_h)  # [1, V]
+        logits = self._logits(last_h)  # [1, V]
         ids = [t for t in prompt if 0 <= t < cfg.vocab_size]
         smp.count_prompt_tokens(
             st.counts, slot,
@@ -748,11 +827,10 @@ class ModelRunner:
         bucket = tokens.shape[1]
         positions = torch.arange(bucket, dtype=torch.int32,
                                  device=self.device)[None, :]
-        hidden, _ = mdl.forward(self.cfg, self.params, tokens, positions,
-                                kvc.prefill_write(slot), self.kv.stacked(),
-                                None, self.rope,
-                                attn=self._prefill_attn(length, bucket),
-                                embeds=embeds)
+        hidden, _ = self._forward(tokens, positions, kvc.prefill_write(slot),
+                                  self.kv.stacked(), None,
+                                  attn=self._prefill_attn(length, bucket),
+                                  embeds=embeds)
         self.fresh_prefills += 1
         return self._prefill_tail(hidden, length, slot, prompt, length)
 
@@ -764,7 +842,9 @@ class ModelRunner:
         clamped gather does (their rows are replaced anyway)."""
         dtype = mdl.torch_dtype(self.cfg.dtype)
         ids = tokens.clamp(0, self.cfg.vocab_size - 1)
-        x = quant.embed_rows(self.params["embed"], ids, dtype)
+        x = self._embed(ids)
+        if x is None:
+            x = quant.embed_rows(self.params["embed"], ids, dtype)
         pos = torch.from_numpy(np.asarray(mm_positions, np.int64)).to(
             self.device)
         rows = torch.from_numpy(np.asarray(mm_embeds, np.float32)).to(
@@ -799,10 +879,9 @@ class ModelRunner:
                                device=self.device)
         attn = (self._se_attn(positions, torch.arange(
             self.max_ctx, device=self.device)) if self.ga_n > 1 else None)
-        hidden, _ = mdl.forward(cfg, self.params, tokens, positions,
-                                kvc.resume_write(slot, offset),
-                                self.kv.stacked(), mask, self.rope,
-                                attn=attn)
+        hidden, _ = self._forward(tokens, positions,
+                                  kvc.resume_write(slot, offset),
+                                  self.kv.stacked(), mask, attn=attn)
         return self._prefill_tail(hidden, length, slot, prompt,
                                   offset + length)
 
@@ -824,9 +903,8 @@ class ModelRunner:
         mask = kvc.resume_mask(cfg, bucket, offset, self.ctx_pad,
                                device=self.device)
         write = kvc.paged_prefill_write(table_row, offset, length)
-        hidden, _ = mdl.forward(cfg, self.params, tokens, positions, write,
-                                self.kv.stacked(), mask, self.rope,
-                                embeds=embeds)
+        hidden, _ = self._forward(tokens, positions, write,
+                                  self.kv.stacked(), mask, embeds=embeds)
         self.prefill_chunks += 1
         if prompt is None:
             return None
@@ -1168,6 +1246,25 @@ class ModelRunner:
         padded[0, :n] = prompt
         return self._embed_prog(torch.from_numpy(padded), n)
 
+    def prompt_logits(self, prompt: list[int]) -> np.ndarray:
+        """Logits [n, V] float32 of every row of a fresh forward over
+        ``prompt`` (the prefill a fresh admission runs, with no cache
+        written and no slot touched): a tensor-parallel engine's check
+        against one device."""
+        n = len(prompt)
+        bucket = self.bucket_for(n)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :n] = prompt
+        with torch.no_grad():
+            tokens = torch.from_numpy(padded).to(self.device)
+            positions = torch.arange(bucket, dtype=torch.int32,
+                                     device=self.device)[None, :]
+            hidden, _ = self._forward(tokens, positions, kvc.chunk_write,
+                                      None, None,
+                                      attn=self._prefill_attn(n, bucket))
+            logits = self._logits(hidden[0, :n])
+        return logits.float().cpu().numpy()
+
     def _embed_fn(self, padded: torch.Tensor, n: int) -> np.ndarray:
         """The embeddings forward of a bucketed [1, T] prompt with ``n``
         real rows (host tensor in, host vector out)."""
@@ -1176,9 +1273,9 @@ class ModelRunner:
             tokens = padded.to(self.device)
             positions = torch.arange(bucket, dtype=torch.int32,
                                      device=self.device)[None, :]
-            hidden, _ = mdl.forward(self.cfg, self.params, tokens, positions,
-                                    kvc.chunk_write, None, None, self.rope,
-                                    attn=self._prefill_attn(n, bucket))
+            hidden, _ = self._forward(tokens, positions, kvc.chunk_write,
+                                      None, None,
+                                      attn=self._prefill_attn(n, bucket))
             # pool in f32: a bf16 sum over thousands of rows loses the
             # precision the embeddings exist to provide
             pooled = hidden[0, :n].float().sum(dim=0) / n
@@ -1350,7 +1447,8 @@ class ModelRunner:
             return False
         if n > self.max_ctx - 1:
             return False
-        L, H, hd = self.cfg.num_layers, self.cfg.num_kv_heads, self.cfg.hd
+        L, H, hd = (self.cfg.num_layers, self.local_cfg.num_kv_heads,
+                    self.cfg.hd)
         if str(self.kv_dtype) == "int4":
             hd //= 2  # int4 exports stay nibble-packed along head_dim
         names = ("k", "v", "k_scale", "v_scale") if self.kv.k_scale is not \

@@ -216,12 +216,20 @@ def param_shapes(cfg: LlamaConfig) -> dict:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device: str | torch.device | None = None) -> Params:
+                device: str | torch.device | None = None,
+                shard: Any = None) -> Params:
     """Random init (testing / benchmarking with synthetic weights): norm
     gains 1, everything else N(0, 0.02). ``generator`` must live on
     ``device`` (default: the generator's own device); stacked layer
     weights are drawn one matrix at a time (a layer's, or an expert's in
-    a layer) so the float32 draw never exceeds one matrix."""
+    a layer) so the float32 draw never exceeds one matrix.
+
+    ``shard(path, tensor)`` (optional: a tensor-parallel rank's slicer,
+    ``parallel.sharding``) receives each leaf as drawn — a top-level leaf
+    whole (``("embed",)``), a stacked layer weight one layer at a time
+    (``("layers", name)``) — and returns what this rank keeps; the draws
+    are the unsharded ones, in the same order, so the slices are the
+    single-device tree's."""
     device = torch.device(device if device is not None else generator.device)
     dtype = torch_dtype(cfg.dtype)
 
@@ -236,12 +244,29 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         return out
 
     shapes = param_shapes(cfg)
-    return {k: ({kk: mk(vv) for kk, vv in v.items()} if isinstance(v, dict)
-                else mk(v)) for k, v in shapes.items()}
+    if shard is None:
+        return {k: ({kk: mk(vv) for kk, vv in v.items()}
+                    if isinstance(v, dict) else mk(v))
+                for k, v in shapes.items()}
+
+    def stacked(name, shape):
+        if len(shape) < 3:   # drawn whole, as mk draws it
+            full = mk(shape)
+            parts = (shard(("layers", name), full[i])
+                     for i in range(shape[0]))
+        else:                # one layer at a time
+            parts = (shard(("layers", name), mk(shape[1:]))
+                     for _ in range(shape[0]))
+        return quant.stack_layers(parts, shape[0])
+
+    return {k: ({kk: stacked(kk, vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else shard((k,), mk(v)))
+            for k, v in shapes.items()}
 
 
 def params_from_numpy(tree: dict, cfg: LlamaConfig,
-                      device: str | torch.device = "cuda") -> Params:
+                      device: str | torch.device = "cuda",
+                      mesh: Any = None) -> Params:
     """Carry a JAX parameter tree (nested dicts of numpy arrays) across to
     torch tensors in ``cfg.dtype`` on ``device``. bfloat16 arrays arrive
     as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses: they go
@@ -253,7 +278,12 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig,
     (w8, w8a8) goes across as it is, an int4 ``q`` (``ml_dtypes.int4``) through
     ``astype(np.int8)`` and the port's w4 packing; ``scale`` stays f32.
     Expert stacks (plain or per-channel int8 over axis 2) and the router
-    go across alike."""
+    go across alike.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``) each leaf comes across as
+    that mesh's rank's slice (``parallel.sharding``): what
+    ``jax.device_put(leaf, NamedSharding(mesh, spec))`` puts on the
+    matching device of a JAX ``model=N`` mesh."""
     dtype = torch_dtype(cfg.dtype)
     device = resolve_device(device)
 
@@ -278,6 +308,13 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig,
                                          a.axis % np.ndim(a.q), a.mode)
         return tensor(a).to(device=device, dtype=dtype)
 
+    if mesh is not None and mesh.tp > 1:
+        from localai_tpu_torch.parallel import sharding as shd
+
+        cut = shd.make_shard_fn(cfg, mesh)
+        return {k: ({kk: cut((k, kk), conv(vv)) for kk, vv in v.items()}
+                    if isinstance(v, dict) else cut((k,), conv(v)))
+                for k, v in tree.items()}
     return {k: ({kk: conv(vv) for kk, vv in v.items()} if isinstance(v, dict)
                 else conv(v)) for k, v in tree.items()}
 
@@ -286,10 +323,18 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig,
 # Forward
 # ---------------------------------------------------------------------------
 
-def _layer(cfg: LlamaConfig, x, lp, cos, sin, attend):
+def _layer(cfg: LlamaConfig, x, lp, cos, sin, attend, reduce=None):
     """One decoder layer. ``attend(q, k_new, v_new) -> attn_out`` is
-    injected so prefill/decode/KV-cache policies stay out of the math."""
+    injected so prefill/decode/KV-cache policies stay out of the math.
+
+    ``reduce`` (a tensor-parallel rank's trunk, ``parallel.overlap``) sums
+    the partial products of the row-parallel weights over the group:
+    attention-out always, mlp-down when the ffn is sharded. Head counts
+    then come from the weight slices' shapes."""
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    if reduce is not None:
+        Hq = lp["wq"].shape[-1] // hd
+        Hkv = lp["wk"].shape[-1] // hd
 
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
     q = quant.matmul(h, lp["wq"])
@@ -307,17 +352,22 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, attend):
 
     attn = attend(q, k, v)
     attn = attn.reshape(*attn.shape[:-2], Hq * hd)
-    x = x + quant.matmul(attn, lp["wo"])
+    wo_out = quant.matmul(attn, lp["wo"])
+    x = x + (reduce(wo_out) if reduce is not None else wo_out)
 
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    # a replicated ffn (indivisible by the group) is complete already
+    red = (reduce if reduce is not None
+           and lp["w_down"].shape[-2] != cfg.intermediate_size else None)
     if "moe_gate" in lp:
-        return x + _moe_mlp(cfg, h, lp)
+        return x + _moe_mlp(cfg, h, lp, red)
     gated = (F.silu(quant.matmul(h, lp["w_gate"]))
              * quant.matmul(h, lp["w_up"]))
-    return x + quant.matmul(gated, lp["w_down"])
+    down = quant.matmul(gated, lp["w_down"])
+    return x + (red(down) if red is not None else down)
 
 
-def _moe_mlp(cfg: LlamaConfig, h, lp):
+def _moe_mlp(cfg: LlamaConfig, h, lp, reduce=None):
     """Mixtral-class sparse MoE MLP, as the JAX package computes it.
 
     Routing as HF's MixtralSparseMoeBlock: the router product in the
@@ -340,7 +390,8 @@ def _moe_mlp(cfg: LlamaConfig, h, lp):
     u = quant.moe_up(h, lp["w_up"])
     a = F.silu(g) * u
     d = quant.moe_down(a, lp["w_down"])                         # [B, T, E, D]
-    return torch.einsum("...te,...ted->...td", wfull.to(d.dtype), d)
+    out = torch.einsum("...te,...ted->...td", wfull.to(d.dtype), d)
+    return reduce(out) if reduce is not None else out
 
 
 def _grouped_attn(cfg: LlamaConfig, q, keys, values, mask):
@@ -372,6 +423,9 @@ def forward(
                               # (the CUDA paged kernel injects here;
                               # None = _grouped_attn)
     embeds: Optional[torch.Tensor] = None,  # [B, T, D] embeddings override
+    reduce: Any = None,       # a tensor-parallel rank's row-parallel
+                              # reduction (parallel.overlap); None = one
+                              # device
 ) -> tuple[torch.Tensor, Any]:
     """Shared transformer trunk: returns (hidden [B, T, D], kv_stack).
 
@@ -403,7 +457,7 @@ def forward(
             _, keys, values = kv_write(layer_kv, k_new, v_new)
             return attn(q, keys, values, mask)
 
-        x = _layer(cfg, x, lp, cos, sin, attend)
+        x = _layer(cfg, x, lp, cos, sin, attend, reduce)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return x, kv_stack
 

@@ -110,12 +110,18 @@ def load_llama_params(
     hf: Optional[dict] = None,
     quantization: str = "",
     group: int = 128,
+    shard: Optional[Callable] = None,
 ) -> tuple[LlamaConfig, dict]:
     """Load an HF llama/mistral/qwen2/mixtral checkpoint into the
     stacked parameter dict, in ``dtype`` on ``device``. ``quantization``
     ("int8" / "int8_w8a8" / "int4") quantizes each layer's weights as they
     are read,
-    giving what ``quant.quantize_params`` gives for the whole tree."""
+    giving what ``quant.quantize_params`` gives for the whole tree.
+    ``shard(path, tensor)`` (a tensor-parallel rank's, from
+    ``models.registry``; it quantizes too) takes each tensor as it is
+    read — a top-level one whole (``("embed",)``), a layer weight one
+    layer at a time (``("layers", name)``) — and returns what the rank
+    keeps."""
     model_dir = Path(model_dir)
     device = resolve_device(device)
     if hf is None:
@@ -152,6 +158,10 @@ def load_llama_params(
         return get(L + hf_name, transpose)
 
     def stack(key: str):
+        if shard is not None:
+            return quant.stack_layers(
+                (shard(("layers", key), one_layer(key, i))
+                 for i in range(cfg.num_layers)), cfg.num_layers)
         return quant.stack_layers((
             quant.quantize_layer(key, one_layer(key, i), quantization,
                                  group) if quantization
@@ -167,7 +177,8 @@ def load_llama_params(
     layers = {key: stack(key) for key in keys}
     embed = get(body + "embed_tokens.weight")
     params: dict = {
-        "embed": (quant.quantize_table(embed, 1, quantization, group)
+        "embed": (shard(("embed",), embed) if shard is not None
+                  else quant.quantize_table(embed, 1, quantization, group)
                   if quantization else embed),
         "final_norm": get(body + "norm.weight"),
         "layers": layers,
@@ -177,12 +188,14 @@ def load_llama_params(
         if head in tensors:
             w = get(head, transpose=True)
             params["lm_head"] = (
-                quant.quantize_table(w, 0, quantization, group)
+                shard(("lm_head",), w) if shard is not None
+                else quant.quantize_table(w, 0, quantization, group)
                 if quantization else w)
             del w
         else:
             cfg = LlamaConfig(**{**cfg.__dict__, "tie_word_embeddings": True})
-    _check_shapes(cfg, params)
+    if shard is None:
+        _check_shapes(cfg, params)
     return cfg, params
 
 

@@ -100,6 +100,9 @@ class ServingModel:
 
     def close(self) -> None:
         self.scheduler.shutdown()
+        drop = getattr(self.runner, "drop", None)
+        if drop is not None:   # a mirrored engine: the followers free it
+            drop()
 
 
 @dataclasses.dataclass
@@ -287,15 +290,119 @@ class ImageServingModel:
         return out
 
 
+def mesh_plan(mcfg: ModelConfig, app: AppConfig, cfg: Any,
+              auto: bool = True) -> Any:
+    """The mesh a model is served on (``parallel.mesh.MeshPlan``), or None
+    for one device: the JAX package's ``build_runner`` mesh logic and its
+    ``_auto_mesh``, on the ``model`` axis alone.
+
+    ``--mesh`` / ``LOCALAI_MESH`` (``app.mesh_shape``) wins, then the
+    config's ``sharding:``; an axis but ``model`` above 1 is refused
+    naming ROADMAP item 19 part 2. Where the JAX package would fill the
+    remaining devices with ``data``, the port builds ``model=tp`` on tp
+    cards with one warning; with fewer cards than ranks, ranks share
+    cards. With no explicit topology and more than one card visible, the
+    model is served ``model=tp`` with tp as wide as the q heads allow
+    (``LOCALAI_MESH_AUTO=0`` turns that off; self-extend keeps one
+    device, as in the JAX package); in a multi-host group
+    (``coordinator_address``, ``num_processes``) a model spans the
+    group's ranks. The CPU has no device count: it is meshed only when
+    asked. ``auto=False`` gives the topology that was set (None where
+    only the auto mesh would apply)."""
+    from localai_tpu_torch.parallel import mesh as pmesh
+
+    shard = mcfg.sharding
+    want_tp = max(1, shard.tensor_parallel_size)
+    want_dp = shard.data_parallel_size
+    others = {"sequence_parallel_size": shard.sequence_parallel_size,
+              "expert_parallel_size": shard.expert_parallel_size,
+              "pipeline_parallel_size": shard.pipeline_parallel_size}
+    cards = pmesh.device_count() if app.device != "cpu" else 0
+    if app.mesh_shape:
+        plan = pmesh.MeshPlan(**app.mesh_shape)
+        pmesh.refuse_part2(plan, f"model {mcfg.name}: --mesh / LOCALAI_MESH")
+    elif (want_tp > 1 or want_dp not in (0, 1)
+          or any(v > 1 for v in others.values())):
+        asked = {k: v for k, v in others.items() if v > 1}
+        if want_dp not in (0, 1):
+            asked["data_parallel_size"] = want_dp
+        if asked:
+            raise ValueError(f"model {mcfg.name}: sharding {asked} is not "
+                             f"ported yet ({pmesh.PART2})")
+        if cards > want_tp:
+            log.warning(
+                "model %s: the JAX package would build data=%d x model=%d "
+                "over %d devices; the port builds model=%d on %d cards "
+                "(data: %s)", mcfg.name, cards // want_tp, want_tp, cards,
+                want_tp, want_tp, pmesh.PART2)
+        plan = pmesh.MeshPlan(model=want_tp)
+    elif app.coordinator_address and app.num_processes > 1:
+        # a multi-host group (joined at start): the model spans its ranks
+        plan = pmesh.MeshPlan(model=app.num_processes)
+    else:
+        if (not auto or os.environ.get("LOCALAI_MESH_AUTO", "") == "0"
+                or cards < 2 or mcfg.engine.grp_attn_n > 1
+                or app.mirror_port):
+            return None
+        tp = pmesh.default_tensor_parallel(cards, cfg.num_heads)
+        if tp < 2:
+            log.warning(
+                "auto mesh: %d devices visible but num_heads=%d admits no "
+                "tensor-parallel split; serving single-device", cards,
+                cfg.num_heads)
+            return None
+        if cards // tp > 1:
+            log.warning(
+                "auto mesh: the JAX package would build data=%d x "
+                "model=%d; the port uses model=%d on %d of %d cards (%s)",
+                cards // tp, tp, tp, tp, cards, pmesh.PART2)
+        plan = pmesh.MeshPlan(model=tp)
+        log.info("auto mesh for %s: model=%d", mcfg.name, tp)
+    return plan if plan.model > 1 else None
+
+
+def _mesh_for(plan: Any, app: AppConfig, mcfg: ModelConfig) -> Any:
+    """This process's ``Mesh`` for a meshed model: a follower's (or a
+    multi-host leader's) joined group, else the single-host group the
+    leader spawns now; a leader whose followers are connected tells them
+    to build the model too (``__load__``)."""
+    import torch.distributed as dist
+
+    from localai_tpu_torch.fleet.kveconomy.tiering import (
+        tier_budget_from_env,
+    )
+    from localai_tpu_torch.parallel import mesh as pmesh
+    from localai_tpu_torch.parallel import multihost as mh
+
+    if tier_budget_from_env() > 0:
+        raise ValueError(f"model {mcfg.name}: the host KV tier "
+                         "(LOCALAI_KV_TIER_MB) on a tensor-parallel engine "
+                         f"is not ported yet ({pmesh.PART2})")
+    group = mh.current_group()
+    if not (dist.is_initialized() and group is None):
+        group = mh.ensure_group(app, plan.model, mcfg.name)
+        with group.leader.call_lock:
+            if group.leader.connected:
+                group.leader.broadcast(mcfg.name, "__load__")
+    return pmesh.build_mesh(plan)
+
+
 def build_runner(mcfg: ModelConfig, app: AppConfig,
                  ) -> tuple[LoadedModel, ModelRunner]:
-    """Config → (resolved model, live ModelRunner) on ``app.device``."""
+    """Config → (resolved model, live ModelRunner) on ``app.device``, or
+    as this process's rank of the model's mesh (``mesh_plan``): its
+    weight slices, cut as they load."""
+    from localai_tpu_torch.models.registry import resolve_config
+
     mcfg.check_supported()
     eng = mcfg.engine
-    model = resolve_model(mcfg.model or mcfg.name,
-                          model_path=app.model_path, dtype=eng.dtype,
-                          seed=mcfg.seed or 0, device=app.device,
-                          quantization=eng.quantization or "")
+    ref = mcfg.model or mcfg.name
+    plan = mesh_plan(mcfg, app, resolve_config(ref, app.model_path))
+    mesh = _mesh_for(plan, app, mcfg) if plan is not None else None
+    device = mesh.device if mesh is not None else app.device
+    model = resolve_model(ref, model_path=app.model_path, dtype=eng.dtype,
+                          seed=mcfg.seed or 0, device=device,
+                          quantization=eng.quantization or "", mesh=mesh)
     # self-extend lifts the trained-context ceiling by the group factor
     ctx = min(mcfg.context_size or app.context_size,
               model.cfg.max_position_embeddings * max(eng.grp_attn_n, 1))
@@ -333,23 +440,21 @@ def build_runner(mcfg: ModelConfig, app: AppConfig,
         ga_n=eng.grp_attn_n,
         ga_w=eng.grp_attn_w,
         attn_impl=eng.attn_impl,
-        device=app.device,
+        device=device,
+        mesh=mesh,
     )
     return model, runner
 
 
-def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
-    """Config → live engine: weights, runner, scheduler, tokenizer."""
-    t0 = time.monotonic()
-    model, runner = build_runner(mcfg, app)
+def build_spec(runner: ModelRunner, mcfg: ModelConfig, app: AppConfig):
+    """Speculative decoding (localai_tpu_torch.spec), as the JAX package
+    chooses it: on by default for paged engines (the n-gram self-drafter
+    needs no second model) and whenever a draft_model is set, unless
+    LOCALAI_SPEC=0; engine.spec true/false forces it. LOCALAI_SPEC_DRAFTER
+    overrides spec_drafter; a configured draft_model upgrades the drafter
+    to a co-located draft runner (on a mesh, sharded over the target's).
+    Returns the SpecEngine, or None."""
     eng = mcfg.engine
-    # speculative decoding (localai_tpu_torch.spec), as the JAX package
-    # chooses it: on by default for paged engines (the n-gram self-drafter
-    # needs no second model) and whenever a draft_model is set, unless
-    # LOCALAI_SPEC=0; engine.spec true/false forces it. LOCALAI_SPEC_DRAFTER
-    # overrides spec_drafter; a configured draft_model upgrades the
-    # drafter to a co-located draft runner.
-    spec = None
     spec_want = eng.spec
     if spec_want is None:
         spec_want = ((runner.paged or bool(eng.draft_model))
@@ -358,28 +463,52 @@ def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
         log.warning(
             "%s: speculative decoding is not supported with self-extend "
             "(grp_attn_n>1); serving without it", mcfg.name)
-    elif spec_want:
-        from localai_tpu_torch.spec import build_spec_engine
+        return None
+    if not spec_want:
+        return None
+    from localai_tpu_torch.spec import build_spec_engine
 
-        drafter = (os.environ.get("LOCALAI_SPEC_DRAFTER", "")
-                   or eng.spec_drafter or "auto")
-        if drafter == "model" and not eng.draft_model:
-            log.warning(
-                "%s: spec_drafter=model but no draft_model configured; "
-                "using the n-gram self-drafter", mcfg.name)
-            drafter = "ngram"
-        gamma = eng.spec_gamma
-        if gamma is None and eng.draft_model:
-            gamma = max(1, eng.n_draft)
-        spec = build_spec_engine(runner, drafter=drafter,
-                                 draft_ref=eng.draft_model,
-                                 model_path=app.model_path, gamma=gamma,
-                                 dtype=eng.dtype)
-        log.info("%s: speculative decoding on (%s drafter, gamma=%d, %s "
-                 "KV)", mcfg.name, spec.drafter.name, spec.gamma,
-                 "paged" if spec.paged else "contiguous")
+    drafter = (os.environ.get("LOCALAI_SPEC_DRAFTER", "")
+               or eng.spec_drafter or "auto")
+    if drafter == "model" and not eng.draft_model:
+        log.warning(
+            "%s: spec_drafter=model but no draft_model configured; "
+            "using the n-gram self-drafter", mcfg.name)
+        drafter = "ngram"
+    gamma = eng.spec_gamma
+    if gamma is None and eng.draft_model:
+        gamma = max(1, eng.n_draft)
+    spec = build_spec_engine(runner, drafter=drafter,
+                             draft_ref=eng.draft_model,
+                             model_path=app.model_path, gamma=gamma,
+                             dtype=eng.dtype)
+    log.info("%s: speculative decoding on (%s drafter, gamma=%d, %s "
+             "KV)", mcfg.name, spec.drafter.name, spec.gamma,
+             "paged" if spec.paged else "contiguous")
+    return spec
+
+
+def build_serving_model(mcfg: ModelConfig, app: AppConfig) -> ServingModel:
+    """Config → live engine: weights, runner, scheduler, tokenizer. A
+    meshed model's runner (and a draft model's drafter) is mirrored to the
+    follower ranks (``parallel.multihost.mirror``) once they joined."""
+    t0 = time.monotonic()
+    eng = mcfg.engine
+    model, runner = build_runner(mcfg, app)
+    spec = build_spec(runner, mcfg, app)
+    meshed = runner.mesh is not None
+    if meshed:
+        from localai_tpu_torch.parallel import multihost as mh
+
+        runner, spec = mh.mirror(runner, spec, mcfg.name,
+                                 mh.current_group())
     prompt_cache = None
-    if mcfg.prompt_cache_path:
+    if mcfg.prompt_cache_path and meshed:
+        log.warning(
+            "%s: prompt_cache_path is not supported with multi-host command "
+            "mirroring (KV loads would desync followers); ignoring",
+            mcfg.name)
+    elif mcfg.prompt_cache_path:
         pc_path = Path(mcfg.prompt_cache_path)
         if not pc_path.is_absolute():
             pc_path = Path(app.model_path) / pc_path
@@ -614,6 +743,17 @@ class ModelManager:
                     "fleet-served; keeping the single-engine path",
                     mcfg.name)
             else:
+                from localai_tpu_torch.models.registry import resolve_config
+                from localai_tpu_torch.parallel.mesh import PART2
+
+                # a topology that was set; the auto mesh is the replica's
+                # own (a pinned worker sees one card)
+                if mesh_plan(mcfg, app, resolve_config(
+                        mcfg.model or mcfg.name, app.model_path),
+                        auto=False) is not None:
+                    raise ValueError(f"model {mcfg.name}: fleet replicas "
+                                     "of a tensor-parallel model are not "
+                                     f"ported yet ({PART2})")
                 return self._load_fleet(mcfg)
         if ext or mcfg.backend == "worker":
             from localai_tpu_torch.worker.serving import WorkerServingModel
@@ -656,12 +796,16 @@ class ModelManager:
         app = self.app
         cfg_ref = {"mcfg": mcfg}
         if app.fleet_backend == "inprocess":
+            # in-process replicas share this process's card: none of them
+            # is auto-meshed over the host's cards
+            rapp = dataclasses.replace(app, mesh_shape={"model": 1})
+
             def factory(rid: str, role: str):
                 live = cfg_ref["mcfg"]
                 rcfg = dataclasses.replace(live, name=rid,
                                            model=live.model or live.name)
                 return InProcessReplica(
-                    rid, role, lambda: build_serving_model(rcfg, app))
+                    rid, role, lambda: build_serving_model(rcfg, rapp))
         else:
             total = app.fleet_replicas + app.fleet_prefill_replicas
 
@@ -908,6 +1052,10 @@ class ModelManager:
             sm.close()
         if pool is not None:
             pool.shutdown_all()
+        # the tensor-parallel group's followers exit with the channel
+        from localai_tpu_torch.parallel import multihost as mh
+
+        mh.close_group()
 
 
 class _Watchdog(threading.Thread):

@@ -424,6 +424,22 @@ def stack_layers(parts: Iterable[Any], n: int) -> Any:
     return out
 
 
+def quantized_spec(spec: tuple, axis: int, grouped: bool = False) -> tuple:
+    """The scale's sharding spec (``parallel.sharding``: a tuple, one
+    entry a dimension) from the weight's: drop the contracted axis
+    (per-channel int8) or keep it (group-wise w4: the scale's group axis
+    tiles the weight's contraction axis, so it is cut the same way). A
+    tensor-parallel rank then keeps the scales of its output channels
+    beside them, and of its K rows' groups."""
+    if grouped:
+        return tuple(spec)
+    entries = list(spec)
+    while len(entries) < axis + 1:
+        entries.append(None)
+    del entries[axis]
+    return tuple(entries)
+
+
 def quantize_params(params: dict, mode: str = "int8", group: int = 128,
                     device: str | torch.device | None = "cuda") -> dict:
     """Quantize a llama parameter tree's matmul weights onto ``device``.

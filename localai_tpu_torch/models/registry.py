@@ -85,22 +85,25 @@ def resolve_model(
     seed: int = 0,
     device: str | torch.device | None = "cuda",
     quantization: str = "",
+    mesh=None,
 ) -> LoadedModel:
     """``quantization`` ("int8" / "int8_w8a8" / "int4") gives the weights of
     ``quant.quantize_params``: a debug preset's drawn tree is quantized on
     the device, a checkpoint's layers as they are read (the bf16 tree of
-    Mixtral-8x7B would not fit the card)."""
+    Mixtral-8x7B would not fit the card). With ``mesh`` (a
+    tensor-parallel rank, ``parallel.mesh.Mesh``) the weights are this
+    rank's slices, cut as each tensor is drawn or read (and quantized
+    whole before it is cut, as the JAX package shards its quantized
+    tree): the full tree never exists on one card."""
     dev = resolve_device(device)
+    shard = _shard_fn(resolve_config(ref, model_path), mesh, quantization,
+                      dev) if mesh is not None and mesh.tp > 1 else None
     if ref.startswith("debug:"):
         name = ref.split(":", 1)[1]
-        if name not in DEBUG_PRESETS:
-            raise ValueError(
-                f"unknown debug preset {name!r}; have {sorted(DEBUG_PRESETS)}"
-            )
         cfg = dataclasses.replace(DEBUG_PRESETS[name], dtype=dtype)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = init_params(cfg, gen, dev)
-        if quantization:
+        params = init_params(cfg, gen, dev, shard=shard)
+        if quantization and shard is None:
             params = quantize_params(params, quantization, device=dev)
         return LoadedModel(cfg, params, ByteTokenizer(), ref)
 
@@ -113,7 +116,8 @@ def resolve_model(
 
             hf = read_hf_config(cand)
             cfg, params = load_llama_params(cand, dtype=dtype, device=dev,
-                                            hf=hf, quantization=quantization)
+                                            hf=hf, quantization=quantization,
+                                            shard=shard)
             cfg = dataclasses.replace(cfg, dtype=dtype)
             return LoadedModel(cfg, params, load_tokenizer(cand), ref,
                                model_dir=cand,
@@ -123,6 +127,57 @@ def resolve_model(
         f"model ref {ref!r} not found (looked for config.json under {ref} and "
         f"{Path(model_path) / ref})"
     )
+
+
+def resolve_config(ref: str, model_path: str | Path = "models"
+                   ) -> LlamaConfig:
+    """A model ref's LlamaConfig without its weights (a debug preset's, or
+    a checkpoint's config.json): the mesh is sized before anything
+    loads."""
+    if ref.startswith("debug:"):
+        name = ref.split(":", 1)[1]
+        if name not in DEBUG_PRESETS:
+            raise ValueError(
+                f"unknown debug preset {name!r}; have {sorted(DEBUG_PRESETS)}"
+            )
+        return DEBUG_PRESETS[name]
+    for cand in (Path(ref), Path(model_path) / ref):
+        if (cand / "config.json").exists():
+            from localai_tpu_torch.models.loader import load_hf_config
+
+            return load_hf_config(cand)
+    raise FileNotFoundError(
+        f"model ref {ref!r} not found (looked for config.json under {ref} and "
+        f"{Path(model_path) / ref})"
+    )
+
+
+def _shard_fn(cfg: LlamaConfig, mesh, quantization: str,
+              device: torch.device):
+    """``shard(path, tensor)`` for ``init_params`` and the loader: the
+    leaf quantized whole as ``quantize_params`` would (when asked), then
+    this rank's slice."""
+    from localai_tpu_torch.models.quant import (
+        quantize_layer,
+        quantize_table,
+    )
+    from localai_tpu_torch.parallel import sharding as shd
+
+    top = shd.make_shard_fn(cfg, mesh)
+    layer = shd.layer_shard_fn(cfg, mesh)
+
+    def shard(path: tuple, t):
+        t = t.to(device)
+        if path[0] == "layers":
+            if quantization:
+                t = quantize_layer(path[1], t, quantization)
+            return layer(path[1], t)
+        if quantization and path[0] in ("embed", "lm_head"):
+            t = quantize_table(t, 1 if path[0] == "embed" else 0,
+                               quantization)
+        return top(path, t)
+
+    return shard
 
 
 def synthetic_quantized_params(

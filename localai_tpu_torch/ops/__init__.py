@@ -59,6 +59,7 @@ __all__ = [
     "prefill_attention",
     "prefill_attention_ref",
     "resolve_attn_impl",
+    "local_heads",
     "paged_gate",
     "select_attn_impl",
     "select_paged_attn_impl",
@@ -102,12 +103,39 @@ def _kv_storage(kv_dtype, dtype, kernel: str) -> tuple[str, torch.dtype]:
     return "", kv_dtype
 
 
+def local_heads(num_heads: int, num_kv_heads: int, tp: int = 1
+                ) -> tuple[int, int]:
+    """(q heads, kv heads) one rank of a ``tp``-wide tensor-parallel mesh
+    attends over: Hq/tp, and Hkv/tp or, when tp is a multiple of Hkv (the
+    replicate fallback, ``parallel.sharding``), the one kv head its q
+    heads read. The kernels see only these."""
+    if tp <= 1:
+        return num_heads, num_kv_heads
+    if num_heads % tp:
+        raise ValueError(f"num_heads {num_heads} not divisible by "
+                         f"tensor_parallel {tp}")
+    if num_kv_heads % tp == 0:
+        return num_heads // tp, num_kv_heads // tp
+    if tp % num_kv_heads:
+        raise ValueError(f"kv heads ({num_kv_heads}) neither divisible by "
+                         f"nor dividing tensor_parallel ({tp})")
+    return num_heads // tp, 1
+
+
 def paged_gate(*, num_heads: int, num_kv_heads: int, head_dim: int,
                block_tokens: int, kv_dtype: torch.dtype | str,
-               dtype: torch.dtype | None = None) -> str:
+               dtype: torch.dtype | None = None, tp: int = 1) -> str:
     """Why K1 on the card cannot take this paged shape, as the message to
     raise ("" when it can): a pure function of the shape and the dtypes,
-    which ``select_paged_attn_impl`` takes."""
+    which ``select_paged_attn_impl`` takes. With ``tp`` > 1 it judges
+    the group one rank attends over (``local_heads``), as the JAX
+    package's gate judges the local group under a mesh."""
+    if num_heads % num_kv_heads:
+        return f"heads ({num_heads} q / {num_kv_heads} kv) not grouped"
+    try:
+        num_heads, num_kv_heads = local_heads(num_heads, num_kv_heads, tp)
+    except ValueError as e:
+        return str(e)
     if num_heads % num_kv_heads:
         return f"heads ({num_heads} q / {num_kv_heads} kv) not grouped"
     try:
@@ -124,17 +152,18 @@ def select_paged_attn_impl(*, device: torch.device, num_heads: int,
                            block_tokens: int,
                            kv_dtype: torch.dtype | str,
                            dtype: torch.dtype | None = None,
-                           ) -> tuple[str, str]:
+                           tp: int = 1) -> tuple[str, str]:
     """Returns (impl, reason): "kernel" on a CUDA device (raising
     ``paged_gate``'s reason when the kernel cannot take the shape),
     "torch" on the CPU. ``kv_dtype`` is the pool's torch dtype, or
     "int8"/"int4" for a scaled pool; ``dtype`` is the compute dtype (q),
-    which a float pool must equal."""
+    which a float pool must equal; ``tp`` the tensor-parallel width (the
+    gate judges one rank's group)."""
     if torch.device(device).type != "cuda":
         return "torch", "CPU tensors: the wrapper runs its plain version"
     why = paged_gate(num_heads=num_heads, num_kv_heads=num_kv_heads,
                      head_dim=head_dim, block_tokens=block_tokens,
-                     kv_dtype=kv_dtype, dtype=dtype)
+                     kv_dtype=kv_dtype, dtype=dtype, tp=tp)
     if why:
         raise ValueError(why)
     return "kernel", ""

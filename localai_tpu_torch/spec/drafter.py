@@ -243,8 +243,11 @@ class ModelDrafter:
         gamma+1 greedy steps; returns [S, gamma] proposals on the
         device (the Python loop of the JAX package's scan)."""
         r = self.runner
-        r.state.tokens.copy_(target_tokens)
-        r.state.positions.copy_(target_positions)
+        # device tensors, or host arrays where a follower rank replays
+        r.state.tokens.copy_(torch.as_tensor(target_tokens,
+                                             device=r.device))
+        r.state.positions.copy_(torch.as_tensor(target_positions,
+                                                device=r.device))
         toks = r._decode_n_fn(self.gamma + 1)      # [gamma+1, S]
         return toks[:self.gamma].T.contiguous()
 

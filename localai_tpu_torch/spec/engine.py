@@ -356,8 +356,10 @@ def build_spec_engine(target: ModelRunner, *,
         raise ValueError("drafter 'model' needs a draft_model reference")
     from localai_tpu_torch.models.registry import resolve_model
 
+    # on a tensor-parallel target the draft is sharded over its mesh
+    mesh = getattr(target, "mesh", None)
     draft = resolve_model(draft_ref, model_path=model_path, dtype=dtype,
-                          device=target.device)
+                          device=target.device, mesh=mesh)
     if draft.cfg.vocab_size != target.cfg.vocab_size:
         raise ValueError(
             f"draft vocab {draft.cfg.vocab_size} != target vocab "
@@ -374,5 +376,6 @@ def build_spec_engine(target: ModelRunner, *,
         # the draft serves window steps over slot rows only
         paged=False,
         device=target.device,
+        mesh=mesh,
     )
     return SpecEngine(target, ModelDrafter(runner, gamma))

@@ -168,7 +168,10 @@ FLEET_FIELDS = [f.name for f in dataclasses.fields(AppConfig)
     # its CPU platform (item None)
     (["run", "--platform", "cpu"], {}, None),
     (["run"], {"LOCALAI_FLEET_REPLICAS": "2"}, None),
-    (["run"], {"LOCALAI_MESH": "data=1,model=2"}, 19),
+    # ported: the model axis (item None); the other axes stay refused,
+    # naming ROADMAP item 19 part 2
+    (["run"], {"LOCALAI_MESH": "data=1,model=2"}, None),
+    (["run"], {"LOCALAI_MESH": "data=2,model=2"}, 19),
     # refused: a platform the port does not run on, named (item: the
     # text the refusal names)
     (["run", "--platform", "tpu"], {}, "'tpu'"),
@@ -190,7 +193,8 @@ FLEET_FIELDS = [f.name for f in dataclasses.fields(AppConfig)
     (["run", "--fleet-device-pinning"], {}, None),
     (["run", "--autoscale-standby-hosts", "h:1"], {}, None),
 ], ids=["fleet", "batch", "batch-0", "autoscale", "mesh", "platform",
-        "env-fleet", "env-mesh", "platform-tpu", "env-platform-tpu",
+        "env-fleet", "env-mesh", "env-mesh-data", "platform-tpu",
+        "env-platform-tpu",
         "fleet-inprocess", "env-fleet-inprocess", "fleet-worker",
         "fleet-hosts", "env-fleet-hosts", "fleet-pinning",
         "autoscale-standby"])
@@ -221,6 +225,11 @@ def test_unported_run_setting_exits_2(clean_env, capsys, tmp_path, argv, env,
                 assert app.batch_concurrency == int(argv[2])
             elif "--autoscale" in argv:
                 assert app.autoscale is True
+            elif "LOCALAI_MESH" in env:
+                # the mesh's axes reach AppConfig as on the JAX package;
+                # nothing is spawned before a model loads
+                assert app.mesh_shape == seen[0].mesh_shape == {
+                    "data": 1, "model": 2}
             elif ("--fleet-prefill-replicas" in argv
                   or env.get("LOCALAI_FLEET_BACKEND") == "inprocess"):
                 assert app.fleet_replicas == 2
@@ -321,18 +330,26 @@ def test_unported_variable_at_its_default_is_accepted(clean_env, tmp_path,
     server.shutdown()
 
 
-def test_follower_is_refused_naming_item_19(capsys):
-    """The JAX package's ``follower`` (a multi-host SPMD follower) waits
-    for ``parallel/``: exit 2 naming ROADMAP item 19, its flags taken."""
+def test_follower_is_refused_naming_item_19(capsys, tmp_path):
+    """The JAX package's ``follower`` takes its flags; a follower of a
+    model whose ``sharding:`` asks for an axis but ``model`` (data here)
+    exits 2 naming ROADMAP item 19 part 2, before joining any group."""
+    models = tmp_path / "models"
+    models.mkdir()
+    (models / "m.yaml").write_text(json.dumps({
+        "name": "m", "model": "debug:tiny",
+        "sharding": {"tensor_parallel_size": 2, "data_parallel_size": 2}}))
     with pytest.raises(SystemExit) as e:
         cli.main(["follower", "--leader", "h:1", "--model", "m",
-                  "--num-processes", "2", "--process-id", "1"])
+                  "--models-path", str(models), "--coordinator", "h:2",
+                  "--num-processes", "2", "--process-id", "1",
+                  "--device", "cpu"])
     assert e.value.code == 2
     assert "ROADMAP item 19" in capsys.readouterr().err
 
 
 def test_real_entry_point_refuses_with_exit_2(tmp_path):
-    # a setting still refused: meshes (multi-GPU parallelism, item 19)
+    # a setting still refused: the data axis of a mesh (item 19 part 2)
     res = subprocess.run(
         [sys.executable, "-m", cli.__name__, "run",
          "--mesh", "data=2", "--device", "cpu", "--models-path",

@@ -2028,3 +2028,105 @@ def test_cuda_tiered_runner_equals_the_cpu(kv_dtype, monkeypatch):
             assert tops.paged_decode_attention.launches > k1
         out[dev] = (first, a.tier_stats())
     assert out["cuda"] == out["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (model=2) on the card
+
+
+def _tp_models(tmp_path):
+    import json
+
+    models = tmp_path / "models"
+    models.mkdir()
+    (models / "s.yaml").write_text(json.dumps({
+        "name": "s", "model": "debug:small", "seed": 3,
+        "context_size": 512, "engine": {
+            "dtype": "float32", "kv_dtype": "float32", "max_slots": 4,
+            "kv_block_tokens": 16}}))
+    return models
+
+
+def _tp_streams(models, mesh_shape):
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.engine.scheduler import GenRequest
+    from localai_tpu_torch.models.manager import ModelManager
+
+    loader = ConfigLoader(models)
+    loader.load_from_path(context_size=512)
+    mgr = ModelManager(AppConfig(model_path=str(models), device="cuda",
+                                 mesh_shape=mesh_shape), loader)
+    try:
+        sm = mgr.get("s")
+        hs = [sm.scheduler.submit(GenRequest(prompt=list(p),
+                                             max_new_tokens=16,
+                                             temperature=0.0))
+              for p in (b"two ranks", b"one card each", b"abcabcabc")]
+        streams = [h.result(300).token_ids for h in hs]
+        return streams, sm, mgr
+    except BaseException:
+        mgr.shutdown()
+        raise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards,width", [(1, 2), (2, 2), (4, 4)],
+                         ids=["one-card-gloo", "two-cards-nccl",
+                              "four-cards-nccl"])
+def test_cuda_tensor_parallel_group(tmp_path, monkeypatch, cards, width):
+    """``model=width`` through the real follower path: the leader (this
+    process) spawns ``cli.main follower`` ranks; on a host with one card
+    both ranks share it (gloo on CUDA tensors), on a host with as many
+    cards as ranks each has its own (NCCL). K1 on the leader's kv-head
+    shard (debug:small's 8 q / 4 kv heads over the ranks) equals its
+    plain version on the inputs of a served decode step; the greedy
+    streams equal one card's; each follower's stop report has K1 = L x
+    its decode steps and the leader's token digest."""
+    _card()
+    n = torch.cuda.device_count()
+    if (n == 1) != (cards == 1) or n < cards:
+        pytest.skip(f"for a host with {cards} card(s); this one has {n}")
+    from localai_tpu_torch.parallel import multihost as mh
+
+    models = _tp_models(tmp_path)
+    # model=1: one card, where more than one would auto-mesh the model
+    one, _sm, mgr = _tp_streams(models, {"model": 1})
+    mgr.shutdown()
+    before = len(mh.REPORTS)
+    streams, sm, mgr = _tp_streams(models, {"model": width})
+    try:
+        runner = sm.runner
+        assert runner.mesh.backend == ("gloo" if cards == 1 else "nccl")
+        assert runner.local_cfg.num_heads == 8 // width
+        seen = []
+        real = tops.paged_decode_attention
+
+        def spy(*args, **kw):
+            if not seen:
+                seen.append((args, kw))
+            return real(*args, **kw)
+
+        monkeypatch.setattr(tops, "paged_decode_attention", spy)
+        slot = runner.acquire_slot()
+        runner.admit(slot, list(b"a shard of heads"), temperature=0.0)
+        runner.step()
+        monkeypatch.setattr(tops, "paged_decode_attention", real)
+        (q, k, v, tables, pos, *scales), kw = seen[0]
+        assert q.shape[1] == 8 // width                # [N, Hkv, bt, hd]
+        assert k.shape[1] == 4 // width
+        got = real(q, k, v, tables, pos, *scales, **kw)
+        want = tops.paged_decode_attention_ref(q.float(), k.float(),
+                                               v.float(), tables, pos,
+                                               *scales, **kw)
+        _slot_check(got, want, torch.float32)
+        digest, steps = runner.digest.hexdigest(), runner.decode_steps
+    finally:
+        mgr.shutdown()
+    assert streams == one
+    rep = mh.REPORTS[before:]
+    assert len(rep) == width - 1
+    for r in rep:
+        assert r["models"]["s"]["digest"] == digest
+        assert r["models"]["s"]["decode_steps"] == steps
+        assert r["launches"]["paged_decode_attention"] == 4 * steps

@@ -754,3 +754,29 @@ def test_worker_serves_without_the_packages_the_card_lacks():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out == {"load": [True, True], "final": [4, "length"],
                    "transfer": True, "imported": []}
+
+
+def test_parallel_modules_are_covered():
+    """The tensor-parallel package (mesh, sharding, overlap, multihost) is
+    among the modules and sources the rules above check: no ``jax`` and
+    no JAX package anywhere in it, nothing beyond the stdlib, numpy and
+    torch (``torch.distributed`` is torch) at module level."""
+    mods = set(_port_modules())
+    new = ("parallel", "parallel.mesh", "parallel.sharding",
+           "parallel.overlap", "parallel.multihost")
+    for m in new:
+        assert f"{PKG}.{m}" in mods, m
+    rel = {str(p.relative_to(PKG_DIR)) for p in SOURCES
+           if PKG_DIR in p.parents}
+    assert {f"{m.replace('.', '/')}.py" for m in new[1:]} <= rel
+    for path in sorted((PKG_DIR / "parallel").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                top = n.split(".")[0]
+                assert top not in ("jax", "jaxlib", "localai_tpu"), \
+                    (path.name, n)
