@@ -10887,6 +10887,474 @@ def phase_tensor_parallel(card: str) -> dict:
     return out
 
 
+# -- sequence and pipeline parallelism (ROADMAP item 19 part 2) ---------------
+
+SP_MODEL = "llama3-8b-bf16-sp2"
+PP_MODEL = "llama3-8b-bf16-pp2"
+SP_PROMPT_BYTES = 2000             # the long chat: one byte a token
+SP_NEW = 16                        # max_tokens of each chat
+SP_SEED = 29
+PP_STAGE_GB = 9.08                 # a stage: half the layers, embed + head
+
+
+def _seq_pipe_small(root: Path, kernels: dict) -> dict:
+    """float32 debug:small at ``seq=2`` (paged; a threshold of 16 under
+    every prompt: each admission takes the ring prefill into the pool) and
+    at ``pipe=2`` (contiguous, two layers a stage), both ranks on the card
+    (over gloo; NCCL where two cards are visible): greedy streams equal
+    one card's on the same layout, byte for byte."""
+    from localai_tpu_torch.config.app_config import AppConfig
+    from localai_tpu_torch.config.loader import ConfigLoader
+    from localai_tpu_torch.engine.scheduler import GenRequest
+    from localai_tpu_torch.models.manager import ModelManager
+
+    models = root / "sp-small-models"
+    models.mkdir()
+    for name, paged in (("s", True), ("c", False)):
+        (models / f"{name}.yaml").write_text(json.dumps({
+            "name": name, "model": "debug:small", "seed": 5,
+            "context_size": 512, "engine": {
+                "dtype": "float32", "kv_dtype": "float32", "max_slots": 4,
+                "kv_block_tokens": 16, "sp_prefill_threshold": 16,
+                "kv_paged": paged}}))
+    prompts = [list(b"a ring over two ranks of one card"),
+               list(b"abcabcabcabcabcabcabc"),
+               list(b"the second stage hands the hidden on")]
+    out = {}
+    for name, shape in (("s", {"model": 1}), ("s", {"seq": 2}),
+                        ("c", {"model": 1}), ("c", {"pipe": 2})):
+        loader = ConfigLoader(models)
+        loader.load_from_path(context_size=512)
+        mgr = ModelManager(AppConfig(model_path=str(models), device="cuda",
+                                     mesh_shape=shape), loader)
+        try:
+            for w in kernels.values():
+                w.launches = 0
+            sm = mgr.get(name)
+            hs = [sm.scheduler.submit(GenRequest(
+                prompt=p, max_new_tokens=24, temperature=0.0))
+                for p in prompts]
+            key = name + ":" + ",".join(f"{k}={v}" for k, v in shape.items())
+            out[key] = {"streams": [h.result(300).token_ids for h in hs],
+                        "path": sm.runner.last_prefill_path,
+                        "sp_prefills": sm.runner.sp_prefills,
+                        "paged": sm.runner.paged,
+                        "backend": getattr(sm.runner.mesh, "backend", ""),
+                        "launches": {k: w.launches
+                                     for k, w in kernels.items()}}
+        finally:
+            mgr.shutdown()
+    rec = {k: {kk: vv for kk, vv in v.items() if kk != "streams"}
+           for k, v in out.items()}
+    rec["seq_equal"] = out["s:seq=2"]["streams"] == out["s:model=1"][
+        "streams"]
+    rec["pipe_equal"] = out["c:pipe=2"]["streams"] == out["c:model=1"][
+        "streams"]
+    print("seq_pipe small parity: " + json.dumps(rec), flush=True)
+    if (not rec["seq_equal"] or not rec["pipe_equal"]
+            or out["s:seq=2"]["path"] != "paged_sp"
+            or out["s:seq=2"]["sp_prefills"] != len(prompts)
+            or out["c:pipe=2"]["paged"]):
+        raise AssertionError(f"seq/pipe small parity: {rec}; streams "
+                             f"{ {k: v['streams'] for k, v in out.items()} }")
+    return rec
+
+
+def _serve_8b(mesh: str, kernels: dict) -> tuple:
+    """``build_server(["run", "--mesh", mesh])`` over the models dir of
+    the environment; (server, serving model, load s) once the follower
+    joined."""
+    from localai_tpu_torch.cli.main import build_server
+
+    for w in kernels.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    server = build_server(["run", "--mesh", mesh]).start()
+    name = SP_MODEL if mesh.startswith("seq") else PP_MODEL
+    sm = server.manager.get(name)
+    torch.cuda.synchronize()
+    return server, sm, time.monotonic() - t0
+
+
+def _follower(before: int, what: str) -> dict:
+    reports = _tp_reports(before)
+    if len(reports) != 1 or reports[0]["errors"]:
+        raise AssertionError(f"{what}: follower reports {reports}")
+    return reports[0]
+
+
+def _timed_steps(runner, n: int = 16) -> float:
+    """ms a decode step over ``n`` steps after two warm ones."""
+    runner.step_n(2)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    runner.step_n(n)
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3 / n
+
+
+def _sp2(root: Path, kernels: dict, L: int, used0: float) -> dict:
+    """(b) ``llama3-8b-bf16-sp2``: the long streamed chat takes the ring
+    prefill on both ranks (K3 none in it), then two short chats; K1 = L x
+    decode steps on each rank, digests equal; the ring prefill's wall on
+    CUDA events; the ring's logits of the long prompt for (d)."""
+    from localai_tpu_torch.engine.scheduler import GenRequest
+
+    out = {}
+    server = None
+    before = len(_tp_reports(0))
+    try:
+        server, sm, out["load_s"] = _serve_8b("seq=2", kernels)
+        runner = sm.runner
+        inner = runner._runner
+        if (type(runner).__name__ != "MirroredRunner"
+                or runner.mesh.shape["seq"] != 2 or not runner.sp_enabled
+                or not runner.paged or runner.sp_threshold != 1024):
+            raise AssertionError(f"sp2: engine {type(runner).__name__}, "
+                                 f"mesh {runner.mesh}")
+        out["weights_gb"] = _tree_bytes(inner.params) / 1e9
+        out["backend"] = runner.mesh.backend
+        ring = {"ms": [], "k3": [], "hops": [], "hop_ms": [],
+                "gather_ms": []}
+        real = inner._prefill_paged_sp_prog
+        hops, gathers = (inner.transfers[k]
+                         for k in ("ring_hop", "kv_gather"))
+
+        def timed(*a, **k):
+            k3 = kernels["prefill_attention"].launches
+            h0, hs0, gs0 = hops.calls, hops.seconds, gathers.seconds
+            ms, tok = _events_ms(lambda: real(*a, **k))
+            ring["ms"].append(ms)
+            ring["k3"].append(kernels["prefill_attention"].launches - k3)
+            # the split of the wall: the ring's hops (one K/V exchange a
+            # layer) and the K/V all-gather, on CUDA events; the rest is
+            # the chunk's compute and the cache write
+            ring["hops"].append(hops.calls - h0)
+            ring["hop_ms"].append((hops.seconds - hs0) * 1e3)
+            ring["gather_ms"].append((gathers.seconds - gs0) * 1e3)
+            return tok
+
+        inner._prefill_paged_sp_prog = timed
+        url = server.url + "/v1/chat/completions"
+        body = {"model": SP_MODEL, "max_tokens": SP_NEW, "temperature": 0,
+                "logit_bias": ASCII_ONLY}
+        long = _sse_chat(url, {**body, "messages": [
+            {"role": "user", "content": _prose(SP_SEED, SP_PROMPT_BYTES)}]})
+        shorts = [_sse_chat(url, {**body, "messages": [
+            {"role": "user", "content": q}]})
+            for q in ("Name two colours.", "Count to three.")]
+        ids = sm.tokenizer.encode(_prose(SP_SEED + 1, SP_PROMPT_BYTES),
+                                  add_bos=True)
+        out["logits"] = runner.prompt_logits(ids)
+        out["greedy"] = sm.scheduler.generate(GenRequest(
+            prompt=ids, max_new_tokens=SP_NEW, temperature=0.0),
+            timeout=300).token_ids
+        out["ids"] = ids
+        out["step_ms"] = _timed_steps(runner)
+        inner._prefill_paged_sp_prog = real
+        if (not (1024 <= long["prompt_tokens"] <= 2048)
+                or long["completion_tokens"] != SP_NEW
+                or any(not c["text"] for c in [long] + shorts)
+                or ring["k3"] != [0, 0] or runner.sp_prefills != 2
+                or ring["hops"] != [L, L]
+                or not np.isfinite(out["logits"]).all()):
+            raise AssertionError(f"sp2 serve: long {long}, ring {ring}, "
+                                 f"{runner.sp_prefills} ring prefills")
+        steps, digest = runner.decode_steps, runner.digest.hexdigest()
+        lead = {k: w.launches for k, w in kernels.items()}
+        if lead["paged_decode_attention"] != L * steps or any(
+                v for k, v in lead.items() if k != "paged_decode_attention"):
+            raise AssertionError(f"sp2 leader launches {lead}, {steps} "
+                                 "steps")
+        out.update(ring_prefill_ms=ring["ms"], ring_k3=ring["k3"],
+                   ring_hops=ring["hops"], ring_hop_ms=ring["hop_ms"],
+                   ring_kv_gather_ms=ring["gather_ms"],
+                   long={k: long[k] for k in ("ttft_s", "wall_s",
+                                              "prompt_tokens",
+                                              "completion_tokens")},
+                   short_ttft_s=[c["ttft_s"] for c in shorts],
+                   card_used_gb=_card_used_gb() - used0)
+        server.shutdown()
+        # nothing of the engine may outlive it: the card check follows
+        server = sm = runner = inner = None
+        rep = _follower(before, "sp2")
+        rm, fl = rep["models"][SP_MODEL], rep["launches"]
+        if (rm["digest"] != digest or rm["decode_steps"] != steps
+                or rm["sp_prefills"] != 2
+                # the ring of both admissions and of prompt_logits
+                or rm["transfers"]["ring_hop"]["calls"] != L * (
+                    2 + rm["calls"].get("prompt_logits", 0))
+                or fl["paged_decode_attention"] != L * steps
+                or any(v for k, v in fl.items()
+                       if k != "paged_decode_attention")):
+            raise AssertionError(f"sp2 follower {rep}; leader {digest}, "
+                                 f"{steps} steps")
+        out.update(decode_steps=steps, digest=digest, leader_launches=lead,
+                   follower_launches=fl, follower_weights_gb=rm[
+                       "weight_bytes"] / 1e9,
+                   follower_transfers=rm["transfers"])
+    finally:
+        if server is not None:
+            server.shutdown()
+        gc.collect()
+    out["card_used_after_gb"] = _wait_card_back(used0, 0.5,
+                                                "sp2 shutdown")
+    return out
+
+
+def _pp2(kernels: dict, L: int, used0: float) -> dict:
+    """(c) ``llama3-8b-bf16-pp2``: each stage holds its 16 layers (9.08 GB
+    with embed and lm_head), three streamed chats and a prefill's logits;
+    K2 = 16 x decode steps and K3 = 16 x (fresh prefills + logits
+    prefills) on each stage, digests equal; the step wall and the
+    hand-offs' ms a step (CUDA events)."""
+    from localai_tpu_torch.models.llama import param_shapes
+    from localai_tpu_torch.models.registry import DEBUG_PRESETS
+
+    cfg = DEBUG_PRESETS["llama3-8b"]
+    shapes = param_shapes(cfg)
+    stage = 2 * (sum(math.prod(s) for s in _shapes(shapes["layers"])) // 2
+                 + sum(math.prod(s) for k, s in shapes.items()
+                       if k != "layers"))
+    out = {"stage_bytes": stage}
+    server = None
+    before = len(_tp_reports(0))
+    try:
+        server, sm, out["load_s"] = _serve_8b("pipe=2", kernels)
+        runner = sm.runner
+        inner = runner._runner
+        if (not runner.pp_enabled or runner.paged
+                or runner.local_cfg.num_layers != L // 2
+                or runner.attn_impl != "xla"):
+            raise AssertionError(f"pp2: engine {runner.mesh}, paged "
+                                 f"{runner.paged}")
+        lead_w = _tree_bytes(inner.params)
+        out.update(weights_gb=lead_w / 1e9, backend=runner.mesh.backend,
+                   card_used_gb=_card_used_gb() - used0)
+        if lead_w != stage or abs(lead_w / 1e9 - PP_STAGE_GB) \
+                > 0.02 * PP_STAGE_GB:
+            raise AssertionError(f"pp2: the leader holds {lead_w} B, a "
+                                 f"stage {stage} B")
+        url = server.url + "/v1/chat/completions"
+        chats = [{"model": PP_MODEL, "max_tokens": SP_NEW, "temperature": 0,
+                  "logit_bias": ASCII_ONLY,
+                  "messages": [{"role": "user", "content": q}]}
+                 for q in ("Say hello from two stages.",
+                           "Name three colours.", "Count to five.")]
+        with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            got = list(ex.map(lambda b: _sse_chat(url, b), chats))
+        ids = sm.tokenizer.encode("Pipeline parallelism splits the layers "
+                                  "over the stages.", add_bos=True)
+        out["logits"] = runner.prompt_logits(ids)
+        out["ids"] = ids
+        # the leader is stage 0: "sent" its hand-off to stage 1 (the
+        # transfer; stage 1 waits in its receive), "waited" the final
+        # hidden's broadcast (stage 1's 16 layers inside)
+        hand = {k: runner.transfers[f"handoff_{k}"]
+                for k in ("sent", "waited")}
+        hand0 = {k: (t.calls, t.seconds) for k, t in hand.items()}
+        steps0 = runner.decode_steps
+        out["step_ms"] = _timed_steps(runner)
+        n = runner.decode_steps - steps0
+        for k, t in hand.items():
+            out[f"handoff_{k}_ms_per_step"] = (
+                t.seconds - hand0[k][1]) * 1e3 / n
+            out[f"handoffs_{k}_per_step"] = (t.calls - hand0[k][0]) / n
+        if any(not c["text"] or c["completion_tokens"] != SP_NEW
+               for c in got) or not np.isfinite(out["logits"]).all():
+            raise AssertionError(f"pp2 serve: {got}")
+        steps, digest = runner.decode_steps, runner.digest.hexdigest()
+        fresh = runner.fresh_prefills
+        lead = {k: w.launches for k, w in kernels.items()}
+        want = {"decode_attention": (L // 2) * steps,
+                "prefill_attention": (L // 2) * (fresh + 1)}
+        if {k: lead[k] for k in want} != want or any(
+                v for k, v in lead.items() if k not in want):
+            raise AssertionError(f"pp2 leader launches {lead}, expected "
+                                 f"{want}")
+        out["chats"] = [{k: c[k] for k in ("ttft_s", "wall_s",
+                                           "completion_tokens")}
+                        for c in got]
+        server.shutdown()
+        server = sm = runner = inner = None
+        rep = _follower(before, "pp2")
+        rm, fl = rep["models"][PP_MODEL], rep["launches"]
+        if (rm["digest"] != digest or rm["decode_steps"] != steps
+                or rm["weight_bytes"] != stage
+                or fl["decode_attention"] != (L // 2) * steps
+                or fl["prefill_attention"] != (L // 2) * (
+                    rm["fresh_prefills"]
+                    + rm["calls"].get("prompt_logits", 0))
+                or any(v for k, v in fl.items() if k not in want)):
+            raise AssertionError(f"pp2 follower {rep}; leader {digest}, "
+                                 f"{steps} steps")
+        # the follower is stage 1: "sent" is its broadcast of the final
+        # hidden (the transfer; stage 0 waits in it), "waited" its receive
+        # of stage 0's hidden, over the whole run
+        out.update(decode_steps=steps, digest=digest, fresh_prefills=fresh,
+                   leader_launches=lead, follower_launches=fl,
+                   follower_weights_gb=rm["weight_bytes"] / 1e9,
+                   follower_transfers=rm["transfers"])
+    finally:
+        if server is not None:
+            server.shutdown()
+        gc.collect()
+    out["card_used_after_gb"] = _wait_card_back(used0, 0.5,
+                                                "pp2 shutdown")
+    return out
+
+
+def _one_card_reference(sp: dict, pp: dict) -> dict:
+    """(d) one card, the same seed: the ring prefill's logits and the
+    stage chain's within ``TP_LOGITS_TOL`` of the largest; the ring
+    prefill's wall beside one card's (chunked paged) prefill of the same
+    prompt; one card's step; greedy agreement with the seq=2 engine's
+    reported."""
+    from localai_tpu_torch.engine.runner import ModelRunner
+    from localai_tpu_torch.engine.scheduler import GenRequest, Scheduler
+    from localai_tpu_torch.models.registry import resolve_model
+
+    one = resolve_model("debug:llama3-8b", dtype="bfloat16", seed=SP_SEED,
+                        device="cuda")
+    r1 = ModelRunner(one.cfg, one.params, num_slots=4, max_ctx=4096,
+                     kv_dtype="bfloat16", kv_block_tokens=64, device="cuda")
+    out = {}
+    try:
+        for key, rec in (("sp", sp), ("pp", pp)):
+            ref = r1.prompt_logits(rec.pop("ids"))
+            got = rec.pop("logits")
+            err, scale = float(np.abs(got - ref).max()), float(
+                np.abs(ref).max())
+            out[key] = {"logits_max_abs_err": err, "logits_max_abs": scale,
+                        "logits_tol": TP_LOGITS_TOL * scale,
+                        "argmax_agree": float(np.mean(
+                            got.argmax(-1) == ref.argmax(-1)))}
+            if err > TP_LOGITS_TOL * scale:
+                raise AssertionError(f"{key}2 logits against one card: "
+                                     f"{err} > {TP_LOGITS_TOL} x {scale}")
+            del ref, got
+        ids = one.tokenizer.encode(_prose(SP_SEED + 1, SP_PROMPT_BYTES),
+                                   add_bos=True)
+        slot = r1.acquire_slot()
+        out["one_card_prefill_ms"], _ = _events_ms(
+            lambda: r1.admit(slot, ids, temperature=0.0))
+        r1.release(slot)
+        out["one_card_step_ms"] = _timed_steps(r1)
+        sched = Scheduler(r1, one.tokenizer)
+        try:
+            greedy = sched.generate(GenRequest(
+                prompt=ids, max_new_tokens=SP_NEW, temperature=0.0),
+                timeout=300).token_ids
+        finally:
+            sched.shutdown()
+        agree = 0
+        for a, b in zip(sp.pop("greedy"), greedy):
+            if a != b:
+                break
+            agree += 1
+        out["sp_greedy_prefix_agree"] = agree
+    finally:
+        del one, r1
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_seq_pipe(card: str) -> dict:
+    """Sequence and pipeline parallelism on the card (ROADMAP item 19 part
+    2, steps 2 and 3), both ranks on the one card over gloo (NCCL, a card
+    a rank, where two are visible):
+      (a) float32 debug:small at ``seq=2`` (every prompt past a threshold
+          of 16: the ring prefill into the paged pool) and ``pipe=2``
+          give one card's greedy streams byte for byte;
+      (b) ``llama3-8b-bf16-sp2`` (Llama-3-8B's full width and depth,
+          seeded bf16 weights, paged bf16 at bt 64, 4 slots) through
+          ``build_server(["run", "--mesh", "seq=2"])``: one streamed chat
+          of a ~2000-token prompt (past the default threshold of 1024),
+          then two short ones; the ring prefill (``paged_sp``) on both
+          ranks with no K3 launch in it, its wall split into the ring's
+          hops (32 a prefill, K and V in one exchange) and the K/V
+          all-gather; K1 = 32 x decode steps on each rank, the
+          follower's from its stop report; digests equal;
+      (c) ``llama3-8b-bf16-pp2`` through ``--mesh pipe=2`` (contiguous):
+          9.08 GB of weights a stage (both; the follower's from its
+          report); K2 = 16 x decode steps and K3 = 16 x prefills on each
+          stage; digests equal; the step wall and each stage's
+          hand-off spans, "sent" (its own sends: the transfer) apart
+          from "waited" (its receives: the other stage's compute
+          inside);
+      (d) one card, the same seed: both engines' prefill logits within
+          ``TP_LOGITS_TOL`` of the largest; the ring prefill's wall
+          beside one card's prefill of the same prompt;
+      (e) the card's memory back after each group's shutdown;
+    plus K1, K2 and K3 at the served shapes for the kernels line."""
+    import logging
+
+    L = 32
+    t_phase = time.monotonic()
+    tail_log = logging.getLogger("localai_tpu_torch.parallel.multihost")
+    tail_handler = logging.StreamHandler(sys.stdout)
+    tail_handler.setFormatter(logging.Formatter("%(relativeCreated).0fms "
+                                                "%(message)s"))
+    tail_log.addHandler(tail_handler)
+    tail_log.setLevel(logging.INFO)
+    repo = str(Path(__file__).resolve().parent)
+    root = Path(_scratch_dir("seq-pipe-", 1_000_000_000))
+    models = root / "models"
+    models.mkdir()
+    for name in (SP_MODEL, PP_MODEL):
+        (models / f"{name}.yaml").write_text(json.dumps({
+            "name": name, "model": "debug:llama3-8b", "seed": SP_SEED,
+            "context_size": 4096 if name == SP_MODEL else 2048,
+            "engine": {"dtype": "bfloat16", "kv_dtype": "bfloat16",
+                       "max_slots": 4, "kv_block_tokens": 64}}))
+    env = {"LOCALAI_MODELS_PATH": models, "LOCALAI_ADDRESS": "127.0.0.1",
+           "LOCALAI_PORT": "0", "LOCALAI_CONFIG_PATH": root / "conf",
+           "LOCALAI_UPLOAD_PATH": root / "uploads",
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "PYTHONPYCACHEPREFIX": root / "pycache",
+           "PYTHONDONTWRITEBYTECODE": None}
+    saved = _env(env)
+    kernels = _all_kernels()
+    out = {"card": card, "layers": L}
+    try:
+        t0 = time.monotonic()
+        out["small"] = _seq_pipe_small(root, kernels)
+        out["small"]["s"] = time.monotonic() - t0
+        used0 = _settle_card()
+        sp = _sp2(root, kernels, L, used0)
+        pp = _pp2(kernels, L, used0)
+        out["reference"] = _one_card_reference(sp, pp)
+        out["sp2"], out["pp2"] = sp, pp
+        out["k1"] = kernel_case("k1-sp2-bf16", torch.bfloat16, S=4, MB=64,
+                                positions=(2047, 1300, 700, 100),
+                                timed=True)
+        out["k2"] = decode_case("k2-pp2-bf16", torch.bfloat16, S=4, C=2048,
+                                positions=(2047, 1300, 700, 100),
+                                timed=True)
+        out["k3"] = prefill_case("k3-pp2-bf16-T128", torch.bfloat16, 128)
+    finally:
+        _env(saved)
+        tail_log.removeHandler(tail_handler)
+        tail_log.setLevel(logging.NOTSET)
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {
+        "paged_decode_attention":
+            sp["leader_launches"]["paged_decode_attention"]
+            + sp["follower_launches"]["paged_decode_attention"],
+        "decode_attention": pp["leader_launches"]["decode_attention"]
+        + pp["follower_launches"]["decode_attention"],
+        "prefill_attention": pp["leader_launches"]["prefill_attention"]
+        + pp["follower_launches"]["prefill_attention"]}
+    out["phase_s"] = time.monotonic() - t_phase
+    print("seq_pipe: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("k1", "k2", "k3")}),
+        flush=True)
+    return out
+
+
 def _prompt_cache(metrics: dict, key: str) -> int:
     """A worker's prefix-cache counter (0 before its first transfer
     attached the cache)."""
@@ -11234,6 +11702,7 @@ def main() -> int:
     http = phase_http_surfaces(card)
     workers = phase_worker_tier(card)
     tp = phase_tensor_parallel(card)
+    seq_pipe = phase_seq_pipe(card)
     t_qwen = time.monotonic()
     served["qwen"] = phase_serve_qwen(card)["launches"]
     print(f"group-7 serve: {time.monotonic() - t_qwen:.1f}s", flush=True)
@@ -11418,6 +11887,21 @@ def main() -> int:
         _entry("prefill_attention_tp", src + "prefill_attention.cu",
                "localai_tpu/ops/attention.py:337",
                tp["launches"]["prefill_attention"], tp["k3"]),
+        # sequence parallelism at seq=2 (Llama-3-8B, both ranks on the
+        # card): K1 over the decode steps of both ranks (the ring prefill
+        # itself launches no kernel); times at the served pool (4 slots,
+        # MB 64)
+        _entry("paged_decode_attention_sp", k1_src, k1_tpu,
+               seq_pipe["launches"]["paged_decode_attention"],
+               seq_pipe["k1"]),
+        # pipeline parallelism at pipe=2: K2 on each stage's 16 layers a
+        # decode step, K3 on each stage's 16 layers a fresh prefill or
+        # logits prefill, both stages; times at the served shapes
+        _entry("decode_attention_pp", k2_src, k2_tpu,
+               seq_pipe["launches"]["decode_attention"], seq_pipe["k2"]),
+        _entry("prefill_attention_pp", src + "prefill_attention.cu",
+               "localai_tpu/ops/attention.py:337",
+               seq_pipe["launches"]["prefill_attention"], seq_pipe["k3"]),
     ]
     print(f"smoke wall: {time.monotonic() - t_smoke:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -24,9 +24,11 @@ Port of ``localai_tpu/cli/main.py`` for what the port has:
                              (``--fleet-hosts``, ``external_backends``,
                              ``POST /federated/register``)
   follower --leader H:P --model M --coordinator H:P --num-processes N
-           --process-id R        a tensor-parallel follower rank
+           --process-id R        a follower rank of a mesh, the
+                             leader's plan in ``LOCALAI_MESH``
                              (``parallel.multihost``; ``run --mesh
-                             model=N`` spawns its own on one host)
+                             model=N``, ``seq=N``, ``seq=N,model=M`` or
+                             ``pipe=N`` spawns its own on one host)
   version
 
 ``run`` takes the JAX package's flags with their defaults, each also read
@@ -56,8 +58,11 @@ them from the environment alone; ``p2p`` has no flag on either and is read
 from ``LOCALAI_P2P`` only); with ``federated``
 and a router, ``build_server`` announces the instance to it. ``--mesh``
 (``LOCALAI_MESH``) reaches ``AppConfig.mesh_shape``: ``model=N`` serves
-each LLM tensor-parallel over N ranks (``parallel/``); an axis but
-``model`` stops ``run`` with exit code 2 naming ROADMAP item 19 part 2.
+each LLM tensor-parallel over N ranks, ``seq=N`` prefills long prompts
+by ring attention over N ranks (with ``model=M``: N x M ranks), ``pipe=N``
+splits the layers over N stages (``parallel/``); ``data`` or ``expert``
+stops ``run`` with exit code 2 naming ROADMAP item 19 part 2, and
+``pipe`` with another axis with the JAX package's error.
 With ``LOCALAI_COORDINATOR_ADDRESS`` and ``LOCALAI_NUM_PROCESSES`` > 1
 the server joins a multi-host group as its leader and opens the command
 channel (``LOCALAI_MIRROR_PORT``) before any model loads.
@@ -247,12 +252,12 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--swarm-routers", default=None,
                      help="comma-separated routers the swarm page may "
                           "query besides --federated-router")
-    # meshes (parallel/): the model axis is served; data, seq, pipe and
-    # expert are refused by name (ROADMAP item 19 part 2)
+    # meshes (parallel/): the model, seq and pipe axes are served; data
+    # and expert are refused by name (ROADMAP item 19 part 2)
     run.add_argument("--mesh", default=_env_default("mesh", None),
-                     help="mesh axes, e.g. model=2 (or model:2); the "
-                          "model axis spawns its follower ranks on this "
-                          "host's cards")
+                     help="mesh axes, e.g. model=2, seq=2, seq=2,model=2 "
+                          "or pipe=2 (or model:2); a meshed model spawns "
+                          "its follower ranks on this host's cards")
 
     models = sub.add_parser("models", help="model management")
     models_sub = models.add_subparsers(dest="models_command")
@@ -553,14 +558,16 @@ def app_config(args) -> AppConfig:
 
 
 def _mesh_shape(spec: Optional[str]) -> Optional[dict]:
-    """``--mesh`` (or ``LOCALAI_MESH``) as axis sizes; an axis but
-    ``model`` above 1 is refused (ValueError naming ROADMAP item 19
-    part 2)."""
+    """``--mesh`` (or ``LOCALAI_MESH``) as axis sizes; ``data`` or
+    ``expert`` above 1 is refused (ValueError naming ROADMAP item 19
+    part 2), and ``pipe`` with another axis (the JAX runner's gate)."""
     from localai_tpu_torch.parallel import mesh as pmesh
 
     shape = pmesh.parse_mesh_spec(spec) if spec else None
     if shape:
-        pmesh.refuse_part2(pmesh.MeshPlan(**shape), f"--mesh {spec}")
+        plan = pmesh.MeshPlan(**shape)
+        pmesh.refuse_part2(plan, f"--mesh {spec}")
+        pmesh.check_pipe(plan)
     return shape
 
 
@@ -644,15 +651,16 @@ def _run_follower(args, parser) -> int:
     try:
         mcfg = config(args.model)
         if not app.mesh_shape and not mcfg.sharding_set():
-            # the leader's --mesh: the group's width
+            # the leader's plan arrives in LOCALAI_MESH (a spawned
+            # group's, or set by hand), else sharding:, else the width
             app.mesh_shape = {"model": args.num_processes}
         plan = mgr.mesh_plan(mcfg, app, resolve_config(
             mcfg.model or mcfg.name, app.model_path))
-        if plan is None or plan.model != args.num_processes:
+        if plan is None or plan.size() != args.num_processes:
             raise ValueError(
                 f"model {args.model}: a follower of a {args.num_processes}-"
-                f"rank group serves model={args.num_processes}, the config "
-                f"asks for {plan.model if plan else 1}")
+                f"rank group serves a mesh of {args.num_processes} ranks, "
+                f"the config asks for {plan.size() if plan else 1}")
     except ValueError as e:
         parser.error(str(e))
     if not args.coordinator:

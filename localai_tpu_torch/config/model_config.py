@@ -33,8 +33,10 @@ VITS voices (``backend: vits``, with a ``tts:`` section,
 ``image.pipeline.resolve_image_model``). A ``sharding:`` section
 (:class:`ShardingConfig`, the JAX package's fields; an unknown key raises)
 and the top-level ``tensor_parallel_size`` alias are read as the JAX
-package reads them; ``models.manager`` serves the ``model`` axis they ask
-for and refuses the others by name.
+package reads them; ``models.manager`` serves the ``model``, ``seq`` and
+``pipe`` axes they ask for (``engine.sp_prefill_threshold``: the prompt
+length from which a ``seq`` mesh prefills by ring attention) and refuses
+the others by name.
 """
 
 from __future__ import annotations
@@ -217,16 +219,20 @@ class EngineConfig:
     # paged pool size in blocks (None = the contiguous footprint, or
     # LOCALAI_KV_BLOCKS); a smaller pool overcommits and holds admissions
     kv_num_blocks: Optional[int] = None
+    # prompts at or above this many tokens take the ring-attention
+    # prefill when the mesh has a 'seq' axis
+    sp_prefill_threshold: int = 1024
 
 
 @dataclasses.dataclass
 class ShardingConfig:
     """How to lay the model over a mesh: the JAX package's five fields and
     defaults (its ``ShardingConfig``, ``extra="forbid"``: an unknown key
-    raises at load, naming it). Only ``tensor_parallel_size`` (the
-    ``model`` axis) is served; the others are refused when set above 1
-    (``data_parallel_size`` 0 or 1: the served default), naming ROADMAP
-    item 19 part 2 (``models.manager``)."""
+    raises at load, naming it). ``tensor_parallel_size`` (``model``),
+    ``sequence_parallel_size`` (``seq``) and ``pipeline_parallel_size``
+    (``pipe``, alone) are served; ``data_parallel_size`` above 1 and
+    ``expert_parallel_size`` above 1 are refused, naming ROADMAP item 19
+    part 2 (``models.manager``)."""
 
     tensor_parallel_size: int = 1     # 'model' mesh axis
     data_parallel_size: int = 0       # 0 = auto: fill remaining devices

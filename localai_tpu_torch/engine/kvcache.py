@@ -183,43 +183,56 @@ def paged_decode_write(tables: torch.Tensor, positions: torch.Tensor):
     return write
 
 
+def paged_scatter(layer_kv, table_row: torch.Tensor, offset: int,
+                  length: int, k_new: torch.Tensor,
+                  v_new: torch.Tensor) -> None:
+    """Write a chunk k_new/v_new [1, T, H, hd] of one layer through a
+    block table row: token t lands at pool[table_row[(offset+t)//bt], :,
+    (offset+t)%bt]; padding rows (t >= length) go to the trash block."""
+    bt = layer_kv[0].shape[2]
+    MB = table_row.shape[0]
+    T = k_new.shape[1]
+    t = torch.arange(T, device=table_row.device)
+    pos = offset + t
+    blk = torch.where(t < length,
+                      table_row[(pos // bt).clamp(max=MB - 1)],
+                      torch.zeros_like(table_row[:1]))
+    off = pos % bt
+    if len(layer_kv) == 4:  # scaled int8/int4 pool
+        k_layer, v_layer, ks_layer, vs_layer = layer_kv
+        quantize, _int4 = _pool_quant(layer_kv, k_new)
+        kq, ks = quantize(k_new[0])        # [T, H, hd or hd/2], [T, H]
+        vq, vs = quantize(v_new[0])
+        k_layer[blk, :, off] = kq
+        v_layer[blk, :, off] = vq
+        ks_layer[blk, :, off] = ks
+        vs_layer[blk, :, off] = vs
+        return
+    k_layer, v_layer = layer_kv
+    k_layer[blk, :, off] = k_new[0].to(k_layer.dtype)
+    v_layer[blk, :, off] = v_new[0].to(v_layer.dtype)
+
+
 def paged_prefill_write(table_row: torch.Tensor, offset: int, length: int):
     """KV write policy for one chunked-prefill dispatch into a block table.
 
     table_row: [MB], offset: absolute start position of this chunk,
-    length: real (unpadded) tokens in the chunk. Token t lands at
-    pool[table_row[(offset+t)//bt], :, (offset+t)%bt]; padding rows
-    (t >= length) are redirected to the trash block. Exposes the gathered
-    full logical context [1, H, MB*bt, hd] so chunk tokens attend over the
-    kept prefix + earlier chunks (resume-style)."""
+    length: real (unpadded) tokens in the chunk; the rows go where
+    :func:`paged_scatter` puts them. Exposes the gathered full logical
+    context [1, H, MB*bt, hd] so chunk tokens attend over the kept prefix
+    + earlier chunks (resume-style)."""
 
     def write(layer_kv, k_new, v_new):  # k_new [1, T, H, hd]
-        bt = layer_kv[0].shape[2]
-        MB = table_row.shape[0]
-        T = k_new.shape[1]
-        t = torch.arange(T, device=table_row.device)
-        pos = offset + t
-        blk = torch.where(t < length,
-                          table_row[(pos // bt).clamp(max=MB - 1)],
-                          torch.zeros_like(table_row[:1]))
-        off = pos % bt
+        paged_scatter(layer_kv, table_row, offset, length, k_new, v_new)
         row = table_row[None]                     # [1, MB]
         dt = k_new.dtype
         if len(layer_kv) == 4:  # scaled int8/int4 pool
             k_layer, v_layer, ks_layer, vs_layer = layer_kv
-            quantize, int4 = _pool_quant(layer_kv, k_new)
-            kq, ks = quantize(k_new[0])        # [T, H, hd or hd/2], [T, H]
-            vq, vs = quantize(v_new[0])
-            k_layer[blk, :, off] = kq
-            v_layer[blk, :, off] = vq
-            ks_layer[blk, :, off] = ks
-            vs_layer[blk, :, off] = vs
+            _q, int4 = _pool_quant(layer_kv, k_new)
             return (layer_kv,
                     _gather_dequant(k_layer, ks_layer, row, dt, int4),
                     _gather_dequant(v_layer, vs_layer, row, dt, int4))
         k_layer, v_layer = layer_kv
-        k_layer[blk, :, off] = k_new[0].to(k_layer.dtype)
-        v_layer[blk, :, off] = v_new[0].to(v_layer.dtype)
         return (layer_kv, gather_blocks(k_layer, row).to(dt),
                 gather_blocks(v_layer, row).to(dt))
 

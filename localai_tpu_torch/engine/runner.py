@@ -3,11 +3,17 @@
 Port of ``localai_tpu/engine/runner.py``, in both KV layouts: the paged
 block pool (the serving default) and the contiguous slot cache
 (``paged=False``, the JAX package's layout for multi-host mirrors and
-self-extend), on one device or as one rank of a tensor-parallel mesh
-(``mesh=``, the ``model`` axis: this rank's weight slices, a cache of its
-kv heads, and every program through the trunk with the row-parallel
-reduction of ``parallel.overlap``; ``parallel.multihost`` replays the
-leader's calls on the other ranks). PyTorch runs eagerly, so the jitted
+self-extend), on one device or as one rank of a mesh (``mesh=``;
+``parallel.multihost`` replays the leader's calls on the other ranks):
+the ``model`` axis (this rank's weight slices, a cache of its kv heads,
+and every program through the trunk with the row-parallel reduction of
+``parallel.overlap``); the ``seq`` axis (every rank holds the whole
+model and runs every program alike, but a fresh prompt of at least
+``sp_threshold`` tokens is prefilled by ring attention over the ranks,
+``parallel.ring``, whose K/V chunks are all-gathered into each rank's
+cache); ``seq`` with ``model``; and the ``pipe`` axis (this stage's block
+of layers and their cache, every program through ``parallel.pipeline``'s
+stage chain, contiguous layout only). PyTorch runs eagerly, so the jitted
 programs of the JAX package become plain methods:
 
   * ONE decode step serves all slots every iteration (continuous batching
@@ -158,6 +164,30 @@ class AsyncTokens:
         return a.astype(dtype) if dtype is not None else a
 
 
+def attention_path(*, device: torch.device, ga_n: int, pp: bool,
+                   num_heads: int, num_kv_heads: int, head_dim: int,
+                   dtype: torch.dtype, kv_dtype: Any,
+                   max_ctx: int) -> tuple[str, str]:
+    """(attn_impl, reason) of a runner: self-extend's plain attend, else
+    ``ops.select_attn_impl``, whose gate refuses at load a shape K2/K3
+    cannot take. A pipeline stage passes that gate too (it runs K2/K3 on
+    its own layers) and reports the JAX package's decision, "xla": its
+    Pallas calls are not placed inside its shard_map stage chain."""
+    if ga_n > 1:
+        return "plain", (
+            "self-extend: the cache holds unroped K, so every attention "
+            "site runs engine.selfextend's plain attention")
+    impl, why = ops.select_attn_impl(
+        device=device, num_heads=num_heads, num_kv_heads=num_kv_heads,
+        head_dim=head_dim, dtype=dtype, kv_dtype=kv_dtype, max_ctx=max_ctx)
+    if pp:
+        return "xla", (
+            "pipeline parallelism: the JAX package runs its XLA attend in "
+            "the stage chain; each stage here runs the contiguous kernels "
+            "on its own layers")
+    return impl, why
+
+
 class ModelRunner:
     """Owns params + KV cache + decode state for one model; exposes
     admit/step/release/embed to the scheduler and the API."""
@@ -183,10 +213,14 @@ class ModelRunner:
         attn_impl: str = "auto",
         device: str | torch.device | None = "cuda",
         mesh: Any = None,
+        sp_threshold: int = 1024,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self._init_mesh(mesh, cfg, ga_n)
+        self._init_mesh(mesh, cfg, ga_n, paged)
+        # prompts of at least this many tokens take the ring prefill on a
+        # 'seq' mesh (engine.sp_prefill_threshold)
+        self.sp_threshold = int(sp_threshold)
         if (self.mesh is not None
                 and not shd.is_local(params, cfg, self.mesh)):
             params = shd.shard_params(params, cfg, self.mesh)
@@ -247,16 +281,12 @@ class ModelRunner:
                     "on a TPU; the port keeps one attention path per device "
                     "(the CUDA kernels on the card, their plain versions on "
                     "the CPU), so %s runs that path", self.device)
-        if ga_n > 1:
-            self.attn_impl, why = "plain", (
-                "self-extend: the cache holds unroped K, so every attention "
-                "site runs engine.selfextend's plain attention")
-        else:
-            self.attn_impl, why = ops.select_attn_impl(
-                device=self.device, num_heads=self.local_cfg.num_heads,
-                num_kv_heads=self.local_cfg.num_kv_heads, head_dim=cfg.hd,
-                dtype=dtype,
-                kv_dtype=None if self.paged else kv_t, max_ctx=self.max_ctx)
+        self.attn_impl, why = attention_path(
+            device=self.device, ga_n=ga_n, pp=self.pp_enabled,
+            num_heads=self.local_cfg.num_heads,
+            num_kv_heads=self.local_cfg.num_kv_heads, head_dim=cfg.hd,
+            dtype=dtype, kv_dtype=None if self.paged else kv_t,
+            max_ctx=self.max_ctx)
         if why:
             log.info("attention: %s (%s)", self.attn_impl, why)
         self.paged_attn_impl = ""
@@ -360,38 +390,85 @@ class ModelRunner:
         self.fresh_prefills = 0
         # chunked paged prefill dispatches (each runs the trunk once)
         self.prefill_chunks = 0
+        # ring prefills on a 'seq' mesh (plain attention inside the ring:
+        # no kernel launch)
+        self.sp_prefills = 0
         self._init_device_state()
         self._watch_programs()
 
-    def _init_mesh(self, mesh: Any, cfg: LlamaConfig, ga_n: int) -> None:
-        """A tensor-parallel rank (``mesh``, ``parallel.mesh.Mesh`` with
-        model > 1): its head counts (``local_cfg``) and the row-parallel
-        reduction of its trunk (one ``all_reduce``), which every program of
-        the runner runs. ``overlap_mode`` / ``overlap_why`` report what the
-        JAX package would run for ``LOCALAI_MESH_OVERLAP``
-        (``parallel.overlap.resolve_mode``)."""
-        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+    def _init_mesh(self, mesh: Any, cfg: LlamaConfig, ga_n: int,
+                   paged: bool) -> None:
+        """A rank of a mesh (``mesh``, ``parallel.mesh.Mesh`` of more than
+        one rank), with the JAX runner's gates: ``model`` (its head counts,
+        ``local_cfg``, and the row-parallel reduction of its trunk, one
+        ``all_reduce``, which every program of the runner runs;
+        ``overlap_mode`` / ``overlap_why`` report what the JAX package
+        would run for ``LOCALAI_MESH_OVERLAP``), ``seq`` (``sp_enabled``:
+        the ring prefill, off under self-extend or an expert-parallel
+        MoE), ``pipe`` (``pp_enabled``: this stage's block of layers,
+        alone on the mesh, contiguous, no self-extend)."""
+        self.mesh = mesh if mesh is not None and mesh.plan.size() > 1 \
+            else None
         self.tp = self.mesh.tp if self.mesh is not None else 1
         self.overlap_mode, self.overlap_why, self.reduce = "", "", None
         self.local_cfg = cfg
+        self.sp_enabled = self.pp_enabled = False
+        # the mesh's transfers, each an overlap.Timed: the stage
+        # hand-offs under pipe (handoff_sent: this stage's sends, the
+        # transfer; handoff_waited: its receives, the other stages'
+        # compute inside), the ring's K/V hops and the K/V all-gather
+        # under seq
+        self.transfers: dict[str, Any] = {}
         if self.mesh is None:
             return
         from localai_tpu_torch.parallel import mesh as pmesh
         from localai_tpu_torch.parallel import overlap as ovl
 
+        shape = self.mesh.shape
         pmesh.refuse_part2(self.mesh.plan, "ModelRunner")
-        if ga_n > 1:
-            raise ValueError("self-extend (grp_attn_n > 1) is not served "
-                             "on a tensor-parallel mesh")
+        pmesh.check_pipe(self.mesh.plan)
+        if ga_n > 1 and (self.tp > 1 or shape["pipe"] > 1):
+            raise ValueError(
+                "self-extend (grp_attn_n > 1) is not served on a "
+                + ("tensor-parallel mesh" if self.tp > 1 else
+                   "pipeline-parallel mesh"))
         self.local_cfg = shd.local_config(cfg, self.tp)
+        if shape["pipe"] > 1:
+            from localai_tpu_torch.parallel import pipeline as pp
+
+            if paged:
+                raise ValueError("paged KV cache is incompatible with "
+                                 "['pipeline parallelism']")
+            block = pp.stage_layers(cfg, self.mesh)
+            self.pp_enabled = True
+            self.local_cfg = dataclasses.replace(self.local_cfg,
+                                                 num_layers=len(block))
+            self.transfers = {"handoff_sent": ovl.Timed(),
+                              "handoff_waited": ovl.Timed()}
+            log.info("pipeline parallelism: stage %d of %d, layers %d-%d",
+                     self.mesh.axis_rank("pipe"), shape["pipe"],
+                     block.start, block.stop - 1)
+        self.sp_enabled = (
+            shape["seq"] > 1
+            and (self.tp == 1 or (cfg.num_heads % self.tp == 0
+                                  and cfg.num_kv_heads % self.tp == 0
+                                  and cfg.intermediate_size % self.tp == 0))
+            and (cfg.num_experts == 0 or shape["expert"] == 1)
+            and ga_n == 1)
+        if self.sp_enabled:
+            self.transfers = {"ring_hop": ovl.Timed(),
+                              "kv_gather": ovl.Timed()}
         self.overlap_mode, self.overlap_why = ovl.resolve_mode(
             cfg, self.mesh, os.environ.get("LOCALAI_MESH_OVERLAP", "auto"))
         self.reduce = ovl.make_reduce(self.mesh)
-        log.info("tensor parallelism: rank %d of %d, %d q / %d kv heads a "
-                 "rank, psum reductions (the JAX package: %s%s)",
-                 self.mesh.rank, self.tp, self.local_cfg.num_heads,
-                 self.local_cfg.num_kv_heads, self.overlap_mode or "GSPMD",
-                 f", {self.overlap_why}" if self.overlap_why else "")
+        log.info("mesh %s: rank %d of %d, %d q / %d kv heads and %d layers "
+                 "a rank, psum reductions (the JAX package: %s%s)%s",
+                 pmesh.spec_of(self.mesh.plan), self.mesh.rank,
+                 self.mesh.world, self.local_cfg.num_heads,
+                 self.local_cfg.num_kv_heads, self.local_cfg.num_layers,
+                 self.overlap_mode or "GSPMD",
+                 f", {self.overlap_why}" if self.overlap_why else "",
+                 ", ring prefill" if self.sp_enabled else "")
 
     def _embed(self, tokens: torch.Tensor) -> Optional[torch.Tensor]:
         """Token embeddings of a rank whose table is vocab-sharded (masked
@@ -408,7 +485,16 @@ class ModelRunner:
     def _forward(self, tokens, positions, write, kv_stack, mask, attn=None,
                  embeds=None):
         """``models.llama.forward`` over this runner's weights and RoPE
-        table, as a tensor-parallel rank's trunk on a mesh."""
+        table, as a tensor-parallel rank's trunk on a mesh, or this stage's
+        part of the pipeline chain (``parallel.pipeline.pp_forward``)."""
+        if self.pp_enabled:
+            from localai_tpu_torch.parallel import pipeline as pp
+
+            return pp.pp_forward(self.cfg, self.params, tokens, positions,
+                                 write, kv_stack, mask, self.rope,
+                                 self.mesh, attn=attn, embeds=embeds,
+                                 sent=self.transfers["handoff_sent"],
+                                 waited=self.transfers["handoff_waited"])
         if embeds is None:
             embeds = self._embed(tokens)
         return mdl.forward(self.cfg, self.params, tokens, positions, write,
@@ -484,6 +570,10 @@ class ModelRunner:
                                         "prefill_chunk", chunk)
         self._prefill_paged_mm_prog = prog("_prefill_paged_mm_fn",
                                            "prefill_mm", chunk)
+        # the ring prefill (the JAX package's "prefill_sp" on both layouts)
+        self._prefill_sp_prog = prog("_prefill_sp_fn", "prefill_sp", fresh)
+        self._prefill_paged_sp_prog = prog("_prefill_paged_sp_fn",
+                                           "prefill_sp", fresh)
         self._embed_prog = prog("_embed_fn", "embed", embed)
 
     def _cost(self, tokens_per_step: int, steps: int, attended: int,
@@ -799,8 +889,13 @@ class ModelRunner:
                       prompt: list[int], position: int) -> torch.Tensor:
         """Sample the first token from the last real row and arm the slot:
         counts from the whole prompt, next write position ``position``."""
+        return self._arm_slot(hidden[0, length - 1][None], slot, prompt,
+                              position)
+
+    def _arm_slot(self, last_h: torch.Tensor, slot: int, prompt: list[int],
+                  position: int) -> torch.Tensor:
+        """:meth:`_prefill_tail` from the last real row ``last_h`` [1, D]."""
         cfg, st = self.cfg, self.state
-        last_h = hidden[0, length - 1][None]
         logits = self._logits(last_h)  # [1, V]
         ids = [t for t in prompt if 0 <= t < cfg.vocab_size]
         smp.count_prompt_tokens(
@@ -923,6 +1018,79 @@ class ModelRunner:
             tokens, length, 0, table_row, slot, prompt,
             embeds=self._mm_embeds(tokens, mm_embeds, mm_positions))
 
+    def _sp_trunk(self, tokens: torch.Tensor, length: int,
+                  every_row: bool = False):
+        """The ring prefill of a bucketed prompt [1, T] (``parallel.
+        ring``): this rank's chunk through the trunk, then every chunk's
+        K/V all-gathered over the ``seq`` group and the last real row
+        broadcast from the rank that holds it, so every ``seq`` rank
+        writes the whole prompt and samples alike. Returns (the last real
+        row [1, D], (k, v) each [L, T, Hkv, hd]); ``every_row``: (every
+        row [T, D], gathered, and no K/V)."""
+        from localai_tpu_torch.parallel import overlap as ovl
+        from localai_tpu_torch.parallel import ring
+
+        mesh = self.mesh
+        hidden, (ks, vs) = ring.sp_prefill_forward(
+            self.cfg, self.params, tokens[0], length, mesh, self.rope,
+            self.reduce, hops=self.transfers["ring_hop"])
+        n, group = mesh.axis_size("seq"), mesh.groups["seq"]
+        L, Tc = ks.shape[0], ks.shape[1]
+
+        def gather(t):   # [L, Tc, ...] of each rank -> [L, n*Tc, ...]
+            out = torch.empty((n * t.shape[0], *t.shape[1:]),
+                              dtype=t.dtype, device=t.device)
+            ovl.all_gather_rows(out, t.contiguous(), group)
+            return out.view(n, *t.shape).transpose(0, 1).reshape(
+                t.shape[0], n * Tc, *t.shape[2:])
+
+        if every_row:
+            return gather(hidden)[0], None
+        owner = (length - 1) // Tc
+        last = (hidden[0, length - 1 - owner * Tc].clone()
+                if mesh.axis_rank("seq") == owner
+                else torch.empty_like(hidden[0, 0]))
+        ovl.broadcast(last, mesh.axis_ranks("seq")[owner], group)
+        kv = torch.cat((ks, vs))   # K and V in one all-gather
+        kv = self.transfers["kv_gather"].run(lambda: gather(kv), kv)
+        return last[None], (kv[:L], kv[L:])
+
+    @torch.no_grad()
+    def _prefill_sp_fn(self, tokens: torch.Tensor, length: int, slot: int,
+                       prompt: list[int]) -> torch.Tensor:
+        """Sequence-parallel contiguous prefill: the ring prefill's K/V
+        written into the slot's cache rows [0, T); samples the first
+        token."""
+        last, (ks, vs) = self._sp_trunk(tokens, length)
+        self.sp_prefills += 1
+        write = kvc.prefill_write(slot)
+        for i, layer_kv in enumerate(zip(*self.kv.stacked())):
+            write(layer_kv, ks[i][None], vs[i][None])
+        return self._arm_slot(last, slot, prompt, length)
+
+    @torch.no_grad()
+    def _prefill_paged_sp_fn(self, tokens: torch.Tensor, length: int,
+                             table_row: torch.Tensor, slot: int,
+                             prompt: list[int]) -> torch.Tensor:
+        """Sequence-parallel paged prefill: the ring prefill's K/V
+        scattered through the slot's table row (padding rows to the trash
+        block) in one dispatch, the admission's only; samples the first
+        token and arms the slot."""
+        last, (ks, vs) = self._sp_trunk(tokens, length)
+        self.sp_prefills += 1
+        for i, layer_kv in enumerate(zip(*self.kv.stacked())):
+            kvc.paged_scatter(layer_kv, table_row, 0, length, ks[i][None],
+                              vs[i][None])
+        return self._arm_slot(last, slot, prompt, length)
+
+    def _use_sp(self, n: int, bucket: int, lcp: int, mm: bool) -> bool:
+        """Whether a prompt of ``n`` tokens in ``bucket`` takes the ring
+        prefill: a fresh (no reused prefix), text-only prompt of at least
+        ``sp_threshold`` tokens whose bucket the ``seq`` axis divides."""
+        return (self.sp_enabled and not lcp and not mm
+                and n >= self.sp_threshold
+                and bucket % self.mesh.axis_size("seq") == 0)
+
     # -- host API --------------------------------------------------------
 
     def bucket_for(self, n: int) -> int:
@@ -1000,7 +1168,10 @@ class ModelRunner:
         padded[0, :len(tail)] = tail
         tokens = torch.from_numpy(padded).to(self.device)
         self._prepare_slot(slot, **sampling)
-        if lcp:
+        if self._use_sp(n, bucket, lcp, mm):
+            self.last_prefill_path = "sp"
+            tok = self._prefill_sp_prog(tokens, n, slot, prompt)
+        elif lcp:
             self.last_prefill_path = "resume"
             tok = self._prefill_resume_prog(tokens, len(tail), lcp, slot,
                                             prompt)
@@ -1098,10 +1269,16 @@ class ModelRunner:
                                       "paged_shared" if lcp else "paged")
         self.last_prefix_reused = lcp
         self.total_prefix_reused += lcp
+        # a long fresh prompt on a 'seq' mesh: the ring prefill, one
+        # dispatch writing straight into the reserved blocks (shared or
+        # loaded prefix rows keep the chunked path)
+        sp = self._use_sp(n, self.bucket_for(n), lcp, mm)
+        if sp:
+            self.last_prefill_path = "paged_sp"
         self._prepare_slot(slot, **sampling)
         return PagedAdmission(self, slot, list(prompt), lcp,
                               mm_embeds=mm_embeds if mm else None,
-                              mm_positions=mm_positions)
+                              mm_positions=mm_positions, sp=sp)
 
     def _finish_paged_admit(self, slot: int, prompt: list[int],
                             mm: bool = False) -> None:
@@ -1249,14 +1426,18 @@ class ModelRunner:
     def prompt_logits(self, prompt: list[int]) -> np.ndarray:
         """Logits [n, V] float32 of every row of a fresh forward over
         ``prompt`` (the prefill a fresh admission runs, with no cache
-        written and no slot touched): a tensor-parallel engine's check
-        against one device."""
+        written and no slot touched: the ring prefill where one would take
+        it): a meshed engine's check against one device."""
         n = len(prompt)
         bucket = self.bucket_for(n)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = prompt
         with torch.no_grad():
             tokens = torch.from_numpy(padded).to(self.device)
+            if self._use_sp(n, bucket, 0, False):
+                # the ring prefill, as a fresh admission of it runs
+                rows, _ = self._sp_trunk(tokens, n, every_row=True)
+                return self._logits(rows[:n]).float().cpu().numpy()
             positions = torch.arange(bucket, dtype=torch.int32,
                                      device=self.device)[None, :]
             hidden, _ = self._forward(tokens, positions, kvc.chunk_write,
@@ -1447,7 +1628,7 @@ class ModelRunner:
             return False
         if n > self.max_ctx - 1:
             return False
-        L, H, hd = (self.cfg.num_layers, self.local_cfg.num_kv_heads,
+        L, H, hd = (self.local_cfg.num_layers, self.local_cfg.num_kv_heads,
                     self.cfg.hd)
         if str(self.kv_dtype) == "int4":
             hd //= 2  # int4 exports stay nibble-packed along head_dim
@@ -1509,13 +1690,15 @@ class PagedAdmission:
 
     def __init__(self, runner: ModelRunner, slot: int, prompt: list[int],
                  start: int, mm_embeds: Optional[np.ndarray] = None,
-                 mm_positions: Optional[np.ndarray] = None):
+                 mm_positions: Optional[np.ndarray] = None,
+                 sp: bool = False):
         self.runner = runner
         self.slot = slot
         self.prompt = prompt
         self.pos = start                     # next position to prefill
         self.mm_embeds = mm_embeds           # multimodal: one dispatch
         self.mm_positions = mm_positions
+        self.sp = sp                         # the ring prefill: one dispatch
         self.done = False
         self.prefix_reused = start           # shared/loaded rows (telemetry)
         self.path = runner.last_prefill_path
@@ -1528,7 +1711,7 @@ class PagedAdmission:
     def chunks_remaining(self) -> int:
         if self.done:
             return 0
-        if self.mm_embeds is not None:
+        if self.mm_embeds is not None or self.sp:
             return 1
         return max(1, -(-(len(self.prompt) - self.pos)
                         // self.runner.prefill_chunk))
@@ -1542,7 +1725,14 @@ class PagedAdmission:
         t0 = time.perf_counter()
         table_row = torch.from_numpy(r.allocator.table_row(self.slot)).to(
             r.device)
-        if self.mm_embeds is not None:
+        if self.sp:
+            padded = np.zeros((1, r.bucket_for(n)), np.int32)
+            padded[0, :n] = self.prompt
+            tok = r._prefill_paged_sp_prog(
+                torch.from_numpy(padded).to(r.device), n, table_row,
+                self.slot, self.prompt)
+            take, last = n - self.pos, True
+        elif self.mm_embeds is not None:
             padded = np.zeros((1, r.bucket_for(n)), np.int32)
             padded[0, :n] = self.prompt
             tok = r._prefill_paged_mm_prog(

@@ -217,19 +217,22 @@ def param_shapes(cfg: LlamaConfig) -> dict:
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device: str | torch.device | None = None,
-                shard: Any = None) -> Params:
+                shard: Any = None, layers: Optional[range] = None
+                ) -> Params:
     """Random init (testing / benchmarking with synthetic weights): norm
     gains 1, everything else N(0, 0.02). ``generator`` must live on
     ``device`` (default: the generator's own device); stacked layer
     weights are drawn one matrix at a time (a layer's, or an expert's in
     a layer) so the float32 draw never exceeds one matrix.
 
-    ``shard(path, tensor)`` (optional: a tensor-parallel rank's slicer,
+    ``shard(path, tensor)`` (optional: a meshed rank's slicer,
     ``parallel.sharding``) receives each leaf as drawn — a top-level leaf
     whole (``("embed",)``), a stacked layer weight one layer at a time
     (``("layers", name)``) — and returns what this rank keeps; the draws
     are the unsharded ones, in the same order, so the slices are the
-    single-device tree's."""
+    single-device tree's. ``layers`` (a pipeline stage's block,
+    ``parallel.pipeline.stage_layers``; all of them when None) are the
+    layers kept: the others are drawn and dropped."""
     device = torch.device(device if device is not None else generator.device)
     dtype = torch_dtype(cfg.dtype)
 
@@ -249,15 +252,17 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                     if isinstance(v, dict) else mk(v))
                 for k, v in shapes.items()}
 
+    keep = range(cfg.num_layers) if layers is None else layers
+
     def stacked(name, shape):
         if len(shape) < 3:   # drawn whole, as mk draws it
             full = mk(shape)
-            parts = (shard(("layers", name), full[i])
-                     for i in range(shape[0]))
-        else:                # one layer at a time
-            parts = (shard(("layers", name), mk(shape[1:]))
-                     for _ in range(shape[0]))
-        return quant.stack_layers(parts, shape[0])
+            parts = (shard(("layers", name), full[i]) for i in keep)
+        else:                # one layer at a time, every layer drawn
+            drawn = ((i, mk(shape[1:])) for i in range(shape[0]))
+            parts = (shard(("layers", name), x)
+                     for i, x in drawn if i in keep)
+        return quant.stack_layers(parts, len(keep))
 
     return {k: ({kk: stacked(kk, vv) for kk, vv in v.items()}
                 if isinstance(v, dict) else shard((k,), mk(v)))
@@ -283,7 +288,7 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig,
     With ``mesh`` (a ``parallel.mesh.Mesh``) each leaf comes across as
     that mesh's rank's slice (``parallel.sharding``): what
     ``jax.device_put(leaf, NamedSharding(mesh, spec))`` puts on the
-    matching device of a JAX ``model=N`` mesh."""
+    matching device of a JAX ``model=N`` or ``pipe=N`` mesh."""
     dtype = torch_dtype(cfg.dtype)
     device = resolve_device(device)
 
@@ -308,9 +313,9 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig,
                                          a.axis % np.ndim(a.q), a.mode)
         return tensor(a).to(device=device, dtype=dtype)
 
-    if mesh is not None and mesh.tp > 1:
-        from localai_tpu_torch.parallel import sharding as shd
+    from localai_tpu_torch.parallel import sharding as shd
 
+    if shd.cuts(mesh):
         cut = shd.make_shard_fn(cfg, mesh)
         return {k: ({kk: cut((k, kk), conv(vv)) for kk, vv in v.items()}
                     if isinstance(v, dict) else cut((k,), conv(v)))

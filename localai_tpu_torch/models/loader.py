@@ -111,17 +111,19 @@ def load_llama_params(
     quantization: str = "",
     group: int = 128,
     shard: Optional[Callable] = None,
+    layers: Optional[range] = None,
 ) -> tuple[LlamaConfig, dict]:
     """Load an HF llama/mistral/qwen2/mixtral checkpoint into the
     stacked parameter dict, in ``dtype`` on ``device``. ``quantization``
     ("int8" / "int8_w8a8" / "int4") quantizes each layer's weights as they
     are read,
     giving what ``quant.quantize_params`` gives for the whole tree.
-    ``shard(path, tensor)`` (a tensor-parallel rank's, from
-    ``models.registry``; it quantizes too) takes each tensor as it is
-    read — a top-level one whole (``("embed",)``), a layer weight one
-    layer at a time (``("layers", name)``) — and returns what the rank
-    keeps."""
+    ``shard(path, tensor)`` (a meshed rank's, from ``models.registry``;
+    it quantizes too) takes each tensor as it is read — a top-level one
+    whole (``("embed",)``), a layer weight one layer at a time
+    (``("layers", name)``) — and returns what the rank keeps.
+    ``layers`` (a pipeline stage's block, ``pipeline.stage_layers``; all
+    of them when None) are the layers read."""
     model_dir = Path(model_dir)
     device = resolve_device(device)
     if hf is None:
@@ -157,16 +159,17 @@ def load_llama_params(
         hf_name, transpose = _HF_LAYER_NAMES[key]
         return get(L + hf_name, transpose)
 
+    keep = range(cfg.num_layers) if layers is None else layers
+
     def stack(key: str):
         if shard is not None:
             return quant.stack_layers(
-                (shard(("layers", key), one_layer(key, i))
-                 for i in range(cfg.num_layers)), cfg.num_layers)
+                (shard(("layers", key), one_layer(key, i)) for i in keep),
+                len(keep))
         return quant.stack_layers((
             quant.quantize_layer(key, one_layer(key, i), quantization,
                                  group) if quantization
-            else one_layer(key, i) for i in range(cfg.num_layers)),
-            cfg.num_layers)
+            else one_layer(key, i) for i in keep), len(keep))
 
     keys = ["attn_norm", "wq", "wk", "wv", "wo", "mlp_norm"]
     if cfg.num_experts:

@@ -294,17 +294,20 @@ def mesh_plan(mcfg: ModelConfig, app: AppConfig, cfg: Any,
               auto: bool = True) -> Any:
     """The mesh a model is served on (``parallel.mesh.MeshPlan``), or None
     for one device: the JAX package's ``build_runner`` mesh logic and its
-    ``_auto_mesh``, on the ``model`` axis alone.
+    ``_auto_mesh``, on the ``model``, ``seq`` and ``pipe`` axes.
 
     ``--mesh`` / ``LOCALAI_MESH`` (``app.mesh_shape``) wins, then the
-    config's ``sharding:``; an axis but ``model`` above 1 is refused
-    naming ROADMAP item 19 part 2. Where the JAX package would fill the
-    remaining devices with ``data``, the port builds ``model=tp`` on tp
-    cards with one warning; with fewer cards than ranks, ranks share
-    cards. With no explicit topology and more than one card visible, the
-    model is served ``model=tp`` with tp as wide as the q heads allow
-    (``LOCALAI_MESH_AUTO=0`` turns that off; self-extend keeps one
-    device, as in the JAX package); in a multi-host group
+    config's ``sharding:``; ``data`` or ``expert`` above 1 is refused
+    naming ROADMAP item 19 part 2, and ``pipe`` with any other axis
+    raises the JAX package's error. ``pipeline_parallel_size`` builds
+    ``pipe`` alone (the JAX package claims exactly that many devices);
+    where the JAX package would fill the remaining devices with ``data``
+    beside ``seq`` and ``model``, the port builds the asked axes alone on
+    that many ranks with one warning; with fewer cards than ranks, ranks
+    share cards. With no explicit topology and more than one card
+    visible, the model is served ``model=tp`` with tp as wide as the q
+    heads allow (``LOCALAI_MESH_AUTO=0`` turns that off; self-extend
+    keeps one device, as in the JAX package); in a multi-host group
     (``coordinator_address``, ``num_processes``) a model spans the
     group's ranks. The CPU has no device count: it is meshed only when
     asked. ``auto=False`` gives the topology that was set (None where
@@ -313,29 +316,44 @@ def mesh_plan(mcfg: ModelConfig, app: AppConfig, cfg: Any,
 
     shard = mcfg.sharding
     want_tp = max(1, shard.tensor_parallel_size)
+    want_sp = max(1, shard.sequence_parallel_size)
+    want_pp = max(1, shard.pipeline_parallel_size)
+    want_ep = max(1, shard.expert_parallel_size)
     want_dp = shard.data_parallel_size
-    others = {"sequence_parallel_size": shard.sequence_parallel_size,
-              "expert_parallel_size": shard.expert_parallel_size,
-              "pipeline_parallel_size": shard.pipeline_parallel_size}
     cards = pmesh.device_count() if app.device != "cpu" else 0
     if app.mesh_shape:
         plan = pmesh.MeshPlan(**app.mesh_shape)
-        pmesh.refuse_part2(plan, f"model {mcfg.name}: --mesh / LOCALAI_MESH")
-    elif (want_tp > 1 or want_dp not in (0, 1)
-          or any(v > 1 for v in others.values())):
-        asked = {k: v for k, v in others.items() if v > 1}
+        where = f"model {mcfg.name}: --mesh / LOCALAI_MESH"
+        pmesh.refuse_part2(plan, where)
+        pmesh.check_pipe(plan)
+    elif (want_tp > 1 or want_sp > 1 or want_pp > 1 or want_ep > 1
+          or want_dp not in (0, 1)):
+        if want_pp > 1 and (want_tp > 1 or want_sp > 1 or want_ep > 1
+                            or want_dp not in (0, 1)):
+            # the JAX package's error: the other knobs are not dropped
+            raise ValueError(
+                "pipeline_parallel_size composes with no other "
+                "sharding axis yet; unset tensor/sequence/expert/"
+                "data_parallel_size")
+        asked = {}
+        if want_ep > 1:
+            asked["expert_parallel_size"] = want_ep
         if want_dp not in (0, 1):
             asked["data_parallel_size"] = want_dp
         if asked:
             raise ValueError(f"model {mcfg.name}: sharding {asked} is not "
                              f"ported yet ({pmesh.PART2})")
-        if cards > want_tp:
-            log.warning(
-                "model %s: the JAX package would build data=%d x model=%d "
-                "over %d devices; the port builds model=%d on %d cards "
-                "(data: %s)", mcfg.name, cards // want_tp, want_tp, cards,
-                want_tp, want_tp, pmesh.PART2)
-        plan = pmesh.MeshPlan(model=want_tp)
+        if want_pp > 1:
+            plan = pmesh.MeshPlan(pipe=want_pp)
+        else:
+            plan = pmesh.MeshPlan(seq=want_sp, model=want_tp)
+            if cards > plan.size():
+                log.warning(
+                    "model %s: the JAX package would build data=%d x %s "
+                    "over %d devices; the port builds %s on %d cards "
+                    "(data: %s)", mcfg.name, cards // plan.size(),
+                    pmesh.spec_of(plan), cards, pmesh.spec_of(plan),
+                    plan.size(), pmesh.PART2)
     elif app.coordinator_address and app.num_processes > 1:
         # a multi-host group (joined at start): the model spans its ranks
         plan = pmesh.MeshPlan(model=app.num_processes)
@@ -358,7 +376,7 @@ def mesh_plan(mcfg: ModelConfig, app: AppConfig, cfg: Any,
                 cards // tp, tp, tp, tp, cards, pmesh.PART2)
         plan = pmesh.MeshPlan(model=tp)
         log.info("auto mesh for %s: model=%d", mcfg.name, tp)
-    return plan if plan.model > 1 else None
+    return plan if plan.size() > 1 else None
 
 
 def _mesh_for(plan: Any, app: AppConfig, mcfg: ModelConfig) -> Any:
@@ -380,7 +398,7 @@ def _mesh_for(plan: Any, app: AppConfig, mcfg: ModelConfig) -> Any:
                          f"is not ported yet ({pmesh.PART2})")
     group = mh.current_group()
     if not (dist.is_initialized() and group is None):
-        group = mh.ensure_group(app, plan.model, mcfg.name)
+        group = mh.ensure_group(app, plan, mcfg.name)
         with group.leader.call_lock:
             if group.leader.connected:
                 group.leader.broadcast(mcfg.name, "__load__")
@@ -413,7 +431,10 @@ def build_runner(mcfg: ModelConfig, app: AppConfig,
     # with a warning (the JAX package's build_runner)
     paged = eng.kv_paged
     if paged is None:
-        paged = (eng.grp_attn_n <= 1
+        # the stage chain keeps the contiguous layout (the JAX package's
+        # build_runner: paged is off under 'pipe')
+        paged = ((mesh is None or mesh.shape["pipe"] == 1)
+                 and eng.grp_attn_n <= 1
                  and os.environ.get("LOCALAI_KV_PAGED", "") != "0")
     kv_dtype = eng.kv_dtype
     env_kv = os.environ.get("LOCALAI_KV_DTYPE", "").strip()
@@ -442,6 +463,7 @@ def build_runner(mcfg: ModelConfig, app: AppConfig,
         attn_impl=eng.attn_impl,
         device=device,
         mesh=mesh,
+        sp_threshold=eng.sp_prefill_threshold,
     )
     return model, runner
 

@@ -96,13 +96,17 @@ def resolve_model(
     whole before it is cut, as the JAX package shards its quantized
     tree): the full tree never exists on one card."""
     dev = resolve_device(device)
-    shard = _shard_fn(resolve_config(ref, model_path), mesh, quantization,
-                      dev) if mesh is not None and mesh.tp > 1 else None
+    from localai_tpu_torch.parallel.pipeline import stage_layers
+    from localai_tpu_torch.parallel.sharding import cuts
+
+    full = resolve_config(ref, model_path)
+    shard = _shard_fn(full, mesh, quantization, dev) if cuts(mesh) else None
+    layers = stage_layers(full, mesh)
     if ref.startswith("debug:"):
         name = ref.split(":", 1)[1]
         cfg = dataclasses.replace(DEBUG_PRESETS[name], dtype=dtype)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = init_params(cfg, gen, dev, shard=shard)
+        params = init_params(cfg, gen, dev, shard=shard, layers=layers)
         if quantization and shard is None:
             params = quantize_params(params, quantization, device=dev)
         return LoadedModel(cfg, params, ByteTokenizer(), ref)
@@ -117,7 +121,7 @@ def resolve_model(
             hf = read_hf_config(cand)
             cfg, params = load_llama_params(cand, dtype=dtype, device=dev,
                                             hf=hf, quantization=quantization,
-                                            shard=shard)
+                                            shard=shard, layers=layers)
             cfg = dataclasses.replace(cfg, dtype=dtype)
             return LoadedModel(cfg, params, load_tokenizer(cand), ref,
                                model_dir=cand,

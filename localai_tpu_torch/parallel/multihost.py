@@ -29,11 +29,16 @@ leader keeps a call lock: a call is broadcast and run locally under it,
 so the HTTP threads' ``embed`` never interleaves its collectives with the
 engine thread's.
 
-On one host the leader spawns the ``model - 1`` follower ranks itself
+On one host the leader spawns the other ranks of the mesh itself
 (:func:`ensure_group`): ``cli.main follower`` processes with the serving
-instance's models dir, each ``LOCALAI_DEVICE`` its rank's card (as a
-worker's, ``worker.process.spawn_env``), and it waits until every rank
-has joined the group and the channel. A follower that fails to start,
+instance's models dir and the mesh plan (``LOCALAI_MESH``), each
+``LOCALAI_DEVICE`` its rank's card (as a worker's,
+``worker.process.spawn_env``), started once the leader's store listens
+on the port it bound (so no other process can take the port between
+its choice and its use), and it waits until every rank has joined the
+group and the channel. A process serves one group, keyed by its mesh
+plan: a model that asks for another plan, even of the same width, is
+refused naming both. A follower that fails to start,
 load or join fails the load; a follower lost later fails the engine (the
 next call raises). When the channel closes, a follower prints its
 ``FOLLOWER_REPORT {json}`` line (its launch counts and, a model, its
@@ -554,17 +559,21 @@ class FollowerEngine:
 
     def report(self) -> dict:
         """The replay's counters: calls by method, the runner's dispatch
-        counters, the token digest."""
+        counters and mesh transfers (calls, ms), the token digest."""
         out: dict = {"calls": dict(self.calls),
                      "digest": self.digest.hexdigest(),
                      "results": self.digest.results}
         runner = getattr(self.target, "runner", self.target)
         for k in ("decode_steps", "verify_windows", "prefill_chunks",
-                  "fresh_prefills", "frozen_dispatches"):
+                  "fresh_prefills", "frozen_dispatches", "sp_prefills",
+                  "last_prefill_path"):
             if hasattr(runner, k):
                 out[k] = getattr(runner, k)
         if hasattr(runner, "params"):
             out["weight_bytes"] = _tree_bytes(runner.params)
+        out["transfers"] = {
+            k: {"calls": t.calls, "ms": t.seconds * 1e3}
+            for k, t in getattr(runner, "transfers", {}).items()}
         return out
 
     def step_chunk(self, slot: int):
@@ -663,13 +672,15 @@ class FollowerProcess:
 
 
 class Group:
-    """This process's tensor-parallel group as its leader sees it: the
-    width, the command channel, the followers it spawned (none when the
-    ranks were started by hand) and their stop reports."""
+    """This process's mesh group as its leader sees it: the plan (None for
+    a group joined by hand until its first model gives one), the width,
+    the command channel, the followers it spawned (none when the ranks
+    were started by hand) and their stop reports."""
 
-    def __init__(self, tp: int, leader: CommandLeader,
+    def __init__(self, plan: Any, world: int, leader: CommandLeader,
                  followers: list[FollowerProcess], spawned: bool):
-        self.tp = tp
+        self.plan = plan
+        self.world = world
         self.leader = leader
         self.followers = followers
         self.spawned = spawned
@@ -694,12 +705,12 @@ class Group:
             if f.proc.poll() is not None and not self._stop.is_set():
                 self.leader.dead = (f"follower rank {f.rank} exited "
                                     f"rc={f.proc.returncode}")
-                log.error("tensor parallelism: %s", self.leader.dead)
+                log.error("mesh group: %s", self.leader.dead)
                 return True
         return False
 
     def wait_joined(self, timeout: float) -> None:
-        self.leader.wait_for(self.tp - 1, timeout, alive=self.alive)
+        self.leader.wait_for(self.world - 1, timeout, alive=self.alive)
 
     def close(self) -> list[dict]:
         """Close the channel (each follower prints its report and exits),
@@ -725,12 +736,6 @@ def current_group() -> Optional[Group]:
     return _group
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def join_as_leader(app: Any) -> Group:
     """Multi-host serving (``serve``): join the group as rank 0 at
     ``app.coordinator_address`` and open the command channel on
@@ -744,65 +749,77 @@ def join_as_leader(app: Any) -> Group:
                        app.process_id, dev)
             leader = get_leader(app.mirror_port, app.mirror_followers,
                                 token=app.peer_token)
-            _group = Group(app.num_processes, leader, [], spawned=False)
+            _group = Group(None, app.num_processes, leader, [],
+                           spawned=False)
         return _group
 
 
-def ensure_group(app: Any, tp: int, model: str) -> Group:
-    """The group of ``tp`` ranks this leader serves a meshed model on:
-    the joined one (whose width must be ``tp``), else a single-host group
-    spawned now — ``tp - 1`` follower ranks of ``model`` on this host's
-    cards (ranks share cards when there are fewer), each joining the
-    group and then the channel. A spawned group that lost a rank is
-    closed and spawned anew (its engines failed with it)."""
+def ensure_group(app: Any, plan: Any, model: str) -> Group:
+    """The group this leader serves a meshed model of ``plan``
+    (``mesh.MeshPlan``) on: the joined one (whose plan must be ``plan``),
+    else a single-host group spawned now — ``plan.size() - 1`` follower
+    ranks of ``model`` on this host's cards (ranks share cards when there
+    are fewer), started once this rank's store listens on the port it
+    bound, each joining the group and then the channel. A spawned group
+    that lost a rank is closed and spawned anew (its engines failed with
+    it)."""
     global _group
     from localai_tpu_torch.worker.process import spawn_env
 
+    width = plan.size()
     with _group_lock:
         if _group is not None and _group.spawned and _group.leader.dead:
             # a spawned group that lost a rank is spawned anew
-            log.warning("tensor parallelism: respawning the group (%s)",
+            log.warning("mesh group: respawning the group (%s)",
                         _group.leader.dead)
             dead, _group = _group, None
             dead.close()
         if _group is not None:
-            if _group.tp != tp:
+            if _group.plan is None and _group.world == width:
+                _group.plan = plan    # a group joined by hand: its first
+            if _group.plan != plan:
+                have = (pmesh.spec_of(_group.plan) if _group.plan
+                        else f"model={_group.world}")
                 raise ValueError(
-                    f"model {model!r} asks for model={tp}, but this "
-                    f"process serves a tensor-parallel group of "
-                    f"{_group.tp} ranks")
+                    f"model {model!r} asks for mesh {pmesh.spec_of(plan)}, "
+                    f"but this process serves the group of mesh {have} "
+                    f"({_group.world} ranks)")
             return _group
         token = app.peer_token or secrets.token_hex(16)
-        leader = CommandLeader(0, expected=tp - 1, token=token,
+        leader = CommandLeader(0, expected=width - 1, token=token,
                                host="127.0.0.1")
-        store = f"127.0.0.1:{_free_port()}"
-        followers = []
-        try:
-            for r in range(1, tp):
+        followers: list[FollowerProcess] = []
+
+        def spawn(port: int) -> None:
+            for r in range(1, width):
                 dev = pmesh.rank_device(app.device, r)
                 argv = ["follower", "--leader",
                         f"127.0.0.1:{leader.port}", "--model", model,
                         "--models-path", str(app.model_path),
-                        "--coordinator", store, "--num-processes", str(tp),
+                        "--coordinator", f"127.0.0.1:{port}",
+                        "--num-processes", str(width),
                         "--process-id", str(r), "--peer-token", token,
                         "--device", str(dev)]
                 env = spawn_env(str(dev), app.worker_env)
                 env["LOCALAI_DEVICE"] = str(dev)
+                env["LOCALAI_MESH"] = pmesh.spec_of(plan)
                 followers.append(FollowerProcess(r, argv, env))
 
-            def alive() -> None:
-                for f in followers:
-                    f.check()
+        def alive() -> None:
+            for f in followers:
+                f.check()
 
-            initialize(store, tp, 0, pmesh.rank_device(app.device, 0),
-                       alive=alive)
+        try:
+            initialize("127.0.0.1:0", width, 0,
+                       pmesh.rank_device(app.device, 0), alive=alive,
+                       on_bound=spawn)
         except BaseException:
             leader.close()
             for f in followers:
                 f.proc.kill()
                 f.stop(5.0)
             raise
-        _group = Group(tp, leader, followers, spawned=True)
+        _group = Group(plan, width, leader, followers, spawned=True)
         return _group
 
 

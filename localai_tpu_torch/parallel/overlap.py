@@ -27,7 +27,13 @@ with ``reduce`` and the vocab-parallel embedding) is that trunk, for
 decode and for every other program of the runner.
 
 Collectives on CUDA tensors go over the group's backend (``mesh``): NCCL,
-or gloo when ranks share a card.
+or gloo when ranks share a card. gloo runs ``all_reduce``, ``broadcast``
+and ``all_gather`` on CUDA tensors but sends and receives host tensors
+only, so the point-to-point hops of ``parallel.ring`` and
+``parallel.pipeline`` (:func:`exchange`, :func:`send`, :func:`recv`)
+stage a CUDA tensor through pinned host memory on a gloo group and hand
+the device tensor itself to NCCL: a rule of the group's backend, never a
+fallback after an error.
 """
 
 from __future__ import annotations
@@ -89,42 +95,36 @@ def all_gather_rows(out: torch.Tensor, x: torch.Tensor, group) -> None:
     fn(out, x, group=group)
 
 
-class Reduce:
-    """The row-parallel reduction of one mesh (callable on a partial
-    product [..., D]): one ``all_reduce``. It counts its calls
-    (``calls``) and their time (``seconds``): on CUDA tensors the span
-    between two events on the rank's stream around the collective (from
-    the moment the stream's earlier work is done to the moment the sum is
-    back in it, waits for the other ranks included), on the CPU the host's
-    clock around the blocking call."""
+class Timed:
+    """Calls (``calls``) and time (``seconds``) of one kind of transfer:
+    on CUDA tensors the span between two events on the rank's stream
+    around each (from the moment the stream's earlier work is done to the
+    moment the result is back in it, waits for the other ranks
+    included), on the CPU the host's clock around the blocking call."""
 
-    mode = "psum"
-
-    def __init__(self, mesh: Any):
-        self.mesh = mesh
-        self.group = mesh.group
+    def __init__(self):
         self.calls = 0
         self._seconds = 0.0
         self._events: list = []
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.contiguous()
-        if x.is_cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            stream = torch.cuda.current_stream(x.device)
-            start.record(stream)
-            _dist().all_reduce(x, group=self.group)
-            end.record(stream)
-            self._events.append((start, end))
-            if len(self._events) >= 512:
-                self._settle(block=False)
-        else:
-            t0 = time.perf_counter()
-            _dist().all_reduce(x, group=self.group)
-            self._seconds += time.perf_counter() - t0
+    def run(self, fn, x: torch.Tensor) -> Any:
+        """``fn()``, timed on ``x``'s device."""
         self.calls += 1
-        return x
+        if not x.is_cuda:
+            t0 = time.perf_counter()
+            out = fn()
+            self._seconds += time.perf_counter() - t0
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        stream = torch.cuda.current_stream(x.device)
+        start.record(stream)
+        out = fn()
+        end.record(stream)
+        self._events.append((start, end))
+        if len(self._events) >= 512:
+            self._settle(block=False)
+        return out
 
     def _settle(self, block: bool) -> None:
         """Fold the finished event pairs into ``seconds`` (all of them,
@@ -145,6 +145,23 @@ class Reduce:
         return self._seconds
 
 
+class Reduce(Timed):
+    """The row-parallel reduction of one mesh (callable on a partial
+    product [..., D]): one ``all_reduce`` over the ``model`` group, its
+    calls and time counted as :class:`Timed` counts them."""
+
+    mode = "psum"
+
+    def __init__(self, mesh: Any):
+        super().__init__()
+        self.mesh = mesh
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        self.run(lambda: _dist().all_reduce(x, group=self.mesh.group), x)
+        return x
+
+
 def make_reduce(mesh: Any) -> Optional[Reduce]:
     """The row-parallel reduction for the TP trunk; None on a mesh of
     one."""
@@ -159,7 +176,7 @@ def embed_local(table: Any, ids: torch.Tensor, dtype: torch.dtype,
     for ids outside them, summed over the group (each id's row comes from
     one rank and zeros from the rest: the unsharded gather's bytes)."""
     v_local = table.shape[0]
-    offset = mesh.rank * v_local
+    offset = mesh.axis_rank("model") * v_local
     local = (ids.long() - offset).clamp(0, v_local - 1)
     rows = quant.embed_rows(table, local, dtype)
     in_range = ((ids >= offset) & (ids < offset + v_local))[..., None]
@@ -179,3 +196,57 @@ def gather_vocab(logits: torch.Tensor, mesh: Any) -> torch.Tensor:
                       device=local.device)
     all_gather_rows(out, local, mesh.group)
     return out.t().reshape(*lead, vl * mesh.tp)
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """Whether a point-to-point op of ``t`` on ``group`` goes through host
+    memory (a CUDA tensor on a gloo group)."""
+    return t.is_cuda and _dist().get_backend(group) == "gloo"
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t)
+
+
+def exchange(out: torch.Tensor, x: torch.Tensor, dst: int, src: int,
+             group) -> torch.Tensor:
+    """Send ``x`` to global rank ``dst`` and receive ``out`` (its shape and
+    dtype) from ``src`` in one batch: a ring hop (every rank sends and
+    receives at once, which two blocking calls would deadlock). Returns
+    ``out``."""
+    dist = _dist()
+    stage = _staged(x, group)
+    sbuf = _host(x) if stage else x.contiguous()
+    rbuf = (torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            if stage else out)
+    ops = [dist.P2POp(dist.isend, sbuf, dst, group),
+           dist.P2POp(dist.irecv, rbuf, src, group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if stage:
+        out.copy_(rbuf)
+    return out
+
+
+def send(x: torch.Tensor, dst: int, group) -> None:
+    """Blocking send of ``x`` to global rank ``dst`` (a stage hand-off)."""
+    _dist().send(_host(x) if _staged(x, group) else x.contiguous(), dst,
+                 group=group)
+
+
+def recv(out: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Blocking receive into ``out`` from global rank ``src``."""
+    if _staged(out, group):
+        buf = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        _dist().recv(buf, src, group=group)
+        out.copy_(buf)
+    else:
+        _dist().recv(out, src, group=group)
+    return out
+
+
+def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``x`` of global rank ``src`` on every rank of ``group`` (in place)."""
+    _dist().broadcast(x, src, group=group)
+    return x

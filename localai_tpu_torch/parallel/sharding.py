@@ -16,8 +16,13 @@ named ``model``":
   paged pool [L, N, Hkv, bt, hd] → (None, None, 'model', None, None)
 
 An axis that does not divide a dimension replicates it, with the JAX
-package's warning (:func:`_sanitize`). :func:`shard_params` slices a
-loaded tree; :func:`make_shard_fn` and :func:`layer_shard_fn` are the
+package's warning (:func:`_sanitize`). Under ``pipe`` the specs are
+``parallel.pipeline.pp_param_specs`` (each layer stack's L axis on
+``pipe``, the rest replicated): a stage keeps its contiguous block of
+layers, and the loaders and the seeded draw read only that block
+(``pipeline.stage_layers``). Under ``seq`` every rank keeps the whole
+tree (``seq`` shards activations, not weights). :func:`shard_params`
+slices a loaded tree; :func:`make_shard_fn` and :func:`layer_shard_fn` are the
 load-time forms (each tensor is sliced as it is read or drawn, so the
 full checkpoint never lands on one card). Quantized weights keep the
 scales of their output channels (:func:`expand_quantized_spec`).
@@ -118,7 +123,8 @@ def _kv_heads_sharded(cfg: Any, tp: int) -> bool:
 
 
 def kv_spec(cfg: Any, mesh: Any) -> Spec:
-    """Contiguous cache [L, S, Hkv, C, hd]: slots on 'data', kv heads on
+    """Contiguous cache [L, S, Hkv, C, hd]: layers on 'pipe' (a stage's
+    cache holds its block of layers), slots on 'data', kv heads on
     'model' (replicated when tp does not divide them)."""
     tp = _tp(mesh)
     heads = "model" if _kv_heads_sharded(cfg, tp) else None
@@ -205,12 +211,13 @@ def _dim_slice(t: torch.Tensor, dim: int, rank: int, tp: int):
 
 
 def slice_tensor(spec: Spec, t: torch.Tensor, mesh: Any) -> torch.Tensor:
-    """Slice ``rank`` of every dim ``spec`` puts on 'model' (a view)."""
-    tp = _tp(mesh)
+    """This rank's slice of every dim ``spec`` puts on 'model' or 'pipe'
+    (a view)."""
     for d, axis in enumerate(spec):
-        if axis == "model" and tp > 1:
-            t = _dim_slice(t, d, mesh.rank, tp)
-        elif axis not in (None, "model") and mesh.shape.get(axis, 1) > 1:
+        if axis in ("model", "pipe") and mesh.shape[axis] > 1:
+            t = _dim_slice(t, d, mesh.axis_rank(axis), mesh.shape[axis])
+        elif axis not in (None, "model", "pipe") \
+                and mesh.shape.get(axis, 1) > 1:
             raise ValueError(f"axis {axis!r} is not sliced by the port")
     return t
 
@@ -221,7 +228,7 @@ def _kv_head_columns(cfg: Any, t: torch.Tensor, mesh: Any,
     rank's q heads read (``dim`` holds Hkv * hd columns)."""
     hq, _ = local_heads(cfg, _tp(mesh))
     g = cfg.num_heads // cfg.num_kv_heads
-    head = (mesh.rank * hq) // g
+    head = (mesh.axis_rank("model") * hq) // g
     return t.narrow(dim, head * cfg.hd, cfg.hd)
 
 
@@ -270,9 +277,19 @@ def _leaves(tree: dict, specs: dict, prefix=()):
             yield prefix + (k,), v, specs[k]
 
 
+def _specs(cfg: Any, mesh: Any) -> dict:
+    """The spec tree of ``mesh``'s layout: the pipeline's under ``pipe``,
+    else the tensor-parallel one."""
+    if mesh.shape.get("pipe", 1) > 1:
+        from localai_tpu_torch.parallel.pipeline import pp_param_specs
+
+        return pp_param_specs(cfg, mesh)
+    return param_specs(cfg, mesh)
+
+
 def shard_params(params: dict, cfg: Any, mesh: Any) -> dict:
     """One rank's slices of an already loaded parameter tree."""
-    specs = param_specs(cfg, mesh)
+    specs = _specs(cfg, mesh)
     out: dict = {}
     for path, leaf, spec in _leaves(params, specs):
         node = out
@@ -286,7 +303,7 @@ def make_shard_fn(cfg: Any, mesh: Any, dtype: Optional[torch.dtype] = None):
     """``fn(path, tensor)`` → this rank's slice of the full leaf at
     ``path`` (keys into the parameter tree), in ``dtype`` when given, in
     its own storage: the load-time form of :func:`shard_params`."""
-    specs = param_specs(cfg, mesh)
+    specs = _specs(cfg, mesh)
 
     def fn(path: tuple, x: Any) -> Any:
         node: Any = specs
@@ -300,11 +317,20 @@ def make_shard_fn(cfg: Any, mesh: Any, dtype: Optional[torch.dtype] = None):
     return fn
 
 
+def cuts(mesh: Any) -> bool:
+    """Whether a rank of ``mesh`` keeps less than the whole tree: a
+    ``model`` slice or a ``pipe`` stage (``seq`` ranks keep it all)."""
+    return mesh is not None and (mesh.tp > 1
+                                 or mesh.shape.get("pipe", 1) > 1)
+
+
 def layer_shard_fn(cfg: Any, mesh: Any):
-    """``fn(name, tensor)`` → this rank's slice of ONE layer of the
+    """``fn(name, tensor)`` → what this rank keeps of one layer of the
     stacked layer weight ``name`` (its spec without the leading L axis):
-    loaders and the seeded draw slice each layer as it comes."""
-    specs = param_specs(cfg, mesh)["layers"]
+    loaders and the seeded draw cut each layer as it comes (a pipeline
+    stage's layer is kept whole; which layers a stage reads at all is
+    ``pipeline.stage_layers``)."""
+    specs = _specs(cfg, mesh)["layers"]
 
     def fn(name: str, x: Any) -> Any:
         return slice_leaf(name, specs[name][1:], x, cfg, mesh)
@@ -313,8 +339,12 @@ def layer_shard_fn(cfg: Any, mesh: Any):
 
 
 def is_local(params: dict, cfg: Any, mesh: Any) -> bool:
-    """Whether ``params`` already hold one rank's slices (the q projection
-    has the rank's columns)."""
-    hq, _ = local_heads(cfg, _tp(mesh))
+    """Whether ``params`` already hold one rank's slices (a stage's block
+    of layers; the q projection with the rank's columns)."""
     wq = params["layers"]["wq"]
+    if mesh.shape.get("pipe", 1) > 1:
+        from localai_tpu_torch.parallel.pipeline import stage_layers
+
+        return wq.shape[0] == len(stage_layers(cfg, mesh))
+    hq, _ = local_heads(cfg, _tp(mesh))
     return wq.shape[-1] == hq * cfg.hd

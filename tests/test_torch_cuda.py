@@ -2130,3 +2130,71 @@ def test_cuda_tensor_parallel_group(tmp_path, monkeypatch, cards, width):
         assert r["models"]["s"]["digest"] == digest
         assert r["models"]["s"]["decode_steps"] == steps
         assert r["launches"]["paged_decode_attention"] == 4 * steps
+
+
+def _seq_pipe_models(tmp_path):
+    import json
+
+    models = tmp_path / "sp-models"
+    models.mkdir()
+    (models / "s.yaml").write_text(json.dumps({
+        "name": "s", "model": "debug:small", "seed": 3,
+        "context_size": 512, "engine": {
+            "dtype": "float32", "kv_dtype": "float32", "max_slots": 4,
+            "kv_block_tokens": 16, "sp_prefill_threshold": 8}}))
+    return models
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards,axis", [(1, "seq"), (1, "pipe"),
+                                        (2, "seq"), (2, "pipe")],
+                         ids=["one-card-gloo-seq", "one-card-gloo-pipe",
+                              "two-cards-nccl-seq", "two-cards-nccl-pipe"])
+def test_cuda_seq_and_pipe_group(tmp_path, cards, axis):
+    """``seq=2`` and ``pipe=2`` through the real follower path: on a host
+    with one card both ranks share it (gloo on CUDA tensors, the ring
+    hops and stage hand-offs through pinned host memory), on a host with
+    two cards each has its own (NCCL). The greedy streams equal one
+    card's; at ``seq=2`` every prompt (past a threshold of 8) takes the
+    ring prefill into the paged pool and K1 runs L x steps on each rank;
+    at ``pipe=2`` each stage holds 2 of debug:small's 4 layers on the
+    contiguous layout and runs K2 2 x steps and K3 2 x prefills; each
+    follower's report has the leader's digest."""
+    _card()
+    n = torch.cuda.device_count()
+    if (n == 1) != (cards == 1) or n < cards:
+        pytest.skip(f"for a host with {cards} card(s); this one has {n}")
+    from localai_tpu_torch.parallel import multihost as mh
+
+    models = _seq_pipe_models(tmp_path)
+    one, _sm, mgr = _tp_streams(models, {"model": 1})
+    mgr.shutdown()
+    before = len(mh.REPORTS)
+    streams, sm, mgr = _tp_streams(models, {axis: 2})
+    try:
+        runner = sm.runner
+        assert runner.mesh.backend == ("gloo" if cards == 1 else "nccl")
+        if axis == "seq":
+            assert runner.paged and runner.sp_prefills == 3
+            assert runner.last_prefill_path == "paged_sp"
+        else:
+            assert not runner.paged and runner.local_cfg.num_layers == 2
+            for k in ("handoff_sent", "handoff_waited"):
+                t = runner.transfers[k]
+                assert t.calls > 0 and t.seconds > 0
+        digest, steps = runner.digest.hexdigest(), runner.decode_steps
+        prefills = runner.fresh_prefills
+    finally:
+        mgr.shutdown()
+    assert streams == one
+    rep = mh.REPORTS[before:]
+    assert len(rep) == 1
+    rm, fl = rep[0]["models"]["s"], rep[0]["launches"]
+    assert (rm["digest"], rm["decode_steps"]) == (digest, steps)
+    if axis == "seq":
+        assert rm["sp_prefills"] == 3
+        assert fl["paged_decode_attention"] == 4 * steps
+        assert fl["prefill_attention"] == 0
+    else:
+        assert fl["decode_attention"] == 2 * steps
+        assert fl["prefill_attention"] == 2 * prefills

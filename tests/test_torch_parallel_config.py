@@ -11,9 +11,14 @@ on the CPU (no group is joined here).
   package's specs, written as tuples, at ``model=2``, ``4`` and ``8``
   (the replicate fallback on debug:small's 4 kv heads at ``model=8``),
   on plain, biased, tied and MoE configs and on quantized leaves.
-* The axes of ROADMAP item 19 part 2 (``data``, ``seq``, ``pipe``,
-  ``expert``) are refused by name on the CLI, on ``LOCALAI_MESH`` and on
-  ``sharding:``; the host KV tier and fleets of a meshed model too.
+* The axes still in ROADMAP item 19 part 2 (``data``, ``expert``) are
+  refused by name on the CLI, on ``LOCALAI_MESH`` and on ``sharding:``;
+  the host KV tier and fleets of a meshed model too.
+* ``--mesh seq=2``, ``pipe=2`` and ``seq=2,model=2``, ``LOCALAI_MESH``
+  and ``sharding:`` build the JAX package's plans; ``pipe`` with another
+  axis raises the JAX package's error; ``pp_param_specs`` and ``kv_spec``
+  on a ``pipe`` mesh are the JAX package's; a YAML's
+  ``engine.sp_prefill_threshold`` reaches the runner (ROADMAP §C 21).
 """
 
 import dataclasses
@@ -266,7 +271,7 @@ def test_every_mesh_reduces_with_one_all_reduce(backend, dev, requested):
 # refusals of ROADMAP item 19 part 2
 
 
-@pytest.mark.parametrize("mesh", ["data=2", "seq=2,model=2", "pipe=2",
+@pytest.mark.parametrize("mesh", ["data=2", "data=2,seq=2", "expert=2,pipe=2",
                                   "expert=2", "data=2,model=2"])
 def test_run_mesh_of_part_2_axes_exits_2(tmp_path, capsys, mesh):
     with pytest.raises(SystemExit) as e:
@@ -289,8 +294,10 @@ def test_localai_mesh_of_part_2_axes_exits_2(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("sharding", [
-    {"data_parallel_size": 2}, {"sequence_parallel_size": 2},
-    {"pipeline_parallel_size": 2}, {"expert_parallel_size": 2},
+    {"data_parallel_size": 2},
+    {"sequence_parallel_size": 2, "data_parallel_size": 2},
+    {"sequence_parallel_size": 2, "expert_parallel_size": 2},
+    {"expert_parallel_size": 2},
     {"tensor_parallel_size": 2, "data_parallel_size": 2},
 ])
 def test_sharding_of_part_2_axes_is_refused_at_load(sharding):
@@ -414,3 +421,181 @@ def test_quantized_spec_as_the_jax_package(spec, axis, grouped):
 
     assert tq.quantized_spec(spec, axis, grouped) == tuple(
         jq.quantized_spec(P(*spec), axis, grouped))
+
+
+# ---------------------------------------------------------------------------
+# the seq and pipe axes (ROADMAP item 19 part 2, steps 2 and 3)
+
+
+def _jax_plan(doc: dict, mesh_shape=None):
+    """The mesh plan the JAX package's ``build_runner`` builds for a
+    config (its sharding branch, without loading the model), or its
+    error; ``data`` left out (the port builds the asked axes alone)."""
+    if mesh_shape:
+        return jmesh.MeshPlan(**mesh_shape)
+    sh = JaxModelConfig(**doc).sharding
+    tp, sp = sh.tensor_parallel_size, sh.sequence_parallel_size
+    pp = sh.pipeline_parallel_size
+    if pp > 1:
+        if tp > 1 or sp > 1 or sh.expert_parallel_size > 1 \
+                or sh.data_parallel_size not in (0, 1):
+            raise ValueError("pipeline_parallel_size composes with no "
+                             "other sharding axis yet")
+        return jmesh.MeshPlan(pipe=pp)
+    return jmesh.MeshPlan(seq=sp, model=tp)
+
+
+@pytest.mark.parametrize("doc,mesh_shape", [
+    ({}, {"seq": 2}),
+    ({}, {"pipe": 2}),
+    ({}, {"seq": 2, "model": 2}),
+    ({"sharding": {"sequence_parallel_size": 2}}, None),
+    ({"sharding": {"pipeline_parallel_size": 2}}, None),
+    ({"sharding": {"sequence_parallel_size": 2,
+                   "tensor_parallel_size": 2}}, None),
+    ({"sharding": {"sequence_parallel_size": 4}}, None),
+], ids=["mesh-seq", "mesh-pipe", "mesh-seq-model", "sharding-seq",
+        "sharding-pipe", "sharding-seq-model", "sharding-seq4"])
+def test_seq_and_pipe_plans_as_the_jax_package(doc, mesh_shape):
+    mcfg = ModelConfig.from_dict({"name": "m", "model": "debug:small",
+                                  **doc})
+    app = tapp.AppConfig(device="cpu", mesh_shape=mesh_shape)
+    got = mesh_plan(mcfg, app, tl.LlamaConfig())
+    assert got.shape == _jax_plan({"model": "debug:small", **doc},
+                                  mesh_shape).shape
+
+
+@pytest.mark.parametrize("env,want", [("seq:2", {"seq": 2}),
+                                      ("pipe=2", {"pipe": 2}),
+                                      ("seq=2,model=2",
+                                       {"seq": 2, "model": 2})])
+def test_localai_mesh_seq_and_pipe_build_the_plan(monkeypatch, env, want):
+    monkeypatch.setenv("LOCALAI_MESH", env)
+    app = tapp.AppConfig.from_env()
+    assert app.mesh_shape == japp.AppConfig.from_env().mesh_shape == want
+    app.device = "cpu"
+    plan = mesh_plan(ModelConfig.from_dict({"model": "debug:small"}), app,
+                     tl.LlamaConfig())
+    assert plan == tmesh.MeshPlan(**want)
+
+
+@pytest.mark.parametrize("shard", [
+    {"pipeline_parallel_size": 2, "tensor_parallel_size": 2},
+    {"pipeline_parallel_size": 2, "sequence_parallel_size": 2},
+    {"pipeline_parallel_size": 2, "data_parallel_size": 2},
+])
+def test_pipe_with_another_sharding_raises_the_jax_error(shard):
+    from localai_tpu.models import manager as jmgr
+
+    mcfg = ModelConfig.from_dict({"name": "m", "model": "debug:small",
+                                  "sharding": shard})
+    with pytest.raises(ValueError, match="composes with no other"):
+        mesh_plan(mcfg, tapp.AppConfig(device="cpu"), tl.LlamaConfig())
+    with pytest.raises(ValueError, match="composes with no other"):
+        jmgr.build_runner(JaxModelConfig(name="m", model="debug:small",
+                                         sharding=shard),
+                          japp.AppConfig())
+
+
+@pytest.mark.parametrize("mesh", ["pipe=2,model=2", "seq=2,pipe=2"])
+def test_run_mesh_pipe_with_another_axis_exits_2(tmp_path, capsys, mesh):
+    with pytest.raises(SystemExit) as e:
+        cli.build_server(["run", "--mesh", mesh, "--device", "cpu",
+                          "--address", "127.0.0.1", "--port", "0",
+                          "--models-path", str(tmp_path)])
+    assert e.value.code == 2
+    assert "composes with no other axis" in capsys.readouterr().err
+
+
+def test_refuse_part2_names_only_data_and_expert():
+    for plan in (tmesh.MeshPlan(seq=2), tmesh.MeshPlan(pipe=4),
+                 tmesh.MeshPlan(seq=2, model=2), tmesh.MeshPlan(model=8)):
+        tmesh.refuse_part2(plan, "here")
+    for plan in (tmesh.MeshPlan(data=2), tmesh.MeshPlan(expert=2, seq=2)):
+        with pytest.raises(ValueError, match="ROADMAP item 19 part 2"):
+            tmesh.refuse_part2(plan, "here")
+
+
+@pytest.mark.parametrize("plan", [dict(seq=2, model=2), dict(seq=4),
+                                  dict(pipe=2), dict(seq=2, model=4)])
+def test_axis_layout_is_the_jax_meshes(plan):
+    """Ranks lie in ``AXES`` order with ``model`` fastest, as a JAX mesh
+    lays its devices out: a rank's index on each axis and its groups are
+    the JAX mesh's device coordinates."""
+    jm = jmesh.build_mesh(jmesh.MeshPlan(**plan),
+                          devices=jax.devices()[:tmesh.MeshPlan(
+                              **plan).size()])
+    tp = tmesh.MeshPlan(**plan)
+    ids = np.vectorize(lambda d: d.id)(jm.devices)
+    for r in range(tp.size()):
+        coords = tmesh.axis_coords(tp, r)
+        assert ids[tuple(coords[a] for a in tmesh.AXES)] == \
+            jax.devices()[r].id
+        for ax in tmesh.AXES:
+            idx = [coords[a] for a in tmesh.AXES]
+            idx[tmesh.AXES.index(ax)] = slice(None)
+            assert tmesh.axis_ranks(tp, r, ax) == [
+                [d.id for d in jax.devices()].index(i)
+                for i in ids[tuple(idx)].tolist()]
+
+
+def test_pp_param_specs_and_kv_spec_as_the_jax_package():
+    from localai_tpu.parallel import pipeline as jpp
+    from localai_tpu_torch.parallel import pipeline as tpp
+
+    for name in ("small", "tiny"):
+        cfg_j = J_PRESETS[name]
+        jm = jmesh.build_mesh(jmesh.MeshPlan(pipe=2),
+                              devices=jax.devices()[:2])
+        tm = tmesh.Mesh.abstract(tmesh.MeshPlan(pipe=2), 1)
+        want = jax.tree.map(tuple, jpp.pp_param_specs(cfg_j, jm),
+                            is_leaf=lambda x: isinstance(
+                                x, jax.sharding.PartitionSpec))
+        assert tpp.pp_param_specs(_port_cfg(cfg_j), tm) == want
+        assert tshd.kv_spec(_port_cfg(cfg_j), tm) == tuple(
+            jshd.kv_spec(cfg_j, jm))
+    bad = dataclasses.replace(_port_cfg(J_PRESETS["small"]), num_layers=3)
+    with pytest.raises(ValueError, match="not divisible by pipe=2"):
+        tpp.pp_param_specs(bad, tmesh.Mesh.abstract(tmesh.MeshPlan(pipe=2)))
+
+
+def test_sp_prefill_threshold_is_kept_and_reaches_the_runner(tmp_path):
+    """ROADMAP §C 21: ``engine.sp_prefill_threshold`` was dropped (the
+    port's EngineConfig had no such field, so the default 1024 served a
+    YAML that set 32)."""
+    from localai_tpu_torch.models.manager import build_runner
+
+    doc = {"name": "m", "model": "debug:tiny",
+           "engine": {"sp_prefill_threshold": 32, "dtype": "float32",
+                      "max_slots": 2}}
+    mcfg = ModelConfig.from_dict(doc)
+    assert mcfg.engine.sp_prefill_threshold == 32 == JaxModelConfig(
+        **doc).engine.sp_prefill_threshold
+    assert ModelConfig.from_dict({"model": "debug:tiny"}).engine \
+        .sp_prefill_threshold == 1024 == JaxModelConfig(
+            model="debug:tiny").engine.sp_prefill_threshold
+    _model, runner = build_runner(mcfg, tapp.AppConfig(
+        device="cpu", model_path=str(tmp_path)))
+    assert runner.sp_threshold == 32
+
+
+@pytest.mark.parametrize("have,ask", [
+    (dict(model=2), dict(seq=2)), (dict(seq=2), dict(pipe=2)),
+    (dict(pipe=2), dict(model=2)), (dict(model=2), dict(model=4))])
+def test_a_process_group_is_keyed_by_its_mesh_plan(monkeypatch, have, ask):
+    """A process serves one group: a model that asks for another plan,
+    even of the same width, is refused naming both (a ``seq=2`` group is
+    not a ``model=2`` one)."""
+    from localai_tpu_torch.parallel import multihost as tmh
+
+    plan = tmesh.MeshPlan(**have)
+    group = tmh.Group(plan, plan.size(), leader=None, followers=[],
+                      spawned=False)
+    monkeypatch.setattr(tmh, "_group", group)
+    with pytest.raises(ValueError) as e:
+        tmh.ensure_group(tapp.AppConfig(device="cpu"),
+                         tmesh.MeshPlan(**ask), "b")
+    assert tmesh.spec_of(plan) in str(e.value)
+    assert tmesh.spec_of(tmesh.MeshPlan(**ask)) in str(e.value)
+    assert tmh.ensure_group(tapp.AppConfig(device="cpu"), plan,
+                            "a") is group

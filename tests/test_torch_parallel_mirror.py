@@ -30,6 +30,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -260,7 +261,8 @@ DEBUG_PRESETS = importlib.import_module(PKG + ".models.registry").DEBUG_PRESETS
 tl = importlib.import_module(PKG + ".models.llama")
 ModelRunner = importlib.import_module(PKG + ".engine.runner").ModelRunner
 rank = int(os.environ["RANK"])
-pm.initialize(os.environ["STORE"], 2, rank, "cpu")
+pm.initialize(os.environ["STORE"], 2, rank, "cpu",
+              on_bound=lambda port: print(f"PORT {port}", flush=True))
 mesh = pm.build_mesh(pm.MeshPlan(model=2), "cpu")
 out = {}
 same, red = True, ovl.make_reduce(mesh)
@@ -298,17 +300,38 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def start_ranks(script: str, n: int, env: dict) -> tuple[list, list]:
+    """Start ``script`` as ``n`` ranks of one group: rank 0 first, with
+    ``STORE`` at port 0 (its store binds a free port itself and prints
+    ``PORT <n>``), then the others at that port. Returns the processes
+    and the output rank 0 printed until then."""
+    first = subprocess.Popen(
+        [sys.executable, "-c", script],
+        env={**env, "RANK": "0", "STORE": "127.0.0.1:0"}, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    head = []
+    for line in first.stdout:
+        head.append(line)
+        if line.startswith("PORT "):
+            break
+    else:
+        first.wait(30)
+        raise AssertionError("rank 0 bound no store: " + "".join(head))
+    store = f"127.0.0.1:{int(head[-1].split()[1])}"
+    procs = [first] + [subprocess.Popen(
+        [sys.executable, "-c", script],
+        env={**env, "RANK": str(r), "STORE": store}, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(1, n)]
+    return procs, head
+
+
 @pytest.fixture(scope="module")
 def two_rank_group():
-    store = f"127.0.0.1:{_free_port()}"
-    env = {**os.environ, "PYTHONPATH": str(REPO), "STORE": store,
+    env = {**os.environ, "PYTHONPATH": str(REPO),
            "PKG": tmh.__name__.split(".")[0],
            "OMP_NUM_THREADS": "1", "LOCALAI_MESH_TIMEOUT_S": "120"}
-    procs = [subprocess.Popen([sys.executable, "-c", GROUP_SCRIPT],
-                              env={**env, "RANK": str(r)}, cwd=REPO,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
+    procs, head = start_ranks(GROUP_SCRIPT, 2, env)
     outs = []
     try:
         for p in procs:
@@ -317,6 +340,7 @@ def two_rank_group():
         for p in procs:
             if p.poll() is None:
                 p.kill()
+    outs[0] = "".join(head) + outs[0]
     assert all(p.returncode == 0 for p in procs), outs
     line = next(ln for ln in outs[0].splitlines()
                 if ln.startswith("RESULT "))
@@ -376,18 +400,15 @@ def test_multi_host_form_serves_with_a_follower_started_by_hand(
 
     from localai_tpu_torch.parallel import multihost as mh
 
+    from localai_tpu_torch.parallel import mesh as tmesh
+
     models = _models_dir(tmp_path)
-    store, mirror = f"127.0.0.1:{_free_port()}", _free_port()
+    mirror = _free_port()
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1",
            "LOCALAI_MESH_TIMEOUT_S": "120"}
-    follower = subprocess.Popen(
-        [sys.executable, "-m", cli.__name__, "follower", "--leader",
-         f"127.0.0.1:{mirror}", "--model", "m", "--models-path",
-         str(models), "--coordinator", store, "--num-processes", "2",
-         "--process-id", "1", "--peer-token", "tok", "--device", "cpu"],
-        cwd=REPO, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-    for k, v in {"LOCALAI_COORDINATOR_ADDRESS": store,
+    # the leader's store binds a free port itself (coordinator port 0);
+    # the follower is started at the port it bound
+    for k, v in {"LOCALAI_COORDINATOR_ADDRESS": "127.0.0.1:0",
                  "LOCALAI_NUM_PROCESSES": "2", "LOCALAI_PROCESS_ID": "0",
                  "LOCALAI_MIRROR_PORT": str(mirror),
                  "LOCALAI_MIRROR_FOLLOWERS": "1", "LOCALAI_PEER_TOKEN": "tok",
@@ -395,10 +416,35 @@ def test_multi_host_form_serves_with_a_follower_started_by_hand(
         monkeypatch.setenv(k, v)
     body = json.dumps({"model": "m", "prompt": "multi host",
                        "max_tokens": 12, "temperature": 0}).encode()
+    built: list = []
+
+    def build():
+        try:
+            built.append(cli.build_server([
+                "run", "--device", "cpu", "--address", "127.0.0.1",
+                "--port", "0", "--models-path", str(models)]))
+        except BaseException as e:  # noqa: BLE001 — raised below
+            built.append(e)
+
+    booting = threading.Thread(target=build, daemon=True)
+    booting.start()
+    deadline = time.monotonic() + 60
+    while not tmesh.bound_port() and booting.is_alive():
+        assert time.monotonic() < deadline, "the leader bound no store"
+        time.sleep(0.05)
+    follower = subprocess.Popen(
+        [sys.executable, "-m", cli.__name__, "follower", "--leader",
+         f"127.0.0.1:{mirror}", "--model", "m", "--models-path",
+         str(models), "--coordinator",
+         f"127.0.0.1:{tmesh.bound_port()}", "--num-processes", "2",
+         "--process-id", "1", "--peer-token", "tok", "--device", "cpu"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
     try:
-        server = cli.build_server([
-            "run", "--device", "cpu", "--address", "127.0.0.1", "--port",
-            "0", "--models-path", str(models)]).start()
+        booting.join(180)
+        if isinstance(built[0], BaseException):
+            raise built[0]
+        server = built[0].start()
         try:
             req = urllib.request.Request(
                 server.url + "/v1/completions", data=body,
